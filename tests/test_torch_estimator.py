@@ -1,0 +1,168 @@
+"""The port's PoseEstimator end to end against the JAX PoseEstimator on the
+CPU, on the same weights and inputs (128x80, a 2-stage deploy net).
+
+Weights are drawn with numpy at fan-in scale into the JAX net and handed to
+the port through ``params_from_jax``: at that scale activations are O(1),
+so f32 summation-order differences stay far below the tolerances (the JAX
+nets' own 0.01-std fillers shrink activations to ~1e-13, where the centroid
+refinement loses relative precision on both sides).
+
+Tolerances after ``unpack``: peak counts exact; refined x/y/score within
+1e-4 abs (NaN where the reference divides 0/0, on both sides); pair counts
+exact; pair scores within one f16 ulp (both are rounded to f16 from f32
+sums taken in different orders) plus 1e-5 absolute, the f32 error of a
+10-sample sum of O(1) dots, which is what remains where that sum cancels to
+near zero (seen: 4e-6 on a score of -2e-3); assembled ``num_people`` exact.
+"""
+
+import dataclasses
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from caffe_rtpose_tpu.core.net import Net as JNet
+from caffe_rtpose_tpu.models.cpm import make_pose_deploy_net as j_make_net
+from caffe_rtpose_tpu.pose.estimator import PoseEstimator as JEstimator
+from caffe_rtpose_tpu_torch.core.net import params_from_jax
+from caffe_rtpose_tpu_torch.models.cpm import make_pose_deploy_net
+from caffe_rtpose_tpu_torch.pose.estimator import PoseEstimator
+
+GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "pose_seed7_128x80.json")
+RES = (128, 80)
+THR = dict(nms_threshold=-1.0, inter_threshold=-10.0)
+
+
+@pytest.fixture(autouse=True)
+def _torch_native_cpu_conv():
+    """oneDNN's f32 convolutions sum in another order than XLA's, and the
+    difference grows through the CNN to ~3e-6 relative at the low-res maps
+    (>1e-4 px in a few refined coordinates); torch's own CPU convolution
+    stays closer to XLA's (see test_torch_net.py's golden)."""
+    prev = torch.backends.mkldnn.enabled
+    torch.backends.mkldnn.enabled = False
+    try:
+        yield
+    finally:
+        torch.backends.mkldnn.enabled = prev
+
+
+def _fan_in_weights(jest, seed):
+    rs = np.random.RandomState(seed)
+    for name in sorted(jest.net.params):
+        w, b = (np.asarray(p) for p in jest.net.params[name])
+        kh, kw, cin, _ = w.shape
+        jest.net.params[name] = [
+            jnp.asarray(rs.randn(*w.shape).astype(np.float32) * np.sqrt(2.0 / (kh * kw * cin))),
+            jnp.asarray(rs.randn(*b.shape).astype(np.float32) * 0.05)]
+    return params_from_jax(jest.net.params)
+
+
+def _relaxed(est):
+    return dataclasses.replace(est.params_connect, min_subset_score=-10.0, min_subset_cnt=0,
+                               inter_threshold=THR["inter_threshold"])
+
+
+def _assert_outputs_match(got, ref, cap=None):
+    (pt, st, ct), (pj, sj, cj) = got, ref
+    m = pt.shape[1] - 1
+    if cap is not None:  # the capped pass: first `cap` rows, raw counts in slot 0
+        pj, sj, cj = pj[:, : cap + 1], sj[:, :cap, :cap], cj[:, :cap, :cap]
+    np.testing.assert_array_equal(pt[:, 0, 0], pj[:, 0, 0])
+    np.testing.assert_allclose(pt, pj, rtol=0, atol=1e-4)  # NaNs compare equal
+    np.testing.assert_array_equal(ct, cj)
+    ulp = np.spacing(np.maximum(np.abs(st), np.abs(sj)).astype(np.float16)).astype(np.float32)
+    assert (np.abs(st - sj) <= ulp + 1e-5).all(), "pair scores differ by more than one f16 ulp"
+    assert st.shape == (ct.shape[0], m, m)
+
+
+@pytest.fixture(scope="module")
+def coco():
+    jest = JEstimator(j_make_net("COCO", stages=2), net_resolution=RES, input_u8=True)
+    weights = _fan_in_weights(jest, 0)
+    rs = np.random.RandomState(1)
+    x = (rs.rand(1, RES[1], RES[0], 3) * 255).astype(np.uint8)
+    x[:, :, :8] = 0  # a dark band, as letterboxing gives
+    ref = jest.fetch(jest.run_device(x, **THR))
+    res = jest.estimate_from_net_input(x, nms_threshold=THR["nms_threshold"],
+                                       params_connect=_relaxed(jest))
+    return weights, x, ref, res.num_people
+
+
+@pytest.mark.parametrize("pair_cap", [None, 32, 8])
+def test_coco_u8_matches_jax(coco, pair_cap):
+    weights, x, ref, people = coco
+    est = PoseEstimator(make_pose_deploy_net("COCO", stages=2), weights=weights,
+                        net_resolution=RES, input_u8=True, pair_cap=pair_cap, device="cpu")
+    assert est.input_shape() == x.shape[:0] + (1, RES[1], RES[0], 3)
+    got = est.fetch(est.run_device(x, **THR))
+    cap = pair_cap if pair_cap and pair_cap < est.max_peaks else None
+    _assert_outputs_match(got, ref, cap)
+    counts = ref[0][:, 0, 0]
+    assert counts.sum() > 0 and counts.max() > 8
+    assert est.overflowed(got[0]) == (cap is not None and counts.max() > cap)
+    res = est.estimate_from_net_input(x, nms_threshold=THR["nms_threshold"],
+                                      params_connect=_relaxed(est))
+    assert res.num_people == people > 0
+    if pair_cap == 8:  # the uncapped refetch reproduces the uncapped pass
+        _assert_outputs_match(est.refetch_full(x, **THR), ref)
+
+
+def test_mpi_three_scales_f32_matches_jax():
+    start, gap = 0.9, 0.1
+    jest = JEstimator(j_make_net("MPI", stages=2), net_resolution=RES, num_scales=3,
+                      start_scale=start, scale_gap=gap)
+    weights = _fan_in_weights(jest, 2)
+    est = PoseEstimator(make_pose_deploy_net("MPI", stages=2), weights=weights,
+                        net_resolution=RES, num_scales=3, start_scale=start,
+                        scale_gap=gap, device="cpu")
+    assert est.num_parts == 15 and est.descriptor.name == "MPI_15"
+    rs = np.random.RandomState(3)
+    x = rs.rand(3, 3, RES[1], RES[0]).astype(np.float32) - 0.5
+    ref = jest.fetch(jest.run_device(x, **THR))
+    got = est.fetch(est.run_device(x, **THR))
+    _assert_outputs_match(got, ref)
+    assert ref[0][:, 0, 0].sum() > 0
+    pc_j, pc_t = _relaxed(jest), _relaxed(est)
+    r_j = jest.estimate_from_net_input(x, nms_threshold=-1.0, params_connect=pc_j)
+    r_t = est.estimate_from_net_input(x, nms_threshold=-1.0, params_connect=pc_t)
+    assert r_t.num_people == r_j.num_people > 0
+
+
+def test_pose_golden_seed7():
+    """tests/golden/pose_seed7_128x80.json (made with the reference deploy
+    prototxt) with the JAX net's seed-7 weights from make_pose_deploy_net,
+    whose fillers reproduce it."""
+    with open(GOLDEN) as f:
+        golden = json.load(f)
+    jnet = JNet(j_make_net(), phase="TEST", input_shapes={"image": (1, 3, RES[1], RES[0])}, seed=7)
+    est = PoseEstimator(make_pose_deploy_net(), weights=params_from_jax(jnet.params),
+                        net_resolution=RES, input_u8=True, device="cpu")
+    rs = np.random.RandomState(11)
+    x = (rs.rand(1, RES[1], RES[0], 3) * 255).astype(np.uint8)
+    peaks, ps, cnt = est.fetch(est.run_device(x, **THR))
+    pc = dataclasses.replace(est.params_connect, min_subset_score=-10.0, min_subset_cnt=0)
+    from caffe_rtpose_tpu_torch.pose import connect as C
+
+    res = C.assemble_fast(peaks, ps, cnt, est.descriptor, pc, scale_xy=(1.0, 1.0))
+    np.testing.assert_array_equal(peaks[:, 0, 0].astype(int), golden["peaks_counts"])
+    np.testing.assert_allclose(peaks[:, 1:4], np.asarray(golden["peaks_head"]), atol=2e-3)
+    assert res.num_people == golden["num_people"]
+    np.testing.assert_allclose(res.joints, np.asarray(golden["joints"]), atol=5e-3)
+
+
+def test_refuses_options_outside_the_slice():
+    proto = make_pose_deploy_net("COCO", stages=1)
+    for kw in (dict(pack_u8=True), dict(device_rescale=True), dict(batch=2),
+               dict(keep_heatmap=True), dict(dtype=torch.bfloat16), dict(warm_overflow=True)):
+        with pytest.raises(NotImplementedError):
+            PoseEstimator(proto, net_resolution=RES, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        PoseEstimator("pose_deploy_linevec.prototxt", net_resolution=RES, device="cpu")
+    est = PoseEstimator(proto, net_resolution=RES, input_u8=True, device="cpu")
+    with pytest.raises(ValueError):
+        est.run_device(np.zeros((1, 3, RES[1], RES[0]), np.float32))
