@@ -2,8 +2,8 @@
 
 * ``load_kernels()``: every ``csrc/*.cu`` compiled by ``nvcc`` for Hopper
   (``sm_90a``) into one shared library with a plain C interface, loaded with
-  ctypes.  Missing ``nvcc`` or a failed build raises with the compiler's
-  output.
+  ctypes; the ``csrc/*.cuh`` headers they include count towards the hash.
+  Missing ``nvcc`` or a failed build raises with the compiler's output.
 * ``build_library()``: the shared compile-and-cache step, also used by
   ``native.py`` for the host assembly library (g++).
 
@@ -38,11 +38,13 @@ build_log: Dict[str, str] = {}  # stem -> compiler output of the last build in t
 
 
 def build_library(stem: str, sources: Sequence[str], compiler: str,
-                  flags: Sequence[str], timeout: float = 600.0) -> str:
+                  flags: Sequence[str], timeout: float = 600.0,
+                  headers: Sequence[str] = ()) -> str:
     """Compile ``sources`` into ``_build/lib<stem>_<hash>.so`` unless that
-    file exists; returns its path."""
+    file exists; returns its path.  The hash covers ``sources``, the
+    ``headers`` they include and ``flags``."""
     h = hashlib.sha256()
-    for src in sources:
+    for src in [*sources, *headers]:
         with open(src, "rb") as f:
             h.update(os.path.basename(src).encode() + b"\0" + f.read())
     h.update("\0".join(flags).encode())
@@ -78,7 +80,9 @@ def load_kernels() -> ctypes.CDLL:
             raise RuntimeError("nvcc not found (CUDA_HOME, PATH, /usr/local/cuda/bin): "
                                "the CUDA kernels cannot be built")
         sources = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
-        lib = ctypes.CDLL(build_library("crt_kernels", sources, nvcc, NVCC_FLAGS))
+        headers = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+        lib = ctypes.CDLL(build_library("crt_kernels", sources, nvcc, NVCC_FLAGS,
+                                        headers=headers))
         _declare(lib)
         _kernels = lib
         return lib
@@ -88,13 +92,20 @@ def _declare(lib: ctypes.CDLL) -> None:
     vp, ll, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
     lib.crt_cuda_error_string.restype = ctypes.c_char_p
     lib.crt_cuda_error_string.argtypes = [i]
-    lib.crt_peak_mask_smem_bytes.restype = ll
-    lib.crt_peak_mask_smem_bytes.argtypes = [i]
+    lib.crt_tile_smem_bytes.restype = ll
+    lib.crt_tile_smem_bytes.argtypes = [i]
     lib.crt_peak_mask.restype = i
     lib.crt_peak_mask.argtypes = [
         vp, ll, ll, ll, ll,  # low + strides (s, y, x, c) in elements
         i, i, i, i, i, i,    # S, h, w, C, th, tw
         vp, vp, vp, vp,      # y tap idx/w, x tap idx/w
         f, f, vp, vp,        # inv_s, thr, mask, stream
+    ]
+    lib.crt_upsample_peak_keys.restype = i
+    lib.crt_upsample_peak_keys.argtypes = [
+        vp, ll, ll, ll, ll,  # low + strides (s, y, x, c) in elements
+        i, i, i, i, i, i, i,  # S, h, w, C, th, tw, key_channels
+        vp, vp, vp, vp,      # y tap idx/w, x tap idx/w
+        f, f, vp, vp, vp,    # inv_s, thr, heat, keys, stream
     ]
 

@@ -9,30 +9,25 @@
 //
 // The bicubic operator is separable and each output row/column has at most
 // four nonzero taps, so instead of the TPU's dense matmuls this kernel reads
-// per-output tap tables (index + weight, taken from the same f32 matrices
-// the plain PyTorch version multiplies by) and accumulates in plain f32 FMA.
+// per-output tap tables and accumulates in plain f32 FMA.
 //
-// Design: one block per (channel, 32x64 output tile).  Per scale, a
-// vertical pass over the tile's rows plus a one-row halo (all source
-// columns) goes to shared memory, then a horizontal pass over the tile's
-// columns plus a one-column halo accumulates U in shared memory.  After the
-// last scale the block applies the strict 8-neighbour test from shared
-// memory and writes the i8 mask.  The full-res U never reaches device
-// memory: what bounds the kernel is its 18x368x656 i8 mask write plus the
-// taps' FMAs (recomputed per tile, a few tens of MFMA per frame), not HBM.
+// Design: one block per (channel, 32x64 output tile).  The block computes
+// U over the tile plus a one-pixel halo in shared memory (bicubic_tile.cuh),
+// applies the strict 8-neighbour test from shared memory and writes the i8
+// mask.  The full-res U never reaches device memory: what bounds the kernel
+// is its 18x368x656 i8 mask write plus the taps' FMAs (recomputed per tile,
+// a few tens of MFMA per frame), not HBM.
 //
 // Plain C interface for ctypes; the launch returns cudaGetLastError().
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "bicubic_tile.cuh"
+
 namespace {
 
-constexpr int kTileY = 32;
-constexpr int kTileX = 64;
-constexpr int kExtY = kTileY + 2;  // one-pixel halo above and below
-constexpr int kExtX = kTileX + 2;
-constexpr int kThreads = 256;
+using namespace crt;
 
 __global__ void __launch_bounds__(kThreads)
 peak_mask_kernel(const float* __restrict__ low,  // (S, h, w, C) strided
@@ -46,69 +41,21 @@ peak_mask_kernel(const float* __restrict__ low,  // (S, h, w, C) strided
                  int8_t* __restrict__ mask) {         // (C, th, tw)
   extern __shared__ float smem[];
   float* vrow = smem;               // (kExtY, w): vertical pass of one scale
-  float* acc = smem + kExtY * w;    // (kExtY, kExtX): U summed over scales
+  float* acc = smem + kExtY * w;    // (kExtY, kExtX): U over the extended tile
 
   const int c = blockIdx.z;
   const int y_org = blockIdx.y * kTileY - 1;  // extended-tile origin
   const int x_org = blockIdx.x * kTileX - 1;
-  const int tid = threadIdx.x;
+  upsample_tile(low, st_s, st_y, st_x, st_c, c, S, w, th, tw, ytap_idx, ytap_w,
+                xtap_idx, xtap_w, inv_s, y_org, x_org, vrow, acc);
 
-  for (int i = tid; i < kExtY * kExtX; i += kThreads) acc[i] = 0.f;
-
-  for (int s = 0; s < S; ++s) {
-    __syncthreads();  // previous scale's horizontal pass is done with vrow
-    const float* plane = low + s * st_s + c * st_c;
-    for (int i = tid; i < kExtY * w; i += kThreads) {
-      const int r = i / w;
-      const int xs = i - r * w;
-      const int y = y_org + r;
-      float v = 0.f;
-      if (y >= 0 && y < th) {
-        const int t = (s * th + y) * 4;
-        const float* col = plane + xs * st_x;
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
-          v = fmaf(ytap_w[t + k], col[ytap_idx[t + k] * st_y], v);
-      }
-      vrow[i] = v;
-    }
-    __syncthreads();
-    for (int i = tid; i < kExtY * kExtX; i += kThreads) {
-      const int r = i / kExtX;
-      const int q = i - r * kExtX;
-      const int x = x_org + q;
-      if (x < 0 || x >= tw) continue;
-      const int t = (s * tw + x) * 4;
-      const float* row = vrow + r * w;
-      float u = 0.f;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) u = fmaf(xtap_w[t + k], row[xtap_idx[t + k]], u);
-      acc[i] += u;  // each thread owns the same entries in every scale
-    }
-  }
-  __syncthreads();
-
-  for (int i = tid; i < kTileY * kTileX; i += kThreads) {
+  for (int i = threadIdx.x; i < kTileY * kTileX; i += kThreads) {
     const int r = i / kTileX + 1;  // extended-tile coords of the pixel
     const int q = i - (r - 1) * kTileX + 1;
     const int y = y_org + r;
     const int x = x_org + q;
     if (y >= th || x >= tw) continue;
-    int8_t m = 0;
-    if (y >= 1 && y <= th - 2 && x >= 1 && x <= tw - 2) {
-      const float* a = acc + r * kExtX + q;
-      const float u = a[0] * inv_s;
-      float n8 = a[-kExtX - 1] * inv_s;
-      n8 = fmaxf(n8, a[-kExtX] * inv_s);
-      n8 = fmaxf(n8, a[-kExtX + 1] * inv_s);
-      n8 = fmaxf(n8, a[-1] * inv_s);
-      n8 = fmaxf(n8, a[1] * inv_s);
-      n8 = fmaxf(n8, a[kExtX - 1] * inv_s);
-      n8 = fmaxf(n8, a[kExtX] * inv_s);
-      n8 = fmaxf(n8, a[kExtX + 1] * inv_s);
-      m = (u > thr && u > n8) ? 1 : 0;
-    }
-    mask[((long long)c * th + y) * tw + x] = m;
+    mask[((long long)c * th + y) * tw + x] = strict_peak(acc, r, q, y, x, th, tw, thr) ? 1 : 0;
   }
 }
 
@@ -120,24 +67,19 @@ const char* crt_cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// Dynamic shared memory the kernel needs for a low-res width w.
-long long crt_peak_mask_smem_bytes(int w) {
-  return (long long)(kExtY * w + kExtY * kExtX) * (long long)sizeof(float);
-}
+// Dynamic shared memory a block of either kernel needs for a low-res width w.
+long long crt_tile_smem_bytes(int w) { return crt::tile_smem_bytes(w); }
 
 int crt_peak_mask(const float* low, long long st_s, long long st_y, long long st_x,
                   long long st_c, int S, int h, int w, int C, int th, int tw,
                   const int* ytap_idx, const float* ytap_w,
                   const int* xtap_idx, const float* xtap_w,
                   float inv_s, float thr, int8_t* mask, void* stream) {
-  const size_t smem = (size_t)crt_peak_mask_smem_bytes(w);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        peak_mask_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const dim3 grid((tw + kTileX - 1) / kTileX, (th + kTileY - 1) / kTileY, C);
-  peak_mask_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+  const size_t smem = (size_t)crt::tile_smem_bytes(w);
+  cudaError_t e = crt::allow_smem(peak_mask_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((tw + crt::kTileX - 1) / crt::kTileX, (th + crt::kTileY - 1) / crt::kTileY, C);
+  peak_mask_kernel<<<grid, crt::kThreads, smem, (cudaStream_t)stream>>>(
       low, st_s, st_y, st_x, st_c, S, h, w, th, tw, ytap_idx, ytap_w, xtap_idx,
       xtap_w, inv_s, thr, mask);
   return (int)cudaGetLastError();

@@ -27,7 +27,7 @@ same positions, counts and raster order as the JAX ``compact_keys``.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -68,7 +68,7 @@ def block_keys(mask: torch.Tensor, h: int, w: int) -> torch.Tensor:
     base = (torch.arange(h, dtype=torch.int32, device=dev)[:, None] * w
             + torch.arange(w2 // 2, dtype=torch.int32, device=dev)[None, :] * 2)
     pos = torch.where(m0, base, base + 1)
-    return torch.where(m0 | m1, h * w - pos, torch.zeros_like(pos)).reshape(c, -1)
+    return torch.where(m0 | m1, h * w - pos, torch.zeros_like(pos)).reshape(c, h * (w2 // 2))
 
 
 def compact_keys(kb: torch.Tensor, hw: int, max_peaks: int):
@@ -94,6 +94,64 @@ def compact_keys(kb: torch.Tensor, hw: int, max_peaks: int):
     valid = counts[:, None] > ranks[None, :]
     peak_pos = torch.where(valid, buf[:, :topk], torch.zeros_like(buf[:, :topk]))
     return peak_pos, valid, counts
+
+
+def nms_peaks(heat: torch.Tensor, threshold, max_peaks: int,
+              num_parts: Optional[int] = None) -> torch.Tensor:
+    """heat: (C, H, W) confidence maps -> (num_parts, max_peaks+1, 3) peaks.
+
+    ``num_parts`` (default C) selects the channels NMS runs on (the Nms
+    layer uses the first num_parts of its 57-channel bottom,
+    nms_layer.cu:144); the full map lets refinement replicate the
+    reference's past-the-channel window reads."""
+    c, h, w = heat.shape
+    p = c if num_parts is None else int(num_parts)
+    heatf = heat.to(torch.float32)
+    kb = block_keys(find_peaks_mask(heatf[:p], threshold), h, w)
+    return peaks_from_keys(heatf, kb, max_peaks, ordered=True)
+
+
+def peaks_from_keys(heatf: torch.Tensor, kb: torch.Tensor, max_peaks: int,
+                    ordered: bool = False) -> torch.Tensor:
+    """Compaction + refinement half of the NMS.
+
+    ``heatf`` is (C_all, H, W) with C_all >= P = kb.shape[0]: the first P
+    channels are the peak channels, and the 7x7 windows are one flat gather
+    over the whole (C_all*H*W) buffer, so a window row past a channel's
+    bottom reads channel c+1 as the reference's pointer arithmetic does
+    (nms_layer.cu:82).  Taps past the end of the buffer are masked out.
+
+    ``ordered=True``: kb's flattened order is position order
+    (:func:`block_keys`, or the upsample kernel's keys) and compaction is
+    the sort-free :func:`compact_keys`.  ``ordered=False``: kb is any
+    arrangement of keys, compacted by ``topk`` over the key values.
+    """
+    heatf = heatf.to(torch.float32)
+    c_all, h, w = heatf.shape
+    hw = h * w
+    kb = kb.reshape(kb.shape[0], -1)
+    p = kb.shape[0]
+    if ordered:
+        peak_pos, valid, counts = compact_keys(kb, hw, max_peaks)
+    else:
+        counts = (kb > 0).sum(dim=1, dtype=torch.int32)
+        topk = min(max_peaks, hw)
+        if kb.shape[1] < topk:
+            kb = torch.nn.functional.pad(kb, (0, topk - kb.shape[1]))
+        kvals = torch.topk(kb, topk, dim=1).values  # descending key = ascending pos
+        valid = kvals > 0
+        peak_pos = torch.where(valid, hw - kvals, torch.zeros_like(kvals)).to(torch.int32)
+    topk = peak_pos.shape[1]
+
+    yy, xx, in_bounds = _window_coords(peak_pos, h, w)
+    chan = torch.arange(p, dtype=torch.int64, device=heatf.device)[:, None, None]
+    flat_idx = chan * hw + yy.to(torch.int64) * w + xx.to(torch.int64)  # yy may exceed h-1
+    in_buffer = flat_idx < c_all * hw
+    flat_idx = torch.clamp(flat_idx, 0, c_all * hw - 1)
+    scores = heatf.reshape(-1).index_select(0, flat_idx.reshape(-1)).reshape(p, topk, 49)
+    center = torch.gather(heatf[:p].reshape(p, hw), 1, peak_pos.to(torch.int64))
+    return _refine_and_pack(scores, center, yy, xx, in_bounds & in_buffer, valid, counts,
+                            max_peaks)
 
 
 def _window_coords(peak_pos: torch.Tensor, h: int, w: int):

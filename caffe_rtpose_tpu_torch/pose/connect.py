@@ -7,7 +7,9 @@ examples/rtpose/rtpose.cpp:808-1076 / 549-751):
 
 * :func:`score_pairs_lowres` — the O(limbs * nA * nB * 10) PAF line
   integrals, in torch on the device, sampling the upsampled maps straight
-  from the low-res network output;
+  from the low-res network output (the realtime path);
+* :func:`score_pairs` — the same integrals gathered from the full-res maps
+  (the heatmap path);
 * :func:`assemble` — the sequential greedy matching, numpy, copied from the
   JAX package; :func:`assemble_fast` runs the native C++ version of it
   (``native/pose_host.cpp``) when that builds.
@@ -38,6 +40,89 @@ from .descriptor import RENDER_MAX_PEOPLE, ConnectParams, ModelDescriptor
 NUM_INTER = 10  # line-integral samples (rtpose.cpp num_inter)
 
 
+def _sample_geometry(peaks: torch.Tensor, desc: ModelDescriptor, th: int, tw: int):
+    """Every limb's candidate pairs -> unit vectors (vx, vy), the pair
+    distance ``norm`` (all (L, P, P)) and the 10 integer sample coords
+    (sy, sx) on each segment (L, P, P, 10), rounded and clamped as the
+    reference does."""
+    L = desc.num_limbs
+    dev = peaks.device
+    limb_a = _index([desc.limb(k)[0] for k in range(L)], dev)
+    limb_b = _index([desc.limb(k)[1] for k in range(L)], dev)
+
+    cand_a = peaks[limb_a, 1:, :]
+    cand_b = peaks[limb_b, 1:, :]
+    ax = cand_a[:, :, None, 0]
+    ay = cand_a[:, :, None, 1]
+    bx = cand_b[:, None, :, 0]
+    by = cand_b[:, None, :, 1]
+    dx = bx - ax
+    dy = by - ay
+    norm = torch.sqrt(dx * dx + dy * dy)
+    inv = torch.where(norm < 1e-6, torch.zeros_like(norm), 1.0 / torch.clamp_min(norm, 1e-12))
+
+    lm = torch.arange(NUM_INTER, dtype=torch.float32, device=dev).reshape(1, 1, 1, NUM_INTER)
+    # C round() of non-negative values
+    sx = torch.floor(ax[..., None] + lm * dx[..., None] / NUM_INTER + 0.5).to(torch.int32)
+    sy = torch.floor(ay[..., None] + lm * dy[..., None] / NUM_INTER + 0.5).to(torch.int32)
+    if desc.clamp_samples:  # COCO (rtpose.cpp:920-927); MPI does not clamp
+        sx = torch.clamp_max(sx, tw - 1)
+        sy = torch.clamp_max(sy, th - 1)
+    # always clamp for memory safety; the unclamped MPI path would read OOB
+    sx = torch.clamp(sx, 0, tw - 1)
+    sy = torch.clamp(sy, 0, th - 1)
+    return dx * inv, dy * inv, norm, sy, sx
+
+
+def _score(vx, vy, norm, px, py, inter_threshold):
+    """Sample dots -> (pair_score, pair_count): the sum of the dots above
+    ``inter_threshold`` and how many there were (0 for coincident peaks)."""
+    dots = vx[..., None] * px + vy[..., None] * py
+    thr = torch.as_tensor(inter_threshold, dtype=torch.float32, device=dots.device)
+    qual = dots > thr
+    pair_score = torch.where(qual, dots, torch.zeros_like(dots)).sum(dim=-1)
+    pair_count = qual.sum(dim=-1, dtype=torch.int32)
+    distinct = norm >= 1e-6
+    pair_count = torch.where(distinct, pair_count, torch.zeros_like(pair_count))
+    return pair_score, pair_count
+
+
+def _index(vals, dev):
+    return torch.as_tensor(vals, dtype=torch.int64, device=dev)
+
+
+def _paf_index(desc: ModelDescriptor, dev):
+    """(paf_x, paf_y): each limb's x and y PAF channel."""
+    return tuple(_index([desc.paf_channels(k)[i] for k in range(desc.num_limbs)], dev)
+                 for i in (0, 1))
+
+
+def score_pairs(
+    heatmap: torch.Tensor,  # (C_total, H, W) resized maps (parts + bkg + PAFs)
+    peaks: torch.Tensor,  # (num_parts, max_peaks+1, 3)
+    desc: ModelDescriptor,
+    inter_threshold,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Candidate scoring for every limb and peak pair on the full-res maps:
+    each sample is a gather from the limb's two PAF planes.
+
+    Returns (pair_score, pair_count), both (num_limbs, max_peaks, max_peaks)
+    float32/int32, as :func:`score_pairs_lowres`.
+    """
+    c_total, h, w = heatmap.shape
+    max_peaks = peaks.shape[1] - 1
+    L = desc.num_limbs
+    dev = heatmap.device
+    vx, vy, norm, sy, sx = _sample_geometry(peaks, desc, h, w)
+    flat = (sy.to(torch.int64) * w + sx).reshape(L, -1)  # (L, P*P*10)
+    paf_x, paf_y = _paf_index(desc, dev)
+    hm = heatmap.to(torch.float32).reshape(-1)
+    shape = (L, max_peaks, max_peaks, NUM_INTER)
+    px = hm.index_select(0, (paf_x[:, None] * (h * w) + flat).reshape(-1)).reshape(shape)
+    py = hm.index_select(0, (paf_y[:, None] * (h * w) + flat).reshape(-1)).reshape(shape)
+    return _score(vx, vy, norm, px, py, inter_threshold)
+
+
 def score_pairs_lowres(
     lowres: torch.Tensor,  # (S, h, w, C_total) net-output maps, NHWC (concat_stage7)
     peaks: torch.Tensor,  # (num_parts, max_peaks+1, 3)
@@ -62,38 +147,10 @@ def score_pairs_lowres(
     L = desc.num_limbs
     dev = lowres.device
     src = lowres.to(torch.float32)
-
-    def index(vals):
-        return torch.as_tensor(vals, dtype=torch.int64, device=dev)
-
-    limb_a = index([desc.limb(k)[0] for k in range(L)])
-    limb_b = index([desc.limb(k)[1] for k in range(L)])
-
-    cand_a = peaks[limb_a, 1:, :]
-    cand_b = peaks[limb_b, 1:, :]
-    ax = cand_a[:, :, None, 0]
-    ay = cand_a[:, :, None, 1]
-    bx = cand_b[:, None, :, 0]
-    by = cand_b[:, None, :, 1]
-    dx = bx - ax
-    dy = by - ay
-    norm = torch.sqrt(dx * dx + dy * dy)
-    inv = torch.where(norm < 1e-6, torch.zeros_like(norm), 1.0 / torch.clamp_min(norm, 1e-12))
-    vx = dx * inv
-    vy = dy * inv
-
-    lm = torch.arange(NUM_INTER, dtype=torch.float32, device=dev).reshape(1, 1, 1, NUM_INTER)
-    sx = torch.floor(ax[..., None] + lm * dx[..., None] / NUM_INTER + 0.5).to(torch.int32)
-    sy = torch.floor(ay[..., None] + lm * dy[..., None] / NUM_INTER + 0.5).to(torch.int32)
-    if desc.clamp_samples:
-        sx = torch.clamp_max(sx, tw - 1)
-        sy = torch.clamp_max(sy, th - 1)
-    sx = torch.clamp(sx, 0, tw - 1)
-    sy = torch.clamp(sy, 0, th - 1)
+    vx, vy, norm, sy, sx = _sample_geometry(peaks, desc, th, tw)
 
     M = max_peaks * max_peaks * NUM_INTER
-    paf_x = index([desc.paf_channels(k)[0] for k in range(L)])
-    paf_y = index([desc.paf_channels(k)[1] for k in range(L)])
+    paf_x, paf_y = _paf_index(desc, dev)
     chw = src.permute(0, 3, 1, 2)  # (S, C_total, h, w)
     planes = torch.stack([chw[:, paf_x], chw[:, paf_y]], dim=2)  # (S, L, 2, h, w)
 
@@ -113,15 +170,7 @@ def score_pairs_lowres(
 
     px = (val_x / s).reshape(L, max_peaks, max_peaks, NUM_INTER)
     py = (val_y / s).reshape(L, max_peaks, max_peaks, NUM_INTER)
-
-    dots = vx[..., None] * px + vy[..., None] * py
-    thr = torch.as_tensor(inter_threshold, dtype=torch.float32, device=dev)
-    qual = dots > thr
-    pair_score = torch.where(qual, dots, torch.zeros_like(dots)).sum(dim=-1)
-    pair_count = qual.sum(dim=-1, dtype=torch.int32)
-    distinct = norm >= 1e-6
-    pair_count = torch.where(distinct, pair_count, torch.zeros_like(pair_count))
-    return pair_score, pair_count
+    return _score(vx, vy, norm, px, py, inter_threshold)
 
 
 @dataclass

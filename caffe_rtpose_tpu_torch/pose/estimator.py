@@ -1,12 +1,24 @@
-"""PoseEstimator: the realtime inference path in PyTorch.
+"""PoseEstimator: the inference paths in PyTorch.
 
 Counterpart of ``caffe_rtpose_tpu/pose/estimator.py``.  One device pass per
-frame: u8 upload and on-device normalize -> the deploy CNN up to the low-res
-``concat_stage7`` -> the fused upsample + peak mask (the hand-written CUDA
-kernel ``ops/nms_cuda.py`` on the card) -> raster-order compaction -> 7x7
-refinement and PAF pair scoring, both read from the low-res maps -> one
-byte-packed output buffer (f32 peaks | f16 scores | u8 counts).  Only the
-greedy assembly runs on the host.
+frame, in one of two branches:
+
+* realtime (default): u8 upload and on-device normalize -> the deploy CNN up
+  to the low-res ``concat_stage7`` -> the fused upsample + peak mask (the
+  hand-written CUDA kernel ``nms_cuda.peak_mask_fused`` on the card) ->
+  raster-order compaction -> 7x7 refinement and PAF pair scoring, both read
+  from the low-res maps -> one byte-packed output buffer (f32 peaks | f16
+  scores | u8 counts);
+* ``keep_heatmap=True``: f32 Caffe-layout input -> the same CNN -> the
+  full-res upsample of all channels written out, with the part channels'
+  peak keys (the hand-written CUDA kernel ``nms_cuda.upsample_peak_keys``)
+  -> compaction and refinement gathered from the full-res maps
+  (``nms.peaks_from_keys``) -> pair scoring on them (``connect.score_pairs``)
+  -> peaks, pair scores, pair counts and the (C, H, W) heatmap, unpacked.
+  This is the JAX branch that runs the ImResize and Nms layers; the heatmap
+  feeds the render views of ``pose/render.py``.
+
+Only the greedy assembly runs on the host.
 """
 
 from __future__ import annotations
@@ -21,7 +33,7 @@ import torch
 
 from ..core.net import Net
 from ..ops import nms_cuda
-from ..ops.nms import block_keys, compact_keys, refine_from_low
+from ..ops.nms import block_keys, compact_keys, peaks_from_keys, refine_from_low
 from ..utils.device import resolve_device
 from . import connect as C
 from .descriptor import ConnectParams, ModelDescriptor, for_num_parts
@@ -32,6 +44,7 @@ class PoseResult:
     joints: np.ndarray  # (num_people, num_parts, 3) in display coords
     num_people: int
     peaks: np.ndarray  # (num_parts, max_peaks+1, 3) net coords
+    heatmap: Optional[np.ndarray] = None  # (C, H, W) resized maps with keep_heatmap
 
 
 class PoseEstimator:
@@ -49,15 +62,19 @@ class PoseEstimator:
     JAX reference computes every matmul at ``Precision.HIGHEST`` and the
     outputs are held to it at f32 tolerances.
 
-    ``peak_kernel``: run the peak mask in the hand-written CUDA kernel
-    (default on CUDA) or its plain PyTorch version.  On the CPU the plain
-    version always runs.
+    ``peak_kernel``: run the upsample + peak stage in the hand-written CUDA
+    kernel of the branch (default on CUDA) or its plain PyTorch version.  On
+    the CPU the plain version always runs.
+
+    ``keep_heatmap``: the heatmap branch (module docstring).  As in JAX it
+    forces ``input_u8`` off, ignores ``pair_cap`` (outputs are unpacked at
+    full ``max_peaks``) and refuses ``batch > 1``.
 
     Not ported yet, and refused with ``NotImplementedError`` rather than
-    ignored: ``pack_u8=True``, ``device_rescale``, ``batch > 1``,
-    ``keep_heatmap``, dtypes other than float32, ``warm_overflow`` and file
-    paths for ``proto``/``weights``.  ``pack_u8=None`` means False here (the
-    JAX estimator defaults to True for multi-scale u8 input).
+    ignored: ``pack_u8=True``, ``device_rescale``, ``batch > 1``, dtypes
+    other than float32, ``warm_overflow`` and file paths for
+    ``proto``/``weights``.  ``pack_u8=None`` means False here (the JAX
+    estimator defaults to True for multi-scale u8 input).
     """
 
     def __init__(
@@ -85,7 +102,7 @@ class PoseEstimator:
         <= K peaks/part).  Slot 0 of each part keeps the raw count, so a
         frame with more peaks is detected and refetched uncapped."""
         for flag, name in ((pack_u8, "pack_u8"), (device_rescale, "device_rescale"),
-                           (keep_heatmap, "keep_heatmap"), (warm_overflow, "warm_overflow")):
+                           (warm_overflow, "warm_overflow")):
             if flag:
                 raise NotImplementedError(f"{name} is not ported yet")
         if int(batch) != 1:
@@ -107,7 +124,8 @@ class PoseEstimator:
         self.num_scales = num_scales
         self.start_scale = start_scale
         self.scale_gap = scale_gap
-        self.input_u8 = bool(input_u8)
+        self.keep_heatmap = bool(keep_heatmap)
+        self.input_u8 = bool(input_u8) and not self.keep_heatmap
         self._pair_cap = pair_cap
 
         self.net = Net(
@@ -160,6 +178,29 @@ class PoseEstimator:
 
     # ------------------------------------------------------------- device
 
+    def _lowres(self, x: torch.Tensor) -> torch.Tensor:
+        """(S, 3, H, W) net input -> the low-res ``concat_stage7`` maps as an
+        (S, h, w, C) NHWC view of the channels_last blob."""
+        low = self.net({"image": x}, outputs=[self.lowres_blob], layers=self._layers)
+        return low[self.lowres_blob].permute(0, 2, 3, 1)
+
+    @torch.inference_mode()
+    def _heatmap_program(self, image: torch.Tensor, nms_threshold: float,
+                         inter_threshold: float) -> Dict[str, torch.Tensor]:
+        """One frame on the device through the full-res maps -> peaks, pair
+        scores, pair counts and the (C, th, tw) heatmap."""
+        low = self._lowres(image)
+        fn = (nms_cuda.upsample_peak_keys if self.peak_kernel
+              else nms_cuda.upsample_peak_keys_reference)
+        heat, keys = fn(low, self.target_hw, self.start_scale, self.scale_gap, nms_threshold,
+                        key_channels=self.num_parts)
+        # all channels: refinement windows past a part channel's bottom edge
+        # read the next channel, as the reference's flat buffer does
+        peaks = peaks_from_keys(heat, keys, self.max_peaks, ordered=True)
+        pair_score, pair_count = C.score_pairs(heat, peaks, self.descriptor, inter_threshold)
+        return {"peaks": peaks, "pair_score": pair_score, "pair_count": pair_count,
+                "heatmap": heat}
+
     @torch.inference_mode()
     def _device_program(self, image: torch.Tensor, nms_threshold: float,
                         inter_threshold: float, eff_peaks: int) -> torch.Tensor:
@@ -172,8 +213,7 @@ class PoseEstimator:
             x = (xf * self._mask).permute(0, 3, 1, 2)
         else:
             x = image
-        low = self.net({"image": x}, outputs=[self.lowres_blob], layers=self._layers)[self.lowres_blob]
-        low = low.permute(0, 2, 3, 1)  # (S, h, w, C) NHWC view of the channels_last blob
+        low = self._lowres(x)
         P, max_peaks = self.num_parts, self.max_peaks
         th, tw = self.target_hw
         start, gap = self.start_scale, self.scale_gap
@@ -200,7 +240,8 @@ class PoseEstimator:
     def run_device(self, net_input: np.ndarray, nms_threshold=None, inter_threshold=None,
                    _eff_peaks: Optional[int] = None) -> Dict[str, torch.Tensor]:
         """net_input in :meth:`input_shape`/:attr:`input_dtype` -> device
-        outputs ({"packed": u8 tensor on the device}, not synchronized)."""
+        outputs, not synchronized: {"packed": u8 tensor}, or with
+        ``keep_heatmap`` {"peaks", "pair_score", "pair_count", "heatmap"}."""
         arr = np.ascontiguousarray(net_input)
         if arr.shape != self.input_shape() or arr.dtype != self.input_dtype:
             raise ValueError(f"net_input {arr.shape} {arr.dtype}: expected "
@@ -209,6 +250,8 @@ class PoseEstimator:
         nms_thr = float(p.nms_threshold if nms_threshold is None else nms_threshold)
         inter_thr = float(p.inter_threshold if inter_threshold is None else inter_threshold)
         x = torch.from_numpy(arr).to(self.device)
+        if self.keep_heatmap:
+            return self._heatmap_program(x, nms_thr, inter_thr)
         eff = self.eff_peaks if _eff_peaks is None else int(_eff_peaks)
         return {"packed": self._device_program(x, nms_thr, inter_thr, eff)}
 
@@ -228,6 +271,8 @@ class PoseEstimator:
 
     def fetch(self, out) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Device outputs -> host (peaks, pair_score, pair_count)."""
+        if self.keep_heatmap:
+            return tuple(out[k].cpu().numpy() for k in ("peaks", "pair_score", "pair_count"))
         return self.unpack(out["packed"].cpu().numpy())
 
     # ---------------------------------------------- pair_cap overflow path
@@ -235,8 +280,9 @@ class PoseEstimator:
     def overflowed(self, peaks: np.ndarray) -> bool:
         """True when a part produced more peaks than the pair_cap pass
         transferred (slot 0 carries the RAW count; rows stop at eff_peaks).
-        Such a frame must be refetched uncapped."""
-        return (self.eff_peaks < self.max_peaks
+        Such a frame must be refetched uncapped.  Never on the heatmap
+        branch, which is uncapped."""
+        return (not self.keep_heatmap and self.eff_peaks < self.max_peaks
                 and float(np.max(peaks[:, 0, 0])) > self.eff_peaks)
 
     def refetch_full(self, net_input: np.ndarray, nms_threshold=None,
@@ -290,4 +336,5 @@ class PoseEstimator:
                 net_input, nms_threshold=nms_threshold,
                 inter_threshold=pc.inter_threshold)
         res = C.assemble_fast(peaks, pair_score, pair_count, self.descriptor, pc, scale_xy)
-        return PoseResult(joints=res.joints, num_people=res.num_people, peaks=peaks)
+        hm = out["heatmap"].cpu().numpy() if self.keep_heatmap else None
+        return PoseResult(joints=res.joints, num_people=res.num_people, peaks=peaks, heatmap=hm)

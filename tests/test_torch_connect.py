@@ -99,3 +99,25 @@ def test_native_assembly_rejects_mismatched_shapes():
     peaks, score, count = _assembly_inputs(rs, COCO_18)
     with pytest.raises(ValueError):
         TN.assemble_native(peaks, score[:, :4], count, COCO_18, COCO_18.defaults)
+
+
+@pytest.mark.parametrize("desc", [COCO_18, MPI_15], ids=["coco", "mpi"])
+def test_score_pairs_matches_jax(desc):
+    """Full-res scoring (the heatmap path): gathers from the PAF planes, the
+    COCO clamp (MPI has none), the always-on clip and the distinct gate.
+    Peaks reach the map's last row and column, so the clamps act."""
+    rs = np.random.RandomState(10 + desc.num_parts)
+    th, tw = 96, 128
+    c_total = 57 if desc is COCO_18 else 44
+    heat = rs.rand(c_total, th, tw).astype(np.float32) * 2 - 1
+    peaks = _random_peaks(rs, desc.num_parts, 16, th, tw)
+    peaks[0, 2, :2] = peaks[0, 1, :2]  # a coincident pair scores nothing
+    peaks[1, 1, :2] = (tw - 0.6, th - 0.6)  # rounds past the last pixel
+    thr = 0.05
+    s_j, c_j = JC.score_pairs(jnp.asarray(heat), jnp.asarray(peaks), desc, jnp.float32(thr))
+    s_t, c_t = TC.score_pairs(torch.from_numpy(heat), torch.from_numpy(peaks), desc, thr)
+    assert c_t.dtype == torch.int32 and s_t.dtype == torch.float32
+    assert s_t.shape == (desc.num_limbs, 16, 16)
+    np.testing.assert_array_equal(c_t.numpy(), np.asarray(c_j))
+    np.testing.assert_allclose(s_t.numpy(), np.asarray(s_j), rtol=0, atol=1e-5)
+    assert c_t.numpy().sum() > 0

@@ -29,6 +29,7 @@ from caffe_rtpose_tpu.core.net import Net as JNet
 from caffe_rtpose_tpu.models.cpm import make_pose_deploy_net as j_make_net
 from caffe_rtpose_tpu.pose.estimator import PoseEstimator as JEstimator
 from caffe_rtpose_tpu_torch.core.net import params_from_jax
+from caffe_rtpose_tpu_torch.ops import nms_cuda
 from caffe_rtpose_tpu_torch.models.cpm import make_pose_deploy_net
 from caffe_rtpose_tpu_torch.pose.estimator import PoseEstimator
 
@@ -158,7 +159,8 @@ def test_pose_golden_seed7():
 def test_refuses_options_outside_the_slice():
     proto = make_pose_deploy_net("COCO", stages=1)
     for kw in (dict(pack_u8=True), dict(device_rescale=True), dict(batch=2),
-               dict(keep_heatmap=True), dict(dtype=torch.bfloat16), dict(warm_overflow=True)):
+               dict(keep_heatmap=True, batch=2), dict(dtype=torch.bfloat16),
+               dict(warm_overflow=True)):
         with pytest.raises(NotImplementedError):
             PoseEstimator(proto, net_resolution=RES, device="cpu", **kw)
     with pytest.raises(NotImplementedError):
@@ -166,3 +168,69 @@ def test_refuses_options_outside_the_slice():
     est = PoseEstimator(proto, net_resolution=RES, input_u8=True, device="cpu")
     with pytest.raises(ValueError):
         est.run_device(np.zeros((1, 3, RES[1], RES[0]), np.float32))
+
+
+@pytest.mark.parametrize("net,scales,start,gap", [("COCO", 1, 1.0, 0.3), ("MPI", 3, 0.9, 0.1)])
+def test_keep_heatmap_matches_jax_and_packed_branch(net, scales, start, gap):
+    """The heatmap branch (full-res upsample of every channel + keys, NMS
+    and pair scoring on the full-res maps) against JAX's: peak counts and
+    pair counts exact, peaks within 1e-4, the heatmap within
+    1e-5 * max(1, |h|) (the CNNs sum in other orders).  Pair scores within
+    1e-4 + 1e-4 * |s| over the real peaks: the refined peaks differ by a few
+    f32 ulps of coordinates ~100 px (seen: 5e-5 px), which turns a short
+    limb's unit vector enough to move its 10-dot sum by ~1e-4 relative
+    (seen: 1.6e-4 on a score of -3.07); the padding slots past a part's
+    count hold (0, 0) peaks that the assembly never reads, and their
+    samples fall on rounding ties (seen: 1e-6 from a .5 boundary).  Then against
+    the port's own packed branch on the same frame, with the tolerances of
+    tests/test_optimized_path.py for the JAX package's two branches: peaks
+    within 1e-3 and, over the real peaks, pair scores within 5e-3 (the
+    packed branch stores them as f16) and pair counts equal."""
+    cfg = dict(net_resolution=RES, num_scales=scales, start_scale=start, scale_gap=gap)
+    jest = JEstimator(j_make_net(net, stages=2), keep_heatmap=True, **cfg)
+    weights = _fan_in_weights(jest, 4)
+    proto = make_pose_deploy_net(net, stages=2)
+    est = PoseEstimator(proto, weights=weights, keep_heatmap=True, input_u8=True,
+                        pair_cap=8, device="cpu", **cfg)
+    assert not est.input_u8 and est.input_shape() == (scales, 3, RES[1], RES[0])
+    rs = np.random.RandomState(5)
+    x = rs.rand(scales, 3, RES[1], RES[0]).astype(np.float32) - 0.5
+
+    out_j = jest.run_device(x, **THR)
+    before = nms_cuda.upsample_launches
+    out_t = est.run_device(x, **THR)
+    assert nms_cuda.upsample_launches == before  # the CPU runs the plain version
+    assert set(out_t) == {"peaks", "pair_score", "pair_count", "heatmap"}
+    (pt, st, ct), (pj, sj, cj) = est.fetch(out_t), jest.fetch(out_j)
+    assert pt.shape == (est.num_parts, est.max_peaks + 1, 3)  # pair_cap has no effect
+    np.testing.assert_array_equal(pt[:, 0, 0], pj[:, 0, 0])
+    assert pt[:, 0, 0].sum() > 0 and not est.overflowed(pt)
+    np.testing.assert_allclose(pt, pj, rtol=0, atol=1e-4)
+    np.testing.assert_array_equal(ct, cj)
+    real = _real_pairs(est.descriptor, pt)
+    np.testing.assert_allclose(st[real], sj[real], rtol=1e-4, atol=1e-4)
+    hj, ht = np.asarray(out_j["heatmap"]), out_t["heatmap"].numpy()
+    assert ht.shape == hj.shape == (57 if net == "COCO" else 44, RES[1], RES[0])
+    assert (np.abs(ht - hj) <= 1e-5 * np.maximum(1.0, np.abs(hj))).all()
+
+    r_j = jest.estimate_from_net_input(x, nms_threshold=-1.0, params_connect=_relaxed(jest))
+    r_t = est.estimate_from_net_input(x, nms_threshold=-1.0, params_connect=_relaxed(est))
+    assert r_t.num_people == r_j.num_people > 0
+    np.testing.assert_array_equal(r_t.heatmap, ht)
+
+    packed = PoseEstimator(proto, weights=weights, device="cpu", **cfg)
+    p1, s1, c1 = packed.fetch(packed.run_device(x, **THR))
+    np.testing.assert_allclose(p1, pt, rtol=0, atol=1e-3)
+    np.testing.assert_allclose(s1[real], st[real], rtol=5e-3, atol=5e-3)
+    np.testing.assert_array_equal(c1[real], ct[real])
+
+
+def _real_pairs(desc, peaks):
+    """(L, M, M) bool: the pairs of real peaks ([:na, :nb] of each limb)."""
+    m = peaks.shape[1] - 1
+    n = np.minimum(peaks[:, 0, 0].astype(int), m)
+    out = np.zeros((desc.num_limbs, m, m), bool)
+    for k in range(desc.num_limbs):
+        a, b = desc.limb(k)
+        out[k, : n[a], : n[b]] = True
+    return out

@@ -22,6 +22,7 @@ SLICE_MODULES = [
     "caffe_rtpose_tpu_torch.ops.nms_cuda",
     "caffe_rtpose_tpu_torch.pose.connect",
     "caffe_rtpose_tpu_torch.pose.estimator",
+    "caffe_rtpose_tpu_torch.pose.render",
 ]
 
 

@@ -126,3 +126,66 @@ def test_refined_peaks_lowres_matches_jax(s, start, gap):
                                  0.1, 12, start, gap).numpy()
     np.testing.assert_array_equal(got[:, 0, 0], ref[:, 0, 0])
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6)
+
+
+def _planted_heat(rs, c, h, w, rows, noise=0.5):
+    """Noise below ``noise`` plus one planted peak (> 1) per channel on each
+    of ``rows``."""
+    heat = rs.rand(c, h, w).astype(np.float32) * noise
+    for ch in range(c):
+        for y in rows:
+            heat[ch, y, rs.randint(1, w - 1)] = 1.0 + rs.rand()
+    return heat
+
+
+def _nms_both(heat, thr, max_peaks, num_parts=None):
+    ref = np.asarray(jax.jit(J.nms_peaks, static_argnums=(2, 3))(
+        jnp.asarray(heat), jnp.float32(thr), max_peaks, num_parts))
+    got = T.nms_peaks(torch.from_numpy(heat), thr, max_peaks, num_parts).numpy()
+    return got, ref
+
+
+def test_nms_peaks_wide_map_reads_next_channel():
+    """57-channel wide map, NMS on the first 18: peaks within 3 rows of a
+    channel's bottom refine over rows of channel c+1."""
+    rs = np.random.RandomState(6)
+    h, w = 24, 40
+    heat = _planted_heat(rs, 57, h, w, rows=[h - 2, h - 3, h - 4, 10])
+    got, ref = _nms_both(heat, 0.8, 16, num_parts=18)
+    assert got.shape == (18, 17, 3)
+    np.testing.assert_array_equal(got[:, 0, 0], ref[:, 0, 0])
+    assert (got[:, 0, 0] >= 3).all()
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=0)
+    alone, _ = _nms_both(heat[:18], 0.8, 16)  # without channel c+1 the windows differ
+    assert not np.allclose(alone, got)
+
+
+def test_nms_peaks_tall_map_nan():
+    """Tall map: a peak at y >= W+3 has its whole window cut by the
+    y-vs-width check, so its coords are 0/0 = NaN (score intact)."""
+    rs = np.random.RandomState(7)
+    heat = _planted_heat(rs, 3, 60, 20, rows=[5, 40, 50])
+    got, ref = _nms_both(heat, 0.8, 6)
+    np.testing.assert_array_equal(got[:, 0, 0], ref[:, 0, 0])
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=0)  # NaNs compare equal
+    assert np.isnan(got[:, 2:4, :2]).all() and np.isfinite(got[:, 1:4, 2]).all()
+
+
+@pytest.mark.parametrize("ordered", [True, False])
+def test_peaks_from_keys_more_peaks_than_max(ordered):
+    """Dense noise: more strict peaks than max_peaks in every channel; the
+    first max_peaks in raster order, counts capped, in both compactions."""
+    rs = np.random.RandomState(8)
+    heat = rs.rand(5, 30, 41).astype(np.float32)
+    mask = np.asarray(J.find_peaks_mask(jnp.asarray(heat[:4]), jnp.float32(0.3)))
+    kb = np.array(J.block_keys(jnp.asarray(mask), 30, 41))
+    ref = np.asarray(jax.jit(J.peaks_from_keys, static_argnums=(2, 3))(
+        jnp.asarray(heat), jnp.asarray(kb), 8, ordered))
+    got = T.peaks_from_keys(torch.from_numpy(heat), torch.from_numpy(kb), 8,
+                            ordered=ordered).numpy()
+    assert (mask.reshape(4, -1).sum(1) > 8).all()
+    np.testing.assert_array_equal(got[:, 0, 0], ref[:, 0, 0])
+    assert (got[:, 0, 0] == 8).all()
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=0)
+    same = T.nms_peaks(torch.from_numpy(heat), 0.3, 8, num_parts=4).numpy()
+    np.testing.assert_array_equal(got, same)
