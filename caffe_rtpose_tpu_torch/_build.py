@@ -1,8 +1,10 @@
 """Build the port's native code at first use.
 
-* ``load_kernels()``: every ``csrc/*.cu`` compiled by ``nvcc`` for Hopper
-  (``sm_90a``) into one shared library with a plain C interface, loaded with
-  ctypes; the ``csrc/*.cuh`` headers they include count towards the hash.
+* ``load_kernels()``: every ``csrc/*.cu`` (K1 ``peak_mask.cu``, K3
+  ``upsample_peak_keys.cu``, K4 ``conv1_block.cu``) compiled by one ``nvcc``
+  for Hopper (``sm_90a``) into one shared library with a plain C interface,
+  loaded with ctypes; the ``csrc/*.cuh`` headers they include count towards
+  the hash.
   Missing ``nvcc`` or a failed build raises with the compiler's output.
 * ``build_library()``: the shared compile-and-cache step, also used by
   ``native.py`` for the host assembly library (g++).
@@ -107,5 +109,14 @@ def _declare(lib: ctypes.CDLL) -> None:
         i, i, i, i, i, i, i,  # S, h, w, C, th, tw, key_channels
         vp, vp, vp, vp,      # y tap idx/w, x tap idx/w
         f, f, vp, vp, vp,    # inv_s, thr, heat, keys, stream
+    ]
+    lib.crt_conv1_smem_bytes.restype = ll
+    lib.crt_conv1_smem_bytes.argtypes = []
+    lib.crt_conv1_block.restype = i
+    lib.crt_conv1_block.argtypes = [
+        vp, ll, ll, ll, ll,  # x (bf16) + strides (b, c, y, x) in elements
+        i, i, i,             # B, H, W
+        vp, vp, vp, vp,      # w1 (27, 64) f32, b1, w2 (576, 64) bf16, b2
+        vp, vp,              # out (B, H/2, W/2, 64) bf16, stream
     ]
 

@@ -11,6 +11,13 @@ Convolutions live in an ``nn.ModuleDict`` keyed by Caffe layer name, with
 OIHW weights as Caffe stores them.  Activations are logically NCHW (Caffe
 layout, so blobs come out as ``Net.forward`` gives them in the JAX package)
 and physically ``torch.channels_last``.
+
+``dtype=torch.bfloat16`` is the JAX package's bf16 mode: parameters stay f32
+as loaded, the convolutions run on bf16 copies made when weights are filled
+or loaded, inputs are cast to bf16 and every activation is bf16 (ReLU, MAX
+pooling and Concat are exact in it).  There the VGG conv1 block, found by
+its structure, runs through the hand-written kernel ``ops/conv1_cuda.py``
+(K4) when ``conv1_kernel`` is on.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..ops import conv1_cuda
 from ..ops import nn as nn_ops
 from ..utils.device import resolve_device
 
@@ -30,6 +38,7 @@ log = logging.getLogger(__name__)
 
 POOL_MAX = (0, "MAX")
 ESTIMATOR_TYPES = ("ImResize", "Nms")
+DTYPES = (torch.float32, torch.bfloat16)
 
 
 @dataclass
@@ -83,6 +92,17 @@ class Convolution(nn.Module):
         self.bias = (nn.Parameter(torch.zeros(self.cout), requires_grad=False)
                      if p.get("bias_term", True) else None)
         self.fillers = (dict(p.get("weight_filler", {})), dict(p.get("bias_filler", {})))
+        self.compute_weights(torch.float32)
+
+    def compute_weights(self, dtype: torch.dtype) -> None:
+        """Make the operands ``forward`` convolves with: the parameters
+        themselves in f32, else copies in ``dtype`` (once per load)."""
+        if dtype == torch.float32:
+            self._operands = (self.weight, self.bias)  # a tuple: not registered twice
+        else:
+            self._operands = (
+                self.weight.detach().to(dtype).contiguous(memory_format=torch.channels_last),
+                None if self.bias is None else self.bias.detach().to(dtype))
 
     def out_hw(self, h: int, w: int) -> Tuple[int, int]:
         dims = []
@@ -91,8 +111,16 @@ class Convolution(nn.Module):
         return dims[0], dims[1]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return nn_ops.conv2d(x, self.weight, self.bias, stride=self.stride, pad=self.pad,
+        w, b = self._operands
+        return nn_ops.conv2d(x, w, b, stride=self.stride, pad=self.pad,
                              dilation=self.dilation, groups=self.groups)
+
+    def is_3x3_same(self, cin: int, cout: int) -> bool:
+        """A 3x3, stride 1, pad 1, ungrouped, undilated conv cin -> cout
+        with bias."""
+        return (tuple(self.weight.shape) == (cout, cin, 3, 3) and self.stride == (1, 1)
+                and self.pad == (1, 1) and self.dilation == (1, 1) and self.groups == 1
+                and self.bias is not None)
 
 
 def _fill(rs: np.random.RandomState, shape, filler: Mapping[str, Any]) -> np.ndarray:
@@ -118,6 +146,20 @@ def params_from_jax(params: Mapping[str, Sequence[Any]]) -> Dict[str, List[np.nd
     return out
 
 
+@dataclass
+class Conv1Block:
+    """conv1_1 -> ReLU -> conv1_2 -> ReLU -> 2x2/2 MAX pool, as found in a
+    graph: the five layers' names, the input and output blobs, the blobs in
+    between (a forward that asks for one of them runs the layers one by one)
+    and the kernel's packed weights."""
+
+    names: Tuple[str, ...]
+    bottom: str
+    top: str
+    inner: frozenset
+    weights: Optional[conv1_cuda.Conv1Weights] = None
+
+
 class Net(nn.Module):
     """Parameters
     ----------
@@ -128,6 +170,12 @@ class Net(nn.Module):
         layer params before building (ImResize start_scale/scale_gap).
     seed: numpy seed for the weight fillers; real weights come through
         :meth:`load_weights`.
+    dtype: float32, or bfloat16 for activations and conv operands (module
+        docstring).
+    conv1_kernel: in bf16, run the conv1 block through
+        ``conv1_cuda.conv1_block`` (the hand-written kernel on the card, its
+        plain version on the CPU) instead of layer by layer.  Default: on for
+        CUDA.  Ignored in f32, where the block stays cuDNN, as in JAX.
     """
 
     def __init__(
@@ -138,6 +186,7 @@ class Net(nn.Module):
         device: Union[str, torch.device] = "cuda",
         dtype: torch.dtype = torch.float32,
         seed: int = 0,
+        conv1_kernel: Optional[bool] = None,
     ):
         super().__init__()
         if not isinstance(proto, Mapping):
@@ -145,9 +194,13 @@ class Net(nn.Module):
                 "proto must be a NetParameter dict; reading .prototxt files is not ported")
         if proto.get("layers"):
             raise NotImplementedError("legacy V0/V1 'layers' nets are not ported")
-        if dtype != torch.float32:
-            raise NotImplementedError("only float32 is ported")
+        if dtype not in DTYPES:
+            raise NotImplementedError(f"dtype {dtype} is not ported (float32, bfloat16)")
         self.device = resolve_device(device)
+        self.dtype = dtype
+        if conv1_kernel is None:
+            conv1_kernel = self.device.type == "cuda"
+        self.conv1_kernel = bool(conv1_kernel) and dtype == torch.bfloat16
 
         shapes: Dict[str, Tuple[int, ...]] = {}
         names = list(proto.get("input", []))
@@ -225,8 +278,44 @@ class Net(nn.Module):
                 out = bshape[0]
             for t in layer.tops:
                 self.blob_shapes[t] = out
-        self.init_params(seed)
+        self.conv1_blocks: Dict[str, Conv1Block] = self._find_conv1_blocks()
         self.to(self.device, memory_format=torch.channels_last)
+        self.init_params(seed)
+
+    def _find_conv1_blocks(self) -> Dict[str, Conv1Block]:
+        """The conv1 blocks of the graph, by structure: Convolution 3->64
+        3x3 s1 p1 -> ReLU -> Convolution 64->64 3x3 s1 p1 -> ReLU -> MAX
+        Pooling 2x2 s2 p0, consecutive, each layer reading the one before,
+        and no other layer reading the blobs in between.  Keyed by the
+        first layer's name."""
+        blocks: Dict[str, Conv1Block] = {}
+        L = self.layers
+        types = ["Convolution", "ReLU", "Convolution", "ReLU", "Pooling"]
+        for i in range(len(L) - 4):
+            chain = L[i : i + 5]
+            c1, r1, c2, r2, pool = chain
+            if ([l.type for l in chain] != types
+                    or any(len(l.bottoms) != 1 or len(l.tops) != 1 for l in chain)
+                    or any(b.bottoms[0] != a.tops[0] for a, b in zip(chain, chain[1:]))
+                    or not self.convs[c1.name].is_3x3_same(3, 64)
+                    or not self.convs[c2.name].is_3x3_same(64, 64)
+                    or r1.param["slope"] != 0.0 or r2.param["slope"] != 0.0
+                    or pool.param != dict(k=(2, 2), s=(2, 2), p=(0, 0))):
+                continue
+            inner = frozenset(l.tops[0] for l in chain[:4])
+            if any(b in inner for l in L if l not in chain for b in l.bottoms):
+                continue
+            blocks[c1.name] = Conv1Block(tuple(l.name for l in chain), c1.bottoms[0],
+                                         pool.tops[0], inner)
+        return blocks
+
+    def _refresh(self) -> None:
+        """Rebuild the compute copies of the weights after they changed."""
+        for conv in self.convs.values():
+            conv.compute_weights(self.dtype)
+        for blk in self.conv1_blocks.values():
+            c1, c2 = self.convs[blk.names[0]], self.convs[blk.names[2]]
+            blk.weights = conv1_cuda.Conv1Weights.pack(c1.weight, c1.bias, c2.weight, c2.bias)
 
     # ------------------------------------------------------------- params
 
@@ -239,6 +328,7 @@ class Net(nn.Module):
                 conv.weight.copy_(torch.from_numpy(_fill(rs, tuple(conv.weight.shape), wf)))
                 if conv.bias is not None:
                     conv.bias.copy_(torch.from_numpy(_fill(rs, (conv.cout,), bf)))
+        self._refresh()
 
     def load_weights(self, weights: Mapping[str, Sequence[np.ndarray]]) -> int:
         """Copy ``{layer_name: [OIHW weight, bias]}`` by layer name with
@@ -265,6 +355,7 @@ class Net(nn.Module):
                 with torch.no_grad():
                     t.copy_(torch.from_numpy(arr.reshape(tuple(t.shape))))
             copied += 1
+        self._refresh()
         return copied
 
     # ------------------------------------------------------------ forward
@@ -296,12 +387,30 @@ class Net(nn.Module):
     def forward(self, inputs: Mapping[str, torch.Tensor],
                 outputs: Optional[Sequence[str]] = None,
                 layers: Optional[Sequence[Layer]] = None) -> Dict[str, torch.Tensor]:
-        """``inputs``: {blob: (N, C, H, W) tensor on the net's device} ->
-        {blob: tensor} for ``outputs`` (default :meth:`output_names`)."""
+        """``inputs``: {blob: (N, C, H, W) tensor on the net's device, cast
+        to the net's dtype here} -> {blob: tensor} for ``outputs`` (default
+        :meth:`output_names`).
+
+        With ``conv1_kernel`` on, a conv1 block whose five layers appear in
+        order in ``layers`` runs as one ``conv1_cuda.conv1_block`` call,
+        unless ``outputs`` names a blob inside it or its input's H or W is
+        odd (Caffe's ceil-mode pooling then differs from the kernel's)."""
         blobs: Dict[str, torch.Tensor] = {
-            k: v.contiguous(memory_format=torch.channels_last) if v.dim() == 4 else v
+            k: v.to(self.dtype).contiguous(memory_format=torch.channels_last) if v.dim() == 4 else v
             for k, v in inputs.items()}
-        for layer in (self.layers if layers is None else layers):
+        outputs = list(outputs or self.output_names())
+        layers = self.layers if layers is None else list(layers)
+        i = 0
+        while i < len(layers):
+            layer = layers[i]
+            blk = self.conv1_blocks.get(layer.name) if self.conv1_kernel else None
+            if (blk is not None and tuple(l.name for l in layers[i : i + 5]) == blk.names
+                    and blk.inner.isdisjoint(outputs)
+                    and blobs[blk.bottom].shape[2] % 2 == 0 and blobs[blk.bottom].shape[3] % 2 == 0):
+                blobs[blk.top] = conv1_cuda.conv1_block(blobs[blk.bottom], blk.weights)
+                i += 5
+                continue
+            i += 1
             bots = [blobs[b] for b in layer.bottoms]
             p = layer.param
             if layer.type == "Convolution":
@@ -314,4 +423,4 @@ class Net(nn.Module):
                 top = torch.cat(bots, dim=p["axis"])
             for t in layer.tops:
                 blobs[t] = top
-        return {k: blobs[k] for k in (outputs or self.output_names())}
+        return {k: blobs[k] for k in outputs}

@@ -4,7 +4,8 @@ Counterpart of ``caffe_rtpose_tpu/ops/nn.py``.  Tensors are logically NCHW
 (Caffe layout) and kept in ``torch.channels_last`` memory by the graph
 runtime; weights are OIHW, as Caffe stores them.  The JAX package's
 convolutions were plain XLA convolutions, not Pallas kernels, so here they
-are ``torch.nn.functional.conv2d``.
+are ``torch.nn.functional.conv2d``, in f32 or bf16.  ReLU and MAX pooling
+are exact in either.
 """
 
 from __future__ import annotations
@@ -30,6 +31,14 @@ def conv2d(
 
     Output spatial dim = floor((in + 2p - dilated_k)/stride) + 1, matching
     reference base_conv_layer.cpp compute_output_shape.
+
+    In bf16 the caller passes bf16 ``w`` and ``b`` (``F.conv2d`` takes one
+    dtype; on the card this is cuDNN with f32 accumulation).  The bias is
+    then rounded to bf16 before it is added, where the JAX package adds the
+    f32 bias to the f32 sum and rounds once (``caffe_rtpose_tpu/ops/nn.py::
+    conv2d``): outputs differ by about one bf16 ulp (2^-8 relative), measured
+    on the CPU at ~2^-7 for a 64->64 conv.  The port keeps that rather than
+    spend an f32 pass over every activation on the card to emulate it.
     """
     return F.conv2d(x, w, b, stride=stride, padding=pad, dilation=dilation, groups=groups)
 

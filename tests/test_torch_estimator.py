@@ -157,17 +157,29 @@ def test_pose_golden_seed7():
 
 
 def test_refuses_options_outside_the_slice():
+    """What is still not ported raises NotImplementedError; what JAX refuses
+    (the heatmap branch batched, a wrong input) raises ValueError, as there."""
     proto = make_pose_deploy_net("COCO", stages=1)
-    for kw in (dict(pack_u8=True), dict(device_rescale=True), dict(batch=2),
-               dict(keep_heatmap=True, batch=2), dict(dtype=torch.bfloat16),
-               dict(warm_overflow=True)):
+    for kw in (dict(device_rescale=True), dict(warm_overflow=True), dict(dtype=torch.float16)):
         with pytest.raises(NotImplementedError):
             PoseEstimator(proto, net_resolution=RES, device="cpu", **kw)
     with pytest.raises(NotImplementedError):
         PoseEstimator("pose_deploy_linevec.prototxt", net_resolution=RES, device="cpu")
+    with pytest.raises(NotImplementedError):
+        PoseEstimator(proto, weights="pose_iter_440000.caffemodel", net_resolution=RES,
+                      device="cpu")
+    for kw in (dict(keep_heatmap=True, batch=2), dict(batch=0)):
+        with pytest.raises(ValueError):
+            PoseEstimator(proto, net_resolution=RES, device="cpu", **kw)
     est = PoseEstimator(proto, net_resolution=RES, input_u8=True, device="cpu")
     with pytest.raises(ValueError):
         est.run_device(np.zeros((1, 3, RES[1], RES[0]), np.float32))
+    batched = PoseEstimator(proto, net_resolution=RES, input_u8=True, batch=2, device="cpu")
+    with pytest.raises(ValueError):  # one frame where the pass takes a batch
+        batched.run_device(np.zeros((1, RES[1], RES[0], 3), np.uint8))
+    out = batched.run_device(np.zeros((2, 1, RES[1], RES[0], 3), np.uint8))
+    with pytest.raises(ValueError):  # batched rows go through fetch_batch
+        batched.fetch(out)
 
 
 @pytest.mark.parametrize("net,scales,start,gap", [("COCO", 1, 1.0, 0.3), ("MPI", 3, 0.9, 0.1)])
