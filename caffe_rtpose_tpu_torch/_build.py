@@ -72,8 +72,11 @@ def build_library(stem: str, sources: Sequence[str], compiler: str,
 
 
 def load_kernels() -> ctypes.CDLL:
-    """Build (at first use) and load the CUDA kernel library."""
+    """Build (at first use) and load the CUDA kernel library.  After the
+    first call, a plain read: no lock and no file system access."""
     global _kernels
+    if _kernels is not None:
+        return _kernels
     with _lock:
         if _kernels is not None:
             return _kernels
@@ -95,28 +98,31 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.crt_cuda_error_string.restype = ctypes.c_char_p
     lib.crt_cuda_error_string.argtypes = [i]
     lib.crt_tile_smem_bytes.restype = ll
-    lib.crt_tile_smem_bytes.argtypes = [i]
+    lib.crt_tile_smem_bytes.argtypes = [i, i, i]  # S, widest window rows, columns
     lib.crt_peak_mask.restype = i
     lib.crt_peak_mask.argtypes = [
         vp, ll, ll, ll, ll,  # low + strides (s, y, x, c) in elements
-        i, i, i, i, i, i,    # S, h, w, C, th, tw
+        i, i, i, i,          # S, C, th, tw
         vp, vp, vp, vp,      # y tap idx/w, x tap idx/w
+        vp, vp, i, i, i,     # y/x windows, widest window rows/columns, 16-byte loads
         f, f, vp, vp,        # inv_s, thr, mask, stream
     ]
     lib.crt_upsample_peak_keys.restype = i
     lib.crt_upsample_peak_keys.argtypes = [
         vp, ll, ll, ll, ll,  # low + strides (s, y, x, c) in elements
-        i, i, i, i, i, i, i,  # S, h, w, C, th, tw, key_channels
+        i, i, i, i, i,       # S, C, th, tw, key_channels
         vp, vp, vp, vp,      # y tap idx/w, x tap idx/w
+        vp, vp, i, i, i,     # y/x windows, widest window rows/columns, 16-byte loads
         f, f, vp, vp, vp,    # inv_s, thr, heat, keys, stream
     ]
     lib.crt_conv1_smem_bytes.restype = ll
     lib.crt_conv1_smem_bytes.argtypes = []
+    lib.crt_conv1_prepare.restype = i
+    lib.crt_conv1_prepare.argtypes = []
     lib.crt_conv1_block.restype = i
     lib.crt_conv1_block.argtypes = [
         vp, ll, ll, ll, ll,  # x (bf16) + strides (b, c, y, x) in elements
         i, i, i,             # B, H, W
-        vp, vp, vp, vp,      # w1 (27, 64) f32, b1, w2 (576, 64) bf16, b2
-        vp, vp,              # out (B, H/2, W/2, 64) bf16, stream
+        vp, vp, vp, vp,      # w1 packed (64, 64) bf16, b1, w2 packed (9, 64, 64) bf16, b2
+        vp, i, vp,           # out (B, H/2, W/2, 64) bf16, grid cap (SM count), stream
     ]
-

@@ -11,12 +11,18 @@
 // four nonzero taps, so instead of the TPU's dense matmuls this kernel reads
 // per-output tap tables and accumulates in plain f32 FMA.
 //
-// Design: one block per (channel, 32x64 output tile).  The block computes
-// U over the tile plus a one-pixel halo in shared memory (bicubic_tile.cuh),
-// applies the strict 8-neighbour test from shared memory and writes the i8
-// mask.  The full-res U never reaches device memory: what bounds the kernel
-// is its 18x368x656 i8 mask write plus the taps' FMAs (recomputed per tile,
-// a few tens of MFMA per frame), not HBM.
+// What bounds it on Hopper: the 18x368x656 bool mask it writes (4.35 MB at
+// COCO 1 scale, ~1.3 us at 3.35 TB/s); the low-res read is 0.27 MB and the
+// taps' FMAs ~40 MFLOP.  The full-res U never reaches device memory.
+//
+// Design: one block per (32x64 output tile, group of kGroup channels).  The
+// block stages the tile's tap tables and its source window (~8 x 12 low-res
+// pixels per scale at factor 8) of the group's channels in shared memory
+// once, with loads along the NHWC channel axis (bicubic_tile.cuh), then per
+// channel computes U over the tile plus a one-pixel halo in shared memory,
+// applies the strict 8-neighbour test from registers (each thread 4 columns
+// x 2 rows, its 4 x 6 neighbourhood read once) and writes the bool mask
+// four pixels per 32-bit store.
 //
 // Plain C interface for ctypes; the launch returns cudaGetLastError().
 
@@ -30,34 +36,54 @@ namespace {
 using namespace crt;
 
 __global__ void __launch_bounds__(kThreads)
-peak_mask_kernel(const float* __restrict__ low,  // (S, h, w, C) strided
-                 long long st_s, long long st_y, long long st_x, long long st_c,
-                 int S, int h, int w, int th, int tw,
-                 const int* __restrict__ ytap_idx,    // (S, th, 4)
-                 const float* __restrict__ ytap_w,    // (S, th, 4)
-                 const int* __restrict__ xtap_idx,    // (S, tw, 4)
-                 const float* __restrict__ xtap_w,    // (S, tw, 4)
-                 float inv_s, float thr,
-                 int8_t* __restrict__ mask) {         // (C, th, tw)
+peak_mask_kernel(TileArgs a, float thr, uint8_t* __restrict__ mask) {  // (C, th, tw) bool
   extern __shared__ float smem[];
-  float* vrow = smem;               // (kExtY, w): vertical pass of one scale
-  float* acc = smem + kExtY * w;    // (kExtY, kExtX): U over the extended tile
+  const TileSmem sm = carve_tile_smem(smem, a.S, a.wh, a.ww);
+  const int tx = blockIdx.x, ty = blockIdx.y, c0 = blockIdx.z * kGroup;
+  stage_tile(a, c0, ty, tx, sm);
 
-  const int c = blockIdx.z;
-  const int y_org = blockIdx.y * kTileY - 1;  // extended-tile origin
-  const int x_org = blockIdx.x * kTileX - 1;
-  upsample_tile(low, st_s, st_y, st_x, st_c, c, S, w, th, tw, ytap_idx, ytap_w,
-                xtap_idx, xtap_w, inv_s, y_org, x_org, vrow, acc);
-
-  for (int i = threadIdx.x; i < kTileY * kTileX; i += kThreads) {
-    const int r = i / kTileX + 1;  // extended-tile coords of the pixel
-    const int q = i - (r - 1) * kTileX + 1;
-    const int y = y_org + r;
-    const int x = x_org + q;
-    if (y >= th || x >= tw) continue;
-    mask[((long long)c * th + y) * tw + x] = strict_peak(acc, r, q, y, x, th, tw, thr) ? 1 : 0;
+  const int y_org = ty * kTileY - 1, x_org = tx * kTileX - 1;
+  const int q0 = 1 + 4 * (threadIdx.x % 16);  // extended-tile coords of this thread's
+  const int r0 = 1 + 2 * (threadIdx.x / 16);  // 4 columns x 2 rows
+  const int x = x_org + q0;                    // a multiple of 4
+  for (int g = 0; g < kGroup && c0 + g < a.C; ++g) {
+    upsample_channel(a, g, ty, tx, sm);
+    float v[4][6];  // rows r0-1 .. r0+2, columns q0-1 .. q0+4
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 6; ++j) v[i][j] = sm.acc[(r0 - 1 + i) * kExtX + q0 - 1 + j];
+    const int c = c0 + g;
+#pragma unroll
+    for (int i = 1; i <= 2; ++i) {
+      const int y = y_org + r0 + i - 1;
+      if (y >= a.th) continue;
+      uint32_t word = 0;
+#pragma unroll
+      for (int j = 1; j <= 4; ++j) {
+        const int xj = x + j - 1;
+        if (y < 1 || y > a.th - 2 || xj < 1 || xj > a.tw - 2) continue;
+        float n8 = v[i - 1][j - 1];  // the order of strict_peak
+        n8 = fmaxf(n8, v[i - 1][j]);
+        n8 = fmaxf(n8, v[i - 1][j + 1]);
+        n8 = fmaxf(n8, v[i][j - 1]);
+        n8 = fmaxf(n8, v[i][j + 1]);
+        n8 = fmaxf(n8, v[i + 1][j - 1]);
+        n8 = fmaxf(n8, v[i + 1][j]);
+        n8 = fmaxf(n8, v[i + 1][j + 1]);
+        if (v[i][j] > thr && v[i][j] > n8) word |= 1u << (8 * (j - 1));
+      }
+      const long long at = ((long long)c * a.th + y) * a.tw + x;
+      if (x + 3 < a.tw && (at & 3) == 0) {
+        *reinterpret_cast<uint32_t*>(mask + at) = word;
+      } else {
+        for (int j = 0; j < 4 && x + j < a.tw; ++j) mask[at + j] = (word >> (8 * j)) & 1u;
+      }
+    }
   }
 }
+
+size_t g_mask_smem_granted = 0;
 
 }  // namespace
 
@@ -67,21 +93,24 @@ const char* crt_cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// Dynamic shared memory a block of either kernel needs for a low-res width w.
-long long crt_tile_smem_bytes(int w) { return crt::tile_smem_bytes(w); }
+// Dynamic shared memory a block of either kernel needs for S scales and a
+// widest source window of wh x ww low-res pixels.
+long long crt_tile_smem_bytes(int S, int wh, int ww) { return crt::tile_smem_bytes(S, wh, ww); }
 
 int crt_peak_mask(const float* low, long long st_s, long long st_y, long long st_x,
-                  long long st_c, int S, int h, int w, int C, int th, int tw,
+                  long long st_c, int S, int C, int th, int tw,
                   const int* ytap_idx, const float* ytap_w,
-                  const int* xtap_idx, const float* xtap_w,
-                  float inv_s, float thr, int8_t* mask, void* stream) {
-  const size_t smem = (size_t)crt::tile_smem_bytes(w);
-  cudaError_t e = crt::allow_smem(peak_mask_kernel, smem);
+                  const int* xtap_idx, const float* xtap_w, const int* ywin, const int* xwin,
+                  int wh, int ww, int vec4, float inv_s, float thr, uint8_t* mask,
+                  void* stream) {
+  const size_t smem = (size_t)crt::tile_smem_bytes(S, wh, ww);
+  cudaError_t e = crt::allow_smem(peak_mask_kernel, smem, &g_mask_smem_granted);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((tw + crt::kTileX - 1) / crt::kTileX, (th + crt::kTileY - 1) / crt::kTileY, C);
-  peak_mask_kernel<<<grid, crt::kThreads, smem, (cudaStream_t)stream>>>(
-      low, st_s, st_y, st_x, st_c, S, h, w, th, tw, ytap_idx, ytap_w, xtap_idx,
-      xtap_w, inv_s, thr, mask);
+  const crt::TileArgs a{low, st_s, st_y, st_x, st_c, S, C, th, tw, ytap_idx, ytap_w,
+                        xtap_idx, xtap_w, ywin, xwin, wh, ww, vec4, inv_s};
+  const dim3 grid((tw + crt::kTileX - 1) / crt::kTileX, (th + crt::kTileY - 1) / crt::kTileY,
+                  (C + crt::kGroup - 1) / crt::kGroup);
+  peak_mask_kernel<<<grid, crt::kThreads, smem, (cudaStream_t)stream>>>(a, thr, mask);
   return (int)cudaGetLastError();
 }
 

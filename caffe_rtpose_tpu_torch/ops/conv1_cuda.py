@@ -6,10 +6,11 @@
 
 :func:`conv1_block` replaces ``caffe_rtpose_tpu/ops/conv1_pallas.py::
 _kernel`` (reached through ``conv1_block_pallas``): bf16 in, bf16 out, f32
-sums and biases, the conv1_1 activations rounded to bf16 once.  conv1_2 runs
-on the tensor cores; the 31 MB intermediates per 656x368 canvas never reach
-device memory.  Bound by conv1_2's 17.8 GFLOP a canvas (the source note
-says more).
+sums and biases, the conv1_1 activations rounded to bf16 once.  Both
+convolutions run on Hopper's tensor cores (``wgmma``, conv1_2's weights in
+the swizzled layout :meth:`Conv1Weights.pack` makes); the 31 MB
+intermediates per 656x368 canvas never reach device memory.  Bound by the
+18.6 GFLOP a canvas (the source note says more).
 
 The wrapper launches the kernel for a CUDA tensor (or raises: there is no
 fallback) and runs the plain version for a CPU tensor.  ``launches`` counts
@@ -21,11 +22,23 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
+from typing import Dict
 
 import torch
 import torch.nn.functional as F
 
 launches = 0  # kernel launches made by conv1_block in this process
+_sms: Dict[int, int] = {}  # device index -> SM count, the grid cap; set up once per device
+
+
+def _sw128(m: torch.Tensor) -> torch.Tensor:
+    """The 128-byte swizzle of (..., rows, 64) bf16 K-major tiles: row n's
+    16-byte chunk c moves to chunk c ^ (n % 8), the layout a wgmma
+    descriptor with swizzle mode 1 reads.  Its own inverse."""
+    n = torch.arange(m.shape[-2], device=m.device)[:, None]
+    col = torch.arange(64, device=m.device)[None, :]
+    idx = ((col // 8) ^ (n % 8)) * 8 + col % 8
+    return m.gather(-1, idx.expand(m.shape))
 
 
 @dataclass(frozen=True)
@@ -33,15 +46,18 @@ class Conv1Weights:
     """The block's parameters, packed once for the kernel.
 
     ``w1``/``w2``: OIHW f32 as the net stores them, ``b1``/``b2`` f32.
-    ``w1_k``: (27, 64) f32, rows (ky, kx, c), values rounded to bf16;
-    ``w2_k``: (576, 64) bf16, rows (ky, kx, c_in)."""
+    ``w1_p``: (64, 64) bf16, conv1_1 as a K-major tile: row c_out, columns
+    K = (ky, kx, c) zero-padded from 27 to 64 (the kernel reads 32), in the
+    128-byte swizzle; ``w2_p``: (9, 64, 64) bf16, per tap (ky, kx) the
+    (c_out, c_in) K-major tile in the same swizzle.  :meth:`w1_matrix` and
+    :meth:`w2_matrix` unpack them."""
 
     w1: torch.Tensor
     b1: torch.Tensor
     w2: torch.Tensor
     b2: torch.Tensor
-    w1_k: torch.Tensor
-    w2_k: torch.Tensor
+    w1_p: torch.Tensor
+    w2_p: torch.Tensor
 
     @classmethod
     def pack(cls, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
@@ -51,9 +67,20 @@ class Conv1Weights:
                              "expected (64, 3, 3, 3) and (64, 64, 3, 3)")
         f32, bf16 = torch.float32, torch.bfloat16
         w1, b1, w2, b2 = (t.detach().to(f32) for t in (w1, b1, w2, b2))
-        w1_k = w1.to(bf16).to(f32).permute(2, 3, 1, 0).reshape(27, 64).contiguous()
-        w2_k = w2.to(bf16).permute(2, 3, 1, 0).reshape(576, 64).contiguous()
-        return cls(w1, b1.contiguous(), w2, b2.contiguous(), w1_k, w2_k)
+        k1 = torch.zeros((64, 64), dtype=bf16, device=w1.device)
+        k1[:, :27] = w1.to(bf16).permute(0, 2, 3, 1).reshape(64, 27)
+        k2 = w2.to(bf16).permute(2, 3, 0, 1).reshape(9, 64, 64)
+        return cls(w1, b1.contiguous(), w2, b2.contiguous(), _sw128(k1).contiguous(),
+                   _sw128(k2).contiguous())
+
+    def w1_matrix(self) -> torch.Tensor:
+        """(32, 64) f32: conv1_1's K-padded GEMM operand, rows (ky, kx, c)
+        then 5 zero rows, columns c_out."""
+        return _sw128(self.w1_p)[:, :32].t().float()
+
+    def w2_matrix(self) -> torch.Tensor:
+        """(576, 64) bf16: conv1_2's GEMM operand, rows (ky, kx, c_in)."""
+        return _sw128(self.w2_p).transpose(1, 2).reshape(576, 64)
 
 
 def _check(x: torch.Tensor) -> None:
@@ -94,7 +121,7 @@ def conv1_block(x: torch.Tensor, cw: Conv1Weights) -> torch.Tensor:
         return conv1_block_reference(x, cw)
     if x.device.type != "cuda":
         raise ValueError(f"conv1_block: unsupported device {x.device}")
-    for t in (cw.w1_k, cw.b1, cw.w2_k, cw.b2):
+    for t in (cw.w1_p, cw.b1, cw.w2_p, cw.b2):
         if t.device != x.device:
             raise ValueError(f"conv1_block: weights on {t.device}, input on {x.device}")
     from .. import _build
@@ -105,11 +132,18 @@ def conv1_block(x: torch.Tensor, cw: Conv1Weights) -> torch.Tensor:
                       memory_format=torch.channels_last)
     st = x.stride()
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+    dev = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    with torch.cuda.device(dev):
+        if dev not in _sms:
+            err = lib.crt_conv1_prepare()
+            if err != 0:
+                raise RuntimeError(f"conv1_block: shared-memory attribute refused: "
+                                   f"{lib.crt_cuda_error_string(err).decode()} ({err})")
+            _sms[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.crt_conv1_block(ptr(x), st[0], st[1], st[2], st[3], b, h, w,
-                                  ptr(cw.w1_k), ptr(cw.b1), ptr(cw.w2_k), ptr(cw.b2),
-                                  ptr(out), ctypes.c_void_p(stream))
+                                  ptr(cw.w1_p), ptr(cw.b1), ptr(cw.w2_p), ptr(cw.b2),
+                                  ptr(out), _sms[dev], ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(
             f"conv1_block kernel launch failed: {lib.crt_cuda_error_string(err).decode()} ({err})")

@@ -3,13 +3,18 @@
 and their plain PyTorch versions.
 
 Both compute the scale-averaged bicubic upsample U of a low-res map in
-shared memory, tile by tile, with the same code (``csrc/bicubic_tile.cuh``):
+shared memory, tile by tile, with the same code (``csrc/bicubic_tile.cuh``).
+A block serves one 32x64 output tile for a group of 4 channels and stages
+only the tile's source window, the low-res rows and columns its taps reach
+per scale; :func:`tile_geometry` computes those windows on the host from the
+tap tables, and the wrappers cache them per shape and device:
 
 * :func:`peak_mask_fused` replaces ``caffe_rtpose_tpu/ops/nms_pallas.py::
   _mask_kernel_chan`` and ``::_mask_kernel`` (both reached through
   ``peak_mask_fused``): one Hopper kernel covers the TPU's whole-frame and
-  tiled forms.  It writes only the (C, th, tw) strict-peak mask; bound by
-  that 18x368x656 i8 write plus the taps' FMAs.  The realtime path's kernel.
+  tiled forms.  It writes only the (C, th, tw) strict-peak mask, as bool,
+  four pixels a store; bound by that 18x368x656 write.  The realtime path's
+  kernel.
 * :func:`upsample_peak_keys` replaces ``nms_pallas.py::_kernel`` (reached
   through ``upsample_peak_keys``).  It writes U as f32 heat (C, th, tw) and,
   for the first ``key_channels`` channels, the strict-peak keys in
@@ -27,6 +32,8 @@ reference and the estimator's ``peak_kernel=False`` switch.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
+from functools import lru_cache
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -38,7 +45,10 @@ from .nms import block_keys, find_peaks_mask
 launches = 0  # kernel launches made by peak_mask_fused in this process
 upsample_launches = 0  # kernel launches made by upsample_peak_keys in this process
 
-_tap_cache: Dict[tuple, Tuple[torch.Tensor, ...]] = {}
+# csrc/bicubic_tile.cuh: output tile, channels a block serves, and the
+# shared memory a block may take on the H100
+TILE_Y, TILE_X, GROUP = 32, 64, 4
+SMEM_BUDGET = 227 * 1024
 
 
 def _taps(dense: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -58,17 +68,82 @@ def _taps(dense: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     return idx, wgt
 
 
-def _device_taps(h: int, w: int, th: int, tw: int, s: int, start_scale: float,
-                 scale_gap: float, device: torch.device) -> Tuple[torch.Tensor, ...]:
-    """Tap tables of one shape, uploaded once per device and cached."""
+def _windows(idx: np.ndarray, wgt: np.ndarray, tile: int) -> np.ndarray:
+    """One axis' (S, T, 4) taps -> (S, n_tiles, 2) int32 [first, count]: the
+    source indices that the nonzero taps of each tile's outputs reach, the
+    tile's ``tile`` outputs and one more on each side (the peak test's
+    halo)."""
+    s, t, _ = idx.shape
+    n = -(-t // tile)
+    out = np.zeros((s, n, 2), np.int32)
+    for i in range(n):
+        lo, hi = max(i * tile - 1, 0), min((i + 1) * tile + 1, t)
+        for sc in range(s):
+            reach = idx[sc, lo:hi][wgt[sc, lo:hi] != 0]
+            out[sc, i] = reach.min(), reach.max() - reach.min() + 1
+    return out
+
+
+def _smem_bytes(s: int, wh: int, ww: int) -> int:
+    """csrc/bicubic_tile.cuh::tile_smem_bytes: tap tables, the window of
+    GROUP channels, the vertical pass and the upsampled tile."""
+    ext_y, ext_x = TILE_Y + 2, TILE_X + 2
+    return 4 * (s * (ext_y + ext_x) * 8 + s * GROUP * wh * ww + ext_y * ww + ext_y * ext_x)
+
+
+@dataclass(frozen=True)
+class TileGeometry:
+    """What the kernels read besides the map: tap tables (S, th, 4) and
+    (S, tw, 4), windows (S, tiles_y, 2) and (S, tiles_x, 2) of [first,
+    count], the widest window ``wh`` x ``ww`` and a block's shared memory."""
+
+    ytap_idx: np.ndarray
+    ytap_w: np.ndarray
+    xtap_idx: np.ndarray
+    xtap_w: np.ndarray
+    ywin: np.ndarray
+    xwin: np.ndarray
+    wh: int
+    ww: int
+    smem: int
+
+
+@lru_cache(maxsize=64)
+def tile_geometry(h: int, w: int, th: int, tw: int, s: int, start_scale: float,
+                  scale_gap: float) -> TileGeometry:
+    Ay, Ax = _matrices(h, w, th, tw, s, float(start_scale), float(scale_gap))
+    (yi, yw), (xi, xw) = _taps(Ay), _taps(Ax)
+    ywin, xwin = _windows(yi, yw, TILE_Y), _windows(xi, xw, TILE_X)
+    wh, ww = int(ywin[..., 1].max()), int(xwin[..., 1].max())
+    return TileGeometry(yi, yw, xi, xw, ywin, xwin, wh, ww, _smem_bytes(s, wh, ww))
+
+
+_geometry_cache: Dict[tuple, Tuple[TileGeometry, Tuple[torch.Tensor, ...]]] = {}
+
+
+def _device_geometry(h: int, w: int, th: int, tw: int, s: int, start_scale: float,
+                     scale_gap: float, device: torch.device):
+    """:func:`tile_geometry` and its six tables on ``device``, uploaded once
+    per shape and device and cached."""
     key = (h, w, th, tw, s, start_scale, scale_gap, str(device))
-    hit = _tap_cache.get(key)
+    hit = _geometry_cache.get(key)
     if hit is None:
-        Ay, Ax = _matrices(h, w, th, tw, s, start_scale, scale_gap)
-        arrays = (*_taps(Ay), *_taps(Ax))
-        hit = tuple(torch.from_numpy(a).to(device) for a in arrays)
-        _tap_cache[key] = hit
+        geo = tile_geometry(h, w, th, tw, s, start_scale, scale_gap)
+        if geo.smem > SMEM_BUDGET:
+            raise ValueError(f"upsample tile: a {geo.wh}x{geo.ww} source window at {s} scales "
+                             f"needs {geo.smem} B of shared memory")
+        arrays = (geo.ytap_idx, geo.ytap_w, geo.xtap_idx, geo.xtap_w, geo.ywin, geo.xwin)
+        hit = geo, tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arrays)
+        _geometry_cache[key] = hit
     return hit
+
+
+def vec4_loads(lowres: torch.Tensor) -> bool:
+    """Whether the kernels may stage the window with 16-byte loads: channel
+    stride 1, the other strides and the base 16-byte aligned, C % 4 == 0."""
+    st = lowres.stride()
+    return (st[3] == 1 and all(v % 4 == 0 for v in st[:3]) and lowres.shape[3] % 4 == 0
+            and lowres.data_ptr() % 16 == 0)
 
 
 def _check_lowres(name: str, lowres: torch.Tensor, target_hw: Tuple[int, int]):
@@ -81,8 +156,8 @@ def _check_lowres(name: str, lowres: torch.Tensor, target_hw: Tuple[int, int]):
         raise ValueError(f"{name}: expected (S, h, w, C), got {tuple(lowres.shape)}")
     s, h, w, c = lowres.shape
     th, tw = (int(v) for v in target_hw)
-    if th < 1 or tw < 1 or c > 65535:
-        raise ValueError(f"{name}: unsupported target {target_hw} or {c} channels")
+    if th < 1 or tw < 1 or -(-th // TILE_Y) > 65535:
+        raise ValueError(f"{name}: unsupported target {target_hw}")
     if any(st < 0 for st in lowres.stride()):
         raise ValueError(f"{name}: negative strides are not supported")
     return s, h, w, c, th, tw
@@ -91,24 +166,23 @@ def _check_lowres(name: str, lowres: torch.Tensor, target_hw: Tuple[int, int]):
 def _launch(name: str, entry: str, lowres: torch.Tensor, target_hw, start_scale: float,
             scale_gap: float, threshold: float, extra: tuple, outs: tuple) -> None:
     """Launch one kernel on the current stream of ``lowres``' device: the
-    library, the shared-memory check, the tap tables and the strides.
-    ``extra`` are the int arguments after (S, h, w, C, th, tw), ``outs`` the
-    output tensors.  Raises if the launch fails."""
+    library, the cached geometry and the strides.  ``extra`` are the int
+    arguments after (S, C, th, tw), ``outs`` the output tensors.  Raises if
+    the launch fails."""
     from .. import _build
 
     s, h, w, c, th, tw = _check_lowres(name, lowres, target_hw)
     lib = _build.load_kernels()
-    smem = lib.crt_tile_smem_bytes(w)
-    if smem > 227 * 1024:
-        raise ValueError(f"{name}: low-res width {w} needs {smem} B of shared memory")
-    taps = _device_taps(h, w, th, tw, s, float(start_scale), float(scale_gap), lowres.device)
+    geo, tables = _device_geometry(h, w, th, tw, s, float(start_scale), float(scale_gap),
+                                   lowres.device)
     st = lowres.stride()
     ptrs = lambda ts: [ctypes.c_void_p(t.data_ptr()) for t in ts]  # noqa: E731
     with torch.cuda.device(lowres.device):
         stream = torch.cuda.current_stream(lowres.device).cuda_stream
         err = getattr(lib, entry)(
-            *ptrs([lowres]), st[0], st[1], st[2], st[3], s, h, w, c, th, tw, *extra,
-            *ptrs(taps), 1.0 / s, float(threshold), *ptrs(outs), ctypes.c_void_p(stream))
+            *ptrs([lowres]), st[0], st[1], st[2], st[3], s, c, th, tw, *extra,
+            *ptrs(tables), geo.wh, geo.ww, int(vec4_loads(lowres)), 1.0 / s, float(threshold),
+            *ptrs(outs), ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(
             f"{name} kernel launch failed: {lib.crt_cuda_error_string(err).decode()} ({err})")
@@ -142,11 +216,11 @@ def peak_mask_fused(
     if lowres.device.type == "cpu":
         return peak_mask_fused_reference(lowres, target_hw, start_scale, scale_gap, threshold)
     th, tw = (int(v) for v in target_hw)
-    out = torch.empty((lowres.shape[-1], th, tw), dtype=torch.int8, device=lowres.device)
+    out = torch.empty((lowres.shape[-1], th, tw), dtype=torch.bool, device=lowres.device)
     _launch("peak_mask_fused", "crt_peak_mask", lowres, (th, tw), start_scale, scale_gap,
             threshold, (), (out,))
     launches += 1
-    return out != 0
+    return out
 
 
 def upsample_peak_keys_reference(

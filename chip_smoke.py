@@ -10,15 +10,25 @@ Phases, each of which raises (non-zero exit) on failure:
 2. build     - builds the CUDA kernels from csrc/ with nvcc.
 3. kernels   - each hand-written kernel against its plain PyTorch version on
                the card, at the estimators' shapes (COCO 1 and 3 scales, MPI,
-               small and ragged), with both timed at the COCO 1-scale and
-               3-scale (gap 0.3) shapes (medians of 20, in the order plain,
-               kernel, kernel, plain):
+               small and ragged), at the estimator's input (the 18-channel
+               slice view of a 57-channel NHWC map, at 1 and 3 scales), with
+               a channel stride other than 1 and with 16-byte window loads:
                * peak_mask_fused: masks equal except at near-ties;
                * upsample_peak_keys (57 channels, keys for 18; MPI 44 and
                  15): heat within 1e-5*max(1,|U|), keys equal except at
                  near-ties.
                A near-tie is a pixel where |U-thr| or |U-max8| <=
                1e-5*max(1,|U|), with U the plain version's upsample there.
+               Timed at the main path's shapes (K1 on the slice view at 1 and
+               3 scales, K3 at 1 scale): kernel_ms, the kernel's own device
+               time from torch.profiler by kernel name over 20 launches,
+               measured after the last slice phase (a profiling window
+               slows the host's launches for the rest of the process);
+               call_ms, one wrapper call between CUDA events (medians of 20,
+               in the order plain, kernel, kernel, plain); bound_ms, the
+               larger of the bytes the function must move over 3.35 TB/s and
+               its f32 operations over 67 TFLOP/s; bound_share =
+               bound_ms / kernel_ms.
 4. slice     - the full-width COCO estimator (656x368, 1 scale, u8 input,
                pair_cap=32, f32) over 8 synthetic frames through
                estimate_from_net_input, with the peak-mask kernel's launch
@@ -41,9 +51,13 @@ Phases, each of which raises (non-zero exit) on failure:
 7. conv1     - the fused conv1 block kernel (bf16) against its plain version
                at COCO 656x368 with B*S = 1, 3 and 8 and at (2, 64, 96) and
                (3, 48, 64), within two bf16 ulps (2^-7 relative, 2^-13
-               absolute), and against the cuDNN bf16 chain (largest
-               difference printed); timed at B = 1 and 8 (plain, kernel,
-               kernel, plain, medians of 20) beside the cuDNN bf16 chain.
+               absolute), on channels_last input and bit for bit the same
+               on NCHW input, and against the cuDNN bf16 chain (largest
+               difference printed); at B*S = 1, 3 and 8: kernel_ms and
+               call_ms as above, the plain version and the cuDNN bf16 chain
+               (library_ms) between CUDA events, bound_ms from its FLOPs
+               over the 989 TFLOP/s bf16 peak.  The build phase shows the
+               kernel's wgmma (HGMMA) instructions in the library's SASS.
 8. bf16      - bench.py's configuration: bf16, u8, 1 scale, pair_cap=32,
                batch=8, 16 frames through run_device + fetch_batch (with the
                overflow refetch) and through estimate_from_net_input, with
@@ -105,6 +119,14 @@ MATCH_FLOOR = 0.80
 L2_RATIO = 1.5  # kernel-path vs plain-path distance, against bf16 vs f32
 CONV1_CASES = [("coco_b1", 1, 368, 656), ("coco_b3", 3, 368, 656), ("coco_b8", 8, 368, 656),
                ("small_b2", 2, 64, 96), ("small_b3", 3, 48, 64)]  # name, B*S, H, W
+CONV1_TIMED = ("coco_b1", "coco_b3", "coco_b8")
+# H100 SXM peaks (NVIDIA's data sheet, dense): HBM, bf16 tensor cores, f32 outside them
+HBM_BYTES_S = 3.35e12
+BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
+PROFILE_REPS = 20
+NO_LIBRARY = ("no PyTorch call computes Caffe's ImResize (Catmull-Rom a=-0.5 with per-scale "
+              "sub-region pads; F.interpolate's bicubic is a=-0.75) with the peak test")
 
 
 def check(cond, msg: str) -> None:
@@ -126,6 +148,96 @@ def cuda_ms(fn, reps: int = 20):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def kernel_ms(fn, kernel: str, reps: int = PROFILE_REPS):
+    """Device time per launch of the CUDA kernel whose name contains
+    ``kernel``, over ``reps`` calls of ``fn`` (torch.profiler, CUPTI): the
+    kernel alone, without the wrapper's host time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us, count = 0.0, 0
+    for evt in prof.key_averages():
+        if kernel in evt.key:
+            total_us += getattr(evt, "device_time_total", None) or evt.cuda_time_total
+            count += evt.count
+    # CUPTI may drop the first launch of a window: average over what it saw
+    check(count >= reps // 2 and total_us > 0,
+          f"the profiler saw {count} launches of {kernel} ({total_us} us) for {reps} calls")
+    return total_us / count / 1000.0
+
+
+def bound(n_bytes: float, n_ops: float, peak_ops: float):
+    """(bound_ms, bound_by): the larger of the bytes over the HBM rate and
+    the operations over their peak rate."""
+    ms_bytes, ms_ops = n_bytes / HBM_BYTES_S * 1e3, n_ops / peak_ops * 1e3
+    return (ms_bytes, "bytes") if ms_bytes >= ms_ops else (ms_ops, "operations")
+
+
+def upsample_work(s, h, w, c, th, tw):
+    """Bytes and f32 operations of the scale-averaged separable upsample of
+    c channels: the map read once; per scale a vertical pass (th x w x 4
+    FMA) and a horizontal one (th x tw x 4 FMA) a channel; the scale sum
+    and 1/S."""
+    return s * h * w * c * 4, c * (s * 8 * th * (w + tw) + s * th * tw)
+
+
+def k1_bound(s, h, w, c, th, tw):
+    """K1: the upsample, the strict 8-neighbour test (10 operations a
+    pixel) and the bool mask written once."""
+    b, ops = upsample_work(s, h, w, c, th, tw)
+    return bound(b + c * th * tw, ops + 10 * c * th * tw, F32_FLOPS)
+
+
+def k3_bound(s, h, w, c, kc, th, tw):
+    """K3: the upsample of c channels written as f32 heat, the peak test on
+    kc of them and their int32 pair keys written once."""
+    b, ops = upsample_work(s, h, w, c, th, tw)
+    return bound(b + c * th * tw * 4 + kc * th * (tw // 2) * 4, ops + 10 * kc * th * tw,
+                 F32_FLOPS)
+
+
+def k4_bound(b, h, w):
+    """K4: conv1_1 (27 taps) and conv1_2 (576) as 2-FLOP MACs at the bf16
+    tensor-core peak; the bf16 input and output and the weights once."""
+    flops = 2 * b * h * w * 64 * (27 + 576)
+    n_bytes = b * 3 * h * w * 2 + b * 64 * (h // 2) * (w // 2) * 2 + (27 + 576) * 64 * 2 + 2 * 64 * 4
+    return bound(n_bytes, flops, BF16_FLOPS)
+
+
+# (row, fn, kernel name) whose kernel_ms main() measures after the slices:
+# a torch.profiler window slows the host's launches for the rest of the
+# process, and the bf16 pass is bound by them
+PENDING_PROFILES = []
+
+
+def timing_row(shape, fn, kernel, c_ms, p_ms, bound_ms, bound_by, library_ms):
+    """A kernel's timing at one shape; kernel_ms and bound_share are filled
+    in by profile_pending()."""
+    row = dict(shape=shape, kernel_ms=None, call_ms=c_ms, plain_ms=p_ms, bound_ms=bound_ms,
+               bound_by=bound_by, bound_share=None, library_ms=library_ms)
+    PENDING_PROFILES.append((row, fn, kernel))
+    return row
+
+
+def profile_pending():
+    """kernel_ms of every timed shape (torch.profiler), once no other phase
+    is left to run."""
+    for row, fn, kernel in PENDING_PROFILES:
+        row["kernel_ms"] = kernel_ms(fn, kernel)
+        row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
+        print(f"[profile] {kernel} at {row['shape']}: kernel alone {row['kernel_ms']:.5f} ms "
+              f"({PROFILE_REPS} launches; call {row['call_ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms); bound {row['bound_ms']:.5f} ms ({row['bound_by']}), "
+              f"{row['bound_share']:.3f} of it")
+    PENDING_PROFILES.clear()
 
 
 def near_tie_violations(got, ref, heat, thr):
@@ -180,25 +292,77 @@ def phase_device():
     return info
 
 
+def wgmma_in_sass(lib_path: str):
+    """{kernel name: HGMMA (wgmma) instructions} in the library's SASS, or
+    None without cuobjdump."""
+    import os
+    import subprocess
+
+    from caffe_rtpose_tpu_torch.utils.device import nvcc_path
+
+    nvcc = nvcc_path()
+    tool = os.path.join(os.path.dirname(nvcc), "cuobjdump") if nvcc else None
+    if not tool or not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
+                          timeout=120).stdout
+    counts, kernel = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : \S*?(conv1_block|upsample_peak_keys|peak_mask)_kernel", line)
+        if m:
+            kernel = m.group(1) + "_kernel"
+            counts[kernel] = 0
+        elif kernel and "HGMMA" in line:
+            counts[kernel] += 1
+    return counts
+
+
 def phase_build():
     from caffe_rtpose_tpu_torch import _build
+    from caffe_rtpose_tpu_torch.ops import nms_cuda
 
     t0 = time.perf_counter()
-    _build.load_kernels()
+    lib = _build.load_kernels()
     secs = time.perf_counter() - t0
     print(f"[build] kernels ready in {secs:.2f} s")
     kernel = "?"
-    for line in _build.build_log.get("crt_kernels", "").splitlines():
+    log = _build.build_log.get("crt_kernels", "")
+    for line in log.splitlines():
         if "Compiling entry function" in line:
             m = re.search(r"(conv1_block|upsample_peak_keys|peak_mask)_kernel", line)
             kernel = m.group(0) if m else "?"
-        elif "registers" in line or "spill" in line or "smem" in line:
+        elif "registers" in line or "spill" in line or "smem" in line or "arning" in line:
             print(f"[build] {kernel}: {line.replace('ptxas info    :', '').strip()}")
-    lib = _build.load_kernels()
+    geo = nms_cuda.tile_geometry(46, 82, 368, 656, 3, 1.0, 0.3)
     print(f"[build] conv1_block: {lib.crt_conv1_smem_bytes()} B of dynamic shared memory a "
-          f"block; peak_mask/upsample_peak_keys at low-res width 82: "
-          f"{lib.crt_tile_smem_bytes(82)} B")
+          f"block; peak_mask/upsample_peak_keys at COCO 3 scales: widest source window "
+          f"{geo.wh}x{geo.ww}, {lib.crt_tile_smem_bytes(3, geo.wh, geo.ww)} B a block")
+    check(lib.crt_tile_smem_bytes(3, geo.wh, geo.ww) == geo.smem,
+          "the host's shared-memory sum disagrees with the kernel's")
+    if log:  # built in this run: the library's path is on the nvcc line
+        path = re.search(r"-o (\S+)\.\d+\.\d+\.tmp", log).group(1)
+        counts = wgmma_in_sass(path)
+        if counts is None:
+            print("[build] cuobjdump not found: SASS not inspected")
+        else:
+            print(f"[build] HGMMA (wgmma) instructions in the SASS: {counts}")
+            check(counts.get("conv1_block_kernel", 0) > 0, "conv1_block_kernel has no wgmma")
     return secs
+
+
+def lowres_input(rs, s, h, w, c, layout, device):
+    """(S, h, w, C) f32 in [-1, 1) in one of the layouts the kernels meet:
+    contiguous NHWC, the estimator's ``low[..., :C]`` slice of a 57-channel
+    NHWC map, or channel-major storage (channel stride h*w)."""
+    import torch
+
+    if layout == "view57":
+        full = rs.rand(s, h, w, 57).astype(np.float32) * 2 - 1
+        return torch.from_numpy(full).to(device)[..., :c]
+    if layout == "chan_major":
+        return torch.from_numpy(rs.rand(s, c, h, w).astype(np.float32) * 2 - 1).to(
+            device).permute(0, 2, 3, 1)
+    return torch.from_numpy(rs.rand(s, h, w, c).astype(np.float32) * 2 - 1).to(device)
 
 
 def phase_kernels(device="cuda"):
@@ -208,41 +372,51 @@ def phase_kernels(device="cuda"):
     from caffe_rtpose_tpu_torch.ops.imresize import imresize_average
 
     dev = torch.device(device)
-    cases = [  # name, S, start, gap, h, w, factor, C
-        ("coco_1scale", 1, 1.0, 0.3, 46, 82, 8, 18),
-        ("coco_3scale_gap0.15", 3, 1.0, 0.15, 46, 82, 8, 18),
-        ("coco_3scale_gap0.3", 3, 1.0, 0.3, 46, 82, 8, 18),
-        ("mpi_3scale", 3, 0.9, 0.1, 46, 82, 8, 15),
-        ("small", 1, 1.0, 0.3, 12, 16, 8, 6),
-        ("small_3scale", 3, 0.9, 0.1, 12, 16, 8, 6),
-        ("ragged", 1, 1.0, 0.3, 13, 17, 8, 5),
-        ("ragged_3scale", 3, 0.9, 0.1, 13, 17, 8, 5),
+    cases = [  # name, S, start, gap, h, w, factor, C, layout
+        ("coco_1scale", 1, 1.0, 0.3, 46, 82, 8, 18, "nhwc"),
+        ("coco_3scale_gap0.15", 3, 1.0, 0.15, 46, 82, 8, 18, "nhwc"),
+        ("coco_3scale_gap0.3", 3, 1.0, 0.3, 46, 82, 8, 18, "nhwc"),
+        ("mpi_3scale", 3, 0.9, 0.1, 46, 82, 8, 15, "nhwc"),
+        ("small", 1, 1.0, 0.3, 12, 16, 8, 6, "nhwc"),
+        ("small_3scale", 3, 0.9, 0.1, 12, 16, 8, 6, "nhwc"),
+        ("ragged", 1, 1.0, 0.3, 13, 17, 8, 5, "nhwc"),
+        ("ragged_3scale", 3, 0.9, 0.1, 13, 17, 8, 5, "nhwc"),
+        ("coco_1scale_view57", 1, 1.0, 0.3, 46, 82, 8, 18, "view57"),
+        ("coco_3scale_view57", 3, 1.0, 0.3, 46, 82, 8, 18, "view57"),
+        ("coco_1scale_chan_major", 1, 1.0, 0.3, 46, 82, 8, 18, "chan_major"),
+        ("coco_1scale_vec4", 1, 1.0, 0.3, 46, 82, 8, 20, "nhwc"),
     ]
     thr = 0.05
-    timing = None
-    for i, (name, s, start, gap, h, w, f, c) in enumerate(cases):
+    timing = []
+    for i, (name, s, start, gap, h, w, f, c, layout) in enumerate(cases):
         rs = np.random.RandomState(100 + i)
-        low = torch.from_numpy(rs.rand(s, h, w, c).astype(np.float32) * 2 - 1).to(dev)
+        low = lowres_input(rs, s, h, w, c, layout, dev)
         th, tw = h * f, w * f
         got = nms_cuda.peak_mask_fused(low, (th, tw), start, gap, thr)
         torch.cuda.synchronize()
         ref = nms_cuda.peak_mask_fused_reference(low, (th, tw), start, gap, thr)
         heat = imresize_average(low, th, tw, start, gap)[0].permute(2, 0, 1)
+        check(got.dtype == torch.bool and got.shape == ref.shape, f"{name}: mask dtype/shape")
         n_diff, n_bad = near_tie_violations(got, ref, heat, thr)
-        print(f"[kernels] {name}: S={s} {h}x{w}->{th}x{tw} C={c}: {int(ref.sum())} peaks, "
-              f"{n_diff} pixels differ, {n_bad} of them no near-tie")
+        print(f"[kernels] {name}: S={s} {h}x{w}->{th}x{tw} C={c} {layout} (strides "
+              f"{tuple(low.stride())}, 16-byte loads {nms_cuda.vec4_loads(low)}): "
+              f"{int(ref.sum())} peaks, {n_diff} pixels differ, {n_bad} of them no near-tie")
         check(n_bad == 0, f"peak mask kernel disagrees with the plain version at {name}")
         check(int(ref.sum()) > 0, f"{name}: no peaks, the comparison is vacuous")
-        if name in ("coco_1scale", "coco_3scale_gap0.3"):
+        if name in ("coco_1scale_view57", "coco_3scale_view57"):  # the estimator's input
             args = (low, (th, tw), start, gap, thr)
             ms_p, ms_k, ms_k2, ms_p2 = time_pair(
                 lambda: nms_cuda.peak_mask_fused_reference(*args),
                 lambda: nms_cuda.peak_mask_fused(*args))
-            print(f"[kernels] {name} median of 20 (plain, kernel, kernel, plain): "
-                  f"{ms_p:.4f} {ms_k:.4f} {ms_k2:.4f} {ms_p2:.4f} ms")
-        if name == "coco_1scale":
-            max_err = float((got.to(torch.int8) - ref.to(torch.int8)).abs().max())
-            timing = dict(ms=min(ms_k, ms_k2), plain_ms=min(ms_p, ms_p2), max_abs_err=max_err)
+            b_ms, b_by = k1_bound(s, h, w, c, th, tw)
+            print(f"[kernels] {name} call median of 20 (plain, kernel, kernel, plain): "
+                  f"{ms_p:.4f} {ms_k:.4f} {ms_k2:.4f} {ms_p2:.4f} ms; bound {b_ms:.5f} ms "
+                  f"({b_by})")
+            row = timing_row(f"S={s} {h}x{w}x{c} (slice of 57) -> {th}x{tw}",
+                             lambda args=args: nms_cuda.peak_mask_fused(*args), "peak_mask_kernel",
+                             min(ms_k, ms_k2), min(ms_p, ms_p2), b_ms, b_by, None)
+            row["max_abs_err"] = float((got.to(torch.int8) - ref.to(torch.int8)).abs().max())
+            timing.append(row)
     return timing
 
 
@@ -252,20 +426,22 @@ def phase_upsample_keys(device="cuda"):
     from caffe_rtpose_tpu_torch.ops import nms_cuda
 
     dev = torch.device(device)
-    cases = [  # name, S, start, gap, h, w, factor, C, key channels
-        ("coco_1scale", 1, 1.0, 0.3, 46, 82, 8, 57, 18),
-        ("coco_3scale_gap0.3", 3, 1.0, 0.3, 46, 82, 8, 57, 18),
-        ("mpi_3scale", 3, 0.9, 0.1, 46, 82, 8, 44, 15),
-        ("small", 1, 1.0, 0.3, 12, 16, 8, 7, 7),
-        ("small_3scale", 3, 0.9, 0.1, 12, 16, 8, 7, 7),
-        ("ragged", 1, 1.0, 0.3, 13, 17, 8, 8, 5),
-        ("ragged_3scale", 3, 0.9, 0.1, 13, 17, 8, 8, 5),
+    cases = [  # name, S, start, gap, h, w, factor, C, key channels, layout
+        ("coco_1scale", 1, 1.0, 0.3, 46, 82, 8, 57, 18, "nhwc"),
+        ("coco_3scale_gap0.3", 3, 1.0, 0.3, 46, 82, 8, 57, 18, "nhwc"),
+        ("mpi_3scale", 3, 0.9, 0.1, 46, 82, 8, 44, 15, "nhwc"),
+        ("small", 1, 1.0, 0.3, 12, 16, 8, 7, 7, "nhwc"),
+        ("small_3scale", 3, 0.9, 0.1, 12, 16, 8, 7, 7, "nhwc"),
+        ("ragged", 1, 1.0, 0.3, 13, 17, 8, 8, 5, "nhwc"),
+        ("ragged_3scale", 3, 0.9, 0.1, 13, 17, 8, 8, 5, "nhwc"),
+        ("coco_1scale_view57", 1, 1.0, 0.3, 46, 82, 8, 18, 18, "view57"),
+        ("coco_1scale_chan_major", 1, 1.0, 0.3, 46, 82, 8, 19, 18, "chan_major"),
     ]
     thr = 0.05
-    timing = None
-    for i, (name, s, start, gap, h, w, f, c, kc) in enumerate(cases):
+    timing = []
+    for i, (name, s, start, gap, h, w, f, c, kc, layout) in enumerate(cases):
         rs = np.random.RandomState(200 + i)
-        low = torch.from_numpy(rs.rand(s, h, w, c).astype(np.float32) * 2 - 1).to(dev)
+        low = lowres_input(rs, s, h, w, c, layout, dev)
         th, tw = h * f, w * f
         heat, keys = nms_cuda.upsample_peak_keys(low, (th, tw), start, gap, thr, key_channels=kc)
         torch.cuda.synchronize()
@@ -279,20 +455,27 @@ def phase_upsample_keys(device="cuda"):
         n_diff, n_bad = near_tie_violations(got_m, ref_m, r_heat[:kc], thr)
         n_slots = int((keys != r_keys).sum())
         print(f"[kernels] upsample_peak_keys {name}: S={s} {h}x{w}->{th}x{tw} C={c} keys for "
-              f"{kc}: max |heat - plain| {max_err:.3g}, {int(ref_m.sum())} peaks, {n_slots} key "
-              f"slots and {n_diff} peak pixels differ, {n_bad} of them no near-tie")
+              f"{kc} {layout} (16-byte loads {nms_cuda.vec4_loads(low)}): max |heat - plain| "
+              f"{max_err:.3g}, {int(ref_m.sum())} peaks, {n_slots} key slots and {n_diff} peak "
+              f"pixels differ, {n_bad} of them no near-tie")
         check(heat_ok, f"upsample kernel's heat disagrees with the plain version at {name}")
         check(n_bad == 0, f"upsample kernel's keys disagree with the plain version at {name}")
         check(int(ref_m.sum()) > 0, f"{name}: no peaks, the comparison is vacuous")
-        if name in ("coco_1scale", "coco_3scale_gap0.3"):
+        if name == "coco_1scale":  # the heatmap path's input
             args = (low, (th, tw), start, gap, thr, kc)
             ms_p, ms_k, ms_k2, ms_p2 = time_pair(
                 lambda: nms_cuda.upsample_peak_keys_reference(*args),
                 lambda: nms_cuda.upsample_peak_keys(*args))
-            print(f"[kernels] upsample_peak_keys {name} median of 20 (plain, kernel, kernel, "
-                  f"plain): {ms_p:.4f} {ms_k:.4f} {ms_k2:.4f} {ms_p2:.4f} ms")
-        if name == "coco_1scale":
-            timing = dict(ms=min(ms_k, ms_k2), plain_ms=min(ms_p, ms_p2), max_abs_err=max_err)
+            b_ms, b_by = k3_bound(s, h, w, c, kc, th, tw)
+            print(f"[kernels] upsample_peak_keys {name} call median of 20 (plain, kernel, "
+                  f"kernel, plain): {ms_p:.4f} {ms_k:.4f} {ms_k2:.4f} {ms_p2:.4f} ms; bound "
+                  f"{b_ms:.5f} ms ({b_by})")
+            row = timing_row(f"S={s} {h}x{w}x{c} -> {th}x{tw}, keys for {kc}",
+                             lambda args=args: nms_cuda.upsample_peak_keys(*args),
+                             "upsample_peak_keys_kernel", min(ms_k, ms_k2), min(ms_p, ms_p2),
+                             b_ms, b_by, None)
+            row["max_abs_err"] = max_err
+            timing.append(row)
     return timing
 
 
@@ -611,7 +794,7 @@ def phase_conv1(device="cuda"):
 
     from caffe_rtpose_tpu_torch.ops import conv1_cuda
 
-    timing = {}
+    timing = []
     for i, (name, b, h, w) in enumerate(CONV1_CASES):
         x, cw = conv1_inputs(b, h, w, 300 + i, device)
         chain = cudnn_chain(cw)
@@ -631,17 +814,22 @@ def phase_conv1(device="cuda"):
               f"bf16 chain| {err_c:.4g}; {frac:.3f} of outputs > 0")
         check(n_bad == 0, f"[conv1] kernel disagrees with the plain version at {name}")
         check(frac > 0.2, f"[conv1] {name}: too few non-zero outputs, the comparison is vacuous")
-        if name in ("coco_b1", "coco_b8"):
+        # the same input in NCHW: the same sums, read through other strides
+        check(torch.equal(conv1_cuda.conv1_block(x.contiguous(), cw), got),
+              f"[conv1] {name}: NCHW input gives another result than channels_last")
+        if name in CONV1_TIMED:
             ms_p, ms_k, ms_k2, ms_p2 = time_pair(lambda: conv1_cuda.conv1_block_reference(x, cw),
                                                  lambda: conv1_cuda.conv1_block(x, cw))
             ms_c = cuda_ms(lambda: chain(x))
-            print(f"[conv1] {name} median of 20 (plain, kernel, kernel, plain; cuDNN bf16 chain): "
-                  f"{ms_p:.4f} {ms_k:.4f} {ms_k2:.4f} {ms_p2:.4f}; {ms_c:.4f} ms")
-            sfx = "" if name == "coco_b1" else "_b8"
-            timing.update({f"ms{sfx}": min(ms_k, ms_k2), f"plain_ms{sfx}": min(ms_p, ms_p2),
-                           f"cudnn_ms{sfx}": ms_c})
-            if name == "coco_b1":
-                timing["max_abs_err"] = float(err.max())
+            b_ms, b_by = k4_bound(b, h, w)
+            print(f"[conv1] {name} call median of 20 (plain, kernel, kernel, plain; cuDNN bf16 "
+                  f"chain): {ms_p:.4f} {ms_k:.4f} {ms_k2:.4f} {ms_p2:.4f}; {ms_c:.4f} ms; bound "
+                  f"{b_ms:.5f} ms ({b_by}, {2 * b * h * w * 64 * (27 + 576) / 1e9:.2f} GFLOP)")
+            row = timing_row(f"B*S={b} 3x{h}x{w}", lambda x=x, cw=cw: conv1_cuda.conv1_block(x, cw),
+                             "conv1_block_kernel", min(ms_k, ms_k2), min(ms_p, ms_p2), b_ms, b_by,
+                             ms_c)
+            row["max_abs_err"] = float(err.max())
+            timing.append(row)
     return timing
 
 
@@ -934,6 +1122,7 @@ def main() -> int:
     bf16 = phase_bf16(one["weights"])
     bf16_three = phase_bf16_3scale(bf16["weights"])
     bf16_heat = phase_bf16_heatmap(bf16["weights"], bf16["frames"][:HEATMAP_FRAMES])
+    profile_pending()
     keys = ("device_ms", "e2e_ms", "launches", "peaks", "people")
     for name, r in (("1-scale", one), ("3-scale", three)):
         print(json.dumps({"slice": name, **{k: r[k] for k in keys}}))
@@ -944,30 +1133,37 @@ def main() -> int:
                       **{k: v for k, v in bf16.items() if k not in ("weights", "frames")}}))
     print(json.dumps({"slice": "bf16 3-scale pack_u8", **bf16_three}))
     print(json.dumps({"slice": "bf16 heatmap", **bf16_heat}))
-    print(json.dumps({"kernels": [{
-        "name": "peak_mask_fused",
-        "route": "cuda",
-        "source": "caffe_rtpose_tpu_torch/csrc/peak_mask.cu",
-        "replaces": "caffe_rtpose_tpu/ops/nms_pallas.py:136",
-        "also_replaces": "caffe_rtpose_tpu/ops/nms_pallas.py:197",
-        "launches": one["launches"],
-        **t_mask,
-    }, {
-        "name": "upsample_peak_keys",
-        "route": "cuda",
-        "source": "caffe_rtpose_tpu_torch/csrc/upsample_peak_keys.cu",
-        "replaces": "caffe_rtpose_tpu/ops/nms_pallas.py:82",
-        "launches": heat["launches"],
-        **t_up,
-    }, {
-        "name": "conv1_block",
-        "route": "cuda",
-        "source": "caffe_rtpose_tpu_torch/csrc/conv1_block.cu",
-        "replaces": "caffe_rtpose_tpu/ops/conv1_pallas.py:56",
-        "launches": bf16["launches"],
-        **t_conv1,
-    }]}))
-    print(info["nvidia_smi"])
+    card = info["nvidia_smi"]
+    per_frame = {"bf16 batch 8": dict(conv1_block=bf16["launches"] / BF16_FRAMES,
+                                      peak_mask_fused=bf16["peak_mask_launches"] / BF16_FRAMES,
+                                      upsample_peak_keys=0.0)}
+    entries = [
+        ("peak_mask_fused", "caffe_rtpose_tpu_torch/csrc/peak_mask.cu",
+         "caffe_rtpose_tpu/ops/nms_pallas.py:136", one["launches"], t_mask, t_mask[0],
+         dict(also_replaces="caffe_rtpose_tpu/ops/nms_pallas.py:197", library_note=NO_LIBRARY)),
+        ("upsample_peak_keys", "caffe_rtpose_tpu_torch/csrc/upsample_peak_keys.cu",
+         "caffe_rtpose_tpu/ops/nms_pallas.py:82", heat["launches"], t_up, t_up[0],
+         dict(library_note=NO_LIBRARY)),
+        ("conv1_block", "caffe_rtpose_tpu_torch/csrc/conv1_block.cu",
+         "caffe_rtpose_tpu/ops/conv1_pallas.py:56", bf16["launches"], t_conv1, t_conv1[-1],
+         dict(library_note="cuDNN bf16 chain: conv, ReLU, conv, ReLU, max pool")),
+    ]
+    kernels = []
+    for name, source, replaces, launches, rows, main_row, extra in entries:
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces, **extra,
+            "launches": launches,
+            "launches_per_frame": {k: v[name] for k, v in per_frame.items()},
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": main_row["kernel_ms"], "kernel_ms": main_row["kernel_ms"],
+            "call_ms": main_row["call_ms"], "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+            "bound_share": main_row["bound_share"], "library_ms": main_row["library_ms"],
+            "main_shape": main_row["shape"], "card": card,
+            "shapes": [{k: v for k, v in r.items() if k != "max_abs_err"} for r in rows],
+        })
+    print(json.dumps({"kernels": kernels}))
+    print(card)
     # one card drives every phase
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

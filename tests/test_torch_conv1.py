@@ -113,19 +113,21 @@ def test_reference_edge_rows_are_padding_not_garbage():
 
 
 def _packed_gemm(x, cw):
-    """The kernel's arithmetic in torch, from the packed weights and in its
-    index order: conv1_1 from w1_k rows (ky, kx, c), conv1_2 as a GEMM with
-    K = (ky, kx, c_in) against w2_k, then the 2x2 max before + b2 and ReLU."""
+    """The kernel's arithmetic in torch, from the packed weights unpacked and
+    in its index order: conv1_1 from the K-padded rows (ky, kx, c), conv1_2
+    as a GEMM with K = (ky, kx, c_in), then the 2x2 max before + b2 and
+    ReLU."""
     B, _, H, W = x.shape
     xp = F.pad(x.float(), (2, 2, 2, 2))
     taps = torch.stack([xp[:, c, ky : ky + H + 2, kx : kx + W + 2]
                         for ky in range(3) for kx in range(3) for c in range(3)], -1)
-    h1 = (taps @ cw.w1_k + cw.b1).relu()  # (B, H+2, W+2, 64), a 1-pixel halo
+    taps = F.pad(taps, (0, 5))  # K padded from 27 to 32, as the kernel's tensor-core conv1_1
+    h1 = (taps @ cw.w1_matrix() + cw.b1).relu()  # (B, H+2, W+2, 64), a 1-pixel halo
     inside = torch.zeros(H + 2, W + 2, 1)
     inside[1:-1, 1:-1] = 1
     h1 = (h1 * inside).to(torch.bfloat16).float()
     a = torch.cat([h1[:, ky : ky + H, kx : kx + W] for ky in range(3) for kx in range(3)], -1)
-    acc = a @ cw.w2_k.float()  # (B, H, W, 64)
+    acc = a @ cw.w2_matrix().float()  # (B, H, W, 64)
     pooled = acc.reshape(B, H // 2, 2, W // 2, 2, 64).amax((2, 4))
     return (pooled + cw.b2).relu().to(torch.bfloat16)
 
@@ -133,9 +135,10 @@ def _packed_gemm(x, cw):
 def test_packed_weights_compute_the_block():
     args = _inputs((2, 16, 40), 7)
     xt, cw = _port(*args)
-    assert cw.w1_k.shape == (27, 64) and cw.w1_k.dtype == torch.float32
-    assert cw.w2_k.shape == (576, 64) and cw.w2_k.dtype == torch.bfloat16
-    assert torch.equal(cw.w1_k, cw.w1_k.to(torch.bfloat16).float())  # bf16 values
+    w1, w2 = cw.w1_matrix(), cw.w2_matrix()
+    assert w1.shape == (32, 64) and w1.dtype == torch.float32 and not w1[27:].any()
+    assert w2.shape == (576, 64) and w2.dtype == torch.bfloat16
+    assert torch.equal(w1, w1.to(torch.bfloat16).float())  # bf16 values
     _close(_packed_gemm(xt, cw).float().numpy(), _nhwc(conv1_cuda.conv1_block_reference(xt, cw)))
 
 

@@ -124,3 +124,30 @@ def test_kernel_matches_reference_on_cuda(cuda_device, s, start, gap, h, w, f, c
     ref = nms_cuda.peak_mask_fused_reference(low, (th, tw), start, gap, thr)
     heat = t_imresize.imresize_average(low.cpu(), th, tw, start, gap)[0].permute(2, 0, 1).numpy()
     assert_masks_equal_up_to_ties(got.cpu().numpy(), ref.cpu().numpy(), heat, thr)
+
+
+def strided_lowres(layout, s, h, w, c, seed, device):
+    """(S, h, w, C) in [-1, 1) as the estimator hands it over (``view57``:
+    ``low[..., :C]`` of a 57-channel NHWC map) or with channel stride h*w
+    (``chan_major``)."""
+    rs = np.random.RandomState(seed)
+    if layout == "view57":
+        full = rs.rand(s, h, w, 57).astype(np.float32) * 2 - 1
+        return torch.from_numpy(full).to(device)[..., :c]
+    return torch.from_numpy(rs.rand(s, c, h, w).astype(np.float32) * 2 - 1).to(device).permute(0, 2, 3, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["view57", "chan_major"])
+@pytest.mark.parametrize("s,start,gap", [(1, 1.0, 0.3), (3, 1.0, 0.3)])
+def test_kernel_reads_strided_input_on_cuda(cuda_device, layout, s, start, gap):
+    low = strided_lowres(layout, s, 46, 82, 18, s, cuda_device)
+    assert low.stride()[3] != 1 or low.stride()[2] == 57
+    th, tw, thr = 368, 656, 0.1
+    got = nms_cuda.peak_mask_fused(low, (th, tw), start, gap, thr)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bool
+    ref = nms_cuda.peak_mask_fused_reference(low, (th, tw), start, gap, thr)
+    assert int(ref.sum()) > 0
+    heat = t_imresize.imresize_average(low.cpu(), th, tw, start, gap)[0].permute(2, 0, 1).numpy()
+    assert_masks_equal_up_to_ties(got.cpu().numpy(), ref.cpu().numpy(), heat, thr)

@@ -144,3 +144,25 @@ def test_kernel_matches_reference_on_cuda(cuda_device, s, start, gap, h, w, f, c
     tol = 1e-5 * np.maximum(1.0, np.abs(r_heat))
     assert (np.abs(heat.cpu().numpy() - r_heat) <= tol).all()
     assert_key_sets_equal_up_to_ties(kb.cpu().numpy(), r_kb.cpu().numpy(), r_heat, thr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["view57", "chan_major"])
+def test_kernel_reads_strided_input_on_cuda(cuda_device, layout):
+    """The estimator's ``low[..., :C]`` slice of a 57-channel NHWC map, and
+    channel stride h*w."""
+    rs = np.random.RandomState(3)
+    s, h, w, c, kc, thr = 1, 46, 82, 18, 18, 0.1
+    if layout == "view57":
+        low = torch.from_numpy(rs.rand(s, h, w, 57).astype(np.float32) * 2 - 1).to(cuda_device)[..., :c]
+    else:
+        low = torch.from_numpy(rs.rand(s, c, h, w).astype(np.float32) * 2 - 1).to(cuda_device)
+        low = low.permute(0, 2, 3, 1)
+    th, tw = h * 8, w * 8
+    heat, kb = nms_cuda.upsample_peak_keys(low, (th, tw), 1.0, 0.3, thr, key_channels=kc)
+    torch.cuda.synchronize()
+    r_heat, r_kb = nms_cuda.upsample_peak_keys_reference(low, (th, tw), 1.0, 0.3, thr, kc)
+    r_heat = r_heat.cpu().numpy()
+    tol = 1e-5 * np.maximum(1.0, np.abs(r_heat))
+    assert (np.abs(heat.cpu().numpy() - r_heat) <= tol).all()
+    assert_key_sets_equal_up_to_ties(kb.cpu().numpy(), r_kb.cpu().numpy(), r_heat, thr)
