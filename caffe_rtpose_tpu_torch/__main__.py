@@ -1,0 +1,27 @@
+"""``python -m caffe_rtpose_tpu_torch <tool> ...`` — the tool dispatcher."""
+
+import importlib
+import sys
+
+TOOLS = {
+    "rtpose": ("tools.rtpose", "realtime multi-person pose demo"),
+}
+
+
+def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if not argv or argv[0] in ("-h", "--help"):
+        print("usage: python -m caffe_rtpose_tpu_torch <tool> [args]\n\ntools:")
+        for name, (_, desc) in TOOLS.items():
+            print(f"  {name:<8} {desc}")
+        return 0 if argv else 2
+    tool = argv[0]
+    if tool not in TOOLS:
+        print(f"unknown tool {tool!r}; one of: {', '.join(TOOLS)}", file=sys.stderr)
+        return 2
+    mod = importlib.import_module(f"caffe_rtpose_tpu_torch.{TOOLS[tool][0]}")
+    return mod.main(argv[1:])
+
+
+if __name__ == "__main__":
+    sys.exit(main())

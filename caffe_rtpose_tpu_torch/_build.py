@@ -105,7 +105,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         i, i, i, i,          # S, C, th, tw
         vp, vp, vp, vp,      # y tap idx/w, x tap idx/w
         vp, vp, i, i, i,     # y/x windows, widest window rows/columns, 16-byte loads
-        f, f, vp, vp,        # inv_s, thr, mask, stream
+        f, vp, vp, vp,       # inv_s, thr (f32 device scalar), mask, stream
     ]
     lib.crt_upsample_peak_keys.restype = i
     lib.crt_upsample_peak_keys.argtypes = [
@@ -113,7 +113,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         i, i, i, i, i,       # S, C, th, tw, key_channels
         vp, vp, vp, vp,      # y tap idx/w, x tap idx/w
         vp, vp, i, i, i,     # y/x windows, widest window rows/columns, 16-byte loads
-        f, f, vp, vp, vp,    # inv_s, thr, heat, keys, stream
+        f, vp, vp, vp, vp,   # inv_s, thr (f32 device scalar), heat, keys, stream
     ]
     lib.crt_conv1_smem_bytes.restype = ll
     lib.crt_conv1_smem_bytes.argtypes = []

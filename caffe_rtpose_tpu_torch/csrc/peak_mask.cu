@@ -7,6 +7,10 @@
 //     U_c = (1/S) sum_s Ay_s . L_s[:, :, c] . Ax_s^T         (th x tw)
 //     mask_c(y, x) = interior(y, x) && U > thr && U > max(8 neighbours)
 //
+// thr is read from an f32 scalar in device memory, as the TPU kernel reads
+// th_ref, so a captured CUDA graph takes a new threshold without a new
+// launch argument.
+//
 // The bicubic operator is separable and each output row/column has at most
 // four nonzero taps, so instead of the TPU's dense matmuls this kernel reads
 // per-output tap tables and accumulates in plain f32 FMA.
@@ -36,7 +40,9 @@ namespace {
 using namespace crt;
 
 __global__ void __launch_bounds__(kThreads)
-peak_mask_kernel(TileArgs a, float thr, uint8_t* __restrict__ mask) {  // (C, th, tw) bool
+peak_mask_kernel(TileArgs a, const float* __restrict__ thr_p,  // f32 device scalar
+                 uint8_t* __restrict__ mask) {                  // (C, th, tw) bool
+  const float thr = __ldg(thr_p);
   extern __shared__ float smem[];
   const TileSmem sm = carve_tile_smem(smem, a.S, a.wh, a.ww);
   const int tx = blockIdx.x, ty = blockIdx.y, c0 = blockIdx.z * kGroup;
@@ -101,7 +107,7 @@ int crt_peak_mask(const float* low, long long st_s, long long st_y, long long st
                   long long st_c, int S, int C, int th, int tw,
                   const int* ytap_idx, const float* ytap_w,
                   const int* xtap_idx, const float* xtap_w, const int* ywin, const int* xwin,
-                  int wh, int ww, int vec4, float inv_s, float thr, uint8_t* mask,
+                  int wh, int ww, int vec4, float inv_s, const float* thr, uint8_t* mask,
                   void* stream) {
   const size_t smem = (size_t)crt::tile_smem_bytes(S, wh, ww);
   cudaError_t e = crt::allow_smem(peak_mask_kernel, smem, &g_mask_smem_granted);

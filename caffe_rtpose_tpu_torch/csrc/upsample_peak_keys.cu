@@ -6,8 +6,9 @@
 //
 //     heat_c = U_c = (1/S) sum_s Ay_s . L_s[:, :, c] . Ax_s^T   (th x tw, f32)
 //
-// and for the first key_channels channels the strict-peak keys of U in the
-// horizontal-pair layout of ops/nms.py::block_keys: (key_channels,
+// and for the first key_channels channels the strict-peak keys of U (above
+// the threshold, an f32 scalar in device memory as the TPU kernel's th_ref)
+// in the horizontal-pair layout of ops/nms.py::block_keys: (key_channels,
 // th * (tw / 2)) int32, entry (y, bx) = H*W - pos of the peak among pixels
 // (y, 2bx) and (y, 2bx+1), or 0.  Two strict maxima are never horizontal
 // neighbours, so the layout is lossless, and its flattened order is raster
@@ -37,12 +38,14 @@ namespace {
 using namespace crt;
 
 __global__ void __launch_bounds__(kThreads)
-upsample_peak_keys_kernel(TileArgs a, int key_channels, float thr,
+upsample_peak_keys_kernel(TileArgs a, int key_channels,
+                          const float* __restrict__ thr_p,     // f32 device scalar
                           float* __restrict__ heat,            // (C, th, tw)
                           int32_t* __restrict__ keys) {        // (key_channels, th, tw/2)
   extern __shared__ float smem[];
   const TileSmem sm = carve_tile_smem(smem, a.S, a.wh, a.ww);
   const int tx = blockIdx.x, ty = blockIdx.y, c0 = blockIdx.z * kGroup;
+  const float thr = __ldg(thr_p);
   stage_tile(a, c0, ty, tx, sm);
   const int th = a.th, tw = a.tw;
   const float* acc = sm.acc;
@@ -92,7 +95,7 @@ int crt_upsample_peak_keys(const float* low, long long st_s, long long st_y, lon
                            long long st_c, int S, int C, int th, int tw, int key_channels,
                            const int* ytap_idx, const float* ytap_w, const int* xtap_idx,
                            const float* xtap_w, const int* ywin, const int* xwin, int wh, int ww,
-                           int vec4, float inv_s, float thr, float* heat, int32_t* keys,
+                           int vec4, float inv_s, const float* thr, float* heat, int32_t* keys,
                            void* stream) {
   const size_t smem = (size_t)crt::tile_smem_bytes(S, wh, ww);
   cudaError_t e = crt::allow_smem(upsample_peak_keys_kernel, smem, &g_keys_smem_granted);

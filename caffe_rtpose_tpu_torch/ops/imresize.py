@@ -26,6 +26,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..utils.device import device_const
+
 
 def _cubic_weights(dx: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     """Catmull-Rom coefficients as used by cubic_interpolation
@@ -92,11 +94,13 @@ def axis_weights_dense(coords: torch.Tensor, src_full: int, pad: int, target: in
     """
     osz = src_full - 2 * pad
     f32 = dict(dtype=torch.float32, device=coords.device)
+    scalar = lambda v: device_const(("f32", v), lambda: torch.tensor(v, dtype=torch.float32),  # noqa: E731
+                                    coords.device)
     t = coords.to(torch.float32)
-    offset = torch.tensor(target / float(osz) / 2.0 - 0.5, **f32)
-    step = torch.tensor(float(osz) / target, **f32)
+    offset = scalar(target / float(osz) / 2.0 - 0.5)
+    step = scalar(float(osz) / target)
     on_ori = (t - offset) * step
-    n1 = torch.trunc(on_ori + torch.tensor(1e-5, **f32)).to(torch.int32)
+    n1 = torch.trunc(on_ori + scalar(1e-5)).to(torch.int32)
     n1 = torch.clamp_min(n1, 0)
     n0 = torch.where(n1 - 1 < 0, n1, n1 - 1)
     n2 = torch.where(n1 + 1 >= osz, torch.full_like(n1, osz - 1), n1 + 1)
@@ -130,9 +134,11 @@ def imresize_average(
     ``Precision.HIGHEST``.
     """
     s, h, w, c = x.shape
-    Ay_np, Ax_np = _matrices(h, w, target_h, target_w, s, float(start_scale), float(scale_gap))
-    Ay = torch.from_numpy(Ay_np).to(x.device)  # (S, th, H)
-    Ax = torch.from_numpy(Ax_np).to(x.device)  # (S, tw, W)
+    args = (h, w, target_h, target_w, s, float(start_scale), float(scale_gap))
+    Ay = device_const(("imresize_Ay", *args), lambda: torch.from_numpy(_matrices(*args)[0]),
+                      x.device)  # (S, th, H)
+    Ax = device_const(("imresize_Ax", *args), lambda: torch.from_numpy(_matrices(*args)[1]),
+                      x.device)  # (S, tw, W)
     xf = x.to(torch.float32)
     # per scale: out[y, x, c] = sum_h sum_w Ay[y,h] * src[h,w,c] * Ax[x,w]
     tmp = torch.einsum("syh,shwc->sywc", Ay, xf)

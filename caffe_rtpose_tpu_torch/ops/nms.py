@@ -32,6 +32,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.device import device_const
 from .imresize import axis_weights_dense, scale_pads
 
 
@@ -162,8 +163,10 @@ def _window_coords(peak_pos: torch.Tensor, h: int, w: int):
     caller resolves those taps as flat-buffer reads into the next channel.
     """
     offs = np.stack(np.meshgrid(np.arange(-3, 4), np.arange(-3, 4), indexing="ij"), -1).reshape(-1, 2)
-    dys = torch.as_tensor(offs[:, 0], dtype=torch.int32, device=peak_pos.device)
-    dxs = torch.as_tensor(offs[:, 1], dtype=torch.int32, device=peak_pos.device)
+    dys = device_const(("window_dy",), lambda: torch.from_numpy(offs[:, 0].astype(np.int32)),
+                       peak_pos.device)
+    dxs = device_const(("window_dx",), lambda: torch.from_numpy(offs[:, 1].astype(np.int32)),
+                       peak_pos.device)
     pos = peak_pos.to(torch.int32)[..., None]
     yy = torch.div(pos, w, rounding_mode="floor") + dys  # (C, topk, 49)
     xx = torch.remainder(pos, w) + dxs

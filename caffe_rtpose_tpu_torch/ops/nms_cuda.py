@@ -21,6 +21,12 @@ tap tables, and the wrappers cache them per shape and device:
   :func:`..nms.block_keys`' horizontal-pair layout.  Bound by the heat
   write (55 MB a frame at COCO width).  The heatmap path's kernel.
 
+Both kernels read the NMS threshold from an f32 scalar in device memory, as
+the TPU kernels read ``th_ref``: the wrappers take a 0-d f32 tensor on the
+map's device (what a captured CUDA graph passes, so that a new threshold
+needs no new capture) or a Python float, which goes into a device scalar
+cached per value.
+
 Each wrapper launches its kernel for a CUDA tensor (or raises: there is no
 fallback) and runs the plain version for a CPU tensor.  ``launches`` and
 ``upsample_launches`` count kernel launches and nothing else.  The plain
@@ -39,6 +45,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.device import device_const
 from .imresize import _matrices, imresize_average
 from .nms import block_keys, find_peaks_mask
 
@@ -163,8 +170,20 @@ def _check_lowres(name: str, lowres: torch.Tensor, target_hw: Tuple[int, int]):
     return s, h, w, c, th, tw
 
 
+def threshold_scalar(threshold, device: torch.device) -> torch.Tensor:
+    """The kernels' threshold argument: a 0-d f32 tensor on ``device`` as
+    given, or a Python float in a device scalar cached per value."""
+    if isinstance(threshold, torch.Tensor):
+        if threshold.dim() != 0 or threshold.dtype != torch.float32 or threshold.device != device:
+            raise ValueError(f"threshold: expected a 0-d float32 tensor on {device}, got "
+                             f"{tuple(threshold.shape)} {threshold.dtype} on {threshold.device}")
+        return threshold
+    v = float(threshold)
+    return device_const(("f32", v), lambda: torch.tensor(v, dtype=torch.float32), device)
+
+
 def _launch(name: str, entry: str, lowres: torch.Tensor, target_hw, start_scale: float,
-            scale_gap: float, threshold: float, extra: tuple, outs: tuple) -> None:
+            scale_gap: float, threshold, extra: tuple, outs: tuple) -> None:
     """Launch one kernel on the current stream of ``lowres``' device: the
     library, the cached geometry and the strides.  ``extra`` are the int
     arguments after (S, C, th, tw), ``outs`` the output tensors.  Raises if
@@ -172,6 +191,7 @@ def _launch(name: str, entry: str, lowres: torch.Tensor, target_hw, start_scale:
     from .. import _build
 
     s, h, w, c, th, tw = _check_lowres(name, lowres, target_hw)
+    thr = threshold_scalar(threshold, lowres.device)
     lib = _build.load_kernels()
     geo, tables = _device_geometry(h, w, th, tw, s, float(start_scale), float(scale_gap),
                                    lowres.device)
@@ -181,7 +201,7 @@ def _launch(name: str, entry: str, lowres: torch.Tensor, target_hw, start_scale:
         stream = torch.cuda.current_stream(lowres.device).cuda_stream
         err = getattr(lib, entry)(
             *ptrs([lowres]), st[0], st[1], st[2], st[3], s, c, th, tw, *extra,
-            *ptrs(tables), geo.wh, geo.ww, int(vec4_loads(lowres)), 1.0 / s, float(threshold),
+            *ptrs(tables), geo.wh, geo.ww, int(vec4_loads(lowres)), 1.0 / s, *ptrs([thr]),
             *ptrs(outs), ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(
@@ -193,9 +213,10 @@ def peak_mask_fused_reference(
     target_hw: Tuple[int, int],
     start_scale: float,
     scale_gap: float,
-    threshold: float,
+    threshold,
 ) -> torch.Tensor:
-    """Plain PyTorch version: (C, th, tw) bool mask through the full-res map."""
+    """Plain PyTorch version: (C, th, tw) bool mask through the full-res map;
+    ``threshold`` a float or a 0-d f32 tensor."""
     th, tw = target_hw
     heat = imresize_average(lowres, th, tw, start_scale, scale_gap)[0].permute(2, 0, 1)
     return find_peaks_mask(heat, threshold)
@@ -206,7 +227,7 @@ def peak_mask_fused(
     target_hw: Tuple[int, int],
     start_scale: float,
     scale_gap: float,
-    threshold: float,
+    threshold,
 ) -> torch.Tensor:
     """(C, th, tw) bool strict-peak mask of the scale-averaged bicubic
     upsample of ``lowres``; equal to :func:`peak_mask_fused_reference` up to
@@ -228,7 +249,7 @@ def upsample_peak_keys_reference(
     target_hw: Tuple[int, int],
     start_scale: float,
     scale_gap: float,
-    threshold: float,
+    threshold,
     key_channels: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version: (heat (C, th, tw) f32, keys (K, th*(tw//2))
@@ -245,7 +266,7 @@ def upsample_peak_keys(
     target_hw: Tuple[int, int],
     start_scale: float,
     scale_gap: float,
-    threshold: float,
+    threshold,
     key_channels: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The scale-averaged bicubic upsample of all C channels as f32 heat

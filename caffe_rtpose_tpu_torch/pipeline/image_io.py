@@ -1,0 +1,132 @@
+"""Image files for the pipeline's ``--image_dir`` source, without OpenCV.
+
+:func:`read_image` returns a BGR u8 (H, W, 3) array, as ``cv2.imread(path,
+cv2.IMREAD_COLOR)`` does:
+
+* ``.png``: 8-bit gray, gray + alpha, RGB or RGBA, not interlaced, decoded
+  with ``zlib`` and the five scanline filters in numpy (alpha is dropped);
+* ``.bmp``: uncompressed 24- or 32-bit, or 8-bit with a palette, bottom-up
+  or top-down rows;
+* ``.jpg``: through ``cv2`` where it can be imported; without it the error
+  names the file.
+"""
+
+from __future__ import annotations
+
+import os
+import struct
+import zlib
+
+import numpy as np
+
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # color type -> samples a pixel
+
+
+def read_image(path: str) -> np.ndarray:
+    """The image at ``path`` as a BGR u8 (H, W, 3) array."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext == ".png":
+        with open(path, "rb") as f:
+            return _decode_png(f.read(), path)
+    if ext == ".bmp":
+        with open(path, "rb") as f:
+            return _decode_bmp(f.read(), path)
+    if ext in (".jpg", ".jpeg"):
+        try:
+            import cv2
+        except ImportError as e:
+            raise RuntimeError(f"{path}: reading JPEG needs OpenCV (cv2), which is not "
+                               "installed; convert the images to PNG or BMP") from e
+        img = cv2.imread(path, cv2.IMREAD_COLOR)
+        if img is None:
+            raise ValueError(f"{path}: OpenCV could not decode the file")
+        return img
+    raise ValueError(f"{path}: unsupported image type {ext!r}")
+
+
+def _unfilter(raw: np.ndarray, h: int, stride: int, bpp: int, path: str) -> np.ndarray:
+    """PNG scanlines (h, 1 + stride), each led by its filter type -> the
+    (h, stride) bytes."""
+    out = np.zeros((h, stride), np.uint8)
+    prior = np.zeros(stride, np.int32)
+    for y in range(h):
+        ftype, line = int(raw[y, 0]), raw[y, 1:].astype(np.int32)
+        if ftype == 0:
+            cur = line
+        elif ftype == 1:  # Sub: a running sum along each byte lane
+            cur = np.cumsum(line.reshape(-1, bpp), axis=0).reshape(-1) & 0xFF
+        elif ftype == 2:  # Up
+            cur = (line + prior) & 0xFF
+        elif ftype in (3, 4):  # Average, Paeth: each byte needs its decoded left neighbour
+            cur, up = line.tolist(), prior.tolist()
+            for i in range(stride):
+                a = cur[i - bpp] if i >= bpp else 0
+                b = up[i]
+                if ftype == 3:
+                    pred = (a + b) >> 1
+                else:
+                    c = up[i - bpp] if i >= bpp else 0
+                    p = a + b - c
+                    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+                    pred = a if pa <= pb and pa <= pc else b if pb <= pc else c
+                cur[i] = (cur[i] + pred) & 0xFF
+            cur = np.asarray(cur, np.int32)
+        else:
+            raise ValueError(f"{path}: PNG filter type {ftype} is invalid")
+        out[y] = cur
+        prior = cur
+    return out
+
+
+def _decode_png(data: bytes, path: str) -> np.ndarray:
+    if not data.startswith(PNG_SIGNATURE):
+        raise ValueError(f"{path}: not a PNG file")
+    pos, header, idat = len(PNG_SIGNATURE), None, []
+    while pos + 8 <= len(data):
+        length, ctype = struct.unpack(">I4s", data[pos : pos + 8])
+        body = data[pos + 8 : pos + 8 + length]
+        pos += 12 + length
+        if ctype == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif ctype == b"IDAT":
+            idat.append(body)
+        elif ctype == b"IEND":
+            break
+    if header is None or not idat:
+        raise ValueError(f"{path}: PNG without IHDR or IDAT")
+    w, h, depth, color, _, _, interlace = header
+    if depth != 8 or color not in _PNG_CHANNELS or interlace != 0:
+        raise ValueError(f"{path}: PNG of bit depth {depth}, color type {color}, interlace "
+                         f"{interlace}; 8-bit non-interlaced gray, RGB or RGBA is supported")
+    cn = _PNG_CHANNELS[color]
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    if raw.size < h * (1 + w * cn):
+        raise ValueError(f"{path}: truncated PNG image data")
+    px = _unfilter(raw[: h * (1 + w * cn)].reshape(h, 1 + w * cn), h, w * cn, cn,
+                   path).reshape(h, w, cn)
+    if cn <= 2:  # gray (+ alpha)
+        return np.repeat(px[:, :, :1], 3, axis=2)
+    return np.ascontiguousarray(px[:, :, 2::-1])  # RGB(A) -> BGR
+
+
+def _decode_bmp(data: bytes, path: str) -> np.ndarray:
+    if data[:2] != b"BM" or len(data) < 54:
+        raise ValueError(f"{path}: not a BMP file")
+    offset = struct.unpack("<I", data[10:14])[0]
+    hsize, w, h, _, bpp, comp = struct.unpack("<IiiHHI", data[14:34])
+    if bpp not in (8, 24, 32) or comp not in (0, 3) or (comp == 3 and bpp != 32) or w <= 0:
+        raise ValueError(f"{path}: BMP of {bpp} bits, compression {comp}; uncompressed 8-, "
+                         "24- or 32-bit is supported")
+    rows = abs(h)
+    stride = (w * bpp // 8 + 3) & ~3
+    px = np.frombuffer(data, np.uint8, rows * stride, offset).reshape(rows, stride)
+    if bpp == 8:
+        n_colors = struct.unpack("<I", data[46:50])[0] or 256
+        pal = np.frombuffer(data, np.uint8, n_colors * 4, 14 + hsize).reshape(n_colors, 4)
+        img = pal[px[:, :w], :3]
+    else:
+        img = px[:, : w * bpp // 8].reshape(rows, w, bpp // 8)[:, :, :3]
+    if h > 0:  # bottom-up rows
+        img = img[::-1]
+    return np.ascontiguousarray(img)

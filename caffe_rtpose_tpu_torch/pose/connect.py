@@ -34,6 +34,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.device import device_const
 from ..ops.imresize import axis_weights_dense, scale_pads
 from .descriptor import RENDER_MAX_PEOPLE, ConnectParams, ModelDescriptor
 
@@ -88,7 +89,8 @@ def _score(vx, vy, norm, px, py, inter_threshold):
 
 
 def _index(vals, dev):
-    return torch.as_tensor(vals, dtype=torch.int64, device=dev)
+    vals = tuple(int(v) for v in vals)
+    return device_const(("index", vals), lambda: torch.tensor(vals, dtype=torch.int64), dev)
 
 
 def _paf_index(desc: ModelDescriptor, dev):

@@ -24,6 +24,11 @@ batch of frames, in one of two branches:
 In bf16 the low-res maps are cast to f32 once, before the post segment, as
 every consumer of them in the JAX package does.  Only the greedy assembly
 runs on the host.
+
+On CUDA each device program is captured once as a CUDA graph and replayed
+per call (:class:`_Program`): the port of ``jax.jit``, which makes the pass
+one asynchronous call as the JAX package's is, instead of ~300 launches
+from Python.
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ import numpy as np
 import torch
 
 from ..core.net import Net
-from ..ops import nms_cuda
+from ..ops import conv1_cuda, nms_cuda
 from ..ops.nms import block_keys, compact_keys, peaks_from_keys, refine_from_low
 from ..utils.device import resolve_device
 from . import connect as C
@@ -87,9 +92,22 @@ class PoseEstimator:
     forces ``input_u8`` off, ignores ``pair_cap`` (outputs are unpacked at
     full ``max_peaks``) and refuses ``batch > 1`` (``ValueError``).
 
+    ``device_rescale`` (u8 input only, else ``ValueError``): upload only the
+    largest scale's live region and derive the smaller scales on the device
+    with the ``INTER_AREA`` matrices of ``preprocess.area_axis_matrix``, as
+    JAX does; an opt-in divergence whose pixels differ from the reference.
+
+    ``cuda_graph``: capture each device program (per pass shape and
+    ``pair_cap``, and the heatmap branch) as a CUDA graph at its first call
+    and replay it after (default on CUDA; off runs the same program
+    eagerly).  The CPU has no graphs.  A graph keeps the tensors it
+    captured, and ``Net.load_weights`` remakes the bf16 and packed copies:
+    load weights before the first call.  ``warm_overflow``: capture the
+    uncapped single-frame program in a background thread now, so the first
+    crowded frame does not wait for a capture (a no-op without graphs).
+
     Not ported yet, and refused with ``NotImplementedError`` rather than
-    ignored: ``device_rescale``, ``warm_overflow`` and file paths for
-    ``proto``/``weights``.
+    ignored: file paths for ``proto``/``weights``.
     """
 
     def __init__(
@@ -112,14 +130,12 @@ class PoseEstimator:
         device: Union[str, torch.device] = "cuda",
         peak_kernel: Optional[bool] = None,
         conv1_kernel: Optional[bool] = None,
+        cuda_graph: Optional[bool] = None,
     ):
         """``pair_cap``: transfer pair scores only for the first K peaks per
         part (raster order — identical to the reference for frames with
         <= K peaks/part).  Slot 0 of each part keeps the raw count, so a
         frame with more peaks is detected and refetched uncapped."""
-        for flag, name in ((device_rescale, "device_rescale"), (warm_overflow, "warm_overflow")):
-            if flag:
-                raise NotImplementedError(f"{name} is not ported yet")
         if not isinstance(proto, Mapping):
             raise NotImplementedError("proto must be a NetParameter dict (file paths are not ported)")
         if weights is not None and not isinstance(weights, Mapping):
@@ -130,6 +146,9 @@ class PoseEstimator:
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
         self.peak_kernel = (self.device.type == "cuda") if peak_kernel is None else bool(peak_kernel)
+        self.cuda_graph = (self.device.type == "cuda") if cuda_graph is None else bool(cuda_graph)
+        if self.cuda_graph and self.device.type != "cuda":
+            raise ValueError("cuda_graph needs a CUDA device")
         net_w, net_h = net_resolution
         self.net_w, self.net_h = net_w, net_h
         self.num_scales = num_scales
@@ -137,9 +156,12 @@ class PoseEstimator:
         self.scale_gap = scale_gap
         self.keep_heatmap = bool(keep_heatmap)
         self.input_u8 = bool(input_u8) and not self.keep_heatmap
+        self.device_rescale = bool(device_rescale)
+        if self.device_rescale and not self.input_u8:
+            raise ValueError("device_rescale requires input_u8")
         if pack_u8 is None:
             pack_u8 = self.input_u8 and num_scales > 1
-        self.pack_u8 = bool(pack_u8) and self.input_u8
+        self.pack_u8 = bool(pack_u8) and self.input_u8 and not self.device_rescale
         self.batch = int(batch)
         if self.batch < 1:
             raise ValueError("batch must be a positive frame count")
@@ -185,10 +207,17 @@ class PoseEstimator:
                               int(resize.param.get("target_spatial_width", 368)))
         self._layers = self.net.prune_for([self.lowres_blob])
         self._mask: Optional[torch.Tensor] = None
-        if self.pack_u8:
+        if self.pack_u8 or self.device_rescale:
             self._regions, self._packed_bytes = preprocess.packed_regions(
                 net_w, net_h, num_scales, start_scale, scale_gap)
-        elif self.input_u8:
+        if self.device_rescale:
+            # per smaller scale: Wy (th_n, th_0) and Wx (tw_n, tw_0)
+            th0, tw0 = self._regions[0][:2]
+            self._rescale = [
+                tuple(torch.from_numpy(preprocess.area_axis_matrix(n, n0)).to(self.device)
+                      for n, n0 in ((rh, th0), (rw, tw0)))
+                for rh, rw, _, _, _ in self._regions[1:]]
+        elif self.input_u8 and not self.pack_u8:
             mask = np.zeros((num_scales, net_h, net_w, 1), np.float32)
             for i, (y0, y1, x0, x1) in enumerate(
                     preprocess.region_boxes(net_w, net_h, num_scales, start_scale, scale_gap)):
@@ -196,6 +225,29 @@ class PoseEstimator:
             self._mask = torch.from_numpy(mask).to(self.device)
         self._overflow_lock = threading.Lock()
         self._overflow_refetches = 0
+        # captured programs by (branch, pair capacity, frames a pass); one
+        # lock covers capture, replay and the copies around it, and one
+        # memory pool serves them all
+        self._graphs: Dict[tuple, _Program] = {}
+        self._graph_lock = threading.Lock()
+        self._graph_pool = torch.cuda.graph_pool_handle() if self.cuda_graph else None
+        self._warm_thread: Optional[threading.Thread] = None
+        self._warm_error: Optional[BaseException] = None
+        if (warm_overflow and self.cuda_graph and not self.keep_heatmap
+                and self.eff_peaks < self.max_peaks):
+            # capture the uncapped program now, so the first crowded frame
+            # costs one extra pass and not a capture mid-stream (JAX
+            # compiles it in the background for the same reason)
+            self._warm_thread = threading.Thread(target=self._warm_nocap, name="warm_overflow",
+                                                 daemon=True)
+            self._warm_thread.start()
+
+    def _warm_nocap(self) -> None:
+        try:
+            x = np.zeros((1, *self.input_shape()), self.input_dtype)
+            self._run(x, None, None, eff_peaks=self.max_peaks)
+        except Exception as e:  # raised again by the first refetch_full
+            self._warm_error = e
 
     # ------------------------------------------------------------- device
 
@@ -204,7 +256,19 @@ class PoseEstimator:
         in the net's dtype, a channels_last view where the input is u8."""
         S, H, W = self.num_scales, self.net_h, self.net_w
         f = x.shape[0]
-        if self.pack_u8:
+        if self.device_rescale:
+            # one uploaded live region -> every scale's canvas.  Normalize
+            # first: the INTER_AREA rows sum to 1, so the resize commutes
+            # with u8/256 - 0.5 and the padding stays exactly 0 (JAX
+            # estimator.py:240-255)
+            th0, tw0 = self._regions[0][:2]
+            base = x.to(torch.float32).reshape(f, th0, tw0, 3) / 256.0 - 0.5
+            xf = torch.zeros((f, S, H, W, 3), dtype=torch.float32, device=x.device)
+            for i, (rh, rw, padh, padw, _) in enumerate(self._regions):
+                seg = base if i == 0 else torch.einsum("ah,fhwc,bw->fabc", self._rescale[i - 1][0],
+                                                       base, self._rescale[i - 1][1])
+                xf[:, i, padh : padh + rh, padw : padw + rw] = seg
+        elif self.pack_u8:
             # flat live regions -> normalized padded canvases: u8/256 - 0.5
             # inside each region, 0 padding (JAX estimator.py:256-268)
             xf = torch.zeros((f, S, H, W, 3), dtype=torch.float32, device=x.device)
@@ -230,15 +294,15 @@ class PoseEstimator:
         return low.reshape(-1, self.num_scales, *low.shape[1:])
 
     @torch.inference_mode()
-    def _heatmap_program(self, x: torch.Tensor, nms_threshold: float,
-                         inter_threshold: float) -> Dict[str, torch.Tensor]:
+    def _heatmap_program(self, x: torch.Tensor, nms_threshold,
+                         inter_threshold) -> Dict[str, torch.Tensor]:
         """One uploaded frame (1, S, 3, H, W) -> :meth:`_heatmap_post` of
         its low-res maps."""
         return self._heatmap_post(self._lowres(self._canvases(x))[0], nms_threshold,
                                   inter_threshold)
 
-    def _heatmap_post(self, low: torch.Tensor, nms_threshold: float,
-                      inter_threshold: float) -> Dict[str, torch.Tensor]:
+    def _heatmap_post(self, low: torch.Tensor, nms_threshold,
+                      inter_threshold) -> Dict[str, torch.Tensor]:
         """One frame's (S, h, w, C) f32 low-res maps through the full-res
         maps -> peaks, pair scores, pair counts and the (C, th, tw) heatmap."""
         fn = (nms_cuda.upsample_peak_keys if self.peak_kernel
@@ -252,7 +316,7 @@ class PoseEstimator:
         return {"peaks": peaks, "pair_score": pair_score, "pair_count": pair_count,
                 "heatmap": heat}
 
-    def _post(self, low: torch.Tensor, nms_threshold: float, inter_threshold: float,
+    def _post(self, low: torch.Tensor, nms_threshold, inter_threshold,
               eff_peaks: int) -> torch.Tensor:
         """One frame's (S, h, w, C) f32 low-res maps -> its packed u8 row."""
         P, max_peaks = self.num_parts, self.max_peaks
@@ -279,25 +343,40 @@ class PoseEstimator:
         ])
 
     @torch.inference_mode()
-    def _device_program(self, x: torch.Tensor, nms_threshold: float,
-                        inter_threshold: float, eff_peaks: int) -> torch.Tensor:
+    def _device_program(self, x: torch.Tensor, nms_threshold,
+                        inter_threshold, eff_peaks: int) -> torch.Tensor:
         """F uploaded frames -> (F, n) packed u8 rows: one CNN call for all
-        F*S canvases, then the post segment frame by frame."""
+        F*S canvases, then the post segment frame by frame.  The thresholds
+        are floats or 0-d f32 tensors on the device (a graph's inputs)."""
         low = self._lowres(self._canvases(x))
         return torch.stack([self._post(l, nms_threshold, inter_threshold, eff_peaks)
                             for l in low])
 
     def _run(self, frames: np.ndarray, nms_threshold, inter_threshold,
              eff_peaks: Optional[int] = None) -> Dict[str, torch.Tensor]:
-        """(F, *input_shape) host frames -> device outputs, not synchronized."""
+        """(F, *input_shape) host frames -> device outputs, not synchronized:
+        a graph's replay, or the same program run eagerly."""
         p = self.params_connect
         nms_thr = float(p.nms_threshold if nms_threshold is None else nms_threshold)
         inter_thr = float(p.inter_threshold if inter_threshold is None else inter_threshold)
-        x = torch.from_numpy(np.ascontiguousarray(frames)).to(self.device)
+        frames = np.ascontiguousarray(frames)
         if self.keep_heatmap:
-            return self._heatmap_program(x, nms_thr, inter_thr)
-        eff = self.eff_peaks if eff_peaks is None else int(eff_peaks)
-        return {"packed": self._device_program(x, nms_thr, inter_thr, eff)}
+            key, fn = ("heatmap",), self._heatmap_program
+        else:
+            eff = self.eff_peaks if eff_peaks is None else int(eff_peaks)
+            key = ("packed", eff, frames.shape[0])
+
+            def fn(x, nms_t, inter_t):
+                return {"packed": self._device_program(x, nms_t, inter_t, eff)}
+
+        if not self.cuda_graph:
+            return fn(torch.from_numpy(frames).to(self.device), nms_thr, inter_thr)
+        with self._graph_lock, torch.cuda.device(self.device), torch.inference_mode():
+            prog = self._graphs.get(key)
+            if prog is None:
+                prog = self._graphs[key] = _Program(key, fn, frames, nms_thr, inter_thr,
+                                                    self.device, self._graph_pool)
+            return prog.replay(frames, nms_thr, inter_thr)
 
     def run_device(self, net_input: np.ndarray, nms_threshold=None,
                    inter_threshold=None) -> Dict[str, torch.Tensor]:
@@ -360,6 +439,11 @@ class PoseEstimator:
         """Overflow slow path: rerun ONE frame with the cap disabled and
         return (peaks, pair_score, pair_count) at full max_peaks.  Logged —
         capping must never be silent."""
+        if self._warm_thread is not None:
+            self._warm_thread.join()
+            if self._warm_error is not None:
+                raise RuntimeError("warm_overflow: capturing the uncapped program failed") \
+                    from self._warm_error
         with self._overflow_lock:
             self._overflow_refetches += 1
             n = self._overflow_refetches
@@ -369,10 +453,21 @@ class PoseEstimator:
                         eff_peaks=self.max_peaks)
         return self.unpack(out["packed"][0].cpu().numpy(), eff=self.max_peaks)
 
+    def replayed_launches(self) -> Dict[str, int]:
+        """Hand-kernel launches this estimator's graph replays made so far,
+        by kernel name: each program's replays times its kernel nodes.  A
+        replay makes no wrapper call, so the wrappers' counters miss these."""
+        with self._graph_lock:
+            progs = list(self._graphs.values())
+        return {k: sum(p.replays * p.nodes[k] for p in progs) for k in kernel_calls()}
+
     # --------------------------------------------------------------- host
 
     def input_shape(self) -> Tuple[int, ...]:
         """Host-side transfer shape for ONE frame (no batch axis)."""
+        if self.device_rescale:
+            th0, tw0 = self._regions[0][:2]
+            return (th0 * tw0 * 3,)
         if self.pack_u8:
             return (self._packed_bytes,)
         if self.input_u8:
@@ -384,8 +479,10 @@ class PoseEstimator:
         return np.uint8 if self.input_u8 else np.float32
 
     def make_input(self, display_bgr: np.ndarray) -> np.ndarray:
-        """Display-res BGR frame -> this estimator's transfer format (needs
-        OpenCV for the per-scale resize)."""
+        """Display-res BGR frame -> this estimator's transfer format."""
+        if self.device_rescale:
+            return preprocess.make_net_input_u8_base(display_bgr, self.net_w, self.net_h,
+                                                     self.start_scale)
         make = (preprocess.make_net_input_u8_packed if self.pack_u8
                 else preprocess.make_net_input_u8 if self.input_u8
                 else preprocess.make_net_input)
@@ -417,3 +514,96 @@ class PoseEstimator:
         res = C.assemble_fast(peaks, pair_score, pair_count, self.descriptor, pc, scale_xy)
         hm = out["heatmap"].cpu().numpy() if self.keep_heatmap else None
         return PoseResult(joints=res.joints, num_people=res.num_people, peaks=peaks, heatmap=hm)
+
+    def estimate(
+        self,
+        frame_bgr: np.ndarray,
+        disp_w: Optional[int] = None,
+        disp_h: Optional[int] = None,
+        **kw,
+    ) -> Tuple[PoseResult, preprocess.PreprocessedFrame]:
+        """Full path from a BGR frame: preprocess -> device -> assemble.
+        Joint coords are scaled net->display (rtpose.cpp:1058-1060)."""
+        pf = preprocess.preprocess_frame(
+            frame_bgr, self.net_w, self.net_h,
+            disp_w=disp_w, disp_h=disp_h,
+            num_scales=self.num_scales, start_scale=self.start_scale, scale_gap=self.scale_gap,
+            u8=("base" if self.device_rescale
+                else "packed" if self.pack_u8 else self.input_u8),
+        )
+        dw = disp_w if disp_w is not None else pf.display.shape[1]
+        dh = disp_h if disp_h is not None else pf.display.shape[0]
+        scale_xy = (dw / float(self.net_w), dh / float(self.net_h))
+        result = self.estimate_from_net_input(pf.net_input, scale_xy=scale_xy, **kw)
+        return result, pf
+
+
+def kernel_calls() -> Dict[str, int]:
+    """The hand kernels' wrapper counters, by the kernel's name on the card."""
+    return {"peak_mask_kernel": nms_cuda.launches,
+            "upsample_peak_keys_kernel": nms_cuda.upsample_launches,
+            "conv1_block_kernel": conv1_cuda.launches}
+
+
+class _Program:
+    """One device program captured as a CUDA graph: static inputs (the
+    frames and the two thresholds as 0-d f32 device scalars), the graph and
+    its static outputs.
+
+    Capture runs the program once eagerly on a side stream first (builds
+    the kernels, uploads their tables and the program's constants, lets
+    cuDNN pick its algorithms), then records it with
+    ``capture_error_mode="thread_local"``, so other threads may fetch and
+    synchronize meanwhile.  A failed capture raises.  :meth:`replay` copies
+    the frames in through a ring of pinned buffers (a buffer is reused only
+    after its copy has landed), writes the thresholds, replays and returns
+    clones of the outputs, so a later replay never overwrites outputs a
+    caller has not fetched yet.  The owner serializes calls.  ``nodes``: the
+    hand-kernel launches one replay makes (the wrapper calls of the capture;
+    no other thread may call a wrapper meanwhile); ``replays``: the replays
+    so far."""
+
+    SLOTS = 4
+
+    def __init__(self, key: tuple, fn, frames: np.ndarray, nms_thr: float, inter_thr: float,
+                 device: torch.device, pool):
+        host = torch.from_numpy(frames)
+        self.x = torch.empty(host.shape, dtype=host.dtype, device=device)
+        self.nms = torch.zeros((), dtype=torch.float32, device=device)
+        self.inter = torch.zeros((), dtype=torch.float32, device=device)
+        self._staging = [(torch.empty(host.shape, dtype=host.dtype).pin_memory(),
+                          torch.cuda.Event()) for _ in range(self.SLOTS)]
+        self._slot = 0
+        self._load(frames, nms_thr, inter_thr)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            fn(self.x, self.nms, self.inter)
+        torch.cuda.current_stream(device).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        before = kernel_calls()
+        try:
+            with torch.cuda.graph(self.graph, pool=pool, capture_error_mode="thread_local"):
+                self.out = fn(self.x, self.nms, self.inter)
+        except Exception as e:
+            raise RuntimeError(f"CUDA graph capture of the {key} program failed") from e
+        # a wrapper call under capture records one kernel node, and every
+        # replay launches each node once
+        self.nodes = {k: n - before[k] for k, n in kernel_calls().items()}
+        self.replays = 0
+
+    def _load(self, frames: np.ndarray, nms_thr: float, inter_thr: float) -> None:
+        buf, landed = self._staging[self._slot]
+        self._slot = (self._slot + 1) % self.SLOTS
+        landed.synchronize()
+        np.copyto(buf.numpy(), frames)
+        self.x.copy_(buf, non_blocking=True)
+        landed.record()
+        self.nms.fill_(nms_thr)
+        self.inter.fill_(inter_thr)
+
+    def replay(self, frames: np.ndarray, nms_thr: float, inter_thr: float) -> Dict[str, torch.Tensor]:
+        self._load(frames, nms_thr, inter_thr)
+        self.graph.replay()
+        self.replays += 1
+        return {k: v.clone() for k, v in self.out.items()}

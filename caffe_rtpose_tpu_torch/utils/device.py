@@ -11,7 +11,7 @@ from __future__ import annotations
 import os
 import shutil
 import subprocess
-from typing import Dict, Optional, Union
+from typing import Callable, Dict, Hashable, Optional, Union
 
 import torch
 
@@ -25,6 +25,23 @@ def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+_consts: Dict[tuple, torch.Tensor] = {}
+
+
+def device_const(key: Hashable, make: Callable[[], torch.Tensor],
+                 device: torch.device) -> torch.Tensor:
+    """``make()``, a host tensor, on ``device``: uploaded at its first use
+    and then cached under ``key``.  For the read-only constants of the
+    device program (index tables, interpolation weights): an upload
+    synchronizes the stream, which a CUDA graph capture forbids, so the
+    eager pass before a capture makes them and the capture finds them."""
+    k = (key, str(device))
+    t = _consts.get(k)
+    if t is None:
+        t = _consts[k] = make().to(device)
+    return t
 
 
 def nvcc_path() -> Optional[str]:

@@ -29,18 +29,41 @@ Phases, each of which raises (non-zero exit) on failure:
                larger of the bytes the function must move over 3.35 TB/s and
                its f32 operations over 67 TFLOP/s; bound_share =
                bound_ms / kernel_ms.
+   Then, with the 1-scale slice's calibrated weights (below):
+   graph     - each device program as a captured CUDA graph (the
+               estimators' default on CUDA) against the same program run
+               eagerly on the same estimator, at two NMS thresholds set
+               between replays: f32 1 scale, bf16 batch 8, the f32 heatmap
+               branch; outputs within 1e-4 (and whether bit-identical),
+               a lower threshold finds more peaks, device and end-to-end
+               ms/frame of both; kernels per replay from torch.profiler
+               (checked against 1 K1 / 8 K1 + 1 K4 / 1 K3), measured after
+               the pipeline and cli phases.
+   preprocess- host ms of the OpenCV-free preprocess: 1280x720 -> 656x368,
+               and 1920x1080 warped to 1280x720 first.
+   pipeline  - the main path: RtPosePipeline at bf16 batch 8, no frame
+               drops, 16 synthetic 1280x720 frames (8 through frame_iter, 8
+               as PNG files the script encodes with zlib), each frame's
+               JSON equal to estimate() on the same frame; the kernel
+               wrappers' counters zeroed before its estimator exists and
+               read after (the eager pass and the capture; the card runs
+               the replays); then 64 frames for FPS and per-stage ms.
+   cli       - tools.rtpose.main --no_weights on 8 PNG frames, exit 0, one
+               JSON file a frame, the overflow refetch count printed.
 4. slice     - the full-width COCO estimator (656x368, 1 scale, u8 input,
                pair_cap=32, f32) over 8 synthetic frames through
-               estimate_from_net_input, with the peak-mask kernel's launch
-               count read around that run; its packed outputs against the
-               same estimator with the plain peak mask; device and
-               end-to-end ms/frame.  Then once more at 3 scales.
+               estimate_from_net_input (graph replays), with the peak-mask
+               kernel's launches counted by torch.profiler around that run
+               (the wrapper counts only the eager pass and the capture);
+               its packed outputs against the same estimator with the
+               plain peak mask; device and end-to-end ms/frame.  Then once
+               more at 3 scales.
 5. heatmap   - the full-width COCO estimator with keep_heatmap=True (656x368,
                1 scale, f32 input: the 1-scale slice's first 4 canvases,
                normalised and masked on the host, with its weights) through
-               estimate_from_net_input, with the upsample kernel's launch
-               count read around that run (the peak-mask kernel must not
-               launch); its outputs against the same estimator with the
+               estimate_from_net_input, with the upsample kernel's launches
+               counted by the profiler around that run (the peak-mask
+               kernel must not launch); its outputs against the same estimator with the
                plain version, and against the packed realtime estimator
                (u8 input, no pair_cap) on the same frames.  Device and
                end-to-end ms/frame, and the heatmap fetch's ms alone.
@@ -62,7 +85,8 @@ Phases, each of which raises (non-zero exit) on failure:
                batch=8, 16 frames through run_device + fetch_batch (with the
                overflow refetch) and through estimate_from_net_input, with
                the conv1 kernel's launches (one per device pass) and the
-               peak-mask kernel's (one per frame row) read around each run.
+               peak-mask kernel's (one per frame row) counted by the
+               profiler around each run.
                Against the same estimator with conv1_kernel=False and
                peak_kernel=False, and against the f32 estimator on the same
                frames: the low-res maps' relative L2 distances, and the
@@ -84,9 +108,9 @@ hundreds of peaks in every part).
 
 The bf16 phases reuse the 1-scale f32 slice's weights and frames.
 
-The last three lines are: a JSON object with one entry per kernel, the
-card's name and power limit as nvidia-smi prints them, and
-{"ok": true, "device": {...}}.
+The last three lines are: a JSON object with one entry per TPU kernel (K1
+and its 3-scale form K2 listed apart), the card's name and power limit as
+nvidia-smi prints them, and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -110,6 +134,7 @@ TOL_CONV1_REL = 2.0 ** -7  # two bf16 ulps, as tests/test_torch_conv1.py
 TOL_CONV1_ABS = 2.0 ** -13
 BF16_FRAMES = 16
 BF16_BATCH = 8  # bench.py's batch
+PIPELINE_TIMED_FRAMES = 64
 MATCH_PX = 1.0  # the project's joint budget: 1 px, 0.01 confidence
 MATCH_SCORE = 0.01
 # share of the other side's peaks reproduced within that budget (match_share);
@@ -166,12 +191,88 @@ def kernel_ms(fn, kernel: str, reps: int = PROFILE_REPS):
     total_us, count = 0.0, 0
     for evt in prof.key_averages():
         if kernel in evt.key:
-            total_us += getattr(evt, "device_time_total", None) or evt.cuda_time_total
+            total_us += device_us(evt)
             count += evt.count
     # CUPTI may drop the first launch of a window: average over what it saw
     check(count >= reps // 2 and total_us > 0,
           f"the profiler saw {count} launches of {kernel} ({total_us} us) for {reps} calls")
     return total_us / count / 1000.0
+
+
+KERNEL_NAMES = ("peak_mask_kernel", "upsample_peak_keys_kernel", "conv1_block_kernel")
+
+
+def device_us(evt) -> float:
+    """A profiler event's device time in us (the attribute's name changed
+    across torch versions)."""
+    t = getattr(evt, "device_time_total", None)
+    return evt.cuda_time_total if t is None else t
+
+
+def device_kernels(fn):
+    """``fn()`` under torch.profiler -> (its result, {hand kernel: launches
+    the card ran}, every kernel the card ran, their summed device ms).  A replayed CUDA graph makes
+    no Python call, so the wrappers' counters see only the eager pass and
+    the capture; the card's trace counts the replays."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)  # CUPTI may drop a window's first launch: let it be this one
+        torch.cuda.synchronize()
+        res = fn()
+        torch.cuda.synchronize()
+    from torch.autograd import DeviceType
+
+    counts, total, busy_us = dict.fromkeys(KERNEL_NAMES, 0), 0, 0.0
+    for evt in prof.key_averages():
+        name = evt.key
+        if (evt.device_type != DeviceType.CUDA or "Memcpy" in name or "Memset" in name
+                or "spin_kernel" in name):
+            continue  # runtime calls, copies, the filler
+        total += evt.count
+        busy_us += device_us(evt)
+        for k in KERNEL_NAMES:
+            if k in name:
+                counts[k] += evt.count
+    return res, counts, total, busy_us / 1000.0
+
+
+# CUPTI loses a kernel record now and then under graph replay: two replays
+# of one bf16 batch-8 program summed to an odd kernel count (7,919 and 7,945
+# on an H100 80GB HBM3 at 700 W), and one window saw 127 of 128 peak-mask
+# launches.  The graphs' own count (replays times the kernel nodes each
+# capture recorded) is exact and checked exactly; the card's trace must
+# confirm it to within one record in CUPTI_SLACK, and at least one.
+CUPTI_SLACK = 100
+
+
+def replay_kernels(fn, *ests):
+    """``fn()`` under torch.profiler, every program it runs on ``ests``
+    captured before -> (its result, {hand kernel: launches the estimators'
+    replays made}, {hand kernel: launches the profiler saw}, every kernel
+    the card ran, their summed device ms)."""
+    from caffe_rtpose_tpu_torch.pose.estimator import kernel_calls
+
+    calls0, rep0 = kernel_calls(), [e.replayed_launches() for e in ests]
+    res, seen, total, busy = device_kernels(fn)
+    calls = kernel_calls()
+    check(calls == calls0, f"wrapper calls in a replay window: {calls0} -> {calls} (an eager pass "
+          f"or a capture)")
+    replayed = {k: sum(e.replayed_launches()[k] - r[k] for e, r in zip(ests, rep0))
+                for k in KERNEL_NAMES}
+    return res, replayed, seen, total, busy
+
+
+def check_launches(tag, replayed, seen, expect):
+    """Each hand kernel's replayed launches equal ``expect`` (0 where it is
+    missing), and the profiler saw them, within CUPTI_SLACK."""
+    for k in KERNEL_NAMES:
+        n, s, want = replayed[k], seen[k], expect.get(k, 0)
+        check(n == want, f"{tag} {k}: the graphs launched it {n} times, expected {want}")
+        low = max(1, want - max(1, want // CUPTI_SLACK)) if want else 0
+        check(low <= s <= want, f"{tag} {k}: the profiler saw {s} of its {want} launches")
 
 
 def bound(n_bytes: float, n_ops: float, peak_ops: float):
@@ -532,37 +633,58 @@ def canvases(rs, n, shape):
     return out
 
 
+def slice_config(num_scales: int, device: str, net_resolution):
+    import torch
+
+    return dict(net_resolution=net_resolution, num_scales=num_scales, input_u8=True,
+                pair_cap=32, pack_u8=False, dtype=torch.float32, device=device)
+
+
+def calibrated_weights(num_scales: int, n_frames: int, device="cuda",
+                       net_resolution=(656, 368), stages=6):
+    """Seeded fan-in weights with the part head calibrated on n_frames
+    synthetic u8 canvases -> (weights, canvases)."""
+    from caffe_rtpose_tpu_torch.models.cpm import make_pose_deploy_net
+    from caffe_rtpose_tpu_torch.pose.estimator import PoseEstimator
+
+    est = PoseEstimator(make_pose_deploy_net("COCO", stages=stages),
+                        **slice_config(num_scales, device, net_resolution))
+    frames = canvases(np.random.RandomState(0), n_frames, est.input_shape())
+    weights = fan_in_weights(est.net, 0)
+    est.net.load_weights(weights)
+    return calibrate_heat_head(est, weights, frames, HEAT_FRAC), frames
+
+
 def phase_slice(num_scales: int, n_frames: int, device="cuda", net_resolution=(656, 368),
-                stages=6):
+                stages=6, weights=None, frames=None):
     import torch
 
     from caffe_rtpose_tpu_torch.models.cpm import make_pose_deploy_net
     from caffe_rtpose_tpu_torch.ops import nms_cuda
     from caffe_rtpose_tpu_torch.pose.estimator import PoseEstimator
 
-    cfg = dict(net_resolution=net_resolution, num_scales=num_scales, input_u8=True,
-               pair_cap=32, pack_u8=False, dtype=torch.float32, device=device)
+    cfg = slice_config(num_scales, device, net_resolution)
     proto = make_pose_deploy_net("COCO", stages=stages)
-    est = PoseEstimator(proto, peak_kernel=True, **cfg)
-    rs = np.random.RandomState(0)
-    frames = canvases(rs, n_frames, est.input_shape())
-    weights = fan_in_weights(est.net, 0)
-    est.net.load_weights(weights)
-    weights = calibrate_heat_head(est, weights, frames, HEAT_FRAC)
-    est.net.load_weights(weights)
+    if weights is None:
+        weights, frames = calibrated_weights(num_scales, n_frames, device, net_resolution, stages)
+    est = PoseEstimator(proto, weights=weights, peak_kernel=True, **cfg)
     twin = PoseEstimator(proto, weights=weights, peak_kernel=False, **cfg)
     tag = f"[slice {num_scales}-scale]"
 
-    est.estimate_from_net_input(frames[0])  # warm-up (cuDNN autotune, allocator)
-    torch.cuda.synchronize()
     nms_cuda.launches = 0
-    refetch0 = est._overflow_refetches
+    est.estimate_from_net_input(frames[0])  # builds the kernels, captures the graph
+    torch.cuda.synchronize()
+    calls = nms_cuda.launches  # the eager pass and the capture
     t0 = time.perf_counter()
     results = [est.estimate_from_net_input(f) for f in frames]
     e2e_ms = (time.perf_counter() - t0) * 1000.0 / n_frames
-    launches = nms_cuda.launches
+    check(calls >= 1, f"{tag} the peak-mask wrapper never launched")
+    refetch0 = est._overflow_refetches
+    _, replayed, seen, _, _ = replay_kernels(
+        lambda: [est.estimate_from_net_input(f) for f in frames], est)
     passes = n_frames + est._overflow_refetches - refetch0
-    check(launches == passes, f"{tag} kernel launched {launches} times for {passes} device passes")
+    check_launches(tag, replayed, seen, {"peak_mask_kernel": passes})
+    launches, seen1 = replayed["peak_mask_kernel"], seen["peak_mask_kernel"]
 
     dev_ms = cuda_ms(lambda: est.run_device(frames[1 % n_frames]), reps=n_frames)
     total_peaks = 0
@@ -585,11 +707,12 @@ def phase_slice(num_scales: int, n_frames: int, device="cuda", net_resolution=(6
     people = [r.num_people for r in results]
     print(f"{tag} {n_frames} frames: device {dev_ms:.3f} ms/frame (CUDA events, median), "
           f"end-to-end {e2e_ms:.3f} ms/frame (host clock), peak-mask launches {launches} "
-          f"for {passes} passes, peaks {total_peaks}, people {people}, "
+          f"for {passes} replayed passes ({seen1} in the profiler; wrapper calls {calls} for "
+          f"the eager pass and the capture), peaks {total_peaks}, people {people}, "
           f"max |kernel path - plain path| {max_err:.3g}")
     check(total_peaks > 0, f"{tag} no peaks at all")
-    return dict(device_ms=dev_ms, e2e_ms=e2e_ms, launches=launches, peaks=total_peaks,
-                people=people, weights=weights, frames=frames)
+    return dict(device_ms=dev_ms, e2e_ms=e2e_ms, launches=calls, device_launches=launches,
+                peaks=total_peaks, people=people, weights=weights, frames=frames)
 
 
 def real_pairs(desc, peaks):
@@ -656,17 +779,20 @@ def phase_heatmap(weights, canvases_u8, device="cuda", net_resolution=(656, 368)
                                    .transpose(0, 3, 1, 2)) for u8 in canvases_u8]
     check(est.input_shape() == inputs[0].shape and not est.input_u8, f"{tag} input format")
 
-    est.estimate_from_net_input(inputs[0])  # warm-up
-    torch.cuda.synchronize()
     nms_cuda.launches = 0
     nms_cuda.upsample_launches = 0
+    est.estimate_from_net_input(inputs[0])  # builds the kernels, captures the graph
+    torch.cuda.synchronize()
+    calls, mask_calls = nms_cuda.upsample_launches, nms_cuda.launches
+    check(calls >= 1 and mask_calls == 0, f"{tag} wrapper calls: upsample {calls}, peak mask "
+          f"{mask_calls}")
     t0 = time.perf_counter()
     results = [est.estimate_from_net_input(x) for x in inputs]
     e2e_ms = (time.perf_counter() - t0) * 1000.0 / len(inputs)
-    launches, mask_launches = nms_cuda.upsample_launches, nms_cuda.launches
-    check(launches == len(inputs),
-          f"{tag} upsample kernel launched {launches} times for {len(inputs)} device passes")
-    check(mask_launches == 0, f"{tag} the peak-mask kernel launched {mask_launches} times")
+    _, replayed, seen, _, _ = replay_kernels(
+        lambda: [est.estimate_from_net_input(x) for x in inputs], est)
+    check_launches(tag, replayed, seen, {"upsample_peak_keys_kernel": len(inputs)})
+    launches, mask_launches = replayed["upsample_peak_keys_kernel"], replayed["peak_mask_kernel"]
 
     dev_ms = cuda_ms(lambda: est.run_device(inputs[1]), reps=len(inputs))
     fetch = []
@@ -719,8 +845,9 @@ def phase_heatmap(weights, canvases_u8, device="cuda", net_resolution=(656, 368)
           f"max |kernel - plain| heat {max_heat_err:.3g}, peaks/scores {max_err:.3g}; pair "
           f"counts differing at near-ties: {n_ties_plain} vs plain, {n_ties_packed} vs packed")
     check(total_peaks > 0, f"{tag} no peaks at all")
-    return dict(device_ms=dev_ms, e2e_ms=e2e_ms, fetch_ms=fetch_ms, launches=launches,
-                peaks=total_peaks, people=people, canvas=canvases_u8[-1][0],
+    return dict(device_ms=dev_ms, e2e_ms=e2e_ms, fetch_ms=fetch_ms, launches=calls,
+                device_launches=launches, peaks=total_peaks, people=people,
+                canvas=canvases_u8[-1][0],
                 result=results[-1])
 
 
@@ -912,31 +1039,33 @@ def phase_bf16(weights, device="cuda", net_resolution=(656, 368), stages=6,
           and not twin.net.conv1_kernel, f"{tag} kernel switches")
     batches = [np.stack(frames[i : i + batch]) for i in range(0, n_frames, batch)]
 
-    est.fetch_batch(est.run_device(batches[0]))  # warm-up (cuDNN autotune, allocator)
-    torch.cuda.synchronize()
     conv1_cuda.launches = nms_cuda.launches = 0
-    refetch0 = est._overflow_refetches
+    est.fetch_batch(est.run_device(batches[0]))  # builds the kernels, captures the graph
+    torch.cuda.synchronize()
+    calls4, calls1 = conv1_cuda.launches, nms_cuda.launches
+    check(calls4 >= 1 and calls1 >= 1, f"{tag} wrapper calls: conv1 {calls4}, peak mask {calls1}")
     t0 = time.perf_counter()
     results = run_batched(est, batches)
     e2e_ms = (time.perf_counter() - t0) * 1000.0 / n_frames
-    k4, k1 = conv1_cuda.launches, nms_cuda.launches
+    refetch0 = est._overflow_refetches
+    _, counts, seen, per_pass, _ = replay_kernels(lambda: run_batched(est, batches), est)
+    k4, k1 = counts["conv1_block_kernel"], counts["peak_mask_kernel"]
     refetches = est._overflow_refetches - refetch0
     passes = len(batches) + refetches
-    check(k4 == passes, f"{tag} conv1 kernel launched {k4} times for {passes} device passes")
-    check(k1 == n_frames + refetches,
-          f"{tag} peak-mask kernel launched {k1} times for {n_frames + refetches} frames")
+    check_launches(f"{tag} run_device + fetch_batch:", counts, seen,
+                   {"conv1_block_kernel": passes, "peak_mask_kernel": n_frames + refetches})
 
-    conv1_cuda.launches = nms_cuda.launches = 0
-    refetch0 = est._overflow_refetches
     t0 = time.perf_counter()
     single = [est.estimate_from_net_input(f) for f in frames]
     e2e_one_ms = (time.perf_counter() - t0) * 1000.0 / n_frames
+    refetch0 = est._overflow_refetches
+    _, counts1, seen1, _, _ = replay_kernels(
+        lambda: [est.estimate_from_net_input(f) for f in frames], est)
     refetches1 = est._overflow_refetches - refetch0
-    k4_one, k1_one = conv1_cuda.launches, nms_cuda.launches
-    check(k4_one == n_frames + refetches1, f"{tag} estimate_from_net_input: conv1 kernel "
-          f"launched {k4_one} times for {n_frames + refetches1} passes")
-    check(k1_one == batch * n_frames + refetches1, f"{tag} estimate_from_net_input: peak-mask "
-          f"kernel launched {k1_one} times for {batch * n_frames + refetches1} frame rows")
+    k4_one, k1_one = counts1["conv1_block_kernel"], counts1["peak_mask_kernel"]
+    check_launches(f"{tag} estimate_from_net_input:", counts1, seen1,
+                   {"conv1_block_kernel": n_frames + refetches1,
+                    "peak_mask_kernel": batch * n_frames + refetches1})
     same = sum(np.array_equal(a.peaks, b[0], equal_nan=True) for a, b in zip(single, results))
 
     xd = torch.from_numpy(batches[0]).to(device)
@@ -970,7 +1099,10 @@ def phase_bf16(weights, device="cuda", net_resolution=(656, 368), stages=6,
           f"f32 pass {dev_f32_ms:.3f} ms/frame), end-to-end {e2e_ms:.3f} ms/frame through "
           f"run_device + fetch_batch, {e2e_one_ms:.3f} ms/frame through estimate_from_net_input "
           f"(one padded batch a frame); conv1 launches {k4} for {passes} passes and {k4_one} "
-          f"for {n_frames + refetches1}; peak-mask launches {k1} and {k1_one}; overflow "
+          f"for {n_frames + refetches1}; peak-mask launches {k1} and {k1_one} (the graphs' "
+          f"count; the profiler saw conv1 {seen['conv1_block_kernel']} and "
+          f"{seen1['conv1_block_kernel']}, peak-mask {seen['peak_mask_kernel']} and "
+          f"{seen1['peak_mask_kernel']}); overflow "
           f"refetches {refetches} and {refetches1}; frames with identical peaks on both "
           f"paths {same}/{n_frames}; peaks {total}, people {people}")
     print(f"{tag} low-res maps, relative L2: kernel path vs plain path {d_twin:.4g}, kernel path "
@@ -985,7 +1117,9 @@ def phase_bf16(weights, device="cuda", net_resolution=(656, 368), stages=6,
     check(share_twin >= MATCH_FLOOR, f"{tag} {share_twin:.4f} of the plain path's peaks matched")
     check(share_f32 >= MATCH_FLOOR, f"{tag} {share_f32:.4f} of the f32 peaks matched")
     return dict(device_ms=dev_ms, cnn_ms=cnn_ms, cnn_f32_ms=cnn_f32_ms, f32_device_ms=dev_f32_ms,
-                e2e_ms=e2e_ms, e2e_single_ms=e2e_one_ms, launches=k4, peak_mask_launches=k1,
+                e2e_ms=e2e_ms, e2e_single_ms=e2e_one_ms, launches=calls4,
+                peak_mask_launches=calls1, device_launches=k4, peak_mask_device_launches=k1,
+                kernels_per_pass=per_pass / passes,
                 peaks=total, people=people, share_plain=share_twin, share_f32=share_f32,
                 share_f32_strict=strict_f32, l2_plain=d_twin, l2_f32=d_f32, weights=weights,
                 frames=frames)
@@ -1002,7 +1136,6 @@ def phase_bf16_3scale(weights, device="cuda", net_resolution=(656, 368), stages=
     import torch
 
     from caffe_rtpose_tpu_torch.models.cpm import make_pose_deploy_net
-    from caffe_rtpose_tpu_torch.ops import conv1_cuda, nms_cuda
     from caffe_rtpose_tpu_torch.pose.estimator import PoseEstimator
     from caffe_rtpose_tpu_torch.pose.preprocess import region_boxes
 
@@ -1025,17 +1158,17 @@ def phase_bf16_3scale(weights, device="cuda", net_resolution=(656, 368), stages=
     est.net.load_weights(weights)
     canvas.net.load_weights(weights)
 
-    est.estimate_from_net_input(frames[0])  # warm-up
+    est.estimate_from_net_input(frames[0])  # builds the kernels, captures the graph
     torch.cuda.synchronize()
-    conv1_cuda.launches = nms_cuda.launches = 0
-    refetch0 = est._overflow_refetches
     t0 = time.perf_counter()
     results = [est.estimate_from_net_input(f) for f in frames]
     e2e_ms = (time.perf_counter() - t0) * 1000.0 / n_frames
+    refetch0 = est._overflow_refetches
+    _, counts, seen, _, _ = replay_kernels(
+        lambda: [est.estimate_from_net_input(f) for f in frames], est)
     passes = n_frames + est._overflow_refetches - refetch0
-    k4, k1 = conv1_cuda.launches, nms_cuda.launches
-    check(k4 == passes, f"{tag} conv1 kernel launched {k4} times for {passes} passes")
-    check(k1 == passes, f"{tag} peak-mask kernel launched {k1} times for {passes} passes")
+    k4, k1 = counts["conv1_block_kernel"], counts["peak_mask_kernel"]
+    check_launches(tag, counts, seen, {"conv1_block_kernel": passes, "peak_mask_kernel": passes})
     dev_ms = cuda_ms(lambda: est.run_device(frames[1 % n_frames]), reps=n_frames)
     for f, c in zip(frames, canv):
         check(torch.equal(est.run_device(f)["packed"], canvas.run_device(c)["packed"]),
@@ -1056,7 +1189,6 @@ def phase_bf16_heatmap(weights, canvases_u8, device="cuda", net_resolution=(656,
     import torch
 
     from caffe_rtpose_tpu_torch.models.cpm import make_pose_deploy_net
-    from caffe_rtpose_tpu_torch.ops import conv1_cuda, nms_cuda
     from caffe_rtpose_tpu_torch.pose.estimator import PoseEstimator
     from caffe_rtpose_tpu_torch.pose.preprocess import region_boxes
 
@@ -1072,16 +1204,16 @@ def phase_bf16_heatmap(weights, canvases_u8, device="cuda", net_resolution=(656,
         mask[0, y0:y1, x0:x1] = 1.0
     inputs = [np.ascontiguousarray(((u8.astype(np.float32) / 256.0 - 0.5) * mask)
                                    .transpose(0, 3, 1, 2)) for u8 in canvases_u8]
-    est.estimate_from_net_input(inputs[0])  # warm-up
+    est.estimate_from_net_input(inputs[0])  # builds the kernels, captures the graph
     torch.cuda.synchronize()
-    conv1_cuda.launches = nms_cuda.launches = nms_cuda.upsample_launches = 0
     t0 = time.perf_counter()
     results = [est.estimate_from_net_input(x) for x in inputs]
     e2e_ms = (time.perf_counter() - t0) * 1000.0 / len(inputs)
-    k4, k3, k1 = conv1_cuda.launches, nms_cuda.upsample_launches, nms_cuda.launches
-    check(k4 == len(inputs), f"{tag} conv1 kernel launched {k4} times for {len(inputs)} passes")
-    check(k3 == len(inputs), f"{tag} upsample kernel launched {k3} times for {len(inputs)} passes")
-    check(k1 == 0, f"{tag} the peak-mask kernel launched {k1} times")
+    _, counts, seen, _, _ = replay_kernels(
+        lambda: [est.estimate_from_net_input(x) for x in inputs], est)
+    k4, k3, k1 = (counts[k] for k in KERNEL_NAMES[::-1])
+    check_launches(tag, counts, seen, {"conv1_block_kernel": len(inputs),
+                                       "upsample_peak_keys_kernel": len(inputs)})
     dev_ms = cuda_ms(lambda: est.run_device(inputs[1 % len(inputs)]), reps=len(inputs))
     plain = [twin.estimate_from_net_input(x) for x in inputs]
     share, n_ref, _, _, _ = match_share([r.peaks for r in plain], [r.peaks for r in results],
@@ -1104,6 +1236,279 @@ def phase_bf16_heatmap(weights, canvases_u8, device="cuda", net_resolution=(656,
                 peaks=total, people=[r.num_people for r in results], share_plain=share)
 
 
+GRAPH_THRESHOLDS = (0.05, 0.03)  # the default, then one the demo's -/= keys reach
+
+
+def outputs_equal(a, b):
+    """(bit-identical, max |a - b| over the float outputs) of two device
+    output dicts."""
+    import torch
+
+    same, err = True, 0.0
+    for k in a:
+        same &= torch.equal(a[k], b[k])
+        if a[k].is_floating_point():
+            d = (a[k] - b[k]).abs().nan_to_num(0.0)
+            err = max(err, float(d.max()))
+    return same, err
+
+
+def phase_graph(weights, frames_u8, device="cuda", net_resolution=(656, 368), stages=6,
+                batch=BF16_BATCH):
+    """Each device program as a CUDA graph against the same program run
+    eagerly on the same estimator, at two thresholds set between replays;
+    device and end-to-end ms/frame of both.  Returns the rows and the
+    estimators for phase_graph_launches."""
+    import torch
+
+    from caffe_rtpose_tpu_torch.models.cpm import make_pose_deploy_net
+    from caffe_rtpose_tpu_torch.pose.estimator import PoseEstimator
+    from caffe_rtpose_tpu_torch.pose.preprocess import region_boxes
+
+    proto = make_pose_deploy_net("COCO", stages=stages)
+    res = net_resolution
+    base = dict(net_resolution=res, num_scales=1, device=device)
+    mask = np.zeros((1, res[1], res[0], 1), np.float32)
+    for y0, y1, x0, x1 in region_boxes(res[0], res[1], 1, 1.0, 0.3):
+        mask[0, y0:y1, x0:x1] = 1.0
+    f32_in = np.ascontiguousarray(((frames_u8[0].astype(np.float32) / 256.0 - 0.5) * mask)
+                                  .transpose(0, 3, 1, 2))
+    configs = [
+        ("f32 1-scale", dict(input_u8=True, pair_cap=32), frames_u8[0], 1,
+         {"peak_mask_kernel": 1, "conv1_block_kernel": 0, "upsample_peak_keys_kernel": 0}),
+        (f"bf16 batch {batch}", dict(input_u8=True, pair_cap=32, dtype=torch.bfloat16, batch=batch),
+         np.stack(frames_u8[:batch]), batch,
+         {"peak_mask_kernel": batch, "conv1_block_kernel": 1, "upsample_peak_keys_kernel": 0}),
+        ("f32 heatmap", dict(keep_heatmap=True), f32_in, 1,
+         {"peak_mask_kernel": 0, "conv1_block_kernel": 0, "upsample_peak_keys_kernel": 1}),
+    ]
+    out, graphs = {}, []
+    for name, kw, x, frames, expect in configs:
+        tag = f"[graph {name}]"
+        est = PoseEstimator(proto, weights=weights, **base, **kw)
+        check(est.cuda_graph, f"{tag} graphs are the default on CUDA")
+        runs = {}
+        for thr in GRAPH_THRESHOLDS:  # graph, eager, graph, eager: the threshold moves between replays
+            for mode in (True, False):
+                est.cuda_graph = mode
+                runs[(thr, mode)] = est.run_device(x, nms_threshold=thr)
+        est.cuda_graph = True
+        again = est.run_device(x, nms_threshold=GRAPH_THRESHOLDS[0])
+        torch.cuda.synchronize()
+        same, err = zip(*(outputs_equal(runs[(t, True)], runs[(t, False)])
+                          for t in GRAPH_THRESHOLDS))
+        for t, e in zip(GRAPH_THRESHOLDS, err):
+            check(e <= TOL_FLOAT, f"{tag} graph and eager differ by {e} at threshold {t}")
+        first_same, _ = outputs_equal(again, runs[(GRAPH_THRESHOLDS[0], True)])
+        check(first_same, f"{tag} a replay at the first threshold changed after the second")
+        fetch = est.fetch_batch if est.batch > 1 else est.fetch
+        rows = lambda o: est.fetch_batch(o) if est.batch > 1 else [est.fetch(o)]  # noqa: E731
+        counts = [sum(int(pk[:, 0, 0].sum()) for pk, _, _ in rows(runs[(t, True)]))
+                  for t in GRAPH_THRESHOLDS]
+        check(counts[1] > counts[0], f"{tag} peaks at thresholds {GRAPH_THRESHOLDS}: {counts}; the "
+              f"lower threshold must find more")
+        times = {}
+        for mode in (True, False, False, True):  # graph, eager, eager, graph
+            est.cuda_graph = mode
+            ms = cuda_ms(lambda: est.run_device(x), reps=10) / frames
+            t0 = time.perf_counter()
+            for _ in range(5):
+                fetch(est.run_device(x))
+            e2e = (time.perf_counter() - t0) * 1000.0 / (5 * frames)
+            times.setdefault(mode, []).append((ms, e2e))
+        est.cuda_graph = True
+        g, e = times[True], times[False]
+        print(f"{tag} graph vs eager outputs at thresholds {GRAPH_THRESHOLDS}: bit-identical "
+              f"{list(same)}, max |diff| {max(err):.3g}; peaks {counts}; device ms/frame graph "
+              f"{g[0][0]:.3f} {g[1][0]:.3f}, eager {e[0][0]:.3f} {e[1][0]:.3f} (CUDA events, "
+              f"median of 10, order graph eager eager graph); end-to-end ms/frame (run_device + "
+              f"fetch, host clock, 5 passes) graph {g[0][1]:.3f} {g[1][1]:.3f}, eager "
+              f"{e[0][1]:.3f} {e[1][1]:.3f}")
+        out[name] = dict(bit_identical=all(same), max_abs_diff=max(err), peaks=counts,
+                         graph_device_ms=min(t[0] for t in g), eager_device_ms=min(t[0] for t in e),
+                         graph_e2e_ms=min(t[1] for t in g), eager_e2e_ms=min(t[1] for t in e))
+        graphs.append((tag, est, x, expect, out[name]))
+    return out, graphs
+
+
+def phase_graph_launches(graphs, reps=4):
+    """Kernels per replay of each graph phase program, from the graphs' count
+    and torch.profiler (after every timed phase: a profiling window slows
+    later launches)."""
+    for tag, est, x, expect, row in graphs:
+        _, launches, seen, total, busy = replay_kernels(
+            lambda: [est.run_device(x) for _ in range(reps)], est)
+        check_launches(tag, launches, seen, {k: v * reps for k, v in expect.items()})
+        per_replay = {k: v / reps for k, v in launches.items()}
+        frames = est.batch
+        print(f"{tag} kernels per replay ({reps} replays): {per_replay}, the profiler saw "
+              f"{seen}; every kernel of a pass: {total / reps:.0f}, their device time "
+              f"{busy / reps / frames:.3f} ms/frame against {row['graph_device_ms']:.3f} ms/frame "
+              f"of the pass")
+        row.update(launches_per_replay=per_replay, kernels_per_pass=total / reps,
+                   kernel_busy_ms_per_frame=busy / reps / frames)
+
+
+def frames_720p(rs, n):
+    """Synthetic 1280x720 BGR frames in the style of canvases()."""
+    return [c[0] for c in canvases(rs, n, (1, 720, 1280, 3))]
+
+
+def write_png(path, bgr):
+    """An 8-bit RGB PNG with filter 0 rows, encoded with zlib alone."""
+    import struct
+    import zlib
+
+    h, w, _ = bgr.shape
+    raw = b"".join(b"\x00" + bgr[y, :, ::-1].tobytes() for y in range(h))
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
+
+
+def phase_preprocess(rs):
+    """Host ms of the OpenCV-free preprocess: a 1280x720 frame to the u8
+    656x368 canvas (the default display, so no warp), and a 1920x1080 frame
+    warped to 1280x720 first."""
+    from caffe_rtpose_tpu_torch.pose import preprocess as P
+
+    f720, f1080 = frames_720p(rs, 1)[0], np.ascontiguousarray(
+        (rs.rand(1080, 1920, 3) * 255).astype(np.uint8))
+    times = {}
+    for name, fn in (("1280x720 -> 656x368", lambda: P.preprocess_frame(
+                         f720, 656, 368, 1280, 720, u8=True)),
+                     ("1920x1080 -> warp 1280x720 -> 656x368", lambda: P.preprocess_frame(
+                         f1080, 656, 368, 1280, 720, u8=True)),
+                     ("warp alone 1920x1080 -> 1280x720", lambda: P.warp_to_display(
+                         f1080, 1280, 720))):
+        fn()
+        ts = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            ts.append((time.perf_counter() - t0) * 1000.0)
+        times[name] = statistics.median(ts)
+    print("[preprocess] host ms (median of 5): " + ", ".join(f"{k} {v:.2f}" for k, v in times.items()))
+    return times
+
+
+def phase_pipeline(weights, device="cuda", net_resolution=(656, 368), stages=6,
+                   n_frames=16, batch=BF16_BATCH):
+    """RtPosePipeline at bf16 batch 8 with no frame drops: half the frames
+    through frame_iter, half as PNG files; each frame's JSON against
+    estimate() on the same frame.  The main path: the counters are zeroed
+    before its estimator exists and read after."""
+    import os
+    import tempfile
+
+    import torch
+
+    from caffe_rtpose_tpu_torch.models.cpm import make_pose_deploy_net
+    from caffe_rtpose_tpu_torch.ops import conv1_cuda, nms_cuda
+    from caffe_rtpose_tpu_torch.pipeline.runner import (PipelineConfig, RtPosePipeline,
+                                                        write_json_file)
+    from caffe_rtpose_tpu_torch.pose.estimator import PoseEstimator
+
+    tag = f"[pipeline bf16 batch {batch}]"
+    frames = frames_720p(np.random.RandomState(5), n_frames)
+    half = n_frames // 2
+    work = tempfile.mkdtemp(prefix="chip_smoke_pipeline_")
+    png_dir = os.path.join(work, "png")
+    os.makedirs(png_dir)
+    for i, f in enumerate(frames[half:]):
+        write_png(os.path.join(png_dir, f"img{i:03d}.png"), f)
+
+    conv1_cuda.launches = nms_cuda.launches = nms_cuda.upsample_launches = 0
+    proto = make_pose_deploy_net("COCO", stages=stages)
+    est = PoseEstimator(proto, weights=weights, net_resolution=net_resolution, num_scales=1,
+                        input_u8=True, pair_cap=32, dtype=torch.bfloat16, batch=batch,
+                        device=device)
+    est.estimate(frames[0], 1280, 720)  # captures the graph, builds the host assembly
+    runs = {}
+    timed = [frames[i % n_frames] for i in range(PIPELINE_TIMED_FRAMES)]
+    for name, source in (("frame_iter", frames[:half]), ("png", png_dir), ("timed", timed)):
+        cfg = PipelineConfig(resolution=(1280, 720), net_resolution=net_resolution,
+                             no_display=True, no_frame_drops=True,
+                             write_json=os.path.join(work, f"json_{name}"),
+                             image_dir=source if name == "png" else "")
+        pipe = RtPosePipeline(est, cfg)
+        if name != "png":
+            pipe.frame_iter = ((i, f, None) for i, f in enumerate(source))
+        n = pipe.run()
+        want = len(timed) if name == "timed" else half
+        check(n == want, f"{tag} {name}: {n} frames processed of {want}")
+        stages_ms = {k: 1000.0 * float(np.mean([s[k] for s in pipe.stats])) for k in pipe.stats[0]}
+        runs[name] = dict(frames=n, fps=pipe.fps, stages_ms=stages_ms)
+    launches = dict(conv1_block=conv1_cuda.launches, peak_mask_fused=nms_cuda.launches,
+                    upsample_peak_keys=nms_cuda.upsample_launches)
+    replayed = est.replayed_launches()
+    replayed = dict(conv1_block=replayed["conv1_block_kernel"],
+                    peak_mask_fused=replayed["peak_mask_kernel"],
+                    upsample_peak_keys=replayed["upsample_peak_keys_kernel"])
+    n_run = half * 2 + len(timed) + 1
+    check(launches["conv1_block"] >= 1 and launches["peak_mask_fused"] >= 1
+          and replayed["conv1_block"] >= n_run / batch and replayed["peak_mask_fused"] >= n_run,
+          f"{tag} kernel launches on the main path: wrapper calls {launches}, replayed "
+          f"{replayed} for {n_run} frames")
+    # every frame's JSON against estimate() on the same frame, in order
+    names = ([f"json_frame_iter/frame{i:06d}.json" for i in range(half)]
+             + [f"json_png/img{i:03d}.json" for i in range(n_frames - half)])
+    n_people = []
+    for f, name in zip(frames, names):
+        res, pf = est.estimate(f, 1280, 720)
+        ref = os.path.join(work, "ref.json")
+        write_json_file(ref, res.joints, res.num_people, float(np.float32(pf.scale)), est.num_parts)
+        with open(os.path.join(work, name)) as a, open(ref) as b:
+            check(a.read() == b.read(), f"{tag} {name} differs from estimate() on its frame")
+        n_people.append(res.num_people)
+    print(f"{tag} {n_frames} 1280x720 frames ({half} through frame_iter, {n_frames - half} as "
+          f"PNG files; then {len(timed)} through frame_iter, timed): " + "; ".join(
+              f"{k} ({v['frames']} frames): {v['fps']:.2f} FPS, stage ms " + ", ".join(
+                  f"{s} {m:.2f}" for s, m in v["stages_ms"].items()) for k, v in runs.items())
+          + f"; every JSON equals estimate() on its frame; people {n_people}; wrapper launches "
+          f"{launches} (the eager pass and the capture), launches by the graphs' replays "
+          f"{replayed}")
+    return dict(runs=runs, launches=launches, replayed_launches=replayed, people=n_people)
+
+
+def phase_cli(n_frames=8, extra=()):
+    """tools.rtpose.main with random weights on 1280x720 PNG frames
+    (``extra``: more flags)."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    from caffe_rtpose_tpu_torch.tools import rtpose
+
+    tag = "[cli]"
+    work = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    img_dir, out_dir = os.path.join(work, "img"), os.path.join(work, "json")
+    os.makedirs(img_dir)
+    for i, f in enumerate(frames_720p(np.random.RandomState(6), n_frames)):
+        write_png(os.path.join(img_dir, f"f{i:02d}.png"), f)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = rtpose.main(["--no_weights", "--image_dir", img_dir, "--write_json", out_dir,
+                          "--frame_limit", str(n_frames), "--no_display", "--no_frame_drops",
+                          *extra])
+    secs = time.perf_counter() - t0
+    text = buf.getvalue()
+    m = re.search(r"(\d+) overflow refetches", text)
+    files = sorted(os.listdir(out_dir))
+    print(f"{tag} rtpose --no_weights: exit {rc}, {len(files)} JSON files, {secs:.1f} s; "
+          + " | ".join(line for line in text.splitlines() if line.strip()))
+    check(rc == 0 and len(files) == n_frames, f"{tag} exit {rc}, {len(files)} files")
+    check(m is not None, f"{tag} no overflow refetch count printed")
+    return dict(exit=rc, files=len(files), refetches=int(m.group(1)), seconds=secs)
+
+
 def main() -> int:
     import torch
 
@@ -1115,7 +1520,14 @@ def main() -> int:
     t_mask = phase_kernels()
     t_up = phase_upsample_keys()
     t_conv1 = phase_conv1()
-    one = phase_slice(1, 8)
+    weights, frames = calibrated_weights(1, 8)
+    graph, graph_ests = phase_graph(weights, frames)
+    prep = phase_preprocess(np.random.RandomState(4))
+    pipeline = phase_pipeline(weights)
+    cli = phase_cli()
+    phase_graph_launches(graph_ests)
+    del graph_ests
+    one = phase_slice(1, 8, weights=weights, frames=frames)
     three = phase_slice(3, 4)
     heat = phase_heatmap(one["weights"], one["frames"][:HEATMAP_FRAMES])
     render = phase_render(heat["canvas"], heat["result"])
@@ -1133,27 +1545,37 @@ def main() -> int:
                       **{k: v for k, v in bf16.items() if k not in ("weights", "frames")}}))
     print(json.dumps({"slice": "bf16 3-scale pack_u8", **bf16_three}))
     print(json.dumps({"slice": "bf16 heatmap", **bf16_heat}))
+    print(json.dumps({"graph": graph}))
+    print(json.dumps({"preprocess_ms": prep}))
+    print(json.dumps({"pipeline": pipeline}))
+    print(json.dumps({"cli": cli}))
     card = info["nvidia_smi"]
-    per_frame = {"bf16 batch 8": dict(conv1_block=bf16["launches"] / BF16_FRAMES,
-                                      peak_mask_fused=bf16["peak_mask_launches"] / BF16_FRAMES,
-                                      upsample_peak_keys=0.0)}
+    # launches: the wrapper's calls in the main path's run (the pipeline:
+    # the eager pass and the capture; the 3-scale, heatmap slices for the
+    # kernels that path does not run); replayed launches: the main path's
+    # graph replays; device launches a frame: the bf16 batch-8 replays
+    per_frame = dict(conv1_block=bf16["device_launches"] / BF16_FRAMES,
+                     peak_mask_fused=bf16["peak_mask_device_launches"] / BF16_FRAMES,
+                     peak_mask_fused_3scale=0.0, upsample_peak_keys=0.0)
+    mask_src, mask_pallas = "caffe_rtpose_tpu_torch/csrc/peak_mask.cu", "caffe_rtpose_tpu/ops/nms_pallas.py"
     entries = [
-        ("peak_mask_fused", "caffe_rtpose_tpu_torch/csrc/peak_mask.cu",
-         "caffe_rtpose_tpu/ops/nms_pallas.py:136", one["launches"], t_mask, t_mask[0],
-         dict(also_replaces="caffe_rtpose_tpu/ops/nms_pallas.py:197", library_note=NO_LIBRARY)),
+        ("peak_mask_fused", mask_src, f"{mask_pallas}:136", pipeline["launches"]["peak_mask_fused"],
+         t_mask, t_mask[0], dict(library_note=NO_LIBRARY)),
+        ("peak_mask_fused_3scale", mask_src, f"{mask_pallas}:197", three["launches"],
+         t_mask, t_mask[1], dict(library_note=NO_LIBRARY)),
         ("upsample_peak_keys", "caffe_rtpose_tpu_torch/csrc/upsample_peak_keys.cu",
-         "caffe_rtpose_tpu/ops/nms_pallas.py:82", heat["launches"], t_up, t_up[0],
-         dict(library_note=NO_LIBRARY)),
+         f"{mask_pallas}:82", heat["launches"], t_up, t_up[0], dict(library_note=NO_LIBRARY)),
         ("conv1_block", "caffe_rtpose_tpu_torch/csrc/conv1_block.cu",
-         "caffe_rtpose_tpu/ops/conv1_pallas.py:56", bf16["launches"], t_conv1, t_conv1[-1],
-         dict(library_note="cuDNN bf16 chain: conv, ReLU, conv, ReLU, max pool")),
+         "caffe_rtpose_tpu/ops/conv1_pallas.py:56", pipeline["launches"]["conv1_block"], t_conv1,
+         t_conv1[-1], dict(library_note="cuDNN bf16 chain: conv, ReLU, conv, ReLU, max pool")),
     ]
     kernels = []
     for name, source, replaces, launches, rows, main_row, extra in entries:
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces, **extra,
             "launches": launches,
-            "launches_per_frame": {k: v[name] for k, v in per_frame.items()},
+            "replayed_launches": pipeline["replayed_launches"].get(name, 0),
+            "device_launches_per_frame": {f"bf16 batch {BF16_BATCH}": per_frame[name]},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": main_row["kernel_ms"], "kernel_ms": main_row["kernel_ms"],
             "call_ms": main_row["call_ms"], "plain_ms": main_row["plain_ms"],

@@ -158,11 +158,18 @@ def test_pose_golden_seed7():
 
 def test_refuses_options_outside_the_slice():
     """What is still not ported raises NotImplementedError; what JAX refuses
-    (the heatmap branch batched, a wrong input) raises ValueError, as there."""
+    (the heatmap branch batched, device_rescale without u8 input, a wrong
+    input) raises ValueError, as there; graphs need a CUDA device."""
     proto = make_pose_deploy_net("COCO", stages=1)
-    for kw in (dict(device_rescale=True), dict(warm_overflow=True), dict(dtype=torch.float16)):
-        with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError):
+        PoseEstimator(proto, net_resolution=RES, device="cpu", dtype=torch.float16)
+    for kw in (dict(device_rescale=True), dict(device_rescale=True, input_u8=True,
+                                                keep_heatmap=True), dict(cuda_graph=True)):
+        with pytest.raises(ValueError):
             PoseEstimator(proto, net_resolution=RES, device="cpu", **kw)
+    # accepted: without graphs there is nothing to capture ahead
+    assert PoseEstimator(proto, net_resolution=RES, input_u8=True, pair_cap=8,
+                         warm_overflow=True, device="cpu")._warm_thread is None
     with pytest.raises(NotImplementedError):
         PoseEstimator("pose_deploy_linevec.prototxt", net_resolution=RES, device="cpu")
     with pytest.raises(NotImplementedError):
@@ -246,3 +253,65 @@ def _real_pairs(desc, peaks):
         a, b = desc.limb(k)
         out[k, : n[a], : n[b]] = True
     return out
+
+
+def test_device_rescale_matches_jax(coco):
+    """device_rescale: one uploaded live region, the smaller scales made on
+    the device by the INTER_AREA matrices.  The canvases are einsums summed
+    in other orders on the two sides (f32 rounding, ~1e-7 of a pixel), so
+    the outputs are held to _assert_outputs_match's tolerances."""
+    weights = coco[0]
+    cfg = dict(net_resolution=RES, num_scales=3, start_scale=1.0, scale_gap=0.3, input_u8=True,
+               device_rescale=True)
+    jest = JEstimator(j_make_net("COCO", stages=2), **cfg)
+    jest.net.params = {k: [jnp.asarray(w.transpose(2, 3, 1, 0)), jnp.asarray(b)]
+                       for k, (w, b) in weights.items()}
+    est = PoseEstimator(make_pose_deploy_net("COCO", stages=2), weights=weights, device="cpu",
+                        **cfg)
+    assert est.input_shape() == jest.input_shape() == (RES[0] * RES[1] * 3,)
+    assert not est.pack_u8
+    img = (np.random.RandomState(8).rand(120, 200, 3) * 255).astype(np.uint8)
+    x = est.make_input(img)
+    np.testing.assert_array_equal(x, jest.make_input(img))
+    _assert_outputs_match(est.fetch(est.run_device(x, **THR)),
+                          jest.fetch(jest.run_device(x, **THR)))
+
+
+def test_estimate_matches_jax(coco):
+    """estimate(): preprocess (the display warp and INTER_AREA) -> device ->
+    assembly, against JAX's estimate() on the same BGR frame."""
+    weights = coco[0]
+    jest = JEstimator(j_make_net("COCO", stages=2), net_resolution=RES, input_u8=True)
+    jest.net.params = {k: [jnp.asarray(w.transpose(2, 3, 1, 0)), jnp.asarray(b)]
+                       for k, (w, b) in weights.items()}
+    est = PoseEstimator(make_pose_deploy_net("COCO", stages=2), weights=weights,
+                        net_resolution=RES, input_u8=True, device="cpu")
+    frame = (np.random.RandomState(9).rand(180, 288, 3) * 255).astype(np.uint8)
+    for disp in (None, (192, 120)):
+        kw = dict(disp_w=disp[0], disp_h=disp[1]) if disp else {}
+        r_t, pf_t = est.estimate(frame, nms_threshold=-1.0, params_connect=_relaxed(est), **kw)
+        r_j, pf_j = jest.estimate(frame, nms_threshold=-1.0, params_connect=_relaxed(jest), **kw)
+        np.testing.assert_array_equal(pf_t.net_input, pf_j.net_input)
+        assert r_t.num_people == r_j.num_people > 0
+        np.testing.assert_allclose(r_t.peaks, r_j.peaks, rtol=0, atol=1e-4)
+        np.testing.assert_allclose(r_t.joints[..., :2], r_j.joints[..., :2], rtol=0, atol=1e-3)
+        np.testing.assert_allclose(r_t.joints[..., 2], r_j.joints[..., 2], rtol=0, atol=1e-3)
+
+
+def test_tensor_threshold_equals_float():
+    """K1 and K3 (their plain versions on the CPU) take the threshold as a
+    0-d f32 tensor, as a graph passes it, with the float's result; a tensor
+    of another shape, type or device is refused."""
+    rs = np.random.RandomState(12)
+    low = torch.from_numpy(rs.rand(1, 10, 14, 5).astype(np.float32) * 2 - 1)
+    args = (low, (80, 112), 1.0, 0.3)
+    t = torch.tensor(0.3, dtype=torch.float32)
+    assert torch.equal(nms_cuda.peak_mask_fused(*args, t), nms_cuda.peak_mask_fused(*args, 0.3))
+    heat_t, keys_t = nms_cuda.upsample_peak_keys(*args, t, key_channels=3)
+    heat_f, keys_f = nms_cuda.upsample_peak_keys(*args, 0.3, key_channels=3)
+    assert torch.equal(heat_t, heat_f) and torch.equal(keys_t, keys_f) and int((keys_f > 0).sum())
+    for bad in (torch.tensor([0.3]), torch.tensor(0.3, dtype=torch.float64)):
+        with pytest.raises(ValueError):
+            nms_cuda.threshold_scalar(bad, torch.device("cpu"))
+    assert nms_cuda.threshold_scalar(t, torch.device("cpu")) is t
+

@@ -1,5 +1,5 @@
 """The PyTorch port imports without jax: neither directly nor through the
-JAX package (whose ``__init__`` imports jax)."""
+JAX package (whose ``__init__`` imports jax); and without OpenCV."""
 
 import os
 import subprocess
@@ -23,6 +23,11 @@ SLICE_MODULES = [
     "caffe_rtpose_tpu_torch.pose.connect",
     "caffe_rtpose_tpu_torch.pose.estimator",
     "caffe_rtpose_tpu_torch.pose.render",
+    "caffe_rtpose_tpu_torch.pipeline.image_io",
+    "caffe_rtpose_tpu_torch.pipeline.queues",
+    "caffe_rtpose_tpu_torch.pipeline.runner",
+    "caffe_rtpose_tpu_torch.tools.rtpose",
+    "caffe_rtpose_tpu_torch.__main__",
 ]
 
 
@@ -45,3 +50,16 @@ def test_slice_imports_without_jax():
 
 def test_slice_imports_with_jax_blocked():
     _run("import sys\nsys.modules['jax'] = None\n")
+
+
+def test_slice_imports_without_cv2():
+    """The card's machine has no OpenCV: no module imports it at import
+    time (the pipeline imports it only for the options that need it)."""
+    _run("import sys\nsys.modules['cv2'] = None\n")
+    code = ("import importlib, sys\n"
+            f"for m in {SLICE_MODULES!r}:\n"
+            "    importlib.import_module(m)\n"
+            "print('cv2' in sys.modules)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0 and res.stdout.strip() == "False", res.stderr
