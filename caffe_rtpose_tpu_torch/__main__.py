@@ -5,6 +5,7 @@ import sys
 
 TOOLS = {
     "rtpose": ("tools.rtpose", "realtime multi-person pose demo"),
+    "upgrade": ("tools.upgrade_proto", "legacy prototxt/caffemodel upgrades"),
 }
 
 

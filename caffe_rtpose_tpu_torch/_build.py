@@ -1,10 +1,10 @@
 """Build the port's native code at first use.
 
 * ``load_kernels()``: every ``csrc/*.cu`` (K1 ``peak_mask.cu``, K3
-  ``upsample_peak_keys.cu``, K4 ``conv1_block.cu``) compiled by one ``nvcc``
-  for Hopper (``sm_90a``) into one shared library with a plain C interface,
-  loaded with ctypes; the ``csrc/*.cuh`` headers they include count towards
-  the hash.
+  ``upsample_peak_keys.cu``, K4 ``conv1_block.cu``) compiled for Hopper
+  (``sm_90a``), one ``nvcc`` a source, all started together, and linked
+  into one shared library with a plain C interface, loaded with ctypes; the
+  ``csrc/*.cuh`` headers they include count towards the hash.
   Missing ``nvcc`` or a failed build raises with the compiler's output.
 * ``build_library()``: the shared compile-and-cache step, also used by
   ``native.py`` for the host assembly library (g++).
@@ -24,7 +24,8 @@ import os
 import subprocess
 import threading
 import time
-from typing import Dict, Optional, Sequence
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, Optional, Sequence
 
 from .utils.device import nvcc_path
 
@@ -44,7 +45,9 @@ def build_library(stem: str, sources: Sequence[str], compiler: str,
                   headers: Sequence[str] = ()) -> str:
     """Compile ``sources`` into ``_build/lib<stem>_<hash>.so`` unless that
     file exists; returns its path.  The hash covers ``sources``, the
-    ``headers`` they include and ``flags``."""
+    ``headers`` they include and ``flags``.  Each source compiles to an
+    object (``flags`` without ``-shared``, plus ``-c``), all in parallel,
+    and one more call links them."""
     h = hashlib.sha256()
     for src in [*sources, *headers]:
         with open(src, "rb") as f:
@@ -55,20 +58,35 @@ def build_library(stem: str, sources: Sequence[str], compiler: str,
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
-    cmd = [compiler, *flags, "-o", tmp, *sources]
     t0 = time.perf_counter()
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout)
-    except subprocess.TimeoutExpired as e:
-        raise RuntimeError(f"build of {stem} timed out after {timeout:.0f} s: {' '.join(cmd)}") from e
-    build_log[stem] = (f"{' '.join(cmd)}\n({time.perf_counter() - t0:.1f} s)\n"
-                       f"{res.stdout}{res.stderr}")
-    if res.returncode != 0:
+    objs = [f"{tmp}.{i}.o" for i in range(len(sources))]
+    obj_flags = [f for f in flags if f != "-shared"] + ["-c"]
+    with ThreadPoolExecutor(len(sources)) as pool:
+        steps = list(pool.map(lambda so: _run([compiler, *obj_flags, "-o", so[1], so[0]],
+                                              timeout),
+                              zip(sources, objs)))
+    if all(ok for ok, _ in steps):
+        steps.append(_run([compiler, *flags, "-o", tmp, *objs], timeout))
+    for o in objs:
+        if os.path.exists(o):
+            os.remove(o)
+    build_log[stem] = "".join(log for _, log in steps) + f"({time.perf_counter() - t0:.1f} s)\n"
+    if not all(ok for ok, _ in steps):
         if os.path.exists(tmp):
             os.remove(tmp)
-        raise RuntimeError(f"build of {stem} failed (exit {res.returncode}):\n{build_log[stem]}")
+        raise RuntimeError(f"build of {stem} failed:\n{build_log[stem]}")
     os.replace(tmp, path)
     return path
+
+
+def _run(cmd: List[str], timeout: float):
+    """One compiler call -> (succeeded, its command line and output)."""
+    try:
+        res = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout)
+    except subprocess.TimeoutExpired:
+        return False, f"{' '.join(cmd)}\ntimed out after {timeout:.0f} s\n"
+    return res.returncode == 0, (f"{' '.join(cmd)}\n{res.stdout}{res.stderr}"
+                                 + ("" if res.returncode == 0 else f"(exit {res.returncode})\n"))
 
 
 def load_kernels() -> ctypes.CDLL:
@@ -101,8 +119,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.crt_tile_smem_bytes.argtypes = [i, i, i]  # S, widest window rows, columns
     lib.crt_peak_mask.restype = i
     lib.crt_peak_mask.argtypes = [
-        vp, ll, ll, ll, ll,  # low + strides (s, y, x, c) in elements
-        i, i, i, i,          # S, C, th, tw
+        vp, ll, ll, ll, ll, ll,  # low + strides (f, s, y, x, c) in elements
+        i, i, i, i, i,       # F, S, C, th, tw
         vp, vp, vp, vp,      # y tap idx/w, x tap idx/w
         vp, vp, i, i, i,     # y/x windows, widest window rows/columns, 16-byte loads
         f, vp, vp, vp,       # inv_s, thr (f32 device scalar), mask, stream

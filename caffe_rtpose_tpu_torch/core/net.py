@@ -5,7 +5,13 @@ reference src/caffe/net.cpp), limited to the layer types of the pose deploy
 graphs: Input, Convolution, ReLU, Pooling (MAX) and Concat.  ImResize and
 Nms layers are recorded in :attr:`Net.post_layers` but not run: the
 estimator computes them from the low-res maps (``pose/estimator.py``).  Any
-other layer type, and phase/stage rules, raise ``NotImplementedError``.
+other layer type that phase/stage/level filtering keeps raises
+``NotImplementedError``.
+
+As in JAX, the graph comes as a prototxt path, prototxt text or a parsed
+NetParameter dict; a legacy V0/V1 ``layers`` net runs the upgrade chain
+(``proto/upgrade.py``) on a copy; weights load from a ``.caffemodel`` path or
+a ``{layer: [OIHW, bias]}`` dict and save back as a ``.caffemodel``.
 
 Convolutions live in an ``nn.ModuleDict`` keyed by Caffe layer name, with
 OIHW weights as Caffe stores them.  Activations are logically NCHW (Caffe
@@ -22,6 +28,7 @@ its structure, runs through the hand-written kernel ``ops/conv1_cuda.py``
 
 from __future__ import annotations
 
+import copy
 import logging
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple, Union
@@ -32,6 +39,8 @@ from torch import nn
 
 from ..ops import conv1_cuda
 from ..ops import nn as nn_ops
+from ..proto import caffe_pb, caffemodel, prototxt
+from ..proto.upgrade import upgrade_net_as_needed
 from ..utils.device import resolve_device
 
 log = logging.getLogger(__name__)
@@ -48,6 +57,43 @@ class Layer:
     bottoms: List[str]
     tops: List[str]
     param: Dict[str, Any] = field(default_factory=dict)  # the layer's *_param
+
+
+def _rule_matches(rule: caffe_pb.View, phase: int, stages: Sequence[str], level: int) -> bool:
+    """One NetStateRule against the net's state (net.cpp StateMeetsRule)."""
+    if rule.has("phase") and rule.phase != phase:
+        return False
+    if rule.has("min_level") and level < rule.min_level:
+        return False
+    if rule.has("max_level") and level > rule.max_level:
+        return False
+    if any(s not in stages for s in rule.stage):
+        return False
+    return not any(s in stages for s in rule.not_stage)
+
+
+def _layer_included(lv: caffe_pb.View, phase: int, stages: Sequence[str], level: int) -> bool:
+    """Net::FilterNet (net.cpp:287): any ``include`` rule that matches keeps
+    a layer; without include rules, any ``exclude`` rule that matches drops it."""
+    if lv.include:
+        return any(_rule_matches(r, phase, stages, level) for r in lv.include)
+    return not any(_rule_matches(r, phase, stages, level) for r in lv.exclude)
+
+
+def _net_parameter(proto: Union[str, Mapping[str, Any]]) -> Dict[str, Any]:
+    """A prototxt path, prototxt text or a NetParameter dict -> the dict,
+    with a legacy V0/V1 ``layers`` net upgraded on a deep copy (the upgrade
+    pops fields out of nested dicts and must not touch the caller's)."""
+    if isinstance(proto, str):
+        text = "\n" in proto or "{" in proto
+        net_param = prototxt.parse(proto) if text else prototxt.parse_file(proto)
+    elif isinstance(proto, Mapping):
+        net_param = proto
+    else:
+        raise TypeError(f"proto: a path, prototxt text or a NetParameter dict, got {type(proto)}")
+    if net_param.get("layers"):
+        net_param = upgrade_net_as_needed(copy.deepcopy(dict(net_param)))
+    return net_param
 
 
 def _ints(v) -> List[int]:
@@ -163,7 +209,11 @@ class Conv1Block:
 class Net(nn.Module):
     """Parameters
     ----------
-    proto: a parsed NetParameter dict (e.g. ``models.cpm.make_pose_deploy_net()``).
+    proto: a prototxt path, prototxt text or a parsed NetParameter dict
+        (e.g. ``models.cpm.make_pose_deploy_net()``).
+    phase, stages, level: the NetState layers are filtered by (Net::FilterNet);
+        the file's ``state`` merges under them: its stages come first, and its
+        level counts where ``level`` is None (JAX ``core/net.py``).
     input_shapes: optional {blob: caffe shape} overriding declared input dims
         (the rtpose warmup reshape, rtpose.cpp:188-191).
     overrides: optional {layer: {"<param_msg>.<field>": value}} merged into
@@ -180,20 +230,19 @@ class Net(nn.Module):
 
     def __init__(
         self,
-        proto: Mapping[str, Any],
+        proto: Union[str, Mapping[str, Any]],
+        phase: str = "TEST",
         input_shapes: Optional[Mapping[str, Sequence[int]]] = None,
         overrides: Optional[Mapping[str, Mapping[str, Any]]] = None,
+        stages: Sequence[str] = (),
+        level: Optional[int] = None,
         device: Union[str, torch.device] = "cuda",
         dtype: torch.dtype = torch.float32,
         seed: int = 0,
         conv1_kernel: Optional[bool] = None,
     ):
         super().__init__()
-        if not isinstance(proto, Mapping):
-            raise NotImplementedError(
-                "proto must be a NetParameter dict; reading .prototxt files is not ported")
-        if proto.get("layers"):
-            raise NotImplementedError("legacy V0/V1 'layers' nets are not ported")
+        proto = _net_parameter(proto)
         if dtype not in DTYPES:
             raise NotImplementedError(f"dtype {dtype} is not ported (float32, bfloat16)")
         self.device = resolve_device(device)
@@ -201,6 +250,14 @@ class Net(nn.Module):
         if conv1_kernel is None:
             conv1_kernel = self.device.type == "cuda"
         self.conv1_kernel = bool(conv1_kernel) and dtype == torch.bfloat16
+        self.name = caffe_pb.view(proto, "NetParameter").name
+        state = proto.get("state")
+        if state:
+            stages = list(state.get("stage", [])) + list(stages)
+            if level is None:
+                level = int(state.get("level", 0))
+        level = 0 if level is None else int(level)
+        phase_i = caffe_pb.PHASE[phase]
 
         shapes: Dict[str, Tuple[int, ...]] = {}
         names = list(proto.get("input", []))
@@ -216,8 +273,8 @@ class Net(nn.Module):
         self.post_layers: Dict[str, Layer] = {}
         self.convs = nn.ModuleDict()
         for raw in proto.get("layer", []):
-            if raw.get("include") or raw.get("exclude"):
-                raise NotImplementedError(f"layer {raw.get('name')}: phase/stage rules are not ported")
+            if not _layer_included(caffe_pb.view(raw, "LayerParameter"), phase_i, stages, level):
+                continue
             raw = dict(raw)
             for k, v in overrides.get(raw.get("name"), {}).items():
                 sub, fld = k.split(".", 1) if "." in k else (None, k)
@@ -330,13 +387,13 @@ class Net(nn.Module):
                     conv.bias.copy_(torch.from_numpy(_fill(rs, (conv.cout,), bf)))
         self._refresh()
 
-    def load_weights(self, weights: Mapping[str, Sequence[np.ndarray]]) -> int:
-        """Copy ``{layer_name: [OIHW weight, bias]}`` by layer name with
-        Caffe's shape checks (net.cpp:750-806).  Returns the number of
-        layers copied; names the net lacks are ignored, as Caffe does."""
-        if not isinstance(weights, Mapping):
-            raise NotImplementedError(
-                "weights must be a {layer: [arrays]} dict; reading .caffemodel files is not ported")
+    def load_weights(self, weights: Union[str, Mapping[str, Sequence[np.ndarray]]]) -> int:
+        """Copy a ``.caffemodel`` path or ``{layer_name: [OIHW weight,
+        bias]}`` by layer name with Caffe's checks on param count and size
+        (net.cpp:750-806).  Returns the number of layers copied; names the
+        net lacks are ignored, as Caffe does."""
+        if isinstance(weights, str):
+            weights = caffemodel.load_weights(weights)
         copied = 0
         for name, blobs in weights.items():
             conv = self.convs[name] if name in self.convs else None
@@ -357,6 +414,20 @@ class Net(nn.Module):
             copied += 1
         self._refresh()
         return copied
+
+    def export_weights(self) -> Dict[str, List[np.ndarray]]:
+        """``{layer: [OIHW weight, bias]}`` f32 numpy copies, in layer order."""
+        return {name: [p.detach().cpu().numpy().copy() for p in (conv.weight, conv.bias)
+                       if p is not None]
+                for name, conv in self.convs.items()}
+
+    def save_caffemodel(self, path: str) -> None:
+        """The weights as a binary NetParameter (``.caffemodel``), as the JAX
+        ``Net.save_caffemodel`` writes it."""
+        layers = [{"name": name, "type": "Convolution",
+                   "blobs": [caffemodel.array_to_blob(b) for b in blobs]}
+                  for name, blobs in self.export_weights().items()]
+        caffemodel.save_net_parameter({"name": self.name, "layer": layers}, path)
 
     # ------------------------------------------------------------ forward
 

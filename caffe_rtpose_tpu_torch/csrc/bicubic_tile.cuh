@@ -69,12 +69,13 @@ __device__ __forceinline__ TileSmem carve_tile_smem(float* smem, int S, int wh, 
   return t;
 }
 
-// The geometry a block reads: the low-res map (S, h, w, C) by strides in
-// elements, the output size, the tap tables (S, th, 4) / (S, tw, 4) and the
-// windows (S, tiles_y, 2) / (S, tiles_x, 2) as [first source index, count].
+// The geometry a block reads: the low-res maps (F, S, h, w, C) by strides in
+// elements (F frames that share one geometry; st_f = 0 where F = 1), the
+// output size, the tap tables (S, th, 4) / (S, tw, 4) and the windows
+// (S, tiles_y, 2) / (S, tiles_x, 2) as [first source index, count].
 struct TileArgs {
   const float* low;
-  long long st_s, st_y, st_x, st_c;
+  long long st_f, st_s, st_y, st_x, st_c;
   int S, C, th, tw;
   const int* ytap_idx;
   const float* ytap_w;
@@ -83,15 +84,17 @@ struct TileArgs {
   const int* ywin;
   const int* xwin;
   int wh, ww;  // widest window: the shared-memory layout's pitches
-  int vec4;    // 16-byte window loads (channel stride 1, strides and base aligned, C % 4 == 0)
+  int vec4;    // 16-byte window loads (channel stride 1, the other strides and the base
+              // 16-byte aligned, C % 4 == 0)
   float inv_s;
 };
 
-// Copies the tile's tap tables and the window of channels c0 .. c0+kGroup-1
-// (zeros past C) into shared memory.  Ends with a barrier.
-__device__ __forceinline__ void stage_tile(const TileArgs& a, int c0, int ty, int tx,
+// Copies the tile's tap tables and the window of frame f's channels
+// c0 .. c0+kGroup-1 (zeros past C) into shared memory.  Ends with a barrier.
+__device__ __forceinline__ void stage_tile(const TileArgs& a, int f, int c0, int ty, int tx,
                                            const TileSmem& sm) {
   const int tid = threadIdx.x;
+  const float* low = a.low + f * a.st_f;
   const int tiles_y = gridDim.y, tiles_x = gridDim.x;
   const int y_org = ty * kTileY - 1, x_org = tx * kTileX - 1;
   for (int i = tid; i < a.S * kExtY * 4; i += kThreads) {
@@ -129,7 +132,7 @@ __device__ __forceinline__ void stage_tile(const TileArgs& a, int c0, int ty, in
       const int* wx = a.xwin + (s * tiles_x + tx) * 2;
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
       if (ry < wy[1] && rx < wx[1])
-        v = *reinterpret_cast<const float4*>(a.low + s * a.st_s + (wy[0] + ry) * a.st_y +
+        v = *reinterpret_cast<const float4*>(low + s * a.st_s + (wy[0] + ry) * a.st_y +
                                              (wx[0] + rx) * a.st_x + c0);
       float* dst = sm.win + ((s * kGroup) * wh + ry) * ww + rx;
       dst[0] = v.x;
@@ -146,7 +149,7 @@ __device__ __forceinline__ void stage_tile(const TileArgs& a, int c0, int ty, in
       const int* wx = a.xwin + (s * tiles_x + tx) * 2;
       float v = 0.f;
       if (ry < wy[1] && rx < wx[1] && c0 + g < a.C)
-        v = a.low[s * a.st_s + (wy[0] + ry) * a.st_y + (wx[0] + rx) * a.st_x + (c0 + g) * a.st_c];
+        v = low[s * a.st_s + (wy[0] + ry) * a.st_y + (wx[0] + rx) * a.st_x + (c0 + g) * a.st_c];
       sm.win[((s * kGroup + g) * wh + ry) * ww + rx] = v;
     }
   }

@@ -2,10 +2,12 @@
 //
 // Replaces the TPU kernels caffe_rtpose_tpu/ops/nms_pallas.py::
 // _mask_kernel_chan (whole-frame form) and ::_mask_kernel (128x128-tile
-// form), which compute the same mask.  For each part channel c:
+// form), which compute the same mask, and the batched grid that jax.vmap
+// makes of them over the frames of a batch.  For each frame f and part
+// channel c:
 //
-//     U_c = (1/S) sum_s Ay_s . L_s[:, :, c] . Ax_s^T         (th x tw)
-//     mask_c(y, x) = interior(y, x) && U > thr && U > max(8 neighbours)
+//     U_fc = (1/S) sum_s Ay_s . L_fs[:, :, c] . Ax_s^T      (th x tw)
+//     mask_fc(y, x) = interior(y, x) && U > thr && U > max(8 neighbours)
 //
 // thr is read from an f32 scalar in device memory, as the TPU kernel reads
 // th_ref, so a captured CUDA graph takes a new threshold without a new
@@ -15,11 +17,14 @@
 // four nonzero taps, so instead of the TPU's dense matmuls this kernel reads
 // per-output tap tables and accumulates in plain f32 FMA.
 //
-// What bounds it on Hopper: the 18x368x656 bool mask it writes (4.35 MB at
-// COCO 1 scale, ~1.3 us at 3.35 TB/s); the low-res read is 0.27 MB and the
-// taps' FMAs ~40 MFLOP.  The full-res U never reaches device memory.
+// What bounds it on Hopper: the 18x368x656 bool mask it writes a frame
+// (4.35 MB at COCO 1 scale, ~1.3 us at 3.35 TB/s); the low-res read is
+// 0.27 MB and the taps' FMAs ~40 MFLOP a frame.  The full-res U never
+// reaches device memory.
 //
-// Design: one block per (32x64 output tile, group of kGroup channels).  The
+// Design: one block per (32x64 output tile, frame, group of kGroup
+// channels); blockIdx.z runs over the frames' channel groups, so one launch
+// covers a batch, and every frame shares the tap tables and windows.  The
 // block stages the tile's tap tables and its source window (~8 x 12 low-res
 // pixels per scale at factor 8) of the group's channels in shared memory
 // once, with loads along the NHWC channel axis (bicubic_tile.cuh), then per
@@ -41,12 +46,14 @@ using namespace crt;
 
 __global__ void __launch_bounds__(kThreads)
 peak_mask_kernel(TileArgs a, const float* __restrict__ thr_p,  // f32 device scalar
-                 uint8_t* __restrict__ mask) {                  // (C, th, tw) bool
+                 uint8_t* __restrict__ mask) {                  // (F, C, th, tw) bool
   const float thr = __ldg(thr_p);
   extern __shared__ float smem[];
   const TileSmem sm = carve_tile_smem(smem, a.S, a.wh, a.ww);
-  const int tx = blockIdx.x, ty = blockIdx.y, c0 = blockIdx.z * kGroup;
-  stage_tile(a, c0, ty, tx, sm);
+  const int groups = (a.C + kGroup - 1) / kGroup;
+  const int tx = blockIdx.x, ty = blockIdx.y;
+  const int f = blockIdx.z / groups, c0 = (blockIdx.z - f * groups) * kGroup;
+  stage_tile(a, f, c0, ty, tx, sm);
 
   const int y_org = ty * kTileY - 1, x_org = tx * kTileX - 1;
   const int q0 = 1 + 4 * (threadIdx.x % 16);  // extended-tile coords of this thread's
@@ -79,7 +86,7 @@ peak_mask_kernel(TileArgs a, const float* __restrict__ thr_p,  // f32 device sca
         n8 = fmaxf(n8, v[i + 1][j + 1]);
         if (v[i][j] > thr && v[i][j] > n8) word |= 1u << (8 * (j - 1));
       }
-      const long long at = ((long long)c * a.th + y) * a.tw + x;
+      const long long at = (((long long)f * a.C + c) * a.th + y) * a.tw + x;
       if (x + 3 < a.tw && (at & 3) == 0) {
         *reinterpret_cast<uint32_t*>(mask + at) = word;
       } else {
@@ -103,8 +110,8 @@ const char* crt_cuda_error_string(int code) {
 // widest source window of wh x ww low-res pixels.
 long long crt_tile_smem_bytes(int S, int wh, int ww) { return crt::tile_smem_bytes(S, wh, ww); }
 
-int crt_peak_mask(const float* low, long long st_s, long long st_y, long long st_x,
-                  long long st_c, int S, int C, int th, int tw,
+int crt_peak_mask(const float* low, long long st_f, long long st_s, long long st_y,
+                  long long st_x, long long st_c, int F, int S, int C, int th, int tw,
                   const int* ytap_idx, const float* ytap_w,
                   const int* xtap_idx, const float* xtap_w, const int* ywin, const int* xwin,
                   int wh, int ww, int vec4, float inv_s, const float* thr, uint8_t* mask,
@@ -112,10 +119,10 @@ int crt_peak_mask(const float* low, long long st_s, long long st_y, long long st
   const size_t smem = (size_t)crt::tile_smem_bytes(S, wh, ww);
   cudaError_t e = crt::allow_smem(peak_mask_kernel, smem, &g_mask_smem_granted);
   if (e != cudaSuccess) return (int)e;
-  const crt::TileArgs a{low, st_s, st_y, st_x, st_c, S, C, th, tw, ytap_idx, ytap_w,
+  const crt::TileArgs a{low, st_f, st_s, st_y, st_x, st_c, S, C, th, tw, ytap_idx, ytap_w,
                         xtap_idx, xtap_w, ywin, xwin, wh, ww, vec4, inv_s};
   const dim3 grid((tw + crt::kTileX - 1) / crt::kTileX, (th + crt::kTileY - 1) / crt::kTileY,
-                  (C + crt::kGroup - 1) / crt::kGroup);
+                  F * ((C + crt::kGroup - 1) / crt::kGroup));
   peak_mask_kernel<<<grid, crt::kThreads, smem, (cudaStream_t)stream>>>(a, thr, mask);
   return (int)cudaGetLastError();
 }

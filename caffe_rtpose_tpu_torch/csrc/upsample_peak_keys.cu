@@ -46,7 +46,7 @@ upsample_peak_keys_kernel(TileArgs a, int key_channels,
   const TileSmem sm = carve_tile_smem(smem, a.S, a.wh, a.ww);
   const int tx = blockIdx.x, ty = blockIdx.y, c0 = blockIdx.z * kGroup;
   const float thr = __ldg(thr_p);
-  stage_tile(a, c0, ty, tx, sm);
+  stage_tile(a, 0, c0, ty, tx, sm);
   const int th = a.th, tw = a.tw;
   const float* acc = sm.acc;
   const int y_org = ty * kTileY - 1;  // extended-tile origin
@@ -100,7 +100,7 @@ int crt_upsample_peak_keys(const float* low, long long st_s, long long st_y, lon
   const size_t smem = (size_t)crt::tile_smem_bytes(S, wh, ww);
   cudaError_t e = crt::allow_smem(upsample_peak_keys_kernel, smem, &g_keys_smem_granted);
   if (e != cudaSuccess) return (int)e;
-  const crt::TileArgs a{low, st_s, st_y, st_x, st_c, S, C, th, tw, ytap_idx, ytap_w,
+  const crt::TileArgs a{low, 0, st_s, st_y, st_x, st_c, S, C, th, tw, ytap_idx, ytap_w,
                         xtap_idx, xtap_w, ywin, xwin, wh, ww, vec4, inv_s};
   const dim3 grid((tw + crt::kTileX - 1) / crt::kTileX, (th + crt::kTileY - 1) / crt::kTileY,
                   (C + crt::kGroup - 1) / crt::kGroup);

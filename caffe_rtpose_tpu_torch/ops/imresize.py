@@ -114,8 +114,11 @@ def axis_weights_dense(coords: torch.Tensor, src_full: int, pad: int, target: in
     w3 = 0.5 * dx3 - 0.5 * dx2
     iota = torch.arange(src_full, dtype=torch.int32, device=coords.device)[None, :]
     out = torch.zeros((coords.shape[0], src_full), **f32)
+    zero = scalar(0.0)
     for nei, wgt in ((n0, w0), (n1, w1), (n2, w2), (n3, w3)):
-        out = out + wgt[:, None] * (iota == (nei + pad)[:, None]).to(torch.float32)
+        # the tap's weight where the one-hot is set, else 0: the sums of
+        # ``wgt * one_hot``, bit for bit, in two passes fewer
+        out = out + torch.where(iota == (nei + pad)[:, None], wgt[:, None], zero)
     return out
 
 

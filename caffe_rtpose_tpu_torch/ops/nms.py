@@ -23,6 +23,12 @@ reference src/caffe/cpm/layers/nms_layer.cu:
 Compaction is a cumsum rank plus a scatter into a fixed (C, max_peaks)
 buffer: fixed shapes, no host sync (``torch.nonzero`` would sync), and the
 same positions, counts and raster order as the JAX ``compact_keys``.
+
+The realtime path's functions take a leading frame axis (:func:`block_keys`
+and :func:`compact_keys` also work without one, :func:`refine_from_low`
+needs it): the batch that the JAX package maps them over with ``jax.vmap``.  Every frame keeps its own
+channels, so a refinement window past the last part channel's bottom reads
+that frame's next channel, never the next frame's.
 """
 
 from __future__ import annotations
@@ -55,45 +61,45 @@ def find_peaks_mask(heat: torch.Tensor, threshold) -> torch.Tensor:
 
 
 def block_keys(mask: torch.Tensor, h: int, w: int) -> torch.Tensor:
-    """(C, H, W) bool peak mask -> (C, nb) int32 keys in raster-position order.
+    """(..., C, H, W) bool peak mask -> (..., C, nb) int32 keys in
+    raster-position order.
 
     Each horizontal pixel pair (y, 2bx)/(y, 2bx+1) collapses to one key
     (= ``hw - pos`` of its peak, 0 if none): adjacent pixels are 8-neighbors,
     so two strict maxima never share a pair, and the flattened (y, bx) order
     is ascending-position order, which :func:`compact_keys` needs."""
-    c = mask.shape[0]
+    lead = mask.shape[:-2]
     w2 = w - (w % 2)  # odd trailing col is border (never peaks)
-    mb = mask[:, :, :w2].reshape(c, h, w2 // 2, 2)
+    mb = mask[..., :w2].reshape(*lead, h, w2 // 2, 2)
     m0, m1 = mb[..., 0], mb[..., 1]
     dev = mask.device
     base = (torch.arange(h, dtype=torch.int32, device=dev)[:, None] * w
             + torch.arange(w2 // 2, dtype=torch.int32, device=dev)[None, :] * 2)
     pos = torch.where(m0, base, base + 1)
-    return torch.where(m0 | m1, h * w - pos, torch.zeros_like(pos)).reshape(c, h * (w2 // 2))
+    return torch.where(m0 | m1, h * w - pos, torch.zeros_like(pos)).reshape(*lead, h * (w2 // 2))
 
 
 def compact_keys(kb: torch.Tensor, hw: int, max_peaks: int):
     """Raster-order compaction of position-ordered keys.
 
-    kb: (C, nb) keys (= hw - pos, 0 where empty) whose flattened order is
-    ascending-position order (see :func:`block_keys`).  The r-th set slot is
-    the r-th peak: rank with an inclusive cumsum, scatter the first
+    kb: (..., C, nb) keys (= hw - pos, 0 where empty) whose flattened order
+    is ascending-position order (see :func:`block_keys`).  The r-th set slot
+    is the r-th peak: rank with an inclusive cumsum, scatter the first
     ``topk`` into a fixed buffer (everything else lands in a spill column).
 
-    Returns (peak_pos (C, topk) int32, valid (C, topk) bool, counts (C,)
-    int32) with uncapped counts, as the JAX ``compact_keys``.
+    Returns (peak_pos (..., C, topk) int32, valid (..., C, topk) bool,
+    counts (..., C) int32) with uncapped counts, as the JAX ``compact_keys``.
     """
-    c, nb = kb.shape
     topk = min(max_peaks, hw)
     set_ = kb > 0
-    counts = set_.sum(dim=1, dtype=torch.int32)
-    rank = torch.cumsum(set_.to(torch.int32), dim=1) - 1  # 0-based slot
+    counts = set_.sum(dim=-1, dtype=torch.int32)
+    rank = torch.cumsum(set_.to(torch.int32), dim=-1) - 1  # 0-based slot
     slot = torch.where(set_ & (rank < topk), rank, torch.full_like(rank, topk)).to(torch.int64)
-    buf = torch.zeros((c, topk + 1), dtype=torch.int32, device=kb.device)
-    buf.scatter_(1, slot, hw - kb.to(torch.int32))
+    buf = torch.zeros((*kb.shape[:-1], topk + 1), dtype=torch.int32, device=kb.device)
+    buf.scatter_(-1, slot, hw - kb.to(torch.int32))
     ranks = torch.arange(topk, dtype=torch.int32, device=kb.device)
-    valid = counts[:, None] > ranks[None, :]
-    peak_pos = torch.where(valid, buf[:, :topk], torch.zeros_like(buf[:, :topk]))
+    valid = counts[..., None] > ranks
+    peak_pos = torch.where(valid, buf[..., :topk], torch.zeros_like(buf[..., :topk]))
     return peak_pos, valid, counts
 
 
@@ -156,7 +162,7 @@ def peaks_from_keys(heatf: torch.Tensor, kb: torch.Tensor, max_peaks: int,
 
 
 def _window_coords(peak_pos: torch.Tensor, h: int, w: int):
-    """(C, topk) peak raster positions -> 7x7 window coords + bounds mask.
+    """(..., C, topk) peak raster positions -> 7x7 window coords + bounds mask.
 
     Reference bounds quirk kept exactly: both axes checked against *width*,
     strict > 0 (nms_layer.cu:78-94).  yy may exceed h-1 on wide maps — the
@@ -168,15 +174,16 @@ def _window_coords(peak_pos: torch.Tensor, h: int, w: int):
     dxs = device_const(("window_dx",), lambda: torch.from_numpy(offs[:, 1].astype(np.int32)),
                        peak_pos.device)
     pos = peak_pos.to(torch.int32)[..., None]
-    yy = torch.div(pos, w, rounding_mode="floor") + dys  # (C, topk, 49)
+    yy = torch.div(pos, w, rounding_mode="floor") + dys  # (..., C, topk, 49)
     xx = torch.remainder(pos, w) + dxs
     in_bounds = (yy > 0) & (yy < w) & (xx > 0) & (xx < w)
     return yy, xx, in_bounds
 
 
 def _refine_and_pack(scores, center, yy, xx, in_bounds, valid, counts, max_peaks):
-    """Score-weighted 7x7 centroid + output packing (nms_layer.cu:74-113)."""
-    c, topk = center.shape
+    """Score-weighted 7x7 centroid + output packing (nms_layer.cu:74-113);
+    any leading axes before (C, topk)."""
+    topk = center.shape[-1]
     use = in_bounds & (scores > 0)
     scores = torch.where(use, scores, torch.zeros_like(scores))
     wsum = scores.sum(dim=-1)
@@ -191,17 +198,17 @@ def _refine_and_pack(scores, center, yy, xx, in_bounds, valid, counts, max_peaks
     zero = torch.zeros_like(center)
     rows = torch.stack(
         [torch.where(valid, x_ref, zero), torch.where(valid, y_ref, zero),
-         torch.where(valid, center, zero)], dim=-1)  # (C, topk, 3)
+         torch.where(valid, center, zero)], dim=-1)  # (..., C, topk, 3)
     if topk < max_peaks:
         rows = torch.nn.functional.pad(rows, (0, 0, 0, max_peaks - topk))
-    head = torch.zeros((c, 1, 3), dtype=torch.float32, device=center.device)
-    head[:, 0, 0] = torch.clamp_max(counts, max_peaks).to(torch.float32)
-    return torch.cat([head, rows], dim=1)  # (C, max_peaks+1, 3)
+    head = torch.zeros((*center.shape[:-1], 1, 3), dtype=torch.float32, device=center.device)
+    head[..., 0, 0] = torch.clamp_max(counts, max_peaks).to(torch.float32)
+    return torch.cat([head, rows], dim=-2)  # (..., C, max_peaks+1, 3)
 
 
 def refine_from_low(
-    parts_low: torch.Tensor,  # (S, h, w, >=P) low-res maps (NHWC)
-    peak_pos: torch.Tensor,  # (P, topk) raster positions from compact_keys
+    parts_low: torch.Tensor,  # (F, S, h, w, >=P) low-res maps (NHWC)
+    peak_pos: torch.Tensor,  # (F, P, topk) raster positions from compact_keys
     valid: torch.Tensor,
     counts: torch.Tensor,
     target_hw: Tuple[int, int],
@@ -212,19 +219,21 @@ def refine_from_low(
     """7x7 centroid refinement + packing with the windows recomputed from the
     low-res maps: the upsampled value at integer (Y, X) is
     ``mean_n Ay_n[Y] @ src_n @ Ax_n[X]^T``, so the 49 window values per peak
-    are two small batched matmuls instead of a gather from a full-res map."""
-    s, h, w, p_all = parts_low.shape
+    are two small batched matmuls instead of a gather from a full-res map.
+    -> (F, P, max_peaks+1, 3)."""
+    f, s, h, w, p_all = parts_low.shape
     th, tw = target_hw
-    c, topk = peak_pos.shape
+    c, topk = peak_pos.shape[1:]
 
     yy, xx, in_bounds = _window_coords(peak_pos, th, tw)
     # 49 = dy-major: yy varies along the dy axis, xx along the dx axis
-    yyr = yy.reshape(c, topk, 7, 7)[:, :, :, 0]  # (C, topk, 7), unclamped
-    xxc = torch.clamp(xx, 0, tw - 1).reshape(c, topk, 7, 7)[:, :, 0, :]  # (C, topk, 7)
-    planes = parts_low.to(torch.float32).permute(0, 3, 1, 2)  # (S, C_all, h, w)
+    yyr = yy.reshape(f, c, topk, 7, 7)[..., 0]  # (F, C, topk, 7), unclamped
+    xxc = torch.clamp(xx, 0, tw - 1).reshape(f, c, topk, 7, 7)[..., 0, :]  # (F, C, topk, 7)
+    planes = parts_low.to(torch.float32).permute(0, 1, 4, 2, 3)  # (F, S, C_all, h, w)
     # window rows past the channel bottom (yy >= th, wide maps only) read
     # channel c+1 at row yy-th in the reference's contiguous buffer; we
-    # replicate when the caller provided the extra channel(s)
+    # replicate when the caller provided the extra channel(s), within the
+    # frame: its channels, not the next frame's
     has_next = p_all > c
     if has_next:
         if tw > 2 * th:
@@ -237,21 +246,22 @@ def refine_from_low(
         y_main = torch.clamp(yyr, 0, th - 1)
         in_bounds = in_bounds & (yy < th)
 
-    win = torch.zeros((c, topk, 7, 7), dtype=torch.float32, device=parts_low.device)
+    win = torch.zeros((f, c, topk, 7, 7), dtype=torch.float32, device=parts_low.device)
     for n in range(s):
         padh, padw = scale_pads(h, w, n, start_scale, scale_gap)
-        Yw = axis_weights_dense(y_main.reshape(-1), h, padh, th).reshape(c, topk * 7, h)
-        Xw = axis_weights_dense(xxc.reshape(-1), w, padw, tw).reshape(c, topk, 7, w)
-        t1 = torch.einsum("cmh,chw->cmw", Yw, planes[n, :c]).reshape(c, topk, 7, w)
+        Yw = axis_weights_dense(y_main.reshape(-1), h, padh, th).reshape(f, c, topk * 7, h)
+        Xw = axis_weights_dense(xxc.reshape(-1), w, padw, tw).reshape(f, c, topk, 7, w)
+        t1 = torch.einsum("fcmh,fchw->fcmw", Yw, planes[:, n, :c]).reshape(f, c, topk, 7, w)
         if has_next:
-            Yw_n = axis_weights_dense(y_next.reshape(-1), h, padh, th).reshape(c, topk * 7, h)
-            t1n = torch.einsum("cmh,chw->cmw", Yw_n, planes[n, 1 : c + 1]).reshape(c, topk, 7, w)
+            Yw_n = axis_weights_dense(y_next.reshape(-1), h, padh, th).reshape(f, c, topk * 7, h)
+            t1n = torch.einsum("fcmh,fchw->fcmw", Yw_n,
+                               planes[:, n, 1 : c + 1]).reshape(f, c, topk, 7, w)
             t1 = torch.where(over[..., None], t1n, t1)
-        win = win + torch.einsum("ckyw,ckxw->ckyx", t1, Xw)
+        win = win + torch.einsum("fckyw,fckxw->fckyx", t1, Xw)
     win = win / s
 
-    scores = win.reshape(c, topk, 49)
-    center = win[:, :, 3, 3]
+    scores = win.reshape(f, c, topk, 49)
+    center = win[..., 3, 3]
     return _refine_and_pack(scores, center, yy, xx, in_bounds, valid, counts, max_peaks)
 
 
@@ -268,6 +278,6 @@ def refined_peaks_lowres(
     mask = find_peaks_mask(heat, threshold)
     kb = block_keys(mask, th, tw)
     peak_pos, valid, counts = compact_keys(kb, th * tw, max_peaks)
-    return refine_from_low(parts_low, peak_pos, valid, counts, (th, tw),
-                           max_peaks, start_scale, scale_gap)
+    return refine_from_low(parts_low[None], peak_pos[None], valid[None], counts[None],
+                           (th, tw), max_peaks, start_scale, scale_gap)[0]
 

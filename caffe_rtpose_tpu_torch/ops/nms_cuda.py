@@ -12,9 +12,10 @@ tap tables, and the wrappers cache them per shape and device:
 * :func:`peak_mask_fused` replaces ``caffe_rtpose_tpu/ops/nms_pallas.py::
   _mask_kernel_chan`` and ``::_mask_kernel`` (both reached through
   ``peak_mask_fused``): one Hopper kernel covers the TPU's whole-frame and
-  tiled forms.  It writes only the (C, th, tw) strict-peak mask, as bool,
-  four pixels a store; bound by that 18x368x656 write.  The realtime path's
-  kernel.
+  tiled forms, and the batched grid ``jax.vmap`` makes of them: one launch
+  takes the (F, S, h, w, C) maps of F frames.  It writes only the
+  (F, C, th, tw) strict-peak mask, as bool, four pixels a store; bound by
+  that write (18x368x656 bytes a frame).  The realtime path's kernel.
 * :func:`upsample_peak_keys` replaces ``nms_pallas.py::_kernel`` (reached
   through ``upsample_peak_keys``).  It writes U as f32 heat (C, th, tw) and,
   for the first ``key_channels`` channels, the strict-peak keys in
@@ -146,28 +147,29 @@ def _device_geometry(h: int, w: int, th: int, tw: int, s: int, start_scale: floa
 
 
 def vec4_loads(lowres: torch.Tensor) -> bool:
-    """Whether the kernels may stage the window with 16-byte loads: channel
-    stride 1, the other strides and the base 16-byte aligned, C % 4 == 0."""
+    """Whether the kernels may stage the window of an (S, h, w, C) or
+    (F, S, h, w, C) map with 16-byte loads: channel stride 1, the other
+    strides (the frame stride too) and the base 16-byte aligned, C % 4 == 0."""
     st = lowres.stride()
-    return (st[3] == 1 and all(v % 4 == 0 for v in st[:3]) and lowres.shape[3] % 4 == 0
+    return (st[-1] == 1 and all(v % 4 == 0 for v in st[:-1]) and lowres.shape[-1] % 4 == 0
             and lowres.data_ptr() % 16 == 0)
 
 
 def _check_lowres(name: str, lowres: torch.Tensor, target_hw: Tuple[int, int]):
-    """The kernels' input checks -> (S, h, w, C, th, tw)."""
+    """The kernels' input checks on (F, S, h, w, C) -> (F, S, h, w, C, th, tw)."""
     if lowres.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {lowres.device}")
     if lowres.dtype != torch.float32:
         raise TypeError(f"{name}: expected float32, got {lowres.dtype}")
-    if lowres.dim() != 4 or min(lowres.shape) < 1:
-        raise ValueError(f"{name}: expected (S, h, w, C), got {tuple(lowres.shape)}")
-    s, h, w, c = lowres.shape
+    if lowres.dim() != 5 or min(lowres.shape) < 1:
+        raise ValueError(f"{name}: expected (F, S, h, w, C), got {tuple(lowres.shape)}")
+    f, s, h, w, c = lowres.shape
     th, tw = (int(v) for v in target_hw)
-    if th < 1 or tw < 1 or -(-th // TILE_Y) > 65535:
-        raise ValueError(f"{name}: unsupported target {target_hw}")
+    if th < 1 or tw < 1 or -(-th // TILE_Y) > 65535 or f * -(-c // GROUP) > 65535:
+        raise ValueError(f"{name}: unsupported target {target_hw} for {f} frames of {c} channels")
     if any(st < 0 for st in lowres.stride()):
         raise ValueError(f"{name}: negative strides are not supported")
-    return s, h, w, c, th, tw
+    return f, s, h, w, c, th, tw
 
 
 def threshold_scalar(threshold, device: torch.device) -> torch.Tensor:
@@ -183,24 +185,28 @@ def threshold_scalar(threshold, device: torch.device) -> torch.Tensor:
 
 
 def _launch(name: str, entry: str, lowres: torch.Tensor, target_hw, start_scale: float,
-            scale_gap: float, threshold, extra: tuple, outs: tuple) -> None:
-    """Launch one kernel on the current stream of ``lowres``' device: the
-    library, the cached geometry and the strides.  ``extra`` are the int
-    arguments after (S, C, th, tw), ``outs`` the output tensors.  Raises if
-    the launch fails."""
+            scale_gap: float, threshold, extra: tuple, outs: tuple, frames: bool) -> None:
+    """Launch one kernel on the current stream of ``lowres``' device (F, S,
+    h, w, C): the library, the cached geometry and the strides.  With
+    ``frames`` the entry takes the frame stride and F, else F must be 1.
+    ``extra`` are the int arguments after (S, C, th, tw), ``outs`` the output
+    tensors.  Raises if the launch fails."""
     from .. import _build
 
-    s, h, w, c, th, tw = _check_lowres(name, lowres, target_hw)
+    f, s, h, w, c, th, tw = _check_lowres(name, lowres, target_hw)
+    if f != 1 and not frames:
+        raise ValueError(f"{name}: one frame a call, got {f}")
     thr = threshold_scalar(threshold, lowres.device)
     lib = _build.load_kernels()
     geo, tables = _device_geometry(h, w, th, tw, s, float(start_scale), float(scale_gap),
                                    lowres.device)
     st = lowres.stride()
+    dims = (st, (f, s, c, th, tw)) if frames else (st[1:], (s, c, th, tw))
     ptrs = lambda ts: [ctypes.c_void_p(t.data_ptr()) for t in ts]  # noqa: E731
     with torch.cuda.device(lowres.device):
         stream = torch.cuda.current_stream(lowres.device).cuda_stream
         err = getattr(lib, entry)(
-            *ptrs([lowres]), st[0], st[1], st[2], st[3], s, c, th, tw, *extra,
+            *ptrs([lowres]), *dims[0], *dims[1], *extra,
             *ptrs(tables), geo.wh, geo.ww, int(vec4_loads(lowres)), 1.0 / s, *ptrs([thr]),
             *ptrs(outs), ctypes.c_void_p(stream))
     if err != 0:
@@ -209,39 +215,46 @@ def _launch(name: str, entry: str, lowres: torch.Tensor, target_hw, start_scale:
 
 
 def peak_mask_fused_reference(
-    lowres: torch.Tensor,  # (S, h, w, C) part channels, NHWC
+    lowres: torch.Tensor,  # (F, S, h, w, C) or (S, h, w, C) part channels, NHWC
     target_hw: Tuple[int, int],
     start_scale: float,
     scale_gap: float,
     threshold,
 ) -> torch.Tensor:
-    """Plain PyTorch version: (C, th, tw) bool mask through the full-res map;
-    ``threshold`` a float or a 0-d f32 tensor."""
+    """Plain PyTorch version: the (F, C, th, tw) or (C, th, tw) bool mask
+    through the full-res map, frame by frame; ``threshold`` a float or a
+    0-d f32 tensor."""
     th, tw = target_hw
+    if lowres.dim() == 5:
+        return torch.stack([peak_mask_fused_reference(x, target_hw, start_scale, scale_gap,
+                                                      threshold) for x in lowres])
     heat = imresize_average(lowres, th, tw, start_scale, scale_gap)[0].permute(2, 0, 1)
     return find_peaks_mask(heat, threshold)
 
 
 def peak_mask_fused(
-    lowres: torch.Tensor,  # (S, h, w, C) part channels, NHWC, any strides
+    lowres: torch.Tensor,  # (F, S, h, w, C) or (S, h, w, C) part channels, NHWC, any strides
     target_hw: Tuple[int, int],
     start_scale: float,
     scale_gap: float,
     threshold,
 ) -> torch.Tensor:
-    """(C, th, tw) bool strict-peak mask of the scale-averaged bicubic
-    upsample of ``lowres``; equal to :func:`peak_mask_fused_reference` up to
-    f32 summation order (the kernel sums each pixel's taps in its own order,
-    so a pixel within a rounding error of a tie may differ)."""
+    """(F, C, th, tw) bool strict-peak masks of the scale-averaged bicubic
+    upsample of each frame of ``lowres`` in one launch ((C, th, tw) for an
+    (S, h, w, C) map); equal to :func:`peak_mask_fused_reference` up to f32
+    summation order (the kernel sums each pixel's taps in its own order, so
+    a pixel within a rounding error of a tie may differ)."""
     global launches
     if lowres.device.type == "cpu":
         return peak_mask_fused_reference(lowres, target_hw, start_scale, scale_gap, threshold)
+    low5 = lowres if lowres.dim() == 5 else lowres[None]
     th, tw = (int(v) for v in target_hw)
-    out = torch.empty((lowres.shape[-1], th, tw), dtype=torch.bool, device=lowres.device)
-    _launch("peak_mask_fused", "crt_peak_mask", lowres, (th, tw), start_scale, scale_gap,
-            threshold, (), (out,))
+    out = torch.empty((low5.shape[0], low5.shape[-1], th, tw), dtype=torch.bool,
+                      device=lowres.device)
+    _launch("peak_mask_fused", "crt_peak_mask", low5, (th, tw), start_scale, scale_gap,
+            threshold, (), (out,), frames=True)
     launches += 1
-    return out
+    return out if lowres.dim() == 5 else out[0]
 
 
 def upsample_peak_keys_reference(
@@ -286,7 +299,9 @@ def upsample_peak_keys(
     dev = lowres.device
     heat = torch.empty((lowres.shape[-1], th, tw), dtype=torch.float32, device=dev)
     keys = torch.empty((kc, th * (tw // 2)), dtype=torch.int32, device=dev)
-    _launch("upsample_peak_keys", "crt_upsample_peak_keys", lowres, (th, tw), start_scale,
-            scale_gap, threshold, (kc,), (heat, keys))
+    if lowres.dim() != 4:
+        raise ValueError(f"upsample_peak_keys: expected (S, h, w, C), got {tuple(lowres.shape)}")
+    _launch("upsample_peak_keys", "crt_upsample_peak_keys", lowres[None], (th, tw), start_scale,
+            scale_gap, threshold, (kc,), (heat, keys), frames=False)
     upsample_launches += 1
     return heat, keys

@@ -42,27 +42,27 @@ NUM_INTER = 10  # line-integral samples (rtpose.cpp num_inter)
 
 
 def _sample_geometry(peaks: torch.Tensor, desc: ModelDescriptor, th: int, tw: int):
-    """Every limb's candidate pairs -> unit vectors (vx, vy), the pair
-    distance ``norm`` (all (L, P, P)) and the 10 integer sample coords
-    (sy, sx) on each segment (L, P, P, 10), rounded and clamped as the
-    reference does."""
+    """Every limb's candidate pairs of (..., parts, P+1, 3) peaks -> unit
+    vectors (vx, vy), the pair distance ``norm`` (all (..., L, P, P)) and the
+    10 integer sample coords (sy, sx) on each segment (..., L, P, P, 10),
+    rounded and clamped as the reference does."""
     L = desc.num_limbs
     dev = peaks.device
     limb_a = _index([desc.limb(k)[0] for k in range(L)], dev)
     limb_b = _index([desc.limb(k)[1] for k in range(L)], dev)
 
-    cand_a = peaks[limb_a, 1:, :]
-    cand_b = peaks[limb_b, 1:, :]
-    ax = cand_a[:, :, None, 0]
-    ay = cand_a[:, :, None, 1]
-    bx = cand_b[:, None, :, 0]
-    by = cand_b[:, None, :, 1]
+    cand_a = peaks[..., limb_a, 1:, :]
+    cand_b = peaks[..., limb_b, 1:, :]
+    ax = cand_a[..., :, None, 0]
+    ay = cand_a[..., :, None, 1]
+    bx = cand_b[..., None, :, 0]
+    by = cand_b[..., None, :, 1]
     dx = bx - ax
     dy = by - ay
     norm = torch.sqrt(dx * dx + dy * dy)
     inv = torch.where(norm < 1e-6, torch.zeros_like(norm), 1.0 / torch.clamp_min(norm, 1e-12))
 
-    lm = torch.arange(NUM_INTER, dtype=torch.float32, device=dev).reshape(1, 1, 1, NUM_INTER)
+    lm = torch.arange(NUM_INTER, dtype=torch.float32, device=dev)
     # C round() of non-negative values
     sx = torch.floor(ax[..., None] + lm * dx[..., None] / NUM_INTER + 0.5).to(torch.int32)
     sy = torch.floor(ay[..., None] + lm * dy[..., None] / NUM_INTER + 0.5).to(torch.int32)
@@ -91,6 +91,14 @@ def _score(vx, vy, norm, px, py, inter_threshold):
 def _index(vals, dev):
     vals = tuple(int(v) for v in vals)
     return device_const(("index", vals), lambda: torch.tensor(vals, dtype=torch.int64), dev)
+
+
+def _axis_rows(src_full: int, pad: int, target: int, dev) -> torch.Tensor:
+    """``axis_weights_dense`` of every output coordinate 0..target-1, a
+    (target, src_full) device constant: a row depends on its coordinate
+    alone, so the rows of in-range coordinates gather from it, bit for bit."""
+    return device_const(("axis_rows", src_full, pad, target), lambda: axis_weights_dense(
+        torch.arange(target, dtype=torch.int32), src_full, pad, target), dev)
 
 
 def _paf_index(desc: ModelDescriptor, dev):
@@ -126,8 +134,8 @@ def score_pairs(
 
 
 def score_pairs_lowres(
-    lowres: torch.Tensor,  # (S, h, w, C_total) net-output maps, NHWC (concat_stage7)
-    peaks: torch.Tensor,  # (num_parts, max_peaks+1, 3)
+    lowres: torch.Tensor,  # (F, S, h, w, C_total) maps, NHWC
+    peaks: torch.Tensor,  # (F, num_parts, max_peaks+1, 3)
     desc: ModelDescriptor,
     target_hw: Tuple[int, int],
     start_scale: float,
@@ -135,17 +143,20 @@ def score_pairs_lowres(
     inter_threshold,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Candidate scoring for every limb and peak pair, sampling the
-    upsampled, scale-averaged PAF maps from the low-res network output: the
-    upsampled value at integer (Y, X) is ``mean_n Ay_n[Y] @ src_n @ Ax_n[X]^T``.
+    upsampled, scale-averaged PAF maps from the low-res network output
+    (``concat_stage7``): the upsampled value at integer (Y, X) is
+    ``mean_n Ay_n[Y] @ src_n @ Ax_n[X]^T``.  The dense one-hot weights are
+    what JAX computes; with a leading frame axis they grow by F (at
+    ``pair_cap=32`` and 8 frames, about 1.4 GB).
 
-    Returns (pair_score, pair_count): both (num_limbs, max_peaks, max_peaks)
-    float32/int32, pair_score = sum of the sample dots above
+    Returns (pair_score, pair_count): both (F, num_limbs, max_peaks,
+    max_peaks), float32/int32, pair_score = sum of the sample dots above
     ``inter_threshold`` and pair_count = how many there were (0 for
     coincident peaks).  The host applies the count and slot gates.
     """
-    s, h, w, c_total = lowres.shape
+    f, s, h, w, c_total = lowres.shape
     th, tw = target_hw
-    max_peaks = peaks.shape[1] - 1
+    max_peaks = peaks.shape[-2] - 1
     L = desc.num_limbs
     dev = lowres.device
     src = lowres.to(torch.float32)
@@ -153,25 +164,25 @@ def score_pairs_lowres(
 
     M = max_peaks * max_peaks * NUM_INTER
     paf_x, paf_y = _paf_index(desc, dev)
-    chw = src.permute(0, 3, 1, 2)  # (S, C_total, h, w)
-    planes = torch.stack([chw[:, paf_x], chw[:, paf_y]], dim=2)  # (S, L, 2, h, w)
+    chw = src.permute(0, 1, 4, 2, 3)  # (F, S, C_total, h, w)
+    planes = torch.stack([chw[:, :, paf_x], chw[:, :, paf_y]], dim=3)  # (F, S, L, 2, h, w)
 
-    ys_all = sy.reshape(L * M)
-    xs_all = sx.reshape(L * M)
-    val_x = torch.zeros((L, M), dtype=torch.float32, device=dev)
-    val_y = torch.zeros((L, M), dtype=torch.float32, device=dev)
+    ys_all = sy.reshape(f * L * M)
+    xs_all = sx.reshape(f * L * M)
+    val_x = torch.zeros((f, L, M), dtype=torch.float32, device=dev)
+    val_y = torch.zeros((f, L, M), dtype=torch.float32, device=dev)
     for n in range(s):
         padh, padw = scale_pads(h, w, n, start_scale, scale_gap)
-        Yd = axis_weights_dense(ys_all, h, padh, th).reshape(L, M, h)
-        Xd = axis_weights_dense(xs_all, w, padw, tw).reshape(L, M, w)
+        Yd = _axis_rows(h, padh, th, dev)[ys_all].reshape(f, L, M, h)
+        Xd = _axis_rows(w, padw, tw, dev)[xs_all].reshape(f, L, M, w)
         # contract the wide axis (w) first, then multiply-reduce over h
-        tmp = torch.einsum("lchw,lmw->lcmh", planes[n], Xd)  # (L, 2, M, h)
-        v = torch.einsum("lcmh,lmh->lcm", tmp, Yd)
-        val_x = val_x + v[:, 0]
-        val_y = val_y + v[:, 1]
+        tmp = torch.einsum("flchw,flmw->flcmh", planes[:, n], Xd)  # (F, L, 2, M, h)
+        v = torch.einsum("flcmh,flmh->flcm", tmp, Yd)
+        val_x = val_x + v[:, :, 0]
+        val_y = val_y + v[:, :, 1]
 
-    px = (val_x / s).reshape(L, max_peaks, max_peaks, NUM_INTER)
-    py = (val_y / s).reshape(L, max_peaks, max_peaks, NUM_INTER)
+    px = (val_x / s).reshape(f, L, max_peaks, max_peaks, NUM_INTER)
+    py = (val_y / s).reshape(f, L, max_peaks, max_peaks, NUM_INTER)
     return _score(vx, vy, norm, px, py, inter_threshold)
 
 

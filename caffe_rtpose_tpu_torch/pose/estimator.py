@@ -7,11 +7,12 @@ batch of frames, in one of two branches:
   each scale's live region) and on-device normalize -> the deploy CNN up to
   the low-res ``concat_stage7``, all ``batch x num_scales`` canvases in one
   call (in bf16 its conv1 block through the hand-written CUDA kernel
-  ``conv1_cuda.conv1_block``) -> per frame: the fused upsample + peak mask
-  (the hand-written CUDA kernel ``nms_cuda.peak_mask_fused`` on the card) ->
-  raster-order compaction -> 7x7 refinement and PAF pair scoring, both read
-  from the low-res maps -> one byte-packed output row per frame (f32 peaks |
-  f16 scores | u8 counts);
+  ``conv1_cuda.conv1_block``) -> one post segment over all frames of the
+  pass, the port of the JAX package's ``jax.vmap``: the fused upsample +
+  peak mask (the hand-written CUDA kernel ``nms_cuda.peak_mask_fused`` on
+  the card, one launch a pass) -> raster-order compaction -> 7x7 refinement
+  and PAF pair scoring, both read from the low-res maps -> one byte-packed
+  output row per frame (f32 peaks | f16 scores | u8 counts);
 * ``keep_heatmap=True``: f32 Caffe-layout input -> the same CNN -> the
   full-res upsample of all channels written out, with the part channels'
   peak keys (the hand-written CUDA kernel ``nms_cuda.upsample_peak_keys``)
@@ -59,8 +60,9 @@ class PoseResult:
 
 
 class PoseEstimator:
-    """Build from a deploy NetParameter dict and ``{layer: [OIHW, bias]}``
-    numpy weights.
+    """Build from a deploy graph (a prototxt path, prototxt text or a
+    NetParameter dict; phase TEST) and weights (a ``.caffemodel`` path or
+    ``{layer: [OIHW, bias]}`` numpy), as the JAX estimator is built.
 
     Mirrors warmup() (rtpose.cpp:173-237): reshape input to
     (num_scales, 3, net_h, net_w), inject start_scale/scale_gap into the
@@ -102,18 +104,16 @@ class PoseEstimator:
     and replay it after (default on CUDA; off runs the same program
     eagerly).  The CPU has no graphs.  A graph keeps the tensors it
     captured, and ``Net.load_weights`` remakes the bf16 and packed copies:
-    load weights before the first call.  ``warm_overflow``: capture the
-    uncapped single-frame program in a background thread now, so the first
-    crowded frame does not wait for a capture (a no-op without graphs).
-
-    Not ported yet, and refused with ``NotImplementedError`` rather than
-    ignored: file paths for ``proto``/``weights``.
+    load weights before the first call (the constructor loads ``weights``
+    before any capture).  ``warm_overflow``: capture the uncapped
+    single-frame program in a background thread now, so the first crowded
+    frame does not wait for a capture (a no-op without graphs).
     """
 
     def __init__(
         self,
-        proto: Mapping[str, Any],
-        weights: Optional[Mapping[str, Sequence[np.ndarray]]] = None,
+        proto: Union[str, Mapping[str, Any]],
+        weights: Union[None, str, Mapping[str, Sequence[np.ndarray]]] = None,
         net_resolution: Tuple[int, int] = (656, 368),  # (W, H), multiples of 16
         num_scales: int = 1,
         start_scale: float = 1.0,
@@ -136,11 +136,6 @@ class PoseEstimator:
         part (raster order — identical to the reference for frames with
         <= K peaks/part).  Slot 0 of each part keeps the raw count, so a
         frame with more peaks is detected and refetched uncapped."""
-        if not isinstance(proto, Mapping):
-            raise NotImplementedError("proto must be a NetParameter dict (file paths are not ported)")
-        if weights is not None and not isinstance(weights, Mapping):
-            raise NotImplementedError("weights must be a {layer: [arrays]} dict (file paths are not ported)")
-
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             torch.backends.cudnn.allow_tf32 = False
@@ -171,6 +166,7 @@ class PoseEstimator:
 
         self.net = Net(
             proto,
+            phase="TEST",
             input_shapes={"image": (num_scales, 3, net_h, net_w)},
             overrides={"resize": {"imresize_param.start_scale": start_scale,
                                   "imresize_param.scale_gap": scale_gap}},
@@ -318,39 +314,42 @@ class PoseEstimator:
 
     def _post(self, low: torch.Tensor, nms_threshold, inter_threshold,
               eff_peaks: int) -> torch.Tensor:
-        """One frame's (S, h, w, C) f32 low-res maps -> its packed u8 row."""
+        """F frames' (F, S, h, w, C) f32 low-res maps -> their (F, n) packed
+        u8 rows, each laid out as one frame's row."""
         P, max_peaks = self.num_parts, self.max_peaks
         th, tw = self.target_hw
         start, gap = self.start_scale, self.scale_gap
+        f = low.shape[0]
         mask_fn = nms_cuda.peak_mask_fused if self.peak_kernel else nms_cuda.peak_mask_fused_reference
-        pmask = mask_fn(low[..., :P], (th, tw), start, gap, nms_threshold)
+        pmask = mask_fn(low[..., :P], (th, tw), start, gap, nms_threshold)  # (F, P, th, tw)
         kb = block_keys(pmask, th, tw)
         pos, valid, counts = compact_keys(kb, th * tw, max_peaks)
         # P+1 channels: the extra (background) channel feeds the reference's
-        # past-the-channel refinement reads for peaks near the bottom edge
+        # past-the-channel refinement reads for peaks near the bottom edge,
+        # within each frame
         peaks = refine_from_low(low[..., : P + 1], pos, valid, counts, (th, tw),
                                 max_peaks, start, gap)
         if eff_peaks < max_peaks:
             # first-K truncation in raster order; slot 0 keeps the RAW count
             # so the host detects overflow and refetches uncapped
-            peaks = peaks[:, : eff_peaks + 1].contiguous()
+            peaks = peaks[:, :, : eff_peaks + 1].contiguous()
         pair_score, pair_count = C.score_pairs_lowres(
             low, peaks, self.descriptor, (th, tw), start, gap, inter_threshold)
         return torch.cat([
-            peaks.reshape(-1).view(torch.uint8),
-            pair_score.to(torch.float16).reshape(-1).view(torch.uint8),
-            pair_count.to(torch.uint8).reshape(-1),
-        ])
+            peaks.reshape(f, -1).view(torch.uint8),
+            pair_score.to(torch.float16).reshape(f, -1).view(torch.uint8),
+            pair_count.to(torch.uint8).reshape(f, -1),
+        ], dim=1)
 
     @torch.inference_mode()
     def _device_program(self, x: torch.Tensor, nms_threshold,
                         inter_threshold, eff_peaks: int) -> torch.Tensor:
         """F uploaded frames -> (F, n) packed u8 rows: one CNN call for all
-        F*S canvases, then the post segment frame by frame.  The thresholds
-        are floats or 0-d f32 tensors on the device (a graph's inputs)."""
-        low = self._lowres(self._canvases(x))
-        return torch.stack([self._post(l, nms_threshold, inter_threshold, eff_peaks)
-                            for l in low])
+        F*S canvases, then one post segment for all F frames.  The
+        thresholds are floats or 0-d f32 tensors on the device (a graph's
+        inputs)."""
+        return self._post(self._lowres(self._canvases(x)), nms_threshold, inter_threshold,
+                          eff_peaks)
 
     def _run(self, frames: np.ndarray, nms_threshold, inter_threshold,
              eff_peaks: Optional[int] = None) -> Dict[str, torch.Tensor]:

@@ -7,11 +7,11 @@ checkout's relative path, as ``--caffemodel`` does.  Run:
 
     python -m caffe_rtpose_tpu_torch rtpose --image_dir DIR --write_json OUT --no_display
 
-Not ported yet, and refused with ``NotImplementedError``: ``--bundle``
-(serving), a ``--caffeproto`` or ``--caffemodel`` file that exists (the
-prototxt/caffemodel codec) and ``--num_gpu > 1`` (the device pool).  A
-missing prototxt falls back to the built-in COCO graph and a missing
-caffemodel to random weights, with the JAX tool's warnings.
+An existing ``--caffeproto`` prototxt and ``--caffemodel`` file are read
+as the JAX tool reads them; a missing prototxt falls back to the built-in
+COCO graph and a missing caffemodel to random weights, with the JAX tool's
+warnings.  Not ported yet, and refused with ``NotImplementedError``:
+``--bundle`` (serving) and ``--num_gpu > 1`` (the device pool).
 """
 
 from __future__ import annotations
@@ -99,15 +99,9 @@ def main(argv=None) -> int:
 
     if args.bundle:
         raise NotImplementedError("--bundle (serving bundles) is not ported yet")
-    files = [("--caffeproto", args.caffeproto)]
-    if not args.no_weights:
-        files.append(("--caffemodel", args.caffemodel))
-    for flag, path in files:
-        if os.path.exists(path):
-            raise NotImplementedError(f"{flag} {path!r}: reading prototxt/caffemodel files is "
-                                      "not ported yet")
-
-    if not args.no_weights:
+    weights = None if args.no_weights else (
+        args.caffemodel if os.path.exists(args.caffemodel) else None)
+    if weights is None and not args.no_weights:
         print(f"warning: caffemodel {args.caffemodel!r} not found; "
               "running with random weights", file=sys.stderr)
     if args.device_rescale and args.part_to_show > 0:
@@ -125,19 +119,21 @@ def main(argv=None) -> int:
               "must be multiples of 16", file=sys.stderr)
         return 2
 
-    # self-contained fallback: the generator emits the identical COCO deploy
-    # topology (models/cpm.py), so the demo runs without the reference
-    # checkout
-    from ..models.cpm import make_pose_deploy_net
+    proto = args.caffeproto
+    if not os.path.exists(proto):
+        # self-contained fallback: the generator emits the identical COCO
+        # deploy topology (models/cpm.py), so the demo runs without the
+        # reference checkout
+        from ..models.cpm import make_pose_deploy_net
 
-    print(f"warning: prototxt {args.caffeproto!r} not found; using the built-in "
-          "COCO 18-kpt deploy graph", file=sys.stderr)
-    proto = make_pose_deploy_net()
+        print(f"warning: prototxt {proto!r} not found; using the built-in "
+              "COCO 18-kpt deploy graph", file=sys.stderr)
+        proto = make_pose_deploy_net()
 
     device = f"cuda:{args.start_device}" if args.device == "cuda" else "cpu"
     est = PoseEstimator(
         proto,
-        weights=None,
+        weights=weights,
         net_resolution=args.net_resolution,
         num_scales=args.num_scales,
         start_scale=args.start_scale,

@@ -19,8 +19,11 @@ Phases, each of which raises (non-zero exit) on failure:
                  near-ties.
                A near-tie is a pixel where |U-thr| or |U-max8| <=
                1e-5*max(1,|U|), with U the plain version's upsample there.
+               K1 also with a frame axis: 8 frames of the estimator's
+               (F*S, 57, h, w) channels_last blob sliced to 18 channels, in
+               one launch, against the plain version frame by frame.
                Timed at the main path's shapes (K1 on the slice view at 1 and
-               3 scales, K3 at 1 scale): kernel_ms, the kernel's own device
+               3 scales and on 8 frames, K3 at 1 scale): kernel_ms, the kernel's own device
                time from torch.profiler by kernel name over 20 launches,
                measured after the last slice phase (a profiling window
                slows the host's launches for the rest of the process);
@@ -37,7 +40,8 @@ Phases, each of which raises (non-zero exit) on failure:
                branch; outputs within 1e-4 (and whether bit-identical),
                a lower threshold finds more peaks, device and end-to-end
                ms/frame of both; kernels per replay from torch.profiler
-               (checked against 1 K1 / 8 K1 + 1 K4 / 1 K3), measured after
+               (checked against 1 K1 / 1 K1 + 1 K4 / 1 K3: the bf16 batch-8
+               pass runs one post segment over its 8 frames), measured after
                the pipeline and cli phases.
    preprocess- host ms of the OpenCV-free preprocess: 1280x720 -> 656x368,
                and 1920x1080 warped to 1280x720 first.
@@ -48,8 +52,16 @@ Phases, each of which raises (non-zero exit) on failure:
                wrappers' counters zeroed before its estimator exists and
                read after (the eager pass and the capture; the card runs
                the replays); then 64 frames for FPS and per-stage ms.
-   cli       - tools.rtpose.main --no_weights on 8 PNG frames, exit 0, one
-               JSON file a frame, the overflow refetch count printed.
+   files     - the model files of the main path: the COCO deploy prototxt
+               (proto.prototxt.dump_file) and the calibrated weights as a
+               caffemodel (Net.save_caffemodel, ~209 MB), in a temporary
+               directory; the bf16 batch-8 u8 estimator built from those
+               paths, its packed outputs bit-identical to the one built
+               from the dicts on 16 frames; the time to write and to load
+               the files (host parse alone, and the estimator's build).
+   cli       - tools.rtpose.main with those --caffeproto and --caffemodel
+               files on 8 PNG frames, exit 0, no fallback warning, one JSON
+               file a frame, the overflow refetch count printed.
 4. slice     - the full-width COCO estimator (656x368, 1 scale, u8 input,
                pair_cap=32, f32) over 8 synthetic frames through
                estimate_from_net_input (graph replays), with the peak-mask
@@ -84,9 +96,10 @@ Phases, each of which raises (non-zero exit) on failure:
 8. bf16      - bench.py's configuration: bf16, u8, 1 scale, pair_cap=32,
                batch=8, 16 frames through run_device + fetch_batch (with the
                overflow refetch) and through estimate_from_net_input, with
-               the conv1 kernel's launches (one per device pass) and the
-               peak-mask kernel's (one per frame row) counted by the
-               profiler around each run.
+               the conv1 kernel's and the peak-mask kernel's launches (one
+               each per device pass: the post segment runs over the batch)
+               counted by the profiler around each run, and the peak of
+               torch.cuda.max_memory_allocated over those passes.
                Against the same estimator with conv1_kernel=False and
                peak_kernel=False, and against the f32 estimator on the same
                frames: the low-res maps' relative L2 distances, and the
@@ -119,6 +132,7 @@ import json
 import re
 import statistics
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -184,19 +198,23 @@ def kernel_ms(fn, kernel: str, reps: int = PROFILE_REPS):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us, count = 0.0, 0
-    for evt in prof.key_averages():
-        if kernel in evt.key:
-            total_us += device_us(evt)
-            count += evt.count
-    # CUPTI may drop the first launch of a window: average over what it saw
-    check(count >= reps // 2 and total_us > 0,
-          f"the profiler saw {count} launches of {kernel} ({total_us} us) for {reps} calls")
-    return total_us / count / 1000.0
+    # CUPTI may drop the first launch of a window: average over what it saw;
+    # late in a process it has also lost a whole window, so up to 3 windows
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us, count = 0.0, 0
+        for evt in prof.key_averages():
+            if kernel in evt.key:
+                total_us += device_us(evt)
+                count += evt.count
+        if count >= reps // 2 and total_us > 0:
+            return total_us / count / 1000.0
+        print(f"[profile] the profiler saw {count} launches of {kernel} for {reps} calls")
+    raise AssertionError(f"the profiler saw {count} launches of {kernel} ({total_us} us) for "
+                         f"{reps} calls, in each of 3 windows")
 
 
 KERNEL_NAMES = ("peak_mask_kernel", "upsample_peak_keys_kernel", "conv1_block_kernel")
@@ -209,11 +227,12 @@ def device_us(evt) -> float:
     return evt.cuda_time_total if t is None else t
 
 
-def device_kernels(fn):
+def device_kernels(fn, by_name=None):
     """``fn()`` under torch.profiler -> (its result, {hand kernel: launches
     the card ran}, every kernel the card ran, their summed device ms).  A replayed CUDA graph makes
     no Python call, so the wrappers' counters see only the eager pass and
-    the capture; the card's trace counts the replays."""
+    the capture; the card's trace counts the replays.  ``by_name``, a dict,
+    receives {kernel name: [launches, device ms]}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -233,6 +252,10 @@ def device_kernels(fn):
             continue  # runtime calls, copies, the filler
         total += evt.count
         busy_us += device_us(evt)
+        if by_name is not None:
+            row = by_name.setdefault(name, [0, 0.0])
+            row[0] += evt.count
+            row[1] += device_us(evt) / 1000.0
         for k in KERNEL_NAMES:
             if k in name:
                 counts[k] += evt.count
@@ -248,15 +271,15 @@ def device_kernels(fn):
 CUPTI_SLACK = 100
 
 
-def replay_kernels(fn, *ests):
+def replay_kernels(fn, *ests, by_name=None):
     """``fn()`` under torch.profiler, every program it runs on ``ests``
     captured before -> (its result, {hand kernel: launches the estimators'
     replays made}, {hand kernel: launches the profiler saw}, every kernel
-    the card ran, their summed device ms)."""
+    the card ran, their summed device ms); ``by_name`` as device_kernels'."""
     from caffe_rtpose_tpu_torch.pose.estimator import kernel_calls
 
     calls0, rep0 = kernel_calls(), [e.replayed_launches() for e in ests]
-    res, seen, total, busy = device_kernels(fn)
+    res, seen, total, busy = device_kernels(fn, by_name)
     calls = kernel_calls()
     check(calls == calls0, f"wrapper calls in a replay window: {calls0} -> {calls} (an eager pass "
           f"or a capture)")
@@ -518,7 +541,58 @@ def phase_kernels(device="cuda"):
                              min(ms_k, ms_k2), min(ms_p, ms_p2), b_ms, b_by, None)
             row["max_abs_err"] = float((got.to(torch.int8) - ref.to(torch.int8)).abs().max())
             timing.append(row)
+    timing.append(peak_mask_frames(dev, thr))
     return timing
+
+
+K1_FRAMES = 8  # the bf16 batch-8 pass: one launch over its frames
+
+
+def peak_mask_frames(dev, thr, frames=K1_FRAMES, s=1, h=46, w=82, c=18, f=8):
+    """K1 with a frame axis at the main path's shape: ``frames`` frames of the
+    (F*S, 57, h, w) channels_last blob seen as (F, S, h, w, 57) and sliced to
+    the c part channels, as the estimator hands them over; one launch,
+    against the plain version (frame by frame); timed."""
+    import torch
+
+    from caffe_rtpose_tpu_torch.ops import nms_cuda
+    from caffe_rtpose_tpu_torch.ops.imresize import imresize_average
+
+    rs = np.random.RandomState(150)
+    blob = torch.from_numpy(rs.rand(frames * s, 57, h, w).astype(np.float32) * 2 - 1).to(dev)
+    blob = blob.contiguous(memory_format=torch.channels_last)
+    low = blob.permute(0, 2, 3, 1).reshape(frames, s, h, w, 57)[..., :c]
+    th, tw = h * f, w * f
+    before = nms_cuda.launches
+    got = nms_cuda.peak_mask_fused(low, (th, tw), 1.0, 0.3, thr)
+    torch.cuda.synchronize()
+    check(nms_cuda.launches == before + 1, "[kernels] frames: one launch for all frames")
+    ref = nms_cuda.peak_mask_fused_reference(low, (th, tw), 1.0, 0.3, thr)
+    check(got.dtype == torch.bool and got.shape == ref.shape == (frames, c, th, tw),
+          "[kernels] frames: mask dtype/shape")
+    heat = torch.stack([imresize_average(x, th, tw, 1.0, 0.3)[0].permute(2, 0, 1) for x in low])
+    n_diff, n_bad = near_tie_violations(got.reshape(-1, th, tw), ref.reshape(-1, th, tw),
+                                        heat.reshape(-1, th, tw), thr)
+    alone = all(torch.equal(got[i], nms_cuda.peak_mask_fused(low[i], (th, tw), 1.0, 0.3, thr))
+                for i in range(frames))
+    print(f"[kernels] frames: F={frames} S={s} {h}x{w}->{th}x{tw} C={c} channels_last slice of "
+          f"57 (strides {tuple(low.stride())}, 16-byte loads {nms_cuda.vec4_loads(low)}): "
+          f"{int(ref.sum())} peaks, {n_diff} pixels differ, {n_bad} of them no near-tie; each "
+          f"frame bit-identical to the kernel on that frame alone: {alone}")
+    check(n_bad == 0, "peak mask kernel disagrees with the plain version on 8 frames")
+    check(alone, "a frame of the batch differs from the kernel on that frame alone")
+    check(int(ref.sum()) > 0, "frames: no peaks, the comparison is vacuous")
+    args = (low, (th, tw), 1.0, 0.3, thr)
+    ms_p, ms_k, ms_k2, ms_p2 = time_pair(lambda: nms_cuda.peak_mask_fused_reference(*args),
+                                         lambda: nms_cuda.peak_mask_fused(*args))
+    b_ms, b_by = k1_bound(s, h, w, frames * c, th, tw)  # F times the one-frame work
+    print(f"[kernels] frames call median of 20 (plain, kernel, kernel, plain): {ms_p:.4f} "
+          f"{ms_k:.4f} {ms_k2:.4f} {ms_p2:.4f} ms; bound {b_ms:.5f} ms ({b_by})")
+    row = timing_row(f"F={frames} S={s} {h}x{w}x{c} (channels_last slice of 57) -> {th}x{tw}",
+                     lambda: nms_cuda.peak_mask_fused(*args), "peak_mask_kernel",
+                     min(ms_k, ms_k2), min(ms_p, ms_p2), b_ms, b_by, None)
+    row["max_abs_err"] = float((got.to(torch.int8) - ref.to(torch.int8)).abs().max())
+    return row
 
 
 def phase_upsample_keys(device="cuda"):
@@ -1040,6 +1114,8 @@ def phase_bf16(weights, device="cuda", net_resolution=(656, 368), stages=6,
     batches = [np.stack(frames[i : i + batch]) for i in range(0, n_frames, batch)]
 
     conv1_cuda.launches = nms_cuda.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     est.fetch_batch(est.run_device(batches[0]))  # builds the kernels, captures the graph
     torch.cuda.synchronize()
     calls4, calls1 = conv1_cuda.launches, nms_cuda.launches
@@ -1047,13 +1123,14 @@ def phase_bf16(weights, device="cuda", net_resolution=(656, 368), stages=6,
     t0 = time.perf_counter()
     results = run_batched(est, batches)
     e2e_ms = (time.perf_counter() - t0) * 1000.0 / n_frames
+    peak_mem = torch.cuda.max_memory_allocated()
     refetch0 = est._overflow_refetches
     _, counts, seen, per_pass, _ = replay_kernels(lambda: run_batched(est, batches), est)
     k4, k1 = counts["conv1_block_kernel"], counts["peak_mask_kernel"]
     refetches = est._overflow_refetches - refetch0
     passes = len(batches) + refetches
     check_launches(f"{tag} run_device + fetch_batch:", counts, seen,
-                   {"conv1_block_kernel": passes, "peak_mask_kernel": n_frames + refetches})
+                   {"conv1_block_kernel": passes, "peak_mask_kernel": passes})
 
     t0 = time.perf_counter()
     single = [est.estimate_from_net_input(f) for f in frames]
@@ -1065,7 +1142,7 @@ def phase_bf16(weights, device="cuda", net_resolution=(656, 368), stages=6,
     k4_one, k1_one = counts1["conv1_block_kernel"], counts1["peak_mask_kernel"]
     check_launches(f"{tag} estimate_from_net_input:", counts1, seen1,
                    {"conv1_block_kernel": n_frames + refetches1,
-                    "peak_mask_kernel": batch * n_frames + refetches1})
+                    "peak_mask_kernel": n_frames + refetches1})
     same = sum(np.array_equal(a.peaks, b[0], equal_nan=True) for a, b in zip(single, results))
 
     xd = torch.from_numpy(batches[0]).to(device)
@@ -1104,7 +1181,9 @@ def phase_bf16(weights, device="cuda", net_resolution=(656, 368), stages=6,
           f"{seen1['conv1_block_kernel']}, peak-mask {seen['peak_mask_kernel']} and "
           f"{seen1['peak_mask_kernel']}); overflow "
           f"refetches {refetches} and {refetches1}; frames with identical peaks on both "
-          f"paths {same}/{n_frames}; peaks {total}, people {people}")
+          f"paths {same}/{n_frames}; peaks {total}, people {people}; every kernel of a pass "
+          f"{per_pass / passes:.0f}; torch.cuda.max_memory_allocated over the first passes "
+          f"{peak_mem / 2**30:.3f} GiB")
     print(f"{tag} low-res maps, relative L2: kernel path vs plain path {d_twin:.4g}, kernel path "
           f"vs f32 {d_f32:.4g}, plain path vs f32 {d_twin_f32:.4g}; peaks within {MATCH_PX:g} "
           f"px / {MATCH_SCORE:g}: {share_twin:.4f} of the plain path's {n_twin}, "
@@ -1119,7 +1198,7 @@ def phase_bf16(weights, device="cuda", net_resolution=(656, 368), stages=6,
     return dict(device_ms=dev_ms, cnn_ms=cnn_ms, cnn_f32_ms=cnn_f32_ms, f32_device_ms=dev_f32_ms,
                 e2e_ms=e2e_ms, e2e_single_ms=e2e_one_ms, launches=calls4,
                 peak_mask_launches=calls1, device_launches=k4, peak_mask_device_launches=k1,
-                kernels_per_pass=per_pass / passes,
+                kernels_per_pass=per_pass / passes, max_memory_allocated=peak_mem,
                 peaks=total, people=people, share_plain=share_twin, share_f32=share_f32,
                 share_f32_strict=strict_f32, l2_plain=d_twin, l2_f32=d_f32, weights=weights,
                 frames=frames)
@@ -1278,7 +1357,7 @@ def phase_graph(weights, frames_u8, device="cuda", net_resolution=(656, 368), st
          {"peak_mask_kernel": 1, "conv1_block_kernel": 0, "upsample_peak_keys_kernel": 0}),
         (f"bf16 batch {batch}", dict(input_u8=True, pair_cap=32, dtype=torch.bfloat16, batch=batch),
          np.stack(frames_u8[:batch]), batch,
-         {"peak_mask_kernel": batch, "conv1_block_kernel": 1, "upsample_peak_keys_kernel": 0}),
+         {"peak_mask_kernel": 1, "conv1_block_kernel": 1, "upsample_peak_keys_kernel": 0}),
         ("f32 heatmap", dict(keep_heatmap=True), f32_in, 1,
          {"peak_mask_kernel": 0, "conv1_block_kernel": 0, "upsample_peak_keys_kernel": 1}),
     ]
@@ -1331,13 +1410,14 @@ def phase_graph(weights, frames_u8, device="cuda", net_resolution=(656, 368), st
     return out, graphs
 
 
-def phase_graph_launches(graphs, reps=4):
+def phase_graph_launches(graphs, reps=4, top=12):
     """Kernels per replay of each graph phase program, from the graphs' count
     and torch.profiler (after every timed phase: a profiling window slows
-    later launches)."""
+    later launches), and the ``top`` kernels by device time."""
     for tag, est, x, expect, row in graphs:
+        by_name = {}
         _, launches, seen, total, busy = replay_kernels(
-            lambda: [est.run_device(x) for _ in range(reps)], est)
+            lambda: [est.run_device(x) for _ in range(reps)], est, by_name=by_name)
         check_launches(tag, launches, seen, {k: v * reps for k, v in expect.items()})
         per_replay = {k: v / reps for k, v in launches.items()}
         frames = est.batch
@@ -1345,8 +1425,13 @@ def phase_graph_launches(graphs, reps=4):
               f"{seen}; every kernel of a pass: {total / reps:.0f}, their device time "
               f"{busy / reps / frames:.3f} ms/frame against {row['graph_device_ms']:.3f} ms/frame "
               f"of the pass")
+        ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
+        print(f"{tag} top {top} kernels by device time, per frame (launches a replay, ms): "
+              + "; ".join(f"{n[:90]}: {c / reps:g}, {ms / reps / frames:.4f}"
+                          for n, (c, ms) in ranked))
         row.update(launches_per_replay=per_replay, kernels_per_pass=total / reps,
-                   kernel_busy_ms_per_frame=busy / reps / frames)
+                   kernel_busy_ms_per_frame=busy / reps / frames,
+                   top_kernels_ms_per_frame={n[:90]: ms / reps / frames for n, (_, ms) in ranked})
 
 
 def frames_720p(rs, n):
@@ -1451,8 +1536,11 @@ def phase_pipeline(weights, device="cuda", net_resolution=(656, 368), stages=6,
                     peak_mask_fused=replayed["peak_mask_kernel"],
                     upsample_peak_keys=replayed["upsample_peak_keys_kernel"])
     n_run = half * 2 + len(timed) + 1
+    # one conv1 block and one peak mask a batch pass; an overflow refetch is
+    # a one-frame pass of both
     check(launches["conv1_block"] >= 1 and launches["peak_mask_fused"] >= 1
-          and replayed["conv1_block"] >= n_run / batch and replayed["peak_mask_fused"] >= n_run,
+          and replayed["conv1_block"] >= n_run / batch
+          and replayed["peak_mask_fused"] == replayed["conv1_block"],
           f"{tag} kernel launches on the main path: wrapper calls {launches}, replayed "
           f"{replayed} for {n_run} frames")
     # every frame's JSON against estimate() on the same frame, in order
@@ -1476,9 +1564,64 @@ def phase_pipeline(weights, device="cuda", net_resolution=(656, 368), stages=6,
     return dict(runs=runs, launches=launches, replayed_launches=replayed, people=n_people)
 
 
-def phase_cli(n_frames=8, extra=()):
-    """tools.rtpose.main with random weights on 1280x720 PNG frames
-    (``extra``: more flags)."""
+def phase_files(weights, work, device="cuda", net_resolution=(656, 368), stages=6,
+                n_frames=BF16_FRAMES, batch=BF16_BATCH):
+    """The main path's model files, written into ``work``: the deploy
+    prototxt and the weights as a caffemodel; the bf16 batch-8 estimator
+    built from the files against the one built from the dicts."""
+    import os
+
+    import torch
+
+    from caffe_rtpose_tpu_torch.models.cpm import make_pose_deploy_net
+    from caffe_rtpose_tpu_torch.pose.estimator import PoseEstimator
+    from caffe_rtpose_tpu_torch.proto import caffemodel, prototxt
+
+    tag = "[files]"
+    proto = make_pose_deploy_net("COCO", stages=stages)
+    proto_path = os.path.join(work, "pose_deploy_linevec.prototxt")
+    model_path = os.path.join(work, "pose_iter_synthetic.caffemodel")
+    cfg = dict(net_resolution=net_resolution, num_scales=1, input_u8=True, pair_cap=32,
+               dtype=torch.bfloat16, batch=batch, device=device)
+    by_dict = PoseEstimator(proto, weights=weights, **cfg)
+    t0 = time.perf_counter()
+    prototxt.dump_file(proto, proto_path)
+    by_dict.net.save_caffemodel(model_path)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    read = caffemodel.load_weights(model_path)
+    parse_s = time.perf_counter() - t0
+    n_params = sum(a.size for blobs in read.values() for a in blobs)
+    check(read.keys() == weights.keys() and all(
+        np.array_equal(a, np.asarray(b, np.float32)) for k in weights
+        for a, b in zip(read[k], weights[k])),
+        f"{tag} the caffemodel does not hold the weights written")
+    del read
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    by_file = PoseEstimator(proto_path, weights=model_path, **cfg)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    frames = canvases(np.random.RandomState(0), n_frames, by_dict.input_shape())
+    batches = [np.stack(frames[i : i + batch]) for i in range(0, n_frames, batch)]
+    same = [torch.equal(by_file.run_device(x)["packed"], by_dict.run_device(x)["packed"])
+            for x in batches]
+    torch.cuda.synchronize()
+    size = os.path.getsize(model_path)
+    print(f"{tag} wrote {proto_path} ({os.path.getsize(proto_path)} B) and {model_path} "
+          f"({size / 1e6:.1f} MB, {n_params} parameters) in {write_s:.2f} s; parsed the "
+          f"caffemodel in {parse_s:.2f} s; built the bf16 batch-{batch} estimator from the files "
+          f"(prototxt, caffemodel, weights to the card) in {build_s:.2f} s; packed outputs "
+          f"bit-identical to the dict-built estimator on {sum(same)}/{len(same)} passes of "
+          f"{batch} frames")
+    check(all(same), f"{tag} the estimator from the files differs from the one from the dicts")
+    return dict(proto=proto_path, model=model_path, bytes=size, parameters=int(n_params),
+                write_s=write_s, parse_s=parse_s, build_s=build_s, bit_identical=all(same))
+
+
+def phase_cli(files, n_frames=8, extra=()):
+    """tools.rtpose.main with the ``files`` phase's prototxt and caffemodel
+    on 1280x720 PNG frames (``extra``: more flags)."""
     import contextlib
     import io
     import os
@@ -1492,21 +1635,29 @@ def phase_cli(n_frames=8, extra=()):
     os.makedirs(img_dir)
     for i, f in enumerate(frames_720p(np.random.RandomState(6), n_frames)):
         write_png(os.path.join(img_dir, f"f{i:02d}.png"), f)
-    buf = io.StringIO()
+    buf, err = io.StringIO(), io.StringIO()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
-        rc = rtpose.main(["--no_weights", "--image_dir", img_dir, "--write_json", out_dir,
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+        rc = rtpose.main(["--caffeproto", files["proto"], "--caffemodel", files["model"],
+                          "--image_dir", img_dir, "--write_json", out_dir,
                           "--frame_limit", str(n_frames), "--no_display", "--no_frame_drops",
                           *extra])
     secs = time.perf_counter() - t0
     text = buf.getvalue()
     m = re.search(r"(\d+) overflow refetches", text)
-    files = sorted(os.listdir(out_dir))
-    print(f"{tag} rtpose --no_weights: exit {rc}, {len(files)} JSON files, {secs:.1f} s; "
-          + " | ".join(line for line in text.splitlines() if line.strip()))
-    check(rc == 0 and len(files) == n_frames, f"{tag} exit {rc}, {len(files)} files")
+    out_files = sorted(os.listdir(out_dir))
+    people = 0
+    for f in out_files:
+        with open(os.path.join(out_dir, f)) as fh:
+            people += fh.read().count('"joints"')
+    print(f"{tag} rtpose --caffeproto {files['proto']} --caffemodel {files['model']}: exit {rc}, "
+          f"{len(out_files)} JSON files, {people} people, {secs:.1f} s; "
+          + " | ".join(line for line in (text + err.getvalue()).splitlines() if line.strip()))
+    check(rc == 0 and len(out_files) == n_frames, f"{tag} exit {rc}, {len(out_files)} files")
+    check("not found" not in err.getvalue(), f"{tag} the CLI fell back: {err.getvalue()}")
     check(m is not None, f"{tag} no overflow refetch count printed")
-    return dict(exit=rc, files=len(files), refetches=int(m.group(1)), seconds=secs)
+    return dict(exit=rc, files=len(out_files), people=people, refetches=int(m.group(1)),
+                seconds=secs)
 
 
 def main() -> int:
@@ -1524,7 +1675,9 @@ def main() -> int:
     graph, graph_ests = phase_graph(weights, frames)
     prep = phase_preprocess(np.random.RandomState(4))
     pipeline = phase_pipeline(weights)
-    cli = phase_cli()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_files_") as work:
+        files = phase_files(weights, work)
+        cli = phase_cli(files)
     phase_graph_launches(graph_ests)
     del graph_ests
     one = phase_slice(1, 8, weights=weights, frames=frames)
@@ -1548,6 +1701,7 @@ def main() -> int:
     print(json.dumps({"graph": graph}))
     print(json.dumps({"preprocess_ms": prep}))
     print(json.dumps({"pipeline": pipeline}))
+    print(json.dumps({"files": files}))
     print(json.dumps({"cli": cli}))
     card = info["nvidia_smi"]
     # launches: the wrapper's calls in the main path's run (the pipeline:
@@ -1560,7 +1714,7 @@ def main() -> int:
     mask_src, mask_pallas = "caffe_rtpose_tpu_torch/csrc/peak_mask.cu", "caffe_rtpose_tpu/ops/nms_pallas.py"
     entries = [
         ("peak_mask_fused", mask_src, f"{mask_pallas}:136", pipeline["launches"]["peak_mask_fused"],
-         t_mask, t_mask[0], dict(library_note=NO_LIBRARY)),
+         t_mask, t_mask[-1], dict(library_note=NO_LIBRARY)),
         ("peak_mask_fused_3scale", mask_src, f"{mask_pallas}:197", three["launches"],
          t_mask, t_mask[1], dict(library_note=NO_LIBRARY)),
         ("upsample_peak_keys", "caffe_rtpose_tpu_torch/csrc/upsample_peak_keys.cu",

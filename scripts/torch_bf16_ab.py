@@ -8,8 +8,9 @@ Runs each checkout's own chip_smoke.py phases in a process of its own, in the
 order old, new, new, old: the kernel build, the 1-scale f32 slice (whose
 calibrated weights the bf16 phase takes) and the bf16 batch-8 phase
 (bench.py's configuration: COCO 656x368, u8, pair_cap=32, 16 frames).
-Prints each run's device ms/frame, CNN ms/frame and end-to-end ms/frame,
-then the medians of each side.  The phases raise on failure as in
+Prints each run's device ms/frame, CNN ms/frame, end-to-end ms/frame and
+the kernels a replayed batch pass runs (torch.profiler), then the medians
+of each side.  The phases raise on failure as in
 chip_smoke.py.
 """
 
@@ -31,7 +32,7 @@ torch.backends.cudnn.allow_tf32 = False
 cs.phase_build()
 one = cs.phase_slice(1, 8)
 r = cs.phase_bf16(one["weights"])
-print("AB " + json.dumps({k: r[k] for k in ("device_ms", "cnn_ms", "e2e_ms")}))
+print("AB " + json.dumps({k: r[k] for k in ("device_ms", "cnn_ms", "e2e_ms", "kernels_per_pass")}))
 """
 
 
@@ -57,7 +58,8 @@ def main() -> int:
         r = run(checkout)
         runs[checkout].append(r)
         print(f"{checkout}: device {r['device_ms']:.3f} ms/frame, CNN {r['cnn_ms']:.3f} ms/frame, "
-              f"end-to-end {r['e2e_ms']:.3f} ms/frame")
+              f"end-to-end {r['e2e_ms']:.3f} ms/frame, {r['kernels_per_pass']:.0f} kernels a "
+              f"replayed pass")
     for label, checkout in (("old", old), ("new", new)):
         med = {k: statistics.median(r[k] for r in runs[checkout]) for k in runs[checkout][0]}
         print(f"{label} median of 2: " + json.dumps(med))

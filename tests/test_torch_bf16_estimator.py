@@ -185,7 +185,7 @@ def test_post_segment_on_the_jax_maps_matches_jax(case):
             ht = out["heatmap"].numpy()
             assert (np.abs(ht - hj) <= 1e-5 * np.maximum(1.0, np.abs(hj))).all()
         else:
-            row = est._post(case["low_j"], thr, INTER, est.eff_peaks)
+            row = est._post(case["low_j"][None], thr, INTER, est.eff_peaks)[0]
             _assert_outputs_match(est.unpack(row.numpy()), ref)
 
 

@@ -42,8 +42,9 @@ def test_score_pairs_lowres_matches_jax(desc, s, start, gap):
     thr = 0.05
     s_j, c_j = jax.jit(JC.score_pairs_lowres, static_argnums=(2, 3, 4, 5))(
         jnp.asarray(low), jnp.asarray(peaks), desc, (th, tw), start, gap, jnp.float32(thr))
-    s_t, c_t = TC.score_pairs_lowres(torch.from_numpy(low), torch.from_numpy(peaks), desc,
-                                     (th, tw), start, gap, thr)
+    s_t, c_t = TC.score_pairs_lowres(torch.from_numpy(low)[None], torch.from_numpy(peaks)[None],
+                                     desc, (th, tw), start, gap, thr)
+    s_t, c_t = s_t[0], c_t[0]
     assert c_t.dtype == torch.int32 and s_t.dtype == torch.float32
     np.testing.assert_array_equal(c_t.numpy(), np.asarray(c_j))
     np.testing.assert_allclose(s_t.numpy(), np.asarray(s_j), rtol=1e-4, atol=0)

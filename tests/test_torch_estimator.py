@@ -159,7 +159,8 @@ def test_pose_golden_seed7():
 def test_refuses_options_outside_the_slice():
     """What is still not ported raises NotImplementedError; what JAX refuses
     (the heatmap branch batched, device_rescale without u8 input, a wrong
-    input) raises ValueError, as there; graphs need a CUDA device."""
+    input) raises ValueError, as there, and a missing model file
+    FileNotFoundError; graphs need a CUDA device."""
     proto = make_pose_deploy_net("COCO", stages=1)
     with pytest.raises(NotImplementedError):
         PoseEstimator(proto, net_resolution=RES, device="cpu", dtype=torch.float16)
@@ -170,9 +171,10 @@ def test_refuses_options_outside_the_slice():
     # accepted: without graphs there is nothing to capture ahead
     assert PoseEstimator(proto, net_resolution=RES, input_u8=True, pair_cap=8,
                          warm_overflow=True, device="cpu")._warm_thread is None
-    with pytest.raises(NotImplementedError):
+    # model files are read as JAX reads them: a path that does not exist raises there
+    with pytest.raises(FileNotFoundError):
         PoseEstimator("pose_deploy_linevec.prototxt", net_resolution=RES, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(FileNotFoundError):
         PoseEstimator(proto, weights="pose_iter_440000.caffemodel", net_resolution=RES,
                       device="cpu")
     for kw in (dict(keep_heatmap=True, batch=2), dict(batch=0)):

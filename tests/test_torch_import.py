@@ -28,6 +28,13 @@ SLICE_MODULES = [
     "caffe_rtpose_tpu_torch.pipeline.runner",
     "caffe_rtpose_tpu_torch.tools.rtpose",
     "caffe_rtpose_tpu_torch.__main__",
+    "caffe_rtpose_tpu_torch.proto",
+    "caffe_rtpose_tpu_torch.proto.wire",
+    "caffe_rtpose_tpu_torch.proto.caffe_pb",
+    "caffe_rtpose_tpu_torch.proto.prototxt",
+    "caffe_rtpose_tpu_torch.proto.upgrade",
+    "caffe_rtpose_tpu_torch.proto.caffemodel",
+    "caffe_rtpose_tpu_torch.tools.upgrade_proto",
 ]
 
 

@@ -123,7 +123,7 @@ def test_net_refuses_what_it_does_not_port():
         {"name": "d", "type": "Dropout", "bottom": ["cat2"], "top": ["cat2"]}])
     with pytest.raises(NotImplementedError):
         Net(bad, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(FileNotFoundError):  # a prototxt path is read, as in JAX
         Net("pose_deploy_linevec.prototxt", device="cpu")
     with pytest.raises(NotImplementedError):  # float32 and bfloat16 only
         Net(proto, device="cpu", dtype=torch.float16)

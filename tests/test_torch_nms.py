@@ -71,8 +71,9 @@ def _refine_both(low, pos_list, th, tw, max_peaks, start, gap, p):
     val = np.arange(topk)[None, :] < cnt[:, None]
     ref = np.asarray(jax.jit(J.refine_from_low, static_argnums=(4, 5, 6, 7))(jnp.asarray(low), jnp.asarray(pos), jnp.asarray(val),
                                        jnp.asarray(cnt), (th, tw), max_peaks, start, gap))
-    got = T.refine_from_low(torch.from_numpy(low), torch.from_numpy(pos), torch.from_numpy(val),
-                            torch.from_numpy(cnt), (th, tw), max_peaks, start, gap).numpy()
+    got = T.refine_from_low(torch.from_numpy(low)[None], torch.from_numpy(pos)[None],
+                            torch.from_numpy(val)[None], torch.from_numpy(cnt)[None],
+                            (th, tw), max_peaks, start, gap)[0].numpy()
     return got, ref
 
 

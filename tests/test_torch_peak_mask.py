@@ -92,6 +92,43 @@ def test_reference_matches_jax_xla_chain(s, start, gap, h, w, f, c):
     assert_masks_equal_up_to_ties(got, ref, heat, thr)
 
 
+@pytest.mark.parametrize("s,start,gap", [(1, 1.0, 0.3), (3, 0.9, 0.1)])
+def test_frame_axis_matches_jax_vmap_of_pallas_interpret(s, start, gap):
+    """(F, S, h, w, C) -> (F, C, th, tw): the plain version with a frame
+    axis == jax.vmap of the JAX Pallas kernel (interpret mode) over the
+    frames, and == the plain version frame by frame, bit for bit."""
+    import jax
+    import jax.numpy as jnp
+
+    from caffe_rtpose_tpu.ops.nms_pallas import peak_mask_fused as j_peak_mask
+
+    rs = np.random.RandomState(6 + s)
+    low = rs.rand(3, s, 12, 16, 6).astype(np.float32) * 2 - 1
+    thr = 0.2
+    ref = np.asarray(jax.vmap(lambda l: j_peak_mask(l, (96, 128), start, gap, jnp.float32(thr),
+                                                    interpret=True))(jnp.asarray(low)))
+    got = nms_cuda.peak_mask_fused(torch.from_numpy(low), (96, 128), start, gap, thr)
+    assert got.dtype == torch.bool and got.shape == (3, 6, 96, 128)
+    assert ref.sum() > 0
+    for f in range(3):
+        assert torch.equal(got[f], nms_cuda.peak_mask_fused(torch.from_numpy(low[f]), (96, 128),
+                                                            start, gap, thr))
+        assert_masks_equal_up_to_ties(got[f].numpy(), ref[f],
+                                      _jax_heat(low[f], 96, 128, start, gap), thr)
+
+
+def test_vec4_loads_needs_an_aligned_frame_stride():
+    """16-byte window loads need every stride but the channel's, the frame
+    stride too, to be a multiple of 4 floats."""
+    buf = torch.zeros(4 * (2 * 6 * 8 * 4) + 4)
+    ok = buf[: 2 * 2 * 6 * 8 * 4].reshape(2, 2, 6, 8, 4)
+    assert nms_cuda.vec4_loads(ok) and nms_cuda.vec4_loads(ok[0])
+    odd = buf.as_strided((2, 2, 6, 8, 4), (2 * 6 * 8 * 4 + 1, 6 * 8 * 4, 8 * 4, 4, 1))
+    assert not nms_cuda.vec4_loads(odd) and nms_cuda.vec4_loads(odd[0])
+    assert not nms_cuda.vec4_loads(odd[1])  # base no longer 16-byte aligned
+    assert not nms_cuda.vec4_loads(ok[..., :3])
+
+
 def test_cpu_tensor_never_counts_a_launch():
     before = nms_cuda.launches
     low = torch.zeros(1, 6, 8, 2)
@@ -151,3 +188,46 @@ def test_kernel_reads_strided_input_on_cuda(cuda_device, layout, s, start, gap):
     assert int(ref.sum()) > 0
     heat = t_imresize.imresize_average(low.cpu(), th, tw, start, gap)[0].permute(2, 0, 1).numpy()
     assert_masks_equal_up_to_ties(got.cpu().numpy(), ref.cpu().numpy(), heat, thr)
+
+
+def frames_lowres(layout, f, s, h, w, c, seed, device):
+    """(F, S, h, w, C) in [-1, 1) as the estimator hands a batch over
+    (``channels_last``: ``low[..., :C]`` of the (F*S, 57, h, w)
+    channels_last blob seen as NHWC), with channel stride h*w
+    (``chan_major``), or contiguous (``nhwc``)."""
+    rs = np.random.RandomState(seed)
+    if layout == "channels_last":
+        blob = torch.from_numpy(rs.rand(f * s, 57, h, w).astype(np.float32) * 2 - 1).to(device)
+        blob = blob.contiguous(memory_format=torch.channels_last)
+        return blob.permute(0, 2, 3, 1).reshape(f, s, h, w, 57)[..., :c]
+    if layout == "chan_major":
+        x = torch.from_numpy(rs.rand(f, s, c, h, w).astype(np.float32) * 2 - 1).to(device)
+        return x.permute(0, 1, 3, 4, 2)
+    return torch.from_numpy(rs.rand(f, s, h, w, c).astype(np.float32) * 2 - 1).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,c", [("channels_last", 18), ("chan_major", 18), ("nhwc", 20)])
+@pytest.mark.parametrize("frames", [2, 8])
+@pytest.mark.parametrize("s,start,gap", [(1, 1.0, 0.3), (3, 1.0, 0.3)])
+def test_kernel_frame_axis_on_cuda(cuda_device, layout, c, frames, s, start, gap):
+    """K1 with a frame axis: one launch for F frames, each frame's mask
+    equal to the plain version's up to near-ties, and frame f of the batch
+    bit-identical to the kernel on frame f alone (the per-pixel sums do not
+    depend on F)."""
+    low = frames_lowres(layout, frames, s, 46, 82, c, 10 * frames + s, cuda_device)
+    assert low.shape == (frames, s, 46, 82, c)
+    assert nms_cuda.vec4_loads(low) == (layout == "nhwc")
+    th, tw, thr = 368, 656, 0.1
+    before = nms_cuda.launches
+    got = nms_cuda.peak_mask_fused(low, (th, tw), start, gap, thr)
+    torch.cuda.synchronize()
+    assert nms_cuda.launches == before + 1
+    assert got.dtype == torch.bool and got.shape == (frames, c, th, tw)
+    ref = nms_cuda.peak_mask_fused_reference(low, (th, tw), start, gap, thr)
+    assert int(ref.sum()) > 0
+    for f in range(frames):
+        heat = t_imresize.imresize_average(low[f].cpu(), th, tw, start, gap)[0]
+        assert_masks_equal_up_to_ties(got[f].cpu().numpy(), ref[f].cpu().numpy(),
+                                      heat.permute(2, 0, 1).numpy(), thr)
+        assert torch.equal(got[f], nms_cuda.peak_mask_fused(low[f], (th, tw), start, gap, thr))

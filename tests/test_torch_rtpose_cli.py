@@ -72,6 +72,49 @@ def test_image_dir_end_to_end_on_cpu(tmp_path, capsys):
     assert "overflow refetches" in capsys.readouterr().out
 
 
+def test_model_files_end_to_end_on_cpu(tmp_path, capsys):
+    """--caffeproto and --caffemodel files that exist are read: no fallback
+    warning, and every JSON equals estimate() of an estimator built from the
+    same graph and weights as dicts, in the CLI's configuration."""
+    import torch
+
+    from caffe_rtpose_tpu_torch.core.net import Net
+    from caffe_rtpose_tpu_torch.models.cpm import make_pose_deploy_net
+    from caffe_rtpose_tpu_torch.pipeline.runner import write_json_file
+    from caffe_rtpose_tpu_torch.pose.estimator import PoseEstimator
+    from caffe_rtpose_tpu_torch.proto import prototxt
+
+    proto = make_pose_deploy_net("COCO", stages=2)
+    net = Net(proto, device="cpu")
+    rs = np.random.RandomState(3)
+    weights = {k: [rs.randn(*c.weight.shape).astype(np.float32) * 0.1,
+                   rs.randn(c.cout).astype(np.float32) * 0.1] for k, c in net.convs.items()}
+    net.load_weights(weights)
+    proto_path, model_path = str(tmp_path / "deploy.prototxt"), str(tmp_path / "w.caffemodel")
+    prototxt.dump_file(proto, proto_path)
+    net.save_caffemodel(model_path)
+    img, out = str(tmp_path / "img"), str(tmp_path / "json")
+    _png_dir(img, 2)
+    rc = rtpose.main(["--device", "cpu", "--caffeproto", proto_path, "--caffemodel", model_path,
+                      "--image_dir", img, "--write_json", out, "--net_resolution", "128x80",
+                      "--resolution", "160x96", "--no_display", "--no_frame_drops",
+                      "--nms_threshold", "0.0"])
+    assert rc == 0
+    err = capsys.readouterr().err
+    assert "not found" not in err
+    est = PoseEstimator(proto, weights=weights, net_resolution=(128, 80), input_u8=True,
+                        pair_cap=32, dtype=torch.bfloat16, device="cpu")
+    for name in ("f0", "f1"):
+        res, pf = est.estimate(read_image(os.path.join(img, f"{name}.png")), 160, 96,
+                               nms_threshold=0.0)
+        assert res.peaks[:, 0, 0].sum() > 0  # the loaded weights make peaks
+        ref = str(tmp_path / f"{name}_ref.json")
+        write_json_file(ref, res.joints, res.num_people, float(np.float32(pf.scale)),
+                        est.num_parts)
+        with open(os.path.join(out, f"{name}.json")) as a, open(ref) as b:
+            assert a.read() == b.read()
+
+
 def test_module_entry_point(tmp_path):
     img, out = str(tmp_path / "img"), str(tmp_path / "json")
     _png_dir(img, 1, wh=(64, 48))
@@ -86,13 +129,25 @@ def test_module_entry_point(tmp_path):
 
 
 def test_refuses_what_is_not_ported(tmp_path):
+    """--bundle and the device pool raise NotImplementedError; model files
+    that exist are read, and what they hold is refused as the JAX tool
+    refuses it: a graph without an Nms layer, bytes that are no
+    NetParameter."""
     proto, model = tmp_path / "deploy.prototxt", tmp_path / "w.caffemodel"
     proto.write_text("name: 'x'\n")
     model.write_bytes(b"\0")
-    for argv in (["--bundle", "b"], ["--caffeproto", str(proto)],
-                 ["--caffemodel", str(model)]):
-        with pytest.raises(NotImplementedError):
-            rtpose.main(["--device", "cpu", *argv])
+    with pytest.raises(NotImplementedError):
+        rtpose.main(["--device", "cpu", "--bundle", "b"])
+    small = ["--device", "cpu", "--net_resolution", "64x48"]
+    with pytest.raises(ValueError, match="no 'nms' layer"):
+        rtpose.main([*small, "--caffeproto", str(proto), "--no_weights"])
+    from caffe_rtpose_tpu.proto import caffemodel as j_caffemodel
+
+    with pytest.raises(Exception) as jax_error:
+        j_caffemodel.load_weights(str(model))
+    with pytest.raises(type(jax_error.value)):
+        rtpose.main([*small, "--caffeproto", str(tmp_path / "missing.prototxt"),
+                     "--caffemodel", str(model)])
     missing = ["--caffeproto", str(tmp_path / "missing.prototxt")]
     with pytest.raises(NotImplementedError):  # the device pool
         rtpose.main(["--device", "cpu", "--no_weights", "--num_gpu", "2", *missing,
