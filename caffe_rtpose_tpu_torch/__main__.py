@@ -5,7 +5,9 @@ import sys
 
 TOOLS = {
     "rtpose": ("tools.rtpose", "realtime multi-person pose demo"),
+    "eval": ("tools.eval_pose", "run-list / joint-diff / coco-ap"),
     "upgrade": ("tools.upgrade_proto", "legacy prototxt/caffemodel upgrades"),
+    "export": ("tools.export_tool", "serving bundles (build / check)"),
 }
 
 

@@ -119,6 +119,52 @@ def _hw(p: Mapping[str, Any], key: str, default: Optional[int],
     return (vals[0], vals[0]) if len(vals) == 1 else (vals[0], vals[1])
 
 
+def conv_operands(weight: torch.Tensor, bias: Optional[torch.Tensor],
+                  dtype: torch.dtype) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """A convolution's operands from its f32 parameters (OIHW weight in the
+    net's ``channels_last`` layout, :func:`param_tensor`): the parameters
+    themselves in f32, else copies in ``dtype``, the weight channels_last."""
+    if dtype == torch.float32:
+        return weight, bias
+    return (weight.detach().to(dtype).contiguous(memory_format=torch.channels_last),
+            None if bias is None else bias.detach().to(dtype))
+
+
+def param_tensor(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """An f32 parameter from numpy, laid out as :class:`Net` keeps its
+    parameters: on ``device``, a 4-D weight ``channels_last``."""
+    t = torch.from_numpy(np.ascontiguousarray(arr, np.float32))
+    if t.dim() == 4:
+        return t.to(device, memory_format=torch.channels_last)
+    return t.to(device)
+
+
+def derive_operands(params: Mapping[str, Sequence[torch.Tensor]], dtype: torch.dtype,
+                    conv1_blocks: Mapping[str, Sequence[str]]) -> Dict[str, torch.Tensor]:
+    """What :meth:`Net.forward` reads, from f32 parameters ``{layer:
+    [weight, bias]}`` (:func:`param_tensor`): ``"<layer>::w"`` and
+    ``"<layer>::b"`` by :func:`conv_operands`, and for each conv1 block that
+    runs through the kernel (``{first layer: (conv1_1, conv1_2)}``) its
+    :meth:`~..ops.conv1_cuda.Conv1Weights.pack` as
+    ``"<first layer>::conv1_block::<field>"``.  The same functions make
+    :meth:`Net.operands`."""
+    ops: Dict[str, torch.Tensor] = {}
+    for name, blobs in params.items():
+        w, b = conv_operands(blobs[0], blobs[1] if len(blobs) > 1 else None, dtype)
+        ops.update(_conv_entries(name, w, b))
+    for first, (n1, n2) in conv1_blocks.items():
+        ops.update(_block_entries(first, conv1_cuda.Conv1Weights.pack(*params[n1], *params[n2])))
+    return ops
+
+
+def _conv_entries(name: str, w: torch.Tensor, b: Optional[torch.Tensor]):
+    return {f"{name}::w": w, **({} if b is None else {f"{name}::b": b})}
+
+
+def _block_entries(first: str, cw: conv1_cuda.Conv1Weights):
+    return {f"{first}::conv1_block::{k}": getattr(cw, k) for k in conv1_cuda.PACKED}
+
+
 class Convolution(nn.Module):
     """Caffe Convolution with OIHW weight and optional bias."""
 
@@ -141,14 +187,9 @@ class Convolution(nn.Module):
         self.compute_weights(torch.float32)
 
     def compute_weights(self, dtype: torch.dtype) -> None:
-        """Make the operands ``forward`` convolves with: the parameters
-        themselves in f32, else copies in ``dtype`` (once per load)."""
-        if dtype == torch.float32:
-            self._operands = (self.weight, self.bias)  # a tuple: not registered twice
-        else:
-            self._operands = (
-                self.weight.detach().to(dtype).contiguous(memory_format=torch.channels_last),
-                None if self.bias is None else self.bias.detach().to(dtype))
+        """Make the operands ``forward`` convolves with (:func:`conv_operands`,
+        once per load); a tuple, so they are not registered twice."""
+        self._operands = conv_operands(self.weight, self.bias, dtype)
 
     def out_hw(self, h: int, w: int) -> Tuple[int, int]:
         dims = []
@@ -156,8 +197,10 @@ class Convolution(nn.Module):
             dims.append((size + 2 * pd - (d * (k - 1) + 1)) // s + 1)
         return dims[0], dims[1]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w, b = self._operands
+    def forward(self, x: torch.Tensor, w: torch.Tensor,
+                b: Optional[torch.Tensor]) -> torch.Tensor:
+        """Convolve ``x`` with the operands ``w``, ``b`` (its own
+        ``_operands``, or a device program's inputs)."""
         return nn_ops.conv2d(x, w, b, stride=self.stride, pad=self.pad,
                              dilation=self.dilation, groups=self.groups)
 
@@ -415,6 +458,26 @@ class Net(nn.Module):
         self._refresh()
         return copied
 
+    def operands(self) -> Dict[str, torch.Tensor]:
+        """The operands :meth:`forward` runs on, as :func:`derive_operands`
+        names them: each convolution's, and the packed weights of each conv1
+        block when ``conv1_kernel`` is on.  Made once per load; a device
+        program takes them as inputs (``serving.py``)."""
+        ops: Dict[str, torch.Tensor] = {}
+        for name, conv in self.convs.items():
+            ops.update(_conv_entries(name, *conv._operands))
+        if self.conv1_kernel:
+            for first, blk in self.conv1_blocks.items():
+                ops.update(_block_entries(first, blk.weights))
+        return ops
+
+    def kernel_blocks(self) -> Dict[str, Tuple[str, str]]:
+        """``{first layer: (conv1_1, conv1_2)}`` of the conv1 blocks that run
+        through the kernel (none unless ``conv1_kernel``)."""
+        if not self.conv1_kernel:
+            return {}
+        return {first: (blk.names[0], blk.names[2]) for first, blk in self.conv1_blocks.items()}
+
     def export_weights(self) -> Dict[str, List[np.ndarray]]:
         """``{layer: [OIHW weight, bias]}`` f32 numpy copies, in layer order."""
         return {name: [p.detach().cpu().numpy().copy() for p in (conv.weight, conv.bias)
@@ -457,13 +520,16 @@ class Net(nn.Module):
 
     def forward(self, inputs: Mapping[str, torch.Tensor],
                 outputs: Optional[Sequence[str]] = None,
-                layers: Optional[Sequence[Layer]] = None) -> Dict[str, torch.Tensor]:
+                layers: Optional[Sequence[Layer]] = None,
+                operands: Optional[Mapping[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
         """``inputs``: {blob: (N, C, H, W) tensor on the net's device, cast
         to the net's dtype here} -> {blob: tensor} for ``outputs`` (default
-        :meth:`output_names`).
+        :meth:`output_names`).  ``operands``: what the layers run on, as
+        :meth:`operands` names them (default: the net's own); a device
+        program passes them as its inputs.
 
         With ``conv1_kernel`` on, a conv1 block whose five layers appear in
-        order in ``layers`` runs as one ``conv1_cuda.conv1_block`` call,
+        order in ``layers`` runs as one ``conv1_cuda.conv1_block_packed`` call,
         unless ``outputs`` names a blob inside it or its input's H or W is
         odd (Caffe's ceil-mode pooling then differs from the kernel's)."""
         blobs: Dict[str, torch.Tensor] = {
@@ -471,6 +537,7 @@ class Net(nn.Module):
             for k, v in inputs.items()}
         outputs = list(outputs or self.output_names())
         layers = self.layers if layers is None else list(layers)
+        ops = self.operands() if operands is None else operands
         i = 0
         while i < len(layers):
             layer = layers[i]
@@ -478,14 +545,17 @@ class Net(nn.Module):
             if (blk is not None and tuple(l.name for l in layers[i : i + 5]) == blk.names
                     and blk.inner.isdisjoint(outputs)
                     and blobs[blk.bottom].shape[2] % 2 == 0 and blobs[blk.bottom].shape[3] % 2 == 0):
-                blobs[blk.top] = conv1_cuda.conv1_block(blobs[blk.bottom], blk.weights)
+                blobs[blk.top] = conv1_cuda.conv1_block_packed(
+                    blobs[blk.bottom], *(ops[f"{layer.name}::conv1_block::{k}"]
+                                         for k in conv1_cuda.PACKED))
                 i += 5
                 continue
             i += 1
             bots = [blobs[b] for b in layer.bottoms]
             p = layer.param
             if layer.type == "Convolution":
-                top = self.convs[layer.name](bots[0])
+                top = self.convs[layer.name](bots[0], ops[f"{layer.name}::w"],
+                                             ops.get(f"{layer.name}::b"))
             elif layer.type == "ReLU":
                 top = nn_ops.relu(bots[0], p["slope"])
             elif layer.type == "Pooling":

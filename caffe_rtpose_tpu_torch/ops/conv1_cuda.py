@@ -12,10 +12,16 @@ the swizzled layout :meth:`Conv1Weights.pack` makes); the 31 MB
 intermediates per 656x368 canvas never reach device memory.  Bound by the
 18.6 GFLOP a canvas (the source note says more).
 
-The wrapper launches the kernel for a CUDA tensor (or raises: there is no
-fallback) and runs the plain version for a CPU tensor.  ``launches`` counts
-kernel launches and nothing else.  The plain version,
-:func:`conv1_block_reference`, is the CPU path and the tests' reference.
+The kernel is the ``torch.library`` operator ``crt::conv1_block`` (input
+and the four packed tensors, one by one), so that ``torch.export`` records
+it and a loaded program launches it.  It dispatches on the tensor's device:
+the CUDA implementation launches the kernel (or raises: there is no
+fallback), the CPU implementation runs the plain version on the weights
+unpacked from the pack, which are the bf16-rounded weights the plain
+version convolves with.  The fake implementation gives the (B, 64, H/2,
+W/2) bf16 ``channels_last`` output.  ``launches`` counts kernel launches
+and nothing else.  The plain version, :func:`conv1_block_reference`, is the
+CPU path and the tests' reference.
 """
 
 from __future__ import annotations
@@ -93,6 +99,19 @@ def _check(x: torch.Tensor) -> None:
         raise ValueError(f"conv1_block: H and W must be even, got {h}x{w}")
 
 
+PACKED = ("w1_p", "b1", "w2_p", "b2")  # the kernel's operands, in its argument order
+
+
+def _chain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+           b2: torch.Tensor) -> torch.Tensor:
+    """The plain version on f32 OIHW weights that hold bf16 values."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    x = x.to(f32).contiguous(memory_format=torch.channels_last)
+    h1 = F.conv2d(x, w1, b1, padding=1).relu_().to(bf16)
+    h2 = F.conv2d(h1.to(f32), w2, b2, padding=1).relu_()
+    return F.max_pool2d(h2, 2, 2).to(bf16).contiguous(memory_format=torch.channels_last)
+
+
 def conv1_block_reference(x: torch.Tensor, cw: Conv1Weights) -> torch.Tensor:
     """Plain PyTorch version, with the JAX chain's rounding points: f32
     convolutions of bf16-valued operands (each product exact in f32), f32
@@ -103,25 +122,16 @@ def conv1_block_reference(x: torch.Tensor, cw: Conv1Weights) -> torch.Tensor:
     656x368).  (B, 3, H, W) bf16 -> (B, 64, H/2, W/2) bf16, channels_last."""
     _check(x)
     f32, bf16 = torch.float32, torch.bfloat16
-    x = x.to(f32).contiguous(memory_format=torch.channels_last)
-    h1 = F.conv2d(x, cw.w1.to(bf16).to(f32), cw.b1, padding=1).relu_().to(bf16)
-    h2 = F.conv2d(h1.to(f32), cw.w2.to(bf16).to(f32), cw.b2, padding=1).relu_()
-    return F.max_pool2d(h2, 2, 2).to(bf16).contiguous(memory_format=torch.channels_last)
+    return _chain(x, cw.w1.to(bf16).to(f32), cw.b1, cw.w2.to(bf16).to(f32), cw.b2)
 
 
-def conv1_block(x: torch.Tensor, cw: Conv1Weights) -> torch.Tensor:
-    """(B, 3, H, W) bf16, any strides (the net's channels_last blob), H and
-    W even -> (B, 64, H/2, W/2) bf16 channels_last.  Equal to
-    :func:`conv1_block_reference` up to f32 summation order: within 2 bf16
-    ulps (one from the order, one where the sums straddle a rounding
-    boundary), as the Pallas kernel is to the XLA chain."""
+@torch.library.custom_op("crt::conv1_block", mutates_args=(), device_types="cuda")
+def _conv1_op(x: torch.Tensor, w1_p: torch.Tensor, b1: torch.Tensor, w2_p: torch.Tensor,
+              b2: torch.Tensor) -> torch.Tensor:
+    """K4 on (B, 3, H, W) bf16 -> (B, 64, H/2, W/2) bf16 channels_last, one
+    launch."""
     global launches
-    _check(x)
-    if x.device.type == "cpu":
-        return conv1_block_reference(x, cw)
-    if x.device.type != "cuda":
-        raise ValueError(f"conv1_block: unsupported device {x.device}")
-    for t in (cw.w1_p, cw.b1, cw.w2_p, cw.b2):
+    for t in (w1_p, b1, w2_p, b2):
         if t.device != x.device:
             raise ValueError(f"conv1_block: weights on {t.device}, input on {x.device}")
     from .. import _build
@@ -142,10 +152,43 @@ def conv1_block(x: torch.Tensor, cw: Conv1Weights) -> torch.Tensor:
             _sms[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.crt_conv1_block(ptr(x), st[0], st[1], st[2], st[3], b, h, w,
-                                  ptr(cw.w1_p), ptr(cw.b1), ptr(cw.w2_p), ptr(cw.b2),
+                                  ptr(w1_p), ptr(b1), ptr(w2_p), ptr(b2),
                                   ptr(out), _sms[dev], ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(
             f"conv1_block kernel launch failed: {lib.crt_cuda_error_string(err).decode()} ({err})")
     launches += 1
     return out
+
+
+@_conv1_op.register_kernel("cpu")
+def _conv1_cpu(x, w1_p, b1, w2_p, b2):
+    f32 = torch.float32
+    w1 = _sw128(w1_p)[:, :27].reshape(64, 3, 3, 3).permute(0, 3, 1, 2).to(f32)
+    w2 = _sw128(w2_p).reshape(3, 3, 64, 64).permute(2, 3, 0, 1).to(f32)
+    return _chain(x, w1, b1, w2, b2)
+
+
+@_conv1_op.register_fake
+def _conv1_fake(x, w1_p, b1, w2_p, b2):
+    b, _, h, w = x.shape
+    return torch.empty((b, 64, h // 2, w // 2), dtype=torch.bfloat16, device=x.device,
+                       memory_format=torch.channels_last)
+
+
+def conv1_block(x: torch.Tensor, cw: Conv1Weights) -> torch.Tensor:
+    """(B, 3, H, W) bf16, any strides (the net's channels_last blob), H and
+    W even -> (B, 64, H/2, W/2) bf16 channels_last.  Equal to
+    :func:`conv1_block_reference` up to f32 summation order: within 2 bf16
+    ulps (one from the order, one where the sums straddle a rounding
+    boundary), as the Pallas kernel is to the XLA chain."""
+    return conv1_block_packed(x, *(getattr(cw, k) for k in PACKED))
+
+
+def conv1_block_packed(x: torch.Tensor, w1_p: torch.Tensor, b1: torch.Tensor,
+                       w2_p: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """:func:`conv1_block` on the four packed tensors of a
+    :class:`Conv1Weights` (:data:`PACKED`): the operator
+    ``crt::conv1_block``."""
+    _check(x)
+    return torch.ops.crt.conv1_block(x, w1_p, b1, w2_p, b2)

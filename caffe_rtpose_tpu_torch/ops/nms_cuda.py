@@ -28,12 +28,19 @@ map's device (what a captured CUDA graph passes, so that a new threshold
 needs no new capture) or a Python float, which goes into a device scalar
 cached per value.
 
-Each wrapper launches its kernel for a CUDA tensor (or raises: there is no
-fallback) and runs the plain version for a CPU tensor.  ``launches`` and
-``upsample_launches`` count kernel launches and nothing else.  The plain
-versions, :func:`peak_mask_fused_reference` and
-:func:`upsample_peak_keys_reference`, are the CPU path, the tests'
-reference and the estimator's ``peak_kernel=False`` switch.
+Each kernel is a ``torch.library`` operator (``crt::peak_mask_fused``,
+``crt::upsample_peak_keys``), so that ``torch.export`` records it as one
+node of a program (``serving.py``) and the loaded program launches it.  An
+operator dispatches on its tensor's device: the CUDA implementation is the
+ctypes launch (or raises: there is no fallback), the CPU implementation the
+plain version.  Its fake implementation gives the exact output shape, dtype
+and strides.  Arguments are tensors and Python scalars; the tile geometry
+is made inside the CUDA implementation.  The wrappers are thin calls of the
+operators.  ``launches`` and ``upsample_launches`` count kernel launches (in
+the CUDA implementations) and nothing else.  The plain versions,
+:func:`peak_mask_fused_reference` and :func:`upsample_peak_keys_reference`,
+are the CPU path, the tests' reference and the estimator's
+``peak_kernel=False`` switch.
 """
 
 from __future__ import annotations
@@ -232,6 +239,29 @@ def peak_mask_fused_reference(
     return find_peaks_mask(heat, threshold)
 
 
+@torch.library.custom_op("crt::peak_mask_fused", mutates_args=(), device_types="cuda")
+def _peak_mask_op(lowres: torch.Tensor, th: int, tw: int, start_scale: float, scale_gap: float,
+                  threshold: torch.Tensor) -> torch.Tensor:
+    """K1 on (F, S, h, w, C) -> (F, C, th, tw) bool, one launch."""
+    global launches
+    out = torch.empty((lowres.shape[0], lowres.shape[-1], th, tw), dtype=torch.bool,
+                      device=lowres.device)
+    _launch("peak_mask_fused", "crt_peak_mask", lowres, (th, tw), start_scale, scale_gap,
+            threshold, (), (out,), frames=True)
+    launches += 1
+    return out
+
+
+@_peak_mask_op.register_kernel("cpu")
+def _peak_mask_cpu(lowres, th, tw, start_scale, scale_gap, threshold):
+    return peak_mask_fused_reference(lowres, (th, tw), start_scale, scale_gap, threshold)
+
+
+@_peak_mask_op.register_fake
+def _peak_mask_fake(lowres, th, tw, start_scale, scale_gap, threshold):
+    return lowres.new_empty((lowres.shape[0], lowres.shape[-1], th, tw), dtype=torch.bool)
+
+
 def peak_mask_fused(
     lowres: torch.Tensor,  # (F, S, h, w, C) or (S, h, w, C) part channels, NHWC, any strides
     target_hw: Tuple[int, int],
@@ -243,17 +273,12 @@ def peak_mask_fused(
     upsample of each frame of ``lowres`` in one launch ((C, th, tw) for an
     (S, h, w, C) map); equal to :func:`peak_mask_fused_reference` up to f32
     summation order (the kernel sums each pixel's taps in its own order, so
-    a pixel within a rounding error of a tie may differ)."""
-    global launches
-    if lowres.device.type == "cpu":
-        return peak_mask_fused_reference(lowres, target_hw, start_scale, scale_gap, threshold)
+    a pixel within a rounding error of a tie may differ).  Calls the
+    operator ``crt::peak_mask_fused``."""
     low5 = lowres if lowres.dim() == 5 else lowres[None]
     th, tw = (int(v) for v in target_hw)
-    out = torch.empty((low5.shape[0], low5.shape[-1], th, tw), dtype=torch.bool,
-                      device=lowres.device)
-    _launch("peak_mask_fused", "crt_peak_mask", low5, (th, tw), start_scale, scale_gap,
-            threshold, (), (out,), frames=True)
-    launches += 1
+    out = torch.ops.crt.peak_mask_fused(low5, th, tw, float(start_scale), float(scale_gap),
+                                        threshold_scalar(threshold, lowres.device))
     return out if lowres.dim() == 5 else out[0]
 
 
@@ -274,6 +299,36 @@ def upsample_peak_keys_reference(
     return heat, block_keys(find_peaks_mask(heat[:kc], threshold), th, tw)
 
 
+@torch.library.custom_op("crt::upsample_peak_keys", mutates_args=(), device_types="cuda")
+def _upsample_keys_op(lowres: torch.Tensor, th: int, tw: int, start_scale: float,
+                      scale_gap: float, threshold: torch.Tensor,
+                      key_channels: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3 on (S, h, w, C) -> heat (C, th, tw) f32 and keys (K, th*(tw//2))
+    int32, one launch."""
+    global upsample_launches
+    if lowres.dim() != 4:
+        raise ValueError(f"upsample_peak_keys: expected (S, h, w, C), got {tuple(lowres.shape)}")
+    dev = lowres.device
+    heat = torch.empty((lowres.shape[-1], th, tw), dtype=torch.float32, device=dev)
+    keys = torch.empty((key_channels, th * (tw // 2)), dtype=torch.int32, device=dev)
+    _launch("upsample_peak_keys", "crt_upsample_peak_keys", lowres[None], (th, tw), start_scale,
+            scale_gap, threshold, (key_channels,), (heat, keys), frames=False)
+    upsample_launches += 1
+    return heat, keys
+
+
+@_upsample_keys_op.register_kernel("cpu")
+def _upsample_keys_cpu(lowres, th, tw, start_scale, scale_gap, threshold, key_channels):
+    return upsample_peak_keys_reference(lowres, (th, tw), start_scale, scale_gap, threshold,
+                                        key_channels)
+
+
+@_upsample_keys_op.register_fake
+def _upsample_keys_fake(lowres, th, tw, start_scale, scale_gap, threshold, key_channels):
+    return (lowres.new_empty((lowres.shape[-1], th, tw), dtype=torch.float32),
+            lowres.new_empty((key_channels, th * (tw // 2)), dtype=torch.int32))
+
+
 def upsample_peak_keys(
     lowres: torch.Tensor,  # (S, h, w, C), NHWC, any strides
     target_hw: Tuple[int, int],
@@ -287,21 +342,12 @@ def upsample_peak_keys(
     (default C) as (key_channels, th*(tw//2)) int32 in ``block_keys``'
     layout, ready for ``nms.peaks_from_keys(..., ordered=True)``.  Equal to
     :func:`upsample_peak_keys_reference` up to f32 summation order (heat
-    within a few ulp; a key may differ only at a near-tie)."""
-    global upsample_launches
+    within a few ulp; a key may differ only at a near-tie).  Calls the
+    operator ``crt::upsample_peak_keys``."""
     kc = lowres.shape[-1] if key_channels is None else int(key_channels)
     if not 0 <= kc <= lowres.shape[-1]:
         raise ValueError(f"upsample_peak_keys: key_channels {kc} outside 0..{lowres.shape[-1]}")
-    if lowres.device.type == "cpu":
-        return upsample_peak_keys_reference(lowres, target_hw, start_scale, scale_gap,
-                                            threshold, kc)
     th, tw = (int(v) for v in target_hw)
-    dev = lowres.device
-    heat = torch.empty((lowres.shape[-1], th, tw), dtype=torch.float32, device=dev)
-    keys = torch.empty((kc, th * (tw // 2)), dtype=torch.int32, device=dev)
-    if lowres.dim() != 4:
-        raise ValueError(f"upsample_peak_keys: expected (S, h, w, C), got {tuple(lowres.shape)}")
-    _launch("upsample_peak_keys", "crt_upsample_peak_keys", lowres[None], (th, tw), start_scale,
-            scale_gap, threshold, (kc,), (heat, keys), frames=False)
-    upsample_launches += 1
-    return heat, keys
+    return torch.ops.crt.upsample_peak_keys(lowres, th, tw, float(start_scale),
+                                            float(scale_gap),
+                                            threshold_scalar(threshold, lowres.device), kc)

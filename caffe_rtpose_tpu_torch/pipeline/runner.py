@@ -289,12 +289,11 @@ def write_json_file(path: str, joints: np.ndarray, num_people: int, scale: float
 
 
 class RtPosePipeline:
-    """End-to-end realtime runner over one device (``num_devices > 1``, the
-    device pool, is not ported yet and raises ``NotImplementedError``)."""
+    """End-to-end realtime runner over one device, or over ``num_devices``
+    cards from ``start_device`` through ``parallel.inference.DevicePool``
+    (round-robin dispatch, one replica of the program per card)."""
 
     def __init__(self, estimator: PoseEstimator, cfg: PipelineConfig):
-        if cfg.num_devices > 1:
-            raise NotImplementedError("num_devices > 1 (the device pool) is not ported yet")
         # what needs OpenCV, named before any thread starts
         if cfg.video:
             _cv2("--video")
@@ -308,7 +307,12 @@ class RtPosePipeline:
                 _cv2(f"--image_dir with JPEG files ({jpegs[0]})")
         self.est = estimator
         self.cfg = cfg
-        self.pool = estimator  # the run_device/fetch interface
+        if cfg.num_devices > 1:
+            from ..parallel.inference import DevicePool
+
+            self.pool = DevicePool(estimator, cfg.num_devices, start_device=cfg.start_device)
+        else:
+            self.pool = estimator  # the same run_device/fetch interface
         self.quit = threading.Event()
         self.stats: List[Dict[str, float]] = []
         self.processed = 0
@@ -718,7 +722,11 @@ class RtPosePipeline:
             shape = (B,) + shape
         dummy = np.zeros(shape, self.est.input_dtype)
         fetch1 = self.est.fetch_batch if B > 1 else self.est.fetch
-        fetch1(self.pool.run_device(dummy))
+        if cfg.num_devices > 1:
+            for i in range(cfg.num_devices):  # one pass a card: each captures its graph
+                fetch1(self.pool.run_device(dummy, device_index=i))
+        else:
+            fetch1(self.pool.run_device(dummy))
         input_q = BlockingQueue(maxsize=max(10, B * cfg.dispatchers))  # backpressure (rtpose.cpp:424-430)
         inflight_q = BlockingQueue(maxsize=cfg.queue_depth)
         output_q = BlockingQueue()

@@ -34,6 +34,7 @@ from Python.
 
 from __future__ import annotations
 
+import copy
 import sys
 import threading
 from dataclasses import dataclass
@@ -136,6 +137,49 @@ class PoseEstimator:
         part (raster order — identical to the reference for frames with
         <= K peaks/part).  Slot 0 of each part keeps the raw count, so a
         frame with more peaks is detected and refetched uncapped."""
+        self._init_options(device, net_resolution, num_scales, start_scale, scale_gap,
+                           keep_heatmap, input_u8, pack_u8, device_rescale, batch, pair_cap,
+                           peak_kernel, cuda_graph)
+        self.net = Net(
+            proto,
+            phase="TEST",
+            input_shapes={"image": (num_scales, 3, self.net_h, self.net_w)},
+            overrides={"resize": {"imresize_param.start_scale": start_scale,
+                                  "imresize_param.scale_gap": scale_gap}},
+            device=self.device,
+            dtype=dtype,
+            seed=seed,
+            conv1_kernel=conv1_kernel,
+        )
+        if weights is not None:
+            self.net.load_weights(weights)
+
+        nms = self.net.post_layers.get("nms")
+        if nms is None:
+            raise ValueError("deploy net has no 'nms' layer")
+        resize = self.net.post_layers.get("resize")
+        if resize is None:
+            raise NotImplementedError("nets without a 'resize' ImResize layer are not ported")
+        self._init_parts(int(nms.param.get("num_parts", 15)), int(nms.param.get("max_peaks", 20)))
+
+        self.lowres_blob = resize.bottoms[0]
+        _, _, h, w = self.net.blob_shapes[self.lowres_blob]
+        factor = float(resize.param.get("factor", 0.0))
+        if factor > 0:
+            self.target_hw = (int(h * factor), int(w * factor))
+        else:
+            self.target_hw = (int(resize.param.get("target_spatial_height", 368)),
+                              int(resize.param.get("target_spatial_width", 368)))
+        self._layers = self.net.prune_for([self.lowres_blob])
+        self._init_runtime(warm_overflow)
+
+    def _init_options(self, device, net_resolution, num_scales, start_scale, scale_gap,
+                      keep_heatmap, input_u8, pack_u8, device_rescale, batch, pair_cap,
+                      peak_kernel, cuda_graph) -> None:
+        """The host state that follows from the constructor's options alone
+        (no net): the device and its tf32 switches, the geometry, the input
+        layout and its device constants.  A bundle (``serving.ExportedPose``)
+        restores its estimator through this too."""
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             torch.backends.cudnn.allow_tf32 = False
@@ -162,46 +206,10 @@ class PoseEstimator:
             raise ValueError("batch must be a positive frame count")
         if self.batch > 1 and self.keep_heatmap:
             raise ValueError("batch > 1 requires the packed path (keep_heatmap=False)")
+        if pair_cap is not None and int(pair_cap) < 1:
+            raise ValueError("pair_cap must be a positive peak count")
         self._pair_cap = pair_cap
 
-        self.net = Net(
-            proto,
-            phase="TEST",
-            input_shapes={"image": (num_scales, 3, net_h, net_w)},
-            overrides={"resize": {"imresize_param.start_scale": start_scale,
-                                  "imresize_param.scale_gap": scale_gap}},
-            device=self.device,
-            dtype=dtype,
-            seed=seed,
-            conv1_kernel=conv1_kernel,
-        )
-        if weights is not None:
-            self.net.load_weights(weights)
-
-        nms = self.net.post_layers.get("nms")
-        if nms is None:
-            raise ValueError("deploy net has no 'nms' layer")
-        resize = self.net.post_layers.get("resize")
-        if resize is None:
-            raise NotImplementedError("nets without a 'resize' ImResize layer are not ported")
-        self.num_parts = int(nms.param.get("num_parts", 15))
-        self.max_peaks = int(nms.param.get("max_peaks", 20))
-        if self._pair_cap is not None and int(self._pair_cap) < 1:
-            raise ValueError("pair_cap must be a positive peak count")
-        self.eff_peaks = (min(int(self._pair_cap), self.max_peaks)
-                          if self._pair_cap else self.max_peaks)
-        self.descriptor: ModelDescriptor = for_num_parts(self.num_parts)
-        self.params_connect: ConnectParams = self.descriptor.defaults
-
-        self.lowres_blob = resize.bottoms[0]
-        _, _, h, w = self.net.blob_shapes[self.lowres_blob]
-        factor = float(resize.param.get("factor", 0.0))
-        if factor > 0:
-            self.target_hw = (int(h * factor), int(w * factor))
-        else:
-            self.target_hw = (int(resize.param.get("target_spatial_height", 368)),
-                              int(resize.param.get("target_spatial_width", 368)))
-        self._layers = self.net.prune_for([self.lowres_blob])
         self._mask: Optional[torch.Tensor] = None
         if self.pack_u8 or self.device_rescale:
             self._regions, self._packed_bytes = preprocess.packed_regions(
@@ -219,14 +227,33 @@ class PoseEstimator:
                     preprocess.region_boxes(net_w, net_h, num_scales, start_scale, scale_gap)):
                 mask[i, y0:y1, x0:x1] = 1.0
             self._mask = torch.from_numpy(mask).to(self.device)
+        self._weights: Optional[Dict[str, torch.Tensor]] = None  # a replica's operands
         self._overflow_lock = threading.Lock()
         self._overflow_refetches = 0
+
+    def _init_parts(self, num_parts: int, max_peaks: int) -> None:
+        """The nms layer's part and peak counts, the pair capacity they
+        bound, and the model descriptor they name."""
+        self.num_parts = num_parts
+        self.max_peaks = max_peaks
+        self.eff_peaks = (min(int(self._pair_cap), self.max_peaks)
+                          if self._pair_cap else self.max_peaks)
+        self.descriptor: ModelDescriptor = for_num_parts(self.num_parts)
+        self.params_connect: ConnectParams = self.descriptor.defaults
+
+    def _init_runtime(self, warm_overflow: bool) -> None:
+        """The state of running programs on ``self.device``: captured graphs,
+        the overflow counter, the background capture of the uncapped
+        program."""
         # captured programs by (branch, pair capacity, frames a pass); one
         # lock covers capture, replay and the copies around it, and one
         # memory pool serves them all
         self._graphs: Dict[tuple, _Program] = {}
         self._graph_lock = threading.Lock()
-        self._graph_pool = torch.cuda.graph_pool_handle() if self.cuda_graph else None
+        self._graph_pool = None
+        if self.cuda_graph:
+            with torch.cuda.device(self.device):
+                self._graph_pool = torch.cuda.graph_pool_handle()
         self._warm_thread: Optional[threading.Thread] = None
         self._warm_error: Optional[BaseException] = None
         if (warm_overflow and self.cuda_graph and not self.keep_heatmap
@@ -281,20 +308,22 @@ class PoseEstimator:
         # channels_last NCHW for free
         return xf.to(self.net.dtype).reshape(f * S, H, W, 3).permute(0, 3, 1, 2)
 
-    def _lowres(self, x: torch.Tensor) -> torch.Tensor:
+    def _lowres(self, x: torch.Tensor,
+                weights: Optional[Mapping[str, torch.Tensor]] = None) -> torch.Tensor:
         """(F*S, 3, H, W) net input -> the low-res ``concat_stage7`` maps as
         (F, S, h, w, C) f32 NHWC (a view of the channels_last blob in f32;
-        cast once in bf16)."""
-        low = self.net({"image": x}, outputs=[self.lowres_blob], layers=self._layers)
+        cast once in bf16), on ``weights`` (``Net.operands``; default the
+        net's own)."""
+        low = self.net({"image": x}, outputs=[self.lowres_blob], layers=self._layers,
+                       operands=weights)
         low = low[self.lowres_blob].permute(0, 2, 3, 1).to(torch.float32)
         return low.reshape(-1, self.num_scales, *low.shape[1:])
 
-    @torch.inference_mode()
-    def _heatmap_program(self, x: torch.Tensor, nms_threshold,
-                         inter_threshold) -> Dict[str, torch.Tensor]:
+    def _heatmap_program(self, x: torch.Tensor, nms_threshold, inter_threshold,
+                         weights: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """One uploaded frame (1, S, 3, H, W) -> :meth:`_heatmap_post` of
         its low-res maps."""
-        return self._heatmap_post(self._lowres(self._canvases(x))[0], nms_threshold,
+        return self._heatmap_post(self._lowres(self._canvases(x), weights)[0], nms_threshold,
                                   inter_threshold)
 
     def _heatmap_post(self, low: torch.Tensor, nms_threshold,
@@ -341,41 +370,73 @@ class PoseEstimator:
             pair_count.to(torch.uint8).reshape(f, -1),
         ], dim=1)
 
-    @torch.inference_mode()
-    def _device_program(self, x: torch.Tensor, nms_threshold,
-                        inter_threshold, eff_peaks: int) -> torch.Tensor:
+    def _device_program(self, x: torch.Tensor, nms_threshold, inter_threshold, eff_peaks: int,
+                        weights: Mapping[str, torch.Tensor]) -> torch.Tensor:
         """F uploaded frames -> (F, n) packed u8 rows: one CNN call for all
         F*S canvases, then one post segment for all F frames.  The
         thresholds are floats or 0-d f32 tensors on the device (a graph's
-        inputs)."""
-        return self._post(self._lowres(self._canvases(x)), nms_threshold, inter_threshold,
-                          eff_peaks)
+        inputs); ``weights`` the net's operands."""
+        return self._post(self._lowres(self._canvases(x), weights), nms_threshold,
+                          inter_threshold, eff_peaks)
+
+    def _program_weights(self) -> Dict[str, torch.Tensor]:
+        """The device program's weight operands on ``self.device``: the
+        net's (``Net.operands``), or a replica's copies."""
+        return self.net.operands() if self._weights is None else self._weights
+
+    def _program_key(self, eff_peaks: int, frames: int) -> tuple:
+        """The key of the device program for a pass of ``frames`` frames at
+        pair capacity ``eff_peaks`` (one captured graph per key)."""
+        return ("heatmap",) if self.keep_heatmap else ("packed", eff_peaks, frames)
+
+    def _program_fn(self, eff_peaks: int, frames: int):
+        """That program as fn(x, nms, inter) -> device outputs."""
+        weights = self._program_weights()
+        if self.keep_heatmap:
+            return lambda x, n, i: self._heatmap_program(x, n, i, weights)
+        prog = DeviceProgram(self, eff_peaks)
+        return lambda x, n, i: {"packed": prog(x, n, i, weights)}
 
     def _run(self, frames: np.ndarray, nms_threshold, inter_threshold,
              eff_peaks: Optional[int] = None) -> Dict[str, torch.Tensor]:
         """(F, *input_shape) host frames -> device outputs, not synchronized:
-        a graph's replay, or the same program run eagerly."""
+        a graph's replay, or the same program run eagerly (the thresholds
+        then as cached device scalars)."""
         p = self.params_connect
         nms_thr = float(p.nms_threshold if nms_threshold is None else nms_threshold)
         inter_thr = float(p.inter_threshold if inter_threshold is None else inter_threshold)
         frames = np.ascontiguousarray(frames)
-        if self.keep_heatmap:
-            key, fn = ("heatmap",), self._heatmap_program
-        else:
-            eff = self.eff_peaks if eff_peaks is None else int(eff_peaks)
-            key = ("packed", eff, frames.shape[0])
-
-            def fn(x, nms_t, inter_t):
-                return {"packed": self._device_program(x, nms_t, inter_t, eff)}
-
+        eff = self.eff_peaks if eff_peaks is None else int(eff_peaks)
         if not self.cuda_graph:
-            return fn(torch.from_numpy(frames).to(self.device), nms_thr, inter_thr)
+            with torch.inference_mode():
+                return self._program_fn(eff, frames.shape[0])(
+                    torch.from_numpy(frames).to(self.device),
+                    nms_cuda.threshold_scalar(nms_thr, self.device),
+                    nms_cuda.threshold_scalar(inter_thr, self.device))
+        key = self._program_key(eff, frames.shape[0])
         with self._graph_lock, torch.cuda.device(self.device), torch.inference_mode():
             prog = self._graphs.get(key)
             if prog is None:
-                prog = self._graphs[key] = _Program(key, fn, frames, nms_thr, inter_thr,
-                                                    self.device, self._graph_pool)
+                prog = self._graphs[key] = _Program(key, self._program_fn(eff, frames.shape[0]),
+                                                    frames, nms_thr, inter_thr, self.device,
+                                                    self._graph_pool)
             return prog.replay(frames, nms_thr, inter_thr)
+
+    def replicate(self, device: Union[str, torch.device]) -> "PoseEstimator":
+        """This estimator on another device (``parallel.inference.DevicePool``):
+        the same host state and net, copies of the program's weight operands
+        and constants on ``device``, its own graphs.  The operands are copied
+        as they are, never remade."""
+        dev = resolve_device(device)
+        rep = copy.copy(self)
+        rep.device = dev
+        rep._weights = {k: v.to(dev) for k, v in self._program_weights().items()}
+        if self._mask is not None:
+            rep._mask = self._mask.to(dev)
+        if self.device_rescale:
+            rep._rescale = [tuple(m.to(dev) for m in pair) for pair in self._rescale]
+        rep._init_runtime(False)
+        return rep
 
     def run_device(self, net_input: np.ndarray, nms_threshold=None,
                    inter_threshold=None) -> Dict[str, torch.Tensor]:
@@ -535,6 +596,28 @@ class PoseEstimator:
         scale_xy = (dw / float(self.net_w), dh / float(self.net_h))
         result = self.estimate_from_net_input(pf.net_input, scale_xy=scale_xy, **kw)
         return result, pf
+
+
+class DeviceProgram(torch.nn.Module):
+    """The realtime device program of an estimator as a module, the unit
+    ``torch.export`` traces (``serving.py``) and the live estimator runs:
+    (F, *input_shape) uploaded frames, the NMS and PAF thresholds as 0-d f32
+    tensors (inputs, never constants: a new threshold needs no new program)
+    and the net's weight operands (``Net.operands``: inputs, so a program
+    holds no copy of the weights) -> (F, n) packed u8 rows at pair capacity
+    ``eff_peaks``.  Runs ``_canvases -> _lowres -> _post`` without
+    ``inference_mode``, which ``torch.export`` cannot trace; callers enter it
+    (or ``no_grad`` to export)."""
+
+    def __init__(self, est: "PoseEstimator", eff_peaks: int):
+        super().__init__()
+        self._est = est  # not a module: its net's parameters are not this module's
+        self.eff_peaks = int(eff_peaks)
+
+    def forward(self, x: torch.Tensor, nms_threshold: torch.Tensor,
+                inter_threshold: torch.Tensor, weights: Dict[str, torch.Tensor]) -> torch.Tensor:
+        return self._est._device_program(x, nms_threshold, inter_threshold, self.eff_peaks,
+                                         weights)
 
 
 def kernel_calls() -> Dict[str, int]:

@@ -10,8 +10,10 @@ checkout's relative path, as ``--caffemodel`` does.  Run:
 An existing ``--caffeproto`` prototxt and ``--caffemodel`` file are read
 as the JAX tool reads them; a missing prototxt falls back to the built-in
 COCO graph and a missing caffemodel to random weights, with the JAX tool's
-warnings.  Not ported yet, and refused with ``NotImplementedError``:
-``--bundle`` (serving) and ``--num_gpu > 1`` (the device pool).
+warnings.  ``--bundle DIR`` serves an exported bundle (``serving.py``;
+the bundle fixes the net geometry, dtype and batch), and ``--num_gpu N``
+spreads the passes round-robin over N cards from ``--start_device``
+(``parallel/inference.py``).
 """
 
 from __future__ import annotations
@@ -51,7 +53,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--start_device", type=int, default=0,
                    help="CUDA device number (--device cuda runs on cuda:N).")
     p.add_argument("--num_gpu", type=int, default=1,
-                   help="The number of devices to use (frame-parallel; only 1 is ported).")
+                   help="The number of GPUs to use (frame-parallel, round-robin).")
     p.add_argument("--start_scale", type=float, default=1.0, help="Initial scale.")
     p.add_argument("--scale_gap", type=float, default=0.3,
                    help="Scale gap between scales. No effect unless num_scales>1")
@@ -85,7 +87,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no_weights", action="store_true",
                    help="(extension) run with random-initialized weights")
     p.add_argument("--bundle", default="",
-                   help="(extension) run from an AOT serving bundle (not ported yet)")
+                   help="(extension) run from an exported serving bundle directory "
+                        "(python -m caffe_rtpose_tpu_torch export build)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the network runs: cuda (cuda:<start_device>) or cpu")
     return p
@@ -97,8 +100,23 @@ def main(argv=None) -> int:
 
     from ..pose.estimator import PoseEstimator
 
+    device = f"cuda:{args.start_device}" if args.device == "cuda" else "cpu"
     if args.bundle:
-        raise NotImplementedError("--bundle (serving bundles) is not ported yet")
+        if args.part_to_show > 0:
+            print("error: --bundle runs the packed fast path; heatmap views "
+                  "(--part_to_show > 0) need a live estimator with "
+                  "keep_heatmap", file=sys.stderr)
+            return 2
+        from ..serving import ExportedPose
+
+        est = ExportedPose(args.bundle, warm_overflow=True, device=device)
+        # the exported program fixes the input geometry: the pipeline's
+        # preprocess must match it
+        args.net_resolution = (est.net_w, est.net_h)
+        args.num_scales = est.num_scales
+        args.start_scale = est.start_scale
+        args.scale_gap = est.scale_gap
+        return _run_pipeline(est, args)
     weights = None if args.no_weights else (
         args.caffemodel if os.path.exists(args.caffemodel) else None)
     if weights is None and not args.no_weights:
@@ -130,7 +148,6 @@ def main(argv=None) -> int:
               "COCO 18-kpt deploy graph", file=sys.stderr)
         proto = make_pose_deploy_net()
 
-    device = f"cuda:{args.start_device}" if args.device == "cuda" else "cpu"
     est = PoseEstimator(
         proto,
         weights=weights,

@@ -14,6 +14,7 @@ import subprocess
 from typing import Callable, Dict, Hashable, Optional, Union
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 
 def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
@@ -36,11 +37,19 @@ def device_const(key: Hashable, make: Callable[[], torch.Tensor],
     and then cached under ``key``.  For the read-only constants of the
     device program (index tables, interpolation weights): an upload
     synchronizes the stream, which a CUDA graph capture forbids, so the
-    eager pass before a capture makes them and the capture finds them."""
+    eager pass before a capture makes them and the capture finds them.
+
+    ``torch.export`` finds them the same way: a cached constant is a real
+    tensor, which the exported program lifts as a constant.  A miss while
+    tracing would make a fake tensor; that one is never cached (a later
+    eager or graph run would read it), so ``serving.export_estimator`` runs
+    the program eagerly before it traces."""
     k = (key, str(device))
     t = _consts.get(k)
     if t is None:
-        t = _consts[k] = make().to(device)
+        t = make().to(device)
+        if not isinstance(t, FakeTensor):
+            _consts[k] = t
     return t
 
 

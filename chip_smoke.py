@@ -60,8 +60,31 @@ Phases, each of which raises (non-zero exit) on failure:
                from the dicts on 16 frames; the time to write and to load
                the files (host parse alone, and the estimator's build).
    cli       - tools.rtpose.main with those --caffeproto and --caffemodel
-               files on 8 PNG frames, exit 0, no fallback warning, one JSON
-               file a frame, the overflow refetch count printed.
+               files on 8 PNG frames (the calibration canvases, displayed
+               at their 656x368), exit 0, no fallback warning, one JSON
+               file a frame, the overflow refetch count printed; then the
+               same on those canvases upscaled to 1280x720 (resize_area),
+               which the CLI downscales to the net.
+   serving   - serving bundles (serving.py): the bf16 batch-8 estimator
+               built from those files, exported (time, file sizes), loaded
+               cold as an ExportedPose (time) with the kernel counters zeroed
+               just before and read after its passes (the bundle's main
+               path): packed rows bit-identical to the live estimator on 16
+               frames, the overflow refetch through program_nocap identical
+               (noise frames at threshold -1), one K1 and one K4 node a
+               replay, device and end-to-end ms/frame of live and bundle in
+               turns (live bundle bundle live).  Then a 2-stage bf16 bundle
+               exported on the CPU and loaded on the card (its operators
+               launch K1 and K4; bit-identical to a live estimator on the
+               card), a 3-scale f32 bundle (K1 at three scales, the TPU's
+               K2; bit-identical), and rtpose --bundle in a new process on
+               the cli phase's frames, its JSON equal to the live CLI's.
+   pool      - parallel.inference.DevicePool over every card against the
+               estimator, and a replica on the estimator's own card (its own
+               graphs) against it.
+   eval      - eval run-list over the cli phase's PNG frames with its model
+               files (bf16), and joint-diff against the cli phase's JSON:
+               PARITY OK with the joints compared.
 4. slice     - the full-width COCO estimator (656x368, 1 scale, u8 input,
                pair_cap=32, f32) over 8 synthetic frames through
                estimate_from_net_input (graph replays), with the peak-mask
@@ -1316,6 +1339,7 @@ def phase_bf16_heatmap(weights, canvases_u8, device="cuda", net_resolution=(656,
 
 
 GRAPH_THRESHOLDS = (0.05, 0.03)  # the default, then one the demo's -/= keys reach
+OVERFLOW_THRESHOLD = -1.0  # every local maximum a peak: more than pair_cap in a part
 
 
 def outputs_equal(a, b):
@@ -1619,9 +1643,10 @@ def phase_files(weights, work, device="cuda", net_resolution=(656, 368), stages=
                 write_s=write_s, parse_s=parse_s, build_s=build_s, bit_identical=all(same))
 
 
-def phase_cli(files, n_frames=8, extra=()):
+def phase_cli(files, images, extra=()):
     """tools.rtpose.main with the ``files`` phase's prototxt and caffemodel
-    on 1280x720 PNG frames (``extra``: more flags)."""
+    on ``images`` as PNG frames, displayed at their own size (``extra``:
+    more flags)."""
     import contextlib
     import io
     import os
@@ -1633,15 +1658,17 @@ def phase_cli(files, n_frames=8, extra=()):
     work = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     img_dir, out_dir = os.path.join(work, "img"), os.path.join(work, "json")
     os.makedirs(img_dir)
-    for i, f in enumerate(frames_720p(np.random.RandomState(6), n_frames)):
+    for i, f in enumerate(images):
         write_png(os.path.join(img_dir, f"f{i:02d}.png"), f)
+    n_frames = len(images)
+    h, w = images[0].shape[:2]
     buf, err = io.StringIO(), io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
         rc = rtpose.main(["--caffeproto", files["proto"], "--caffemodel", files["model"],
                           "--image_dir", img_dir, "--write_json", out_dir,
-                          "--frame_limit", str(n_frames), "--no_display", "--no_frame_drops",
-                          *extra])
+                          "--resolution", f"{w}x{h}", "--frame_limit", str(n_frames),
+                          "--no_display", "--no_frame_drops", *extra])
     secs = time.perf_counter() - t0
     text = buf.getvalue()
     m = re.search(r"(\d+) overflow refetches", text)
@@ -1657,7 +1684,322 @@ def phase_cli(files, n_frames=8, extra=()):
     check("not found" not in err.getvalue(), f"{tag} the CLI fell back: {err.getvalue()}")
     check(m is not None, f"{tag} no overflow refetch count printed")
     return dict(exit=rc, files=len(out_files), people=people, refetches=int(m.group(1)),
-                seconds=secs)
+                seconds=secs, image_dir=img_dir, json_dir=out_dir, resolution=f"{w}x{h}")
+
+
+def bundle_sizes(path):
+    import os
+
+    return {f: os.path.getsize(os.path.join(path, f)) for f in sorted(os.listdir(path))}
+
+
+def zero_counts():
+    from caffe_rtpose_tpu_torch.ops import conv1_cuda, nms_cuda
+
+    conv1_cuda.launches = nms_cuda.launches = nms_cuda.upsample_launches = 0
+
+
+def read_counts():
+    from caffe_rtpose_tpu_torch.ops import conv1_cuda, nms_cuda
+
+    return dict(conv1_block=conv1_cuda.launches, peak_mask_fused=nms_cuda.launches,
+                upsample_peak_keys=nms_cuda.upsample_launches)
+
+
+def program_nodes(est, key):
+    """The hand-kernel nodes one replay of ``est``'s captured program
+    ``key`` launches."""
+    return est._graphs[key].nodes
+
+
+def rows_equal(a, b):
+    return all(np.array_equal(u, v, equal_nan=True) for u, v in zip(a, b))
+
+
+def phase_serving(weights, files, cli, work, device="cuda", net_resolution=(656, 368),
+                  stages=6, n_frames=BF16_FRAMES, batch=BF16_BATCH):
+    """Serving bundles (serving.py) on the card.  The main path: the bf16
+    batch-8 COCO estimator built from the model files, exported, reloaded
+    cold and replayed; the kernel counters zeroed just before the bundle is
+    loaded and read just after its passes.  Then a CPU-exported 2-stage
+    bundle moved to the card, a 3-scale f32 bundle (K2), and rtpose
+    --bundle in a fresh process against the cli phase's JSON."""
+    import os
+    import subprocess
+
+    import torch
+
+    from caffe_rtpose_tpu_torch.models.cpm import make_pose_deploy_net
+    from caffe_rtpose_tpu_torch.pose.estimator import PoseEstimator
+    from caffe_rtpose_tpu_torch.serving import ExportedPose, export_estimator
+
+    tag = f"[serving bf16 batch {batch}]"
+    # the kernel switches are the card's defaults; a bundle records the
+    # kernels as operators
+    kernels = dict(peak_kernel=True, conv1_kernel=True)
+    cfg = dict(net_resolution=net_resolution, num_scales=1, input_u8=True, pair_cap=32,
+               dtype=torch.bfloat16, batch=batch, device=device, **kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    live = PoseEstimator(files["proto"], weights=files["model"], **cfg)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    path = os.path.join(work, "bundle_bf16_b8")
+    t0 = time.perf_counter()
+    export_estimator(live, path)
+    export_s = time.perf_counter() - t0
+    sizes = bundle_sizes(path)
+    frames = canvases(np.random.RandomState(8), n_frames, live.input_shape())
+    batches = [np.stack(frames[i : i + batch]) for i in range(0, n_frames, batch)]
+    live_out = [live.run_device(x)["packed"] for x in batches]
+
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bundle = ExportedPose(path, device=device)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    first = bundle.run_device(batches[0])["packed"]  # the capture
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    outs = [first] + [bundle.run_device(x)["packed"] for x in batches[1:]]
+    torch.cuda.synchronize()
+    launches, replayed = read_counts(), bundle.replayed_launches()
+    nodes = program_nodes(bundle, ("packed", 32, batch))
+    same = [torch.equal(a, b) for a, b in zip(live_out, outs)]
+    check(all(same), f"{tag} packed rows differ from the live estimator's: {same}")
+    check(nodes == {"peak_mask_kernel": 1, "upsample_peak_keys_kernel": 0,
+                    "conv1_block_kernel": 1},
+          f"{tag} kernel nodes of a replay {nodes}, expected one K1 and one K4")
+    check(launches["peak_mask_fused"] >= 1 and launches["conv1_block"] >= 1
+          and replayed["peak_mask_kernel"] == replayed["conv1_block_kernel"] == len(batches),
+          f"{tag} launches {launches}, replayed {replayed} for {len(batches)} passes")
+    # the overflow refetch: on noise frames at threshold -1 every local
+    # maximum is a peak, more than pair_cap in a part; the bundle's
+    # program_nocap against the live estimator's
+    noise = (np.random.RandomState(12).rand(batch, *live.input_shape()) * 255).astype(np.uint8)
+    x0, low = noise[0], OVERFLOW_THRESHOLD
+    a = live.fetch_batch(live.run_device(noise, nms_threshold=low))[0]
+    b = bundle.fetch_batch(bundle.run_device(noise, nms_threshold=low))[0]
+    check(rows_equal(a, b), f"{tag} capped rows differ at threshold {low}")
+    overflowed = live.overflowed(a[0])
+    check(overflowed == bundle.overflowed(b[0]) and overflowed,
+          f"{tag} overflow at threshold {low}: live {overflowed}, bundle "
+          f"{bundle.overflowed(b[0])}")
+    check(rows_equal(live.refetch_full(x0, nms_threshold=low),
+                     bundle.refetch_full(x0, nms_threshold=low)),
+          f"{tag} the overflow refetch differs from the live estimator's")
+    nocap = program_nodes(bundle, ("packed", live.max_peaks, 1))
+    check(nocap["peak_mask_kernel"] == 1 and nocap["conv1_block_kernel"] == 1,
+          f"{tag} program_nocap kernel nodes {nocap}")
+    # device and end-to-end ms/frame, live and bundle in turns
+    times = {}
+    for name in ("live", "bundle", "bundle", "live"):
+        est = live if name == "live" else bundle
+        x = batches[0]
+        ms = cuda_ms(lambda: est.run_device(x), reps=10) / batch
+        t0 = time.perf_counter()
+        for _ in range(5):
+            est.fetch_batch(est.run_device(x))
+        e2e = (time.perf_counter() - t0) * 1000.0 / (5 * batch)
+        times.setdefault(name, []).append((ms, e2e))
+    print(f"{tag} live estimator from the model files built in {build_s:.2f} s; exported in "
+          f"{export_s:.2f} s: " + ", ".join(f"{k} {v / 1e6:.3f} MB" for k, v in sizes.items())
+          + f"; loaded cold in {load_s:.2f} s (first pass, the capture: {capture_s:.2f} s); "
+          f"packed rows bit-identical to the live estimator on {sum(same)}/{len(same)} passes; "
+          f"overflow refetch at threshold {low} identical; kernel nodes a replay {nodes} "
+          f"(program_nocap {nocap}); wrapper launches {launches} (the eager pass and the "
+          f"capture), replayed {replayed}; device ms/frame live {times['live'][0][0]:.3f} "
+          f"{times['live'][1][0]:.3f}, bundle {times['bundle'][0][0]:.3f} "
+          f"{times['bundle'][1][0]:.3f} (CUDA events, median of 10, order live bundle bundle "
+          f"live); end-to-end ms/frame (run_device + fetch_batch, 5 passes) live "
+          f"{times['live'][0][1]:.3f} {times['live'][1][1]:.3f}, bundle "
+          f"{times['bundle'][0][1]:.3f} {times['bundle'][1][1]:.3f}")
+    main_row = dict(build_s=build_s, export_s=export_s, load_s=load_s, capture_s=capture_s,
+                    sizes=sizes, bit_identical=all(same), nodes=nodes, launches=launches,
+                    replayed=replayed,
+                    live_device_ms=[t[0] for t in times["live"]],
+                    bundle_device_ms=[t[0] for t in times["bundle"]],
+                    live_e2e_ms=[t[1] for t in times["live"]],
+                    bundle_e2e_ms=[t[1] for t in times["bundle"]],
+                    graph_device_ms=min(t[0] for t in times["bundle"]))
+
+    # a bundle exported on the CPU, moved to the card: the operators there
+    # launch the kernels
+    tag2 = "[serving cpu-exported]"
+    small = (320, 176)
+    cpu_cfg = dict(net_resolution=small, num_scales=1, input_u8=True, pair_cap=32,
+                   dtype=torch.bfloat16, batch=2)
+    proto2 = make_pose_deploy_net("COCO", stages=2)
+    cpu_est = PoseEstimator(proto2, weights=weights, device="cpu", peak_kernel=True,
+                            conv1_kernel=True, **cpu_cfg)
+    path2 = os.path.join(work, "bundle_cpu")
+    t0 = time.perf_counter()
+    export_estimator(cpu_est, path2)
+    cpu_export_s = time.perf_counter() - t0
+    del cpu_est
+    ref2 = PoseEstimator(proto2, weights=weights, device=device, **kernels, **cpu_cfg)
+    x2 = np.stack(canvases(np.random.RandomState(9), 2, ref2.input_shape()))
+    want2 = ref2.run_device(x2)["packed"]
+    zero_counts()
+    moved = ExportedPose(path2, device=device)
+    got2 = [moved.run_device(x2)["packed"] for _ in range(3)]
+    torch.cuda.synchronize()
+    launches2, replayed2 = read_counts(), moved.replayed_launches()
+    nodes2 = program_nodes(moved, ("packed", 32, 2))
+    same2 = all(torch.equal(g, want2) for g in got2)
+    print(f"{tag2} 2-stage bf16 batch-2 {small[0]}x{small[1]} bundle exported on the CPU in "
+          f"{cpu_export_s:.2f} s, loaded on {moved.device}: kernel nodes a replay {nodes2}, "
+          f"wrapper launches {launches2}, replayed {replayed2}; packed rows bit-identical to a "
+          f"live estimator on the card: {same2}")
+    check(moved.meta["platforms"] == ["cpu"], f"{tag2} platforms {moved.meta['platforms']}")
+    check(nodes2["peak_mask_kernel"] == 1 and nodes2["conv1_block_kernel"] == 1
+          and launches2["peak_mask_fused"] >= 1 and launches2["conv1_block"] >= 1
+          and replayed2["peak_mask_kernel"] == replayed2["conv1_block_kernel"] == len(got2),
+          f"{tag2} the kernels did not run: nodes {nodes2}, launches {launches2}")
+    check(same2, f"{tag2} packed rows differ from the live estimator on the card")
+
+    # a 3-scale f32 bundle: K1 at three scales (the TPU's K2)
+    tag3 = "[serving 3-scale f32]"
+    cfg3 = dict(net_resolution=net_resolution, num_scales=3, input_u8=True, pair_cap=32,
+                dtype=torch.float32, device=device, **kernels)
+    live3 = PoseEstimator(make_pose_deploy_net("COCO", stages=stages), weights=weights, **cfg3)
+    path3 = os.path.join(work, "bundle_3scale")
+    export_estimator(live3, path3)
+    f3 = canvases(np.random.RandomState(10), 2, (3, net_resolution[1], net_resolution[0], 3))
+    from caffe_rtpose_tpu_torch.pose.preprocess import make_net_input_u8_packed
+
+    x3 = [make_net_input_u8_packed(f[0], *net_resolution, 3, 1.0, 0.3) for f in f3]
+    want3 = [live3.run_device(x)["packed"] for x in x3]
+    zero_counts()
+    b3 = ExportedPose(path3, device=device)
+    got3 = [b3.run_device(x)["packed"] for x in x3]
+    torch.cuda.synchronize()
+    launches3, replayed3 = read_counts(), b3.replayed_launches()
+    nodes3 = program_nodes(b3, ("packed", 32, 1))
+    same3 = all(torch.equal(a, b) for a, b in zip(want3, got3))
+    print(f"{tag3} pack_u8 {b3.pack_u8}: kernel nodes a replay {nodes3}, wrapper launches "
+          f"{launches3}, replayed {replayed3}; packed rows bit-identical to the live estimator: "
+          f"{same3}; " + ", ".join(f"{k} {v / 1e6:.3f} MB" for k, v in bundle_sizes(path3).items()))
+    check(nodes3 == {"peak_mask_kernel": 1, "upsample_peak_keys_kernel": 0,
+                     "conv1_block_kernel": 0} and launches3["peak_mask_fused"] >= 1
+          and replayed3["peak_mask_kernel"] == len(got3),
+          f"{tag3} kernel nodes {nodes3}, launches {launches3}")
+    check(same3, f"{tag3} packed rows differ from the live estimator")
+
+    # rtpose --bundle in a fresh process on the cli phase's frames: the JSON
+    # the live CLI wrote (its configuration: bf16, batch 1, pair_cap 32)
+    tag4 = "[serving cli]"
+    cli_est = PoseEstimator(files["proto"], weights=files["model"], net_resolution=net_resolution,
+                            num_scales=1, input_u8=True, pair_cap=32, dtype=torch.bfloat16,
+                            device=device, **kernels)
+    path4 = os.path.join(work, "bundle_cli")
+    export_estimator(cli_est, path4)
+    del cli_est
+    out4 = os.path.join(work, "json_bundle")
+    n_png = len(os.listdir(cli["image_dir"]))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "caffe_rtpose_tpu_torch", "rtpose", "--bundle",
+                          path4, "--image_dir", cli["image_dir"], "--write_json", out4,
+                          "--resolution", cli["resolution"],
+                          "--frame_limit", str(n_png), "--no_display", "--no_frame_drops",
+                          "--device", torch.device(device).type],
+                         capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    check(res.returncode == 0, f"{tag4} rtpose --bundle exit {res.returncode}: {res.stderr}")
+    names = sorted(os.listdir(cli["json_dir"]))
+    check(sorted(os.listdir(out4)) == names and len(names) == n_png,
+          f"{tag4} JSON files {sorted(os.listdir(out4))} vs {names}")
+    differ = []
+    for n in names:
+        with open(os.path.join(cli["json_dir"], n)) as fa, open(os.path.join(out4, n)) as fb:
+            if fa.read() != fb.read():
+                differ.append(n)
+    print(f"{tag4} rtpose --bundle (a new process) over {n_png} PNG frames in {cli_s:.1f} s: "
+          f"JSON equal to the live CLI's on {len(names) - len(differ)}/{len(names)} files; "
+          + " | ".join(line for line in res.stdout.splitlines() if line.strip()))
+    check(not differ, f"{tag4} JSON differs from the live CLI's: {differ}")
+    check(cli["people"] > 0, f"{tag4} the frames hold no people: nothing was compared")
+    graph_row = (f"[graph bundle bf16 batch {batch}]", bundle, batches[0],
+                 {"peak_mask_kernel": 1, "conv1_block_kernel": 1, "upsample_peak_keys_kernel": 0},
+                 main_row)
+    return dict(main=main_row,
+                cpu_exported=dict(export_s=cpu_export_s, nodes=nodes2, launches=launches2,
+                                  replayed=replayed2, bit_identical=same2),
+                three_scale=dict(nodes=nodes3, launches=launches3, replayed=replayed3,
+                                 bit_identical=same3),
+                cli=dict(files=len(names), seconds=cli_s)), live, graph_row
+
+
+def phase_pool(est, batch=BF16_BATCH, n_passes=4):
+    """DevicePool over every card against the estimator, pass by pass; and
+    a replica on the estimator's own card (its own graphs, copied operands)
+    against it."""
+    import torch
+
+    from caffe_rtpose_tpu_torch.parallel.inference import DevicePool
+
+    tag = "[pool]"
+    n = torch.cuda.device_count()
+    pool = DevicePool(est, n)
+    frames = canvases(np.random.RandomState(11), batch * n_passes, est.input_shape())
+    batches = [np.stack(frames[i : i + batch]) for i in range(0, len(frames), batch)]
+    ref = [est.run_device(x)["packed"] for x in batches]
+    got = [pool.run_device(x)["packed"] for x in batches]
+    rep = est.replicate(est.device)
+    again = [rep.run_device(x)["packed"] for x in batches]
+    torch.cuda.synchronize()
+    same = all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(ref, got))
+    same_rep = all(torch.equal(a, b) for a, b in zip(ref, again))
+    nodes = program_nodes(rep, ("packed", 32, batch))
+    print(f"{tag} DevicePool over {n} card(s) ({[str(d) for d in pool.devices]}): "
+          f"{len(batches)} passes equal to the estimator: {same}; a replica on {rep.device} "
+          f"(its own graphs, kernel nodes {nodes}): equal {same_rep}")
+    check(same and same_rep, f"{tag} the pool or the replica differs from the estimator")
+    check(nodes["peak_mask_kernel"] == 1 and nodes["conv1_block_kernel"] == 1,
+          f"{tag} replica kernel nodes {nodes}")
+    return dict(cards=n, passes=len(batches), equal=same, replica_equal=same_rep)
+
+
+def phase_eval(files, cli, work, extra=()):
+    """eval run-list over the cli phase's PNG frames (the CLI's model files,
+    bf16) and joint-diff against the JSON rtpose --write_json wrote there."""
+    import contextlib
+    import io
+    import os
+
+    from caffe_rtpose_tpu_torch.tools import eval_pose
+
+    tag = "[eval]"
+    names = sorted(os.listdir(cli["image_dir"]))
+    lst = os.path.join(work, "image_list.txt")
+    w, h = cli["resolution"].split("x")
+    with open(lst, "w") as f:
+        for i, n in enumerate(names):
+            f.write(f"{i} {i} {n} {h} {w}\n")
+    out = os.path.join(work, "json_eval")
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = eval_pose.main(["run-list", "--list", lst, "--image_root", cli["image_dir"],
+                             "--out", out, "--caffeproto", files["proto"], "--caffemodel",
+                             files["model"], "--dtype", "bfloat16", "--display",
+                             cli["resolution"], *extra])
+    run_s = time.perf_counter() - t0
+    check(rc == 0 and len(os.listdir(out)) == len(names), f"{tag} run-list exit {rc}")
+    diff = io.StringIO()
+    with contextlib.redirect_stdout(diff):
+        rc_diff = eval_pose.main(["joint-diff", cli["json_dir"], out])
+    text = diff.getvalue()
+    print(f"{tag} run-list over {len(names)} PNG frames in {run_s:.1f} s; joint-diff against "
+          f"rtpose --write_json: " + " | ".join(line for line in text.splitlines() if line))
+    check(rc_diff == 0 and "PARITY OK" in text, f"{tag} joint-diff: {text}")
+    m = re.search(r"joints: (\d+)/(\d+) matched", text)
+    check(m is not None and int(m.group(2)) > 0 and cli["people"] > 0,
+          f"{tag} no joints compared ({cli['people']} people in the CLI's JSON)")
+    return dict(images=len(names), seconds=run_s, parity=True,
+                report=[line for line in text.splitlines() if line])
 
 
 def main() -> int:
@@ -1677,7 +2019,22 @@ def main() -> int:
     pipeline = phase_pipeline(weights)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_files_") as work:
         files = phase_files(weights, work)
-        cli = phase_cli(files)
+        # the calibration canvases at their own size: the calibrated weights
+        # find people there, so the JSON the serving and eval phases compare
+        # holds joints
+        cli = phase_cli(files, [f[0] for f in frames])
+        # the same canvases upscaled to 1280x720 by resize_area (INTER_AREA's
+        # linear branch): the CLI then downscales them to the net and warps
+        # its display at a size other than the net's
+        from caffe_rtpose_tpu_torch.pose.preprocess import resize_area
+
+        cli_720p = phase_cli(files, [resize_area(f[0], 1280, 720) for f in frames])
+        serving, serving_est, serving_graph = phase_serving(weights, files, cli, work)
+        pool = phase_pool(serving_est)
+        del serving_est
+        evaluation = phase_eval(files, cli, work)
+    graph_ests.append(serving_graph)
+    del serving_graph
     phase_graph_launches(graph_ests)
     del graph_ests
     one = phase_slice(1, 8, weights=weights, frames=frames)
@@ -1703,6 +2060,10 @@ def main() -> int:
     print(json.dumps({"pipeline": pipeline}))
     print(json.dumps({"files": files}))
     print(json.dumps({"cli": cli}))
+    print(json.dumps({"cli_720p": cli_720p}))
+    print(json.dumps({"serving": serving}))
+    print(json.dumps({"pool": pool}))
+    print(json.dumps({"eval": evaluation}))
     card = info["nvidia_smi"]
     # launches: the wrapper's calls in the main path's run (the pipeline:
     # the eager pass and the capture; the 3-scale, heatmap slices for the
@@ -1712,6 +2073,28 @@ def main() -> int:
                      peak_mask_fused=bf16["peak_mask_device_launches"] / BF16_FRAMES,
                      peak_mask_fused_3scale=0.0, upsample_peak_keys=0.0)
     mask_src, mask_pallas = "caffe_rtpose_tpu_torch/csrc/peak_mask.cu", "caffe_rtpose_tpu/ops/nms_pallas.py"
+    # each path's run, with the counters zeroed just before it and read just
+    # after: wrapper launches (the eager pass and the capture) and the
+    # launches its graphs' replays made
+    sm, sc, s3 = serving["main"], serving["cpu_exported"], serving["three_scale"]
+    by_path = {
+        "peak_mask_fused": {"pipeline": (pipeline["launches"]["peak_mask_fused"],
+                                         pipeline["replayed_launches"]["peak_mask_fused"]),
+                            "bundle bf16 batch 8": (sm["launches"]["peak_mask_fused"],
+                                                    sm["replayed"]["peak_mask_kernel"]),
+                            "bundle exported on the cpu": (sc["launches"]["peak_mask_fused"],
+                                                           sc["replayed"]["peak_mask_kernel"])},
+        "peak_mask_fused_3scale": {"slice 3-scale": (three["launches"], None),
+                                   "bundle 3-scale f32": (s3["launches"]["peak_mask_fused"],
+                                                          s3["replayed"]["peak_mask_kernel"])},
+        "upsample_peak_keys": {"heatmap slice": (heat["launches"], None)},
+        "conv1_block": {"pipeline": (pipeline["launches"]["conv1_block"],
+                                     pipeline["replayed_launches"]["conv1_block"]),
+                        "bundle bf16 batch 8": (sm["launches"]["conv1_block"],
+                                                sm["replayed"]["conv1_block_kernel"]),
+                        "bundle exported on the cpu": (sc["launches"]["conv1_block"],
+                                                       sc["replayed"]["conv1_block_kernel"])},
+    }
     entries = [
         ("peak_mask_fused", mask_src, f"{mask_pallas}:136", pipeline["launches"]["peak_mask_fused"],
          t_mask, t_mask[-1], dict(library_note=NO_LIBRARY)),
@@ -1729,6 +2112,9 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces, **extra,
             "launches": launches,
             "replayed_launches": pipeline["replayed_launches"].get(name, 0),
+            "launches_by_path": {k: v[0] for k, v in by_path[name].items()},
+            "replayed_launches_by_path": {k: v[1] for k, v in by_path[name].items()
+                                          if v[1] is not None},
             "device_launches_per_frame": {f"bf16 batch {BF16_BATCH}": per_frame[name]},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": main_row["kernel_ms"], "kernel_ms": main_row["kernel_ms"],

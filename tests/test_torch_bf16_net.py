@@ -58,20 +58,23 @@ def _fan_in(jnet, seed):
 
 
 class _Spy:
-    """Stands in for conv1_cuda.conv1_block and counts its calls."""
+    """Stands in for conv1_cuda.conv1_block_packed, the wrapper ``Net``
+    calls, and counts its calls (the wrapped call runs the plain version
+    on the CPU)."""
 
-    def __init__(self):
+    def __init__(self, wrapped):
         self.calls = 0
+        self.wrapped = wrapped
 
-    def __call__(self, x, cw):
+    def __call__(self, x, *packed):
         self.calls += 1
-        return conv1_cuda.conv1_block_reference(x, cw)
+        return self.wrapped(x, *packed)
 
 
 @pytest.fixture
 def spy(monkeypatch):
-    s = _Spy()
-    monkeypatch.setattr(net_mod.conv1_cuda, "conv1_block", s)
+    s = _Spy(conv1_cuda.conv1_block_packed)
+    monkeypatch.setattr(net_mod.conv1_cuda, "conv1_block_packed", s)
     return s
 
 

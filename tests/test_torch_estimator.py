@@ -13,6 +13,14 @@ exact; pair scores within one f16 ulp (both are rounded to f16 from f32
 sums taken in different orders) plus 1e-5 absolute, the f32 error of a
 10-sample sum of O(1) dots, which is what remains where that sum cancels to
 near zero (seen: 4e-6 on a score of -2e-3); assembled ``num_people`` exact.
+
+Those hold on one frame.  Over many frames the CNNs' f32 summation-order
+noise shows through in places, and :func:`_assert_outputs_close` states
+the rule for them: refined peaks within 1e-4 + ``RTOL_F32_CNN`` * |x| (the
+centroid refinement turns the noise into up to ~2e-4 on a coordinate near
+32), and pair scores compared only where both sides sample the same
+pixels.  An f64 run of the CNN puts the reference's own f32 peaks as far
+from the f64 ones (``test_refined_gap_to_jax_is_f32_noise_of_the_cnn``).
 """
 
 import dataclasses
@@ -23,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from caffe_rtpose_tpu.core.net import Net as JNet
@@ -36,6 +45,10 @@ from caffe_rtpose_tpu_torch.pose.estimator import PoseEstimator
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "pose_seed7_128x80.json")
 RES = (128, 80)
 THR = dict(nms_threshold=-1.0, inter_threshold=-10.0)
+# refined peaks over many frames: |port - jax| <= 1e-4 + RTOL_F32_CNN * |jax|
+# (seen: 1.85e-4 on a coordinate near 32, 5.8e-6 relative)
+RTOL_F32_CNN = 1e-5
+WITNESS_SEEDS = range(8)
 
 
 @pytest.fixture(autouse=True)
@@ -81,6 +94,52 @@ def _assert_outputs_match(got, ref, cap=None):
     assert st.shape == (ct.shape[0], m, m)
 
 
+def _sample_pixels_may_differ(pa, pb, desc, margin=1e-4):
+    """(L, M, M) bool: the limb pairs where a line-integral sample of the
+    two peak sets may land on different pixels: Caffe's round() of the
+    sample positions (connect._sample_geometry, in f64 here) differs, or a
+    position lies within ``margin`` px of a .5 boundary on either side,
+    where each side's own f32 arithmetic decides (a few f32 ulps of a
+    position below 128 px: ~3e-5)."""
+    limbs = [desc.limb(k) for k in range(desc.num_limbs)]
+    a, b = (np.array([l[i] for l in limbs]) for i in (0, 1))
+    lm = np.arange(10) / 10.0
+    out = np.zeros((len(limbs), pa.shape[1] - 1, pa.shape[1] - 1), bool)
+    with np.errstate(invalid="ignore"):
+        for c in (0, 1):
+            pos = [p[a, 1:, None, None, c].astype(np.float64) + lm
+                   * (p[b, None, 1:, None, c].astype(np.float64)
+                      - p[a, 1:, None, None, c].astype(np.float64)) + 0.5 for p in (pa, pb)]
+            out |= (np.isfinite(pos[0]) & np.isfinite(pos[1])
+                    & (np.floor(pos[0]) != np.floor(pos[1]))).any(-1)
+            for u in pos:
+                out |= (np.abs(u - np.round(u)) < margin).any(-1)
+    return out
+
+
+def _assert_outputs_close(got, ref, desc, cap=None):
+    """The rule over many frames, for the CNN's f32 noise: peak counts and
+    pair counts exact; refined peaks within 1e-4 + ``RTOL_F32_CNN`` * |x|;
+    pair scores within one f16 ulp + 1e-4 + 1e-4 * |s| (a short limb's unit
+    vector turns the peaks' noise into ~1e-4 of its sum, as in
+    ``test_keep_heatmap_matches_jax_and_packed_branch``), except in the pairs
+    where a sample may land on another pixel (:func:`_sample_pixels_may_differ`:
+    the sums are then over other pixels), which must stay under 1 % of the
+    pairs of real peaks."""
+    (pt, st, ct), (pj, sj, cj) = got, ref
+    if cap is not None:
+        pj, sj, cj = pj[:, : cap + 1], sj[:, :cap, :cap], cj[:, :cap, :cap]
+    np.testing.assert_array_equal(pt[:, 0, 0], pj[:, 0, 0])
+    np.testing.assert_allclose(pt, pj, rtol=RTOL_F32_CNN, atol=1e-4)  # NaNs compare equal
+    np.testing.assert_array_equal(ct, cj)
+    moved = _sample_pixels_may_differ(pt, pj, desc)
+    real = _real_pairs(desc, pt)
+    assert moved[real].mean() < 0.01
+    ulp = np.spacing(np.maximum(np.abs(st), np.abs(sj)).astype(np.float16)).astype(np.float32)
+    close = np.abs(st - sj) <= ulp + 1e-4 + 1e-4 * np.abs(sj)
+    assert (close | moved).all(), "pair scores differ where both sides sample the same pixels"
+
+
 @pytest.fixture(scope="module")
 def coco():
     jest = JEstimator(j_make_net("COCO", stages=2), net_resolution=RES, input_u8=True)
@@ -111,6 +170,56 @@ def test_coco_u8_matches_jax(coco, pair_cap):
     assert res.num_people == people > 0
     if pair_cap == 8:  # the uncapped refetch reproduces the uncapped pass
         _assert_outputs_match(est.refetch_full(x, **THR), ref)
+
+
+def witness_frame(seed):
+    """The estimator tests' frame of ``seed``: u8 noise with a dark band."""
+    rs = np.random.RandomState(seed)
+    x = (rs.rand(1, RES[1], RES[0], 3) * 255).astype(np.uint8)
+    x[:, :, :8] = 0
+    return x
+
+
+def test_refined_gap_to_jax_is_f32_noise_of_the_cnn(monkeypatch):
+    """Where the port's outputs differ from JAX's by more than
+    :func:`_assert_outputs_match` allows, the CNNs' f32 sums are the cause,
+    and neither side is the more exact.  On each frame, the port's and
+    JAX's f32 low-res maps are each within 1e-5 of an f64 run of the same
+    CNN (the port's net on f64 operands; seen: 2.0e-6 to 2.9e-6 on both
+    sides), neither more than twice as far as the other, and the live
+    outputs agree by :func:`_assert_outputs_close`.  ``-s`` prints each
+    frame's distances of the refined peaks from those the port's post
+    segment finds on the f64 map."""
+    jest = JEstimator(j_make_net("COCO", stages=2), net_resolution=RES, input_u8=True)
+    est = PoseEstimator(make_pose_deploy_net("COCO", stages=2), weights=_fan_in_weights(jest, 0),
+                        net_resolution=RES, input_u8=True, device="cpu")
+    jnet, blob = jest.net, jest.lowres_blob
+    impls = jnet.prune_for([blob])
+    j_low = jax.jit(lambda p, x: jnet._apply(p, {"image": x}, jax.random.PRNGKey(0), None,
+                                             False, impls=impls)[blob])
+    mask = est._mask.numpy()
+    thr = [torch.tensor(THR["nms_threshold"]), torch.tensor(THR["inter_threshold"])]
+    ops64 = {k: v.double() for k, v in est.net.operands().items()}
+    for seed in WITNESS_SEEDS:
+        x = witness_frame(seed)
+        low_j = np.asarray(j_low(jnet.params, (x.astype(np.float32) / 256.0 - 0.5) * mask))
+        with torch.inference_mode():
+            canvases = est._canvases(torch.from_numpy(x)[None])
+            low_t = est._lowres(canvases, est.net.operands()).numpy().reshape(low_j.shape)
+            with monkeypatch.context() as m:
+                m.setattr(est.net, "dtype", torch.float64)
+                low_64 = est.net({"image": canvases.double()}, outputs=[blob], layers=est._layers,
+                                 operands=ops64)[blob].permute(0, 2, 3, 1)
+            p64 = est.unpack(est._post(low_64.float()[None], *thr, est.eff_peaks)[0].numpy())[0]
+        d_t, d_j = (float(np.abs(low - low_64.numpy()).max()) for low in (low_t, low_j))
+        assert max(d_t, d_j) <= 1e-5 and max(d_t, d_j) <= 2 * min(d_t, d_j), (seed, d_t, d_j)
+        ref = jest.fetch(jest.run_device(x, **THR))
+        got = est.fetch(est.run_device(x, **THR))
+        _assert_outputs_close(got, ref, est.descriptor)
+        print(f"seed {seed}: low-res map vs f64: port {d_t:.3g}, jax {d_j:.3g}; refined peaks: "
+              f"port-jax {np.nanmax(np.abs(got[0] - ref[0])):.3g}, "
+              f"port-f64 {np.nanmax(np.abs(got[0] - p64)):.3g}, "
+              f"jax-f64 {np.nanmax(np.abs(ref[0] - p64)):.3g}")
 
 
 def test_mpi_three_scales_f32_matches_jax():

@@ -35,6 +35,11 @@ SLICE_MODULES = [
     "caffe_rtpose_tpu_torch.proto.upgrade",
     "caffe_rtpose_tpu_torch.proto.caffemodel",
     "caffe_rtpose_tpu_torch.tools.upgrade_proto",
+    "caffe_rtpose_tpu_torch.serving",
+    "caffe_rtpose_tpu_torch.parallel",
+    "caffe_rtpose_tpu_torch.parallel.inference",
+    "caffe_rtpose_tpu_torch.tools.export_tool",
+    "caffe_rtpose_tpu_torch.tools.eval_pose",
 ]
 
 

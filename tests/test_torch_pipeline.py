@@ -329,8 +329,13 @@ def test_many_frames_ordered_no_drops(tmp_path, est):
 
 
 def test_options_that_need_what_is_not_ported_or_cv2(est, tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError):
-        RtPosePipeline(est, PipelineConfig(num_devices=2))
+    """num_devices > 1 once raised NotImplementedError; it builds the device
+    pool now (two replicas on the CPU for a CPU estimator). The options that
+    need OpenCV still stop at once without it and name the option."""
+    from caffe_rtpose_tpu_torch.parallel.inference import DevicePool
+
+    pool = RtPosePipeline(est, PipelineConfig(num_devices=2)).pool
+    assert isinstance(pool, DevicePool) and len(pool.replicas) == 2
     import sys
 
     (tmp_path / "a.jpg").write_bytes(b"")

@@ -2,8 +2,9 @@
 package's, which calls OpenCV (cv2 5.0 here), on the same frames.
 
 * ``INTER_AREA`` (every ``make_net_input*``, ``preprocess_frame`` without a
-  warp): bit-identical, in both of OpenCV's code paths (the integer-ratio
-  block average and the box-overlap path).
+  warp): bit-identical, in all three of OpenCV's code paths (the
+  integer-ratio block average and the box-overlap path for downscales, the
+  fixed-point linear resize with area coefficients where an axis grows).
 * The ``INTER_CUBIC`` display warp: OpenCV 5.0 computes it from exact
   coordinates with f32 weights (not OpenCV 4's 5-bit fixed-point phases),
   and the port lands within one u8 level of it.  Bit-identical where the
@@ -54,8 +55,55 @@ def test_inter_area_bit_identical(src_wh, dst_wh):
 
 
 def test_inter_area_upscale_is_refused():
-    with pytest.raises(NotImplementedError):
-        TP.resize_area(_frame(40, 60, 0), 64, 30)
+    """Once refused with NotImplementedError; the upscale is ported now, and
+    this mixed case (width grows, height shrinks) equals OpenCV."""
+    img = _frame(40, 60, 0)
+    np.testing.assert_array_equal(TP.resize_area(img, 64, 30),
+                                  cv2.resize(img, (64, 30), interpolation=cv2.INTER_AREA))
+
+
+def _upscale_cases(n=36, seed=0):
+    """Seeded (src_hw, dst_wh, channels): both axes up, and one up and one
+    down, in 1 and 3 channels."""
+    rs = np.random.RandomState(seed)
+    cases = []
+    for i in range(n):
+        sh, sw = (int(v) for v in rs.randint(1, 90, 2))
+        grow = [int(v) for v in rs.randint(1, 200, 2)]
+        dh, dw = sh + grow[0], sw + grow[1]
+        if i % 3 == 1:
+            dh = max(1, sh - grow[0] % sh) if sh > 1 else 1
+        elif i % 3 == 2:
+            dw = max(1, sw - grow[1] % sw) if sw > 1 else 1
+        cases.append(((sh, sw), (dw, dh), 1 if i % 2 else 3))
+    return cases
+
+
+@pytest.mark.parametrize("src_hw,dst_wh,cn", _upscale_cases() + [
+    ((368, 656), (1280, 720), 3),  # a net-sized frame to a display
+    ((240, 320), (656, 368), 3),   # a small frame into the net region
+    ((2, 3), (7, 11), 1),
+    ((1, 1), (5, 4), 3),
+])
+def test_inter_area_upscale_bit_identical(src_hw, dst_wh, cn):
+    img = _frame(*src_hw, sum(src_hw) + cn)
+    if cn == 1:
+        img = np.ascontiguousarray(img[..., 0])
+    ref = cv2.resize(img, dst_wh, interpolation=cv2.INTER_AREA)
+    got = TP.resize_area(img, *dst_wh)
+    assert got.shape == ref.shape and got.dtype == np.uint8
+    np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("scales", [1, 3])
+def test_net_inputs_of_a_small_frame_bit_identical(scales):
+    """A frame smaller than the net region, as a small COCO val image in an
+    eval run: every scale is an INTER_AREA upscale."""
+    img = _frame(150, 212, 17)
+    args = (656, 368, scales, 1.0, 0.3)
+    np.testing.assert_array_equal(TP.make_net_input_u8(img, *args), JP.make_net_input_u8(img, *args))
+    np.testing.assert_array_equal(TP.make_net_input_u8_packed(img, *args),
+                                  JP.make_net_input_u8_packed(img, *args))
 
 
 @pytest.mark.parametrize("src_wh,disp_wh,exact", [

@@ -1,6 +1,7 @@
 """The port's rtpose CLI (tools/rtpose.py, ``python -m caffe_rtpose_tpu_torch
 rtpose``): the JAX tool's flags and defaults plus ``--device``; an image
-directory end to end on the CPU; what is not ported raises."""
+directory end to end on the CPU; serving bundles and ``--num_gpu`` on the
+CPU; what the JAX tool refuses is refused."""
 
 import os
 import subprocess
@@ -129,15 +130,17 @@ def test_module_entry_point(tmp_path):
 
 
 def test_refuses_what_is_not_ported(tmp_path):
-    """--bundle and the device pool raise NotImplementedError; model files
-    that exist are read, and what they hold is refused as the JAX tool
-    refuses it: a graph without an Nms layer, bytes that are no
-    NetParameter."""
+    """Model files that exist are read, and what they hold is refused as
+    the JAX tool refuses it: a graph without an Nms layer, bytes that are no
+    NetParameter.  ``--bundle`` and the device pool are ported now: a bundle
+    refuses the heatmap views as the JAX tool does, a missing bundle
+    raises, and ``--num_gpu 2`` runs (on the CPU, over two CPU replicas)."""
     proto, model = tmp_path / "deploy.prototxt", tmp_path / "w.caffemodel"
     proto.write_text("name: 'x'\n")
     model.write_bytes(b"\0")
-    with pytest.raises(NotImplementedError):
-        rtpose.main(["--device", "cpu", "--bundle", "b"])
+    assert rtpose.main(["--device", "cpu", "--bundle", "b", "--part_to_show", "1"]) == 2
+    with pytest.raises(FileNotFoundError):
+        rtpose.main(["--device", "cpu", "--bundle", str(tmp_path / "missing_bundle")])
     small = ["--device", "cpu", "--net_resolution", "64x48"]
     with pytest.raises(ValueError, match="no 'nms' layer"):
         rtpose.main([*small, "--caffeproto", str(proto), "--no_weights"])
@@ -149,7 +152,54 @@ def test_refuses_what_is_not_ported(tmp_path):
         rtpose.main([*small, "--caffeproto", str(tmp_path / "missing.prototxt"),
                      "--caffemodel", str(model)])
     missing = ["--caffeproto", str(tmp_path / "missing.prototxt")]
-    with pytest.raises(NotImplementedError):  # the device pool
-        rtpose.main(["--device", "cpu", "--no_weights", "--num_gpu", "2", *missing,
-                     "--net_resolution", "64x48", "--image_dir", str(tmp_path)])
+    assert rtpose.main(["--device", "cpu", "--no_weights", "--num_gpu", "2", *missing,
+                        "--net_resolution", "64x48", "--image_dir", str(tmp_path)]) == 0
     assert rtpose.main(["--device", "cpu", "--net_resolution", "100x48", *missing]) == 2
+
+
+def test_bundle_and_num_gpu_end_to_end_on_cpu(tmp_path, capsys):
+    """``--bundle`` (one device and ``--num_gpu 2``) writes the JSON the live
+    CLI writes from the same graph and weights (f32: on the CPU the live
+    estimator runs the plain peak mask, which is the operator's CPU
+    implementation the bundle records)."""
+    import torch
+
+    from caffe_rtpose_tpu_torch.core.net import Net
+    from caffe_rtpose_tpu_torch.models.cpm import make_pose_deploy_net
+    from caffe_rtpose_tpu_torch.pose.estimator import PoseEstimator
+    from caffe_rtpose_tpu_torch.proto import prototxt
+    from caffe_rtpose_tpu_torch.serving import export_estimator
+
+    proto = make_pose_deploy_net("COCO", stages=2)
+    net = Net(proto, device="cpu")
+    rs = np.random.RandomState(3)
+    weights = {k: [rs.randn(*c.weight.shape).astype(np.float32) * 0.1,
+                   rs.randn(c.cout).astype(np.float32) * 0.1] for k, c in net.convs.items()}
+    net.load_weights(weights)
+    proto_path, model_path = str(tmp_path / "deploy.prototxt"), str(tmp_path / "w.caffemodel")
+    prototxt.dump_file(proto, proto_path)
+    net.save_caffemodel(model_path)
+    bundle = str(tmp_path / "bundle")
+    export_estimator(PoseEstimator(proto, weights=weights, net_resolution=(128, 80),
+                                   input_u8=True, pair_cap=32, dtype=torch.float32,
+                                   device="cpu", peak_kernel=True), bundle)
+    img = str(tmp_path / "img")
+    _png_dir(img, 3)
+    common = ["--device", "cpu", "--image_dir", img, "--resolution", "160x96", "--no_display",
+              "--no_frame_drops", "--nms_threshold", "0.0"]
+    runs = {"live": ["--caffeproto", proto_path, "--caffemodel", model_path, "--dtype",
+                     "float32", "--net_resolution", "128x80"],
+            "bundle": ["--bundle", bundle],
+            "bundle2": ["--bundle", bundle, "--num_gpu", "2"]}
+    for name, flags in runs.items():
+        assert rtpose.main([*common, *flags, "--write_json", str(tmp_path / name)]) == 0
+    capsys.readouterr()
+    files = sorted(os.listdir(tmp_path / "live"))
+    assert files == ["f0.json", "f1.json", "f2.json"]
+    people = 0
+    for f in files:
+        live = (tmp_path / "live" / f).read_text()
+        people += live.count('"joints"')
+        for name in ("bundle", "bundle2"):
+            assert (tmp_path / name / f).read_text() == live, (name, f)
+    assert people > 0
