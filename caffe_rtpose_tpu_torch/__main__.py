@@ -8,6 +8,7 @@ TOOLS = {
     "eval": ("tools.eval_pose", "run-list / joint-diff / coco-ap"),
     "upgrade": ("tools.upgrade_proto", "legacy prototxt/caffemodel upgrades"),
     "export": ("tools.export_tool", "serving bundles (build / check)"),
+    "caffe": ("tools.caffe_tool", "train / time / device_query"),
 }
 
 

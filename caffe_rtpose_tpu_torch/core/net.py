@@ -1,12 +1,25 @@
-"""Net: a deploy NetParameter dict as an ``nn.Module``.
+"""Net: a NetParameter dict as an ``nn.Module``.
 
 Counterpart of ``caffe_rtpose_tpu/core/net.py`` (which replaces Caffe's Net,
 reference src/caffe/net.cpp), limited to the layer types of the pose deploy
-graphs: Input, Convolution, ReLU, Pooling (MAX) and Concat.  ImResize and
-Nms layers are recorded in :attr:`Net.post_layers` but not run: the
-estimator computes them from the low-res maps (``pose/estimator.py``).  Any
-other layer type that phase/stage/level filtering keeps raises
-``NotImplementedError``.
+and CPM train graphs: Input, Convolution, ReLU, Pooling (MAX), Concat,
+Slice, Eltwise (PROD, SUM with coefficients, MAX), EuclideanLoss,
+EuclideanmaskLoss and Silence.  ImResize and Nms layers are recorded in
+:attr:`Net.post_layers` but not run: the estimator computes them from the
+low-res maps (``pose/estimator.py``).  Any other layer type that
+phase/stage/level filtering keeps raises ``NotImplementedError``.
+
+On CUDA a Net turns TF32 off (``utils/device.disable_tf32``): f32 is IEEE
+f32 there, training included.
+
+Training (``phase="TRAIN"``): each convolution's weight and bias are
+``nn.Parameter``s that require a gradient unless their ``param`` spec's
+``lr_mult`` is 0 (Caffe computes no diff for those); ``lr_mult`` and
+``decay_mult`` ride on the module for the solver.  :meth:`Net.loss` returns
+the total weighted loss and the output blobs of one forward, and autograd is
+the backward: no layer of the train path has a kernel of its own.  In f32
+the convolutions read the parameters themselves, so a forward after an
+update sees the new weights.
 
 As in JAX, the graph comes as a prototxt path, prototxt text or a parsed
 NetParameter dict; a legacy V0/V1 ``layers`` net runs the upgrade chain
@@ -16,7 +29,8 @@ a ``{layer: [OIHW, bias]}`` dict and save back as a ``.caffemodel``.
 Convolutions live in an ``nn.ModuleDict`` keyed by Caffe layer name, with
 OIHW weights as Caffe stores them.  Activations are logically NCHW (Caffe
 layout, so blobs come out as ``Net.forward`` gives them in the JAX package)
-and physically ``torch.channels_last``.
+and physically ``torch.channels_last``, except in an f32 TRAIN net, whose
+activations and parameters are contiguous NCHW (:attr:`Net.memory_format`).
 
 ``dtype=torch.bfloat16`` is the JAX package's bf16 mode: parameters stay f32
 as loaded, the convolutions run on bf16 copies made when weights are filled
@@ -37,17 +51,25 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops import conv1_cuda
+from ..ops import conv1_cuda, losses
 from ..ops import nn as nn_ops
 from ..proto import caffe_pb, caffemodel, prototxt
 from ..proto.upgrade import upgrade_net_as_needed
-from ..utils.device import resolve_device
+from ..utils.device import disable_tf32, resolve_device
+from .filler import fill
 
 log = logging.getLogger(__name__)
 
 POOL_MAX = (0, "MAX")
 ESTIMATOR_TYPES = ("ImResize", "Nms")
 DTYPES = (torch.float32, torch.bfloat16)
+# the layer types the port runs -> the LayerParameter field of their params
+PARAM_KEYS = {"Convolution": "convolution_param", "ReLU": "relu_param",
+              "Pooling": "pooling_param", "Concat": "concat_param", "Slice": "slice_param",
+              "Eltwise": "eltwise_param", "EuclideanLoss": "loss_param",
+              "EuclideanmaskLoss": "loss_param", "Silence": "loss_param",
+              "ImResize": "imresize_param", "Nms": "nms_param"}
+LOSS_TYPES = ("EuclideanLoss", "EuclideanmaskLoss")
 
 
 @dataclass
@@ -57,6 +79,8 @@ class Layer:
     bottoms: List[str]
     tops: List[str]
     param: Dict[str, Any] = field(default_factory=dict)  # the layer's *_param
+    loss_weights: List[float] = field(default_factory=list)  # one per top; 0 = none
+    specs: List[caffe_pb.View] = field(default_factory=list, repr=False)  # ParamSpecs
 
 
 def _rule_matches(rule: caffe_pb.View, phase: int, stages: Sequence[str], level: int) -> bool:
@@ -102,6 +126,12 @@ def _ints(v) -> List[int]:
     if isinstance(v, (list, tuple)):
         return [int(x) for x in v]
     return [int(v)]
+
+
+def _floats(v) -> List[float]:
+    if v is None:
+        return []
+    return [float(x) for x in (v if isinstance(v, (list, tuple)) else [v])]
 
 
 def _hw(p: Mapping[str, Any], key: str, default: Optional[int],
@@ -168,7 +198,8 @@ def _block_entries(first: str, cw: conv1_cuda.Conv1Weights):
 class Convolution(nn.Module):
     """Caffe Convolution with OIHW weight and optional bias."""
 
-    def __init__(self, cin: int, p: Mapping[str, Any]):
+    def __init__(self, cin: int, p: Mapping[str, Any],
+                 specs: Sequence[caffe_pb.View] = (), train: bool = False):
         super().__init__()
         self.cout = int(p["num_output"])
         self.kernel = _hw(p, "kernel_size", None, "kernel")
@@ -179,10 +210,17 @@ class Convolution(nn.Module):
         self.groups = int(p.get("group", 1))
         if cin % self.groups or self.cout % self.groups:
             raise ValueError(f"channels {cin}->{self.cout} not divisible by group {self.groups}")
+        n_params = 2 if p.get("bias_term", True) else 1
+        # ParamSpec lr_mult / decay_mult per blob (layer.hpp), 1 when unset
+        self.lr_mult = [float(specs[i].lr_mult) if i < len(specs) else 1.0
+                        for i in range(n_params)]
+        self.decay_mult = [float(specs[i].decay_mult) if i < len(specs) else 1.0
+                           for i in range(n_params)]
+        grads = [train and lr != 0.0 for lr in self.lr_mult]
         self.weight = nn.Parameter(
-            torch.zeros(self.cout, cin // self.groups, *self.kernel), requires_grad=False)
-        self.bias = (nn.Parameter(torch.zeros(self.cout), requires_grad=False)
-                     if p.get("bias_term", True) else None)
+            torch.zeros(self.cout, cin // self.groups, *self.kernel), requires_grad=grads[0])
+        self.bias = (nn.Parameter(torch.zeros(self.cout), requires_grad=grads[1])
+                     if n_params == 2 else None)
         self.fillers = (dict(p.get("weight_filler", {})), dict(p.get("bias_filler", {})))
         self.compute_weights(torch.float32)
 
@@ -212,19 +250,10 @@ class Convolution(nn.Module):
                 and self.bias is not None)
 
 
-def _fill(rs: np.random.RandomState, shape, filler: Mapping[str, Any]) -> np.ndarray:
-    kind = filler.get("type", "constant")
-    if kind == "constant":
-        return np.full(shape, float(filler.get("value", 0.0)), np.float32)
-    if kind == "gaussian":
-        return (float(filler.get("mean", 0.0))
-                + float(filler.get("std", 1.0)) * rs.randn(*shape)).astype(np.float32)
-    raise NotImplementedError(f"filler type {kind!r} is not ported")
-
-
 def params_from_jax(params: Mapping[str, Sequence[Any]]) -> Dict[str, List[np.ndarray]]:
     """The JAX ``Net.params`` ({layer: [HWIO weight, bias]}, any array type
-    numpy accepts) -> the port's ``{layer: [OIHW weight, bias]}`` numpy."""
+    numpy accepts) -> the port's ``{layer: [OIHW weight, bias]}`` numpy.
+    Also maps one slot of a JAX solver history (same tree)."""
     out: Dict[str, List[np.ndarray]] = {}
     for name, blobs in params.items():
         conv = []
@@ -233,6 +262,30 @@ def params_from_jax(params: Mapping[str, Sequence[Any]]) -> Dict[str, List[np.nd
             conv.append(np.ascontiguousarray(a.transpose(3, 2, 0, 1)) if a.ndim == 4 else a)
         out[name] = conv
     return out
+
+
+def params_to_jax(params: Mapping[str, Sequence[Any]]) -> Dict[str, List[np.ndarray]]:
+    """The inverse of :func:`params_from_jax`: ``{layer: [OIHW, bias]}``
+    (numpy or tensors) -> ``{layer: [HWIO, bias]}`` numpy."""
+    out: Dict[str, List[np.ndarray]] = {}
+    for name, blobs in params.items():
+        conv = []
+        for a in blobs:
+            a = np.asarray(a.detach().cpu() if isinstance(a, torch.Tensor) else a, np.float32)
+            conv.append(np.ascontiguousarray(a.transpose(2, 3, 1, 0)) if a.ndim == 4 else a)
+        out[name] = conv
+    return out
+
+
+def history_from_jax(history: Mapping[str, Mapping[str, Sequence[Any]]]):
+    """A JAX solver history ``{"h0": params tree, ...}`` -> the port's
+    ``{"h0": {layer: [OIHW, bias]}, ...}`` numpy."""
+    return {k: params_from_jax(v) for k, v in history.items()}
+
+
+def history_to_jax(history: Mapping[str, Mapping[str, Sequence[Any]]]):
+    """The inverse of :func:`history_from_jax`."""
+    return {k: params_to_jax(v) for k, v in history.items()}
 
 
 @dataclass
@@ -289,7 +342,14 @@ class Net(nn.Module):
         if dtype not in DTYPES:
             raise NotImplementedError(f"dtype {dtype} is not ported (float32, bfloat16)")
         self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            disable_tf32()
         self.dtype = dtype
+        # f32 training runs NCHW: cuDNN's f32 NHWC convolutions (forward,
+        # data and weight gradients) are its slow FFMA engines on the H100
+        self.memory_format = (torch.contiguous_format
+                              if phase == "TRAIN" and dtype == torch.float32
+                              else torch.channels_last)
         if conv1_kernel is None:
             conv1_kernel = self.device.type == "cuda"
         self.conv1_kernel = bool(conv1_kernel) and dtype == torch.bfloat16
@@ -331,19 +391,24 @@ class Net(nn.Module):
                 for i, t in enumerate(raw["top"]):
                     shapes[t] = tuple(int(d) for d in ishapes[min(i, len(ishapes) - 1)]["dim"])
                 continue
-            pkey = {"Convolution": "convolution_param", "ReLU": "relu_param",
-                    "Pooling": "pooling_param", "Concat": "concat_param",
-                    "ImResize": "imresize_param", "Nms": "nms_param"}.get(ltype)
+            pkey = PARAM_KEYS.get(ltype)
             if pkey is None:
                 raise NotImplementedError(f"layer {raw.get('name')}: type {ltype!r} is not ported")
-            layer = Layer(raw["name"], ltype, list(raw.get("bottom", [])),
-                          list(raw.get("top", [])), dict(raw.get(pkey, {})))
+            lv = caffe_pb.view(raw, "LayerParameter")
+            tops = list(raw.get("top", []))
+            weights = [float(x) for x in lv.loss_weight]
+            if ltype in LOSS_TYPES and not weights:
+                weights = [1.0]  # a loss layer's default (layer.hpp SetLossWeights)
+            layer = Layer(raw["name"], ltype, list(raw.get("bottom", [])), tops,
+                          dict(raw.get(pkey, {})), weights + [0.0] * (len(tops) - len(weights)),
+                          lv.param)
             if ltype in ESTIMATOR_TYPES:
                 self.post_layers[layer.name] = layer
             else:
                 self.layers.append(layer)
         for k, v in (input_shapes or {}).items():
             shapes[k] = tuple(int(d) for d in v)
+        self.input_names: List[str] = list(shapes)
 
         # shape inference in Caffe (N, C, H, W) layout; builds the convs
         self.blob_shapes: Dict[str, Tuple[int, ...]] = dict(shapes)
@@ -352,35 +417,75 @@ class Net(nn.Module):
                 if b not in self.blob_shapes:
                     raise ValueError(f"layer {layer.name}: unknown bottom blob {b!r}")
             bshape = [self.blob_shapes[b] for b in layer.bottoms]
-            n, c, h, w = bshape[0]
-            p = layer.param
-            if layer.type == "Convolution":
-                conv = Convolution(c, p)
-                self.convs[layer.name] = conv
-                out = (n, conv.cout) + conv.out_hw(h, w)
-            elif layer.type == "Pooling":
-                if p.get("pool", 0) not in POOL_MAX or p.get("global_pooling"):
-                    raise NotImplementedError(f"layer {layer.name}: only MAX pooling is ported")
-                kh, kw = _hw(p, "kernel_size", None, "kernel")
-                sh, sw = _hw(p, "stride", 1)
-                ph, pw = _hw(p, "pad", 0)
-                layer.param = dict(k=(kh, kw), s=(sh, sw), p=(ph, pw))
-                out = (n, c, nn_ops.pooled_size(h, kh, sh, ph), nn_ops.pooled_size(w, kw, sw, pw))
-            elif layer.type == "Concat":
-                axis = int(p.get("axis", p.get("concat_dim", 1)))
-                axis = axis + 4 if axis < 0 else axis
-                layer.param = dict(axis=axis)
-                out = list(bshape[0])
-                out[axis] = sum(s[axis] for s in bshape)
-                out = tuple(out)
-            else:  # ReLU
-                layer.param = dict(slope=float(p.get("negative_slope", 0.0)))
-                out = bshape[0]
-            for t in layer.tops:
+            outs = self._infer(layer, bshape, phase == "TRAIN")
+            for t, out in zip(layer.tops, outs):
                 self.blob_shapes[t] = out
         self.conv1_blocks: Dict[str, Conv1Block] = self._find_conv1_blocks()
-        self.to(self.device, memory_format=torch.channels_last)
+        self.to(self.device, memory_format=self.memory_format)
         self.init_params(seed)
+
+    def _infer(self, layer: Layer, bshape: List[Tuple[int, ...]],
+               train: bool) -> List[Tuple[int, ...]]:
+        """The layer's top shapes from its bottoms'; turns ``layer.param``
+        into what :meth:`forward` reads and builds the convolutions."""
+        p = layer.param
+        if layer.type in ("Convolution", "Pooling"):
+            n, c, h, w = bshape[0]
+        if layer.type == "Convolution":
+            conv = Convolution(c, p, layer.specs, train)
+            self.convs[layer.name] = conv
+            return [(n, conv.cout) + conv.out_hw(h, w)]
+        if layer.type == "Pooling":
+            if p.get("pool", 0) not in POOL_MAX or p.get("global_pooling"):
+                raise NotImplementedError(f"layer {layer.name}: only MAX pooling is ported")
+            kh, kw = _hw(p, "kernel_size", None, "kernel")
+            sh, sw = _hw(p, "stride", 1)
+            ph, pw = _hw(p, "pad", 0)
+            layer.param = dict(k=(kh, kw), s=(sh, sw), p=(ph, pw))
+            return [(n, c, nn_ops.pooled_size(h, kh, sh, ph), nn_ops.pooled_size(w, kw, sw, pw))]
+        if layer.type == "Concat":
+            axis = int(p.get("axis", p.get("concat_dim", 1)))
+            axis = axis + len(bshape[0]) if axis < 0 else axis
+            layer.param = dict(axis=axis)
+            out = list(bshape[0])
+            out[axis] = sum(s[axis] for s in bshape)
+            return [tuple(out)]
+        if layer.type == "Slice":
+            axis = int(p.get("axis", 1))
+            axis = axis + len(bshape[0]) if axis < 0 else axis
+            total, n_tops = bshape[0][axis], len(layer.tops)
+            points = _ints(p.get("slice_point"))
+            if not points:
+                points = [total // n_tops * (i + 1) for i in range(n_tops - 1)]
+            bounds = [0] + points + [total]
+            if len(bounds) != n_tops + 1 or any(a > b for a, b in zip(bounds, bounds[1:])):
+                raise ValueError(f"layer {layer.name}: slice points {points} for {n_tops} "
+                                 f"tops of {total}")
+            layer.param = dict(axis=axis, bounds=bounds)
+            outs = []
+            for a, b in zip(bounds, bounds[1:]):
+                out = list(bshape[0])
+                out[axis] = b - a
+                outs.append(tuple(out))
+            return outs
+        if layer.type == "Eltwise":
+            op = p.get("operation", caffe_pb.ELTWISE_OP["SUM"])
+            op = caffe_pb.ELTWISE_OP[op] if isinstance(op, str) else int(op)
+            coeffs = _floats(p.get("coeff")) or [1.0] * len(bshape)
+            if len(coeffs) != len(bshape):
+                # eltwise_layer.cpp: one coefficient per bottom
+                raise ValueError(f"layer {layer.name}: Eltwise takes one coefficient per bottom "
+                                 f"({len(coeffs)} coeffs vs {len(bshape)} bottoms)")
+            if any(s != bshape[0] for s in bshape):
+                raise ValueError(f"layer {layer.name}: Eltwise bottoms differ in shape {bshape}")
+            layer.param = dict(op=op, coeffs=coeffs)
+            return [bshape[0]]
+        if layer.type in LOSS_TYPES:
+            return [()]
+        if layer.type == "Silence":
+            return []
+        layer.param = dict(slope=float(p.get("negative_slope", 0.0)))  # ReLU
+        return [bshape[0]]
 
     def _find_conv1_blocks(self) -> Dict[str, Conv1Block]:
         """The conv1 blocks of the graph, by structure: Convolution 3->64
@@ -409,26 +514,41 @@ class Net(nn.Module):
                                          pool.tops[0], inner)
         return blocks
 
-    def _refresh(self) -> None:
-        """Rebuild the compute copies of the weights after they changed."""
+    # ------------------------------------------------------------- params
+
+    def init_params(self, seed: int = 0) -> None:
+        """Fill every conv from its prototxt fillers (``core/filler.py``),
+        drawn in layer order from one CPU ``torch.Generator`` seeded with
+        ``seed``: the same weights on every device."""
+        gen = torch.Generator().manual_seed(int(seed))
+        for conv in self.convs.values():
+            wf, bf = conv.fillers
+            with torch.no_grad():
+                conv.weight.copy_(fill(gen, tuple(conv.weight.shape), wf))
+                if conv.bias is not None:
+                    conv.bias.copy_(fill(gen, (conv.cout,), bf))
+        self.params_changed()
+
+    def params_changed(self) -> None:
+        """Rebuild what is derived from the parameters (the compute copies in
+        bf16, the conv1 kernel's packed weights) after they changed in place:
+        a load, a fill, a solver's update.  In f32 a forward reads the
+        parameters themselves."""
         for conv in self.convs.values():
             conv.compute_weights(self.dtype)
         for blk in self.conv1_blocks.values():
             c1, c2 = self.convs[blk.names[0]], self.convs[blk.names[2]]
             blk.weights = conv1_cuda.Conv1Weights.pack(c1.weight, c1.bias, c2.weight, c2.bias)
 
-    # ------------------------------------------------------------- params
-
-    def init_params(self, seed: int = 0) -> None:
-        """Fill every conv from its prototxt fillers with numpy draws."""
-        rs = np.random.RandomState(seed)
-        for conv in self.convs.values():
-            wf, bf = conv.fillers
-            with torch.no_grad():
-                conv.weight.copy_(torch.from_numpy(_fill(rs, tuple(conv.weight.shape), wf)))
-                if conv.bias is not None:
-                    conv.bias.copy_(torch.from_numpy(_fill(rs, (conv.cout,), bf)))
-        self._refresh()
+    def learnable(self) -> List[Tuple[str, int, nn.Parameter, float, float]]:
+        """Every parameter blob in Caffe's order (layers, then blobs):
+        ``(layer, index, parameter, lr_mult, decay_mult)``."""
+        out = []
+        for name, conv in self.convs.items():
+            blobs = [conv.weight] + ([conv.bias] if conv.bias is not None else [])
+            for i, prm in enumerate(blobs):
+                out.append((name, i, prm, conv.lr_mult[i], conv.decay_mult[i]))
+        return out
 
     def load_weights(self, weights: Union[str, Mapping[str, Sequence[np.ndarray]]]) -> int:
         """Copy a ``.caffemodel`` path or ``{layer_name: [OIHW weight,
@@ -455,7 +575,7 @@ class Net(nn.Module):
                 with torch.no_grad():
                     t.copy_(torch.from_numpy(arr.reshape(tuple(t.shape))))
             copied += 1
-        self._refresh()
+        self.params_changed()
         return copied
 
     def operands(self) -> Dict[str, torch.Tensor]:
@@ -533,7 +653,7 @@ class Net(nn.Module):
         unless ``outputs`` names a blob inside it or its input's H or W is
         odd (Caffe's ceil-mode pooling then differs from the kernel's)."""
         blobs: Dict[str, torch.Tensor] = {
-            k: v.to(self.dtype).contiguous(memory_format=torch.channels_last) if v.dim() == 4 else v
+            k: v.to(self.dtype).contiguous(memory_format=self.memory_format) if v.dim() == 4 else v
             for k, v in inputs.items()}
         outputs = list(outputs or self.output_names())
         layers = self.layers if layers is None else list(layers)
@@ -552,16 +672,66 @@ class Net(nn.Module):
                 continue
             i += 1
             bots = [blobs[b] for b in layer.bottoms]
-            p = layer.param
-            if layer.type == "Convolution":
-                top = self.convs[layer.name](bots[0], ops[f"{layer.name}::w"],
-                                             ops.get(f"{layer.name}::b"))
-            elif layer.type == "ReLU":
-                top = nn_ops.relu(bots[0], p["slope"])
-            elif layer.type == "Pooling":
-                top = nn_ops.max_pool2d(bots[0], p["k"], p["s"], p["p"])
-            else:  # Concat
-                top = torch.cat(bots, dim=p["axis"])
-            for t in layer.tops:
+            for t, top in zip(layer.tops, self._run_layer(layer, bots, ops)):
                 blobs[t] = top
         return {k: blobs[k] for k in outputs}
+
+    def _run_layer(self, layer: Layer, bots: List[torch.Tensor],
+                   ops: Mapping[str, torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+        """One layer's tops from its bottoms."""
+        p = layer.param
+        if layer.type == "Convolution":
+            return (self.convs[layer.name](bots[0], ops[f"{layer.name}::w"],
+                                           ops.get(f"{layer.name}::b")),)
+        if layer.type == "ReLU":
+            return (nn_ops.relu(bots[0], p["slope"]),)
+        if layer.type == "Pooling":
+            return (nn_ops.max_pool2d(bots[0], p["k"], p["s"], p["p"]),)
+        if layer.type == "Concat":
+            return (torch.cat(bots, dim=p["axis"]),)
+        if layer.type == "Slice":
+            b = p["bounds"]
+            return tuple(bots[0].narrow(p["axis"], b[j], b[j + 1] - b[j])
+                         for j in range(len(b) - 1))
+        if layer.type == "Eltwise":
+            if p["op"] == caffe_pb.ELTWISE_OP["PROD"]:
+                y = bots[0]
+                for x in bots[1:]:
+                    y = y * x
+            elif p["op"] == caffe_pb.ELTWISE_OP["SUM"]:
+                y = p["coeffs"][0] * bots[0]
+                for cf, x in zip(p["coeffs"][1:], bots[1:]):
+                    y = y + cf * x
+            else:  # MAX
+                y = bots[0]
+                for x in bots[1:]:
+                    y = torch.maximum(y, x)
+            return (y,)
+        if layer.type == "EuclideanLoss":
+            return (losses.euclidean(bots[0], bots[1]),)
+        if layer.type == "EuclideanmaskLoss":
+            mask = bots[2]
+            return (losses.euclidean_masked(bots[0], bots[1], mask.reshape(mask.shape[0], -1)),)
+        return ()  # Silence
+
+    # --------------------------------------------------------------- loss
+
+    def loss_tops(self) -> List[Tuple[str, float]]:
+        """``(top, loss_weight)`` of every top with a nonzero loss weight, in
+        layer order."""
+        return [(t, w) for layer in self.layers for t, w in zip(layer.tops, layer.loss_weights)
+                if w]
+
+    def loss(self, inputs: Mapping[str, torch.Tensor]
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """One forward -> (the total weighted loss, sum over loss tops of
+        weight times the top's sum; the net's output blobs from the same
+        forward), as JAX's ``Net.make_loss_fn(with_outputs=True)``.
+        ``loss.backward()`` fills the parameters' gradients."""
+        tops = self.loss_tops()
+        if not tops:
+            raise ValueError("net has no loss tops")
+        names = self.output_names()
+        blobs = self.forward(inputs, outputs=list(dict.fromkeys(names + [t for t, _ in tops])))
+        total = sum(w * blobs[t].sum() for t, w in tops)
+        return total, {k: blobs[k] for k in names}

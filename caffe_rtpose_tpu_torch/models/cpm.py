@@ -1,11 +1,13 @@
-"""CPM/PAF deploy-graph builders.
+"""CPM/PAF deploy- and train-graph builders.
 
 Generates NetParameter dicts structurally identical to the shipped deploy
 prototxts (reference model/coco/pose_deploy_linevec.prototxt,
 model/mpi/pose_deploy_linevec.prototxt: VGG-19 prefix + conv4_*_CPM feature
 head + 6 dual-branch stages), so weights loaded by layer name interchange
-with our generated graphs.  A copy of the JAX package's deploy builders
-(``caffe_rtpose_tpu/models/cpm.py``), which cannot be imported without jax.
+with our generated graphs; plus the training graph (per-stage masked L2
+losses over sliced label weights, the classic CPM train topology).  A copy of
+the JAX package's builders (``caffe_rtpose_tpu/models/cpm.py``), which cannot
+be imported without jax.
 """
 
 from __future__ import annotations
@@ -186,3 +188,56 @@ def make_pose_deploy_net(
         "layer": layers,
     }
 
+
+def make_pose_train_net(
+    batch: int = 10,
+    crop: int = 368,
+    stride: int = 8,
+    stages: int = 6,
+    n_paf: int = 38,
+    n_heat: int = 19,
+) -> Dict[str, Any]:
+    """Training graph: trunk + stages, label sliced into (vec_weight,
+    heat_weight, vec_label, heat_label), per-stage per-branch weighted
+    EuclideanLoss (the classic CPM train topology over the transformer's
+    label layout: weights [0, np], targets [np+1, 2np+1])."""
+    np_ = n_paf + n_heat - 1  # 56 for COCO
+    grid = crop // stride
+    layers: List[Dict[str, Any]] = []
+    feat = make_trunk(layers, bottom="data")
+
+    layers.append({
+        "name": "slice_label", "type": "Slice",
+        "bottom": ["label"],
+        "top": ["vec_weight", "heat_weight", "vec_label", "heat_label"],
+        "slice_param": {"axis": 1, "slice_point": [n_paf, n_paf + n_heat, 2 * n_paf + n_heat]},
+    })
+
+    def add_losses(stage: int, pred: Dict[str, str]):
+        for br, weight, label in (("L1", "vec_weight", "vec_label"),
+                                  ("L2", "heat_weight", "heat_label")):
+            wp = f"weight_stage{stage}_{br}"
+            wl = f"label_stage{stage}_{br}"
+            layers.append({"name": wp, "type": "Eltwise",
+                           "bottom": [pred[br], weight], "top": [wp],
+                           "eltwise_param": {"operation": 0}})
+            layers.append({"name": wl, "type": "Eltwise",
+                           "bottom": [label, weight], "top": [wl],
+                           "eltwise_param": {"operation": 0}})
+            layers.append({"name": f"loss_stage{stage}_{br}", "type": "EuclideanLoss",
+                           "bottom": [wp, wl], "top": [f"loss_stage{stage}_{br}"]})
+
+    # identical stage topology to the deploy graph (same layer names, so
+    # train/deploy weights interchange); losses attach via the callback
+    make_stages(layers, feat, n_paf, n_heat, stages,
+                per_stage=add_losses, final_concat=False)
+
+    return {
+        "name": "pose_train",
+        "input": ["data", "label"],
+        "input_shape": [
+            {"dim": [batch, 3, crop, crop]},
+            {"dim": [batch, 2 * (np_ + 1), grid, grid]},
+        ],
+        "layer": layers,
+    }

@@ -79,7 +79,33 @@ def _unfilter(raw: np.ndarray, h: int, stride: int, bpp: int, path: str) -> np.n
     return out
 
 
-def _decode_png(data: bytes, path: str) -> np.ndarray:
+def decode_png(data: bytes, gray: bool = False) -> np.ndarray:
+    """PNG bytes -> BGR u8 (H, W, 3), or with ``gray`` the (H, W) plane of a
+    gray PNG (``cv2.imdecode`` with IMREAD_COLOR / IMREAD_GRAYSCALE)."""
+    img = _decode_png(data, "<png bytes>", keep_gray=gray)
+    if gray and img.ndim != 2:
+        raise ValueError("a gray plane was asked of a color PNG")
+    return img
+
+
+def encode_png(img: np.ndarray) -> bytes:
+    """A u8 (H, W) gray or (H, W, 3) BGR image -> PNG bytes (filter 0 rows,
+    zlib)."""
+    img = np.ascontiguousarray(img, np.uint8)
+    h, w = img.shape[:2]
+    color = 0 if img.ndim == 2 else 2
+    rows = img if color == 0 else img[:, :, ::-1].reshape(h, w * 3)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows.reshape(h, -1)], axis=1).tobytes()
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    return (PNG_SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+
+
+def _decode_png(data: bytes, path: str, keep_gray: bool = False) -> np.ndarray:
     if not data.startswith(PNG_SIGNATURE):
         raise ValueError(f"{path}: not a PNG file")
     pos, header, idat = len(PNG_SIGNATURE), None, []
@@ -106,7 +132,7 @@ def _decode_png(data: bytes, path: str) -> np.ndarray:
     px = _unfilter(raw[: h * (1 + w * cn)].reshape(h, 1 + w * cn), h, w * cn, cn,
                    path).reshape(h, w, cn)
     if cn <= 2:  # gray (+ alpha)
-        return np.repeat(px[:, :, :1], 3, axis=2)
+        return px[:, :, 0].copy() if keep_gray else np.repeat(px[:, :, :1], 3, axis=2)
     return np.ascontiguousarray(px[:, :, 2::-1])  # RGB(A) -> BGR
 
 

@@ -46,7 +46,7 @@ import torch
 from ..core.net import Net
 from ..ops import conv1_cuda, nms_cuda
 from ..ops.nms import block_keys, compact_keys, peaks_from_keys, refine_from_low
-from ..utils.device import resolve_device
+from ..utils.device import disable_tf32, resolve_device
 from . import connect as C
 from . import preprocess
 from .descriptor import ConnectParams, ModelDescriptor, for_num_parts
@@ -182,8 +182,7 @@ class PoseEstimator:
         restores its estimator through this too."""
         self.device = resolve_device(device)
         if self.device.type == "cuda":
-            torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cuda.matmul.allow_tf32 = False
+            disable_tf32()
         self.peak_kernel = (self.device.type == "cuda") if peak_kernel is None else bool(peak_kernel)
         self.cuda_graph = (self.device.type == "cuda") if cuda_graph is None else bool(cuda_graph)
         if self.cuda_graph and self.device.type != "cuda":

@@ -28,6 +28,16 @@ def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
     return dev
 
 
+def disable_tf32() -> None:
+    """Turn TF32 off for cuDNN convolutions and CUDA matmuls (process-wide):
+    the port's f32 is IEEE f32 on the card, as the JAX reference computes
+    every matmul at ``Precision.HIGHEST``, and its card-against-CPU and
+    against-JAX checks hold f32 tolerances.  The estimator and every CUDA
+    ``Net`` (training included) call it."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
 _consts: Dict[tuple, torch.Tensor] = {}
 
 

@@ -85,6 +85,31 @@ Phases, each of which raises (non-zero exit) on failure:
    eval      - eval run-list over the cli phase's PNG frames with its model
                files (bf16), and joint-diff against the cli phase's JSON:
                PARITY OK with the joints compared.
+   train     - (after every other phase) CPM training, f32 with TF32 off:
+               make_label_fn on the card
+               against transformer.generate_label_map on the host (batch
+               10, 46x46, 12 people, 114 channels; weight, PAF and
+               background channels exact, gaussians within 1e-6), on an
+               augmented synthetic batch and on 12 overlapping people; a
+               2-stage train net at crop 184, batch 2, 3 SGD steps on the
+               card and on the host CPU from the same fan-in weights and
+               batches (losses within 1e-5 relative, weights within 1e-4
+               and biases and momentum within 5e-3 of each blob's largest
+               magnitude); scripts/bench_train.py's configuration (6
+               stages, batch 10, crop 368, u8 crops and joints from the
+               host, labels on the card, SGD 2e-5 fixed, momentum 0.9,
+               weight decay 5e-4) in the shapes sync, ring and staged: 2
+               warm steps, then 10 timed (iters/s, imgs/s, device ms a step
+               between CUDA events, host augmentation ms a batch, peak
+               memory), every loss finite, the hand kernels' counters zero
+               (training launches none of K1-K4); a snapshot restored into
+               a fresh solver whose next step equals the continuing one's
+               (within 1e-5), and a deploy PoseEstimator from the snapshot's
+               caffemodel (every convolution by layer name) on one frame;
+               caffe train (3 iterations, --fused_labels) and caffe time
+               --phase TRAIN in new processes.  Last of all, two steps under
+               torch.profiler: the kernels a step by device time and the
+               busy share of the step.
 4. slice     - the full-width COCO estimator (656x368, 1 scale, u8 input,
                pair_cap=32, f32) over 8 synthetic frames through
                estimate_from_net_input (graph replays), with the peak-mask
@@ -144,6 +169,7 @@ hundreds of peaks in every part).
 
 The bf16 phases reuse the 1-scale f32 slice's weights and frames.
 
+The train phase prints its own JSON line ({"train": ...}) before them.
 The last three lines are: a JSON object with one entry per TPU kernel (K1
 and its 3-scale form K2 listed apart), the card's name and power limit as
 nvidia-smi prints them, and {"ok": true, "device": {...}}.
@@ -2002,6 +2028,403 @@ def phase_eval(files, cli, work, extra=()):
                 report=[line for line in text.splitlines() if line])
 
 
+# ------------------------------------------------------------------ train
+
+TRAIN_BATCH, TRAIN_CROP = 10, 368  # scripts/bench_train.py's configuration
+TRAIN_MAX_PEOPLE = 12
+TRAIN_WARM_STEPS, TRAIN_TIMED_STEPS = 2, 10
+TRAIN_SOLVER = "base_lr: 2e-5 lr_policy: 'fixed' momentum: 0.9 weight_decay: 5e-4"
+# the card-against-CPU run starts from fan-in weights, whose outputs are O(10):
+# 2e-5 diverges there in two steps, 1e-7 takes the loss 6836 -> 4234 -> 1921
+SMALL_SOLVER = TRAIN_SOLVER.replace("2e-5", "1e-7")
+TOL_GAUSS = 1e-6  # the gaussian channels, card against host: expf may differ by an ulp
+TOL_TRAIN_LOSS = 1e-5  # card against CPU, relative
+# card against CPU after 3 steps, each relative to the blob's largest magnitude:
+# weights (fan-in init) to 1e-4; biases (zero init, so they hold only the
+# updates) and momentum to 5e-3.  The two sides' f32 convolutions are other
+# algorithms (cuDNN takes FFT engines for some NCHW layers, oneDNN on the
+# host): measured weights 1.1e-5, biases 1.4e-3, momentum 1.5e-3 on an H100
+# 80GB HBM3 at 700 W (NHWC, before training ran NCHW: 1.4e-6, 2.6e-4, 5.2e-4)
+TOL_TRAIN_PARAM = 1e-4
+TOL_TRAIN_UPDATE = 5e-3
+TOL_RESUME = 1e-5  # a restored solver's step against the continuing one
+
+
+def blob_errors(a, b, index=None):
+    """The largest max|a - b| / max|b| over the blobs of two
+    ``{layer: [blob, ...]}`` trees (tensors or arrays); ``index``: only each
+    layer's blob of that index (0 weights, 1 biases)."""
+    worst = 0.0
+    for k in b:
+        for i, (x, y) in enumerate(zip(a[k], b[k])):
+            if index is not None and i != index:
+                continue
+            x = np.asarray(x.detach().cpu() if hasattr(x, "detach") else x, np.float64)
+            y = np.asarray(y.detach().cpu() if hasattr(y, "detach") else y, np.float64)
+            worst = max(worst, float(np.abs(x - y).max() / max(np.abs(y).max(), 1e-30)))
+    return worst
+
+
+def label_batch_overlapping(rs, prm, bsz, people):
+    """A batch of ``people`` overlapping random people per sample (every
+    visibility code) and a u8 mask grid: the last-writer case."""
+    gy, gx = prm.crop_size_y // prm.stride, prm.crop_size_x // prm.stride
+    joints = np.zeros((bsz, people, 18, 2), np.float32)
+    vis = np.zeros((bsz, people, 18), np.int32)
+    for b in range(bsz):
+        centre = rs.uniform(60, prm.crop_size_x - 60, size=(18, 2))
+        joints[b] = (centre + rs.randn(people, 18, 2) * 12).astype(np.float32)
+        vis[b] = rs.choice([0, 1, 2, 3], size=(people, 18), p=[0.5, 0.2, 0.1, 0.2])
+    grid = rs.randint(0, 256, size=(bsz, gy, gx)).astype(np.uint8)
+    return joints, vis, grid
+
+
+def phase_train_labels(device="cuda"):
+    """make_label_fn on the card against transformer.generate_label_map on
+    the host, at full width: batch 10, 46x46, 12 people, 114 channels."""
+    import torch
+
+    from caffe_rtpose_tpu_torch.training.datasets import SyntheticPoseSource
+    from caffe_rtpose_tpu_torch.training.labels_device import make_label_fn, pose_batches_jointfeed
+    from caffe_rtpose_tpu_torch.training.transformer import (AugParams, Meta, Person,
+                                                             generate_label_map)
+
+    tag = "[train labels]"
+    prm = AugParams(crop_size_x=TRAIN_CROP, crop_size_y=TRAIN_CROP)
+    np_ = prm.np
+    fn = make_label_fn(prm, TRAIN_MAX_PEOPLE)
+    aug = next(pose_batches_jointfeed(SyntheticPoseSource(n=64, size=TRAIN_CROP, seed=0), prm,
+                                      TRAIN_BATCH, max_people=TRAIN_MAX_PEOPLE, seed=1,
+                                      data_u8=True))
+    cases = [("augmented synthetic batch", aug["joints"], aug["vis"], None),
+             ("12 overlapping people", *label_batch_overlapping(
+                 np.random.RandomState(7), prm, TRAIN_BATCH, TRAIN_MAX_PEOPLE))]
+    out = {}
+    for name, joints, vis, grid in cases:
+        grid_hw = (TRAIN_BATCH, TRAIN_CROP // prm.stride, TRAIN_CROP // prm.stride)
+        weight = (np.ones(grid_hw, np.float32) if grid is None
+                  else grid.astype(np.float32) / 255.0)
+        dev = fn(torch.from_numpy(joints).to(device), torch.from_numpy(vis).to(device),
+                 torch.from_numpy(weight).to(device)).cpu().numpy()
+        host = np.stack([generate_label_map(
+            Meta(people=[Person(joints[b, p], vis[b, p]) for p in range(joints.shape[1])]),
+            prm, None if grid is None else grid[b]) for b in range(TRAIN_BATCH)])
+        fams = {"weights": slice(0, np_ + 1), "pafs": slice(np_ + 1, np_ + 39),
+                "gaussians": slice(np_ + 39, np_ + 57), "background": slice(2 * np_ + 1, None)}
+        errs = {k: float(np.abs(dev[:, s] - host[:, s]).max()) for k, s in fams.items()}
+        nonzero = {k: int((host[:, s] != 0).sum()) for k, s in fams.items()}
+        print(f"{tag} {name}: {dev.shape} on the card against the host: max |diff| {errs}; "
+              f"nonzero host values {nonzero}")
+        check(dev.shape == host.shape == (TRAIN_BATCH, 2 * (np_ + 1)) + grid_hw[1:],
+              f"{tag} {name}: shape {dev.shape}")
+        check(errs["weights"] == 0 and errs["pafs"] == 0 and errs["background"] == 0,
+              f"{tag} {name}: weight, PAF or background channels differ: {errs}")
+        check(errs["gaussians"] <= TOL_GAUSS, f"{tag} {name}: gaussians differ by {errs}")
+        check(nonzero["pafs"] > 0 and nonzero["gaussians"] > 0, f"{tag} {name}: empty labels")
+        out[name] = dict(max_abs_diff=errs, nonzero=nonzero)
+    return out
+
+
+def phase_train_small(device="cuda", steps=3):
+    """A 2-stage train net at crop 184, batch 2: 3 SGD steps on the card and
+    on the host CPU from the same weights and batches."""
+    import torch
+
+    from caffe_rtpose_tpu_torch.core.net import Net
+    from caffe_rtpose_tpu_torch.models.cpm import make_pose_train_net
+    from caffe_rtpose_tpu_torch.training.datasets import SyntheticPoseSource, pose_batches
+    from caffe_rtpose_tpu_torch.training.solver import Solver
+    from caffe_rtpose_tpu_torch.training.transformer import AugParams
+
+    tag = "[train small]"
+    crop, bsz = 184, 2
+    proto = make_pose_train_net(batch=bsz, crop=crop, stages=2)
+    prm = AugParams(crop_size_x=crop, crop_size_y=crop)
+    gen = pose_batches(SyntheticPoseSource(n=8, size=crop + 52, seed=3), prm, bsz, seed=4)
+    batches = [next(gen) for _ in range(steps)]
+    runs = {}
+    weights = None
+    for dev in (device, "cpu"):
+        net = Net(proto, phase="TRAIN", device=dev)
+        weights = weights or fan_in_weights(net, 11)
+        net.load_weights(weights)
+        solver = Solver(SMALL_SOLVER, net, lambda it: batches[it])
+        t0 = time.perf_counter()
+        losses = [solver.step(1) for _ in range(steps)]
+        runs[dev] = dict(losses=losses, seconds=time.perf_counter() - t0, solver=solver)
+    card, cpu = runs[device], runs["cpu"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(card["losses"], cpu["losses"]))
+    weight_rel = blob_errors(card["solver"].params, cpu["solver"].params, index=0)
+    bias_rel = blob_errors(card["solver"].params, cpu["solver"].params, index=1)
+    hist_rel = blob_errors(card["solver"].history["h0"], cpu["solver"].history["h0"])
+    print(f"{tag} losses card {card['losses']} cpu {cpu['losses']}: largest relative gap "
+          f"{loss_rel:.3g} (limit {TOL_TRAIN_LOSS}); of each blob's largest magnitude: weights "
+          f"{weight_rel:.3g} (limit {TOL_TRAIN_PARAM}), biases {bias_rel:.3g} and momentum "
+          f"{hist_rel:.3g} (limit {TOL_TRAIN_UPDATE}); {card['seconds']:.2f} s on the card, "
+          f"{cpu['seconds']:.2f} s on the CPU")
+    check(all(np.isfinite(card["losses"])), f"{tag} non-finite loss")
+    check(loss_rel <= TOL_TRAIN_LOSS, f"{tag} losses differ by {loss_rel}")
+    check(weight_rel <= TOL_TRAIN_PARAM, f"{tag} weights differ by {weight_rel}")
+    check(max(bias_rel, hist_rel) <= TOL_TRAIN_UPDATE,
+          f"{tag} biases or momentum differ by {bias_rel}, {hist_rel}")
+    return dict(losses_card=card["losses"], losses_cpu=cpu["losses"], loss_rel=loss_rel,
+                weight_rel=weight_rel, bias_rel=bias_rel, momentum_rel=hist_rel)
+
+
+def train_step_flops(net):
+    """The operations of one train step's convolutions, 2 a multiply-add:
+    the forward, the weight gradients, and the input gradients of every
+    convolution but those reading a net input (the data takes none)."""
+    total = 0
+    for layer in net.layers:
+        if layer.type != "Convolution":
+            continue
+        n, co, h, w = net.blob_shapes[layer.tops[0]]
+        conv = net.convs[layer.name]
+        macs = n * co * h * w * conv.weight.shape[1] * conv.kernel[0] * conv.kernel[1]
+        total += 2 * macs * (2 if layer.bottoms[0] in net.input_names else 3)
+    return total
+
+
+def timed_batches(gen, host_ms):
+    """``gen``'s batches, the host ms of each appended to ``host_ms``."""
+    while True:
+        t0 = time.perf_counter()
+        batch = next(gen)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        yield batch
+
+
+def phase_train_bench(shape, device="cuda"):
+    """bench_train.py's configuration in one pipeline shape: ``sync`` (the
+    host augments inside the step), ``ring`` (a 3-deep prefetch thread),
+    ``staged`` (the thread also uploads, from pinned memory on a side
+    stream).  2 warm steps, then the timed ones."""
+    import torch
+
+    from caffe_rtpose_tpu_torch.core.net import Net
+    from caffe_rtpose_tpu_torch.models.cpm import make_pose_train_net
+    from caffe_rtpose_tpu_torch.training.datasets import (SyntheticPoseSource, prefetch_loader,
+                                                          stage_batches)
+    from caffe_rtpose_tpu_torch.training.labels_device import (make_input_transform,
+                                                               pose_batches_jointfeed)
+    from caffe_rtpose_tpu_torch.training.solver import Solver
+    from caffe_rtpose_tpu_torch.training.transformer import AugParams
+
+    tag = f"[train {shape}]"
+    prm = AugParams(crop_size_x=TRAIN_CROP, crop_size_y=TRAIN_CROP)
+    net = Net(make_pose_train_net(batch=TRAIN_BATCH, crop=TRAIN_CROP), phase="TRAIN",
+              device=device, seed=0)
+    host_ms = []
+    batches = timed_batches(pose_batches_jointfeed(SyntheticPoseSource(n=64, size=TRAIN_CROP),
+                                                   prm, TRAIN_BATCH, seed=1, data_u8=True),
+                            host_ms)
+    if shape == "ring":
+        batches = prefetch_loader(batches)
+    elif shape == "staged":
+        batches = stage_batches(batches, device)
+    it = iter(batches)
+    solver = Solver(TRAIN_SOLVER, net, lambda _: next(it),
+                    input_transform=make_input_transform(prm, data_u8=True))
+    losses = [solver.step(1) for _ in range(TRAIN_WARM_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_TIMED_STEPS):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        losses.append(solver.step(1))
+        b.record()
+        b.synchronize()
+        step_ms.append(a.elapsed_time(b))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if hasattr(batches, "close"):
+        batches.close()
+    ips = TRAIN_TIMED_STEPS / wall
+    flops = train_step_flops(net)
+    bound_ms = flops / F32_FLOPS * 1e3
+    res = dict(iters_s=ips, imgs_s=ips * TRAIN_BATCH, step_ms_median=statistics.median(step_ms),
+               step_ms=step_ms, host_aug_ms_median=statistics.median(host_ms),
+               host_aug_batches=len(host_ms), peak_gib=peak, tflop_a_step=flops / 1e12,
+               bound_ms=bound_ms, bound_share=bound_ms / statistics.median(step_ms),
+               losses=losses)
+    print(f"{tag} {ips:.3f} iters/s, {ips * TRAIN_BATCH:.2f} imgs/s; device ms a step (CUDA "
+          f"events) median {res['step_ms_median']:.1f}, {['%.1f' % x for x in step_ms]}; "
+          f"convolutions {flops / 1e12:.3f} TFLOP a step, bound {bound_ms:.1f} ms at the f32 "
+          f"peak ({res['bound_share']:.3f} of the step); host "
+          f"augmentation median {res['host_aug_ms_median']:.1f} ms a batch of {TRAIN_BATCH} "
+          f"({len(host_ms)} batches); peak {peak:.3f} GiB; losses {['%.4g' % x for x in losses]}")
+    check(all(np.isfinite(losses)), f"{tag} non-finite loss")
+    return res, solver
+
+
+def phase_train_resume(solver, work, device="cuda"):
+    """Snapshot the solver, restore a fresh one from the files, take the
+    same next step on both; then a deploy estimator from the snapshot's
+    caffemodel runs a frame (train and deploy weights interchange by layer
+    name)."""
+    import os
+
+    import torch
+
+    from caffe_rtpose_tpu_torch.core.net import Net
+    from caffe_rtpose_tpu_torch.models.cpm import make_pose_deploy_net, make_pose_train_net
+    from caffe_rtpose_tpu_torch.pose.estimator import PoseEstimator
+    from caffe_rtpose_tpu_torch.proto import caffemodel, prototxt
+    from caffe_rtpose_tpu_torch.training.datasets import SyntheticPoseSource
+    from caffe_rtpose_tpu_torch.training.labels_device import (make_input_transform,
+                                                               pose_batches_jointfeed)
+    from caffe_rtpose_tpu_torch.training.solver import Solver
+    from caffe_rtpose_tpu_torch.training.transformer import AugParams
+
+    tag = "[train resume]"
+    prm = AugParams(crop_size_x=TRAIN_CROP, crop_size_y=TRAIN_CROP)
+    t0 = time.perf_counter()
+    model_path, state_path = solver.snapshot(os.path.join(work, "pose_train"))
+    snap_s = time.perf_counter() - t0
+    batch = next(pose_batches_jointfeed(SyntheticPoseSource(n=8, size=TRAIN_CROP, seed=5), prm,
+                                        TRAIN_BATCH, seed=6, data_u8=True))
+    fresh = Solver(TRAIN_SOLVER, Net(make_pose_train_net(batch=TRAIN_BATCH, crop=TRAIN_CROP),
+                                     phase="TRAIN", device=device, seed=1),
+                   lambda _: batch, input_transform=make_input_transform(prm, data_u8=True))
+    t0 = time.perf_counter()
+    fresh.restore(state_path)
+    restore_s = time.perf_counter() - t0
+    check(fresh.it == solver.it, f"{tag} restored at iter {fresh.it}, not {solver.it}")
+    solver.next_batch = lambda _: batch
+    l_cont, l_fresh = solver.step(1), fresh.step(1)
+    loss_rel = abs(l_fresh - l_cont) / abs(l_cont)
+    param_rel = blob_errors(fresh.params, solver.params)
+    hist_rel = blob_errors(fresh.history["h0"], solver.history["h0"])
+    print(f"{tag} snapshot {os.path.basename(model_path)} ({os.path.getsize(model_path) / 1e6:.1f} "
+          f"MB) + {os.path.basename(state_path)} ({os.path.getsize(state_path) / 1e6:.1f} MB) in "
+          f"{snap_s:.2f} s, restored in {restore_s:.2f} s; next step continuing {l_cont:.6g}, "
+          f"restored {l_fresh:.6g} (relative gap {loss_rel:.3g}); parameters {param_rel:.3g}, "
+          f"momentum {hist_rel:.3g} of each blob's largest (limit {TOL_RESUME})")
+    check(max(loss_rel, param_rel, hist_rel) <= TOL_RESUME, f"{tag} the restored step differs")
+    del fresh
+    deploy_path = os.path.join(work, "pose_deploy_linevec.prototxt")
+    prototxt.dump_file(make_pose_deploy_net("COCO"), deploy_path)
+    est = PoseEstimator(deploy_path, weights=model_path, input_u8=True, device=device)
+    deployed = est.net.export_weights()
+    saved = caffemodel.load_weights(model_path)
+    same = [k for k in deployed if all(np.array_equal(a, b) for a, b in zip(deployed[k], saved[k]))]
+    check(len(same) == len(deployed) == len(saved),
+          f"{tag} {len(same)} of the deploy net's {len(deployed)} convolutions hold the "
+          f"snapshot's {len(saved)} layers' weights")
+    res = est.estimate_from_net_input(canvases(np.random.RandomState(2), 1, est.input_shape())[0])
+    torch.cuda.synchronize()
+    check(np.isfinite(res.peaks).all(), f"{tag} non-finite peaks")
+    print(f"{tag} a deploy PoseEstimator from the snapshot's caffemodel: {len(same)}/"
+          f"{len(deployed)} convolutions by layer name, one 656x368 frame: "
+          f"{int((res.peaks[:, 0, 0] > 0).sum())} parts with peaks, {res.num_people} people")
+    return dict(snapshot_s=snap_s, restore_s=restore_s, loss_rel=loss_rel, param_rel=param_rel,
+                momentum_rel=hist_rel, deploy_layers=len(same), people=int(res.num_people))
+
+
+def phase_train_cli(work, device="cuda"):
+    """``caffe train`` (3 iterations, full width, --fused_labels) and ``caffe
+    time --phase TRAIN`` in new processes."""
+    import os
+    import subprocess
+
+    from caffe_rtpose_tpu_torch.models.cpm import make_pose_train_net
+    from caffe_rtpose_tpu_torch.proto import prototxt
+
+    tag = "[train cli]"
+    root = os.path.dirname(os.path.abspath(__file__))
+    net_path = os.path.join(work, "pose_train.prototxt")
+    solver_path = os.path.join(work, "pose_solver.prototxt")
+    prototxt.dump_file(make_pose_train_net(batch=TRAIN_BATCH, crop=TRAIN_CROP), net_path)
+    with open(solver_path, "w") as f:
+        f.write(f'net: "{net_path}"\n{TRAIN_SOLVER}\ndisplay: 1\nmax_iter: 3\n'
+                "snapshot_after_train: false\n")
+    runs = {}
+    for name, args in (("train", ["train", "--solver", solver_path, "--data", "synthetic-pose",
+                                  "--fused_labels", "--device", device]),
+                       ("time", ["time", "--model", net_path, "--phase", "TRAIN",
+                                 "--iterations", "2", "--device", device])):
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, "-m", "caffe_rtpose_tpu_torch", "caffe", *args],
+                           cwd=root, capture_output=True, text=True, timeout=600)
+        secs = time.perf_counter() - t0
+        runs[name] = (p, secs)
+        check(p.returncode == 0, f"{tag} caffe {name}: exit {p.returncode}\n{p.stdout[-3000:]}\n"
+                                 f"{p.stderr[-3000:]}")
+    p, secs = runs["train"]
+    iters = re.findall(r"^Iteration (\d+) \(([\d.e+-]+) iter/s.*loss = ([\d.e+-]+)", p.stdout, re.M)
+    print(f"{tag} caffe train: exit 0 in {secs:.1f} s; " + " | ".join(
+        line for line in p.stdout.splitlines() if line.startswith(("Iteration", "Optimization"))))
+    check("Optimization Done" in p.stdout and len(iters) == 3,
+          f"{tag} caffe train printed {len(iters)} iteration lines:\n{p.stdout[-2000:]}")
+    p, t_secs = runs["time"]
+    rows = re.findall(r"^\s*(\S+)\s+forward:\s+([\d.]+) ms\s+backward:\s+([\d.]+|n/a)", p.stdout, re.M)
+    total = re.search(r"TOTAL \(per-layer sum\)\s+forward:\s+([\d.]+) ms\s+backward:\s+([\d.]+)",
+                      p.stdout)
+    n_layers = len(prototxt.parse_file(net_path)["layer"])
+    top = sorted(((float(f) + (float(b) if b != "n/a" else 0.0), n) for n, f, b in rows
+                  if n != "TOTAL"), reverse=True)[:8]
+    print(f"{tag} caffe time --phase TRAIN: exit 0 in {t_secs:.1f} s; {len(rows)} layer rows "
+          f"({n_layers} layers); per-layer sum forward {total.group(1)} ms, backward "
+          f"{total.group(2)} ms; the slowest forward+backward: "
+          + ", ".join(f"{n} {ms:.1f} ms" for ms, n in top))
+    check(total is not None and len(rows) == n_layers, f"{tag} caffe time printed {len(rows)} rows")
+    return dict(train_s=secs, train_iters=[dict(it=int(i), iters_s=float(r), loss=float(l))
+                                           for i, r, l in iters],
+                time_s=t_secs, time_rows=len(rows), time_forward_ms=float(total.group(1)),
+                time_backward_ms=float(total.group(2)))
+
+
+def phase_train(device="cuda"):
+    """The training path: labels, card against CPU, bench_train.py's
+    configuration in three shapes, snapshot and resume, the CLI.  The hand
+    kernels' counters are zeroed before and read after the training runs:
+    training launches none of K1-K4."""
+    import tempfile
+
+    zero_counts()
+    labels = phase_train_labels(device)
+    small = phase_train_small(device)
+    shapes, solver = {}, None
+    for shape in ("sync", "ring", "staged"):
+        del solver
+        shapes[shape], solver = phase_train_bench(shape, device)
+    counts = read_counts()
+    check(not any(counts.values()), f"[train] training launched hand kernels: {counts}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as work:
+        resume = phase_train_resume(solver, work, device)
+        cli = phase_train_cli(work, device)
+    return dict(labels=labels, small=small,
+                shapes={k: {m: v for m, v in r.items() if m != "losses"} for k, r in shapes.items()},
+                resume=resume, cli=cli, hand_kernel_launches=counts), solver
+
+
+def phase_train_profile(solver, step_ms, steps=2, top=10):
+    """Where a full-width step's device time goes: ``steps`` steps of the
+    solver (on its last batch) under torch.profiler, the kernels by device
+    ms; busy share = the kernels' device ms a step over ``step_ms``, the
+    unprofiled step (a profiling window slows the host's launches, so its
+    own wall time says nothing, and it runs after the other phases)."""
+    import torch
+
+    solver.step(1)
+    by_name = {}
+    _, _, n_kernels, busy_ms = device_kernels(lambda: solver.step(steps), by_name)
+    torch.cuda.synchronize()
+    busy = busy_ms / steps
+    rows = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    print(f"[train profile] {steps} steps: {n_kernels / steps:.0f} kernels a step, busy "
+          f"{busy:.1f} ms a step, {busy / step_ms:.3f} of the {step_ms:.1f} ms step; top by "
+          "device ms a step: " + "; ".join(
+              f"{name[:70]} x{n // steps} {ms / steps:.1f} ms" for name, (n, ms) in rows[:top]))
+    return dict(kernels_a_step=n_kernels / steps, busy_ms_a_step=busy,
+                busy_share=busy / step_ms,
+                top=[dict(name=name, launches_a_step=n / steps, ms_a_step=ms / steps)
+                     for name, (n, ms) in rows[:top]])
+
+
 def main() -> int:
     import torch
 
@@ -2045,6 +2468,13 @@ def main() -> int:
     bf16_three = phase_bf16_3scale(bf16["weights"])
     bf16_heat = phase_bf16_heatmap(bf16["weights"], bf16["frames"][:HEATMAP_FRAMES])
     profile_pending()
+    # training last: in a run that trained before the kernel profiles, K4
+    # read 0.604 ms, against 0.459-0.460 in runs that profiled first (H100
+    # 80GB HBM3, 700 W)
+    train, train_solver = phase_train()
+    train["profile"] = phase_train_profile(train_solver,
+                                           train["shapes"]["staged"]["step_ms_median"])
+    del train_solver
     keys = ("device_ms", "e2e_ms", "launches", "peaks", "people")
     for name, r in (("1-scale", one), ("3-scale", three)):
         print(json.dumps({"slice": name, **{k: r[k] for k in keys}}))
@@ -2064,6 +2494,7 @@ def main() -> int:
     print(json.dumps({"serving": serving}))
     print(json.dumps({"pool": pool}))
     print(json.dumps({"eval": evaluation}))
+    print(json.dumps({"train": train}))
     card = info["nvidia_smi"]
     # launches: the wrapper's calls in the main path's run (the pipeline:
     # the eager pass and the capture; the 3-scale, heatmap slices for the

@@ -1,0 +1,112 @@
+"""``python -m caffe_rtpose_tpu_torch caffe`` (``tools/caffe_tool.py``) on the
+CPU: ``train`` on the 2-stage CPM train net (crop 64, batch 2) from the
+synthetic pose source, with labels on the device (``--fused_labels``) and
+from the host, from an ``.npz`` of input blobs, snapshot and ``--snapshot``
+resume; ``time --phase TRAIN``; ``device_query``; and the commands that
+are not ported say so."""
+
+import contextlib
+import io
+import os
+import re
+
+import numpy as np
+import pytest
+
+from caffe_rtpose_tpu_torch import __main__ as entry
+from caffe_rtpose_tpu_torch.models.cpm import make_pose_train_net
+from caffe_rtpose_tpu_torch.proto import prototxt
+
+
+def run(*argv):
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = entry.main(["caffe", *argv])
+    return rc, out.getvalue()
+
+
+@pytest.fixture(scope="module")
+def files(tmp_path_factory):
+    work = tmp_path_factory.mktemp("caffe_cli")
+    net = work / "pose_train.prototxt"
+    prototxt.dump_file(make_pose_train_net(batch=2, crop=64, stages=2), str(net))
+
+    def solver(name, extra=""):
+        path = work / name
+        path.write_text(f'net: "{net}"\nbase_lr: 2e-5\nlr_policy: "fixed"\nmomentum: 0.9\n'
+                        f'weight_decay: 5e-4\ndisplay: 1\n{extra}')
+        return str(path)
+
+    return work, str(net), solver
+
+
+def iteration_lines(text):
+    return re.findall(r"^Iteration (\d+) \([\d.e+-]+ iter/s, .*\), loss = ([\d.e+-]+)", text, re.M)
+
+
+def test_train_fused_labels_snapshot_and_resume(files):
+    work, _, solver = files
+    prefix = str(work / "snap")
+    s = solver("fused.prototxt", f'max_iter: 2\nsnapshot_prefix: "{prefix}"\n')
+    rc, text = run("train", "--solver", s, "--data", "synthetic-pose", "--fused_labels",
+                   "--device", "cpu")
+    assert rc == 0 and "Optimization Done" in text
+    its = iteration_lines(text)
+    assert [int(i) for i, _ in its] == [1, 2] and all(np.isfinite(float(l)) for _, l in its)
+    assert "Train net output #0: loss_stage1_L1 = " in text and "lr = 2e-05" in text
+    assert os.path.exists(prefix + "_iter_2.caffemodel")
+    assert os.path.exists(prefix + "_iter_2.solverstate")
+    s3 = solver("resume.prototxt", "max_iter: 3\nsnapshot_after_train: false\n")
+    rc, text = run("train", "--solver", s3, "--data", "synthetic-pose", "--fused_labels",
+                   "--snapshot", prefix + "_iter_2.solverstate", "--device", "cpu")
+    assert rc == 0 and "at iter 2" in text
+    assert [int(i) for i, _ in iteration_lines(text)] == [3]
+
+
+@pytest.mark.parametrize("source", ["synthetic-pose", "npz"])
+def test_train_host_data(files, source):
+    work, _, solver = files
+    data = source
+    if source == "npz":
+        rs = np.random.RandomState(0)
+        data = str(work / "batch.npz")
+        np.savez(data, data=rs.rand(2, 3, 64, 64).astype(np.float32) - 0.5,
+                 label=rs.rand(2, 114, 8, 8).astype(np.float32))
+    s = solver(f"host_{source}.prototxt", "max_iter: 2\nsnapshot_after_train: false\n")
+    rc, text = run("train", "--solver", s, "--data", data, "--device", "cpu")
+    assert rc == 0 and len(iteration_lines(text)) == 2 and "Optimization Done" in text
+
+
+def test_time_train_phase(files):
+    _, net, _ = files
+    rc, text = run("time", "--model", net, "--phase", "TRAIN", "--iterations", "1",
+                   "--device", "cpu")
+    assert rc == 0
+    rows = re.findall(r"^\s*(\S+)\s+forward:\s+([\d.]+) ms\s+backward:\s+([\d.]+|n/a) ms",
+                      text, re.M)
+    n_layers = len(prototxt.parse_file(net)["layer"])
+    assert len(rows) == n_layers
+    by_name = {n: (f, b) for n, f, b in rows}
+    assert by_name["conv1_1"][1] != "n/a" and by_name["loss_stage2_L2"][1] != "n/a"
+    assert "TOTAL (per-layer sum)" in text and "whole-net forward" in text
+
+
+def test_device_query_and_not_ported(files):
+    rc, text = run("device_query")
+    assert rc == 0 and "torch:" in text and "cuda_available:" in text
+    with pytest.raises(NotImplementedError, match="caffe test"):
+        run("test")
+    _, _, solver = files
+    with pytest.raises(NotImplementedError, match="--gpu"):
+        run("train", "--solver", solver("gpu.prototxt"), "--gpu", "0,1", "--device", "cpu")
+
+
+def test_default_device_is_cuda(files):
+    """Without --device the tool runs on the card, and says so without one."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device would run")
+    _, net, _ = files
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        run("time", "--model", net, "--phase", "TRAIN", "--iterations", "1")

@@ -1,5 +1,6 @@
 """The PyTorch port imports without jax: neither directly nor through the
-JAX package (whose ``__init__`` imports jax); and without OpenCV."""
+JAX package (whose ``__init__`` imports jax); and without OpenCV, also with
+both blocked at once (the card's machine has neither)."""
 
 import os
 import subprocess
@@ -40,6 +41,23 @@ SLICE_MODULES = [
     "caffe_rtpose_tpu_torch.parallel.inference",
     "caffe_rtpose_tpu_torch.tools.export_tool",
     "caffe_rtpose_tpu_torch.tools.eval_pose",
+    "caffe_rtpose_tpu_torch.ops.losses",
+    "caffe_rtpose_tpu_torch.core.filler",
+    "caffe_rtpose_tpu_torch.proto.datum",
+    "caffe_rtpose_tpu_torch.utils.db",
+    "caffe_rtpose_tpu_torch.utils.leveldb_fmt",
+    "caffe_rtpose_tpu_torch.utils.signals",
+    "caffe_rtpose_tpu_torch.utils.timer",
+    "caffe_rtpose_tpu_torch.utils.profiler",
+    "caffe_rtpose_tpu_torch.training",
+    "caffe_rtpose_tpu_torch.training.joints",
+    "caffe_rtpose_tpu_torch.training.transformer",
+    "caffe_rtpose_tpu_torch.training.datasets",
+    "caffe_rtpose_tpu_torch.training.labels_device",
+    "caffe_rtpose_tpu_torch.training.solver",
+    "caffe_rtpose_tpu_torch.training.cpm_lmdb",
+    "caffe_rtpose_tpu_torch.training.pose_db",
+    "caffe_rtpose_tpu_torch.tools.caffe_tool",
 ]
 
 
@@ -75,3 +93,7 @@ def test_slice_imports_without_cv2():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0 and res.stdout.strip() == "False", res.stderr
+
+
+def test_slice_imports_with_jax_and_cv2_blocked():
+    _run("import sys\nsys.modules['jax'] = None\nsys.modules['cv2'] = None\n")
