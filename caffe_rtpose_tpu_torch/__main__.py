@@ -8,7 +8,8 @@ TOOLS = {
     "eval": ("tools.eval_pose", "run-list / joint-diff / coco-ap"),
     "upgrade": ("tools.upgrade_proto", "legacy prototxt/caffemodel upgrades"),
     "export": ("tools.export_tool", "serving bundles (build / check)"),
-    "caffe": ("tools.caffe_tool", "train / time / device_query"),
+    "caffe": ("tools.caffe_tool", "train / test / time / device_query"),
+    "classify": ("tools.classify", "classify images with a deploy net (10-crop)"),
 }
 
 

@@ -1,36 +1,41 @@
 """Net: a NetParameter dict as an ``nn.Module``.
 
 Counterpart of ``caffe_rtpose_tpu/core/net.py`` (which replaces Caffe's Net,
-reference src/caffe/net.cpp), limited to the layer types of the pose deploy
-and CPM train graphs: Input, Convolution, ReLU, Pooling (MAX), Concat,
-Slice, Eltwise (PROD, SUM with coefficients, MAX), EuclideanLoss,
-EuclideanmaskLoss and Silence.  ImResize and Nms layers are recorded in
-:attr:`Net.post_layers` but not run: the estimator computes them from the
-low-res maps (``pose/estimator.py``).  Any other layer type that
-phase/stage/level filtering keeps raises ``NotImplementedError``.
+reference src/caffe/net.cpp).  Every layer goes through the one registry of
+``core/layers.py`` (and ``core/layers_extra.py``): the net builds each
+layer's module for its bottoms' shapes in prototxt order and runs the
+modules in that order.  ``Input`` layers and the deprecated ``input`` fields
+declare inputs; data layers (``core/data_layers.py``: Data, ImageData,
+MemoryData, HDF5Data, WindowData, CPMData) are host sources whose tops are
+inputs too, pulled by :meth:`Net.forward` when the caller does not feed
+them.  ImResize and Nms layers run when a forward asks for their tops; they
+are also kept in :attr:`Net.post_layers`, whose parameters the estimator
+reads to compute its post segment from the low-res maps itself
+(``pose/estimator.py``).
 
 On CUDA a Net turns TF32 off (``utils/device.disable_tf32``): f32 is IEEE
 f32 there, training included.
 
-Training (``phase="TRAIN"``): each convolution's weight and bias are
-``nn.Parameter``s that require a gradient unless their ``param`` spec's
-``lr_mult`` is 0 (Caffe computes no diff for those); ``lr_mult`` and
-``decay_mult`` ride on the module for the solver.  :meth:`Net.loss` returns
-the total weighted loss and the output blobs of one forward, and autograd is
-the backward: no layer of the train path has a kernel of its own.  In f32
-the convolutions read the parameters themselves, so a forward after an
-update sees the new weights.
+Training (``phase="TRAIN"``): each parameter blob is an ``nn.Parameter``
+that requires a gradient unless its ``param`` spec's ``lr_mult`` is 0
+(Caffe computes no diff for those); ``lr_mult`` and ``decay_mult`` ride on
+the layer's module for the solver.  :meth:`Net.loss` returns the total
+weighted loss and the output blobs of one forward, and autograd is the
+backward.  :meth:`Net.backward` takes diffs for any tops and returns the
+diffs of the inputs and of every parameter blob, as Caffe's backward with
+``force_backward`` (the NetParameter field itself changes nothing here).  Random layers (Dropout, STOCHASTIC pooling) draw from
+the net's ``torch.Generator`` on its device.
 
 As in JAX, the graph comes as a prototxt path, prototxt text or a parsed
 NetParameter dict; a legacy V0/V1 ``layers`` net runs the upgrade chain
-(``proto/upgrade.py``) on a copy; weights load from a ``.caffemodel`` path or
-a ``{layer: [OIHW, bias]}`` dict and save back as a ``.caffemodel``.
+(``proto/upgrade.py``) on a copy; weights load from a ``.caffemodel`` (or
+HDF5) path or a ``{layer: [blob, ...]}`` dict in Caffe's layout and save
+back the same way.
 
-Convolutions live in an ``nn.ModuleDict`` keyed by Caffe layer name, with
-OIHW weights as Caffe stores them.  Activations are logically NCHW (Caffe
-layout, so blobs come out as ``Net.forward`` gives them in the JAX package)
-and physically ``torch.channels_last``, except in an f32 TRAIN net, whose
-activations and parameters are contiguous NCHW (:attr:`Net.memory_format`).
+Activations are logically NCHW (Caffe layout, so blobs come out as
+``Net.forward`` gives them in the JAX package) and physically
+``torch.channels_last``, except in an f32 TRAIN net, whose activations and
+parameters are contiguous NCHW (:attr:`Net.memory_format`).
 
 ``dtype=torch.bfloat16`` is the JAX package's bf16 mode: parameters stay f32
 as loaded, the convolutions run on bf16 copies made when weights are filled
@@ -44,43 +49,31 @@ from __future__ import annotations
 
 import copy
 import logging
-from dataclasses import dataclass, field
-from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple, Union
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
 
-from ..ops import conv1_cuda, losses
-from ..ops import nn as nn_ops
+from ..ops import conv1_cuda
 from ..proto import caffe_pb, caffemodel, prototxt
 from ..proto.upgrade import upgrade_net_as_needed
 from ..utils.device import disable_tf32, resolve_device
+from . import layers as L
+from .data_layers import DATA_LAYER_TYPES
 from .filler import fill
+from .layers import Convolution, Layer, RunCtx, conv_operands  # noqa: F401
 
 log = logging.getLogger(__name__)
 
-POOL_MAX = (0, "MAX")
 ESTIMATOR_TYPES = ("ImResize", "Nms")
 DTYPES = (torch.float32, torch.bfloat16)
-# the layer types the port runs -> the LayerParameter field of their params
-PARAM_KEYS = {"Convolution": "convolution_param", "ReLU": "relu_param",
-              "Pooling": "pooling_param", "Concat": "concat_param", "Slice": "slice_param",
-              "Eltwise": "eltwise_param", "EuclideanLoss": "loss_param",
-              "EuclideanmaskLoss": "loss_param", "Silence": "loss_param",
-              "ImResize": "imresize_param", "Nms": "nms_param"}
-LOSS_TYPES = ("EuclideanLoss", "EuclideanmaskLoss")
-
-
-@dataclass
-class Layer:
-    name: str
-    type: str
-    bottoms: List[str]
-    tops: List[str]
-    param: Dict[str, Any] = field(default_factory=dict)  # the layer's *_param
-    loss_weights: List[float] = field(default_factory=list)  # one per top; 0 = none
-    specs: List[caffe_pb.View] = field(default_factory=list, repr=False)  # ParamSpecs
+# the types that read their raw *_param dict (Layer.param); the rest read views
+PARAM_KEYS = {"Convolution": "convolution_param", "Deconvolution": "convolution_param",
+              "Im2col": "convolution_param", "Pooling": "pooling_param",
+              "Concat": "concat_param", "Slice": "slice_param", "Eltwise": "eltwise_param",
+              "ReLU": "relu_param", "ImResize": "imresize_param", "Nms": "nms_param"}
 
 
 def _rule_matches(rule: caffe_pb.View, phase: int, stages: Sequence[str], level: int) -> bool:
@@ -120,45 +113,6 @@ def _net_parameter(proto: Union[str, Mapping[str, Any]]) -> Dict[str, Any]:
     return net_param
 
 
-def _ints(v) -> List[int]:
-    if v is None:
-        return []
-    if isinstance(v, (list, tuple)):
-        return [int(x) for x in v]
-    return [int(v)]
-
-
-def _floats(v) -> List[float]:
-    if v is None:
-        return []
-    return [float(x) for x in (v if isinstance(v, (list, tuple)) else [v])]
-
-
-def _hw(p: Mapping[str, Any], key: str, default: Optional[int],
-        prefix: Optional[str] = None) -> Tuple[int, int]:
-    """Caffe's geometry fields: ``<prefix>_h``/``<prefix>_w`` when given,
-    else the repeated (or scalar) ``key``."""
-    prefix = prefix or key
-    if f"{prefix}_h" in p or f"{prefix}_w" in p:
-        return int(p.get(f"{prefix}_h", 0)), int(p.get(f"{prefix}_w", 0))
-    vals = _ints(p.get(key))
-    if not vals:
-        if default is None:
-            raise ValueError(f"{key} unset")
-        return default, default
-    return (vals[0], vals[0]) if len(vals) == 1 else (vals[0], vals[1])
-
-
-def conv_operands(weight: torch.Tensor, bias: Optional[torch.Tensor],
-                  dtype: torch.dtype) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """A convolution's operands from its f32 parameters (OIHW weight in the
-    net's ``channels_last`` layout, :func:`param_tensor`): the parameters
-    themselves in f32, else copies in ``dtype``, the weight channels_last."""
-    if dtype == torch.float32:
-        return weight, bias
-    return (weight.detach().to(dtype).contiguous(memory_format=torch.channels_last),
-            None if bias is None else bias.detach().to(dtype))
-
 
 def param_tensor(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     """An f32 parameter from numpy, laid out as :class:`Net` keeps its
@@ -195,61 +149,6 @@ def _block_entries(first: str, cw: conv1_cuda.Conv1Weights):
     return {f"{first}::conv1_block::{k}": getattr(cw, k) for k in conv1_cuda.PACKED}
 
 
-class Convolution(nn.Module):
-    """Caffe Convolution with OIHW weight and optional bias."""
-
-    def __init__(self, cin: int, p: Mapping[str, Any],
-                 specs: Sequence[caffe_pb.View] = (), train: bool = False):
-        super().__init__()
-        self.cout = int(p["num_output"])
-        self.kernel = _hw(p, "kernel_size", None, "kernel")
-        self.stride = _hw(p, "stride", 1)
-        self.pad = _hw(p, "pad", 0)
-        dil = _ints(p.get("dilation"))
-        self.dilation = (1, 1) if not dil else (dil[0], dil[-1])
-        self.groups = int(p.get("group", 1))
-        if cin % self.groups or self.cout % self.groups:
-            raise ValueError(f"channels {cin}->{self.cout} not divisible by group {self.groups}")
-        n_params = 2 if p.get("bias_term", True) else 1
-        # ParamSpec lr_mult / decay_mult per blob (layer.hpp), 1 when unset
-        self.lr_mult = [float(specs[i].lr_mult) if i < len(specs) else 1.0
-                        for i in range(n_params)]
-        self.decay_mult = [float(specs[i].decay_mult) if i < len(specs) else 1.0
-                           for i in range(n_params)]
-        grads = [train and lr != 0.0 for lr in self.lr_mult]
-        self.weight = nn.Parameter(
-            torch.zeros(self.cout, cin // self.groups, *self.kernel), requires_grad=grads[0])
-        self.bias = (nn.Parameter(torch.zeros(self.cout), requires_grad=grads[1])
-                     if n_params == 2 else None)
-        self.fillers = (dict(p.get("weight_filler", {})), dict(p.get("bias_filler", {})))
-        self.compute_weights(torch.float32)
-
-    def compute_weights(self, dtype: torch.dtype) -> None:
-        """Make the operands ``forward`` convolves with (:func:`conv_operands`,
-        once per load); a tuple, so they are not registered twice."""
-        self._operands = conv_operands(self.weight, self.bias, dtype)
-
-    def out_hw(self, h: int, w: int) -> Tuple[int, int]:
-        dims = []
-        for size, k, s, pd, d in zip((h, w), self.kernel, self.stride, self.pad, self.dilation):
-            dims.append((size + 2 * pd - (d * (k - 1) + 1)) // s + 1)
-        return dims[0], dims[1]
-
-    def forward(self, x: torch.Tensor, w: torch.Tensor,
-                b: Optional[torch.Tensor]) -> torch.Tensor:
-        """Convolve ``x`` with the operands ``w``, ``b`` (its own
-        ``_operands``, or a device program's inputs)."""
-        return nn_ops.conv2d(x, w, b, stride=self.stride, pad=self.pad,
-                             dilation=self.dilation, groups=self.groups)
-
-    def is_3x3_same(self, cin: int, cout: int) -> bool:
-        """A 3x3, stride 1, pad 1, ungrouped, undilated conv cin -> cout
-        with bias."""
-        return (tuple(self.weight.shape) == (cout, cin, 3, 3) and self.stride == (1, 1)
-                and self.pad == (1, 1) and self.dilation == (1, 1) and self.groups == 1
-                and self.bias is not None)
-
-
 def params_from_jax(params: Mapping[str, Sequence[Any]]) -> Dict[str, List[np.ndarray]]:
     """The JAX ``Net.params`` ({layer: [HWIO weight, bias]}, any array type
     numpy accepts) -> the port's ``{layer: [OIHW weight, bias]}`` numpy.
@@ -266,12 +165,14 @@ def params_from_jax(params: Mapping[str, Sequence[Any]]) -> Dict[str, List[np.nd
 
 def params_to_jax(params: Mapping[str, Sequence[Any]]) -> Dict[str, List[np.ndarray]]:
     """The inverse of :func:`params_from_jax`: ``{layer: [OIHW, bias]}``
-    (numpy or tensors) -> ``{layer: [HWIO, bias]}`` numpy."""
+    (numpy or tensors) -> ``{layer: [HWIO, bias]}`` numpy, always copies
+    (a JAX array made from one may share its buffer, and the port's solver
+    updates its tensors in place)."""
     out: Dict[str, List[np.ndarray]] = {}
     for name, blobs in params.items():
         conv = []
         for a in blobs:
-            a = np.asarray(a.detach().cpu() if isinstance(a, torch.Tensor) else a, np.float32)
+            a = np.array(a.detach().cpu() if isinstance(a, torch.Tensor) else a, np.float32)
             conv.append(np.ascontiguousarray(a.transpose(2, 3, 1, 0)) if a.ndim == 4 else a)
         out[name] = conv
     return out
@@ -302,6 +203,8 @@ class Conv1Block:
     weights: Optional[conv1_cuda.Conv1Weights] = None
 
 
+
+
 class Net(nn.Module):
     """Parameters
     ----------
@@ -314,8 +217,9 @@ class Net(nn.Module):
         (the rtpose warmup reshape, rtpose.cpp:188-191).
     overrides: optional {layer: {"<param_msg>.<field>": value}} merged into
         layer params before building (ImResize start_scale/scale_gap).
-    seed: numpy seed for the weight fillers; real weights come through
-        :meth:`load_weights`.
+    seed: seed of the weight fillers (a CPU generator, so the same weights
+        on every device) and of the net's device generator (Dropout,
+        STOCHASTIC pooling); real weights come through :meth:`load_weights`.
     dtype: float32, or bfloat16 for activations and conv operands (module
         docstring).
     conv1_kernel: in bf16, run the conv1 block through
@@ -345,6 +249,7 @@ class Net(nn.Module):
         if self.device.type == "cuda":
             disable_tf32()
         self.dtype = dtype
+        self.phase = phase
         # f32 training runs NCHW: cuDNN's f32 NHWC convolutions (forward,
         # data and weight gradients) are its slow FFMA engines on the H100
         self.memory_format = (torch.contiguous_format
@@ -367,14 +272,15 @@ class Net(nn.Module):
         if proto.get("input_shape"):
             dims = [tuple(int(d) for d in s["dim"]) for s in proto["input_shape"]]
         else:
-            flat = _ints(proto.get("input_dim"))
+            flat = L.ints(proto.get("input_dim"))
             dims = [tuple(flat[i : i + 4]) for i in range(0, len(flat), 4)]
         shapes.update(zip(names, dims))
 
         overrides = overrides or {}
         self.layers: List[Layer] = []
         self.post_layers: Dict[str, Layer] = {}
-        self.convs = nn.ModuleDict()
+        self.data_layers: List[Any] = []
+        self._data_top_to_layer: Dict[str, Any] = {}
         for raw in proto.get("layer", []):
             if not _layer_included(caffe_pb.view(raw, "LayerParameter"), phase_i, stages, level):
                 continue
@@ -385,107 +291,61 @@ class Net(nn.Module):
                     raw[fld] = v
                 else:
                     raw[sub] = {**raw.get(sub, {}), fld: v}
+            lv = caffe_pb.view(raw, "LayerParameter")
             ltype = raw["type"]
             if ltype == "Input":
                 ishapes = raw.get("input_param", {}).get("shape", [])
                 for i, t in enumerate(raw["top"]):
                     shapes[t] = tuple(int(d) for d in ishapes[min(i, len(ishapes) - 1)]["dim"])
                 continue
-            pkey = PARAM_KEYS.get(ltype)
-            if pkey is None:
-                raise NotImplementedError(f"layer {raw.get('name')}: type {ltype!r} is not ported")
-            lv = caffe_pb.view(raw, "LayerParameter")
+            if ltype in DATA_LAYER_TYPES:
+                from . import data_layers
+
+                dl = data_layers.build(lv, phase)
+                self.data_layers.append(dl)
+                for t in dl.tops:
+                    shapes[t] = dl.top_shapes[t]
+                    self._data_top_to_layer[t] = dl
+                continue
             tops = list(raw.get("top", []))
             weights = [float(x) for x in lv.loss_weight]
-            if ltype in LOSS_TYPES and not weights:
+            if ltype in L.LOSS_TYPES and not weights:
                 weights = [1.0]  # a loss layer's default (layer.hpp SetLossWeights)
             layer = Layer(raw["name"], ltype, list(raw.get("bottom", [])), tops,
-                          dict(raw.get(pkey, {})), weights + [0.0] * (len(tops) - len(weights)),
-                          lv.param)
+                          dict(raw.get(PARAM_KEYS.get(ltype, ""), {})),
+                          weights + [0.0] * (len(tops) - len(weights)), lv.param, lv)
+            self.layers.append(layer)
             if ltype in ESTIMATOR_TYPES:
                 self.post_layers[layer.name] = layer
-            else:
-                self.layers.append(layer)
         for k, v in (input_shapes or {}).items():
             shapes[k] = tuple(int(d) for d in v)
         self.input_names: List[str] = list(shapes)
 
-        # shape inference in Caffe (N, C, H, W) layout; builds the convs
+        # shape inference in Caffe (N, C, H, W) layout; builds the modules
         self.blob_shapes: Dict[str, Tuple[int, ...]] = dict(shapes)
+        mods = []
         for layer in self.layers:
             for b in layer.bottoms:
                 if b not in self.blob_shapes:
                     raise ValueError(f"layer {layer.name}: unknown bottom blob {b!r}")
-            bshape = [self.blob_shapes[b] for b in layer.bottoms]
-            outs = self._infer(layer, bshape, phase == "TRAIN")
-            for t, out in zip(layer.tops, outs):
+            mod = L.build(L.BuildCtx(layer, [self.blob_shapes[b] for b in layer.bottoms], phase))
+            if len(mod.top_shapes) != len(layer.tops):
+                raise ValueError(f"layer {layer.name} ({layer.type}): {len(layer.tops)} tops, "
+                                 f"the type makes {len(mod.top_shapes)}")
+            for t, out in zip(layer.tops, mod.top_shapes):
                 self.blob_shapes[t] = out
+            mods.append(mod)
+        self.layer_modules = nn.ModuleList(mods)
+        self.mods: Dict[str, L.LayerModule] = {l.name: m for l, m in zip(self.layers, mods)}
         self.conv1_blocks: Dict[str, Conv1Block] = self._find_conv1_blocks()
         self.to(self.device, memory_format=self.memory_format)
+        self.generator = torch.Generator(device=self.device).manual_seed(int(seed))
         self.init_params(seed)
 
-    def _infer(self, layer: Layer, bshape: List[Tuple[int, ...]],
-               train: bool) -> List[Tuple[int, ...]]:
-        """The layer's top shapes from its bottoms'; turns ``layer.param``
-        into what :meth:`forward` reads and builds the convolutions."""
-        p = layer.param
-        if layer.type in ("Convolution", "Pooling"):
-            n, c, h, w = bshape[0]
-        if layer.type == "Convolution":
-            conv = Convolution(c, p, layer.specs, train)
-            self.convs[layer.name] = conv
-            return [(n, conv.cout) + conv.out_hw(h, w)]
-        if layer.type == "Pooling":
-            if p.get("pool", 0) not in POOL_MAX or p.get("global_pooling"):
-                raise NotImplementedError(f"layer {layer.name}: only MAX pooling is ported")
-            kh, kw = _hw(p, "kernel_size", None, "kernel")
-            sh, sw = _hw(p, "stride", 1)
-            ph, pw = _hw(p, "pad", 0)
-            layer.param = dict(k=(kh, kw), s=(sh, sw), p=(ph, pw))
-            return [(n, c, nn_ops.pooled_size(h, kh, sh, ph), nn_ops.pooled_size(w, kw, sw, pw))]
-        if layer.type == "Concat":
-            axis = int(p.get("axis", p.get("concat_dim", 1)))
-            axis = axis + len(bshape[0]) if axis < 0 else axis
-            layer.param = dict(axis=axis)
-            out = list(bshape[0])
-            out[axis] = sum(s[axis] for s in bshape)
-            return [tuple(out)]
-        if layer.type == "Slice":
-            axis = int(p.get("axis", 1))
-            axis = axis + len(bshape[0]) if axis < 0 else axis
-            total, n_tops = bshape[0][axis], len(layer.tops)
-            points = _ints(p.get("slice_point"))
-            if not points:
-                points = [total // n_tops * (i + 1) for i in range(n_tops - 1)]
-            bounds = [0] + points + [total]
-            if len(bounds) != n_tops + 1 or any(a > b for a, b in zip(bounds, bounds[1:])):
-                raise ValueError(f"layer {layer.name}: slice points {points} for {n_tops} "
-                                 f"tops of {total}")
-            layer.param = dict(axis=axis, bounds=bounds)
-            outs = []
-            for a, b in zip(bounds, bounds[1:]):
-                out = list(bshape[0])
-                out[axis] = b - a
-                outs.append(tuple(out))
-            return outs
-        if layer.type == "Eltwise":
-            op = p.get("operation", caffe_pb.ELTWISE_OP["SUM"])
-            op = caffe_pb.ELTWISE_OP[op] if isinstance(op, str) else int(op)
-            coeffs = _floats(p.get("coeff")) or [1.0] * len(bshape)
-            if len(coeffs) != len(bshape):
-                # eltwise_layer.cpp: one coefficient per bottom
-                raise ValueError(f"layer {layer.name}: Eltwise takes one coefficient per bottom "
-                                 f"({len(coeffs)} coeffs vs {len(bshape)} bottoms)")
-            if any(s != bshape[0] for s in bshape):
-                raise ValueError(f"layer {layer.name}: Eltwise bottoms differ in shape {bshape}")
-            layer.param = dict(op=op, coeffs=coeffs)
-            return [bshape[0]]
-        if layer.type in LOSS_TYPES:
-            return [()]
-        if layer.type == "Silence":
-            return []
-        layer.param = dict(slope=float(p.get("negative_slope", 0.0)))  # ReLU
-        return [bshape[0]]
+    @property
+    def convs(self) -> Dict[str, Convolution]:
+        """The Convolution layers' modules by layer name, in layer order."""
+        return {k: m for k, m in self.mods.items() if isinstance(m, Convolution)}
 
     def _find_conv1_blocks(self) -> Dict[str, Conv1Block]:
         """The conv1 blocks of the graph, by structure: Convolution 3->64
@@ -494,39 +354,37 @@ class Net(nn.Module):
         and no other layer reading the blobs in between.  Keyed by the
         first layer's name."""
         blocks: Dict[str, Conv1Block] = {}
-        L = self.layers
+        lays = self.layers
         types = ["Convolution", "ReLU", "Convolution", "ReLU", "Pooling"]
-        for i in range(len(L) - 4):
-            chain = L[i : i + 5]
-            c1, r1, c2, r2, pool = chain
+        for i in range(len(lays) - 4):
+            chain = lays[i : i + 5]
+            c1, r1, c2, r2, pool = (self.mods[l.name] for l in chain)
             if ([l.type for l in chain] != types
                     or any(len(l.bottoms) != 1 or len(l.tops) != 1 for l in chain)
                     or any(b.bottoms[0] != a.tops[0] for a, b in zip(chain, chain[1:]))
-                    or not self.convs[c1.name].is_3x3_same(3, 64)
-                    or not self.convs[c2.name].is_3x3_same(64, 64)
-                    or r1.param["slope"] != 0.0 or r2.param["slope"] != 0.0
-                    or pool.param != dict(k=(2, 2), s=(2, 2), p=(0, 0))):
+                    or not c1.is_3x3_same(3, 64) or not c2.is_3x3_same(64, 64)
+                    or r1.slope != 0.0 or r2.slope != 0.0 or not pool.is_max_2x2()):
                 continue
             inner = frozenset(l.tops[0] for l in chain[:4])
-            if any(b in inner for l in L if l not in chain for b in l.bottoms):
+            if any(b in inner for l in lays if l not in chain for b in l.bottoms):
                 continue
-            blocks[c1.name] = Conv1Block(tuple(l.name for l in chain), c1.bottoms[0],
-                                         pool.tops[0], inner)
+            blocks[chain[0].name] = Conv1Block(tuple(l.name for l in chain), chain[0].bottoms[0],
+                                               chain[4].tops[0], inner)
         return blocks
 
     # ------------------------------------------------------------- params
 
     def init_params(self, seed: int = 0) -> None:
-        """Fill every conv from its prototxt fillers (``core/filler.py``),
-        drawn in layer order from one CPU ``torch.Generator`` seeded with
-        ``seed``: the same weights on every device."""
+        """Fill every parameter blob from its prototxt filler
+        (``core/filler.py``), drawn in layer order from one CPU
+        ``torch.Generator`` seeded with ``seed``: the same weights on every
+        device.  Blobs without a filler (BatchNorm's statistics) are zero."""
         gen = torch.Generator().manual_seed(int(seed))
-        for conv in self.convs.values():
-            wf, bf = conv.fillers
-            with torch.no_grad():
-                conv.weight.copy_(fill(gen, tuple(conv.weight.shape), wf))
-                if conv.bias is not None:
-                    conv.bias.copy_(fill(gen, (conv.cout,), bf))
+        with torch.no_grad():
+            for mod in self.layer_modules:
+                for blob, filler in zip(mod.blobs(), mod.fillers):
+                    blob.copy_(torch.zeros(blob.shape) if filler is None
+                               else fill(gen, tuple(blob.shape), filler))
         self.params_changed()
 
     def params_changed(self) -> None:
@@ -537,46 +395,71 @@ class Net(nn.Module):
         for conv in self.convs.values():
             conv.compute_weights(self.dtype)
         for blk in self.conv1_blocks.values():
-            c1, c2 = self.convs[blk.names[0]], self.convs[blk.names[2]]
+            c1, c2 = self.mods[blk.names[0]], self.mods[blk.names[2]]
             blk.weights = conv1_cuda.Conv1Weights.pack(c1.weight, c1.bias, c2.weight, c2.bias)
+
+    def layer_blobs(self) -> Dict[str, List[nn.Parameter]]:
+        """``{layer: [blob, ...]}`` of every layer with parameter blobs, in
+        layer order, in Caffe's layout."""
+        return {l.name: self.mods[l.name].blobs() for l in self.layers if self.mods[l.name].blobs()}
 
     def learnable(self) -> List[Tuple[str, int, nn.Parameter, float, float]]:
         """Every parameter blob in Caffe's order (layers, then blobs):
         ``(layer, index, parameter, lr_mult, decay_mult)``."""
         out = []
-        for name, conv in self.convs.items():
-            blobs = [conv.weight] + ([conv.bias] if conv.bias is not None else [])
+        for name, blobs in self.layer_blobs().items():
+            mod = self.mods[name]
             for i, prm in enumerate(blobs):
-                out.append((name, i, prm, conv.lr_mult[i], conv.decay_mult[i]))
+                out.append((name, i, prm, mod.lr_mult[i], mod.decay_mult[i]))
         return out
 
     def load_weights(self, weights: Union[str, Mapping[str, Sequence[np.ndarray]]]) -> int:
-        """Copy a ``.caffemodel`` path or ``{layer_name: [OIHW weight,
-        bias]}`` by layer name with Caffe's checks on param count and size
-        (net.cpp:750-806).  Returns the number of layers copied; names the
-        net lacks are ignored, as Caffe does."""
+        """Copy a ``.caffemodel`` (or ``.h5``) path or ``{layer_name: [blob,
+        ...]}`` in Caffe's layout by layer name with Caffe's checks on param
+        count and size (net.cpp:750-806).  Returns the number of layers
+        copied; names the net lacks are ignored, as Caffe does."""
         if isinstance(weights, str):
+            if weights.endswith((".h5", ".hdf5")):
+                return self.load_hdf5(weights)
             weights = caffemodel.load_weights(weights)
+        own = self.layer_blobs()
         copied = 0
         for name, blobs in weights.items():
-            conv = self.convs[name] if name in self.convs else None
-            if conv is None:
+            targets = own.get(name)
+            if targets is None:
                 log.info("Ignoring source layer %s", name)
                 continue
-            targets = [conv.weight] + ([conv.bias] if conv.bias is not None else [])
             if len(blobs) != len(targets):
                 raise ValueError(
                     f"layer {name}: incompatible param count {len(blobs)} vs {len(targets)}")
             for t, arr in zip(targets, blobs):
-                arr = np.array(arr, np.float32)  # a writable copy
+                arr = np.array(arr.detach().cpu() if isinstance(arr, torch.Tensor) else arr,
+                               np.float32)  # a writable copy
                 if arr.size != t.numel():
-                    raise ValueError(
-                        f"layer {name}: param size mismatch {arr.shape} vs caffe shape {tuple(t.shape)}")
+                    raise ValueError(f"layer {name}: param size mismatch {arr.shape} vs caffe "
+                                     f"shape {tuple(t.shape)}")
                 with torch.no_grad():
                     t.copy_(torch.from_numpy(arr.reshape(tuple(t.shape))))
             copied += 1
         self.params_changed()
         return copied
+
+    def share_with(self, other: "Net") -> int:
+        """Net::ShareTrainedLayersWith: adopt ``other``'s parameter blobs
+        (the tensors themselves) for the layers of the same name and blob
+        shapes.  Returns the number of layers shared."""
+        theirs = other.layer_blobs()
+        shared = 0
+        for name, blobs in self.layer_blobs().items():
+            src = theirs.get(name)
+            if src is None or [b.shape for b in src] != [b.shape for b in blobs]:
+                continue
+            mod = self.mods[name]
+            for attr, t in zip(mod._blob_names, src):
+                setattr(mod, attr, t)
+            shared += 1
+        self.params_changed()
+        return shared
 
     def operands(self) -> Dict[str, torch.Tensor]:
         """The operands :meth:`forward` runs on, as :func:`derive_operands`
@@ -599,18 +482,37 @@ class Net(nn.Module):
         return {first: (blk.names[0], blk.names[2]) for first, blk in self.conv1_blocks.items()}
 
     def export_weights(self) -> Dict[str, List[np.ndarray]]:
-        """``{layer: [OIHW weight, bias]}`` f32 numpy copies, in layer order."""
-        return {name: [p.detach().cpu().numpy().copy() for p in (conv.weight, conv.bias)
-                       if p is not None]
-                for name, conv in self.convs.items()}
+        """``{layer: [blob, ...]}`` f32 numpy copies in Caffe's layout, in
+        layer order."""
+        return {name: [b.detach().cpu().numpy().copy() for b in blobs]
+                for name, blobs in self.layer_blobs().items()}
 
     def save_caffemodel(self, path: str) -> None:
         """The weights as a binary NetParameter (``.caffemodel``), as the JAX
         ``Net.save_caffemodel`` writes it."""
-        layers = [{"name": name, "type": "Convolution",
+        layers = [{"name": name, "type": self.mods[name].type,
                    "blobs": [caffemodel.array_to_blob(b) for b in blobs]}
                   for name, blobs in self.export_weights().items()]
         caffemodel.save_net_parameter({"name": self.name, "layer": layers}, path)
+
+    def save_hdf5(self, path: str) -> None:
+        """Net::ToHDF5: group ``data``, one group a layer, datasets ``0``,
+        ``1``, ... in Caffe's layout (``h5py``, imported here)."""
+        h5py = _h5py()
+        with h5py.File(path, "w") as f:
+            grp = f.create_group("data")
+            for name, blobs in self.export_weights().items():
+                lg = grp.create_group(name)
+                for i, arr in enumerate(blobs):
+                    lg.create_dataset(str(i), data=arr)
+
+    def load_hdf5(self, path: str) -> int:
+        """Net::CopyTrainedLayersFromHDF5: groups matched by layer name."""
+        h5py = _h5py()
+        with h5py.File(path, "r") as f:
+            weights = {name: [np.asarray(lg[str(i)]) for i in range(len(lg))]
+                       for name, lg in f["data"].items()}
+        return self.load_weights(weights)
 
     # ------------------------------------------------------------ forward
 
@@ -626,38 +528,74 @@ class Net(nn.Module):
         keep.reverse()
         return keep
 
-    def output_names(self) -> List[str]:
-        """Blobs the runnable layers produce and no runnable layer consumes."""
+    def output_names(self, post_layers: bool = False) -> List[str]:
+        """The blobs no layer consumes (an in-place layer does not consume
+        its own top), inputs first, then tops in layer order: Caffe's net
+        outputs, as JAX orders them.  Unless ``post_layers``, the ImResize
+        and Nms layers do not count: the estimator computes the post segment
+        itself, so a pose graph's default outputs are its low-res maps.  The
+        facade counts them, as JAX's and pycaffe's nets do."""
+        layers = (self.layers if post_layers
+                  else [l for l in self.layers if l.type not in ESTIMATOR_TYPES])
         consumed = set()
-        for layer in self.layers:
+        for layer in layers:
             consumed |= set(layer.bottoms) - set(layer.tops)
-        names = []
-        for layer in self.layers:
-            for t in layer.tops:
-                if t not in consumed and t not in names:
-                    names.append(t)
+        names: List[str] = []
+        for b in list(self.input_names) + [t for layer in layers for t in layer.tops]:
+            if b not in consumed and b not in names:
+                names.append(b)
         return names
+
+    def run_ctx(self, ops: Optional[Mapping[str, torch.Tensor]] = None,
+                knobs: Optional[Mapping[str, Any]] = None,
+                aux: Optional[Dict[str, Any]] = None) -> RunCtx:
+        return RunCtx(ops=self.operands() if ops is None else ops,
+                      training=self.phase == "TRAIN", generator=self.generator,
+                      knobs=knobs, aux=aux, device=self.device)
+
+    def pull_data(self) -> Dict[str, torch.Tensor]:
+        """One batch from each data layer (one pull a layer, shared by its
+        tops), on the net's device."""
+        out: Dict[str, torch.Tensor] = {}
+        for dl in self.data_layers:
+            for k, v in dl.next_batch().items():
+                out[k] = torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+        return out
 
     def forward(self, inputs: Mapping[str, torch.Tensor],
                 outputs: Optional[Sequence[str]] = None,
                 layers: Optional[Sequence[Layer]] = None,
-                operands: Optional[Mapping[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+                operands: Optional[Mapping[str, torch.Tensor]] = None, *,
+                knobs: Optional[Mapping[str, Any]] = None,
+                aux: Optional[Dict[str, Any]] = None) -> Dict[str, torch.Tensor]:
         """``inputs``: {blob: (N, C, H, W) tensor on the net's device, cast
         to the net's dtype here} -> {blob: tensor} for ``outputs`` (default
-        :meth:`output_names`).  ``operands``: what the layers run on, as
-        :meth:`operands` names them (default: the net's own); a device
-        program passes them as its inputs.
+        :meth:`output_names`).  Data-layer tops the caller does not feed are
+        pulled (:meth:`pull_data`).  ``operands``: what the convolutions run
+        on, as :meth:`operands` names them (default: the net's own); a device
+        program passes them as its inputs.  ``knobs``: ``switch_index``;
+        ``aux``: a dict BatchNorm leaves its batch statistics in (TRAIN).
+        Random layers draw from the net's :attr:`generator`.
 
         With ``conv1_kernel`` on, a conv1 block whose five layers appear in
         order in ``layers`` runs as one ``conv1_cuda.conv1_block_packed`` call,
         unless ``outputs`` names a blob inside it or its input's H or W is
         odd (Caffe's ceil-mode pooling then differs from the kernel's)."""
+        inputs = dict(inputs)
+        if self.data_layers and any(t not in inputs for t in self._data_top_to_layer):
+            inputs.update({k: v for k, v in self.pull_data().items() if k not in inputs})
         blobs: Dict[str, torch.Tensor] = {
             k: v.to(self.dtype).contiguous(memory_format=self.memory_format) if v.dim() == 4 else v
             for k, v in inputs.items()}
         outputs = list(outputs or self.output_names())
-        layers = self.layers if layers is None else list(layers)
-        ops = self.operands() if operands is None else operands
+        if layers is None:
+            layers = self.layers
+            if self.post_layers:  # they run only when the outputs need them
+                needed = {l.name for l in self.prune_for(outputs)}
+                layers = [l for l in layers if l.type not in ESTIMATOR_TYPES or l.name in needed]
+        layers = list(layers)
+        ctx = self.run_ctx(operands, knobs, aux)
+        ops = ctx.ops
         i = 0
         while i < len(layers):
             layer = layers[i]
@@ -672,47 +610,76 @@ class Net(nn.Module):
                 continue
             i += 1
             bots = [blobs[b] for b in layer.bottoms]
-            for t, top in zip(layer.tops, self._run_layer(layer, bots, ops)):
+            for t, top in zip(layer.tops, self._run_layer(layer, bots, ops, ctx)):
                 blobs[t] = top
         return {k: blobs[k] for k in outputs}
 
     def _run_layer(self, layer: Layer, bots: List[torch.Tensor],
-                   ops: Mapping[str, torch.Tensor]) -> Tuple[torch.Tensor, ...]:
-        """One layer's tops from its bottoms."""
-        p = layer.param
-        if layer.type == "Convolution":
-            return (self.convs[layer.name](bots[0], ops[f"{layer.name}::w"],
-                                           ops.get(f"{layer.name}::b")),)
-        if layer.type == "ReLU":
-            return (nn_ops.relu(bots[0], p["slope"]),)
-        if layer.type == "Pooling":
-            return (nn_ops.max_pool2d(bots[0], p["k"], p["s"], p["p"]),)
-        if layer.type == "Concat":
-            return (torch.cat(bots, dim=p["axis"]),)
-        if layer.type == "Slice":
-            b = p["bounds"]
-            return tuple(bots[0].narrow(p["axis"], b[j], b[j + 1] - b[j])
-                         for j in range(len(b) - 1))
-        if layer.type == "Eltwise":
-            if p["op"] == caffe_pb.ELTWISE_OP["PROD"]:
-                y = bots[0]
-                for x in bots[1:]:
-                    y = y * x
-            elif p["op"] == caffe_pb.ELTWISE_OP["SUM"]:
-                y = p["coeffs"][0] * bots[0]
-                for cf, x in zip(p["coeffs"][1:], bots[1:]):
-                    y = y + cf * x
-            else:  # MAX
-                y = bots[0]
-                for x in bots[1:]:
-                    y = torch.maximum(y, x)
-            return (y,)
-        if layer.type == "EuclideanLoss":
-            return (losses.euclidean(bots[0], bots[1]),)
-        if layer.type == "EuclideanmaskLoss":
-            mask = bots[2]
-            return (losses.euclidean_masked(bots[0], bots[1], mask.reshape(mask.shape[0], -1)),)
-        return ()  # Silence
+                   ops: Mapping[str, torch.Tensor],
+                   ctx: Optional[RunCtx] = None) -> Tuple[torch.Tensor, ...]:
+        """One layer's tops from its bottoms, through its registered module."""
+        return self.mods[layer.name].run(bots, ctx or self.run_ctx(ops))
+
+    def set_imresize(self, start_scale: Optional[float] = None,
+                     scale_gap: Optional[float] = None,
+                     target: Optional[Tuple[int, int]] = None) -> None:
+        """The ImResize layers' runtime knobs (imresize_layer.hpp:23-28:
+        SetStartScale, SetScaleGap, setTargetDimenions); ``target`` is
+        (height, width) and also reshapes the layers' tops."""
+        for layer in self.layers:
+            mod = self.mods[layer.name]
+            if layer.type != "ImResize":
+                continue
+            if start_scale is not None:
+                mod.start_scale = float(start_scale)
+            if scale_gap is not None:
+                mod.scale_gap = float(scale_gap)
+            if target is not None:
+                mod.target = (int(target[0]), int(target[1]))
+                n, c = mod.top_shapes[0][:2]
+                mod.top_shapes[0] = (n, c) + mod.target
+                self.blob_shapes[layer.tops[0]] = mod.top_shapes[0]
+
+    def set_input_arrays(self, data: np.ndarray, labels: Optional[np.ndarray] = None) -> None:
+        """Bind arrays to the net's MemoryData layer (pycaffe
+        Net.set_input_arrays, memory_data_layer.cpp Reset)."""
+        from .data_layers import MemoryDataLayer
+
+        for dl in self.data_layers:
+            if isinstance(dl, MemoryDataLayer):
+                dl.set_arrays(data, labels)
+                return
+        raise ValueError("net has no MemoryData layer")
+
+    def update_bn_stats(self, next_batch: Callable[[int], Mapping[str, Any]],
+                        n_batches: int = 10) -> int:
+        """Recompute BatchNorm's statistics from data, front to back (each
+        layer's after every upstream one has its own): ``n_batches``
+        forwards, each BatchNorm bottom's batch mean and variance averaged
+        (f64 on the host) and written with scale factor 1.  For nets trained
+        outside :class:`~..training.solver.Solver` (which rolls them every
+        step) or imported without statistics.  ``next_batch(i) -> {input:
+        array}``.  Returns the number of BatchNorm layers updated."""
+        bn = [l for l in self.layers if l.type == "BatchNorm"]
+        for layer in bn:
+            b = layer.bottoms[0]
+            s = sq = 0.0
+            for it in range(n_batches):
+                feed = {k: torch.as_tensor(np.asarray(v)).to(self.device)
+                        for k, v in next_batch(it).items()}
+                with torch.no_grad():
+                    arr = self.forward(feed, outputs=[b])[b].double().cpu().numpy()
+                axes = tuple(d for d in range(arr.ndim) if d != 1)
+                s = s + arr.mean(axis=axes)
+                sq = sq + (arr ** 2).mean(axis=axes)
+            mean = s / n_batches
+            var = np.maximum(sq / n_batches - mean ** 2, 0.0)
+            mod = self.mods[layer.name]
+            with torch.no_grad():
+                mod.mean.copy_(torch.from_numpy(mean.astype(np.float32)))
+                mod.variance.copy_(torch.from_numpy(var.astype(np.float32)))
+                mod.scale_factor.fill_(1.0)
+        return len(bn)
 
     # --------------------------------------------------------------- loss
 
@@ -722,16 +689,64 @@ class Net(nn.Module):
         return [(t, w) for layer in self.layers for t, w in zip(layer.tops, layer.loss_weights)
                 if w]
 
-    def loss(self, inputs: Mapping[str, torch.Tensor]
+    def loss(self, inputs: Mapping[str, torch.Tensor], aux: Optional[Dict[str, Any]] = None
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """One forward -> (the total weighted loss, sum over loss tops of
         weight times the top's sum; the net's output blobs from the same
         forward), as JAX's ``Net.make_loss_fn(with_outputs=True)``.
-        ``loss.backward()`` fills the parameters' gradients."""
+        ``loss.backward()`` fills the parameters' gradients; ``aux`` collects
+        BatchNorm's batch statistics."""
         tops = self.loss_tops()
         if not tops:
             raise ValueError("net has no loss tops")
-        names = self.output_names()
-        blobs = self.forward(inputs, outputs=list(dict.fromkeys(names + [t for t, _ in tops])))
+        fed = set(inputs) | set(self._data_top_to_layer)
+        # an input nothing feeds (read only by a layer the phase dropped) is
+        # no output of this forward
+        names = [n for n in self.output_names() if n not in self.input_names or n in fed]
+        blobs = self.forward(inputs, outputs=list(dict.fromkeys(names + [t for t, _ in tops])),
+                             aux=aux)
         total = sum(w * blobs[t].sum() for t, w in tops)
         return total, {k: blobs[k] for k in names}
+
+    def backward(self, inputs: Mapping[str, torch.Tensor],
+                 top_diffs: Mapping[str, Any]
+                 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, List[torch.Tensor]]]:
+        """Backward from given top diffs: the gradients of sum over tops of
+        top * diff with respect to every floating input and every parameter
+        blob (zeros where a blob does not reach the tops), as Caffe's
+        backward with ``force_backward``.  Returns ``({input: diff},
+        {layer: [blob diff, ...]})`` in Caffe's layout."""
+        feed = {k: torch.as_tensor(v).to(self.device) for k, v in inputs.items()}
+        leaves = {k: v.detach().float().requires_grad_(True) for k, v in feed.items()
+                  if v.is_floating_point()}
+        feed.update(leaves)
+        params = self.layer_blobs()
+        flat = [p for blobs in params.values() for p in blobs]
+        flags = [p.requires_grad for p in flat]
+        try:
+            for p in flat:
+                p.requires_grad_(True)
+            with torch.enable_grad():
+                blobs = self.forward(feed, outputs=list(top_diffs))
+                total = sum(torch.sum(blobs[k].float() * torch.as_tensor(
+                    np.asarray(d, np.float32) if not isinstance(d, torch.Tensor) else d,
+                    dtype=torch.float32, device=self.device).expand_as(blobs[k]))
+                    for k, d in top_diffs.items())
+                wrt = list(leaves.values()) + flat
+                grads = torch.autograd.grad(total, wrt, allow_unused=True)
+        finally:
+            for p, f in zip(flat, flags):
+                p.requires_grad_(f)
+        grads = [torch.zeros_like(w) if g is None else g for g, w in zip(grads, wrt)]
+        in_diffs = dict(zip(leaves, grads[: len(leaves)]))
+        it = iter(grads[len(leaves):])
+        param_diffs = {name: [next(it) for _ in blobs] for name, blobs in params.items()}
+        return in_diffs, param_diffs
+
+
+def _h5py():
+    try:
+        import h5py
+    except ImportError as e:
+        raise ImportError("HDF5 weights need h5py, which is not installed") from e
+    return h5py

@@ -1,20 +1,25 @@
-"""The ``caffe`` tool: train / time / device_query (reference
+"""The ``caffe`` tool: train / test / time / device_query (reference
 tools/caffe.cpp:180-422), the port of ``caffe_rtpose_tpu/tools/caffe_tool.py``.
 
     python -m caffe_rtpose_tpu_torch caffe train --solver solver.prototxt \\
-        --data synthetic-pose [--fused_labels] [--snapshot S.solverstate | --weights W.caffemodel]
+        [--data synthetic-pose] [--fused_labels] [--snapshot S.solverstate | --weights W.caffemodel]
+    python -m caffe_rtpose_tpu_torch caffe test --model train_val.prototxt \\
+        --weights W.caffemodel --iterations 50
     python -m caffe_rtpose_tpu_torch caffe time --model net.prototxt --phase TRAIN
     python -m caffe_rtpose_tpu_torch caffe device_query
 
-``--data`` (the port has no in-graph data layers): ``synthetic-pose`` (the
-CPM transformer over procedural figures), ``cpm-lmdb:PATH`` (a DB of the
-reference's genLMDB records), ``pose-db:PATH`` (a pose kvdb), an ``.npz`` or
-``.h5`` file whose keys are the net's input blobs, or (with
-``--fused_labels``) a JSON pose index.  ``--fused_labels`` ships u8 images
-and joint coordinates and rasterizes the labels on the device inside the
-step.  Everything runs on ``--device`` (default ``cuda``; ``cpu`` runs the
-same code on the host).  ``train --gpu``/``--spatial`` (several cards) and
-``test`` are not ported and say so.
+A net with data layers (Data, ImageData, MemoryData, HDF5Data, WindowData,
+CPMData) feeds itself.  Otherwise ``--data`` feeds its inputs:
+``synthetic-pose`` (the CPM transformer over procedural figures),
+``cpm-lmdb:PATH`` (a DB of the reference's genLMDB records), ``pose-db:PATH``
+(a pose kvdb), an ``.npz`` or ``.h5`` file whose keys are the net's input
+blobs, or (with ``--fused_labels``) a JSON pose index.  ``--fused_labels``
+ships u8 images and joint coordinates and rasterizes the labels on the
+device inside the step.  ``train`` builds the solver's test nets from
+``test_net`` or from the train net's file at TEST (with ``test_state``),
+tested every ``test_interval`` iterations.  Everything runs on
+``--device`` (default ``cuda``; ``cpu`` runs the same code on the host).
+``train --gpu``/``--spatial`` (several cards) are not ported and say so.
 """
 
 from __future__ import annotations
@@ -27,8 +32,6 @@ from typing import Dict, Iterator
 import numpy as np
 import torch
 
-NOT_PORTED_TEST = ("caffe test is not ported: its nets need the framework surface's layer "
-                   "types (data layers, accuracy)")
 NOT_PORTED_GPU = ("caffe train --gpu/--spatial (data parallelism over several cards) is not "
                   "ported; train on one card with --device")
 
@@ -53,9 +56,11 @@ def _pose_source(spec: str, size: int):
 
 
 def make_data_iter(spec: str, net) -> Iterator[Dict[str, np.ndarray]]:
-    """Endless batches for the net's input blobs from ``--data``."""
-    if not net.input_names:
-        raise ValueError("the net declares no input blobs (in-graph data layers are not ported)")
+    """Endless batches for the net's input blobs from ``--data``; empty ones
+    for a net that feeds itself (its data layers, or no inputs at all):
+    ``Net.forward`` pulls the data layers' batches."""
+    if net.data_layers or not net.input_names:
+        return iter(lambda: {}, None)
     batch = net.blob_shapes[net.input_names[0]][0]
     if spec == "synthetic-pose" or spec.startswith(("cpm-lmdb:", "pose-db:")):
         from ..training.datasets import pose_batches, prefetch_loader
@@ -144,7 +149,8 @@ def cmd_train(args) -> int:
         input_transform = make_input_transform(prm, data_u8=True)
     else:
         data_iter = make_data_iter(args.data, net)
-    solver = Solver(sp_msg, net, lambda it: next(data_iter), input_transform=input_transform)
+    solver = Solver(sp_msg, net, lambda it: next(data_iter), input_transform=input_transform,
+                    test_nets=_test_nets(args, sp, sp_msg, net_param))
     if args.snapshot:
         solver.restore(args.snapshot)
         print(f"Restored from {args.snapshot} at iter {solver.it}")
@@ -176,14 +182,73 @@ def cmd_train(args) -> int:
                 break
     finally:
         handler.restore()
-    if sp.snapshot_after_train and (sp.snapshot_prefix or args.snapshot_prefix):
+    # Solver::Solve (solver.cpp): a snapshot unless the step loop just took
+    # one, then one more test pass on the trained weights where the
+    # interval falls
+    snap = int(sp.snapshot) if sp.has("snapshot") else 0
+    if (sp.snapshot_after_train and (sp.snapshot_prefix or args.snapshot_prefix)
+            and (not snap or solver.it % snap)):
         solver.snapshot(args.snapshot_prefix or sp.snapshot_prefix)
+    interval = int(sp.test_interval) if sp.has("test_interval") else 0
+    if solver.test_nets and interval and solver.it % interval == 0:
+        solver.test_all()
     print(f"Optimization Done. Final loss {solver.smoothed_loss:.6f}")
     return 0
 
 
+def _test_nets(args, sp, sp_msg, net_param):
+    """The solver's test nets (tools/caffe.cpp, Solver::Init): ``test_net``
+    files, else the train net's file at TEST, each with its ``test_state``
+    and ``test_iter``; one without data layers reads ``--data``, or is
+    skipped with a warning when that cannot feed it."""
+    from ..core.net import Net
+
+    if not (sp.has("test_interval") and int(sp.test_interval) > 0):
+        return []
+    iters = [int(v) for v in sp.test_iter] or [50]
+    sources = list(sp.test_net) or ([net_param] if not sp.has("test_net") else [])
+    states = list(sp_msg.get("test_state", []))
+    out = []
+    for i, src in enumerate(sources):
+        kw = {}
+        if i < len(states):
+            if states[i].get("stage"):
+                kw["stages"] = list(states[i]["stage"])
+            if states[i].get("level"):
+                kw["level"] = int(states[i]["level"])
+        tnet = Net(src, phase="TEST", device=args.device, **kw)
+        fn = None
+        if not tnet.data_layers and tnet.input_names:
+            try:
+                feed = make_data_iter(args.data, tnet)
+            except ValueError:
+                print(f"warning: test net #{i} skipped: no usable data source for {args.data!r}",
+                      file=sys.stderr)
+                continue
+            fn = lambda it, _d=feed: next(_d)  # noqa: E731
+        out.append((tnet, fn, iters[min(i, len(iters) - 1)]))
+    return out
+
+
 def cmd_test(args) -> int:
-    raise NotImplementedError(NOT_PORTED_TEST)
+    """``caffe test``: ``--iterations`` forwards of the TEST net, each
+    output blob's mean averaged over them (tools/caffe.cpp:269)."""
+    from ..core.net import Net
+
+    net = Net(args.model, phase="TEST", device=args.device, **_netstate_kw(args))
+    if args.weights:
+        net.load_weights(args.weights)
+    data_iter = make_data_iter(args.data, net)
+    totals: Dict[str, float] = {}
+    with torch.no_grad():
+        for _ in range(args.iterations):
+            feed = {k: torch.as_tensor(np.asarray(v)).to(net.device)
+                    for k, v in next(data_iter).items()}
+            for k, v in net.forward(feed).items():
+                totals[k] = totals.get(k, 0.0) + float(v.float().mean())
+    for k, v in totals.items():
+        print(f"{k} = {v / args.iterations:.6g}")  # caffe.cpp's LOG: 6 significant digits
+    return 0
 
 
 def cmd_time(args) -> int:
@@ -230,7 +295,14 @@ def build_parser():
     t.add_argument("--device", default="cuda")
     t.set_defaults(fn=cmd_train)
 
-    te = sub.add_parser("test", help="not ported")
+    te = sub.add_parser("test")
+    te.add_argument("--model", required=True)
+    te.add_argument("--weights", default="")
+    te.add_argument("--data", default="synthetic-pose")
+    te.add_argument("--iterations", type=int, default=50)
+    te.add_argument("--level", type=int, default=0)
+    te.add_argument("--stage", default="", help="comma-separated NetState stages")
+    te.add_argument("--device", default="cuda")
     te.set_defaults(fn=cmd_test)
 
     ti = sub.add_parser("time")

@@ -22,10 +22,17 @@ JAX one, ``{"h0": {layer: [weight, bias]}, ...}`` (OIHW weights), so
 it in Caffe's order (slots, then layers, then blobs) into the same
 ``.solverstate`` the JAX solver writes.
 
-Out of this slice, each raising ``NotImplementedError``: test nets
-(``test_interval``: their nets need layer types the port lacks), ``mesh``
-data parallelism (``caffe train --gpu``), bf16 training, and BatchNorm's
-statistics roll (the port has no BatchNorm layer yet).
+Test nets (Solver::TestAll, solver.cpp:328-380) share the train net's
+parameter blobs by layer name (``Net.share_with``) and average their output
+blobs over ``test_iter`` forwards every ``test_interval`` iterations
+(``test_initialization`` tests at iteration 0).  A BatchNorm layer in a
+TRAIN net leaves its batch statistics with the step, which rolls its
+running averages as the reference's forward does (batch_norm_layer.cpp:
+120-136): scale = scale * maf + 1, mean = mu + maf * mean, variance =
+m/(m-1) var_batch + maf * variance, once a forward.
+
+Out of this slice, each raising ``NotImplementedError``: ``mesh`` data
+parallelism (``caffe train --gpu``) and bf16 training.
 """
 
 from __future__ import annotations
@@ -158,10 +165,14 @@ def _parse_solver(solver_param) -> Dict[str, Any]:
 
 
 class Solver:
-    """Training driver: the Step loop, snapshot and restore (Solver::Step,
-    solver.cpp:194-327).  ``next_batch(it) -> {blob: numpy array or
-    tensor}`` feeds it (the port has no data layers), or a
-    :class:`~.datasets.StagedBatch` already on the device.
+    """The training loop: Step, test nets, snapshot and restore
+    (Solver::Step, solver.cpp:194-327).  ``next_batch(it) -> {blob: numpy
+    array or tensor}`` feeds it, or a :class:`~.datasets.StagedBatch`
+    already on the device; a net with data layers feeds itself from ``{}``.
+
+    ``test_nets``: ``[(net, data_fn or None, test_iter), ...]``, a TEST net
+    each; ``data_fn(it) -> {blob: array}`` feeds one that has no data
+    layers of its own.
 
     ``input_transform``: ``fn({blob: tensor}) -> {blob: tensor}`` run on the
     device inside each step before the net, e.g. the CPM labels rasterized
@@ -172,10 +183,6 @@ class Solver:
                  input_transform: Optional[Callable] = None, mesh=None):
         self.sp_msg = _parse_solver(solver_param)
         self.sp = caffe_pb.view(self.sp_msg, "SolverParameter")
-        if test_nets or int(self.sp.test_interval) > 0:
-            raise NotImplementedError(
-                "test nets (test_interval) are not ported: their nets need layer types of "
-                "the framework surface; train without them")
         if mesh is not None:
             raise NotImplementedError("mesh data parallelism is not ported (caffe train --gpu)")
         if net.dtype != torch.float32:
@@ -194,6 +201,10 @@ class Solver:
             self.lr_mults.setdefault(name, []).append(lr)
             self.decay_mults.setdefault(name, []).append(dm)
         self.history = init_history(self.type, self.params)
+        self.test_nets: List[Tuple[Any, Optional[Callable], int]] = list(test_nets or [])
+        # BatchNorm layers that normalize by the batch: (maf, m) for the roll
+        self._bn = {name: (mod.maf, mod.count) for name, mod in net.mods.items()
+                    if mod.type == "BatchNorm" and not mod.use_global}
         self._update = make_update_fn(self.type, self.sp, self.lr_mults, self.decay_mults)
         # output blobs of the most recent training forward (Solver::Step's
         # display, pycaffe's read-after-step)
@@ -211,7 +222,11 @@ class Solver:
         """Run ``iters`` iterations; returns the last loss."""
         loss_val = float("nan")
         iter_size = int(self.sp.iter_size)
+        interval = int(self.sp.test_interval) if self.sp.has("test_interval") else 0
         for _ in range(iters):
+            if (self.test_nets and interval and self.it % interval == 0
+                    and (self.it > 0 or bool(self.sp.test_initialization))):
+                self.test_all()
             lr = learning_rate(self.sp, self.it)
             for ps in self.params.values():
                 for p in ps:
@@ -221,8 +236,11 @@ class Solver:
                 inputs = self._inputs(self.next_batch(self.it))
                 if self.input_transform is not None:
                     inputs = self.input_transform(inputs)
-                loss, outs = self.net.loss(inputs)
+                aux = {} if self._bn else None
+                loss, outs = self.net.loss(inputs, aux=aux)
                 loss.backward()  # diffs accumulate over iter_size, as Caffe's
+                if aux:
+                    self._bn_roll(aux)
                 self.last_outputs = {k: v.detach() for k, v in outs.items()}
                 total = loss.detach() if total is None else total + loss.detach()
             grads = {name: [p.grad for p in ps] for name, ps in self.params.items()}
@@ -238,6 +256,48 @@ class Solver:
             if self.sp.snapshot and self.it % int(self.sp.snapshot) == 0 and self.sp.snapshot_prefix:
                 self.snapshot()
         return loss_val
+
+    @torch.no_grad()
+    def _bn_roll(self, stats: Dict[str, Tuple[torch.Tensor, torch.Tensor]]) -> None:
+        """Roll each BatchNorm layer's running statistics with one forward's
+        batch mean and variance, as the JAX ``Solver._bn_roll``."""
+        blobs = self.net.layer_blobs()
+        for name, (mu, var) in stats.items():
+            maf, m = self._bn[name]
+            mean_b, var_b, scale_b = blobs[name]
+            corr = m / (m - 1) if m > 1 else 1.0
+            mean_b.copy_(mu + maf * mean_b)
+            var_b.copy_(corr * var + maf * var_b)
+            scale_b.copy_(scale_b * maf + 1.0)
+
+    def test_all(self) -> Dict[str, float]:
+        """Run every test net (Solver::TestAll); returns ``{blob: mean}`` of
+        the last."""
+        scores: Dict[str, float] = {}
+        for i in range(len(self.test_nets)):
+            scores = self.test(i)
+        return scores
+
+    @torch.no_grad()
+    def test(self, test_net_id: int = 0) -> Dict[str, float]:
+        """Solver::Test (solver.cpp:337-380): the train net's blobs shared by
+        layer name, each output blob's mean averaged over ``test_iter``
+        forwards."""
+        net, data_fn, test_iter = self.test_nets[test_net_id]
+        print(f"Iteration {self.it}, Testing net (#{test_net_id})")
+        net.share_with(self.net)
+        n = max(1, int(test_iter))
+        totals: Dict[str, float] = {}
+        for _ in range(n):
+            inputs = data_fn(self.it) if data_fn is not None else {}
+            feed = {k: torch.as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor) else v)
+                    .to(net.device) for k, v in inputs.items()}
+            for k, v in net.forward(feed).items():
+                totals[k] = totals.get(k, 0.0) + float(v.float().mean())
+        means = {k: v / n for k, v in totals.items()}
+        for j, (k, v) in enumerate(sorted(means.items())):
+            print(f"    Test net output #{j}: {k} = {v:.6g}")
+        return means
 
     def train_outputs(self) -> Dict[str, np.ndarray]:
         """Output blobs of the last training forward as numpy (Caffe
@@ -328,7 +388,7 @@ class Solver:
 
         model_path = f"{prefix}_iter_{self.it}.caffemodel.h5"
         state_path = f"{prefix}_iter_{self.it}.solverstate.h5"
-        save_hdf5_weights(self.net, model_path + ".tmp")
+        self.net.save_hdf5(model_path + ".tmp")
         os.replace(model_path + ".tmp", model_path)
         with h5py.File(state_path + ".tmp", "w") as f:
             f["iter"] = np.int64(self.it)
@@ -351,28 +411,5 @@ class Solver:
                 learned = learned.decode()
             blobs = [np.asarray(f["history"][str(i)]) for i in range(len(f["history"]))]
         if learned:
-            load_hdf5_weights(self.net, learned)
+            self.net.load_hdf5(learned)
         self._load_history_arrays(blobs)
-
-
-def save_hdf5_weights(net, path: str) -> None:
-    """Net::ToHDF5 (net.cpp): group ``data``, one group a layer, datasets
-    ``0``, ``1``, ... in Caffe layout."""
-    import h5py
-
-    with h5py.File(path, "w") as f:
-        grp = f.create_group("data")
-        for name, blobs in net.export_weights().items():
-            lg = grp.create_group(name)
-            for i, arr in enumerate(blobs):
-                lg.create_dataset(str(i), data=arr)
-
-
-def load_hdf5_weights(net, path: str) -> int:
-    """Net::CopyTrainedLayersFromHDF5: groups matched by layer name."""
-    import h5py
-
-    with h5py.File(path, "r") as f:
-        weights = {name: [np.asarray(lg[str(i)]) for i in range(len(lg))]
-                   for name, lg in f["data"].items()}
-    return net.load_weights(weights)

@@ -49,8 +49,7 @@ def time_net(net, inputs: Mapping[str, torch.Tensor], iterations: int = 10,
             timer.stop()
         fwd_ms = timer.milli_seconds() / iterations
         bwd_ms = float("nan")
-        conv = net.convs[layer.name] if layer.name in net.convs else None
-        params = [] if conv is None else [p for p in (conv.weight, conv.bias) if p is not None]
+        params = net.mods[layer.name].blobs()
         if backward:
             gbots = [b.detach().requires_grad_(b.is_floating_point()) for b in bots]
             leaves = _differentiable(params, gbots)

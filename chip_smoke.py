@@ -107,9 +107,34 @@ Phases, each of which raises (non-zero exit) on failure:
                (within 1e-5), and a deploy PoseEstimator from the snapshot's
                caffemodel (every convolution by layer name) on one frame;
                caffe train (3 iterations, --fused_labels) and caffe time
-               --phase TRAIN in new processes.  Last of all, two steps under
+               --phase TRAIN in new processes.  Then two steps under
                torch.profiler: the kernels a step by device time and the
                busy share of the step.
+   framework - (last) the Caffe framework surface, the hand kernels'
+               counters zeroed before and read after (it launches none of
+               K1-K4): (a) every registered layer type but HDF5Data and
+               HDF5Output (no h5py there) as the CPU tests' small nets
+               (tests/test_torch_layers_*.py; the data layers over sources
+               written here), the card's forward within 1e-5*max(1,|y|) of
+               the CPU's and its input and parameter gradients within 1e-4
+               of each blob's largest, integer tops exact; Dropout's kept
+               share over 1M elements within 2 % of 1-p and its scale,
+               STOCHASTIC pooling's draws each in its window; (b) caffe
+               train on CaffeNet's train_val (Data layers, TRAIN/TEST
+               rules, a mean file, crop 227, mirror) over a kvdb of 512
+               seeded 3x256x256 Datums, batch 256, SGD 0.01/0.9/5e-4, 20
+               iterations, a test pass (2 x 256) every 10 and after the
+               last, the snapshot: iters/s, imgs/s, Solver.step between CUDA
+               events, the Data layer's host ms a batch, the test outputs,
+               peak memory; (c) a narrow CaffeNet (widths cut, crop 67,
+               batch 4, no Dropout) 3 SGD steps on the card and the CPU
+               (losses within 1e-5 relative, parameters within 1e-4 of each
+               blob's largest); (d) caffe test on the snapshot in a new
+               process, equal to (b)'s last test pass within 1e-5; (e)
+               api.Net on CaffeNet's deploy form at batch 10 and on the COCO
+               pose deploy graph bit for bit against Net.forward, classify
+               (10 crops) on 4 PNGs with rows summing to 1; then two of
+               (b)'s steps under torch.profiler.
 4. slice     - the full-width COCO estimator (656x368, 1 scale, u8 input,
                pair_cap=32, f32) over 8 synthetic frames through
                estimate_from_net_input (graph replays), with the peak-mask
@@ -169,7 +194,8 @@ hundreds of peaks in every part).
 
 The bf16 phases reuse the 1-scale f32 slice's weights and frames.
 
-The train phase prints its own JSON line ({"train": ...}) before them.
+The train and framework phases print their JSON lines ({"train": ...},
+{"framework": ...}) before them.
 The last three lines are: a JSON object with one entry per TPU kernel (K1
 and its 3-scale form K2 listed apart), the card's name and power limit as
 nvidia-smi prints them, and {"ok": true, "device": {...}}.
@@ -2401,7 +2427,7 @@ def phase_train(device="cuda"):
                 resume=resume, cli=cli, hand_kernel_launches=counts), solver
 
 
-def phase_train_profile(solver, step_ms, steps=2, top=10):
+def phase_train_profile(solver, step_ms, steps=2, top=10, tag="[train profile]"):
     """Where a full-width step's device time goes: ``steps`` steps of the
     solver (on its last batch) under torch.profiler, the kernels by device
     ms; busy share = the kernels' device ms a step over ``step_ms``, the
@@ -2415,7 +2441,7 @@ def phase_train_profile(solver, step_ms, steps=2, top=10):
     torch.cuda.synchronize()
     busy = busy_ms / steps
     rows = sorted(by_name.items(), key=lambda kv: -kv[1][1])
-    print(f"[train profile] {steps} steps: {n_kernels / steps:.0f} kernels a step, busy "
+    print(f"{tag} {steps} steps: {n_kernels / steps:.0f} kernels a step, busy "
           f"{busy:.1f} ms a step, {busy / step_ms:.3f} of the {step_ms:.1f} ms step; top by "
           "device ms a step: " + "; ".join(
               f"{name[:70]} x{n // steps} {ms / steps:.1f} ms" for name, (n, ms) in rows[:top]))
@@ -2423,6 +2449,564 @@ def phase_train_profile(solver, step_ms, steps=2, top=10):
                 busy_share=busy / step_ms,
                 top=[dict(name=name, launches_a_step=n / steps, ms_a_step=ms / steps)
                      for name, (n, ms) in rows[:top]])
+
+
+# -------------------------------------------------------------- framework
+
+FW_BATCH, FW_CROP, FW_SIZE, FW_RECORDS = 256, 227, 256, 512  # CaffeNet, batch 256
+FW_ITERS, FW_TEST_INTERVAL, FW_TEST_ITER = 20, 10, 2
+FW_SOLVER = ("base_lr: 0.01\nlr_policy: 'fixed'\nmomentum: 0.9\nweight_decay: 5e-4\n"
+             "display: 10\n")
+H5PY_TYPES = ("HDF5Data", "HDF5Output")  # the card's machine has no h5py
+TOL_ZOO_FWD = 1e-5  # card against CPU: |a - b| <= 1e-5 * max(1, |b|)
+TOL_ZOO_GRAD = 1e-4  # gradients: within 1e-4 of each blob's largest |b|
+TOL_KEPT = 0.02  # Dropout / STOCHASTIC: kept share within 2 % of 1 - p
+TOL_FW_LOSS, TOL_FW_PARAM = 1e-5, 1e-4  # the narrow CaffeNet's 3 steps, card against CPU
+TOL_FW_TEST = 1e-5  # caffe test against the train run's last test pass
+
+
+def zoo_cases():
+    """The layer cases of the CPU test files (``tests/test_torch_layers_*``,
+    each held against JAX there): one small net a case."""
+    import os
+
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import test_torch_layers_loss
+    import test_torch_layers_neuron
+    import test_torch_layers_recurrent
+    import test_torch_layers_shape
+    import test_torch_layers_vision
+
+    return [c for m in (test_torch_layers_neuron, test_torch_layers_vision,
+                        test_torch_layers_loss, test_torch_layers_shape,
+                        test_torch_layers_recurrent) for c in m.CASES]
+
+
+def zoo_errors(got, ref, ints=()):
+    """{name: (worst |a-b| over its tolerance, exact)} of two {name: array}."""
+    out = {}
+    for k, b in ref.items():
+        a, b = np.asarray(got[k], np.float64), np.asarray(b, np.float64)
+        check(a.shape == b.shape, f"[framework zoo] {k}: shape {a.shape} vs {b.shape}")
+        if k in ints:
+            out[k] = (0.0 if np.array_equal(a, b) else float("inf"), True)
+        else:
+            out[k] = (float((np.abs(a - b) / (TOL_ZOO_FWD * np.maximum(1.0, np.abs(b)))).max())
+                      if b.size else 0.0, False)
+    return out
+
+
+def zoo_case_on(case, device):
+    """One case on ``device`` and on the CPU from the same blobs: the tops,
+    then (unless the case has no gradient) the input and parameter diffs of
+    sum(top * seeded diff)."""
+    import torch
+
+    from caffe_rtpose_tpu_torch.core.net import Net
+
+    proto = {"name": case.id, "input": list(case.inputs),
+             "input_shape": [{"dim": list(v.shape)} for v in case.inputs.values()],
+             "layer": case.layers}
+    nets = {d: Net(proto, phase=case.phase, device=d) for d in (device, "cpu")}
+    rs = np.random.RandomState(17)
+    weights = case.weights or {name: [(rs.randn(*b.shape) * 0.5).astype(np.float32)
+                                      for b in blobs]
+                               for name, blobs in nets["cpu"].layer_blobs().items()}
+    tops = list(case.tops or dict.fromkeys(t for l in case.layers for t in l.get("top", [])))
+    res = {}
+    for d, net in nets.items():
+        net.load_weights(weights)
+        feed = {k: torch.from_numpy(v.copy()).to(d) for k, v in case.inputs.items()}
+        with torch.no_grad():
+            out = {k: v.float().cpu().numpy() for k, v in net.forward(feed, outputs=tops).items()}
+        diffs = {t: np.asarray(np.random.RandomState(5).randn(*out[t].shape), np.float32)
+                 for t in tops if t not in case.int_tops}
+        grads = {}
+        if case.grads:
+            din, dparams = net.backward(feed, diffs)
+            grads = {f"d{k}": v.cpu().numpy() for k, v in din.items() if k not in case.no_grad}
+            grads.update({f"d{k}[{i}]": g.cpu().numpy() for k, gs in dparams.items()
+                          for i, g in enumerate(gs)})
+        res[d] = (out, grads)
+    (out, grads), (ref, rgrads) = res[device], res["cpu"]
+    fwd = zoo_errors(out, ref, case.int_tops)
+    bwd = {k: float(np.abs(grads[k] - g).max() / (TOL_ZOO_GRAD * max(np.abs(g).max(), 1e-6)))
+           for k, g in rgrads.items()}
+    return fwd, bwd
+
+
+def zoo_random(device, n=1 << 20):
+    """Dropout and STOCHASTIC pooling draw on the card: Dropout's kept share
+    over 1M elements within 2 % of 1 - p, each kept value x/(1 - p);
+    STOCHASTIC's outputs each an element of its window."""
+    import torch
+
+    from caffe_rtpose_tpu_torch.core.net import Net
+
+    out = {}
+    x = torch.rand(16, 64, 32, 32, device=device) + 0.5  # 1M elements
+    for ratio in (0.5, 0.3):
+        net = Net({"input": ["x"], "input_shape": [{"dim": list(x.shape)}],
+                   "layer": [{"name": "d", "type": "Dropout", "bottom": ["x"], "top": ["y"],
+                              "dropout_param": {"dropout_ratio": ratio}}]},
+                  phase="TRAIN", device=device, seed=1)
+        with torch.no_grad():
+            y = net.forward({"x": x})["y"]
+        kept = y != 0
+        share = kept.float().mean().item()
+        scale_err = float(((y[kept] * (1 - ratio) - x[kept]).abs() / x[kept]).max())
+        check(abs(share - (1 - ratio)) <= TOL_KEPT * (1 - ratio),
+              f"[framework zoo] Dropout {ratio}: kept share {share}")
+        check(scale_err <= 1e-6, f"[framework zoo] Dropout {ratio}: scale off by {scale_err}")
+        out[f"Dropout {ratio}"] = dict(kept_share=share, scale_rel_err=scale_err)
+    net = Net({"input": ["x"], "input_shape": [{"dim": [16, 64, 33, 33]}],
+               "layer": [{"name": "p", "type": "Pooling", "bottom": ["x"], "top": ["y"],
+                          "pooling_param": {"pool": 2, "kernel_size": 3, "stride": 2}}]},
+              phase="TRAIN", device=device, seed=2)
+    xs = torch.rand(16, 64, 33, 33, device=device) + 0.5
+    with torch.no_grad():
+        y = net.forward({"x": xs})["y"]
+    wins = torch.nn.functional.unfold(xs, 3, stride=2).reshape(16, 64, 9, 16, 16)
+    member = (wins == y.reshape(16, 64, 1, 16, 16)).any(2).float().mean().item()
+    check(member == 1.0, f"[framework zoo] STOCHASTIC: {member} of outputs in their window")
+    out["STOCHASTIC"] = dict(outputs=int(y.numel()), in_window_share=member)
+    return out
+
+
+def write_fw_sources(work, rs):
+    """The data layers' sources for the zoo: a kvdb of Datums, PNGs and
+    their list, a window file, a CPM genLMDB-format DB, a mean file."""
+    import os
+
+    from caffe_rtpose_tpu_torch.core.data_layers import write_mean_binaryproto
+    from caffe_rtpose_tpu_torch.pipeline.image_io import encode_png
+    from caffe_rtpose_tpu_torch.proto import datum
+    from caffe_rtpose_tpu_torch.training.cpm_lmdb import write_cpm_db
+    from caffe_rtpose_tpu_torch.training.transformer import Meta, Person
+    from caffe_rtpose_tpu_torch.utils import db as dbmod
+
+    d = dbmod.open_db(os.path.join(work, "zoo_db"), "w", backend="kvdb")
+    txn = d.new_transaction()
+    imgs = rs.randint(0, 256, (8, 3, 12, 10)).astype(np.uint8)
+    for i, a in enumerate(imgs):
+        txn.put(f"{i:08d}", datum.serialize_datum(datum.array_to_datum(a, i % 3)))
+    txn.commit()
+    d.close()
+    write_mean_binaryproto(os.path.join(work, "zoo_mean.binaryproto"),
+                           imgs.mean(0).astype(np.float32))
+    for i in range(3):
+        with open(os.path.join(work, f"zoo{i}.png"), "wb") as f:
+            f.write(encode_png(rs.randint(0, 256, (40, 50, 3)).astype(np.uint8)))
+    with open(os.path.join(work, "zoo_list.txt"), "w") as f:
+        f.write("".join(f"zoo{i}.png {i}\n" for i in range(3)))
+    with open(os.path.join(work, "zoo_win.txt"), "w") as f:
+        f.write(f"# 0\n{work}/zoo0.png\n3 40 50\n2\n1 0.9 5 5 30 30\n0 0.1 0 0 10 10\n")
+    recs = []
+    for _ in range(2):
+        j = rs.uniform(10, 80, size=(17, 2)).astype(np.float32)
+        recs.append((rs.randint(0, 256, (96, 96, 3)).astype(np.uint8),
+                     Meta(people=[Person(j, np.ones(17, np.int32), j.mean(0))], scale_self=1.0),
+                     np.full((96, 96), 255, np.uint8)))
+    write_cpm_db(recs, os.path.join(work, "zoo_cpm"))
+
+
+def zoo_data_layers(device, work):
+    """Each data layer feeding an AbsVal, its net on the card and on the
+    CPU: the batches and the AbsVal within the forward tolerance (the same
+    seeded numpy on both sides)."""
+    import torch
+
+    from caffe_rtpose_tpu_torch.core.net import Net
+
+    layers = {
+        "Data": {"data_param": {"source": f"{work}/zoo_db", "batch_size": 3},
+                 "transform_param": {"crop_size": 8, "mirror": True,
+                                     "mean_file": f"{work}/zoo_mean.binaryproto"}},
+        "ImageData": {"image_data_param": {"source": f"{work}/zoo_list.txt", "batch_size": 2,
+                                           "root_folder": f"{work}/", "new_height": 24,
+                                           "new_width": 30}},
+        "MemoryData": {"memory_data_param": {"batch_size": 2, "channels": 2, "height": 3,
+                                             "width": 4}},
+        "WindowData": {"window_data_param": {"source": f"{work}/zoo_win.txt", "batch_size": 4,
+                                             "crop_size": 16, "fg_fraction": 0.5,
+                                             "context_pad": 2, "mirror": True}},
+        "CPMData": {"data_param": {"source": f"{work}/zoo_cpm", "batch_size": 2},
+                    "transform_param": {"stride": 8, "crop_size_x": 64, "crop_size_y": 64,
+                                        "num_parts": 56, "np_in_lmdb": 17}},
+    }
+    out = {}
+    arrays = np.random.RandomState(3).randn(4, 2, 3, 4).astype(np.float32)
+    for t, params in layers.items():
+        proto = {"layer": [{"name": "d", "type": t, "top": ["data", "label"], **params},
+                           {"name": "a", "type": "AbsVal", "bottom": ["data"], "top": ["y"]}]}
+        res = {}
+        for d in (device, "cpu"):
+            net = Net(proto, phase="TRAIN", device=d)
+            if t == "MemoryData":
+                net.set_input_arrays(arrays, np.arange(4, dtype=np.float32))
+            with torch.no_grad():
+                res[d] = {k: v.float().cpu().numpy()
+                          for k, v in net.forward({}, outputs=["data", "label", "y"]).items()}
+        out[t] = zoo_errors(res[device], res["cpu"])
+    return out
+
+
+def phase_framework_zoo(work, device="cuda"):
+    """(a) Every registered type but the h5py ones on the card against the
+    CPU, TF32 off."""
+    from caffe_rtpose_tpu_torch import api
+
+    tag = "[framework zoo]"
+    checked, worst_fwd, worst_bwd, rows = set(), 0.0, 0.0, {}
+    for case in zoo_cases():
+        types = {l["type"] for l in case.layers}
+        if types & set(H5PY_TYPES):
+            continue
+        fwd, bwd = zoo_case_on(case, device)
+        for k, (ratio, exact) in fwd.items():
+            check(ratio <= 1.0, f"{tag} {case.id}: top {k} off by {ratio} of its tolerance"
+                                f"{' (exact)' if exact else ''}")
+        for k, ratio in bwd.items():
+            check(ratio <= 1.0, f"{tag} {case.id}: {k} off by {ratio} of its tolerance")
+        worst_fwd = max([worst_fwd] + [r for r, _ in fwd.values()])
+        worst_bwd = max([worst_bwd] + list(bwd.values()))
+        rows[case.id] = dict(fwd=max([r for r, _ in fwd.values()] or [0.0]),
+                             grads=max(list(bwd.values()) or [0.0]))
+        checked |= types
+    data = zoo_data_layers(device, work)
+    for t, errs in data.items():
+        check(all(r <= 1.0 for r, _ in errs.values()), f"{tag} data layer {t}: {errs}")
+    checked |= set(data)
+    random = zoo_random(device)
+    registered = set(api.layer_type_list())
+    missing = registered - checked - set(H5PY_TYPES)
+    check(not missing, f"{tag} registered types neither checked nor h5py-only: {missing}")
+    print(f"{tag} {len(checked & registered)} of {len(registered)} registered types checked on "
+          f"the card against the CPU ({len(rows)} layer cases, {len(data)} data layers; not run: "
+          f"{', '.join(H5PY_TYPES)}, which need h5py); worst forward {worst_fwd:.3g} and "
+          f"gradient {worst_bwd:.3g} of their tolerances (1e-5*max(1,|y|), 1e-4 of each "
+          f"blob's largest); integer tops exact; {json.dumps(random)}")
+    return dict(types_checked=len(checked & registered), types_registered=len(registered),
+                not_run=list(H5PY_TYPES), cases=len(rows), worst_fwd_ratio=worst_fwd,
+                worst_grad_ratio=worst_bwd, random=random)
+
+
+def write_caffenet_db(work):
+    """512 seeded 3x256x256 u8 Datums (numpy seed 0, labels 0-999) in a kvdb
+    and their mean as a .binaryproto; (seconds, MB)."""
+    import os
+
+    from caffe_rtpose_tpu_torch.core.data_layers import write_mean_binaryproto
+    from caffe_rtpose_tpu_torch.proto import datum
+    from caffe_rtpose_tpu_torch.utils import db as dbmod
+
+    t0 = time.perf_counter()
+    rs = np.random.RandomState(0)
+    path = os.path.join(work, "caffenet_db")
+    d = dbmod.open_db(path, "w", backend="kvdb")
+    txn = d.new_transaction()
+    total = np.zeros((3, FW_SIZE, FW_SIZE), np.float64)
+    for i in range(FW_RECORDS):
+        img = rs.randint(0, 256, (3, FW_SIZE, FW_SIZE)).astype(np.uint8)
+        total += img
+        txn.put(f"{i:08d}", datum.serialize_datum(datum.array_to_datum(img, int(rs.randint(1000)))))
+    txn.commit()
+    d.close()
+    write_mean_binaryproto(os.path.join(work, "caffenet_mean.binaryproto"),
+                           (total / FW_RECORDS).astype(np.float32))
+    mb = (os.path.getsize(path) if os.path.isfile(path) else
+          sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(path) for f in fs)) / 1e6
+    return path, time.perf_counter() - t0, mb
+
+
+def caffenet_flops(net):
+    """One train step's operations, 2 a multiply-add: each convolution's and
+    inner product's forward, weight gradient and (but the first layer's)
+    input gradient."""
+    total = 0
+    for layer in net.layers:
+        mod = net.mods[layer.name]
+        if layer.type == "Convolution":
+            n, co, h, w = net.blob_shapes[layer.tops[0]]
+            macs = n * co * h * w * mod.weight.shape[1] * mod.kernel[0] * mod.kernel[1]
+        elif layer.type == "InnerProduct":
+            macs = mod.m * mod.k * mod.weight.shape[0]
+        else:
+            continue
+        total += 2 * macs * (2 if layer.bottoms[0] in net.input_names else 3)
+    return total
+
+
+def phase_framework_train(work, device="cuda"):
+    """(b) caffe train at CaffeNet's full width: the train_val with Data
+    layers over the 512-record kvdb, SGD, 20 iterations, a test every 10,
+    the snapshot at the end.  Solver.step is timed between CUDA events and
+    the Data layer's batches on the host, in the same process."""
+    import contextlib
+    import io
+    import os
+
+    import torch
+
+    from caffe_rtpose_tpu_torch.core import data_layers
+    from caffe_rtpose_tpu_torch.models.caffenet import make_caffenet_train_val
+    from caffe_rtpose_tpu_torch.proto import prototxt
+    from caffe_rtpose_tpu_torch.tools import caffe_tool
+    from caffe_rtpose_tpu_torch.training import solver as solver_mod
+
+    tag = "[framework train]"
+    db, db_s, db_mb = write_caffenet_db(work)
+    mean = os.path.join(work, "caffenet_mean.binaryproto")
+    tv = os.path.join(work, "caffenet_train_val.prototxt")
+    prototxt.dump_file(make_caffenet_train_val(db, db, mean, batch=FW_BATCH,
+                                               test_batch=FW_BATCH, crop=FW_CROP), tv)
+    solver_path = os.path.join(work, "caffenet_solver.prototxt")
+    with open(solver_path, "w") as f:
+        f.write(f'net: "{tv}"\n{FW_SOLVER}max_iter: {FW_ITERS}\n'
+                f"test_interval: {FW_TEST_INTERVAL}\ntest_iter: {FW_TEST_ITER}\n"
+                f'snapshot_prefix: "{work}/caffenet"\n')
+    step_ms, host_ms, solvers = [], [], []
+    orig_step, orig_batches = solver_mod.Solver.step, data_layers.DataLayer.batches
+
+    def timed_step(self, iters=1, callback=None):
+        solvers[:] = [self]
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        loss = orig_step(self, iters, callback)
+        b.record()
+        b.synchronize()
+        step_ms.append(a.elapsed_time(b))
+        return loss
+
+    def timed_batches(self):
+        gen = orig_batches(self)
+        while True:
+            t0 = time.perf_counter()
+            batch = next(gen)
+            if self.batch_size == FW_BATCH and self.tf.phase == "TRAIN":
+                host_ms.append((time.perf_counter() - t0) * 1e3)
+            yield batch
+
+    solver_mod.Solver.step, data_layers.DataLayer.batches = timed_step, timed_batches
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = caffe_tool.main(["train", "--solver", solver_path, "--device", device])
+    finally:
+        solver_mod.Solver.step, data_layers.DataLayer.batches = orig_step, orig_batches
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    text = out.getvalue()
+    check(rc == 0 and "Optimization Done" in text, f"{tag} caffe train: exit {rc}\n{text[-3000:]}")
+    tests = re.findall(r"Iteration (\d+), Testing net \(#0\)\n\s+Test net output #0: accuracy = "
+                       r"([\d.e+-]+)\n\s+Test net output #1: loss = ([\d.e+-]+)", text)
+    losses = [float(x) for x in re.findall(r"loss = ([\d.e+-]+) \(smoothed", text)]
+    check([int(i) for i, _, _ in tests] == list(range(0, FW_ITERS + 1, FW_TEST_INTERVAL)),
+          f"{tag} test passes {tests}")
+    check(all(np.isfinite([float(a), float(l)]).all() for _, a, l in tests),
+          f"{tag} non-finite test outputs {tests}")
+    snapshot = f"{work}/caffenet_iter_{FW_ITERS}.caffemodel"
+    check(os.path.exists(snapshot), f"{tag} no snapshot {snapshot}")
+    solver = solvers[0]
+    timed = step_ms[2:]  # the first two take cuDNN's first calls
+    med = statistics.median(timed)
+    flops = caffenet_flops(solver.net)
+    bound_ms = flops / F32_FLOPS * 1e3
+    ips = len(step_ms) / (sum(step_ms) / 1e3)
+    res = dict(iters=FW_ITERS, wall_s=wall, iters_s_wall=FW_ITERS / wall,
+               imgs_s_wall=FW_ITERS * FW_BATCH / wall, step_ms_median=med,
+               step_ms=step_ms, iters_s_steps=ips, imgs_s_steps=ips * FW_BATCH,
+               host_data_ms_median=statistics.median(host_ms), host_batches=len(host_ms),
+               peak_gib=peak, tflop_a_step=flops / 1e12, bound_ms=bound_ms,
+               bound_share=bound_ms / med, losses=losses,
+               tests=[dict(iter=int(i), accuracy=float(a), loss=float(l)) for i, a, l in tests],
+               db_write_s=db_s, db_mb=db_mb, snapshot=snapshot)
+    print(f"{tag} caffe train, CaffeNet batch {FW_BATCH} crop {FW_CROP}, {FW_ITERS} iterations "
+          f"in {wall:.1f} s: {FW_ITERS / wall:.3f} iters/s, {FW_ITERS * FW_BATCH / wall:.1f} "
+          f"imgs/s (wall, tests and snapshot included); Solver.step between CUDA events median "
+          f"{med:.1f} ms ({['%.1f' % x for x in step_ms]}), {ips:.3f} iters/s over the steps; "
+          f"host Data batch ({FW_BATCH} crops, mirrors, mean) median {res['host_data_ms_median']:.1f} "
+          f"ms ({len(host_ms)} batches); {flops / 1e12:.3f} TFLOP a step, bound {bound_ms:.1f} "
+          f"ms at the f32 peak ({res['bound_share']:.3f} of the step); peak {peak:.2f} GiB; "
+          f"tests {res['tests']}; the kvdb ({db_mb:.0f} MB) written in {db_s:.1f} s")
+    return res, solver, tv, mean
+
+
+def phase_framework_small(device="cuda", steps=3):
+    """(c) A narrow CaffeNet-shaped net (the same layer types but Dropout,
+    widths cut, crop 67, batch 4): 3 SGD steps on the card and on the CPU
+    from the same weights and batches."""
+    import torch  # noqa: F401
+
+    from caffe_rtpose_tpu_torch.core.net import Net
+    from caffe_rtpose_tpu_torch.models.caffenet import make_caffenet
+    from caffe_rtpose_tpu_torch.training.solver import Solver
+
+    tag = "[framework small]"
+    proto = make_caffenet(batch=4, crop=67, num_classes=10)
+    proto["layer"] = [l for l in proto["layer"] if l["type"] != "Dropout"]
+    widths = {"conv1": 16, "conv2": 16, "conv3": 24, "conv4": 24, "conv5": 16, "fc6": 64,
+              "fc7": 64}
+    for l in proto["layer"]:
+        p = l.get("convolution_param") or l.get("inner_product_param")
+        if l["name"] in widths:
+            p["num_output"] = widths[l["name"]]
+    rs = np.random.RandomState(21)
+    batches = [{"data": (rs.rand(4, 3, 67, 67) * 255 - 128).astype(np.float32),
+                "label": rs.randint(0, 10, 4).astype(np.float32)} for _ in range(steps)]
+    runs = {}
+    for dev in (device, "cpu"):
+        net = Net(proto, phase="TRAIN", device=dev, seed=5)
+        solver = Solver(FW_SOLVER, net, lambda it: batches[it])
+        runs[dev] = ([solver.step(1) for _ in range(steps)], solver)
+    (lc, sc), (lh, sh) = runs[device], runs["cpu"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+    param_rel = blob_errors(sc.params, sh.params)
+    print(f"{tag} losses card {lc} cpu {lh}: largest relative gap {loss_rel:.3g} (limit "
+          f"{TOL_FW_LOSS}); parameters {param_rel:.3g} of each blob's largest (limit "
+          f"{TOL_FW_PARAM})")
+    check(all(np.isfinite(lc)), f"{tag} non-finite loss")
+    check(loss_rel <= TOL_FW_LOSS, f"{tag} losses differ by {loss_rel}")
+    check(param_rel <= TOL_FW_PARAM, f"{tag} parameters differ by {param_rel}")
+    return dict(losses_card=lc, losses_cpu=lh, loss_rel=loss_rel, param_rel=param_rel)
+
+
+def phase_framework_test(tv, snapshot, last, device="cuda"):
+    """(d) caffe test --model train_val --weights snapshot --iterations 2 in
+    a new process: the train run's last test pass."""
+    import os
+    import subprocess
+
+    tag = "[framework caffe test]"
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "caffe_rtpose_tpu_torch", "caffe", "test",
+                        "--model", tv, "--weights", snapshot, "--iterations", str(FW_TEST_ITER),
+                        "--device", device], cwd=root, capture_output=True, text=True,
+                       timeout=600)
+    secs = time.perf_counter() - t0
+    check(p.returncode == 0, f"{tag} exit {p.returncode}\n{p.stdout[-2000:]}\n{p.stderr[-3000:]}")
+    got = {k: float(v) for k, v in re.findall(r"^(\w+) = ([\d.e+-]+)$", p.stdout, re.M)}
+    gaps = {k: abs(got.get(k, float("nan")) - last[k]) / max(abs(last[k]), 1e-6)
+            for k in ("loss", "accuracy")}
+    print(f"{tag} exit 0 in {secs:.1f} s: {got} against the train run's last test pass "
+          f"{ {k: last[k] for k in ('loss', 'accuracy')} }, relative gaps {gaps} (limit "
+          f"{TOL_FW_TEST})")
+    check(all(g <= TOL_FW_TEST for g in gaps.values()), f"{tag} differs: {gaps}")
+    return dict(seconds=secs, got=got, gaps=gaps)
+
+
+def phase_framework_facade(work, snapshot, mean, device="cuda"):
+    """(e) The facade: api.Net on CaffeNet's deploy form at batch 10 against
+    the core Net bit for bit; classify (10-crop) on 4 PNGs; api.Net on the
+    COCO pose deploy graph at f32 against Net.forward bit for bit."""
+    import os
+
+    import torch
+
+    from caffe_rtpose_tpu_torch import api
+    from caffe_rtpose_tpu_torch.__main__ import main as tool_main
+    from caffe_rtpose_tpu_torch.core.data_layers import read_mean_binaryproto
+    from caffe_rtpose_tpu_torch.core.net import Net
+    from caffe_rtpose_tpu_torch.models.caffenet import make_caffenet_deploy
+    from caffe_rtpose_tpu_torch.models.cpm import make_pose_deploy_net
+    from caffe_rtpose_tpu_torch.pipeline.image_io import encode_png
+    from caffe_rtpose_tpu_torch.proto import prototxt
+
+    tag = "[framework facade]"
+    api.set_mode_cpu() if device == "cpu" else api.set_mode_gpu()
+    deploy = os.path.join(work, "caffenet_deploy.prototxt")
+    prototxt.dump_file(make_caffenet_deploy(batch=10), deploy)
+    rs = np.random.RandomState(8)
+    x = (rs.rand(10, 3, FW_CROP, FW_CROP) * 255 - 128).astype(np.float32)
+    t0 = time.perf_counter()
+    facade = api.Net(deploy, snapshot, api.TEST)
+    got = facade.forward(data=x)["prob"]
+    facade_s = time.perf_counter() - t0
+    core = Net(deploy, device=device)
+    core.load_weights(snapshot)
+    with torch.no_grad():
+        ref = core.forward({"data": torch.from_numpy(x).to(device)})["prob"].cpu().numpy()
+    check(np.array_equal(got, ref), f"{tag} api.Net differs from Net: "
+                                    f"{float(np.abs(got - ref).max())}")
+    imgs = os.path.join(work, "classify")
+    os.makedirs(imgs, exist_ok=True)
+    for i in range(4):
+        with open(os.path.join(imgs, f"im{i}.png"), "wb") as f:
+            f.write(encode_png(rs.randint(0, 256, (300, 280, 3)).astype(np.uint8)))
+    np.save(os.path.join(work, "mean.npy"), read_mean_binaryproto(mean).mean((1, 2)))
+    t0 = time.perf_counter()
+    rc = tool_main(["classify", imgs, os.path.join(work, "probs.npy"), "--model_def", deploy,
+                    "--pretrained_model", snapshot, "--mean_file",
+                    os.path.join(work, "mean.npy"), "--device", device])
+    classify_s = time.perf_counter() - t0
+    probs = np.load(os.path.join(work, "probs.npy"))
+    sums = probs.sum(1)
+    check(rc == 0 and probs.shape == (4, 1000) and np.allclose(sums, 1.0, atol=1e-5),
+          f"{tag} classify: exit {rc}, {probs.shape}, row sums {sums}")
+    pose = os.path.join(work, "pose_deploy.prototxt")
+    prototxt.dump_file(make_pose_deploy_net("COCO"), pose)
+    pnet = api.Net(pose, api.TEST)
+    shape = pnet.blobs["image"].shape
+    img = (rs.rand(*shape) - 0.5).astype(np.float32)
+    t0 = time.perf_counter()
+    out = pnet.forward(blobs=["concat_stage7"], image=img)
+    pose_s = time.perf_counter() - t0
+    check(pnet.outputs == ["joints"] and list(out) == ["joints", "concat_stage7"],
+          f"{tag} pose api.Net outputs {pnet.outputs}, forward gave {list(out)}")
+    low, joints = out["concat_stage7"], out["joints"]
+    pcore = Net(pose, device=device)
+    with torch.no_grad():
+        pref = pcore.forward({"image": torch.from_numpy(img).to(device)},
+                             outputs=["concat_stage7", "joints"])
+    pref, jref = (pref[k].float().cpu().numpy() for k in ("concat_stage7", "joints"))
+    check(np.array_equal(low, pref), f"{tag} pose api.Net differs from Net: "
+                                     f"{float(np.abs(low - pref).max())}")
+    check(np.array_equal(joints, jref) and joints.shape == (1, 18, 65, 3),
+          f"{tag} pose api.Net joints {joints.shape} differ from Net's")
+    print(f"{tag} api.Net(CaffeNet deploy, snapshot, TEST) batch 10: prob bit-identical to "
+          f"Net.forward ({facade_s:.2f} s with the build); classify 10-crop on 4 PNGs: row sums "
+          f"{sums.tolist()} ({classify_s:.1f} s); api.Net on the COCO deploy graph {shape}: "
+          f"outputs {pnet.outputs}, joints {tuple(joints.shape)} ({int(joints[0, :, 0, 0].sum())} "
+          f"peaks) and concat_stage7 {tuple(low.shape)} bit-identical to Net.forward "
+          f"({pose_s:.2f} s, every blob fetched)")
+    return dict(facade_s=facade_s, classify_s=classify_s, row_sums=sums.tolist(),
+                pose_shape=list(shape), pose_s=pose_s)
+
+
+def phase_framework(device="cuda"):
+    """The framework path, with the hand kernels' counters zeroed before and
+    read after (it launches none of K1-K4): (a) the layer zoo, (b) caffe
+    train at CaffeNet's full width with a test net, (c) card against CPU, (d)
+    caffe test, (e) the facade; then two of (b)'s steps under the profiler."""
+    import tempfile
+
+    zero_counts()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_framework_") as work:
+        write_fw_sources(work, np.random.RandomState(0))
+        zoo = phase_framework_zoo(work, device)
+        train, solver, tv, mean = phase_framework_train(work, device)
+        small = phase_framework_small(device)
+        last = train["tests"][-1]
+        test = phase_framework_test(tv, train["snapshot"], last, device)
+        facade = phase_framework_facade(work, train["snapshot"], mean, device)
+        counts = read_counts()
+        check(not any(counts.values()), f"[framework] launched hand kernels: {counts}")
+        solver.test_nets = []  # the profile times train steps alone
+        profile = phase_train_profile(solver, train["step_ms_median"],
+                                      tag="[framework profile]")
+        del solver
+    train.pop("snapshot")
+    seconds = time.perf_counter() - t0
+    print(f"[framework] {seconds:.1f} s in all; hand kernel launches {counts}")
+    return dict(zoo=zoo, train=train, small=small, caffe_test=test, facade=facade,
+                profile=profile, hand_kernel_launches=counts, seconds=seconds)
 
 
 def main() -> int:
@@ -2475,6 +3059,7 @@ def main() -> int:
     train["profile"] = phase_train_profile(train_solver,
                                            train["shapes"]["staged"]["step_ms_median"])
     del train_solver
+    framework = phase_framework()
     keys = ("device_ms", "e2e_ms", "launches", "peaks", "people")
     for name, r in (("1-scale", one), ("3-scale", three)):
         print(json.dumps({"slice": name, **{k: r[k] for k in keys}}))
@@ -2495,6 +3080,7 @@ def main() -> int:
     print(json.dumps({"pool": pool}))
     print(json.dumps({"eval": evaluation}))
     print(json.dumps({"train": train}))
+    print(json.dumps({"framework": framework}))
     card = info["nvidia_smi"]
     # launches: the wrapper's calls in the main path's run (the pipeline:
     # the eager pass and the capture; the 3-scale, heatmap slices for the
@@ -2543,7 +3129,9 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces, **extra,
             "launches": launches,
             "replayed_launches": pipeline["replayed_launches"].get(name, 0),
-            "launches_by_path": {k: v[0] for k, v in by_path[name].items()},
+            "launches_by_path": {**{k: v[0] for k, v in by_path[name].items()},
+                                 "framework": framework["hand_kernel_launches"].get(
+                                     name.replace("_3scale", ""), 0)},
             "replayed_launches_by_path": {k: v[1] for k, v in by_path[name].items()
                                           if v[1] is not None},
             "device_launches_per_frame": {f"bf16 batch {BF16_BATCH}": per_frame[name]},

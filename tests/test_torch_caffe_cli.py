@@ -2,8 +2,9 @@
 CPU: ``train`` on the 2-stage CPM train net (crop 64, batch 2) from the
 synthetic pose source, with labels on the device (``--fused_labels``) and
 from the host, from an ``.npz`` of input blobs, snapshot and ``--snapshot``
-resume; ``time --phase TRAIN``; ``device_query``; and the commands that
-are not ported say so."""
+resume; ``time --phase TRAIN``; ``device_query``; ``train`` with a test
+net on a self-feeding train_val and ``test`` against the JAX tool; and the
+options that are not ported say so."""
 
 import contextlib
 import io
@@ -94,7 +95,7 @@ def test_time_train_phase(files):
 def test_device_query_and_not_ported(files):
     rc, text = run("device_query")
     assert rc == 0 and "torch:" in text and "cuda_available:" in text
-    with pytest.raises(NotImplementedError, match="caffe test"):
+    with pytest.raises(SystemExit):  # caffe test is ported: it needs --model
         run("test")
     _, _, solver = files
     with pytest.raises(NotImplementedError, match="--gpu"):
@@ -110,3 +111,69 @@ def test_default_device_is_cuda(files):
     _, net, _ = files
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         run("time", "--model", net, "--phase", "TRAIN", "--iterations", "1")
+
+
+def narrow_train_val(work, crop=27, size=32, n=8):
+    """CaffeNet's train_val (Data layers with TRAIN and TEST rules, a mean
+    file, crop and mirror) at small widths over a kvdb of ``n`` seeded
+    3 x size x size Datums."""
+    from caffe_rtpose_tpu_torch.core.data_layers import write_mean_binaryproto
+    from caffe_rtpose_tpu_torch.models.caffenet import make_caffenet_train_val
+    from caffe_rtpose_tpu_torch.proto import datum
+    from caffe_rtpose_tpu_torch.utils import db as dbmod
+
+    rs = np.random.RandomState(0)
+    d = dbmod.open_db(str(work / "db"), "w", backend="kvdb")
+    txn = d.new_transaction()
+    imgs = rs.randint(0, 256, (n, 3, size, size)).astype(np.uint8)
+    for i in range(n):
+        txn.put(f"{i:08d}", datum.serialize_datum(datum.array_to_datum(imgs[i], int(i % 5))))
+    txn.commit()
+    d.close()
+    write_mean_binaryproto(str(work / "mean.binaryproto"), imgs.mean(0).astype(np.float32))
+    net = make_caffenet_train_val(str(work / "db"), str(work / "db"),
+                                  str(work / "mean.binaryproto"), batch=4, test_batch=4,
+                                  crop=crop, num_classes=5)
+    widths = {"conv1": 8, "conv2": 8, "conv3": 8, "conv4": 8, "conv5": 8, "fc6": 16, "fc7": 16}
+    for l in net["layer"]:
+        p = l.get("convolution_param") or l.get("inner_product_param")
+        if l["name"] in widths:
+            p["num_output"] = widths[l["name"]]
+        if l["name"] == "conv1":
+            p["kernel_size"], p["stride"] = [3], [1]
+    path = work / "train_val.prototxt"
+    prototxt.dump_file(net, str(path))
+    return str(path)
+
+
+def test_train_with_a_test_net_then_caffe_test_matches_jax(tmp_path):
+    """``caffe train`` on a self-feeding train_val with a test net (the
+    train_val file at TEST: test_interval 2, test_iter 2), its snapshot, and
+    ``caffe test --model train_val --weights snapshot --iterations 2``: the
+    loss and accuracy the JAX ``caffe test`` prints for the same weights
+    (within 1e-5 relative)."""
+    from caffe_rtpose_tpu.tools import caffe_tool as jtool
+
+    tv = narrow_train_val(tmp_path)
+    solver = tmp_path / "solver.prototxt"
+    solver.write_text(f'net: "{tv}"\nbase_lr: 0.01\nmomentum: 0.9\nweight_decay: 5e-4\n'
+                      f'lr_policy: "fixed"\nmax_iter: 3\ndisplay: 1\ntest_interval: 2\n'
+                      f'test_iter: 2\nsnapshot_prefix: "{tmp_path}/snap"\n')
+    rc, text = run("train", "--solver", str(solver), "--device", "cpu")
+    assert rc == 0 and "Optimization Done" in text
+    assert text.count("Testing net (#0)") == 2  # test_initialization, then iteration 2
+    outs = dict(re.findall(r"Test net output #\d+: (\w+) = ([\d.e+-]+)", text))
+    assert set(outs) == {"accuracy", "loss"} and np.isfinite(float(outs["loss"]))
+    snap = f"{tmp_path}/snap_iter_3.caffemodel"
+    assert os.path.exists(snap)
+    rc, text = run("test", "--model", tv, "--weights", snap, "--iterations", "2",
+                   "--device", "cpu")
+    assert rc == 0
+    got = dict(re.findall(r"^(\w+) = ([\d.e+-]+)$", text, re.M))
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert jtool.main(["test", "--model", tv, "--weights", snap, "--iterations", "2"]) == 0
+    ref = dict(re.findall(r"^(\w+) = ([\d.e+-]+)$", out.getvalue(), re.M))
+    assert set(got) == set(ref) == {"accuracy", "loss"}
+    for k in got:
+        assert float(got[k]) == pytest.approx(float(ref[k]), rel=1e-5, abs=1e-6)

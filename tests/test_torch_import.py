@@ -1,6 +1,7 @@
 """The PyTorch port imports without jax: neither directly nor through the
-JAX package (whose ``__init__`` imports jax); and without OpenCV, also with
-both blocked at once (the card's machine has neither)."""
+JAX package (whose ``__init__`` imports jax); and without OpenCV or h5py,
+also with all three blocked at once (the card's machine has none of them).
+``proto.caffe_pb2`` is left out: it runs protoc when imported."""
 
 import os
 import subprocess
@@ -58,6 +59,18 @@ SLICE_MODULES = [
     "caffe_rtpose_tpu_torch.training.cpm_lmdb",
     "caffe_rtpose_tpu_torch.training.pose_db",
     "caffe_rtpose_tpu_torch.tools.caffe_tool",
+    "caffe_rtpose_tpu_torch.ops.elementwise",
+    "caffe_rtpose_tpu_torch.ops.cpm_legacy",
+    "caffe_rtpose_tpu_torch.core.layers",
+    "caffe_rtpose_tpu_torch.core.layers_extra",
+    "caffe_rtpose_tpu_torch.core.data_layers",
+    "caffe_rtpose_tpu_torch.core.insert_splits",
+    "caffe_rtpose_tpu_torch.core.net_spec",
+    "caffe_rtpose_tpu_torch.coord_map",
+    "caffe_rtpose_tpu_torch.proto.gen_proto",
+    "caffe_rtpose_tpu_torch.models.caffenet",
+    "caffe_rtpose_tpu_torch.api",
+    "caffe_rtpose_tpu_torch.tools.classify",
 ]
 
 
@@ -97,3 +110,8 @@ def test_slice_imports_without_cv2():
 
 def test_slice_imports_with_jax_and_cv2_blocked():
     _run("import sys\nsys.modules['jax'] = None\nsys.modules['cv2'] = None\n")
+
+
+def test_slice_imports_with_jax_cv2_and_h5py_blocked():
+    _run("import sys\nsys.modules['jax'] = None\nsys.modules['cv2'] = None\n"
+         "sys.modules['h5py'] = None\n")

@@ -120,8 +120,8 @@ def test_net_refuses_what_it_does_not_port():
         net.load_weights({"c1": [np.zeros((8, 3, 3, 3), np.float32)]})
     assert net.load_weights({"no_such_layer": [np.zeros(1)]}) == 0
     bad = dict(proto, layer=proto["layer"] + [
-        {"name": "d", "type": "Dropout", "bottom": ["cat2"], "top": ["cat2"]}])
-    with pytest.raises(NotImplementedError):
+        {"name": "d", "type": "NoSuchLayer", "bottom": ["cat2"], "top": ["cat2"]}])
+    with pytest.raises(NotImplementedError):  # a type the registry lacks
         Net(bad, device="cpu")
     with pytest.raises(FileNotFoundError):  # a prototxt path is read, as in JAX
         Net("pose_deploy_linevec.prototxt", device="cpu")

@@ -102,7 +102,7 @@ def test_phase_stage_level_rules_follow_jax(with_state, phase, stages, level):
 def test_rules_keep_a_layer_the_port_cannot_build():
     """Filtering runs first: a layer type the port lacks raises only when
     the rules keep it."""
-    text = RULES + ('layer { name: "drop" type: "Dropout" bottom: "pool" top: "pool" '
+    text = RULES + ('layer { name: "drop" type: "NoSuchLayer" bottom: "pool" top: "pool" '
                     'include { phase: TRAIN } }\n')
     assert [l.name for l in Net(text, device="cpu").layers][-1] == "pool"
     with pytest.raises(NotImplementedError):

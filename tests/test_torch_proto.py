@@ -234,10 +234,10 @@ def test_v1_net_upgrades_as_in_jax(tmp_path):
 
 def test_legacy_net_builds_in_the_port():
     """Net runs the upgrade chain on a copy of a legacy net: the V1 net (its
-    Data layer excluded by nothing, so it raises: the port runs no data
-    layers) and the same net without it."""
+    Data layer excluded by nothing, so the net opens its source, which does
+    not exist here) and the same net without it."""
     msg = prototxt.parse(V1_PROTOTXT)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(OSError, match="does not exist"):
         Net(msg, device="cpu")
     msg["layers"] = msg["layers"][:3]
     before = prototxt.dumps(msg)

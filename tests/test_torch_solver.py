@@ -288,8 +288,9 @@ def test_history_maps_to_and_from_jax(setup):
 
 
 def test_out_of_slice_options_raise(setup):
-    with pytest.raises(NotImplementedError, match="test nets"):
-        make_port(setup, "base_lr: 1e-4 lr_policy: 'fixed' test_interval: 10 test_iter: 2")
+    # test nets are ported: a test_interval without test nets tests nothing
+    assert make_port(setup, "base_lr: 1e-4 lr_policy: 'fixed' test_interval: 10 "
+                            "test_iter: 2").test_nets == []
     ps = make_port(setup, "base_lr: 1e-4 lr_policy: 'fixed'")
     with pytest.raises(NotImplementedError, match="mesh"):
         Solver("base_lr: 1e-4 lr_policy: 'fixed'", ps.net, ps.next_batch, mesh=object())
@@ -297,3 +298,86 @@ def test_out_of_slice_options_raise(setup):
                dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="bf16"):
         Solver("base_lr: 1e-4 lr_policy: 'fixed'", bf16, ps.next_batch)
+
+
+def _bn_net():
+    """Inner product, BatchNorm (TRAIN: batch statistics), Scale, loss."""
+    return {"input": ["x", "t"], "input_shape": [{"dim": [8, 5, 3, 2]}, {"dim": [8, 4, 3, 2]}],
+            "layer": [
+                {"name": "c", "type": "Convolution", "bottom": ["x"], "top": ["c"],
+                 "convolution_param": {"num_output": 4, "kernel_size": [1]}},
+                {"name": "bn", "type": "BatchNorm", "bottom": ["c"], "top": ["c"],
+                 "batch_norm_param": {"moving_average_fraction": 0.9}},
+                {"name": "sc", "type": "Scale", "bottom": ["c"], "top": ["c"],
+                 "scale_param": {"bias_term": True}},
+                {"name": "loss", "type": "EuclideanLoss", "bottom": ["c", "t"], "top": ["loss"]}]}
+
+
+def test_batchnorm_statistics_roll_as_jax():
+    """3 SGD steps of a TRAIN net with BatchNorm on both sides from the same
+    weights and batches: the rolled mean, variance and scale factor (and the
+    losses and learnable blobs) within 1e-5 of each blob's largest; the TEST
+    net then normalizes by them alike."""
+    proto = _bn_net()
+    rs = np.random.RandomState(3)
+    batches = [{"x": rs.randn(8, 5, 3, 2).astype(np.float32) * 2 + 1,
+                "t": rs.randn(8, 4, 3, 2).astype(np.float32)} for _ in range(3)]
+    jnet = JNet(proto, phase="TRAIN")
+    w = {impl.name: [rs.randn(*pi.caffe_shape).astype(np.float32) * 0.5 for pi in impl.params]
+         for impl in jnet.impls if impl.params}
+    w["bn"] = [np.zeros(4, np.float32), np.zeros(4, np.float32), np.zeros(1, np.float32)]
+    jnet.load_weights(w)
+    net = Net(proto, phase="TRAIN", device="cpu")
+    net.load_weights(w)
+    sp = "base_lr: 0.05 lr_policy: 'fixed' momentum: 0.9 weight_decay: 1e-3"
+    js, ps = JSolver(sp, jnet, lambda it: batches[it]), Solver(sp, net, lambda it: batches[it])
+    losses = [(ps.step(1), js.step(1)) for _ in range(3)]
+    np.testing.assert_allclose([a for a, _ in losses], [b for _, b in losses], rtol=1e-5)
+    got, ref = net.export_weights(), jnet.export_weights()
+    for name in ref:
+        for a, b in zip(got[name], ref[name]):
+            np.testing.assert_allclose(a, b, rtol=0, atol=1e-5 * np.abs(b).max())
+    assert ref["bn"][2][0] == pytest.approx(1 + 0.9 + 0.81)
+    test, jtest = Net(proto, device="cpu"), JNet(proto)
+    test.load_weights(got)
+    jtest.load_weights(ref)
+    a = test.forward({k: torch.from_numpy(v) for k, v in batches[0].items()}, outputs=["c"])["c"]
+    np.testing.assert_allclose(a.numpy(), jtest.forward(batches[0], outputs=["c"])["c"],
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_test_nets_share_weights_and_average_like_jax(capsys):
+    """A solver with a test net (test_interval 2, test_iter 2,
+    test_initialization): the test net shares the train net's blobs by layer
+    name, and each test pass prints and returns the JAX solver's means
+    (within 1e-5)."""
+    proto = {"input": ["x", "label"], "input_shape": [{"dim": [4, 3]}, {"dim": [4]}],
+             "layer": [{"name": "ip", "type": "InnerProduct", "bottom": ["x"], "top": ["s"],
+                        "inner_product_param": {"num_output": 3}},
+                       {"name": "loss", "type": "SoftmaxWithLoss", "bottom": ["s", "label"],
+                        "top": ["loss"]},
+                       {"name": "acc", "type": "Accuracy", "bottom": ["s", "label"],
+                        "top": ["acc"], "include": [{"phase": 1}]}]}
+    rs = np.random.RandomState(4)
+    feeds = [{"x": rs.randn(4, 3).astype(np.float32),
+              "label": rs.randint(0, 3, 4).astype(np.float32)} for _ in range(4)]
+    w = {"ip": [rs.randn(3, 3).astype(np.float32), rs.randn(3).astype(np.float32)]}
+    sp = ("base_lr: 0.1 lr_policy: 'fixed' test_interval: 2 test_iter: 2 "
+          "test_initialization: true")
+    jnet, jtest = JNet(proto, phase="TRAIN"), JNet(proto, phase="TEST")
+    jnet.load_weights(w)
+    net, test = Net(proto, phase="TRAIN", device="cpu"), Net(proto, device="cpu")
+    net.load_weights(w)
+    feed = lambda it: feeds[it % 4]  # noqa: E731
+    js = JSolver(sp, jnet, feed, test_nets=[(jtest, feed, 2)])
+    ps = Solver(sp, net, feed, test_nets=[(test, feed, 2)])
+    ps.step(3)
+    port_out = capsys.readouterr().out
+    js.step(3)
+    jax_out = capsys.readouterr().out
+    assert port_out.count("Testing net (#0)") == jax_out.count("Testing net (#0)") == 2
+    assert test.mods["ip"].weight is net.mods["ip"].weight
+    a, b = ps.test(0), js.test(0)
+    assert set(a) == set(b) == {"acc", "loss"}
+    for k in a:
+        assert a[k] == pytest.approx(b[k], rel=1e-5)
