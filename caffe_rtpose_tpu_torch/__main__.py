@@ -9,6 +9,8 @@ TOOLS = {
     "upgrade": ("tools.upgrade_proto", "legacy prototxt/caffemodel upgrades"),
     "export": ("tools.export_tool", "serving bundles (build / check)"),
     "caffe": ("tools.caffe_tool", "train / test / time / device_query"),
+    "aux": ("tools.aux_tools", "convert_imageset / compute_image_mean / "
+                               "build_pose_db / db_convert / extract_features"),
     "classify": ("tools.classify", "classify images with a deploy net (10-crop)"),
 }
 

@@ -142,6 +142,11 @@ class _Blob:
         self.data = np.zeros(self._shape, np.float32)
         self.diff = np.zeros(self._shape, np.float32)
 
+    def reshape_dims(self, dims) -> None:
+        """reshape() taking one sequence: the MATLAB bridge's call
+        (matlab/+caffe/Blob.m)."""
+        self.reshape(*[int(d) for d in np.asarray(dims).reshape(-1)])
+
 
 class _ParamBlob(_Blob):
     """A parameter blob over one of the core net's blobs (looked up each
@@ -332,6 +337,16 @@ class Net:
         for name, arr in inputs.items():
             self.blobs[name].data = np.asarray(arr)
         return {k: out[k] for k in want}
+
+    def forward_dict(self, inputs: Dict[str, np.ndarray],
+                     blobs: Optional[Sequence[str]] = None) -> Dict[str, np.ndarray]:
+        """forward() taking a plain dict: the MATLAB bridge's call
+        (matlab/+caffe/Net.m), where keyword arguments cannot be written."""
+        return self.forward(blobs=blobs, **{str(k): np.asarray(v) for k, v in inputs.items()})
+
+    def backward_dict(self, top_diffs: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        """backward() taking a plain dict: the MATLAB bridge's call."""
+        return self.backward(**{str(k): np.asarray(v) for k, v in top_diffs.items()})
 
     def backward(self, **top_diffs) -> Dict[str, np.ndarray]:
         """The gradients of sum(top * top_diff) with respect to the inputs

@@ -114,15 +114,9 @@ def read_image(path: str, color: bool = True) -> np.ndarray:
 
 def datum_chw(d: dict) -> np.ndarray:
     """A parsed Datum -> its (C, H, W) array; an encoded PNG decodes without
-    OpenCV (other encodings through ``cv2``)."""
+    OpenCV (other encodings through ``cv2``, ``proto/datum.py``)."""
     if d.get("encoded"):
-        from ..pipeline.image_io import PNG_SIGNATURE, decode_png
-
-        data = bytes(d["data"])
-        if data.startswith(PNG_SIGNATURE):
-            img = decode_png(data)
-            return np.ascontiguousarray(np.transpose(img, (2, 0, 1)))
-        return np.transpose(datum_io.datum_to_image(d), (2, 0, 1))
+        return np.ascontiguousarray(np.transpose(datum_io.datum_to_image(d), (2, 0, 1)))
     return datum_io.datum_to_array(d)
 
 

@@ -221,11 +221,21 @@ def conv_operands(weight: torch.Tensor, bias: Optional[torch.Tensor],
                   dtype: torch.dtype) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """A convolution's operands from its f32 parameters (OIHW weight in the
     net's layout): the parameters themselves in f32, else copies in
-    ``dtype``, the weight channels_last."""
+    ``dtype``, the weight channels_last.  A bf16 TRAIN net asks for f32: its
+    convolutions cast the parameters inside the forward
+    (``ops/nn.py::conv2d``), where a copy made at load would be stale after
+    each update and carry no gradient."""
     if dtype == torch.float32:
         return weight, bias
     return (weight.detach().to(dtype).contiguous(memory_format=torch.channels_last),
             None if bias is None else bias.detach().to(dtype))
+
+
+def f32_training(ctx: RunCtx, x: torch.Tensor) -> bool:
+    """An f32 TRAIN forward: its convolutions run outside cuDNN
+    (``ops/nn.py::_OutsideCudnn``: cuDNN's f32 backward moves bias
+    gradients, ROADMAP C1)."""
+    return ctx.training and x.dtype == torch.float32
 
 
 class Convolution(LayerModule):
@@ -266,9 +276,9 @@ class Convolution(LayerModule):
         return dims[0], dims[1]
 
     def forward(self, x: torch.Tensor, w: torch.Tensor,
-                b: Optional[torch.Tensor]) -> torch.Tensor:
+                b: Optional[torch.Tensor], cudnn: bool = True) -> torch.Tensor:
         return nn_ops.conv2d(x, w, b, stride=self.stride, pad=self.pad,
-                             dilation=self.dilation, groups=self.groups)
+                             dilation=self.dilation, groups=self.groups, cudnn=cudnn)
 
     def run(self, bots, ctx):
         w = ctx.ops.get(f"{self.name}::w")
@@ -276,7 +286,7 @@ class Convolution(LayerModule):
             w, b = self._operands
         else:
             b = ctx.ops.get(f"{self.name}::b")
-        return (self(bots[0], w, b),)
+        return (self(bots[0], w, b, cudnn=not f32_training(ctx, bots[0])),)
 
     def is_3x3_same(self, cin: int, cout: int) -> bool:
         """A 3x3, stride 1, pad 1, ungrouped, undilated conv cin -> cout
@@ -309,10 +319,10 @@ class Deconvolution(LayerModule):
         self.bias = self.add_blob(ctx, "bias", (cout,), cp.bias_filler) if cp.bias_term else None
 
     def run(self, bots, ctx):
-        x = bots[0]
-        b = None if self.bias is None else self.bias.to(x.dtype)
-        return (nn_ops.deconv2d(x, self.weight.to(x.dtype), b, stride=self.stride, pad=self.pad,
-                                dilation=self.dilation, groups=self.groups),)
+        # the f32 parameters: in bf16, deconv2d casts inside the forward
+        return (nn_ops.deconv2d(bots[0], self.weight, self.bias, stride=self.stride,
+                                pad=self.pad, dilation=self.dilation, groups=self.groups,
+                                cudnn=not f32_training(ctx, bots[0])),)
 
 
 register("Deconvolution")(Deconvolution)

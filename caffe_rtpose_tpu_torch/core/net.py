@@ -14,7 +14,9 @@ reads to compute its post segment from the low-res maps itself
 (``pose/estimator.py``).
 
 On CUDA a Net turns TF32 off (``utils/device.disable_tf32``): f32 is IEEE
-f32 there, training included.
+f32 there, training included.  An f32 TRAIN net's convolutions run outside
+cuDNN on the card (``ops/nn.py::_OutsideCudnn``): cuDNN's f32 backward
+moved the CPM trunk's bias gradients by up to 0.45 relative L2 from f64.
 
 Training (``phase="TRAIN"``): each parameter blob is an ``nn.Parameter``
 that requires a gradient unless its ``param`` spec's ``lr_mult`` is 0
@@ -42,7 +44,17 @@ as loaded, the convolutions run on bf16 copies made when weights are filled
 or loaded, inputs are cast to bf16 and every activation is bf16 (ReLU, MAX
 pooling and Concat are exact in it).  There the VGG conv1 block, found by
 its structure, runs through the hand-written kernel ``ops/conv1_cuda.py``
-(K4) when ``conv1_kernel`` is on.
+(K4) when ``conv1_kernel`` is on.  A bf16 TRAIN net is JAX's mixed-precision
+training: the convolutions cast the f32 parameters to bf16 inside the
+forward, under autograd (``ops/nn.py::_mixed``), so the parameters, their
+gradients and a solver's update stay f32; inputs and labels are cast to
+bf16 and the losses keep their residuals in f32 (``ops/losses.py``).  It
+never runs the conv1 kernel, which has no backward (JAX trains through XLA
+convolutions).
+
+``remat="convs"`` (TRAIN only) wraps each Convolution and Deconvolution in
+``torch.utils.checkpoint`` (JAX's ``jax.checkpoint`` around the same
+layers): what the layer saves for the backward is recomputed there.
 """
 
 from __future__ import annotations
@@ -55,6 +67,7 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import conv1_cuda
 from ..proto import caffe_pb, caffemodel, prototxt
@@ -225,7 +238,10 @@ class Net(nn.Module):
     conv1_kernel: in bf16, run the conv1 block through
         ``conv1_cuda.conv1_block`` (the hand-written kernel on the card, its
         plain version on the CPU) instead of layer by layer.  Default: on for
-        CUDA.  Ignored in f32, where the block stays cuDNN, as in JAX.
+        CUDA outside TRAIN.  Ignored in f32, where the block stays cuDNN, as
+        in JAX.  A TRAIN net refuses it (the kernel has no backward).
+    remat: ``"none"`` or ``"convs"`` (module docstring); ``ValueError`` on
+        any other value, as in JAX.
     """
 
     def __init__(
@@ -240,6 +256,7 @@ class Net(nn.Module):
         dtype: torch.dtype = torch.float32,
         seed: int = 0,
         conv1_kernel: Optional[bool] = None,
+        remat: str = "none",
     ):
         super().__init__()
         proto = _net_parameter(proto)
@@ -255,8 +272,14 @@ class Net(nn.Module):
         self.memory_format = (torch.contiguous_format
                               if phase == "TRAIN" and dtype == torch.float32
                               else torch.channels_last)
+        if remat not in ("none", "convs"):
+            raise ValueError(f"unknown remat policy {remat!r}")
+        self.remat = remat
+        if phase == "TRAIN" and conv1_kernel:
+            raise ValueError("a TRAIN net cannot run the conv1 block kernel (it has no "
+                             "backward); leave conv1_kernel unset or False")
         if conv1_kernel is None:
-            conv1_kernel = self.device.type == "cuda"
+            conv1_kernel = self.device.type == "cuda" and phase != "TRAIN"
         self.conv1_kernel = bool(conv1_kernel) and dtype == torch.bfloat16
         self.name = caffe_pb.view(proto, "NetParameter").name
         state = proto.get("state")
@@ -390,10 +413,12 @@ class Net(nn.Module):
     def params_changed(self) -> None:
         """Rebuild what is derived from the parameters (the compute copies in
         bf16, the conv1 kernel's packed weights) after they changed in place:
-        a load, a fill, a solver's update.  In f32 a forward reads the
-        parameters themselves."""
+        a load, a fill, a solver's update.  In f32, and in any TRAIN net, a
+        forward reads the parameters themselves."""
+        # a TRAIN net's convolutions cast the parameters inside the forward
+        op_dtype = torch.float32 if self.phase == "TRAIN" else self.dtype
         for conv in self.convs.values():
-            conv.compute_weights(self.dtype)
+            conv.compute_weights(op_dtype)
         for blk in self.conv1_blocks.values():
             c1, c2 = self.mods[blk.names[0]], self.mods[blk.names[2]]
             blk.weights = conv1_cuda.Conv1Weights.pack(c1.weight, c1.bias, c2.weight, c2.bias)
@@ -596,6 +621,8 @@ class Net(nn.Module):
         layers = list(layers)
         ctx = self.run_ctx(operands, knobs, aux)
         ops = ctx.ops
+        remat_types = (("Convolution", "Deconvolution")
+                       if self.remat == "convs" and self.phase == "TRAIN" else ())
         i = 0
         while i < len(layers):
             layer = layers[i]
@@ -610,7 +637,13 @@ class Net(nn.Module):
                 continue
             i += 1
             bots = [blobs[b] for b in layer.bottoms]
-            for t, top in zip(layer.tops, self._run_layer(layer, bots, ops, ctx)):
+            if layer.type in remat_types and torch.is_grad_enabled():
+                # a convolution draws no random numbers: no RNG state to replay
+                tops = checkpoint(self._run_layer, layer, bots, ops, ctx,
+                                  use_reentrant=False, preserve_rng_state=False)
+            else:
+                tops = self._run_layer(layer, bots, ops, ctx)
+            for t, top in zip(layer.tops, tops):
                 blobs[t] = top
         return {k: blobs[k] for k in outputs}
 

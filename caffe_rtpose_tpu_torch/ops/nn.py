@@ -30,21 +30,93 @@ def conv2d(
     pad: Tuple[int, int],
     dilation: Tuple[int, int] = (1, 1),
     groups: int = 1,
+    cudnn: bool = True,
 ) -> torch.Tensor:
     """Caffe Convolution forward. x: (N, Cin, H, W); w: (Cout, Cin/groups, kh, kw).
 
     Output spatial dim = floor((in + 2p - dilated_k)/stride) + 1, matching
     reference base_conv_layer.cpp compute_output_shape.
 
-    In bf16 the caller passes bf16 ``w`` and ``b`` (``F.conv2d`` takes one
-    dtype; on the card this is cuDNN with f32 accumulation).  The bias is
-    then rounded to bf16 before it is added, where the JAX package adds the
-    f32 bias to the f32 sum and rounds once (``caffe_rtpose_tpu/ops/nn.py::
-    conv2d``): outputs differ by about one bf16 ulp (2^-8 relative), measured
-    on the CPU at ~2^-7 for a 64->64 conv.  The port keeps that rather than
-    spend an f32 pass over every activation on the card to emulate it.
+    Inference in bf16: the caller passes bf16 ``w`` and ``b`` (copies made at
+    load; ``F.conv2d`` takes one dtype; on the card this is cuDNN with f32
+    accumulation).  The bias is then rounded to bf16 before it is added,
+    where the JAX package adds the f32 bias to the f32 sum and rounds once
+    (``caffe_rtpose_tpu/ops/nn.py::conv2d``): outputs differ by about one
+    bf16 ulp (2^-8 relative), measured on the CPU at ~2^-7 for a 64->64 conv.
+    The port keeps that rather than spend an f32 pass over every activation
+    on the card to emulate it.
+
+    Mixed precision (bf16 ``x`` with the f32 parameters themselves, as a
+    bf16 TRAIN net passes them): :func:`_mixed`.  ``cudnn=False`` on CUDA:
+    forward and backward outside cuDNN (:class:`_OutsideCudnn`).
     """
+    if w.dtype != x.dtype:
+        return _mixed(lambda ww: F.conv2d(x, ww, None, stride=stride, padding=pad,
+                                          dilation=dilation, groups=groups), x, w, b)
+    if not cudnn and x.is_cuda:
+        return _OutsideCudnn.apply(x, w, b, stride, pad, dilation, groups, False)
     return F.conv2d(x, w, b, stride=stride, padding=pad, dilation=dilation, groups=groups)
+
+
+def _cudnn_off():
+    """cuDNN disabled, its other flags as they are."""
+    cd = torch.backends.cudnn
+    return cd.flags(enabled=False, benchmark=cd.benchmark, deterministic=cd.deterministic,
+                    allow_tf32=cd.allow_tf32)
+
+
+class _OutsideCudnn(torch.autograd.Function):
+    """A (transposed) convolution whose forward and backward both run
+    outside cuDNN, in ATen's own CUDA convolutions (im2col and cuBLAS).
+    An f32 TRAIN net on the card takes it: cuDNN's f32 backward (TF32 off)
+    puts the VGG trunk's bias gradients of the CPM train net 0.41-0.45
+    relative L2 from an f64 run at batch 10, crop 368, where this path stays
+    within 6.5e-4 for ~18 % more time (scripts/torch_f32_grad_witness.py;
+    H100 80GB HBM3, 700 W).  The backward is ``convolution_backward`` itself,
+    what autograd calls for ``F.conv2d``; only the engine differs."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, stride, pad, dilation, groups, transposed):
+        ctx.save_for_backward(x, w)
+        ctx.conf = (stride, pad, dilation, groups, transposed,
+                    None if b is None else list(b.shape))
+        op = F.conv_transpose2d if transposed else F.conv2d
+        with _cudnn_off():
+            return op(x, w, b, stride=stride, padding=pad, dilation=dilation, groups=groups)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        stride, pad, dilation, groups, transposed, bias_sizes = ctx.conf
+        mask = [ctx.needs_input_grad[0], ctx.needs_input_grad[1],
+                bias_sizes is not None and ctx.needs_input_grad[2]]
+        with _cudnn_off():
+            gx, gw, gb = torch.ops.aten.convolution_backward(
+                gy, x, w, bias_sizes, list(stride), list(pad), list(dilation), transposed,
+                [0, 0], groups, mask)
+        return gx, gw, gb, None, None, None, None, None
+
+
+def _mixed(conv, x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor]) -> torch.Tensor:
+    """JAX's mixed-precision convolution (``caffe_rtpose_tpu/ops/nn.py``
+    ``_conv_call`` and ``conv2d``): the f32 weight cast to ``x``'s dtype
+    inside the forward, the products summed in f32 (cuDNN's bf16 engines;
+    the sum comes back rounded to bf16, where JAX keeps it in f32 for the
+    bias: at most one more bf16 rounding), the f32 bias added in f32 and the
+    result rounded to ``x``'s dtype.
+
+    Autograd of this forward already gives JAX's gradients, so there is no
+    ``torch.autograd.Function`` here: the incoming bf16 cotangent is cast to
+    f32 by the final cast's backward, the bias gradient is its f32 sum, the
+    ``.float()``'s backward casts the cotangent to bf16 (JAX's custom VJP
+    casts ``g.astype(x.dtype)``), the convolution's input and weight
+    gradients are bf16 convolutions, and the weight cast's backward hands
+    the f32 parameter an f32 gradient.  The cast sits under autograd, so a
+    solver's update reaches the next forward (no stale bf16 copy)."""
+    y = conv(w.to(x.dtype))
+    if b is None:
+        return y
+    return (y.float() + b.float().reshape(1, -1, 1, 1)).to(x.dtype)
 
 
 def pooled_size(in_size: int, k: int, s: int, p: int) -> int:
@@ -79,10 +151,18 @@ def relu(x: torch.Tensor, negative_slope: float = 0.0) -> torch.Tensor:
 
 def deconv2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], *,
              stride: Tuple[int, int], pad: Tuple[int, int],
-             dilation: Tuple[int, int] = (1, 1), groups: int = 1) -> torch.Tensor:
+             dilation: Tuple[int, int] = (1, 1), groups: int = 1,
+             cudnn: bool = True) -> torch.Tensor:
     """Caffe Deconvolution forward; ``w`` is Caffe's blob (Cin, Cout/g, kh,
     kw), which is ``conv_transpose2d``'s layout.  Output dim =
-    stride * (in - 1) + dilated_k - 2 pad (deconv_layer.cpp)."""
+    stride * (in - 1) + dilated_k - 2 pad (deconv_layer.cpp).  With a bf16
+    ``x`` and the f32 parameters: JAX's mixed precision (:func:`_mixed`);
+    ``cudnn=False`` on CUDA: outside cuDNN, as :func:`conv2d`."""
+    if w.dtype != x.dtype:
+        return _mixed(lambda ww: F.conv_transpose2d(x, ww, None, stride=stride, padding=pad,
+                                                    dilation=dilation, groups=groups), x, w, b)
+    if not cudnn and x.is_cuda:
+        return _OutsideCudnn.apply(x, w, b, stride, pad, dilation, groups, True)
     return F.conv_transpose2d(x, w, b, stride=stride, padding=pad, dilation=dilation,
                               groups=groups)
 

@@ -5,8 +5,10 @@ Parity with pycaffe's ``caffe.io.datum_to_array`` / ``array_to_datum``
 ``ReadImageToDatum`` helpers (src/caffe/util/io.cpp:125-248), built on the
 clean-room wire codec.
 
-A copy of ``caffe_rtpose_tpu/proto/datum.py``; ``cv2`` is imported only for
-encoded (JPEG/PNG) datums.
+A copy of ``caffe_rtpose_tpu/proto/datum.py``, except that encoded PNG
+datums are written and read without OpenCV (``pipeline/image_io.py``'s
+``encode_png``/``decode_png``); other encodings (JPEG) go through ``cv2``,
+and without it raise ``ImportError`` naming the format.
 """
 
 from __future__ import annotations
@@ -57,20 +59,35 @@ def parse_datum(buf: bytes) -> dict:
     return decode(buf, caffe_pb.SCHEMA, "Datum")
 
 
+def _cv2(fmt: str):
+    try:
+        import cv2
+    except ImportError as e:
+        raise ImportError(f"{fmt!r}-encoded datums need OpenCV (cv2), which is not installed; "
+                          "use PNG (--encode_type png) or raw datums") from e
+    return cv2
+
+
 def image_to_datum(img_bgr: np.ndarray, label: int = 0, encode_fmt: str = "") -> dict:
     """HWC BGR u8 image -> Datum (optionally JPEG/PNG-encoded like
     ReadImageToDatum's encode path, io.cpp:141-170)."""
     if encode_fmt:
-        import cv2
+        fmt = encode_fmt.lstrip(".").lower()
+        if fmt == "png":
+            from ..pipeline.image_io import encode_png
 
-        ok, buf = cv2.imencode("." + encode_fmt.lstrip("."), img_bgr)
-        if not ok:
-            raise IOError("image encode failed")
+            data = encode_png(img_bgr[:, :, 0] if img_bgr.ndim == 3 and img_bgr.shape[2] == 1
+                              else img_bgr)
+        else:
+            ok, buf = _cv2(fmt).imencode("." + fmt, img_bgr)
+            if not ok:
+                raise IOError("image encode failed")
+            data = buf.tobytes()
         return {
             "channels": int(img_bgr.shape[2]) if img_bgr.ndim == 3 else 1,
             "height": int(img_bgr.shape[0]),
             "width": int(img_bgr.shape[1]),
-            "data": buf.tobytes(),
+            "data": data,
             "label": int(label),
             "encoded": True,
         }
@@ -81,13 +98,18 @@ def image_to_datum(img_bgr: np.ndarray, label: int = 0, encode_fmt: str = "") ->
 def datum_to_image(datum: dict) -> np.ndarray:
     """Datum -> HWC BGR u8 (decoding JPEG/PNG when ``encoded``)."""
     if datum.get("encoded"):
-        import cv2
+        from ..pipeline.image_io import PNG_SIGNATURE, decode_png
 
-        arr = np.frombuffer(datum["data"], np.uint8)
+        data = bytes(datum["data"])
         gray = int(datum.get("channels", 3)) == 1
-        img = cv2.imdecode(arr, cv2.IMREAD_GRAYSCALE if gray else cv2.IMREAD_COLOR)
-        if img is None:
-            raise IOError("image decode failed")
+        if data.startswith(PNG_SIGNATURE):
+            img = decode_png(data, gray=gray)
+        else:
+            cv2 = _cv2("jpeg")
+            img = cv2.imdecode(np.frombuffer(data, np.uint8),
+                               cv2.IMREAD_GRAYSCALE if gray else cv2.IMREAD_COLOR)
+            if img is None:
+                raise IOError("image decode failed")
         if img.ndim == 2:
             img = img[:, :, None]
         return img

@@ -31,8 +31,13 @@ running averages as the reference's forward does (batch_norm_layer.cpp:
 120-136): scale = scale * maf + 1, mean = mu + maf * mean, variance =
 m/(m-1) var_batch + maf * variance, once a forward.
 
-Out of this slice, each raising ``NotImplementedError``: ``mesh`` data
-parallelism (``caffe train --gpu``) and bf16 training.
+A bf16 net (``Net(dtype=torch.bfloat16, phase="TRAIN")``) trains in JAX's
+mixed precision: the parameters, their gradients as accumulated, the
+history and the update stay f32; the net casts inputs and labels to bf16
+and its convolutions cast the parameters inside the forward.
+
+Out of this slice, raising ``NotImplementedError``: ``mesh`` data
+parallelism (``caffe train --gpu``).
 """
 
 from __future__ import annotations
@@ -185,8 +190,6 @@ class Solver:
         self.sp = caffe_pb.view(self.sp_msg, "SolverParameter")
         if mesh is not None:
             raise NotImplementedError("mesh data parallelism is not ported (caffe train --gpu)")
-        if net.dtype != torch.float32:
-            raise NotImplementedError("training runs in float32; bf16 training is not ported")
         self.net = net
         self.next_batch = next_batch
         self.input_transform = input_transform

@@ -110,7 +110,7 @@ Phases, each of which raises (non-zero exit) on failure:
                --phase TRAIN in new processes.  Then two steps under
                torch.profiler: the kernels a step by device time and the
                busy share of the step.
-   framework - (last) the Caffe framework surface, the hand kernels'
+   framework - the Caffe framework surface, the hand kernels'
                counters zeroed before and read after (it launches none of
                K1-K4): (a) every registered layer type but HDF5Data and
                HDF5Output (no h5py there) as the CPU tests' small nets
@@ -135,6 +135,42 @@ Phases, each of which raises (non-zero exit) on failure:
                pose deploy graph bit for bit against Net.forward, classify
                (10 crops) on 4 PNGs with rows summing to 1; then two of
                (b)'s steps under torch.profiler.
+   train bf16- (after train) bench_train.py's configuration in bf16 mixed
+               precision (seed 0 init, the same solver, labels on the
+               card), the counters zeroed before and read after (none of
+               K1-K4 launches; a TRAIN net never takes K4): one step's
+               gradients of f32 and bf16, remat "none" and "convs", from one
+               batch: each bf16 blob within relative L2 0.3 of f32 (JAX's
+               bound, tests/test_training.py:585-590; blobs under a 1e-5
+               norm skipped, the largest ratio printed), remat "convs"
+               within 1e-6 (f32) and 2^-8 (bf16) relative L2 of "none" a
+               blob; then for each remat: Solver.step between CUDA events on
+               a batch already on the card (2 warm, 10 timed, peak memory),
+               the ring shape (iters/s, host augmentation ms), two steps
+               under torch.profiler (busy ms, kernels a step); every loss
+               and parameter finite, parameters and history f32.
+   tools     - (after framework, on its snapshot and log) the Caffe tool
+               chain at CaffeNet's full width, the counters zeroed before
+               and read after: convert_imageset over 512 seeded 256x256
+               PNGs into a raw kvdb (its records equal to the images) and
+               --encoded in a new process with cv2 blocked (which decodes
+               both DBs to equal pixels, keys and labels);
+               compute_image_mean of both to .binaryproto, equal to the
+               images' mean; extract_features of fc7 and prob over 2 x 256
+               images of the train_val TEST net (that DB and mean, the
+               snapshot, a Softmax prob) on the card, bit for bit against
+               api.Net's forward, and on the CPU within 1e-5*max(1,|y|);
+               detect with CaffeNet deploy over a 64-window CSV, its rows
+               equal to api.Detector's; summarize --shapes and draw_net on
+               the train_val and the COCO deploy prototxt; parse_log and
+               extract_series on framework (b)'s caffe train log; each
+               shim once.
+   matcaffe  - (last) the shipped M-files through the port's MATLAB engine
+               after caffe.set_mode_gpu(): the +test classes test_net,
+               test_solver and test_io on the card; caffe.Net (Net.m) on
+               CaffeNet's deploy prototxt with the snapshot at batch 10,
+               crop 227, its forward bit for bit against api.Net's; then
+               run_tests.m, which sets the CPU mode first.
 4. slice     - the full-width COCO estimator (656x368, 1 scale, u8 input,
                pair_cap=32, f32) over 8 synthetic frames through
                estimate_from_net_input (graph replays), with the peak-mask
@@ -194,8 +230,9 @@ hundreds of peaks in every part).
 
 The bf16 phases reuse the 1-scale f32 slice's weights and frames.
 
-The train and framework phases print their JSON lines ({"train": ...},
-{"framework": ...}) before them.
+The train, framework, train bf16, tools and matcaffe phases print their
+JSON lines ({"train": ...}, {"framework": ...}, {"train_bf16": ...},
+{"tools": ...}, {"matcaffe": ...}) before them.
 The last three lines are: a JSON object with one entry per TPU kernel (K1
 and its 3-scale form K2 listed apart), the card's name and power limit as
 nvidia-smi prints them, and {"ok": true, "device": {...}}.
@@ -2221,6 +2258,21 @@ def timed_batches(gen, host_ms):
         yield batch
 
 
+def timed_steps(solver, n):
+    """``n`` solver steps, each between CUDA events -> (ms list, losses)."""
+    import torch
+
+    ms, losses = [], []
+    for _ in range(n):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        losses.append(solver.step(1))
+        b.record()
+        b.synchronize()
+        ms.append(a.elapsed_time(b))
+    return ms, losses
+
+
 def phase_train_bench(shape, device="cuda"):
     """bench_train.py's configuration in one pipeline shape: ``sync`` (the
     host augments inside the step), ``ring`` (a 3-deep prefetch thread),
@@ -2255,16 +2307,10 @@ def phase_train_bench(shape, device="cuda"):
     losses = [solver.step(1) for _ in range(TRAIN_WARM_STEPS)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    step_ms = []
     t0 = time.perf_counter()
-    for _ in range(TRAIN_TIMED_STEPS):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        losses.append(solver.step(1))
-        b.record()
-        b.synchronize()
-        step_ms.append(a.elapsed_time(b))
+    step_ms, more = timed_steps(solver, TRAIN_TIMED_STEPS)
     wall = time.perf_counter() - t0
+    losses += more
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     if hasattr(batches, "close"):
         batches.close()
@@ -2449,6 +2495,186 @@ def phase_train_profile(solver, step_ms, steps=2, top=10, tag="[train profile]")
                 busy_share=busy / step_ms,
                 top=[dict(name=name, launches_a_step=n / steps, ms_a_step=ms / steps)
                      for name, (n, ms) in rows[:top]])
+
+
+# -------------------------------------------------------------- train bf16
+
+# bf16 against f32 gradients, relative L2 a blob (JAX's bound and rule,
+# tests/test_training.py:585-590).  The f32 step's convolutions run outside
+# cuDNN (ops/nn.py::_OutsideCudnn): through cuDNN its trunk bias gradients
+# sat 0.41-0.45 from an f64 run at this shape, and bf16 read 0.355 from it
+# (ROADMAP C1; H100 80GB HBM3, 700 W)
+TOL_BF16_GRAD = 0.3
+TOL_REMAT = {"f32": 1e-6, "bf16": 2.0 ** -8}  # remat="convs" against "none", relative L2 a blob
+GRAD_FLOOR = 1e-5  # a blob whose f32 gradient norm is below this has no direction to hold
+
+
+def grad_tree(net):
+    return {name: [p.grad.detach().float().clone() for p in ps]
+            for name, ps in net.layer_blobs().items()}
+
+
+def tree_rel_l2(got, ref, floor=0.0):
+    """{layer[i]: |got - ref| / |ref|} over the blobs whose |ref| > floor."""
+    out = {}
+    for name, refs in ref.items():
+        for i, (g, r) in enumerate(zip(got[name], refs)):
+            nr = float(r.norm())
+            if nr > floor:
+                out[f"{name}[{i}]"] = float((g - r).norm()) / nr
+    return out
+
+
+def train_bf16_grads(batch, transform, device="cuda"):
+    """One step's gradients of the full-width train net (seed 0 init) from
+    one batch, f32 and bf16, remat "none" and "convs": bf16 against f32 per
+    blob, and each remat pair."""
+    import torch
+
+    from caffe_rtpose_tpu_torch.core.net import Net
+    from caffe_rtpose_tpu_torch.models.cpm import make_pose_train_net
+
+    tag = "[train bf16 grads]"
+    inputs = transform(dict(batch))
+    grads, losses = {}, {}
+    for dname, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        for remat in ("none", "convs"):
+            net = Net(make_pose_train_net(batch=TRAIN_BATCH, crop=TRAIN_CROP), phase="TRAIN",
+                      device=device, seed=0, dtype=dtype, remat=remat)
+            loss, _ = net.loss(inputs)
+            loss.backward()
+            grads[dname, remat] = grad_tree(net)
+            losses[f"{dname} {remat}"] = float(loss.detach())
+            del net, loss
+    torch.cuda.empty_cache()
+    ref = grads["f32", "none"]
+    rel = tree_rel_l2(grads["bf16", "none"], ref, GRAD_FLOOR)
+    worst = max(rel, key=rel.get)
+    remat = {}
+    for dname in ("f32", "bf16"):
+        r = tree_rel_l2(grads[dname, "convs"], grads[dname, "none"])
+        same = all(torch.equal(a, b) for k in grads[dname, "none"]
+                   for a, b in zip(grads[dname, "convs"][k], grads[dname, "none"][k]))
+        remat[dname] = dict(max_rel_l2=max(r.values()), bit_identical=same)
+    skipped = sum(len(v) for v in ref.values()) - len(rel)
+    top = sorted(rel.items(), key=lambda kv: -kv[1])[:4]
+    print(f"{tag} losses {losses}; bf16 against f32, relative L2 a blob: largest "
+          f"{rel[worst]:.4f} ({worst}), median {statistics.median(rel.values()):.4f} over "
+          f"{len(rel)} blobs ({skipped} under the {GRAD_FLOOR} norm floor; limit {TOL_BF16_GRAD}); "
+          f"top {[(k, round(v, 4)) for k, v in top]}; remat convs against none: {remat} "
+          f"(limits {TOL_REMAT})")
+    check(all(np.isfinite(list(losses.values()))), f"{tag} non-finite loss {losses}")
+    check(all(bool(torch.isfinite(g).all()) for t in grads.values() for gs in t.values()
+              for g in gs), f"{tag} non-finite gradients")
+    check(rel[worst] <= TOL_BF16_GRAD, f"{tag} {worst}: bf16 gradient {rel[worst]} from f32")
+    for dname, r in remat.items():
+        check(r["max_rel_l2"] <= TOL_REMAT[dname], f"{tag} {dname} remat gradients differ: {r}")
+    return dict(losses=losses, bf16_max=rel[worst], bf16_worst=worst,
+                bf16_median=statistics.median(rel.values()), blobs=len(rel),
+                below_floor=skipped, remat=remat)
+
+
+def train_bf16_run(remat, device_batch, transform, device="cuda"):
+    """The bf16 train net with ``remat``: ``Solver.step`` between CUDA events
+    on a batch already on the card (2 warm, then the timed steps, peak
+    memory over them), then in the ring shape (host augmentation in the
+    3-deep prefetch thread), then two steps under torch.profiler.  Every
+    loss and parameter finite, parameters and history f32."""
+    import torch
+
+    from caffe_rtpose_tpu_torch.core.net import Net
+    from caffe_rtpose_tpu_torch.models.cpm import make_pose_train_net
+    from caffe_rtpose_tpu_torch.training.datasets import SyntheticPoseSource, prefetch_loader
+    from caffe_rtpose_tpu_torch.training.labels_device import pose_batches_jointfeed
+    from caffe_rtpose_tpu_torch.training.solver import Solver
+    from caffe_rtpose_tpu_torch.training.transformer import AugParams
+
+    tag = f"[train bf16 remat={remat}]"
+    net = Net(make_pose_train_net(batch=TRAIN_BATCH, crop=TRAIN_CROP), phase="TRAIN",
+              device=device, seed=0, dtype=torch.bfloat16, remat=remat)
+    check(not net.conv1_kernel, f"{tag} a TRAIN net took the conv1 kernel")
+    solver = Solver(TRAIN_SOLVER, net, lambda _: device_batch, input_transform=transform)
+    losses = [solver.step(1) for _ in range(TRAIN_WARM_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, more = timed_steps(solver, TRAIN_TIMED_STEPS)
+    losses += more
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    prm = AugParams(crop_size_x=TRAIN_CROP, crop_size_y=TRAIN_CROP)
+    host_ms = []
+    ring = prefetch_loader(timed_batches(pose_batches_jointfeed(
+        SyntheticPoseSource(n=64, size=TRAIN_CROP), prm, TRAIN_BATCH, seed=1, data_u8=True),
+        host_ms))
+    it = iter(ring)
+    solver.next_batch = lambda _: next(it)
+    losses += [solver.step(1) for _ in range(TRAIN_WARM_STEPS)]
+    t0 = time.perf_counter()
+    ring_ms, more = timed_steps(solver, TRAIN_TIMED_STEPS)
+    ring_ips = TRAIN_TIMED_STEPS / (time.perf_counter() - t0)
+    losses += more
+    if hasattr(ring, "close"):
+        ring.close()
+    solver.next_batch = lambda _: device_batch
+    med = statistics.median(step_ms)
+    profile = phase_train_profile(solver, med, tag=f"{tag} profile")
+    finite = all(bool(torch.isfinite(p).all()) for _, _, p, _, _ in net.learnable())
+    flops = train_step_flops(net)
+    bound_ms = flops / BF16_FLOPS * 1e3
+    res = dict(step_ms_median=med, step_ms=step_ms, ring_step_ms_median=statistics.median(ring_ms),
+               ring_step_ms=ring_ms, ring_iters_s=ring_ips, ring_imgs_s=ring_ips * TRAIN_BATCH,
+               host_aug_ms_median=statistics.median(host_ms), peak_gib=peak,
+               tflop_a_step=flops / 1e12, bound_ms=bound_ms, bound_share=bound_ms / med,
+               losses=losses, params_finite=finite, profile=profile)
+    print(f"{tag} Solver.step on a batch on the card (CUDA events) median {med:.2f} ms "
+          f"({['%.1f' % x for x in step_ms]}), {1e3 / med:.2f} iters/s; ring: median "
+          f"{res['ring_step_ms_median']:.1f} ms a step, {ring_ips:.3f} iters/s, "
+          f"{ring_ips * TRAIN_BATCH:.2f} imgs/s, host augmentation median "
+          f"{res['host_aug_ms_median']:.1f} ms a batch; {flops / 1e12:.3f} TFLOP a step, bound "
+          f"{bound_ms:.2f} ms at the bf16 peak ({res['bound_share']:.3f} of the step); peak "
+          f"{peak:.3f} GiB; losses {['%.4g' % x for x in losses]}")
+    check(len(losses) >= 5 and all(np.isfinite(losses)), f"{tag} non-finite loss {losses}")
+    check(finite, f"{tag} non-finite parameters")
+    check(all(p.dtype == torch.float32 for _, _, p, _, _ in net.learnable())
+          and all(h.dtype == torch.float32 for slot in solver.history.values()
+                  for hs in slot.values() for h in hs), f"{tag} parameters or history not f32")
+    return res
+
+
+def phase_train_bf16(f32_step_ms=None, device="cuda"):
+    """bench_train.py's configuration in bf16 mixed precision (the full
+    6-stage train net at batch 10, crop 368, seed 0 init, SGD 2e-5 / 0.9 /
+    5e-4, labels rasterized on the card) with remat "none" and "convs": the
+    gradient gates, then each run; the hand kernels' counters zeroed before
+    and read after (training launches none of K1-K4)."""
+    import torch
+
+    from caffe_rtpose_tpu_torch.training.datasets import SyntheticPoseSource
+    from caffe_rtpose_tpu_torch.training.labels_device import (make_input_transform,
+                                                               pose_batches_jointfeed)
+    from caffe_rtpose_tpu_torch.training.transformer import AugParams
+
+    zero_counts()
+    t0 = time.perf_counter()
+    prm = AugParams(crop_size_x=TRAIN_CROP, crop_size_y=TRAIN_CROP)
+    transform = make_input_transform(prm, data_u8=True)
+    host = next(pose_batches_jointfeed(SyntheticPoseSource(n=16, size=TRAIN_CROP, seed=3), prm,
+                                       TRAIN_BATCH, seed=4, data_u8=True))
+    device_batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                    for k, v in host.items()}
+    grads = train_bf16_grads(device_batch, transform, device)
+    runs = {r: train_bf16_run(r, device_batch, transform, device) for r in ("none", "convs")}
+    counts = read_counts()
+    check(not any(counts.values()), f"[train bf16] launched hand kernels: {counts}")
+    seconds = time.perf_counter() - t0
+    print(f"[train bf16] {seconds:.1f} s in all; hand kernel launches {counts}; step on a batch "
+          f"on the card: remat none {runs['none']['step_ms_median']:.2f} ms, convs "
+          f"{runs['convs']['step_ms_median']:.2f} ms (f32 staged step in this run: "
+          f"{f32_step_ms} ms); peak {runs['none']['peak_gib']:.3f} / "
+          f"{runs['convs']['peak_gib']:.3f} GiB")
+    return dict(grads=grads, runs={r: {k: v for k, v in res.items() if k != "losses"}
+                                   for r, res in runs.items()},
+                losses={r: res["losses"] for r, res in runs.items()},
+                f32_staged_step_ms=f32_step_ms, hand_kernel_launches=counts, seconds=seconds)
 
 
 # -------------------------------------------------------------- framework
@@ -2834,7 +3060,7 @@ def phase_framework_train(work, device="cuda"):
           f"ms ({len(host_ms)} batches); {flops / 1e12:.3f} TFLOP a step, bound {bound_ms:.1f} "
           f"ms at the f32 peak ({res['bound_share']:.3f} of the step); peak {peak:.2f} GiB; "
           f"tests {res['tests']}; the kvdb ({db_mb:.0f} MB) written in {db_s:.1f} s")
-    return res, solver, tv, mean
+    return res, solver, tv, mean, text
 
 
 def phase_framework_small(device="cuda", steps=3):
@@ -2979,34 +3205,483 @@ def phase_framework_facade(work, snapshot, mean, device="cuda"):
                 pose_shape=list(shape), pose_s=pose_s)
 
 
-def phase_framework(device="cuda"):
-    """The framework path, with the hand kernels' counters zeroed before and
-    read after (it launches none of K1-K4): (a) the layer zoo, (b) caffe
-    train at CaffeNet's full width with a test net, (c) card against CPU, (d)
-    caffe test, (e) the facade; then two of (b)'s steps under the profiler."""
-    import tempfile
-
+def phase_framework(work, device="cuda"):
+    """The framework path in ``work``, with the hand kernels' counters zeroed
+    before and read after (it launches none of K1-K4): (a) the layer zoo, (b)
+    caffe train at CaffeNet's full width with a test net, (c) card against
+    CPU, (d) caffe test, (e) the facade; then two of (b)'s steps under the
+    profiler.  Returns its JSON entry, (b)'s snapshot and its log."""
     zero_counts()
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_framework_") as work:
-        write_fw_sources(work, np.random.RandomState(0))
-        zoo = phase_framework_zoo(work, device)
-        train, solver, tv, mean = phase_framework_train(work, device)
-        small = phase_framework_small(device)
-        last = train["tests"][-1]
-        test = phase_framework_test(tv, train["snapshot"], last, device)
-        facade = phase_framework_facade(work, train["snapshot"], mean, device)
-        counts = read_counts()
-        check(not any(counts.values()), f"[framework] launched hand kernels: {counts}")
-        solver.test_nets = []  # the profile times train steps alone
-        profile = phase_train_profile(solver, train["step_ms_median"],
-                                      tag="[framework profile]")
-        del solver
-    train.pop("snapshot")
+    write_fw_sources(work, np.random.RandomState(0))
+    zoo = phase_framework_zoo(work, device)
+    train, solver, tv, mean, log = phase_framework_train(work, device)
+    small = phase_framework_small(device)
+    last = train["tests"][-1]
+    test = phase_framework_test(tv, train["snapshot"], last, device)
+    facade = phase_framework_facade(work, train["snapshot"], mean, device)
+    counts = read_counts()
+    check(not any(counts.values()), f"[framework] launched hand kernels: {counts}")
+    solver.test_nets = []  # the profile times train steps alone
+    profile = phase_train_profile(solver, train["step_ms_median"], tag="[framework profile]")
+    del solver
+    snapshot = train.pop("snapshot")
     seconds = time.perf_counter() - t0
     print(f"[framework] {seconds:.1f} s in all; hand kernel launches {counts}")
     return dict(zoo=zoo, train=train, small=small, caffe_test=test, facade=facade,
-                profile=profile, hand_kernel_launches=counts, seconds=seconds)
+                profile=profile, hand_kernel_launches=counts, seconds=seconds), snapshot, log
+
+
+# ------------------------------------------------------------------ tools
+
+TOOL_IMAGES, TOOL_SIZE, TOOL_ITERS, TOOL_WINDOWS = 512, 256, 2, 64
+TOL_TOOLS_CPU = 1e-5  # extract_features on the CPU against the card: 1e-5 * max(1, |y|)
+ENCODED_NO_CV2 = r"""
+import sys
+sys.modules["cv2"] = None
+import numpy as np
+from caffe_rtpose_tpu_torch.core.data_layers import datum_chw
+from caffe_rtpose_tpu_torch.proto import datum
+from caffe_rtpose_tpu_torch.tools.aux_tools import main
+from caffe_rtpose_tpu_torch.utils.db import open_db
+lst, root, raw, enc = sys.argv[1:5]
+assert main(["convert_imageset", lst, root, enc, "--encoded"]) == 0
+
+def records(path):
+    with open_db(path, "r") as db:
+        cur = db.new_cursor()
+        cur.seek_to_first()
+        while cur.valid():
+            d = datum.parse_datum(cur.value())
+            yield cur.key(), d.get("label", 0), bool(d.get("encoded")), datum_chw(d)
+            cur.next()
+
+n = 0
+for (k, l, e, a), (k2, l2, e2, b) in zip(records(raw), records(enc)):
+    assert k == k2 and l == l2 and not e and e2 and np.array_equal(a, b), k
+    n += 1
+print("ENCODED", n, sys.modules["cv2"] is None)
+"""
+
+
+def write_tool_images(work, rs):
+    """TOOL_IMAGES seeded TOOL_SIZE^2 PNGs (written without OpenCV), their
+    list file with labels, and their stacked CHW u8 pixels."""
+    import os
+
+    from caffe_rtpose_tpu_torch.pipeline.image_io import encode_png
+
+    root = os.path.join(work, "tool_images")
+    os.makedirs(root, exist_ok=True)
+    lines, pixels = [], np.empty((TOOL_IMAGES, 3, TOOL_SIZE, TOOL_SIZE), np.uint8)
+    for i in range(TOOL_IMAGES):
+        img = rs.randint(0, 256, (TOOL_SIZE, TOOL_SIZE, 3)).astype(np.uint8)
+        with open(os.path.join(root, f"im{i:04d}.png"), "wb") as f:
+            f.write(encode_png(img))
+        pixels[i] = img.transpose(2, 0, 1)
+        lines.append(f"im{i:04d}.png {int(rs.randint(1000))}\n")
+    lst = os.path.join(work, "tool_list.txt")
+    with open(lst, "w") as f:
+        f.writelines(lines)
+    return root, lst, pixels
+
+
+def tools_dbs(work, root, lst, pixels):
+    """convert_imageset raw and --encoded (the latter in a new process with
+    cv2 blocked, which also decodes both DBs and compares them), and the
+    raw DB's pixels against the images."""
+    import contextlib
+    import io
+    import os
+    import subprocess
+
+    from caffe_rtpose_tpu_torch.core.data_layers import datum_chw
+    from caffe_rtpose_tpu_torch.proto import datum
+    from caffe_rtpose_tpu_torch.tools.aux_tools import main as aux
+    from caffe_rtpose_tpu_torch.utils.db import open_db
+
+    tag = "[tools convert_imageset]"
+    raw, enc = os.path.join(work, "tool_db"), os.path.join(work, "tool_db_png")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        check(aux(["convert_imageset", lst, root, raw]) == 0, f"{tag} raw: non-zero exit")
+    raw_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-c", ENCODED_NO_CV2, lst, root, raw, enc],
+                       cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                       text=True, timeout=600)
+    enc_s = time.perf_counter() - t0
+    m = re.search(r"^ENCODED (\d+) (\w+)$", p.stdout, re.M)
+    check(p.returncode == 0 and m and int(m.group(1)) == TOOL_IMAGES and m.group(2) == "True",
+          f"{tag} --encoded with cv2 blocked: exit {p.returncode}\n{p.stdout[-2000:]}\n"
+          f"{p.stderr[-3000:]}")
+    n = 0
+    with open_db(raw, "r") as db:
+        cur = db.new_cursor()
+        cur.seek_to_first()
+        while cur.valid():
+            check(np.array_equal(datum_chw(datum.parse_datum(cur.value())), pixels[n]),
+                  f"{tag} record {n} differs from its image")
+            n += 1
+            cur.next()
+    check(n == TOOL_IMAGES, f"{tag} {n} raw records")
+    size = {k: sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(v) for f in fs)
+            if os.path.isdir(v) else os.path.getsize(v) for k, v in (("raw", raw), ("png", enc))}
+    print(f"{tag} {TOOL_IMAGES} {TOOL_SIZE}x{TOOL_SIZE} PNGs: raw kvdb in {raw_s:.1f} s "
+          f"({size['raw'] / 1e6:.1f} MB), --encoded in {enc_s:.1f} s ({size['png'] / 1e6:.1f} MB; "
+          f"a new process with cv2 blocked built it, decoded both DBs and found equal pixels, "
+          f"keys and labels); raw records equal to the images")
+    return raw, enc, dict(raw_s=raw_s, encoded_s=enc_s, raw_mb=size["raw"] / 1e6,
+                          encoded_mb=size["png"] / 1e6, records=n)
+
+
+def tools_features(work, raw, mean_path, snapshot, device="cuda"):
+    """extract_features of fc7 and prob over TOOL_ITERS batches of 256 of
+    the train_val TEST net (the raw DB, the computed mean, the framework
+    phase's snapshot, a Softmax ``prob`` on fc8): on the card bit for bit
+    against the facade's forward, and on the CPU within TOL_TOOLS_CPU."""
+    import contextlib
+    import io
+    import os
+
+    import torch
+
+    from caffe_rtpose_tpu_torch import api
+    from caffe_rtpose_tpu_torch.models.caffenet import make_caffenet_train_val
+    from caffe_rtpose_tpu_torch.proto import prototxt
+    from caffe_rtpose_tpu_torch.tools.aux_tools import main as aux
+
+    tag = "[tools extract_features]"
+    tv = make_caffenet_train_val(raw, raw, mean_path, batch=FW_BATCH, test_batch=FW_BATCH,
+                                 crop=FW_CROP)
+    tv["layer"].append({"name": "prob", "type": "Softmax", "bottom": ["fc8"], "top": ["prob"],
+                        "include": [{"phase": 1}]})
+    path = os.path.join(work, "tool_train_val.prototxt")
+    prototxt.dump_file(tv, path)
+    outs, secs = {}, {}
+    for dev in (device, "cpu"):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            check(aux(["extract_features", "--model", path, "--weights", snapshot, "--blobs",
+                       "fc7,prob", "--data", "net", "--out", os.path.join(work, f"f_{dev}.npz"),
+                       "--iterations", str(TOOL_ITERS), "--device", dev]) == 0,
+                  f"{tag} {dev}: non-zero exit")
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        secs[dev] = time.perf_counter() - t0
+        outs[dev] = dict(np.load(os.path.join(work, f"f_{dev}.npz")))
+    api.set_mode_cpu() if device == "cpu" else api.set_mode_gpu()
+    facade = api.Net(path, snapshot, api.TEST, fetch_all_blobs=False)
+    ref = {k: [] for k in ("fc7", "prob")}
+    for _ in range(TOOL_ITERS):
+        out = facade.forward(blobs=["fc7", "prob"])
+        for k in ref:
+            ref[k].append(out[k])
+    ref = {k: np.concatenate(v) for k, v in ref.items()}
+    card, cpu = outs[device], outs["cpu"]
+    gaps = {k: float((np.abs(cpu[k] - card[k]) / np.maximum(1.0, np.abs(card[k]))).max())
+            for k in ref}
+    print(f"{tag} fc7 {card['fc7'].shape} and prob {card['prob'].shape} over {TOOL_ITERS} x "
+          f"{FW_BATCH}: card {secs[device]:.1f} s, CPU {secs['cpu']:.1f} s (with the build); "
+          f"card bit-identical to api.Net's forward: "
+          f"{all(np.array_equal(card[k], ref[k]) for k in ref)}; CPU against the card "
+          f"{gaps} (limit {TOL_TOOLS_CPU} x max(1, |y|)); prob rows sum to "
+          f"{float(card['prob'].sum(1).min()):.6f}-{float(card['prob'].sum(1).max()):.6f}")
+    for k in ref:
+        check(card[k].shape == ref[k].shape == ((TOOL_ITERS * FW_BATCH, 4096) if k == "fc7"
+                                                 else (TOOL_ITERS * FW_BATCH, 1000)),
+              f"{tag} {k}: shape {card[k].shape}")
+        check(np.array_equal(card[k], ref[k]), f"{tag} {k}: the card differs from api.Net: "
+                                               f"{float(np.abs(card[k] - ref[k]).max())}")
+        check(gaps[k] <= TOL_TOOLS_CPU, f"{tag} {k}: the CPU differs by {gaps[k]}")
+        check(np.isfinite(card[k]).all(), f"{tag} {k}: non-finite")
+    return path, dict(card_s=secs[device], cpu_s=secs["cpu"], cpu_gap=gaps,
+                      shapes={k: list(v.shape) for k, v in card.items()})
+
+
+def tools_detect(work, root, mean_path, snapshot, device="cuda"):
+    """detect with CaffeNet deploy (batch 10) over a TOOL_WINDOWS-window CSV
+    on the first 8 images: its CSV rows against api.Detector on the same
+    windows (the same %g text)."""
+    import contextlib
+    import csv
+    import io
+    import os
+
+    from caffe_rtpose_tpu_torch import api
+    from caffe_rtpose_tpu_torch.core.data_layers import read_mean_binaryproto
+    from caffe_rtpose_tpu_torch.models.caffenet import make_caffenet_deploy
+    from caffe_rtpose_tpu_torch.proto import prototxt
+    from caffe_rtpose_tpu_torch.tools import detect
+
+    tag = "[tools detect]"
+    deploy = os.path.join(work, "tool_deploy.prototxt")
+    prototxt.dump_file(make_caffenet_deploy(batch=10), deploy)
+    mean = read_mean_binaryproto(mean_path).mean((1, 2))
+    np.save(os.path.join(work, "tool_mean.npy"), mean)
+    rs = np.random.RandomState(12)
+    windows = []
+    for i in range(TOOL_WINDOWS):
+        y0, x0 = rs.randint(0, TOOL_SIZE - 64, 2)
+        h, w = rs.randint(48, 160, 2)
+        windows.append((os.path.join(root, f"im{i // 8:04d}.png"),
+                        [int(y0), int(x0), int(min(TOOL_SIZE, y0 + h)), int(min(TOOL_SIZE, x0 + w))]))
+    win = os.path.join(work, "windows.csv")
+    with open(win, "w") as f:
+        f.write("filename, xmin, ymin, xmax, ymax\n")
+        for p, (y0, x0, y1, x1) in windows:
+            f.write(f"{p}, {x0}, {y0}, {x1}, {y1}\n")
+    out = os.path.join(work, "detections.csv")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = detect.main([win, out, "--model_def", deploy, "--pretrained_model", snapshot,
+                          "--crop_mode", "list", "--mean_file",
+                          os.path.join(work, "tool_mean.npy"), "--device", device])
+    secs = time.perf_counter() - t0
+    check(rc == 0, f"{tag} exit {rc}")
+    with open(out) as f:
+        rows = list(csv.reader(f))[1:]
+    api.set_mode_cpu() if device == "cpu" else api.set_mode_gpu()
+    grouped = {}
+    for p, wnd in windows:
+        grouped.setdefault(p, []).append(wnd)
+    det = api.Detector(deploy, snapshot, mean=mean, raw_scale=255.0, channel_swap=(2, 1, 0),
+                       context_pad=16)
+    ref = det.detect_windows(list(grouped.items()))
+    same = [r[0] == d["filename"] and [float(v) for v in r[1:5]] == [float(v) for v in d["window"]]
+            and r[5] == " ".join("%g" % v for v in np.ravel(d["prediction"]))
+            for r, d in zip(rows, ref)]
+    print(f"{tag} CaffeNet deploy over {len(rows)} windows of 8 images in {secs:.1f} s (with the "
+          f"build); rows equal to api.Detector's: {sum(same)}/{len(ref)}")
+    check(len(rows) == len(ref) == TOOL_WINDOWS and all(same),
+          f"{tag} {sum(same)} of {len(ref)} rows equal api.Detector's")
+    return dict(windows=len(rows), seconds=secs, rows_equal=sum(same))
+
+
+def tools_summaries(work, tv_path, device="cuda"):
+    """summarize --shapes and draw_net on the CaffeNet train_val and the COCO
+    deploy prototxt."""
+    import contextlib
+    import io
+    import os
+
+    from caffe_rtpose_tpu_torch.models.cpm import make_pose_deploy_net
+    from caffe_rtpose_tpu_torch.proto import prototxt
+    from caffe_rtpose_tpu_torch.tools import draw_net, summarize
+
+    tag = "[tools summarize/draw_net]"
+    coco = os.path.join(work, "tool_coco_deploy.prototxt")
+    prototxt.dump_file(make_pose_deploy_net("COCO"), coco)
+    res = {}
+    for name, path, phase, probe in (("caffenet train_val", tv_path, "TEST",
+                                      f"fc7 {FW_BATCH}x4096"),
+                                     ("coco deploy", coco, "TEST", "concat_stage7 1x57x46x82")):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = summarize.main(["-s", "--no-color", "-p", phase, "--device", device, path])
+            dot = os.path.join(work, os.path.basename(path) + ".dot")
+            rc2 = draw_net.main([path, dot, "--phase", phase])
+        secs = time.perf_counter() - t0
+        text = buf.getvalue()
+        n_layers = len([l for l in prototxt.parse_file(path)["layer"]])
+        with open(dot) as f:
+            dot_text = f.read()
+        table = [l for l in text.splitlines() if l and not l.startswith(("Layer", "-"))]
+        check(rc == rc2 == 0 and probe in text, f"{tag} {name}: exit {rc}/{rc2}; no {probe!r}:\n"
+                                                f"{text[-1500:]}")
+        check(dot_text.startswith("digraph") and dot_text.count("shape=record") >= 1,
+              f"{tag} {name}: .dot {dot_text[:200]}")
+        res[name] = dict(table_rows=len(table) - 1, prototxt_layers=n_layers,
+                         dot_bytes=len(dot_text), seconds=secs)
+        print(f"{tag} {name}: {len(table) - 1} table rows ({n_layers} layers in the file), "
+              f"'{probe}' among the shapes, .dot {len(dot_text)} bytes, {secs:.1f} s")
+    return res
+
+
+def tools_logs(work, log):
+    """parse_log and extract_series on the log caffe train printed in the
+    framework phase."""
+    import os
+
+    from caffe_rtpose_tpu_torch.tools import parse_log, plot_training_log
+
+    tag = "[tools parse_log]"
+    path = os.path.join(work, "caffenet_train.log")
+    with open(path, "w") as f:
+        f.write(log)
+    check(parse_log.main([path, work]) == 0, f"{tag} non-zero exit")
+    train, test = parse_log.parse_log(path)
+    series = {c: len(plot_training_log.extract_series(path, c)[0])
+              for c in plot_training_log.CHARTS}
+    with open(os.path.join(work, "caffenet_train.log.test")) as f:
+        header = f.readline().strip()
+    print(f"{tag} {len(train)} train rows, {len(test)} test rows ({header}); extract_series "
+          f"points by chart {series}")
+    check(len(test) == FW_ITERS // FW_TEST_INTERVAL + 1 and len(train) >= 2,
+          f"{tag} {len(train)} train, {len(test)} test rows")
+    check(all(n > 0 for n in series.values()), f"{tag} empty series {series}")
+    return dict(train_rows=len(train), test_rows=len(test), test_header=header, series=series)
+
+
+SHIM_NET = """name: "lsq"
+layer { name: "d" type: "DummyData" top: "x" top: "y"
+  dummy_data_param { shape { dim: 64 dim: 32 } shape { dim: 64 dim: 1 }
+    data_filler { type: "gaussian" std: 1.0 } data_filler { type: "constant" value: 0.5 } } }
+layer { name: "fc" type: "InnerProduct" bottom: "x" top: "p"
+  inner_product_param { num_output: 1 weight_filler { type: "gaussian" std: 0.1 } } }
+layer { name: "loss" type: "EuclideanLoss" bottom: "p" bottom: "y" top: "loss" }
+"""
+
+
+def tools_shims(work, tv_path, snapshot, device="cuda"):
+    """Each shim once, on the card: train_net and finetune_net on a small
+    least-squares net, test_net on the train_val with the framework phase's
+    snapshot (1 iteration), net_speed_benchmark on the small net."""
+    import contextlib
+    import io
+    import os
+
+    from caffe_rtpose_tpu_torch.tools import shims
+
+    tag = "[tools shims]"
+    net = os.path.join(work, "shim_net.prototxt")
+    sol = os.path.join(work, "shim_solver.prototxt")
+    with open(net, "w") as f:
+        f.write(SHIM_NET)
+    with open(sol, "w") as f:
+        f.write(f'net: "{net}"\nbase_lr: 0.01\nlr_policy: "fixed"\nmomentum: 0.9\nmax_iter: 4\n'
+                f'display: 2\nsnapshot_prefix: "{work}/shim"\n')
+    weights = f"{work}/shim_iter_4.caffemodel"
+    res = {}
+    for argv in (["train_net", sol], ["finetune_net", sol, weights],
+                 ["test_net", tv_path, snapshot, "1"], ["net_speed_benchmark", net, "2"]):
+        out, err = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = shims.main([argv[0], *argv[1:], "--device", device])
+        res[argv[0]] = dict(rc=rc, seconds=time.perf_counter() - t0)
+        check(rc == 0 and f"{argv[0]} is deprecated" in err.getvalue(),
+              f"{tag} {argv[0]}: exit {rc}\n{out.getvalue()[-1500:]}\n{err.getvalue()[-1500:]}")
+        check(argv[0] != "train_net" or os.path.exists(weights), f"{tag} no {weights}")
+    print(f"{tag} " + ", ".join(f"{k} exit 0 in {v['seconds']:.1f} s" for k, v in res.items()))
+    return res
+
+
+def phase_tools(work, snapshot, log, device="cuda"):
+    """The chain a Caffe user runs on ImageNet-style data, at CaffeNet's full
+    width, with the hand kernels' counters zeroed before and read after:
+    convert_imageset (raw and --encoded, the latter with cv2 blocked),
+    compute_image_mean, extract_features, detect, summarize and draw_net,
+    parse_log and extract_series, and each shim."""
+    import contextlib
+    import io
+    import os
+
+    from caffe_rtpose_tpu_torch.core.data_layers import read_mean_binaryproto
+    from caffe_rtpose_tpu_torch.tools.aux_tools import main as aux
+
+    zero_counts()
+    t0 = time.perf_counter()
+    t = time.perf_counter()
+    root, lst, pixels = write_tool_images(work, np.random.RandomState(30))
+    write_s = time.perf_counter() - t
+    raw, enc, dbs = tools_dbs(work, root, lst, pixels)
+    means = {}
+    for name, db in (("raw", raw), ("png", enc)):
+        out = os.path.join(work, f"mean_{name}.binaryproto")
+        with contextlib.redirect_stdout(io.StringIO()):
+            check(aux(["compute_image_mean", db, "--out", out]) == 0,
+                  f"[tools compute_image_mean] {name}: non-zero exit")
+        means[name] = read_mean_binaryproto(out)
+    direct = (pixels.astype(np.float64).sum(0) / TOOL_IMAGES).astype(np.float32)
+    print(f"[tools compute_image_mean] raw and --encoded DBs: {means['raw'].shape}, equal to the "
+          f"images' mean: {np.array_equal(means['raw'], direct)} and "
+          f"{np.array_equal(means['png'], direct)}; channel means "
+          f"{means['raw'].mean((1, 2)).tolist()}")
+    check(np.array_equal(means["raw"], direct) and np.array_equal(means["png"], direct),
+          "[tools compute_image_mean] the mean differs from the images'")
+    mean_path = os.path.join(work, "mean_raw.binaryproto")
+    tv_path, features = tools_features(work, raw, mean_path, snapshot, device)
+    detections = tools_detect(work, root, mean_path, snapshot, device)
+    summaries = tools_summaries(work, tv_path, device)
+    logs = tools_logs(work, log)
+    shim_runs = tools_shims(work, tv_path, snapshot, device)
+    counts = read_counts()
+    check(not any(counts.values()), f"[tools] launched hand kernels: {counts}")
+    seconds = time.perf_counter() - t0
+    print(f"[tools] {seconds:.1f} s in all; hand kernel launches {counts}")
+    return dict(images_write_s=write_s, convert_imageset=dbs, extract_features=features,
+                detect=detections, summarize_draw_net=summaries, parse_log=logs,
+                shims=shim_runs, hand_kernel_launches=counts, seconds=seconds)
+
+
+# --------------------------------------------------------------- matcaffe
+
+MATCAFFE_BATCH = 10  # the reference's 10-crop classification demo
+
+
+def phase_matcaffe(work, snapshot, device="cuda"):
+    """matcaffe through the port's MATLAB engine after caffe.set_mode_gpu():
+    the +test classes test_net, test_solver, test_io on the card; caffe.Net
+    (Net.m) on CaffeNet's deploy prototxt with the snapshot at batch 10, crop
+    227, its forward bit for bit against the facade's; then run_tests.m
+    once, which sets the CPU mode first.  The counters zeroed before and
+    read after."""
+    import os
+
+    from caffe_rtpose_tpu_torch import api
+    from caffe_rtpose_tpu_torch.matlab_engine import MatCell, MatlabEngine, to_python
+    from caffe_rtpose_tpu_torch.models.caffenet import make_caffenet_deploy
+    from caffe_rtpose_tpu_torch.proto import prototxt
+
+    tag = "[matcaffe]"
+    zero_counts()
+    t0 = time.perf_counter()
+    eng = MatlabEngine(os.path.join(os.path.dirname(os.path.abspath(__file__)), "matlab"))
+    eng.call("caffe.set_mode_gpu")
+    check(api.device().type == device, f"{tag} set_mode_gpu left {api.device()}")
+    tests = {}
+    for name in ("test_net", "test_solver", "test_io"):
+        t = time.perf_counter()
+        tests[name] = dict(summary=eng._run_testcase(eng.resolve(f"caffe.test.{name}")),
+                           seconds=time.perf_counter() - t)
+    check(api.device().type == device, f"{tag} the test classes left {api.device()}")
+    deploy = os.path.join(work, "matcaffe_deploy.prototxt")
+    prototxt.dump_file(make_caffenet_deploy(batch=MATCAFFE_BATCH), deploy)
+    x = (np.random.RandomState(40).rand(MATCAFFE_BATCH, 3, FW_CROP, FW_CROP) * 255 - 128
+         ).astype(np.float32)
+    t = time.perf_counter()
+    net = eng.call("caffe.Net", deploy, snapshot, "test")
+    res = eng.call_method(net, "forward", MatCell([eng.call("caffe.private.py2mat", x)]))
+    got = to_python(res.items[0])
+    net_s = time.perf_counter() - t
+    ref = api.Net(deploy, snapshot, api.TEST).forward(data=x)["prob"]
+    equal = np.array_equal(got, ref.T)
+    print(f"{tag} on the card ({api.device()}): " + "; ".join(
+        f"{v['summary']} in {v['seconds']:.1f} s" for v in tests.values())
+        + f"; caffe.Net(CaffeNet deploy, snapshot, 'test') forward at {x.shape}: prob "
+          f"{got.shape} (W x H x C x N order), bit-identical to api.Net's: {equal} "
+          f"({net_s:.1f} s with the build)")
+    for name, v in tests.items():
+        n = re.match(rf"{name}: (\d+)/(\d+) passed", v["summary"])
+        check(n and n.group(1) == n.group(2), f"{tag} {v['summary']}")
+    check(got.shape == (1000, MATCAFFE_BATCH) and equal,
+          f"{tag} caffe.Net's forward differs from api.Net's: {got.shape}")
+    t = time.perf_counter()
+    summary = eng.call("caffe.run_tests")
+    run_s = time.perf_counter() - t
+    mode = api._mode
+    print(f"{tag} run_tests.m: {summary!r} in {run_s:.1f} s, on the {mode.upper()} (it calls "
+          f"caffe.set_mode_cpu first)")
+    check(mode == "cpu" and all(f"{n}: " in summary for n in tests),
+          f"{tag} run_tests.m: {summary!r}, mode {mode}")
+    api.set_mode_gpu()
+    counts = read_counts()
+    check(not any(counts.values()), f"{tag} launched hand kernels: {counts}")
+    return dict(tests=tests, net_forward_equal=equal, net_shape=list(got.shape), net_s=net_s,
+                run_tests=summary, run_tests_mode=mode, run_tests_s=run_s,
+                hand_kernel_launches=counts, seconds=time.perf_counter() - t0)
 
 
 def main() -> int:
@@ -3059,7 +3734,11 @@ def main() -> int:
     train["profile"] = phase_train_profile(train_solver,
                                            train["shapes"]["staged"]["step_ms_median"])
     del train_solver
-    framework = phase_framework()
+    train_bf16 = phase_train_bf16(train["shapes"]["staged"]["step_ms_median"])
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_framework_") as work:
+        framework, snapshot, log = phase_framework(work)
+        tools = phase_tools(work, snapshot, log)
+        matcaffe = phase_matcaffe(work, snapshot)
     keys = ("device_ms", "e2e_ms", "launches", "peaks", "people")
     for name, r in (("1-scale", one), ("3-scale", three)):
         print(json.dumps({"slice": name, **{k: r[k] for k in keys}}))
@@ -3081,6 +3760,9 @@ def main() -> int:
     print(json.dumps({"eval": evaluation}))
     print(json.dumps({"train": train}))
     print(json.dumps({"framework": framework}))
+    print(json.dumps({"train_bf16": train_bf16}))
+    print(json.dumps({"tools": tools}))
+    print(json.dumps({"matcaffe": matcaffe}))
     card = info["nvidia_smi"]
     # launches: the wrapper's calls in the main path's run (the pipeline:
     # the eager pass and the capture; the 3-scale, heatmap slices for the
@@ -3130,8 +3812,11 @@ def main() -> int:
             "launches": launches,
             "replayed_launches": pipeline["replayed_launches"].get(name, 0),
             "launches_by_path": {**{k: v[0] for k, v in by_path[name].items()},
-                                 "framework": framework["hand_kernel_launches"].get(
-                                     name.replace("_3scale", ""), 0)},
+                                 **{path: r["hand_kernel_launches"].get(
+                                     name.replace("_3scale", ""), 0) for path, r in (
+                                     ("train f32", train), ("train bf16", train_bf16),
+                                     ("framework", framework), ("tools", tools),
+                                     ("matcaffe", matcaffe))}},
             "replayed_launches_by_path": {k: v[1] for k, v in by_path[name].items()
                                           if v[1] is not None},
             "device_launches_per_frame": {f"bf16 batch {BF16_BATCH}": per_frame[name]},

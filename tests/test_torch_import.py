@@ -71,6 +71,14 @@ SLICE_MODULES = [
     "caffe_rtpose_tpu_torch.models.caffenet",
     "caffe_rtpose_tpu_torch.api",
     "caffe_rtpose_tpu_torch.tools.classify",
+    "caffe_rtpose_tpu_torch.tools.parse_log",
+    "caffe_rtpose_tpu_torch.tools.plot_training_log",
+    "caffe_rtpose_tpu_torch.tools.summarize",
+    "caffe_rtpose_tpu_torch.tools.draw_net",
+    "caffe_rtpose_tpu_torch.tools.shims",
+    "caffe_rtpose_tpu_torch.tools.aux_tools",
+    "caffe_rtpose_tpu_torch.tools.detect",
+    "caffe_rtpose_tpu_torch.matlab_engine",
 ]
 
 

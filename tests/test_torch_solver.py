@@ -294,10 +294,12 @@ def test_out_of_slice_options_raise(setup):
     ps = make_port(setup, "base_lr: 1e-4 lr_policy: 'fixed'")
     with pytest.raises(NotImplementedError, match="mesh"):
         Solver("base_lr: 1e-4 lr_policy: 'fixed'", ps.net, ps.next_batch, mesh=object())
+    # bf16 training is ported: the solver takes a bf16 net and keeps f32 state
     bf16 = Net(make_pose_train_net(batch=1, crop=16, stages=1), phase="TRAIN", device="cpu",
                dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        Solver("base_lr: 1e-4 lr_policy: 'fixed'", bf16, ps.next_batch)
+    solver = Solver("base_lr: 1e-4 lr_policy: 'fixed'", bf16, ps.next_batch)
+    assert all(h.dtype == torch.float32 for slot in solver.history.values()
+               for hs in slot.values() for h in hs)
 
 
 def _bn_net():
