@@ -82,7 +82,10 @@ class RunCtx:
     (``Net.operands``), the phase flag, the generator random layers draw from
     (on the net's device), the net's device, runtime knobs (``switch_index``)
     and, when not None, a dict that collects BatchNorm's
-    batch statistics by layer name for the solver's roll."""
+    batch statistics by layer name for the solver's roll.  ``shard``: the
+    layout of a forward run on one rank of several (``parallel/``): it
+    convolves (a slab of rows with its halo, or a share of the filters) and
+    turns a loss's local normalizer into the global one."""
 
     ops: Mapping[str, torch.Tensor] = field(default_factory=dict)
     training: bool = False
@@ -90,6 +93,7 @@ class RunCtx:
     knobs: Optional[Mapping[str, Any]] = None
     aux: Optional[Dict[str, Any]] = None
     device: torch.device = torch.device("cpu")  # where sources put their tops
+    shard: Optional[Any] = None
 
 
 REGISTRY: Dict[str, Callable[[BuildCtx], "LayerModule"]] = {}
@@ -231,11 +235,17 @@ def conv_operands(weight: torch.Tensor, bias: Optional[torch.Tensor],
             None if bias is None else bias.detach().to(dtype))
 
 
-def f32_training(ctx: RunCtx, x: torch.Tensor) -> bool:
-    """An f32 TRAIN forward: its convolutions run outside cuDNN
-    (``ops/nn.py::_OutsideCudnn``: cuDNN's f32 backward moves bias
-    gradients, ROADMAP C1)."""
-    return ctx.training and x.dtype == torch.float32
+def f32_training(ctx: RunCtx, x: torch.Tensor, *operands: Optional[torch.Tensor]) -> bool:
+    """An f32 convolution that autograd may differentiate, which runs outside
+    cuDNN (``ops/nn.py::_OutsideCudnn``: cuDNN's f32 backward moves
+    gradients, ROADMAP C1 and C2): any TRAIN forward, and any forward under
+    grad mode whose input or operands require a gradient (``Net.backward``
+    of a deploy or TEST net).  A forward under ``no_grad`` or
+    ``inference_mode`` outside TRAIN stays on cuDNN."""
+    if x.dtype != torch.float32:
+        return False
+    return ctx.training or (torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (x, *operands)))
 
 
 class Convolution(LayerModule):
@@ -286,7 +296,10 @@ class Convolution(LayerModule):
             w, b = self._operands
         else:
             b = ctx.ops.get(f"{self.name}::b")
-        return (self(bots[0], w, b, cudnn=not f32_training(ctx, bots[0])),)
+        cudnn = not f32_training(ctx, bots[0], w, b)
+        if ctx.shard is not None:
+            return (ctx.shard.conv(self, bots[0], w, b, cudnn),)
+        return (self(bots[0], w, b, cudnn=cudnn),)
 
     def is_3x3_same(self, cin: int, cout: int) -> bool:
         """A 3x3, stride 1, pad 1, ungrouped, undilated conv cin -> cout
@@ -322,7 +335,7 @@ class Deconvolution(LayerModule):
         # the f32 parameters: in bf16, deconv2d casts inside the forward
         return (nn_ops.deconv2d(bots[0], self.weight, self.bias, stride=self.stride,
                                 pad=self.pad, dilation=self.dilation, groups=self.groups,
-                                cudnn=not f32_training(ctx, bots[0])),)
+                                cudnn=not f32_training(ctx, bots[0], self.weight, self.bias)),)
 
 
 register("Deconvolution")(Deconvolution)
@@ -379,9 +392,13 @@ class InnerProduct(LayerModule):
         self.bias = self.add_blob(ctx, "bias", (n_out,), ip.bias_filler) if ip.bias_term else None
 
     def run(self, bots, ctx):
-        y = nn_ops.inner_product(bots[0].reshape(self.m, self.k), self.weight, self.bias,
-                                 self.transpose)
-        return (y.reshape(self.top_shapes[0]),)
+        # the batch as fed, which a rank of a data-parallel step holds a share of
+        lead = tuple(bots[0].shape[: self.axis])
+        x = bots[0].reshape(-1, self.k)
+        if ctx.shard is not None:
+            return (ctx.shard.inner_product(self, x).reshape(lead + (-1,)),)
+        y = nn_ops.inner_product(x, self.weight, self.bias, self.transpose)
+        return (y.reshape(lead + (-1,)),)
 
 
 register("InnerProduct")(InnerProduct)
@@ -521,6 +538,10 @@ class BatchNorm(LayerModule):
         if self.use_global:
             return (nn_ops.batch_norm_inference(x, self.mean, self.variance,
                                                 self.scale_factor[0], self.eps),)
+        if ctx.shard is not None:
+            raise NotImplementedError(
+                f"BatchNorm {self.name}: batch statistics over a sharded batch are not "
+                "reduced across ranks; set use_global_stats or train on one rank")
         y, mu, var = nn_ops.batch_norm_training(x, self.eps)
         if ctx.aux is not None:
             ctx.aux[self.name] = (mu.detach(), var.detach())
@@ -809,8 +830,27 @@ class Embed(LayerModule):
 # ------------------------------------------------------------------ losses
 
 
-def _loss(ctx: BuildCtx, fn) -> FnLayer:
-    return FnLayer(ctx, [()], lambda b, c: (fn(b),))
+def _loss(ctx: BuildCtx, fn, den=None) -> FnLayer:
+    """A loss layer.  ``den(bottoms) -> (normalizer, kind)`` names what
+    ``fn`` divides by (None: a plain sum): on one rank of a sharded step the
+    loss is rescaled to the global normalizer (``shard.normalizer``), so the
+    ranks' losses add up to the loss of the whole batch.  ``kind`` is
+    ``"batch"`` for a count of samples, ``"count"`` for a count of
+    positions (samples times rows)."""
+
+    def run(b, c):
+        loss = fn(b)
+        if c.shard is None or den is None:
+            return (loss,)
+        local, kind = den(b)
+        local = torch.as_tensor(local, dtype=torch.float32, device=loss.device)
+        return (loss * local / c.shard.normalizer(local, kind),)
+
+    return FnLayer(ctx, [()], run)
+
+
+def _batch(b):
+    return b[0].shape[0], "batch"
 
 
 @register("SoftmaxWithLoss")
@@ -821,26 +861,35 @@ def build_softmax_loss(ctx):
         enum(lp.normalization, LOSS_NORMALIZATION)]
     if lp.has("normalize") and not lp.normalize:
         normalization = "BATCH_SIZE"
-    batch_n = int(ctx.bshapes[0][0])
+
+    def den(b):
+        if normalization == "BATCH_SIZE":
+            return b[0].shape[0], "batch"
+        if normalization == "VALID" and ignore is not None:
+            return torch.clamp((b[1] != ignore).sum(), min=1), "count"
+        return b[1].numel(), "count"
+
+    # outer_num_: the batch as fed (softmax_loss_layer.cpp Reshape)
     return _loss(ctx, lambda b: op_losses.softmax_cross_entropy(
-        flatten_logits(b[0]), b[1].reshape(-1), ignore, normalization, batch_n))
+        flatten_logits(b[0]), b[1].reshape(-1), ignore, normalization, int(b[0].shape[0])),
+        None if normalization == "NONE" else den)
 
 
 @register("EuclideanLoss")
 def build_euclidean_loss(ctx):
-    return _loss(ctx, lambda b: op_losses.euclidean(b[0], b[1]))
+    return _loss(ctx, lambda b: op_losses.euclidean(b[0], b[1]), _batch)
 
 
 @register("EuclideanmaskLoss")
 def build_euclidean_mask_loss(ctx):
     """CPM masked L2 loss (euclideanmask_loss_layer.cpp)."""
     return _loss(ctx, lambda b: op_losses.euclidean_masked(
-        b[0], b[1], b[2].reshape(b[2].shape[0], -1)))
+        b[0], b[1], b[2].reshape(b[2].shape[0], -1)), _batch)
 
 
 @register("SigmoidCrossEntropyLoss")
 def build_sce_loss(ctx):
-    return _loss(ctx, lambda b: op_losses.sigmoid_cross_entropy(b[0], b[1]))
+    return _loss(ctx, lambda b: op_losses.sigmoid_cross_entropy(b[0], b[1]), _batch)
 
 
 @register("Accuracy")
@@ -866,13 +915,15 @@ def build_accuracy(ctx):
 def build_hinge_loss(ctx):
     norm = {v: k for k, v in HINGE_NORM.items()}[
         enum(ctx.lv.hinge_loss_param.norm, HINGE_NORM)]
-    return _loss(ctx, lambda b: op_losses.hinge(flatten_logits(b[0]), b[1].reshape(-1), norm))
+    return _loss(ctx, lambda b: op_losses.hinge(flatten_logits(b[0]), b[1].reshape(-1), norm),
+                 lambda b: (flatten_logits(b[0]).shape[0], "count"))
 
 
 @register("MultinomialLogisticLoss")
 def build_mll(ctx):
     return _loss(ctx, lambda b: op_losses.multinomial_logistic(flatten_logits(b[0]),
-                                                               b[1].reshape(-1)))
+                                                               b[1].reshape(-1)),
+                 lambda b: (flatten_logits(b[0]).shape[0], "count"))
 
 
 @register("ContrastiveLoss")
@@ -880,7 +931,8 @@ def build_contrastive(ctx):
     cp = ctx.lv.contrastive_loss_param
     margin, legacy = float(cp.margin), bool(cp.legacy_version)
     return _loss(ctx, lambda b: op_losses.contrastive(
-        b[0].reshape(b[0].shape[0], -1), b[1].reshape(b[1].shape[0], -1), b[2], margin, legacy))
+        b[0].reshape(b[0].shape[0], -1), b[1].reshape(b[1].shape[0], -1), b[2], margin, legacy),
+        _batch)
 
 
 # ------------------------------------------------------------ CPM specials
@@ -927,7 +979,9 @@ class Nms(LayerModule):
     def run(self, bots, ctx):
         from ..ops.nms import nms_peaks
 
-        return (nms_peaks(bots[0][0], self.threshold, self.max_peaks, self.num_parts)[None],)
+        # the estimator's runtime threshold (knob ``nms_threshold``), as JAX's
+        thr = (ctx.knobs or {}).get("nms_threshold", self.threshold)
+        return (nms_peaks(bots[0][0], thr, self.max_peaks, self.num_parts)[None],)
 
 
 @register("Maximum")

@@ -140,6 +140,8 @@ class InfogainLoss(LayerModule):
             self.register_buffer("h_static", torch.from_numpy(np.asarray(h, np.float32)))
 
     def run(self, bots, ctx):
+        if ctx.shard is not None:
+            raise NotImplementedError(f"InfogainLoss {self.name}: not ported to a sharded step")
         probs = bots[0].reshape(bots[0].shape[0], -1)
         h = (self.h_static if self.h_static is not None
              else bots[2].reshape(probs.shape[1], probs.shape[1]))

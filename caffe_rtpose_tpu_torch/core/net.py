@@ -14,9 +14,13 @@ reads to compute its post segment from the low-res maps itself
 (``pose/estimator.py``).
 
 On CUDA a Net turns TF32 off (``utils/device.disable_tf32``): f32 is IEEE
-f32 there, training included.  An f32 TRAIN net's convolutions run outside
-cuDNN on the card (``ops/nn.py::_OutsideCudnn``): cuDNN's f32 backward
-moved the CPM trunk's bias gradients by up to 0.45 relative L2 from f64.
+f32 there, training included.  An f32 convolution that a gradient is taken
+through (a TRAIN net's, and any net's under :meth:`backward`) runs outside
+cuDNN on the card (``ops/nn.py::_OutsideCudnn``, ``layers.f32_training``):
+cuDNN's f32 backward moved the CPM trunk's bias gradients by up to 0.45
+relative L2 from f64.  A forward under ``no_grad`` outside TRAIN keeps
+cuDNN.  ``shard`` (:meth:`forward`, :meth:`loss`) runs the net as one rank
+of a sharded forward (``parallel/``).
 
 Training (``phase="TRAIN"``): each parameter blob is an ``nn.Parameter``
 that requires a gradient unless its ``param`` spec's ``lr_mult`` is 0
@@ -573,10 +577,10 @@ class Net(nn.Module):
 
     def run_ctx(self, ops: Optional[Mapping[str, torch.Tensor]] = None,
                 knobs: Optional[Mapping[str, Any]] = None,
-                aux: Optional[Dict[str, Any]] = None) -> RunCtx:
+                aux: Optional[Dict[str, Any]] = None, shard: Any = None) -> RunCtx:
         return RunCtx(ops=self.operands() if ops is None else ops,
                       training=self.phase == "TRAIN", generator=self.generator,
-                      knobs=knobs, aux=aux, device=self.device)
+                      knobs=knobs, aux=aux, device=self.device, shard=shard)
 
     def pull_data(self) -> Dict[str, torch.Tensor]:
         """One batch from each data layer (one pull a layer, shared by its
@@ -592,7 +596,8 @@ class Net(nn.Module):
                 layers: Optional[Sequence[Layer]] = None,
                 operands: Optional[Mapping[str, torch.Tensor]] = None, *,
                 knobs: Optional[Mapping[str, Any]] = None,
-                aux: Optional[Dict[str, Any]] = None) -> Dict[str, torch.Tensor]:
+                aux: Optional[Dict[str, Any]] = None, shard: Any = None
+                ) -> Dict[str, torch.Tensor]:
         """``inputs``: {blob: (N, C, H, W) tensor on the net's device, cast
         to the net's dtype here} -> {blob: tensor} for ``outputs`` (default
         :meth:`output_names`).  Data-layer tops the caller does not feed are
@@ -600,7 +605,9 @@ class Net(nn.Module):
         on, as :meth:`operands` names them (default: the net's own); a device
         program passes them as its inputs.  ``knobs``: ``switch_index``;
         ``aux``: a dict BatchNorm leaves its batch statistics in (TRAIN).
-        Random layers draw from the net's :attr:`generator`.
+        Random layers draw from the net's :attr:`generator`.  ``shard``: the
+        layout of one rank of a sharded forward (``RunCtx.shard``; the conv1
+        kernel then stays off).
 
         With ``conv1_kernel`` on, a conv1 block whose five layers appear in
         order in ``layers`` runs as one ``conv1_cuda.conv1_block_packed`` call,
@@ -619,14 +626,15 @@ class Net(nn.Module):
                 needed = {l.name for l in self.prune_for(outputs)}
                 layers = [l for l in layers if l.type not in ESTIMATOR_TYPES or l.name in needed]
         layers = list(layers)
-        ctx = self.run_ctx(operands, knobs, aux)
+        ctx = self.run_ctx(operands, knobs, aux, shard)
         ops = ctx.ops
         remat_types = (("Convolution", "Deconvolution")
                        if self.remat == "convs" and self.phase == "TRAIN" else ())
         i = 0
         while i < len(layers):
             layer = layers[i]
-            blk = self.conv1_blocks.get(layer.name) if self.conv1_kernel else None
+            blk = (self.conv1_blocks.get(layer.name)
+                   if self.conv1_kernel and shard is None else None)
             if (blk is not None and tuple(l.name for l in layers[i : i + 5]) == blk.names
                     and blk.inner.isdisjoint(outputs)
                     and blobs[blk.bottom].shape[2] % 2 == 0 and blobs[blk.bottom].shape[3] % 2 == 0):
@@ -722,13 +730,15 @@ class Net(nn.Module):
         return [(t, w) for layer in self.layers for t, w in zip(layer.tops, layer.loss_weights)
                 if w]
 
-    def loss(self, inputs: Mapping[str, torch.Tensor], aux: Optional[Dict[str, Any]] = None
-             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    def loss(self, inputs: Mapping[str, torch.Tensor], aux: Optional[Dict[str, Any]] = None,
+             shard: Any = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """One forward -> (the total weighted loss, sum over loss tops of
         weight times the top's sum; the net's output blobs from the same
         forward), as JAX's ``Net.make_loss_fn(with_outputs=True)``.
         ``loss.backward()`` fills the parameters' gradients; ``aux`` collects
-        BatchNorm's batch statistics."""
+        BatchNorm's batch statistics; ``shard``: one rank's layout
+        (:meth:`forward`), whose loss is this rank's share of the whole
+        batch's."""
         tops = self.loss_tops()
         if not tops:
             raise ValueError("net has no loss tops")
@@ -737,7 +747,7 @@ class Net(nn.Module):
         # no output of this forward
         names = [n for n in self.output_names() if n not in self.input_names or n in fed]
         blobs = self.forward(inputs, outputs=list(dict.fromkeys(names + [t for t, _ in tops])),
-                             aux=aux)
+                             aux=aux, shard=shard)
         total = sum(w * blobs[t].sum() for t, w in tops)
         return total, {k: blobs[k] for k in names}
 

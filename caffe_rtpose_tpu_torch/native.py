@@ -1,10 +1,11 @@
-"""ctypes binding to the native host runtime (``native/pose_host.cpp``, the
-greedy limb assembly shared with the JAX package).
+"""ctypes bindings to the native host runtime shared with the JAX package:
+``native/pose_host.cpp`` (the greedy limb assembly) and ``native/kvdb.cpp``
+(the kvdb store, bound in ``utils/db.py``).
 
-The library is built with g++ at first use into the port's git-ignored
+Each library is built with g++ at first use into the port's git-ignored
 ``_build/`` directory (never into ``native/``).  When the source or the
-toolchain is unavailable the callers fall back to the numpy
-``pose.connect.assemble``.
+toolchain is unavailable the callers fall back to Python: the numpy
+``pose.connect.assemble``, the pure-Python kvdb.
 """
 
 from __future__ import annotations
@@ -13,35 +14,45 @@ import ctypes
 import os
 import shutil
 import threading
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 
 from . import _build
 
-SRC = os.path.join(os.path.dirname(_build.PKG_DIR), "native", "pose_host.cpp")
+NATIVE_DIR = os.path.join(os.path.dirname(_build.PKG_DIR), "native")
+SRC = os.path.join(NATIVE_DIR, "pose_host.cpp")
 
 _lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
-_tried = False
+_libs: Dict[str, Optional[ctypes.CDLL]] = {}
+
+
+def load_lib(stem: str) -> Optional[ctypes.CDLL]:
+    """``native/<stem>.cpp`` built and loaded (once a process), or None when
+    it cannot be built here."""
+    with _lock:
+        if stem in _libs:
+            return _libs[stem]
+        _libs[stem] = None
+        src = os.path.join(NATIVE_DIR, f"{stem}.cpp")
+        gxx = shutil.which("g++")
+        if gxx is None or not os.path.exists(src):
+            return None
+        try:
+            path = _build.build_library(stem, [src], gxx,
+                                        ("-O2", "-shared", "-fPIC", "-std=c++17"))
+            _libs[stem] = ctypes.CDLL(path)
+        except (RuntimeError, OSError):
+            pass
+        return _libs[stem]
 
 
 def load() -> Optional[ctypes.CDLL]:
     """The assembly library, or None when it cannot be built here."""
-    global _lib, _tried
+    lib = load_lib("pose_host")
+    if lib is None:
+        return None
     with _lock:
-        if _tried:
-            return _lib
-        _tried = True
-        gxx = shutil.which("g++")
-        if gxx is None or not os.path.exists(SRC):
-            return None
-        try:
-            path = _build.build_library(
-                "pose_host", [SRC], gxx, ("-O2", "-shared", "-fPIC", "-std=c++17"))
-            lib = ctypes.CDLL(path)
-        except (RuntimeError, OSError):
-            return None
         lib.crt_assemble.restype = ctypes.c_int
         lib.crt_assemble.argtypes = [
             ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int,
@@ -51,8 +62,7 @@ def load() -> Optional[ctypes.CDLL]:
             ctypes.c_float, ctypes.c_float,
             ctypes.POINTER(ctypes.c_float), ctypes.c_int,
         ]
-        _lib = lib
-        return lib
+    return lib
 
 
 def assemble_native(peaks, pair_score, pair_count, desc, params, scale_xy=(1.0, 1.0),

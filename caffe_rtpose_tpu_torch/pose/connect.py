@@ -12,7 +12,11 @@ examples/rtpose/rtpose.cpp:808-1076 / 549-751):
   (the heatmap path);
 * :func:`assemble` — the sequential greedy matching, numpy, copied from the
   JAX package; :func:`assemble_fast` runs the native C++ version of it
-  (``native/pose_host.cpp``) when that builds.
+  (``native/pose_host.cpp``) when that builds;
+* :func:`score_pairs_np` (the loop-for-loop oracle of the integrals),
+  :func:`connect_limbs` (score and assemble on the host) and
+  :func:`distance_threshold_peaks` (the reference's unused peak dedup),
+  copied from the JAX package.
 
 Numerical notes kept bit-faithful:
 * sample coordinates use C ``round()`` = half-away-from-zero; coordinates are
@@ -346,3 +350,87 @@ def assemble_fast(
         return AssembleResult(joints=joints, num_people=n, subsets=[])
     return assemble(peaks, pair_score, pair_count, desc, params, scale_xy,
                     max_people=max_people)
+
+
+def score_pairs_np(heatmap: np.ndarray, peaks: np.ndarray, desc: ModelDescriptor,
+                   inter_threshold: float) -> Tuple[np.ndarray, np.ndarray]:
+    """Loop-for-loop oracle mirroring the reference inner loops exactly
+    (rtpose.cpp:900-945): ``heatmap`` (C, H, W), ``peaks`` (parts,
+    max_peaks + 1, 3) -> (L, M, M) f32 pair scores and int32 counts."""
+    c_total, h, w = heatmap.shape
+    max_peaks = peaks.shape[1] - 1
+    L = desc.num_limbs
+    score = np.zeros((L, max_peaks, max_peaks), np.float32)
+    count = np.zeros((L, max_peaks, max_peaks), np.int32)
+    for k in range(L):
+        a_id, b_id = desc.limb(k)
+        cx, cy = desc.paf_channels(k)
+        map_x, map_y = heatmap[cx], heatmap[cy]
+        nA = int(peaks[a_id, 0, 0])
+        nB = int(peaks[b_id, 0, 0])
+        for i in range(1, nA + 1):
+            for j in range(1, nB + 1):
+                s_x, s_y = peaks[a_id, i, 0], peaks[a_id, i, 1]
+                d_x = peaks[b_id, j, 0] - s_x
+                d_y = peaks[b_id, j, 1] - s_y
+                norm = np.sqrt(d_x * d_x + d_y * d_y)
+                if norm < 1e-6:
+                    continue
+                v_x, v_y = d_x / norm, d_y / norm
+                ssum, cnt = 0.0, 0
+                for lm in range(NUM_INTER):
+                    mx = int(np.floor(s_x + lm * d_x / NUM_INTER + 0.5))
+                    my = int(np.floor(s_y + lm * d_y / NUM_INTER + 0.5))
+                    if desc.clamp_samples:
+                        mx = min(mx, w - 1)
+                        my = min(my, h - 1)
+                    mx = min(max(mx, 0), w - 1)
+                    my = min(max(my, 0), h - 1)
+                    d = v_x * map_x[my, mx] + v_y * map_y[my, mx]
+                    if d > inter_threshold:
+                        ssum += d
+                        cnt += 1
+                score[k, i - 1, j - 1] = ssum
+                count[k, i - 1, j - 1] = cnt
+    return score, count
+
+
+def connect_limbs(heatmap: np.ndarray, peaks: np.ndarray, desc: ModelDescriptor,
+                  params: Optional[ConnectParams] = None,
+                  scale_xy: Tuple[float, float] = (1.0, 1.0)) -> AssembleResult:
+    """The whole host path (the oracle): :func:`score_pairs_np`, then
+    :func:`assemble`."""
+    params = params or desc.defaults
+    score, count = score_pairs_np(heatmap, peaks, desc, params.inter_threshold)
+    return assemble(peaks, score, count, desc, params, scale_xy)
+
+
+def distance_threshold_peaks(peaks: np.ndarray, dist_threshold: float = 6.0,
+                             max_peaks: Optional[int] = None) -> np.ndarray:
+    """Dedup peaks closer than ``dist_threshold`` px, keeping the
+    best-scoring one (distanceThresholdPeaks, rtpose.cpp:753-806: defined
+    but never called in the reference).  ``peaks`` (parts, max_peaks + 1, 3)
+    with counts in slot 0; the same layout back.  The reference's in-place
+    swap is kept: a close better peak replaces the earlier one without
+    checking its distance to the others again."""
+    num_parts, slots, _ = peaks.shape
+    cap = (slots - 1) if max_peaks is None else int(max_peaks)
+    out = np.zeros_like(peaks)
+    thr2 = float(dist_threshold) * float(dist_threshold)
+    for p in range(num_parts):
+        n_in = int(peaks[p, 0, 0])
+        n_out = 0
+        for c1 in range(n_in):
+            x1, y1, s1 = peaks[p, c1 + 1]
+            keep = True
+            for c2 in range(n_out):
+                x2, y2, s2 = out[p, c2 + 1]
+                if (x1 - x2) ** 2 + (y1 - y2) ** 2 < thr2:
+                    keep = False
+                    if s1 > s2:
+                        out[p, c2 + 1] = (x1, y1, s1)
+            if keep and n_out < cap:
+                out[p, n_out + 1] = (x1, y1, s1)
+                n_out += 1
+        out[p, 0, 0] = n_out
+    return out

@@ -22,6 +22,11 @@ batch of frames, in one of two branches:
   This is the JAX branch that runs the ImResize and Nms layers; the heatmap
   feeds the render views of ``pose/render.py``.
 
+A deploy net without a ``resize`` ImResize layer runs as JAX runs it: the
+net's own Nms layer on its first canvas (the threshold a runtime knob),
+then pair scoring on the blob that layer reads (``connect.score_pairs``),
+at batch 1 with unpacked outputs, as the heatmap branch returns them.
+
 In bf16 the low-res maps are cast to f32 once, before the post segment, as
 every consumer of them in the JAX package does.  Only the greedy assembly
 runs on the host.
@@ -158,9 +163,18 @@ class PoseEstimator:
         if nms is None:
             raise ValueError("deploy net has no 'nms' layer")
         resize = self.net.post_layers.get("resize")
-        if resize is None:
-            raise NotImplementedError("nets without a 'resize' ImResize layer are not ported")
         self._init_parts(int(nms.param.get("num_parts", 15)), int(nms.param.get("max_peaks", 20)))
+        if resize is None:
+            # JAX estimator.py:331-345: the net's own Nms, then score_pairs
+            if self.batch > 1:
+                raise ValueError("batch > 1 requires the optimized packed path (a resize layer)")
+            self._packed, self._direct = False, True
+            self.heatmap_blob, self._nms_top = nms.bottoms[0], nms.tops[0]
+            self.lowres_blob = None
+            self.target_hw = tuple(self.net.blob_shapes[self.heatmap_blob][2:])
+            self._layers = self.net.prune_for([self.heatmap_blob, self._nms_top])
+            self._init_runtime(warm_overflow)
+            return
 
         self.lowres_blob = resize.bottoms[0]
         _, _, h, w = self.net.blob_shapes[self.lowres_blob]
@@ -226,6 +240,8 @@ class PoseEstimator:
                     preprocess.region_boxes(net_w, net_h, num_scales, start_scale, scale_gap)):
                 mask[i, y0:y1, x0:x1] = 1.0
             self._mask = torch.from_numpy(mask).to(self.device)
+        self._packed = not self.keep_heatmap  # one byte-packed row a frame
+        self._direct = False  # a net without resize: its own Nms (module docstring)
         self._weights: Optional[Dict[str, torch.Tensor]] = None  # a replica's operands
         self._overflow_lock = threading.Lock()
         self._overflow_refetches = 0
@@ -255,7 +271,7 @@ class PoseEstimator:
                 self._graph_pool = torch.cuda.graph_pool_handle()
         self._warm_thread: Optional[threading.Thread] = None
         self._warm_error: Optional[BaseException] = None
-        if (warm_overflow and self.cuda_graph and not self.keep_heatmap
+        if (warm_overflow and self.cuda_graph and self._packed
                 and self.eff_peaks < self.max_peaks):
             # capture the uncapped program now, so the first crowded frame
             # costs one extra pass and not a capture mid-stream (JAX
@@ -325,6 +341,22 @@ class PoseEstimator:
         return self._heatmap_post(self._lowres(self._canvases(x), weights)[0], nms_threshold,
                                   inter_threshold)
 
+    def _direct_program(self, x: torch.Tensor, nms_threshold, inter_threshold,
+                        weights: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """A net without a resize layer: one uploaded frame -> its Nms
+        layer's peaks on the first canvas and the pairs scored on the blob
+        that layer reads (JAX estimator.py:331-345)."""
+        blobs = self.net({"image": self._canvases(x)}, outputs=[self.heatmap_blob, self._nms_top],
+                         layers=self._layers, operands=weights,
+                         knobs={"nms_threshold": nms_threshold})
+        peaks = blobs[self._nms_top][0]
+        heat = blobs[self.heatmap_blob][0].to(torch.float32)
+        pair_score, pair_count = C.score_pairs(heat, peaks, self.descriptor, inter_threshold)
+        out = {"peaks": peaks, "pair_score": pair_score, "pair_count": pair_count}
+        if self.keep_heatmap:
+            out["heatmap"] = heat
+        return out
+
     def _heatmap_post(self, low: torch.Tensor, nms_threshold,
                       inter_threshold) -> Dict[str, torch.Tensor]:
         """One frame's (S, h, w, C) f32 low-res maps through the full-res
@@ -386,11 +418,15 @@ class PoseEstimator:
     def _program_key(self, eff_peaks: int, frames: int) -> tuple:
         """The key of the device program for a pass of ``frames`` frames at
         pair capacity ``eff_peaks`` (one captured graph per key)."""
+        if self._direct:
+            return ("direct",)
         return ("heatmap",) if self.keep_heatmap else ("packed", eff_peaks, frames)
 
     def _program_fn(self, eff_peaks: int, frames: int):
         """That program as fn(x, nms, inter) -> device outputs."""
         weights = self._program_weights()
+        if self._direct:
+            return lambda x, n, i: self._direct_program(x, n, i, weights)
         if self.keep_heatmap:
             return lambda x, n, i: self._heatmap_program(x, n, i, weights)
         prog = DeviceProgram(self, eff_peaks)
@@ -449,7 +485,7 @@ class PoseEstimator:
             raise ValueError(f"net_input {arr.shape} {arr.dtype}: expected "
                              f"{shape} {np.dtype(self.input_dtype)}")
         out = self._run(arr if self.batch > 1 else arr[None], nms_threshold, inter_threshold)
-        if self.batch == 1 and not self.keep_heatmap:
+        if self.batch == 1 and self._packed:
             out["packed"] = out["packed"][0]
         return out
 
@@ -469,7 +505,7 @@ class PoseEstimator:
 
     def fetch(self, out) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Device outputs of one frame -> host (peaks, pair_score, pair_count)."""
-        if self.keep_heatmap:
+        if not self._packed:
             return tuple(out[k].cpu().numpy() for k in ("peaks", "pair_score", "pair_count"))
         if out["packed"].dim() != 1:
             raise ValueError("a batched pass: use fetch_batch")
@@ -478,7 +514,7 @@ class PoseEstimator:
     def fetch_batch(self, out) -> List[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
         """Batched device outputs -> one (peaks, pair_score, pair_count) per
         frame of the batch, from one device-to-host copy."""
-        if self.keep_heatmap:
+        if not self._packed:
             raise ValueError("fetch_batch requires the packed path")
         rows = out["packed"].cpu().numpy()
         return [self.unpack(r) for r in (rows[None] if rows.ndim == 1 else rows)]
@@ -490,7 +526,7 @@ class PoseEstimator:
         transferred (slot 0 carries the RAW count; rows stop at eff_peaks).
         Such a frame must be refetched uncapped.  Never on the heatmap
         branch, which is uncapped."""
-        return (not self.keep_heatmap and self.eff_peaks < self.max_peaks
+        return (self._packed and self.eff_peaks < self.max_peaks
                 and float(np.max(peaks[:, 0, 0])) > self.eff_peaks)
 
     def refetch_full(self, net_input: np.ndarray, nms_threshold=None,

@@ -81,9 +81,9 @@ def export_estimator(est: PoseEstimator, out_dir: str) -> str:
     bf16 with ``conv1_kernel=False``): a bundle records the kernels as
     operators, which run the kernel on the card and the plain version on
     the CPU."""
-    if est.keep_heatmap:
-        raise ValueError("export targets the production packed program; "
-                         "build the estimator with keep_heatmap=False")
+    if not est._packed:
+        raise ValueError("export targets the production packed program; build the estimator "
+                         "with keep_heatmap=False from a net with a resize layer")
     if isinstance(est, ExportedPose):
         raise ValueError("a bundle cannot be exported again; export the PoseEstimator")
     bf16 = est.net.dtype == torch.bfloat16

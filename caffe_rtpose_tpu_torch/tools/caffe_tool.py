@@ -19,7 +19,15 @@ device inside the step.  ``train`` builds the solver's test nets from
 ``test_net`` or from the train net's file at TEST (with ``test_state``),
 tested every ``test_interval`` iterations.  Everything runs on
 ``--device`` (default ``cuda``; ``cpu`` runs the same code on the host).
-``train --gpu``/``--spatial`` (several cards) are not ported and say so.
+
+``train --gpu 0,1|all`` trains data-parallel over those cards (tools/
+caffe.cpp:76-107; P2PSync in the reference), one rank a card, spawned by
+the tool itself over ``torch.distributed`` (``parallel/dp.py``): the
+prototxt batch is the GLOBAL batch, split over the ranks.  A repeated id
+(``--gpu 0,0``) puts two ranks on one card over gloo; with ``--device cpu``
+the ranks run on the host.  ``--spatial k`` with ``--gpu`` composes a
+(n/k)-way data x k-way spatial mesh (``parallel/mesh2d.py``); alone it is
+ignored with a warning, as in JAX.
 """
 
 from __future__ import annotations
@@ -32,8 +40,7 @@ from typing import Dict, Iterator
 import numpy as np
 import torch
 
-NOT_PORTED_GPU = ("caffe train --gpu/--spatial (data parallelism over several cards) is not "
-                  "ported; train on one card with --device")
+RANK_TIMEOUT = 24 * 3600.0  # a multi-rank train: its ranks are killed only when it hangs
 
 
 def _pose_source(spec: str, size: int):
@@ -112,14 +119,76 @@ def _netstate_kw(args, force_level=True):
     return kw
 
 
+def gpu_devices(spec: str, device: str):
+    """``--gpu`` ids (``all``: every card) -> one device a rank: ``cuda:<id>``,
+    or the host for each id when ``--device cpu``."""
+    if spec == "all":
+        ids = list(range(torch.cuda.device_count()))
+    else:
+        ids = [int(s) for s in spec.split(",") if s.strip()]
+    if not ids:
+        raise ValueError(f"--gpu {spec!r} names no card")
+    return ["cpu"] * len(ids) if torch.device(device).type == "cpu" else [f"cuda:{i}" for i in ids]
+
+
 def cmd_train(args) -> int:
+    """``caffe train``: on one device, or with ``--gpu`` over several ranks
+    this process spawns (module docstring); JAX's lines for the mesh."""
+    spatial = int(args.spatial or 1)
+    if not args.gpu:
+        if spatial > 1:
+            print(f"warning: --spatial {spatial} ignored — spatial sharding composes with data "
+                  f"parallelism; pass --gpu all (or a device list) to build the mesh", flush=True)
+        return _train(args)
+    devices = gpu_devices(args.gpu, args.device)
+    n = len(devices)
+    if n == 1:
+        if spatial > 1:
+            print(f"warning: --spatial {spatial} ignored — it needs a multi-device mesh, but "
+                  f"--gpu resolved to {n} device(s); training single-device", flush=True)
+        args.device = devices[0]
+        return _train(args)
+    from ..parallel.dp import pick_backend, spawn
+
+    if spatial > 1:
+        if n % spatial:
+            raise ValueError(f"--spatial {spatial} must divide the {n} devices of --gpu")
+        print(f"Composed mesh training over {n} devices: {n // spatial}-way data x {spatial}-way "
+              f"spatial (batch sharded AND activations H-sharded)")
+    else:
+        spatial = 1
+        print(f"Data-parallel training over {n} devices; the prototxt batch_size is the GLOBAL "
+              f"batch, sharded {n} ways (scale it by {n} for Caffe's per-GPU weak-scaling)")
+    print(f"ranks on {', '.join(devices)}; backend {pick_backend(devices)}", flush=True)
+    return spawn(train_rank, n, devices, args=(vars(args), spatial), timeout=RANK_TIMEOUT,
+                 threads=max(1, torch.get_num_threads() // n))[0]
+
+
+def train_rank(arg_dict, spatial: int) -> int:
+    """One rank of ``caffe train --gpu``: the mesh over every rank, then the
+    one-device train on this rank's device with the solver on the mesh.
+    Rank 0 prints; the others are quiet."""
+    import contextlib
+    import os
+
+    from ..parallel.dp import make_mesh, rank_device
+    from ..parallel.mesh2d import make_mesh2d
+
+    args = argparse.Namespace(**arg_dict)
+    args.device = str(rank_device())
+    mesh = make_mesh2d(spatial=spatial) if spatial > 1 else make_mesh()
+    if mesh.rank == 0:
+        return _train(args, mesh)
+    with open(os.devnull, "w") as quiet, contextlib.redirect_stdout(quiet):
+        return _train(args, mesh)
+
+
+def _train(args, mesh=None) -> int:
     from ..core.net import Net
     from ..proto import caffe_pb, prototxt
     from ..training.solver import Solver, learning_rate
     from ..utils.signals import SignalHandler, SolverAction, parse_action
 
-    if args.gpu or int(args.spatial or 1) > 1:
-        raise NotImplementedError(NOT_PORTED_GPU)
     sp_msg = prototxt.parse_file(args.solver, "SolverParameter")
     sp = caffe_pb.view(sp_msg, "SolverParameter")
     net_param = (sp_msg.get("net_param") or sp_msg.get("train_net_param")
@@ -150,7 +219,7 @@ def cmd_train(args) -> int:
     else:
         data_iter = make_data_iter(args.data, net)
     solver = Solver(sp_msg, net, lambda it: next(data_iter), input_transform=input_transform,
-                    test_nets=_test_nets(args, sp, sp_msg, net_param))
+                    test_nets=_test_nets(args, sp, sp_msg, net_param), mesh=mesh)
     if args.snapshot:
         solver.restore(args.snapshot)
         print(f"Restored from {args.snapshot} at iter {solver.it}")
@@ -174,7 +243,7 @@ def cmd_train(args) -> int:
                 solver.display_outputs()
                 print(f"Iteration {solver.it}, lr = {learning_rate(solver.sp, solver.it):g}")
             action = handler.check_for_action()
-            if action == SolverAction.SNAPSHOT:
+            if action == SolverAction.SNAPSHOT and (mesh is None or mesh.rank == 0):
                 paths = solver.snapshot(args.snapshot_prefix or sp.snapshot_prefix or "snapshot")
                 print(f"Snapshotted to {paths[0]}")
             elif action == SolverAction.STOP:
@@ -187,7 +256,7 @@ def cmd_train(args) -> int:
     # interval falls
     snap = int(sp.snapshot) if sp.has("snapshot") else 0
     if (sp.snapshot_after_train and (sp.snapshot_prefix or args.snapshot_prefix)
-            and (not snap or solver.it % snap)):
+            and (not snap or solver.it % snap) and (mesh is None or mesh.rank == 0)):
         solver.snapshot(args.snapshot_prefix or sp.snapshot_prefix)
     interval = int(sp.test_interval) if sp.has("test_interval") else 0
     if solver.test_nets and interval and solver.it % interval == 0:
@@ -279,8 +348,10 @@ def build_parser():
 
     t = sub.add_parser("train")
     t.add_argument("--solver", required=True)
-    t.add_argument("--gpu", default="", help="not ported: data parallelism over several cards")
-    t.add_argument("--spatial", type=int, default=1, help="not ported (with --gpu)")
+    t.add_argument("--gpu", default="",
+                   help="data-parallel over these cards: 0,1 or all (0,0: two ranks on one card)")
+    t.add_argument("--spatial", type=int, default=1,
+                   help="with --gpu: k-way spatial x (n/k)-way data mesh")
     t.add_argument("--fused_labels", action="store_true",
                    help="u8 images and joints from the host, labels rasterized on the device")
     t.add_argument("--data", default="synthetic-pose")

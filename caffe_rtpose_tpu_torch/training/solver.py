@@ -36,8 +36,15 @@ mixed precision: the parameters, their gradients as accumulated, the
 history and the update stay f32; the net casts inputs and labels to bf16
 and its convolutions cast the parameters inside the forward.
 
-Out of this slice, raising ``NotImplementedError``: ``mesh`` data
-parallelism (``caffe train --gpu``).
+``mesh`` (a ``parallel.dp.Mesh``, on every rank of a
+``torch.distributed`` job): data parallelism, replacing P2PSync
+(parallel.cpp), as JAX's ``Solver(mesh=)``: every rank's ``next_batch``
+gives the same GLOBAL batch, each rank runs its rows (and, on a mesh with a
+``spatial`` axis, its slab of rows: ``parallel/mesh2d.py``), each loss is
+normalized by the global batch, and the gradients are summed over the
+ranks in flat buckets before the update, so every rank applies the same
+update (``parallel/dp.py``).  The parameters start from rank 0's.  Only
+rank 0 snapshots.
 """
 
 from __future__ import annotations
@@ -189,7 +196,18 @@ class Solver:
         self.sp_msg = _parse_solver(solver_param)
         self.sp = caffe_pb.view(self.sp_msg, "SolverParameter")
         if mesh is not None:
-            raise NotImplementedError("mesh data parallelism is not ported (caffe train --gpu)")
+            from ..parallel.dp import Mesh
+
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f"mesh: a parallel.dp.Mesh, got {type(mesh).__name__}")
+            if "spatial" in mesh.axis_names:
+                from ..parallel.sp import check_row_local
+
+                if input_transform is not None:
+                    raise NotImplementedError("an input transform (--fused_labels) with a "
+                                              "spatial axis: it makes whole labels on each rank")
+                check_row_local(net, net.layers)
+        self.mesh = mesh
         self.net = net
         self.next_batch = next_batch
         self.input_transform = input_transform
@@ -203,6 +221,11 @@ class Solver:
             self.params.setdefault(name, []).append(prm)
             self.lr_mults.setdefault(name, []).append(lr)
             self.decay_mults.setdefault(name, []).append(dm)
+        if mesh is not None:
+            from ..parallel.dp import replicate
+
+            replicate(mesh, self.params)
+            net.params_changed()
         self.history = init_history(self.type, self.params)
         self.test_nets: List[Tuple[Any, Optional[Callable], int]] = list(test_nets or [])
         # BatchNorm layers that normalize by the batch: (maf, m) for the roll
@@ -214,12 +237,28 @@ class Solver:
         self.last_outputs: Dict[str, torch.Tensor] = {}
         self.smoothed_losses: List[float] = []
 
-    def _inputs(self, batch) -> Dict[str, torch.Tensor]:
+    def _inputs(self, batch) -> Tuple[Dict[str, torch.Tensor], Any]:
+        """One batch on the device, and the sharded layout its forward runs
+        with (None on one device)."""
         if isinstance(batch, StagedBatch):
-            return dict(batch.wait())
+            if self.mesh is not None:
+                raise ValueError("stage_batches targets a single device; use the plain "
+                                 "prefetch ring with a mesh (the step places the batch)")
+            return dict(batch.wait()), None
+        if self.mesh is not None:
+            return self._place(batch)
         dev = self.net.device
         return {k: (v if isinstance(v, torch.Tensor) else torch.from_numpy(np.asarray(v))).to(dev)
-                for k, v in batch.items()}
+                for k, v in batch.items()}, None
+
+    def _place(self, batch):
+        """This rank's piece of the global batch and its layout
+        (``mesh2d.place_batch``); keeps the axes its gradients reduce over."""
+        from ..parallel.mesh2d import place_batch
+
+        inputs, shard, self._sums, self._means = place_batch(self.mesh, {
+            k: v.detach().cpu() if isinstance(v, torch.Tensor) else v for k, v in batch.items()})
+        return inputs, shard
 
     def step(self, iters: int = 1, callback=None) -> float:
         """Run ``iters`` iterations; returns the last loss."""
@@ -236,17 +275,23 @@ class Solver:
                     p.grad = None
             total = None
             for _sub in range(iter_size):
-                inputs = self._inputs(self.next_batch(self.it))
+                inputs, shard = self._inputs(self.next_batch(self.it))
                 if self.input_transform is not None:
                     inputs = self.input_transform(inputs)
                 aux = {} if self._bn else None
-                loss, outs = self.net.loss(inputs, aux=aux)
+                loss, outs = self.net.loss(inputs, aux=aux, shard=shard)
                 loss.backward()  # diffs accumulate over iter_size, as Caffe's
                 if aux:
                     self._bn_roll(aux)
                 self.last_outputs = {k: v.detach() for k, v in outs.items()}
                 total = loss.detach() if total is None else total + loss.detach()
             grads = {name: [p.grad for p in ps] for name, ps in self.params.items()}
+            if self.mesh is not None:
+                from ..parallel.dp import all_reduce_flat
+
+                total = total.reshape(1).clone()
+                all_reduce_flat(self.mesh, [g for gs in grads.values() for g in gs if g is not None]
+                                + [total], self._sums, self._means)
             self._update(self.params, grads, self.history, lr, self.it)
             self.net.params_changed()
             loss_val = float(total) / iter_size
@@ -256,7 +301,8 @@ class Solver:
             self.it += 1
             if callback is not None:
                 callback(self)
-            if self.sp.snapshot and self.it % int(self.sp.snapshot) == 0 and self.sp.snapshot_prefix:
+            if (self.sp.snapshot and self.it % int(self.sp.snapshot) == 0
+                    and self.sp.snapshot_prefix and (self.mesh is None or self.mesh.rank == 0)):
                 self.snapshot()
         return loss_val
 

@@ -15,17 +15,16 @@ sequential reader) translates one-to-one:
 Backends:
 
 * ``"kvdb"`` (default) — our own single-file sorted store (append-only
-  record log + sorted offset index).  The JAX package reads and writes it
-  natively (native/kvdb.cpp) or in Python; this port uses its pure-Python
-  implementation, byte for byte the same format.
+  record log + sorted offset index), read and written through
+  ``native/kvdb.cpp`` (built by ``native.load_lib`` into the port's
+  ``_build/``) or, without g++, in Python: byte for byte the same format.
 * ``"lmdb"`` / ``"leveldb"`` — used when the corresponding Python binding is
   importable (it is not baked into this image); otherwise a clear error.
 
 Like the reference, cursors iterate in sorted key order and wrap around via
 ``seek_to_first()`` when exhausted (data_reader.cpp:97-105 read loop).
 
-The port of ``caffe_rtpose_tpu/utils/db.py`` (a copy without the native kvdb
-binding).
+The port of ``caffe_rtpose_tpu/utils/db.py``.
 """
 
 from __future__ import annotations
@@ -139,7 +138,75 @@ class _PyKvdb:
         self.f.close()
 
 
+class _NativeKvdb:
+    """ctypes wrapper over native/kvdb.cpp (the same on-disk format)."""
+
+    def __init__(self, lib, path: str, writable: bool):
+        import ctypes
+
+        self._ct = ctypes
+        self.lib = lib
+        lib.kvdb_open.restype = ctypes.c_void_p
+        lib.kvdb_open.argtypes = [ctypes.c_char_p, ctypes.c_int]
+        lib.kvdb_close.argtypes = [ctypes.c_void_p]
+        lib.kvdb_count.restype = ctypes.c_int64
+        lib.kvdb_count.argtypes = [ctypes.c_void_p]
+        lib.kvdb_put.restype = ctypes.c_int
+        lib.kvdb_put.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int32,
+                                 ctypes.c_char_p, ctypes.c_int32]
+        lib.kvdb_commit.restype = ctypes.c_int
+        lib.kvdb_commit.argtypes = [ctypes.c_void_p]
+        lib.kvdb_at.restype = ctypes.c_int
+        lib.kvdb_at.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64,
+            ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8)), ctypes.POINTER(ctypes.c_int32),
+            ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8)), ctypes.POINTER(ctypes.c_int32),
+        ]
+        lib.kvdb_find.restype = ctypes.c_int64
+        lib.kvdb_find.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int32]
+        self.h = lib.kvdb_open(path.encode(), 1 if writable else 0)
+        if not self.h:
+            raise IOError(f"kvdb_open failed for {path!r}")
+
+    def count(self) -> int:
+        return int(self.lib.kvdb_count(self.h))
+
+    def at(self, pos: int) -> Tuple[bytes, bytes]:
+        ct = self._ct
+        kp, vp = ct.POINTER(ct.c_uint8)(), ct.POINTER(ct.c_uint8)()
+        kl, vl = ct.c_int32(), ct.c_int32()
+        if self.lib.kvdb_at(self.h, pos, ct.byref(kp), ct.byref(kl), ct.byref(vp),
+                            ct.byref(vl)) != 0:
+            raise IndexError(pos)
+        return (ct.string_at(kp, kl.value), ct.string_at(vp, vl.value))
+
+    def find(self, key: bytes) -> int:
+        return int(self.lib.kvdb_find(self.h, key, len(key)))
+
+    def put(self, key: bytes, value: bytes):
+        if self.lib.kvdb_put(self.h, key, len(key), value, len(value)) != 0:
+            raise IOError("kvdb opened read-only")
+
+    def commit(self):
+        if self.lib.kvdb_commit(self.h) != 0:
+            raise IOError("kvdb commit failed")
+
+    def close(self):
+        if self.h:
+            self.lib.kvdb_close(self.h)
+            self.h = None
+
+
 def _kvdb_impl(path: str, writable: bool):
+    """The native store when ``native/kvdb.cpp`` builds, else Python."""
+    from .. import native
+
+    lib = native.load_lib("kvdb")
+    if lib is not None and (writable or os.path.exists(path)):
+        try:
+            return _NativeKvdb(lib, path, writable)
+        except IOError:
+            pass  # the Python store reads the same format, and says why it cannot
     return _PyKvdb(path, writable)
 
 

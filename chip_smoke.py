@@ -133,7 +133,12 @@ Phases, each of which raises (non-zero exit) on failure:
                process, equal to (b)'s last test pass within 1e-5; (e)
                api.Net on CaffeNet's deploy form at batch 10 and on the COCO
                pose deploy graph bit for bit against Net.forward, classify
-               (10 crops) on 4 PNGs with rows summing to 1; then two of
+               (10 crops) on 4 PNGs with rows summing to 1; (f) ROADMAP C2:
+               api.Net.backward of the COCO deploy net at 656x368 (TEST
+               phase) against an f64 run of the same call, every input and
+               parameter diff within 2e-3 relative L2, the same under the
+               pre-C2 rule (cuDNN's f32 backward) for the record, and a
+               no-grad forward bit for bit under both rules; then two of
                (b)'s steps under torch.profiler.
    train bf16- (after train) bench_train.py's configuration in bf16 mixed
                precision (seed 0 init, the same solver, labels on the
@@ -171,6 +176,28 @@ Phases, each of which raises (non-zero exit) on failure:
                CaffeNet's deploy prototxt with the snapshot at batch 10,
                crop 227, its forward bit for bit against api.Net's; then
                run_tests.m, which sets the CPU mode first.
+   parallel  - (last) parallel/ over ranks sharing the card over gloo
+               (parallel.dp.spawn; every collective through pinned host
+               buffers), one process group a world size running all of its
+               checks: 2 ranks: a DP step of the 6-stage COCO train net
+               (global batch 10, crop 368, f32) against the one-rank step
+               (loss rtol 1e-5, parameter sums rtol 1e-4 atol 1e-5), the
+               step's ms and its gradient all-reduce's; spatial_estimator_fn
+               and tp_estimator_fn at 656x368 (1 scale, f32, the calibrated
+               weights, 4 frames) against the one-device estimator (peaks
+               rtol/atol 1e-4, scores 2e-2, pair counts exact), ms a frame
+               of each, K1 launched once a pass on each rank. 4 ranks:
+               dp_tp_estimator_fn (2x2, 2-frame batches), a dp x sp step of
+               the train net (2x2; loss within 1e-3, sampled parameters
+               rtol 2e-3 atol 2e-5). 5 ranks: pipeline_refine of the five
+               refinement stages at 46x82, width 128, M=6 (rtol/atol 2e-4)
+               and make_pp_train_step (loss rtol 1e-5, weights rtol 1e-4
+               atol 1e-6). Then caffe train --gpu 0,0 (one iteration of
+               the train net, synthetic data) against --gpu 0, and the
+               multihost dry run (2 processes against 1, crop 64, batch
+               8), and which collectives gloo takes natively on CUDA
+               tensors (the port stages them all through host buffers).
+               Peak GiB by rank, seconds of each group and check.
 4. slice     - the full-width COCO estimator (656x368, 1 scale, u8 input,
                pair_cap=32, f32) over 8 synthetic frames through
                estimate_from_net_input (graph replays), with the peak-mask
@@ -230,9 +257,9 @@ hundreds of peaks in every part).
 
 The bf16 phases reuse the 1-scale f32 slice's weights and frames.
 
-The train, framework, train bf16, tools and matcaffe phases print their
-JSON lines ({"train": ...}, {"framework": ...}, {"train_bf16": ...},
-{"tools": ...}, {"matcaffe": ...}) before them.
+The train, framework, train bf16, tools, matcaffe and parallel phases print
+their JSON lines ({"train": ...}, {"framework": ...}, {"train_bf16": ...},
+{"tools": ...}, {"matcaffe": ...}, {"parallel": ...}) before them.
 The last three lines are: a JSON object with one entry per TPU kernel (K1
 and its 3-scale form K2 listed apart), the card's name and power limit as
 nvidia-smi prints them, and {"ok": true, "device": {...}}.
@@ -3220,6 +3247,7 @@ def phase_framework(work, device="cuda"):
     last = train["tests"][-1]
     test = phase_framework_test(tv, train["snapshot"], last, device)
     facade = phase_framework_facade(work, train["snapshot"], mean, device)
+    c2 = phase_c2(device)
     counts = read_counts()
     check(not any(counts.values()), f"[framework] launched hand kernels: {counts}")
     solver.test_nets = []  # the profile times train steps alone
@@ -3228,7 +3256,7 @@ def phase_framework(work, device="cuda"):
     snapshot = train.pop("snapshot")
     seconds = time.perf_counter() - t0
     print(f"[framework] {seconds:.1f} s in all; hand kernel launches {counts}")
-    return dict(zoo=zoo, train=train, small=small, caffe_test=test, facade=facade,
+    return dict(zoo=zoo, train=train, small=small, caffe_test=test, facade=facade, c2=c2,
                 profile=profile, hand_kernel_launches=counts, seconds=seconds), snapshot, log
 
 
@@ -3684,6 +3712,268 @@ def phase_matcaffe(work, snapshot, device="cuda"):
                 hand_kernel_launches=counts, seconds=time.perf_counter() - t0)
 
 
+# ------------------------------------------------------------------- C2
+
+TOL_C2 = 2e-3  # relative L2 of each diff against the f64 run (ROADMAP C2)
+C2_RES, C2_STAGES = (656, 368), 6
+
+
+def backward_f64_gaps(core, inputs, diffs):
+    """``Net.backward`` in f32 and again with the net in f64 (its parameters
+    themselves converted): the relative L2 gap of every input and parameter
+    diff, and the f32 call's ms (a second call, warm).  The f64 run takes
+    the f32 forward's ReLU decisions: a pre-activation within f32 rounding
+    of 0 otherwise takes the other branch in f64, and through the deploy
+    net's six stages that alone moves whole gradient blobs by 3e-3 to 9e-3
+    relative L2, on the host CPU as on the card (COCO 6 stages at 328x184,
+    fan-in or the prototxt's weights), which is no engine's error.  With
+    the decisions pinned the host CPU's f32 stays within 8e-4."""
+    import torch
+
+    masks = {}
+    relus = {l.name: core.mods[l.name] for l in core.layers if l.type == "ReLU"}
+
+    def record(name, mod):
+        def run(bots, ctx):
+            masks[name] = bots[0] > 0
+            return type(mod).run(mod, bots, ctx)
+        return run
+
+    def pinned(name, mod):
+        return lambda bots, ctx: (torch.where(masks[name], bots[0], mod.slope * bots[0]),)
+
+    def sync():
+        if core.device.type == "cuda":
+            torch.cuda.synchronize(core.device)
+
+    core.backward(inputs, diffs)  # warm: the engines' first call
+    for name, mod in relus.items():
+        mod.run = record(name, mod)
+    sync()
+    t0 = time.perf_counter()
+    try:
+        got = core.backward(inputs, diffs)
+    finally:
+        for mod in relus.values():
+            del mod.run
+    sync()
+    ms = (time.perf_counter() - t0) * 1e3
+    core.double()
+    core.dtype = torch.float64
+    for conv in core.convs.values():
+        conv.compute_weights(torch.float32)  # the (now f64) parameters themselves
+    for name, mod in relus.items():
+        mod.run = pinned(name, mod)
+    try:
+        ref = core.backward(inputs, diffs)
+    finally:
+        for mod in relus.values():
+            del mod.run
+        core.float()
+        core.dtype = torch.float32
+        core.params_changed()
+
+    def gap(a, b):
+        a, b = a.double(), b.double()
+        return float(torch.linalg.vector_norm(a - b) / max(torch.linalg.vector_norm(b), 1e-30))
+
+    gaps = {f"in:{k}": gap(got[0][k], ref[0][k]) for k in got[0]}
+    gaps.update({f"{k}[{i}]": gap(a, b) for k in got[1]
+                 for i, (a, b) in enumerate(zip(got[1][k], ref[1][k]))})
+    return gaps, ms
+
+
+def gap_summary(gaps):
+    worst = max(gaps, key=gaps.get)
+    return dict(max=gaps[worst], worst=worst, median=statistics.median(gaps.values()),
+                image=gaps["in:image"], blobs=len(gaps))
+
+
+def phase_c2(device="cuda"):
+    """pycaffe's ``Net.backward`` of the COCO deploy net at 656x368 (TEST
+    phase, fan-in weights, one canvas, randn top diffs) against an f64 run
+    of the same call (:func:`backward_f64_gaps`), every input and parameter
+    diff within 2e-3 relative L2; the same under the switch's pre-C2 rule
+    (keyed on the phase: cuDNN's f32 backward), for the record; and a
+    no-grad forward under both rules bit for bit equal."""
+    import torch
+
+    from caffe_rtpose_tpu_torch import api
+    from caffe_rtpose_tpu_torch.core import layers as L
+    from caffe_rtpose_tpu_torch.models.cpm import make_pose_deploy_net
+
+    t0 = time.perf_counter()
+    api.set_mode_gpu()
+    w, h = C2_RES
+    net = api.Net(make_pose_deploy_net("COCO", stages=C2_STAGES, input_dim=(1, 3, h, w)),
+                  phase=api.TEST)
+    core = net._net
+    core.load_weights(fan_in_weights(core, 5))
+    rs = np.random.RandomState(5)
+    x = rs.rand(1, 3, h, w).astype(np.float32) - 0.5
+    top = core.output_names()[0]
+    diffs = {top: rs.randn(*core.blob_shapes[top]).astype(np.float32)}
+    net.forward(image=x)
+    got = net.backward(**diffs)  # the facade's call
+    check(got["image"].shape == x.shape and np.isfinite(got["image"]).all(),
+          "[c2] api.Net.backward gave no finite image diff")
+    feed = {"image": torch.from_numpy(x)}
+    after, ms_after = backward_f64_gaps(core, feed, diffs)
+    real = L.f32_training
+    L.f32_training = lambda ctx, x, *ops: ctx.training and x.dtype == torch.float32
+    try:
+        before, ms_before = backward_f64_gaps(core, feed, diffs)
+        with torch.no_grad():
+            old = core.forward({"image": feed["image"].to(core.device)}, outputs=[top])[top]
+    finally:
+        L.f32_training = real
+    with torch.no_grad():
+        new = core.forward({"image": feed["image"].to(core.device)}, outputs=[top])[top]
+    out = dict(after=gap_summary(after), before=gap_summary(before), backward_ms=ms_after,
+               backward_ms_cudnn=ms_before, no_grad_forward_bit_equal=bool(torch.equal(old, new)),
+               seconds=time.perf_counter() - t0)
+    print(f"[c2] api.Net.backward COCO 656x368 vs f64: worst {out['after']['worst']} "
+          f"{out['after']['max']:.3g} (pre-C2 rule: {out['before']['worst']} "
+          f"{out['before']['max']:.3g}); {ms_after:.1f} ms ({ms_before:.1f} ms with cuDNN)")
+    check(out["after"]["max"] <= TOL_C2, f"[c2] a diff is {out['after']['max']:.3g} from f64 "
+          f"({out['after']['worst']})")
+    check(out["no_grad_forward_bit_equal"], "[c2] the no-grad forward moved")
+    return out
+
+
+# --------------------------------------------------------------- parallel
+
+PAR_TIMEOUT = 900  # a process group's limit: a hung rank fails the phase
+PAR_DEVICE = "cuda:0"  # one card: every rank shares it over gloo
+TRAIN_BATCH_FULL, TRAIN_CROP_FULL = 10, 368
+PAR_RES, PAR_STAGES = (656, 368), 6
+PP_HW, PP_MICRO = (46, 82), 6  # the refinement stages at 1/8 of 656x368
+CLI_EXTRA = ()  # more caffe train flags (a rehearsal on the host: --device cpu)
+
+
+def _cli_train(work, name, gpu, timeout=600):
+    """``caffe train --gpu <gpu>`` in a new process: one iteration of the
+    6-stage COCO train net at batch 10, crop 368, synthetic data, then its
+    snapshot's parameter sums in f64 and the printed loss."""
+    import subprocess
+
+    from caffe_rtpose_tpu_torch.core.net import Net
+
+    net = f"{work}/par_train.prototxt"
+    solver = f"{work}/{name}.prototxt"
+    with open(solver, "w") as f:
+        f.write(f'net: "{net}"\n{TRAIN_SOLVER}\nmax_iter: 1\ndisplay: 1\n'
+                f'snapshot_prefix: "{work}/{name}"\n')
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "caffe_rtpose_tpu_torch", "caffe", "train",
+                          "--solver", solver, "--gpu", gpu, *CLI_EXTRA], capture_output=True,
+                         text=True, timeout=timeout)
+    seconds = time.perf_counter() - t0
+    check(res.returncode == 0, f"[parallel] caffe train --gpu {gpu} failed:\n"
+                               f"{res.stdout[-2000:]}\n{res.stderr[-3000:]}")
+    loss = float(re.search(r"Iteration 1 .*loss = ([-\d.e+]+)", res.stdout).group(1))
+    snap = Net(net, phase="TRAIN", device="cpu")
+    snap.load_weights(f"{work}/{name}_iter_1.caffemodel")
+    sums = {k: [float(b.detach().double().sum()) for b in v]
+            for k, v in snap.layer_blobs().items()}
+    return dict(loss=loss, param_sums=sums, seconds=seconds, lines=[
+        l for l in res.stdout.splitlines() if "training over" in l or "backend" in l])
+
+
+def phase_parallel(weights, frames, work):
+    """The parallel modes (module docstring) over ranks that share the card
+    over gloo: one process group a world size, each running all of that
+    size's checks; then caffe train --gpu 0,0 and the multihost dry run in
+    new processes.  K1's launches on each sharded estimator path, by rank."""
+    import gc
+
+    import torch
+
+    from caffe_rtpose_tpu_torch.models.cpm import make_pose_train_net
+    from caffe_rtpose_tpu_torch.parallel import dp, dryrun, multihost
+    from caffe_rtpose_tpu_torch.proto import prototxt
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    est = dict(stages=PAR_STAGES, net_w=PAR_RES[0], net_h=PAR_RES[1], weights=weights,
+               pair_cap=32)
+    single = [f for f in frames[:4]]
+    pairs = [np.stack(frames[i : i + 2]) for i in (0, 2)]  # 2-frame batches
+    groups = {
+        2: [("case_gloo_probe", {}),
+            ("dryrun_cpm_train", dict(n_devices=2, crop=TRAIN_CROP_FULL,
+                                      batch=TRAIN_BATCH_FULL, stages=PAR_STAGES)),
+            ("case_estimator#spatial", dict(kind="spatial", n_devices=2, frames=single, **est)),
+            ("case_estimator#tp", dict(kind="tp", n_devices=2, frames=single, **est))],
+        4: [("case_estimator#dp_tp", dict(kind="dp_tp", n_devices=4, frames=pairs, batch=2,
+                                          **est)),
+            ("dryrun_dp_sp_train", dict(n_devices=4, crop=TRAIN_CROP_FULL,
+                                        batch=TRAIN_BATCH_FULL, spatial=2,
+                                        stages=PAR_STAGES))],
+        5: [("dryrun_pp", dict(n_devices=5, hw=PP_HW, micro=PP_MICRO)),
+            ("dryrun_pp_train", dict(n_devices=5, hw=PP_HW, micro=PP_MICRO, width=128,
+                                     n_paf=38, n_heat=19, feat_ch=128, fan_in=True))],
+    }
+    out = {"backend": dp.pick_backend([PAR_DEVICE] * 2), "groups": {}}
+    by_rank = {}
+    for n, cases in groups.items():
+        g0 = time.perf_counter()
+        res = dp.spawn(dryrun.rank_cases, n, [PAR_DEVICE] * n, args=(cases,),
+                       timeout=PAR_TIMEOUT)
+        out["groups"][n] = dict(seconds=time.perf_counter() - g0,
+                                peak_gib_by_rank=[r["peak_gib"] for r in res])
+        for name, _ in cases:
+            by_rank[name] = [{k: v for k, v in r[name].items()
+                              if k not in ("params", "ref_params", "packed", "new", "inputs",
+                                           "outputs", "digest", "ref_digest")} for r in res]
+        print(f"[parallel] {n} ranks: {', '.join(n for n, _ in cases)} in "
+              f"{out['groups'][n]['seconds']:.1f} s", flush=True)
+    k1 = {}
+    for path, name in (("sp estimator", "case_estimator#spatial"),
+                       ("tp estimator", "case_estimator#tp"),
+                       ("dp x tp estimator", "case_estimator#dp_tp")):
+        ranks = by_rank[name]
+        k1[path] = [r["k1_launches"] for r in ranks]
+        # one a pass on each rank (the host runs the plain version: none)
+        passes = (len(pairs) if "dp" in name else len(single)) * PAR_DEVICE.startswith("cuda")
+        check(all(c == passes for c in k1[path]),
+              f"[parallel] {path}: K1 launches {k1[path]}, expected {passes} a rank")
+        out[path] = dict(ms_per_frame=[r["ms_per_frame"] for r in ranks],
+                         single_ms_per_frame=ranks[0]["single_ms_per_frame"],
+                         seconds=ranks[0]["seconds"],
+                         **({"weight_share": ranks[0]["weight_share"]}
+                            if "weight_share" in ranks[0] else {}))
+    dp_step = by_rank["dryrun_cpm_train"][0]
+    out["dp step"] = {k: dp_step[k] for k in ("loss", "ref_loss", "step_ms", "ref_step_ms",
+                                               "allreduce_ms", "seconds")}
+    out["dp x sp step"] = {k: by_rank["dryrun_dp_sp_train"][0][k]
+                           for k in ("loss", "ref_loss", "step_ms", "ref_step_ms", "seconds")}
+    out["pipeline_refine"] = {k: by_rank["dryrun_pp"][0][k] for k in ("ms", "seconds")}
+    out["pp train step"] = {k: by_rank["dryrun_pp_train"][0][k]
+                            for k in ("loss", "ref_loss", "step_ms", "seconds")}
+    # caffe train --gpu 0,0 against --gpu 0 (one rank), each a new process
+    prototxt.dump_file(make_pose_train_net(batch=TRAIN_BATCH_FULL, crop=TRAIN_CROP_FULL,
+                                           stages=PAR_STAGES), f"{work}/par_train.prototxt")
+    two = _cli_train(work, "gpu00", "0,0")
+    one = _cli_train(work, "gpu0", "0")
+    multihost.check_digests(two, one)
+    out["caffe train --gpu 0,0"] = dict(loss=two["loss"], one_rank_loss=one["loss"],
+                                        seconds=two["seconds"], one_rank_seconds=one["seconds"],
+                                        lines=two["lines"])
+    m0 = time.perf_counter()
+    mh = multihost.dryrun_multihost(2, device=PAR_DEVICE, timeout=600,
+                                    **({} if PAR_DEVICE.startswith("cuda") else
+                                       dict(crop=32, batch=4)))
+    out["multihost"] = dict(loss=mh["multi"]["loss"], single_loss=mh["single"]["loss"],
+                            backend=mh["multi"]["backend"], seconds=time.perf_counter() - m0)
+    out["gloo_on_cuda_tensors"] = by_rank["case_gloo_probe"][0]
+    out["k1_launches_by_path"] = k1
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[parallel] {out['seconds']:.1f} s in all; K1 launches by rank {k1}", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3739,6 +4029,8 @@ def main() -> int:
         framework, snapshot, log = phase_framework(work)
         tools = phase_tools(work, snapshot, log)
         matcaffe = phase_matcaffe(work, snapshot)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_") as work:
+        parallel = phase_parallel(weights, frames, work)
     keys = ("device_ms", "e2e_ms", "launches", "peaks", "people")
     for name, r in (("1-scale", one), ("3-scale", three)):
         print(json.dumps({"slice": name, **{k: r[k] for k in keys}}))
@@ -3763,6 +4055,7 @@ def main() -> int:
     print(json.dumps({"train_bf16": train_bf16}))
     print(json.dumps({"tools": tools}))
     print(json.dumps({"matcaffe": matcaffe}))
+    print(json.dumps({"parallel": parallel}))
     card = info["nvidia_smi"]
     # launches: the wrapper's calls in the main path's run (the pipeline:
     # the eager pass and the capture; the 3-scale, heatmap slices for the
@@ -3782,7 +4075,9 @@ def main() -> int:
                             "bundle bf16 batch 8": (sm["launches"]["peak_mask_fused"],
                                                     sm["replayed"]["peak_mask_kernel"]),
                             "bundle exported on the cpu": (sc["launches"]["peak_mask_fused"],
-                                                           sc["replayed"]["peak_mask_kernel"])},
+                                                           sc["replayed"]["peak_mask_kernel"]),
+                            **{f"{path} (by rank)": (v, None) for path, v in
+                               parallel["k1_launches_by_path"].items()}},
         "peak_mask_fused_3scale": {"slice 3-scale": (three["launches"], None),
                                    "bundle 3-scale f32": (s3["launches"]["peak_mask_fused"],
                                                           s3["replayed"]["peak_mask_kernel"])},

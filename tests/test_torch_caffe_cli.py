@@ -98,8 +98,11 @@ def test_device_query_and_not_ported(files):
     with pytest.raises(SystemExit):  # caffe test is ported: it needs --model
         run("test")
     _, _, solver = files
-    with pytest.raises(NotImplementedError, match="--gpu"):
-        run("train", "--solver", solver("gpu.prototxt"), "--gpu", "0,1", "--device", "cpu")
+    # --gpu is ported (tests/test_torch_dp.py trains over two ranks); one id
+    # trains on one device, and --spatial then warns that it needs a mesh
+    rc, text = run("train", "--solver", solver("gpu.prototxt", "max_iter: 1"), "--gpu", "0",
+                   "--spatial", "2", "--device", "cpu")
+    assert rc == 0 and "--spatial 2 ignored" in text and "Optimization Done" in text
 
 
 def test_default_device_is_cuda(files):

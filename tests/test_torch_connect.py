@@ -122,3 +122,39 @@ def test_score_pairs_matches_jax(desc):
     np.testing.assert_array_equal(c_t.numpy(), np.asarray(c_j))
     np.testing.assert_allclose(s_t.numpy(), np.asarray(s_j), rtol=0, atol=1e-5)
     assert c_t.numpy().sum() > 0
+
+
+@pytest.mark.parametrize("desc", [COCO_18, MPI_15], ids=["coco", "mpi"])
+def test_host_oracles_match_jax(desc):
+    """ROADMAP A.3: ``score_pairs_np`` (the loop oracle) equal to JAX's and
+    to the port's device ``score_pairs``; ``connect_limbs`` equal to JAX's;
+    ``distance_threshold_peaks`` equal to JAX's (peaks 4 px apart merge)."""
+    rs = np.random.RandomState(20 + desc.num_parts)
+    th, tw = 48, 64
+    c_total = 57 if desc is COCO_18 else 44
+    heat = rs.rand(c_total, th, tw).astype(np.float32) * 2 - 1
+    peaks = _random_peaks(rs, desc.num_parts, 8, th, tw)
+    peaks[1, 2, :2] = peaks[1, 1, :2] + 4.0
+    s_n, c_n = TC.score_pairs_np(heat, peaks, desc, 0.05)
+    s_j, c_j = JC.score_pairs_np(heat, peaks, desc, 0.05)
+    np.testing.assert_array_equal(s_n, s_j)
+    np.testing.assert_array_equal(c_n, c_j)
+    # the device scores every slot; the oracle only the peaks each part has
+    s_t, c_t = TC.score_pairs(torch.from_numpy(heat), torch.from_numpy(peaks), desc, 0.05)
+    n = peaks[:, 0, 0].astype(int)
+    live = np.zeros_like(c_n, bool)
+    for k in range(desc.num_limbs):
+        a, b = desc.limb(k)
+        live[k, : n[a], : n[b]] = True
+    np.testing.assert_array_equal(c_t.numpy()[live], c_n[live])
+    np.testing.assert_allclose(s_t.numpy()[live], s_n[live], rtol=0, atol=1e-5)
+    pc = dataclasses.replace(desc.defaults, min_subset_score=-10.0, min_subset_cnt=0,
+                             inter_threshold=-10.0, inter_min_above_threshold=0)
+    got = TC.connect_limbs(heat, peaks, desc, pc, scale_xy=(2.0, 2.0))
+    ref = JC.connect_limbs(heat, peaks, desc, pc, scale_xy=(2.0, 2.0))
+    assert got.num_people == ref.num_people > 0
+    np.testing.assert_array_equal(got.joints, ref.joints)
+    for thr in (6.0, 1.0):
+        np.testing.assert_array_equal(TC.distance_threshold_peaks(peaks, thr),
+                                      JC.distance_threshold_peaks(peaks, thr))
+    assert TC.distance_threshold_peaks(peaks)[1, 0, 0] < peaks[1, 0, 0]

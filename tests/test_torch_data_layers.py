@@ -226,3 +226,45 @@ def test_resize_image_matches_jax_cv2(order, dims):
     got, ref = api.resize_image(im, dims, order), japi.resize_image(im, dims, order)
     assert got.shape == ref.shape
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
+
+
+def test_native_kvdb_binding_matches_the_python_twin(tmp_path):
+    """ROADMAP A.3: ``native/kvdb.cpp`` built into the port's ``_build/``
+    and bound by ctypes; the pure-Python store is its twin.  A DB written by
+    either reads the same through the other (keys sorted, the last write of
+    a key wins, a second commit merges), byte for byte on disk."""
+    import shutil
+
+    from caffe_rtpose_tpu_torch import native
+    from caffe_rtpose_tpu_torch.utils import db as pdb
+
+    if shutil.which("g++") is None:
+        pytest.skip("no g++: the native store cannot be built here")
+    lib = native.load_lib("kvdb")
+    assert lib is not None
+    rs = np.random.RandomState(0)
+    batches = [[(f"{rs.randint(1000):05d}".encode(), rs.bytes(rs.randint(1, 64)))
+                for _ in range(40)] for _ in range(2)]
+    paths = {}
+    for kind, make in (("native", lambda p, w: pdb._NativeKvdb(lib, p, w)),
+                       ("python", pdb._PyKvdb)):
+        paths[kind] = str(tmp_path / f"{kind}.kvdb")
+        store = make(paths[kind], True)
+        for batch in batches:
+            for k, v in batch:
+                store.put(k, v)
+            store.commit()
+        store.close()
+    want = {}
+    for k, v in batches[0] + batches[1]:
+        want[k] = v
+    for path in paths.values():
+        for store in (pdb._NativeKvdb(lib, path, False), pdb._PyKvdb(path, False)):
+            assert store.count() == len(want)
+            assert [store.at(i) for i in range(store.count())] == sorted(want.items())
+            k = sorted(want)[7]
+            assert store.find(k) == 7 and store.find(b"zzz") < 0
+            store.close()
+    with open(paths["native"], "rb") as a, open(paths["python"], "rb") as b:
+        assert a.read() == b.read()
+    assert isinstance(pdb._kvdb_impl(paths["native"], False), pdb._NativeKvdb)

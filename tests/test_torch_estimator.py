@@ -39,6 +39,9 @@ from caffe_rtpose_tpu.models.cpm import make_pose_deploy_net as j_make_net
 from caffe_rtpose_tpu.pose.estimator import PoseEstimator as JEstimator
 from caffe_rtpose_tpu_torch.core.net import params_from_jax
 from caffe_rtpose_tpu_torch.ops import nms_cuda
+from caffe_rtpose_tpu_torch.parallel.dryrun import real_pairs as _real_pairs
+from caffe_rtpose_tpu_torch.parallel.dryrun import (
+    sample_pixels_may_differ as _sample_pixels_may_differ)
 from caffe_rtpose_tpu_torch.models.cpm import make_pose_deploy_net
 from caffe_rtpose_tpu_torch.pose.estimator import PoseEstimator
 
@@ -92,29 +95,6 @@ def _assert_outputs_match(got, ref, cap=None):
     ulp = np.spacing(np.maximum(np.abs(st), np.abs(sj)).astype(np.float16)).astype(np.float32)
     assert (np.abs(st - sj) <= ulp + 1e-5).all(), "pair scores differ by more than one f16 ulp"
     assert st.shape == (ct.shape[0], m, m)
-
-
-def _sample_pixels_may_differ(pa, pb, desc, margin=1e-4):
-    """(L, M, M) bool: the limb pairs where a line-integral sample of the
-    two peak sets may land on different pixels: Caffe's round() of the
-    sample positions (connect._sample_geometry, in f64 here) differs, or a
-    position lies within ``margin`` px of a .5 boundary on either side,
-    where each side's own f32 arithmetic decides (a few f32 ulps of a
-    position below 128 px: ~3e-5)."""
-    limbs = [desc.limb(k) for k in range(desc.num_limbs)]
-    a, b = (np.array([l[i] for l in limbs]) for i in (0, 1))
-    lm = np.arange(10) / 10.0
-    out = np.zeros((len(limbs), pa.shape[1] - 1, pa.shape[1] - 1), bool)
-    with np.errstate(invalid="ignore"):
-        for c in (0, 1):
-            pos = [p[a, 1:, None, None, c].astype(np.float64) + lm
-                   * (p[b, None, 1:, None, c].astype(np.float64)
-                      - p[a, 1:, None, None, c].astype(np.float64)) + 0.5 for p in (pa, pb)]
-            out |= (np.isfinite(pos[0]) & np.isfinite(pos[1])
-                    & (np.floor(pos[0]) != np.floor(pos[1]))).any(-1)
-            for u in pos:
-                out |= (np.abs(u - np.round(u)) < margin).any(-1)
-    return out
 
 
 def _assert_outputs_close(got, ref, desc, cap=None):
@@ -355,17 +335,6 @@ def test_keep_heatmap_matches_jax_and_packed_branch(net, scales, start, gap):
     np.testing.assert_array_equal(c1[real], ct[real])
 
 
-def _real_pairs(desc, peaks):
-    """(L, M, M) bool: the pairs of real peaks ([:na, :nb] of each limb)."""
-    m = peaks.shape[1] - 1
-    n = np.minimum(peaks[:, 0, 0].astype(int), m)
-    out = np.zeros((desc.num_limbs, m, m), bool)
-    for k in range(desc.num_limbs):
-        a, b = desc.limb(k)
-        out[k, : n[a], : n[b]] = True
-    return out
-
-
 def test_device_rescale_matches_jax(coco):
     """device_rescale: one uploaded live region, the smaller scales made on
     the device by the INTER_AREA matrices.  The canvases are einsums summed
@@ -426,3 +395,40 @@ def test_tensor_threshold_equals_float():
             nms_cuda.threshold_scalar(bad, torch.device("cpu"))
     assert nms_cuda.threshold_scalar(t, torch.device("cpu")) is t
 
+
+
+def _without_resize(proto, low):
+    """A deploy graph whose Nms reads the low-res concat: no ImResize."""
+    proto = dict(proto, layer=[dict(l) for l in proto["layer"] if l["name"] != "resize"])
+    for l in proto["layer"]:
+        if l["name"] == "nms":
+            l["bottom"] = [low]
+    return proto
+
+
+def test_net_without_resize_matches_jax():
+    """ROADMAP A.3: a deploy net without a ``resize`` layer runs the net's
+    own Nms on the low-res maps and scores pairs there (JAX
+    estimator.py:331-345), unpacked at batch 1; peaks and counts as
+    ``_assert_outputs_match`` holds them, pair scores within 1e-4."""
+    jest = JEstimator(_without_resize(j_make_net("COCO", stages=2), "concat_stage3"),
+                      net_resolution=RES)
+    weights = _fan_in_weights(jest, 0)
+    est = PoseEstimator(_without_resize(make_pose_deploy_net("COCO", stages=2), "concat_stage3"),
+                        weights=weights, net_resolution=RES, device="cpu")
+    assert est.lowres_blob is None and not est._packed
+    assert est._program_key(est.eff_peaks, 1) == ("direct",)  # the key a graph is kept by
+    x = np.random.RandomState(0).rand(1, 3, RES[1], RES[0]).astype(np.float32) - 0.5
+    kw = dict(nms_threshold=0.0, inter_threshold=-10.0)
+    got, ref = est.fetch(est.run_device(x, **kw)), jest.fetch(jest.run_device(x, **kw))
+    assert got[0].shape == ref[0].shape == (18, 65, 3)
+    np.testing.assert_array_equal(got[0][:, 0, 0], ref[0][:, 0, 0])
+    assert got[0][:, 0, 0].sum() > 0
+    np.testing.assert_allclose(got[0], ref[0], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(got[1], ref[1], rtol=0, atol=1e-4)
+    np.testing.assert_array_equal(got[2], ref[2])
+    assert est.estimate_from_net_input(x).num_people == jest.estimate_from_net_input(
+        x).num_people
+    with pytest.raises(ValueError, match="packed"):
+        PoseEstimator(_without_resize(make_pose_deploy_net("COCO", stages=2), "concat_stage3"),
+                      net_resolution=RES, batch=2, device="cpu")

@@ -79,6 +79,13 @@ SLICE_MODULES = [
     "caffe_rtpose_tpu_torch.tools.aux_tools",
     "caffe_rtpose_tpu_torch.tools.detect",
     "caffe_rtpose_tpu_torch.matlab_engine",
+    "caffe_rtpose_tpu_torch.parallel.dp",
+    "caffe_rtpose_tpu_torch.parallel.multihost",
+    "caffe_rtpose_tpu_torch.parallel.sp",
+    "caffe_rtpose_tpu_torch.parallel.tp",
+    "caffe_rtpose_tpu_torch.parallel.mesh2d",
+    "caffe_rtpose_tpu_torch.parallel.pp",
+    "caffe_rtpose_tpu_torch.parallel.dryrun",
 ]
 
 

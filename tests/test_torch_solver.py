@@ -292,7 +292,8 @@ def test_out_of_slice_options_raise(setup):
     assert make_port(setup, "base_lr: 1e-4 lr_policy: 'fixed' test_interval: 10 "
                             "test_iter: 2").test_nets == []
     ps = make_port(setup, "base_lr: 1e-4 lr_policy: 'fixed'")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # a mesh is ported (tests/test_torch_dp.py); anything else is refused
+    with pytest.raises(TypeError, match="mesh"):
         Solver("base_lr: 1e-4 lr_policy: 'fixed'", ps.net, ps.next_batch, mesh=object())
     # bf16 training is ported: the solver takes a bf16 net and keeps f32 state
     bf16 = Net(make_pose_train_net(batch=1, crop=16, stages=1), phase="TRAIN", device="cpu",
