@@ -84,8 +84,10 @@ class RunCtx:
     and, when not None, a dict that collects BatchNorm's
     batch statistics by layer name for the solver's roll.  ``shard``: the
     layout of a forward run on one rank of several (``parallel/``): it
-    convolves (a slab of rows with its halo, or a share of the filters) and
-    turns a loss's local normalizer into the global one."""
+    convolves (a slab of rows with its halo, or a share of the filters),
+    hands a window layer the rows it reads (``row_window``), sums batch
+    statistics over the ranks and turns a loss's local normalizer into the
+    global one."""
 
     ops: Mapping[str, torch.Tensor] = field(default_factory=dict)
     training: bool = False
@@ -167,7 +169,20 @@ class LayerModule(nn.Module):
     order and layout, each with ``lr_mult``/``decay_mult`` from its
     ParamSpec and the filler ``Net.init_params`` fills it with (None: not
     filled, as BatchNorm's statistics).  A blob requires a gradient in a
-    TRAIN net unless its ``lr_mult`` is 0 (Caffe computes no diff then)."""
+    TRAIN net unless its ``lr_mult`` is 0 (Caffe computes no diff then).
+
+    ``rows`` says how the layer reads the rows (axis 2) of its 4-D bottoms,
+    which a forward split over rows (``parallel/sp.py``) plans by:
+    ``"local"``, each output row from the same input row (elementwise
+    layers, channel concat, the positionwise losses); ``"window"``, each
+    output row from a window of input rows (``window`` = (kernel, stride,
+    pad, dilation) along H; ``transposed`` for a deconvolution), read
+    through ``RunCtx.shard.row_window``; ``"whole"`` (the default), any
+    other layer: it gets whole bottoms."""
+
+    rows = "whole"
+    window: Optional[Tuple[int, int, int, int]] = None
+    transposed = False
 
     def __init__(self, ctx: BuildCtx, top_shapes: Sequence[Shape] = ()):
         super().__init__()
@@ -213,9 +228,27 @@ class FnLayer(LayerModule):
         return tuple(self.fn(bots, ctx))
 
 
+def _local(mod: LayerModule, local: bool = True) -> LayerModule:
+    """``mod`` marked row-local (``LayerModule.rows``) when ``local``."""
+    if local:
+        mod.rows = "local"
+    return mod
+
+
 def _same(ctx: BuildCtx, fn) -> FnLayer:
-    """A one-bottom layer whose top has the bottom's shape."""
-    return FnLayer(ctx, [ctx.bshapes[0]], lambda b, c: (fn(b[0]),))
+    """A one-bottom elementwise layer: its top has the bottom's shape."""
+    return _local(FnLayer(ctx, [ctx.bshapes[0]], lambda b, c: (fn(b[0]),)))
+
+
+def _not_h(axis: int, shape: Shape) -> bool:
+    """Whether ``axis`` of a ``shape`` blob is not the rows of a 4-D blob."""
+    return len(shape) != 4 or axis != 2
+
+
+def rows_of(ctx: RunCtx, mod: LayerModule, x: torch.Tensor, fill: float = 0.0):
+    """(the input rows ``mod`` reads, their placement): all of ``x`` and
+    None on one device, else the layout's window (``row_window``)."""
+    return (x, None) if ctx.shard is None else ctx.shard.row_window(mod, x, fill)
 
 
 # -------------------------------------------------------------------- conv
@@ -266,6 +299,8 @@ class Convolution(LayerModule):
         if cin % self.groups or self.cout % self.groups:
             raise ValueError(f"channels {cin}->{self.cout} not divisible by group {self.groups}")
         super().__init__(ctx, [(n, self.cout) + self.out_hw(h, w)])
+        self.rows = "window"
+        self.window = (self.kernel[0], self.stride[0], self.pad[0], self.dilation[0])
         cp = ctx.lv.convolution_param
         self.add_blob(ctx, "weight", (self.cout, cin // self.groups, *self.kernel),
                       cp.weight_filler)
@@ -326,6 +361,8 @@ class Deconvolution(LayerModule):
         out = [s * (i - 1) + d * (k - 1) + 1 - 2 * pd for i, k, s, pd, d in
                zip((h, w), self.kernel, self.stride, self.pad, self.dilation)]
         super().__init__(ctx, [(n, cout, out[0], out[1])])
+        self.rows, self.transposed = "window", True
+        self.window = (self.kernel[0], self.stride[0], self.pad[0], self.dilation[0])
         cp = ctx.lv.convolution_param
         # Caffe's deconvolution blob: (Cin, Cout/g, kh, kw)
         self.add_blob(ctx, "weight", (cin, cout // self.groups, *self.kernel), cp.weight_filler)
@@ -333,9 +370,21 @@ class Deconvolution(LayerModule):
 
     def run(self, bots, ctx):
         # the f32 parameters: in bf16, deconv2d casts inside the forward
-        return (nn_ops.deconv2d(bots[0], self.weight, self.bias, stride=self.stride,
-                                pad=self.pad, dilation=self.dilation, groups=self.groups,
-                                cudnn=not f32_training(ctx, bots[0], self.weight, self.bias)),)
+        cudnn = not f32_training(ctx, bots[0], self.weight, self.bias)
+        x, rows = rows_of(ctx, self, bots[0])
+        if rows is None:
+            return (nn_ops.deconv2d(x, self.weight, self.bias, stride=self.stride, pad=self.pad,
+                                    dilation=self.dilation, groups=self.groups, cudnn=cudnn),)
+        # input rows [a, ...) make output rows from a * s - p on: keep [lo, hi)
+        _, lo, hi, a = rows
+        y = nn_ops.deconv2d(x, self.weight, None, stride=self.stride, pad=(0, self.pad[1]),
+                            dilation=self.dilation, groups=self.groups, cudnn=cudnn)
+        off = lo - (a * self.stride[0] - self.pad[0])
+        short = off + hi - lo - y.shape[2]
+        if short > 0:  # rows no input reaches (a kernel shorter than the stride)
+            y = torch.nn.functional.pad(y, (0, 0, 0, short))
+        y = y.narrow(2, off, hi - lo)
+        return (y if self.bias is None else y + self.bias.to(y.dtype).reshape(1, -1, 1, 1),)
 
 
 register("Deconvolution")(Deconvolution)
@@ -358,17 +407,24 @@ class Pooling(LayerModule):
         self.sample = self.method == POOL_METHOD["STOCHASTIC"] and ctx.train
         super().__init__(ctx, [(n, c, nn_ops.pooled_size(h, self.k[0], self.s[0], self.p[0]),
                                 nn_ops.pooled_size(w, self.k[1], self.s[1], self.p[1]))])
+        if not p.get("global_pooling"):
+            self.rows = "window"
+            self.window = (self.k[0], self.s[0], self.p[0], 1)
 
     def is_max_2x2(self) -> bool:
         return (self.method == POOL_METHOD["MAX"] and self.k == (2, 2) and self.s == (2, 2)
                 and self.p == (0, 0))
 
     def run(self, bots, ctx):
-        x = bots[0]
-        if self.method == POOL_METHOD["MAX"]:
-            return (nn_ops.max_pool2d(x, self.k, self.s, self.p),)
+        is_max = self.method == POOL_METHOD["MAX"]
+        # a max pool's padding never wins; the others' adds nothing
+        x, rows = rows_of(ctx, self, bots[0], -float("inf") if is_max else 0.0)
+        if is_max:
+            return (nn_ops.max_pool2d(x, self.k, self.s,
+                                      self.p if rows is None else (0, self.p[1])),)
         if self.method == POOL_METHOD["AVE"]:
-            return (nn_ops.avg_pool2d(x, self.k, self.s, self.p),)
+            return (nn_ops.avg_pool2d(x, self.k, self.s, self.p,
+                                      None if rows is None else rows[:3]),)
         # samples only when both the build phase and the run say train
         return (nn_ops.stochastic_pool2d(x, self.k, self.s, ctx.generator,
                                          self.sample and ctx.training),)
@@ -409,6 +465,8 @@ register("InnerProduct")(InnerProduct)
 
 @register("ReLU")
 class ReLU(LayerModule):
+    rows = "local"
+
     def __init__(self, ctx: BuildCtx):
         super().__init__(ctx, [ctx.bshapes[0]])
         self.slope = float(ctx.lv.relu_param.negative_slope)
@@ -469,6 +527,8 @@ def build_threshold(ctx):
 
 @register("PReLU")
 class PReLU(LayerModule):
+    rows = "local"
+
     def __init__(self, ctx: BuildCtx):
         super().__init__(ctx, [ctx.bshapes[0]])
         pp = ctx.lv.prelu_param
@@ -485,6 +545,8 @@ class PReLU(LayerModule):
 @register("Dropout")
 class Dropout(LayerModule):
     """Drops in a TRAIN net only (the build phase decides, as in JAX)."""
+
+    rows = "local"
 
     def __init__(self, ctx: BuildCtx):
         super().__init__(ctx, [ctx.bshapes[0]])
@@ -506,10 +568,19 @@ class LRN(LayerModule):
         self.size = int(pp.local_size)
         self.alpha, self.beta, self.k = float(pp.alpha), float(pp.beta), float(pp.k)
         self.across = enum(pp.norm_region, NORM_REGION) == NORM_REGION["ACROSS_CHANNELS"]
+        if self.across:
+            self.rows = "local"
+        else:
+            self.rows = "window"
+            self.window = (self.size, 1, (self.size - 1) // 2, 1)
 
     def run(self, bots, ctx):
-        fn = nn_ops.lrn_across_channels if self.across else nn_ops.lrn_within_channel
-        return (fn(bots[0], self.size, self.alpha, self.beta, self.k),)
+        if self.across:
+            return (nn_ops.lrn_across_channels(bots[0], self.size, self.alpha, self.beta,
+                                               self.k),)
+        x, rows = rows_of(ctx, self, bots[0])
+        return (nn_ops.lrn_within_channel(x, self.size, self.alpha, self.beta, self.k,
+                                          rows is not None),)
 
 
 @register("BatchNorm")
@@ -517,7 +588,11 @@ class BatchNorm(LayerModule):
     """Three non-learnable blobs: the mean and variance accumulators and
     their scale factor.  With ``use_global_stats`` (default in TEST) it
     normalizes by them; otherwise by the batch's statistics, which it leaves
-    in ``ctx.aux`` for the solver to roll (``Solver._bn_roll``)."""
+    in ``ctx.aux`` for the solver to roll (``Solver._bn_roll``).  On one
+    rank of several they are the whole batch's: the sums are added up over
+    the ranks that hold other samples or rows (``RunCtx.shard.stat_axes``)."""
+
+    rows = "local"
 
     def __init__(self, ctx: BuildCtx):
         super().__init__(ctx, [ctx.bshapes[0]])
@@ -538,11 +613,10 @@ class BatchNorm(LayerModule):
         if self.use_global:
             return (nn_ops.batch_norm_inference(x, self.mean, self.variance,
                                                 self.scale_factor[0], self.eps),)
-        if ctx.shard is not None:
-            raise NotImplementedError(
-                f"BatchNorm {self.name}: batch statistics over a sharded batch are not "
-                "reduced across ranks; set use_global_stats or train on one rank")
-        y, mu, var = nn_ops.batch_norm_training(x, self.eps)
+        reduce = None
+        if ctx.shard is not None and ctx.shard.stat_axes(self.name):
+            reduce = lambda t: ctx.shard.sum_stats(self.name, t)  # noqa: E731
+        y, mu, var = nn_ops.batch_norm_training(x, self.eps, reduce=reduce)
         if ctx.aux is not None:
             ctx.aux[self.name] = (mu.detach(), var.detach())
         return (y,)
@@ -563,6 +637,7 @@ class Scale(LayerModule):
         self.axis = _axis(int(sp.axis), len(ctx.bshapes[0]))
         self.two = len(ctx.bshapes) == 2
         gshape = _gshape(ctx, self.axis, int(sp.num_axes))
+        _local(self, not self.two and (len(ctx.bshapes[0]) != 4 or self.axis + len(gshape) <= 2))
         if not self.two:
             self.add_blob(ctx, "gamma", gshape,
                           filler_view(sp, "filler", {"type": "constant", "value": 1.0}))
@@ -585,8 +660,10 @@ class Bias(LayerModule):
         bp = ctx.lv.bias_param
         self.axis = _axis(int(bp.axis), len(ctx.bshapes[0]))
         self.two = len(ctx.bshapes) == 2
+        gshape = _gshape(ctx, self.axis, int(bp.num_axes))
+        _local(self, not self.two and (len(ctx.bshapes[0]) != 4 or self.axis + len(gshape) <= 2))
         if not self.two:
-            self.add_blob(ctx, "beta", _gshape(ctx, self.axis, int(bp.num_axes)),
+            self.add_blob(ctx, "beta", gshape,
                           filler_view(bp, "filler", {"type": "constant", "value": 0.0}))
 
     def run(self, bots, ctx):
@@ -617,6 +694,7 @@ class Concat(LayerModule):
         out = list(shape)
         out[self.axis] = sum(s[self.axis] for s in ctx.bshapes)
         super().__init__(ctx, [tuple(out)])
+        _local(self, _not_h(self.axis, shape))
 
     def run(self, bots, ctx):
         return (torch.cat(bots, dim=self.axis),)
@@ -643,6 +721,7 @@ class Slice(LayerModule):
             out[self.axis] = b - a
             outs.append(tuple(out))
         super().__init__(ctx, outs)
+        _local(self, _not_h(self.axis, shape))
 
     def run(self, bots, ctx):
         b = self.bounds
@@ -652,12 +731,12 @@ class Slice(LayerModule):
 @register("Split")
 def build_split(ctx):
     n = len(ctx.layer.tops)
-    return FnLayer(ctx, [ctx.bshapes[0]] * n, lambda b, c: (b[0],) * n)
+    return _local(FnLayer(ctx, [ctx.bshapes[0]] * n, lambda b, c: (b[0],) * n))
 
 
 @register("Silence")
 def build_silence(ctx):
-    return FnLayer(ctx, [], lambda b, c: ())
+    return _local(FnLayer(ctx, [], lambda b, c: ()))
 
 
 def _reshaped(ctx: BuildCtx, out_shape: Shape) -> FnLayer:
@@ -731,6 +810,7 @@ class Eltwise(LayerModule):
         if any(s != bshape[0] for s in bshape):
             raise ValueError(f"layer {ctx.layer.name}: Eltwise bottoms differ in shape {bshape}")
         super().__init__(ctx, [bshape[0]])
+        self.rows = "local"
 
     def run(self, bots, ctx):
         if self.op == ELTWISE_OP["PROD"]:
@@ -756,7 +836,8 @@ def build_tile(ctx):
     reps = [1] * len(shape)
     reps[axis] = tiles
     shape[axis] *= tiles
-    return FnLayer(ctx, [tuple(shape)], lambda b, c: (b[0].repeat(*reps),))
+    return _local(FnLayer(ctx, [tuple(shape)], lambda b, c: (b[0].repeat(*reps),)),
+                  _not_h(axis, ctx.bshapes[0]))
 
 
 @register("ArgMax")
@@ -774,7 +855,7 @@ def build_argmax(ctx):
             res = vals if out_max_val else idx.to(torch.float32)
             return (torch.movedim(res, -1, axis),)
 
-        return FnLayer(ctx, [tuple(out)], fn)
+        return _local(FnLayer(ctx, [tuple(out)], fn), _not_h(axis, cs))
 
     def fn_flat(b, c):
         vals, idx = torch.topk(b[0].reshape(cs[0], -1), k, dim=-1)
@@ -810,7 +891,9 @@ def build_reduction(ctx):
 @register("Softmax")
 def build_softmax(ctx):
     axis = _axis(int(ctx.lv.softmax_param.axis), len(ctx.bshapes[0]))
-    return _same(ctx, lambda x: torch.softmax(x.to(torch.float32), dim=axis).to(x.dtype))
+    mod = _same(ctx, lambda x: torch.softmax(x.to(torch.float32), dim=axis).to(x.dtype))
+    mod.rows = "local" if _not_h(axis, ctx.bshapes[0]) else "whole"
+    return mod
 
 
 @register("Embed")
@@ -830,13 +913,14 @@ class Embed(LayerModule):
 # ------------------------------------------------------------------ losses
 
 
-def _loss(ctx: BuildCtx, fn, den=None) -> FnLayer:
+def _loss(ctx: BuildCtx, fn, den=None, local: bool = True) -> FnLayer:
     """A loss layer.  ``den(bottoms) -> (normalizer, kind)`` names what
     ``fn`` divides by (None: a plain sum): on one rank of a sharded step the
     loss is rescaled to the global normalizer (``shard.normalizer``), so the
     ranks' losses add up to the loss of the whole batch.  ``kind`` is
     ``"batch"`` for a count of samples, ``"count"`` for a count of
-    positions (samples times rows)."""
+    positions (samples times rows).  ``local``: a sum over positions, which
+    a slab of rows computes its share of (``LayerModule.rows``)."""
 
     def run(b, c):
         loss = fn(b)
@@ -846,7 +930,7 @@ def _loss(ctx: BuildCtx, fn, den=None) -> FnLayer:
         local = torch.as_tensor(local, dtype=torch.float32, device=loss.device)
         return (loss * local / c.shard.normalizer(local, kind),)
 
-    return FnLayer(ctx, [()], run)
+    return _local(FnLayer(ctx, [()], run), local)
 
 
 def _batch(b):
@@ -932,7 +1016,7 @@ def build_contrastive(ctx):
     margin, legacy = float(cp.margin), bool(cp.legacy_version)
     return _loss(ctx, lambda b: op_losses.contrastive(
         b[0].reshape(b[0].shape[0], -1), b[1].reshape(b[1].shape[0], -1), b[2], margin, legacy),
-        _batch)
+        _batch, local=False)
 
 
 # ------------------------------------------------------------ CPM specials

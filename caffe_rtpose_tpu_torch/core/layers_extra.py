@@ -25,7 +25,7 @@ from ..ops import nn as nn_ops
 from ..proto import caffe_pb
 from ..proto.caffe_pb import POOL_METHOD
 from .filler import fill
-from .layers import BuildCtx, FnLayer, LayerModule, RunCtx, enum, hw, register
+from .layers import BuildCtx, FnLayer, LayerModule, RunCtx, _local, enum, hw, register, rows_of
 
 
 @register("Switch")
@@ -40,7 +40,7 @@ def build_switch(ctx: BuildCtx):
             return (b[min(max(int(c.knobs["switch_index"]), 0), n - 1)],)
         return (b[-1],)
 
-    return FnLayer(ctx, [ctx.bshapes[-1]], fn)
+    return _local(FnLayer(ctx, [ctx.bshapes[-1]], fn))
 
 
 @register("BatchReindex")
@@ -48,8 +48,8 @@ def build_batch_reindex(ctx: BuildCtx):
     """top = bottom[0][bottom[1]] along axis 0 (batch_reindex_layer.cpp)."""
     n_idx = int(np.prod(ctx.bshapes[1]))
     out = (n_idx,) + tuple(ctx.bshapes[0][1:])
-    return FnLayer(ctx, [out], lambda b, c: (
-        torch.index_select(b[0], 0, b[1].reshape(-1).to(torch.int64)),))
+    return _local(FnLayer(ctx, [out], lambda b, c: (
+        torch.index_select(b[0], 0, b[1].reshape(-1).to(torch.int64)),)))
 
 
 @register("Parameter")
@@ -140,12 +140,15 @@ class InfogainLoss(LayerModule):
             self.register_buffer("h_static", torch.from_numpy(np.asarray(h, np.float32)))
 
     def run(self, bots, ctx):
-        if ctx.shard is not None:
-            raise NotImplementedError(f"InfogainLoss {self.name}: not ported to a sharded step")
         probs = bots[0].reshape(bots[0].shape[0], -1)
         h = (self.h_static if self.h_static is not None
              else bots[2].reshape(probs.shape[1], probs.shape[1]))
-        return (op_losses.infogain(probs, bots[1].reshape(-1), h),)
+        loss = op_losses.infogain(probs, bots[1].reshape(-1), h)
+        if ctx.shard is None:
+            return (loss,)
+        # divided by the batch as fed: rescaled to the global batch
+        local = torch.full((), float(probs.shape[0]), device=loss.device)
+        return (loss * local / ctx.shard.normalizer(local, "batch"),)
 
 
 @register("Im2col")
@@ -158,7 +161,14 @@ def build_im2col(ctx: BuildCtx):
     n, c, h, w = ctx.bshapes[0]
     out = (n, c * k[0] * k[1], (h + 2 * pad[0] - k[0]) // s[0] + 1,
            (w + 2 * pad[1] - k[1]) // s[1] + 1)
-    return FnLayer(ctx, [out], lambda b, cx: (nn_ops.im2col(b[0], k, s, pad),))
+
+    def fn(b, cx):
+        x, rows = rows_of(cx, mod, b[0])
+        return (nn_ops.im2col(x, k, s, pad if rows is None else (0, pad[1])),)
+
+    mod = FnLayer(ctx, [out], fn)
+    mod.rows, mod.window = "window", (k[0], s[0], pad[0], 1)
+    return mod
 
 
 @register("SPP")

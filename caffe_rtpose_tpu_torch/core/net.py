@@ -607,7 +607,8 @@ class Net(nn.Module):
         ``aux``: a dict BatchNorm leaves its batch statistics in (TRAIN).
         Random layers draw from the net's :attr:`generator`.  ``shard``: the
         layout of one rank of a sharded forward (``RunCtx.shard``; the conv1
-        kernel then stays off).
+        kernel then stays off): it sees the forward begin and hands each
+        layer its bottoms (``parallel/dp.DataShard``).
 
         With ``conv1_kernel`` on, a conv1 block whose five layers appear in
         order in ``layers`` runs as one ``conv1_cuda.conv1_block_packed`` call,
@@ -627,6 +628,8 @@ class Net(nn.Module):
                 layers = [l for l in layers if l.type not in ESTIMATOR_TYPES or l.name in needed]
         layers = list(layers)
         ctx = self.run_ctx(operands, knobs, aux, shard)
+        if shard is not None:
+            shard.begin(self, ctx)
         ops = ctx.ops
         remat_types = (("Convolution", "Deconvolution")
                        if self.remat == "convs" and self.phase == "TRAIN" else ())
@@ -645,6 +648,8 @@ class Net(nn.Module):
                 continue
             i += 1
             bots = [blobs[b] for b in layer.bottoms]
+            if shard is not None:  # the bottoms as the layout gives them to this layer
+                bots = shard.enter(layer, self.mods[layer.name], bots, ctx)
             if layer.type in remat_types and torch.is_grad_enabled():
                 # a convolution draws no random numbers: no RNG state to replay
                 tops = checkpoint(self._run_layer, layer, bots, ops, ctx,
@@ -748,7 +753,8 @@ class Net(nn.Module):
         names = [n for n in self.output_names() if n not in self.input_names or n in fed]
         blobs = self.forward(inputs, outputs=list(dict.fromkeys(names + [t for t, _ in tops])),
                              aux=aux, shard=shard)
-        total = sum(w * blobs[t].sum() for t, w in tops)
+        total = sum(w * (blobs[t].sum() if shard is None else
+                         shard.loss_share(t, blobs[t].sum())) for t, w in tops)
         return total, {k: blobs[k] for k in names}
 
     def backward(self, inputs: Mapping[str, torch.Tensor],

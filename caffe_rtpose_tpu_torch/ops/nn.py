@@ -185,18 +185,27 @@ def _window_counts(size: int, k: int, s: int, p: int, out: int) -> np.ndarray:
 
 
 def avg_pool2d(x: torch.Tensor, k: Tuple[int, int], s: Tuple[int, int],
-               p: Tuple[int, int]) -> torch.Tensor:
+               p: Tuple[int, int], rows: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
     """Caffe AVE pooling: window sums over zero padding, each divided by its
     window clipped to the padded bounds, so a border window that hangs past
     the pad divides by fewer than kh*kw.  ``F.avg_pool2d``'s
-    ``count_include_pad`` and ``ceil_mode`` give another divisor there."""
+    ``count_include_pad`` and ``ceil_mode`` give another divisor there.
+
+    ``rows`` = (H, lo, hi): ``x`` holds exactly the input rows output rows
+    [lo, hi) of an H-row input read, its padding rows already zeros (a slab
+    of rows with its halo, ``parallel/sp.py``)."""
     n, c, h, w = x.shape
-    oh, ow, pad_h, pad_w = _ceil_pads(h, w, k, s, p)
+    oh, ow, pad_h, pad_w = _ceil_pads(h, w, k, s, p if rows is None else (0, p[1]))
     xf = x.to(torch.float32)
     if any(pad_h + pad_w):
         xf = F.pad(xf, (pad_w[0], pad_w[1], pad_h[0], pad_h[1]))
     sums = F.avg_pool2d(xf, kernel_size=k, stride=s, divisor_override=1)[:, :, :oh, :ow]
-    div = np.outer(_window_counts(h, k[0], s[0], p[0], oh), _window_counts(w, k[1], s[1], p[1], ow))
+    if rows is None:
+        div_h = _window_counts(h, k[0], s[0], p[0], oh)
+    else:
+        full, lo, hi = rows
+        div_h = _window_counts(full, k[0], s[0], p[0], hi)[lo:]
+    div = np.outer(div_h, _window_counts(w, k[1], s[1], p[1], ow))
     return (sums / torch.from_numpy(div).to(x.device)).to(x.dtype)
 
 
@@ -267,13 +276,19 @@ def lrn_across_channels(x: torch.Tensor, local_size: int, alpha: float, beta: fl
 
 
 def lrn_within_channel(x: torch.Tensor, local_size: int, alpha: float, beta: float,
-                       k: float) -> torch.Tensor:
-    """LRN WITHIN_CHANNEL: the window is local_size^2 pixels, zero-padded."""
+                       k: float, rows: bool = False) -> torch.Tensor:
+    """LRN WITHIN_CHANNEL: the window is local_size^2 pixels, zero-padded.
+    ``rows``: ``x`` already holds (local_size - 1) / 2 rows of padding (or
+    of the neighbours' rows) above and below; the result has those rows
+    fewer."""
     half = (local_size - 1) // 2
     sq = (x * x).to(torch.float32)
-    sq = F.pad(sq, (half, local_size - 1 - half, half, local_size - 1 - half))
+    pad_h = (0, 0) if rows else (half, local_size - 1 - half)
+    sq = F.pad(sq, (half, local_size - 1 - half) + pad_h)
     ssum = F.avg_pool2d(sq, local_size, stride=1, divisor_override=1)
     scale = k + (alpha / (local_size * local_size)) * ssum
+    if rows:
+        x = x.narrow(2, half, ssum.shape[2])
     return x * torch.pow(scale, -beta).to(x.dtype)
 
 
@@ -296,15 +311,23 @@ def batch_norm_inference(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
     return ((x.to(torch.float32) - m) * torch.rsqrt(v + eps)).to(x.dtype)
 
 
-def batch_norm_training(x: torch.Tensor, eps: float, channel_axis: int = 1):
+def batch_norm_training(x: torch.Tensor, eps: float, channel_axis: int = 1, reduce=None):
     """(normalized x, batch mean, batch variance): the biased (1/m) variance
     of the centred activations, as Caffe; the solver rolls the running
-    statistics from the mean and variance."""
+    statistics from the mean and variance.  ``reduce(t) -> t``: the sum of
+    a per-channel tensor over the ranks holding the rest of the batch (None:
+    this is the whole batch)."""
     axes = tuple(i for i in range(x.dim()) if i != channel_axis)
     shape = _channel_shape(x, channel_axis)
     xf = x.to(torch.float32)
-    m = torch.mean(xf, dim=axes)
-    v = torch.mean(torch.square(xf - m.reshape(shape)), dim=axes)
+    if reduce is None:
+        m = torch.mean(xf, dim=axes)
+        v = torch.mean(torch.square(xf - m.reshape(shape)), dim=axes)
+    else:
+        count = reduce(torch.full((1,), xf.numel() / xf.shape[channel_axis],
+                                  dtype=torch.float32, device=x.device))
+        m = reduce(xf.sum(dim=axes)) / count
+        v = reduce(torch.square(xf - m.reshape(shape)).sum(dim=axes)) / count
     y = (xf - m.reshape(shape)) * torch.rsqrt(v.reshape(shape) + eps)
     return y.to(x.dtype), m, v
 

@@ -280,17 +280,77 @@ def all_reduce_flat(mesh: Mesh, tensors: Sequence[torch.Tensor], axes: Sequence[
         flush()
 
 
+class _AllReduce(torch.autograd.Function):
+    """A sum over ranks that autograd goes through: the forward sums ``t``
+    over ``axes`` (a copy), the backward sums the gradient likewise (each
+    rank's loss is its share of the whole: the ranks' gradients of the
+    shared sum add up)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        ctx.conf = (mesh, axes)
+        out = t.detach().clone()
+        for a in axes:
+            mesh.all_reduce(out, a)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes = ctx.conf
+        g = g.contiguous().clone()
+        for a in axes:
+            mesh.all_reduce(g, a)
+        return g, None, None
+
+
+def all_reduce_sum(mesh: Mesh, t: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
+    """``t`` summed over ``axes``, differentiable (:class:`_AllReduce`)."""
+    axes = [a for a in axes if mesh.n(a) > 1]
+    return _AllReduce.apply(t, mesh, axes) if axes else t
+
+
 class DataShard:
     """``RunCtx.shard`` of a data-parallel forward: layers run as on one
     device, and a loss's normalizer is summed over the ranks that split the
     batch (``batch_axes``) and, for a count of positions, over those that
-    split the rows too (``row_axes``)."""
+    split the rows too (``row_axes``).
+
+    The hooks every layout answers (``core/net.py``, ``core/layers.py``):
+    :meth:`begin` at the start of a forward, :meth:`enter` before each layer
+    (the "whole rows" hook: the bottoms the layer gets), :meth:`row_window`
+    in each layer that reads a window of rows, :meth:`stat_axes` for
+    BatchNorm's batch statistics, :meth:`loss_share` for each loss top.
+    Here they change nothing: the subclasses that split rows
+    (``sp.RowShard``) or filters (``tp.ChannelShard``) override them."""
 
     def __init__(self, mesh: Mesh, batch_axes: Sequence[str] = ("data",),
                  row_axes: Sequence[str] = ()):
         self.mesh = mesh
         self.batch_axes = [a for a in batch_axes if mesh.n(a) > 1]
         self.row_axes = [a for a in row_axes if mesh.n(a) > 1]
+
+    def begin(self, net, ctx) -> None:
+        pass
+
+    def enter(self, layer, mod, bots: List[torch.Tensor], ctx) -> List[torch.Tensor]:
+        return bots
+
+    def row_window(self, mod, x: torch.Tensor, fill: float = 0.0):
+        """-> (the rows ``mod`` reads, None): on one device, all of ``x``."""
+        return x, None
+
+    def stat_axes(self, name: str) -> List[str]:
+        """The axes whose ranks hold other samples or rows of layer
+        ``name``'s bottom: its batch statistics are summed over them."""
+        return self.batch_axes + self.row_axes
+
+    def sum_stats(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over :meth:`stat_axes`, differentiable."""
+        return all_reduce_sum(self.mesh, t, self.stat_axes(name))
+
+    def loss_share(self, top: str, value: torch.Tensor) -> torch.Tensor:
+        """This rank's share of loss top ``top`` in the loss it reports."""
+        return value
 
     def normalizer(self, local: torch.Tensor, kind: str) -> torch.Tensor:
         total = local.detach().clone()

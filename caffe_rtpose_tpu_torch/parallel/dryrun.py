@@ -15,14 +15,17 @@ it measured:
    estimator H-sharded, and with channel-sharded weights (peaks rtol and
    atol 1e-4, scores 2e-2, pair counts exact: JAX ``dryrun.py:153-155``;
    scores where both sides sample the same pixels:
-   :func:`assert_estimates_close`), with the peak-mask kernel K1's
-   launches on the rank;
+   :func:`assert_estimates_close`; with ``keep_heatmap`` the heatmap too,
+   rtol/atol 2e-4, rank by rank on the device), with the launches of the
+   peak-mask kernel K1 and the upsample-keys kernel K3 on the rank;
 4. ``dryrun_dp_tp_estimator``: frames over ``data``, weights over ``model``;
 5. :func:`dryrun_pp` and :func:`dryrun_pp_train`: the refinement stages
    pipelined (rtol/atol 2e-4), and a pipelined train step (loss rtol
    1e-5; weights rtol 1e-4, atol 1e-6);
 6. :func:`dryrun_dp_sp_train`: a data x spatial train step (loss within
-   1e-3, sampled parameters rtol 2e-3, atol 2e-5: JAX ``mesh2d.py``).
+   1e-3, sampled parameters rtol 2e-3, atol 2e-5: JAX ``mesh2d.py``);
+   :func:`case_spatial_train` the same rule on any net (every parameter),
+   and the replicated tail's parameters equal on every spatial rank.
 
 :func:`dryrun_flagship` spawns n ranks and runs them all:
 
@@ -46,6 +49,7 @@ import torch
 from .dp import make_mesh, rank_device
 
 PEAK_TOL, SCORE_TOL = 1e-4, 2e-2
+HEAT_TOL = 2e-4  # JAX dry_run_spatial's forward rule, on the full-res maps
 MOVED_SHARE = 0.1  # pairs whose samples may land on other pixels, of the real pairs
 
 
@@ -62,10 +66,11 @@ def _timed(fn, dev):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def _k1_launches() -> int:
+def _launches() -> Tuple[int, int]:
+    """The wrapper launch counts of K1 (peak mask) and K3 (upsample keys)."""
     from ..ops import nms_cuda
 
-    return nms_cuda.launches
+    return nms_cuda.launches, nms_cuda.upsample_launches
 
 
 def _peak_gib(dev) -> Optional[float]:
@@ -135,13 +140,35 @@ def assert_estimates_close(got, ref, tag: str, desc) -> None:
     assert (close | moved).all(), f"{tag}: pair scores differ where both sample the same pixels"
 
 
-def _estimate_frames(est, frames) -> List:
-    """One-device results of each frame (a batched estimator: each batch)."""
+def _estimate_frames(est, frames, heat: Optional[List] = None) -> List:
+    """One-device results of each frame (a batched estimator: each batch);
+    the heatmap estimator's heatmaps appended to ``heat``, on the device."""
     out = []
-    for x in frames:
-        res = est.run_device(x, nms_threshold=_THR.get("nms"), inter_threshold=_THR.get("inter"))
-        out.extend(est.fetch_batch(res) if est.batch > 1 else [est.fetch(res)])
+    for xs in frames:
+        # a heatmap estimator's frames with a leading axis (dp x tp): one a call
+        for x in ([xs] if est.batch > 1 or np.shape(xs) == tuple(est.input_shape()) else xs):
+            res = est.run_device(x, nms_threshold=_THR.get("nms"),
+                                 inter_threshold=_THR.get("inter"))
+            out.extend(est.fetch_batch(res) if est.batch > 1 else [est.fetch(res)])
+            if heat is not None:  # a graph's replay writes the same buffer each frame
+                heat.append(res["heatmap"].clone())
     return out
+
+
+def _frame_outputs(est, out) -> Tuple[List, List[torch.Tensor]]:
+    """A sharded function's outputs of one call -> (each frame's (peaks,
+    pair score, pair count) on the host, each frame's heatmap on the device
+    (none on the packed path))."""
+    if not est.keep_heatmap:
+        rows = out["packed"].cpu().numpy()
+        return [est.unpack(r) for r in (rows if rows.ndim == 2 else rows[None])], []
+    frames = out["peaks"].dim() == 4  # a leading frame axis
+    keys = ("peaks", "pair_score", "pair_count")
+    host = {k: out[k].cpu().numpy() for k in keys}
+    if not frames:
+        return [tuple(host[k] for k in keys)], [out["heatmap"]]
+    return ([tuple(host[k][f] for k in keys) for f in range(len(host["peaks"]))],
+            list(out["heatmap"]))
 
 
 _THR: Dict[str, Optional[float]] = {}
@@ -149,7 +176,8 @@ _THR: Dict[str, Optional[float]] = {}
 
 def _sharded_run(tag, est, fn, weights, frames):
     """``fn`` over ``frames`` against the one-device estimator: the packed
-    rows, the K1 launches on this rank, and ms a frame of both."""
+    rows (with ``keep_heatmap``: each frame's outputs, and its heatmap off a
+    card), the K1 and K3 launches on this rank, and ms a frame of both."""
     import torch.distributed as dist
 
     _estimate_frames(est, frames[:1])  # warm-up: a graph's capture, the kernels' build
@@ -157,20 +185,35 @@ def _sharded_run(tag, est, fn, weights, frames):
     for r in range(dist.get_world_size()):
         dist.barrier()
         if r == dist.get_rank():
-            single, single_ms = _timed(lambda: _estimate_frames(est, frames), est.device)
+            heat_ref: List[torch.Tensor] = []
+            single, single_ms = _timed(lambda: _estimate_frames(
+                est, frames, heat_ref if est.keep_heatmap else None), est.device)
     dist.barrier()
     fn(weights, frames[0], _THR.get("nms"), _THR.get("inter"))
-    before = _k1_launches()
-    outs, ms = _timed(lambda: [fn(weights, x, _THR.get("nms"), _THR.get("inter"))["packed"]
+    before = _launches()
+    outs, ms = _timed(lambda: [fn(weights, x, _THR.get("nms"), _THR.get("inter"))
                                for x in frames], est.device)
-    launches = _k1_launches() - before
-    rows = [r.cpu().numpy() for r in outs]
-    got = [est.unpack(r) for x in rows for r in (x if x.ndim == 2 else x[None])]
+    k1, k3 = (a - b for a, b in zip(_launches(), before))
+    got, heat = [], []
+    for o in outs:
+        g, h = _frame_outputs(est, o)
+        got += g
+        heat += h
     for i, (g, r) in enumerate(zip(got, single)):
         assert_estimates_close(g, r, f"{tag} frame {i}", est.descriptor)
+    for i, (h, r) in enumerate(zip(heat, heat_ref)):  # on the device, rank by rank
+        err = (h - r).abs() - HEAT_TOL * r.abs()
+        assert float(err.max()) <= HEAT_TOL, f"{tag} frame {i}: heatmap off by {float(err.max())}"
     n_frames = len(got)
-    return {"packed": rows, "k1_launches": launches, "frames": n_frames,
-            "ms_per_frame": ms / n_frames, "single_ms_per_frame": single_ms / n_frames}
+    res = {"k1_launches": k1, "k3_launches": k3, "frames": n_frames,
+           "ms_per_frame": ms / n_frames, "single_ms_per_frame": single_ms / n_frames}
+    if est.keep_heatmap:
+        res["outputs"] = got
+        if est.device.type != "cuda":  # 2.3 MB a frame at 128x80; 55 MB at 656x368
+            res["heat"] = [h.cpu().numpy() for h in heat]
+    else:
+        res["packed"] = [o["packed"].cpu().numpy() for o in outs]
+    return res
 
 
 def dryrun_spatial_estimator(n_devices: int, est=None, frames=None) -> Dict:
@@ -319,15 +362,25 @@ def _warm_timing(dev) -> bool:
     return torch.device(dev).type == "cuda"
 
 
-def _single_step(net, update):
-    """The one-device step of ``dp.make_dp_train_step``'s contract."""
+def _transform(spec):
+    """``(name of a training.labels_device function, kwargs)`` -> the input
+    transform it makes (None -> None)."""
+    from ..training import labels_device
+
+    return None if spec is None else getattr(labels_device, spec[0])(**spec[1])
+
+
+def _single_step(net, update, transform=None):
+    """The one-device step of ``dp.make_dp_train_step``'s contract (through
+    ``transform`` first, as the solver's ``input_transform``)."""
     from .dp import _as_tensor
 
     def step(params, history, batch, lr, it):
         for ps in params.values():
             for p in ps:
                 p.grad = None
-        loss = net.loss({k: _as_tensor(v, net.device) for k, v in batch.items()})[0]
+        inputs = {k: _as_tensor(v, net.device) for k, v in batch.items()}
+        loss = net.loss(inputs if transform is None else transform(inputs))[0]
         loss.backward()
         update(params, {k: [p.grad for p in v] for k, v in params.items()}, history, lr, it)
         return float(loss.detach())
@@ -336,11 +389,13 @@ def _single_step(net, update):
 
 
 def dryrun_dp_sp_train(n_devices: int, crop: int = 96, batch: int = 8, spatial: int = 2,
-                       stages: int = 6, weights=None, batch_arrays=None) -> Dict:
+                       stages: int = 6, weights=None, batch_arrays=None, transform=None) -> Dict:
     """One data x spatial step of the CPM train net on an (n/spatial) x
     spatial mesh, against the one-device step on rank 0: loss within 1e-3
     and every 7th parameter blob (the first 8) within rtol 2e-3, atol 2e-5,
-    as JAX ``mesh2d.dryrun_dp_sp_train``."""
+    as JAX ``mesh2d.dryrun_dp_sp_train``.  ``transform``: the input
+    transform both steps run (:func:`_transform`'s spec: the fused labels,
+    rasterized on each rank's whole examples before the rows split)."""
     from ..training.solver import init_history
     from .dp import net_loss_fn
     from .mesh2d import make_dp_sp_train_step, make_mesh2d
@@ -348,13 +403,14 @@ def dryrun_dp_sp_train(n_devices: int, crop: int = 96, batch: int = 8, spatial: 
 
     dev = rank_device()
     glob = batch_arrays if batch_arrays is not None else cpm_global_batch(batch, crop, seed=7)
+    tf = _transform(transform)
     mesh = make_mesh2d(n_devices, spatial=spatial, device=dev)
     out: Dict[str, Any] = {}
     ref = None
     if mesh.rank == 0:
         net = _train_net(crop, batch, stages, weights, dev)
         params, update = sgd_update(net)
-        step1, hist1 = _single_step(net, update), init_history("SGD", params)
+        step1, hist1 = _single_step(net, update, tf), init_history("SGD", params)
         out["ref_loss"], out["ref_step_ms"] = _timed(lambda: step1(params, hist1, glob, 4e-5, 0),
                                                      dev)
         ref = _params_np(params)
@@ -364,7 +420,7 @@ def dryrun_dp_sp_train(n_devices: int, crop: int = 96, batch: int = 8, spatial: 
     torch.distributed.barrier()  # the reference ran alone on the card
     net = _train_net(crop, batch, stages, weights, dev)
     params, update = sgd_update(net)
-    step = make_dp_sp_train_step(mesh, net_loss_fn(net), update)
+    step = make_dp_sp_train_step(mesh, net_loss_fn(net), update, transform=tf)
     history = init_history("SGD", params)
     out["loss"], out["step_ms"] = _timed(lambda: step(params, history, glob, 4e-5, 0), dev)
     got = _params_np(params)
@@ -551,11 +607,15 @@ def rank_cases(cases: Sequence[Tuple[str, Mapping[str, Any]]], mkldnn: bool = Tr
 
 
 def case_estimator(kind: str, n_devices: int, weights, frames, stages: int = 2,
-                   net_w: int = 128, net_h: int = 80, batch: int = 1, pair_cap=None) -> Dict:
+                   net_w: int = 128, net_h: int = 80, batch: int = 1, pair_cap=None,
+                   keep_heatmap: bool = False) -> Dict:
     """A sharded estimator (``kind``: spatial, tp or dp_tp, the latter on a
-    (n/2) x 2 mesh) of u8 input on given weights and frames."""
+    (n/2) x 2 mesh) on given weights and frames: of u8 input, or with
+    ``keep_heatmap`` the heatmap estimator of f32 canvases (dp_tp: frames
+    with a leading axis split over ``data``)."""
     est = flagship_estimator(net_w, net_h, stages, weights=weights, batch=batch,
-                             input_u8=True, pair_cap=pair_cap)
+                             input_u8=not keep_heatmap, pair_cap=pair_cap,
+                             keep_heatmap=keep_heatmap)
     if kind == "spatial":
         return dryrun_spatial_estimator(n_devices, est, frames)
     if kind == "tp":
@@ -614,71 +674,183 @@ def case_gloo_probe(timeout: float = 30.0) -> Dict:
 
 def case_halo_grad(n_devices: int, proto, weights, inputs, outputs, top_diffs) -> Dict:
     """The gradients of sum(output * diff) through the H-sharded forward
-    (``sp._Halo``'s backward): each rank its slab, the parameter gradients
-    summed over the ranks and the input's rows all-gathered -> ``(input
-    diffs, parameter diffs)`` whole (numpy), as ``Net.backward`` gives them
-    on one device."""
+    (``sp._Window``'s and ``sp._Gather``'s backwards): each rank its slab,
+    the parameter gradients summed over the ranks (averaged for the layers
+    run whole) and the input's rows all-gathered -> ``(input diffs,
+    parameter diffs)`` whole (numpy), as ``Net.backward`` gives them on one
+    device."""
     from ..core.net import Net
-    from .dp import all_reduce_flat
-    from .sp import RowShard, check_row_local, slab_bounds, slab_counts
+    from .mesh2d import reduce_grads
+    from .sp import RowShard
 
     dev = rank_device()
     net = Net(proto, device=dev)
     net.load_weights(weights)
     mesh = make_mesh(n_devices, "spatial", dev)
-    check_row_local(net, net.prune_for(outputs))
-    n, i = mesh.n("spatial"), mesh.index("spatial")
-    coarse = min([np.shape(v)[2] for v in inputs.values()]
-                 + [net.blob_shapes[o][2] for o in outputs])
-
-    def slab(a):
-        lo, hi = slab_bounds(np.shape(a)[2], coarse, n, i)
-        return torch.from_numpy(np.ascontiguousarray(np.asarray(a)[:, :, lo:hi])).to(dev)
-
-    feed = {k: slab(v).requires_grad_(True) for k, v in inputs.items()}
-    params = [p for blobs in net.layer_blobs().values() for p in blobs]
-    for p in params:
-        p.requires_grad_(True)
-    out = net.forward(feed, outputs=list(outputs), shard=RowShard(mesh))
-    total = sum((out[k].float() * slab(top_diffs[k])).sum() for k in outputs)
-    grads = torch.autograd.grad(total, list(feed.values()) + params)
-    pgrads = [g.contiguous() for g in grads[len(feed):]]
-    all_reduce_flat(mesh, pgrads, ["spatial"])
-    in_diffs = {k: mesh.gather_rows(g.contiguous(), "spatial",
-                                    slab_counts(np.shape(inputs[k])[2], coarse, n)).cpu().numpy()
+    shard = RowShard(mesh)
+    feed = {k: v.requires_grad_(True) for k, v in shard.place(
+        {k: torch.from_numpy(np.asarray(v)).to(dev) for k, v in inputs.items()}).items()}
+    params = net.layer_blobs()
+    for ps in params.values():
+        for p in ps:
+            p.requires_grad_(True)
+    out = net.forward(feed, outputs=list(outputs), shard=shard)
+    total = sum((shard.whole(k, out[k]).float()
+                 * torch.from_numpy(np.asarray(top_diffs[k])).to(dev)).sum() for k in outputs)
+    flat = [p for ps in params.values() for p in ps]
+    grads = torch.autograd.grad(total, list(feed.values()) + flat)
+    it = iter(g.contiguous() for g in grads[len(feed):])
+    pgrads = {k: [next(it) for _ in ps] for k, ps in params.items()}
+    reduce_grads(mesh, shard, pgrads, [], ["spatial"], [])
+    in_diffs = {k: shard.whole(k, g).cpu().numpy()
                 for k, g in zip(feed, grads[: len(feed)])}
-    it = iter(pgrads)
     return {"inputs": in_diffs,
-            "params": {k: [next(it).cpu().numpy() for _ in v]
-                       for k, v in net.layer_blobs().items()}}
+            "params": {k: [g.cpu().numpy() for g in gs] for k, gs in pgrads.items()},
+            "whole_layers": sorted(shard.whole_layers)}
 
 
 def case_tp_forward(n_devices: int, proto, weights, inputs, outputs) -> Dict:
     """``tp.make_tp_forward`` of a net on given weights (whole, sharded in
-    the call) and inputs: the outputs and this rank's share of the bytes."""
+    the call; None: the net's seed-0 fill) and inputs (None: pixels from
+    :func:`synthetic_batch`), held to the one-device forward on this rank
+    at JAX's dry-run rule (rtol/atol 2e-4): the outputs, this rank's share
+    of the bytes and the ms of both."""
     from ..core.net import Net
     from .tp import make_tp_forward, share_bytes, shard_params_channelwise
 
     dev = rank_device()
     net = Net(proto, device=dev)
-    net.load_weights(weights)
+    if weights is not None:
+        net.load_weights(weights)
+    if inputs is None:
+        inputs = {"data": synthetic_batch(proto)["data"]}
     mesh = make_mesh(n_devices, "model", dev)
     whole = net.layer_blobs()
     mine = shard_params_channelwise(mesh, whole)
     fn = make_tp_forward(mesh, net, outputs)
+    res: Dict[str, Any] = {"share": share_bytes(mine) / share_bytes(whole)}
     with torch.no_grad():
         feed = {k: torch.from_numpy(np.asarray(v)) for k, v in inputs.items()}
         a, b = fn(mine, feed), fn(whole, feed)
-    for k in a:
-        assert torch.equal(a[k], b[k]), k  # pre-sharded and whole weights run alike
-    return {"out": {k: v.cpu().numpy() for k, v in a.items()},
-            "share": share_bytes(mine) / share_bytes(whole)}
+        for k in a:
+            assert torch.equal(a[k], b[k]), k  # pre-sharded and whole weights run alike
+        a, res["ms"] = _timed(lambda: fn(mine, feed), dev)
+        local = {k: v.to(dev) for k, v in feed.items()}
+        net.forward(local, outputs=list(outputs))  # warm-up
+        one, res["single_ms"] = _timed(lambda: net.forward(local, outputs=list(outputs)), dev)
+    res["max_abs_err"] = max(float((a[k] - one[k]).abs().max()) for k in outputs)
+    for k in outputs:
+        err = (a[k] - one[k]).abs() - 2e-4 * one[k].abs()
+        assert float(err.max()) <= 2e-4, f"tp {k}: {float(err.max())} off one device"
+    res["out"] = {k: v.cpu().numpy() for k, v in a.items()}
+    return res
 
 
-def case_solver(n_devices: int, proto, weights, batches, solver: str, spatial: int = 1) -> Dict:
+def synthetic_batch(proto, seed: int = 0, classes: int = 1000) -> Dict[str, np.ndarray]:
+    """A classifier's global batch for its input blobs: ``label`` class ids
+    in [0, ``classes``) as f32, the others pixels uniform in [-128, 128)
+    (mean-subtracted images' scale)."""
+    from ..core.net import _net_parameter
+
+    npm = _net_parameter(proto)
+    dims = ([[int(d) for d in sh["dim"]] for sh in npm["input_shape"]] if npm.get("input_shape")
+            else np.reshape([int(d) for d in npm["input_dim"]], (-1, 4)).tolist())
+    shapes = dict(zip(npm["input"], dims))
+    rs = np.random.RandomState(seed)
+    return {k: (rs.randint(0, classes, shapes[k]).astype(np.float32) if k == "label"
+                else ((rs.rand(*shapes[k]) - 0.5) * 256.0).astype(np.float32))
+            for k in shapes}
+
+
+SPATIAL_STEPS, SPATIAL_LR = 3, 0.01
+
+
+def case_spatial_train(n_devices: int, proto, batch=None, weights=None) -> Dict:
+    """A net's train step over 1 x n spatial ranks against the one-rank
+    step on the same global ``batch`` (numpy arrays; None:
+    :func:`synthetic_batch`) and weights (given, else the net's seed-0
+    fill), the reference run first on rank 0 alone: the loss within 1e-3
+    and every parameter blob within rtol 2e-3, atol 2e-5 after one step
+    (JAX ``mesh2d.dryrun_dp_sp_train``'s rule); then 2 more steps, after
+    which the parameters of the layers run whole (the replicated tail) are
+    bit for bit the same on every rank.  SGD at 0.01, momentum 0.9, weight
+    decay 5e-4."""
+    from ..core.net import Net
+    from ..proto import caffe_pb, prototxt
+    from ..training.solver import init_history, make_update_fn
+    from .dp import net_loss_fn
+    from .mesh2d import make_dp_sp_train_step, make_mesh2d
+
+    dev = rank_device()
+    lr, steps = SPATIAL_LR, SPATIAL_STEPS
+    if batch is None:
+        batch = synthetic_batch(proto)
+    sp_view = caffe_pb.view(prototxt.parse(
+        f"base_lr: {lr} lr_policy: 'fixed' momentum: 0.9 weight_decay: 5e-4",
+        "SolverParameter"), "SolverParameter")
+
+    def build():
+        net = Net(proto, phase="TRAIN", device=dev)
+        if weights is not None:
+            net.load_weights(weights)
+        lr_m, dm, params = {}, {}, {}
+        for name, _, prm, lm, d in net.learnable():
+            params.setdefault(name, []).append(prm)
+            lr_m.setdefault(name, []).append(lm)
+            dm.setdefault(name, []).append(d)
+        return net, params, make_update_fn("SGD", sp_view, lr_m, dm)
+
+    mesh = make_mesh2d(n_devices, spatial=n_devices, device=dev)
+    out: Dict[str, Any] = {}
+    ref = None
+    if mesh.rank == 0:
+        net, params, update = build()
+        step1, hist1 = _single_step(net, update), init_history("SGD", params)
+        out["ref_loss"], out["ref_step_ms"] = _timed(lambda: step1(params, hist1, batch, lr, 0),
+                                                     dev)
+        ref = _params_np(params)
+        if _warm_timing(dev):
+            _, out["ref_step_ms"] = _timed(lambda: step1(params, hist1, batch, lr, 1), dev)
+        del net, params, hist1
+        torch.cuda.empty_cache() if dev.type == "cuda" else None
+    torch.distributed.barrier()  # the reference ran alone on the card
+    net, params, update = build()
+    step = make_dp_sp_train_step(mesh, net_loss_fn(net), update)
+    history = init_history("SGD", params)
+    out["loss"], out["step_ms"] = _timed(lambda: step(params, history, batch, lr, 0), dev)
+    got = _params_np(params)
+    for it in range(1, steps):
+        out["losses_after"] = out.get("losses_after", []) + [step(params, history, batch, lr, it)]
+    if steps > 1 and _warm_timing(dev):
+        _, out["step_ms"] = _timed(lambda: step(params, history, batch, lr, steps), dev)
+    out["peak_gib"] = _peak_gib(dev)
+    # the layers the last step ran whole: their parameters on every spatial rank
+    tail = sorted(k for k in params if k in step.shard.whole_layers)
+    flat = torch.cat([p.detach().reshape(-1) for k in tail for p in params[k]]) if tail else None
+    if flat is not None:
+        peers = mesh.all_gather(flat, "spatial")
+        out["tail_identical"] = all(torch.equal(flat, p) for p in peers)
+        assert out["tail_identical"], "the replicated tail's parameters differ across ranks"
+    out["tail_layers"] = tail
+    if ref is not None:
+        assert abs(out["loss"] - out["ref_loss"]) <= 1e-3 * max(1.0, abs(out["ref_loss"])), (
+            f"spatial loss {out['loss']} != one rank's {out['ref_loss']}")
+        for k in ref:
+            for a, b in zip(got[k], ref[k]):
+                np.testing.assert_allclose(a, b, rtol=2e-3, atol=2e-5, err_msg=k)
+        if not _warm_timing(dev):  # the CPU tests compare them with JAX's
+            out["params"], out["ref_params"] = got, ref
+    print(f"case_spatial_train({n_devices}): 1x{n_devices} spatial step == one rank (loss "
+          f"{out['loss']:.6f}); tail {tail} equal on every rank OK", flush=True)
+    return out
+
+
+def case_solver(n_devices: int, proto, weights, batches, solver: str, spatial: int = 1,
+                transform=None) -> Dict:
     """``Solver(mesh=)`` over ``n_devices`` ranks (``spatial`` > 1: a data x
     spatial mesh) for ``len(batches)`` iterations on given global batches:
-    the losses and the parameters after."""
+    the losses and the parameters after.  ``transform``: the solver's
+    ``input_transform`` as ``(function name of labels_device, kwargs)``."""
     from ..core.net import Net
     from ..training.solver import Solver
     from .mesh2d import make_mesh2d
@@ -688,7 +860,8 @@ def case_solver(n_devices: int, proto, weights, batches, solver: str, spatial: i
     net.load_weights(weights)
     mesh = (make_mesh2d(n_devices, spatial=spatial, device=dev) if spatial > 1
             else make_mesh(n_devices, "data", dev))
-    s = Solver(solver, net, lambda it: batches[it], mesh=mesh)
+    s = Solver(solver, net, lambda it: batches[it], mesh=mesh,
+               input_transform=_transform(transform))
     losses = [s.step(1) for _ in batches]
     return {"losses": losses, "params": _params_np(s.params)}
 

@@ -10,10 +10,13 @@ the next layer sees its whole input (:class:`ChannelShard`, the forward's
 ``RunCtx.shard``).  A weight whose output count does not divide over the
 ranks (the 19-channel heatmap head over two) stays whole on every rank and
 runs whole there.  Biases are small and stay whole; a rank adds its slice.
+A grouped convolution's share of filters reads only the input channels of
+the groups it covers: the rank slices them and convolves those groups (one
+convolution a group where its share covers part of one).
 
 :func:`tp_estimator_fn` runs the estimator's net so and then its own post
-segment (``PoseEstimator._post``: the peak-mask kernel K1 on the card) on
-every rank, replicated.
+segment (``sp.post``: the peak-mask kernel K1 on the card, or with
+``keep_heatmap`` the upsample-keys kernel K3) on every rank, replicated.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from typing import Dict, Mapping, Optional, Sequence, Tuple
 import torch
 
 from .dp import DataShard, Mesh
-from .sp import _frames, _packed, _require_kernel, lowres_to_post, thresholds
+from .sp import _frames, _require_kernel, lowres_to_post, post
 
 
 def channel_spec(mesh: Mesh, a: torch.Tensor, axis: str = "model") -> Tuple:
@@ -86,9 +89,33 @@ class ChannelShard(DataShard):
     def conv(self, mod, x, w, b, cudnn):
         if w.shape[0] == mod.cout:
             return mod(x, w, b, cudnn=cudnn)
-        if mod.groups != 1:
-            raise NotImplementedError(f"grouped convolution {mod.name} with sharded filters")
-        return self._gather(mod(x, w, self._bias(b, w.shape[0]), cudnn=cudnn))
+        b = self._bias(b, w.shape[0])
+        if mod.groups == 1:
+            return self._gather(mod(x, w, b, cudnn=cudnn))
+        return self._gather(self._grouped(mod, x, w, b, cudnn))
+
+    def _grouped(self, mod, x, w, b, cudnn):
+        """This rank's filters [o0, o0 + k) of a grouped convolution on the
+        input channels of the groups they read."""
+        from ..ops import nn as nn_ops
+
+        og, ig = mod.cout // mod.groups, x.shape[1] // mod.groups
+        k = w.shape[0]
+        o0 = self.mesh.index(self.axis) * k
+
+        def conv(xs, ws, bs, groups):
+            return nn_ops.conv2d(xs, ws, bs, stride=mod.stride, pad=mod.pad,
+                                 dilation=mod.dilation, groups=groups, cudnn=cudnn)
+
+        if o0 % og == 0 and k % og == 0:  # whole groups: one grouped convolution
+            g0 = o0 // og
+            return conv(x.narrow(1, g0 * ig, k // og * ig), w, b, k // og)
+        pieces = []
+        for g in range(o0 // og, (o0 + k - 1) // og + 1):
+            lo, hi = max(o0, g * og) - o0, min(o0 + k, (g + 1) * og) - o0
+            pieces.append(conv(x.narrow(1, g * ig, ig), w[lo:hi],
+                               None if b is None else b[lo:hi], 1))
+        return torch.cat(pieces, dim=1)
 
     def inner_product(self, mod, x):
         from ..ops import nn as nn_ops
@@ -130,9 +157,10 @@ def make_tp_forward(mesh: Mesh, net, outputs: Sequence[str], axis: str = "model"
 
 def tp_estimator_fn(mesh: Mesh, estimator, axis: str = "model"):
     """The estimator's device program with channel-sharded weights:
-    ``fn(weights, net_input, nms_thr, inter_thr) -> {"packed": rows}``,
-    replicated on every rank.  ``weights``: this rank's share of the net's
-    operands (:func:`shard_params_channelwise` of ``Net.operands()``)."""
+    ``fn(weights, net_input, nms_thr, inter_thr)`` -> what ``run_device``
+    returns (``sp.post``), replicated on every rank.  ``weights``: this
+    rank's share of the net's operands (:func:`shard_params_channelwise` of
+    ``Net.operands()``)."""
     est = estimator
     _require_kernel(est)
     shard = ChannelShard(mesh, axis)
@@ -142,7 +170,6 @@ def tp_estimator_fn(mesh: Mesh, estimator, axis: str = "model"):
             low = est.net({"image": est._canvases(_frames(est, net_input))},
                           outputs=[est.lowres_blob], layers=est._layers, operands=weights,
                           shard=shard)[est.lowres_blob]
-            return _packed(est, est._post(lowres_to_post(est, low), *thresholds(
-                est, nms_thr, inter_thr), est.eff_peaks))
+            return post(est, lowres_to_post(est, low), nms_thr, inter_thr)
 
     return fn

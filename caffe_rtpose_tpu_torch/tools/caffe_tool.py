@@ -328,8 +328,30 @@ def cmd_time(args) -> int:
     rs = np.random.RandomState(0)
     inputs = {name: torch.from_numpy(rs.rand(*net.blob_shapes[name]).astype(np.float32))
               for name in net.input_names}
-    print_timing(time_net(net, inputs, iterations=args.iterations,
-                          backward=args.phase == "TRAIN"))
+
+    def run(label=False):
+        return time_net(net, inputs, iterations=args.iterations, backward=args.phase == "TRAIN",
+                        label_layers=label)
+
+    if args.trace_dir:
+        # torch.profiler's counterpart of JAX's jax.profiler.trace: the timed
+        # passes, each layer's under its name, as a Chrome trace
+        # (chrome://tracing, Perfetto)
+        import os
+
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                         if net.device.type == "cuda" else [])
+        with profile(activities=acts) as prof:
+            results = run(label=True)
+        os.makedirs(args.trace_dir, exist_ok=True)
+        path = os.path.join(args.trace_dir, "caffe_time.trace.json")
+        prof.export_chrome_trace(path)
+        print(f"Profiler trace written to {path}")
+    else:
+        results = run()
+    print_timing(results)
     return 0
 
 
@@ -380,6 +402,8 @@ def build_parser():
     ti.add_argument("--model", required=True)
     ti.add_argument("--iterations", type=int, default=10)
     ti.add_argument("--phase", default="TEST", choices=["TRAIN", "TEST"])
+    ti.add_argument("--trace_dir", default="",
+                    help="write a torch.profiler Chrome trace of the timed passes here")
     ti.add_argument("--level", type=int, default=0)
     ti.add_argument("--stage", default="", help="comma-separated NetState stages")
     ti.add_argument("--device", default="cuda")

@@ -6,7 +6,8 @@ and channel-swapped, the class probabilities written as an ``.npy``.
     python -m caffe_rtpose_tpu_torch classify input.png out.npy \\
         --model_def deploy.prototxt --pretrained_model weights.caffemodel [--device cpu]
 
-Runs on the card (``--device cuda``, the default) or with ``--device cpu``.
+Runs on the card (``--device cuda``, the default; ``--gpu`` is accepted and
+means the card, as the reference's switch) or with ``--device cpu``.
 ``input_file`` is an image, a directory of ``--ext`` images or an ``.npy``
 of images (H, W, K) in [0, 1]; PNG and BMP need no OpenCV.
 """
@@ -28,6 +29,7 @@ def build_parser():
     parser.add_argument("--model_def", required=True, help="Model definition file.")
     parser.add_argument("--pretrained_model", default=None, help="Trained model weights file.")
     parser.add_argument("--device", default="cuda", help="cuda (a card) or cpu")
+    parser.add_argument("--gpu", action="store_true", help="run on the card (the default)")
     parser.add_argument("--center_only", action="store_true",
                         help="Predict from the centre crop alone instead of averaging "
                              "predictions across 10 crops.")
@@ -47,7 +49,7 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     from .. import api as caffe
 
-    if args.device == "cpu":
+    if args.device == "cpu" and not args.gpu:
         caffe.set_mode_cpu()
     else:
         caffe.set_mode_gpu()

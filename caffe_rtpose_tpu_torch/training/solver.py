@@ -40,11 +40,13 @@ and its convolutions cast the parameters inside the forward.
 ``torch.distributed`` job): data parallelism, replacing P2PSync
 (parallel.cpp), as JAX's ``Solver(mesh=)``: every rank's ``next_batch``
 gives the same GLOBAL batch, each rank runs its rows (and, on a mesh with a
-``spatial`` axis, its slab of rows: ``parallel/mesh2d.py``), each loss is
-normalized by the global batch, and the gradients are summed over the
-ranks in flat buckets before the update, so every rank applies the same
-update (``parallel/dp.py``).  The parameters start from rank 0's.  Only
-rank 0 snapshots.
+``spatial`` axis, its slab of rows, any layer type: ``parallel/sp.py``,
+``parallel/mesh2d.py``), each loss is normalized by the global batch, and
+the gradients are summed over the ranks in flat buckets before the update
+(averaged over ``spatial`` for the layers every rank ran whole), so every
+rank applies the same update (``parallel/dp.py``).  An ``input_transform``
+runs on the rank's examples before their rows split.  The parameters
+start from rank 0's.  Only rank 0 snapshots.
 """
 
 from __future__ import annotations
@@ -200,13 +202,6 @@ class Solver:
 
             if not isinstance(mesh, Mesh):
                 raise TypeError(f"mesh: a parallel.dp.Mesh, got {type(mesh).__name__}")
-            if "spatial" in mesh.axis_names:
-                from ..parallel.sp import check_row_local
-
-                if input_transform is not None:
-                    raise NotImplementedError("an input transform (--fused_labels) with a "
-                                              "spatial axis: it makes whole labels on each rank")
-                check_row_local(net, net.layers)
         self.mesh = mesh
         self.net = net
         self.next_batch = next_batch
@@ -238,27 +233,31 @@ class Solver:
         self.smoothed_losses: List[float] = []
 
     def _inputs(self, batch) -> Tuple[Dict[str, torch.Tensor], Any]:
-        """One batch on the device, and the sharded layout its forward runs
-        with (None on one device)."""
+        """One batch on the device, through the input transform, and the
+        sharded layout its forward runs with (None on one device)."""
         if isinstance(batch, StagedBatch):
             if self.mesh is not None:
                 raise ValueError("stage_batches targets a single device; use the plain "
                                  "prefetch ring with a mesh (the step places the batch)")
-            return dict(batch.wait()), None
-        if self.mesh is not None:
+            inputs = dict(batch.wait())
+        elif self.mesh is not None:
             return self._place(batch)
-        dev = self.net.device
-        return {k: (v if isinstance(v, torch.Tensor) else torch.from_numpy(np.asarray(v))).to(dev)
-                for k, v in batch.items()}, None
+        else:
+            dev = self.net.device
+            inputs = {k: (v if isinstance(v, torch.Tensor) else torch.from_numpy(np.asarray(v)))
+                      .to(dev) for k, v in batch.items()}
+        return (inputs if self.input_transform is None else self.input_transform(inputs)), None
 
     def _place(self, batch):
         """This rank's piece of the global batch and its layout
-        (``mesh2d.place_batch``); keeps the axes its gradients reduce over."""
+        (``mesh2d.place_batch``); keeps the layout and the axes its
+        gradients reduce over."""
         from ..parallel.mesh2d import place_batch
 
-        inputs, shard, self._sums, self._means = place_batch(self.mesh, {
-            k: v.detach().cpu() if isinstance(v, torch.Tensor) else v for k, v in batch.items()})
-        return inputs, shard
+        inputs, self._shard, self._sums, self._means = place_batch(self.mesh, {
+            k: v.detach().cpu() if isinstance(v, torch.Tensor) else v for k, v in batch.items()},
+            transform=self.input_transform)
+        return inputs, self._shard
 
     def step(self, iters: int = 1, callback=None) -> float:
         """Run ``iters`` iterations; returns the last loss."""
@@ -276,8 +275,6 @@ class Solver:
             total = None
             for _sub in range(iter_size):
                 inputs, shard = self._inputs(self.next_batch(self.it))
-                if self.input_transform is not None:
-                    inputs = self.input_transform(inputs)
                 aux = {} if self._bn else None
                 loss, outs = self.net.loss(inputs, aux=aux, shard=shard)
                 loss.backward()  # diffs accumulate over iter_size, as Caffe's
@@ -287,11 +284,10 @@ class Solver:
                 total = loss.detach() if total is None else total + loss.detach()
             grads = {name: [p.grad for p in ps] for name, ps in self.params.items()}
             if self.mesh is not None:
-                from ..parallel.dp import all_reduce_flat
+                from ..parallel.mesh2d import reduce_grads
 
                 total = total.reshape(1).clone()
-                all_reduce_flat(self.mesh, [g for gs in grads.values() for g in gs if g is not None]
-                                + [total], self._sums, self._means)
+                reduce_grads(self.mesh, self._shard, grads, [total], self._sums, self._means)
             self._update(self.params, grads, self.history, lr, self.it)
             self.net.params_changed()
             loss_val = float(total) / iter_size

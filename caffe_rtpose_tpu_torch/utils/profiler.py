@@ -6,11 +6,14 @@ by one forward; then each layer's forward is timed on them, and its backward
 (the gradient of the sum of its tops with respect to its parameters and its
 floating-point bottoms, by autograd) after an untimed forward.  Times come
 from CUDA events on the card (``utils/timer.Timer``) and from the host clock
-on the CPU.  The whole net's forward is timed too.
+on the CPU.  The whole net's forward is timed too.  ``label_layers`` names
+each layer's timed passes for ``torch.profiler`` (``record_function``), so
+a trace of them (``caffe time --trace_dir``) reads by layer.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Mapping
 
 import numpy as np
@@ -28,9 +31,13 @@ def _differentiable(layer_params, bots):
 
 
 def time_net(net, inputs: Mapping[str, torch.Tensor], iterations: int = 10,
-             backward: bool = True) -> Dict[str, Dict[str, float]]:
+             backward: bool = True, label_layers: bool = False) -> Dict[str, Dict[str, float]]:
     """``{layer: {"forward_ms", "backward_ms"}}`` (NaN where a layer has no
     backward) plus ``"__fused_forward__"``, the whole net's forward."""
+
+    def label(name):
+        return torch.profiler.record_function(name) if label_layers else contextlib.nullcontext()
+
     timer = Timer(net.device)
     ops = net.operands()
     feed = {k: v.to(net.device) for k, v in inputs.items()}
@@ -41,7 +48,7 @@ def time_net(net, inputs: Mapping[str, torch.Tensor], iterations: int = 10,
     results: Dict[str, Dict[str, float]] = {}
     for layer in net.layers:
         bots = [blobs[b] for b in layer.bottoms]
-        with torch.no_grad():
+        with torch.no_grad(), label(f"{layer.name} forward"):
             net._run_layer(layer, bots, ops)  # warm-up
             timer.start()
             for _ in range(iterations):
@@ -59,7 +66,8 @@ def time_net(net, inputs: Mapping[str, torch.Tensor], iterations: int = 10,
                     tops = net._run_layer(layer, gbots, ops)
                     out = sum(t.float().sum() for t in tops)
                     timer.start()
-                    torch.autograd.grad(out, leaves, allow_unused=True)
+                    with label(f"{layer.name} backward"):
+                        torch.autograd.grad(out, leaves, allow_unused=True)
                     timer.stop()
                     total += timer.milli_seconds() if i else 0.0  # the first is a warm-up
                 bwd_ms = total / iterations

@@ -197,7 +197,23 @@ Phases, each of which raises (non-zero exit) on failure:
                multihost dry run (2 processes against 1, crop 64, batch
                8), and which collectives gloo takes natively on CUDA
                tensors (the port stages them all through host buffers).
-               Peak GiB by rank, seconds of each group and check.
+               The refusals lifted since: 2 ranks: CaffeNet's TRAIN net
+               (batch 256, crop 227, f32, seed-0 weights, Dropout on) over
+               1x2 spatial ranks against the one-rank step (loss within
+               1e-3, every parameter rtol 2e-3 atol 2e-5), then 3 steps
+               with the replicated tail (fc6-fc8) bit-identical across the
+               ranks; CaffeNet's deploy net channel-sharded (tp, batch 10,
+               crop 227, group-2 convs) against one device (rtol/atol
+               2e-4); spatial_estimator_fn and tp_estimator_fn with
+               keep_heatmap (the heatmap estimator, f32 canvases of the
+               same 4 frames) against the one-device heatmap estimator,
+               heatmaps rtol/atol 2e-4 on each rank, K3 once a frame on
+               each rank and K1 never. 4 ranks: the dp x sp step with the
+               fused label transform (labels rasterized on each rank)
+               against the one-rank fused step. Then caffe train --gpu 0,0
+               --spatial 2 on a CaffeNet solver against --gpu 0 (the
+               multihost digest rule). Peak GiB by rank, seconds of each
+               group and check.
 4. slice     - the full-width COCO estimator (656x368, 1 scale, u8 input,
                pair_cap=32, f32) over 8 synthetic frames through
                estimate_from_net_input (graph replays), with the peak-mask
@@ -3849,25 +3865,28 @@ TRAIN_BATCH_FULL, TRAIN_CROP_FULL = 10, 368
 PAR_RES, PAR_STAGES = (656, 368), 6
 PP_HW, PP_MICRO = (46, 82), 6  # the refinement stages at 1/8 of 656x368
 CLI_EXTRA = ()  # more caffe train flags (a rehearsal on the host: --device cpu)
+CAFFENET_BATCH, CAFFENET_CROP = 256, 227  # CaffeNet's TRAIN cell (framework phase)
+TP_BATCH = 10  # classify's 10-crop oversampling
 
 
-def _cli_train(work, name, gpu, timeout=600):
-    """``caffe train --gpu <gpu>`` in a new process: one iteration of the
-    6-stage COCO train net at batch 10, crop 368, synthetic data, then its
-    snapshot's parameter sums in f64 and the printed loss."""
+def _cli_train(work, name, gpu, timeout=600, net="par_train.prototxt", extra=()):
+    """``caffe train --gpu <gpu>`` in a new process: one iteration of
+    ``net`` in ``work`` (default the 6-stage COCO train net at batch 10,
+    crop 368, synthetic data; ``extra``: more flags), then its snapshot's
+    parameter sums in f64 and the printed loss."""
     import subprocess
 
     from caffe_rtpose_tpu_torch.core.net import Net
 
-    net = f"{work}/par_train.prototxt"
+    net = f"{work}/{net}"
     solver = f"{work}/{name}.prototxt"
     with open(solver, "w") as f:
         f.write(f'net: "{net}"\n{TRAIN_SOLVER}\nmax_iter: 1\ndisplay: 1\n'
                 f'snapshot_prefix: "{work}/{name}"\n')
     t0 = time.perf_counter()
     res = subprocess.run([sys.executable, "-m", "caffe_rtpose_tpu_torch", "caffe", "train",
-                          "--solver", solver, "--gpu", gpu, *CLI_EXTRA], capture_output=True,
-                         text=True, timeout=timeout)
+                          "--solver", solver, "--gpu", gpu, *extra, *CLI_EXTRA],
+                         capture_output=True, text=True, timeout=timeout)
     seconds = time.perf_counter() - t0
     check(res.returncode == 0, f"[parallel] caffe train --gpu {gpu} failed:\n"
                                f"{res.stdout[-2000:]}\n{res.stderr[-3000:]}")
@@ -3889,9 +3908,13 @@ def phase_parallel(weights, frames, work):
 
     import torch
 
+    from caffe_rtpose_tpu_torch.models.caffenet import make_caffenet, make_caffenet_deploy
     from caffe_rtpose_tpu_torch.models.cpm import make_pose_train_net
     from caffe_rtpose_tpu_torch.parallel import dp, dryrun, multihost
     from caffe_rtpose_tpu_torch.proto import prototxt
+    from caffe_rtpose_tpu_torch.training.datasets import SyntheticPoseSource
+    from caffe_rtpose_tpu_torch.training.labels_device import pose_batches_jointfeed
+    from caffe_rtpose_tpu_torch.training.transformer import AugParams
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -3900,17 +3923,36 @@ def phase_parallel(weights, frames, work):
                pair_cap=32)
     single = [f for f in frames[:4]]
     pairs = [np.stack(frames[i : i + 2]) for i in (0, 2)]  # 2-frame batches
+    # the heatmap estimator's input: the same frames as f32 canvases
+    heat_frames = [(f[0].astype(np.float32) / 256.0 - 0.5).transpose(2, 0, 1)[None].copy()
+                   for f in single]
+    caffenet = make_caffenet(batch=CAFFENET_BATCH, crop=CAFFENET_CROP)
+    prm = AugParams(crop_size_x=TRAIN_CROP_FULL, crop_size_y=TRAIN_CROP_FULL)
+    fused = next(pose_batches_jointfeed(SyntheticPoseSource(size=TRAIN_CROP_FULL + 52), prm,
+                                        TRAIN_BATCH_FULL, data_u8=True))
     groups = {
         2: [("case_gloo_probe", {}),
             ("dryrun_cpm_train", dict(n_devices=2, crop=TRAIN_CROP_FULL,
                                       batch=TRAIN_BATCH_FULL, stages=PAR_STAGES)),
             ("case_estimator#spatial", dict(kind="spatial", n_devices=2, frames=single, **est)),
-            ("case_estimator#tp", dict(kind="tp", n_devices=2, frames=single, **est))],
+            ("case_estimator#tp", dict(kind="tp", n_devices=2, frames=single, **est)),
+            ("case_estimator#spatial_heat", dict(kind="spatial", n_devices=2, frames=heat_frames,
+                                                 keep_heatmap=True, **est)),
+            ("case_estimator#tp_heat", dict(kind="tp", n_devices=2, frames=heat_frames,
+                                            keep_heatmap=True, **est)),
+            ("case_spatial_train", dict(n_devices=2, proto=caffenet)),
+            ("case_tp_forward", dict(n_devices=2, proto=make_caffenet_deploy(
+                batch=TP_BATCH, crop=CAFFENET_CROP),
+                                     weights=None, inputs=None, outputs=["prob"]))],
         4: [("case_estimator#dp_tp", dict(kind="dp_tp", n_devices=4, frames=pairs, batch=2,
                                           **est)),
             ("dryrun_dp_sp_train", dict(n_devices=4, crop=TRAIN_CROP_FULL,
                                         batch=TRAIN_BATCH_FULL, spatial=2,
-                                        stages=PAR_STAGES))],
+                                        stages=PAR_STAGES)),
+            ("dryrun_dp_sp_train#fused", dict(
+                n_devices=4, crop=TRAIN_CROP_FULL, batch=TRAIN_BATCH_FULL, spatial=2,
+                stages=PAR_STAGES, batch_arrays=fused,
+                transform=("make_input_transform", {"prm": prm, "data_u8": True})))],
         5: [("dryrun_pp", dict(n_devices=5, hw=PP_HW, micro=PP_MICRO)),
             ("dryrun_pp_train", dict(n_devices=5, hw=PP_HW, micro=PP_MICRO, width=128,
                                      n_paf=38, n_heat=19, feat_ch=128, fan_in=True))],
@@ -3926,7 +3968,8 @@ def phase_parallel(weights, frames, work):
         for name, _ in cases:
             by_rank[name] = [{k: v for k, v in r[name].items()
                               if k not in ("params", "ref_params", "packed", "new", "inputs",
-                                           "outputs", "digest", "ref_digest")} for r in res]
+                                           "outputs", "digest", "ref_digest", "out", "heat")}
+                             for r in res]
         print(f"[parallel] {n} ranks: {', '.join(n for n, _ in cases)} in "
               f"{out['groups'][n]['seconds']:.1f} s", flush=True)
     k1 = {}
@@ -3944,6 +3987,30 @@ def phase_parallel(weights, frames, work):
                          seconds=ranks[0]["seconds"],
                          **({"weight_share": ranks[0]["weight_share"]}
                             if "weight_share" in ranks[0] else {}))
+    k3 = {}
+    for path, name in (("sp heatmap estimator", "case_estimator#spatial_heat"),
+                       ("tp heatmap estimator", "case_estimator#tp_heat")):
+        ranks = by_rank[name]
+        k3[path] = [r["k3_launches"] for r in ranks]
+        passes = len(heat_frames) * PAR_DEVICE.startswith("cuda")  # one a frame on each rank
+        check(all(c == passes for c in k3[path]) and all(r["k1_launches"] == 0 for r in ranks),
+              f"[parallel] {path}: K3 launches {k3[path]} (expected {passes} a rank), K1 "
+              f"{[r['k1_launches'] for r in ranks]} (expected 0)")
+        out[path] = dict(ms_per_frame=[r["ms_per_frame"] for r in ranks],
+                         single_ms_per_frame=ranks[0]["single_ms_per_frame"],
+                         seconds=ranks[0]["seconds"])
+    sp_train = by_rank["case_spatial_train"]
+    check(all(r["tail_identical"] for r in sp_train) and sp_train[0]["tail_layers"] == [
+        "fc6", "fc7", "fc8"], f"[parallel] CaffeNet spatial: tail {sp_train[0]['tail_layers']}")
+    out["caffenet spatial train step"] = {k: sp_train[0][k] for k in (
+        "loss", "ref_loss", "step_ms", "ref_step_ms", "tail_layers", "seconds")}
+    out["caffenet spatial train step"]["peak_gib_by_rank"] = [r["peak_gib"] for r in sp_train]
+    tp_fwd = by_rank["case_tp_forward"]
+    out["caffenet tp forward"] = {k: tp_fwd[0][k] for k in (
+        "ms", "single_ms", "max_abs_err", "share", "seconds")}
+    out["dp x sp fused step"] = {k: by_rank["dryrun_dp_sp_train#fused"][0][k]
+                                 for k in ("loss", "ref_loss", "step_ms", "ref_step_ms",
+                                           "seconds")}
     dp_step = by_rank["dryrun_cpm_train"][0]
     out["dp step"] = {k: dp_step[k] for k in ("loss", "ref_loss", "step_ms", "ref_step_ms",
                                                "allreduce_ms", "seconds")}
@@ -3961,6 +4028,17 @@ def phase_parallel(weights, frames, work):
     out["caffe train --gpu 0,0"] = dict(loss=two["loss"], one_rank_loss=one["loss"],
                                         seconds=two["seconds"], one_rank_seconds=one["seconds"],
                                         lines=two["lines"])
+    # caffe train --gpu 0,0 --spatial 2 on CaffeNet against --gpu 0
+    prototxt.dump_file(caffenet, f"{work}/caffenet_train.prototxt")
+    np.savez(f"{work}/caffenet_batch.npz", **dryrun.synthetic_batch(caffenet))
+    cn = dict(net="caffenet_train.prototxt", extra=("--data", f"{work}/caffenet_batch.npz"))
+    two = _cli_train(work, "cn_gpu00", "0,0", extra=cn["extra"] + ("--spatial", "2"),
+                     net=cn["net"])
+    one = _cli_train(work, "cn_gpu0", "0", **cn)
+    multihost.check_digests(two, one)
+    out["caffe train --gpu 0,0 --spatial 2 (CaffeNet)"] = dict(
+        loss=two["loss"], one_rank_loss=one["loss"], seconds=two["seconds"],
+        one_rank_seconds=one["seconds"], lines=two["lines"])
     m0 = time.perf_counter()
     mh = multihost.dryrun_multihost(2, device=PAR_DEVICE, timeout=600,
                                     **({} if PAR_DEVICE.startswith("cuda") else
@@ -3969,8 +4047,10 @@ def phase_parallel(weights, frames, work):
                             backend=mh["multi"]["backend"], seconds=time.perf_counter() - m0)
     out["gloo_on_cuda_tensors"] = by_rank["case_gloo_probe"][0]
     out["k1_launches_by_path"] = k1
+    out["k3_launches_by_path"] = k3
     out["seconds"] = time.perf_counter() - t0
-    print(f"[parallel] {out['seconds']:.1f} s in all; K1 launches by rank {k1}", flush=True)
+    print(f"[parallel] {out['seconds']:.1f} s in all; K1 launches by rank {k1}; K3 {k3}",
+          flush=True)
     return out
 
 
@@ -4081,7 +4161,9 @@ def main() -> int:
         "peak_mask_fused_3scale": {"slice 3-scale": (three["launches"], None),
                                    "bundle 3-scale f32": (s3["launches"]["peak_mask_fused"],
                                                           s3["replayed"]["peak_mask_kernel"])},
-        "upsample_peak_keys": {"heatmap slice": (heat["launches"], None)},
+        "upsample_peak_keys": {"heatmap slice": (heat["launches"], None),
+                               **{f"{path} (by rank)": (v, None) for path, v in
+                                  parallel["k3_launches_by_path"].items()}},
         "conv1_block": {"pipeline": (pipeline["launches"]["conv1_block"],
                                      pipeline["replayed_launches"]["conv1_block"]),
                         "bundle bf16 batch 8": (sm["launches"]["conv1_block"],

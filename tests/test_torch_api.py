@@ -278,6 +278,27 @@ def test_classifier_and_classify_cli_match_jax(pair, tmp_path):
     close(out, got, fwd)
 
 
+def test_classify_gpu_flag_means_the_card(monkeypatch):
+    """``classify --gpu`` is accepted as JAX's is and runs on the card, even
+    with ``--device cpu`` (detect's rule)."""
+    from caffe_rtpose_tpu.tools import classify as jclassify
+    from caffe_rtpose_tpu_torch.tools import classify
+
+    argv = ["in.png", "out.npy", "--model_def", "deploy.prototxt", "--gpu"]
+    assert jclassify.build_parser().parse_args(argv).gpu
+    assert classify.build_parser().parse_args(argv).gpu
+
+    class Card(Exception):
+        pass
+
+    def to_card():
+        raise Card
+
+    monkeypatch.setattr(api, "set_mode_gpu", to_card)
+    with pytest.raises(Card):
+        classify.main(argv + ["--device", "cpu"])
+
+
 def test_sgd_solver_with_a_test_net(tmp_path):
     """SGDSolver on a net fed by MemoryData-free inputs: a TRAIN/TEST net
     (inner products, softmax loss, accuracy in TEST), 3 steps against the

@@ -92,6 +92,30 @@ def test_time_train_phase(files):
     assert "TOTAL (per-layer sum)" in text and "whole-net forward" in text
 
 
+def test_time_trace_dir_writes_a_trace_by_layer(tmp_path):
+    """``caffe time --trace_dir``: a torch.profiler Chrome trace of the timed
+    passes whose events name each layer's forward and backward."""
+    import json
+
+    net = tmp_path / "tiny.prototxt"
+    net.write_text('input: "data" input_dim: 2 input_dim: 3 input_dim: 12 input_dim: 12\n'
+                   'layer { name: "conv" type: "Convolution" bottom: "data" top: "conv" '
+                   'convolution_param { num_output: 4 kernel_size: 3 } }\n'
+                   'layer { name: "pool" type: "Pooling" bottom: "conv" top: "pool" '
+                   'pooling_param { pool: MAX kernel_size: 2 stride: 2 } }\n'
+                   'layer { name: "fc" type: "InnerProduct" bottom: "pool" top: "fc" '
+                   'inner_product_param { num_output: 3 } }\n')
+    trace = tmp_path / "trace"
+    rc, text = run("time", "--model", str(net), "--phase", "TRAIN", "--iterations", "1",
+                   "--trace_dir", str(trace), "--device", "cpu")
+    path = trace / "caffe_time.trace.json"
+    assert rc == 0 and f"Profiler trace written to {path}" in text and "whole-net forward" in text
+    names = {e.get("name") for e in json.loads(path.read_text())["traceEvents"]}
+    for layer in ("conv", "pool", "fc"):
+        assert f"{layer} forward" in names
+    assert "conv backward" in names and "fc backward" in names
+
+
 def test_device_query_and_not_ported(files):
     rc, text = run("device_query")
     assert rc == 0 and "torch:" in text and "cuda_available:" in text

@@ -11,12 +11,17 @@ on four gloo ranks on the CPU (a 2x2 mesh), against JAX.
   ReLU-kink tolerance of test_torch_solver.py).  Batch 3 does not divide
   the data axis: it is replicated there and the gradients averaged.
 * ``Solver(mesh=)`` on the 2x2 mesh for two iterations == the one-rank
-  Solver (losses rtol 1e-5; parameters within 1e-5 of each blob's largest).
+  Solver (losses rtol 1e-5; parameters within 1e-5 of each blob's largest),
+  and the same with the fused label transform (``--fused_labels``: u8
+  images and joints in, the labels rasterized on each rank's whole examples
+  before the rows split) against the one-rank fused Solver.
 * ``dp_tp_estimator_fn``: 2 frames over ``data``, weights over ``model``,
   on the 2-stage COCO net at 128x80 with test_torch_estimator.py's weights
   and thresholds: against the port's one-device batched estimator by JAX's
   dry-run rule (in the ranks) and JAX's batched estimator by
-  ``_assert_outputs_close``.
+  ``_assert_outputs_close``; and the heatmap estimator so (K3's path: each
+  rank its frame, every rank all frames' outputs) against the port's
+  one-device heatmap estimator (in the ranks; heatmaps rtol/atol 2e-4).
 * ``batch_spec_2d`` against JAX's ``shard_batch_2d`` placements, case for
   case (NHWC's H is the port's NCHW axis 2).
 
@@ -49,6 +54,7 @@ from caffe_rtpose_tpu_torch.training.solver import Solver
 from test_torch_dp import _flat, _rel_l2, fan_in_weights
 from test_torch_estimator import (THR, WITNESS_SEEDS, _assert_outputs_close, _fan_in_weights,
                                   witness_frame)
+from test_torch_sp import heat_frames
 
 B, CROP, STAGES, LR = 4, 48, 2, 4e-5
 RES = (128, 80)
@@ -75,6 +81,18 @@ def setup():
     return net_param, weights, glob, est_w, frames, ref
 
 
+def _fused():
+    """The fused-label pipeline's transform and two global batches (u8
+    images, joints, visibility, mask) at crop 48."""
+    from caffe_rtpose_tpu_torch.training.datasets import SyntheticPoseSource
+    from caffe_rtpose_tpu_torch.training.labels_device import pose_batches_jointfeed
+    from caffe_rtpose_tpu_torch.training.transformer import AugParams
+
+    prm = AugParams(crop_size_x=CROP, crop_size_y=CROP)
+    it = pose_batches_jointfeed(SyntheticPoseSource(size=CROP + 52), prm, B, data_u8=True)
+    return ("make_input_transform", {"prm": prm, "data_u8": True}), [next(it), next(it)]
+
+
 @pytest.fixture(scope="module")
 def ranks(setup):
     net_param, weights, glob, est_w, frames, _ = setup
@@ -87,7 +105,14 @@ def ranks(setup):
                                   batches=[glob, cpm_global_batch(B, CROP, seed=9)],
                                   solver=SOLVER, spatial=2)),
              ("case_estimator", dict(kind="dp_tp", n_devices=4, weights=est_w, frames=frames,
-                                     batch=2))]
+                                     batch=2)),
+             ("case_solver#fused", dict(n_devices=4, proto=net_param, weights=weights,
+                                        batches=_fused()[1], solver=SOLVER, spatial=2,
+                                        transform=_fused()[0])),
+             ("case_estimator#heat", dict(kind="dp_tp", n_devices=4, weights=est_w,
+                                          frames=[np.stack(heat_frames(
+                                              list(frames[0])))],
+                                          keep_heatmap=True))]
     return dp.spawn(dryrun.rank_cases, 4, ["cpu"] * 4, timeout=TIMEOUT, args=(
         cases, False, {"nms": THR["nms_threshold"], "inter": THR["inter_threshold"]}))
 
@@ -180,3 +205,34 @@ def test_batch_spec_2d_matches_jax_shard_batch_2d():
     assert mesh2d.batch_spec_2d(shape, ()) == () == tuple(jax_spec(np.float32(1.0)))
     with pytest.raises(ValueError):
         mesh2d.make_mesh2d(8, spatial=3)
+
+
+def test_solver_mesh2d_fused_labels_matches_one_rank_fused_solver(setup, ranks):
+    from caffe_rtpose_tpu_torch.training import labels_device
+
+    net_param, weights, *_ = setup
+    (name, kw), batches = _fused()
+    net = Net(net_param, phase="TRAIN", device="cpu")
+    net.load_weights(weights)
+    s = Solver(SOLVER, net, lambda it: batches[it],
+               input_transform=getattr(labels_device, name)(**kw))
+    losses = [s.step(1) for _ in batches]
+    got = ranks[0]["case_solver#fused"]
+    np.testing.assert_allclose(got["losses"], losses, rtol=1e-5)
+    for k, v in s.params.items():
+        for a, b in zip(got["params"][k], v):
+            b = b.detach().numpy()
+            np.testing.assert_allclose(a, b, rtol=0, atol=1e-5 * max(1.0, np.abs(b).max()))
+
+
+def test_dp_tp_heatmap_estimator_matches_one_device(ranks):
+    """Both frames on every rank, equal to the port's one-device heatmap
+    estimator frame by frame (held in the ranks), and the same on every
+    rank."""
+    for r in ranks:
+        got = r["case_estimator#heat"]
+        assert got["frames"] == 2 and len(got["heat"]) == 2
+        assert got["k3_launches"] == 0 == got["k1_launches"]
+    for a, b in zip(ranks[0]["case_estimator#heat"]["heat"],
+                    ranks[3]["case_estimator#heat"]["heat"]):
+        np.testing.assert_array_equal(a, b)

@@ -10,11 +10,18 @@ tp.py) against JAX's ``parallel/tp.py``.
   on a 2-device mesh: JAX's dry-run tolerance, rtol/atol 2e-4; pre-sharded
   and whole weights give the same outputs bit for bit (asserted in the
   ranks), and a rank holds about half the weight bytes.
+* A grouped trunk (``GROUPED``: conv 12; a group-3 conv 12, whose 6
+  filters a rank reads span one and a half groups, so it convolves each
+  group apart; a group-2 conv 16, one whole group a rank; InnerProduct 24)
+  the same way against JAX's ``make_tp_forward``.
 * ``tp_estimator_fn`` on the 2-stage COCO net at 128x80 with
   test_torch_estimator.py's fan-in weights, frames and thresholds: against
   the port's one-device estimator by JAX's dry-run rule (in the ranks) and
   against the JAX estimator on one device by ``_assert_outputs_close``
-  (JAX's own dry run holds its sharded estimator to that result).
+  (JAX's own dry run holds its sharded estimator to that result); and with
+  ``keep_heatmap`` (the upsample-keys path) on f32 canvases, against the
+  port's one-device heatmap estimator in the ranks (heatmap rtol/atol 2e-4)
+  and JAX's heatmap estimator here.
 
 Two ranks spawned once (``dp.spawn``, 300 s limit).  oneDNN off."""
 
@@ -40,6 +47,7 @@ from caffe_rtpose_tpu_torch.pose.estimator import PoseEstimator
 
 from test_torch_estimator import (THR, WITNESS_SEEDS, _assert_outputs_close, _fan_in_weights,
                                   witness_frame)
+from test_torch_sp import heat_frames
 
 RES = (128, 80)
 TIMEOUT = 300
@@ -51,6 +59,22 @@ layer { name: "r1" type: "ReLU" bottom: "c1" top: "c1" }
 layer { name: "c2" type: "Convolution" bottom: "c1" top: "c2"
   convolution_param { num_output: 16 pad: 1 kernel_size: 3 weight_filler { type: "msra" } } }
 layer { name: "fc" type: "InnerProduct" bottom: "c2" top: "fc"
+  inner_product_param { num_output: 24 weight_filler { type: "msra" } } }
+"""
+
+
+GROUPED = """
+input: "image" input_dim: 2 input_dim: 3 input_dim: 16 input_dim: 16
+layer { name: "c1" type: "Convolution" bottom: "image" top: "c1"
+  convolution_param { num_output: 12 pad: 1 kernel_size: 3 weight_filler { type: "msra" } } }
+layer { name: "r1" type: "ReLU" bottom: "c1" top: "c1" }
+layer { name: "g3" type: "Convolution" bottom: "c1" top: "g3"
+  convolution_param { num_output: 12 pad: 1 kernel_size: 3 group: 3
+    weight_filler { type: "msra" } } }
+layer { name: "g2" type: "Convolution" bottom: "g3" top: "g2"
+  convolution_param { num_output: 16 pad: 1 kernel_size: 3 group: 2
+    weight_filler { type: "msra" } } }
+layer { name: "fc" type: "InnerProduct" bottom: "g2" top: "fc"
   inner_product_param { num_output: 24 weight_filler { type: "msra" } } }
 """
 
@@ -80,13 +104,25 @@ def setup():
 
 
 @pytest.fixture(scope="module")
-def ranks(setup):
+def grouped():
+    jnet = JNet(GROUPED, seed=1)
+    return jnet, np.random.RandomState(1).rand(2, 3, 16, 16).astype(np.float32) - 0.5
+
+
+@pytest.fixture(scope="module")
+def ranks(setup, grouped):
     jnet, x, _, weights, frames, _ = setup
+    gnet, gx = grouped
     # export_weights: Caffe's layout (the InnerProduct weight (N, K), K in
     # Caffe's flatten order)
     cases = [("case_tp_forward", dict(n_devices=2, proto=TRUNK, weights=jnet.export_weights(),
                                       inputs={"image": x}, outputs=["fc"])),
-             ("case_estimator", dict(kind="tp", n_devices=2, weights=weights, frames=frames))]
+             ("case_estimator", dict(kind="tp", n_devices=2, weights=weights, frames=frames)),
+             ("case_tp_forward#grouped", dict(n_devices=2, proto=GROUPED,
+                                              weights=gnet.export_weights(),
+                                              inputs={"image": gx}, outputs=["fc", "g3"])),
+             ("case_estimator#heat", dict(kind="tp", n_devices=2, weights=weights,
+                                          frames=heat_frames(frames), keep_heatmap=True))]
     return dp.spawn(dryrun.rank_cases, 2, ["cpu"] * 2, timeout=TIMEOUT, args=(
         cases, False, {"nms": THR["nms_threshold"], "inter": THR["inter_threshold"]}))
 
@@ -141,3 +177,33 @@ def test_tp_estimator_matches_jax_single_device(setup, ranks):
             _assert_outputs_close(est.unpack(packed), want, est.descriptor)
     for a, b in zip(ranks[0]["case_estimator"]["packed"], ranks[1]["case_estimator"]["packed"]):
         np.testing.assert_array_equal(a, b)
+
+
+def test_tp_grouped_trunk_matches_jax_make_tp_forward(grouped, ranks):
+    jnet, x = grouped
+    mesh = j_make_mesh(2, axis="model")
+
+    def forward(params, image):
+        return jnet._apply(params, {"image": image}, jax.random.PRNGKey(0), None, False)
+
+    with mesh:
+        want = j_tp_forward(mesh, forward)(j_shard(mesh, jnet.params),
+                                           layout.to_physical(jnp.asarray(x)))
+    for r in ranks:
+        got = r["case_tp_forward#grouped"]["out"]
+        np.testing.assert_allclose(got["fc"], np.asarray(want["fc"]), rtol=2e-4, atol=2e-4)
+        np.testing.assert_allclose(got["g3"], np.asarray(layout.to_caffe(want["g3"])),
+                                   rtol=2e-4, atol=2e-4)
+
+
+def test_tp_heatmap_estimator_matches_jax_single_device(setup, ranks):
+    *_, weights, frames, _ = setup
+    jest = JEstimator(j_make_net("COCO", stages=2), net_resolution=RES, keep_heatmap=True)
+    _fan_in_weights(jest, 0)
+    ref = [jest.run_device(x, **THR) for x in heat_frames(frames)]
+    for r in ranks:
+        got = r["case_estimator#heat"]
+        assert got["frames"] == len(frames) and got["k3_launches"] == 0 == got["k1_launches"]
+        for outs, heat, want in zip(got["outputs"], got["heat"], ref):
+            _assert_outputs_close(outs, jest.fetch(want), jest.descriptor)
+            np.testing.assert_allclose(heat, np.asarray(want["heatmap"]), rtol=2e-4, atol=2e-4)
