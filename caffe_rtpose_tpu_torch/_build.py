@@ -7,7 +7,8 @@
   ``csrc/*.cuh`` headers they include count towards the hash.
   Missing ``nvcc`` or a failed build raises with the compiler's output.
 * ``build_library()``: the shared compile-and-cache step, also used by
-  ``native.py`` for the host assembly library (g++).
+  ``native.py`` for the host assembly library and by ``pipeline/jpeg.py``
+  for the JPEG codec (``csrc/jpeg_codec.cpp``), both with g++.
 
 Libraries go to ``caffe_rtpose_tpu_torch/_build/`` (git-ignored); each file
 name carries a hash of its sources and flags, so a stale library is never

@@ -13,8 +13,8 @@ The standard transform (DataTransformer::Transform, data_transformer.cpp:
 57-220): mean file or mean values subtracted, then a crop (the centre in
 TEST, random in TRAIN), a random mirror (any phase, as the reference) and
 the scale.  No OpenCV: images are read by ``pipeline/image_io.py`` (PNG and
-BMP; JPEG through ``cv2`` where it is installed) and resized in numpy
-(bilinear, ``cv2.resize``'s INTER_LINEAR).  HDF5Data imports ``h5py`` when
+BMP in numpy, JPEG by the port's codec, ``pipeline/jpeg.py``) and resized in
+numpy (bilinear, ``cv2.resize``'s INTER_LINEAR).  HDF5Data imports ``h5py`` when
 it is built and names it when it is missing.
 """
 
@@ -101,20 +101,18 @@ def resize_linear(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
 
 
 def read_image(path: str, color: bool = True) -> np.ndarray:
-    """An image file -> BGR u8 (H, W, 3), or (H, W, 1) gray."""
+    """An image file -> BGR u8 (H, W, 3), or (H, W, 1) gray: a JPEG's gray is
+    libjpeg's Y plane (``cv2.IMREAD_GRAYSCALE``), a PNG's or BMP's the BT.601
+    luma of its colour image."""
     from ..pipeline.image_io import read_image as _read
 
-    img = _read(path)
-    if not color:
-        # the BT.601 luma weights, rounded
-        g = img[..., 0] * 0.114 + img[..., 1] * 0.587 + img[..., 2] * 0.299
-        img = np.clip(np.rint(g), 0, 255).astype(np.uint8)[:, :, None]
-    return img
+    img = _read(path, gray=not color)
+    return img if color else img[:, :, None]
 
 
 def datum_chw(d: dict) -> np.ndarray:
-    """A parsed Datum -> its (C, H, W) array; an encoded PNG decodes without
-    OpenCV (other encodings through ``cv2``, ``proto/datum.py``)."""
+    """A parsed Datum -> its (C, H, W) array; an encoded PNG or JPEG decodes
+    without OpenCV (``proto/datum.py``)."""
     if d.get("encoded"):
         return np.ascontiguousarray(np.transpose(datum_io.datum_to_image(d), (2, 0, 1)))
     return datum_io.datum_to_array(d)

@@ -2245,8 +2245,8 @@ def _b_h5disp(filename):
 
 
 def _b_imread(path, *flag):
-    """imread(path): RGB u8, read without OpenCV for PNG and BMP
-    (``core/data_layers.read_image``; JPEG through ``cv2`` where installed)."""
+    """imread(path): RGB u8, read without OpenCV
+    (``core/data_layers.read_image``: PNG, BMP and JPEG)."""
     from .core.data_layers import read_image
 
     try:

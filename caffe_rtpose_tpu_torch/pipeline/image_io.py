@@ -1,14 +1,19 @@
 """Image files for the pipeline's ``--image_dir`` source, without OpenCV.
 
 :func:`read_image` returns a BGR u8 (H, W, 3) array, as ``cv2.imread(path,
-cv2.IMREAD_COLOR)`` does:
+cv2.IMREAD_COLOR)`` does, or with ``gray`` the (H, W) plane of
+``cv2.IMREAD_GRAYSCALE``:
 
+* ``.jpg``/``.jpeg``: the port's JPEG codec (``jpeg.py``), libjpeg-turbo's
+  arithmetic: the gray plane of a colour JPEG is libjpeg's Y plane, and the
+  EXIF orientation is applied;
 * ``.png``: 8-bit gray, gray + alpha, RGB or RGBA, not interlaced, decoded
   with ``zlib`` and the five scanline filters in numpy (alpha is dropped);
 * ``.bmp``: uncompressed 24- or 32-bit, or 8-bit with a palette, bottom-up
-  or top-down rows;
-* ``.jpg``: through ``cv2`` where it can be imported; without it the error
-  names the file.
+  or top-down rows.
+
+For PNG and BMP, gray is the BT.601 luma of the BGR image, the weights
+rounded.
 """
 
 from __future__ import annotations
@@ -19,30 +24,30 @@ import zlib
 
 import numpy as np
 
+from .jpeg import JPEG_EXTENSIONS, read_jpeg
+
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # color type -> samples a pixel
 
 
-def read_image(path: str) -> np.ndarray:
-    """The image at ``path`` as a BGR u8 (H, W, 3) array."""
+def read_image(path: str, gray: bool = False) -> np.ndarray:
+    """The image at ``path`` as a BGR u8 (H, W, 3) array, or with ``gray``
+    its (H, W) gray plane."""
     ext = os.path.splitext(path)[1].lower()
+    if ext in JPEG_EXTENSIONS:
+        return read_jpeg(path, gray=gray)
     if ext == ".png":
         with open(path, "rb") as f:
-            return _decode_png(f.read(), path)
-    if ext == ".bmp":
+            img = _decode_png(f.read(), path)
+    elif ext == ".bmp":
         with open(path, "rb") as f:
-            return _decode_bmp(f.read(), path)
-    if ext in (".jpg", ".jpeg"):
-        try:
-            import cv2
-        except ImportError as e:
-            raise RuntimeError(f"{path}: reading JPEG needs OpenCV (cv2), which is not "
-                               "installed; convert the images to PNG or BMP") from e
-        img = cv2.imread(path, cv2.IMREAD_COLOR)
-        if img is None:
-            raise ValueError(f"{path}: OpenCV could not decode the file")
-        return img
-    raise ValueError(f"{path}: unsupported image type {ext!r}")
+            img = _decode_bmp(f.read(), path)
+    else:
+        raise ValueError(f"{path}: unsupported image type {ext!r}")
+    if gray:
+        g = img[..., 0] * 0.114 + img[..., 1] * 0.587 + img[..., 2] * 0.299
+        img = np.clip(np.rint(g), 0, 255).astype(np.uint8)
+    return img
 
 
 def _unfilter(raw: np.ndarray, h: int, stride: int, bpp: int, path: str) -> np.ndarray:

@@ -16,10 +16,11 @@ a captured CUDA graph (``PoseEstimator(cuda_graph=True)``, the default on
 CUDA): the dispatcher's host work per pass is a copy into pinned memory and
 a few calls, while the fetchers copy results out and assemble.
 
-OpenCV (``cv2``) is optional here: video and camera sources, JPEG files,
-``write_frames``, the display window and its text overlay use it, and a
-pipeline that asks for one of them without ``cv2`` raises at construction
-with the option's name.  PNG and BMP directories, JSON output and the
+OpenCV (``cv2``) is optional here: video and camera sources, the display
+window and the text overlay use it, and a pipeline that asks for one of them
+without ``cv2`` raises at construction with the option's name.  JPEG, PNG
+and BMP directories, ``write_frames`` (JPEG at quality 98 by the port's
+codec, ``jpeg.py``: the bytes ``cv2.imwrite`` writes), JSON output and the
 headless run need no ``cv2`` (``image_io.py``, ``pose/preprocess.py``).
 """
 
@@ -40,6 +41,7 @@ from ..pose import connect as C
 from ..pose.estimator import PoseEstimator
 from ..pose.preprocess import warp_to_display
 from .image_io import read_image
+from .jpeg import encode_jpeg
 from .queues import BlockingQueue, OrderedBuffer
 
 
@@ -297,14 +299,10 @@ class RtPosePipeline:
         # what needs OpenCV, named before any thread starts
         if cfg.video:
             _cv2("--video")
-        if cfg.write_frames:
-            _cv2("--write_frames")
         if not cfg.no_display:
             _cv2("the display window (--no_display not set)")
-        if cfg.image_dir:
-            jpegs = [p for p in list_image_dir(cfg.image_dir) if p.lower().endswith(".jpg")]
-            if jpegs:
-                _cv2(f"--image_dir with JPEG files ({jpegs[0]})")
+        if cfg.write_frames and not cfg.no_text:
+            _cv2("the text overlay on --write_frames (--no_text not set)")
         self.est = estimator
         self.cfg = cfg
         if cfg.num_devices > 1:
@@ -589,14 +587,13 @@ class RtPosePipeline:
             if not cfg.no_text:
                 canvas = self._overlay_text(canvas, f)
         if cfg.write_frames:
-            cv2 = _cv2("--write_frames")
             name = (
                 f"frame{f.video_frame_number:06d}.jpg"
                 if not cfg.image_dir or f.source_path is None
                 else os.path.splitext(os.path.basename(f.source_path))[0] + ".jpg"
             )
-            cv2.imwrite(os.path.join(cfg.write_frames, name),
-                        canvas, [int(cv2.IMWRITE_JPEG_QUALITY), 98])
+            with open(os.path.join(cfg.write_frames, name), "wb") as fo:
+                fo.write(encode_jpeg(canvas, 98))
         if cfg.write_json:
             name = (
                 f"frame{f.video_frame_number:06d}.json"

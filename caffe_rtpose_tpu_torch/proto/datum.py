@@ -5,10 +5,13 @@ Parity with pycaffe's ``caffe.io.datum_to_array`` / ``array_to_datum``
 ``ReadImageToDatum`` helpers (src/caffe/util/io.cpp:125-248), built on the
 clean-room wire codec.
 
-A copy of ``caffe_rtpose_tpu/proto/datum.py``, except that encoded PNG
-datums are written and read without OpenCV (``pipeline/image_io.py``'s
-``encode_png``/``decode_png``); other encodings (JPEG) go through ``cv2``,
-and without it raise ``ImportError`` naming the format.
+A copy of ``caffe_rtpose_tpu/proto/datum.py``, except that encoded datums
+are written and read without OpenCV: PNG by ``pipeline/image_io.py``'s
+``encode_png``/``decode_png``, JPEG by the port's codec
+(``pipeline/jpeg.py``, the bytes and pixels of ``cv2.imencode`` at its
+default quality 95 and ``cv2.imdecode``).  Other encodings go through
+``cv2`` where it is installed and raise ``ImportError`` naming the format
+without it.
 """
 
 from __future__ import annotations
@@ -60,11 +63,12 @@ def parse_datum(buf: bytes) -> dict:
 
 
 def _cv2(fmt: str):
+    """OpenCV, for the encodings other than PNG and JPEG."""
     try:
         import cv2
     except ImportError as e:
         raise ImportError(f"{fmt!r}-encoded datums need OpenCV (cv2), which is not installed; "
-                          "use PNG (--encode_type png) or raw datums") from e
+                          "use png or jpg (--encode_type) or raw datums") from e
     return cv2
 
 
@@ -78,6 +82,10 @@ def image_to_datum(img_bgr: np.ndarray, label: int = 0, encode_fmt: str = "") ->
 
             data = encode_png(img_bgr[:, :, 0] if img_bgr.ndim == 3 and img_bgr.shape[2] == 1
                               else img_bgr)
+        elif fmt in ("jpg", "jpeg"):
+            from ..pipeline.jpeg import encode_jpeg
+
+            data = encode_jpeg(img_bgr)
         else:
             ok, buf = _cv2(fmt).imencode("." + fmt, img_bgr)
             if not ok:
@@ -104,8 +112,12 @@ def datum_to_image(datum: dict) -> np.ndarray:
         gray = int(datum.get("channels", 3)) == 1
         if data.startswith(PNG_SIGNATURE):
             img = decode_png(data, gray=gray)
+        elif data.startswith(b"\xff\xd8"):
+            from ..pipeline.jpeg import decode_jpeg
+
+            img = decode_jpeg(data, gray=gray, name="encoded datum")
         else:
-            cv2 = _cv2("jpeg")
+            cv2 = _cv2("non-PNG, non-JPEG")
             img = cv2.imdecode(np.frombuffer(data, np.uint8),
                                cv2.IMREAD_GRAYSCALE if gray else cv2.IMREAD_COLOR)
             if img is None:

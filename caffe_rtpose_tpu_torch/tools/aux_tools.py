@@ -16,10 +16,11 @@
         --blobs fc7,prob --out feats.npz --iterations 2 [--device cpu]
 
 Images are read without OpenCV (``core/data_layers.read_image``: PNG and BMP
-in numpy, JPEG through ``cv2`` where it is installed) and resized with
-``resize_linear``, ``cv2.resize``'s INTER_LINEAR in f32 (within one u8 level
-of OpenCV's fixed-point sums).  ``--encoded`` Datums are PNG, written and
-read without OpenCV (``proto/datum.py``).  ``extract_features`` builds the
+in numpy, JPEG by the port's codec) and resized with ``resize_linear``,
+``cv2.resize``'s INTER_LINEAR in f32 (within one u8 level of OpenCV's
+fixed-point sums).  ``--encoded`` Datums are PNG, or JPEG with
+``--encode_type jpg`` (quality 95, the bytes ``cv2.imencode`` writes), both
+written and read without OpenCV (``proto/datum.py``).  ``extract_features`` builds the
 net on the card unless ``--device cpu``; HDF5 packs need ``h5py``.
 """
 

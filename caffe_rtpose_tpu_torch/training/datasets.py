@@ -14,8 +14,9 @@ ring) with host-side Python sources feeding the jitted train step:
   to the card from pinned host memory on a side CUDA stream.
 
 The port of ``caffe_rtpose_tpu/training/datasets.py`` without OpenCV: images
-are read by ``pipeline/image_io.py`` (PNG and BMP in numpy; JPEG through
-``cv2`` where it is installed) and the synthetic figures are drawn in numpy.
+are read by ``pipeline/image_io.py`` (PNG and BMP in numpy, JPEG by the
+port's codec; a mask is read gray, as ``cv2.IMREAD_GRAYSCALE``) and the
+synthetic figures are drawn in numpy.
 ``h5py`` is imported only by :class:`HDF5Source`.
 """
 
@@ -97,7 +98,7 @@ class JsonPoseSource:
         meta = Meta(people=people, scale_self=float(rec.get("scale_self", 1.0)))
         mask = None
         if rec.get("mask"):
-            mask = np.ascontiguousarray(read_image(os.path.join(self.root, rec["mask"]))[:, :, 0])
+            mask = read_image(os.path.join(self.root, rec["mask"]), gray=True)
         return img, meta, mask
 
 

@@ -8,6 +8,12 @@ Phases, each of which raises (non-zero exit) on failure:
 1. device    - the card's name and power limit (nvidia-smi), torch/CUDA
                versions and the nvcc path; refuses to run without CUDA.
 2. build     - builds the CUDA kernels from csrc/ with nvcc.
+   jpeg      - the port's host JPEG codec (csrc/jpeg_codec.cpp) built with
+               g++: the sha256 of its q95 encode of three seeded frames
+               (tests/jpeg_frames.py) and of their decodes equal to the
+               digests tests/test_torch_jpeg.py holds against cv2; decode
+               and encode host ms (median of 20) of a 1280x720 and a 640x480
+               q95 4:2:0 frame.
 3. kernels   - each hand-written kernel against its plain PyTorch version on
                the card, at the estimators' shapes (COCO 1 and 3 scales, MPI,
                small and ragged), at the estimator's input (the 18-channel
@@ -47,11 +53,16 @@ Phases, each of which raises (non-zero exit) on failure:
                and 1920x1080 warped to 1280x720 first.
    pipeline  - the main path: RtPosePipeline at bf16 batch 8, no frame
                drops, 16 synthetic 1280x720 frames (8 through frame_iter, 8
-               as PNG files the script encodes with zlib), each frame's
-               JSON equal to estimate() on the same frame; the kernel
+               as PNG files the script encodes with zlib, the same 8 as q95
+               JPEG files, cv2 blocked), each frame's JSON equal to
+               estimate() on the same frame (a JPEG's as read_image reads
+               it); the kernel
                wrappers' counters zeroed before its estimator exists and
                read after (the eager pass and the capture; the card runs
-               the replays); then 64 frames for FPS and per-stage ms.
+               the replays); then 64 frames through frame_iter, as PNG
+               files and as JPEG files, for FPS and per-stage ms, and the
+               producer thread's work a frame (read, warp_to_display,
+               make_input) timed alone for each source.
    files     - the model files of the main path: the COCO deploy prototxt
                (proto.prototxt.dump_file) and the calibrated weights as a
                caffemodel (Net.save_caffemodel, ~209 MB), in a temporary
@@ -64,7 +75,13 @@ Phases, each of which raises (non-zero exit) on failure:
                at their 656x368), exit 0, no fallback warning, one JSON
                file a frame, the overflow refetch count printed; then the
                same on those canvases upscaled to 1280x720 (resize_area),
-               which the CLI downscales to the net.
+               which the CLI downscales to the net; then those 1280x720
+               frames as q95 JPEGs with --write_frames --no_text, cv2
+               blocked: every JSON equal to estimate() on read_image of its
+               JPEG, every frame written the bytes encode_jpeg gives at q98
+               for its canvas and decoding within JPEG_Q98_PSNR of it, the
+               hand-kernel launches equal to the PNG run's; the same JPEG
+               run on the 656x368 canvases.
    serving   - serving bundles (serving.py): the bf16 batch-8 estimator
                built from those files, exported (time, file sizes), loaded
                cold as an ExportedPose (time) with the kernel counters zeroed
@@ -84,7 +101,8 @@ Phases, each of which raises (non-zero exit) on failure:
                graphs) against it.
    eval      - eval run-list over the cli phase's PNG frames with its model
                files (bf16), and joint-diff against the cli phase's JSON:
-               PARITY OK with the joints compared.
+               PARITY OK with the joints compared; the same over the JPEG
+               cli run's 656x368 frames, joints compared.
    train     - (after every other phase) CPM training, f32 with TF32 off:
                make_label_fn on the card
                against transformer.generate_label_map on the host (batch
@@ -627,6 +645,84 @@ def phase_build():
             print(f"[build] HGMMA (wgmma) instructions in the SASS: {counts}")
             check(counts.get("conv1_block_kernel", 0) > 0, "conv1_block_kernel has no wgmma")
     return secs
+
+
+JPEG_TIMED_REPS = 20
+
+
+class no_cv2:
+    """``sys.modules["cv2"] = None`` for a block: an ``import cv2`` there
+    raises ImportError (the card's machine has no OpenCV either)."""
+
+    def __enter__(self):
+        self.saved = sys.modules.get("cv2", False)
+        sys.modules["cv2"] = None
+
+    def __exit__(self, *exc):
+        if self.saved is False:
+            del sys.modules["cv2"]
+        else:
+            sys.modules["cv2"] = self.saved
+
+
+def jpeg_frames_module():
+    """tests/jpeg_frames.py: the seeded frames and the digests
+    tests/test_torch_jpeg.py holds against cv2 (numpy only)."""
+    import os
+
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import jpeg_frames
+
+    return jpeg_frames
+
+
+def phase_jpeg(card):
+    """The port's JPEG codec (csrc/jpeg_codec.cpp, host C++) on the card's
+    host: its g++ build, the sha256 of the encode (q95) of three seeded
+    frames and of their decodes against the digests pinned with cv2, and
+    decode / encode ms (median of 20) of a 1280x720 and a 640x480 q95 4:2:0
+    frame."""
+    from caffe_rtpose_tpu_torch import _build
+    from caffe_rtpose_tpu_torch.pipeline import jpeg
+
+    tag = "[jpeg]"
+    jf = jpeg_frames_module()
+    with no_cv2():
+        t0 = time.perf_counter()
+        jpeg.load()
+        build_s = time.perf_counter() - t0
+        log = _build.build_log.get("jpeg_codec", "")
+        built = bool(log)
+        digests = {"encode": [], "decode": []}
+        timed = {}
+        for (h, w, seed) in jf.DIGEST_FRAMES:
+            img = jf.frame(h, w, seed)
+            data = jpeg.encode_jpeg(img, jf.DIGEST_QUALITY)
+            digests["encode"].append(jf.sha256(data))
+            digests["decode"].append(jf.sha256(jpeg.decode_jpeg(data)))
+            if (h, w) in ((720, 1280), (480, 640)):
+                dec, enc = [], []
+                for _ in range(JPEG_TIMED_REPS):
+                    t0 = time.perf_counter()
+                    jpeg.decode_jpeg(data)
+                    dec.append((time.perf_counter() - t0) * 1000.0)
+                    t0 = time.perf_counter()
+                    jpeg.encode_jpeg(img, jf.DIGEST_QUALITY)
+                    enc.append((time.perf_counter() - t0) * 1000.0)
+                timed[f"{w}x{h}"] = dict(decode_ms=statistics.median(dec),
+                                         encode_ms=statistics.median(enc), bytes=len(data))
+    ok = all(tuple(digests[k]) == tuple(jf.DIGESTS[k]) for k in digests)
+    print(f"{tag} codec {'built' if built else 'loaded'} in {build_s:.2f} s "
+          f"({log.strip().splitlines()[-1] if built else 'cached'}); digests of "
+          f"{len(jf.DIGEST_FRAMES)} seeded frames (encode q{jf.DIGEST_QUALITY}, decode) "
+          f"{'equal' if ok else 'DIFFER from'} those pinned with cv2; host ms (median of "
+          f"{JPEG_TIMED_REPS}), " + "; ".join(
+              f"{k} q{jf.DIGEST_QUALITY} 4:2:0 ({v['bytes']} B): decode {v['decode_ms']:.3f}, "
+              f"encode {v['encode_ms']:.3f}" for k, v in timed.items()) + f"; {card}")
+    check(ok, f"{tag} the card host's codec differs from cv2: {digests} against {jf.DIGESTS}")
+    return dict(build_s=build_s, built=built, digests_equal=ok, host_ms=timed, card=card)
 
 
 def lowres_input(rs, s, h, w, c, layout, device):
@@ -1641,28 +1737,50 @@ def phase_preprocess(rs):
 def phase_pipeline(weights, device="cuda", net_resolution=(656, 368), stages=6,
                    n_frames=16, batch=BF16_BATCH):
     """RtPosePipeline at bf16 batch 8 with no frame drops: half the frames
-    through frame_iter, half as PNG files; each frame's JSON against
-    estimate() on the same frame.  The main path: the counters are zeroed
-    before its estimator exists and read after."""
+    through frame_iter, half as PNG files and the same half as JPEG files
+    (q95, the port's codec, cv2 blocked); each frame's JSON against
+    estimate() on the same frame (for a JPEG, on read_image of its file).
+    Then PIPELINE_TIMED_FRAMES frames timed three ways, through frame_iter,
+    as PNG files and as JPEG files, and the producer thread's work a frame
+    (read, warp_to_display, make_input) timed alone for each source.
+    The main path: the counters are zeroed before its estimator exists and
+    read after."""
     import os
+    import shutil
     import tempfile
 
     import torch
 
     from caffe_rtpose_tpu_torch.models.cpm import make_pose_deploy_net
     from caffe_rtpose_tpu_torch.ops import conv1_cuda, nms_cuda
+    from caffe_rtpose_tpu_torch.pipeline.image_io import read_image
+    from caffe_rtpose_tpu_torch.pipeline.jpeg import encode_jpeg
     from caffe_rtpose_tpu_torch.pipeline.runner import (PipelineConfig, RtPosePipeline,
-                                                        write_json_file)
+                                                        list_image_dir, write_json_file)
     from caffe_rtpose_tpu_torch.pose.estimator import PoseEstimator
+    from caffe_rtpose_tpu_torch.pose.preprocess import warp_to_display
 
     tag = f"[pipeline bf16 batch {batch}]"
     frames = frames_720p(np.random.RandomState(5), n_frames)
     half = n_frames // 2
     work = tempfile.mkdtemp(prefix="chip_smoke_pipeline_")
-    png_dir = os.path.join(work, "png")
-    os.makedirs(png_dir)
-    for i, f in enumerate(frames[half:]):
-        write_png(os.path.join(png_dir, f"img{i:03d}.png"), f)
+    dirs = {name: os.path.join(work, name) for name in ("png", "jpg", "timed_png", "timed_jpg")}
+    for d in dirs.values():
+        os.makedirs(d)
+    for i, f in enumerate(frames):
+        write_png(os.path.join(dirs["timed_png"], f"img{i:03d}.png"), f)
+        with open(os.path.join(dirs["timed_jpg"], f"img{i:03d}.jpg"), "wb") as fo:
+            fo.write(encode_jpeg(f, 95))
+    for ext in ("png", "jpg"):
+        for i in range(half, n_frames):
+            shutil.copy(os.path.join(dirs[f"timed_{ext}"], f"img{i:03d}.{ext}"),
+                        os.path.join(dirs[ext], f"img{i - half:03d}.{ext}"))
+        # the timed directories repeat the n_frames frames, as the timed
+        # frame_iter run does
+        for i in range(n_frames, PIPELINE_TIMED_FRAMES):
+            shutil.copy(os.path.join(dirs[f"timed_{ext}"], f"img{i % n_frames:03d}.{ext}"),
+                        os.path.join(dirs[f"timed_{ext}"], f"img{i:03d}.{ext}"))
+    png_dir, jpg_dir = dirs["png"], dirs["jpg"]
 
     conv1_cuda.launches = nms_cuda.launches = nms_cuda.upsample_launches = 0
     proto = make_pose_deploy_net("COCO", stages=stages)
@@ -1672,16 +1790,20 @@ def phase_pipeline(weights, device="cuda", net_resolution=(656, 368), stages=6,
     est.estimate(frames[0], 1280, 720)  # captures the graph, builds the host assembly
     runs = {}
     timed = [frames[i % n_frames] for i in range(PIPELINE_TIMED_FRAMES)]
-    for name, source in (("frame_iter", frames[:half]), ("png", png_dir), ("timed", timed)):
+    for name, source in (("frame_iter", frames[:half]), ("png", png_dir), ("jpg", jpg_dir),
+                         ("timed", timed), ("timed_png", dirs["timed_png"]),
+                         ("timed_jpg", dirs["timed_jpg"])):
+        from_dir = isinstance(source, str)
         cfg = PipelineConfig(resolution=(1280, 720), net_resolution=net_resolution,
                              no_display=True, no_frame_drops=True,
                              write_json=os.path.join(work, f"json_{name}"),
-                             image_dir=source if name == "png" else "")
-        pipe = RtPosePipeline(est, cfg)
-        if name != "png":
-            pipe.frame_iter = ((i, f, None) for i, f in enumerate(source))
-        n = pipe.run()
-        want = len(timed) if name == "timed" else half
+                             image_dir=source if from_dir else "")
+        with no_cv2():
+            pipe = RtPosePipeline(est, cfg)
+            if not from_dir:
+                pipe.frame_iter = ((i, f, None) for i, f in enumerate(source))
+            n = pipe.run()
+        want = len(timed) if name.startswith("timed") else half
         check(n == want, f"{tag} {name}: {n} frames processed of {want}")
         stages_ms = {k: 1000.0 * float(np.mean([s[k] for s in pipe.stats])) for k in pipe.stats[0]}
         runs[name] = dict(frames=n, fps=pipe.fps, stages_ms=stages_ms)
@@ -1691,7 +1813,7 @@ def phase_pipeline(weights, device="cuda", net_resolution=(656, 368), stages=6,
     replayed = dict(conv1_block=replayed["conv1_block_kernel"],
                     peak_mask_fused=replayed["peak_mask_kernel"],
                     upsample_peak_keys=replayed["upsample_peak_keys_kernel"])
-    n_run = half * 2 + len(timed) + 1
+    n_run = half * 3 + 3 * len(timed) + 1
     # one conv1 block and one peak mask a batch pass; an overflow refetch is
     # a one-frame pass of both
     check(launches["conv1_block"] >= 1 and launches["peak_mask_fused"] >= 1
@@ -1701,23 +1823,49 @@ def phase_pipeline(weights, device="cuda", net_resolution=(656, 368), stages=6,
           f"{replayed} for {n_run} frames")
     # every frame's JSON against estimate() on the same frame, in order
     names = ([f"json_frame_iter/frame{i:06d}.json" for i in range(half)]
-             + [f"json_png/img{i:03d}.json" for i in range(n_frames - half)])
+             + [f"json_png/img{i:03d}.json" for i in range(n_frames - half)]
+             + [f"json_jpg/img{i:03d}.json" for i in range(n_frames - half)])
+    jpgs = [read_image(os.path.join(jpg_dir, f"img{i:03d}.jpg")) for i in range(n_frames - half)]
     n_people = []
-    for f, name in zip(frames, names):
+    for f, name in zip(frames + jpgs, names):
         res, pf = est.estimate(f, 1280, 720)
         ref = os.path.join(work, "ref.json")
         write_json_file(ref, res.joints, res.num_people, float(np.float32(pf.scale)), est.num_parts)
         with open(os.path.join(work, name)) as a, open(ref) as b:
             check(a.read() == b.read(), f"{tag} {name} differs from estimate() on its frame")
         n_people.append(res.num_people)
+    # the producer thread's work a frame, alone (no other thread running):
+    # read (PNG or JPEG), warp_to_display, make_input
+    producer_ms = {}
+    for name in ("timed", "timed_png", "timed_jpg"):
+        paths = list_image_dir(dirs[name]) if name in dirs else [None] * len(timed)
+        ms, read_ms = [], []
+        for f, path in zip(timed, paths):
+            t0 = time.perf_counter()
+            img = f if path is None else read_image(path)
+            t1 = time.perf_counter()
+            display, _ = warp_to_display(img, 1280, 720)
+            est.make_input(display)
+            ms.append(1000.0 * (time.perf_counter() - t0))
+            read_ms.append(1000.0 * (t1 - t0))
+        producer_ms[name] = dict(mean=float(np.mean(ms)), median=float(np.median(ms)),
+                                 read_mean=float(np.mean(read_ms)))
     print(f"{tag} {n_frames} 1280x720 frames ({half} through frame_iter, {n_frames - half} as "
-          f"PNG files; then {len(timed)} through frame_iter, timed): " + "; ".join(
+          f"PNG files, the same {n_frames - half} as q95 JPEG files; then {len(timed)} through "
+          f"frame_iter, as PNG files and as q95 JPEG files, timed): " + "; ".join(
               f"{k} ({v['frames']} frames): {v['fps']:.2f} FPS, stage ms " + ", ".join(
                   f"{s} {m:.2f}" for s, m in v["stages_ms"].items()) for k, v in runs.items())
           + f"; every JSON equals estimate() on its frame; people {n_people}; wrapper launches "
           f"{launches} (the eager pass and the capture), launches by the graphs' replays "
           f"{replayed}")
-    return dict(runs=runs, launches=launches, replayed_launches=replayed, people=n_people)
+    print(f"{tag} producer work a frame alone over {len(timed)} frames (read, warp_to_display, "
+          f"make_input): " + "; ".join(
+              f"{k}: mean {v['mean']:.2f} ms (median {v['median']:.2f}, of which read "
+              f"{v['read_mean']:.2f}), at most {1000.0 / v['mean']:.1f} FPS"
+              for k, v in producer_ms.items()))
+    shutil.rmtree(work, ignore_errors=True)
+    return dict(runs=runs, launches=launches, replayed_launches=replayed, people=n_people,
+                producer_ms=producer_ms)
 
 
 def phase_files(weights, work, device="cuda", net_resolution=(656, 368), stages=6,
@@ -1775,33 +1923,60 @@ def phase_files(weights, work, device="cuda", net_resolution=(656, 368), stages=
                 write_s=write_s, parse_s=parse_s, build_s=build_s, bit_identical=all(same))
 
 
-def phase_cli(files, images, extra=()):
+def phase_cli(files, images, extra=(), jpeg=False):
     """tools.rtpose.main with the ``files`` phase's prototxt and caffemodel
     on ``images`` as PNG frames, displayed at their own size (``extra``:
-    more flags)."""
+    more flags); the kernel counters zeroed just before and read just after.
+    With ``jpeg``: the frames as q95 JPEG files (the port's encoder), cv2
+    blocked, plus --write_frames --no_text; every frame's JSON equal to
+    estimate() on read_image of its JPEG, and every frame written the bytes
+    encode_jpeg gives at q98 for the canvas the pipeline rendered, which it
+    decodes to within JPEG_Q98_PSNR."""
     import contextlib
     import io
     import os
     import tempfile
 
+    from caffe_rtpose_tpu_torch.pipeline import runner
+    from caffe_rtpose_tpu_torch.pipeline.jpeg import encode_jpeg
     from caffe_rtpose_tpu_torch.tools import rtpose
 
-    tag = "[cli]"
+    tag = "[cli jpeg]" if jpeg else "[cli]"
+    ext = "jpg" if jpeg else "png"
     work = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     img_dir, out_dir = os.path.join(work, "img"), os.path.join(work, "json")
+    frames_dir = os.path.join(work, "frames")
     os.makedirs(img_dir)
     for i, f in enumerate(images):
-        write_png(os.path.join(img_dir, f"f{i:02d}.png"), f)
+        if jpeg:
+            with open(os.path.join(img_dir, f"f{i:02d}.jpg"), "wb") as fo:
+                fo.write(encode_jpeg(f, 95))
+        else:
+            write_png(os.path.join(img_dir, f"f{i:02d}.png"), f)
     n_frames = len(images)
     h, w = images[0].shape[:2]
+    flags = [*extra, *(("--write_frames", frames_dir, "--no_text") if jpeg else ())]
+    canvases_seen = []
+    encode = runner.encode_jpeg
+
+    def recording(canvas, quality):
+        canvases_seen.append((np.array(canvas), quality))
+        return encode(canvas, quality)
+
     buf, err = io.StringIO(), io.StringIO()
+    zero_counts()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
-        rc = rtpose.main(["--caffeproto", files["proto"], "--caffemodel", files["model"],
-                          "--image_dir", img_dir, "--write_json", out_dir,
-                          "--resolution", f"{w}x{h}", "--frame_limit", str(n_frames),
-                          "--no_display", "--no_frame_drops", *extra])
+    runner.encode_jpeg = recording
+    try:
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err), no_cv2():
+            rc = rtpose.main(["--caffeproto", files["proto"], "--caffemodel", files["model"],
+                              "--image_dir", img_dir, "--write_json", out_dir,
+                              "--resolution", f"{w}x{h}", "--frame_limit", str(n_frames),
+                              "--no_display", "--no_frame_drops", *flags])
+    finally:
+        runner.encode_jpeg = encode
     secs = time.perf_counter() - t0
+    launches = read_counts()
     text = buf.getvalue()
     m = re.search(r"(\d+) overflow refetches", text)
     out_files = sorted(os.listdir(out_dir))
@@ -1809,14 +1984,80 @@ def phase_cli(files, images, extra=()):
     for f in out_files:
         with open(os.path.join(out_dir, f)) as fh:
             people += fh.read().count('"joints"')
-    print(f"{tag} rtpose --caffeproto {files['proto']} --caffemodel {files['model']}: exit {rc}, "
-          f"{len(out_files)} JSON files, {people} people, {secs:.1f} s; "
+    print(f"{tag} rtpose --caffeproto {files['proto']} --caffemodel {files['model']} on "
+          f"{n_frames} {w}x{h} {ext.upper()} frames{' ' + ' '.join(flags) if flags else ''}: "
+          f"exit {rc}, {len(out_files)} JSON files, {people} people, {secs:.1f} s, hand-kernel "
+          f"wrapper launches {launches}; "
           + " | ".join(line for line in (text + err.getvalue()).splitlines() if line.strip()))
     check(rc == 0 and len(out_files) == n_frames, f"{tag} exit {rc}, {len(out_files)} files")
     check("not found" not in err.getvalue(), f"{tag} the CLI fell back: {err.getvalue()}")
     check(m is not None, f"{tag} no overflow refetch count printed")
-    return dict(exit=rc, files=len(out_files), people=people, refetches=int(m.group(1)),
-                seconds=secs, image_dir=img_dir, json_dir=out_dir, resolution=f"{w}x{h}")
+    check(launches["conv1_block"] > 0 and launches["peak_mask_fused"] > 0,
+          f"{tag} a hand kernel of the path never launched: {launches}")
+    result = dict(exit=rc, files=len(out_files), people=people, refetches=int(m.group(1)),
+                  seconds=secs, image_dir=img_dir, json_dir=out_dir, resolution=f"{w}x{h}",
+                  format=ext, launches=launches)
+    if jpeg:
+        result["written"] = cli_jpeg_checks(tag, files, img_dir, out_dir, frames_dir,
+                                            canvases_seen, n_frames, w, h, extra)
+    return result
+
+
+JPEG_Q98_PSNR = 35.0  # dB, a written q98 4:2:0 frame against its canvas
+
+
+def cli_jpeg_checks(tag, files, img_dir, out_dir, frames_dir, canvases_seen, n_frames, w, h,
+                    extra=()):
+    """The JPEG cli run's JSON against estimate() on each JPEG as read_image
+    reads it (an estimator in the CLI's configuration: ``extra``'s
+    --device and --net_resolution, else the CLI's defaults), and its written
+    frames against the canvases rendered."""
+    import os
+
+    import torch
+
+    from caffe_rtpose_tpu_torch.pipeline.image_io import read_image
+    from caffe_rtpose_tpu_torch.pipeline.jpeg import decode_jpeg, encode_jpeg
+    from caffe_rtpose_tpu_torch.pipeline.runner import write_json_file
+    from caffe_rtpose_tpu_torch.pose.estimator import PoseEstimator
+
+    def flag(name, default):
+        return extra[extra.index(name) + 1] if name in extra else default
+
+    net_w, net_h = (int(v) for v in flag("--net_resolution", "656x368").split("x"))
+    est = PoseEstimator(files["proto"], weights=files["model"], net_resolution=(net_w, net_h),
+                        input_u8=True, pair_cap=32, dtype=torch.bfloat16,
+                        device=flag("--device", "cuda"))
+    ref = os.path.join(os.path.dirname(out_dir), "ref.json")
+    for i in range(n_frames):
+        res, pf = est.estimate(read_image(os.path.join(img_dir, f"f{i:02d}.jpg")), w, h)
+        write_json_file(ref, res.joints, res.num_people, float(np.float32(pf.scale)),
+                        est.num_parts)
+        with open(os.path.join(out_dir, f"f{i:02d}.json")) as a, open(ref) as b:
+            check(a.read() == b.read(), f"{tag} f{i:02d}.json differs from estimate() on "
+                                        "read_image of its JPEG")
+    del est
+    written = sorted(os.listdir(frames_dir))
+    check(written == [f"f{i:02d}.jpg" for i in range(n_frames)]
+          and len(canvases_seen) == n_frames, f"{tag} frames written: {written}")
+    psnr, max_err = [], []
+    for name, (canvas, quality) in zip(written, canvases_seen):
+        with open(os.path.join(frames_dir, name), "rb") as f:
+            data = f.read()
+        check(quality == 98 and data == encode_jpeg(canvas, 98),
+              f"{tag} {name} is not encode_jpeg(canvas, 98) of its canvas")
+        back = decode_jpeg(data).astype(np.float64)
+        d = back - canvas.astype(np.float64)
+        mse = float(np.mean(d * d))
+        psnr.append(float("inf") if mse == 0 else float(10.0 * np.log10(255.0 ** 2 / mse)))
+        max_err.append(int(np.abs(d).max()))
+    print(f"{tag} every JSON equals estimate() on read_image of its JPEG; {n_frames} frames "
+          f"written (--write_frames --no_text), each encode_jpeg(canvas, 98) of the canvas "
+          f"rendered, decoded PSNR {min(psnr):.2f}-{max(psnr):.2f} dB against it (largest "
+          f"difference {max(max_err)} levels)")
+    check(min(psnr) >= JPEG_Q98_PSNR, f"{tag} a written frame is {min(psnr):.2f} dB from its "
+                                      f"canvas, under {JPEG_Q98_PSNR} dB")
+    return dict(frames=n_frames, psnr_db=psnr, max_abs_err=max_err)
 
 
 def bundle_sizes(path):
@@ -2095,25 +2336,27 @@ def phase_pool(est, batch=BF16_BATCH, n_passes=4):
 
 
 def phase_eval(files, cli, work, extra=()):
-    """eval run-list over the cli phase's PNG frames (the CLI's model files,
-    bf16) and joint-diff against the JSON rtpose --write_json wrote there."""
+    """eval run-list over a cli run's frames (PNG, or JPEG with cv2 blocked;
+    the CLI's model files, bf16) and joint-diff against the JSON rtpose
+    --write_json wrote there, with joints compared."""
     import contextlib
     import io
     import os
 
     from caffe_rtpose_tpu_torch.tools import eval_pose
 
-    tag = "[eval]"
+    fmt = cli.get("format", "png")
+    tag = f"[eval {fmt} {cli['resolution']}]"
     names = sorted(os.listdir(cli["image_dir"]))
-    lst = os.path.join(work, "image_list.txt")
+    lst = os.path.join(work, f"image_list_{fmt}_{cli['resolution']}.txt")
     w, h = cli["resolution"].split("x")
     with open(lst, "w") as f:
         for i, n in enumerate(names):
             f.write(f"{i} {i} {n} {h} {w}\n")
-    out = os.path.join(work, "json_eval")
+    out = os.path.join(work, f"json_eval_{fmt}_{cli['resolution']}")
     t0 = time.perf_counter()
     buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
+    with contextlib.redirect_stdout(buf), no_cv2():
         rc = eval_pose.main(["run-list", "--list", lst, "--image_root", cli["image_dir"],
                              "--out", out, "--caffeproto", files["proto"], "--caffemodel",
                              files["model"], "--dtype", "bfloat16", "--display",
@@ -2124,13 +2367,14 @@ def phase_eval(files, cli, work, extra=()):
     with contextlib.redirect_stdout(diff):
         rc_diff = eval_pose.main(["joint-diff", cli["json_dir"], out])
     text = diff.getvalue()
-    print(f"{tag} run-list over {len(names)} PNG frames in {run_s:.1f} s; joint-diff against "
+    print(f"{tag} run-list over {len(names)} {cli['resolution']} {fmt.upper()} frames in "
+          f"{run_s:.1f} s; joint-diff against "
           f"rtpose --write_json: " + " | ".join(line for line in text.splitlines() if line))
     check(rc_diff == 0 and "PARITY OK" in text, f"{tag} joint-diff: {text}")
     m = re.search(r"joints: (\d+)/(\d+) matched", text)
-    check(m is not None and int(m.group(2)) > 0 and cli["people"] > 0,
+    check(m is not None and (int(m.group(2)) > 0) == (cli["people"] > 0) and cli["people"] > 0,
           f"{tag} no joints compared ({cli['people']} people in the CLI's JSON)")
-    return dict(images=len(names), seconds=run_s, parity=True,
+    return dict(images=len(names), format=fmt, seconds=run_s, parity=True,
                 report=[line for line in text.splitlines() if line])
 
 
@@ -4062,6 +4306,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
+    jpeg = phase_jpeg(info["nvidia_smi"])
     t_mask = phase_kernels()
     t_up = phase_upsample_keys()
     t_conv1 = phase_conv1()
@@ -4075,16 +4320,31 @@ def main() -> int:
         # find people there, so the JSON the serving and eval phases compare
         # holds joints
         cli = phase_cli(files, [f[0] for f in frames])
+        # the same canvases as q95 JPEGs: the eval over them compares joints
+        cli_jpeg = phase_cli(files, [f[0] for f in frames], jpeg=True)
+        check(cli_jpeg["launches"] == cli["launches"],
+              f"[cli jpeg] hand-kernel launches {cli_jpeg['launches']} against the PNG "
+              f"run's {cli['launches']}")
         # the same canvases upscaled to 1280x720 by resize_area (INTER_AREA's
         # linear branch): the CLI then downscales them to the net and warps
         # its display at a size other than the net's
         from caffe_rtpose_tpu_torch.pose.preprocess import resize_area
 
-        cli_720p = phase_cli(files, [resize_area(f[0], 1280, 720) for f in frames])
+        frames_720 = [resize_area(f[0], 1280, 720) for f in frames]
+        cli_720p = phase_cli(files, frames_720)
+        # the same frames as q95 JPEGs, with --write_frames --no_text: the
+        # same program, so the same hand-kernel launches
+        cli_720p_jpeg = phase_cli(files, frames_720, jpeg=True)
+        check(cli_720p_jpeg["launches"] == cli_720p["launches"],
+              f"[cli jpeg] hand-kernel launches {cli_720p_jpeg['launches']} against the PNG "
+              f"run's {cli_720p['launches']}")
         serving, serving_est, serving_graph = phase_serving(weights, files, cli, work)
         pool = phase_pool(serving_est)
         del serving_est
         evaluation = phase_eval(files, cli, work)
+        # over the 656x368 JPEGs, where the run finds people: the 1280x720
+        # JPEG run found none (PERF.md), so an eval there compares no joints
+        evaluation_jpeg = phase_eval(files, cli_jpeg, work)
     graph_ests.append(serving_graph)
     del serving_graph
     phase_graph_launches(graph_ests)
@@ -4127,9 +4387,13 @@ def main() -> int:
     print(json.dumps({"files": files}))
     print(json.dumps({"cli": cli}))
     print(json.dumps({"cli_720p": cli_720p}))
+    print(json.dumps({"cli_jpeg": cli_jpeg}))
+    print(json.dumps({"cli_720p_jpeg": cli_720p_jpeg}))
+    print(json.dumps({"jpeg": jpeg}))
     print(json.dumps({"serving": serving}))
     print(json.dumps({"pool": pool}))
     print(json.dumps({"eval": evaluation}))
+    print(json.dumps({"eval_jpeg": evaluation_jpeg}))
     print(json.dumps({"train": train}))
     print(json.dumps({"framework": framework}))
     print(json.dumps({"train_bf16": train_bf16}))
@@ -4156,6 +4420,9 @@ def main() -> int:
                                                     sm["replayed"]["peak_mask_kernel"]),
                             "bundle exported on the cpu": (sc["launches"]["peak_mask_fused"],
                                                            sc["replayed"]["peak_mask_kernel"]),
+                            "cli jpeg": (cli_jpeg["launches"]["peak_mask_fused"], None),
+                            "cli 1280x720 jpeg": (cli_720p_jpeg["launches"]["peak_mask_fused"],
+                                                  None),
                             **{f"{path} (by rank)": (v, None) for path, v in
                                parallel["k1_launches_by_path"].items()}},
         "peak_mask_fused_3scale": {"slice 3-scale": (three["launches"], None),
@@ -4169,7 +4436,9 @@ def main() -> int:
                         "bundle bf16 batch 8": (sm["launches"]["conv1_block"],
                                                 sm["replayed"]["conv1_block_kernel"]),
                         "bundle exported on the cpu": (sc["launches"]["conv1_block"],
-                                                       sc["replayed"]["conv1_block_kernel"])},
+                                                       sc["replayed"]["conv1_block_kernel"]),
+                        "cli jpeg": (cli_jpeg["launches"]["conv1_block"], None),
+                        "cli 1280x720 jpeg": (cli_720p_jpeg["launches"]["conv1_block"], None)},
     }
     entries = [
         ("peak_mask_fused", mask_src, f"{mask_pallas}:136", pipeline["launches"]["peak_mask_fused"],

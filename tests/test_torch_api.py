@@ -233,6 +233,24 @@ def test_io_helpers_match_jax(tmp_path):
     np.testing.assert_array_equal(api.datum_to_array(api.array_to_datum(u8, 3)), u8)
 
 
+def test_load_image_jpeg_matches_jax(tmp_path):
+    """caffe.io.load_image of JPEG files (4:2:0 colour, a gray file), in
+    colour and gray: the port's codec against JAX's cv2.imread."""
+    import cv2
+    from caffe_rtpose_tpu import api as japi
+
+    rs = np.random.RandomState(9)
+    img = rs.randint(0, 256, (19, 23, 3)).astype(np.uint8)
+    cv2.imwrite(str(tmp_path / "c.jpg"), img)
+    cv2.imwrite(str(tmp_path / "g.jpeg"), img[:, :, 1])
+    for name in ("c.jpg", "g.jpeg"):
+        for color in (True, False):
+            a = api.load_image(str(tmp_path / name), color)
+            b = japi.load_image(str(tmp_path / name), color)
+            assert a.shape == b.shape and a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+
+
 def test_draw_matches_jax():
     from caffe_rtpose_tpu import api as japi
 

@@ -108,6 +108,28 @@ def test_image_data_layer_matches_jax(tmp_path, resize):
     same_batches(*both(layer, "TRAIN"), atol=1.0 if resize else 0.0)
 
 
+@pytest.mark.parametrize("is_color", [True, False])
+def test_image_data_layer_jpeg_matches_jax(tmp_path, is_color):
+    """A JPEG list (4:2:0 colour files, odd sizes): the port's codec against
+    JAX's cv2.imread, IMREAD_COLOR or IMREAD_GRAYSCALE (libjpeg's Y plane):
+    equal batches."""
+    from caffe_rtpose_tpu_torch.pipeline.jpeg import encode_jpeg
+
+    rs = np.random.RandomState(1)
+    for i in range(3):
+        img = rs.randint(0, 256, (11, 13, 3)).astype(np.uint8)
+        img[:5] = img[:5] // 4 + 90  # a smoother band
+        (tmp_path / f"img{i}.jpg").write_bytes(encode_jpeg(img, 90))
+    (tmp_path / "list.txt").write_text("".join(f"img{i}.jpg {i}\n" for i in range(3)))
+    layer = {"name": "data", "type": "ImageData", "top": ["data", "label"],
+             "image_data_param": {"source": str(tmp_path / "list.txt"), "batch_size": 2,
+                                  "root_folder": str(tmp_path) + "/", "is_color": is_color},
+             "transform_param": {"mirror": True}}
+    p, j = both(layer, "TRAIN")
+    assert p.top_shapes["data"] == ((2, 3, 11, 13) if is_color else (2, 1, 11, 13))
+    same_batches(p, j)
+
+
 def test_memory_data_layer_matches_jax():
     from caffe_rtpose_tpu.core.net import Net as JNet
 
@@ -146,6 +168,25 @@ def test_window_data_layer_matches_jax(tmp_path):
     (tmp_path / "a.png").write_bytes(encode_png(rs.randint(0, 256, (40, 50, 3))
                                                 .astype(np.uint8)))
     (tmp_path / "win.txt").write_text(f"# 0\n{tmp_path}/a.png\n3 40 50\n3\n"
+                                      "1 0.9 5 5 30 30\n2 0.7 10 3 45 35\n0 0.1 0 0 10 10\n")
+    layer = {"name": "w", "type": "WindowData", "top": ["data", "label"],
+             "window_data_param": {"source": str(tmp_path / "win.txt"), "batch_size": 4,
+                                   "crop_size": 16, "fg_fraction": 0.5, "context_pad": 2,
+                                   "mirror": True}}
+    p, j = both(layer, "TRAIN")
+    # the warped crop: numpy bilinear against cv2's u8 resize, one level
+    same_batches(p, j, atol=1.0)
+
+
+def test_window_data_layer_jpeg_matches_jax(tmp_path):
+    """WindowData over a JPEG (JAX reads its windows' images with
+    cv2.imread, IMREAD_COLOR, the layer's only mode)."""
+    from caffe_rtpose_tpu_torch.pipeline.jpeg import encode_jpeg
+
+    rs = np.random.RandomState(0)
+    (tmp_path / "a.jpg").write_bytes(encode_jpeg(rs.randint(0, 256, (40, 50, 3))
+                                                 .astype(np.uint8), 95))
+    (tmp_path / "win.txt").write_text(f"# 0\n{tmp_path}/a.jpg\n3 40 50\n3\n"
                                       "1 0.9 5 5 30 30\n2 0.7 10 3 45 35\n0 0.1 0 0 10 10\n")
     layer = {"name": "w", "type": "WindowData", "top": ["data", "label"],
              "window_data_param": {"source": str(tmp_path / "win.txt"), "batch_size": 4,

@@ -160,6 +160,17 @@ def test_run_list_equals_estimate_per_image(tmp_path):
     """``eval run-list`` over PNG files (one smaller than the net region at
     the display size, so the INTER_AREA upscale runs) writes, per image, the
     JSON that estimate() of the same estimator gives."""
+    _run_list_case(tmp_path, "png")
+
+
+def test_run_list_over_jpegs(tmp_path):
+    """The same over JPEG files (COCO's format), read by the port's codec:
+    each image's JSON is estimate() on what JAX's run-list reads,
+    cv2.imread."""
+    _run_list_case(tmp_path, "jpg")
+
+
+def _run_list_case(tmp_path, ext):
     proto = make_pose_deploy_net("COCO", stages=2)
     net = Net(proto, device="cpu")
     rs = np.random.RandomState(3)
@@ -173,7 +184,7 @@ def test_run_list_equals_estimate_per_image(tmp_path):
     root.mkdir()
     lines = []
     for i, (h, w) in enumerate([(96, 160), (40, 52), (120, 90)]):
-        name = f"{1000 + i:012d}.png"
+        name = f"{1000 + i:012d}.{ext}"
         cv2.imwrite(str(root / name), (rs.rand(h, w, 3) * 255).astype(np.uint8))
         lines.append(f"{i} {1000 + i} {name} {h} {w}")
     lines.append("3 1003 missing.png 10 10")
@@ -189,7 +200,9 @@ def test_run_list_equals_estimate_per_image(tmp_path):
     people = 0
     for i in range(3):
         name = f"{1000 + i:012d}"
-        res, pf = est.estimate(read_image(str(root / f"{name}.png")), 96, 64)
+        img = read_image(str(root / f"{name}.{ext}"))
+        np.testing.assert_array_equal(img, cv2.imread(str(root / f"{name}.{ext}")))
+        res, pf = est.estimate(img, 96, 64)
         people += res.num_people
         ref = str(tmp_path / f"{name}_ref.json")
         write_json_file(ref, res.joints, res.num_people, pf.scale, est.num_parts)

@@ -74,12 +74,18 @@ def test_every_png_filter(tmp_path):
 
 
 def test_jpeg_through_cv2_and_named_without_it(tmp_path, monkeypatch):
+    """JPEG is read by the port's codec, cv2 blocked: the pixels cv2.imread
+    gave before the block, in colour and as the IMREAD_GRAYSCALE plane."""
     path = str(tmp_path / "f.jpg")
     cv2.imwrite(path, _image((16, 24, 3), 5))
-    np.testing.assert_array_equal(read_image(path), cv2.imread(path, cv2.IMREAD_COLOR))
+    ref = cv2.imread(path, cv2.IMREAD_COLOR)
+    ref_gray = cv2.imread(path, cv2.IMREAD_GRAYSCALE)
     monkeypatch.setitem(sys.modules, "cv2", None)
-    with pytest.raises(RuntimeError, match="f.jpg"):
-        read_image(path)
+    np.testing.assert_array_equal(read_image(path), ref)
+    np.testing.assert_array_equal(read_image(path, gray=True), ref_gray)
+    (tmp_path / "bad.jpg").write_bytes(b"\xff\xd8\xff")
+    with pytest.raises(ValueError, match="bad.jpg"):
+        read_image(str(tmp_path / "bad.jpg"))
 
 
 def test_refuses_what_it_cannot_read(tmp_path):

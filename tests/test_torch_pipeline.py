@@ -338,16 +338,26 @@ def test_options_that_need_what_is_not_ported_or_cv2(est, tmp_path, monkeypatch)
     assert isinstance(pool, DevicePool) and len(pool.replicas) == 2
     import sys
 
-    (tmp_path / "a.jpg").write_bytes(b"")
+    d = tmp_path / "jpgs"
+    d.mkdir()
+    for i, img in enumerate(_frames(0, 2)):
+        cv2.imwrite(str(d / f"f{i}.jpg"), img)
     monkeypatch.setitem(sys.modules, "cv2", None)
-    for kw, name in ((dict(video="clip.avi"), "--video"), (dict(write_frames=str(tmp_path)),
-                                                          "--write_frames"),
-                     (dict(no_display=False), "display"),
-                     (dict(image_dir=str(tmp_path)), "a.jpg")):
+    for kw, name in ((dict(video="clip.avi"), "--video"),
+                     (dict(write_frames=str(tmp_path / "w")), "text overlay"),
+                     (dict(no_display=False), "display")):
         with pytest.raises(RuntimeError, match=name):
             RtPosePipeline(est, PipelineConfig(**kw))
     with pytest.raises(RuntimeError, match="--camera"):
         RtPosePipeline(est, PipelineConfig()).run()
+    # a JPEG directory, frames written and JSON, all without cv2
+    out, frames = tmp_path / "json", tmp_path / "frames"
+    cfg = PipelineConfig(image_dir=str(d), resolution=RES, net_resolution=RES, no_display=True,
+                         write_json=str(out), write_frames=str(frames), no_text=True,
+                         no_frame_drops=True)
+    assert RtPosePipeline(est, cfg).run() == 2
+    assert sorted(os.listdir(out)) == ["f0.json", "f1.json"]
+    assert sorted(os.listdir(frames)) == ["f0.jpg", "f1.jpg"]
 
 
 # ------------------------------------------------------------ JAX parity
@@ -357,6 +367,35 @@ def test_pipeline_matches_jax_pipeline(tmp_path):
     (identity warp), 192x120 frames -> 128x80 net input (INTER_AREA), a
     2-stage COCO net with the JAX net's fan-in weights, relaxed thresholds
     so people are found."""
+    _pipeline_parity(tmp_path, "png")
+
+
+def test_pipeline_jpeg_matches_jax_pipeline(tmp_path, monkeypatch):
+    """The same over a JPEG directory (JAX reads it with cv2.imread, the port
+    with its codec), the port also writing frames (--write_frames,
+    --no_text): each file holds the bytes cv2.imencode gives at quality 98
+    for the canvas the port rendered, which is what JAX's cv2.imwrite
+    (runner.py:554) writes for a canvas."""
+    from caffe_rtpose_tpu_torch.pipeline import runner
+
+    canvases = []
+
+    def recording(canvas, quality):
+        canvases.append((np.array(canvas), quality))
+        return encode(canvas, quality)
+
+    encode = runner.encode_jpeg
+    monkeypatch.setattr(runner, "encode_jpeg", recording)
+    frames = _pipeline_parity(tmp_path, "jpg", write_frames=str(tmp_path / "frames"))
+    names = sorted(os.listdir(frames))
+    assert names == ["im0.jpg", "im1.jpg", "im2.jpg"] and len(canvases) == 3
+    for name, (canvas, quality) in zip(names, canvases):
+        assert quality == 98
+        ok, ref = cv2.imencode(".jpg", canvas, [int(cv2.IMWRITE_JPEG_QUALITY), 98])
+        assert ok and (frames / name).read_bytes() == ref.tobytes()
+
+
+def _pipeline_parity(tmp_path, ext, write_frames=""):
     res, disp = (128, 80), (192, 120)
     jest = JEstimator(j_make_net("COCO", stages=2), net_resolution=res, input_u8=True)
     rs = np.random.RandomState(0)
@@ -374,7 +413,7 @@ def test_pipeline_matches_jax_pipeline(tmp_path):
     img_dir = tmp_path / "imgs"
     img_dir.mkdir()
     for i in range(3):
-        cv2.imwrite(str(img_dir / f"im{i}.png"),
+        cv2.imwrite(str(img_dir / f"im{i}.{ext}"),
                     (rs.rand(disp[1], disp[0], 3) * 255).astype(np.uint8))
     outs = {}
     prev = torch.backends.mkldnn.enabled
@@ -386,7 +425,8 @@ def test_pipeline_matches_jax_pipeline(tmp_path):
                       write_json=str(out), no_display=True, no_frame_drops=True, fetchers=2,
                       nms_threshold=-1.0)
             pipe = (mod.RtPosePipeline(e, mod.PipelineConfig(**kw)) if mod
-                    else RtPosePipeline(e, PipelineConfig(**kw)))
+                    else RtPosePipeline(e, PipelineConfig(**kw, write_frames=write_frames,
+                                                          no_text=True)))
             assert pipe.run() == 3
             outs[tag] = out
     finally:
@@ -404,3 +444,4 @@ def test_pipeline_matches_jax_pipeline(tmp_path):
             np.testing.assert_allclose(a[:, :2], b[:, :2], rtol=0, atol=1.0)
             np.testing.assert_allclose(a[:, 2], b[:, 2], rtol=0, atol=0.01)
     assert people > 0
+    return tmp_path / "frames"

@@ -129,6 +129,54 @@ def test_module_entry_point(tmp_path):
     assert "built-in COCO" in res.stderr
 
 
+def test_jpeg_paths_without_cv2(tmp_path):
+    """With cv2 blocked: rtpose over a JPEG directory with --write_frames
+    --no_text --write_json, an ImageData net over a JPEG list, and eval
+    run-list over the JPEGs, all run, and none imports cv2."""
+    import cv2
+
+    rs = np.random.RandomState(12)
+    img = tmp_path / "img"
+    img.mkdir()
+    for i in range(2):
+        cv2.imwrite(str(img / f"f{i}.jpg"), (rs.rand(48, 64, 3) * 255).astype(np.uint8))
+    (tmp_path / "list.txt").write_text("f0.jpg 0\nf1.jpg 1\n")
+    (tmp_path / "coco.txt").write_text("0 1 f0.jpg 48 64\n1 2 f1.jpg 48 64\n")
+    from caffe_rtpose_tpu_torch.models.cpm import make_pose_deploy_net
+    from caffe_rtpose_tpu_torch.proto import prototxt
+
+    proto = str(tmp_path / "deploy.prototxt")  # 2 stages: the run is about the images
+    prototxt.dump_file(make_pose_deploy_net("COCO", stages=2), proto)
+    code = f"""
+import os, sys
+sys.modules["cv2"] = None
+from caffe_rtpose_tpu_torch.core.net import Net
+from caffe_rtpose_tpu_torch.tools import eval_pose, rtpose
+d, img, proto = {str(tmp_path)!r}, {str(img)!r}, {proto!r}
+assert rtpose.main(["--device", "cpu", "--caffeproto", proto, "--no_weights", "--image_dir", img,
+                    "--write_json", d + "/json", "--write_frames", d + "/frames", "--no_text",
+                    "--net_resolution", "64x48", "--resolution", "64x48", "--no_display",
+                    "--no_frame_drops", "--dtype", "float32"]) == 0
+assert sorted(os.listdir(d + "/json")) == ["f0.json", "f1.json"]
+assert sorted(os.listdir(d + "/frames")) == ["f0.jpg", "f1.jpg"]
+net = Net({{"layer": [{{"name": "data", "type": "ImageData", "top": ["data", "label"],
+                       "image_data_param": {{"source": d + "/list.txt", "batch_size": 2,
+                                             "root_folder": img + "/"}}}}]}}, device="cpu")
+out = net.forward({{}}, outputs=["data", "label"])
+assert tuple(out["data"].shape) == (2, 3, 48, 64)
+assert eval_pose.main(["run-list", "--list", d + "/coco.txt", "--image_root", img, "--out",
+                       d + "/eval", "--caffeproto", proto, "--net_resolution", "64x48",
+                       "--display", "64x48", "--dtype", "float32", "--device", "cpu"]) == 0
+assert sorted(os.listdir(d + "/eval")) == ["f0.json", "f1.json"]
+print("ok", sys.modules["cv2"] is not None)
+"""
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0 and res.stdout.split()[-2:] == ["ok", "False"], res.stderr
+    for i in range(2):  # the frames written are JPEGs of the 64x48 canvas
+        assert cv2.imread(str(tmp_path / "frames" / f"f{i}.jpg")).shape == (48, 64, 3)
+
+
 def test_refuses_what_is_not_ported(tmp_path):
     """Model files that exist are read, and what they hold is refused as
     the JAX tool refuses it: a graph without an Nms layer, bytes that are no

@@ -427,7 +427,8 @@ def test_detect_selective_search_needs_the_package(classifier, tmp_path):
 
 def test_encoded_png_datums_without_cv2(tmp_path):
     """convert_imageset --encoded and the Data layer's decode with OpenCV
-    blocked: PNG Datums round-trip; a JPEG Datum names the missing package."""
+    blocked: PNG Datums round-trip, and JPEG Datums (image_to_datum "jpg",
+    convert_imageset --encode_type jpg) hold cv2's bytes and pixels."""
     rs = np.random.RandomState(7)
     img = rs.randint(0, 256, (9, 11, 3)).astype(np.uint8)
     (tmp_path / "a.png").write_bytes(encode_png(img))
@@ -450,17 +451,54 @@ assert rec["encoded"] and rec["label"] == 3
 img = np.load(d + "/img.npy")
 assert np.array_equal(datum.datum_to_image(rec), img)
 assert np.array_equal(datum_chw(rec), img.transpose(2, 0, 1))
-try:
-    datum.image_to_datum(img, 0, "jpg")
-except ImportError as e:
-    assert "cv2" in str(e)
-else:
-    raise AssertionError("JPEG without cv2 did not raise")
+j = datum.image_to_datum(img, 0, "jpg")
+open(d + "/datum.jpg", "wb").write(j["data"])
+np.save(d + "/jpg_decoded.npy", datum.datum_to_image(j))
+assert aux_tools.main(["convert_imageset", d + "/list_jpg.txt", d, d + "/db_jpg", "--encoded",
+                       "--encode_type", "jpg"]) == 0
+with open_db(d + "/db_jpg", "r") as db:
+    cur = db.new_cursor(); cur.seek_to_first()
+    rec = datum.parse_datum(cur.value())
+assert rec["encoded"] and rec["label"] == 4 and bytes(rec["data"][:2]) == bytes([255, 216])
+np.save(d + "/db_jpg.npy", datum_chw(rec))
 print("ok", "cv2" in sys.modules and sys.modules["cv2"] is not None)
 """
+    (tmp_path / "b.jpg").write_bytes(cv2.imencode(".jpg", img[::-1])[1].tobytes())
+    (tmp_path / "list_jpg.txt").write_text("b.jpg 4\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                          timeout=120)
     assert res.returncode == 0 and res.stdout.split()[-2:] == ["ok", "False"], res.stderr
+    # the JPEG Datum written with cv2 blocked: cv2's bytes, and cv2.imdecode's pixels
+    data = (tmp_path / "datum.jpg").read_bytes()
+    assert data == cv2.imencode(".jpg", img)[1].tobytes()
+    np.testing.assert_array_equal(np.load(tmp_path / "jpg_decoded.npy"),
+                                  cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR))
+    # convert_imageset --encode_type jpg re-encodes what it read: cv2.imread, then imencode
+    ref = cv2.imread(str(tmp_path / "b.jpg"))
+    ref = cv2.imdecode(cv2.imencode(".jpg", ref)[1], cv2.IMREAD_COLOR)
+    np.testing.assert_array_equal(np.load(tmp_path / "db_jpg.npy"), ref.transpose(2, 0, 1))
+
+
+def test_jpeg_datums_match_jax():
+    """image_to_datum(..., "jpg") and datum_to_image against the JAX
+    package's (cv2): the same bytes, the same pixels, in colour and gray."""
+    from caffe_rtpose_tpu.proto import datum as jdatum
+
+    from caffe_rtpose_tpu_torch.proto import datum
+
+    rs = np.random.RandomState(10)
+    img = rs.randint(0, 256, (21, 17, 3)).astype(np.uint8)
+    img[:8] = img[:8] // 8 + 100
+    for x in (img, img[:, :, :1]):
+        for fmt in ("jpg", "jpeg"):
+            d, jd = datum.image_to_datum(x, 2, fmt), jdatum.image_to_datum(x, 2, fmt)
+            assert d == jd
+            got, ref = datum.datum_to_image(d), jdatum.datum_to_image(jd)
+            assert got.shape == ref.shape == x.shape
+            np.testing.assert_array_equal(got, ref)
+    # a gray Datum of a colour JPEG decodes to libjpeg's Y plane, as IMREAD_GRAYSCALE
+    d = {**datum.image_to_datum(img, 0, "jpg"), "channels": 1}
+    np.testing.assert_array_equal(datum.datum_to_image(d), jdatum.datum_to_image(d))
 
 
 def test_encoded_png_datum_decodes_as_cv2_does():

@@ -159,6 +159,29 @@ def test_clahe_needs_cv2(monkeypatch):
         PT.clahe(img)
 
 
+def test_json_source_jpeg_image_and_mask_match_jax(tmp_path):
+    """JsonPoseSource over a JPEG image and a colour-JPEG mask: the port's
+    codec reads what JAX's cv2.imread reads (datasets.py:66-73), the mask as
+    IMREAD_GRAYSCALE, libjpeg's Y plane."""
+    import json
+
+    rs = np.random.RandomState(6)
+    img = rs.randint(0, 256, (45, 61, 3)).astype(np.uint8)
+    mask = np.zeros((45, 61, 3), np.uint8)
+    mask[10:30, 5:40] = (255, 200, 90)
+    cv2.imwrite(str(tmp_path / "a.jpg"), img)
+    cv2.imwrite(str(tmp_path / "m.jpg"), mask)
+    joints = [[float(x), float(y), 1] for x, y in rs.uniform(5, 40, (17, 2))]
+    (tmp_path / "index.json").write_text(json.dumps(
+        [{"image": "a.jpg", "mask": "m.jpg", "scale_self": 0.8, "joints": joints}]))
+    (pimg, pmeta, pmask), (jimg, jmeta, jmask) = (
+        src(str(tmp_path / "index.json"))[0] for src in (PD.JsonPoseSource, JD.JsonPoseSource))
+    np.testing.assert_array_equal(pimg, jimg)
+    assert pmask.shape == jmask.shape == (45, 61)
+    np.testing.assert_array_equal(pmask, jmask)
+    np.testing.assert_array_equal(pmeta.people[0].joints, jmeta.people[0].joints)
+
+
 def test_synthetic_source_same_people():
     jsrc, psrc = JD.SyntheticPoseSource(n=4, size=240, seed=3), PD.SyntheticPoseSource(n=4, size=240, seed=3)
     for i in range(4):
