@@ -265,10 +265,12 @@ class Net:
         self._net.save_caffemodel(path)
 
     def save_hdf5(self, path: str) -> None:
+        """Net::ToHDF5 (``Net.save_hdf5``: the port's HDF5 codec, no h5py)."""
         self._push_params()
         self._net.save_hdf5(path)
 
     def load_hdf5(self, path: str) -> None:
+        """Net::CopyTrainedLayersFromHDF5 (``Net.load_hdf5``), by layer name."""
         self._net.load_hdf5(path)
         self._mark_params_stale()
 

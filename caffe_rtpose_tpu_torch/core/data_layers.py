@@ -14,8 +14,8 @@ The standard transform (DataTransformer::Transform, data_transformer.cpp:
 TEST, random in TRAIN), a random mirror (any phase, as the reference) and
 the scale.  No OpenCV: images are read by ``pipeline/image_io.py`` (PNG and
 BMP in numpy, JPEG by the port's codec, ``pipeline/jpeg.py``) and resized in
-numpy (bilinear, ``cv2.resize``'s INTER_LINEAR).  HDF5Data imports ``h5py`` when
-it is built and names it when it is missing.
+numpy (bilinear, ``cv2.resize``'s INTER_LINEAR).  HDF5Data reads its files
+with the port's HDF5 codec (``utils/hdf5.py``).
 """
 
 from __future__ import annotations
@@ -321,13 +321,9 @@ class MemoryDataLayer(HostDataLayer):
 
 class HDF5DataLayer(HostDataLayer):
     """'HDF5Data': datasets from a list of ``.h5`` files
-    (hdf5_data_layer.cpp); needs ``h5py``."""
+    (hdf5_data_layer.cpp)."""
 
     def __init__(self, lv: caffe_pb.View, phase: str):
-        try:
-            import h5py
-        except ImportError as e:
-            raise ImportError("the HDF5Data layer needs h5py, which is not installed") from e
         from ..training.datasets import HDF5Source
 
         p = lv.hdf5_data_param
@@ -335,8 +331,7 @@ class HDF5DataLayer(HostDataLayer):
         self.shuffle = bool(p.shuffle)
         tops = list(lv.top)
         self.src = HDF5Source(p.source, keys=tops)
-        with h5py.File(self.src.files[0], "r") as f:
-            shapes = [(self.batch_size,) + tuple(f[t].shape[1:]) for t in tops]
+        shapes = [(self.batch_size,) + tuple(self.src.shapes[t]) for t in tops]
         super().__init__(lv.name, tops, shapes)
 
     def batches(self):

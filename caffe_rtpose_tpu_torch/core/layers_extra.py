@@ -24,6 +24,7 @@ from ..ops import losses as op_losses
 from ..ops import nn as nn_ops
 from ..proto import caffe_pb
 from ..proto.caffe_pb import POOL_METHOD
+from ..utils import hdf5
 from .filler import fill
 from .layers import BuildCtx, FnLayer, LayerModule, RunCtx, _local, enum, hw, register, rows_of
 
@@ -94,7 +95,8 @@ class DummyData(LayerModule):
 @register("HDF5Output")
 class HDF5Output(LayerModule):
     """Appends its bottoms to ``hdf5_output_param.file_name`` each forward
-    (hdf5_output_layer.cpp), through ``h5py``, imported when it runs."""
+    (hdf5_output_layer.cpp), in place (``utils/hdf5.py``: the new chunks and
+    index nodes past the file's old end, the extent rewritten where it is)."""
 
     def __init__(self, ctx: BuildCtx):
         super().__init__(ctx, [])
@@ -102,11 +104,7 @@ class HDF5Output(LayerModule):
         self.bottom_names = list(ctx.layer.bottoms)
 
     def run(self, bots, ctx):
-        try:
-            import h5py
-        except ImportError as e:
-            raise ImportError("the HDF5Output layer needs h5py, which is not installed") from e
-        with h5py.File(self.file_name, "a") as f:
+        with hdf5.File(self.file_name, "a") as f:
             for name, t in zip(self.bottom_names, bots):
                 arr = t.detach().float().cpu().numpy()
                 if name in f:

@@ -76,6 +76,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops import conv1_cuda
 from ..proto import caffe_pb, caffemodel, prototxt
 from ..proto.upgrade import upgrade_net_as_needed
+from ..utils import hdf5
 from ..utils.device import disable_tf32, resolve_device
 from . import layers as L
 from .data_layers import DATA_LAYER_TYPES
@@ -526,9 +527,8 @@ class Net(nn.Module):
 
     def save_hdf5(self, path: str) -> None:
         """Net::ToHDF5: group ``data``, one group a layer, datasets ``0``,
-        ``1``, ... in Caffe's layout (``h5py``, imported here)."""
-        h5py = _h5py()
-        with h5py.File(path, "w") as f:
+        ``1``, ... in Caffe's layout (``utils/hdf5.py``, the port's codec)."""
+        with hdf5.File(path, "w") as f:
             grp = f.create_group("data")
             for name, blobs in self.export_weights().items():
                 lg = grp.create_group(name)
@@ -537,8 +537,7 @@ class Net(nn.Module):
 
     def load_hdf5(self, path: str) -> int:
         """Net::CopyTrainedLayersFromHDF5: groups matched by layer name."""
-        h5py = _h5py()
-        with h5py.File(path, "r") as f:
+        with hdf5.File(path, "r") as f:
             weights = {name: [np.asarray(lg[str(i)]) for i in range(len(lg))]
                        for name, lg in f["data"].items()}
         return self.load_weights(weights)
@@ -791,11 +790,3 @@ class Net(nn.Module):
         it = iter(grads[len(leaves):])
         param_diffs = {name: [next(it) for _ in blobs] for name, blobs in params.items()}
         return in_diffs, param_diffs
-
-
-def _h5py():
-    try:
-        import h5py
-    except ImportError as e:
-        raise ImportError("HDF5 weights need h5py, which is not installed") from e
-    return h5py

@@ -23,7 +23,7 @@ engine resolves every ``py.`` name through one alias table,
 other ``py.jax`` name raises :class:`MatlabError`: the engine never imports
 jax.  ``imread``/``imresize`` read and resize without OpenCV
 (``core/data_layers.read_image``, ``api.resize_image``); the HDF5 builtins
-need ``h5py``.
+read and write through the port's HDF5 codec (``utils/hdf5.py``).
 
 Scope (deliberately): classdef (handle) with properties/methods blocks,
 functions with nargin/varargin, if/elseif/else, for, assignment (including
@@ -43,6 +43,8 @@ import tempfile
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+
+from .utils import hdf5
 
 
 class MatlabError(Exception):
@@ -2137,18 +2139,10 @@ def _b_get_report(err):
     return str(err)
 
 
-# ---- MATLAB HDF5 surface over h5py.  MATLAB arrays are column-major, so
+# ---- MATLAB HDF5 surface over utils/hdf5.py.  MATLAB arrays are column-major, so
 # the on-disk dataset dims are the REVERSE of the MATLAB size vector —
 # which is exactly why store2hdf5.m works: W*H*C*N MATLAB data lands as an
 # N x C x H x W dataset, the layout caffe's HDF5Data layer reads.
-
-def _h5py():
-    try:
-        import h5py
-    except ImportError as e:
-        raise MatlabError("the h5* builtins need h5py, which is not installed") from e
-    return h5py
-
 
 def _mat_dims(v) -> List[float]:
     a = _as_mat(v).a
@@ -2156,7 +2150,6 @@ def _mat_dims(v) -> List[float]:
 
 
 def _b_h5create(filename, ds, size, *opts):
-    h5py = _h5py()
     dims = _mat_dims(size)
     dtype, chunks = np.float64, None
     i = 0
@@ -2171,7 +2164,7 @@ def _b_h5create(filename, ds, size, *opts):
     shape = tuple(0 if math.isinf(d) else int(d) for d in reversed(dims))
     maxshape = tuple(None if math.isinf(d) else int(d)
                      for d in reversed(dims))
-    with h5py.File(str(filename), "a") as f:
+    with hdf5.File(str(filename), "a") as f:
         name = str(ds)
         if name in f:
             raise MatlabError(f"h5create: dataset {name} exists")
@@ -2181,10 +2174,9 @@ def _b_h5create(filename, ds, size, *opts):
 
 
 def _b_h5write(filename, ds, data, start=None, count=None):
-    h5py = _h5py()
     a = _as_mat(data).a
     disk = np.transpose(a, axes=tuple(reversed(range(a.ndim))))
-    with h5py.File(str(filename), "a") as f:
+    with hdf5.File(str(filename), "a") as f:
         d = f[str(ds)]
         if start is None:
             d[...] = disk
@@ -2202,8 +2194,7 @@ def _b_h5write(filename, ds, data, start=None, count=None):
 
 
 def _b_h5read(filename, ds, start=None, count=None):
-    h5py = _h5py()
-    with h5py.File(str(filename), "r") as f:
+    with hdf5.File(str(filename), "r") as f:
         d = f[str(ds)]
         if start is None:
             disk = d[...]
@@ -2215,12 +2206,11 @@ def _b_h5read(filename, ds, start=None, count=None):
 
 
 def _b_h5info(filename):
-    h5py = _h5py()
     dsets = []
-    with h5py.File(str(filename), "r") as f:
+    with hdf5.File(str(filename), "r") as f:
         for name in sorted(f.keys()):  # MATLAB lists alphabetically
             obj = f[name]
-            if isinstance(obj, h5py.Dataset):
+            if isinstance(obj, hdf5.Dataset):
                 size = MatArray(np.array(
                     [float(s) for s in reversed(obj.shape)], np.float64))
                 dsets.append(MatStruct({
@@ -2232,12 +2222,11 @@ def _b_h5info(filename):
 
 
 def _b_h5disp(filename):
-    h5py = _h5py()
     lines = [f"HDF5 {os.path.basename(str(filename))}"]
-    with h5py.File(str(filename), "r") as f:
+    with hdf5.File(str(filename), "r") as f:
         for name in sorted(f.keys()):
             obj = f[name]
-            if isinstance(obj, h5py.Dataset):
+            if isinstance(obj, hdf5.Dataset):
                 msize = "x".join(str(s) for s in reversed(obj.shape))
                 lines.append(f"Dataset '{name}'  Size: {msize}")
     _FPRINTF_OUT.append("\n".join(lines) + "\n")

@@ -21,7 +21,8 @@ in numpy, JPEG by the port's codec) and resized with ``resize_linear``,
 fixed-point sums).  ``--encoded`` Datums are PNG, or JPEG with
 ``--encode_type jpg`` (quality 95, the bytes ``cv2.imencode`` writes), both
 written and read without OpenCV (``proto/datum.py``).  ``extract_features`` builds the
-net on the card unless ``--device cpu``; HDF5 packs need ``h5py``.
+net on the card unless ``--device cpu``.  HDF5 packs are written and read by the
+port's HDF5 codec (``utils/hdf5.py``).
 """
 
 from __future__ import annotations
@@ -33,14 +34,7 @@ from typing import List, Optional
 
 import numpy as np
 
-
-def _h5py(path: str):
-    try:
-        import h5py
-    except ImportError as e:
-        raise ImportError(f"{path}: HDF5 packs need h5py, which is not installed; "
-                          "write a kvdb instead") from e
-    return h5py
+from ..utils import hdf5
 
 
 def read_list(listfile: str):
@@ -70,7 +64,6 @@ def convert_imageset(listfile: str, root: str, out_path: str,
     if shuffle:
         np.random.RandomState(seed).shuffle(entries)
     to_h5 = out_path.endswith((".h5", ".hdf5"))
-    h5py = _h5py(out_path) if to_h5 else None
     imgs, labels = [], []
     db = txn = None
     if not to_h5:
@@ -103,7 +96,7 @@ def convert_imageset(listfile: str, root: str, out_path: str,
         count += 1
     if to_h5:
         data = np.stack(imgs).astype(np.uint8)
-        with h5py.File(out_path, "w") as f:
+        with hdf5.File(out_path, "w") as f:
             f.create_dataset("data", data=data, compression="gzip")
             f.create_dataset("label", data=np.asarray(labels, np.int64))
     else:
@@ -117,12 +110,14 @@ def compute_image_mean(src: str, out: Optional[str] = None) -> np.ndarray:
     """Mean image over an .h5 pack or a kvdb of Datum records; writes
     .binaryproto (BlobProto, like compute_image_mean.cpp) / .npy."""
     if src.endswith((".h5", ".hdf5")):
-        with _h5py(src).File(src, "r") as f:
+        with hdf5.File(src, "r") as f:
             data = f["data"]
             total = np.zeros(data.shape[1:], np.float64)
             n = data.shape[0]
-            for i in range(n):
-                total += data[i]
+            step = data.chunks[0] if data.chunks else 1  # each chunk decoded once
+            for i in range(0, n, step):
+                for row in data[i : i + step]:
+                    total += row
     else:
         from ..core.data_layers import datum_chw
         from ..proto import datum as datum_io

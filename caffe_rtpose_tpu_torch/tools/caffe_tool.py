@@ -84,9 +84,9 @@ def make_data_iter(spec: str, net) -> Iterator[Dict[str, np.ndarray]]:
 
         return it_npz()
     if spec.endswith((".h5", ".hdf5")):
-        import h5py
+        from ..utils import hdf5
 
-        f = h5py.File(spec, "r")
+        f = hdf5.File(spec, "r")
         n = f[net.input_names[0]].shape[0]
 
         def it_h5():

@@ -9,8 +9,9 @@ per-window predictions.
         --crop_mode=list [--device cpu]
 
 Runs on the card (``--device cuda``, the default; ``--gpu`` is accepted and
-means the same) or with ``--device cpu``.  PNG and BMP images need no
-OpenCV; an ``.h5`` output needs ``h5py``.
+means the same) or with ``--device cpu``.  PNG, BMP and JPEG images need no
+OpenCV; an ``.h5`` output is written by the port's HDF5 codec
+(``utils/hdf5.py``).
 """
 
 import argparse
@@ -99,13 +100,9 @@ def main(argv=None):
           f"{time.time() - t:.3f} s.")
 
     if args.output_file.lower().endswith((".h5", ".hdf5")):
-        try:
-            import h5py
-        except ImportError as e:
-            raise ImportError(f"{args.output_file}: HDF5 output needs h5py, which is not "
-                              "installed; write a .csv instead") from e
+        from ..utils import hdf5
 
-        with h5py.File(args.output_file, "w") as f:
+        with hdf5.File(args.output_file, "w") as f:
             f["prediction"] = np.stack([d["prediction"] for d in detections])
             f["ymin"] = [d["window"][0] for d in detections]
             f["xmin"] = [d["window"][1] for d in detections]

@@ -8,7 +8,8 @@ ring) with host-side Python sources feeding the jitted train step:
   stand-in for the genLMDB.py LMDB; see ``docs`` for the format);
 * :class:`SyntheticPoseSource` — procedurally generated people, used by
   tests and benchmarks;
-* :class:`HDF5Source` — HDF5DataLayer parity via h5py;
+* :class:`HDF5Source` — HDF5DataLayer parity, files read by the port's
+  HDF5 codec (``utils/hdf5.py``);
 * :func:`prefetch_loader` — background-thread batch prefetch;
 * :func:`stage_batches` — the prefetch ring that also uploads each batch
   to the card from pinned host memory on a side CUDA stream.
@@ -17,7 +18,6 @@ The port of ``caffe_rtpose_tpu/training/datasets.py`` without OpenCV: images
 are read by ``pipeline/image_io.py`` (PNG and BMP in numpy, JPEG by the
 port's codec; a mask is read gray, as ``cv2.IMREAD_GRAYSCALE``) and the
 synthetic figures are drawn in numpy.
-``h5py`` is imported only by :class:`HDF5Source`.
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..pipeline.image_io import read_image
+from ..utils import hdf5
 from .transformer import AugParams, Meta, Person, transform, transform_joints_coco
 
 LINE_HALF_WIDTH = 2.5  # the synthetic limbs' stroke, about cv2.line's thickness 3
@@ -149,20 +150,17 @@ class HDF5Source:
     (reference src/caffe/layers/hdf5_data_layer.cpp)."""
 
     def __init__(self, source_list: str, keys: Optional[List[str]] = None):
-        import h5py
-
         with open(source_list) as f:
             self.files = [l.strip() for l in f if l.strip()]
-        self._h5py = h5py
-        first = h5py.File(self.files[0], "r")
-        self.keys = keys or sorted(first.keys())
-        self.n = first[self.keys[0]].shape[0]
-        first.close()
+        with hdf5.File(self.files[0], "r") as first:
+            self.keys = keys or sorted(first.keys())
+            self.n = first[self.keys[0]].shape[0]
+            self.shapes = {k: first[k].shape[1:] for k in self.keys}
 
     def __len__(self):
         total = 0
         for p in self.files:
-            with self._h5py.File(p, "r") as f:
+            with hdf5.File(p, "r") as f:
                 total += f[self.keys[0]].shape[0]
         return total
 
@@ -170,7 +168,7 @@ class HDF5Source:
         rs = np.random.RandomState(seed)
         while True:
             for p in self.files:
-                with self._h5py.File(p, "r") as f:
+                with hdf5.File(p, "r") as f:
                     n = f[self.keys[0]].shape[0]
                     order = rs.permutation(n) if shuffle else np.arange(n)
                     for i in range(0, n - batch_size + 1, batch_size):

@@ -60,6 +60,7 @@ import torch
 
 from ..proto import caffe_pb, caffemodel, prototxt
 from ..proto.caffe_pb import View
+from ..utils import hdf5
 from .datasets import StagedBatch
 
 HISTORY_SLOTS = {"SGD": 1, "Nesterov": 1, "AdaGrad": 1, "RMSProp": 1, "AdaDelta": 2, "Adam": 2}
@@ -429,13 +430,11 @@ class Solver:
         self._load_history_arrays([caffemodel.blob_to_array(b) for b in st.get("history", [])])
 
     def _snapshot_hdf5(self, prefix: str) -> Tuple[str, str]:
-        import h5py
-
         model_path = f"{prefix}_iter_{self.it}.caffemodel.h5"
         state_path = f"{prefix}_iter_{self.it}.solverstate.h5"
         self.net.save_hdf5(model_path + ".tmp")
         os.replace(model_path + ".tmp", model_path)
-        with h5py.File(state_path + ".tmp", "w") as f:
+        with hdf5.File(state_path + ".tmp", "w") as f:
             f["iter"] = np.int64(self.it)
             f["learned_net"] = model_path
             f["current_step"] = np.int64(self.current_step)
@@ -446,11 +445,12 @@ class Solver:
         return model_path, state_path
 
     def _restore_hdf5(self, state_path: str) -> None:
-        import h5py
-
-        with h5py.File(state_path, "r") as f:
-            self.it = int(np.asarray(f["iter"]))
-            self.current_step = int(np.asarray(f["current_step"]))
+        """JAX's and h5py's form (int64 scalars, a variable-length UTF-8
+        ``learned_net``) or Caffe's C++ one (int32 of dims [1], a fixed-length
+        null-terminated string)."""
+        with hdf5.File(state_path, "r") as f:
+            self.it = int(np.asarray(f["iter"]).item())
+            self.current_step = int(np.asarray(f["current_step"]).item())
             learned = f["learned_net"][()]
             if isinstance(learned, bytes):
                 learned = learned.decode()

@@ -70,6 +70,22 @@ Phases, each of which raises (non-zero exit) on failure:
                paths, its packed outputs bit-identical to the one built
                from the dicts on 16 frames; the time to write and to load
                the files (host parse alone, and the estimator's build).
+   hdf5      - the port's HDF5 codec (utils/hdf5_fmt.py, utils/hdf5.py), h5py
+               blocked: every file libhdf5 wrote in tests/hdf5_fixtures/
+               read equal to its pinned digests, each refused feature
+               named; save_hdf5 of the COCO deploy net with those weights
+               and load_hdf5 into a fresh net on the card, every blob equal
+               to the caffemodel's bit for bit (write, read and load MB/s);
+               the tools phase's 512 PNGs through convert_imageset at
+               227x227 into a gzip .h5 pack and into a kvdb, the two means
+               equal, HDF5Data's host ms a batch of 256, CaffeNet's TRAIN
+               net fed by HDF5Data 3 SGD steps with losses equal to a
+               MemoryData net's on the same arrays; HDF5Output of fc7 and
+               prob over 8 CaffeNet deploy forwards on the card, read back
+               equal; detect into an .h5 equal to api.Detector's; a
+               store2hdf5-style matcaffe script (h5create with Inf and
+               ChunkSize, h5write at a start, h5read, h5info, h5disp).
+               The HDF5 solverstates: the train phase's resume.
    cli       - tools.rtpose.main with those --caffeproto and --caffemodel
                files on 8 PNG frames (the calibration canvases, displayed
                at their 656x368), exit 0, no fallback warning, one JSON
@@ -123,7 +139,8 @@ Phases, each of which raises (non-zero exit) on failure:
                (training launches none of K1-K4); a snapshot restored into
                a fresh solver whose next step equals the continuing one's
                (within 1e-5), and a deploy PoseEstimator from the snapshot's
-               caffemodel (every convolution by layer name) on one frame;
+               caffemodel (every convolution by layer name) on one frame,
+               in BINARYPROTO and again in HDF5 (h5py blocked);
                caffe train (3 iterations, --fused_labels) and caffe time
                --phase TRAIN in new processes.  Then two steps under
                torch.profiler: the kernels a step by device time and the
@@ -131,7 +148,7 @@ Phases, each of which raises (non-zero exit) on failure:
    framework - the Caffe framework surface, the hand kernels'
                counters zeroed before and read after (it launches none of
                K1-K4): (a) every registered layer type but HDF5Data and
-               HDF5Output (no h5py there) as the CPU tests' small nets
+               HDF5Output (the hdf5 phase runs them) as the CPU tests' small nets
                (tests/test_torch_layers_*.py; the data layers over sources
                written here), the card's forward within 1e-5*max(1,|y|) of
                the CPU's and its input and parameter gradients within 1e-4
@@ -650,19 +667,26 @@ def phase_build():
 JPEG_TIMED_REPS = 20
 
 
-class no_cv2:
-    """``sys.modules["cv2"] = None`` for a block: an ``import cv2`` there
-    raises ImportError (the card's machine has no OpenCV either)."""
+class no_module:
+    """``sys.modules[name] = None`` for a block: an ``import name`` there
+    raises ImportError (the card's machine has neither OpenCV nor h5py)."""
+
+    def __init__(self, name: str):
+        self.name = name
 
     def __enter__(self):
-        self.saved = sys.modules.get("cv2", False)
-        sys.modules["cv2"] = None
+        self.saved = sys.modules.get(self.name, False)
+        sys.modules[self.name] = None
 
     def __exit__(self, *exc):
         if self.saved is False:
-            del sys.modules["cv2"]
+            del sys.modules[self.name]
         else:
-            sys.modules["cv2"] = self.saved
+            sys.modules[self.name] = self.saved
+
+
+def no_cv2() -> no_module:
+    return no_module("cv2")
 
 
 def jpeg_frames_module():
@@ -1923,6 +1947,400 @@ def phase_files(weights, work, device="cuda", net_resolution=(656, 368), stages=
                 write_s=write_s, parse_s=parse_s, build_s=build_s, bit_identical=all(same))
 
 
+# ------------------------------------------------------------------- hdf5
+
+HDF5_OUTPUT_FORWARDS = 8
+HDF5_DATA_STEPS = 3
+HDF5_DETECT_WINDOWS = 16
+# a store2hdf5-style script (matlab/hdf5creation): an unlimited last MATLAB
+# dimension with ChunkSize, batches written at a start that grows the
+# dataset (the second first, so the first reads as the fill value until it
+# is written), then h5read of all and of a hyperslab, h5info and h5disp
+STORE2HDF5_SCRIPT = """filename = 'store.h5';
+chunksz = 8;
+data = reshape(single(1:(227 * 227 * 3 * 32)), 227, 227, 3, 32) / 7;
+labels = reshape(single(1:64), 2, 32);
+h5create(filename, '/data', [227 227 3 Inf], 'Datatype', 'single', 'ChunkSize', [227 227 3 chunksz]);
+h5create(filename, '/label', [2 Inf], 'Datatype', 'single', 'ChunkSize', [2 chunksz]);
+for batchno = [2 1 4 3]
+  last = (batchno - 1) * chunksz;
+  h5write(filename, '/data', data(:, :, :, last + 1:last + chunksz), [1 1 1 last + 1], [227 227 3 chunksz]);
+  h5write(filename, '/label', labels(:, last + 1:last + chunksz), [1 last + 1], [2 chunksz]);
+  if batchno == 2
+    early = h5read(filename, '/label');
+  end
+end
+info = h5info(filename);
+back = h5read(filename, '/data');
+part = h5read(filename, '/label', [1 5], [2 8]);
+h5disp(filename);
+"""
+
+
+def hdf5_fixtures_module():
+    """tests/hdf5_fixtures.py: libhdf5's files and their digests (numpy only)."""
+    import os
+
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import hdf5_fixtures
+
+    return hdf5_fixtures
+
+
+def hdf5_libhdf5_files(card):
+    """Every file libhdf5 wrote in tests/hdf5_fixtures/: each array equal to
+    its sha256, shape and dtype, each group's members in order; each
+    refused feature raises ValueError naming it."""
+    import os
+
+    from caffe_rtpose_tpu_torch.utils import hdf5
+
+    tag = "[hdf5 libhdf5 files]"
+    hf = hdf5_fixtures_module()
+    digests = hf.load_digests()
+    t0 = time.perf_counter()
+    arrays = refused = 0
+    for name, want in sorted(digests.items()):
+        path = os.path.join(hf.DIR, name)
+        if "refused" in want:
+            try:
+                hf.contents(hdf5, path, lambda d: d._obj.addr)
+                raise AssertionError(f"{tag} {name} was read, not refused")
+            except ValueError as e:
+                check(want["refused"] in str(e), f"{tag} {name}: {e}")
+            refused += 1
+            continue
+        got = hf.contents(hdf5, path, lambda d: d._obj.addr)
+        bad = sorted(k for k in set(want) | set(got) if want.get(k) != got.get(k))
+        check(not bad, f"{tag} {name} differs from its digests at {bad[:5]}")
+        arrays += sum("sha256" in v for v in want.values())
+    secs = time.perf_counter() - t0
+    print(f"{tag} {len(digests) - refused} files, {arrays} arrays equal to their digests "
+          f"(values, shapes, dtypes, members in order); {refused} refused features each "
+          f"named; {secs:.2f} s; {card}")
+    return dict(files=len(digests) - refused, arrays=arrays, refused=refused, seconds=secs)
+
+
+def hdf5_weights(files, work, card, device="cuda"):
+    """save_hdf5 of the COCO deploy net with the files phase's weights and
+    load_hdf5 into a fresh net on the card: every blob equal to the
+    caffemodel's, bit for bit; host seconds and MB/s of each."""
+    import os
+
+    import torch
+
+    from caffe_rtpose_tpu_torch.core.net import Net
+    from caffe_rtpose_tpu_torch.proto import caffemodel
+    from caffe_rtpose_tpu_torch.utils import hdf5
+
+    tag = "[hdf5 weights]"
+    path = os.path.join(work, "pose_iter_synthetic.caffemodel.h5")
+    ref = caffemodel.load_weights(files["model"])
+    mb = sum(a.nbytes for blobs in ref.values() for a in blobs) / 1e6
+    net = Net(files["proto"], device=device)
+    net.load_weights(ref)
+    t0 = time.perf_counter()
+    net.save_hdf5(path)
+    write_s = time.perf_counter() - t0
+    del net
+    t0 = time.perf_counter()
+    with hdf5.File(path, "r") as f:
+        read = {name: [np.asarray(g[str(i)]) for i in range(len(g))]
+                for name, g in f["data"].items()}
+    read_s = time.perf_counter() - t0
+    fresh = Net(files["proto"], device=device, seed=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fresh.load_hdf5(path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    loaded = fresh.export_weights()
+    same = [k for k in ref if k in loaded and k in read and len(ref[k]) == len(loaded[k]) and all(
+        a.tobytes() == b.tobytes() == c.tobytes()
+        for a, b, c in zip(ref[k], loaded[k], read[k]))]
+    size = os.path.getsize(path)
+    print(f"{tag} COCO deploy net, {len(ref)} layers, {mb:.1f} MB of blobs: save_hdf5 "
+          f"{write_s:.3f} s ({mb / write_s:.0f} MB/s, file {size / 1e6:.1f} MB); read "
+          f"{read_s:.3f} s ({mb / read_s:.0f} MB/s); load_hdf5 into a fresh net on the card "
+          f"{load_s:.3f} s ({mb / load_s:.0f} MB/s); {len(same)}/{len(ref)} layers bit-identical "
+          f"to the caffemodel's; {card}")
+    check(len(same) == len(ref) == len(loaded), f"{tag} {len(same)} of {len(ref)} layers equal")
+    return dict(mb=mb, file_mb=size / 1e6, write_s=write_s, read_s=read_s, load_s=load_s,
+                write_mb_s=mb / write_s, read_mb_s=mb / read_s, load_mb_s=mb / load_s,
+                layers_equal=len(same))
+
+
+def caffenet_fed_by(layer):
+    """CaffeNet's TRAIN net (batch 256, crop 227) fed by a data layer."""
+    from caffe_rtpose_tpu_torch.models.caffenet import make_caffenet
+
+    proto = make_caffenet(batch=FW_BATCH, crop=FW_CROP)
+    del proto["input"], proto["input_shape"]
+    proto["layer"] = [layer] + proto["layer"]
+    return proto
+
+
+def hdf5_caffenet(work, card, device="cuda"):
+    """The tools phase's 512 PNGs through convert_imageset at 227x227 into a
+    gzip .h5 pack and into a kvdb: compute_image_mean equal over both; the
+    host ms of an HDF5Data batch of 256; CaffeNet's TRAIN net fed by
+    HDF5Data over the pack, HDF5_DATA_STEPS SGD steps, losses equal to a
+    MemoryData net's on the same arrays (same seed)."""
+    import contextlib
+    import io
+    import os
+
+    import torch
+
+    from caffe_rtpose_tpu_torch.core.net import Net
+    from caffe_rtpose_tpu_torch.tools.aux_tools import compute_image_mean
+    from caffe_rtpose_tpu_torch.tools.aux_tools import main as aux
+    from caffe_rtpose_tpu_torch.training.datasets import HDF5Source
+    from caffe_rtpose_tpu_torch.training.solver import Solver
+    from caffe_rtpose_tpu_torch.utils import hdf5
+
+    tag = "[hdf5 caffenet]"
+    t0 = time.perf_counter()
+    root, lst, _ = write_tool_images(work, np.random.RandomState(30))
+    images_s = time.perf_counter() - t0
+    pack, kvdb = os.path.join(work, "caffenet_pack.h5"), os.path.join(work, "caffenet_227_db")
+    size = ["--resize_height", str(FW_CROP), "--resize_width", str(FW_CROP)]
+    with contextlib.redirect_stdout(io.StringIO()):
+        t0 = time.perf_counter()
+        check(aux(["convert_imageset", lst, root, pack, *size]) == 0, f"{tag} pack: exit")
+        pack_s = time.perf_counter() - t0
+        check(aux(["convert_imageset", lst, root, kvdb, *size]) == 0, f"{tag} kvdb: exit")
+        t0 = time.perf_counter()
+        mean_pack = compute_image_mean(pack)
+        mean_s = time.perf_counter() - t0
+        mean_db = compute_image_mean(kvdb)
+    check(np.array_equal(mean_pack, mean_db), f"{tag} the pack's mean differs from the kvdb's")
+    with hdf5.File(pack, "r") as f:
+        data, labels = f["data"][()], f["label"][()]
+        chunks = f["data"].chunks
+    with open(lst) as fl:
+        want = [int(line.split()[1]) for line in fl]
+    check(data.shape == (TOOL_IMAGES, 3, FW_CROP, FW_CROP) and data.dtype == np.uint8
+          and labels.tolist() == want, f"{tag} the pack holds {data.shape} {data.dtype}")
+    source = os.path.join(work, "caffenet_pack.txt")
+    with open(source, "w") as fl:
+        fl.write(pack + "\n")
+    gen = HDF5Source(source).batches(FW_BATCH)
+    batch_ms = []
+    for _ in range(TOOL_IMAGES // FW_BATCH):
+        t0 = time.perf_counter()
+        next(gen)
+        batch_ms.append((time.perf_counter() - t0) * 1e3)
+    gen.close()
+    layers = {
+        "HDF5Data": {"name": "data", "type": "HDF5Data", "top": ["data", "label"],
+                     "hdf5_data_param": {"source": source, "batch_size": FW_BATCH}},
+        "MemoryData": {"name": "data", "type": "MemoryData", "top": ["data", "label"],
+                       "memory_data_param": {"batch_size": FW_BATCH, "channels": 3,
+                                             "height": FW_CROP, "width": FW_CROP}}}
+    losses = {}
+    for kind, layer in layers.items():
+        net = Net(caffenet_fed_by(layer), phase="TRAIN", device=device, seed=0)
+        if kind == "MemoryData":
+            net.set_input_arrays(data.astype(np.float32), labels.astype(np.float32))
+        solver = Solver(FW_SOLVER, net, lambda _: {})
+        losses[kind] = [float(solver.step(1)) for _ in range(HDF5_DATA_STEPS)]
+        del solver, net
+        torch.cuda.empty_cache()
+    equal = losses["HDF5Data"] == losses["MemoryData"]
+    print(f"{tag} {TOOL_IMAGES} PNGs ({images_s:.1f} s to write) -> convert_imageset "
+          f"{FW_CROP}x{FW_CROP} gzip pack in {pack_s:.2f} s ({os.path.getsize(pack) / 1e6:.1f} MB, "
+          f"chunks {chunks}); compute_image_mean over it {mean_s:.2f} s, equal to the kvdb "
+          f"route's; HDF5Data host ms a batch of {FW_BATCH}: {['%.1f' % x for x in batch_ms]} "
+          f"(the Data layer's: 617.5, PERF.md section 5); CaffeNet {HDF5_DATA_STEPS} SGD steps "
+          f"fed by HDF5Data {losses['HDF5Data']} and by MemoryData {losses['MemoryData']}: "
+          f"{'equal' if equal else 'DIFFERENT'}; {card}")
+    check(equal and all(np.isfinite(losses["HDF5Data"])), f"{tag} losses {losses}")
+    return dict(images_write_s=images_s, pack_s=pack_s, pack_mb=os.path.getsize(pack) / 1e6,
+                chunks=list(chunks), mean_s=mean_s,
+                batch_ms=batch_ms, losses=losses, losses_equal=equal), root
+
+
+def hdf5_output(work, card, device="cuda"):
+    """HDF5Output on CaffeNet's deploy net (batch 10): fc7 and prob appended
+    HDF5_OUTPUT_FORWARDS times on the card, read back equal to the
+    forwards' outputs."""
+    import os
+
+    import torch
+
+    from caffe_rtpose_tpu_torch.core.net import Net
+    from caffe_rtpose_tpu_torch.models.caffenet import make_caffenet_deploy
+    from caffe_rtpose_tpu_torch.utils import hdf5
+
+    tag = "[hdf5 output]"
+    path = os.path.join(work, "caffenet_outputs.h5")
+    proto = make_caffenet_deploy(batch=10, crop=FW_CROP)
+    proto["layer"].append({"name": "out", "type": "HDF5Output", "bottom": ["fc7", "prob"],
+                           "hdf5_output_param": {"file_name": path}})
+    net = Net(proto, device=device, seed=0)
+    rs = np.random.RandomState(41)
+    want, ms = {"fc7": [], "prob": []}, []
+    for _ in range(HDF5_OUTPUT_FORWARDS):
+        x = torch.from_numpy((rs.rand(10, 3, FW_CROP, FW_CROP) * 255 - 128).astype(np.float32))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = net.forward({"data": x.to(device)}, outputs=["fc7", "prob"])
+        ms.append((time.perf_counter() - t0) * 1e3)
+        for k in want:
+            want[k].append(out[k].float().cpu().numpy())
+    with hdf5.File(path, "r") as f:
+        got = {k: f[k][()] for k in want}
+        chunks = {k: f[k].chunks for k in want}
+    equal = all(np.array_equal(got[k], np.concatenate(want[k])) for k in want)
+    print(f"{tag} CaffeNet deploy (batch 10) on the card, fc7 and prob appended by "
+          f"{HDF5_OUTPUT_FORWARDS} forwards: {[list(v.shape) for v in got.values()]}, chunks "
+          f"{chunks}, {os.path.getsize(path) / 1e6:.2f} MB; equal to the forwards' outputs: "
+          f"{equal}; ms a forward with its append {['%.1f' % x for x in ms]}; {card}")
+    check(equal, f"{tag} the file differs from the forwards' outputs")
+    return dict(forwards=HDF5_OUTPUT_FORWARDS, ms=ms, equal=equal,
+                file_mb=os.path.getsize(path) / 1e6)
+
+
+def hdf5_detect(work, root, card, device="cuda"):
+    """detect with CaffeNet deploy (seeded weights) over HDF5_DETECT_WINDOWS
+    windows of the PNGs into an .h5: predictions, windows and filenames
+    equal to api.Detector's on the card."""
+    import contextlib
+    import io
+    import os
+
+    from caffe_rtpose_tpu_torch import api
+    from caffe_rtpose_tpu_torch.core.net import Net
+    from caffe_rtpose_tpu_torch.models.caffenet import make_caffenet_deploy
+    from caffe_rtpose_tpu_torch.proto import prototxt
+    from caffe_rtpose_tpu_torch.tools import detect
+    from caffe_rtpose_tpu_torch.utils import hdf5
+
+    tag = "[hdf5 detect]"
+    deploy, weights = os.path.join(work, "h5_deploy.prototxt"), os.path.join(work, "h5.caffemodel")
+    prototxt.dump_file(make_caffenet_deploy(batch=10, crop=FW_CROP), deploy)
+    Net(deploy, device=device, seed=0).save_caffemodel(weights)
+    rs = np.random.RandomState(13)
+    windows = []
+    for i in range(HDF5_DETECT_WINDOWS):
+        y0, x0 = rs.randint(0, TOOL_SIZE - 64, 2)
+        h, w = rs.randint(48, 160, 2)
+        windows.append((os.path.join(root, f"im{i // 4:04d}.png"),
+                        [int(y0), int(x0), int(min(TOOL_SIZE, y0 + h)),
+                         int(min(TOOL_SIZE, x0 + w))]))
+    win, out = os.path.join(work, "h5_windows.csv"), os.path.join(work, "detections.h5")
+    with open(win, "w") as f:
+        f.write("filename, xmin, ymin, xmax, ymax\n")
+        for p, (y0, x0, y1, x1) in windows:
+            f.write(f"{p}, {x0}, {y0}, {x1}, {y1}\n")
+    with contextlib.redirect_stdout(io.StringIO()):
+        check(detect.main([win, out, "--model_def", deploy, "--pretrained_model", weights,
+                           "--crop_mode", "list", "--device", device]) == 0, f"{tag} exit")
+    with hdf5.File(out, "r") as f:
+        got = {k: f[k][()] for k in f}
+    api.set_mode_gpu()
+    grouped = {}
+    for p, wnd in windows:
+        grouped.setdefault(p, []).append(wnd)
+    # detect's defaults: raw scale 255, BGR, 16 pixels of context
+    ref = api.Detector(deploy, weights, raw_scale=255.0, channel_swap=(2, 1, 0),
+                       context_pad=16).detect_windows(list(grouped.items()))
+    same = (sorted(got) == ["filename", "prediction", "xmax", "xmin", "ymax", "ymin"]
+            and got["filename"].tolist() == [d["filename"].encode() for d in ref]
+            and all(got[k].tolist() == [d["window"][i] for d in ref]
+                    for i, k in enumerate(("ymin", "xmin", "ymax", "xmax")))
+            and np.array_equal(got["prediction"], np.stack([d["prediction"] for d in ref])))
+    print(f"{tag} CaffeNet deploy over {len(ref)} windows into {os.path.basename(out)}: "
+          f"prediction {got['prediction'].shape}, variable-length filenames; equal to "
+          f"api.Detector's: {same}; {card}")
+    check(same, f"{tag} the .h5 differs from api.Detector's detections")
+    return dict(windows=len(ref), equal=same)
+
+
+def hdf5_matcaffe(work, card):
+    """STORE2HDF5_SCRIPT through the port's MATLAB engine: the file, h5read
+    (all, a hyperslab, rows not yet written), h5info and h5disp against
+    what the script wrote."""
+    import os
+
+    from caffe_rtpose_tpu_torch import matlab_engine as me
+    from caffe_rtpose_tpu_torch.utils import hdf5
+
+    tag = "[hdf5 matcaffe]"
+    d = os.path.join(work, "store2hdf5")
+    os.makedirs(d)
+    script = os.path.join(d, "store.m")
+    with open(script, "w") as f:
+        f.write(STORE2HDF5_SCRIPT)
+    eng = me.MatlabEngine(os.path.join(os.path.dirname(os.path.abspath(__file__)), "matlab"))
+    cwd, before = os.getcwd(), len(me.engine_stdout())
+    t0 = time.perf_counter()
+    try:
+        os.chdir(d)
+        env = eng.run_script(script)
+    finally:
+        os.chdir(cwd)
+    secs = time.perf_counter() - t0
+    text = me.engine_stdout()[before:]
+    n = 227 * 227 * 3 * 32
+    data = (np.arange(1, n + 1, dtype=np.float64).astype(np.float32) / np.float32(7)
+            ).reshape((227, 227, 3, 32), order="F")
+    labels = np.arange(1, 65, dtype=np.float32).reshape((2, 32), order="F")
+    early = labels.copy()
+    early[:, :8] = 0
+    early[:, 16:] = 0
+    early = early[:, :16]
+    with hdf5.File(os.path.join(d, "store.h5"), "r") as f:
+        disk = {k: f[k][()] for k in ("data", "label")}
+        shapes = {k: (f[k].shape, f[k].maxshape, f[k].chunks) for k in ("data", "label")}
+    info = [(str(x.fields["Name"]), me.to_python(x.fields["Dataspace"].fields["Size"]).tolist())
+            for x in env["info"].fields["Datasets"].items]
+    checks = dict(
+        file=np.array_equal(disk["data"], data.transpose(3, 2, 1, 0))
+        and np.array_equal(disk["label"], labels.T)
+        and shapes == {"data": ((32, 3, 227, 227), (None, 3, 227, 227), (8, 3, 227, 227)),
+                       "label": ((32, 2), (None, 2), (8, 2))},
+        h5read=np.array_equal(me.to_python(env["back"]), data)
+        and np.array_equal(me.to_python(env["part"]), labels[:, 4:12]),
+        unwritten=np.array_equal(me.to_python(env["early"]), early),
+        h5info=[(n, list(map(float, np.ravel(sz)))) for n, sz in info]
+        == [("/data", [227.0, 227.0, 3.0, 32.0]), ("/label", [2.0, 32.0])],
+        h5disp=text == "HDF5 store.h5\nDataset 'data'  Size: 227x227x3x32\n"
+                       "Dataset 'label'  Size: 2x32\n")
+    print(f"{tag} store2hdf5-style script ([227 227 3 Inf], ChunkSize [227 227 3 8], 4 "
+          f"batches at start, {data.nbytes / 1e6:.1f} MB) in {secs:.2f} s: {checks}; {card}")
+    check(all(checks.values()), f"{tag} {checks}; h5disp printed {text!r}")
+    return dict(seconds=secs, **checks)
+
+
+def phase_hdf5(files, work, card, device="cuda"):
+    """The port's HDF5 codec (utils/hdf5_fmt.py) on the card's machine,
+    h5py blocked: libhdf5's files, the COCO weights, CaffeNet fed by
+    HDF5Data over a gzip pack, HDF5Output, detect's .h5 and matcaffe's
+    h5 builtins (the HDF5 solverstates: the train phase's resume)."""
+    tag = "[hdf5]"
+    zero_counts()
+    t0 = time.perf_counter()
+    with no_module("h5py"):
+        fixtures = hdf5_libhdf5_files(card)
+        weights = hdf5_weights(files, work, card, device)
+        caffenet, root = hdf5_caffenet(work, card, device)
+        output = hdf5_output(work, card, device)
+        detected = hdf5_detect(work, root, card, device)
+        matcaffe = hdf5_matcaffe(work, card)
+        check(sys.modules.get("h5py") is None, f"{tag} h5py was imported")
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    print(f"{tag} {seconds:.1f} s in all, h5py blocked; hand kernel launches {counts}; {card}")
+    check(not any(counts.values()), f"{tag} launched hand kernels: {counts}")
+    return dict(libhdf5_files=fixtures, weights=weights, caffenet=caffenet, output=output,
+                detect=detected, matcaffe=matcaffe, seconds=seconds,
+                hand_kernel_launches=counts, card=card)
+
+
 def phase_cli(files, images, extra=(), jpeg=False):
     """tools.rtpose.main with the ``files`` phase's prototxt and caffemodel
     on ``images`` as PNG frames, displayed at their own size (``extra``:
@@ -2619,11 +3037,24 @@ def phase_train_bench(shape, device="cuda"):
     return res, solver
 
 
+def saved_weights(path):
+    """{layer: [blob, ...]} of a .caffemodel or a .caffemodel.h5."""
+    from caffe_rtpose_tpu_torch.proto import caffemodel
+    from caffe_rtpose_tpu_torch.utils import hdf5
+
+    if not path.endswith(".h5"):
+        return caffemodel.load_weights(path)
+    with hdf5.File(path, "r") as f:
+        return {name: [np.asarray(g[str(i)]) for i in range(len(g))]
+                for name, g in f["data"].items()}
+
+
 def phase_train_resume(solver, work, device="cuda"):
     """Snapshot the solver, restore a fresh one from the files, take the
     same next step on both; then a deploy estimator from the snapshot's
     caffemodel runs a frame (train and deploy weights interchange by layer
-    name)."""
+    name).  Both snapshot formats, BINARYPROTO then HDF5 (the port's HDF5
+    codec, h5py blocked)."""
     import os
 
     import torch
@@ -2631,56 +3062,70 @@ def phase_train_resume(solver, work, device="cuda"):
     from caffe_rtpose_tpu_torch.core.net import Net
     from caffe_rtpose_tpu_torch.models.cpm import make_pose_deploy_net, make_pose_train_net
     from caffe_rtpose_tpu_torch.pose.estimator import PoseEstimator
-    from caffe_rtpose_tpu_torch.proto import caffemodel, prototxt
+    from caffe_rtpose_tpu_torch.proto import caffe_pb, prototxt
     from caffe_rtpose_tpu_torch.training.datasets import SyntheticPoseSource
     from caffe_rtpose_tpu_torch.training.labels_device import (make_input_transform,
                                                                pose_batches_jointfeed)
     from caffe_rtpose_tpu_torch.training.solver import Solver
     from caffe_rtpose_tpu_torch.training.transformer import AugParams
 
-    tag = "[train resume]"
     prm = AugParams(crop_size_x=TRAIN_CROP, crop_size_y=TRAIN_CROP)
-    t0 = time.perf_counter()
-    model_path, state_path = solver.snapshot(os.path.join(work, "pose_train"))
-    snap_s = time.perf_counter() - t0
     batch = next(pose_batches_jointfeed(SyntheticPoseSource(n=8, size=TRAIN_CROP, seed=5), prm,
                                         TRAIN_BATCH, seed=6, data_u8=True))
-    fresh = Solver(TRAIN_SOLVER, Net(make_pose_train_net(batch=TRAIN_BATCH, crop=TRAIN_CROP),
-                                     phase="TRAIN", device=device, seed=1),
-                   lambda _: batch, input_transform=make_input_transform(prm, data_u8=True))
-    t0 = time.perf_counter()
-    fresh.restore(state_path)
-    restore_s = time.perf_counter() - t0
-    check(fresh.it == solver.it, f"{tag} restored at iter {fresh.it}, not {solver.it}")
     solver.next_batch = lambda _: batch
-    l_cont, l_fresh = solver.step(1), fresh.step(1)
-    loss_rel = abs(l_fresh - l_cont) / abs(l_cont)
-    param_rel = blob_errors(fresh.params, solver.params)
-    hist_rel = blob_errors(fresh.history["h0"], solver.history["h0"])
-    print(f"{tag} snapshot {os.path.basename(model_path)} ({os.path.getsize(model_path) / 1e6:.1f} "
-          f"MB) + {os.path.basename(state_path)} ({os.path.getsize(state_path) / 1e6:.1f} MB) in "
-          f"{snap_s:.2f} s, restored in {restore_s:.2f} s; next step continuing {l_cont:.6g}, "
-          f"restored {l_fresh:.6g} (relative gap {loss_rel:.3g}); parameters {param_rel:.3g}, "
-          f"momentum {hist_rel:.3g} of each blob's largest (limit {TOL_RESUME})")
-    check(max(loss_rel, param_rel, hist_rel) <= TOL_RESUME, f"{tag} the restored step differs")
-    del fresh
     deploy_path = os.path.join(work, "pose_deploy_linevec.prototxt")
     prototxt.dump_file(make_pose_deploy_net("COCO"), deploy_path)
-    est = PoseEstimator(deploy_path, weights=model_path, input_u8=True, device=device)
-    deployed = est.net.export_weights()
-    saved = caffemodel.load_weights(model_path)
-    same = [k for k in deployed if all(np.array_equal(a, b) for a, b in zip(deployed[k], saved[k]))]
-    check(len(same) == len(deployed) == len(saved),
-          f"{tag} {len(same)} of the deploy net's {len(deployed)} convolutions hold the "
-          f"snapshot's {len(saved)} layers' weights")
-    res = est.estimate_from_net_input(canvases(np.random.RandomState(2), 1, est.input_shape())[0])
-    torch.cuda.synchronize()
-    check(np.isfinite(res.peaks).all(), f"{tag} non-finite peaks")
-    print(f"{tag} a deploy PoseEstimator from the snapshot's caffemodel: {len(same)}/"
-          f"{len(deployed)} convolutions by layer name, one 656x368 frame: "
-          f"{int((res.peaks[:, 0, 0] > 0).sum())} parts with peaks, {res.num_people} people")
-    return dict(snapshot_s=snap_s, restore_s=restore_s, loss_rel=loss_rel, param_rel=param_rel,
-                momentum_rel=hist_rel, deploy_layers=len(same), people=int(res.num_people))
+    out = {}
+    for fmt in ("BINARYPROTO", "HDF5"):
+        tag = f"[train resume {fmt}]"
+        sp = {**solver.sp_msg, "snapshot_format": caffe_pb.SNAPSHOT_FORMAT[fmt]}
+        solver.sp_msg, solver.sp = sp, caffe_pb.view(sp, "SolverParameter")
+        with no_module("h5py"):
+            t0 = time.perf_counter()
+            model_path, state_path = solver.snapshot(os.path.join(work, "pose_train"))
+            snap_s = time.perf_counter() - t0
+            fresh = Solver(TRAIN_SOLVER, Net(make_pose_train_net(batch=TRAIN_BATCH,
+                                                                 crop=TRAIN_CROP),
+                                             phase="TRAIN", device=device, seed=1),
+                           lambda _: batch, input_transform=make_input_transform(prm, data_u8=True))
+            t0 = time.perf_counter()
+            fresh.restore(state_path)
+            restore_s = time.perf_counter() - t0
+        check(fresh.it == solver.it, f"{tag} restored at iter {fresh.it}, not {solver.it}")
+        l_cont, l_fresh = solver.step(1), fresh.step(1)
+        loss_rel = abs(l_fresh - l_cont) / abs(l_cont)
+        param_rel = blob_errors(fresh.params, solver.params)
+        hist_rel = blob_errors(fresh.history["h0"], solver.history["h0"])
+        print(f"{tag} snapshot {os.path.basename(model_path)} "
+              f"({os.path.getsize(model_path) / 1e6:.1f} MB) + {os.path.basename(state_path)} "
+              f"({os.path.getsize(state_path) / 1e6:.1f} MB) in {snap_s:.2f} s, restored in "
+              f"{restore_s:.2f} s; next step continuing {l_cont:.6g}, restored {l_fresh:.6g} "
+              f"(relative gap {loss_rel:.3g}); parameters {param_rel:.3g}, momentum "
+              f"{hist_rel:.3g} of each blob's largest (limit {TOL_RESUME})")
+        check(max(loss_rel, param_rel, hist_rel) <= TOL_RESUME, f"{tag} the restored step differs")
+        del fresh
+        with no_module("h5py"):
+            est = PoseEstimator(deploy_path, weights=model_path, input_u8=True, device=device)
+            saved = saved_weights(model_path)
+        deployed = est.net.export_weights()
+        same = [k for k in deployed if k in saved and all(
+            np.array_equal(a, b) for a, b in zip(deployed[k], saved[k]))]
+        check(len(same) == len(deployed),
+              f"{tag} {len(same)} of the deploy net's {len(deployed)} convolutions hold the "
+              f"snapshot's weights")
+        res = est.estimate_from_net_input(canvases(np.random.RandomState(2), 1,
+                                                   est.input_shape())[0])
+        torch.cuda.synchronize()
+        check(np.isfinite(res.peaks).all(), f"{tag} non-finite peaks")
+        print(f"{tag} a deploy PoseEstimator from {os.path.basename(model_path)}: {len(same)}/"
+              f"{len(deployed)} convolutions by layer name, one 656x368 frame: "
+              f"{int((res.peaks[:, 0, 0] > 0).sum())} parts with peaks, {res.num_people} people")
+        del est
+        out[fmt] = dict(snapshot_s=snap_s, restore_s=restore_s, loss_rel=loss_rel,
+                        param_rel=param_rel, momentum_rel=hist_rel, deploy_layers=len(same),
+                        people=int(res.num_people), model_mb=os.path.getsize(model_path) / 1e6,
+                        state_mb=os.path.getsize(state_path) / 1e6)
+    return out
 
 
 def phase_train_cli(work, device="cuda"):
@@ -2970,7 +3415,7 @@ FW_BATCH, FW_CROP, FW_SIZE, FW_RECORDS = 256, 227, 256, 512  # CaffeNet, batch 2
 FW_ITERS, FW_TEST_INTERVAL, FW_TEST_ITER = 20, 10, 2
 FW_SOLVER = ("base_lr: 0.01\nlr_policy: 'fixed'\nmomentum: 0.9\nweight_decay: 5e-4\n"
              "display: 10\n")
-H5PY_TYPES = ("HDF5Data", "HDF5Output")  # the card's machine has no h5py
+HDF5_TYPES = ("HDF5Data", "HDF5Output")  # run by the hdf5 phase, at CaffeNet's width
 TOL_ZOO_FWD = 1e-5  # card against CPU: |a - b| <= 1e-5 * max(1, |b|)
 TOL_ZOO_GRAD = 1e-4  # gradients: within 1e-4 of each blob's largest |b|
 TOL_KEPT = 0.02  # Dropout / STOCHASTIC: kept share within 2 % of 1 - p
@@ -3167,15 +3612,15 @@ def zoo_data_layers(device, work):
 
 
 def phase_framework_zoo(work, device="cuda"):
-    """(a) Every registered type but the h5py ones on the card against the
-    CPU, TF32 off."""
+    """(a) Every registered type but the HDF5 ones (the hdf5 phase runs them)
+    on the card against the CPU, TF32 off."""
     from caffe_rtpose_tpu_torch import api
 
     tag = "[framework zoo]"
     checked, worst_fwd, worst_bwd, rows = set(), 0.0, 0.0, {}
     for case in zoo_cases():
         types = {l["type"] for l in case.layers}
-        if types & set(H5PY_TYPES):
+        if types & set(HDF5_TYPES):
             continue
         fwd, bwd = zoo_case_on(case, device)
         for k, (ratio, exact) in fwd.items():
@@ -3194,15 +3639,16 @@ def phase_framework_zoo(work, device="cuda"):
     checked |= set(data)
     random = zoo_random(device)
     registered = set(api.layer_type_list())
-    missing = registered - checked - set(H5PY_TYPES)
-    check(not missing, f"{tag} registered types neither checked nor h5py-only: {missing}")
+    missing = registered - checked - set(HDF5_TYPES)
+    check(not missing, f"{tag} registered types neither checked here nor by the hdf5 phase: "
+                       f"{missing}")
     print(f"{tag} {len(checked & registered)} of {len(registered)} registered types checked on "
           f"the card against the CPU ({len(rows)} layer cases, {len(data)} data layers; not run: "
-          f"{', '.join(H5PY_TYPES)}, which need h5py); worst forward {worst_fwd:.3g} and "
+          f"{', '.join(HDF5_TYPES)}, which the hdf5 phase runs); worst forward {worst_fwd:.3g} and "
           f"gradient {worst_bwd:.3g} of their tolerances (1e-5*max(1,|y|), 1e-4 of each "
           f"blob's largest); integer tops exact; {json.dumps(random)}")
     return dict(types_checked=len(checked & registered), types_registered=len(registered),
-                not_run=list(H5PY_TYPES), cases=len(rows), worst_fwd_ratio=worst_fwd,
+                not_run=list(HDF5_TYPES), cases=len(rows), worst_fwd_ratio=worst_fwd,
                 worst_grad_ratio=worst_bwd, random=random)
 
 
@@ -4316,6 +4762,7 @@ def main() -> int:
     pipeline = phase_pipeline(weights)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_files_") as work:
         files = phase_files(weights, work)
+        hdf5 = phase_hdf5(files, work, info["nvidia_smi"])
         # the calibration canvases at their own size: the calibrated weights
         # find people there, so the JSON the serving and eval phases compare
         # holds joints
@@ -4385,6 +4832,7 @@ def main() -> int:
     print(json.dumps({"preprocess_ms": prep}))
     print(json.dumps({"pipeline": pipeline}))
     print(json.dumps({"files": files}))
+    print(json.dumps({"hdf5": hdf5}))
     print(json.dumps({"cli": cli}))
     print(json.dumps({"cli_720p": cli_720p}))
     print(json.dumps({"cli_jpeg": cli_jpeg}))

@@ -365,15 +365,16 @@ def test_sgd_solver_with_a_test_net(tmp_path):
 
 
 def test_hdf5_weights_and_detector_match_jax(pair, tmp_path):
-    """save_hdf5/load_hdf5 write and read what JAX's do (h5py present), and
-    Detector.detect_windows classifies PNG windows as JAX's does."""
-    pytest.importorskip("h5py")
+    """save_hdf5/load_hdf5 (the port's codec) write and read what JAX's do
+    (through h5py), and Detector.detect_windows classifies PNG windows as
+    JAX's does."""
     from caffe_rtpose_tpu import api as japi
 
     from caffe_rtpose_tpu.proto import prototxt as jproto
 
     work, proto, jnet, net = pair
     net.save_hdf5(str(tmp_path / "port.h5"))
+    pytest.importorskip("h5py")  # JAX's side
     fresh = japi.Net(proto, japi.TEST)
     fresh.load_hdf5(str(tmp_path / "port.h5"))
     other = api.Net(proto, api.TEST)

@@ -152,14 +152,16 @@ def test_memory_data_layer_matches_jax():
 
 
 def test_hdf5_data_layer_matches_jax(tmp_path):
-    h5py = pytest.importorskip("h5py")
+    from caffe_rtpose_tpu_torch.utils import hdf5
+
     rs = np.random.RandomState(0)
-    with h5py.File(tmp_path / "d.h5", "w") as f:
+    with hdf5.File(tmp_path / "d.h5", "w") as f:  # the port's codec; JAX reads it with h5py
         f["data"] = rs.rand(6, 2, 4, 4).astype(np.float32)
         f["label"] = np.arange(6, dtype=np.float32)
     (tmp_path / "files.txt").write_text(str(tmp_path / "d.h5") + "\n")
     layer = {"name": "data", "type": "HDF5Data", "top": ["data", "label"],
              "hdf5_data_param": {"source": str(tmp_path / "files.txt"), "batch_size": 3}}
+    pytest.importorskip("h5py")  # JAX's side
     same_batches(*both(layer, "TEST"))
 
 

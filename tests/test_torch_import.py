@@ -1,6 +1,7 @@
 """The PyTorch port imports without jax: neither directly nor through the
 JAX package (whose ``__init__`` imports jax); and without OpenCV or h5py,
 also with all three blocked at once (the card's machine has none of them).
+An HDF5 round trip through the port's codec loads no h5py, blocked or not.
 ``proto.caffe_pb2`` is left out: it runs protoc when imported."""
 
 import os
@@ -47,6 +48,8 @@ SLICE_MODULES = [
     "caffe_rtpose_tpu_torch.proto.datum",
     "caffe_rtpose_tpu_torch.utils.db",
     "caffe_rtpose_tpu_torch.utils.leveldb_fmt",
+    "caffe_rtpose_tpu_torch.utils.hdf5_fmt",
+    "caffe_rtpose_tpu_torch.utils.hdf5",
     "caffe_rtpose_tpu_torch.utils.signals",
     "caffe_rtpose_tpu_torch.utils.timer",
     "caffe_rtpose_tpu_torch.utils.profiler",
@@ -89,21 +92,38 @@ SLICE_MODULES = [
 ]
 
 
-def _run(prelude: str) -> None:
+# a chunked gzip dataset appended in mode 'a', a string, read back
+HDF5_ROUND_TRIP = (
+    "import os, tempfile\n"
+    "import numpy as np\n"
+    "from caffe_rtpose_tpu_torch.utils import hdf5\n"
+    "p = os.path.join(tempfile.mkdtemp(), 'r.h5')\n"
+    "with hdf5.File(p, 'w') as f:\n"
+    "    f.create_dataset('x', data=np.arange(6.0).reshape(2, 3), maxshape=(None, 3),\n"
+    "                     compression='gzip')\n"
+    "    f['s'] = 'text'\n"
+    "with hdf5.File(p, 'a') as f:\n"
+    "    f['x'].resize(4, axis=0)\n"
+    "    f['x'][2:] = 1.0\n"
+    "with hdf5.File(p) as f:\n"
+    "    assert f['x'][()].sum() == 21.0 and f['s'][()] == b'text'\n")
+
+
+def _run(prelude: str, after: str = "") -> None:
     code = (prelude + "import importlib, sys\n"
             f"for m in {SLICE_MODULES!r}:\n"
             "    importlib.import_module(m)\n"
             "assert 'jax' not in sys.modules or sys.modules['jax'] is None, 'jax loaded'\n"
             "assert not any(k == 'caffe_rtpose_tpu' or k.startswith('caffe_rtpose_tpu.')\n"
             "               for k in sys.modules), 'JAX package loaded'\n"
-            "print('ok')\n")
+            + after + "print('ok')\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
 
 
 def test_slice_imports_without_jax():
-    _run("")
+    _run("", HDF5_ROUND_TRIP + "assert 'h5py' not in sys.modules, 'h5py loaded'\n")
 
 
 def test_slice_imports_with_jax_blocked():
@@ -129,4 +149,5 @@ def test_slice_imports_with_jax_and_cv2_blocked():
 
 def test_slice_imports_with_jax_cv2_and_h5py_blocked():
     _run("import sys\nsys.modules['jax'] = None\nsys.modules['cv2'] = None\n"
-         "sys.modules['h5py'] = None\n")
+         "sys.modules['h5py'] = None\n",
+         HDF5_ROUND_TRIP + "assert sys.modules['h5py'] is None, 'h5py loaded'\n")

@@ -17,11 +17,15 @@ the JAX package's.
   more.
 * Snapshots: a port solver restored from its own snapshot continues bit for
   bit; the ``.solverstate`` files of the two packages restore into each
-  other exactly and continue together within the end-to-end tolerance.
+  other exactly and continue together within the end-to-end tolerance; the
+  HDF5 ones with h5py blocked on the port's side (its own codec), and a
+  solverstate in the form Caffe's C++ writes restores as JAX's does.
 
 oneDNN is off in this module (XLA parity of CPU convolutions)."""
 
+import contextlib
 import itertools
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -240,6 +244,17 @@ def test_snapshot_restore_continue(setup, tmp_path):
                 assert torch.equal(x, y)
 
 
+@contextlib.contextmanager
+def h5py_blocked():
+    """``import h5py`` raises inside the block, as on the card's machine."""
+    saved = sys.modules.get("h5py")
+    sys.modules["h5py"] = None
+    try:
+        yield
+    finally:
+        sys.modules["h5py"] = saved
+
+
 @pytest.mark.parametrize("fmt", ["BINARYPROTO", "HDF5"])
 def test_solverstates_interchange(setup, tmp_path, fmt):
     """A JAX snapshot restored in the port continues as JAX does, and a
@@ -252,7 +267,8 @@ def test_solverstates_interchange(setup, tmp_path, fmt):
     js.step(2)
     _, jstate = js.snapshot(str(tmp_path / "jax"))
     ps = make_port(setup, sp)
-    ps.restore(jstate)
+    with h5py_blocked():
+        ps.restore(jstate)
     assert ps.it == 2
     assert_restored_exactly(ps, js)
     if fmt == "BINARYPROTO":
@@ -263,7 +279,8 @@ def test_solverstates_interchange(setup, tmp_path, fmt):
     # port -> JAX
     ps = make_port(setup, sp)
     ps.step(2)
-    _, pstate = ps.snapshot(str(tmp_path / "port"))
+    with h5py_blocked():
+        _, pstate = ps.snapshot(str(tmp_path / "port"))
     js = make_jax(setup, sp)
     js.restore(pstate)
     assert js.it == 2
@@ -273,6 +290,38 @@ def test_solverstates_interchange(setup, tmp_path, fmt):
         for _ in range(2):
             np.testing.assert_allclose(ps.step(1), js.step(1), rtol=LOSS_RTOL)
         assert_solvers_close(ps, js, setup[1])
+
+
+def test_restores_caffe_cpp_hdf5_solverstate(setup, tmp_path):
+    """A solverstate as SGDSolver::SnapshotSolverStateToHDF5 writes it (H5LT:
+    ``iter`` and ``current_step`` int32 of dims [1], ``learned_net`` a
+    fixed-length null-terminated string) restores in the port, h5py blocked,
+    exactly as in JAX."""
+    import h5py
+
+    sp = "type: 'Nesterov' base_lr: 1e-5 lr_policy: 'step' stepsize: 1 gamma: 0.5 " \
+         "momentum: 0.9 snapshot_format: HDF5"
+    js = make_jax(setup, sp)
+    js.step(3)
+    model, state = js.snapshot(str(tmp_path / "jax"))
+    caffe_state = str(tmp_path / "caffe.solverstate.h5")
+    with h5py.File(state, "r") as src, h5py.File(caffe_state, "w") as f:
+        for key in ("iter", "current_step"):
+            f.create_dataset(key, data=np.array([int(src[key][()])], np.int32))
+        name = model.encode() + b"\x00"
+        t = h5py.h5t.C_S1.copy()
+        t.set_size(len(name))
+        h5py.h5d.create(f.id, b"learned_net", t, h5py.h5s.create(h5py.h5s.SCALAR))
+        f["learned_net"].id.write(h5py.h5s.ALL, h5py.h5s.ALL, np.array(name, f"S{len(name)}"))
+        src.copy("history", f)
+    ps = make_port(setup, sp)
+    with h5py_blocked():
+        ps.restore(caffe_state)
+    jr = make_jax(setup, sp)
+    jr.restore(caffe_state)
+    assert ps.it == jr.it == 3 and ps.current_step == jr.current_step == js.current_step
+    assert_restored_exactly(ps, jr)
+    assert_restored_exactly(ps, js)
 
 
 def test_history_maps_to_and_from_jax(setup):
