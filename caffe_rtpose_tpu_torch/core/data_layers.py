@@ -14,7 +14,8 @@ The standard transform (DataTransformer::Transform, data_transformer.cpp:
 TEST, random in TRAIN), a random mirror (any phase, as the reference) and
 the scale.  No OpenCV: images are read by ``pipeline/image_io.py`` (PNG and
 BMP in numpy, JPEG by the port's codec, ``pipeline/jpeg.py``) and resized in
-numpy (bilinear, ``cv2.resize``'s INTER_LINEAR).  HDF5Data reads its files
+numpy by ``cv2.resize``'s INTER_LINEAR in OpenCV's u8 fixed point, bit for
+bit (``utils/imgproc.py``).  HDF5Data reads its files
 with the port's HDF5 codec (``utils/hdf5.py``).
 """
 
@@ -29,6 +30,7 @@ import numpy as np
 from ..proto import caffe_pb
 from ..proto import datum as datum_io
 from ..proto.wire import decode, encode
+from ..utils import imgproc
 
 DATA_LAYER_TYPES = {"Data", "ImageData", "MemoryData", "HDF5Data", "WindowData", "CPMData"}
 
@@ -83,21 +85,6 @@ def apply_taps(img: np.ndarray, idx: np.ndarray, w: np.ndarray, axis: int) -> np
         t = img.take(idx[:, j], axis=axis) * w[:, j].astype(np.float32).reshape(shape)
         out = t if out is None else out + t
     return out
-
-
-def resize_linear(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
-    """``cv2.resize(img, (out_w, out_h))`` (INTER_LINEAR) in f32 numpy, for
-    an (H, W) or (H, W, C) image of any dtype; a u8 image comes back rounded
-    to u8 (cv2's u8 path sums in fixed point: within one level)."""
-    h, w = img.shape[:2]
-    if (h, w) == (out_h, out_w):
-        return img.copy()
-    src = np.asarray(img, np.float32).reshape(h, w, -1)
-    out = apply_taps(apply_taps(src, *linear_taps(out_w, w), 1), *linear_taps(out_h, h), 0)
-    out = out.reshape((out_h, out_w) + img.shape[2:])
-    if img.dtype == np.uint8:
-        return np.clip(np.rint(out), 0, 255).astype(np.uint8)
-    return out.astype(img.dtype)
 
 
 def read_image(path: str, color: bool = True) -> np.ndarray:
@@ -260,7 +247,7 @@ class ImageDataLayer(HostDataLayer):
     def _load(self, rel: str) -> np.ndarray:
         img = read_image(os.path.join(self.root, rel), self.is_color)
         if self.new_h and self.new_w:
-            img = resize_linear(img, self.new_h, self.new_w)
+            img = imgproc.resize_linear_u8(img, self.new_h, self.new_w)
         return img
 
     def batches(self):
@@ -409,7 +396,7 @@ class WindowDataLayer(HostDataLayer):
         patch = img[py1: py2 + 1, px1: px2 + 1]
         canvas = np.zeros((y2 - y1 + 1, x2 - x1 + 1, 3), img.dtype)
         canvas[py1 - y1: py1 - y1 + patch.shape[0], px1 - x1: px1 - x1 + patch.shape[1]] = patch
-        warped = resize_linear(canvas, self.crop_size, self.crop_size)
+        warped = imgproc.resize_linear_u8(canvas, self.crop_size, self.crop_size)
         x = np.transpose(warped, (2, 0, 1)).astype(np.float32)
         if self.mean is not None:
             mc = self.mean

@@ -17,7 +17,8 @@ machine with the card has no ``cv2``); both resamplers are numpy:
   linear resize with area coefficients (``fx = (dx+1) - (sx+1)/scale``,
   clamped as ``cv::resize`` clamps them) in its fixed-point u8 arithmetic
   (11-bit coefficients, an integer horizontal pass, the vertical pass
-  ``VResizeLinear`` rounds).
+  ``VResizeLinear`` rounds), which ``utils/imgproc.py`` holds for this and
+  for INTER_LINEAR.
 * :func:`warp_to_display` is ``cv2.warpAffine`` with a diagonal matrix,
   ``INTER_CUBIC`` (A = -0.75), a black constant border.  OpenCV 4's
   fixed-point remap (32 sub-pixel phases, 15-bit coefficients) is not what
@@ -40,6 +41,8 @@ from functools import lru_cache
 from typing import Optional, Tuple, Union
 
 import numpy as np
+
+from ..utils import imgproc
 
 
 def display_scale(ori_w: int, ori_h: int, disp_w: int, disp_h: int) -> float:
@@ -145,43 +148,6 @@ def _area_taps(n_src: int, n_dst: int, scale: float) -> Tuple[np.ndarray, np.nda
     return idx, wgt
 
 
-COEF_BITS = 11  # INTER_RESIZE_COEF_BITS
-COEF_SCALE = 1 << COEF_BITS
-
-
-def _linear_area_axis(n_src: int, n_dst: int, clamp: bool):
-    """One axis of ``cv::resize``'s linear branch in area mode: (n_dst,)
-    first and second source index and their 11-bit coefficients.  ``clamp``:
-    the horizontal axis, where an output whose first tap is the last source
-    pixel takes that pixel alone (the vertical axis keeps its weight and
-    reads the last row twice)."""
-    inv = n_dst / n_src  # inv_scale, then scale = 1 / inv_scale, in double
-    scale = 1.0 / inv
-    d = np.arange(n_dst, dtype=np.float64)
-    s = np.floor(d * scale).astype(np.int64)
-    f = ((d + 1) - (s + 1) * inv).astype(np.float32)
-    f = np.where(f <= 0, np.float32(0), f - np.floor(f)).astype(np.float32)
-    if clamp:
-        last = s >= n_src - 1
-        f[last], s[last] = 0, n_src - 1
-    coef = lambda v: np.rint(v * np.float32(COEF_SCALE)).astype(np.int64)  # noqa: E731
-    return s, np.minimum(s + 1, n_src - 1), coef(np.float32(1) - f), coef(f)
-
-
-def _resize_linear_area(src: np.ndarray, sh: int, sw: int, cn: int, dst_w: int,
-                        dst_h: int) -> np.ndarray:
-    """INTER_AREA where an axis grows: (sh, sw*cn) u8 -> (dst_h, dst_w*cn)
-    u8, in OpenCV's fixed point (``HResizeLinear`` on int sums, then
-    ``VResizeLinear<uchar, int, short>``)."""
-    x0, x1, a0, a1 = _linear_area_axis(sw, dst_w, clamp=True)
-    y0, y1, b0, b1 = _linear_area_axis(sh, dst_h, clamp=False)
-    col = lambda xs: (xs[:, None] * cn + np.arange(cn)).reshape(-1)  # noqa: E731
-    rows = src.astype(np.int64)
-    horiz = (rows[:, col(x0)] * np.repeat(a0, cn) + rows[:, col(x1)] * np.repeat(a1, cn)) >> 4
-    out = (((b0[:, None] * horiz[y0]) >> 16) + ((b1[:, None] * horiz[y1]) >> 16) + 2) >> 2
-    return np.clip(out, 0, 255).astype(np.uint8)
-
-
 def resize_area(img: np.ndarray, dst_w: int, dst_h: int) -> np.ndarray:
     """``cv2.resize(img, (dst_w, dst_h), interpolation=cv2.INTER_AREA)`` for
     an (H, W, C) or (H, W) u8 image, bit for bit."""
@@ -194,7 +160,9 @@ def resize_area(img: np.ndarray, dst_w: int, dst_h: int) -> np.ndarray:
     cn = img.shape[2] if img.ndim == 3 else 1
     src = img.reshape(sh, sw * cn)
     if scale_x < 1 or scale_y < 1:
-        out = _resize_linear_area(src, sh, sw, cn, dst_w, dst_h)
+        # the linear resize with area coefficients (utils/imgproc's fixed point)
+        out = imgproc.linear_passes(src, cn, imgproc.linear_axis(sw, dst_w, area=True, clamp=True),
+                                    imgproc.linear_axis(sh, dst_h, area=True, clamp=False))
         return out.reshape((dst_h, dst_w) + img.shape[2:])
     ix, iy = int(round(scale_x)), int(round(scale_y))
     eps = sys.float_info.epsilon  # OpenCV's DBL_EPSILON test for an integer ratio

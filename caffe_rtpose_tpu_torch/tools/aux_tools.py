@@ -16,9 +16,9 @@
         --blobs fc7,prob --out feats.npz --iterations 2 [--device cpu]
 
 Images are read without OpenCV (``core/data_layers.read_image``: PNG and BMP
-in numpy, JPEG by the port's codec) and resized with ``resize_linear``,
-``cv2.resize``'s INTER_LINEAR in f32 (within one u8 level of OpenCV's
-fixed-point sums).  ``--encoded`` Datums are PNG, or JPEG with
+in numpy, JPEG by the port's codec) and resized by ``cv2.resize``'s u8
+INTER_LINEAR in OpenCV's fixed point, bit for bit
+(``utils/imgproc.resize_linear_u8``).  ``--encoded`` Datums are PNG, or JPEG with
 ``--encode_type jpg`` (quality 95, the bytes ``cv2.imencode`` writes), both
 written and read without OpenCV (``proto/datum.py``).  ``extract_features`` builds the
 net on the card unless ``--device cpu``.  HDF5 packs are written and read by the
@@ -58,7 +58,8 @@ def convert_imageset(listfile: str, root: str, out_path: str,
                      gray: bool = False, shuffle: bool = False, seed: int = 0,
                      encoded: bool = False, encode_type: str = "",
                      backend: str = "kvdb") -> int:
-    from ..core.data_layers import read_image, resize_linear
+    from ..core.data_layers import read_image
+    from ..utils import imgproc
 
     entries = read_list(listfile)
     if shuffle:
@@ -80,7 +81,7 @@ def convert_imageset(listfile: str, root: str, out_path: str,
             continue
         img = read_image(full, color=not gray)
         if resize_h and resize_w:
-            img = resize_linear(img, resize_h, resize_w)
+            img = imgproc.resize_linear_u8(img, resize_h, resize_w)
         if img.ndim == 2:
             img = img[..., None]
         if to_h5:

@@ -17,7 +17,8 @@ ring) with host-side Python sources feeding the jitted train step:
 The port of ``caffe_rtpose_tpu/training/datasets.py`` without OpenCV: images
 are read by ``pipeline/image_io.py`` (PNG and BMP in numpy, JPEG by the
 port's codec; a mask is read gray, as ``cv2.IMREAD_GRAYSCALE``) and the
-synthetic figures are drawn in numpy.
+synthetic figures are drawn by ``utils/imgproc.line_u8``, ``cv2.line`` in
+numpy, bit for bit.
 """
 
 from __future__ import annotations
@@ -26,40 +27,14 @@ import json
 import os
 import queue
 import threading
-from typing import Callable, Dict, Iterator, List, Optional, Tuple, Union
+from typing import Callable, Dict, Iterator, List, Optional, Union
 
 import numpy as np
 import torch
 
 from ..pipeline.image_io import read_image
-from ..utils import hdf5
+from ..utils import hdf5, imgproc
 from .transformer import AugParams, Meta, Person, transform, transform_joints_coco
-
-LINE_HALF_WIDTH = 2.5  # the synthetic limbs' stroke, about cv2.line's thickness 3
-
-
-def draw_line(img: np.ndarray, p0: Tuple[int, int], p1: Tuple[int, int],
-              color: Tuple[int, ...], half_width: float = LINE_HALF_WIDTH) -> None:
-    """Paint the pixels within ``half_width`` of the segment p0-p1 (integer
-    (x, y) points) in ``color``, in place.  Stands in for ``cv2.line`` with
-    thickness 3, which fills a fixed-point polygon: the two strokes differ
-    along their edges."""
-    h, w = img.shape[:2]
-    (x0, y0), (x1, y1) = p0, p1
-    xa = max(int(np.floor(min(x0, x1) - half_width)), 0)
-    xb = min(int(np.ceil(max(x0, x1) + half_width)) + 1, w)
-    ya = max(int(np.floor(min(y0, y1) - half_width)), 0)
-    yb = min(int(np.ceil(max(y0, y1) + half_width)) + 1, h)
-    if xa >= xb or ya >= yb:
-        return
-    xs, ys = np.meshgrid(np.arange(xa, xb, dtype=np.float64), np.arange(ya, yb, dtype=np.float64))
-    dx, dy = float(x1 - x0), float(y1 - y0)
-    seg2 = dx * dx + dy * dy
-    t = (np.clip(((xs - x0) * dx + (ys - y0) * dy) / seg2, 0.0, 1.0) if seg2
-         else np.zeros_like(xs))
-    d2 = (xs - x0 - t * dx) ** 2 + (ys - y0 - t * dy) ** 2
-    img[ya:yb, xa:xb][d2 <= half_width * half_width] = color
-
 
 class JsonPoseSource:
     """Annotation index format (one JSON file):
@@ -104,9 +79,9 @@ class JsonPoseSource:
 
 
 class SyntheticPoseSource:
-    """Procedural stick figures on noise backgrounds for tests/benchmarks.
-    The same people (joints, visibility, centres) as the JAX source for a
-    seed; the strokes are :func:`draw_line`'s."""
+    """Procedural stick figures on noise backgrounds for tests/benchmarks:
+    the JAX source's images and people for every seed (the limbs are
+    ``cv2.line``'s thickness-3 strokes, ``utils/imgproc.line_u8``)."""
 
     def __init__(self, n: int = 64, size: int = 368, seed: int = 0):
         self.n = n
@@ -138,8 +113,8 @@ class SyntheticPoseSource:
             for a, b in ((1, 2), (2, 3), (3, 4), (1, 5), (5, 6), (6, 7),
                          (1, 8), (8, 9), (9, 10), (1, 11), (11, 12), (12, 13),
                          (1, 0)):
-                draw_line(img, tuple(joints[a].astype(int)), tuple(joints[b].astype(int)),
-                          tuple(int(c) for c in rs.randint(100, 255, 3)))
+                imgproc.line_u8(img, tuple(joints[a].astype(int)), tuple(joints[b].astype(int)),
+                                tuple(int(c) for c in rs.randint(100, 255, 3)), 3)
             people.append(Person(joints=joints, visible=vis,
                                  objpos=np.array([cx, cy], np.float32)))
         return img, Meta(people=people, scale_self=1.0), None

@@ -40,8 +40,10 @@ Both land within one u8 level of OpenCV 5.0 on every pixel and equal it on
 all but a few hundredths of a percent of them
 (``tests/test_torch_transformer.py``).  :func:`rotation_matrix_2d` is
 ``cv2.getRotationMatrix2D`` in its closed form, bit for bit, so joints (and
-every label channel drawn from them) match the JAX chain exactly.  CLAHE
-(off by default) still needs ``cv2`` and raises without it.
+every label channel drawn from them) match the JAX chain exactly.
+:func:`clahe` (``do_clahe``, off by default) is OpenCV's 8-bit Lab
+conversions and CLAHE in numpy (``utils/imgproc.py``), bit for bit, with no
+``cv2``.
 """
 
 from __future__ import annotations
@@ -53,6 +55,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..pose.preprocess import _cubic_weights
+from ..utils import imgproc
 from .joints import swap_left_right
 
 # COCO keypoint (17) -> "ours" (18, with neck) mapping (:1026-1042)
@@ -126,7 +129,7 @@ class AugParams:
     sigma: float = 7.0
     transform_body_joint: bool = True
     np: int = 56
-    do_clahe: bool = False
+    do_clahe: bool = False  # CLAHE on L in Lab (clahe(), numpy, no OpenCV)
     clahe_tile_size: int = 8
     clahe_clip_limit: int = 4
 
@@ -389,18 +392,12 @@ def augmentation_flip(img, mask_miss, meta: Meta, prm: AugParams, rng):
 
 def clahe(img_bgr: np.ndarray, tile_size: int = 8, clip_limit: int = 4) -> np.ndarray:
     """CLAHE on the L channel in Lab space (DataTransformer::clahe,
-    data_transformer.cpp:2505-2528).  Needs OpenCV; ``do_clahe`` is off by
-    default."""
-    try:
-        import cv2
-    except ImportError as e:
-        raise RuntimeError("do_clahe needs OpenCV (cv2), which is not installed; "
-                           "train with do_clahe=False") from e
-    lab = cv2.cvtColor(img_bgr, cv2.COLOR_BGR2Lab)
-    l, a, b = cv2.split(lab)
-    c = cv2.createCLAHE(clipLimit=float(clip_limit), tileGridSize=(tile_size, tile_size))
-    merged = cv2.merge((c.apply(l), a, b))
-    return cv2.cvtColor(merged, cv2.COLOR_Lab2BGR)
+    data_transformer.cpp:2505-2528): ``cvtColor`` BGR -> Lab, ``CLAHE`` on
+    L, Lab -> BGR, in OpenCV's u8 arithmetic without OpenCV
+    (``utils/imgproc.py``)."""
+    lab = imgproc.bgr2lab_u8(img_bgr)
+    lab[..., 0] = imgproc.clahe_u8(lab[..., 0], float(clip_limit), tile_size)
+    return imgproc.lab2bgr_u8(lab)
 
 
 def put_vec_peaks(entry_x: np.ndarray, entry_y: np.ndarray, center_a: np.ndarray,

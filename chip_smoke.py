@@ -14,6 +14,16 @@ Phases, each of which raises (non-zero exit) on failure:
                digests tests/test_torch_jpeg.py holds against cv2; decode
                and encode host ms (median of 20) of a 1280x720 and a 640x480
                q95 4:2:0 frame.
+   imgproc   - OpenCV's u8 image operations in numpy (utils/imgproc.py), cv2
+               blocked: the sha256 of BGR->Lab and Lab->BGR over the whole
+               2^24 cube, of the CLAHE, cv2.line and INTER_LINEAR case sets,
+               of the synthetic source's first images and of do_clahe's step
+               on two frames equal to the digests tests/test_torch_imgproc.py
+               holds against cv2 (tests/imgproc_cases.py); host ms of
+               transformer.clahe at 368x368 and 1280x720, the cube each
+               way, SyntheticPoseSource[i] at 368, and one
+               pose_batches_jointfeed batch (10 at crop 368) with do_clahe
+               on and off; the hand kernels' counters read 0 after it.
 3. kernels   - each hand-written kernel against its plain PyTorch version on
                the card, at the estimators' shapes (COCO 1 and 3 scales, MPI,
                small and ragged), at the estimator's input (the 18-channel
@@ -129,14 +139,19 @@ Phases, each of which raises (non-zero exit) on failure:
                card and on the host CPU from the same fan-in weights and
                batches (losses within 1e-5 relative, weights within 1e-4
                and biases and momentum within 5e-3 of each blob's largest
-               magnitude); scripts/bench_train.py's configuration (6
+               magnitude, or, above that, within the largest gap between
+               the host's own f32 with and without oneDNN and f64 on the
+               same batches); scripts/bench_train.py's configuration (6
                stages, batch 10, crop 368, u8 crops and joints from the
                host, labels on the card, SGD 2e-5 fixed, momentum 0.9,
                weight decay 5e-4) in the shapes sync, ring and staged: 2
                warm steps, then 10 timed (iters/s, imgs/s, device ms a step
                between CUDA events, host augmentation ms a batch, peak
                memory), every loss finite, the hand kernels' counters zero
-               (training launches none of K1-K4); a snapshot restored into
+               (training launches none of K1-K4); one augmented batch with
+               do_clahe on (cv2 blocked) and one SGD step of the 2-stage net
+               on it, card against CPU (loss within 1e-5 relative); a
+               snapshot restored into
                a fresh solver whose next step equals the continuing one's
                (within 1e-5), and a deploy PoseEstimator from the snapshot's
                caffemodel (every convolution by layer name) on one frame,
@@ -747,6 +762,115 @@ def phase_jpeg(card):
               f"encode {v['encode_ms']:.3f}" for k, v in timed.items()) + f"; {card}")
     check(ok, f"{tag} the card host's codec differs from cv2: {digests} against {jf.DIGESTS}")
     return dict(build_s=build_s, built=built, digests_equal=ok, host_ms=timed, card=card)
+
+
+IMGPROC_REPS = 5
+
+
+def imgproc_cases_module():
+    """tests/imgproc_cases.py: the seeded cases and the digests
+    tests/test_torch_imgproc.py holds against cv2 (numpy only)."""
+    jpeg_frames_module()  # puts tests/ on the path
+    import imgproc_cases
+
+    return imgproc_cases
+
+
+def host_ms(fn, reps=IMGPROC_REPS):
+    """The median host ms of ``reps`` calls of ``fn``."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1000.0)
+    return statistics.median(times)
+
+
+def phase_imgproc(card):
+    """OpenCV's u8 image operations in numpy (utils/imgproc.py) on the card's
+    host, cv2 blocked: every digest pinned with cv2 in tests/imgproc_cases.py
+    recomputed and held equal (both Lab cubes, CLAHE, cv2.line, INTER_LINEAR,
+    the synthetic source, do_clahe's step), and their host ms.  They launch
+    none of K1-K4: the counters are zeroed before and read after."""
+    from caffe_rtpose_tpu_torch.training.datasets import SyntheticPoseSource
+    from caffe_rtpose_tpu_torch.training.labels_device import pose_batches_jointfeed
+    from caffe_rtpose_tpu_torch.training.transformer import AugParams, clahe
+    from caffe_rtpose_tpu_torch.utils import imgproc
+
+    tag = "[imgproc]"
+    cases = imgproc_cases_module()
+    zero_counts()
+    t_phase = time.perf_counter()
+    digests, seconds = {}, {}
+    with no_cv2():
+        for name in ("bgr2lab", "lab2bgr"):
+            t0 = time.perf_counter()
+            digests[name + "_cube"] = cases.cube_digest(getattr(imgproc, name + "_u8"))
+            seconds[name + "_cube"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        digests.update(cases.case_digests(imgproc))
+        seconds["cases"] = time.perf_counter() - t0
+        digests["synthetic"] = cases.synthetic_digest(SyntheticPoseSource)
+        digests["do_clahe"] = cases.do_clahe_digest(clahe)
+        ms = {f"clahe_{h}x{w}": host_ms(lambda f=cases.frame(h, w, s): clahe(f, 8, 4))
+              for h, w, s in cases.DO_CLAHE_FRAMES}
+        src = SyntheticPoseSource(n=16, size=368, seed=0)
+        it = iter(range(16))
+        ms["synthetic_368"] = host_ms(lambda: src[next(it)], reps=8)
+        for on in (False, True):
+            prm = AugParams(crop_size_x=368, crop_size_y=368, do_clahe=on)
+            gen = pose_batches_jointfeed(src, prm, 10, max_people=12, seed=1, data_u8=True)
+            ms[f"jointfeed_batch10_clahe_{'on' if on else 'off'}"] = host_ms(lambda: next(gen), reps=3)
+    seconds["phase"] = time.perf_counter() - t_phase
+    counts = read_counts()
+    ok = digests == cases.DIGESTS
+    print(f"{tag} digests of the Lab cube both ways, {sum(1 for _ in cases.clahe_cases())} CLAHE, "
+          f"{sum(1 for _ in cases.line_cases())} cv2.line and {sum(1 for _ in cases.resize_cases())} "
+          f"INTER_LINEAR cases, the synthetic source and do_clahe "
+          f"{'equal' if ok else 'DIFFER from'} those pinned with cv2; seconds: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items()) + "; host ms (median): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in ms.items()) + f"; hand-kernel launches {counts}; {card}")
+    check(ok, f"{tag} the card host's numpy differs from cv2: "
+          + str({k: v for k, v in digests.items() if v != cases.DIGESTS.get(k)}))
+    check(not any(counts.values()), f"{tag} launched hand kernels: {counts}")
+    return dict(digests_equal=ok, seconds=seconds, host_ms=ms, hand_kernel_launches=counts, card=card)
+
+
+def phase_train_clahe(device="cuda"):
+    """do_clahe on the card's machine: one augmented batch (cv2 blocked) and
+    one SGD step of the 2-stage train net on it, card against CPU."""
+    from caffe_rtpose_tpu_torch.core.net import Net
+    from caffe_rtpose_tpu_torch.models.cpm import make_pose_train_net
+    from caffe_rtpose_tpu_torch.training.datasets import SyntheticPoseSource, pose_batches
+    from caffe_rtpose_tpu_torch.training.solver import Solver
+    from caffe_rtpose_tpu_torch.training.transformer import AugParams
+
+    tag = "[train clahe]"
+    crop, bsz = 184, 2
+    src = SyntheticPoseSource(n=8, size=crop + 52, seed=3)
+    with no_cv2():
+        t0 = time.perf_counter()
+        batch = next(pose_batches(src, AugParams(crop_size_x=crop, crop_size_y=crop, do_clahe=True),
+                                  bsz, seed=4))
+        batch_ms = (time.perf_counter() - t0) * 1000.0
+    plain = next(pose_batches(src, AugParams(crop_size_x=crop, crop_size_y=crop), bsz, seed=4))
+    changed = float((batch["data"] != plain["data"]).mean())
+    proto = make_pose_train_net(batch=bsz, crop=crop, stages=2)
+    losses, weights = {}, None
+    for dev in (device, "cpu"):
+        net = Net(proto, phase="TRAIN", device=dev)
+        weights = weights or fan_in_weights(net, 11)
+        net.load_weights(weights)
+        losses[dev] = Solver(SMALL_SOLVER, net, lambda it: batch).step(1)
+    rel = abs(losses[device] - losses["cpu"]) / abs(losses["cpu"])
+    print(f"{tag} a do_clahe batch ({bsz} at crop {crop}) in {batch_ms:.1f} ms with cv2 blocked, "
+          f"{changed:.3f} of its data values other than without CLAHE; one step's loss card "
+          f"{losses[device]} cpu {losses['cpu']}: relative gap {rel:.3g} (limit {TOL_TRAIN_LOSS})")
+    check(np.isfinite(losses[device]), f"{tag} non-finite loss")
+    check(changed > 0.1, f"{tag} CLAHE changed {changed} of the batch")
+    check(rel <= TOL_TRAIN_LOSS, f"{tag} losses differ by {rel}")
+    return dict(batch_ms=batch_ms, changed_share=changed, loss_card=losses[device],
+                loss_cpu=losses["cpu"], loss_rel=rel)
 
 
 def lowres_input(rs, s, h, w, c, layout, device):
@@ -2893,9 +3017,18 @@ def phase_train_labels(device="cuda"):
     return out
 
 
-def phase_train_small(device="cuda", steps=3):
-    """A 2-stage train net at crop 184, batch 2: 3 SGD steps on the card and
-    on the host CPU from the same weights and batches."""
+SMALL_ARITHMETICS = ("card", "cpu", "cpu_no_onednn", "cpu_f64")
+# the pairs of the host CPU's own arithmetics: the witness of the f32 noise floor
+SMALL_CPU_PAIRS = (("cpu_no_onednn", "cpu"), ("cpu", "cpu_f64"), ("cpu_no_onednn", "cpu_f64"))
+
+
+def small_trajectories(device="cuda", data_seed=0, steps=3):
+    """``steps`` SGD steps of a 2-stage train net at crop 184, batch 2, from
+    the same fan-in weights and synthetic batches, in four arithmetics: f32
+    on the card, and on the host CPU f32 (oneDNN's convolutions), f32
+    without oneDNN and f64.  ``data_seed`` 0 gives the batches
+    :func:`phase_train_small` checks.  Returns ``({name: solver},
+    {name: losses}, {name: seconds})``."""
     import torch
 
     from caffe_rtpose_tpu_torch.core.net import Net
@@ -2904,39 +3037,73 @@ def phase_train_small(device="cuda", steps=3):
     from caffe_rtpose_tpu_torch.training.solver import Solver
     from caffe_rtpose_tpu_torch.training.transformer import AugParams
 
-    tag = "[train small]"
     crop, bsz = 184, 2
     proto = make_pose_train_net(batch=bsz, crop=crop, stages=2)
     prm = AugParams(crop_size_x=crop, crop_size_y=crop)
-    gen = pose_batches(SyntheticPoseSource(n=8, size=crop + 52, seed=3), prm, bsz, seed=4)
+    gen = pose_batches(SyntheticPoseSource(n=8, size=crop + 52, seed=3 + 10 * data_seed), prm,
+                       bsz, seed=4 + data_seed)
     batches = [next(gen) for _ in range(steps)]
-    runs = {}
-    weights = None
-    for dev in (device, "cpu"):
-        net = Net(proto, phase="TRAIN", device=dev)
+    solvers, losses, seconds, weights = {}, {}, {}, None
+    for name in SMALL_ARITHMETICS:
+        net = Net(proto, phase="TRAIN", device=device if name == "card" else "cpu")
         weights = weights or fan_in_weights(net, 11)
         net.load_weights(weights)
-        solver = Solver(SMALL_SOLVER, net, lambda it: batches[it])
+        if name == "cpu_f64":
+            net.double()
+            net.dtype = torch.float64
+            net.params_changed()
+        solvers[name] = Solver(SMALL_SOLVER, net, lambda it: batches[it])
         t0 = time.perf_counter()
-        losses = [solver.step(1) for _ in range(steps)]
-        runs[dev] = dict(losses=losses, seconds=time.perf_counter() - t0, solver=solver)
-    card, cpu = runs[device], runs["cpu"]
-    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(card["losses"], cpu["losses"]))
-    weight_rel = blob_errors(card["solver"].params, cpu["solver"].params, index=0)
-    bias_rel = blob_errors(card["solver"].params, cpu["solver"].params, index=1)
-    hist_rel = blob_errors(card["solver"].history["h0"], cpu["solver"].history["h0"])
-    print(f"{tag} losses card {card['losses']} cpu {cpu['losses']}: largest relative gap "
-          f"{loss_rel:.3g} (limit {TOL_TRAIN_LOSS}); of each blob's largest magnitude: weights "
-          f"{weight_rel:.3g} (limit {TOL_TRAIN_PARAM}), biases {bias_rel:.3g} and momentum "
-          f"{hist_rel:.3g} (limit {TOL_TRAIN_UPDATE}); {card['seconds']:.2f} s on the card, "
-          f"{cpu['seconds']:.2f} s on the CPU")
-    check(all(np.isfinite(card["losses"])), f"{tag} non-finite loss")
-    check(loss_rel <= TOL_TRAIN_LOSS, f"{tag} losses differ by {loss_rel}")
-    check(weight_rel <= TOL_TRAIN_PARAM, f"{tag} weights differ by {weight_rel}")
-    check(max(bias_rel, hist_rel) <= TOL_TRAIN_UPDATE,
-          f"{tag} biases or momentum differ by {bias_rel}, {hist_rel}")
-    return dict(losses_card=card["losses"], losses_cpu=cpu["losses"], loss_rel=loss_rel,
-                weight_rel=weight_rel, bias_rel=bias_rel, momentum_rel=hist_rel)
+        with torch.backends.mkldnn.flags(enabled=name != "cpu_no_onednn"):
+            losses[name] = [solvers[name].step(1) for _ in range(steps)]
+        seconds[name] = time.perf_counter() - t0
+    return solvers, losses, seconds
+
+
+def trajectory_gaps(solvers, losses, a, b):
+    """Where the runs ``a`` and ``b`` of :func:`small_trajectories` part:
+    the largest relative loss gap, and after the last step the weights',
+    biases' and momentum's gaps, each relative to the blob's largest
+    magnitude in ``b``."""
+    return dict(loss=max(abs(x - y) / abs(y) for x, y in zip(losses[a], losses[b])),
+                weights=blob_errors(solvers[a].params, solvers[b].params, index=0),
+                biases=blob_errors(solvers[a].params, solvers[b].params, index=1),
+                momentum=blob_errors(solvers[a].history["h0"], solvers[b].history["h0"]))
+
+
+def phase_train_small(device="cuda"):
+    """A 2-stage train net at crop 184, batch 2: 3 SGD steps on the card and
+    on the host CPU from the same fan-in weights and batches, held to the
+    TOL_TRAIN tolerances.  The same steps in the CPU's other arithmetics
+    (f32 without oneDNN, f64) are the witness of the f32 noise floor on
+    this batch: where a ReLU input lies within an f32 rounding of 0, two
+    f32 sums put it on either side and the trajectories part.  A gap above
+    its tolerance passes only if it is no larger than the largest gap
+    between two of the CPU's own arithmetics
+    (scripts/torch_train_trajectory_witness.py measures them over several
+    batches)."""
+    tag = "[train small]"
+    solvers, losses, seconds = small_trajectories(device)
+    gap = trajectory_gaps(solvers, losses, "card", "cpu")
+    floor = {q: max(trajectory_gaps(solvers, losses, a, b)[q] for a, b in SMALL_CPU_PAIRS)
+             for q in gap}
+    to_f64 = {k: trajectory_gaps(solvers, losses, k, "cpu_f64") for k in ("card", "cpu")}
+    tol = dict(loss=TOL_TRAIN_LOSS, weights=TOL_TRAIN_PARAM, biases=TOL_TRAIN_UPDATE,
+               momentum=TOL_TRAIN_UPDATE)
+    fmt = lambda d: ", ".join(f"{q} {v:.3g}" for q, v in d.items())
+    print(f"{tag} losses " + "; ".join(f"{k} {losses[k]}" for k in SMALL_ARITHMETICS)
+          + f". Card against cpu (loss: the largest relative gap; the rest of each blob's largest "
+          f"magnitude): {fmt(gap)} (limits {fmt(tol)}); the CPU's own arithmetics part by up to "
+          f"{fmt(floor)}; against cpu_f64: card {fmt(to_f64['card'])}, cpu {fmt(to_f64['cpu'])}; "
+          f"seconds " + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items()))
+    check(all(np.isfinite(losses["card"])), f"{tag} non-finite loss")
+    for q in gap:
+        check(gap[q] <= tol[q] or gap[q] <= floor[q],
+              f"{tag} {q} differ by {gap[q]} (limit {tol[q]}; the CPU's own arithmetics by "
+              f"{floor[q]})")
+    return dict(losses=losses, card_cpu=gap, cpu_floor=floor, card_f64=to_f64["card"],
+                cpu_f64=to_f64["cpu"], within_limits={q: gap[q] <= tol[q] for q in gap},
+                seconds=seconds)
 
 
 def train_step_flops(net):
@@ -3191,6 +3358,7 @@ def phase_train(device="cuda"):
     zero_counts()
     labels = phase_train_labels(device)
     small = phase_train_small(device)
+    clahe = phase_train_clahe(device)
     shapes, solver = {}, None
     for shape in ("sync", "ring", "staged"):
         del solver
@@ -3200,7 +3368,7 @@ def phase_train(device="cuda"):
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as work:
         resume = phase_train_resume(solver, work, device)
         cli = phase_train_cli(work, device)
-    return dict(labels=labels, small=small,
+    return dict(labels=labels, small=small, clahe=clahe,
                 shapes={k: {m: v for m, v in r.items() if m != "losses"} for k, r in shapes.items()},
                 resume=resume, cli=cli, hand_kernel_launches=counts), solver
 
@@ -4753,6 +4921,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
     jpeg = phase_jpeg(info["nvidia_smi"])
+    imgproc = phase_imgproc(info["nvidia_smi"])
     t_mask = phase_kernels()
     t_up = phase_upsample_keys()
     t_conv1 = phase_conv1()
@@ -4838,6 +5007,7 @@ def main() -> int:
     print(json.dumps({"cli_jpeg": cli_jpeg}))
     print(json.dumps({"cli_720p_jpeg": cli_720p_jpeg}))
     print(json.dumps({"jpeg": jpeg}))
+    print(json.dumps({"imgproc": imgproc}))
     print(json.dumps({"serving": serving}))
     print(json.dumps({"pool": pool}))
     print(json.dumps({"eval": evaluation}))
@@ -4908,9 +5078,9 @@ def main() -> int:
             "launches_by_path": {**{k: v[0] for k, v in by_path[name].items()},
                                  **{path: r["hand_kernel_launches"].get(
                                      name.replace("_3scale", ""), 0) for path, r in (
-                                     ("train f32", train), ("train bf16", train_bf16),
-                                     ("framework", framework), ("tools", tools),
-                                     ("matcaffe", matcaffe))}},
+                                     ("imgproc", imgproc), ("train f32", train),
+                                     ("train bf16", train_bf16), ("framework", framework),
+                                     ("tools", tools), ("matcaffe", matcaffe))}},
             "replayed_launches_by_path": {k: v[1] for k, v in by_path[name].items()
                                           if v[1] is not None},
             "device_launches_per_frame": {f"bf16 batch {BF16_BATCH}": per_frame[name]},

@@ -2,9 +2,9 @@
 same sources written here: a kvdb of Datums (raw and PNG-encoded) with a
 mean file, crop and mirror; a list of PNGs; arrays; an HDF5 file; a window
 file; a CPM genLMDB-format DB.  The batches are equal where both sides run
-the same numpy (Data, MemoryData, HDF5Data, ImageData without a resize);
-a resize is numpy bilinear in the port and ``cv2``'s fixed-point u8 path in
-JAX, within one level a pixel.  Also the mean ``.binaryproto`` codec, the
+the same numpy (Data, MemoryData, HDF5Data), and where the port's numpy
+repeats ``cv2``'s fixed-point u8 INTER_LINEAR (ImageData's resize,
+WindowData's warped crop).  Also the mean ``.binaryproto`` codec, the
 self-feeding net and ``resize_image``'s three orders against JAX's cv2."""
 
 import numpy as np
@@ -104,8 +104,8 @@ def test_image_data_layer_matches_jax(tmp_path, resize):
         p.update(new_height=7, new_width=9)
     layer = {"name": "data", "type": "ImageData", "top": ["data", "label"],
              "image_data_param": p, "transform_param": {"mirror": True}}
-    # numpy bilinear against cv2's fixed-point u8 resize: one level a pixel
-    same_batches(*both(layer, "TRAIN"), atol=1.0 if resize else 0.0)
+    # the port's fixed-point u8 resize against cv2's: equal
+    same_batches(*both(layer, "TRAIN"))
 
 
 @pytest.mark.parametrize("is_color", [True, False])
@@ -176,8 +176,8 @@ def test_window_data_layer_matches_jax(tmp_path):
                                    "crop_size": 16, "fg_fraction": 0.5, "context_pad": 2,
                                    "mirror": True}}
     p, j = both(layer, "TRAIN")
-    # the warped crop: numpy bilinear against cv2's u8 resize, one level
-    same_batches(p, j, atol=1.0)
+    # the warped crop: the port's fixed-point u8 resize against cv2's, equal
+    same_batches(p, j)
 
 
 def test_window_data_layer_jpeg_matches_jax(tmp_path):
@@ -195,8 +195,8 @@ def test_window_data_layer_jpeg_matches_jax(tmp_path):
                                    "crop_size": 16, "fg_fraction": 0.5, "context_pad": 2,
                                    "mirror": True}}
     p, j = both(layer, "TRAIN")
-    # the warped crop: numpy bilinear against cv2's u8 resize, one level
-    same_batches(p, j, atol=1.0)
+    # the warped crop: the port's fixed-point u8 resize against cv2's, equal
+    same_batches(p, j)
 
 
 def test_cpm_data_layer_reads_what_jax_reads(tmp_path):

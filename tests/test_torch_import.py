@@ -1,8 +1,10 @@
 """The PyTorch port imports without jax: neither directly nor through the
 JAX package (whose ``__init__`` imports jax); and without OpenCV or h5py,
 also with all three blocked at once (the card's machine has none of them).
-An HDF5 round trip through the port's codec loads no h5py, blocked or not.
-``proto.caffe_pb2`` is left out: it runs protoc when imported."""
+An HDF5 round trip through the port's codec loads no h5py, blocked or not;
+CLAHE and the synthetic source run with all three blocked.  Only
+``pipeline/runner.py`` and ``proto/datum.py`` name ``import cv2`` in their
+source.  ``proto.caffe_pb2`` is left out: it runs protoc when imported."""
 
 import os
 import subprocess
@@ -50,6 +52,7 @@ SLICE_MODULES = [
     "caffe_rtpose_tpu_torch.utils.leveldb_fmt",
     "caffe_rtpose_tpu_torch.utils.hdf5_fmt",
     "caffe_rtpose_tpu_torch.utils.hdf5",
+    "caffe_rtpose_tpu_torch.utils.imgproc",
     "caffe_rtpose_tpu_torch.utils.signals",
     "caffe_rtpose_tpu_torch.utils.timer",
     "caffe_rtpose_tpu_torch.utils.profiler",
@@ -108,6 +111,19 @@ HDF5_ROUND_TRIP = (
     "with hdf5.File(p) as f:\n"
     "    assert f['x'][()].sum() == 21.0 and f['s'][()] == b'text'\n")
 
+# do_clahe's step and the synthetic figures: OpenCV's u8 operations in numpy
+IMGPROC_RUN = (
+    "import numpy as np\n"
+    "from caffe_rtpose_tpu_torch.training.datasets import SyntheticPoseSource\n"
+    "from caffe_rtpose_tpu_torch.training.transformer import clahe\n"
+    "img = SyntheticPoseSource(n=2, size=200, seed=1)[1][0]\n"
+    "out = clahe(img, 8, 4)\n"
+    "assert out.shape == img.shape and out.dtype == np.uint8 and (out != img).any()\n")
+
+# the only modules of the port whose source imports OpenCV (for video, the
+# camera, the window, the text overlay and Datums neither PNG nor JPEG)
+CV2_MODULES = {os.path.join("pipeline", "runner.py"), os.path.join("proto", "datum.py")}
+
 
 def _run(prelude: str, after: str = "") -> None:
     code = (prelude + "import importlib, sys\n"
@@ -150,4 +166,20 @@ def test_slice_imports_with_jax_and_cv2_blocked():
 def test_slice_imports_with_jax_cv2_and_h5py_blocked():
     _run("import sys\nsys.modules['jax'] = None\nsys.modules['cv2'] = None\n"
          "sys.modules['h5py'] = None\n",
-         HDF5_ROUND_TRIP + "assert sys.modules['h5py'] is None, 'h5py loaded'\n")
+         HDF5_ROUND_TRIP + "assert sys.modules['h5py'] is None, 'h5py loaded'\n" + IMGPROC_RUN)
+
+
+def test_only_runner_and_datum_import_cv2():
+    """Read from the sources, not sys.modules: an import inside a function
+    counts too."""
+    pkg = os.path.join(ROOT, "caffe_rtpose_tpu_torch")
+    found = set()
+    for d, _, files in os.walk(pkg):
+        for f in files:
+            if f.endswith(".py"):
+                path = os.path.join(d, f)
+                with open(path, encoding="utf-8") as fh:
+                    if any(line.strip() == "import cv2" or line.strip().startswith("import cv2 ")
+                           or line.strip().startswith("from cv2 ") for line in fh):
+                        found.add(os.path.relpath(path, pkg))
+    assert found == CV2_MODULES, found

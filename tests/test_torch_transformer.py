@@ -9,8 +9,9 @@ images and ``RandomState``.
   least 99.9 % of them (measured against OpenCV 5.0.0: the
   chain's images 99.95-100 %, 99.99 % on average, its mask grids 100 %;
   the cubic resize alone 99.91-100 %, the rotation warp 99.93-99.97 %);
-* the synthetic source: the same people; its strokes are numpy's, so only
-  pixels away from the limbs are compared exactly."""
+* CLAHE (``do_clahe``) and the synthetic source's images: equal, with
+  ``cv2`` blocked on the port's side (OpenCV's u8 Lab, CLAHE and
+  ``cv2.line`` in numpy, ``utils/imgproc.py``)."""
 
 import sys
 
@@ -151,12 +152,36 @@ def test_transform_against_jax(shared):
             np.testing.assert_array_equal(pl, jl)
 
 
-def test_clahe_needs_cv2(monkeypatch):
-    img = (np.random.RandomState(0).rand(32, 32, 3) * 255).astype(np.uint8)
-    np.testing.assert_array_equal(PT.clahe(img), JT.clahe(img))
+@pytest.mark.parametrize("shape,tile,clip", [((32, 32, 3), 8, 4), ((97, 131, 3), 8, 4),
+                                             ((60, 45, 3), 4, 2)])
+def test_clahe_without_cv2(monkeypatch, shape, tile, clip):
+    """do_clahe's step equals JAX's (cv2's Lab and CLAHE) with cv2 blocked."""
+    rs = np.random.RandomState(0)
+    img = (rs.rand(*shape) * 255).astype(np.uint8)
+    img[: shape[0] // 3] //= 5  # a dark band, where CLAHE lifts the most
+    ref = JT.clahe(img, tile, clip)
     monkeypatch.setitem(sys.modules, "cv2", None)
-    with pytest.raises(RuntimeError, match="do_clahe needs OpenCV"):
-        PT.clahe(img)
+    np.testing.assert_array_equal(PT.clahe(img, tile, clip), ref)
+
+
+@pytest.mark.parametrize("train", [False, True])
+def test_transform_meta_do_clahe_against_jax(shared, train):
+    """do_clahe through Transform_nv: equal without augmentation (CLAHE and
+    the centre crop are exact), within a level with it (the cubic
+    resamplers)."""
+    jprm = JT.AugParams(crop_size_x=96, crop_size_y=96, do_clahe=True)
+    prm = PT.AugParams(crop_size_x=96, crop_size_y=96, do_clahe=True)
+    for i in range(4):
+        img, meta, mask = shared[i]
+        jd, _, jgrid = JT.transform_meta(img, JD._clone_meta(meta), jprm, rng=np.random.RandomState(i),
+                                         mask_miss=mask, train=train, normalize=False)
+        pd, _, pgrid = PT.transform_meta(img, _port_meta(meta), prm, rng=np.random.RandomState(i),
+                                         mask_miss=mask, train=train, normalize=False)
+        if train:
+            assert _within_one_level(pd, jd) >= EQUAL_SHARE
+        else:
+            np.testing.assert_array_equal(pd, jd)
+            np.testing.assert_array_equal(pgrid, jgrid)
 
 
 def test_json_source_jpeg_image_and_mask_match_jax(tmp_path):
@@ -183,6 +208,8 @@ def test_json_source_jpeg_image_and_mask_match_jax(tmp_path):
 
 
 def test_synthetic_source_same_people():
+    """The same people and, limbs drawn by the port's cv2.line, the same
+    images as JAX's source."""
     jsrc, psrc = JD.SyntheticPoseSource(n=4, size=240, seed=3), PD.SyntheticPoseSource(n=4, size=240, seed=3)
     for i in range(4):
         jimg, jmeta, _ = jsrc[i]
@@ -193,10 +220,8 @@ def test_synthetic_source_same_people():
             np.testing.assert_array_equal(pp.joints, jp.joints)
             np.testing.assert_array_equal(pp.visible, jp.visible)
             np.testing.assert_array_equal(pp.objpos, jp.objpos)
-        stroke = (jimg.max(-1) >= 100) | (pimg.max(-1) >= 100)  # the limbs' colours are >= 100
-        grown = cv2.dilate(stroke.astype(np.uint8), np.ones((5, 5), np.uint8)).astype(bool)
-        np.testing.assert_array_equal(pimg[~grown], jimg[~grown])
-        assert (pimg.max(-1) >= 100).sum() > 0
+        np.testing.assert_array_equal(pimg, jimg)
+        assert (pimg.max(-1) >= 100).sum() > 0  # the limbs' colours are >= 100
 
 
 def test_jointfeed_batches_against_jax(shared):
