@@ -441,18 +441,34 @@ def _cubic_taps(n_out: int, n_src: int):
 
 
 def resize_image(im: np.ndarray, new_dims, interp_order: int = 1) -> np.ndarray:
-    """``im`` (H, W, K) resized to ``new_dims`` (h, w) as ``cv2.resize`` does
-    on a float image: order 0 nearest, 1 bilinear (the default), 2 bicubic
-    (a = -0.75); the edges replicate.  Computed in f32."""
+    """``im`` (H, W, K) resized to ``new_dims`` (h, w) as ``cv2.resize`` does,
+    in the input's dtype: order 0 nearest, 1 bilinear (the default), 2
+    bicubic (a = -0.75); the edges replicate.  A u8 image is resized as cv2
+    resizes u8: bilinear bit for bit (``utils/imgproc.resize_linear_u8``),
+    bicubic within one level (``training/transformer.resize_cubic``, ROADMAP
+    C5), both saturated to u8.  A float image is computed in f32 (f64 for
+    f64) with cv2's f32 coefficients."""
     from .core.data_layers import apply_taps, linear_taps
 
     h, w = int(new_dims[0]), int(new_dims[1])
-    x = np.asarray(im, np.float32)
+    x = np.asarray(im)
     if x.ndim == 2:
         x = x[..., None]
     sh, sw = x.shape[:2]
     if interp_order == 0:
         return x[_nearest_index(h, sh)][:, _nearest_index(w, sw)]
+    if x.dtype == np.uint8:
+        if interp_order == 2:
+            from .training.transformer import resize_cubic
+
+            return resize_cubic(x, w / sw, h / sh).reshape(h, w, -1)
+        from .utils.imgproc import resize_linear_u8
+
+        planes = [x] if x.shape[2] in (1, 3) else [x[..., k] for k in range(x.shape[2])]
+        out = [resize_linear_u8(p, h, w).reshape(h, w, -1) for p in planes]
+        return out[0] if len(out) == 1 else np.concatenate(out, 2)
+    if x.dtype != np.float64:
+        x = x.astype(np.float32)
     taps = _cubic_taps if interp_order == 2 else linear_taps
     (ix, wx), (iy, wy) = taps(w, sw), taps(h, sh)
     return apply_taps(apply_taps(x, ix, wx, 1), iy, wy, 0)

@@ -88,9 +88,9 @@ def apply_taps(img: np.ndarray, idx: np.ndarray, w: np.ndarray, axis: int) -> np
 
 
 def read_image(path: str, color: bool = True) -> np.ndarray:
-    """An image file -> BGR u8 (H, W, 3), or (H, W, 1) gray: a JPEG's gray is
-    libjpeg's Y plane (``cv2.IMREAD_GRAYSCALE``), a PNG's or BMP's the BT.601
-    luma of its colour image."""
+    """An image file -> BGR u8 (H, W, 3), or (H, W, 1) gray: the plane
+    ``cv2.IMREAD_GRAYSCALE`` gives (a JPEG's is libjpeg's Y plane, a colour
+    PNG's or BMP's the reader's own fixed point; ``pipeline/image_io.py``)."""
     from ..pipeline.image_io import read_image as _read
 
     img = _read(path, gray=not color)

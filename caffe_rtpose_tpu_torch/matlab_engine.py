@@ -2247,20 +2247,18 @@ def _b_imread(path, *flag):
 
 def _b_imresize(im, size, method="bilinear"):
     """imresize(im, [h w], 'bilinear'|'bicubic'|'nearest') as ``cv2.resize``
-    does (``api.resize_image``, in f32; a u8 image comes back rounded to
-    u8).  Divergence note: MATLAB's imresize antialiases when downscaling,
-    cv2's kernels do not — values differ at interpolation-rounding level."""
+    does, in the image's dtype (``api.resize_image``: u8 bilinear bit for
+    bit, u8 bicubic within one level, ROADMAP C5).  Divergence note:
+    MATLAB's imresize antialiases when downscaling, cv2's kernels do not —
+    values differ at interpolation-rounding level."""
     from .api import resize_image
 
     a = _as_mat(im).a
     dims = _mat_dims(size)
     h, w = int(dims[0]), int(dims[1])
     order = {"nearest": 0, "bilinear": 1, "bicubic": 2}[str(method)]
-    out = resize_image(np.asarray(a, np.float32), (h, w), order)
-    out = out.reshape((h, w) + a.shape[2:])
-    if a.dtype == np.uint8:
-        return MatArray(np.clip(np.rint(out), 0, 255).astype(np.uint8))
-    return MatArray(out.astype(a.dtype))
+    out = resize_image(np.asarray(a), (h, w), order)
+    return MatArray(out.reshape((h, w) + a.shape[2:]).astype(a.dtype, copy=False))
 
 
 def _multi_max(n, a, b=None):

@@ -12,8 +12,12 @@ cv2.IMREAD_COLOR)`` does, or with ``gray`` the (H, W) plane of
 * ``.bmp``: uncompressed 24- or 32-bit, or 8-bit with a palette, bottom-up
   or top-down rows.
 
-For PNG and BMP, gray is the BT.601 luma of the BGR image, the weights
-rounded.
+For PNG and BMP, gray is what ``cv2.imread(path, IMREAD_GRAYSCALE)``
+returns, in each reader's own arithmetic: a gray PNG's plane, else libpng's
+``(9797 R + 19234 G + 3737 B) >> 15``; for an 8- or 24-bit BMP OpenCV's
+``(4899 R + 9617 G + 1868 B + 8192) >> 14``, for a 32-bit one the f32
+``0.299 R + 0.587 G + 0.114 B`` truncated (equal to cv2 5.0 over the whole
+colour cube).
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from __future__ import annotations
 import os
 import struct
 import zlib
+from typing import Tuple
 
 import numpy as np
 
@@ -38,16 +43,19 @@ def read_image(path: str, gray: bool = False) -> np.ndarray:
         return read_jpeg(path, gray=gray)
     if ext == ".png":
         with open(path, "rb") as f:
-            img = _decode_png(f.read(), path)
-    elif ext == ".bmp":
+            return decode_png(f.read(), gray=gray, path=path)
+    if ext == ".bmp":
         with open(path, "rb") as f:
-            img = _decode_bmp(f.read(), path)
-    else:
-        raise ValueError(f"{path}: unsupported image type {ext!r}")
-    if gray:
-        g = img[..., 0] * 0.114 + img[..., 1] * 0.587 + img[..., 2] * 0.299
-        img = np.clip(np.rint(g), 0, 255).astype(np.uint8)
-    return img
+            img, bpp = _decode_bmp(f.read(), path)
+        if not gray:
+            return img
+        b, g, r = (img[..., i].astype(np.int32) for i in range(3))
+        if bpp == 32:  # OpenCV's f32 conversion, truncated
+            f = np.float32
+            y = f(0.299) * r.astype(f) + f(0.587) * g.astype(f) + f(0.114) * b.astype(f)
+            return y.astype(np.uint8)
+        return ((4899 * r + 9617 * g + 1868 * b + 8192) >> 14).astype(np.uint8)
+    raise ValueError(f"{path}: unsupported image type {ext!r}")
 
 
 def _unfilter(raw: np.ndarray, h: int, stride: int, bpp: int, path: str) -> np.ndarray:
@@ -84,12 +92,15 @@ def _unfilter(raw: np.ndarray, h: int, stride: int, bpp: int, path: str) -> np.n
     return out
 
 
-def decode_png(data: bytes, gray: bool = False) -> np.ndarray:
-    """PNG bytes -> BGR u8 (H, W, 3), or with ``gray`` the (H, W) plane of a
-    gray PNG (``cv2.imdecode`` with IMREAD_COLOR / IMREAD_GRAYSCALE)."""
-    img = _decode_png(data, "<png bytes>", keep_gray=gray)
+def decode_png(data: bytes, gray: bool = False, path: str = "<png bytes>") -> np.ndarray:
+    """PNG bytes -> BGR u8 (H, W, 3), or with ``gray`` the (H, W) gray plane
+    (``cv2.imdecode`` with IMREAD_COLOR / IMREAD_GRAYSCALE): a gray PNG's
+    own plane, a colour one's converted as libpng converts it,
+    ``(9797 R + 19234 G + 3737 B) >> 15``."""
+    img = _decode_png(data, path, keep_gray=gray)
     if gray and img.ndim != 2:
-        raise ValueError("a gray plane was asked of a color PNG")
+        b, g, r = (img[..., i].astype(np.int32) for i in range(3))
+        img = ((9797 * r + 19234 * g + 3737 * b) >> 15).astype(np.uint8)
     return img
 
 
@@ -141,7 +152,8 @@ def _decode_png(data: bytes, path: str, keep_gray: bool = False) -> np.ndarray:
     return np.ascontiguousarray(px[:, :, 2::-1])  # RGB(A) -> BGR
 
 
-def _decode_bmp(data: bytes, path: str) -> np.ndarray:
+def _decode_bmp(data: bytes, path: str) -> Tuple[np.ndarray, int]:
+    """BMP bytes -> (BGR u8 (H, W, 3), bits a pixel)."""
     if data[:2] != b"BM" or len(data) < 54:
         raise ValueError(f"{path}: not a BMP file")
     offset = struct.unpack("<I", data[10:14])[0]
@@ -160,4 +172,4 @@ def _decode_bmp(data: bytes, path: str) -> np.ndarray:
         img = px[:, : w * bpp // 8].reshape(rows, w, bpp // 8)[:, :, :3]
     if h > 0:  # bottom-up rows
         img = img[::-1]
-    return np.ascontiguousarray(img)
+    return np.ascontiguousarray(img), bpp

@@ -16,12 +16,13 @@ a captured CUDA graph (``PoseEstimator(cuda_graph=True)``, the default on
 CUDA): the dispatcher's host work per pass is a copy into pinned memory and
 a few calls, while the fetchers copy results out and assemble.
 
-OpenCV (``cv2``) is optional here: video and camera sources, the display
-window and the text overlay use it, and a pipeline that asks for one of them
-without ``cv2`` raises at construction with the option's name.  JPEG, PNG
-and BMP directories, ``write_frames`` (JPEG at quality 98 by the port's
-codec, ``jpeg.py``: the bytes ``cv2.imwrite`` writes), JSON output and the
-headless run need no ``cv2`` (``image_io.py``, ``pose/preprocess.py``).
+OpenCV (``cv2``) is optional here: video and camera sources and the display
+window use it, and a pipeline that asks for one of them without ``cv2``
+raises at construction with the option's name.  JPEG, PNG and BMP
+directories, ``write_frames`` (JPEG at quality 98 by the port's codec,
+``jpeg.py``: the bytes ``cv2.imwrite`` writes) with its text overlay
+(OpenCV 5's ``putText``, ``utils/text.py``), JSON output and the headless
+run need no ``cv2`` (``image_io.py``, ``pose/preprocess.py``).
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ import numpy as np
 from ..pose import connect as C
 from ..pose.estimator import PoseEstimator
 from ..pose.preprocess import warp_to_display
+from ..utils.text import FONT_HERSHEY_SIMPLEX, put_text_u8
 from .image_io import read_image
 from .jpeg import encode_jpeg
 from .queues import BlockingQueue, OrderedBuffer
@@ -301,8 +303,6 @@ class RtPosePipeline:
             _cv2("--video")
         if not cfg.no_display:
             _cv2("the display window (--no_display not set)")
-        if cfg.write_frames and not cfg.no_text:
-            _cv2("the text overlay on --write_frames (--no_text not set)")
         self.est = estimator
         self.cfg = cfg
         if cfg.num_devices > 1:
@@ -538,8 +538,8 @@ class RtPosePipeline:
 
     def _overlay_text(self, canvas: np.ndarray, f: Frame) -> np.ndarray:
         """FPS / people-count / part-name overlay (displayFrame,
-        rtpose.cpp:1317-1362)."""
-        cv2 = _cv2("the text overlay (--no_text not set)")
+        rtpose.cpp:1317-1362), drawn as OpenCV 5's putText draws it
+        (``utils/text.put_text_u8``), never through cv2."""
         canvas = np.ascontiguousarray(canvas)
         w = canvas.shape[1]
         if len(self._emit_times) >= 2:
@@ -551,12 +551,12 @@ class RtPosePipeline:
             label = f"{self.cfg.num_devices * 1.0 / max(fps, 1e-6):4.2f} s/gpu"
         else:
             label = f"{fps:4.1f} fps"
-        cv2.putText(canvas, label, (25, 35), cv2.FONT_HERSHEY_SIMPLEX,
+        put_text_u8(canvas, label, (25, 35), FONT_HERSHEY_SIMPLEX,
                     0.75, (255, 150, 150), 1)
         people = f"{f.num_people:4d}"
-        cv2.putText(canvas, people, (w - 98, 37), cv2.FONT_HERSHEY_SIMPLEX,
+        put_text_u8(canvas, people, (w - 98, 37), FONT_HERSHEY_SIMPLEX,
                     0.75, (0, 0, 0), 2)
-        cv2.putText(canvas, people, (w - 100, 35), cv2.FONT_HERSHEY_SIMPLEX,
+        put_text_u8(canvas, people, (w - 100, 35), FONT_HERSHEY_SIMPLEX,
                     0.75, (150, 150, 255), 2)
         p2s = self.ui.part_to_show
         if p2s != 0:
@@ -571,8 +571,8 @@ class RtPosePipeline:
                     idx = min(aff - 2 + 1 + desc.num_parts,
                               len(desc.part_names) - 1)
                     name = desc.part_names[idx].split("(")[0]
-            cv2.putText(canvas, f"{name:>10s}", (w - 174, 56),
-                        cv2.FONT_HERSHEY_SIMPLEX, 0.5, (255, 255, 255), 1)
+            put_text_u8(canvas, f"{name:>10s}", (w - 174, 56),
+                        FONT_HERSHEY_SIMPLEX, 0.5, (255, 255, 255), 1)
         return canvas
 
     def _emit(self, f: Frame):

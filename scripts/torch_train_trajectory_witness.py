@@ -2,16 +2,17 @@
 """Where f32 training trajectories of the CPM train net part, on one CUDA
 card and its host's CPU: chip_smoke.py's train small comparison (a 2-stage
 net at crop 184, batch 2, SGD from fan-in weights) over several synthetic
-batches, in four arithmetics: f32 on the card, f32 on the CPU with and
-without oneDNN's convolutions, f64 on the CPU.
+batches, in its three arithmetics: f32 on the card, f32 on the CPU, and
+f64 on the CPU taking the card's ReLU decisions step by step (the run the
+card is held to; ROADMAP C6).
 
     python3 scripts/torch_train_trajectory_witness.py [--batches 6]
 
 Batch 0 is the one chip_smoke.py checks.  Prints one JSON line a batch:
 for every pair of arithmetics the gaps after 3 steps (the largest relative
 loss gap; the weights', biases' and momentum's gaps relative to each blob's
-largest magnitude) and after the first step, which all four take from the
-same state.  Needs a CUDA card.
+largest magnitude) and after the first step, which all three take from
+the same state.  Needs a CUDA card.
 """
 
 from __future__ import annotations

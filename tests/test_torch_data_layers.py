@@ -130,6 +130,29 @@ def test_image_data_layer_jpeg_matches_jax(tmp_path, is_color):
     same_batches(p, j)
 
 
+@pytest.mark.parametrize("ext", ["png", "bmp"])
+def test_image_data_layer_gray_matches_jax(tmp_path, ext):
+    """ROADMAP C7: ImageData with is_color false over colour PNG and BMP
+    files: the port's gray read (libpng's and OpenCV's BMP fixed point)
+    against JAX's cv2.imread(IMREAD_GRAYSCALE): equal batches, resized and
+    not."""
+    cv2 = pytest.importorskip("cv2")  # JAX's side
+    rs = np.random.RandomState(2)
+    for i in range(3):
+        assert cv2.imwrite(str(tmp_path / f"img{i}.{ext}"),
+                           rs.randint(0, 256, (11, 13, 3)).astype(np.uint8))
+    (tmp_path / "list.txt").write_text("".join(f"img{i}.{ext} {i}\n" for i in range(3)))
+    for resize in ({}, {"new_height": 7, "new_width": 9}):
+        layer = {"name": "data", "type": "ImageData", "top": ["data", "label"],
+                 "image_data_param": {"source": str(tmp_path / "list.txt"), "batch_size": 2,
+                                      "root_folder": str(tmp_path) + "/", "is_color": False,
+                                      **resize},
+                 "transform_param": {"mirror": True}}
+        p, j = both(layer, "TRAIN")
+        assert p.top_shapes["data"][1] == 1
+        same_batches(p, j)
+
+
 def test_memory_data_layer_matches_jax():
     from caffe_rtpose_tpu.core.net import Net as JNet
 
@@ -269,6 +292,37 @@ def test_resize_image_matches_jax_cv2(order, dims):
     got, ref = api.resize_image(im, dims, order), japi.resize_image(im, dims, order)
     assert got.shape == ref.shape
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
+
+
+# ROADMAP C5: the u8 INTER_CUBIC resampler is within one level of cv2 on at
+# most this share of values
+C5_SHARE = 0.000872
+
+
+@pytest.mark.parametrize("dtype", ["uint8", "float32", "float64"])
+@pytest.mark.parametrize("order", [0, 1, 2])
+def test_resize_image_keeps_dtype_and_matches_jax(dtype, order):
+    """ROADMAP C8: ``api.resize_image`` returns the input's dtype, as JAX's
+    ``cv2.resize`` does. u8: nearest and bilinear equal cv2, bicubic within
+    C5 (one level, on at most C5_SHARE of the values); f32 and f64 within
+    1e-5 of values in [0, 1). Up, down, each axis, 1, 3 and 4 channels."""
+    from caffe_rtpose_tpu import api as japi
+
+    from caffe_rtpose_tpu_torch import api
+
+    rs = np.random.RandomState(order)
+    for shape, dims in (((10, 12, 3), (13, 17)), ((10, 12, 3), (5, 4)), ((31, 29, 1), (20, 44)),
+                        ((40, 50, 3), (81, 21)), ((9, 7, 4), (5, 11)), ((64, 48, 3), (32, 24))):
+        im = (rs.randint(0, 256, shape) if dtype == "uint8" else rs.rand(*shape)).astype(dtype)
+        got, ref = api.resize_image(im, dims, order), japi.resize_image(im, dims, order)
+        assert got.dtype == ref.dtype == np.dtype(dtype) and got.shape == ref.shape
+        diff = np.abs(got.astype(np.float64) - ref)
+        if dtype != "uint8":
+            assert diff.max() <= 1e-5
+        elif order == 2:
+            assert diff.max() <= 1 and (diff > 0).mean() <= C5_SHARE
+        else:
+            np.testing.assert_array_equal(got, ref)
 
 
 def test_native_kvdb_binding_matches_the_python_twin(tmp_path):

@@ -95,3 +95,45 @@ def test_refuses_what_it_cannot_read(tmp_path):
         read_image(str(bad))
     with pytest.raises(ValueError):
         read_image(str(tmp_path / "x.gif"))
+
+
+def _gray_case(path: str, kind: str, img: np.ndarray) -> None:
+    if kind == "bmp8":  # an 8-bit BMP with a colour palette
+        from PIL import Image
+
+        idx = (img[..., 0] // 4).astype(np.uint8)
+        pal = np.random.RandomState(9).randint(0, 256, (256, 3)).astype(np.uint8)
+        im = Image.fromarray(idx, "P")
+        im.putpalette(pal.ravel().tolist())
+        im.save(path)
+    elif kind == "jpg444":
+        assert cv2.imwrite(path, img, [cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                                       cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444])
+    elif kind == "bmp32":
+        assert cv2.imwrite(path, np.concatenate([img, img[..., :1]], 2))
+    else:
+        assert cv2.imwrite(path, img[..., 0] if kind.endswith("gray") else img)
+
+
+@pytest.mark.parametrize("kind", ["png", "png_gray", "bmp", "bmp_gray", "bmp8", "bmp32",
+                                  "jpg", "jpg444", "jpg_gray"])
+def test_gray_read_matches_cv2(tmp_path, kind, monkeypatch):
+    """ROADMAP C7: read_image(gray=True) against cv2.imread(IMREAD_GRAYSCALE)
+    on colour and gray PNG, BMP (8-bit palette, 24- and 32-bit) and JPEG
+    (4:2:0, 4:4:4, gray) files, cv2 blocked for the port: 0 levels apart.
+    Noise and a full ramp of each channel, odd sizes."""
+    rs = np.random.RandomState(len(kind))
+    img = rs.randint(0, 256, (37, 53, 3)).astype(np.uint8)
+    img[:4] = np.arange(53 * 4 * 3).reshape(4, 53, 3) % 256
+    path = str(tmp_path / f"img.{kind[:3]}")
+    _gray_case(path, kind, img)
+    ref = cv2.imread(path, cv2.IMREAD_GRAYSCALE)
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    got = read_image(path, gray=True)
+    assert got.dtype == np.uint8 and got.shape == ref.shape
+    np.testing.assert_array_equal(got, ref)
+    if kind == "png":
+        from caffe_rtpose_tpu_torch.pipeline.image_io import decode_png
+
+        with open(path, "rb") as f:
+            np.testing.assert_array_equal(decode_png(f.read(), gray=True), ref)

@@ -2,7 +2,8 @@
 JAX package (whose ``__init__`` imports jax); and without OpenCV or h5py,
 also with all three blocked at once (the card's machine has none of them).
 An HDF5 round trip through the port's codec loads no h5py, blocked or not;
-CLAHE and the synthetic source run with all three blocked.  Only
+CLAHE, the synthetic source and the text overlay run with all three (and
+fontTools) blocked.  Only
 ``pipeline/runner.py`` and ``proto/datum.py`` name ``import cv2`` in their
 source.  ``proto.caffe_pb2`` is left out: it runs protoc when imported."""
 
@@ -53,6 +54,8 @@ SLICE_MODULES = [
     "caffe_rtpose_tpu_torch.utils.hdf5_fmt",
     "caffe_rtpose_tpu_torch.utils.hdf5",
     "caffe_rtpose_tpu_torch.utils.imgproc",
+    "caffe_rtpose_tpu_torch.utils.truetype",
+    "caffe_rtpose_tpu_torch.utils.text",
     "caffe_rtpose_tpu_torch.utils.signals",
     "caffe_rtpose_tpu_torch.utils.timer",
     "caffe_rtpose_tpu_torch.utils.profiler",
@@ -120,8 +123,16 @@ IMGPROC_RUN = (
     "out = clahe(img, 8, 4)\n"
     "assert out.shape == img.shape and out.dtype == np.uint8 and (out != img).any()\n")
 
+# rtpose's text overlay, drawn as OpenCV 5 draws it, from the port's font
+TEXT_RUN = (
+    "import numpy as np\n"
+    "from caffe_rtpose_tpu_torch.utils.text import put_text_u8\n"
+    "img = np.zeros((40, 120, 3), np.uint8)\n"
+    "put_text_u8(img, '12.3 fps', (5, 30), 0, 0.75, (255, 150, 150), 1)\n"
+    "assert len(np.unique(img[..., 0])) > 100\n")
+
 # the only modules of the port whose source imports OpenCV (for video, the
-# camera, the window, the text overlay and Datums neither PNG nor JPEG)
+# camera, the window and Datums neither PNG nor JPEG)
 CV2_MODULES = {os.path.join("pipeline", "runner.py"), os.path.join("proto", "datum.py")}
 
 
@@ -164,9 +175,11 @@ def test_slice_imports_with_jax_and_cv2_blocked():
 
 
 def test_slice_imports_with_jax_cv2_and_h5py_blocked():
+    """fontTools blocked too: the text overlay reads the font itself."""
     _run("import sys\nsys.modules['jax'] = None\nsys.modules['cv2'] = None\n"
-         "sys.modules['h5py'] = None\n",
-         HDF5_ROUND_TRIP + "assert sys.modules['h5py'] is None, 'h5py loaded'\n" + IMGPROC_RUN)
+         "sys.modules['h5py'] = None\nsys.modules['fontTools'] = None\n",
+         HDF5_ROUND_TRIP + "assert sys.modules['h5py'] is None, 'h5py loaded'\n" + IMGPROC_RUN
+         + TEXT_RUN)
 
 
 def test_only_runner_and_datum_import_cv2():

@@ -13,6 +13,7 @@ import dataclasses
 import json
 import os
 import time
+import types
 
 import numpy as np
 import pytest
@@ -331,8 +332,13 @@ def test_many_frames_ordered_no_drops(tmp_path, est):
 def test_options_that_need_what_is_not_ported_or_cv2(est, tmp_path, monkeypatch):
     """num_devices > 1 once raised NotImplementedError; it builds the device
     pool now (two replicas on the CPU for a CPU estimator). The options that
-    need OpenCV still stop at once without it and name the option."""
+    need OpenCV still stop at once without it and name the option. The text
+    overlay on --write_frames needs no cv2: frames with text are written
+    with cv2 blocked, each file the bytes encode_jpeg gives at quality 98
+    for the JAX runner's overlay on the same rendered canvas (its fps label
+    fixed by fixing _emit_times in both runners)."""
     from caffe_rtpose_tpu_torch.parallel.inference import DevicePool
+    from caffe_rtpose_tpu_torch.pipeline import runner
 
     pool = RtPosePipeline(est, PipelineConfig(num_devices=2)).pool
     assert isinstance(pool, DevicePool) and len(pool.replicas) == 2
@@ -344,20 +350,42 @@ def test_options_that_need_what_is_not_ported_or_cv2(est, tmp_path, monkeypatch)
         cv2.imwrite(str(d / f"f{i}.jpg"), img)
     monkeypatch.setitem(sys.modules, "cv2", None)
     for kw, name in ((dict(video="clip.avi"), "--video"),
-                     (dict(write_frames=str(tmp_path / "w")), "text overlay"),
                      (dict(no_display=False), "display")):
         with pytest.raises(RuntimeError, match=name):
             RtPosePipeline(est, PipelineConfig(**kw))
+    RtPosePipeline(est, PipelineConfig(write_frames=str(tmp_path / "w")))  # text: no cv2
     with pytest.raises(RuntimeError, match="--camera"):
         RtPosePipeline(est, PipelineConfig()).run()
-    # a JPEG directory, frames written and JSON, all without cv2
-    out, frames = tmp_path / "json", tmp_path / "frames"
-    cfg = PipelineConfig(image_dir=str(d), resolution=RES, net_resolution=RES, no_display=True,
-                         write_json=str(out), write_frames=str(frames), no_text=True,
-                         no_frame_drops=True)
-    assert RtPosePipeline(est, cfg).run() == 2
-    assert sorted(os.listdir(out)) == ["f0.json", "f1.json"]
-    assert sorted(os.listdir(frames)) == ["f0.jpg", "f1.jpg"]
+    # a JPEG directory, frames written without and with the text overlay and
+    # JSON, all without cv2
+    emit_times = [100.0, 100.25, 100.5]
+    canvases = []  # (rendered canvas, frame) of each frame the overlay draws on
+    overlay = runner.RtPosePipeline._overlay_text
+
+    def fixed_overlay(self, canvas, f):
+        self._emit_times[:] = emit_times
+        canvases.append((np.array(canvas), f.num_people))
+        return overlay(self, canvas, f)
+
+    monkeypatch.setattr(runner.RtPosePipeline, "_overlay_text", fixed_overlay)
+    for text in (False, True):
+        out, frames = tmp_path / f"json{text}", tmp_path / f"frames{text}"
+        cfg = PipelineConfig(image_dir=str(d), resolution=RES, net_resolution=RES,
+                             no_display=True, write_json=str(out), write_frames=str(frames),
+                             no_text=not text, no_frame_drops=True, part_to_show=3)
+        assert RtPosePipeline(est, cfg).run() == 2
+        assert sorted(os.listdir(out)) == ["f0.json", "f1.json"]
+        assert sorted(os.listdir(frames)) == ["f0.jpg", "f1.jpg"]
+    assert len(canvases) == 2
+    jax = JR.RtPosePipeline.__new__(JR.RtPosePipeline)
+    jax.cfg = JR.PipelineConfig(write_frames=str(frames))
+    jax.ui = JR.UIState(part_to_show=3)
+    jax.est = types.SimpleNamespace(descriptor=est.descriptor)
+    jax._emit_times = list(emit_times)
+    for (canvas, people), name in zip(canvases, ("f0.jpg", "f1.jpg")):
+        frame = types.SimpleNamespace(num_people=people)
+        want = runner.encode_jpeg(jax._overlay_text(canvas, frame), 98)
+        assert (frames / name).read_bytes() == want
 
 
 # ------------------------------------------------------------ JAX parity

@@ -264,14 +264,13 @@ def read_db(path):
 
 
 # case -> (arguments, largest u8 difference from JAX's DB): a resize is
-# cv2's fixed point in both (equal); --gray weighs BT.601 in f32 where cv2's
-# PNG reader lets libpng convert in fixed point (one level), and the resize's
-# truncating fixed point can widen that level to two
+# cv2's fixed point in both, and --gray converts as cv2's PNG reader does
+# (libpng's fixed point): equal
 CONVERT_CASES = {"raw": ([], 0), "encoded": (["--encoded"], 0),
                  "resized": (["--resize_height", "16", "--resize_width", "20"], 0),
-                 "gray": (["--gray"], 1),
+                 "gray": (["--gray"], 0),
                  "gray_resized_shuffled": (["--gray", "--shuffle", "--resize_height", "12",
-                                            "--resize_width", "14"], 2)}
+                                            "--resize_width", "14"], 0)}
 
 
 @pytest.mark.parametrize("case", list(CONVERT_CASES))

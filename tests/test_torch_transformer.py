@@ -207,6 +207,26 @@ def test_json_source_jpeg_image_and_mask_match_jax(tmp_path):
     np.testing.assert_array_equal(pmeta.people[0].joints, jmeta.people[0].joints)
 
 
+@pytest.mark.parametrize("ext", ["png", "bmp"])
+def test_json_source_colour_mask_matches_jax(tmp_path, ext):
+    """ROADMAP C7: a colour PNG or BMP mask (datasets.py:77) is read gray as
+    JAX's cv2.imread(IMREAD_GRAYSCALE) reads it: equal."""
+    import json
+
+    rs = np.random.RandomState(7)
+    mask = rs.randint(0, 256, (45, 61, 3)).astype(np.uint8)
+    cv2.imwrite(str(tmp_path / "a.png"), rs.randint(0, 256, (45, 61, 3)).astype(np.uint8))
+    cv2.imwrite(str(tmp_path / f"m.{ext}"), mask)
+    joints = [[float(x), float(y), 1] for x, y in rs.uniform(5, 40, (17, 2))]
+    (tmp_path / "index.json").write_text(json.dumps(
+        [{"image": "a.png", "mask": f"m.{ext}", "scale_self": 0.8, "joints": joints}]))
+    (pimg, _, pmask), (jimg, _, jmask) = (
+        src(str(tmp_path / "index.json"))[0] for src in (PD.JsonPoseSource, JD.JsonPoseSource))
+    np.testing.assert_array_equal(pimg, jimg)
+    assert pmask.shape == jmask.shape == (45, 61)
+    np.testing.assert_array_equal(pmask, jmask)
+
+
 def test_synthetic_source_same_people():
     """The same people and, limbs drawn by the port's cv2.line, the same
     images as JAX's source."""
