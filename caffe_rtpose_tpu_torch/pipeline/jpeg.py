@@ -22,7 +22,7 @@ import ctypes
 import os
 import shutil
 import threading
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -78,6 +78,18 @@ def _orient(img: np.ndarray, orientation: int) -> np.ndarray:
     return np.ascontiguousarray(img)
 
 
+def jpeg_header(data: bytes, name: str = "<jpeg bytes>",
+                truncated_ok: bool = False) -> Tuple[int, int, int]:
+    """(width, height, EXIF orientation) from a JPEG's markers up to its
+    first scan, without decoding it; ValueError where they do not parse."""
+    lib = load()
+    err = ctypes.create_string_buffer(256)
+    info = (ctypes.c_int * 3)()
+    _check(lib.crt_jpeg_header(data, len(data), int(truncated_ok), info, err, len(err)), err,
+           name)
+    return tuple(info)
+
+
 def decode_jpeg(data: bytes, gray: bool = False, name: str = "<jpeg bytes>",
                 truncated_ok: bool = False) -> np.ndarray:
     """JPEG bytes -> BGR u8 (H, W, 3), or with ``gray`` the (H, W) plane, as
@@ -87,12 +99,9 @@ def decode_jpeg(data: bytes, gray: bool = False, name: str = "<jpeg bytes>",
     scans before gave them, zero in a baseline file, and a progressive file
     is smoothed as libjpeg smooths it)."""
     data = bytes(data)
+    w, h, orientation = jpeg_header(data, name, truncated_ok)
     lib = load()
     err = ctypes.create_string_buffer(256)
-    info = (ctypes.c_int * 3)()
-    _check(lib.crt_jpeg_header(data, len(data), int(truncated_ok), info, err, len(err)), err,
-           name)
-    w, h, orientation = info
     out = np.empty((h, w) if gray else (h, w, 3), np.uint8)
     _check(lib.crt_jpeg_decode(data, len(data), int(gray), int(truncated_ok),
                                out.ctypes.data, out.size, err, len(err)), err, name)

@@ -16,13 +16,15 @@ a captured CUDA graph (``PoseEstimator(cuda_graph=True)``, the default on
 CUDA): the dispatcher's host work per pass is a copy into pinned memory and
 a few calls, while the fetchers copy results out and assemble.
 
-OpenCV (``cv2``) is optional here: video and camera sources and the display
-window use it, and a pipeline that asks for one of them without ``cv2``
-raises at construction with the option's name.  JPEG, PNG and BMP
-directories, ``write_frames`` (JPEG at quality 98 by the port's codec,
-``jpeg.py``: the bytes ``cv2.imwrite`` writes) with its text overlay
-(OpenCV 5's ``putText``, ``utils/text.py``), JSON output and the headless
-run need no ``cv2`` (``image_io.py``, ``pose/preprocess.py``).
+OpenCV (``cv2``) is optional here: the camera, the display window and
+videos other than Motion-JPEG AVI use it, and a pipeline that asks for one
+of them without ``cv2`` raises at construction with the option's name.
+JPEG, PNG and BMP directories, Motion-JPEG AVI videos (``video.py``, frames
+as ``cv2.VideoCapture`` gives them, pixels as ``cv2.imdecode``),
+``write_frames`` (JPEG at quality 98 by the port's codec, ``jpeg.py``: the
+bytes ``cv2.imwrite`` writes) with its text overlay (OpenCV 5's
+``putText``, ``utils/text.py``), JSON output and the headless run need no
+``cv2`` (``image_io.py``, ``pose/preprocess.py``).
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ from ..utils.text import FONT_HERSHEY_SIMPLEX, put_text_u8
 from .image_io import read_image
 from .jpeg import encode_jpeg
 from .queues import BlockingQueue, OrderedBuffer
+from .video import AviReader, UnsupportedVideo
 
 
 def _cv2(option: str):
@@ -54,6 +57,45 @@ def _cv2(option: str):
     except ImportError as e:
         raise RuntimeError(f"{option} needs OpenCV (cv2), which is not installed") from e
     return cv2
+
+
+class _Cv2Capture:
+    """``cv2.VideoCapture`` behind :class:`video.AviReader`'s methods."""
+
+    def __init__(self, cv2, source, what: str):
+        self._cv2, self._cap = cv2, cv2.VideoCapture(source)
+        if not self._cap.isOpened():
+            raise RuntimeError(f"Couldn't open {what}")
+        self.fps = self._cap.get(cv2.CAP_PROP_FPS) or 0.0
+
+    def set(self, prop: str, value) -> bool:
+        return self._cap.set(getattr(self._cv2, prop), value)
+
+    def set_pos(self, frame: int) -> bool:
+        return self.set("CAP_PROP_POS_FRAMES", frame)
+
+    def read(self):
+        return self._cap.read()
+
+    def release(self) -> None:
+        self._cap.release()
+
+
+def open_video(path: str):
+    """The ``--video`` file: a Motion-JPEG AVI through the port's reader,
+    any other video through ``cv2.VideoCapture`` (behind the same methods),
+    or without ``cv2`` a RuntimeError naming ``--video``, the file, its
+    container and its fourcc."""
+    try:
+        return AviReader(path)
+    except OSError as e:
+        raise RuntimeError(f"Couldn't open video {path}") from e
+    except UnsupportedVideo as e:
+        try:
+            import cv2
+        except ImportError:
+            raise RuntimeError(f"--video {e}, which is not installed") from e
+        return _Cv2Capture(cv2, path, "video " + path)
 
 
 @dataclass
@@ -216,54 +258,56 @@ def list_image_dir(path: str) -> List[str]:
     return sorted(files)
 
 
-def frame_source(cfg: PipelineConfig, ui: Optional[UIState] = None) -> Iterator[Tuple[int, np.ndarray, Optional[str]]]:
+def frame_source(cfg: PipelineConfig, ui: Optional[UIState] = None,
+                 video=None) -> Iterator[Tuple[int, np.ndarray, Optional[str]]]:
     """Yields (video_frame_number, bgr_frame, source_path).  When a UIState
-    is given, honors pause and l/k seeking (getFrameFromCam, rtpose.cpp:431-461)."""
+    is given, honors pause and l/k seeking (getFrameFromCam, rtpose.cpp:431-461).
+    ``video``: the ``--video`` file already opened by :func:`open_video`."""
     if cfg.image_dir:
         for i, p in enumerate(list_image_dir(cfg.image_dir)):
             yield i, read_image(p), p
         return
-    cv2 = _cv2("--video" if cfg.video else "--camera")
-    cap = cv2.VideoCapture(cfg.video if cfg.video else cfg.camera)
-    if not cap.isOpened():
-        raise RuntimeError(f"Couldn't open {'video ' + cfg.video if cfg.video else 'camera %d' % cfg.camera}")
-    if not cfg.video:
-        cap.set(cv2.CAP_PROP_FRAME_WIDTH, cfg.camera_resolution[0])
-        cap.set(cv2.CAP_PROP_FRAME_HEIGHT, cfg.camera_resolution[1])
-    elif cfg.start_frame:
-        cap.set(cv2.CAP_PROP_POS_FRAMES, cfg.start_frame)
+    if cfg.video:
+        cap = video if video is not None else open_video(cfg.video)
+        if cfg.start_frame:
+            cap.set_pos(cfg.start_frame)
+    else:
+        cap = _Cv2Capture(_cv2("--camera"), cfg.camera, "camera %d" % cfg.camera)
+        cap.set("CAP_PROP_FRAME_WIDTH", cfg.camera_resolution[0])
+        cap.set("CAP_PROP_FRAME_HEIGHT", cfg.camera_resolution[1])
     # realtime pacing to the clip's native FPS (rtpose.cpp:448-461);
     # disabled for offline runs (--no_frame_drops = process every frame
     # as fast as possible)
     target_dt = 0.0
     if cfg.video and not cfg.no_frame_drops:
-        fps = cap.get(cv2.CAP_PROP_FPS) or 0.0
-        target_dt = 1.0 / fps if fps > 0 else 0.0
-    last_t = time.time()
-    idx = cfg.start_frame
-    while True:
-        if ui is not None:
-            if ui.quit:
+        target_dt = 1.0 / cap.fps if cap.fps > 0 else 0.0
+    try:
+        last_t = time.time()
+        idx = cfg.start_frame
+        while True:
+            if ui is not None:
+                if ui.quit:
+                    break
+                if cfg.video and ui.seek_to_frame:
+                    idx = max(0, ui.current_frame)
+                    cap.set_pos(idx)
+                    ui.seek_to_frame = False
+                while ui.paused and not ui.quit:
+                    time.sleep(0.05)
+            ok, img = cap.read()
+            if not ok:
                 break
-            if cfg.video and ui.seek_to_frame:
-                idx = max(0, ui.current_frame)
-                cap.set(cv2.CAP_PROP_POS_FRAMES, idx)
-                ui.seek_to_frame = False
-            while ui.paused and not ui.quit:
-                time.sleep(0.05)
-        ok, img = cap.read()
-        if not ok:
-            break
-        if target_dt:
-            now = time.time()
-            if now - last_t < target_dt:
-                time.sleep(target_dt - (now - last_t))
-            last_t = time.time()
-        yield idx, img, None
-        idx += 1
-        if ui is not None and not ui.seek_to_frame:
-            ui.current_frame = idx
-    cap.release()
+            if target_dt:
+                now = time.time()
+                if now - last_t < target_dt:
+                    time.sleep(target_dt - (now - last_t))
+                last_t = time.time()
+            yield idx, img, None
+            idx += 1
+            if ui is not None and not ui.seek_to_frame:
+                ui.current_frame = idx
+    finally:  # also when the consumer stops early
+        cap.release()
 
 
 def write_json_file(path: str, joints: np.ndarray, num_people: int, scale: float, num_parts: int) -> None:
@@ -298,9 +342,8 @@ class RtPosePipeline:
     (round-robin dispatch, one replica of the program per card)."""
 
     def __init__(self, estimator: PoseEstimator, cfg: PipelineConfig):
-        # what needs OpenCV, named before any thread starts
-        if cfg.video:
-            _cv2("--video")
+        # the video opened and what needs OpenCV named before any thread starts
+        self.video = open_video(cfg.video) if cfg.video else None
         if not cfg.no_display:
             _cv2("the display window (--no_display not set)")
         self.est = estimator
@@ -350,7 +393,7 @@ class RtPosePipeline:
         count = 0
         try:
             source = (self.frame_iter if self.frame_iter is not None
-                      else frame_source(cfg, self.ui))
+                      else frame_source(cfg, self.ui, self.video))
             for vfn, img, path in source:
                 if self.quit.is_set():
                     break

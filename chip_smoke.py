@@ -31,6 +31,15 @@ Phases, each of which raises (non-zero exit) on failure:
                tests/test_torch_text.py holds against cv2.putText, and the
                pipeline's _overlay_text on a 1280x720 frame: first call and
                the median ms of 50; the hand kernels' counters read 0.
+   video     - the port's Motion-JPEG AVI reader (pipeline/video.py), cv2
+               blocked: every crafted layout of tests/avi_cases.py written
+               around the port's q95 JPEGs and read through
+               runner.frame_source: frame count, fps, the frames read from
+               the start, after each start_frame and after each ui seek,
+               and the sha256 of the decoded frames equal to the results
+               tests/test_torch_video.py pins against the JAX package's
+               reader (cv2.VideoCapture, FFMPEG); the hand kernels'
+               counters read 0.
 3. kernels   - each hand-written kernel against its plain PyTorch version on
                the card, at the estimators' shapes (COCO 1 and 3 scales, MPI,
                small and ragged), at the estimator's input (the 18-channel
@@ -116,7 +125,17 @@ Phases, each of which raises (non-zero exit) on failure:
                hand-kernel launches equal to the PNG run's; the same JPEG
                run on the 656x368 canvases; and the 1280x720 JPEG run
                once more without --no_text, cv2 blocked: the text overlay
-               drawn on every frame, the same checks and launches.
+               drawn on every frame, the same checks and launches.  Then
+               rtpose --video on those 8 JPEGs wrapped into a Motion-JPEG
+               AVI (tests/avi_cases.write_avi, OpenCV's writer's layout, 25
+               fps), --no_frame_drops --write_json, cv2 blocked, in turns
+               with the same JPEGs as a directory (dir, video, dir, video):
+               every JSON frameNNNNNN.json equal to estimate() on
+               decode_jpeg of its frame, the hand-kernel launches equal to
+               the directory run's (K1 4, K4 4), FPS beside the
+               directory's; --start_frame 3 writes frame000003-7, equal to
+               the first run's; the host ms a frame of the container read
+               (AviReader.chunk) and of the decode apart.
    serving   - serving bundles (serving.py): the bf16 batch-8 estimator
                built from those files, exported (time, file sizes), loaded
                cold as an ExportedPose (time) with the kernel counters zeroed
@@ -920,6 +939,63 @@ def phase_text(card):
     return dict(digests_equal=ok, font_parse_ms=parse_ms, build_s=build_s, built=bool(log),
                 overlay_first_ms=times[0], overlay_ms=overlay_ms,
                 overlay_ms_range=[min(times[1:]), max(times[1:])], digest_s=digest_s,
+                hand_kernel_launches=counts, card=card)
+
+
+def avi_cases_module():
+    """tests/avi_cases.py: the crafted Motion-JPEG AVIs and the results
+    tests/test_torch_video.py pins against the JAX package's reader (numpy
+    only)."""
+    jpeg_frames_module()  # puts tests/ on the path
+    import avi_cases
+
+    return avi_cases
+
+
+def phase_video(card):
+    """The port's Motion-JPEG AVI reader on the card's host, cv2 blocked:
+    each case of tests/avi_cases.py built around encode_jpeg's q95 frames,
+    its frame count, fps, reads, seeks and frame digest held to the pins
+    taken from the JAX package's reader.  It launches none of K1-K4."""
+    import os
+
+    from caffe_rtpose_tpu_torch.pipeline import runner, video
+    from caffe_rtpose_tpu_torch.pipeline.jpeg import encode_jpeg
+
+    tag = "[video]"
+    cases = avi_cases_module()
+    zero_counts()
+    differ = {}
+    with no_cv2(), tempfile.TemporaryDirectory(prefix="chip_smoke_video_") as work:
+        t0 = time.perf_counter()
+        for name in cases.CASES:
+            data, sources = cases.build(name, encode_jpeg)
+            path = os.path.join(work, name + ".avi")
+            with open(path, "wb") as f:
+                f.write(data)
+            reader = video.AviReader(path)
+            frames = []
+            while True:
+                ok, img = reader.read()
+                if not ok:
+                    break
+                frames.append(img)
+            reader.release()
+            got = dict(count=reader.frame_count, fps=reader.fps, sha256=cases.sha256(frames),
+                       **cases.observe(runner, path, sources, cases.seeks(name)))
+            pin = cases.PINNED[name]
+            bad = [k for k in pin if got[k] != pin[k]]
+            if bad:
+                differ[name] = {k: (got[k], pin[k]) for k in bad}
+        secs = time.perf_counter() - t0
+    counts = read_counts()
+    print(f"{tag} {len(cases.CASES)} crafted Motion-JPEG AVIs ({', '.join(cases.CASES)}), cv2 "
+          f"blocked: frame count, fps, reads, start_frame and ui seeks and frame digests "
+          f"{'equal' if not differ else 'DIFFER from'} those pinned from the JAX package's "
+          f"reader, in {secs:.2f} s; hand-kernel launches {counts}; {card}")
+    check(not differ, f"{tag} the reader differs from the pins: {differ}")
+    check(not any(counts.values()), f"{tag} launched hand kernels: {counts}")
+    return dict(cases=len(cases.CASES), pins_equal=not differ, seconds=secs,
                 hand_kernel_launches=counts, card=card)
 
 
@@ -2703,6 +2779,133 @@ def cli_jpeg_checks(tag, files, img_dir, out_dir, frames_dir, canvases_seen, n_f
     check(min(psnr) >= JPEG_Q98_PSNR, f"{tag} a written frame is {min(psnr):.2f} dB from its "
                                       f"canvas, under {JPEG_Q98_PSNR} dB")
     return dict(frames=n_frames, psnr_db=psnr, max_abs_err=max_err)
+
+
+CLI_VIDEO_REPS = 3  # timed reads of the clip's frames
+
+
+def rtpose_run(tag, files, source, out_dir, w, h, extra=()):
+    """tools.rtpose.main on ``source`` (flags) with the files phase's model
+    files, --write_json --no_display --no_frame_drops, cv2 blocked; the
+    kernel counters zeroed just before and read just after."""
+    import contextlib
+    import io
+    import os
+
+    from caffe_rtpose_tpu_torch.tools import rtpose
+
+    buf, err = io.StringIO(), io.StringIO()
+    zero_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err), no_cv2():
+        rc = rtpose.main(["--caffeproto", files["proto"], "--caffemodel", files["model"],
+                          *source, "--write_json", out_dir, "--resolution", f"{w}x{h}",
+                          "--no_display", "--no_frame_drops", *extra])
+    secs = time.perf_counter() - t0
+    launches = read_counts()
+    text = buf.getvalue()
+    m = re.search(r"Processed (\d+) frames in [\d.]+s \(([\d.]+) FPS\)", text)
+    out_files = sorted(os.listdir(out_dir)) if os.path.isdir(out_dir) else []
+    print(f"{tag} rtpose {' '.join(source + tuple(extra))}: exit {rc}, {len(out_files)} JSON "
+          f"files, {secs:.1f} s, hand-kernel wrapper launches {launches}; "
+          + " | ".join(line for line in (text + err.getvalue()).splitlines() if line.strip()))
+    check(rc == 0 and m is not None, f"{tag} exit {rc}: {err.getvalue()}")
+    check("not found" not in err.getvalue(), f"{tag} the CLI fell back: {err.getvalue()}")
+    return dict(exit=rc, files=out_files, frames=int(m.group(1)), fps=float(m.group(2)),
+                seconds=secs, launches=launches)
+
+
+def phase_cli_video(files, images, extra=()):
+    """rtpose --video on ``images`` as q95 JPEGs (encode_jpeg) in a
+    Motion-JPEG AVI, in turns with the same JPEGs as a directory (dir,
+    video, dir, video), then --start_frame 3; cv2 blocked.  Every JSON of
+    the video runs equal to estimate() on decode_jpeg of its frame, the
+    --start_frame run's equal to the first run's, launches equal to the
+    directory run's; FPS of each run, and the host ms a frame of the
+    container read and of the decode apart (median over the frames, 3
+    reads each).  ``extra``: more flags, whose --device and
+    --net_resolution the estimate() estimator takes too."""
+    import os
+
+    import torch
+
+    from caffe_rtpose_tpu_torch.pipeline import video
+    from caffe_rtpose_tpu_torch.pipeline.jpeg import decode_jpeg, encode_jpeg
+    from caffe_rtpose_tpu_torch.pipeline.runner import write_json_file
+    from caffe_rtpose_tpu_torch.pose.estimator import PoseEstimator
+
+    tag = "[cli video]"
+    cases = avi_cases_module()
+    work = tempfile.mkdtemp(prefix="chip_smoke_cli_video_")
+    h, w = images[0].shape[:2]
+    n = len(images)
+    jpegs = [encode_jpeg(f, 95) for f in images]
+    img_dir, clip = os.path.join(work, "img"), os.path.join(work, "clip.avi")
+    os.makedirs(img_dir)
+    for i, data in enumerate(jpegs):
+        with open(os.path.join(img_dir, f"f{i:02d}.jpg"), "wb") as f:
+            f.write(data)
+    with open(clip, "wb") as f:
+        f.write(cases.write_avi(jpegs, w, h))
+    runs = []
+    for k, kind in enumerate(("dir", "video", "dir", "video")):
+        source = ("--image_dir", img_dir) if kind == "dir" else ("--video", clip)
+        runs.append((kind, rtpose_run(f"{tag} {kind}", files, source,
+                                      os.path.join(work, f"json{k}"), w, h, extra)))
+    first = runs[1][1]
+    seek = rtpose_run(f"{tag} start 3", files, ("--video", clip), os.path.join(work, "json_s3"),
+                      w, h, ("--start_frame", "3", *extra))
+    names = [f"frame{i:06d}.json" for i in range(n)]
+    for kind, r in runs:
+        check(r["files"] == (names if kind == "video" else [f"f{i:02d}.json" for i in range(n)]),
+              f"{tag} {kind} wrote {r['files']}")
+        check(r["launches"] == runs[0][1]["launches"], f"{tag} {kind} launches {r['launches']} "
+                                                       f"against {runs[0][1]['launches']}")
+    check(first["launches"]["conv1_block"] > 0 and first["launches"]["peak_mask_fused"] > 0,
+          f"{tag} a hand kernel of the path never launched: {first['launches']}")
+    check(seek["files"] == names[3:], f"{tag} --start_frame 3 wrote {seek['files']}")
+    for name in seek["files"]:
+        with open(os.path.join(work, "json1", name)) as a, \
+                open(os.path.join(work, "json_s3", name)) as b:
+            check(a.read() == b.read(), f"{tag} --start_frame 3's {name} differs")
+    def flag(name, default):
+        return extra[extra.index(name) + 1] if name in extra else default
+
+    est = PoseEstimator(files["proto"], weights=files["model"], input_u8=True, pair_cap=32,
+                        net_resolution=tuple(int(v) for v in flag("--net_resolution",
+                                                                  "656x368").split("x")),
+                        dtype=torch.bfloat16, device=flag("--device", "cuda"))
+    ref = os.path.join(work, "ref.json")
+    for i, data in enumerate(jpegs):
+        res, pf = est.estimate(decode_jpeg(data), w, h)
+        write_json_file(ref, res.joints, res.num_people, float(np.float32(pf.scale)),
+                        est.num_parts)
+        with open(os.path.join(work, "json1", names[i])) as a, open(ref) as b:
+            check(a.read() == b.read(), f"{tag} {names[i]} differs from estimate() on "
+                                        "decode_jpeg of its frame")
+    del est
+    reader = video.AviReader(clip)
+    read_ms, decode_ms = [], []
+    for _ in range(CLI_VIDEO_REPS):
+        for i in range(len(reader.frames)):
+            t0 = time.perf_counter()
+            data = reader.chunk(i)
+            t1 = time.perf_counter()
+            decode_jpeg(data)
+            read_ms.append((t1 - t0) * 1000.0)
+            decode_ms.append((time.perf_counter() - t1) * 1000.0)
+    reader.release()
+    fps = {kind: [r["fps"] for k, r in runs if k == kind] for kind in ("dir", "video")}
+    print(f"{tag} every JSON equals estimate() on decode_jpeg of its frame; --start_frame 3 "
+          f"wrote {len(seek['files'])} files equal to the first run's; FPS over {n} "
+          f"{w}x{h} frames: video {fps['video']}, directory {fps['dir']} (in turns); host ms a "
+          f"frame (median of {len(read_ms)}): container read {statistics.median(read_ms):.4f}, "
+          f"decode {statistics.median(decode_ms):.3f} ({sum(map(len, jpegs)) // n} B a frame)")
+    return dict(fps_video=fps["video"], fps_dir=fps["dir"], launches=first["launches"],
+                start_frame_3=dict(files=len(seek["files"]), launches=seek["launches"],
+                                   fps=seek["fps"]),
+                read_ms=statistics.median(read_ms), decode_ms=statistics.median(decode_ms),
+                bytes_a_frame=sum(map(len, jpegs)) / n, seconds=[r["seconds"] for _, r in runs])
 
 
 def bundle_sizes(path):
@@ -5050,6 +5253,7 @@ def main() -> int:
     jpeg = phase_jpeg(info["nvidia_smi"])
     imgproc = phase_imgproc(info["nvidia_smi"])
     text = phase_text(info["nvidia_smi"])
+    vid = phase_video(info["nvidia_smi"])
     t_mask = phase_kernels()
     t_up = phase_upsample_keys()
     t_conv1 = phase_conv1()
@@ -5086,6 +5290,11 @@ def main() -> int:
         cli_720p_text = phase_cli(files, frames_720, jpeg=True, with_text=True)
         check(cli_720p_text["launches"] == cli_720p["launches"],
               f"[cli jpeg text] hand-kernel launches {cli_720p_text['launches']} against the PNG "
+              f"run's {cli_720p['launches']}")
+        # those frames in a Motion-JPEG AVI through rtpose --video
+        cli_video = phase_cli_video(files, frames_720)
+        check(cli_video["launches"] == cli_720p["launches"],
+              f"[cli video] hand-kernel launches {cli_video['launches']} against the PNG "
               f"run's {cli_720p['launches']}")
         serving, serving_est, serving_graph = phase_serving(weights, files, cli, work)
         pool = phase_pool(serving_est)
@@ -5143,6 +5352,8 @@ def main() -> int:
     print(json.dumps({"jpeg": jpeg}))
     print(json.dumps({"imgproc": imgproc}))
     print(json.dumps({"text": text}))
+    print(json.dumps({"video": vid}))
+    print(json.dumps({"cli_video": cli_video}))
     print(json.dumps({"serving": serving}))
     print(json.dumps({"pool": pool}))
     print(json.dumps({"eval": evaluation}))
@@ -5178,6 +5389,8 @@ def main() -> int:
                                                   None),
                             "cli 1280x720 jpeg text": (
                                 cli_720p_text["launches"]["peak_mask_fused"], None),
+                            "cli 1280x720 video": (cli_video["launches"]["peak_mask_fused"],
+                                                   None),
                             **{f"{path} (by rank)": (v, None) for path, v in
                                parallel["k1_launches_by_path"].items()}},
         "peak_mask_fused_3scale": {"slice 3-scale": (three["launches"], None),
@@ -5195,7 +5408,8 @@ def main() -> int:
                         "cli jpeg": (cli_jpeg["launches"]["conv1_block"], None),
                         "cli 1280x720 jpeg": (cli_720p_jpeg["launches"]["conv1_block"], None),
                         "cli 1280x720 jpeg text": (cli_720p_text["launches"]["conv1_block"],
-                                                   None)},
+                                                   None),
+                        "cli 1280x720 video": (cli_video["launches"]["conv1_block"], None)},
     }
     entries = [
         ("peak_mask_fused", mask_src, f"{mask_pallas}:136", pipeline["launches"]["peak_mask_fused"],
@@ -5217,7 +5431,8 @@ def main() -> int:
             "launches_by_path": {**{k: v[0] for k, v in by_path[name].items()},
                                  **{path: r["hand_kernel_launches"].get(
                                      name.replace("_3scale", ""), 0) for path, r in (
-                                     ("imgproc", imgproc), ("text", text), ("train f32", train),
+                                     ("imgproc", imgproc), ("text", text), ("video", vid),
+                                     ("train f32", train),
                                      ("train bf16", train_bf16), ("framework", framework),
                                      ("tools", tools), ("matcaffe", matcaffe))}},
             "replayed_launches_by_path": {k: v[1] for k, v in by_path[name].items()

@@ -32,6 +32,7 @@ SLICE_MODULES = [
     "caffe_rtpose_tpu_torch.pipeline.image_io",
     "caffe_rtpose_tpu_torch.pipeline.queues",
     "caffe_rtpose_tpu_torch.pipeline.runner",
+    "caffe_rtpose_tpu_torch.pipeline.video",
     "caffe_rtpose_tpu_torch.tools.rtpose",
     "caffe_rtpose_tpu_torch.__main__",
     "caffe_rtpose_tpu_torch.proto",
@@ -131,8 +132,8 @@ TEXT_RUN = (
     "put_text_u8(img, '12.3 fps', (5, 30), 0, 0.75, (255, 150, 150), 1)\n"
     "assert len(np.unique(img[..., 0])) > 100\n")
 
-# the only modules of the port whose source imports OpenCV (for video, the
-# camera, the window and Datums neither PNG nor JPEG)
+# the only modules of the port whose source imports OpenCV (for the camera,
+# the window and videos other than MJPEG AVI, and Datums neither PNG nor JPEG)
 CV2_MODULES = {os.path.join("pipeline", "runner.py"), os.path.join("proto", "datum.py")}
 
 
