@@ -17,10 +17,11 @@ CUDA): the dispatcher's host work per pass is a copy into pinned memory and
 a few calls, while the fetchers copy results out and assemble.
 
 OpenCV (``cv2``) is optional here: the camera, the display window and
-videos other than Motion-JPEG AVI use it, and a pipeline that asks for one
+videos the port's readers refuse use it, and a pipeline that asks for one
 of them without ``cv2`` raises at construction with the option's name.
-JPEG, PNG and BMP directories, Motion-JPEG AVI videos (``video.py``, frames
-as ``cv2.VideoCapture`` gives them, pixels as ``cv2.imdecode``),
+JPEG, PNG and BMP directories, Motion-JPEG and MPEG-4 Part 2 videos in AVI,
+MP4 and QuickTime (``video.py``, frames as ``cv2.VideoCapture`` gives
+them; MPEG-4 pixels as cv2's, Motion-JPEG's as ``cv2.imdecode``),
 ``write_frames`` (JPEG at quality 98 by the port's codec, ``jpeg.py``: the
 bytes ``cv2.imwrite`` writes) with its text overlay (OpenCV 5's
 ``putText``, ``utils/text.py``), JSON output and the headless run need no
@@ -47,7 +48,7 @@ from ..utils.text import FONT_HERSHEY_SIMPLEX, put_text_u8
 from .image_io import read_image
 from .jpeg import encode_jpeg
 from .queues import BlockingQueue, OrderedBuffer
-from .video import AviReader, UnsupportedVideo
+from .video import UnsupportedVideo, open_reader
 
 
 def _cv2(option: str):
@@ -60,7 +61,7 @@ def _cv2(option: str):
 
 
 class _Cv2Capture:
-    """``cv2.VideoCapture`` behind :class:`video.AviReader`'s methods."""
+    """``cv2.VideoCapture`` behind the methods of the port's video readers."""
 
     def __init__(self, cv2, source, what: str):
         self._cv2, self._cap = cv2, cv2.VideoCapture(source)
@@ -82,12 +83,14 @@ class _Cv2Capture:
 
 
 def open_video(path: str):
-    """The ``--video`` file: a Motion-JPEG AVI through the port's reader,
-    any other video through ``cv2.VideoCapture`` (behind the same methods),
-    or without ``cv2`` a RuntimeError naming ``--video``, the file, its
-    container and its fourcc."""
+    """The ``--video`` file: through the port's readers where they take it
+    (``video.open_reader``: AVI, then MP4/QuickTime; Motion-JPEG or MPEG-4
+    Part 2), cv2 or not; any other video through ``cv2.VideoCapture``
+    (behind the same methods), or without ``cv2`` a RuntimeError naming
+    ``--video``, the file, its container, its fourcc and any refused
+    feature."""
     try:
-        return AviReader(path)
+        return open_reader(path)
     except OSError as e:
         raise RuntimeError(f"Couldn't open video {path}") from e
     except UnsupportedVideo as e:

@@ -1,43 +1,54 @@
-"""Motion-JPEG AVI files read on the host without OpenCV: the RIFF container
-walked with ``struct``, each frame's bytes decoded by the port's JPEG codec
-(``jpeg.py``).
+"""Video files read on the host without OpenCV: AVI (the RIFF container
+walked with ``struct``) and MP4/QuickTime (ISO BMFF, ``bmff.py``), their
+Motion-JPEG frames decoded by the port's JPEG codec (``jpeg.py``) and their
+MPEG-4 Part 2 frames by the port's MPEG-4 decoder (``mpeg4.py``).
 
-:class:`AviReader` has what ``runner.frame_source`` uses of
-``cv2.VideoCapture`` and gives, for the same file, what the JAX package's
-reader gives: ``cv2.VideoCapture(path)`` with no backend named, which opens
-an AVI through FFMPEG (libavformat's AVI demuxer).
+The readers have what ``runner.frame_source`` uses of ``cv2.VideoCapture``
+and give, for the same file, what the JAX package's reader gives:
+``cv2.VideoCapture(path)`` with no backend named, which opens these files
+through FFMPEG (libavformat's AVI and ``mov`` demuxers, libavcodec's
+``mjpeg`` and ``mpeg4`` decoders).  :func:`open_reader` tries AVI, then
+ISO BMFF.
 
-* **Frames**: the chunks of the first video stream (``NNdc``/``NNdb``) in
-  file order, through every ``movi`` list, OpenDML's ``RIFF AVIX`` parts
-  included.  A zero-length chunk (AVI's "repeat the last frame") yields no
-  frame but takes one frame period of the timestamps, as in FFMPEG.  A
-  chunk whose bytes are not a JPEG ends a sequential read, as FFMPEG's
-  decode error ends ``cap.read()``; a seek can reach past it.  A chunk that
-  the end of the file cuts inside its scan is a frame, as FFMPEG's decoder
-  ends a scan without EOI; cut before its scan, it ends the read.
-* **The index**: OpenDML's ``indx`` and its ``ix##`` chunks, else ``idx1``
-  (offsets relative to ``movi`` or absolute, told apart as libavformat's
-  ``avi_read_idx1`` does: the first entry is moved onto the first chunk of
-  ``movi``), then a scan on from the last indexed chunk.  With no index, or
-  with an entry that does not point at a chunk of the stream and its size,
-  the ``movi`` lists are scanned.
-* **Pixels**: ``decode_jpeg`` of each chunk, which is ``cv2.imdecode``
-  (IMREAD_COLOR) of it bit for bit, and for a cut chunk ``cv2.imread`` of
-  it (the missing blocks libjpeg's; FFMPEG keeps the previous frame's
-  there).  FFMPEG decodes with its own IDCT and converts YUV to BGR with
-  swscale: its frames are up to tens of levels off libjpeg's on noisy
-  frames (ROADMAP C9).
-* **fps**: the stream header's dwRate / dwScale (libavformat's fallbacks
-  where either is 0), ``CAP_PROP_FPS``; **frame_count**: its dwLength,
-  ``CAP_PROP_FRAME_COUNT``.
+* **Frames** (:class:`AviReader`): the chunks of the first video stream
+  (``NNdc``/``NNdb``) in file order, through every ``movi`` list, OpenDML's
+  ``RIFF AVIX`` parts included.  A zero-length chunk (AVI's "repeat the
+  last frame") yields no frame but takes one frame period of the
+  timestamps, as in FFMPEG.  A chunk that the end of the file cuts inside
+  its scan is a frame, as FFMPEG's decoder ends a scan without EOI; cut
+  before its scan, it ends the read.  (:class:`Mp4Reader`): the samples of
+  the first video track, after its edit list (``bmff.py``).
+* **The AVI index**: OpenDML's ``indx`` and its ``ix##`` chunks, else
+  ``idx1`` (offsets relative to ``movi`` or absolute, told apart as
+  libavformat's ``avi_read_idx1`` does: the first entry is moved onto the
+  first chunk of ``movi``), then a scan on from the last indexed chunk.
+  With no index, or with an entry that does not point at a chunk of the
+  stream and its size, the ``movi`` lists are scanned.  Key frames: the
+  index's AVIIF_KEYFRAME, or ``stss`` in MP4; a scanned MPEG-4 chunk is a
+  key frame where it holds an I-VOP.
+* **Pixels**: Motion-JPEG: ``decode_jpeg`` of each frame, which is
+  ``cv2.imdecode`` (IMREAD_COLOR) of it bit for bit, and for a cut chunk
+  ``cv2.imread`` of it.  FFMPEG decodes JPEG with its own IDCT and converts
+  YUV to BGR with swscale: its frames are up to tens of levels off
+  libjpeg's on noisy frames (ROADMAP C9).  MPEG-4: every packet a read or a
+  seek passes goes through the decoder in order (P-VOPs predict from the
+  picture before), and its pictures equal cv2's bit for bit.  A packet that
+  gives no picture (headers only, a VOP that is not coded) is passed, as
+  FFMPEG passes it; one that does not decode ends a sequential read (FFMPEG
+  conceals the damage and goes on).
+* **fps**: AVI: the stream header's dwRate / dwScale (libavformat's
+  fallbacks where either is 0); MP4: the track's average frame rate;
+  ``CAP_PROP_FPS``.  **frame_count**: dwLength, or the track's sample
+  count, ``CAP_PROP_FRAME_COUNT``.
 * **set_pos(i)**: OpenCV's ``CvCapture_FFMPEG::seek`` over libavformat's
-  index (:meth:`AviReader.set_pos`): frame i on a file without zero-length
-  or broken chunks, and past the end, the end of the stream.
+  index (:meth:`_Reader.set_pos`): frame i on a file without zero-length,
+  broken or not-coded frames, and past the end, the end of the stream.
 
 Anything else raises :class:`UnsupportedVideo`, naming the file, its
-container and the video stream's fourcc: another codec in AVI, MP4 and
-QuickTime, Matroska.  ``runner.open_video`` hands those to OpenCV where it
-is installed.
+container and the video stream's fourcc, and the feature where one is
+refused: other codecs, the MPEG-4 features ``mpeg4.py`` refuses, the MP4
+layouts ``bmff.py`` refuses, Matroska.  ``runner.open_video`` hands those
+to OpenCV where it is installed.
 """
 
 from __future__ import annotations
@@ -46,14 +57,25 @@ import bisect
 import os
 import re
 import struct
-from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
 import numpy as np
 
+from . import bmff
+from .bmff import Sample
 from .jpeg import decode_jpeg, jpeg_header
+from .mpeg4 import Mpeg4Decoder, Mpeg4Unsupported
 
 MJPEG_FOURCCS = (b"MJPG", b"mjpg")
+# AVI fourccs libavformat maps to the mpeg4 decoder (ff_codec_bmp_tags,
+# matched upper-cased)
+MPEG4_FOURCCS = ("FMP4", "DIVX", "DX50", "XVID", "XVIX", "MP4S", "M4S2", "MP4V", "DIV1",
+                 "UMP4", "SMP4")
+BMFF_CODECS = {"mp4v": "mpeg4", "jpeg": "mjpeg"}
+_VOP = b"\x00\x00\x01\xb6"
+_PROBE_PACKETS = 64  # packets whose VOP type is checked when a file opens
+_REFUSED_VOPS = {2: "B-VOPs (bidirectional prediction)",
+                 3: "S-VOPs (sprites and global motion compensation)"}
 _HEADER = struct.Struct("<4sI")
 _INDEX_HEADER = struct.Struct("<HBBI4sQI")  # OpenDML indx / ix## (24 bytes)
 _AVIIF_KEYFRAME = 0x10
@@ -63,14 +85,6 @@ _INT_MAX = 2**31 - 1
 
 class UnsupportedVideo(RuntimeError):
     """A video the port's reader does not decode (it needs OpenCV)."""
-
-
-@dataclass(frozen=True)
-class _Frame:
-    pos: int  # the chunk header's offset in the file
-    size: int
-    pts: int  # in frame periods: every chunk of the stream before it counts one
-    key: bool
 
 
 def _fourcc(b: Optional[bytes]) -> str:
@@ -90,75 +104,242 @@ def sniff(path: str) -> Tuple[str, str]:
         form = head[8:12].decode("latin-1").strip()
         m = re.search(rb"strh.{4}vids.{0,120}?strf.{4}.{16}(.{4})", head, re.S)
         return f"RIFF {form}", _fourcc(m.group(1) if m else None)
-    if head[4:8] == b"ftyp":
-        return "ISO BMFF (ftyp)", _fourcc(_bmff_video_fourcc(head))
+    if head[4:8] in _BMFF_TOP:
+        with open(path, "rb") as f:
+            fourcc = bmff.video_fourcc(f, os.fstat(f.fileno()).st_size)
+        return "ISO BMFF (MP4/QuickTime)", _fourcc(fourcc.encode("latin-1") if fourcc else None)
     if head[:4] == b"\x1a\x45\xdf\xa3":
         m = re.search(rb"\x86[\x81-\xbf](V_[\x21-\x7e]*)", head)
         return "Matroska", m.group(1).decode() if m else "unknown"
     return "unknown", "unknown"
 
 
-def _bmff_video_fourcc(data: bytes) -> Optional[bytes]:
-    """The sample entry type of the first track whose handler is ``vide``
-    (moov/trak/mdia/{hdlr, minf/stbl/stsd})."""
-
-    def boxes(start, end):
-        pos = start
-        while pos + 8 <= end:
-            size, typ = struct.unpack_from(">I4s", data, pos)
-            hdr = 8
-            if size == 1 and pos + 16 <= end:
-                size, hdr = struct.unpack_from(">Q", data, pos + 8)[0], 16
-            elif size == 0:
-                size = end - pos
-            if size < hdr:
-                return
-            yield typ, pos + hdr, min(pos + size, end)
-            pos += size
-
-    def find(start, end, path):
-        for typ, a, b in boxes(start, end):
-            if typ == path[0]:
-                return (a, b) if len(path) == 1 else find(a, b, path[1:])
-        return None
-
-    moov = find(0, len(data), (b"moov",))
-    if moov is None:
-        return None
-    for typ, a, b in boxes(*moov):
-        mdia = find(a, b, (b"mdia",)) if typ == b"trak" else None
-        hdlr = find(*mdia, (b"hdlr",)) if mdia else None
-        if hdlr and data[hdlr[0] + 8:hdlr[0] + 12] == b"vide":
-            stsd = find(*mdia, (b"minf", b"stbl", b"stsd"))
-            if stsd and stsd[0] + 16 <= stsd[1]:
-                return data[stsd[0] + 12:stsd[0] + 16]
-    return None
+_BMFF_TOP = (b"ftyp", b"moov", b"mdat", b"free", b"wide", b"skip")
 
 
 def _unsupported(path: str, why: str) -> UnsupportedVideo:
     container, fourcc = sniff(path)
     return UnsupportedVideo(
-        f"{path}: {container} container, video fourcc {fourcc}: {why}; only Motion-JPEG "
-        f"(MJPG) in AVI is read without OpenCV, so this file needs OpenCV (cv2)")
+        f"{path}: {container} container, video fourcc {fourcc}: {why}; without OpenCV the "
+        f"port reads Motion-JPEG and MPEG-4 Part 2 (Simple Profile, I/P) in AVI, MP4 and "
+        f"QuickTime, so this file needs OpenCV (cv2)")
 
 
-class AviReader:
-    """A Motion-JPEG AVI file, read frame by frame as ``cv2.VideoCapture``
-    (FFMPEG) reads it.  Raises OSError when the file cannot be read and
-    :class:`UnsupportedVideo` when it is not Motion-JPEG in AVI."""
+def open_reader(path: str) -> "_Reader":
+    """The port's reader of ``path``: AVI, then ISO BMFF.  OSError where the
+    file cannot be read, UnsupportedVideo where neither reader takes it."""
+    with open(path, "rb") as f:
+        head = f.read(12)
+    if head[:4] == b"RIFF":
+        return AviReader(path)
+    if head[4:8] in _BMFF_TOP:
+        return Mp4Reader(path)
+    raise _unsupported(path, "not an AVI, MP4 or QuickTime file")
+
+
+class _Reader:
+    """What the AVI and MP4 readers share: the frame list, the decoders,
+    reads and seeks.  A subclass's ``_parse`` sets ``frames``, ``fps``,
+    ``frame_count``, ``codec`` ("mjpeg" or "mpeg4"), ``fourcc``,
+    ``_time_base`` (seconds a pts unit), ``_start_time`` (the stream's
+    start_time, in pts units) and ``_extra`` (MPEG-4 headers carried
+    outside the packets)."""
+
+    _header_bytes = 0  # bytes before a frame's data at its pos
+    _seek_before_first_to_start = False  # mov: a seek before the first entry lands on it
 
     def __init__(self, path: str):
         self.path = path
         self._f = open(path, "rb")
+        self._decoder: Optional[Mpeg4Decoder] = None
         try:
             self._size = os.fstat(self._f.fileno()).st_size
+            self._extra = b""
             self._parse()
+            self._pts = [f.pts for f in self.frames]
+            if self.codec == "mpeg4":
+                self._open_mpeg4()
         except BaseException:
-            self._f.close()
+            self.release()
             raise
         self._next = 0  # the frame the next grab takes
         self._first_pts: Optional[int] = None  # of the first frame grabbed
         self._last_pts: Optional[int] = None
+
+    def _parse(self) -> None:
+        raise NotImplementedError
+
+    def _read(self, pos: int, n: int) -> bytes:
+        self._f.seek(pos)
+        return self._f.read(n)
+
+    def packet(self, i: int) -> bytes:
+        """The bytes of frame ``i`` (a JPEG, or MPEG-4 headers and a VOP)."""
+        f = self.frames[i]
+        return self._read(f.pos + self._header_bytes, f.size)
+
+    def _open_mpeg4(self) -> None:
+        """The decoder, given the VOL headers (the esds's, or those before
+        the first VOP of the first frame); the VOP types of the first
+        frames are checked so that B- and S-VOPs are refused here."""
+        extra = self._extra
+        if not extra and self.frames:
+            first = self.packet(0)
+            at = first.find(_VOP)
+            extra = first[:at] if at >= 0 else first
+        try:
+            self._decoder = Mpeg4Decoder(extra, self.fourcc, self.path)
+            for f in self.frames[:_PROBE_PACKETS]:
+                head = self._read(f.pos + self._header_bytes, min(f.size, 256))
+                at = head.find(_VOP)
+                refused = _REFUSED_VOPS.get(head[at + 4] >> 6) if 0 <= at < len(head) - 4 else None
+                if refused:
+                    raise Mpeg4Unsupported(refused)
+        except Mpeg4Unsupported as e:
+            raise _unsupported(self.path, f"MPEG-4 feature refused: {e}") from None
+        except ValueError as e:
+            raise _unsupported(self.path, f"MPEG-4 headers do not decode: {e}") from None
+
+    # --------------------------------------------------------------- frames
+
+    def _grab(self) -> Optional[bytes]:
+        """The next shown frame's bytes, or None at the end or where they do
+        not decode (FFMPEG's decode error); either way the frame is passed.
+        MPEG-4 packets go through the decoder here, so that a seek's grabs
+        keep its reference pictures."""
+        while self._next < len(self.frames):
+            f = self.frames[self._next]
+            self._next += 1
+            data = self.packet(self._next - 1)
+            try:
+                if self._decoder is None:
+                    jpeg_header(data)
+                    shown = True
+                else:
+                    shown = self._decoder.advance(data)
+            except Mpeg4Unsupported as e:
+                raise _unsupported(self.path, f"MPEG-4 feature refused: {e}") from None
+            except ValueError:
+                self._last_pts = None
+                return None
+            if not shown or f.discard:
+                continue
+            if self._first_pts is None:
+                self._first_pts = f.pts
+            self._last_pts = f.pts
+            return data
+        return None
+
+    def read(self) -> Tuple[bool, Optional[np.ndarray]]:
+        """``(True, bgr_u8)`` of the next frame, or ``(False, None)``."""
+        data = self._grab()
+        if data is None:
+            return False, None
+        if self._decoder is not None:
+            return True, self._decoder.picture()
+        try:
+            return True, decode_jpeg(data, name=f"{self.path} frame {self._next - 1}",
+                                     truncated_ok=True)
+        except ValueError:
+            return False, None
+
+    def _frame_number(self, pts: int) -> int:
+        """OpenCV's dts_to_frame_number."""
+        return int(self.fps * (pts - self._start_time) * self._time_base + 0.5)
+
+    def _seek_pts(self, pts: int) -> None:
+        """av_seek_frame(AVSEEK_FLAG_BACKWARD): to the last key frame at or
+        before ``pts``; where there is none the position stays (AVI) or, for
+        a time before the first frame's, goes to it (mov)."""
+        j = bisect.bisect_right(self._pts, pts) - 1
+        while j >= 0 and not self.frames[j].key:
+            j -= 1
+        if j >= 0:
+            self._next = j
+        elif self._seek_before_first_to_start and self._pts and pts < self._pts[0]:
+            self._next = 0
+
+    def set_pos(self, frame: int) -> bool:
+        """Seek so that the next read gives frame ``frame``, in
+        ``CvCapture_FFMPEG::seek``'s steps: the index clamped to
+        frame_count; a first frame grabbed if none was; a step back of 16
+        frames (then half as far again each time the landing is past the
+        target) by timestamp to a key frame, the decoder flushed, then
+        frames grabbed, counted one each, up to the one before the target.
+        Where a zero-length chunk lies before the step back's landing, or a
+        frame that does not decode in the frames grabbed, that lands
+        elsewhere, as in FFMPEG.  Returns True, as ``cap.set`` does."""
+        total = self.frame_count
+        target = max(0, min(int(frame), total))
+        if self._first_pts is None and total > 1:
+            self._grab()
+        delta = _SEEK_DELTA
+        while True:
+            back = max(target - delta, 0)
+            if total > 1:
+                self._seek_pts(self._start_time + int(back / self.fps / self._time_base + 0.5))
+            if self._decoder is not None:
+                self._decoder.flush()
+            if target == 0:
+                break
+            landed = self._grab() is not None
+            if target == 1:
+                break
+            at = (self._frame_number(self._last_pts) - self._frame_number(self._first_pts)
+                  if landed else -1)
+            if at < 0 or at > target - 1:
+                if back == 0 or delta >= _INT_MAX // 4:
+                    break
+                delta = delta * 2 if delta < 16 else delta * 3 // 2
+                continue
+            while at < target - 1 and self._grab() is not None:
+                at += 1
+            break
+        return True
+
+    def release(self) -> None:
+        self._f.close()
+        if self._decoder is not None:
+            self._decoder.close()
+
+
+class Mp4Reader(_Reader):
+    """An MP4 or QuickTime file of MPEG-4 Part 2 (``mp4v``) or Motion-JPEG
+    (``jpeg``) video, read frame by frame as ``cv2.VideoCapture`` (FFMPEG)
+    reads it.  Raises OSError when the file cannot be read and
+    :class:`UnsupportedVideo` for any other file."""
+
+    _seek_before_first_to_start = True
+
+    def _parse(self) -> None:
+        try:
+            track = bmff.parse(self._f, self._size)
+        except bmff.BmffRefused as e:
+            raise _unsupported(self.path, f"refused: {e}") from None
+        except (bmff.BmffError, struct.error, IndexError) as e:
+            raise _unsupported(self.path, f"not a readable MP4/QuickTime file: {e}") from None
+        self.fourcc = track.fourcc
+        self.codec = BMFF_CODECS.get(track.fourcc)
+        if self.codec is None:
+            raise _unsupported(self.path, "not MPEG-4 Part 2 (mp4v) or Motion-JPEG (jpeg)")
+        if self.codec == "mpeg4" and track.object_type != bmff.MP4_VISUAL:
+            raise _unsupported(self.path, f"esds object type {track.object_type} is not "
+                                          "MPEG-4 Part 2 video (0x20)")
+        self._time_base = 1.0 / track.timescale
+        self.fps = track.fps or float(track.timescale)
+        self.frame_count = track.frame_count
+        self._start_time = track.start_pts
+        self._extra = track.extra
+        self.frames = track.samples
+
+
+class AviReader(_Reader):
+    """A Motion-JPEG or MPEG-4 Part 2 AVI file, read frame by frame as
+    ``cv2.VideoCapture`` (FFMPEG) reads it.  Raises OSError when the file
+    cannot be read and :class:`UnsupportedVideo` for any other file."""
+
+    _header_bytes = 8
+
 
     # ------------------------------------------------------------ container
 
@@ -166,10 +347,6 @@ class AviReader:
         self._f.seek(pos)
         b = self._f.read(8)
         return _HEADER.unpack(b) if len(b) == 8 else (b"", -1)
-
-    def _read(self, pos: int, n: int) -> bytes:
-        self._f.seek(pos)
-        return self._f.read(n)
 
     def _walk(self, start: int, end: int):
         """(offset, fourcc, size) of each chunk from ``start`` to ``end``."""
@@ -213,8 +390,13 @@ class AviReader:
             raise _unsupported(self.path, "no video stream")
         strl, self._streams = strls[n], len(strls)
         codec = strl.get("strf", bytes(20))[16:20]
-        if codec not in MJPEG_FOURCCS:
-            raise _unsupported(self.path, "not Motion-JPEG")
+        self.fourcc = codec.decode("latin-1")
+        if codec in MJPEG_FOURCCS:
+            self.codec = "mjpeg"
+        elif self.fourcc.upper() in MPEG4_FOURCCS:
+            self.codec = "mpeg4"
+        else:
+            raise _unsupported(self.path, "not Motion-JPEG or MPEG-4 Part 2")
         if not self._movi:
             raise _unsupported(self.path, "no movi list")
         scale, rate, start, length = struct.unpack_from("<4I", strl["strh"], 20)
@@ -222,11 +404,11 @@ class AviReader:
             rate, scale = (1000000, frame_period) if frame_period else (25, 1)
         self.fps = rate / scale
         self._time_base = scale / rate
+        self._start_time = 0  # libavformat's stream start_time
         self.frame_count = length
         self._ids = (b"%02ddc" % n, b"%02ddb" % n)
         self._start = start
         self.frames = self._index(strl.get("indx"), idx1)
-        self._pts = [f.pts for f in self.frames]
 
     def _walk_strl(self, start: int, end: int):
         for at, fcc, size in self._walk(start, end):
@@ -237,7 +419,7 @@ class AviReader:
 
     # ---------------------------------------------------------------- index
 
-    def _index(self, indx, idx1) -> List[_Frame]:
+    def _index(self, indx, idx1) -> List[Sample]:
         entries = None
         if indx is not None:
             entries = self._odml_entries(*indx)
@@ -250,10 +432,10 @@ class AviReader:
         frames, pts, last = [], self._start, None
         for pos, size, key in entries:
             if size and pos != last:
-                frames.append(_Frame(pos, size, pts, key))
+                frames.append(Sample(pos, size, pts, key))
             pts, last = pts + 1, pos
         if frames and not any(f.key for f in frames):
-            frames[0] = _Frame(frames[0].pos, frames[0].size, frames[0].pts, True)
+            frames[0] = Sample(frames[0].pos, frames[0].size, frames[0].pts, True)
         # what follows the last indexed chunk is read on, as FFMPEG does
         tail = self._after(*entries[-1][:2]) if entries else self._movi[0][0] + 4
         return frames + self._scan(tail, pts)
@@ -337,7 +519,7 @@ class AviReader:
             self._stream_chunk(fcc) or fcc in (b"LIST", b"JUNK", b"idx1", b"indx", b"RIFF")
             or fcc[:2] == b"ix" or fcc[2:] == b"ix")
 
-    def _scan(self, start: int, pts: int) -> List[_Frame]:
+    def _scan(self, start: int, pts: int) -> List[Sample]:
         """The stream's chunks from ``start`` on, through every ``movi``
         list, in file order.  Bytes that are not a chunk are passed over a
         byte at a time, as libavformat's avi_sync does."""
@@ -356,7 +538,7 @@ class AviReader:
                     continue
                 if fcc in self._ids:
                     if size:
-                        frames.append(_Frame(pos, size, pts, True))
+                        frames.append(Sample(pos, size, pts, self._scanned_key(pos, size)))
                     pts += 1
                 pos = self._after(pos, size)
         return frames
@@ -369,85 +551,11 @@ class AviReader:
             return nxt
         return nxt + (size & 1)
 
-    # --------------------------------------------------------------- frames
-
-    def chunk(self, i: int) -> bytes:
-        """The JPEG bytes of frame ``i``."""
-        f = self.frames[i]
-        return self._read(f.pos + 8, f.size)
-
-    def _grab(self) -> Optional[bytes]:
-        """The next frame's bytes, or None at the end or where they are not
-        a JPEG (FFMPEG's decode error); either way the frame is passed."""
-        if self._next >= len(self.frames):
-            return None
-        f = self.frames[self._next]
-        self._next += 1
-        data = self.chunk(self._next - 1)
-        try:
-            jpeg_header(data)
-        except ValueError:
-            self._last_pts = None
-            return None
-        if self._first_pts is None:
-            self._first_pts = f.pts
-        self._last_pts = f.pts
-        return data
-
-    def read(self) -> Tuple[bool, Optional[np.ndarray]]:
-        """``(True, bgr_u8)`` of the next frame, or ``(False, None)``."""
-        data = self._grab()
-        if data is None:
-            return False, None
-        try:
-            return True, decode_jpeg(data, name=f"{self.path} frame {self._next - 1}",
-                                     truncated_ok=True)
-        except ValueError:
-            return False, None
-
-    def _seek_pts(self, pts: int) -> None:
-        """av_seek_frame(AVSEEK_FLAG_BACKWARD): to the last key frame at or
-        before ``pts``; where there is none the position stays."""
-        j = bisect.bisect_right(self._pts, pts) - 1
-        while j >= 0 and not self.frames[j].key:
-            j -= 1
-        if j >= 0:
-            self._next = j
-
-    def set_pos(self, frame: int) -> bool:
-        """Seek so that the next read gives frame ``frame``, in
-        ``CvCapture_FFMPEG::seek``'s steps: the index clamped to
-        frame_count; a first frame grabbed if none was; a step back of 16
-        frames (then half as far again each time the landing is past the
-        target) by timestamp to a key frame, then frames grabbed, counted
-        one each, up to the one before the target.  Where
-        a zero-length chunk lies before the step back's landing, or a chunk
-        that is not a JPEG in the frames grabbed, that lands elsewhere, as in
-        FFMPEG.  Returns True, as ``cap.set`` does."""
-        total = self.frame_count
-        target = max(0, min(int(frame), total))
-        if self._first_pts is None and total > 1:
-            self._grab()
-        delta = _SEEK_DELTA
-        while True:
-            back = max(target - delta, 0)
-            if total > 1:  # libavformat's stream start_time is 0
-                self._seek_pts(int(back / self.fps / self._time_base + 0.5))
-            if target == 0:
-                break
-            landed = self._grab() is not None
-            if target == 1:
-                break
-            at = self._last_pts - self._first_pts if landed else -1
-            if at < 0 or at > target - 1:
-                if back == 0 or delta >= _INT_MAX // 4:
-                    break
-                delta = delta * 2 if delta < 16 else delta * 3 // 2
-                continue
-            while at < target - 1 and self._grab() is not None:
-                at += 1
-            break
-        return True
-
-    def release(self) -> None:
-        self._f.close()
+    def _scanned_key(self, pos: int, size: int) -> bool:
+        """A chunk found by the scan: a key frame, unless it is an MPEG-4
+        chunk whose VOP is not intra (libavformat checks the VOP type)."""
+        if self.codec != "mpeg4":
+            return True
+        head = self._read(pos + 8, min(size, 256))
+        at = head.find(_VOP)
+        return not (0 <= at < len(head) - 4 and head[at + 4] & 0xC0)

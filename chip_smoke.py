@@ -31,15 +31,20 @@ Phases, each of which raises (non-zero exit) on failure:
                tests/test_torch_text.py holds against cv2.putText, and the
                pipeline's _overlay_text on a 1280x720 frame: first call and
                the median ms of 50; the hand kernels' counters read 0.
-   video     - the port's Motion-JPEG AVI reader (pipeline/video.py), cv2
-               blocked: every crafted layout of tests/avi_cases.py written
-               around the port's q95 JPEGs and read through
-               runner.frame_source: frame count, fps, the frames read from
-               the start, after each start_frame and after each ui seek,
-               and the sha256 of the decoded frames equal to the results
-               tests/test_torch_video.py pins against the JAX package's
-               reader (cv2.VideoCapture, FFMPEG); the hand kernels'
-               counters read 0.
+   video     - the port's video readers (pipeline/video.py, bmff.py,
+               mpeg4.py), cv2 blocked: every crafted Motion-JPEG AVI of
+               tests/avi_cases.py written around the port's q95 JPEGs, then
+               the clips of tests/mp4_cases.py that cv2's writers wrote
+               (MPEG-4 Part 2 in MP4, QuickTime, XVID and DIVX AVI;
+               Motion-JPEG in QuickTime; tests/data) and its crafted MP4
+               layouts, read through runner.frame_source: frame count, fps,
+               the frames read from the start, after each start_frame and
+               after each ui seek, and the sha256 of the decoded frames
+               equal to the results tests/test_torch_video.py and
+               tests/test_torch_mp4.py pin against the JAX package's reader
+               (cv2.VideoCapture, FFMPEG); the MPEG-4 decoder's g++ build
+               time (csrc/mpeg4_video.cpp); the hand kernels' counters
+               read 0.
 3. kernels   - each hand-written kernel against its plain PyTorch version on
                the card, at the estimators' shapes (COCO 1 and 3 scales, MPI,
                small and ragged), at the estimator's input (the 18-channel
@@ -135,7 +140,17 @@ Phases, each of which raises (non-zero exit) on failure:
                the directory run's (K1 4, K4 4), FPS beside the
                directory's; --start_frame 3 writes frame000003-7, equal to
                the first run's; the host ms a frame of the container read
-               (AviReader.chunk) and of the decode apart.
+               (AviReader.packet) and of the decode apart.  Then rtpose
+               --video on the committed MPEG-4 clip tests/data/
+               mp4v_720p.mp4 (8 1280x720 frames, cv2's mp4v writer), in
+               turns with the port's decodes of its frames as q95 JPEGs in
+               a directory and in an AVI (dir, avi, mp4, dir, avi, mp4):
+               the decoded frames' digest equal to cv2's (pinned), every
+               mp4 JSON equal to estimate() on the port's decode of its
+               frame, launches equal to the directory run's (K1 4, K4 4),
+               --start_frame 3 (a P-frame) equal to the first run's, FPS
+               of each, and the host ms a frame of the container read and
+               of the MPEG-4 decode apart.
    serving   - serving bundles (serving.py): the bf16 batch-8 estimator
                built from those files, exported (time, file sizes), loaded
                cold as an ExportedPose (time) with the kernel counters zeroed
@@ -952,18 +967,43 @@ def avi_cases_module():
     return avi_cases
 
 
+def mp4_cases_module():
+    """tests/mp4_cases.py: the MPEG-4 and MP4 clips cv2's writers wrote
+    (tests/data), the crafted MP4 layouts and the results
+    tests/test_torch_mp4.py pins against the JAX package's reader (numpy
+    only)."""
+    jpeg_frames_module()  # puts tests/ on the path
+    import mp4_cases
+
+    return mp4_cases
+
+
+def read_frames(reader):
+    frames = []
+    while True:
+        ok, img = reader.read()
+        if not ok:
+            return frames
+        frames.append(img)
+
+
 def phase_video(card):
-    """The port's Motion-JPEG AVI reader on the card's host, cv2 blocked:
-    each case of tests/avi_cases.py built around encode_jpeg's q95 frames,
-    its frame count, fps, reads, seeks and frame digest held to the pins
-    taken from the JAX package's reader.  It launches none of K1-K4."""
+    """The port's video readers on the card's host, cv2 blocked: each
+    Motion-JPEG AVI of tests/avi_cases.py built around encode_jpeg's q95
+    frames, then each clip of tests/mp4_cases.py (MPEG-4 Part 2 in MP4,
+    QuickTime and AVI, Motion-JPEG in QuickTime) and each crafted MP4 layout
+    built around mp4v.mp4's samples: frame count, fps, reads, seeks and
+    frame digest held to the pins taken from the JAX package's reader (the
+    MPEG-4 digests are cv2's frames).  The MPEG-4 decoder's g++ build
+    (csrc/mpeg4_video.cpp) is timed.  It launches none of K1-K4."""
     import os
 
-    from caffe_rtpose_tpu_torch.pipeline import runner, video
+    from caffe_rtpose_tpu_torch.pipeline import mpeg4, runner, video
     from caffe_rtpose_tpu_torch.pipeline.jpeg import encode_jpeg
 
     tag = "[video]"
     cases = avi_cases_module()
+    m4 = mp4_cases_module()
     zero_counts()
     differ = {}
     with no_cv2(), tempfile.TemporaryDirectory(prefix="chip_smoke_video_") as work:
@@ -974,12 +1014,7 @@ def phase_video(card):
             with open(path, "wb") as f:
                 f.write(data)
             reader = video.AviReader(path)
-            frames = []
-            while True:
-                ok, img = reader.read()
-                if not ok:
-                    break
-                frames.append(img)
+            frames = read_frames(reader)
             reader.release()
             got = dict(count=reader.frame_count, fps=reader.fps, sha256=cases.sha256(frames),
                        **cases.observe(runner, path, sources, cases.seeks(name)))
@@ -988,15 +1023,43 @@ def phase_video(card):
             if bad:
                 differ[name] = {k: (got[k], pin[k]) for k in bad}
         secs = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mpeg4.load()
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for name in [*m4.CLIPS, *m4.CASES]:
+            if name in m4.CLIPS:
+                path, sources = m4.clip_path(name), m4.sources(name)
+            else:
+                path, sources = os.path.join(work, name + ".mp4"), m4.case_sources(name)
+                with open(path, "wb") as f:
+                    f.write(m4.build(name))
+            reader = video.open_reader(path)
+            frames = read_frames(reader)
+            reader.release()
+            pin = m4.PINNED[name]
+            got = dict(count=reader.frame_count, fps=reader.fps, sha256=cases.sha256(frames))
+            if "order" in pin:
+                got.update(cases.observe(runner, path, sources, m4.SEEKS))
+            bad = [k for k in pin if got[k] != pin[k]]
+            if bad:
+                differ[name] = {k: (got[k], pin[k]) for k in bad}
+        mp4_secs = time.perf_counter() - t0
     counts = read_counts()
     print(f"{tag} {len(cases.CASES)} crafted Motion-JPEG AVIs ({', '.join(cases.CASES)}), cv2 "
           f"blocked: frame count, fps, reads, start_frame and ui seeks and frame digests "
           f"{'equal' if not differ else 'DIFFER from'} those pinned from the JAX package's "
           f"reader, in {secs:.2f} s; hand-kernel launches {counts}; {card}")
-    check(not differ, f"{tag} the reader differs from the pins: {differ}")
+    print(f"{tag} MPEG-4 decoder g++ build (csrc/mpeg4_video.cpp) {build_s:.2f} s; "
+          f"{len(m4.CLIPS)} clips cv2's writers wrote ({', '.join(m4.CLIPS)}) and "
+          f"{len(m4.CASES)} crafted MP4 layouts ({', '.join(m4.CASES)}), cv2 blocked: count, "
+          f"fps, reads, seeks and frame digests {'equal' if not differ else 'DIFFER from'} the "
+          f"pins, in {mp4_secs:.2f} s; {card}")
+    check(not differ, f"{tag} the readers differ from the pins: {differ}")
     check(not any(counts.values()), f"{tag} launched hand kernels: {counts}")
-    return dict(cases=len(cases.CASES), pins_equal=not differ, seconds=secs,
-                hand_kernel_launches=counts, card=card)
+    return dict(cases=len(cases.CASES), mp4_files=len(m4.CLIPS) + len(m4.CASES),
+                pins_equal=not differ, seconds=secs, mp4_seconds=mp4_secs,
+                mpeg4_build_s=build_s, hand_kernel_launches=counts, card=card)
 
 
 def phase_train_clahe(device="cuda"):
@@ -2815,6 +2878,35 @@ def rtpose_run(tag, files, source, out_dir, w, h, extra=()):
                 seconds=secs, launches=launches)
 
 
+def jsons_equal_estimate(tag, files, extra, images, json_dir, names, what):
+    """Each rtpose JSON ``json_dir/names[i]`` equals write_json_file of
+    estimate() on ``images[i]``, by the bf16 estimator built from the model
+    files at the run's --net_resolution and --device (``extra``); ``what``
+    names the images in a failure."""
+    import os
+
+    import torch
+
+    from caffe_rtpose_tpu_torch.pipeline.runner import write_json_file
+    from caffe_rtpose_tpu_torch.pose.estimator import PoseEstimator
+
+    def flag(name, default):
+        return extra[extra.index(name) + 1] if name in extra else default
+
+    est = PoseEstimator(files["proto"], weights=files["model"], input_u8=True, pair_cap=32,
+                        net_resolution=tuple(int(v) for v in flag("--net_resolution",
+                                                                  "656x368").split("x")),
+                        dtype=torch.bfloat16, device=flag("--device", "cuda"))
+    ref = os.path.join(os.path.dirname(json_dir), "ref.json")
+    h, w = images[0].shape[:2]
+    for img, name in zip(images, names):
+        res, pf = est.estimate(img, w, h)
+        write_json_file(ref, res.joints, res.num_people, float(np.float32(pf.scale)),
+                        est.num_parts)
+        with open(os.path.join(json_dir, name)) as a, open(ref) as b:
+            check(a.read() == b.read(), f"{tag} {name} differs from estimate() on {what}")
+
+
 def phase_cli_video(files, images, extra=()):
     """rtpose --video on ``images`` as q95 JPEGs (encode_jpeg) in a
     Motion-JPEG AVI, in turns with the same JPEGs as a directory (dir,
@@ -2827,12 +2919,8 @@ def phase_cli_video(files, images, extra=()):
     --net_resolution the estimate() estimator takes too."""
     import os
 
-    import torch
-
     from caffe_rtpose_tpu_torch.pipeline import video
     from caffe_rtpose_tpu_torch.pipeline.jpeg import decode_jpeg, encode_jpeg
-    from caffe_rtpose_tpu_torch.pipeline.runner import write_json_file
-    from caffe_rtpose_tpu_torch.pose.estimator import PoseEstimator
 
     tag = "[cli video]"
     cases = avi_cases_module()
@@ -2868,28 +2956,14 @@ def phase_cli_video(files, images, extra=()):
         with open(os.path.join(work, "json1", name)) as a, \
                 open(os.path.join(work, "json_s3", name)) as b:
             check(a.read() == b.read(), f"{tag} --start_frame 3's {name} differs")
-    def flag(name, default):
-        return extra[extra.index(name) + 1] if name in extra else default
-
-    est = PoseEstimator(files["proto"], weights=files["model"], input_u8=True, pair_cap=32,
-                        net_resolution=tuple(int(v) for v in flag("--net_resolution",
-                                                                  "656x368").split("x")),
-                        dtype=torch.bfloat16, device=flag("--device", "cuda"))
-    ref = os.path.join(work, "ref.json")
-    for i, data in enumerate(jpegs):
-        res, pf = est.estimate(decode_jpeg(data), w, h)
-        write_json_file(ref, res.joints, res.num_people, float(np.float32(pf.scale)),
-                        est.num_parts)
-        with open(os.path.join(work, "json1", names[i])) as a, open(ref) as b:
-            check(a.read() == b.read(), f"{tag} {names[i]} differs from estimate() on "
-                                        "decode_jpeg of its frame")
-    del est
+    jsons_equal_estimate(tag, files, extra, [decode_jpeg(d) for d in jpegs],
+                         os.path.join(work, "json1"), names, "decode_jpeg of its frame")
     reader = video.AviReader(clip)
     read_ms, decode_ms = [], []
     for _ in range(CLI_VIDEO_REPS):
         for i in range(len(reader.frames)):
             t0 = time.perf_counter()
-            data = reader.chunk(i)
+            data = reader.packet(i)
             t1 = time.perf_counter()
             decode_jpeg(data)
             read_ms.append((t1 - t0) * 1000.0)
@@ -2906,6 +2980,97 @@ def phase_cli_video(files, images, extra=()):
                                    fps=seek["fps"]),
                 read_ms=statistics.median(read_ms), decode_ms=statistics.median(decode_ms),
                 bytes_a_frame=sum(map(len, jpegs)) / n, seconds=[r["seconds"] for _, r in runs])
+
+
+def phase_cli_mp4(files, extra=()):
+    """rtpose --video on the committed MPEG-4 clip tests/data/mp4v_720p.mp4
+    (the 8 1280x720 frames of jpeg_frames.frame, written by cv2's mp4v
+    writer), cv2 blocked, in turns with the port's decodes of those frames
+    as q95 JPEGs in a directory and in a Motion-JPEG AVI (dir, avi, mp4,
+    dir, avi, mp4), then --start_frame 3 (a P-frame: the seek decodes on
+    from the I-frame).  The decoded frames' digest equals the pin (cv2's
+    frames); every JSON of the mp4 runs equals estimate() on the port's
+    decode of its frame, the --start_frame run's the first run's; launches
+    equal the directory run's.  FPS of each run, and the host ms a frame of
+    the container read and of the MPEG-4 decode (VOP decode and BGR
+    conversion) apart, median over the frames decoded in order 3 times."""
+    import os
+
+    from caffe_rtpose_tpu_torch.pipeline import video
+    from caffe_rtpose_tpu_torch.pipeline.jpeg import encode_jpeg
+    from caffe_rtpose_tpu_torch.pipeline.mpeg4 import Mpeg4Decoder
+
+    tag = "[cli mp4]"
+    cases, m4 = avi_cases_module(), mp4_cases_module()
+    clip = m4.clip_path("mp4v_720p")
+    with no_cv2():
+        reader = video.open_reader(clip)
+        images = read_frames(reader)
+        reader.release()
+    check(cases.sha256(images) == m4.PINNED["mp4v_720p"]["sha256"],
+          f"{tag} the decoded frames differ from cv2's (the pinned digest)")
+    work = tempfile.mkdtemp(prefix="chip_smoke_cli_mp4_")
+    h, w = images[0].shape[:2]
+    n = len(images)
+    jpegs = [encode_jpeg(f, 95) for f in images]
+    img_dir, avi = os.path.join(work, "img"), os.path.join(work, "clip.avi")
+    os.makedirs(img_dir)
+    for i, data in enumerate(jpegs):
+        with open(os.path.join(img_dir, f"f{i:02d}.jpg"), "wb") as f:
+            f.write(data)
+    with open(avi, "wb") as f:
+        f.write(cases.write_avi(jpegs, w, h))
+    sources = {"dir": ("--image_dir", img_dir), "avi": ("--video", avi), "mp4": ("--video", clip)}
+    runs = []
+    for k, kind in enumerate(("dir", "avi", "mp4") * 2):
+        runs.append((kind, rtpose_run(f"{tag} {kind}", files, sources[kind],
+                                      os.path.join(work, f"json{k}"), w, h, extra)))
+    seek = rtpose_run(f"{tag} start 3", files, sources["mp4"], os.path.join(work, "json_s3"),
+                      w, h, ("--start_frame", "3", *extra))
+    names = [f"frame{i:06d}.json" for i in range(n)]
+    for kind, r in runs:
+        check(r["files"] == (names if kind != "dir" else [f"f{i:02d}.json" for i in range(n)]),
+              f"{tag} {kind} wrote {r['files']}")
+        check(r["launches"] == runs[0][1]["launches"], f"{tag} {kind} launches {r['launches']} "
+                                                       f"against {runs[0][1]['launches']}")
+    first = runs[2][1]
+    check(first["launches"]["conv1_block"] > 0 and first["launches"]["peak_mask_fused"] > 0,
+          f"{tag} a hand kernel of the path never launched: {first['launches']}")
+    check(seek["files"] == names[3:], f"{tag} --start_frame 3 wrote {seek['files']}")
+    for name in seek["files"]:
+        with open(os.path.join(work, "json2", name)) as a, \
+                open(os.path.join(work, "json_s3", name)) as b:
+            check(a.read() == b.read(), f"{tag} --start_frame 3's {name} differs")
+    jsons_equal_estimate(tag, files, extra, images, os.path.join(work, "json2"), names,
+                         "the port's decode of its frame")
+    reader = video.open_reader(clip)
+    read_ms, decode_ms = [], []
+    for _ in range(CLI_VIDEO_REPS):
+        dec = Mpeg4Decoder(reader._extra, reader.fourcc, clip)
+        for i in range(len(reader.frames)):
+            t0 = time.perf_counter()
+            data = reader.packet(i)
+            t1 = time.perf_counter()
+            dec.decode(data)
+            read_ms.append((t1 - t0) * 1000.0)
+            decode_ms.append((time.perf_counter() - t1) * 1000.0)
+        dec.close()
+    reader.release()
+    fps = {kind: [r["fps"] for k, r in runs if k == kind] for kind in ("dir", "avi", "mp4")}
+    print(f"{tag} decoded frames equal cv2's (pinned digest); every mp4 JSON equals estimate() "
+          f"on the port's decode of its frame; --start_frame 3 wrote {len(seek['files'])} files "
+          f"equal to the first run's; FPS over {n} {w}x{h} frames: mp4 {fps['mp4']}, avi "
+          f"{fps['avi']}, directory {fps['dir']} (in turns); host ms a frame (median of "
+          f"{len(read_ms)}): container read {statistics.median(read_ms):.4f}, MPEG-4 decode "
+          f"{statistics.median(decode_ms):.3f} (range {min(decode_ms):.3f}-{max(decode_ms):.3f}; "
+          f"{os.path.getsize(clip) // n} B a frame)")
+    return dict(fps_mp4=fps["mp4"], fps_avi=fps["avi"], fps_dir=fps["dir"],
+                launches=first["launches"],
+                start_frame_3=dict(files=len(seek["files"]), launches=seek["launches"],
+                                   fps=seek["fps"]),
+                read_ms=statistics.median(read_ms), decode_ms=statistics.median(decode_ms),
+                decode_ms_range=[min(decode_ms), max(decode_ms)],
+                bytes_a_frame=os.path.getsize(clip) / n, seconds=[r["seconds"] for _, r in runs])
 
 
 def bundle_sizes(path):
@@ -5296,6 +5461,11 @@ def main() -> int:
         check(cli_video["launches"] == cli_720p["launches"],
               f"[cli video] hand-kernel launches {cli_video['launches']} against the PNG "
               f"run's {cli_720p['launches']}")
+        # the committed MPEG-4 clip through rtpose --video
+        cli_mp4 = phase_cli_mp4(files)
+        check(cli_mp4["launches"] == cli_720p["launches"],
+              f"[cli mp4] hand-kernel launches {cli_mp4['launches']} against the PNG "
+              f"run's {cli_720p['launches']}")
         serving, serving_est, serving_graph = phase_serving(weights, files, cli, work)
         pool = phase_pool(serving_est)
         del serving_est
@@ -5354,6 +5524,7 @@ def main() -> int:
     print(json.dumps({"text": text}))
     print(json.dumps({"video": vid}))
     print(json.dumps({"cli_video": cli_video}))
+    print(json.dumps({"cli_mp4": cli_mp4}))
     print(json.dumps({"serving": serving}))
     print(json.dumps({"pool": pool}))
     print(json.dumps({"eval": evaluation}))
@@ -5391,6 +5562,7 @@ def main() -> int:
                                 cli_720p_text["launches"]["peak_mask_fused"], None),
                             "cli 1280x720 video": (cli_video["launches"]["peak_mask_fused"],
                                                    None),
+                            "cli 1280x720 mp4": (cli_mp4["launches"]["peak_mask_fused"], None),
                             **{f"{path} (by rank)": (v, None) for path, v in
                                parallel["k1_launches_by_path"].items()}},
         "peak_mask_fused_3scale": {"slice 3-scale": (three["launches"], None),
@@ -5409,7 +5581,8 @@ def main() -> int:
                         "cli 1280x720 jpeg": (cli_720p_jpeg["launches"]["conv1_block"], None),
                         "cli 1280x720 jpeg text": (cli_720p_text["launches"]["conv1_block"],
                                                    None),
-                        "cli 1280x720 video": (cli_video["launches"]["conv1_block"], None)},
+                        "cli 1280x720 video": (cli_video["launches"]["conv1_block"], None),
+                        "cli 1280x720 mp4": (cli_mp4["launches"]["conv1_block"], None)},
     }
     entries = [
         ("peak_mask_fused", mask_src, f"{mask_pallas}:136", pipeline["launches"]["peak_mask_fused"],

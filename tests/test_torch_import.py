@@ -33,6 +33,8 @@ SLICE_MODULES = [
     "caffe_rtpose_tpu_torch.pipeline.queues",
     "caffe_rtpose_tpu_torch.pipeline.runner",
     "caffe_rtpose_tpu_torch.pipeline.video",
+    "caffe_rtpose_tpu_torch.pipeline.bmff",
+    "caffe_rtpose_tpu_torch.pipeline.mpeg4",
     "caffe_rtpose_tpu_torch.tools.rtpose",
     "caffe_rtpose_tpu_torch.__main__",
     "caffe_rtpose_tpu_torch.proto",
@@ -133,7 +135,7 @@ TEXT_RUN = (
     "assert len(np.unique(img[..., 0])) > 100\n")
 
 # the only modules of the port whose source imports OpenCV (for the camera,
-# the window and videos other than MJPEG AVI, and Datums neither PNG nor JPEG)
+# the window and videos the port's readers refuse, and Datums neither PNG nor JPEG)
 CV2_MODULES = {os.path.join("pipeline", "runner.py"), os.path.join("proto", "datum.py")}
 
 

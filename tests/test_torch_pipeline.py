@@ -338,7 +338,9 @@ def test_options_that_need_what_is_not_ported_or_cv2(est, tmp_path, monkeypatch)
     for the JAX runner's overlay on the same rendered canvas (its fps label
     fixed by fixing _emit_times in both runners).  A Motion-JPEG AVI runs
     end to end without cv2 (each JSON equal to estimate() on the frame
-    CAP_OPENCV_MJPEG reads, libjpeg's pixels); another video still stops at
+    CAP_OPENCV_MJPEG reads, libjpeg's pixels), and so does an mp4v MP4 (each
+    JSON equal to estimate() on cv2's frame, which the port's MPEG-4 decoder
+    gives bit for bit); a video the port refuses (FFV1) still stops at
     construction naming --video."""
     from caffe_rtpose_tpu_torch.parallel.inference import DevicePool
     from caffe_rtpose_tpu_torch.pipeline import runner
@@ -351,30 +353,34 @@ def test_options_that_need_what_is_not_ported_or_cv2(est, tmp_path, monkeypatch)
     d.mkdir()
     for i, img in enumerate(_frames(0, 2)):
         cv2.imwrite(str(d / f"f{i}.jpg"), img)
-    clip, other = str(tmp_path / "clip.avi"), str(tmp_path / "clip.mp4")
+    clip, other = str(tmp_path / "clip.avi"), str(tmp_path / "clip_ffv1.avi")
+    mp4 = str(tmp_path / "clip.mp4")
     for path, api, fourcc in ((clip, cv2.CAP_OPENCV_MJPEG, "MJPG"),
-                              (other, cv2.CAP_FFMPEG, "mp4v")):
+                              (other, cv2.CAP_FFMPEG, "FFV1"), (mp4, cv2.CAP_FFMPEG, "mp4v")):
         w = cv2.VideoWriter(path, api, cv2.VideoWriter_fourcc(*fourcc), 10, RES)
         for img in _frames(1, 2):
             w.write(img)
         w.release()
     cap = cv2.VideoCapture(clip, cv2.CAP_OPENCV_MJPEG)
     clip_frames = [cap.read()[1] for _ in range(2)]
+    cap = cv2.VideoCapture(mp4)
+    mp4_frames = [cap.read()[1] for _ in range(2)]
     monkeypatch.setitem(sys.modules, "cv2", None)
     for kw, name in ((dict(video=other), "--video"),
                      (dict(no_display=False), "display")):
         with pytest.raises(RuntimeError, match=name):
             RtPosePipeline(est, PipelineConfig(**kw))
-    out = tmp_path / "video_json"
-    cfg = PipelineConfig(video=clip, resolution=RES, net_resolution=RES, no_display=True,
-                         write_json=str(out), no_frame_drops=True)
-    assert RtPosePipeline(est, cfg).run() == 2
-    assert sorted(os.listdir(out)) == ["frame000000.json", "frame000001.json"]
-    for i, frame in enumerate(clip_frames):
-        res, pf = est.estimate(frame, *RES)
-        write_json_file(str(tmp_path / "ref.json"), res.joints, res.num_people,
-                        float(np.float32(pf.scale)), est.num_parts)
-        assert (out / f"frame{i:06d}.json").read_text() == (tmp_path / "ref.json").read_text()
+    for video, frames in ((clip, clip_frames), (mp4, mp4_frames)):
+        out = tmp_path / f"video_json_{os.path.basename(video)}"
+        cfg = PipelineConfig(video=video, resolution=RES, net_resolution=RES, no_display=True,
+                             write_json=str(out), no_frame_drops=True)
+        assert RtPosePipeline(est, cfg).run() == 2
+        assert sorted(os.listdir(out)) == ["frame000000.json", "frame000001.json"]
+        for i, frame in enumerate(frames):
+            res, pf = est.estimate(frame, *RES)
+            write_json_file(str(tmp_path / "ref.json"), res.joints, res.num_people,
+                            float(np.float32(pf.scale)), est.num_parts)
+            assert (out / f"frame{i:06d}.json").read_text() == (tmp_path / "ref.json").read_text()
     RtPosePipeline(est, PipelineConfig(write_frames=str(tmp_path / "w")))  # text: no cv2
     with pytest.raises(RuntimeError, match="--camera"):
         RtPosePipeline(est, PipelineConfig()).run()

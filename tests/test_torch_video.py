@@ -11,8 +11,9 @@ backend (FFMPEG) inside ``caffe_rtpose_tpu.pipeline.runner.frame_source``:
     for the crafted layouts, live for the writers' clips;
 (c) ROADMAP C9, FFMPEG's pixels against libjpeg's, measured and held to
     its documented bound;
-(d) without cv2 an MJPEG AVI reads, and other videos raise naming the
-    container, the fourcc and OpenCV (with cv2 they go to OpenCV).
+(d) without cv2 an MJPEG AVI reads, and videos the port's readers refuse
+    raise naming the container, the fourcc and OpenCV (with cv2 they go to
+    OpenCV).
 """
 
 import itertools
@@ -234,9 +235,10 @@ def test_mjpeg_avi_reads_without_cv2(cases, monkeypatch):
     assert A.sha256(got) == A.PINNED["odml"]["sha256"]
 
 
-@pytest.mark.parametrize("kind", ["h264_avi", "avc1_mp4", "mp4v_mp4", "ffv1_mkv"])
+@pytest.mark.parametrize("kind", ["h264_avi", "avc1_mp4", "ffv1_avi", "ffv1_mkv"])
 def test_other_videos_name_container_and_fourcc(kind, tmp_path, monkeypatch):
-    path = str(tmp_path / {"h264_avi": "a.avi", "ffv1_mkv": "a.mkv"}.get(kind, "a.mp4"))
+    path = str(tmp_path / {"h264_avi": "a.avi", "ffv1_avi": "b.avi",
+                           "ffv1_mkv": "a.mkv"}.get(kind, "a.mp4"))
     if kind == "h264_avi":
         with open(path, "wb") as f:
             f.write(A.write_avi([b"\x00\x00\x00\x01\x67" + bytes(40)] * 3, 64, 48,
@@ -245,19 +247,18 @@ def test_other_videos_name_container_and_fourcc(kind, tmp_path, monkeypatch):
         with open(path, "wb") as f:
             f.write(A.write_mp4(b"avc1"))
     else:
-        fourcc = "mp4v" if kind == "mp4v_mp4" else "FFV1"
-        w = cv2.VideoWriter(path, cv2.CAP_FFMPEG, cv2.VideoWriter_fourcc(*fourcc), 25, (64, 48))
+        w = cv2.VideoWriter(path, cv2.CAP_FFMPEG, cv2.VideoWriter_fourcc(*"FFV1"), 25, (64, 48))
         for i in range(3):
             w.write(np.full((48, 64, 3), 60 * i, np.uint8))
         w.release()
     container, fourcc = {"h264_avi": ("RIFF AVI", "H264"), "avc1_mp4": ("ISO BMFF", "avc1"),
-                         "mp4v_mp4": ("ISO BMFF", "mp4v"),
+                         "ffv1_avi": ("RIFF AVI", "FFV1"),
                          "ffv1_mkv": ("Matroska", "V_FFV1")}[kind]
     with pytest.raises(video.UnsupportedVideo) as e:
-        video.AviReader(path)
+        video.open_reader(path)
     for word in (path, container, fourcc, "OpenCV"):
         assert word in str(e.value)
-    if kind in ("mp4v_mp4", "ffv1_mkv"):  # with cv2, OpenCV reads them
+    if kind in ("ffv1_avi", "ffv1_mkv"):  # with cv2, OpenCV reads them
         cap = runner.open_video(path)
         assert isinstance(cap, runner._Cv2Capture) and cap.fps == 25.0
         got = [img for _, img, _ in frame_source(PipelineConfig(video=path, no_frame_drops=True),
