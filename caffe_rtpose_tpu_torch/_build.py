@@ -6,9 +6,11 @@
   into one shared library with a plain C interface, loaded with ctypes; the
   ``csrc/*.cuh`` headers they include count towards the hash.
   Missing ``nvcc`` or a failed build raises with the compiler's output.
-* ``build_library()``: the shared compile-and-cache step, also used by
-  ``native.py`` for the host assembly library and by ``pipeline/jpeg.py``
-  for the JPEG codec (``csrc/jpeg_codec.cpp``), both with g++.
+* ``build_library()``: the shared compile-and-cache step, also used with
+  g++ by ``native.py`` for the host assembly library and by the host codecs
+  (``pipeline/jpeg.py``, ``pipeline/mpeg4.py``, ``utils/text.py``); the
+  JPEG and MPEG-4 ones pass the header they share, ``csrc/ffmpeg_dsp.h``,
+  so that an edit of it rebuilds both.
 
 Libraries go to ``caffe_rtpose_tpu_torch/_build/`` (git-ignored); each file
 name carries a hash of its sources and flags, so a stale library is never

@@ -420,7 +420,7 @@ def _pad_batch(arr, batch):
 
 def load_image(path: str, color: bool = True) -> np.ndarray:
     """An RGB (or gray, (H, W, 1)) float image in [0, 1] (caffe.io.load_image);
-    read without OpenCV (PNG and BMP in numpy, JPEG by the port's codec)."""
+    read without OpenCV (PNG, BMP and PNM in numpy, JPEG by the port's codec)."""
     from .core.data_layers import read_image
 
     img = read_image(path, color)

@@ -13,6 +13,15 @@
 // Where a corrupt table sends coefficients out of 16 bits, the pixels are
 // libjpeg-turbo's C code's; its SIMD IDCT, which OpenCV runs, wraps there.
 //
+// Motion-JPEG mode (crt_mjpeg_*): the same parse and entropy decode, then
+// what FFmpeg's mjpeg decoder and swscale do for OpenCV's VideoCapture: the
+// DC predictor dequantized and started at the level shift (4 << 8), DC
+// clipped to int16, each restart interval read from its own data, FFmpeg's
+// simple IDCT into planes that outlive the frame (a cut scan leaves the
+// frame before's pixels), and swscale's YUV -> BGR24 (ffmpeg_dsp.h) for
+// 4:2:0 and 4:2:2 of even height, 4:4:4 and gray; other layouts take the
+// libjpeg arithmetic above.
+//
 // Encoder: what jpeg_set_defaults + jpeg_set_quality(q, TRUE) write for a
 // BGR (4:2:0) or gray image: JFIF APP0, the Annex K quantization and
 // Huffman tables, jccolor, h2v2_downsample, jpeg_fdct_islow and the
@@ -30,6 +39,8 @@
 #include <stdexcept>
 #include <string>
 #include <vector>
+
+#include "ffmpeg_dsp.h"
 
 namespace {
 
@@ -326,6 +337,7 @@ struct BitReader {
   uint64_t acc = 0;
   int cnt = 0, zeros = 0;
   bool stopped = false, at_end = false, short_data = false;
+  bool ff_tail = false;  // FFmpeg's unescaping: FF bytes that end the data are one data byte
   int marker = 0;
 
   BitReader(const uint8_t* data, size_t size, size_t start) : d(data), n(size), pos(start) {}
@@ -348,6 +360,10 @@ struct BitReader {
         while (q < n && d[q] == 0xFF) q++;
         if (q >= n) {
           pos = n;
+          if (ff_tail) {
+            acc = (acc << 8) | b;
+            cnt += 8;
+          }
           stopped = at_end = true;
           continue;
         }
@@ -445,6 +461,7 @@ struct Component {
   int wblocks = 0, hblocks = 0;  // width/height_in_blocks
   int bw = 0, bh = 0;            // allocated block grid (padded to whole MCUs)
   std::vector<int16_t> coef;     // bh * bw blocks of 64, natural order
+  std::vector<uint8_t> done;     // FFmpeg's mode: a block (its DC, when progressive) was decoded
   int16_t* block(int by, int bx) { return coef.data() + (size_t(by) * bw + bx) * 64; }
   // progressive status (jdphuff.c coef_bits): the Al each coefficient was
   // last coded at, -1 before any scan; and its value before the last scan
@@ -474,6 +491,8 @@ struct Decoder {
   int scans = 0;
   int last_good_row = 0;  // jdmaster.h last_good_iMCU_row: last begun with data left
   std::vector<uint8_t> with_eoi;
+  // FFmpeg's mjpeg decoder (crt_mjpeg_decode, for ffmpeg_layout()'s layouts)
+  bool ff = false, ff_ended = false, cs_itu601 = false;
 
   // `file`: read as imread's stdio source does, else as imdecode's buffer
   // (whose end is an error)
@@ -681,6 +700,10 @@ struct Decoder {
             parse_exif(d + pay, end - pay);
           }
           break;
+        case 0xFE:
+          // mjpegdec.c mjpeg_decode_com: this comment marks limited range
+          if (end - pay == 9 && std::memcmp(d + pay, "CS=ITU601", 9) == 0) cs_itu601 = true;
+          break;
         case 0xEE:
           if (end - pay >= 12 && std::memcmp(d + pay, "Adobe", 5) == 0) {
             saw_adobe = true;
@@ -690,10 +713,15 @@ struct Decoder {
         case 0xDA: {
           if (!have_frame) fail("SOS before the frame header");
           if (header_only) return;
-          if (scans == 0)
-            for (Component& c : comps) c.coef.assign(size_t(c.bw) * c.bh * 64, 0);
+          if (scans == 0) {
+            for (Component& c : comps) {
+              c.coef.assign(size_t(c.bw) * c.bh * 64, 0);
+              if (ff) c.done.assign(size_t(c.bw) * c.bh, 0);
+            }
+          }
           p = scan(pay, end);
           scans++;
+          if (ff_ended) return;
           // jdinput.c: a sequential first scan of every component is the
           // whole image, and OpenCV keeps it whatever follows (libjpeg's
           // errors on the way to EOI come after its last row)
@@ -773,7 +801,11 @@ struct Decoder {
     }
 
     BitReader br(d, n, end);
-    int pred[4] = {0, 0, 0, 0};
+    br.ff_tail = ff;
+    // FFmpeg's sequential DC predictor is dequantized and starts at the
+    // level shift, 4 << 8, at each scan and restart
+    const int dc0 = ff && !progressive ? 1024 : 0;
+    int pred[4] = {dc0, dc0, dc0, dc0};
     int eobrun = 0;
     int next_rst = 0;
     // the scan's MCUs: one block of one component, or every component's h x v
@@ -791,7 +823,21 @@ struct Decoder {
     for (int64_t m = 0; m < total; m++) {
       // jdcoefct.c: an iMCU row begun with no data missing is good
       if ((m == 0 || imcu_row(m) != imcu_row(m - 1)) && !br.short_data) last_good_row = imcu_row(m);
-      if (restart_interval && m > 0 && m % restart_interval == 0) {
+      if (restart_interval && m > 0 && m % restart_interval == 0 && ff) {
+        // mjpegdec.c reads each restart interval from the data up to the
+        // next marker, any RSTn, and past the end of the data from an empty
+        // buffer: its first MCU decodes from zero bits
+        int mk = br.take_marker();
+        if (mk < 0xD0 || mk > 0xD7) {
+          br.stopped = true;
+          br.at_end = mk < 0;
+          br.marker = mk;
+        }
+        br.short_data = false;
+        pred[0] = pred[1] = pred[2] = pred[3] = dc0;
+        eobrun = 0;
+      }
+      if (restart_interval && m > 0 && m % restart_interval == 0 && !ff) {
         // jdhuff.c process_restart, jdmarker.c read_restart_marker
         int mk = br.take_marker();
         const int want = 0xD0 + next_rst;
@@ -817,6 +863,12 @@ struct Decoder {
         pred[0] = pred[1] = pred[2] = pred[3] = 0;
         eobrun = 0;
       }
+      // mjpegdec.c: an MCU begun past the end of the data ends the scan,
+      // and the blocks not reached keep what the frame buffer held
+      if (ff && br.short_data) {
+        ff_ended = true;
+        break;
+      }
       if (br.short_data) {
         if (br.at_end) truncated_error();
         continue;  // libjpeg leaves the rest of the segment's blocks as they are
@@ -830,8 +882,9 @@ struct Decoder {
             int by = ns == 1 ? my : my * c.v + yy;
             int bx = ns == 1 ? mx : mx * c.h + xx;
             int16_t* blk = c.block(by, bx);
+            if (ff) c.done[size_t(by) * c.bw + bx] |= !progressive || (ss == 0 && !refine);
             if (!progressive) {
-              decode_block(br, blk, dc[td[i]], ac[ta[i]], pred[i]);
+              decode_block(br, blk, dc[td[i]], ac[ta[i]], pred[i], ff ? c.quant[0] : 0);
             } else if (ss == 0) {
               if (!refine) {
                 int s = decode_huff(br, dc[td[i]]);
@@ -850,17 +903,24 @@ struct Decoder {
         }
       }
     }
+    if (ff && (ff_ended || br.short_data || br.take_marker() < 0)) {
+      ff_ended = true;  // no marker follows: FFmpeg emulates the EOI
+      return n;
+    }
+    if (ff) return br.pos - 2;
     if (br.short_data && br.at_end) truncated_error();
     // back up to the marker that ends the scan
     if (br.take_marker() < 0) truncated_error();
     return br.pos - 2;
   }
 
+  // ff_q0: 0 for libjpeg's quantized DC; else FFmpeg's, dequantized by
+  // this DC quantizer and clipped to int16 (mjpegdec.c decode_block)
   static void decode_block(BitReader& br, int16_t* blk, const HuffTable& dct, const HuffTable& act,
-                           int& pred) {
+                           int& pred, int ff_q0) {
     int s = decode_huff(br, dct);
     if (s) s = extend(br.get(s), s);
-    pred += s;
+    pred = ff_q0 ? std::min(std::max(pred + s * ff_q0, -32768), 32767) : pred + s;
     blk[0] = int16_t(pred);
     for (int k = 1; k < 64; k++) {
       int rs = decode_huff(br, act);
@@ -1116,6 +1176,57 @@ struct Decoder {
         for (int x = 0; x < width; x++) out[size_t(y) * width + x] = uint8_t(in(y / ve, x / he));
     }
     return out;
+  }
+
+  // The layouts FFmpeg's arithmetic is followed for: what its mjpeg
+  // decoder gives swscale as yuvj420p or yuvj422p (yuv420p/yuv422p under a
+  // "CS=ITU601" comment) of even height, which swscale converts on its
+  // unscaled path (YCbCr with Y sampled 2x2 or 2x1, chroma 1x1); and
+  // yuvj444p and gray8 (every component 1x1), which its scaler converts
+  // with full chroma at 1:1.
+  bool ffmpeg_layout() const {
+    const Component& y = comps[0];
+    if (comps.size() == 1) return y.h == 1 && y.v == 1;
+    if (comps.size() != 3 || color_space() != CS_YCBCR) return false;
+    const Component &cb = comps[1], &cr = comps[2];
+    if (cb.h != 1 || cb.v != 1 || cr.h != 1 || cr.v != 1) return false;
+    if (y.h == 1 && y.v == 1) return !cs_itu601;
+    return y.h == 2 && (y.v == 1 || y.v == 2) && !(height & 1);
+  }
+
+  // FFmpeg's mode: each decoded block through the simple IDCT into the
+  // frame's planes (`planes`, kept from the frame before: blocks a cut scan
+  // did not reach keep their pixels), then swscale's conversion to BGR24.
+  // A progressive file's blocks are all transformed at its end, as
+  // mjpegdec.c does; their DC holds the level shift where a DC scan reached
+  // them.
+  void ff_output(uint8_t* out, std::vector<uint8_t> (&planes)[3]) {
+    int16_t ws[64];
+    for (size_t ci = 0; ci < comps.size(); ci++) {
+      Component& c = comps[ci];
+      const int stride = c.bw * 8;
+      const size_t size = size_t(stride) * c.bh * 8;
+      if (planes[ci].size() != size) planes[ci].assign(size, 0);  // a new, zeroed buffer
+      for (int by = 0; by < c.hblocks; by++)
+        for (int bx = 0; bx < c.wblocks; bx++) {
+          const bool done = c.done[size_t(by) * c.bw + bx] != 0;
+          if (!done && !progressive) continue;
+          const int16_t* blk = c.block(by, bx);
+          for (int k = 0; k < 64; k++) ws[k] = int16_t(blk[k] * c.quant[k]);
+          ws[0] = int16_t(progressive ? (done ? 1024 : 0) + blk[0] * c.quant[0] : blk[0]);
+          ffdsp::idct_put(planes[ci].data() + size_t(by) * 8 * stride + bx * 8, stride, ws);
+        }
+    }
+    const int stride = comps[0].bw * 8;
+    if (comps.size() == 1) {
+      ffdsp::yuv444_bgr24_full(planes[0].data(), nullptr, nullptr, stride, width, height, out);
+    } else if (comps[0].h == 1) {
+      ffdsp::yuv444_bgr24_full(planes[0].data(), planes[1].data(), planes[2].data(), stride, width,
+                               height, out);
+    } else {
+      ffdsp::yuv2bgr24(planes[0].data(), stride, planes[1].data(), planes[2].data(),
+                       comps[1].bw * 8, width, height, comps[0].v == 2 ? 1 : 0, !cs_itu601, out);
+    }
   }
 
   // The decoded image: (height, width, 3) BGR, or (height, width) gray.
@@ -1571,6 +1682,12 @@ void set_error(char* err, int errlen, const char* msg) {
   if (err && errlen > 0) std::snprintf(err, size_t(errlen), "%s", msg);
 }
 
+// A Motion-JPEG stream decoded frame by frame as FFmpeg decodes it: the
+// planes outlive a frame, as the decoder's frame buffer does.
+struct MjpegStream {
+  std::vector<uint8_t> planes[3];
+};
+
 }  // namespace
 
 extern "C" {
@@ -1628,5 +1745,51 @@ int crt_jpeg_encode(const uint8_t* img, int w, int h, int channels, int quality,
 }
 
 void crt_jpeg_free(uint8_t* p) { std::free(p); }
+
+void* crt_mjpeg_create() { return new MjpegStream(); }
+
+void crt_mjpeg_destroy(void* h) { delete static_cast<MjpegStream*>(h); }
+
+// One frame of a Motion-JPEG stream as (height, width, 3) BGR, as FFmpeg's
+// mjpeg decoder and swscale give it to OpenCV: *arith is 1 where the
+// layout is one ffmpeg_layout() takes (FFmpeg's arithmetic; where the data
+// ends inside a scan, the blocks not reached keep the previous frame's
+// pixels), else 0: libjpeg's arithmetic, the data read as imread reads a
+// file (the EXIF orientation is not applied in either).
+int crt_mjpeg_decode(void* h, const uint8_t* data, long n, uint8_t* out, long out_size,
+                     int* arith, char* err, int errlen) {
+  MjpegStream* st = static_cast<MjpegStream*>(h);
+  bool ff_layout = false;
+  try {
+    Decoder probe(data, size_t(n), false);
+    probe.run(true);
+    ff_layout = probe.ffmpeg_layout();
+  } catch (const std::exception&) {
+  }
+  Decoder dec(data, size_t(n), !ff_layout);
+  dec.ff = ff_layout;
+  try {
+    dec.run(false);
+  } catch (const std::exception& e) {
+    // past its first scan FFmpeg keeps the frame and ignores the error
+    if (!dec.ff || dec.comps.empty() || dec.comps[0].coef.empty()) {
+      set_error(err, errlen, e.what());
+      return 1;
+    }
+  }
+  try {
+    if (long(dec.width) * dec.height * 3 != out_size) fail("output buffer size mismatch");
+    *arith = dec.ff ? 1 : 0;
+    if (dec.ff) {
+      dec.ff_output(out, st->planes);
+    } else {
+      dec.output(out, false);
+    }
+    return 0;
+  } catch (const std::exception& e) {
+    set_error(err, errlen, e.what());
+    return 1;
+  }
+}
 
 }  // extern "C"

@@ -26,6 +26,8 @@
 #include <string>
 #include <vector>
 
+#include "ffmpeg_dsp.h"
+
 namespace {
 
 struct Corrupt : std::runtime_error {
@@ -224,116 +226,11 @@ const Tables& tables() {
     return t;
 }
 
-// ------------------------------------------------------------------ IDCT
-// FFmpeg's simple_idct for 8-bit samples (int16 coefficients, rows with
-// ROW_SHIFT 11 then columns with COL_SHIFT 20; a row whose only non-zero
-// coefficient is its first takes that coefficient times 8).
+// FFmpeg's simple IDCT and swscale's converter: ffmpeg_dsp.h
 
-constexpr int W1 = 22725, W2 = 21407, W3 = 19266, W4 = 16383, W5 = 12873, W6 = 8867,
-              W7 = 4520;
-
-void idct_row(int16_t* row) {
-    uint64_t lo, hi;
-    std::memcpy(&lo, row, 8);
-    std::memcpy(&hi, row + 4, 8);
-    if (!(lo & ~uint64_t(0xffff)) && !hi) {
-        uint16_t v = (uint16_t)(row[0] * 8);
-        for (int i = 0; i < 8; i++) row[i] = (int16_t)v;
-        return;
-    }
-    unsigned a0 = (unsigned)W4 * row[0] + (1u << 10), a1 = a0, a2 = a0, a3 = a0;
-    a0 += (unsigned)W2 * row[2];
-    a1 += (unsigned)W6 * row[2];
-    a2 -= (unsigned)W6 * row[2];
-    a3 -= (unsigned)W2 * row[2];
-    unsigned b0 = (unsigned)W1 * row[1] + (unsigned)W3 * row[3];
-    unsigned b1 = (unsigned)W3 * row[1] - (unsigned)W7 * row[3];
-    unsigned b2 = (unsigned)W5 * row[1] - (unsigned)W1 * row[3];
-    unsigned b3 = (unsigned)W7 * row[1] - (unsigned)W5 * row[3];
-    if (hi) {
-        a0 += (unsigned)W4 * row[4] + (unsigned)W6 * row[6];
-        a1 += -(unsigned)W4 * row[4] - (unsigned)W2 * row[6];
-        a2 += -(unsigned)W4 * row[4] + (unsigned)W2 * row[6];
-        a3 += (unsigned)W4 * row[4] - (unsigned)W6 * row[6];
-        b0 += (unsigned)W5 * row[5] + (unsigned)W7 * row[7];
-        b1 += -(unsigned)W1 * row[5] - (unsigned)W5 * row[7];
-        b2 += (unsigned)W7 * row[5] + (unsigned)W3 * row[7];
-        b3 += (unsigned)W3 * row[5] - (unsigned)W1 * row[7];
-    }
-    row[0] = (int16_t)((int)(a0 + b0) >> 11);
-    row[7] = (int16_t)((int)(a0 - b0) >> 11);
-    row[1] = (int16_t)((int)(a1 + b1) >> 11);
-    row[6] = (int16_t)((int)(a1 - b1) >> 11);
-    row[2] = (int16_t)((int)(a2 + b2) >> 11);
-    row[5] = (int16_t)((int)(a2 - b2) >> 11);
-    row[3] = (int16_t)((int)(a3 + b3) >> 11);
-    row[4] = (int16_t)((int)(a3 - b3) >> 11);
-}
-
-inline uint8_t clip_u8(int v) { return (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v); }
-
-// the column pass; out[k] for k = 0..7 down the column
-void idct_col(const int16_t* col, int out[8]) {
-    unsigned a0 = (unsigned)W4 * (col[0] + ((1 << 19) / W4)), a1 = a0, a2 = a0, a3 = a0;
-    a0 += (unsigned)W2 * col[16];
-    a1 += (unsigned)W6 * col[16];
-    a2 += -(unsigned)W6 * col[16];
-    a3 += -(unsigned)W2 * col[16];
-    unsigned b0 = (unsigned)W1 * col[8] + (unsigned)W3 * col[24];
-    unsigned b1 = (unsigned)W3 * col[8] - (unsigned)W7 * col[24];
-    unsigned b2 = (unsigned)W5 * col[8] - (unsigned)W1 * col[24];
-    unsigned b3 = (unsigned)W7 * col[8] - (unsigned)W5 * col[24];
-    if (col[32]) {
-        a0 += (unsigned)W4 * col[32];
-        a1 += -(unsigned)W4 * col[32];
-        a2 += -(unsigned)W4 * col[32];
-        a3 += (unsigned)W4 * col[32];
-    }
-    if (col[40]) {
-        b0 += (unsigned)W5 * col[40];
-        b1 += -(unsigned)W1 * col[40];
-        b2 += (unsigned)W7 * col[40];
-        b3 += (unsigned)W3 * col[40];
-    }
-    if (col[48]) {
-        a0 += (unsigned)W6 * col[48];
-        a1 += -(unsigned)W2 * col[48];
-        a2 += (unsigned)W2 * col[48];
-        a3 += -(unsigned)W6 * col[48];
-    }
-    if (col[56]) {
-        b0 += (unsigned)W7 * col[56];
-        b1 += -(unsigned)W5 * col[56];
-        b2 += (unsigned)W3 * col[56];
-        b3 += -(unsigned)W1 * col[56];
-    }
-    out[0] = (int)(a0 + b0) >> 20;
-    out[1] = (int)(a1 + b1) >> 20;
-    out[2] = (int)(a2 + b2) >> 20;
-    out[3] = (int)(a3 + b3) >> 20;
-    out[4] = (int)(a3 - b3) >> 20;
-    out[5] = (int)(a2 - b2) >> 20;
-    out[6] = (int)(a1 - b1) >> 20;
-    out[7] = (int)(a0 - b0) >> 20;
-}
-
-void idct_put(uint8_t* dst, int ls, int16_t* blk) {
-    for (int r = 0; r < 8; r++) idct_row(blk + 8 * r);
-    int o[8];
-    for (int c = 0; c < 8; c++) {
-        idct_col(blk + c, o);
-        for (int r = 0; r < 8; r++) dst[r * ls + c] = clip_u8(o[r]);
-    }
-}
-
-void idct_add(uint8_t* dst, int ls, int16_t* blk) {
-    for (int r = 0; r < 8; r++) idct_row(blk + 8 * r);
-    int o[8];
-    for (int c = 0; c < 8; c++) {
-        idct_col(blk + c, o);
-        for (int r = 0; r < 8; r++) dst[r * ls + c] = clip_u8(dst[r * ls + c] + o[r]);
-    }
-}
+using ffdsp::clip_u8;
+using ffdsp::idct_add;
+using ffdsp::idct_put;
 
 // ------------------------------------------------------ half-pel copies
 // src points at a block with one more row and column than it reads when
@@ -895,35 +792,10 @@ struct Decoder {
     }
 
     // the reference picture (just decoded) as BGR24, swscale's unscaled
-    // YUV420P -> BGR24 arithmetic (16-bit fixed point, BT.601 limited
-    // range: pmulhw of the samples scaled by 8 against the coefficients;
-    // no sum comes near the 16-bit saturation), one term a sample value
+    // YUV420P -> BGR24 arithmetic at limited range (ffmpeg_dsp.h)
     void to_bgr(uint8_t* out) const {
-        static const struct Terms {
-            int16_t y[256], b[256], r[256], gu[256], gv[256];
-            Terms() {
-                auto mulhi = [](int a, int c) { return (int16_t)((a * c) >> 16); };
-                for (int v = 0; v < 256; v++) {
-                    y[v] = mulhi(v * 8 - 128, 9539);
-                    b[v] = mulhi(v * 8 - 1024, 16525);
-                    r[v] = mulhi(v * 8 - 1024, 13075);
-                    gu[v] = mulhi(v * 8 - 1024, -3209);
-                    gv[v] = mulhi(v * 8 - 1024, -6660);
-                }
-            }
-        } t;
-        for (int y = 0; y < height; y++) {
-            const uint8_t* py = ref[0].px.data() + (size_t)y * ref[0].w;
-            const uint8_t* pu = ref[1].px.data() + (size_t)(y >> 1) * ref[1].w;
-            const uint8_t* pv = ref[2].px.data() + (size_t)(y >> 1) * ref[2].w;
-            uint8_t* o = out + (size_t)y * width * 3;
-            for (int x = 0; x < width; x++) {
-                int u = pu[x >> 1], v = pv[x >> 1], yy = t.y[py[x]];
-                o[3 * x] = clip_u8(yy + t.b[u]);
-                o[3 * x + 1] = clip_u8(yy + t.gu[u] + t.gv[v]);
-                o[3 * x + 2] = clip_u8(yy + t.r[v]);
-            }
-        }
+        ffdsp::yuv2bgr24(ref[0].px.data(), ref[0].w, ref[1].px.data(), ref[2].px.data(),
+                         ref[1].w, width, height, 1, false, out);
     }
 
     int decode(const uint8_t* data, size_t n, int* info) {

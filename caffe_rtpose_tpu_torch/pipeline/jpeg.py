@@ -8,6 +8,9 @@ file is libjpeg's Y plane and not a conversion of the BGR image), with the
 EXIF orientation applied; and :func:`encode_jpeg` returns the bytes of
 ``cv2.imencode(".jpg", img, [IMWRITE_JPEG_QUALITY, quality])``: baseline,
 4:2:0 colour or 1-component gray, standard Huffman tables.
+:class:`MjpegDecoder` decodes the frames of a Motion-JPEG stream as
+``cv2.VideoCapture`` (FFMPEG) gives them instead: FFmpeg's ``mjpeg``
+arithmetic and swscale's conversion.
 
 The library is built with ``g++ -O2 -std=c++17 -shared -fPIC`` at first use
 into the port's git-ignored ``_build/`` (``_build.build_library``).  There
@@ -30,6 +33,7 @@ from .. import _build
 
 SRC = os.path.join(_build.CSRC_DIR, "jpeg_codec.cpp")
 FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
+HEADERS = (os.path.join(_build.CSRC_DIR, "ffmpeg_dsp.h"),)
 JPEG_EXTENSIONS = (".jpg", ".jpeg")
 
 _lock = threading.Lock()
@@ -47,7 +51,8 @@ def load() -> ctypes.CDLL:
         gxx = shutil.which("g++")
         if gxx is None:
             raise RuntimeError(f"g++ not found on PATH: the JPEG codec ({SRC}) cannot be built")
-        lib = ctypes.CDLL(_build.build_library("jpeg_codec", [SRC], gxx, FLAGS))
+        lib = ctypes.CDLL(_build.build_library("jpeg_codec", [SRC], gxx, FLAGS,
+                                                 headers=HEADERS))
         vp, cp, i, l = ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int, ctypes.c_long
         lib.crt_jpeg_header.restype = i
         lib.crt_jpeg_header.argtypes = [cp, l, i, ctypes.POINTER(ctypes.c_int), cp, i]
@@ -58,6 +63,12 @@ def load() -> ctypes.CDLL:
                                         ctypes.POINTER(ctypes.c_long), cp, i]
         lib.crt_jpeg_free.restype = None
         lib.crt_jpeg_free.argtypes = [vp]
+        lib.crt_mjpeg_create.restype = vp
+        lib.crt_mjpeg_create.argtypes = []
+        lib.crt_mjpeg_destroy.restype = None
+        lib.crt_mjpeg_destroy.argtypes = [vp]
+        lib.crt_mjpeg_decode.restype = i
+        lib.crt_mjpeg_decode.argtypes = [vp, cp, l, vp, l, ctypes.POINTER(ctypes.c_int), cp, i]
         _lib = lib
         return lib
 
@@ -134,3 +145,49 @@ def encode_jpeg(img: np.ndarray, quality: int = 95) -> bytes:
         return ctypes.string_at(ptr.value, n.value)
     finally:
         lib.crt_jpeg_free(ptr)
+
+
+class MjpegDecoder:
+    """The frames of one Motion-JPEG stream as ``cv2.VideoCapture`` (FFMPEG)
+    gives them: FFmpeg's ``mjpeg`` decoder (the DC predictor dequantized and
+    started at the level shift, DC clipped to int16, FFmpeg's simple IDCT
+    into planes at the stream's own sampling) and swscale's unscaled
+    full-range YUV -> BGR24 (one chroma sample for each 2x2 or 2x1 block).
+
+    That arithmetic is taken for YCbCr 4:2:0 and 4:2:2 frames of even height
+    (``csrc/jpeg_codec.cpp`` ``ffmpeg_layout``), the layouts swscale's
+    unscaled path converts; other layouts (gray, 4:4:4, odd heights, ...)
+    go through swscale's scaler in FFmpeg and decode here with libjpeg's
+    arithmetic, as ``cv2.imread`` (ROADMAP C9's remainder).
+    :attr:`arithmetic` says which the last frame took.  The planes outlive a
+    frame: where a frame's data ends inside its scan, the blocks it did not
+    reach keep the frame before's pixels, as in FFmpeg's frame buffer.  The
+    EXIF orientation is not applied (FFMPEG does not)."""
+
+    def __init__(self, name: str = "<mjpeg>"):
+        self._lib = load()
+        self.name = name
+        self._h = self._lib.crt_mjpeg_create()
+        self._err = ctypes.create_string_buffer(256)
+        self._arith = ctypes.c_int(0)
+        self.arithmetic = ""
+
+    def decode(self, data: bytes) -> np.ndarray:
+        """One frame's JPEG bytes -> BGR u8 (H, W, 3); ValueError where they
+        do not decode to a picture."""
+        data = bytes(data)
+        w, h, _ = jpeg_header(data, self.name)  # cut before its scan: no picture
+        out = np.empty((h, w, 3), np.uint8)
+        _check(self._lib.crt_mjpeg_decode(self._h, data, len(data), out.ctypes.data, out.size,
+                                          ctypes.byref(self._arith), self._err,
+                                          len(self._err)), self._err, self.name)
+        self.arithmetic = "ffmpeg" if self._arith.value else "libjpeg"
+        return out
+
+    def close(self) -> None:
+        if self._h:
+            self._lib.crt_mjpeg_destroy(self._h)
+            self._h = None
+
+    def __del__(self):
+        self.close()

@@ -29,6 +29,7 @@ from .. import _build
 
 SRC = os.path.join(_build.CSRC_DIR, "mpeg4_video.cpp")
 FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
+HEADERS = (os.path.join(_build.CSRC_DIR, "ffmpeg_dsp.h"),)
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -50,7 +51,8 @@ def load() -> ctypes.CDLL:
         if gxx is None:
             raise RuntimeError(f"g++ not found on PATH: the MPEG-4 decoder ({SRC}) cannot be "
                                "built")
-        lib = ctypes.CDLL(_build.build_library("mpeg4_video", [SRC], gxx, FLAGS))
+        lib = ctypes.CDLL(_build.build_library("mpeg4_video", [SRC], gxx, FLAGS,
+                                                 headers=HEADERS))
         vp, cp, i, l = ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int, ctypes.c_long
         lib.crt_mpeg4_create.restype = vp
         lib.crt_mpeg4_create.argtypes = []

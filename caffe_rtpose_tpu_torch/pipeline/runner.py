@@ -19,13 +19,14 @@ a few calls, while the fetchers copy results out and assemble.
 OpenCV (``cv2``) is optional here: the camera, the display window and
 videos the port's readers refuse use it, and a pipeline that asks for one
 of them without ``cv2`` raises at construction with the option's name.
-JPEG, PNG and BMP directories, Motion-JPEG and MPEG-4 Part 2 videos in AVI,
-MP4 and QuickTime (``video.py``, frames as ``cv2.VideoCapture`` gives
-them; MPEG-4 pixels as cv2's, Motion-JPEG's as ``cv2.imdecode``),
-``write_frames`` (JPEG at quality 98 by the port's codec, ``jpeg.py``: the
-bytes ``cv2.imwrite`` writes) with its text overlay (OpenCV 5's
-``putText``, ``utils/text.py``), JSON output and the headless run need no
-``cv2`` (``image_io.py``, ``pose/preprocess.py``).
+JPEG, PNG and BMP directories (each file decoded by its signature, PNM
+too), Motion-JPEG and MPEG-4 Part 2 videos in AVI, MP4 and QuickTime and
+printf image sequences (``video.py``, frames and pixels as
+``cv2.VideoCapture`` gives them), ``write_frames`` (JPEG at quality 98 by
+the port's codec, ``jpeg.py``: the bytes ``cv2.imwrite`` writes) with its
+text overlay (OpenCV 5's ``putText``, ``utils/text.py``), JSON output and
+the headless run need no ``cv2`` (``image_io.py``,
+``pose/preprocess.py``).
 """
 
 from __future__ import annotations
@@ -83,12 +84,14 @@ class _Cv2Capture:
 
 
 def open_video(path: str):
-    """The ``--video`` file: through the port's readers where they take it
-    (``video.open_reader``: AVI, then MP4/QuickTime; Motion-JPEG or MPEG-4
-    Part 2), cv2 or not; any other video through ``cv2.VideoCapture``
-    (behind the same methods), or without ``cv2`` a RuntimeError naming
-    ``--video``, the file, its container, its fourcc and any refused
-    feature."""
+    """The ``--video`` source: through the port's readers where they take it
+    (``video.open_reader``: a printf image sequence such as ``f_%03d.jpg``
+    of JPEG, PNG, BMP or PNM files, or one such image; AVI, then
+    MP4/QuickTime of Motion-JPEG or MPEG-4 Part 2), cv2 or not; any other
+    video or sequence through ``cv2.VideoCapture`` (behind the same
+    methods), or without ``cv2`` a RuntimeError naming ``--video``, the
+    file and why (its container and fourcc and any refused feature, or the
+    sequence's first file and its format)."""
     try:
         return open_reader(path)
     except OSError as e:

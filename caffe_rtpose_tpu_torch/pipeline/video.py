@@ -26,11 +26,13 @@ ISO BMFF.
   stream and its size, the ``movi`` lists are scanned.  Key frames: the
   index's AVIIF_KEYFRAME, or ``stss`` in MP4; a scanned MPEG-4 chunk is a
   key frame where it holds an I-VOP.
-* **Pixels**: Motion-JPEG: ``decode_jpeg`` of each frame, which is
-  ``cv2.imdecode`` (IMREAD_COLOR) of it bit for bit, and for a cut chunk
-  ``cv2.imread`` of it.  FFMPEG decodes JPEG with its own IDCT and converts
-  YUV to BGR with swscale: its frames are up to tens of levels off
-  libjpeg's on noisy frames (ROADMAP C9).  MPEG-4: every packet a read or a
+* **Pixels**: Motion-JPEG: FFmpeg's ``mjpeg`` decoder and swscale's
+  conversion (``jpeg.MjpegDecoder``), equal to cv2's frames bit for bit for
+  YCbCr 4:2:0 and 4:2:2 of even height, 4:4:4 and gray; a chunk the end
+  of the file cuts keeps the frame before's pixels in the blocks it does
+  not reach, as in FFmpeg.  Other layouts (4:2:0 and 4:2:2 of odd height,
+  4:1:1, 4:4:0, RGB, CMYK) take libjpeg's arithmetic, ``cv2.imread``'s
+  (ROADMAP C9's remainder).  MPEG-4: every packet a read or a
   seek passes goes through the decoder in order (P-VOPs predict from the
   picture before), and its pictures equal cv2's bit for bit.  A packet that
   gives no picture (headers only, a VOP that is not coded) is passed, as
@@ -63,7 +65,8 @@ import numpy as np
 
 from . import bmff
 from .bmff import Sample
-from .jpeg import decode_jpeg, jpeg_header
+from .image_io import decode_bmp, decode_png, decode_pnm, image_format
+from .jpeg import MjpegDecoder
 from .mpeg4 import Mpeg4Decoder, Mpeg4Unsupported
 
 MJPEG_FOURCCS = (b"MJPG", b"mjpg")
@@ -81,6 +84,9 @@ _INDEX_HEADER = struct.Struct("<HBBI4sQI")  # OpenDML indx / ix## (24 bytes)
 _AVIIF_KEYFRAME = 0x10
 _SEEK_DELTA = 16  # CvCapture_FFMPEG::seek's first step back
 _INT_MAX = 2**31 - 1
+SEQUENCE_FPS = 25.0  # the image2 demuxer's default framerate
+_SEQUENCE_START_RANGE = 5  # image2's start_number_range: the first file is numbered 0 to 4
+_SINGLE_IMAGE_COUNT = -(2**63)  # CAP_PROP_FRAME_COUNT of one image (its duration is unset)
 
 
 class UnsupportedVideo(RuntimeError):
@@ -126,15 +132,22 @@ def _unsupported(path: str, why: str) -> UnsupportedVideo:
 
 
 def open_reader(path: str) -> "_Reader":
-    """The port's reader of ``path``: AVI, then ISO BMFF.  OSError where the
-    file cannot be read, UnsupportedVideo where neither reader takes it."""
+    """The port's reader of ``path``: a printf image sequence where the path
+    is a pattern (:func:`sequence_filename`) that names no file itself,
+    else by the file's signature AVI, ISO BMFF, or one image
+    (:class:`SequenceReader`).  OSError where the file (or the sequence's
+    first file) cannot be read, UnsupportedVideo where no reader takes it."""
+    if sequence_filename(path, 0) is not None and not os.path.exists(path):
+        return SequenceReader(path)
     with open(path, "rb") as f:
         head = f.read(12)
-    if head[:4] == b"RIFF":
+    if head[:4] == b"RIFF" and head[8:12] != b"WEBP":
         return AviReader(path)
     if head[4:8] in _BMFF_TOP:
         return Mp4Reader(path)
-    raise _unsupported(path, "not an AVI, MP4 or QuickTime file")
+    if image_format(head) in SequenceReader.FORMATS:
+        return SequenceReader(path)
+    raise _unsupported(path, "not an AVI, MP4 or QuickTime file, nor an image the port reads")
 
 
 class _Reader:
@@ -152,6 +165,8 @@ class _Reader:
         self.path = path
         self._f = open(path, "rb")
         self._decoder: Optional[Mpeg4Decoder] = None
+        self._mjpeg: Optional[MjpegDecoder] = None
+        self._picture: Optional[np.ndarray] = None  # the last Motion-JPEG frame grabbed
         try:
             self._size = os.fstat(self._f.fileno()).st_size
             self._extra = b""
@@ -159,6 +174,8 @@ class _Reader:
             self._pts = [f.pts for f in self.frames]
             if self.codec == "mpeg4":
                 self._open_mpeg4()
+            else:
+                self._mjpeg = MjpegDecoder(path)
         except BaseException:
             self.release()
             raise
@@ -205,15 +222,16 @@ class _Reader:
     def _grab(self) -> Optional[bytes]:
         """The next shown frame's bytes, or None at the end or where they do
         not decode (FFMPEG's decode error); either way the frame is passed.
-        MPEG-4 packets go through the decoder here, so that a seek's grabs
-        keep its reference pictures."""
+        Every packet goes through its decoder here, as FFMPEG decodes each
+        frame it grabs: MPEG-4 P-VOPs predict from the picture before, and a
+        cut Motion-JPEG frame keeps the picture before's pixels."""
         while self._next < len(self.frames):
             f = self.frames[self._next]
             self._next += 1
             data = self.packet(self._next - 1)
             try:
                 if self._decoder is None:
-                    jpeg_header(data)
+                    self._picture = self._mjpeg.decode(data)
                     shown = True
                 else:
                     shown = self._decoder.advance(data)
@@ -237,11 +255,7 @@ class _Reader:
             return False, None
         if self._decoder is not None:
             return True, self._decoder.picture()
-        try:
-            return True, decode_jpeg(data, name=f"{self.path} frame {self._next - 1}",
-                                     truncated_ok=True)
-        except ValueError:
-            return False, None
+        return True, self._picture
 
     def _frame_number(self, pts: int) -> int:
         """OpenCV's dts_to_frame_number."""
@@ -278,8 +292,7 @@ class _Reader:
             back = max(target - delta, 0)
             if total > 1:
                 self._seek_pts(self._start_time + int(back / self.fps / self._time_base + 0.5))
-            if self._decoder is not None:
-                self._decoder.flush()
+            self._flush()
             if target == 0:
                 break
             landed = self._grab() is not None
@@ -297,10 +310,179 @@ class _Reader:
             break
         return True
 
+    def _flush(self) -> None:
+        """avcodec_flush_buffers, after each of a seek's steps."""
+        if self._decoder is not None:
+            self._decoder.flush()
+
     def release(self) -> None:
         self._f.close()
-        if self._decoder is not None:
-            self._decoder.close()
+        for dec in (self._decoder, self._mjpeg):
+            if dec is not None:
+                dec.close()
+
+
+def sequence_filename(pattern: str, number: int) -> Optional[str]:
+    """libavutil's av_get_frame_filename2: ``pattern`` with its one ``%d``
+    (or ``%Nd``/``%0Nd``, zero-padded to N digits) replaced by ``number``
+    and each ``%%`` by ``%``; None where ``pattern`` is not such a pattern
+    (no ``%d``, two, or another ``%`` sequence)."""
+    out, i, found = [], 0, False
+    while i < len(pattern):
+        c = pattern[i]
+        i += 1
+        if c != "%":
+            out.append(c)
+            continue
+        nd = 0
+        while i < len(pattern) and "0" <= pattern[i] <= "9":
+            nd = nd * 10 + ord(pattern[i]) - 48
+            i += 1
+        c = pattern[i] if i < len(pattern) else ""
+        i += 1
+        if c == "%":
+            out.append("%")
+        elif c == "d" and not found:
+            found = True
+            out.append("%0*d" % (nd, number))
+        else:
+            return None
+    return "".join(out) if found else None
+
+
+def _image_range(pattern: str) -> Optional[Tuple[int, int]]:
+    """image2's find_image_range: the first readable file numbered 0 to 4,
+    then the last, found by steps of 1, 2, 4, ... from the last found (so a
+    gap can be stepped over); None where there is no first file."""
+    def readable(k: int) -> bool:
+        name = sequence_filename(pattern, k)
+        return name is not None and os.access(name, os.R_OK)
+
+    first = next((k for k in range(_SEQUENCE_START_RANGE) if readable(k)), None)
+    if first is None:
+        return None
+    last = first
+    while True:
+        step = 0
+        while readable(last + (2 * step or 1)):
+            step = 2 * step or 1
+            if step >= 1 << 30:
+                return None
+        if not step:
+            return first, last
+        last += step
+
+
+class SequenceReader(_Reader):
+    """A printf image sequence (``f_%03d.jpg``), or one image, read as
+    ``cv2.VideoCapture`` (FFMPEG's image2 demuxer) reads it:
+
+    * **Frames**: the files numbered from the first of 0 to 4 that exists
+      to the last that image2's range search finds (:func:`_image_range`);
+      ``frame_count`` counts them, ``fps`` is 25.0.  A file of the range
+      that is missing ends the read, and every read after it, until a seek
+      (FFMPEG's demuxer stays on it, and its decoder has been drained).
+    * **Seeks**: ``set_pos`` as for the other readers; image2 seeks to any
+      frame of the range exactly, so every frame is a key frame.
+    * **Pixels**, each file by its signature: JPEG through FFmpeg's mjpeg
+      arithmetic (``jpeg.MjpegDecoder``); PNG, BMP and PNM as ``cv2.imread``
+      reads them (``image_io``), which FFmpeg's decoders and swscale equal,
+      except where they differ and FFmpeg's are followed: 16-bit BMP
+      samples widened with their top bits, PNM samples below maxval 255
+      scaled as FFmpeg scales them.  16-bit PNM, and everything
+      ``image_io`` refuses, is refused when the first file is.
+    * **One image** (a path with no pattern): cv2 opens it through FFMPEG
+      as a stream of one frame whose count it reports as -2^63; a seek
+      leaves the position where it is.  The reader matches that.
+    """
+
+    FORMATS = ("jpeg", "png", "bmp", "pnm")
+
+    def __init__(self, path: str):
+        self.path = path
+        self._decoder = None
+        self._mjpeg = MjpegDecoder(path)
+        self.fps, self._time_base, self._start_time = SEQUENCE_FPS, 1 / SEQUENCE_FPS, 0
+        self._next, self._first_pts, self._last_pts = 0, None, None
+        self._picture: Optional[np.ndarray] = None
+        self._drained = False
+        if sequence_filename(path, 0) is None:
+            self._first, self.frame_count = None, _SINGLE_IMAGE_COUNT
+            first_file = path
+        else:
+            found = _image_range(path)
+            if found is None:
+                raise FileNotFoundError(f"{path}: no file of the sequence is numbered 0 to "
+                                        f"{_SEQUENCE_START_RANGE - 1}")
+            self._first, self.frame_count = found[0], found[1] - found[0] + 1
+            first_file = self.file(0)
+        with open(first_file, "rb") as f:
+            data = f.read()
+        try:
+            self._decode(data, first_file, MjpegDecoder(first_file))
+        except ValueError as e:
+            raise UnsupportedVideo(
+                f"{path}: image sequence, first file {first_file}: {e}; without OpenCV the "
+                f"port reads JPEG, PNG, BMP and PNM (8-bit) image sequences, so this one "
+                f"needs OpenCV (cv2)") from None
+        self.codec = self.fourcc = image_format(data)
+
+    def file(self, i: int) -> str:
+        """The file of frame ``i``."""
+        return self.path if self._first is None else sequence_filename(self.path,
+                                                                       self._first + i)
+
+    @staticmethod
+    def _decode(data: bytes, name: str, mjpeg: MjpegDecoder) -> np.ndarray:
+        """One file's pixels as FFMPEG's decoder and swscale give them."""
+        fmt = image_format(data)
+        if fmt == "jpeg":
+            return mjpeg.decode(data)
+        if fmt == "png":
+            return decode_png(data, path=name)
+        if fmt == "bmp":
+            return decode_bmp(data, name=name, ffmpeg=True)
+        if fmt == "pnm":
+            return decode_pnm(data, name=name, ffmpeg=True)
+        raise ValueError(f"{name}: {fmt} image")
+
+    def _grab(self) -> Optional[bytes]:
+        n = 1 if self._first is None else self.frame_count
+        if self._drained or self._next >= n:
+            return None
+        try:
+            with open(self.file(self._next), "rb") as f:
+                data = f.read()
+        except OSError:  # image2 fails on it, and OpenCV drains the decoder
+            self._drained = True
+            return None
+        self._next += 1
+        try:
+            self._picture = self._decode(data, self.file(self._next - 1), self._mjpeg)
+        except ValueError:
+            self._last_pts = None
+            return None
+        pts = self._next - 1
+        if self._first_pts is None:
+            self._first_pts = pts
+        self._last_pts = pts
+        return data
+
+    def read(self) -> Tuple[bool, Optional[np.ndarray]]:
+        if self._grab() is None:
+            return False, None
+        return True, self._picture
+
+    def _seek_pts(self, pts: int) -> None:
+        """image2's img_read_seek: to frame ``pts`` where it lies in the range."""
+        if 0 <= pts < self.frame_count:
+            self._next = pts
+
+    def _flush(self) -> None:
+        self._drained = False
+
+    def release(self) -> None:
+        self._mjpeg.close()
 
 
 class Mp4Reader(_Reader):

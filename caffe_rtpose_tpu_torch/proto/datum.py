@@ -7,11 +7,13 @@ clean-room wire codec.
 
 A copy of ``caffe_rtpose_tpu/proto/datum.py``, except that encoded datums
 are written and read without OpenCV: PNG by ``pipeline/image_io.py``'s
-``encode_png``/``decode_png``, JPEG by the port's codec
-(``pipeline/jpeg.py``, the bytes and pixels of ``cv2.imencode`` at its
-default quality 95 and ``cv2.imdecode``).  Other encodings go through
-``cv2`` where it is installed and raise ``ImportError`` naming the format
-without it.
+``encode_png``, JPEG by the port's codec (``pipeline/jpeg.py``, the bytes of
+``cv2.imencode`` at its default quality 95), BMP and PNM (``bmp``, ``pbm``,
+``pgm``, ``ppm``, ``pnm``) by ``image_io``'s ``encode_bmp``/``encode_pnm``
+(``cv2.imencode``'s bytes); every datum in those formats decodes by its
+signature as ``cv2.imdecode`` decodes it (``image_io.decode_image``).
+Other formats go through ``cv2`` where it is installed and raise
+``ImportError`` naming the format without it.
 """
 
 from __future__ import annotations
@@ -63,29 +65,36 @@ def parse_datum(buf: bytes) -> dict:
 
 
 def _cv2(fmt: str):
-    """OpenCV, for the encodings other than PNG and JPEG."""
+    """OpenCV, for the formats the port does not read or write."""
     try:
         import cv2
     except ImportError as e:
         raise ImportError(f"{fmt!r}-encoded datums need OpenCV (cv2), which is not installed; "
-                          "use png or jpg (--encode_type) or raw datums") from e
+                          "use png, jpg, bmp or pnm (--encode_type) or raw datums") from e
     return cv2
 
 
 def image_to_datum(img_bgr: np.ndarray, label: int = 0, encode_fmt: str = "") -> dict:
-    """HWC BGR u8 image -> Datum (optionally JPEG/PNG-encoded like
+    """HWC BGR u8 image -> Datum (optionally encoded like
     ReadImageToDatum's encode path, io.cpp:141-170)."""
     if encode_fmt:
+        from ..pipeline import image_io
+
         fmt = encode_fmt.lstrip(".").lower()
         if fmt == "png":
-            from ..pipeline.image_io import encode_png
-
-            data = encode_png(img_bgr[:, :, 0] if img_bgr.ndim == 3 and img_bgr.shape[2] == 1
-                              else img_bgr)
+            data = image_io.encode_png(img_bgr[:, :, 0] if img_bgr.ndim == 3 and img_bgr.shape[2] == 1
+                                       else img_bgr)
         elif fmt in ("jpg", "jpeg"):
             from ..pipeline.jpeg import encode_jpeg
 
             data = encode_jpeg(img_bgr)
+        elif fmt == "bmp":
+            data = image_io.encode_bmp(img_bgr)
+        elif fmt in image_io.PNM_KINDS:
+            try:
+                data = image_io.encode_pnm(img_bgr, fmt)
+            except ValueError as e:  # cv2.imencode refuses it too
+                raise IOError(f"image encode failed: {e}") from e
         else:
             ok, buf = _cv2(fmt).imencode("." + fmt, img_bgr)
             if not ok:
@@ -104,20 +113,17 @@ def image_to_datum(img_bgr: np.ndarray, label: int = 0, encode_fmt: str = "") ->
 
 
 def datum_to_image(datum: dict) -> np.ndarray:
-    """Datum -> HWC BGR u8 (decoding JPEG/PNG when ``encoded``)."""
+    """Datum -> HWC BGR u8 (decoding it when ``encoded``)."""
     if datum.get("encoded"):
-        from ..pipeline.image_io import PNG_SIGNATURE, decode_png
+        from ..pipeline import image_io
 
         data = bytes(datum["data"])
         gray = int(datum.get("channels", 3)) == 1
-        if data.startswith(PNG_SIGNATURE):
-            img = decode_png(data, gray=gray)
-        elif data.startswith(b"\xff\xd8"):
-            from ..pipeline.jpeg import decode_jpeg
-
-            img = decode_jpeg(data, gray=gray, name="encoded datum")
+        fmt = image_io.image_format(data)
+        if fmt in ("png", "jpeg", "bmp", "pnm"):
+            img = image_io.decode_image(data, gray=gray, name="encoded datum")
         else:
-            cv2 = _cv2("non-PNG, non-JPEG")
+            cv2 = _cv2(fmt)
             img = cv2.imdecode(np.frombuffer(data, np.uint8),
                                cv2.IMREAD_GRAYSCALE if gray else cv2.IMREAD_COLOR)
             if img is None:

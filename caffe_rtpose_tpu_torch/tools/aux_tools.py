@@ -15,11 +15,12 @@
     python -m caffe_rtpose_tpu_torch aux extract_features --model P --weights W \\
         --blobs fc7,prob --out feats.npz --iterations 2 [--device cpu]
 
-Images are read without OpenCV (``core/data_layers.read_image``: PNG and BMP
-in numpy, JPEG by the port's codec) and resized by ``cv2.resize``'s u8
+Images are read without OpenCV (``core/data_layers.read_image``: PNG, BMP
+and PNM in numpy, JPEG by the port's codec) and resized by ``cv2.resize``'s u8
 INTER_LINEAR in OpenCV's fixed point, bit for bit
 (``utils/imgproc.resize_linear_u8``).  ``--encoded`` Datums are PNG, or JPEG with
-``--encode_type jpg`` (quality 95, the bytes ``cv2.imencode`` writes), both
+``--encode_type jpg`` (quality 95), BMP or PNM (``bmp``, ``pbm``, ``pgm``,
+``ppm``, ``pnm``), each the bytes ``cv2.imencode`` writes, all
 written and read without OpenCV (``proto/datum.py``).  ``extract_features`` builds the
 net on the card unless ``--device cpu``.  HDF5 packs are written and read by the
 port's HDF5 codec (``utils/hdf5.py``).

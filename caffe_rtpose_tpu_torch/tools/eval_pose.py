@@ -3,8 +3,8 @@
 * ``run-list``   — batch-run the COCO val image list
   (reference image_info_val2014_1k.txt: ``idx  image_id  file  h  w``)
   through the estimator, writing per-image rtpose-schema JSON; images are
-  read by ``pipeline/image_io.py`` (PNG and BMP in numpy, JPEG by the
-  port's codec, ``pipeline/jpeg.py``);
+  read by ``pipeline/image_io.py`` (PNG, BMP and PNM in numpy, JPEG by
+  the port's codec, ``pipeline/jpeg.py``);
 * ``joint-diff`` — the parity tool: compare two JSON output directories
   joint-by-joint (px deviation + confidence delta), the 1px/0.01 criterion;
 * ``coco-ap``    — OKS-based keypoint AP over rtpose JSON outputs vs a

@@ -15,8 +15,8 @@ ring) with host-side Python sources feeding the jitted train step:
   to the card from pinned host memory on a side CUDA stream.
 
 The port of ``caffe_rtpose_tpu/training/datasets.py`` without OpenCV: images
-are read by ``pipeline/image_io.py`` (PNG and BMP in numpy, JPEG by the
-port's codec; a mask is read gray, as ``cv2.IMREAD_GRAYSCALE``) and the
+are read by ``pipeline/image_io.py`` (PNG, BMP and PNM in numpy, JPEG by
+the port's codec, by signature; a mask is read gray, as ``cv2.IMREAD_GRAYSCALE``) and the
 synthetic figures are drawn by ``utils/imgproc.line_u8``, ``cv2.line`` in
 numpy, bit for bit.
 """

@@ -42,8 +42,25 @@ Phases, each of which raises (non-zero exit) on failure:
                after each ui seek, and the sha256 of the decoded frames
                equal to the results tests/test_torch_video.py and
                tests/test_torch_mp4.py pin against the JAX package's reader
-               (cv2.VideoCapture, FFMPEG); the MPEG-4 decoder's g++ build
-               time (csrc/mpeg4_video.cpp); the hand kernels' counters
+               (cv2.VideoCapture, FFMPEG; Motion-JPEG frames in FFmpeg's
+               arithmetic, each frame identified by equality); then each
+               printf image sequence of tests/sequence_cases.py (PNG,
+               JPEG, BMP, PPM, PGM; %d, %0Nd, %%; first numbers 0-4, a
+               gap, 40 frames, one image) against the pins
+               tests/test_torch_sequence.py holds (FFMPEG's image2); the
+               MPEG-4 decoder's g++ build time (csrc/mpeg4_video.cpp);
+               host ms (median of 20, in turns) of a 1280x720 q95 4:2:0
+               frame through the Motion-JPEG decoder (FFmpeg's arithmetic)
+               and through decode_jpeg (libjpeg's); the hand kernels'
+               counters read 0.
+   formats   - BMP and PNM without OpenCV (pipeline/image_io.py, cv2
+               blocked): the sha256 of read_image's colour and gray arrays
+               of every crafted BMP layout and PNM file of
+               tests/image_cases.py, and of the Datum bytes
+               (image_to_datum "bmp", "pbm", "pgm", "ppm", "pnm") and
+               decodes (datum_to_image) of its images, equal to the
+               digests tests/test_torch_image_io.py holds against
+               cv2.imread/imencode/imdecode; the hand kernels' counters
                read 0.
 3. kernels   - each hand-written kernel against its plain PyTorch version on
                the card, at the estimators' shapes (COCO 1 and 3 scales, MPI,
@@ -133,13 +150,16 @@ Phases, each of which raises (non-zero exit) on failure:
                drawn on every frame, the same checks and launches.  Then
                rtpose --video on those 8 JPEGs wrapped into a Motion-JPEG
                AVI (tests/avi_cases.write_avi, OpenCV's writer's layout, 25
-               fps), --no_frame_drops --write_json, cv2 blocked, in turns
-               with the same JPEGs as a directory (dir, video, dir, video):
-               every JSON frameNNNNNN.json equal to estimate() on
-               decode_jpeg of its frame, the hand-kernel launches equal to
-               the directory run's (K1 4, K4 4), FPS beside the
-               directory's; --start_frame 3 writes frame000003-7, equal to
-               the first run's; the host ms a frame of the container read
+               fps) and as a printf sequence (seq/f_%03d.jpg),
+               --no_frame_drops --write_json, cv2 blocked, in turns with the
+               same JPEGs as a directory (dir, video, sequence, twice):
+               every JSON frameNNNNNN.json of the video and sequence runs
+               equal to estimate() on the port's Motion-JPEG decode
+               (FFmpeg's arithmetic) of its frame, the hand-kernel
+               launches equal to the directory run's (K1 4, K4 4), FPS
+               beside the directory's; --start_frame 3 writes
+               frame000003-7, equal to the first run's, for the AVI and the
+               sequence; the host ms a frame of the container read
                (AviReader.packet) and of the decode apart.  Then rtpose
                --video on the committed MPEG-4 clip tests/data/
                mp4v_720p.mp4 (8 1280x720 frames, cv2's mp4v writer), in
@@ -999,11 +1019,13 @@ def phase_video(card):
     import os
 
     from caffe_rtpose_tpu_torch.pipeline import mpeg4, runner, video
-    from caffe_rtpose_tpu_torch.pipeline.jpeg import encode_jpeg
+    from caffe_rtpose_tpu_torch.pipeline.jpeg import MjpegDecoder, decode_jpeg, encode_jpeg
 
     tag = "[video]"
     cases = avi_cases_module()
     m4 = mp4_cases_module()
+    import sequence_cases as seq
+
     zero_counts()
     differ = {}
     with no_cv2(), tempfile.TemporaryDirectory(prefix="chip_smoke_video_") as work:
@@ -1016,8 +1038,9 @@ def phase_video(card):
             reader = video.AviReader(path)
             frames = read_frames(reader)
             reader.release()
+            refs = cases.decoded(data, MjpegDecoder(path).decode)
             got = dict(count=reader.frame_count, fps=reader.fps, sha256=cases.sha256(frames),
-                       **cases.observe(runner, path, sources, cases.seeks(name)))
+                       **cases.observe(runner, path, refs, cases.seeks(name), exact=True))
             pin = cases.PINNED[name]
             bad = [k for k in pin if got[k] != pin[k]]
             if bad:
@@ -1045,6 +1068,29 @@ def phase_video(card):
             if bad:
                 differ[name] = {k: (got[k], pin[k]) for k in bad}
         mp4_secs = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for name in seq.CASES:
+            path, _, written = seq.write(name, os.path.join(work, "seq_" + name))
+            reader = video.open_reader(path)
+            frames = read_frames(reader)
+            reader.release()
+            pin = seq.PINNED[name]
+            got = dict(count=reader.frame_count, fps=reader.fps, sha256=cases.sha256(frames),
+                       **seq.observe(runner, name, path, written))
+            bad = [k for k in pin if got[k] != pin[k]]
+            if bad:
+                differ["seq " + name] = {k: (got[k], pin[k]) for k in bad}
+        seq_secs = time.perf_counter() - t0
+        jf = jpeg_frames_module()
+        data = encode_jpeg(jf.frame(720, 1280, 0), 95)
+        ffmpeg_ms, libjpeg_ms = [], []
+        dec = MjpegDecoder()
+        for _ in range(JPEG_TIMED_REPS):
+            for fn, out in ((dec.decode, ffmpeg_ms), (decode_jpeg, libjpeg_ms)):
+                t0 = time.perf_counter()
+                fn(data)
+                out.append((time.perf_counter() - t0) * 1000.0)
+        check(dec.arithmetic == "ffmpeg", f"{tag} a 4:2:0 frame took {dec.arithmetic}'s path")
     counts = read_counts()
     print(f"{tag} {len(cases.CASES)} crafted Motion-JPEG AVIs ({', '.join(cases.CASES)}), cv2 "
           f"blocked: frame count, fps, reads, start_frame and ui seeks and frame digests "
@@ -1055,11 +1101,72 @@ def phase_video(card):
           f"{len(m4.CASES)} crafted MP4 layouts ({', '.join(m4.CASES)}), cv2 blocked: count, "
           f"fps, reads, seeks and frame digests {'equal' if not differ else 'DIFFER from'} the "
           f"pins, in {mp4_secs:.2f} s; {card}")
+    print(f"{tag} {len(seq.CASES)} printf image sequences ({', '.join(seq.CASES)}), cv2 "
+          f"blocked: count, fps, reads, seeks and frame digests "
+          f"{'equal' if not differ else 'DIFFER from'} the pins, in {seq_secs:.2f} s; host ms "
+          f"a 1280x720 q95 4:2:0 frame ({len(data)} B; median of {JPEG_TIMED_REPS}, in turns): "
+          f"Motion-JPEG decode (FFmpeg's arithmetic) {statistics.median(ffmpeg_ms):.3f}, "
+          f"decode_jpeg (libjpeg's) {statistics.median(libjpeg_ms):.3f}; {card}")
     check(not differ, f"{tag} the readers differ from the pins: {differ}")
     check(not any(counts.values()), f"{tag} launched hand kernels: {counts}")
     return dict(cases=len(cases.CASES), mp4_files=len(m4.CLIPS) + len(m4.CASES),
-                pins_equal=not differ, seconds=secs, mp4_seconds=mp4_secs,
-                mpeg4_build_s=build_s, hand_kernel_launches=counts, card=card)
+                sequences=len(seq.CASES), pins_equal=not differ, seconds=secs,
+                mp4_seconds=mp4_secs, sequence_seconds=seq_secs, mpeg4_build_s=build_s,
+                mjpeg_ffmpeg_ms=statistics.median(ffmpeg_ms),
+                mjpeg_ffmpeg_ms_range=[min(ffmpeg_ms), max(ffmpeg_ms)],
+                decode_jpeg_ms=statistics.median(libjpeg_ms),
+                decode_jpeg_ms_range=[min(libjpeg_ms), max(libjpeg_ms)],
+                mjpeg_frame_bytes=len(data), hand_kernel_launches=counts, card=card)
+
+
+def phase_formats(card):
+    """BMP and PNM without OpenCV, cv2 blocked: read_image of every crafted
+    file of tests/image_cases.py (colour and gray; a file cv2 reads nothing
+    of must raise) and the Datums of its images (image_to_datum's bytes,
+    datum_to_image's array) held to the digests pinned from cv2."""
+    import os
+
+    from caffe_rtpose_tpu_torch.pipeline.image_io import read_image
+    from caffe_rtpose_tpu_torch.proto import datum
+
+    tag = "[formats]"
+    jpeg_frames_module()  # puts tests/ on the path
+    import image_cases as ic
+
+    zero_counts()
+    differ = {}
+    t0 = time.perf_counter()
+    with no_cv2(), tempfile.TemporaryDirectory(prefix="chip_smoke_formats_") as work:
+        files = ic.decode_files()
+        for name, data in files.items():
+            path = os.path.join(work, name)
+            with open(path, "wb") as f:
+                f.write(data)
+            got = []
+            for gray in (False, True):
+                try:
+                    got.append(ic.sha256(read_image(path, gray=gray)))
+                except ValueError:
+                    got.append(None)
+            if tuple(got) != ic.PINNED[name]:
+                differ[name] = (got, ic.PINNED[name])
+        images = ic.encode_images()
+        for name, ext in ic.encode_cases():
+            d = datum.image_to_datum(images[name], 0, ext[1:])
+            img = datum.datum_to_image(d)
+            got = (ic.sha256(d["data"]), ic.sha256(img[..., 0] if d["channels"] == 1 else img))
+            if got != ic.PINNED[name + ext]:
+                differ[name + ext] = (got, ic.PINNED[name + ext])
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    print(f"{tag} {len(files)} crafted BMP and PNM files (colour and gray reads) and "
+          f"{len(ic.encode_cases())} BMP/PNM Datums (bytes and decodes), cv2 blocked: digests "
+          f"{'equal' if not differ else 'DIFFER from'} those pinned from cv2, in {secs:.2f} s; "
+          f"hand-kernel launches {counts}; {card}")
+    check(not differ, f"{tag} differ from the pins: {differ}")
+    check(not any(counts.values()), f"{tag} launched hand kernels: {counts}")
+    return dict(files=len(files), datums=len(ic.encode_cases()), pins_equal=not differ,
+                seconds=secs, hand_kernel_launches=counts, card=card)
 
 
 def phase_train_clahe(device="cuda"):
@@ -2909,18 +3016,20 @@ def jsons_equal_estimate(tag, files, extra, images, json_dir, names, what):
 
 def phase_cli_video(files, images, extra=()):
     """rtpose --video on ``images`` as q95 JPEGs (encode_jpeg) in a
-    Motion-JPEG AVI, in turns with the same JPEGs as a directory (dir,
-    video, dir, video), then --start_frame 3; cv2 blocked.  Every JSON of
-    the video runs equal to estimate() on decode_jpeg of its frame, the
-    --start_frame run's equal to the first run's, launches equal to the
-    directory run's; FPS of each run, and the host ms a frame of the
-    container read and of the decode apart (median over the frames, 3
-    reads each).  ``extra``: more flags, whose --device and
-    --net_resolution the estimate() estimator takes too."""
+    Motion-JPEG AVI and as a printf sequence (seq/f_%03d.jpg), in turns
+    with the same JPEGs as a directory (dir, video, sequence, twice), then
+    --start_frame 3 on the AVI and the sequence; cv2 blocked.  Every JSON of
+    the video and sequence runs equal to estimate() on the Motion-JPEG
+    decode (FFmpeg's arithmetic) of its frame, the --start_frame runs'
+    equal to the first runs', launches equal to the directory run's; FPS of
+    each run, and the host ms a frame of the container read and of the
+    decode apart (median over the frames, 3 reads each).  ``extra``: more
+    flags, whose --device and --net_resolution the estimate() estimator
+    takes too."""
     import os
 
     from caffe_rtpose_tpu_torch.pipeline import video
-    from caffe_rtpose_tpu_torch.pipeline.jpeg import decode_jpeg, encode_jpeg
+    from caffe_rtpose_tpu_torch.pipeline.jpeg import MjpegDecoder, encode_jpeg
 
     tag = "[cli video]"
     cases = avi_cases_module()
@@ -2929,55 +3038,70 @@ def phase_cli_video(files, images, extra=()):
     n = len(images)
     jpegs = [encode_jpeg(f, 95) for f in images]
     img_dir, clip = os.path.join(work, "img"), os.path.join(work, "clip.avi")
+    seq = os.path.join(work, "seq", "f_%03d.jpg")
     os.makedirs(img_dir)
+    os.makedirs(os.path.dirname(seq))
     for i, data in enumerate(jpegs):
-        with open(os.path.join(img_dir, f"f{i:02d}.jpg"), "wb") as f:
-            f.write(data)
+        for path in (os.path.join(img_dir, f"f{i:02d}.jpg"), seq % i):
+            with open(path, "wb") as f:
+                f.write(data)
     with open(clip, "wb") as f:
         f.write(cases.write_avi(jpegs, w, h))
+    sources = {"dir": ("--image_dir", img_dir), "video": ("--video", clip),
+               "sequence": ("--video", seq)}
     runs = []
-    for k, kind in enumerate(("dir", "video", "dir", "video")):
-        source = ("--image_dir", img_dir) if kind == "dir" else ("--video", clip)
-        runs.append((kind, rtpose_run(f"{tag} {kind}", files, source,
+    for k, kind in enumerate(("dir", "video", "sequence") * 2):
+        runs.append((kind, rtpose_run(f"{tag} {kind}", files, sources[kind],
                                       os.path.join(work, f"json{k}"), w, h, extra)))
-    first = runs[1][1]
-    seek = rtpose_run(f"{tag} start 3", files, ("--video", clip), os.path.join(work, "json_s3"),
-                      w, h, ("--start_frame", "3", *extra))
     names = [f"frame{i:06d}.json" for i in range(n)]
     for kind, r in runs:
-        check(r["files"] == (names if kind == "video" else [f"f{i:02d}.json" for i in range(n)]),
+        check(r["files"] == (names if kind != "dir" else [f"f{i:02d}.json" for i in range(n)]),
               f"{tag} {kind} wrote {r['files']}")
         check(r["launches"] == runs[0][1]["launches"], f"{tag} {kind} launches {r['launches']} "
                                                        f"against {runs[0][1]['launches']}")
+    first = runs[1][1]
     check(first["launches"]["conv1_block"] > 0 and first["launches"]["peak_mask_fused"] > 0,
           f"{tag} a hand kernel of the path never launched: {first['launches']}")
-    check(seek["files"] == names[3:], f"{tag} --start_frame 3 wrote {seek['files']}")
-    for name in seek["files"]:
-        with open(os.path.join(work, "json1", name)) as a, \
-                open(os.path.join(work, "json_s3", name)) as b:
-            check(a.read() == b.read(), f"{tag} --start_frame 3's {name} differs")
-    jsons_equal_estimate(tag, files, extra, [decode_jpeg(d) for d in jpegs],
-                         os.path.join(work, "json1"), names, "decode_jpeg of its frame")
+    decoded = [MjpegDecoder().decode(d) for d in jpegs]
+    seeks = {}
+    for k, kind in ((1, "video"), (2, "sequence")):
+        seek = rtpose_run(f"{tag} {kind} start 3", files, sources[kind],
+                          os.path.join(work, f"json_s3_{kind}"), w, h,
+                          ("--start_frame", "3", *extra))
+        check(seek["files"] == names[3:], f"{tag} {kind} --start_frame 3 wrote {seek['files']}")
+        check(seek["launches"] == runs[0][1]["launches"],
+              f"{tag} {kind} --start_frame 3 launches {seek['launches']}")
+        for name in seek["files"]:
+            with open(os.path.join(work, f"json{k}", name)) as a, \
+                    open(os.path.join(work, f"json_s3_{kind}", name)) as b:
+                check(a.read() == b.read(), f"{tag} {kind} --start_frame 3's {name} differs")
+        jsons_equal_estimate(f"{tag} {kind}", files, extra, decoded,
+                             os.path.join(work, f"json{k}"), names,
+                             "the Motion-JPEG decode of its frame")
+        seeks[kind] = dict(files=len(seek["files"]), launches=seek["launches"], fps=seek["fps"])
     reader = video.AviReader(clip)
     read_ms, decode_ms = [], []
     for _ in range(CLI_VIDEO_REPS):
+        dec = MjpegDecoder()
         for i in range(len(reader.frames)):
             t0 = time.perf_counter()
             data = reader.packet(i)
             t1 = time.perf_counter()
-            decode_jpeg(data)
+            dec.decode(data)
             read_ms.append((t1 - t0) * 1000.0)
             decode_ms.append((time.perf_counter() - t1) * 1000.0)
     reader.release()
-    fps = {kind: [r["fps"] for k, r in runs if k == kind] for kind in ("dir", "video")}
-    print(f"{tag} every JSON equals estimate() on decode_jpeg of its frame; --start_frame 3 "
-          f"wrote {len(seek['files'])} files equal to the first run's; FPS over {n} "
-          f"{w}x{h} frames: video {fps['video']}, directory {fps['dir']} (in turns); host ms a "
-          f"frame (median of {len(read_ms)}): container read {statistics.median(read_ms):.4f}, "
-          f"decode {statistics.median(decode_ms):.3f} ({sum(map(len, jpegs)) // n} B a frame)")
-    return dict(fps_video=fps["video"], fps_dir=fps["dir"], launches=first["launches"],
-                start_frame_3=dict(files=len(seek["files"]), launches=seek["launches"],
-                                   fps=seek["fps"]),
+    fps = {kind: [r["fps"] for k, r in runs if k == kind] for kind in sources}
+    print(f"{tag} every video and sequence JSON equals estimate() on the Motion-JPEG decode "
+          f"(FFmpeg's arithmetic) of its frame; --start_frame 3 wrote 5 files equal to the "
+          f"first run's on the AVI and the sequence; FPS over {n} {w}x{h} frames: video "
+          f"{fps['video']}, sequence {fps['sequence']}, directory {fps['dir']} (in turns); host "
+          f"ms a frame (median of {len(read_ms)}): container read "
+          f"{statistics.median(read_ms):.4f}, decode {statistics.median(decode_ms):.3f} "
+          f"({sum(map(len, jpegs)) // n} B a frame)")
+    return dict(fps_video=fps["video"], fps_sequence=fps["sequence"], fps_dir=fps["dir"],
+                launches=first["launches"], sequence_launches=runs[2][1]["launches"],
+                start_frame_3=seeks["video"], sequence_start_frame_3=seeks["sequence"],
                 read_ms=statistics.median(read_ms), decode_ms=statistics.median(decode_ms),
                 bytes_a_frame=sum(map(len, jpegs)) / n, seconds=[r["seconds"] for _, r in runs])
 
@@ -5419,6 +5543,7 @@ def main() -> int:
     imgproc = phase_imgproc(info["nvidia_smi"])
     text = phase_text(info["nvidia_smi"])
     vid = phase_video(info["nvidia_smi"])
+    formats = phase_formats(info["nvidia_smi"])
     t_mask = phase_kernels()
     t_up = phase_upsample_keys()
     t_conv1 = phase_conv1()
@@ -5456,11 +5581,13 @@ def main() -> int:
         check(cli_720p_text["launches"] == cli_720p["launches"],
               f"[cli jpeg text] hand-kernel launches {cli_720p_text['launches']} against the PNG "
               f"run's {cli_720p['launches']}")
-        # those frames in a Motion-JPEG AVI through rtpose --video
+        # those frames in a Motion-JPEG AVI and as a printf sequence through
+        # rtpose --video
         cli_video = phase_cli_video(files, frames_720)
-        check(cli_video["launches"] == cli_720p["launches"],
-              f"[cli video] hand-kernel launches {cli_video['launches']} against the PNG "
-              f"run's {cli_720p['launches']}")
+        for key in ("launches", "sequence_launches"):
+            check(cli_video[key] == cli_720p["launches"],
+                  f"[cli video] hand-kernel {key} {cli_video[key]} against the PNG "
+                  f"run's {cli_720p['launches']}")
         # the committed MPEG-4 clip through rtpose --video
         cli_mp4 = phase_cli_mp4(files)
         check(cli_mp4["launches"] == cli_720p["launches"],
@@ -5523,6 +5650,7 @@ def main() -> int:
     print(json.dumps({"imgproc": imgproc}))
     print(json.dumps({"text": text}))
     print(json.dumps({"video": vid}))
+    print(json.dumps({"formats": formats}))
     print(json.dumps({"cli_video": cli_video}))
     print(json.dumps({"cli_mp4": cli_mp4}))
     print(json.dumps({"serving": serving}))
@@ -5562,6 +5690,8 @@ def main() -> int:
                                 cli_720p_text["launches"]["peak_mask_fused"], None),
                             "cli 1280x720 video": (cli_video["launches"]["peak_mask_fused"],
                                                    None),
+                            "cli 1280x720 sequence": (
+                                cli_video["sequence_launches"]["peak_mask_fused"], None),
                             "cli 1280x720 mp4": (cli_mp4["launches"]["peak_mask_fused"], None),
                             **{f"{path} (by rank)": (v, None) for path, v in
                                parallel["k1_launches_by_path"].items()}},
@@ -5582,6 +5712,8 @@ def main() -> int:
                         "cli 1280x720 jpeg text": (cli_720p_text["launches"]["conv1_block"],
                                                    None),
                         "cli 1280x720 video": (cli_video["launches"]["conv1_block"], None),
+                        "cli 1280x720 sequence": (cli_video["sequence_launches"]["conv1_block"],
+                                                  None),
                         "cli 1280x720 mp4": (cli_mp4["launches"]["conv1_block"], None)},
     }
     entries = [
@@ -5605,7 +5737,7 @@ def main() -> int:
                                  **{path: r["hand_kernel_launches"].get(
                                      name.replace("_3scale", ""), 0) for path, r in (
                                      ("imgproc", imgproc), ("text", text), ("video", vid),
-                                     ("train f32", train),
+                                     ("formats", formats), ("train f32", train),
                                      ("train bf16", train_bf16), ("framework", framework),
                                      ("tools", tools), ("matcaffe", matcaffe))}},
             "replayed_launches_by_path": {k: v[1] for k, v in by_path[name].items()

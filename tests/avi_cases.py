@@ -201,10 +201,45 @@ def seeks(name: str):
     return LONG_SEEKS if CASES[name][0] > 8 else SEEKS
 
 
-def ident(img, sources) -> int:
-    """The index of the source frame nearest ``img`` by mean |difference|
-    (FFMPEG's pixels are not libjpeg's, ROADMAP C9), 1.3 times nearer than
-    the next."""
+def chunks(data: bytes):
+    """The bytes of every non-empty ``00dc`` chunk in file order (a chunk the
+    end of the file cuts, as far as it goes): a plain walk that descends into
+    each RIFF and LIST, independent of the port's reader."""
+    out, pos = [], 12
+    while pos + 8 <= len(data):
+        fcc, size = struct.unpack_from("<4sI", data, pos)
+        if fcc in (b"RIFF", b"LIST"):
+            pos += 12
+            continue
+        if fcc == b"00dc" and size:
+            out.append(data[pos + 8:pos + 8 + size])
+        pos += 8 + size + (size & 1)
+    return out
+
+
+def decoded(data: bytes, decode):
+    """Each source frame of an AVI as FFMPEG decodes it: ``decode(chunk)``
+    (one decoder over the chunks in file order, so that a cut chunk keeps
+    the frame before's pixels) of its chunk, None where it does not
+    decode."""
+    out = []
+    for c in chunks(data):
+        try:
+            out.append(decode(c))
+        except ValueError:
+            out.append(None)
+    return out
+
+
+def ident(img, sources, exact: bool = False) -> int:
+    """The index of the source frame nearest ``img`` by mean |difference|,
+    1.3 times nearer than the next; with ``exact``, of the one frame of
+    ``sources`` (decoded frames) equal to ``img``."""
+    if exact:
+        hits = [i for i, s in enumerate(sources) if s is not None and np.array_equal(img, s)]
+        if len(hits) != 1:
+            raise ValueError(f"a frame equals sources {hits}")
+        return hits[0]
     d = sorted((float(np.abs(img.astype(np.int32) - s).mean()), i)
                for i, s in enumerate(sources))
     if not d[1][0] > 1.3 * d[0][0]:
@@ -212,13 +247,15 @@ def ident(img, sources) -> int:
     return d[0][1]
 
 
-def observe(runner, path, sources, seek_to):
+def observe(runner, path, sources, seek_to, exact: bool = False, ui: bool = True):
     """What ``runner.frame_source`` (the JAX package's or the port's runner
     module) gives for ``path`` in PINNED's form: the source ids of the frames
     read from the start, of READ_AFTER_SEEK frames after each start_frame k,
     and of READ_AFTER_SEEK frames after a ui seek to k made once 2 frames
     were read; the frame numbers it yields are checked to count on from 0
-    or k."""
+    or k.  ``exact``: ``sources`` are the decoded frames (:func:`decoded`)
+    and each frame must equal one of them; without ``ui``, no ui seeks (a
+    source of one frame)."""
     def ids(first, start=0, ui_seek=None, limit=READ_AFTER_SEEK):
         ui = runner.UIState() if ui_seek is not None else None
         src = runner.frame_source(runner.PipelineConfig(video=path, start_frame=start,
@@ -230,18 +267,20 @@ def observe(runner, path, sources, seek_to):
         got = list(itertools.islice(src, limit))
         if [i for i, _, _ in got] != list(range(first, first + len(got))):
             raise ValueError(f"{path}: frame numbers {[i for i, _, _ in got]} from {first}")
-        return tuple(ident(img, sources) for _, img, _ in got)
+        return tuple(ident(img, sources, exact) for _, img, _ in got)
 
-    return dict(order=ids(0, limit=None), start={k: ids(k, start=k) for k in seek_to},
-                ui={k: ids(k, ui_seek=k) for k in seek_to})
+    out = dict(order=ids(0, limit=None), start={k: ids(k, start=k) for k in seek_to})
+    if ui:
+        out["ui"] = {k: ids(k, ui_seek=k) for k in seek_to}
+    return out
 
 
 # What the JAX package's reader gives for each case (frame ids index the
 # case's source frames): frame_count and fps as cv2.VideoCapture reports
 # them, the frames a read from the start gives, the frames READ_AFTER_SEEK
 # reads give after start_frame k and after a ui seek to k made once 2 frames
-# were read, and the sha256 of the port's decoded frames (decode_jpeg, which
-# is cv2.imdecode) in the read's order.
+# were read, and the sha256 of the JAX reader's frames in the read's order
+# (FFMPEG's decode, which the port's equals bit for bit).
 PINNED = {
     "cv2": {'count': 8,
      'fps': 25.0,
@@ -264,7 +303,7 @@ PINNED = {
             8: (),
             9: (),
             100: ()},
-     'sha256': 'c2ae6d4d68e89f64ea81cb49f4683660c8edc1a1590b6141f61c89a7cc41dc6c'},
+     'sha256': 'bfd28d2e99ed9b1036ffc223a51e1def12fb5dcadc59a5b966b72168a24247da'},
     "ffmpeg": {'count': 8,
      'fps': 25.0,
      'order': (0, 1, 2, 3, 4, 5, 6, 7),
@@ -286,7 +325,7 @@ PINNED = {
             8: (),
             9: (),
             100: ()},
-     'sha256': 'c2ae6d4d68e89f64ea81cb49f4683660c8edc1a1590b6141f61c89a7cc41dc6c'},
+     'sha256': 'bfd28d2e99ed9b1036ffc223a51e1def12fb5dcadc59a5b966b72168a24247da'},
     "idx1_absolute": {'count': 8,
      'fps': 25.0,
      'order': (0, 1, 2, 3, 4, 5, 6, 7),
@@ -308,7 +347,7 @@ PINNED = {
             8: (),
             9: (),
             100: ()},
-     'sha256': 'c2ae6d4d68e89f64ea81cb49f4683660c8edc1a1590b6141f61c89a7cc41dc6c'},
+     'sha256': 'bfd28d2e99ed9b1036ffc223a51e1def12fb5dcadc59a5b966b72168a24247da'},
     "no_idx1": {'count': 8,
      'fps': 25.0,
      'order': (0, 1, 2, 3, 4, 5, 6, 7),
@@ -330,7 +369,7 @@ PINNED = {
             8: (),
             9: (),
             100: ()},
-     'sha256': 'c2ae6d4d68e89f64ea81cb49f4683660c8edc1a1590b6141f61c89a7cc41dc6c'},
+     'sha256': 'bfd28d2e99ed9b1036ffc223a51e1def12fb5dcadc59a5b966b72168a24247da'},
     "odd_chunk": {'count': 8,
      'fps': 25.0,
      'order': (0, 1, 2, 3, 4, 5, 6, 7),
@@ -352,7 +391,7 @@ PINNED = {
             8: (),
             9: (),
             100: ()},
-     'sha256': 'c2ae6d4d68e89f64ea81cb49f4683660c8edc1a1590b6141f61c89a7cc41dc6c'},
+     'sha256': 'bfd28d2e99ed9b1036ffc223a51e1def12fb5dcadc59a5b966b72168a24247da'},
     "zero_length": {'count': 9,
      'fps': 25.0,
      'order': (0, 1, 2, 3, 4, 5, 6, 7),
@@ -374,7 +413,7 @@ PINNED = {
             8: (),
             9: (),
             100: ()},
-     'sha256': 'c2ae6d4d68e89f64ea81cb49f4683660c8edc1a1590b6141f61c89a7cc41dc6c'},
+     'sha256': 'bfd28d2e99ed9b1036ffc223a51e1def12fb5dcadc59a5b966b72168a24247da'},
     "zero_first": {'count': 9,
      'fps': 25.0,
      'order': (0, 1, 2, 3, 4, 5, 6, 7),
@@ -396,7 +435,7 @@ PINNED = {
             8: (),
             9: (),
             100: ()},
-     'sha256': 'c2ae6d4d68e89f64ea81cb49f4683660c8edc1a1590b6141f61c89a7cc41dc6c'},
+     'sha256': 'bfd28d2e99ed9b1036ffc223a51e1def12fb5dcadc59a5b966b72168a24247da'},
     "ntsc": {'count': 8,
      'fps': 29.97002997002997,
      'order': (0, 1, 2, 3, 4, 5, 6, 7),
@@ -418,7 +457,7 @@ PINNED = {
             8: (),
             9: (),
             100: ()},
-     'sha256': 'c2ae6d4d68e89f64ea81cb49f4683660c8edc1a1590b6141f61c89a7cc41dc6c'},
+     'sha256': 'bfd28d2e99ed9b1036ffc223a51e1def12fb5dcadc59a5b966b72168a24247da'},
     "odml": {'count': 8,
      'fps': 25.0,
      'order': (0, 1, 2, 3, 4, 5, 6, 7),
@@ -440,7 +479,7 @@ PINNED = {
             8: (),
             9: (),
             100: ()},
-     'sha256': 'c2ae6d4d68e89f64ea81cb49f4683660c8edc1a1590b6141f61c89a7cc41dc6c'},
+     'sha256': 'bfd28d2e99ed9b1036ffc223a51e1def12fb5dcadc59a5b966b72168a24247da'},
     "long": {'count': 40,
      'fps': 25.0,
      'order': (0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21,
@@ -461,7 +500,7 @@ PINNED = {
             38: (38, 39),
             39: (39,),
             40: ()},
-     'sha256': 'e4117a13f0a6230a04f2b3124bf76ab391a6180258c349cd42cbf145356d1d5f'},
+     'sha256': '3cb335e117ddc7d99c707540a41a6d9f13fb7c5401c5511c303e7a50e9888adb'},
     "zero_long": {'count': 42,
      'fps': 25.0,
      'order': (0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21,
@@ -482,7 +521,7 @@ PINNED = {
             38: (37, 38, 39),
             39: (38, 39),
             40: (39,)},
-     'sha256': 'e4117a13f0a6230a04f2b3124bf76ab391a6180258c349cd42cbf145356d1d5f'},
+     'sha256': '3cb335e117ddc7d99c707540a41a6d9f13fb7c5401c5511c303e7a50e9888adb'},
     "truncated": {'count': 8,
      'fps': 25.0,
      'order': (0, 1, 2, 3, 4, 5, 6, 7),
@@ -504,7 +543,7 @@ PINNED = {
             8: (),
             9: (),
             100: ()},
-     'sha256': '660f7fb9ddcaf708bfbd64ecf9242751a431ba7b08647f496ec01ed7c534f50f'},
+     'sha256': '2e33a75148299416f06a5b813cacb565d0ea69b2d3668863852dfa585f65f920'},
     "corrupt": {'count': 8,
      'fps': 25.0,
      'order': (0, 1, 2, 3, 4),
@@ -526,5 +565,5 @@ PINNED = {
             8: (6, 7),
             9: (6, 7),
             100: (6, 7)},
-     'sha256': '1556ae5dbbd7970bd93034f631285f777589587480f56082a059356440d8180b'},
+     'sha256': '6f9379aa1627d9a9c5fc37592f21348520a3ed1e319014c4fc777c105d29b964'},
 }

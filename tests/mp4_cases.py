@@ -347,8 +347,7 @@ def _reads(ids):
 # READ_AFTER_SEEK reads give after start_frame k and after a ui seek to k
 # made once 2 frames were read (not for the 1280x720 clip, whose frames
 # differ too little to tell apart), and the sha256 of the port's frames in
-# the read's order (for MPEG-4 they equal cv2's; for Motion-JPEG,
-# cv2.imdecode's).
+# the read's order (they equal cv2's, MPEG-4 and Motion-JPEG alike).
 PINNED = {
     "mp4v_mp4": dict(count=26, fps=25.0, **_reads(range(0, 26)),
                      sha256="84741607830889986b4ec76bfbff2d56b6a7543d399887204eda2d4fe8a38ad6"),
@@ -359,7 +358,7 @@ PINNED = {
     "divx_avi": dict(count=26, fps=25.0, **_reads(range(0, 26)),
                      sha256="84741607830889986b4ec76bfbff2d56b6a7543d399887204eda2d4fe8a38ad6"),
     "mjpeg_mov": dict(count=26, fps=25.0, **_reads(range(0, 26)),
-                      sha256="46c44564a54a428495bb261dbf31f03410fa532ce1f9b578af7622da0df21dfb"),
+                      sha256="07e2010779f808db0b33bfb02bc68b46a951616766a89c60f0a76eb9b4978e11"),
     "motion_mp4": dict(count=14, fps=25.0, **_reads(range(0, 14)),
                        sha256="7639297d24214c581dc8c7b11736d95cb466ce68aa84dd2141a05690ab490583"),
     "mp4v_720p": dict(count=8, fps=25.0,

@@ -1,6 +1,11 @@
 """The pipeline's image reader (pipeline/image_io.py) against cv2.imread on
-files that cv2.imwrite wrote (gray, RGB and RGBA, odd widths), and on PNGs
-whose rows use each of the five scanline filters."""
+files that cv2.imwrite wrote (gray, RGB and RGBA, odd widths), on PNGs
+whose rows use each of the five scanline filters, on files whose extension
+names another format (the decoder is chosen by the signature), on the BMP
+layouts and PNM files of tests/image_cases.py (colour and gray, against
+the pins too); and the BMP and PNM encoders and Datums against
+cv2.imencode/imdecode and the JAX package's datum helpers, cv2 blocked for
+the port."""
 
 import struct
 import sys
@@ -9,7 +14,11 @@ import zlib
 import numpy as np
 import pytest
 
+import image_cases as C
+from caffe_rtpose_tpu.proto import datum as jax_datum
+from caffe_rtpose_tpu_torch.pipeline import image_io
 from caffe_rtpose_tpu_torch.pipeline.image_io import read_image
+from caffe_rtpose_tpu_torch.proto import datum
 
 cv2 = pytest.importorskip("cv2")
 
@@ -137,3 +146,100 @@ def test_gray_read_matches_cv2(tmp_path, kind, monkeypatch):
 
         with open(path, "rb") as f:
             np.testing.assert_array_equal(decode_png(f.read(), gray=True), ref)
+
+
+# ------------------------------------------------- the decoder by signature
+
+@pytest.mark.parametrize("write_ext,name_ext", [(".jpg", ".png"), (".png", ".jpg"),
+                                                (".bmp", ".ppm"), (".ppm", ".bmp"),
+                                                (".pgm", ".jpeg")])
+def test_reads_by_signature_not_extension(tmp_path, write_ext, name_ext, monkeypatch):
+    """A JPEG named .png (common in scraped datasets) and the like: read as
+    cv2.imread reads them, by their signature."""
+    img = _image((19, 27, 3), 8)
+    src = str(tmp_path / f"src{write_ext}")
+    assert cv2.imwrite(src, img[..., 0] if write_ext == ".pgm" else img)
+    path = str(tmp_path / f"named{name_ext}")
+    with open(src, "rb") as a, open(path, "wb") as b:
+        b.write(a.read())
+    refs = [cv2.imread(path, flag) for flag in (cv2.IMREAD_COLOR, cv2.IMREAD_GRAYSCALE)]
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    for gray, ref in zip((False, True), refs):
+        np.testing.assert_array_equal(read_image(path, gray=gray), ref)
+
+
+@pytest.mark.parametrize("ext,fmt", [(".tiff", "TIFF"), (".webp", "WebP")])
+def test_other_formats_named(tmp_path, ext, fmt):
+    path = str(tmp_path / "img.png")  # the name does not matter
+    ok, buf = cv2.imencode(ext, _image((8, 8, 3), 1))
+    assert ok
+    with open(path, "wb") as f:
+        f.write(buf.tobytes())
+    assert image_io.image_format(buf.tobytes()) == fmt
+    with pytest.raises(ValueError) as e:
+        read_image(path)
+    assert path in str(e.value) and fmt in str(e.value)
+
+
+# ------------------------------------------------------- BMP and PNM reads
+
+DECODE = C.decode_files()
+
+
+@pytest.mark.parametrize("name", list(DECODE))
+def test_bmp_and_pnm_read_as_cv2(tmp_path, name, monkeypatch):
+    """Every crafted BMP layout and PNM file: read_image (cv2 blocked) equals
+    cv2.imread with IMREAD_COLOR and IMREAD_GRAYSCALE, and both equal the
+    pins; where cv2 reads nothing the port raises naming the file."""
+    path = str(tmp_path / ("img.bmp" if name.startswith("bmp") else "img.pnm"))
+    with open(path, "wb") as f:
+        f.write(DECODE[name])
+    refs = [cv2.imread(path, flag) for flag in (cv2.IMREAD_COLOR, cv2.IMREAD_GRAYSCALE)]
+    assert tuple(None if r is None else C.sha256(r) for r in refs) == C.PINNED[name]
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    for gray, ref in zip((False, True), refs):
+        if ref is None:
+            with pytest.raises(ValueError, match="img"):
+                read_image(path, gray=gray)
+            continue
+        got = read_image(path, gray=gray)
+        assert got.dtype == np.uint8 and got.shape == ref.shape
+        np.testing.assert_array_equal(got, ref)
+
+
+# ------------------------------------------------- BMP and PNM writes, Datums
+
+IMAGES = C.encode_images()
+
+
+@pytest.mark.parametrize("name,ext", C.encode_cases(), ids="".join)
+def test_bmp_and_pnm_datums_as_cv2(name, ext, monkeypatch):
+    """image_to_datum(img, fmt) holds cv2.imencode's bytes (the JAX package's
+    Datum), and datum_to_image of it equals cv2.imdecode's array (the JAX
+    package's), cv2 blocked for the port; the pins hold both."""
+    img, fmt = IMAGES[name], ext[1:]
+    ref = jax_datum.image_to_datum(img, 5, fmt)
+    ref_img = jax_datum.datum_to_image(ref)
+    assert (C.sha256(bytes(ref["data"])), C.sha256(ref_img[..., 0] if ref["channels"] == 1
+                                                   else ref_img)) == C.PINNED[name + ext]
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    encode = image_io.encode_bmp if fmt == "bmp" else lambda x: image_io.encode_pnm(x, fmt)
+    assert encode(img) == bytes(ref["data"])
+    got = datum.image_to_datum(img, 5, fmt)
+    assert got == ref
+    back = datum.datum_to_image(got)
+    assert back.dtype == np.uint8
+    np.testing.assert_array_equal(back, ref_img)
+
+
+@pytest.mark.parametrize("fmt", ["pbm", "pgm", "ppm"])
+def test_pnm_kind_refused_as_cv2(fmt, monkeypatch):
+    """A colour image as PBM or PGM, a gray one as PPM: cv2.imencode fails,
+    and both Datum helpers raise IOError."""
+    img = IMAGES["gray" if fmt == "ppm" else "bgr"]
+    assert not cv2.imencode("." + fmt, img)[0]
+    with pytest.raises(IOError):
+        jax_datum.image_to_datum(img, 0, fmt)
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    with pytest.raises(IOError, match=fmt):
+        datum.image_to_datum(img, 0, fmt)

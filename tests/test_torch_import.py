@@ -135,7 +135,8 @@ TEXT_RUN = (
     "assert len(np.unique(img[..., 0])) > 100\n")
 
 # the only modules of the port whose source imports OpenCV (for the camera,
-# the window and videos the port's readers refuse, and Datums neither PNG nor JPEG)
+# the window and videos the port's readers refuse, and Datums in the formats only
+# OpenCV reads)
 CV2_MODULES = {os.path.join("pipeline", "runner.py"), os.path.join("proto", "datum.py")}
 
 

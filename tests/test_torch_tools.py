@@ -270,7 +270,10 @@ CONVERT_CASES = {"raw": ([], 0), "encoded": (["--encoded"], 0),
                  "resized": (["--resize_height", "16", "--resize_width", "20"], 0),
                  "gray": (["--gray"], 0),
                  "gray_resized_shuffled": (["--gray", "--shuffle", "--resize_height", "12",
-                                            "--resize_width", "14"], 0)}
+                                            "--resize_width", "14"], 0),
+                 "encoded_bmp": (["--encoded", "--encode_type", "bmp"], 0),
+                 "encoded_ppm": (["--encoded", "--encode_type", "ppm"], 0),
+                 "gray_encoded_pgm": (["--gray", "--encoded", "--encode_type", "pgm"], 0)}
 
 
 @pytest.mark.parametrize("case", list(CONVERT_CASES))
