@@ -1,0 +1,1977 @@
+// H.264 (ISO/IEC 14496-10) Constrained Baseline video decoded on the host,
+// as FFmpeg's `h264` decoder decodes it for OpenCV's VideoCapture, and each
+// picture, cropped, converted to BGR24 as swscale's unscaled YUV420P (or,
+// with video_full_range_flag, YUVJ420P) -> BGR24 path converts it.
+//
+// What is decoded: CAVLC, I and P slices, 4:2:0 8-bit progressive frames;
+// several slices a picture, in order; Intra4x4, Intra16x16, I_PCM and the
+// P partitions down to 4x4; quarter-pel luma and eighth-pel chroma motion
+// compensation with edge clamping; the in-loop deblocking filter; short-term
+// reference pictures under the sliding window and MMCO 1, with reference
+// list modification; POC types 0 and 2; FFmpeg's output order and delay
+// (has_b_frames, num_reorder_frames and its POC heuristics).  The samples are
+// those the standard specifies (H.264 decoding is exact), so any conforming
+// decoder gives the same planes.  Everything else (CABAC, B, SP and SI
+// slices, field pictures and MBAFF, slice groups, arbitrary slice order,
+// redundant pictures, weighted prediction, other chroma formats and bit
+// depths, the 8x8 transform, scaling matrices, long-term references, MMCO 5,
+// POC type 1, frame_num gaps, constrained intra prediction, data
+// partitioning) is refused by name.  There is no concealment: a slice that
+// does not decode raises.
+//
+// C interface (ctypes): crt_h264_create, crt_h264_config (the parameter sets
+// carried outside the packets, and the NAL length size), crt_h264_probe (checks a packet's
+// parameter sets and slice headers without decoding), crt_h264_decode (one
+// packet), crt_h264_drain (the pictures held back, at the end), crt_h264_bgr
+// (the last picture given, as BGR24), crt_h264_flush, crt_h264_destroy.
+
+#include <algorithm>
+#include <cstdint>
+#include <cstdio>
+#include <cstdlib>
+#include <cstring>
+#include <climits>
+#include <memory>
+#include <stdexcept>
+#include <string>
+#include <vector>
+
+#include "ffmpeg_dsp.h"
+
+namespace {
+
+struct Corrupt : std::runtime_error {
+    using std::runtime_error::runtime_error;
+};
+struct Refused : std::runtime_error {
+    using std::runtime_error::runtime_error;
+};
+
+inline int clip3(int lo, int hi, int v) { return v < lo ? lo : v > hi ? hi : v; }
+inline uint8_t clip1(int v) { return (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v); }
+
+// ------------------------------------------------------------------ tables
+
+// Table 9-5 (coeff_token), by nC class, indexed TotalCoeff * 4 + TrailingOnes
+const uint8_t kTokenLen[3][68] = {
+    {1, 0, 0, 0, 6, 2, 0, 0, 8, 6, 3, 0, 9, 8, 7, 5, 10, 9, 8, 6, 11, 10, 9, 7, 13, 11, 10, 8,
+     13, 13, 11, 9, 13, 13, 13, 10, 14, 14, 13, 11, 14, 14, 14, 13, 15, 15, 14, 14, 15, 15,
+     15, 14, 16, 15, 15, 15, 16, 16, 16, 15, 16, 16, 16, 16, 16, 16, 16, 16},
+    {2, 0, 0, 0, 6, 2, 0, 0, 6, 5, 3, 0, 7, 6, 6, 4, 8, 6, 6, 4, 8, 7, 7, 5, 9, 8, 8, 6,
+     11, 9, 9, 6, 11, 11, 11, 7, 12, 11, 11, 9, 12, 12, 12, 11, 12, 12, 12, 11, 13, 13, 13,
+     12, 13, 13, 13, 13, 13, 14, 13, 13, 14, 14, 14, 13, 14, 14, 14, 14},
+    {4, 0, 0, 0, 6, 4, 0, 0, 6, 5, 4, 0, 6, 5, 5, 4, 7, 5, 5, 4, 7, 5, 5, 4, 7, 6, 6, 4,
+     7, 6, 6, 4, 8, 7, 7, 5, 8, 8, 7, 6, 9, 8, 8, 7, 9, 9, 8, 8, 9, 9, 9, 8, 10, 9, 9, 9,
+     10, 10, 10, 10, 10, 10, 10, 10, 10, 10, 10, 10}};
+const uint8_t kTokenBits[3][68] = {
+    {1, 0, 0, 0, 5, 1, 0, 0, 7, 4, 1, 0, 7, 6, 5, 3, 7, 6, 5, 3, 7, 6, 5, 4, 15, 6, 5, 4,
+     11, 14, 5, 4, 8, 10, 13, 4, 15, 14, 9, 4, 11, 10, 13, 12, 15, 14, 9, 12, 11, 10, 13, 8,
+     15, 1, 9, 12, 11, 14, 13, 8, 7, 10, 9, 12, 4, 6, 5, 8},
+    {3, 0, 0, 0, 11, 2, 0, 0, 7, 7, 3, 0, 7, 10, 9, 5, 7, 6, 5, 4, 4, 6, 5, 6, 7, 6, 5, 8,
+     15, 6, 5, 4, 11, 14, 13, 4, 15, 10, 9, 4, 11, 14, 13, 12, 8, 10, 9, 8, 15, 14, 13, 12,
+     11, 10, 9, 12, 7, 11, 6, 8, 9, 8, 10, 1, 7, 6, 5, 4},
+    {15, 0, 0, 0, 15, 14, 0, 0, 11, 15, 13, 0, 8, 12, 14, 12, 15, 10, 11, 11, 11, 8, 9, 10,
+     9, 14, 13, 9, 8, 10, 9, 8, 15, 14, 13, 13, 11, 14, 10, 12, 15, 10, 13, 12, 11, 14, 9, 12,
+     8, 10, 13, 8, 13, 7, 9, 12, 9, 12, 11, 10, 5, 8, 7, 6, 1, 4, 3, 2}};
+const uint8_t kDcTokenLen[20] = {2, 0, 0, 0, 6, 1, 0, 0, 6, 6, 3, 0, 6, 7, 7, 6, 6, 8, 8, 7};
+const uint8_t kDcTokenBits[20] = {1, 0, 0, 0, 7, 1, 0, 0, 4, 6, 1, 0, 3, 3, 2, 5, 2, 3, 2, 0};
+// Tables 9-7 and 9-8 (total_zeros, 4x4 blocks), by TotalCoeff - 1
+const uint8_t kZerosLen[15][16] = {
+    {1, 3, 3, 4, 4, 5, 5, 6, 6, 7, 7, 8, 8, 9, 9, 9}, {3, 3, 3, 3, 3, 4, 4, 4, 4, 5, 5, 6, 6, 6, 6},
+    {4, 3, 3, 3, 4, 4, 3, 3, 4, 5, 5, 6, 5, 6}, {5, 3, 4, 4, 3, 3, 3, 4, 3, 4, 5, 5, 5},
+    {4, 4, 4, 3, 3, 3, 3, 3, 4, 5, 4, 5}, {6, 5, 3, 3, 3, 3, 3, 3, 4, 3, 6},
+    {6, 5, 3, 3, 3, 2, 3, 4, 3, 6}, {6, 4, 5, 3, 2, 2, 3, 3, 6}, {6, 6, 4, 2, 2, 3, 2, 5},
+    {5, 5, 3, 2, 2, 2, 4}, {4, 4, 3, 3, 1, 3}, {4, 4, 2, 1, 3}, {3, 3, 1, 2}, {2, 2, 1}, {1, 1}};
+const uint8_t kZerosBits[15][16] = {
+    {1, 3, 2, 3, 2, 3, 2, 3, 2, 3, 2, 3, 2, 3, 2, 1}, {7, 6, 5, 4, 3, 5, 4, 3, 2, 3, 2, 3, 2, 1, 0},
+    {5, 7, 6, 5, 4, 3, 4, 3, 2, 3, 2, 1, 1, 0}, {3, 7, 5, 4, 6, 5, 4, 3, 3, 2, 2, 1, 0},
+    {5, 4, 3, 7, 6, 5, 4, 3, 2, 1, 1, 0}, {1, 1, 7, 6, 5, 4, 3, 2, 1, 1, 0},
+    {1, 1, 5, 4, 3, 3, 2, 1, 1, 0}, {1, 1, 1, 3, 3, 2, 2, 1, 0}, {1, 0, 1, 3, 2, 1, 1, 1},
+    {1, 0, 1, 3, 2, 1, 1}, {0, 1, 1, 2, 1, 3}, {0, 1, 1, 1, 1}, {0, 1, 1, 1}, {0, 1, 1}, {0, 1}};
+// Table 9-9 (a): total_zeros of chroma DC 2x2
+const uint8_t kDcZerosLen[3][4] = {{1, 2, 3, 3}, {1, 2, 2}, {1, 1}};
+const uint8_t kDcZerosBits[3][4] = {{1, 1, 1, 0}, {1, 1, 0}, {1, 0}};
+// Table 9-10 (run_before), by min(zerosLeft, 7) - 1
+const uint8_t kRunLen[7][16] = {{1, 1}, {1, 2, 2}, {2, 2, 2, 2}, {2, 2, 2, 3, 3},
+                                {2, 2, 3, 3, 3, 3}, {2, 3, 3, 3, 3, 3, 3},
+                                {3, 3, 3, 3, 3, 3, 3, 4, 5, 6, 7, 8, 9, 10, 11}};
+const uint8_t kRunBits[7][16] = {{1, 0}, {1, 1, 0}, {3, 2, 1, 0}, {3, 2, 1, 1, 0},
+                                 {3, 2, 3, 2, 1, 0}, {3, 0, 1, 3, 2, 5, 4},
+                                 {7, 6, 5, 4, 3, 2, 1, 1, 1, 1, 1, 1, 1, 1, 1}};
+// Table 9-4: coded_block_pattern from codeNum (Intra_4x4, Inter)
+const uint8_t kIntraCbp[48] = {47, 31, 15, 0,  23, 27, 29, 30, 7,  11, 13, 14, 39, 43, 45, 46,
+                               16, 3,  5,  10, 12, 19, 21, 26, 28, 35, 37, 42, 44, 1,  2,  4,
+                               8,  17, 18, 20, 24, 6,  9,  22, 25, 32, 33, 34, 36, 40, 38, 41};
+const uint8_t kInterCbp[48] = {0,  16, 1,  2,  4,  8,  32, 3,  5,  10, 12, 15, 47, 7,  11, 13,
+                               14, 6,  9,  31, 35, 37, 42, 44, 33, 34, 36, 40, 39, 43, 45, 46,
+                               17, 18, 20, 24, 19, 21, 26, 28, 23, 27, 29, 30, 22, 25, 38, 41};
+const uint8_t kZigzag[16] = {0, 1, 4, 8, 5, 2, 3, 6, 9, 12, 13, 10, 7, 11, 14, 15};
+// normAdjust4x4 (8-315): v[m][0] at (even, even), [1] at (odd, odd), [2] else
+const int kNormAdjust[6][3] = {{10, 16, 13}, {11, 18, 14}, {13, 20, 16},
+                               {14, 23, 18}, {16, 25, 20}, {18, 29, 23}};
+// Table 8-15: QPc from qPI 30..51
+const uint8_t kChromaQp[22] = {29, 30, 31, 32, 32, 33, 34, 34, 35, 35, 36,
+                               36, 37, 37, 37, 38, 38, 38, 39, 39, 39, 39};
+// Table 8-16 (alpha', beta' from indexA/indexB 16..51) and 8-17 (tC0)
+const uint8_t kAlpha[52] = {0,  0,  0,  0,  0,  0,  0,  0,  0,   0,   0,   0,   0,
+                            0,  0,  0,  4,  4,  5,  6,  7,  8,   9,   10,  12,  13,
+                            15, 17, 20, 22, 25, 28, 32, 36, 40,  45,  50,  56,  63,
+                            71, 80, 90, 101, 113, 127, 144, 162, 182, 203, 226, 255, 255};
+const uint8_t kBeta[52] = {0, 0, 0, 0, 0, 0, 0, 0, 0,  0,  0,  0,  0,  0,  0,  0,  2,  2,
+                           2, 3, 3, 3, 3, 4, 4, 4, 6,  6,  7,  7,  8,  8,  9,  9,  10, 10,
+                           11, 11, 12, 12, 13, 13, 14, 14, 15, 15, 16, 16, 17, 17, 18, 18};
+const uint8_t kTc0[52][3] = {
+    {0, 0, 0},   {0, 0, 0},   {0, 0, 0},   {0, 0, 0},    {0, 0, 0},    {0, 0, 0},
+    {0, 0, 0},   {0, 0, 0},   {0, 0, 0},   {0, 0, 0},    {0, 0, 0},    {0, 0, 0},
+    {0, 0, 0},   {0, 0, 0},   {0, 0, 0},   {0, 0, 0},    {0, 0, 0},    {0, 0, 1},
+    {0, 0, 1},   {0, 0, 1},   {0, 0, 1},   {0, 1, 1},    {0, 1, 1},    {1, 1, 1},
+    {1, 1, 1},   {1, 1, 1},   {1, 1, 1},   {1, 1, 2},    {1, 1, 2},    {1, 1, 2},
+    {1, 1, 2},   {1, 2, 3},   {1, 2, 3},   {2, 2, 3},    {2, 2, 4},    {2, 3, 4},
+    {2, 3, 4},   {3, 3, 5},   {3, 4, 6},   {3, 4, 6},    {4, 5, 7},    {4, 5, 8},
+    {4, 6, 9},   {5, 7, 10},  {6, 8, 11},  {6, 8, 13},   {7, 10, 14},  {8, 11, 16},
+    {9, 12, 18}, {10, 13, 20}, {11, 15, 23}, {13, 17, 25}};
+
+// (x, y) in 4x4 units of luma4x4BlkIdx, and its inverse
+const uint8_t kBlkX[16] = {0, 1, 0, 1, 2, 3, 2, 3, 0, 1, 0, 1, 2, 3, 2, 3};
+const uint8_t kBlkY[16] = {0, 0, 1, 1, 0, 0, 1, 1, 2, 2, 3, 3, 2, 2, 3, 3};
+const uint8_t kBlkIdx[16] = {0, 1, 4, 5, 2, 3, 6, 7, 8, 9, 12, 13, 10, 11, 14, 15};  // raster
+
+// A prefix code decoded by a lookup on 16 peeked bits: value, length
+struct Vlc {
+    std::vector<uint16_t> lut;  // (value << 5) | length; length 0: no code
+    int bits = 16;
+    void add(int len, int code, int value) {
+        if (!len) return;
+        const int shift = bits - len;
+        for (int i = 0; i < (1 << shift); i++)
+            lut[(code << shift) | i] = (uint16_t)(value << 5 | len);
+    }
+    explicit Vlc(int nbits) : lut((size_t)1 << nbits, 0), bits(nbits) {}
+};
+
+struct Tables {
+    Vlc token[3] = {Vlc(16), Vlc(16), Vlc(16)};
+    Vlc dc_token{8};
+    std::vector<Vlc> zeros, dc_zeros, run;
+    int chroma_qp[52 + 24];  // QPc of qPI + 12 (qPI -12..63 before clipping)
+    int dequant[52][16];     // LevelScale4x4 / 16 << QP / 6 by scan position (flat matrices)
+    Tables() {
+        for (int q = 0; q < 52; q++)
+            for (int i = 0; i < 16; i++) {
+                const int x = kZigzag[i] & 3, y = kZigzag[i] >> 2;
+                const int k = (x & 1) == 0 && (y & 1) == 0 ? 0 : (x & 1) && (y & 1) ? 1 : 2;
+                dequant[q][i] = kNormAdjust[q % 6][k] << (q / 6);
+            }
+        for (int k = 0; k < 3; k++)
+            for (int i = 0; i < 68; i++)
+                if ((i & 3) <= (i >> 2)) token[k].add(kTokenLen[k][i], kTokenBits[k][i], i);
+        for (int i = 0; i < 20; i++)
+            if ((i & 3) <= (i >> 2)) dc_token.add(kDcTokenLen[i], kDcTokenBits[i], i);
+        for (int t = 0; t < 15; t++) {
+            zeros.emplace_back(9);
+            for (int z = 0; z < 16 - t; z++) zeros.back().add(kZerosLen[t][z], kZerosBits[t][z], z);
+        }
+        for (int t = 0; t < 3; t++) {
+            dc_zeros.emplace_back(3);
+            for (int z = 0; z < 4 - t; z++)
+                dc_zeros.back().add(kDcZerosLen[t][z], kDcZerosBits[t][z], z);
+        }
+        for (int t = 0; t < 7; t++) {
+            run.emplace_back(11);
+            for (int r = 0; r < (t < 6 ? t + 2 : 15); r++)
+                run.back().add(kRunLen[t][r], kRunBits[t][r], r);
+        }
+        for (int i = 0; i < 52 + 24; i++) {
+            int q = clip3(0, 51, i - 12);
+            chroma_qp[i] = q < 30 ? q : kChromaQp[q - 30];
+        }
+    }
+};
+
+const Tables& tables() {
+    static const Tables t;
+    return t;
+}
+
+// ------------------------------------------------------------------ bits
+
+struct Bits {
+    const uint8_t* buf;  // padded with 8 zero bytes past `bytes`
+    size_t bytes;
+    size_t pos = 0;   // in bits
+    size_t stop = 0;  // the rbsp_stop_one_bit's position (bytes * 8 when none)
+
+    Bits(const uint8_t* b, size_t n) : buf(b), bytes(n) {
+        stop = n * 8;
+        for (size_t i = n; i-- > 0;)
+            if (b[i]) {
+                stop = i * 8 + 7 - (size_t)__builtin_ctz(b[i]);
+                break;
+            }
+    }
+    uint32_t show(int n) const {  // 0 < n <= 32
+        uint64_t v;
+        std::memcpy(&v, buf + std::min(pos >> 3, bytes), 8);
+        v = __builtin_bswap64(v) << (pos & 7);
+        return (uint32_t)(v >> (64 - n));
+    }
+    void skip(int n) {
+        pos += n;
+        if (pos > bytes * 8) throw Corrupt("read past the end of a NAL unit");
+    }
+    uint32_t u(int n) {
+        if (!n) return 0;
+        uint32_t v = show(n);
+        skip(n);
+        return v;
+    }
+    bool u1() { return u(1) != 0; }
+    uint32_t ue() {
+        int zeros = 0;
+        while (!u1()) {
+            if (++zeros > 31) throw Corrupt("an Exp-Golomb code longer than 32 bits");
+        }
+        return zeros ? (uint32_t)(((uint64_t)1 << zeros) - 1 + u(zeros)) : 0;
+    }
+    int se() {
+        uint32_t k = ue();
+        return k & 1 ? (int)((k + 1) >> 1) : -(int)(k >> 1);
+    }
+    int vlc(const Vlc& t) {
+        uint32_t e = t.lut[show(t.bits)];
+        if (!(e & 31)) throw Corrupt("an invalid variable-length code");
+        skip(e & 31);
+        return (int)(e >> 5);
+    }
+    bool more_rbsp_data() const { return pos < stop; }
+    void align() { pos = (pos + 7) & ~(size_t)7; }
+};
+
+uint32_t ue_max(Bits& b, uint32_t top, const char* what) {
+    uint32_t v = b.ue();
+    if (v > top) throw Corrupt(std::string(what) + " out of range");
+    return v;
+}
+
+// ---------------------------------------------------------- parameter sets
+
+struct Sps {
+    bool valid = false;
+    int profile = 0, level = 0;
+    int log2_max_frame_num = 4, poc_type = 0, log2_max_poc_lsb = 4;
+    int max_refs = 0;
+    bool gaps_allowed = false;
+    int mb_w = 0, mb_h = 0;
+    int crop_l = 0, crop_r = 0, crop_t = 0, crop_b = 0;  // luma samples
+    bool full_range = false, restriction = false;
+    int num_reorder_frames = 0;
+};
+
+struct Pps {
+    bool valid = false;
+    int sps_id = 0;
+    bool bottom_field_poc = false;
+    int num_ref_idx_default = 1;
+    int init_qp = 26;
+    int chroma_offset[2] = {0, 0};
+    bool deblocking_control = false;
+};
+
+void skip_hrd(Bits& b) {
+    uint32_t n = ue_max(b, 31, "cpb_cnt_minus1") + 1;
+    b.u(8);
+    for (uint32_t i = 0; i < n; i++) {
+        b.ue();
+        b.ue();
+        b.u(1);
+    }
+    b.u(20);
+}
+
+Sps parse_sps(Bits& b, int* id_out) {
+    Sps s;
+    s.profile = (int)b.u(8);
+    b.u(8);
+    s.level = (int)b.u(8);
+    int id = (int)ue_max(b, 31, "seq_parameter_set_id");
+    int chroma = 1, depth_y = 8, depth_c = 8;
+    const int p = s.profile;
+    if (p == 100 || p == 110 || p == 122 || p == 244 || p == 44 || p == 83 || p == 86 ||
+        p == 118 || p == 128 || p == 138 || p == 139 || p == 134 || p == 135) {
+        chroma = (int)ue_max(b, 3, "chroma_format_idc");
+        if (chroma == 3) b.u(1);
+        depth_y = (int)b.ue() + 8;
+        depth_c = (int)b.ue() + 8;
+        b.u(1);
+        if (chroma != 1) throw Refused("chroma_format_idc " + std::to_string(chroma) +
+                                       " (only 4:2:0, chroma_format_idc 1, is decoded)");
+        if (depth_y != 8 || depth_c != 8)
+            throw Refused("bit depth " + std::to_string(depth_y != 8 ? depth_y : depth_c) +
+                          " (only 8-bit samples are decoded)");
+        if (b.u1()) throw Refused("scaling matrices (seq_scaling_matrix_present_flag)");
+    }
+    s.log2_max_frame_num = (int)ue_max(b, 12, "log2_max_frame_num_minus4") + 4;
+    s.poc_type = (int)ue_max(b, 2, "pic_order_cnt_type");
+    if (s.poc_type == 0)
+        s.log2_max_poc_lsb = (int)ue_max(b, 12, "log2_max_pic_order_cnt_lsb_minus4") + 4;
+    else if (s.poc_type == 1)
+        throw Refused("pic_order_cnt_type 1 (POC types 0 and 2 are decoded)");
+    s.max_refs = (int)ue_max(b, 16, "max_num_ref_frames");
+    s.gaps_allowed = b.u1();
+    s.mb_w = (int)ue_max(b, 1023, "pic_width_in_mbs_minus1") + 1;
+    s.mb_h = (int)ue_max(b, 1023, "pic_height_in_map_units_minus1") + 1;
+    if (!b.u1()) throw Refused("field pictures and MBAFF (frame_mbs_only_flag 0)");
+    b.u(1);  // direct_8x8_inference_flag
+    if (b.u1()) {
+        s.crop_l = 2 * (int)b.ue();
+        s.crop_r = 2 * (int)b.ue();
+        s.crop_t = 2 * (int)b.ue();
+        s.crop_b = 2 * (int)b.ue();
+        if (s.crop_l + s.crop_r >= 16 * s.mb_w || s.crop_t + s.crop_b >= 16 * s.mb_h)
+            throw Corrupt("frame cropping removes the whole picture");
+    }
+    if (b.u1()) {  // VUI
+        if (b.u1() && b.u(8) == 255) b.u(32);  // aspect ratio
+        if (b.u1()) b.u(1);                     // overscan
+        if (b.u1()) {                           // video signal type
+            b.u(3);
+            s.full_range = b.u1();
+            if (b.u1()) b.u(24);
+        }
+        if (b.u1()) {  // chroma location
+            b.ue();
+            b.ue();
+        }
+        if (b.u1()) b.u(32), b.u(32), b.u(1);  // timing
+        bool nal_hrd = b.u1();
+        if (nal_hrd) skip_hrd(b);
+        bool vcl_hrd = b.u1();
+        if (vcl_hrd) skip_hrd(b);
+        if (nal_hrd || vcl_hrd) b.u(1);
+        b.u(1);  // pic_struct_present_flag
+        s.restriction = b.u1();
+        if (s.restriction) {
+            b.u(1);
+            for (int i = 0; i < 4; i++) b.ue();
+            s.num_reorder_frames = (int)ue_max(b, 16, "max_num_reorder_frames");
+            b.ue();
+        }
+    }
+    s.valid = true;
+    *id_out = id;
+    return s;
+}
+
+Pps parse_pps(Bits& b, const Sps* sps_table, int* id_out) {
+    Pps p;
+    int id = (int)ue_max(b, 255, "pic_parameter_set_id");
+    p.sps_id = (int)ue_max(b, 31, "seq_parameter_set_id");
+    if (!sps_table[p.sps_id].valid) throw Corrupt("a PPS names an SPS not received");
+    if (b.u1()) throw Refused("CABAC (entropy_coding_mode_flag 1; CAVLC is decoded)");
+    p.bottom_field_poc = b.u1();
+    if (b.ue() > 0) throw Refused("slice groups (FMO, num_slice_groups_minus1 > 0)");
+    p.num_ref_idx_default = (int)ue_max(b, 31, "num_ref_idx_l0_default_active_minus1") + 1;
+    ue_max(b, 31, "num_ref_idx_l1_default_active_minus1");
+    if (b.u1()) throw Refused("weighted prediction (weighted_pred_flag 1)");
+    b.u(2);  // weighted_bipred_idc: B slices only
+    p.init_qp = 26 + b.se();
+    b.se();
+    p.chroma_offset[0] = p.chroma_offset[1] = clip3(-12, 12, b.se());
+    p.deblocking_control = b.u1();
+    if (b.u1()) throw Refused("constrained_intra_pred (constrained_intra_pred_flag 1)");
+    if (b.u1()) throw Refused("redundant pictures (redundant_pic_cnt_present_flag 1)");
+    if (b.more_rbsp_data()) {
+        if (b.u1()) throw Refused("the 8x8 transform (transform_8x8_mode_flag 1)");
+        if (b.u1()) throw Refused("scaling matrices (pic_scaling_matrix_present_flag)");
+        p.chroma_offset[1] = clip3(-12, 12, b.se());
+    }
+    if (p.init_qp < 0 || p.init_qp > 51) throw Corrupt("pic_init_qp out of range");
+    p.valid = true;
+    *id_out = id;
+    return p;
+}
+
+struct SliceHeader {
+    int first_mb = 0, type = 0;  // 0 P, 2 I
+    int pps_id = 0;
+    int frame_num = 0, idr_pic_id = 0, poc_lsb = 0, delta_poc_bottom = 0;
+    int num_ref_idx_active = 1;
+    std::vector<std::pair<int, int>> modifications;  // (idc, abs_diff_pic_num_minus1)
+    std::vector<int> mmco1;                          // difference_of_pic_nums_minus1
+    bool adaptive = false;
+    int qp = 26;
+    int deblock_idc = 0, alpha_offset = 0, beta_offset = 0;
+    bool idr = false;
+    int ref_idc = 0;
+};
+
+// ---------------------------------------------------------------- pictures
+
+struct Picture {
+    int w = 0, h = 0;  // coded luma size
+    std::vector<uint8_t> y, u, v;
+    int frame_num = 0, poc = 0, id = 0;
+    long tag = -1;  // the packet the picture came in
+    bool key = false, mmco_reset = false, recovered = false, full_range = false;
+    int crop_l = 0, crop_r = 0, crop_t = 0, crop_b = 0;
+};
+using PicPtr = std::shared_ptr<Picture>;
+
+enum MbKind : int8_t { NONE = 0, SKIP, INTER, I4, I16, PCM };
+
+struct Mb {
+    int8_t kind = NONE;
+    int slice = -1;
+    int qp = 0;  // QPY for deblocking (0 for I_PCM)
+    uint8_t nz[16] = {};
+    uint8_t nzc[2][4] = {};
+    int8_t i4[16] = {};
+    int8_t ref[16] = {};   // refIdxL0 a 4x4 block, -1 intra
+    int refpic[16] = {};  // the reference picture's id
+    int16_t mv[16][2] = {};
+};
+
+struct SliceInfo {
+    int idc = 0, alpha = 0, beta = 0;
+    int chroma_offset[2] = {0, 0};
+};
+
+struct Motion {  // a neighbour partition's motion data
+    bool avail = false;
+    int ref = -1;
+    int mv[2] = {0, 0};
+};
+
+const int kMaxDelayed = 16;
+
+struct Decoder {
+    Sps sps[32];
+    Pps pps[256];
+    int nal_length = 0;  // bytes of a NAL length prefix; 0 for Annex B
+    std::vector<uint8_t> rbsp;
+
+    // current picture
+    PicPtr cur;
+    const Sps* cs = nullptr;
+    const Pps* cp = nullptr;
+    int mb_w = 0, mb_h = 0, w = 0, h = 0;
+    std::vector<Mb> mbs;
+    std::vector<SliceInfo> slices;
+    int last_mb = -1;
+    SliceHeader first_header;  // of the current picture
+
+    // reference state
+    std::vector<PicPtr> refs;  // short-term references
+    bool have_prev = false;    // a picture decoded since the last IDR or flush
+    int prev_ref_frame_num = 0, prev_frame_num = 0, prev_frame_num_offset = 0;
+    int prev_poc_msb = 0, prev_poc_lsb = 0;
+    int next_id = 1;
+    bool waiting_for_idr = true;
+
+    // output (h264_select_output_frame)
+    std::vector<PicPtr> delayed;
+    int has_b_frames = 0;
+    int last_pocs[kMaxDelayed];
+    int next_outputed_poc = INT_MIN;
+    bool mmco_reset = true, frame_recovered = false;
+    std::vector<PicPtr> ready;  // pictures given by the packet, in order
+    PicPtr shown;                 // the last picture handed out
+
+    // probing: the last slice's first_mb in the packet, the last reference
+    // picture's frame_num
+    int probe_last_mb = -1, probe_fn = -1;
+
+    // per-slice state
+    SliceHeader sh;
+    std::vector<PicPtr> list0;
+    int slice_num = 0, qp = 0;
+
+    Decoder() { reset_pocs(); }
+    void reset_pocs() {
+        for (int& p : last_pocs) p = INT_MIN;
+    }
+
+    // ------------------------------------------------------------ NALs
+    template <class F>
+    void nal_units(const uint8_t* d, size_t n, F&& fn) {
+        if (nal_length) {
+            size_t pos = 0;
+            while (pos + (size_t)nal_length <= n) {
+                size_t len = 0;
+                for (int i = 0; i < nal_length; i++) len = len << 8 | d[pos + i];
+                pos += nal_length;
+                if (len > n - pos) throw Corrupt("a NAL unit runs past its packet");
+                if (len) fn(d + pos, len);
+                pos += len;
+            }
+            return;
+        }
+        size_t i = 0, start = SIZE_MAX;
+        while (i + 3 <= n) {
+            if (d[i] == 0 && d[i + 1] == 0 && d[i + 2] == 1) {
+                if (start != SIZE_MAX) emit(d, start, i, fn);
+                i += 3;
+                start = i;
+            } else {
+                i++;
+            }
+        }
+        if (start != SIZE_MAX) emit(d, start, n, fn);
+    }
+    template <class F>
+    static void emit(const uint8_t* d, size_t a, size_t b, F& fn) {
+        while (b > a && d[b - 1] == 0) b--;  // trailing_zero_8bits, the next start code's zero
+        if (b > a) fn(d + a, b - a);
+    }
+
+    Bits unescape(const uint8_t* d, size_t n) {
+        rbsp.assign(n + 8, 0);
+        size_t o = 0, zeros = 0;
+        for (size_t i = 1; i < n; i++) {  // past the header byte
+            if (zeros >= 2 && d[i] == 3) {
+                zeros = 0;
+                continue;
+            }
+            rbsp[o++] = d[i];
+            zeros = d[i] ? 0 : zeros + 1;
+        }
+        return Bits(rbsp.data(), o);
+    }
+
+    void parameter_set(int type, Bits& b) {
+        int id;
+        if (type == 7) {
+            Sps s = parse_sps(b, &id);
+            sps[id] = s;
+        } else {
+            Pps p = parse_pps(b, sps, &id);
+            pps[id] = p;
+        }
+    }
+
+    // Parses one NAL unit; with `decode` false only headers are checked.
+    void nal(const uint8_t* d, size_t n, bool decode) {
+        if (d[0] & 0x80) throw Corrupt("forbidden_zero_bit set");
+        const int type = d[0] & 31, ref_idc = d[0] >> 5;
+        switch (type) {
+            case 7:
+            case 8: {
+                Bits b = unescape(d, n);
+                parameter_set(type, b);
+                break;
+            }
+            case 1:
+            case 5: {
+                Bits b = unescape(d, n);
+                SliceHeader h = slice_header(b, type == 5, ref_idc);
+                if (decode) slice(b, h);
+                else probe_slice(h);
+                break;
+            }
+            case 2:
+            case 3:
+            case 4:
+                throw Refused("data partitioning (NAL unit types 2-4)");
+            default:
+                break;  // SEI, delimiters, fillers, extensions: nothing to decode
+        }
+    }
+
+    // The refusals a slice header shows beside its own fields: slices out
+    // of order within a packet (one access unit), and frame_num gaps.
+    void probe_slice(const SliceHeader& s) {
+        if (probe_last_mb >= 0 && s.first_mb <= probe_last_mb)
+            throw Refused("arbitrary slice order");
+        const bool first = probe_last_mb < 0;
+        probe_last_mb = s.first_mb;
+        if (!first) return;
+        if (!s.idr && probe_fn >= 0) check_gap(s, probe_fn);
+        if (s.ref_idc) probe_fn = s.frame_num;
+    }
+
+    // frame_num must follow the last reference picture's (gaps refused)
+    void check_gap(const SliceHeader& s, int prev) const {
+        const int max_fn = 1 << sps[pps[s.pps_id].sps_id].log2_max_frame_num;
+        if (s.frame_num != prev && s.frame_num != (prev + 1) % max_fn)
+            throw Refused("gaps in frame_num (frame_num " + std::to_string(s.frame_num) +
+                          " after " + std::to_string(prev) + ")");
+    }
+
+    // ----------------------------------------------------- slice header
+    SliceHeader slice_header(Bits& b, bool idr, int ref_idc) {
+        SliceHeader s;
+        s.idr = idr;
+        s.ref_idc = ref_idc;
+        s.first_mb = (int)b.ue();
+        uint32_t t = ue_max(b, 9, "slice_type") % 5;
+        if (t == 1) throw Refused("B slices (bidirectional prediction)");
+        if (t == 3 || t == 4) throw Refused("SP and SI slices");
+        s.type = (int)t;
+        if (idr && t != 2) throw Corrupt("an IDR picture with a P slice");
+        s.pps_id = (int)ue_max(b, 255, "pic_parameter_set_id");
+        if (!pps[s.pps_id].valid) throw Corrupt("a slice names a PPS not received");
+        const Pps& p = pps[s.pps_id];
+        const Sps& q = sps[p.sps_id];
+        if (s.first_mb >= q.mb_w * q.mb_h) throw Corrupt("first_mb_in_slice out of range");
+        s.frame_num = (int)b.u(q.log2_max_frame_num);
+        if (idr) s.idr_pic_id = (int)b.ue();
+        if (q.poc_type == 0) {
+            s.poc_lsb = (int)b.u(q.log2_max_poc_lsb);
+            if (p.bottom_field_poc) s.delta_poc_bottom = b.se();
+        }
+        s.num_ref_idx_active = p.num_ref_idx_default;
+        if (s.type == 0) {
+            if (b.u1())
+                s.num_ref_idx_active = (int)ue_max(b, 15, "num_ref_idx_l0_active_minus1") + 1;
+            if (s.num_ref_idx_active > 16) throw Corrupt("num_ref_idx_l0_active out of range");
+            if (b.u1()) {
+                for (;;) {
+                    uint32_t idc = b.ue();
+                    if (idc == 3) break;
+                    if (idc == 2)
+                        throw Refused("long-term reference pictures "
+                                      "(modification_of_pic_nums_idc 2)");
+                    if (idc > 3 || s.modifications.size() > 32)
+                        throw Corrupt("a bad ref_pic_list_modification");
+                    s.modifications.emplace_back((int)idc, (int)b.ue());
+                }
+            }
+        }
+        if (ref_idc) {
+            if (idr) {
+                b.u(1);
+                if (b.u1())
+                    throw Refused("long-term reference pictures (long_term_reference_flag)");
+            } else if ((s.adaptive = b.u1())) {
+                for (;;) {
+                    uint32_t op = b.ue();
+                    if (op == 0) break;
+                    if (op == 1) {
+                        s.mmco1.push_back((int)b.ue());
+                    } else if (op == 5) {
+                        throw Refused("memory_management_control_operation 5");
+                    } else if (op <= 6) {
+                        throw Refused("long-term reference pictures "
+                                      "(memory_management_control_operation " +
+                                      std::to_string(op) + ")");
+                    } else {
+                        throw Corrupt("a bad memory_management_control_operation");
+                    }
+                    if (s.mmco1.size() > 66) throw Corrupt("too many MMCOs");
+                }
+            }
+        }
+        s.qp = p.init_qp + b.se();
+        if (s.qp < 0 || s.qp > 51) throw Corrupt("slice QP out of range");
+        if (p.deblocking_control) {
+            s.deblock_idc = (int)ue_max(b, 2, "disable_deblocking_filter_idc");
+            if (s.deblock_idc != 1) {
+                s.alpha_offset = 2 * b.se();
+                s.beta_offset = 2 * b.se();
+                if (std::abs(s.alpha_offset) > 12 || std::abs(s.beta_offset) > 12)
+                    throw Corrupt("slice deblocking offsets out of range");
+            }
+        }
+        return s;
+    }
+
+    // ------------------------------------------------------------ slices
+    void slice(Bits& b, const SliceHeader& s) {
+        if (waiting_for_idr && !s.idr) return;  // after a flush: nothing until an IDR
+        if (s.first_mb == 0 || !cur) {
+            if (cur) finish_picture();
+            start_picture(s);
+        } else if (s.first_mb <= last_mb) {
+            throw Refused("arbitrary slice order");
+        } else if (s.frame_num != first_header.frame_num || s.idr != first_header.idr) {
+            throw Corrupt("a slice of another picture before the first macroblock");
+        }
+        if (s.first_mb != last_mb + 1) throw Corrupt("missing macroblocks before a slice");
+        sh = s;
+        cp = &pps[s.pps_id];
+        if (&sps[cp->sps_id] != cs) throw Corrupt("slices of a picture name different SPSs");
+        SliceInfo si;
+        si.idc = s.deblock_idc;
+        si.alpha = s.alpha_offset;
+        si.beta = s.beta_offset;
+        si.chroma_offset[0] = cp->chroma_offset[0];
+        si.chroma_offset[1] = cp->chroma_offset[1];
+        slice_num = (int)slices.size();
+        slices.push_back(si);
+        if (s.type == 0) build_list(s);
+        qp = s.qp;
+        slice_data(b);
+    }
+
+    void start_picture(const SliceHeader& s) {
+        const Pps& p = pps[s.pps_id];
+        cs = &sps[p.sps_id];
+        first_header = s;
+        if (s.idr) {
+            refs.clear();
+            have_prev = false;
+            prev_poc_msb = prev_poc_lsb = 0;
+            prev_frame_num_offset = 0;
+            prev_ref_frame_num = 0;
+            reset_pocs();
+            waiting_for_idr = false;
+            frame_recovered = true;
+        } else if (have_prev) {
+            check_gap(s, prev_ref_frame_num);
+        }
+        mb_w = cs->mb_w;
+        mb_h = cs->mb_h;
+        w = mb_w * 16;
+        h = mb_h * 16;
+        cur = std::make_shared<Picture>();
+        cur->w = w;
+        cur->h = h;
+        cur->y.assign((size_t)w * h, 0);
+        cur->u.assign((size_t)w * h / 4, 0);
+        cur->v.assign((size_t)w * h / 4, 0);
+        cur->frame_num = s.frame_num;
+        cur->id = next_id++;
+        cur->key = s.idr;
+        cur->full_range = cs->full_range;
+        cur->crop_l = cs->crop_l;
+        cur->crop_r = cs->crop_r;
+        cur->crop_t = cs->crop_t;
+        cur->crop_b = cs->crop_b;
+        cur->mmco_reset = mmco_reset;
+        mmco_reset = false;
+        cur->recovered = frame_recovered;
+        // POC (8.2.1)
+        if (cs->poc_type == 0) {
+            const int max_lsb = 1 << cs->log2_max_poc_lsb;
+            int msb = prev_poc_msb;
+            if (s.poc_lsb < prev_poc_lsb && prev_poc_lsb - s.poc_lsb >= max_lsb / 2)
+                msb = prev_poc_msb + max_lsb;
+            else if (s.poc_lsb > prev_poc_lsb && s.poc_lsb - prev_poc_lsb > max_lsb / 2)
+                msb = prev_poc_msb - max_lsb;
+            int top = msb + s.poc_lsb;
+            cur->poc = std::min(top, top + s.delta_poc_bottom);
+            if (s.ref_idc) {
+                prev_poc_msb = msb;
+                prev_poc_lsb = s.poc_lsb;
+            }
+        } else {
+            const int max_fn = 1 << cs->log2_max_frame_num;
+            int offset = 0;
+            if (!s.idr)
+                offset = prev_frame_num_offset + (prev_frame_num > s.frame_num ? max_fn : 0);
+            int abs_fn = offset + s.frame_num;
+            cur->poc = s.idr ? 0 : s.ref_idc ? 2 * abs_fn : 2 * abs_fn - 1;
+            prev_frame_num_offset = offset;
+        }
+        prev_frame_num = s.frame_num;
+        mbs.assign((size_t)mb_w * mb_h, Mb());
+        slices.clear();
+        last_mb = -1;
+    }
+
+    // PicNum (FrameNumWrap) of reference picture p while picture c decodes
+    int pic_num(const Picture& p, const Picture& c) const {
+        const int max_fn = 1 << cs->log2_max_frame_num;
+        return p.frame_num > c.frame_num ? p.frame_num - max_fn : p.frame_num;
+    }
+    int pic_num(const Picture& p) const { return pic_num(p, *cur); }
+
+    void build_list(const SliceHeader& s) {
+        std::vector<PicPtr> init(refs);
+        std::sort(init.begin(), init.end(), [&](const PicPtr& a, const PicPtr& b) {
+            return pic_num(*a) > pic_num(*b);
+        });
+        const int n = s.num_ref_idx_active;
+        list0.assign((size_t)n + 1, nullptr);
+        for (int i = 0; i < n && i < (int)init.size(); i++) list0[i] = init[i];
+        const int max_pic = 1 << cs->log2_max_frame_num, curr = cur->frame_num;
+        int pred = curr, idx = 0;
+        for (auto [idc, diff] : s.modifications) {
+            if (idx >= n) throw Corrupt("more reference list modifications than entries");
+            if (diff >= max_pic) throw Corrupt("abs_diff_pic_num_minus1 out of range");
+            int no_wrap = idc == 0 ? pred - (diff + 1) : pred + (diff + 1);
+            if (no_wrap < 0) no_wrap += max_pic;
+            if (no_wrap >= max_pic) no_wrap -= max_pic;
+            pred = no_wrap;
+            const int num = no_wrap > curr ? no_wrap - max_pic : no_wrap;
+            PicPtr pic;
+            for (auto& r : refs)
+                if (pic_num(*r) == num) pic = r;
+            if (!pic) throw Corrupt("a reference list modification names no reference picture");
+            for (int c = n; c > idx; c--) list0[c] = list0[c - 1];
+            list0[idx++] = pic;
+            int k = idx;
+            for (int c = idx; c <= n; c++)
+                if (!list0[c] || pic_num(*list0[c]) != num) list0[k++] = list0[c];
+            for (; k <= n; k++) list0[k] = nullptr;
+        }
+        list0.resize(n);
+    }
+
+    // ---------------------------------------------------- neighbours
+    int mb_addr(int mb, int dx, int dy) const {  // an available neighbour, or -1
+        int x = mb % mb_w + dx, y = mb / mb_w + dy;
+        if (x < 0 || x >= mb_w || y < 0) return -1;
+        int n = y * mb_w + x;
+        return n < mb && mbs[n].slice == slice_num ? n : -1;
+    }
+
+    int nc_luma(int mb, int x, int y) const {
+        int na = -1, nb = -1;
+        if (x > 0) {
+            na = mbs[mb].nz[y * 4 + x - 1];
+        } else {
+            int a = mb_addr(mb, -1, 0);
+            if (a >= 0) na = mbs[a].nz[y * 4 + 3];
+        }
+        if (y > 0) {
+            nb = mbs[mb].nz[(y - 1) * 4 + x];
+        } else {
+            int c = mb_addr(mb, 0, -1);
+            if (c >= 0) nb = mbs[c].nz[12 + x];
+        }
+        return nc_of(na, nb);
+    }
+    int nc_chroma(int mb, int c, int x, int y) const {
+        int na = -1, nb = -1;
+        if (x > 0) {
+            na = mbs[mb].nzc[c][y * 2];
+        } else {
+            int a = mb_addr(mb, -1, 0);
+            if (a >= 0) na = mbs[a].nzc[c][y * 2 + 1];
+        }
+        if (y > 0) {
+            nb = mbs[mb].nzc[c][x];
+        } else {
+            int t = mb_addr(mb, 0, -1);
+            if (t >= 0) nb = mbs[t].nzc[c][2 + x];
+        }
+        return nc_of(na, nb);
+    }
+    static int nc_of(int na, int nb) {
+        if (na >= 0 && nb >= 0) return (na + nb + 1) >> 1;
+        return na >= 0 ? na : nb >= 0 ? nb : 0;
+    }
+
+    // ------------------------------------------------------ residuals
+    // One CAVLC block into coeff[0..maxnum) (scan order); TotalCoeff.
+    int residual(Bits& b, int* coeff, int maxnum, int nc) {
+        const Tables& t = tables();
+        std::memset(coeff, 0, sizeof(int) * (size_t)maxnum);
+        int token;
+        if (nc == -1) {
+            token = b.vlc(t.dc_token);
+        } else if (nc >= 8) {
+            uint32_t v = b.u(6);
+            if (v == 3) token = 0;
+            else if ((v & 3) > (v >> 2) + 1) throw Corrupt("a bad coeff_token");
+            else token = (int)(((v >> 2) + 1) * 4 + (v & 3));
+        } else {
+            token = b.vlc(t.token[nc < 2 ? 0 : nc < 4 ? 1 : 2]);
+        }
+        const int tc = token >> 2, t1 = token & 3;
+        if (!tc) return 0;
+        if (tc > maxnum) throw Corrupt("more coefficients than a block holds");
+        int level[16], run[16];
+        int suffix = tc > 10 && t1 < 3 ? 1 : 0;
+        for (int i = 0; i < tc; i++) {
+            if (i < t1) {
+                level[i] = b.u1() ? -1 : 1;
+                continue;
+            }
+            int prefix = 0;
+            while (!b.u1())
+                if (++prefix > 31) throw Corrupt("a level_prefix too long");
+            int code = (std::min(15, prefix) << suffix);
+            if (suffix > 0 || prefix >= 14) {
+                int size = prefix == 14 && suffix == 0 ? 4 : prefix >= 15 ? prefix - 3 : suffix;
+                if (size > 0) code += (int)b.u(size);
+            }
+            if (prefix >= 15 && suffix == 0) code += 15;
+            if (prefix >= 16) code += (1 << (prefix - 3)) - 4096;
+            if (i == t1 && t1 < 3) code += 2;
+            level[i] = code % 2 == 0 ? (code + 2) >> 1 : (-code - 1) >> 1;
+            if (suffix == 0) suffix = 1;
+            if (std::abs(level[i]) > (3 << (suffix - 1)) && suffix < 6) suffix++;
+        }
+        int zeros = 0;
+        if (tc < maxnum) zeros = b.vlc(maxnum == 4 ? t.dc_zeros[tc - 1] : t.zeros[tc - 1]);
+        if (zeros + tc > maxnum) throw Corrupt("total_zeros out of range");
+        for (int i = 0; i < tc - 1; i++) {
+            run[i] = zeros > 0 ? b.vlc(t.run[std::min(zeros, 7) - 1]) : 0;
+            zeros -= run[i];
+            if (zeros < 0) throw Corrupt("run_before out of range");
+        }
+        run[tc - 1] = zeros;
+        int k = -1;
+        for (int i = tc - 1; i >= 0; i--) {
+            k += run[i] + 1;
+            coeff[k] = level[i];
+        }
+        return tc;
+    }
+
+    // ------------------------------------------------- macroblocks
+    void slice_data(Bits& b) {
+        const int nmb = mb_w * mb_h;
+        int mb = sh.first_mb;
+        for (;;) {
+            if (mb >= nmb) throw Corrupt("slice data past the last macroblock");
+            if (sh.type == 0) {
+                uint32_t run = b.ue();
+                if (run > (uint32_t)(nmb - mb)) throw Corrupt("mb_skip_run past the picture");
+                for (uint32_t i = 0; i < run; i++) skip_mb(mb++);
+                if (run > 0 && !b.more_rbsp_data()) break;
+                if (mb >= nmb) throw Corrupt("slice data past the last macroblock");
+            }
+            macroblock(b, mb++);
+            if (!b.more_rbsp_data()) break;
+        }
+        last_mb = mb - 1;
+    }
+
+    void begin_mb(int mb, MbKind kind) {
+        Mb& m = mbs[mb];
+        m = Mb();
+        m.kind = kind;
+        m.slice = slice_num;
+        m.qp = qp;
+        std::memset(m.ref, -1, sizeof(m.ref));
+    }
+
+    void skip_mb(int mb) {
+        if (list0.empty() || !list0[0])
+            throw Corrupt("a skipped macroblock without a reference picture");
+        begin_mb(mb, SKIP);
+        Mb& m = mbs[mb];
+        int mv[2] = {0, 0};
+        Motion a = motion(mb, -1, 0, nullptr), b = motion(mb, 0, -1, nullptr);
+        if (!(!a.avail || !b.avail || (a.ref == 0 && !a.mv[0] && !a.mv[1]) ||
+              (b.ref == 0 && !b.mv[0] && !b.mv[1])))
+            mvp(mb, 0, 0, 16, 0, 0, nullptr, mv);
+        set_motion(m, 0, 0, 16, 16, 0, mv);
+        predict_inter(mb, 0, 0, 16, 16, 0, mv);
+    }
+
+    void macroblock(Bits& b, int mb) {
+        uint32_t t = b.ue();
+        if (sh.type == 0) {
+            if (t < 5) return inter_mb(b, mb, (int)t);
+            t -= 5;
+        }
+        if (t > 25) throw Corrupt("mb_type out of range");
+        if (t == 25) return pcm_mb(b, mb);
+        intra_mb(b, mb, (int)t);
+    }
+
+    void pcm_mb(Bits& b, int mb) {
+        begin_mb(mb, PCM);
+        Mb& m = mbs[mb];
+        m.qp = 0;
+        std::memset(m.nz, 16, sizeof(m.nz));
+        std::memset(m.nzc, 16, sizeof(m.nzc));
+        b.align();
+        const int x0 = mb % mb_w * 16, y0 = mb / mb_w * 16;
+        for (int y = 0; y < 16; y++)
+            for (int x = 0; x < 16; x++) cur->y[(size_t)(y0 + y) * w + x0 + x] = (uint8_t)b.u(8);
+        for (int c = 0; c < 2; c++) {
+            auto& plane = c ? cur->v : cur->u;
+            for (int y = 0; y < 8; y++)
+                for (int x = 0; x < 8; x++)
+                    plane[(size_t)(y0 / 2 + y) * (w / 2) + x0 / 2 + x] = (uint8_t)b.u(8);
+        }
+    }
+
+    void qp_delta(Bits& b) {
+        int d = b.se();
+        if (d < -26 || d > 25) throw Corrupt("mb_qp_delta out of range");
+        qp = (qp + d + 52) % 52;
+    }
+
+    // the luma residual blocks of I_NxN and inter macroblocks (raster order
+    // of their 4x4 blocks into lev[16][16], scan order within each)
+    void luma_residual(Bits& b, int mb, int cbp, int (*lev)[16]) {
+        Mb& m = mbs[mb];
+        for (int blk = 0; blk < 16; blk++) {
+            const int x = kBlkX[blk], y = kBlkY[blk];
+            if (cbp >> (blk >> 2) & 1)
+                m.nz[y * 4 + x] = (uint8_t)residual(b, lev[y * 4 + x], 16, nc_luma(mb, x, y));
+            else
+                std::memset(lev[y * 4 + x], 0, sizeof(int) * 16);
+        }
+    }
+
+    void chroma_residual(Bits& b, int mb, int cbp_c, int (*dc)[4], int (*ac)[4][16]) {
+        Mb& m = mbs[mb];
+        for (int c = 0; c < 2; c++) {
+            if (cbp_c) residual(b, dc[c], 4, -1);
+            else std::memset(dc[c], 0, sizeof(int) * 4);
+        }
+        for (int c = 0; c < 2; c++)
+            for (int k = 0; k < 4; k++) {
+                std::memset(ac[c][k], 0, sizeof(int) * 16);
+                if (cbp_c == 2)
+                    m.nzc[c][k] =
+                        (uint8_t)residual(b, ac[c][k] + 1, 15, nc_chroma(mb, c, k & 1, k >> 1));
+            }
+    }
+
+    void intra_mb(Bits& b, int mb, int t) {
+        begin_mb(mb, t == 0 ? I4 : I16);
+        Mb& m = mbs[mb];
+        int modes[16];
+        if (t == 0) {
+            for (int blk = 0; blk < 16; blk++) {
+                const int x = kBlkX[blk], y = kBlkY[blk];
+                int pred = i4_pred_mode(mb, x, y);
+                int mode = pred;
+                if (!b.u1()) {
+                    int rem = (int)b.u(3);
+                    mode = rem < pred ? rem : rem + 1;
+                }
+                m.i4[y * 4 + x] = (int8_t)mode;
+                modes[blk] = mode;
+            }
+        }
+        const int cmode = (int)ue_max(b, 3, "intra_chroma_pred_mode");
+        int cbp_l, cbp_c, mode16 = 0;
+        if (t == 0) {
+            int cbp = kIntraCbp[ue_max(b, 47, "coded_block_pattern")];
+            cbp_l = cbp & 15;
+            cbp_c = cbp >> 4;
+            if (cbp) qp_delta(b);
+        } else {
+            mode16 = (t - 1) % 4;
+            cbp_c = (t - 1) / 4 % 3;
+            cbp_l = t >= 13 ? 15 : 0;
+            qp_delta(b);
+        }
+        m.qp = qp;
+        int lev[16][16], dcl[16], dc[2][4], ac[2][4][16];
+        if (t == 0) {
+            luma_residual(b, mb, cbp_l, lev);
+        } else {
+            residual(b, dcl, 16, nc_luma(mb, 0, 0));
+            for (int blk = 0; blk < 16; blk++) {
+                const int x = kBlkX[blk], y = kBlkY[blk];
+                std::memset(lev[y * 4 + x], 0, sizeof(int) * 16);
+                if (cbp_l)
+                    m.nz[y * 4 + x] =
+                        (uint8_t)residual(b, lev[y * 4 + x] + 1, 15, nc_luma(mb, x, y));
+            }
+        }
+        chroma_residual(b, mb, cbp_c, dc, ac);
+        // reconstruction
+        if (t == 0) {
+            for (int blk = 0; blk < 16; blk++) {
+                const int x = kBlkX[blk], y = kBlkY[blk];
+                pred4x4(mb, x, y, modes[blk]);
+                add_block(luma_block(mb, y * 4 + x), w, lev[y * 4 + x], qp, nullptr);
+            }
+        } else {
+            pred16x16(mb, mode16);
+            int dcy[16];
+            luma_dc(dcl, qp, dcy);
+            for (int r = 0; r < 16; r++) add_block(luma_block(mb, r), w, lev[r], qp, &dcy[r]);
+        }
+        predchroma(mb, cmode);
+        chroma_add(mb, dc, ac);
+    }
+
+    // the first sample of raster 4x4 block r of macroblock mb's luma
+    uint8_t* luma_block(int mb, int r) {
+        return cur->y.data() + (size_t)(mb / mb_w * 16 + 4 * (r >> 2)) * w + mb % mb_w * 16 +
+               4 * (r & 3);
+    }
+
+    int i4_pred_mode(int mb, int x, int y) const {
+        int a, b;
+        if (x > 0) {
+            a = mbs[mb].i4[y * 4 + x - 1];
+        } else {
+            int n = mb_addr(mb, -1, 0);
+            if (n < 0) return 2;
+            a = mbs[n].kind == I4 ? mbs[n].i4[y * 4 + 3] : 2;
+        }
+        if (y > 0) {
+            b = mbs[mb].i4[(y - 1) * 4 + x];
+        } else {
+            int n = mb_addr(mb, 0, -1);
+            if (n < 0) return 2;
+            b = mbs[n].kind == I4 ? mbs[n].i4[12 + x] : 2;
+        }
+        return std::min(a, b);
+    }
+
+    // ------------------------------------------------ transforms
+    // Dequantises a 4x4 block (raster coefficients from scan order) and
+    // adds its inverse transform to dst; dc: the already scaled DC
+    void add_block(uint8_t* dst, int stride, const int* scan, int q, const int* dc) {
+        int any = dc ? *dc : 0;
+        for (int i = dc ? 1 : 0; i < 16; i++) any |= scan[i];
+        if (!any) return;
+        const int* scale = tables().dequant[q];
+        int d[16];
+        for (int i = 0; i < 16; i++) d[kZigzag[i]] = scan[i] * scale[i];
+        if (dc) d[0] = *dc;
+        idct_add(dst, stride, d);
+    }
+
+    static void idct_add(uint8_t* dst, int stride, int* d) {
+        for (int y = 0; y < 4; y++) {  // rows
+            int* r = d + 4 * y;
+            const int e0 = r[0] + r[2], e1 = r[0] - r[2];
+            const int e2 = (r[1] >> 1) - r[3], e3 = r[1] + (r[3] >> 1);
+            r[0] = e0 + e3;
+            r[1] = e1 + e2;
+            r[2] = e1 - e2;
+            r[3] = e0 - e3;
+        }
+        for (int x = 0; x < 4; x++) {  // columns
+            int g0 = d[x] + d[8 + x], g1 = d[x] - d[8 + x];
+            int g2 = (d[4 + x] >> 1) - d[12 + x], g3 = d[4 + x] + (d[12 + x] >> 1);
+            int out[4] = {g0 + g3, g1 + g2, g1 - g2, g0 - g3};
+            for (int y = 0; y < 4; y++) {
+                uint8_t& p = dst[(size_t)y * stride + x];
+                p = clip1(p + ((out[y] + 32) >> 6));
+            }
+        }
+    }
+
+    // Intra16x16 DC: inverse Hadamard and scaling (8.5.10); out raster
+    static void luma_dc(const int* scan, int q, int* out) {
+        int c[16], f[16];
+        for (int i = 0; i < 16; i++) c[kZigzag[i]] = scan[i];
+        for (int y = 0; y < 4; y++) {
+            const int* r = c + 4 * y;
+            int a = r[0] + r[1], b = r[0] - r[1], e = r[2] - r[3], g = r[2] + r[3];
+            f[4 * y] = a + g;
+            f[4 * y + 1] = a - g;
+            f[4 * y + 2] = b - e;
+            f[4 * y + 3] = b + e;
+        }
+        for (int x = 0; x < 4; x++) {
+            const int a = f[x] + f[4 + x], b = f[x] - f[4 + x];
+            const int e = f[8 + x] - f[12 + x], g = f[8 + x] + f[12 + x];
+            int col[4] = {a + g, a - g, b - e, b + e};
+            for (int y = 0; y < 4; y++) {
+                const int ls = 16 * kNormAdjust[q % 6][0];
+                out[4 * y + x] = q >= 36 ? (col[y] * ls) << (q / 6 - 6)
+                                         : (col[y] * ls + (1 << (5 - q / 6))) >> (6 - q / 6);
+            }
+        }
+    }
+
+    void chroma_add(int mb, int (*dc)[4], int (*ac)[4][16]) {
+        const int x0 = mb % mb_w * 8, y0 = mb / mb_w * 8, cw = w / 2;
+        const Tables& t = tables();
+        for (int c = 0; c < 2; c++) {
+            const int qc = t.chroma_qp[clip3(0, 51, qp + slices[slice_num].chroma_offset[c]) + 12];
+            const int* v = dc[c];
+            const int f[4] = {v[0] + v[1] + v[2] + v[3], v[0] - v[1] + v[2] - v[3],
+                              v[0] + v[1] - v[2] - v[3], v[0] - v[1] - v[2] + v[3]};
+            auto& plane = c ? cur->v : cur->u;
+            for (int k = 0; k < 4; k++) {
+                int dcc = ((f[k] * 16 * kNormAdjust[qc % 6][0]) << (qc / 6)) >> 5;
+                add_block(plane.data() + (size_t)(y0 + 4 * (k >> 1)) * cw + x0 + 4 * (k & 1), cw,
+                          ac[c][k], qc, &dcc);
+            }
+        }
+    }
+
+    // ---------------------------------------------------- intra prediction
+    void pred4x4(int mb, int bx, int by, int mode) {
+        const int x0 = mb % mb_w * 16 + 4 * bx, y0 = mb / mb_w * 16 + 4 * by;
+        const bool mbA = mb_addr(mb, -1, 0) >= 0, mbB = mb_addr(mb, 0, -1) >= 0;
+        const bool left = bx > 0 || mbA, top = by > 0 || mbB;
+        bool tl, tr;
+        if (bx > 0 && by > 0) tl = true;
+        else if (bx == 0 && by > 0) tl = mbA;
+        else if (by == 0 && bx > 0) tl = mbB;
+        else tl = mb_addr(mb, -1, -1) >= 0;
+        if (by == 0) tr = bx < 3 ? mbB : mb_addr(mb, 1, -1) >= 0;
+        else tr = bx < 3 && kBlkIdx[(by - 1) * 4 + bx + 1] < kBlkIdx[by * 4 + bx];
+        uint8_t* dst = cur->y.data() + (size_t)y0 * w + x0;
+        int T[9], L[5];  // T[0] = p[-1,-1], T[1..8] = p[0..7,-1]; L[1..4] = p[-1,0..3]
+        T[0] = L[0] = tl ? dst[-w - 1] : 0;
+        for (int i = 0; i < 8; i++)
+            T[1 + i] = !top ? 0 : i < 4 || tr ? dst[-w + i] : dst[-w + 3];
+        for (int i = 0; i < 4; i++) L[1 + i] = left ? dst[(size_t)i * w - 1] : 0;
+        auto P = [&](int x, int y) -> int {  // p[x, y] with x or y = -1
+            return y < 0 ? T[x + 1] : L[y + 1];
+        };
+        auto F2 = [](int a, int b) { return (a + b + 1) >> 1; };
+        auto F3 = [](int a, int b, int c) { return (a + 2 * b + c + 2) >> 2; };
+        int out[4][4];
+        const char* need = mode == 0 || mode == 3 || mode == 7 ? "B" : mode == 1 || mode == 8 ? "A"
+                          : mode >= 4 && mode <= 6 ? "ABD" : "";
+        for (const char* n = need; *n; n++)
+            if ((*n == 'A' && !left) || (*n == 'B' && !top) || (*n == 'D' && !tl))
+                throw Corrupt("an Intra4x4 mode whose neighbours are not available");
+        for (int y = 0; y < 4; y++)
+            for (int x = 0; x < 4; x++) {
+                int v = 0;
+                switch (mode) {
+                    case 0: v = P(x, -1); break;
+                    case 1: v = P(-1, y); break;
+                    case 2: {
+                        int st = 0, sl = 0;
+                        for (int i = 0; i < 4; i++) st += P(i, -1), sl += P(-1, i);
+                        v = top && left ? (st + sl + 4) >> 3 : left ? (sl + 2) >> 2
+                            : top ? (st + 2) >> 2 : 128;
+                        break;
+                    }
+                    case 3:
+                        v = x == 3 && y == 3 ? (P(6, -1) + 3 * P(7, -1) + 2) >> 2
+                                             : F3(P(x + y, -1), P(x + y + 1, -1), P(x + y + 2, -1));
+                        break;
+                    case 4:
+                        if (x > y) v = F3(P(x - y - 2, -1), P(x - y - 1, -1), P(x - y, -1));
+                        else if (x < y) v = F3(P(-1, y - x - 2), P(-1, y - x - 1), P(-1, y - x));
+                        else v = F3(P(0, -1), P(-1, -1), P(-1, 0));
+                        break;
+                    case 5: {
+                        const int z = 2 * x - y, k = x - (y >> 1);
+                        if (z >= 0 && !(z & 1)) v = F2(P(k - 1, -1), P(k, -1));
+                        else if (z >= 0) v = F3(P(k - 2, -1), P(k - 1, -1), P(k, -1));
+                        else if (z == -1) v = F3(P(-1, 0), P(-1, -1), P(0, -1));
+                        else v = F3(P(-1, y - 1), P(-1, y - 2), P(-1, y - 3));
+                        break;
+                    }
+                    case 6: {
+                        const int z = 2 * y - x, k = y - (x >> 1);
+                        if (z >= 0 && !(z & 1)) v = F2(P(-1, k - 1), P(-1, k));
+                        else if (z >= 0) v = F3(P(-1, k - 2), P(-1, k - 1), P(-1, k));
+                        else if (z == -1) v = F3(P(-1, 0), P(-1, -1), P(0, -1));
+                        else v = F3(P(x - 1, -1), P(x - 2, -1), P(x - 3, -1));
+                        break;
+                    }
+                    case 7: {
+                        const int k = x + (y >> 1);
+                        v = !(y & 1) ? F2(P(k, -1), P(k + 1, -1))
+                                     : F3(P(k, -1), P(k + 1, -1), P(k + 2, -1));
+                        break;
+                    }
+                    case 8: {
+                        const int z = x + 2 * y, k = y + (x >> 1);
+                        if (z < 5 && !(z & 1)) v = F2(P(-1, k), P(-1, k + 1));
+                        else if (z < 5) v = F3(P(-1, k), P(-1, k + 1), P(-1, k + 2));
+                        else if (z == 5) v = (P(-1, 2) + 3 * P(-1, 3) + 2) >> 2;
+                        else v = P(-1, 3);
+                        break;
+                    }
+                    default: throw Corrupt("an Intra4x4 mode out of range");
+                }
+                out[y][x] = v;
+            }
+        for (int y = 0; y < 4; y++)
+            for (int x = 0; x < 4; x++) dst[(size_t)y * w + x] = (uint8_t)out[y][x];
+    }
+
+    // 16x16 luma (mode 0 V, 1 H, 2 DC, 3 plane) or 8x8 chroma (0 DC, 1 H,
+    // 2 V, 3 plane) prediction into plane at the macroblock
+    void pred_block(int mb, uint8_t* plane, int stride, int n, int mode, bool chroma) {
+        const int x0 = mb % mb_w * n, y0 = mb / mb_w * n;
+        const bool A = mb_addr(mb, -1, 0) >= 0, B = mb_addr(mb, 0, -1) >= 0;
+        const bool D = mb_addr(mb, -1, -1) >= 0;
+        uint8_t* dst = plane + (size_t)y0 * stride + x0;
+        int top[16], left[16];
+        for (int i = 0; i < n; i++) {
+            top[i] = B ? dst[-stride + i] : 0;
+            left[i] = A ? dst[(size_t)i * stride - 1] : 0;
+        }
+        const int corner = D ? dst[-stride - 1] : 0;
+        // the luma numbering: 0 V, 1 H, 2 DC, 3 plane
+        const int kind = chroma ? (mode == 0 ? 2 : mode == 1 ? 1 : mode == 2 ? 0 : 3) : mode;
+        if ((kind == 0 && !B) || (kind == 1 && !A) || (kind == 3 && !(A && B && D)))
+            throw Corrupt("an intra mode whose neighbours are not available");
+        int out[16][16];
+        if (kind == 0 || kind == 1) {
+            for (int y = 0; y < n; y++)
+                for (int x = 0; x < n; x++) out[y][x] = kind == 0 ? top[x] : left[y];
+        } else if (kind == 2 && !chroma) {
+            int st = 0, sl = 0;
+            for (int i = 0; i < 16; i++) st += top[i], sl += left[i];
+            int v = A && B ? (st + sl + 16) >> 5 : A ? (sl + 8) >> 4 : B ? (st + 8) >> 4 : 128;
+            for (int y = 0; y < 16; y++)
+                for (int x = 0; x < 16; x++) out[y][x] = v;
+        } else if (kind == 2) {  // chroma DC, each 4x4 block (8.3.4.1-3)
+            for (int by = 0; by < 2; by++)
+                for (int bx = 0; bx < 2; bx++) {
+                    int st = 0, sl = 0;
+                    for (int i = 0; i < 4; i++) st += top[4 * bx + i], sl += left[4 * by + i];
+                    int v;
+                    if ((bx == 0 && by == 0) || (bx && by))
+                        v = A && B ? (st + sl + 4) >> 3
+                            : A    ? (sl + 2) >> 2
+                            : B    ? (st + 2) >> 2
+                                   : 128;
+                    else if (bx)
+                        v = B ? (st + 2) >> 2 : A ? (sl + 2) >> 2 : 128;
+                    else
+                        v = A ? (sl + 2) >> 2 : B ? (st + 2) >> 2 : 128;
+                    for (int y = 0; y < 4; y++)
+                        for (int x = 0; x < 4; x++) out[4 * by + y][4 * bx + x] = v;
+                }
+        } else {  // plane
+            const int half = n / 2;
+            auto T = [&](int i) { return i < 0 ? corner : top[i]; };
+            auto L = [&](int i) { return i < 0 ? corner : left[i]; };
+            int H = 0, V = 0;
+            for (int i = 0; i < half; i++) {
+                H += (i + 1) * (T(half + i) - T(half - 2 - i));
+                V += (i + 1) * (L(half + i) - L(half - 2 - i));
+            }
+            const int a = 16 * (left[n - 1] + top[n - 1]);
+            const int b = chroma ? (34 * H + 32) >> 6 : (5 * H + 32) >> 6;
+            const int c = chroma ? (34 * V + 32) >> 6 : (5 * V + 32) >> 6;
+            for (int y = 0; y < n; y++)
+                for (int x = 0; x < n; x++)
+                    out[y][x] = clip1((a + b * (x - (half - 1)) + c * (y - (half - 1)) + 16) >> 5);
+        }
+        for (int y = 0; y < n; y++)
+            for (int x = 0; x < n; x++) dst[(size_t)y * stride + x] = (uint8_t)out[y][x];
+    }
+    void pred16x16(int mb, int mode) { pred_block(mb, cur->y.data(), w, 16, mode, false); }
+    void predchroma(int mb, int mode) {
+        pred_block(mb, cur->u.data(), w / 2, 8, mode, true);
+        pred_block(mb, cur->v.data(), w / 2, 8, mode, true);
+    }
+
+    // ------------------------------------------------------- inter
+    // Motion data of the partition covering (x, y) relative to macroblock
+    // mb (x, y may be -1 or 16); within the macroblock only blocks in
+    // `done` count.
+    Motion motion(int mb, int x, int y, const bool* done) const {
+        Motion r;
+        int n;
+        if (x >= 0 && x < 16 && y >= 0 && y < 16) {
+            if (!done || !done[(y >> 2) * 4 + (x >> 2)]) return r;
+            n = mb;
+        } else if (x > 15 && y >= 0) {
+            return r;
+        } else {
+            n = mb_addr(mb, x < 0 ? -1 : x > 15 ? 1 : 0, y < 0 ? -1 : 0);
+            if (n < 0) return r;
+        }
+        r.avail = true;
+        const Mb& m = mbs[n];
+        if (m.kind != INTER && m.kind != SKIP) return r;
+        const int b = (((y + 16) & 15) >> 2) * 4 + (((x + 16) & 15) >> 2);
+        r.ref = m.ref[b];
+        r.mv[0] = m.mv[b][0];
+        r.mv[1] = m.mv[b][1];
+        return r;
+    }
+
+    static int median(int a, int b, int c) {
+        return std::max(std::min(a, b), std::min(std::max(a, b), c));
+    }
+
+    // 8.4.1.3: the motion vector prediction of the partition at (x, y),
+    // pw wide, with reference index ref; shape 1: 16x8, 2: 8x16, 0 else
+    void mvp(int mb, int x, int y, int pw, int ref, int shape, const bool* done, int* out) const {
+        Motion A = motion(mb, x - 1, y, done), B = motion(mb, x, y - 1, done);
+        Motion C = motion(mb, x + pw, y - 1, done);
+        if (!C.avail) C = motion(mb, x - 1, y - 1, done);
+        if (shape == 1) {
+            if (y == 0 && B.ref == ref) return copy(B, out);
+            if (y == 8 && A.ref == ref) return copy(A, out);
+        } else if (shape == 2) {
+            if (x == 0 && A.ref == ref) return copy(A, out);
+            if (x == 8 && C.ref == ref) return copy(C, out);
+        }
+        if (!B.avail && !C.avail && A.avail) {
+            B = A;
+            C = A;
+        }
+        const int matches = (A.ref == ref) + (B.ref == ref) + (C.ref == ref);
+        if (matches == 1) {
+            return copy(A.ref == ref ? A : B.ref == ref ? B : C, out);
+        }
+        out[0] = median(A.mv[0], B.mv[0], C.mv[0]);
+        out[1] = median(A.mv[1], B.mv[1], C.mv[1]);
+    }
+    static void copy(const Motion& m, int* out) {
+        out[0] = m.mv[0];
+        out[1] = m.mv[1];
+    }
+
+    void set_motion(Mb& m, int x, int y, int pw, int ph, int ref, const int* mv) {
+        for (int j = y >> 2; j < (y + ph) >> 2; j++)
+            for (int i = x >> 2; i < (x + pw) >> 2; i++) {
+                m.ref[j * 4 + i] = (int8_t)ref;
+                m.refpic[j * 4 + i] = list0[ref]->id;
+                m.mv[j * 4 + i][0] = (int16_t)mv[0];
+                m.mv[j * 4 + i][1] = (int16_t)mv[1];
+            }
+    }
+
+    void inter_mb(Bits& b, int mb, int t) {
+        begin_mb(mb, INTER);
+        Mb& m = mbs[mb];
+        const int n = sh.num_ref_idx_active;
+        auto read_ref = [&]() -> int {
+            if (n == 1) return 0;
+            int r = n == 2 ? !b.u1() : (int)b.ue();
+            if (r >= n) throw Corrupt("ref_idx_l0 out of range");
+            return r;
+        };
+        struct Part {
+            int x, y, w, h, ref, shape, mvd[2];
+        };
+        std::vector<Part> parts;
+        if (t < 3) {
+            const int np = t == 0 ? 1 : 2;
+            int refs[2] = {0, 0};
+            for (int i = 0; i < np; i++) refs[i] = read_ref();
+            for (int i = 0; i < np; i++) {
+                Part p{};
+                if (t == 0) p = {0, 0, 16, 16, refs[i], 0, {0, 0}};
+                else if (t == 1) p = {0, 8 * i, 16, 8, refs[i], 1, {0, 0}};
+                else p = {8 * i, 0, 8, 16, refs[i], 2, {0, 0}};
+                p.mvd[0] = b.se();
+                p.mvd[1] = b.se();
+                parts.push_back(p);
+            }
+        } else {
+            int sub[4], refs[4] = {0, 0, 0, 0};
+            for (int& s : sub) s = (int)ue_max(b, 3, "sub_mb_type");
+            if (t == 3)
+                for (int& r : refs) r = read_ref();
+            for (int i = 0; i < 4; i++) {
+                const int sx = 8 * (i & 1), sy = 8 * (i >> 1);
+                const int pw = sub[i] < 2 ? 8 : 4, ph = sub[i] == 0 || sub[i] == 2 ? 8 : 4;
+                for (int k = 0; k < 64 / (pw * ph); k++) {
+                    Part p{sx, sy, pw, ph, refs[i], 0, {0, 0}};
+                    if (sub[i] == 1) p.y += 4 * k;
+                    else if (sub[i] == 2) p.x += 4 * k;
+                    else if (sub[i] == 3) p.x += 4 * (k & 1), p.y += 4 * (k >> 1);
+                    p.mvd[0] = b.se();
+                    p.mvd[1] = b.se();
+                    parts.push_back(p);
+                }
+            }
+        }
+        for (auto& p : parts)
+            if (p.ref >= (int)list0.size() || !list0[p.ref])
+                throw Corrupt("a partition names a missing reference picture");
+        bool done[16] = {};
+        for (auto& p : parts) {
+            int mv[2];
+            mvp(mb, p.x, p.y, p.w, p.ref, p.shape, done, mv);
+            mv[0] += p.mvd[0];
+            mv[1] += p.mvd[1];
+            if (mv[0] < -32768 || mv[0] > 32767 || mv[1] < -32768 || mv[1] > 32767)
+                throw Corrupt("a motion vector out of range");
+            set_motion(m, p.x, p.y, p.w, p.h, p.ref, mv);
+            for (int j = p.y >> 2; j < (p.y + p.h) >> 2; j++)
+                for (int i = p.x >> 2; i < (p.x + p.w) >> 2; i++) done[j * 4 + i] = true;
+            predict_inter(mb, p.x, p.y, p.w, p.h, p.ref, mv);
+        }
+        int cbp = kInterCbp[ue_max(b, 47, "coded_block_pattern")];
+        if (cbp) qp_delta(b);
+        m.qp = qp;
+        int lev[16][16], dc[2][4], ac[2][4][16];
+        luma_residual(b, mb, cbp & 15, lev);
+        chroma_residual(b, mb, cbp >> 4, dc, ac);
+        for (int r = 0; r < 16; r++) add_block(luma_block(mb, r), w, lev[r], qp, nullptr);
+        chroma_add(mb, dc, ac);
+    }
+
+    // 8.4.2.2: luma at quarter-sample and chroma at eighth-sample positions
+    void predict_inter(int mb, int x, int y, int pw, int ph, int ref, const int* mv) {
+        const Picture& r = *list0[ref];
+        const int xa = mb % mb_w * 16 + x, ya = mb / mb_w * 16 + y;
+        const int fx = mv[0] & 3, fy = mv[1] & 3;
+        const int ix = xa + (mv[0] >> 2), iy = ya + (mv[1] >> 2);
+        uint8_t* dst = cur->y.data() + (size_t)ya * w + xa;
+        if (!fx && !fy && ix >= 0 && iy >= 0 && ix + pw <= w && iy + ph <= h) {  // whole samples
+            for (int j = 0; j < ph; j++)
+                std::memcpy(dst + (size_t)j * w, &r.y[(size_t)(iy + j) * w + ix], (size_t)pw);
+        } else {
+            predict_luma(r, dst, ix, iy, fx, fy, pw, ph);
+        }
+        predict_chroma(r, xa, ya, pw, ph, mv);
+    }
+
+    void predict_luma(const Picture& r, uint8_t* dst, int ix, int iy, int fx, int fy, int pw,
+                      int ph) const {
+        // window of (pw + 5) x (ph + 5) samples from (ix - 2, iy - 2), clamped
+        int win[21][21];
+        for (int j = 0; j < ph + 5; j++) {
+            const int yy = clip3(0, h - 1, iy - 2 + j);
+            for (int i = 0; i < pw + 5; i++)
+                win[j][i] = r.y[(size_t)yy * w + clip3(0, w - 1, ix - 2 + i)];
+        }
+        auto tap = [](int a, int b, int c, int d, int e, int f) {
+            return a - 5 * b + 20 * c + 20 * d - 5 * e + f;
+        };
+        auto G = [&](int i, int j) { return win[j + 2][i + 2]; };
+        auto b1 = [&](int i, int j) {  // horizontal half sample right of (i, j), unscaled
+            return tap(G(i - 2, j), G(i - 1, j), G(i, j), G(i + 1, j), G(i + 2, j), G(i + 3, j));
+        };
+        auto h1 = [&](int i, int j) {
+            return tap(G(i, j - 2), G(i, j - 1), G(i, j), G(i, j + 1), G(i, j + 2), G(i, j + 3));
+        };
+        auto bb = [&](int i, int j) { return clip1((b1(i, j) + 16) >> 5); };
+        auto hh = [&](int i, int j) { return clip1((h1(i, j) + 16) >> 5); };
+        auto jj = [&](int i, int j) {
+            const int v =
+                tap(b1(i, j - 2), b1(i, j - 1), b1(i, j), b1(i, j + 1), b1(i, j + 2), b1(i, j + 3));
+            return clip1((v + 512) >> 10);
+        };
+        for (int j = 0; j < ph; j++)
+            for (int i = 0; i < pw; i++) {
+                int v;
+                switch (fy * 4 + fx) {
+                    case 0: v = G(i, j); break;
+                    case 1: v = (G(i, j) + bb(i, j) + 1) >> 1; break;          // a
+                    case 2: v = bb(i, j); break;                                // b
+                    case 3: v = (G(i + 1, j) + bb(i, j) + 1) >> 1; break;      // c
+                    case 4: v = (G(i, j) + hh(i, j) + 1) >> 1; break;          // d
+                    case 5: v = (bb(i, j) + hh(i, j) + 1) >> 1; break;         // e
+                    case 6: v = (bb(i, j) + jj(i, j) + 1) >> 1; break;         // f
+                    case 7: v = (bb(i, j) + hh(i + 1, j) + 1) >> 1; break;     // g
+                    case 8: v = hh(i, j); break;                                // h
+                    case 9: v = (hh(i, j) + jj(i, j) + 1) >> 1; break;         // i
+                    case 10: v = jj(i, j); break;                               // j
+                    case 11: v = (jj(i, j) + hh(i + 1, j) + 1) >> 1; break;    // k
+                    case 12: v = (G(i, j + 1) + hh(i, j) + 1) >> 1; break;     // n
+                    case 13: v = (hh(i, j) + bb(i, j + 1) + 1) >> 1; break;    // p
+                    case 14: v = (jj(i, j) + bb(i, j + 1) + 1) >> 1; break;    // q
+                    default: v = (hh(i + 1, j) + bb(i, j + 1) + 1) >> 1; break;  // r
+                }
+                dst[(size_t)j * w + i] = (uint8_t)v;
+            }
+    }
+
+    void predict_chroma(const Picture& r, int xa, int ya, int pw, int ph, const int* mv) {
+        const int cw = w / 2, chh = h / 2;
+        const int cx = xa / 2 + (mv[0] >> 3), cy = ya / 2 + (mv[1] >> 3);
+        const int ex = mv[0] & 7, ey = mv[1] & 7;
+        for (int c = 0; c < 2; c++) {
+            const auto& src = c ? r.v : r.u;
+            uint8_t* d = (c ? cur->v : cur->u).data() + (size_t)(ya / 2) * cw + xa / 2;
+            for (int j = 0; j < ph / 2; j++) {
+                const int y0 = clip3(0, chh - 1, cy + j), y1 = clip3(0, chh - 1, cy + j + 1);
+                for (int i = 0; i < pw / 2; i++) {
+                    const int x0 = clip3(0, cw - 1, cx + i), x1 = clip3(0, cw - 1, cx + i + 1);
+                    const int A = src[(size_t)y0 * cw + x0], B = src[(size_t)y0 * cw + x1];
+                    const int C = src[(size_t)y1 * cw + x0], D = src[(size_t)y1 * cw + x1];
+                    d[(size_t)j * cw + i] = (uint8_t)(((8 - ex) * (8 - ey) * A + ex * (8 - ey) * B +
+                                                       (8 - ex) * ey * C + ex * ey * D + 32) >> 6);
+                }
+            }
+        }
+    }
+
+    // --------------------------------------------------- deblocking
+    static bool intra(const Mb& m) { return m.kind == I4 || m.kind == I16 || m.kind == PCM; }
+
+    int strength(const Mb& p, int bp, const Mb& q, int bq, bool mb_edge) const {
+        if (intra(p) || intra(q)) return mb_edge ? 4 : 3;
+        if (p.nz[bp] || q.nz[bq]) return 2;
+        if (p.refpic[bp] != q.refpic[bq]) return 1;
+        if (std::abs(p.mv[bp][0] - q.mv[bq][0]) >= 4 || std::abs(p.mv[bp][1] - q.mv[bq][1]) >= 4)
+            return 1;
+        return 0;
+    }
+
+    // Filters the samples across one edge: `pix` the first q0 sample, `step`
+    // from q0 to q1, `along` from one line to the next, `n` lines, bS[line * 4 / n]
+    static void filter_edge(uint8_t* pix, int step, int along, int n, const int* bs, int qpav,
+                            int alpha_off, int beta_off, bool chroma) {
+        const int ia = clip3(0, 51, qpav + alpha_off), ib = clip3(0, 51, qpav + beta_off);
+        const int alpha = kAlpha[ia], beta = kBeta[ib];
+        if (!alpha || !beta || !(bs[0] | bs[1] | bs[2] | bs[3])) return;
+        for (int k = 0; k < n; k++) {
+            const int s = bs[k * 4 / n];
+            if (!s) continue;
+            uint8_t* q = pix + (ptrdiff_t)k * along;
+            const int p0 = q[-step], p1 = q[-2 * step], q0 = q[0], q1 = q[step];
+            if (std::abs(p0 - q0) >= alpha || std::abs(p1 - p0) >= beta ||
+                std::abs(q1 - q0) >= beta)
+                continue;
+            if (chroma) {
+                if (s < 4) {
+                    const int tc = kTc0[ia][s - 1] + 1;
+                    const int d = clip3(-tc, tc, (((q0 - p0) << 2) + (p1 - q1) + 4) >> 3);
+                    q[-step] = clip1(p0 + d);
+                    q[0] = clip1(q0 - d);
+                } else {
+                    q[-step] = (uint8_t)((2 * p1 + p0 + q1 + 2) >> 2);
+                    q[0] = (uint8_t)((2 * q1 + q0 + p1 + 2) >> 2);
+                }
+                continue;
+            }
+            const int p2 = q[-3 * step], q2 = q[2 * step];
+            const int ap = std::abs(p2 - p0), aq = std::abs(q2 - q0);
+            if (s < 4) {
+                const int tc0 = kTc0[ia][s - 1];
+                const int tc = tc0 + (ap < beta) + (aq < beta);
+                const int d = clip3(-tc, tc, (((q0 - p0) << 2) + (p1 - q1) + 4) >> 3);
+                q[-step] = clip1(p0 + d);
+                q[0] = clip1(q0 - d);
+                const int avg = (p0 + q0 + 1) >> 1;
+                if (ap < beta)
+                    q[-2 * step] = (uint8_t)(p1 + clip3(-tc0, tc0, (p2 + avg - (p1 << 1)) >> 1));
+                if (aq < beta)
+                    q[step] = (uint8_t)(q1 + clip3(-tc0, tc0, (q2 + avg - (q1 << 1)) >> 1));
+            } else {
+                const int p3 = q[-4 * step], q3 = q[3 * step];
+                const bool small = std::abs(p0 - q0) < ((alpha >> 2) + 2);
+                if (ap < beta && small) {
+                    q[-step] = (uint8_t)((p2 + 2 * p1 + 2 * p0 + 2 * q0 + q1 + 4) >> 3);
+                    q[-2 * step] = (uint8_t)((p2 + p1 + p0 + q0 + 2) >> 2);
+                    q[-3 * step] = (uint8_t)((2 * p3 + 3 * p2 + p1 + p0 + q0 + 4) >> 3);
+                } else {
+                    q[-step] = (uint8_t)((2 * p1 + p0 + q1 + 2) >> 2);
+                }
+                if (aq < beta && small) {
+                    q[0] = (uint8_t)((p1 + 2 * p0 + 2 * q0 + 2 * q1 + q2 + 4) >> 3);
+                    q[step] = (uint8_t)((p0 + q0 + q1 + q2 + 2) >> 2);
+                    q[2 * step] = (uint8_t)((2 * q3 + 3 * q2 + q1 + q0 + p0 + 4) >> 3);
+                } else {
+                    q[0] = (uint8_t)((2 * q1 + q0 + p1 + 2) >> 2);
+                }
+            }
+        }
+    }
+
+    void deblock() {
+        const Tables& t = tables();
+        const int cw = w / 2;
+        for (int mb = 0; mb < mb_w * mb_h; mb++) {
+            const Mb& q = mbs[mb];
+            const SliceInfo& s = slices[q.slice];
+            if (s.idc == 1) continue;
+            const int mx = mb % mb_w, my = mb / mb_w;
+            const bool left = mx > 0 && !(s.idc == 2 && mbs[mb - 1].slice != q.slice);
+            const bool top = my > 0 && !(s.idc == 2 && mbs[mb - mb_w].slice != q.slice);
+            int bs[2][4][4];  // [vertical/horizontal][edge][segment]
+            for (int e = 0; e < 4; e++)
+                for (int k = 0; k < 4; k++) {
+                    bs[0][e][k] = e ? strength(q, k * 4 + e - 1, q, k * 4 + e, false)
+                                    : left ? strength(mbs[mb - 1], k * 4 + 3, q, k * 4, true) : 0;
+                    bs[1][e][k] = e ? strength(q, (e - 1) * 4 + k, q, e * 4 + k, false)
+                                    : top ? strength(mbs[mb - mb_w], 12 + k, q, k, true) : 0;
+                }
+            uint8_t* py = cur->y.data() + (size_t)my * 16 * w + mx * 16;
+            for (int dir = 0; dir < 2; dir++) {
+                for (int e = 0; e < 4; e++) {
+                    if (e == 0 && !(dir ? top : left)) continue;
+                    const Mb& p = e ? q : mbs[dir ? mb - mb_w : mb - 1];
+                    const int qpav = (p.qp + q.qp + 1) >> 1;
+                    if (dir == 0)
+                        filter_edge(py + 4 * e, 1, w, 16, bs[0][e], qpav, s.alpha, s.beta, false);
+                    else
+                        filter_edge(py + (size_t)4 * e * w, w, 1, 16, bs[1][e], qpav, s.alpha,
+                                    s.beta, false);
+                }
+            }
+            for (int c = 0; c < 2; c++) {
+                uint8_t* pc = (c ? cur->v : cur->u).data() + (size_t)my * 8 * cw + mx * 8;
+                auto qpc = [&](const Mb& m) {
+                    return t.chroma_qp[clip3(0, 51, m.qp + s.chroma_offset[c]) + 12];
+                };
+                for (int dir = 0; dir < 2; dir++) {
+                    for (int e = 0; e < 4; e += 2) {
+                        if (e == 0 && !(dir ? top : left)) continue;
+                        const Mb& p = e ? q : mbs[dir ? mb - mb_w : mb - 1];
+                        const int qpav = (qpc(p) + qpc(q) + 1) >> 1;
+                        if (dir == 0)
+                            filter_edge(pc + 2 * e, 1, cw, 8, bs[0][e], qpav, s.alpha, s.beta,
+                                        true);
+                        else
+                            filter_edge(pc + (size_t)2 * e * cw, cw, 1, 8, bs[1][e], qpav, s.alpha,
+                                        s.beta, true);
+                    }
+                }
+            }
+        }
+    }
+
+    // ------------------------------------------------- picture end
+    void finish_picture() {
+        if (last_mb != mb_w * mb_h - 1) throw Corrupt("a picture with missing macroblocks");
+        deblock();
+        PicPtr pic = cur;
+        cur = nullptr;
+        const SliceHeader& s = first_header;
+        if (s.ref_idc) {
+            if (s.idr) {
+                refs.clear();
+            } else if (s.adaptive) {
+                for (int d : s.mmco1) {  // unmark the picture of PicNum CurrPicNum - (d + 1)
+                    auto it = std::find_if(refs.begin(), refs.end(), [&](const PicPtr& r) {
+                        return pic_num(*r, *pic) == pic->frame_num - (d + 1);
+                    });
+                    if (it != refs.end()) refs.erase(it);
+                }
+            } else if ((int)refs.size() >= std::max(cs->max_refs, 1)) {  // the sliding window
+                auto older = [&](const PicPtr& a, const PicPtr& b) {
+                    return pic_num(*a, *pic) < pic_num(*b, *pic);
+                };
+                refs.erase(std::min_element(refs.begin(), refs.end(), older));
+            }
+            if ((int)refs.size() >= std::max(cs->max_refs, 1) && !s.idr)
+                throw Corrupt("more reference pictures than max_num_ref_frames");
+            refs.push_back(pic);
+            prev_ref_frame_num = pic->frame_num;
+        }
+        have_prev = true;
+        select_output(pic);
+    }
+
+    // FFmpeg's h264_select_output_frame
+    void select_output(const PicPtr& cur_pic) {
+        if (cs->restriction) has_b_frames = std::max(has_b_frames, cs->num_reorder_frames);
+        int i = 0;
+        for (;; i++) {
+            if (i == kMaxDelayed || cur_pic->poc < last_pocs[i]) {
+                if (i) last_pocs[i - 1] = cur_pic->poc;
+                break;
+            } else if (i) {
+                last_pocs[i - 1] = last_pocs[i];
+            }
+        }
+        int out_of_order = kMaxDelayed - i;
+        if (last_pocs[kMaxDelayed - 2] > INT_MIN &&
+            (int64_t)last_pocs[kMaxDelayed - 1] - last_pocs[kMaxDelayed - 2] > 2)
+            out_of_order = std::max(out_of_order, 1);
+        if (out_of_order == kMaxDelayed) {
+            for (int k = 1; k < kMaxDelayed; k++) last_pocs[k] = INT_MIN;
+            last_pocs[0] = cur_pic->poc;
+            cur_pic->mmco_reset = true;
+        } else if (has_b_frames < out_of_order && !cs->restriction) {
+            has_b_frames = out_of_order;
+        }
+        delayed.push_back(cur_pic);
+        const int pics = (int)delayed.size();
+        const size_t out_idx = next_out();
+        PicPtr out = delayed[out_idx];
+        if (has_b_frames == 0 && (delayed[0]->key || delayed[0]->mmco_reset))
+            next_outputed_poc = INT_MIN;
+        const bool ooo = out->poc < next_outputed_poc;
+        if (ooo || pics > has_b_frames) delayed.erase(delayed.begin() + (long)out_idx);
+        if (!ooo && pics > has_b_frames) {
+            if (out_idx == 0 && !delayed.empty() && (delayed[0]->key || delayed[0]->mmco_reset))
+                next_outputed_poc = INT_MIN;
+            else
+                next_outputed_poc = out->poc;
+            if (out->recovered) ready.push_back(out);
+        }
+    }
+
+    // The held picture to give next: the least POC up to the next key or
+    // reset picture.
+    size_t next_out() const {
+        size_t out = 0;
+        for (size_t k = 1; k < delayed.size() && !delayed[k]->key && !delayed[k]->mmco_reset; k++)
+            if (delayed[k]->poc < delayed[out]->poc) out = k;
+        return out;
+    }
+
+    // ---------------------------------------------------------- API
+    int decode(const uint8_t* d, size_t n, long tag) {
+        ready.clear();
+        bool any = false;
+        nal_units(d, n, [&](const uint8_t* p, size_t len) {
+            const int type = p[0] & 31;
+            if (type == 1 || type == 5) {
+                if (!any && cur) finish_picture();  // a packet holds one access unit
+                any = true;
+            }
+            nal(p, len, true);
+            if (cur && (type == 1 || type == 5)) cur->tag = tag;
+        });
+        if (cur) finish_picture();
+        return take();
+    }
+
+    int take() {
+        if (ready.empty()) return 0;
+        shown = ready.front();
+        ready.erase(ready.begin());
+        return 1;
+    }
+
+    int drain() {
+        if (!ready.empty()) return take();
+        while (!delayed.empty()) {
+            const size_t out_idx = next_out();
+            PicPtr out = delayed[out_idx];
+            delayed.erase(delayed.begin() + (long)out_idx);
+            if (out->recovered) {
+                shown = out;
+                return 1;
+            }
+        }
+        return 0;
+    }
+
+    void flush() {  // h264_decode_flush
+        delayed.clear();
+        ready.clear();
+        refs.clear();
+        cur = nullptr;
+        have_prev = false;
+        reset_pocs();
+        next_outputed_poc = INT_MIN;
+        frame_recovered = false;
+        mmco_reset = true;
+        waiting_for_idr = true;
+    }
+
+    // The left crop av_frame_apply_cropping applies: it keeps the data
+    // pointers 32-byte aligned, so a crop that would misalign them shrinks
+    static int crop_left(const Picture& p) {
+        int crop_l = p.crop_l;
+        if (crop_l) {
+            const int luma = __builtin_ctz((unsigned)crop_l);
+            const int half = crop_l >> 1 ? __builtin_ctz((unsigned)(crop_l >> 1)) : 32;
+            const int chroma = std::min(luma, half);
+            if (chroma < 5) crop_l &= ~((1 << (5 + luma - chroma)) - 1);
+        }
+        return crop_l;
+    }
+
+    void to_bgr(uint8_t* out) const {
+        const Picture& p = *shown;
+        const int crop_l = crop_left(p);
+        const int ow = p.w - crop_l - p.crop_r, oh = p.h - p.crop_t - p.crop_b, cw = p.w / 2;
+        ffdsp::yuv2bgr24(p.y.data() + (size_t)p.crop_t * p.w + crop_l, p.w,
+                         p.u.data() + (size_t)(p.crop_t / 2) * cw + crop_l / 2,
+                         p.v.data() + (size_t)(p.crop_t / 2) * cw + crop_l / 2, cw, ow, oh, 1,
+                         p.full_range, out);
+    }
+    void size(int* wh) const {
+        const Picture& p = *shown;
+        wh[0] = p.w - crop_left(p) - p.crop_r;
+        wh[1] = p.h - p.crop_t - p.crop_b;
+    }
+};
+
+void set_err(char* err, int errlen, const char* msg) {
+    if (err && errlen > 0) std::snprintf(err, (size_t)errlen, "%s", msg);
+}
+
+template <class F>
+int guarded(char* err, int errlen, F&& fn) {
+    try {
+        return fn();
+    } catch (const Refused& e) {
+        set_err(err, errlen, e.what());
+        return -2;
+    } catch (const std::exception& e) {
+        set_err(err, errlen, e.what());
+        return -1;
+    }
+}
+
+void fill_info(const Decoder* d, long* info) {
+    int wh[2];
+    d->size(wh);
+    info[0] = wh[0];
+    info[1] = wh[1];
+    info[2] = d->shown->tag;
+}
+
+}  // namespace
+
+extern "C" {
+
+void* crt_h264_create() { return new Decoder(); }
+
+// Takes the parameter sets carried outside the packets, `extra`: an avcC
+// record (MP4's AVCDecoderConfigurationRecord, first byte 1) or Annex B
+// units (an AVI strf's extradata), or nothing (n 0: the packets carry
+// them); and how packets frame their NAL units: nal_length bytes of length
+// before each (1, 2 or 4: MP4), or 0 for Annex B start codes (AVI).
+// 0, or -1 / -2 as crt_h264_decode.
+int crt_h264_config(void* h, const uint8_t* extra, long n, int nal_length, char* err,
+                    int errlen) {
+    Decoder* d = static_cast<Decoder*>(h);
+    return guarded(err, errlen, [&]() {
+        if (nal_length != 0 && nal_length != 1 && nal_length != 2 && nal_length != 4)
+            throw Corrupt("a NAL length size other than 1, 2 or 4");
+        if (n > 0 && extra[0] != 1) {  // Annex B parameter sets
+            d->nal_length = 0;
+            d->nal_units(extra, (size_t)n,
+                         [&](const uint8_t* p, size_t len) { d->nal(p, len, false); });
+        } else if (n > 0) {
+            if (n < 7) throw Corrupt("a cut avcC record");
+            size_t pos = 5;
+            for (int kind = 0; kind < 2; kind++) {
+                if (pos >= (size_t)n) throw Corrupt("a cut avcC record");
+                int count = kind ? extra[pos] : extra[pos] & 31;
+                pos++;
+                for (int i = 0; i < count; i++) {
+                    if (pos + 2 > (size_t)n) throw Corrupt("a cut avcC record");
+                    size_t len = (size_t)extra[pos] << 8 | extra[pos + 1];
+                    pos += 2;
+                    if (pos + len > (size_t)n || !len) throw Corrupt("a cut avcC record");
+                    d->nal(extra + pos, len, false);
+                    pos += len;
+                }
+            }
+        }
+        d->nal_length = nal_length;
+        return 0;
+    });
+}
+
+// Reads a packet's parameter sets and checks its slice headers (refusals)
+// without decoding a picture.  0, or -1 / -2 as decode.
+int crt_h264_probe(void* h, const uint8_t* data, long n, char* err, int errlen) {
+    Decoder* d = static_cast<Decoder*>(h);
+    return guarded(err, errlen, [&]() {
+        d->probe_last_mb = -1;
+        d->nal_units(data, (size_t)n,
+                     [&](const uint8_t* p, size_t len) { d->nal(p, len, false); });
+        return 0;
+    });
+}
+
+// Decodes one packet (an access unit) tagged `tag`: 1 when a picture is
+// given (info: width, height, the tag of its packet), 0 none (held
+// back for reordering, or before an IDR after a flush), -1 the packet does
+// not decode, -2 a feature the decoder refuses.
+int crt_h264_decode(void* h, const uint8_t* data, long n, long tag, long* info, char* err,
+                    int errlen) {
+    Decoder* d = static_cast<Decoder*>(h);
+    return guarded(err, errlen, [&]() {
+        int got = d->decode(data, (size_t)n, tag);
+        if (got) fill_info(d, info);
+        return got;
+    });
+}
+
+// The next picture held back (end of stream): 1 (info as decode) or 0.
+int crt_h264_drain(void* h, long* info) {
+    Decoder* d = static_cast<Decoder*>(h);
+    int got = d->drain();
+    if (got) fill_info(d, info);
+    return got;
+}
+
+// The last picture given as BGR24 into out (height x width x 3 bytes): 0,
+// or -1 when there is none or out has another size.
+int crt_h264_bgr(void* h, uint8_t* out, long size) {
+    Decoder* d = static_cast<Decoder*>(h);
+    if (!d->shown) return -1;
+    int wh[2];
+    d->size(wh);
+    if (size != (long)wh[0] * wh[1] * 3) return -1;
+    d->to_bgr(out);
+    return 0;
+}
+
+// avcodec_flush_buffers: drops the pictures held back and the references;
+// nothing is decoded again until an IDR picture.
+void crt_h264_flush(void* h) { static_cast<Decoder*>(h)->flush(); }
+
+void crt_h264_destroy(void* h) { delete static_cast<Decoder*>(h); }
+
+}  // extern "C"

@@ -5,7 +5,9 @@ video track's samples as libavformat's ``mov`` demuxer hands them to OpenCV.
 (size 0) sizes; ``moov`` before or after ``mdat``), takes the first track
 whose ``hdlr`` is ``vide`` and expands its sample table: ``stsd`` (the
 sample entry; for ``mp4v`` the ``esds`` DecoderSpecificInfo, which holds
-the VOL headers), ``stts`` with ``mdhd``'s timescale, ``stsc`` (any number
+the VOL headers; for ``avc1`` and ``avc3`` the ``avcC`` record, which
+holds H.264's SPS and PPS and its NAL length size), ``stts`` with
+``mdhd``'s timescale, ``stsc`` (any number
 of runs), ``stsz`` (uniform or a table), ``stco`` or ``co64``, ``stss``
 (where absent every sample is a key frame) and ``elst``:
 
@@ -60,9 +62,10 @@ class Track:
     fps: float
     frame_count: int
     samples: List[Sample]
-    extra: bytes = b""  # the esds DecoderSpecificInfo
+    extra: bytes = b""  # the esds DecoderSpecificInfo, or the avcC record
     object_type: Optional[int] = None
     start_pts: int = 0  # the first shown sample's timestamp
+    nal_length: int = 0  # H.264: bytes of each NAL unit's length prefix (avcC)
 
 
 def _boxes(f: BinaryIO, start: int, end: int):
@@ -218,7 +221,7 @@ def _track(f, a, b, mdia, movie_scale) -> Track:
     esize, fourcc = struct.unpack_from(">I4s", stsd, 8)
     fourcc = fourcc.decode("latin-1")
     entry = stsd[8:8 + esize]
-    oti, extra = None, b""
+    oti, extra, nal_length = None, b"", 0
     pos = _VISUAL_ENTRY + 8
     while pos + 8 <= len(entry):
         n, typ = struct.unpack_from(">I4s", entry, pos)
@@ -226,6 +229,13 @@ def _track(f, a, b, mdia, movie_scale) -> Track:
             break
         if typ == b"esds":
             oti, extra = _esds(entry[pos + 8:pos + n])
+        elif typ == b"avcC" and fourcc in ("avc1", "avc3"):
+            extra = entry[pos + 8:pos + n]
+            if len(extra) < 7 or extra[0] != 1:
+                raise BmffError("an avcC record of another version")
+            nal_length = (extra[4] & 3) + 1
+            if nal_length == 3:
+                raise BmffError("avcC lengthSizeMinusOne 2")
         pos += n
     ctts = _table(f, box.get("ctts"), "Ii")
     if ctts and any(off for _, off in ctts):
@@ -282,7 +292,7 @@ def _track(f, a, b, mdia, movie_scale) -> Track:
     start = 0
     if edts is not None:
         samples, start = _edit(_read(f, *edts), samples, durations, scale, movie_scale)
-    return Track(fourcc, scale, fps, count, samples, extra, oti, start)
+    return Track(fourcc, scale, fps, count, samples, extra, oti, start, nal_length)
 
 
 def _edit(elst: bytes, samples: List[Sample], durations: List[int], scale: int,

@@ -1,0 +1,146 @@
+"""H.264 video decoded on the host without OpenCV: a ctypes binding to
+``csrc/h264_video.cpp``.
+
+:class:`H264Decoder` decodes the packets (access units) of one stream in
+order, as FFmpeg's ``h264`` decoder decodes them for ``cv2.VideoCapture``:
+Constrained Baseline (CAVLC, I and P slices, 4:2:0 8-bit progressive
+frames), with FFmpeg's output order and delay, and each picture, cropped,
+as BGR the way OpenCV receives it from swscale (limited or, with the VUI's
+``video_full_range_flag``, full range).  A stream feature the decoder does
+not take raises :class:`H264Unsupported` naming it; data that does not
+decode raises ValueError.
+
+The library is built with ``g++ -O2 -std=c++17 -shared -fPIC`` at first use
+into the port's git-ignored ``_build/`` (``_build.build_library``); a
+failed build raises with the compiler's output.  ctypes releases the GIL
+while a packet decodes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import threading
+from typing import Optional
+
+import numpy as np
+
+from .. import _build
+
+SRC = os.path.join(_build.CSRC_DIR, "h264_video.cpp")
+FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
+HEADERS = (os.path.join(_build.CSRC_DIR, "ffmpeg_dsp.h"),)
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+class H264Unsupported(ValueError):
+    """A stream feature the decoder refuses (the message names it)."""
+
+
+def load() -> ctypes.CDLL:
+    """The decoder library, built at first use (once a process)."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        gxx = shutil.which("g++")
+        if gxx is None:
+            raise RuntimeError(f"g++ not found on PATH: the H.264 decoder ({SRC}) cannot be built")
+        lib = ctypes.CDLL(_build.build_library("h264_video", [SRC], gxx, FLAGS, headers=HEADERS))
+        vp, cp, i, l = ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int, ctypes.c_long
+        lp = ctypes.POINTER(ctypes.c_long)
+        lib.crt_h264_create.restype = vp
+        lib.crt_h264_create.argtypes = []
+        lib.crt_h264_config.restype = i
+        lib.crt_h264_config.argtypes = [vp, cp, l, i, cp, i]
+        lib.crt_h264_probe.restype = i
+        lib.crt_h264_probe.argtypes = [vp, cp, l, cp, i]
+        lib.crt_h264_decode.restype = i
+        lib.crt_h264_decode.argtypes = [vp, cp, l, l, lp, cp, i]
+        lib.crt_h264_drain.restype = i
+        lib.crt_h264_drain.argtypes = [vp, lp]
+        lib.crt_h264_bgr.restype = i
+        lib.crt_h264_bgr.argtypes = [vp, vp, l]
+        lib.crt_h264_flush.restype = None
+        lib.crt_h264_flush.argtypes = [vp]
+        lib.crt_h264_destroy.restype = None
+        lib.crt_h264_destroy.argtypes = [vp]
+        _lib = lib
+        return lib
+
+
+def _check(rc: int, err: ctypes.Array, name: str) -> None:
+    if rc == -2:
+        raise H264Unsupported(err.value.decode(errors="replace"))
+    if rc < 0:
+        raise ValueError(f"{name}: {err.value.decode(errors='replace')}")
+
+
+class H264Decoder:
+    """One H.264 stream.  ``extra``: the parameter sets carried outside the
+    packets (an MP4 ``avcC`` record, or Annex B units from an AVI's
+    ``strf``), or empty where the packets carry them; ``nal_length_size``:
+    bytes of the length before each NAL unit of a packet (MP4: 1, 2 or 4),
+    or 0 where packets use Annex B start codes (AVI)."""
+
+    def __init__(self, extra: bytes = b"", nal_length_size: int = 0, name: str = "<h264>"):
+        self._lib = load()
+        self.name = name
+        self._h = self._lib.crt_h264_create()
+        self._err = ctypes.create_string_buffer(256)
+        self._info = (ctypes.c_long * 3)()
+        try:
+            _check(self._lib.crt_h264_config(self._h, bytes(extra), len(extra), nal_length_size,
+                                             self._err, len(self._err)), self._err, name)
+        except BaseException:
+            self.close()
+            raise
+        self.width = self.height = 0
+        self.tag = -1  # the packet tag of the last picture given
+
+    def probe(self, packet: bytes) -> None:
+        """Reads the parameter sets of ``packet`` and checks its slice
+        headers, without decoding: a refused feature raises here."""
+        _check(self._lib.crt_h264_probe(self._h, bytes(packet), len(packet), self._err,
+                                        len(self._err)), self._err, self.name)
+
+    def _got(self, rc: int) -> bool:
+        _check(rc, self._err, self.name)
+        if rc == 1:
+            self.width, self.height, self.tag = self._info
+        return rc == 1
+
+    def advance(self, packet: bytes, tag: int = 0) -> bool:
+        """Decodes ``packet`` (one access unit); True where a picture is
+        given (it may be an earlier packet's, ``tag`` tells which)."""
+        return self._got(self._lib.crt_h264_decode(self._h, bytes(packet), len(packet), tag,
+                                                   self._info, self._err, len(self._err)))
+
+    def drain(self) -> bool:
+        """At the end of the stream: True where a held-back picture is given."""
+        return self._got(self._lib.crt_h264_drain(self._h, self._info))
+
+    def picture(self) -> np.ndarray:
+        """The last picture given as BGR u8 (height, width, 3)."""
+        out = np.empty((self.height, self.width, 3), np.uint8)
+        if self._lib.crt_h264_bgr(self._h, out.ctypes.data, out.size):
+            raise ValueError(f"{self.name}: no picture decoded")
+        return out
+
+    def flush(self) -> None:
+        """``avcodec_flush_buffers``: the pictures held back and the
+        references go; nothing is given until the next IDR picture."""
+        self._lib.crt_h264_flush(self._h)
+
+    def close(self) -> None:
+        if self._h:
+            self._lib.crt_h264_destroy(self._h)
+            self._h = None
+
+    def __del__(self):
+        self.close()

@@ -1,13 +1,15 @@
 """Video files read on the host without OpenCV: AVI (the RIFF container
 walked with ``struct``) and MP4/QuickTime (ISO BMFF, ``bmff.py``), their
-Motion-JPEG frames decoded by the port's JPEG codec (``jpeg.py``) and their
-MPEG-4 Part 2 frames by the port's MPEG-4 decoder (``mpeg4.py``).
+Motion-JPEG frames decoded by the port's JPEG codec (``jpeg.py``), their
+MPEG-4 Part 2 frames by the port's MPEG-4 decoder (``mpeg4.py``) and their
+H.264 frames by the port's H.264 decoder (``h264.py``, Constrained
+Baseline).
 
 The readers have what ``runner.frame_source`` uses of ``cv2.VideoCapture``
 and give, for the same file, what the JAX package's reader gives:
 ``cv2.VideoCapture(path)`` with no backend named, which opens these files
 through FFMPEG (libavformat's AVI and ``mov`` demuxers, libavcodec's
-``mjpeg`` and ``mpeg4`` decoders).  :func:`open_reader` tries AVI, then
+``mjpeg``, ``mpeg4`` and ``h264`` decoders).  :func:`open_reader` tries AVI, then
 ISO BMFF.
 
 * **Frames** (:class:`AviReader`): the chunks of the first video stream
@@ -25,7 +27,8 @@ ISO BMFF.
   With no index, or with an entry that does not point at a chunk of the
   stream and its size, the ``movi`` lists are scanned.  Key frames: the
   index's AVIIF_KEYFRAME, or ``stss`` in MP4; a scanned MPEG-4 chunk is a
-  key frame where it holds an I-VOP.
+  key frame where it holds an I-VOP, a scanned H.264 chunk where it holds
+  an IDR slice.
 * **Pixels**: Motion-JPEG: FFmpeg's ``mjpeg`` decoder and swscale's
   conversion (``jpeg.MjpegDecoder``), equal to cv2's frames bit for bit for
   YCbCr 4:2:0 and 4:2:2 of even height, 4:4:4 and gray; a chunk the end
@@ -37,7 +40,11 @@ ISO BMFF.
   picture before), and its pictures equal cv2's bit for bit.  A packet that
   gives no picture (headers only, a VOP that is not coded) is passed, as
   FFMPEG passes it; one that does not decode ends a sequential read (FFMPEG
-  conceals the damage and goes on).
+  conceals the damage and goes on).  H.264: the same, with FFmpeg's output
+  order and delay (a picture may come out after later packets, and the
+  pictures held back come out at the end); after a seek nothing shows
+  until an IDR picture; a packet that does not decode raises ValueError
+  (no concealment).
 * **fps**: AVI: the stream header's dwRate / dwScale (libavformat's
   fallbacks where either is 0); MP4: the track's average frame rate;
   ``CAP_PROP_FPS``.  **frame_count**: dwLength, or the track's sample
@@ -48,8 +55,10 @@ ISO BMFF.
 
 Anything else raises :class:`UnsupportedVideo`, naming the file, its
 container and the video stream's fourcc, and the feature where one is
-refused: other codecs, the MPEG-4 features ``mpeg4.py`` refuses, the MP4
-layouts ``bmff.py`` refuses, Matroska.  ``runner.open_video`` hands those
+refused: other codecs, the MPEG-4 features ``mpeg4.py`` refuses, the
+H.264 features ``h264.py`` refuses (checked in the parameter sets and the
+slice headers of the first packets when the file opens), the MP4 layouts
+``bmff.py`` refuses, Matroska.  ``runner.open_video`` hands those
 to OpenCV where it is installed.
 """
 
@@ -67,6 +76,7 @@ from . import bmff
 from .bmff import Sample
 from .image_io import decode_bmp, decode_png, decode_pnm, image_format
 from .jpeg import MjpegDecoder
+from .h264 import H264Decoder, H264Unsupported
 from .mpeg4 import Mpeg4Decoder, Mpeg4Unsupported
 
 MJPEG_FOURCCS = (b"MJPG", b"mjpg")
@@ -74,7 +84,11 @@ MJPEG_FOURCCS = (b"MJPG", b"mjpg")
 # matched upper-cased)
 MPEG4_FOURCCS = ("FMP4", "DIVX", "DX50", "XVID", "XVIX", "MP4S", "M4S2", "MP4V", "DIV1",
                  "UMP4", "SMP4")
-BMFF_CODECS = {"mp4v": "mpeg4", "jpeg": "mjpeg"}
+# AVI fourccs libavformat maps to the h264 decoder (ff_codec_bmp_tags,
+# matched upper-cased)
+H264_FOURCCS = ("H264", "X264", "AVC1", "DAVC", "SMV2", "VSSH", "Q264", "V264", "GAVC", "UMSV",
+                "TSHD", "INMX")
+BMFF_CODECS = {"mp4v": "mpeg4", "jpeg": "mjpeg", "avc1": "h264", "avc3": "h264"}
 _VOP = b"\x00\x00\x01\xb6"
 _PROBE_PACKETS = 64  # packets whose VOP type is checked when a file opens
 _REFUSED_VOPS = {2: "B-VOPs (bidirectional prediction)",
@@ -127,8 +141,9 @@ def _unsupported(path: str, why: str) -> UnsupportedVideo:
     container, fourcc = sniff(path)
     return UnsupportedVideo(
         f"{path}: {container} container, video fourcc {fourcc}: {why}; without OpenCV the "
-        f"port reads Motion-JPEG and MPEG-4 Part 2 (Simple Profile, I/P) in AVI, MP4 and "
-        f"QuickTime, so this file needs OpenCV (cv2)")
+        f"port reads Motion-JPEG, MPEG-4 Part 2 (Simple Profile, I/P) and H.264 "
+        f"(Constrained Baseline: CAVLC, I/P) in AVI, MP4 and QuickTime, so this file needs "
+        f"OpenCV (cv2)")
 
 
 def open_reader(path: str) -> "_Reader":
@@ -153,10 +168,11 @@ def open_reader(path: str) -> "_Reader":
 class _Reader:
     """What the AVI and MP4 readers share: the frame list, the decoders,
     reads and seeks.  A subclass's ``_parse`` sets ``frames``, ``fps``,
-    ``frame_count``, ``codec`` ("mjpeg" or "mpeg4"), ``fourcc``,
+    ``frame_count``, ``codec`` ("mjpeg", "mpeg4" or "h264"), ``fourcc``,
     ``_time_base`` (seconds a pts unit), ``_start_time`` (the stream's
-    start_time, in pts units) and ``_extra`` (MPEG-4 headers carried
-    outside the packets)."""
+    start_time, in pts units), ``_extra`` (MPEG-4 headers or H.264
+    parameter sets carried outside the packets) and, for H.264,
+    ``_nal_length`` (MP4's NAL length size; 0 for Annex B)."""
 
     _header_bytes = 0  # bytes before a frame's data at its pos
     _seek_before_first_to_start = False  # mov: a seek before the first entry lands on it
@@ -164,16 +180,19 @@ class _Reader:
     def __init__(self, path: str):
         self.path = path
         self._f = open(path, "rb")
-        self._decoder: Optional[Mpeg4Decoder] = None
+        self._decoder = None  # Mpeg4Decoder or H264Decoder
         self._mjpeg: Optional[MjpegDecoder] = None
         self._picture: Optional[np.ndarray] = None  # the last Motion-JPEG frame grabbed
         try:
             self._size = os.fstat(self._f.fileno()).st_size
             self._extra = b""
+            self._nal_length = 0
             self._parse()
             self._pts = [f.pts for f in self.frames]
             if self.codec == "mpeg4":
                 self._open_mpeg4()
+            elif self.codec == "h264":
+                self._open_h264()
             else:
                 self._mjpeg = MjpegDecoder(path)
         except BaseException:
@@ -217,6 +236,19 @@ class _Reader:
         except ValueError as e:
             raise _unsupported(self.path, f"MPEG-4 headers do not decode: {e}") from None
 
+    def _open_h264(self) -> None:
+        """The decoder, given the parameter sets carried outside the
+        packets; the parameter sets and slice headers of the first packets
+        are checked so that refused features are refused here."""
+        try:
+            self._decoder = H264Decoder(self._extra, self._nal_length, self.path)
+            for i in range(min(len(self.frames), _PROBE_PACKETS)):
+                self._decoder.probe(self.packet(i))
+        except H264Unsupported as e:
+            raise _unsupported(self.path, f"H.264 feature refused: {e}") from None
+        except ValueError as e:
+            raise _unsupported(self.path, f"H.264 headers do not decode: {e}") from None
+
     # --------------------------------------------------------------- frames
 
     def _grab(self) -> Optional[bytes]:
@@ -224,7 +256,12 @@ class _Reader:
         not decode (FFMPEG's decode error); either way the frame is passed.
         Every packet goes through its decoder here, as FFMPEG decodes each
         frame it grabs: MPEG-4 P-VOPs predict from the picture before, and a
-        cut Motion-JPEG frame keeps the picture before's pixels."""
+        cut Motion-JPEG frame keeps the picture before's pixels.  H.264 gives
+        its pictures in FFmpeg's output order (each with its own packet's
+        timestamp), the held-back ones once the packets end; a packet that
+        does not decode raises."""
+        if self.codec == "h264":
+            return self._grab_h264()
         while self._next < len(self.frames):
             f = self.frames[self._next]
             self._next += 1
@@ -242,11 +279,40 @@ class _Reader:
                 return None
             if not shown or f.discard:
                 continue
-            if self._first_pts is None:
-                self._first_pts = f.pts
-            self._last_pts = f.pts
+            self._shown(f)
             return data
         return None
+
+    def _shown(self, f: Sample) -> None:
+        if self._first_pts is None:
+            self._first_pts = f.pts
+        self._last_pts = f.pts
+
+    def _grab_h264(self) -> Optional[bytes]:
+        dec = self._decoder
+        while True:
+            data = b""
+            try:
+                if self._next < len(self.frames):
+                    self._next += 1
+                    data = self.packet(self._next - 1)
+                    shown = dec.advance(data, self._next - 1)
+                elif not dec.drain():
+                    return None
+                else:
+                    shown = True
+            except H264Unsupported as e:
+                raise _unsupported(self.path, f"H.264 feature refused: {e}") from None
+            except ValueError as e:
+                raise ValueError(f"{self.path}: frame {self._next - 1} does not decode: {e}") \
+                    from None
+            if not shown:
+                continue
+            f = self.frames[dec.tag]
+            if f.discard:
+                continue
+            self._shown(f)
+            return data
 
     def read(self) -> Tuple[bool, Optional[np.ndarray]]:
         """``(True, bgr_u8)`` of the next frame, or ``(False, None)``."""
@@ -486,10 +552,11 @@ class SequenceReader(_Reader):
 
 
 class Mp4Reader(_Reader):
-    """An MP4 or QuickTime file of MPEG-4 Part 2 (``mp4v``) or Motion-JPEG
-    (``jpeg``) video, read frame by frame as ``cv2.VideoCapture`` (FFMPEG)
-    reads it.  Raises OSError when the file cannot be read and
-    :class:`UnsupportedVideo` for any other file."""
+    """An MP4 or QuickTime file of MPEG-4 Part 2 (``mp4v``), H.264 (``avc1``,
+    ``avc3``: Constrained Baseline) or Motion-JPEG (``jpeg``) video, read
+    frame by frame as ``cv2.VideoCapture`` (FFMPEG) reads it.  Raises
+    OSError when the file cannot be read and :class:`UnsupportedVideo` for
+    any other file."""
 
     _seek_before_first_to_start = True
 
@@ -503,10 +570,14 @@ class Mp4Reader(_Reader):
         self.fourcc = track.fourcc
         self.codec = BMFF_CODECS.get(track.fourcc)
         if self.codec is None:
-            raise _unsupported(self.path, "not MPEG-4 Part 2 (mp4v) or Motion-JPEG (jpeg)")
+            raise _unsupported(self.path, "not MPEG-4 Part 2 (mp4v), H.264 (avc1, avc3) or "
+                                          "Motion-JPEG (jpeg)")
         if self.codec == "mpeg4" and track.object_type != bmff.MP4_VISUAL:
             raise _unsupported(self.path, f"esds object type {track.object_type} is not "
                                           "MPEG-4 Part 2 video (0x20)")
+        if self.codec == "h264" and not track.nal_length:
+            raise _unsupported(self.path, f"an {track.fourcc} sample entry without an avcC box")
+        self._nal_length = track.nal_length
         self._time_base = 1.0 / track.timescale
         self.fps = track.fps or float(track.timescale)
         self.frame_count = track.frame_count
@@ -516,9 +587,10 @@ class Mp4Reader(_Reader):
 
 
 class AviReader(_Reader):
-    """A Motion-JPEG or MPEG-4 Part 2 AVI file, read frame by frame as
-    ``cv2.VideoCapture`` (FFMPEG) reads it.  Raises OSError when the file
-    cannot be read and :class:`UnsupportedVideo` for any other file."""
+    """A Motion-JPEG, MPEG-4 Part 2 or H.264 (Annex B, Constrained Baseline)
+    AVI file, read frame by frame as ``cv2.VideoCapture`` (FFMPEG) reads it.
+    Raises OSError when the file cannot be read and
+    :class:`UnsupportedVideo` for any other file."""
 
     _header_bytes = 8
 
@@ -577,8 +649,11 @@ class AviReader(_Reader):
             self.codec = "mjpeg"
         elif self.fourcc.upper() in MPEG4_FOURCCS:
             self.codec = "mpeg4"
+        elif self.fourcc.upper() in H264_FOURCCS:
+            self.codec = "h264"
+            self._extra = strl.get("strf", b"")[40:]  # the extradata after BITMAPINFOHEADER
         else:
-            raise _unsupported(self.path, "not Motion-JPEG or MPEG-4 Part 2")
+            raise _unsupported(self.path, "not Motion-JPEG, MPEG-4 Part 2 or H.264")
         if not self._movi:
             raise _unsupported(self.path, "no movi list")
         scale, rate, start, length = struct.unpack_from("<4I", strl["strh"], 20)
@@ -594,8 +669,10 @@ class AviReader(_Reader):
 
     def _walk_strl(self, start: int, end: int):
         for at, fcc, size in self._walk(start, end):
-            if fcc in (b"strh", b"strf"):
-                yield fcc.decode(), self._read(at + 8, min(size, 64))
+            if fcc == b"strh":
+                yield "strh", self._read(at + 8, min(size, 64))
+            elif fcc == b"strf":  # BITMAPINFOHEADER and the codec's extradata
+                yield "strf", self._read(at + 8, min(size, 1 << 16))
             elif fcc == b"indx":
                 yield "indx", (at + 8, size)
 
@@ -735,9 +812,21 @@ class AviReader(_Reader):
 
     def _scanned_key(self, pos: int, size: int) -> bool:
         """A chunk found by the scan: a key frame, unless it is an MPEG-4
-        chunk whose VOP is not intra (libavformat checks the VOP type)."""
+        chunk whose VOP is not intra (libavformat checks the VOP type) or an
+        H.264 chunk without an IDR slice."""
+        if self.codec == "h264":
+            data = self._read(pos + 8, size)
+            return any(data[i + 3] & 31 == 5 for i in _start_codes(data))
         if self.codec != "mpeg4":
             return True
         head = self._read(pos + 8, min(size, 256))
         at = head.find(_VOP)
         return not (0 <= at < len(head) - 4 and head[at + 4] & 0xC0)
+
+
+def _start_codes(data: bytes):
+    """The offsets of the Annex B start codes (00 00 01) in ``data``."""
+    at = data.find(b"\x00\x00\x01")
+    while 0 <= at < len(data) - 3:
+        yield at
+        at = data.find(b"\x00\x00\x01", at + 3)

@@ -49,6 +49,16 @@ Phases, each of which raises (non-zero exit) on failure:
                gap, 40 frames, one image) against the pins
                tests/test_torch_sequence.py holds (FFMPEG's image2); the
                MPEG-4 decoder's g++ build time (csrc/mpeg4_video.cpp);
+               then each H.264 Constrained Baseline stream of
+               tests/h264_cases.py (written from seeds there: MP4,
+               QuickTime, AVI, avc3, POC types 0 and 2, both ranges,
+               cropped sizes, output delay) and its committed 1280x720 clip
+               tests/data/h264_720p.mp4 against the pins
+               tests/test_torch_h264.py holds (cv2's frames, bit for bit),
+               each refused stream raising UnsupportedVideo naming its
+               feature; the H.264 decoder's g++ build time
+               (csrc/h264_video.cpp) and host ms a frame of the 720p clip's
+               container read and H.264 decode apart (median of 24);
                host ms (median of 20, in turns) of a 1280x720 q95 4:2:0
                frame through the Motion-JPEG decoder (FFmpeg's arithmetic)
                and through decode_jpeg (libjpeg's); the hand kernels'
@@ -170,7 +180,16 @@ Phases, each of which raises (non-zero exit) on failure:
                frame, launches equal to the directory run's (K1 4, K4 4),
                --start_frame 3 (a P-frame) equal to the first run's, FPS
                of each, and the host ms a frame of the container read and
-               of the MPEG-4 decode apart.
+               of the MPEG-4 decode apart.  Then rtpose --video on the
+               committed H.264 clip tests/data/h264_720p.mp4 (the same 8
+               1280x720 frames coded by tests/h264_cases.encode_clip: an
+               IDR picture, then P pictures), in turns with the MPEG-4
+               clip and a q95 Motion-JPEG AVI of the H.264 decode (h264,
+               mp4, avi, twice): the decoded frames' digest equal to cv2's
+               (pinned), every h264 JSON equal to estimate() on the port's
+               decode of its frame, launches equal to the other runs' (K1
+               4, K4 4), --start_frame 3 equal to the first run's, FPS of
+               each.
    serving   - serving bundles (serving.py): the bf16 batch-8 estimator
                built from those files, exported (time, file sizes), loaded
                cold as an ExportedPose (time) with the kernel counters zeroed
@@ -998,6 +1017,16 @@ def mp4_cases_module():
     return mp4_cases
 
 
+def h264_cases_module():
+    """tests/h264_cases.py: the H.264 streams written from seeds, the
+    committed 720p clip and the results tests/test_torch_h264.py pins
+    against the JAX package's reader (numpy only)."""
+    jpeg_frames_module()  # puts tests/ on the path
+    import h264_cases
+
+    return h264_cases
+
+
 def read_frames(reader):
     frames = []
     while True:
@@ -1015,10 +1044,14 @@ def phase_video(card):
     built around mp4v.mp4's samples: frame count, fps, reads, seeks and
     frame digest held to the pins taken from the JAX package's reader (the
     MPEG-4 digests are cv2's frames).  The MPEG-4 decoder's g++ build
-    (csrc/mpeg4_video.cpp) is timed.  It launches none of K1-K4."""
+    (csrc/mpeg4_video.cpp) is timed.  Then each H.264 stream of
+    tests/h264_cases.py and its 720p clip against their pins, each refused
+    stream by its message, the H.264 decoder's g++ build
+    (csrc/h264_video.cpp) and its decode of the 720p clip a frame.  It
+    launches none of K1-K4."""
     import os
 
-    from caffe_rtpose_tpu_torch.pipeline import mpeg4, runner, video
+    from caffe_rtpose_tpu_torch.pipeline import h264, mpeg4, runner, video
     from caffe_rtpose_tpu_torch.pipeline.jpeg import MjpegDecoder, decode_jpeg, encode_jpeg
 
     tag = "[video]"
@@ -1068,6 +1101,53 @@ def phase_video(card):
             if bad:
                 differ[name] = {k: (got[k], pin[k]) for k in bad}
         mp4_secs = time.perf_counter() - t0
+        hc = h264_cases_module()
+        t0 = time.perf_counter()
+        h264.load()
+        h264_build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for name in [*hc.CASES, "h264_720p"]:
+            path = hc.CLIP_720P
+            if name != "h264_720p":
+                path = os.path.join(work, name + hc.suffix(name))
+                with open(path, "wb") as f:
+                    f.write(hc.build(name))
+            reader = video.open_reader(path)
+            frames = read_frames(reader)
+            reader.release()
+            pin = hc.PINNED[name]
+            got = dict(count=reader.frame_count, fps=reader.fps, sha256=cases.sha256(frames))
+            if "order" in pin:
+                got.update(cases.observe(runner, path, frames, hc.SEEKS, exact=True))
+            bad = [k for k in pin if got[k] != pin[k]]
+            if bad:
+                differ["h264 " + name] = {k: (got[k], pin[k]) for k in bad}
+        for name, (_, word) in hc.REFUSED.items():
+            path = os.path.join(work, "refused_" + name + hc.suffix(name))
+            with open(path, "wb") as f:
+                f.write(hc.build(name))
+            try:
+                video.open_reader(path).release()
+                differ["h264 refused " + name] = "opened"
+            except video.UnsupportedVideo as e:
+                if word not in str(e):
+                    differ["h264 refused " + name] = str(e)
+        h264_secs = time.perf_counter() - t0
+        reader = video.open_reader(hc.CLIP_720P)
+        h264_read_ms, h264_decode_ms = [], []
+        for _ in range(3):
+            dec = h264.H264Decoder(reader._extra, reader._nal_length, hc.CLIP_720P)
+            for i in range(len(reader.frames)):
+                t0 = time.perf_counter()
+                data = reader.packet(i)
+                t1 = time.perf_counter()
+                check(dec.advance(data, i), f"{tag} the 720p clip's frame {i} gave no picture")
+                dec.picture()
+                h264_read_ms.append((t1 - t0) * 1000.0)
+                h264_decode_ms.append((time.perf_counter() - t1) * 1000.0)
+            dec.close()
+        h264_frame_bytes = os.path.getsize(hc.CLIP_720P) // len(reader.frames)
+        reader.release()
         t0 = time.perf_counter()
         for name in seq.CASES:
             path, _, written = seq.write(name, os.path.join(work, "seq_" + name))
@@ -1101,6 +1181,15 @@ def phase_video(card):
           f"{len(m4.CASES)} crafted MP4 layouts ({', '.join(m4.CASES)}), cv2 blocked: count, "
           f"fps, reads, seeks and frame digests {'equal' if not differ else 'DIFFER from'} the "
           f"pins, in {mp4_secs:.2f} s; {card}")
+    print(f"{tag} H.264 decoder g++ build (csrc/h264_video.cpp) {h264_build_s:.2f} s; "
+          f"{len(hc.CASES)} Constrained Baseline streams ({', '.join(hc.CASES)}) and the "
+          f"1280x720 clip, cv2 blocked: count, fps, reads, seeks and frame digests "
+          f"{'equal' if not differ else 'DIFFER from'} the pins; {len(hc.REFUSED)} refused "
+          f"streams each named; in {h264_secs:.2f} s; host ms a 1280x720 frame "
+          f"({h264_frame_bytes} B; median of {len(h264_decode_ms)}): container read "
+          f"{statistics.median(h264_read_ms):.4f}, H.264 decode and BGR "
+          f"{statistics.median(h264_decode_ms):.3f} (range {min(h264_decode_ms):.3f}-"
+          f"{max(h264_decode_ms):.3f}); {card}")
     print(f"{tag} {len(seq.CASES)} printf image sequences ({', '.join(seq.CASES)}), cv2 "
           f"blocked: count, fps, reads, seeks and frame digests "
           f"{'equal' if not differ else 'DIFFER from'} the pins, in {seq_secs:.2f} s; host ms "
@@ -1112,6 +1201,12 @@ def phase_video(card):
     return dict(cases=len(cases.CASES), mp4_files=len(m4.CLIPS) + len(m4.CASES),
                 sequences=len(seq.CASES), pins_equal=not differ, seconds=secs,
                 mp4_seconds=mp4_secs, sequence_seconds=seq_secs, mpeg4_build_s=build_s,
+                h264_streams=len(hc.CASES) + 1, h264_refused=len(hc.REFUSED),
+                h264_seconds=h264_secs, h264_build_s=h264_build_s,
+                h264_read_ms=statistics.median(h264_read_ms),
+                h264_decode_ms=statistics.median(h264_decode_ms),
+                h264_decode_ms_range=[min(h264_decode_ms), max(h264_decode_ms)],
+                h264_frame_bytes=h264_frame_bytes,
                 mjpeg_ffmpeg_ms=statistics.median(ffmpeg_ms),
                 mjpeg_ffmpeg_ms_range=[min(ffmpeg_ms), max(ffmpeg_ms)],
                 decode_jpeg_ms=statistics.median(libjpeg_ms),
@@ -3194,6 +3289,74 @@ def phase_cli_mp4(files, extra=()):
                                    fps=seek["fps"]),
                 read_ms=statistics.median(read_ms), decode_ms=statistics.median(decode_ms),
                 decode_ms_range=[min(decode_ms), max(decode_ms)],
+                bytes_a_frame=os.path.getsize(clip) / n, seconds=[r["seconds"] for _, r in runs])
+
+
+def phase_cli_h264(files, card, extra=()):
+    """rtpose --video on the committed H.264 clip tests/data/h264_720p.mp4
+    (the 8 1280x720 frames of jpeg_frames.frame, an IDR picture and P
+    pictures), cv2 blocked, in turns with the MPEG-4 clip of the same
+    frames and a q95 Motion-JPEG AVI of the H.264 decode (h264, mp4, avi,
+    twice), then --start_frame 3 (a P picture: the seek decodes on from the
+    IDR picture).  The decoded frames' digest equals the pin (cv2's
+    frames); every JSON of the first h264 run equals estimate() on the
+    port's decode of its frame, the --start_frame run's the first run's;
+    launches equal across the runs; FPS of each."""
+    import os
+
+    from caffe_rtpose_tpu_torch.pipeline import video
+    from caffe_rtpose_tpu_torch.pipeline.jpeg import encode_jpeg
+
+    tag = "[cli h264]"
+    cases, m4, hc = avi_cases_module(), mp4_cases_module(), h264_cases_module()
+    clip = hc.CLIP_720P
+    with no_cv2():
+        reader = video.open_reader(clip)
+        images = read_frames(reader)
+        reader.release()
+    check(cases.sha256(images) == hc.PINNED["h264_720p"]["sha256"],
+          f"{tag} the decoded frames differ from cv2's (the pinned digest)")
+    work = tempfile.mkdtemp(prefix="chip_smoke_cli_h264_")
+    h, w = images[0].shape[:2]
+    n = len(images)
+    avi = os.path.join(work, "clip.avi")
+    with open(avi, "wb") as f:
+        f.write(cases.write_avi([encode_jpeg(f, 95) for f in images], w, h))
+    sources = {"h264": ("--video", clip), "mp4": ("--video", m4.clip_path("mp4v_720p")),
+               "avi": ("--video", avi)}
+    runs = []
+    for k, kind in enumerate(("h264", "mp4", "avi") * 2):
+        runs.append((kind, rtpose_run(f"{tag} {kind}", files, sources[kind],
+                                      os.path.join(work, f"json{k}"), w, h, extra)))
+    seek = rtpose_run(f"{tag} start 3", files, sources["h264"], os.path.join(work, "json_s3"),
+                      w, h, ("--start_frame", "3", *extra))
+    names = [f"frame{i:06d}.json" for i in range(n)]
+    for kind, r in runs:
+        check(r["files"] == names, f"{tag} {kind} wrote {r['files']}")
+        check(r["launches"] == runs[0][1]["launches"], f"{tag} {kind} launches {r['launches']} "
+                                                       f"against {runs[0][1]['launches']}")
+    first = runs[0][1]
+    check(first["launches"]["conv1_block"] > 0 and first["launches"]["peak_mask_fused"] > 0,
+          f"{tag} a hand kernel of the path never launched: {first['launches']}")
+    check(seek["files"] == names[3:], f"{tag} --start_frame 3 wrote {seek['files']}")
+    check(seek["launches"]["conv1_block"] > 0, f"{tag} --start_frame 3 launched no K4")
+    for name in seek["files"]:
+        with open(os.path.join(work, "json0", name)) as a, \
+                open(os.path.join(work, "json_s3", name)) as b:
+            check(a.read() == b.read(), f"{tag} --start_frame 3's {name} differs")
+    jsons_equal_estimate(tag, files, extra, images, os.path.join(work, "json0"), names,
+                         "the port's decode of its frame")
+    fps = {kind: [r["fps"] for k, r in runs if k == kind] for kind in ("h264", "mp4", "avi")}
+    print(f"{tag} decoded frames equal cv2's (pinned digest); every h264 JSON equals "
+          f"estimate() on the port's decode of its frame; --start_frame 3 wrote "
+          f"{len(seek['files'])} files equal to the first run's; FPS over {n} {w}x{h} frames: "
+          f"h264 {fps['h264']}, mp4 {fps['mp4']}, avi {fps['avi']} (in turns; "
+          f"{os.path.getsize(clip) // n} B a frame of H.264); launches {first['launches']}; "
+          f"{card}")
+    return dict(fps_h264=fps["h264"], fps_mp4=fps["mp4"], fps_avi=fps["avi"],
+                launches=first["launches"],
+                start_frame_3=dict(files=len(seek["files"]), launches=seek["launches"],
+                                   fps=seek["fps"]),
                 bytes_a_frame=os.path.getsize(clip) / n, seconds=[r["seconds"] for _, r in runs])
 
 
@@ -5593,6 +5756,11 @@ def main() -> int:
         check(cli_mp4["launches"] == cli_720p["launches"],
               f"[cli mp4] hand-kernel launches {cli_mp4['launches']} against the PNG "
               f"run's {cli_720p['launches']}")
+        # the committed H.264 clip through rtpose --video
+        cli_h264 = phase_cli_h264(files, info["nvidia_smi"])
+        check(cli_h264["launches"] == cli_720p["launches"],
+              f"[cli h264] hand-kernel launches {cli_h264['launches']} against the PNG "
+              f"run's {cli_720p['launches']}")
         serving, serving_est, serving_graph = phase_serving(weights, files, cli, work)
         pool = phase_pool(serving_est)
         del serving_est
@@ -5653,6 +5821,7 @@ def main() -> int:
     print(json.dumps({"formats": formats}))
     print(json.dumps({"cli_video": cli_video}))
     print(json.dumps({"cli_mp4": cli_mp4}))
+    print(json.dumps({"cli_h264": cli_h264}))
     print(json.dumps({"serving": serving}))
     print(json.dumps({"pool": pool}))
     print(json.dumps({"eval": evaluation}))
@@ -5693,6 +5862,8 @@ def main() -> int:
                             "cli 1280x720 sequence": (
                                 cli_video["sequence_launches"]["peak_mask_fused"], None),
                             "cli 1280x720 mp4": (cli_mp4["launches"]["peak_mask_fused"], None),
+                            "cli 1280x720 h264": (cli_h264["launches"]["peak_mask_fused"],
+                                                  None),
                             **{f"{path} (by rank)": (v, None) for path, v in
                                parallel["k1_launches_by_path"].items()}},
         "peak_mask_fused_3scale": {"slice 3-scale": (three["launches"], None),
@@ -5714,7 +5885,8 @@ def main() -> int:
                         "cli 1280x720 video": (cli_video["launches"]["conv1_block"], None),
                         "cli 1280x720 sequence": (cli_video["sequence_launches"]["conv1_block"],
                                                   None),
-                        "cli 1280x720 mp4": (cli_mp4["launches"]["conv1_block"], None)},
+                        "cli 1280x720 mp4": (cli_mp4["launches"]["conv1_block"], None),
+                        "cli 1280x720 h264": (cli_h264["launches"]["conv1_block"], None)},
     }
     entries = [
         ("peak_mask_fused", mask_src, f"{mask_pallas}:136", pipeline["launches"]["peak_mask_fused"],

@@ -93,11 +93,13 @@ def _odd(jpeg: bytes) -> bytes:
 
 
 def write_avi(jpegs, w, h, layout="cv2", idx1="relative", rate=25, scale=1, odd=(), zero=(),
-              odml=0, cut=0, garbage=(), fourcc=b"MJPG") -> bytes:
+              odml=0, cut=0, garbage=(), fourcc=b"MJPG", keys=None, extradata=b"") -> bytes:
     """An AVI around ``jpegs``: see the module docstring for the keywords
     (``zero`` inserts a 0-byte chunk before the frame of that index,
     ``odml`` puts the frames from that index on into a RIFF AVIX part;
-    ``fourcc`` names the codec in ``strh`` and ``strf``)."""
+    ``fourcc`` names the codec in ``strh`` and ``strf``; ``keys`` lists the
+    frames ``idx1`` flags AVIIF_KEYFRAME, by default all; ``extradata``
+    follows the BITMAPINFOHEADER in ``strf``)."""
     jpegs = [_odd(j) if i in odd else j for i, j in enumerate(jpegs)]
     jpegs = [b"\x00not a jpeg\x00" * 7 if i in garbage else j for i, j in enumerate(jpegs)]
     datas = []
@@ -112,8 +114,8 @@ def write_avi(jpegs, w, h, layout="cv2", idx1="relative", rate=25, scale=1, odd=
                   + bytes(16))
     strh = _chunk(b"strh", b"vids" + fourcc + struct.pack(
         "<IHHIIIIIIII4h", 0, 0, 0, 0, scale, rate, 0, n, 1 << 20, 0xFFFFFFFF, 0, 0, 0, w, h))
-    strf = _chunk(b"strf", struct.pack("<IiiHH4sIiiII", 40, w, h, 1, 24, fourcc, w * h * 3,
-                                       0, 0, 0, 0))
+    strf = _chunk(b"strf", struct.pack("<IiiHH4sIiiII", 40 + len(extradata), w, h, 1, 24, fourcc,
+                                       w * h * 3, 0, 0, 0, 0) + extradata)
     indx_at = None
     if odml:
         strl_extra = b"\0" * (24 + 16 * 2)  # the super index, filled in below
@@ -141,7 +143,7 @@ def write_avi(jpegs, w, h, layout="cv2", idx1="relative", rate=25, scale=1, odd=
         for d in part:
             pos = movi_at + 4 + len(body)
             body += _chunk(b"00dc", d)
-            entries.append((pos, len(d)))
+            entries.append((pos, len(d), keys is None or len(entries) in keys))
             ix.append((pos + 8, len(d)))
         if odml:
             ix_at.append((movi_at + 4 + len(body), len(part)))
@@ -153,8 +155,9 @@ def write_avi(jpegs, w, h, layout="cv2", idx1="relative", rate=25, scale=1, odd=
             tail = b""
             if idx1:
                 off = 0 if idx1 == "absolute" else movi_at
-                tail = _chunk(b"idx1", b"".join(struct.pack("<4sIII", b"00dc", 0x10, pos - off, ln)
-                                                for pos, ln in entries))
+                tail = _chunk(b"idx1", b"".join(
+                    struct.pack("<4sIII", b"00dc", 0x10 if key else 0, pos - off, ln)
+                    for pos, ln, key in entries))
             riff = head + movi + tail
         else:
             riff = b"AVIX" + movi

@@ -209,14 +209,17 @@ _MATRIX = struct.pack(">9I", 0x10000, 0, 0, 0, 0x10000, 0, 0, 0, 0x40000000)
 def write_mp4(packets, w, h, fourcc=b"mp4v", extra=b"", timescale=12800, delta=512,
               moov_first=False, co64=False, chunks=None, uniform=False, stss=True,
               media_time=0, edit_frames=None, fragmented=False, large_mdat=False,
-              open_mdat=False, keys=None, ctts=False, object_type=0x20) -> bytes:
+              open_mdat=False, keys=None, ctts=False, object_type=0x20, config=b"",
+              brand=b"isom") -> bytes:
     """An MP4 of one video track around ``packets``: see the module
     docstring; ``chunks`` gives the samples of each chunk in turn (the last
     repeated), ``media_time`` the edit's start in frames, ``edit_frames``
     its length in frames (default: to the end), ``keys`` the key
     frames' indices (default: the packets that hold an I-VOP or, for
     ``jpeg``, all); ``ctts`` adds composition offsets of one frame on every
-    second sample, ``object_type`` is the esds objectTypeIndication."""
+    second sample, ``object_type`` is the esds objectTypeIndication,
+    ``config`` a box added to the sample entry (H.264's ``avcC``) and
+    ``brand`` the ftyp's major brand (``qt  `` for QuickTime)."""
     n = len(packets)
     if keys is None:
         keys = [i for i, p in enumerate(packets) if fourcc != b"mp4v" or _is_intra(p)]
@@ -244,6 +247,7 @@ def write_mp4(packets, w, h, fourcc=b"mp4v", extra=b"", timescale=12800, delta=5
                 4, struct.pack(">BB", object_type, 0x11) + bytes(3) + struct.pack(">II", 0, 0)
                 + _desc(5, extra)) + _desc(6, b"\x02"))
             entry_body += _full(b"esds", es)
+        entry_body += config
         stsd = _full(b"stsd", struct.pack(">I", 1) + _box(fourcc, entry_body))
         stts = _full(b"stts", struct.pack(">III", 1, n, delta))
         runs, prev = [], None
@@ -294,7 +298,7 @@ def write_mp4(packets, w, h, fourcc=b"mp4v", extra=b"", timescale=12800, delta=5
             body += _box(b"mvex", _full(b"trex", struct.pack(">IIIII", 1, 1, 0, 0, 0)))
         return _box(b"moov", body)
 
-    ftyp = _box(b"ftyp", b"isom" + struct.pack(">I", 512) + b"isomiso2mp41")
+    ftyp = _box(b"ftyp", brand + struct.pack(">I", 512) + b"isomiso2mp41")
     payload = b"".join(packets)
     mdat_head = (struct.pack(">I4sQ", 1, b"mdat", 16 + len(payload)) if large_mdat
                  else struct.pack(">I4s", 0 if open_mdat else 8 + len(payload), b"mdat"))

@@ -121,9 +121,17 @@ def _assert_outputs_close(got, ref, desc, cap=None):
 
 
 @pytest.fixture(scope="module")
-def coco():
+def coco_jax():
+    """The JAX COCO estimator at RES (u8 input) with the fan-in weights of
+    seed 0, and those weights in the port's layout: built once for every
+    test that compares with it."""
     jest = JEstimator(j_make_net("COCO", stages=2), net_resolution=RES, input_u8=True)
-    weights = _fan_in_weights(jest, 0)
+    return jest, _fan_in_weights(jest, 0)
+
+
+@pytest.fixture(scope="module")
+def coco(coco_jax):
+    jest, weights = coco_jax
     rs = np.random.RandomState(1)
     x = (rs.rand(1, RES[1], RES[0], 3) * 255).astype(np.uint8)
     x[:, :, :8] = 0  # a dark band, as letterboxing gives
@@ -160,7 +168,7 @@ def witness_frame(seed):
     return x
 
 
-def test_refined_gap_to_jax_is_f32_noise_of_the_cnn(monkeypatch):
+def test_refined_gap_to_jax_is_f32_noise_of_the_cnn(coco_jax, monkeypatch):
     """Where the port's outputs differ from JAX's by more than
     :func:`_assert_outputs_match` allows, the CNNs' f32 sums are the cause,
     and neither side is the more exact.  On each frame, the port's and
@@ -170,8 +178,8 @@ def test_refined_gap_to_jax_is_f32_noise_of_the_cnn(monkeypatch):
     outputs agree by :func:`_assert_outputs_close`.  ``-s`` prints each
     frame's distances of the refined peaks from those the port's post
     segment finds on the f64 map."""
-    jest = JEstimator(j_make_net("COCO", stages=2), net_resolution=RES, input_u8=True)
-    est = PoseEstimator(make_pose_deploy_net("COCO", stages=2), weights=_fan_in_weights(jest, 0),
+    jest, weights = coco_jax
+    est = PoseEstimator(make_pose_deploy_net("COCO", stages=2), weights=weights,
                         net_resolution=RES, input_u8=True, device="cpu")
     jnet, blob = jest.net, jest.lowres_blob
     impls = jnet.prune_for([blob])
@@ -357,13 +365,10 @@ def test_device_rescale_matches_jax(coco):
                           jest.fetch(jest.run_device(x, **THR)))
 
 
-def test_estimate_matches_jax(coco):
+def test_estimate_matches_jax(coco_jax):
     """estimate(): preprocess (the display warp and INTER_AREA) -> device ->
     assembly, against JAX's estimate() on the same BGR frame."""
-    weights = coco[0]
-    jest = JEstimator(j_make_net("COCO", stages=2), net_resolution=RES, input_u8=True)
-    jest.net.params = {k: [jnp.asarray(w.transpose(2, 3, 1, 0)), jnp.asarray(b)]
-                       for k, (w, b) in weights.items()}
+    jest, weights = coco_jax
     est = PoseEstimator(make_pose_deploy_net("COCO", stages=2), weights=weights,
                         net_resolution=RES, input_u8=True, device="cpu")
     frame = (np.random.RandomState(9).rand(180, 288, 3) * 255).astype(np.uint8)

@@ -418,15 +418,15 @@ def test_options_that_need_what_is_not_ported_or_cv2(est, tmp_path, monkeypatch)
 
 # ------------------------------------------------------------ JAX parity
 
-def test_pipeline_matches_jax_pipeline(tmp_path):
+def test_pipeline_matches_jax_pipeline(tmp_path, parity_estimators):
     """The same PNG directory through both pipelines, display = frame size
     (identity warp), 192x120 frames -> 128x80 net input (INTER_AREA), a
     2-stage COCO net with the JAX net's fan-in weights, relaxed thresholds
     so people are found."""
-    _pipeline_parity(tmp_path, "png")
+    _pipeline_parity(tmp_path, parity_estimators, "png")
 
 
-def test_pipeline_jpeg_matches_jax_pipeline(tmp_path, monkeypatch):
+def test_pipeline_jpeg_matches_jax_pipeline(tmp_path, monkeypatch, parity_estimators):
     """The same over a JPEG directory (JAX reads it with cv2.imread, the port
     with its codec), the port also writing frames (--write_frames,
     --no_text): each file holds the bytes cv2.imencode gives at quality 98
@@ -442,7 +442,8 @@ def test_pipeline_jpeg_matches_jax_pipeline(tmp_path, monkeypatch):
 
     encode = runner.encode_jpeg
     monkeypatch.setattr(runner, "encode_jpeg", recording)
-    frames = _pipeline_parity(tmp_path, "jpg", write_frames=str(tmp_path / "frames"))
+    frames = _pipeline_parity(tmp_path, parity_estimators, "jpg",
+                              write_frames=str(tmp_path / "frames"))
     names = sorted(os.listdir(frames))
     assert names == ["im0.jpg", "im1.jpg", "im2.jpg"] and len(canvases) == 3
     for name, (canvas, quality) in zip(names, canvases):
@@ -451,8 +452,13 @@ def test_pipeline_jpeg_matches_jax_pipeline(tmp_path, monkeypatch):
         assert ok and (frames / name).read_bytes() == ref.tobytes()
 
 
-def _pipeline_parity(tmp_path, ext, write_frames=""):
-    res, disp = (128, 80), (192, 120)
+@pytest.fixture(scope="module")
+def parity_estimators():
+    """The JAX and port COCO 2-stage estimators the parity tests compare
+    (128x80 u8 input, the JAX net's fan-in weights, relaxed thresholds),
+    built once, and the random state the weights left, which draws the
+    frames."""
+    res = (128, 80)
     jest = JEstimator(j_make_net("COCO", stages=2), net_resolution=res, input_u8=True)
     rs = np.random.RandomState(0)
     for name in sorted(jest.net.params):
@@ -466,6 +472,14 @@ def _pipeline_parity(tmp_path, ext, write_frames=""):
     for e in (jest, est):
         e.params_connect = dataclasses.replace(e.params_connect, inter_threshold=-10.0,
                                                min_subset_score=-10.0, min_subset_cnt=0)
+    return jest, est, rs.get_state()
+
+
+def _pipeline_parity(tmp_path, estimators, ext, write_frames=""):
+    res, disp = (128, 80), (192, 120)
+    jest, est, state = estimators
+    rs = np.random.RandomState()
+    rs.set_state(state)
     img_dir = tmp_path / "imgs"
     img_dir.mkdir()
     for i in range(3):
