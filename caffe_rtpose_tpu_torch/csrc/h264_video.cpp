@@ -1,21 +1,25 @@
-// H.264 (ISO/IEC 14496-10) Constrained Baseline video decoded on the host,
-// as FFmpeg's `h264` decoder decodes it for OpenCV's VideoCapture, and each
+// H.264 (ISO/IEC 14496-10) Main profile I/P video decoded on the host, as
+// FFmpeg's `h264` decoder decodes it for OpenCV's VideoCapture, and each
 // picture, cropped, converted to BGR24 as swscale's unscaled YUV420P (or,
 // with video_full_range_flag, YUVJ420P) -> BGR24 path converts it.
 //
-// What is decoded: CAVLC, I and P slices, 4:2:0 8-bit progressive frames;
-// several slices a picture, in order; Intra4x4, Intra16x16, I_PCM and the
-// P partitions down to 4x4; quarter-pel luma and eighth-pel chroma motion
-// compensation with edge clamping; the in-loop deblocking filter; short-term
-// reference pictures under the sliding window and MMCO 1, with reference
-// list modification; POC types 0 and 2; FFmpeg's output order and delay
-// (has_b_frames, num_reorder_frames and its POC heuristics).  The samples are
-// those the standard specifies (H.264 decoding is exact), so any conforming
-// decoder gives the same planes.  Everything else (CABAC, B, SP and SI
+// What is decoded: CAVLC and CABAC, I and P slices, 4:2:0 8-bit progressive
+// frames; several slices a picture, in order; Intra4x4, Intra16x16, I_PCM
+// and the P partitions down to 4x4; quarter-pel luma and eighth-pel chroma
+// motion compensation with edge clamping, and explicit weighted prediction
+// of P slices; the in-loop deblocking filter; short-term reference pictures
+// under the sliding window and MMCO 1, with reference list modification;
+// POC types 0 and 2; FFmpeg's output order and delay (has_b_frames,
+// num_reorder_frames and its POC heuristics) and where it starts to show
+// pictures (an IDR picture, a recovery point SEI, or an I picture with few
+// references; a stream that starts on a P picture predicts from grey
+// pictures, as FFmpeg's frame_num gap concealment makes them).  The samples
+// are those the standard specifies (H.264 decoding is exact), so any
+// conforming decoder gives the same planes.  Everything else (B, SP and SI
 // slices, field pictures and MBAFF, slice groups, arbitrary slice order,
-// redundant pictures, weighted prediction, other chroma formats and bit
-// depths, the 8x8 transform, scaling matrices, long-term references, MMCO 5,
-// POC type 1, frame_num gaps, constrained intra prediction, data
+// redundant pictures, other chroma formats and bit depths, the 8x8
+// transform, scaling matrices, long-term references, MMCO 5, POC type 1,
+// frame_num gaps inside a stream, constrained intra prediction, data
 // partitioning) is refused by name.  There is no concealment: a slice that
 // does not decode raises.
 //
@@ -37,6 +41,7 @@
 #include <vector>
 
 #include "ffmpeg_dsp.h"
+#include "h264_cabac_tables.h"
 
 namespace {
 
@@ -271,7 +276,8 @@ struct Pps {
     bool valid = false;
     int sps_id = 0;
     bool bottom_field_poc = false;
-    int num_ref_idx_default = 1;
+    bool cabac = false, weighted = false;
+    int num_ref_idx_default = 1, num_ref_idx_l1_default = 1;
     int init_qp = 26;
     int chroma_offset[2] = {0, 0};
     bool deblocking_control = false;
@@ -320,7 +326,11 @@ Sps parse_sps(Bits& b, int* id_out) {
     s.gaps_allowed = b.u1();
     s.mb_w = (int)ue_max(b, 1023, "pic_width_in_mbs_minus1") + 1;
     s.mb_h = (int)ue_max(b, 1023, "pic_height_in_map_units_minus1") + 1;
-    if (!b.u1()) throw Refused("field pictures and MBAFF (frame_mbs_only_flag 0)");
+    if (!b.u1()) {
+        if (b.u1())
+            throw Refused("MBAFF (mb_adaptive_frame_field_flag 1: field and frame macroblock pairs)");
+        throw Refused("field pictures (frame_mbs_only_flag 0)");
+    }
     b.u(1);  // direct_8x8_inference_flag
     if (b.u1()) {
         s.crop_l = 2 * (int)b.ue();
@@ -367,12 +377,12 @@ Pps parse_pps(Bits& b, const Sps* sps_table, int* id_out) {
     int id = (int)ue_max(b, 255, "pic_parameter_set_id");
     p.sps_id = (int)ue_max(b, 31, "seq_parameter_set_id");
     if (!sps_table[p.sps_id].valid) throw Corrupt("a PPS names an SPS not received");
-    if (b.u1()) throw Refused("CABAC (entropy_coding_mode_flag 1; CAVLC is decoded)");
+    p.cabac = b.u1();
     p.bottom_field_poc = b.u1();
     if (b.ue() > 0) throw Refused("slice groups (FMO, num_slice_groups_minus1 > 0)");
     p.num_ref_idx_default = (int)ue_max(b, 31, "num_ref_idx_l0_default_active_minus1") + 1;
-    ue_max(b, 31, "num_ref_idx_l1_default_active_minus1");
-    if (b.u1()) throw Refused("weighted prediction (weighted_pred_flag 1)");
+    p.num_ref_idx_l1_default = (int)ue_max(b, 31, "num_ref_idx_l1_default_active_minus1") + 1;
+    p.weighted = b.u1();
     b.u(2);  // weighted_bipred_idc: B slices only
     p.init_qp = 26 + b.se();
     b.se();
@@ -403,6 +413,12 @@ struct SliceHeader {
     int deblock_idc = 0, alpha_offset = 0, beta_offset = 0;
     bool idr = false;
     int ref_idc = 0;
+    int cabac_init_idc = 0;
+    // explicit weighted prediction (pred_weight_table): log2 denominators,
+    // and by ref_idx the weight and offset of Y, Cb, Cr
+    bool weighted = false;
+    int log2_wd[2] = {0, 0};
+    int weight[16][3] = {}, offset[16][3] = {};
 };
 
 // ---------------------------------------------------------------- pictures
@@ -423,12 +439,122 @@ struct Mb {
     int8_t kind = NONE;
     int slice = -1;
     int qp = 0;  // QPY for deblocking (0 for I_PCM)
-    uint8_t nz[16] = {};
+    uint8_t nz[16] = {};  // non-zero coefficients of each 4x4 luma block (raster)
     uint8_t nzc[2][4] = {};
     int8_t i4[16] = {};
     int8_t ref[16] = {};   // refIdxL0 a 4x4 block, -1 intra
     int refpic[16] = {};  // the reference picture's id
     int16_t mv[16][2] = {};
+    // what CABAC's context selection reads of a neighbour: coded_block_pattern
+    // (luma bits 0-3, chroma 4-5), the coded_block_flags of the DC blocks
+    // (bit 0 luma, 1 Cb, 2 Cr), intra_chroma_pred_mode, and each 4x4 block's
+    // absolute mvd (at most 70)
+    uint8_t cbp = 0, dc = 0, cmode = 0;
+    uint8_t mvd[16][2] = {};
+};
+
+// The state transitions (Table 9-45) by state byte (pStateIdx << 1 |
+// valMPS) after the most probable symbol, and by its complement (255 - byte)
+// after the least probable one.
+struct StateTable {
+    uint8_t v[256];
+    StateTable() {
+        for (int st = 0; st < 128; st++) {
+            const int s = st >> 1, mps = st & 1;
+            v[st] = (uint8_t)((s < 62 ? s + 1 : s) << 1 | mps);
+            v[255 - st] = (uint8_t)(h264cabac::kTransLps[s] << 1 | (s == 0 ? 1 - mps : mps));
+        }
+    }
+};
+const StateTable kNextState;
+
+// The arithmetic decoding engine (9.3.1.2, 9.3.3.2) and the context
+// variables, (pStateIdx << 1) | valMPS each.  Bits come from a 64-bit cache
+// over the slice's RBSP; `b` keeps the position of the next unread bit
+// for I_PCM's samples.
+struct Cabac {
+    Bits* b = nullptr;
+    const uint8_t *p = nullptr, *end = nullptr;
+    uint64_t cache = 0;
+    int cached = 0;
+    uint32_t range = 510, offset = 0;
+    uint16_t state[h264cabac::kCtxCount] = {};  // not a char type: stores to it alias nothing else
+
+    void init_contexts(int table, int qp) {
+        const int q = clip3(0, 51, qp);
+        for (int i = 0; i < h264cabac::kCtxCount; i++) {
+            const int8_t* mn = h264cabac::kInit[table][i];
+            const int pre = clip3(1, 126, ((mn[0] * q) >> 4) + mn[1]);
+            state[i] = (uint16_t)(pre <= 63 ? (63 - pre) << 1 : (pre - 64) << 1 | 1);
+        }
+    }
+    // starts at bits's position (byte aligned); sync() hands it back
+    void init_engine(Bits& bits) {
+        b = &bits;
+        p = bits.buf + (bits.pos >> 3);
+        end = bits.buf + bits.bytes;
+        cache = 0;
+        cached = 0;
+        range = 510;
+        offset = read(9);
+        if (offset >= 510) throw Corrupt("a CABAC codIOffset of 510 or 511");
+    }
+    void sync() { b->pos = (size_t)(p - b->buf) * 8 - (size_t)cached; }
+    __attribute__((always_inline)) uint32_t read(int n) {  // 0 <= n <= 32
+        if (cached < n) refill();
+        cached -= n;
+        return (uint32_t)(cache >> cached) & (uint32_t)((1ull << n) - 1);  // n 0: none
+    }
+    void refill() {
+        if (p + 8 <= end) {  // the whole bytes the cache has room for, at once
+            uint64_t v;
+            std::memcpy(&v, p, 8);
+            v = __builtin_bswap64(v);
+            const int take = (64 - cached) >> 3;
+            cache = take == 8 ? v : cache << (8 * take) | v >> (64 - 8 * take);
+            p += take;
+            cached += 8 * take;
+            return;
+        }
+        while (cached <= 56) {
+            if (p >= end + 8) throw Corrupt("read past the end of a NAL unit");
+            cache = cache << 8 | (p < end ? *p : 0);
+            p++;
+            cached += 8;
+        }
+    }
+    // Branch-free, as the bins are hard to predict: lps is all ones where
+    // codIOffset falls in the least probable symbol's range, and the state
+    // byte, or its complement for that symbol, indexes its successor.
+    __attribute__((always_inline)) int decision(int ctx) {
+        uint16_t& st = state[ctx];
+        const uint32_t lps_range = h264cabac::kRangeLps[st >> 1][(range >> 6) & 3];
+        range -= lps_range;
+        const uint32_t lps = (uint32_t)((int32_t)(range - 1 - offset) >> 31);
+        offset -= range & lps;
+        range += (lps_range - range) & lps;
+        const uint32_t idx = st ^ (lps & 255);
+        st = kNextState.v[idx];
+        const int n = __builtin_clz(range) - 23;
+        range <<= n;
+        offset = offset << n | read(n);
+        return (int)(idx & 1);
+    }
+    int bypass() {
+        offset = offset << 1 | read(1);
+        const uint32_t one = (uint32_t)((int32_t)(range - 1 - offset) >> 31);
+        offset -= range & one;
+        return (int)(one & 1);
+    }
+    int terminate() {
+        range -= 2;
+        if (offset >= range) return 1;
+        if (range < 256) {
+            range <<= 1;
+            offset = offset << 1 | read(1);
+        }
+        return 0;
+    }
 };
 
 struct SliceInfo {
@@ -466,14 +592,21 @@ struct Decoder {
     int prev_ref_frame_num = 0, prev_frame_num = 0, prev_frame_num_offset = 0;
     int prev_poc_msb = 0, prev_poc_lsb = 0;
     int next_id = 1;
-    bool waiting_for_idr = true;
+    // where FFmpeg starts to show pictures: frame_recovered's bits (1 an IDR
+    // picture, 2 a recovered picture given, 4 an I picture with few
+    // references), the frame_num a recovery point SEI names, the SEI of the
+    // packet (recovery_frame_cnt, or -1)
+    int frame_recovered = 0, recovery_frame = -1, sei_recovery = -1;
+    bool valid_recovery_point = false;
+    bool has_recovery_point = false;  // a recovery point SEI was ever read (not reset by a flush)
+    bool grey_refs = false;  // grey references were made and no I picture came since
 
     // output (h264_select_output_frame)
     std::vector<PicPtr> delayed;
     int has_b_frames = 0;
     int last_pocs[kMaxDelayed];
     int next_outputed_poc = INT_MIN;
-    bool mmco_reset = true, frame_recovered = false;
+    bool mmco_reset = true;
     std::vector<PicPtr> ready;  // pictures given by the packet, in order
     PicPtr shown;                 // the last picture handed out
 
@@ -485,10 +618,30 @@ struct Decoder {
     SliceHeader sh;
     std::vector<PicPtr> list0;
     int slice_num = 0, qp = 0;
+    bool cabac = false;
+    Cabac cb;
+    // the mb_qp_delta of the slice's macroblock before (CABAC), and this one's
+    int last_dqp = 0, cur_dqp = 0;
 
-    Decoder() { reset_pocs(); }
+    Decoder() {
+        reset_pocs();
+        restart();
+    }
     void reset_pocs() {
         for (int& p : last_pocs) p = INT_MIN;
+    }
+    // the state a stream starts in, and after a flush (ff_h264_flush_change)
+    void restart() {
+        refs.clear();
+        have_prev = false;
+        prev_poc_msb = 1 << 16;
+        prev_poc_lsb = -1;
+        prev_frame_num = prev_frame_num_offset = 0;
+        frame_recovered = 0;
+        recovery_frame = -1;
+        valid_recovery_point = false;
+        grey_refs = false;
+        mmco_reset = true;
     }
 
     // ------------------------------------------------------------ NALs
@@ -572,9 +725,36 @@ struct Decoder {
             case 3:
             case 4:
                 throw Refused("data partitioning (NAL unit types 2-4)");
+            case 6:
+                if (decode) sei(d, n);
+                break;
             default:
-                break;  // SEI, delimiters, fillers, extensions: nothing to decode
+                break;  // delimiters, fillers, extensions: nothing to decode
         }
+    }
+
+    // The recovery point (payload type 6) of an SEI NAL unit, the one
+    // message read; a message that does not parse ends the unit, as FFmpeg
+    // goes on past SEI errors.
+    void sei(const uint8_t* d, size_t n) try {
+        Bits b = unescape(d, n);
+        while (b.pos + 16 <= b.stop) {
+            int type = 0, size = 0, byte;
+            do type += byte = (int)b.u(8);
+            while (byte == 255 && b.pos + 8 <= b.stop);
+            do size += byte = (int)b.u(8);
+            while (byte == 255 && b.pos + 8 <= b.stop);
+            const size_t end = b.pos + 8 * (size_t)size;
+            if (end > b.stop) return;
+            if (type == 6) {
+                const uint32_t cnt = b.ue();
+                if (b.pos > end || cnt > 65535) return;
+                sei_recovery = (int)cnt;
+                has_recovery_point = true;
+            }
+            b.pos = end;
+        }
+    } catch (const Corrupt&) {
     }
 
     // The refusals a slice header shows beside its own fields: slices out
@@ -636,6 +816,7 @@ struct Decoder {
                     s.modifications.emplace_back((int)idc, (int)b.ue());
                 }
             }
+            if (p.weighted) pred_weight_table(b, s);
         }
         if (ref_idc) {
             if (idr) {
@@ -661,6 +842,7 @@ struct Decoder {
                 }
             }
         }
+        if (p.cabac && s.type == 0) s.cabac_init_idc = (int)ue_max(b, 2, "cabac_init_idc");
         s.qp = p.init_qp + b.se();
         if (s.qp < 0 || s.qp > 51) throw Corrupt("slice QP out of range");
         if (p.deblocking_control) {
@@ -675,9 +857,36 @@ struct Decoder {
         return s;
     }
 
+    // 7.3.3.2: the weights and offsets of each ref_idx (the default where
+    // its flag is 0: 2^denominator and 0)
+    static void pred_weight_table(Bits& b, SliceHeader& s) {
+        s.weighted = true;
+        s.log2_wd[0] = (int)ue_max(b, 7, "luma_log2_weight_denom");
+        s.log2_wd[1] = (int)ue_max(b, 7, "chroma_log2_weight_denom");
+        auto value = [&](const char* what) {
+            const int v = b.se();
+            if (v < -128 || v > 127) throw Corrupt(std::string(what) + " out of range");
+            return v;
+        };
+        for (int i = 0; i < s.num_ref_idx_active; i++) {
+            for (int c = 0; c < 3; c++) {
+                s.weight[i][c] = 1 << s.log2_wd[c ? 1 : 0];
+                s.offset[i][c] = 0;
+            }
+            if (b.u1()) {
+                s.weight[i][0] = value("luma_weight_l0");
+                s.offset[i][0] = value("luma_offset_l0");
+            }
+            if (b.u1())
+                for (int c = 1; c < 3; c++) {
+                    s.weight[i][c] = value("chroma_weight_l0");
+                    s.offset[i][c] = value("chroma_offset_l0");
+                }
+        }
+    }
+
     // ------------------------------------------------------------ slices
     void slice(Bits& b, const SliceHeader& s) {
-        if (waiting_for_idr && !s.idr) return;  // after a flush: nothing until an IDR
         if (s.first_mb == 0 || !cur) {
             if (cur) finish_picture();
             start_picture(s);
@@ -700,38 +909,45 @@ struct Decoder {
         slices.push_back(si);
         if (s.type == 0) build_list(s);
         qp = s.qp;
+        cabac = cp->cabac;
         slice_data(b);
+    }
+
+    PicPtr new_picture(uint8_t fill) const {
+        PicPtr p = std::make_shared<Picture>();
+        p->w = w;
+        p->h = h;
+        p->y.assign((size_t)w * h, fill);
+        p->u.assign((size_t)w * h / 4, fill);
+        p->v.assign((size_t)w * h / 4, fill);
+        return p;
     }
 
     void start_picture(const SliceHeader& s) {
         const Pps& p = pps[s.pps_id];
         cs = &sps[p.sps_id];
         first_header = s;
+        mb_w = cs->mb_w;
+        mb_h = cs->mb_h;
+        w = mb_w * 16;
+        h = mb_h * 16;
         if (s.idr) {
             refs.clear();
+            grey_refs = false;
             have_prev = false;
             prev_poc_msb = prev_poc_lsb = 0;
             prev_frame_num_offset = 0;
             prev_ref_frame_num = 0;
             reset_pocs();
-            waiting_for_idr = false;
-            frame_recovered = true;
         } else if (have_prev) {
             check_gap(s, prev_ref_frame_num);
+        } else {
+            grey_references(s.frame_num);
         }
-        mb_w = cs->mb_w;
-        mb_h = cs->mb_h;
-        w = mb_w * 16;
-        h = mb_h * 16;
-        cur = std::make_shared<Picture>();
-        cur->w = w;
-        cur->h = h;
-        cur->y.assign((size_t)w * h, 0);
-        cur->u.assign((size_t)w * h / 4, 0);
-        cur->v.assign((size_t)w * h / 4, 0);
+        cur = new_picture(0);
         cur->frame_num = s.frame_num;
         cur->id = next_id++;
-        cur->key = s.idr;
+        cur->key = s.idr || sei_recovery >= 0;
         cur->full_range = cs->full_range;
         cur->crop_l = cs->crop_l;
         cur->crop_r = cs->crop_r;
@@ -739,7 +955,20 @@ struct Decoder {
         cur->crop_b = cs->crop_b;
         cur->mmco_reset = mmco_reset;
         mmco_reset = false;
-        cur->recovered = frame_recovered;
+        // h264_field_start: the recovery point SEI, and what is recovered
+        const int max_fn = 1 << cs->log2_max_frame_num;
+        if (sei_recovery >= 0) {
+            if (s.frame_num != sei_recovery || s.type != 2) valid_recovery_point = true;
+            if (recovery_frame < 0 || ((recovery_frame - s.frame_num) & (max_fn - 1)) > sei_recovery)
+                recovery_frame = valid_recovery_point ? (s.frame_num + sei_recovery) & (max_fn - 1)
+                                                      : s.frame_num;
+        }
+        if (s.idr || (recovery_frame == s.frame_num && s.ref_idc)) {
+            recovery_frame = -1;
+            cur->recovered = true;
+        }
+        if (s.idr) frame_recovered |= 1;
+        if (frame_recovered) cur->recovered = true;
         // POC (8.2.1)
         if (cs->poc_type == 0) {
             const int max_lsb = 1 << cs->log2_max_poc_lsb;
@@ -767,6 +996,39 @@ struct Decoder {
         mbs.assign((size_t)mb_w * mb_h, Mb());
         slices.clear();
         last_mb = -1;
+    }
+
+    // A stream that starts (or, after a seek, goes on) on a non-IDR picture:
+    // FFmpeg's frame_num gap concealment from prev_frame_num -1 makes up to
+    // max_num_ref_frames grey reference pictures with the frame_nums before
+    // it, each marked by the sliding window.  They share one buffer (each a
+    // copy of the one before), so deblocking sees one reference picture.
+    void grey_references(int frame_num) {
+        const int max_fn = 1 << cs->log2_max_frame_num;
+        int prev = -1;
+        if (frame_num - prev > cs->max_refs) {
+            prev = frame_num - cs->max_refs - 1;
+            if (prev < 0) prev += max_fn;
+        }
+        PicPtr grey;
+        while (frame_num != prev && frame_num != (prev + 1) % max_fn) {
+            prev = (prev + 1) % max_fn;
+            if (!grey) {
+                grey = new_picture(128);
+                grey->id = next_id++;
+            }
+            PicPtr g = std::make_shared<Picture>(*grey);
+            g->frame_num = prev;
+            if ((int)refs.size() >= std::max(cs->max_refs, 1)) {
+                auto older = [&](const PicPtr& a, const PicPtr& b) {
+                    return pic_num(*a, *g) < pic_num(*b, *g);
+                };
+                refs.erase(std::min_element(refs.begin(), refs.end(), older));
+            }
+            refs.push_back(g);
+            grey_refs = true;
+            if (!cs->gaps_allowed) reset_pocs();
+        }
     }
 
     // PicNum (FrameNumWrap) of reference picture p while picture c decodes
@@ -806,6 +1068,14 @@ struct Decoder {
             for (; k <= n; k++) list0[k] = nullptr;
         }
         list0.resize(n);
+        // ff_h264_build_ref_list: an entry with no picture takes the initial
+        // list's first ("Missing reference picture, default is ...")
+        for (auto& r : list0)
+            if (!r) {
+                if (init.empty()) throw Corrupt("a P slice without reference pictures");
+                r = init[0];
+                reset_pocs();
+            }
     }
 
     // ---------------------------------------------------- neighbours
@@ -915,6 +1185,22 @@ struct Decoder {
     void slice_data(Bits& b) {
         const int nmb = mb_w * mb_h;
         int mb = sh.first_mb;
+        if (cabac) {  // 7.3.4 with entropy_coding_mode_flag 1
+            b.align();    // cabac_alignment_one_bit
+            cb.init_contexts(sh.type == 2 ? 0 : 1 + sh.cabac_init_idc, sh.qp);
+            cb.init_engine(b);
+            last_dqp = 0;
+            do {
+                if (mb >= nmb) throw Corrupt("slice data past the last macroblock");
+                cur_dqp = 0;
+                if (sh.type == 0 && cb.decision(11 + skip_ctx(mb))) skip_mb(mb);
+                else macroblock(b, mb);
+                last_dqp = cur_dqp;
+                mb++;
+            } while (!cb.terminate());  // end_of_slice_flag
+            last_mb = mb - 1;
+            return;
+        }
         for (;;) {
             if (mb >= nmb) throw Corrupt("slice data past the last macroblock");
             if (sh.type == 0) {
@@ -928,6 +1214,186 @@ struct Decoder {
             if (!b.more_rbsp_data()) break;
         }
         last_mb = mb - 1;
+    }
+
+    // ---------------------------------------- CABAC syntax elements (9.3)
+    // ctxIdxInc of mb_skip_flag: the neighbours that are not skipped
+    int skip_ctx(int mb) const {
+        const int a = mb_addr(mb, -1, 0), t = mb_addr(mb, 0, -1);
+        return (a >= 0 && mbs[a].kind != SKIP) + (t >= 0 && mbs[t].kind != SKIP);
+    }
+
+    // mb_type (Table 9-36, 9-37): I slices 0-25; P slices 0-3, intra 5-30
+    int cabac_mb_type(int mb) {
+        if (sh.type == 2) return cabac_intra_type(mb, 3, true);
+        if (cb.decision(14)) return 5 + cabac_intra_type(mb, 17, false);
+        if (!cb.decision(15)) return cb.decision(16) ? 3 : 0;
+        return cb.decision(17) ? 1 : 2;
+    }
+    // the I mb_types from ctxIdxOffset base (3 in I slices, 17 the suffix in P)
+    int cabac_intra_type(int mb, int base, bool islice) {
+        int ctx = base;
+        if (islice) {
+            const int a = mb_addr(mb, -1, 0), t = mb_addr(mb, 0, -1);
+            ctx += (a >= 0 && mbs[a].kind != I4) + (t >= 0 && mbs[t].kind != I4);
+        }
+        if (!cb.decision(ctx)) return 0;  // I_NxN
+        if (cb.terminate()) return 25;    // I_PCM
+        const int k = islice ? base + 3 : base + 1, i = islice;
+        int t = 1 + 12 * cb.decision(k);  // coded luma
+        if (cb.decision(k + 1)) t += cb.decision(k + 1 + i) ? 8 : 4;  // chroma 1 or 2
+        t += 2 * cb.decision(k + 2 + i);
+        t += cb.decision(k + 2 + 2 * i);
+        return t;
+    }
+
+    int cabac_sub_type() {
+        if (cb.decision(21)) return 0;
+        if (!cb.decision(22)) return 1;
+        return cb.decision(23) ? 2 : 3;
+    }
+
+    int cabac_chroma_mode(int mb) {
+        auto term = [&](int n) {
+            return n >= 0 && (mbs[n].kind == I4 || mbs[n].kind == I16) && mbs[n].cmode != 0;
+        };
+        if (!cb.decision(64 + term(mb_addr(mb, -1, 0)) + term(mb_addr(mb, 0, -1)))) return 0;
+        if (!cb.decision(67)) return 1;
+        return cb.decision(67) ? 3 : 2;
+    }
+
+    // coded_block_pattern: the luma prefix by 8x8 block from its neighbours
+    // A and B, the chroma suffix from theirs
+    int cabac_cbp(int mb) {
+        const int a = mb_addr(mb, -1, 0), t = mb_addr(mb, 0, -1);
+        auto luma = [&](int n, int b8) -> int {  // condTermFlagN
+            if (n < 0 || mbs[n].kind == PCM) return 0;
+            return mbs[n].kind == SKIP || !(mbs[n].cbp >> b8 & 1);
+        };
+        int cbp = 0;
+        cbp |= cb.decision(73 + luma(a, 1) + 2 * luma(t, 2));
+        cbp |= cb.decision(73 + !(cbp & 1) + 2 * luma(t, 3)) << 1;
+        cbp |= cb.decision(73 + luma(a, 3) + 2 * !(cbp & 1)) << 2;
+        cbp |= cb.decision(73 + !(cbp >> 2 & 1) + 2 * !(cbp >> 1 & 1)) << 3;
+        auto chroma = [&](int n, int bin) -> int {
+            if (n < 0 || mbs[n].kind == SKIP) return 0;
+            if (mbs[n].kind == PCM) return 1;
+            const int c = mbs[n].cbp >> 4;
+            return bin ? c == 2 : c != 0;
+        };
+        if (cb.decision(77 + chroma(a, 0) + 2 * chroma(t, 0)))
+            cbp |= (cb.decision(81 + chroma(a, 1) + 2 * chroma(t, 1)) ? 2 : 1) << 4;
+        return cbp;
+    }
+
+    // ref_idx_l0 of the partition at (x, y) (samples in the macroblock);
+    // pref: the reference indices of the partitions read before, by 4x4 block
+    int cabac_ref(int mb, int x, int y, const int8_t* pref) {
+        auto ref = [&](int xx, int yy) -> int {
+            if (xx >= 0 && yy >= 0) return pref[(yy >> 2) * 4 + (xx >> 2)];
+            const int n = mb_addr(mb, xx < 0 ? -1 : 0, yy < 0 ? -1 : 0);
+            if (n < 0 || mbs[n].kind != INTER) return 0;
+            return mbs[n].ref[(((yy + 16) & 15) >> 2) * 4 + (((xx + 16) & 15) >> 2)];
+        };
+        int ctx = (ref(x - 1, y) > 0) + 2 * (ref(x, y - 1) > 0), r = 0;
+        while (cb.decision(54 + ctx)) {
+            if (++r > 31) throw Corrupt("ref_idx_l0 out of range");
+            ctx = r == 1 ? 4 : 5;
+        }
+        return r;
+    }
+
+    // one mvd_l0 component (UEG3, uCoff 9) from ctxIdxOffset base, whose
+    // neighbours' absolute mvds sum to `sum`
+    int cabac_mvd(int base, int sum) {
+        if (!cb.decision(base + (sum < 3 ? 0 : sum <= 32 ? 1 : 2))) return 0;
+        int v = 1, ctx = base + 3;
+        while (v < 9 && cb.decision(ctx)) {
+            if (v < 4) ctx++;
+            v++;
+        }
+        if (v >= 9) {
+            int k = 3;
+            while (cb.bypass()) {
+                v += 1 << k;
+                if (++k > 24) throw Corrupt("an mvd_l0 too long");
+            }
+            while (k--) v += cb.bypass() << k;
+        }
+        return cb.bypass() ? -v : v;
+    }
+
+    // ctxIdxInc of coded_block_flag for block (x, y) (4x4 units; c the
+    // chroma component) of ctxBlockCat cat: neighbours A and B's transBlocks
+    int cbf_inc(int mb, int cat, int x, int y, int c) const {
+        static const int kOffset[5] = {0, 4, 8, 12, 16};
+        const bool intra_mb = intra(mbs[mb]);
+        auto term = [&](int n, int bx, int by) -> int {
+            if (n < 0) return intra_mb;
+            const Mb& m = mbs[n];
+            if (m.kind == PCM) return 1;
+            if (m.kind == SKIP) return 0;
+            switch (cat) {
+                case 0: return m.kind == I16 && (m.dc & 1);
+                case 3: return (m.cbp >> 4) != 0 && (m.dc >> (1 + c) & 1);
+                case 4: return (m.cbp >> 4) == 2 && m.nzc[c][by * 2 + bx] != 0;
+                default: return (m.cbp >> (by / 2 * 2 + bx / 2) & 1) && m.nz[by * 4 + bx] != 0;
+            }
+        };
+        if (cat == 0 || cat == 3)
+            return kOffset[cat] + term(mb_addr(mb, -1, 0), 0, 0) + 2 * term(mb_addr(mb, 0, -1), 0, 0);
+        const int size = cat == 4 ? 2 : 4;
+        const int a = x > 0 ? term(mb, x - 1, y) : term(mb_addr(mb, -1, 0), size - 1, y);
+        const int t = y > 0 ? term(mb, x, y - 1) : term(mb_addr(mb, 0, -1), x, size - 1);
+        return kOffset[cat] + a + 2 * t;
+    }
+
+    // One CABAC residual block (7.3.5.3.3) into coeff[0..maxnum) (scan
+    // order) given coded_block_flag's ctxIdxInc; the coefficients not zero.
+    int residual_cabac(int* coeff, int maxnum, int cat, int cbf_ctx) {
+        static const int kSig[5] = {0, 15, 29, 44, 47}, kAbs[5] = {0, 10, 20, 30, 39};
+        std::memset(coeff, 0, sizeof(int) * (size_t)maxnum);
+        if (!cb.decision(85 + cbf_ctx)) return 0;
+        int pos[16], n = 0, i = 0;
+        for (; i < maxnum - 1; i++) {
+            const int inc = cat == 3 ? std::min(i, 2) : i;
+            if (cb.decision(105 + kSig[cat] + inc)) {
+                pos[n++] = i;
+                if (cb.decision(166 + kSig[cat] + inc)) break;
+            }
+        }
+        if (i == maxnum - 1) pos[n++] = i;
+        int gt1 = 0, eq1 = 0;
+        const int base = 227 + kAbs[cat];
+        for (int k = n - 1; k >= 0; k--) {
+            int v = 0;  // coeff_abs_level_minus1: TU prefix (cMax 14), EG0 suffix
+            if (cb.decision(base + (gt1 ? 0 : std::min(4, 1 + eq1)))) {
+                const int ctx = base + 5 + std::min(4 - (cat == 3), gt1);
+                v = 1;
+                while (v < 14 && cb.decision(ctx)) v++;
+                if (v == 14) {
+                    int e = 0;
+                    while (cb.bypass()) {
+                        v += 1 << e;
+                        if (++e > 24) throw Corrupt("a coeff_abs_level_minus1 too long");
+                    }
+                    while (e--) v += cb.bypass() << e;
+                }
+            }
+            if (v) gt1++;
+            else eq1++;
+            coeff[pos[k]] = cb.bypass() ? -(v + 1) : v + 1;
+        }
+        return n;
+    }
+
+    // One residual block of macroblock mb: block (x, y) in 4x4 units of
+    // ctxBlockCat cat (0 Intra16x16 DC, 1 its AC, 2 luma 4x4, 3 chroma DC,
+    // 4 chroma AC of component c); the coefficients not zero.
+    int block(Bits& b, int* coeff, int maxnum, int cat, int mb, int x, int y, int c) {
+        if (cabac) return residual_cabac(coeff, maxnum, cat, cbf_inc(mb, cat, x, y, c));
+        const int nc = cat == 3 ? -1 : cat == 4 ? nc_chroma(mb, c, x, y) : nc_luma(mb, x, y);
+        return residual(b, coeff, maxnum, nc);
     }
 
     void begin_mb(int mb, MbKind kind) {
@@ -954,7 +1420,7 @@ struct Decoder {
     }
 
     void macroblock(Bits& b, int mb) {
-        uint32_t t = b.ue();
+        uint32_t t = cabac ? (uint32_t)cabac_mb_type(mb) : b.ue();
         if (sh.type == 0) {
             if (t < 5) return inter_mb(b, mb, (int)t);
             t -= 5;
@@ -965,6 +1431,7 @@ struct Decoder {
     }
 
     void pcm_mb(Bits& b, int mb) {
+        if (cabac) cb.sync();
         begin_mb(mb, PCM);
         Mb& m = mbs[mb];
         m.qp = 0;
@@ -980,11 +1447,25 @@ struct Decoder {
                 for (int x = 0; x < 8; x++)
                     plane[(size_t)(y0 / 2 + y) * (w / 2) + x0 / 2 + x] = (uint8_t)b.u(8);
         }
+        if (cabac) cb.init_engine(b);  // 9.3.1.2, after the samples
     }
 
     void qp_delta(Bits& b) {
-        int d = b.se();
+        int d;
+        if (!cabac) {
+            d = b.se();
+        } else if (!cb.decision(60 + (last_dqp != 0))) {
+            d = 0;
+        } else {  // U binarization of the se(v) mapping
+            int v = 1, ctx = 62;
+            while (cb.decision(ctx)) {
+                ctx = 63;
+                if (++v > 52) throw Corrupt("mb_qp_delta out of range");
+            }
+            d = v & 1 ? (v + 1) >> 1 : -(v >> 1);
+        }
         if (d < -26 || d > 25) throw Corrupt("mb_qp_delta out of range");
+        cur_dqp = d;
         qp = (qp + d + 52) % 52;
     }
 
@@ -995,7 +1476,7 @@ struct Decoder {
         for (int blk = 0; blk < 16; blk++) {
             const int x = kBlkX[blk], y = kBlkY[blk];
             if (cbp >> (blk >> 2) & 1)
-                m.nz[y * 4 + x] = (uint8_t)residual(b, lev[y * 4 + x], 16, nc_luma(mb, x, y));
+                m.nz[y * 4 + x] = (uint8_t)block(b, lev[y * 4 + x], 16, 2, mb, x, y, 0);
             else
                 std::memset(lev[y * 4 + x], 0, sizeof(int) * 16);
         }
@@ -1004,15 +1485,14 @@ struct Decoder {
     void chroma_residual(Bits& b, int mb, int cbp_c, int (*dc)[4], int (*ac)[4][16]) {
         Mb& m = mbs[mb];
         for (int c = 0; c < 2; c++) {
-            if (cbp_c) residual(b, dc[c], 4, -1);
-            else std::memset(dc[c], 0, sizeof(int) * 4);
+            if (!cbp_c) std::memset(dc[c], 0, sizeof(int) * 4);
+            else if (block(b, dc[c], 4, 3, mb, 0, 0, c)) m.dc |= (uint8_t)(2 << c);
         }
         for (int c = 0; c < 2; c++)
             for (int k = 0; k < 4; k++) {
                 std::memset(ac[c][k], 0, sizeof(int) * 16);
                 if (cbp_c == 2)
-                    m.nzc[c][k] =
-                        (uint8_t)residual(b, ac[c][k] + 1, 15, nc_chroma(mb, c, k & 1, k >> 1));
+                    m.nzc[c][k] = (uint8_t)block(b, ac[c][k] + 1, 15, 4, mb, k & 1, k >> 1, c);
             }
     }
 
@@ -1025,39 +1505,49 @@ struct Decoder {
                 const int x = kBlkX[blk], y = kBlkY[blk];
                 int pred = i4_pred_mode(mb, x, y);
                 int mode = pred;
-                if (!b.u1()) {
-                    int rem = (int)b.u(3);
+                if (cabac ? !cb.decision(68) : !b.u1()) {  // prev_intra4x4_pred_mode_flag
+                    int rem;
+                    if (cabac) {  // three bins, the least significant first
+                        rem = cb.decision(69);
+                        rem |= cb.decision(69) << 1;
+                        rem |= cb.decision(69) << 2;
+                    } else {
+                        rem = (int)b.u(3);
+                    }
                     mode = rem < pred ? rem : rem + 1;
                 }
                 m.i4[y * 4 + x] = (int8_t)mode;
                 modes[blk] = mode;
             }
         }
-        const int cmode = (int)ue_max(b, 3, "intra_chroma_pred_mode");
+        const int cmode = cabac ? cabac_chroma_mode(mb) : (int)ue_max(b, 3, "intra_chroma_pred_mode");
+        m.cmode = (uint8_t)cmode;
         int cbp_l, cbp_c, mode16 = 0;
         if (t == 0) {
-            int cbp = kIntraCbp[ue_max(b, 47, "coded_block_pattern")];
+            int cbp = cabac ? cabac_cbp(mb) : kIntraCbp[ue_max(b, 47, "coded_block_pattern")];
             cbp_l = cbp & 15;
             cbp_c = cbp >> 4;
+            m.cbp = (uint8_t)cbp;
             if (cbp) qp_delta(b);
         } else {
             mode16 = (t - 1) % 4;
             cbp_c = (t - 1) / 4 % 3;
             cbp_l = t >= 13 ? 15 : 0;
+            m.cbp = (uint8_t)(cbp_l | cbp_c << 4);
             qp_delta(b);
         }
+        if (cbp_c > 2) throw Corrupt("coded_block_pattern out of range");
         m.qp = qp;
         int lev[16][16], dcl[16], dc[2][4], ac[2][4][16];
         if (t == 0) {
             luma_residual(b, mb, cbp_l, lev);
         } else {
-            residual(b, dcl, 16, nc_luma(mb, 0, 0));
+            if (block(b, dcl, 16, 0, mb, 0, 0, 0)) m.dc |= 1;
             for (int blk = 0; blk < 16; blk++) {
                 const int x = kBlkX[blk], y = kBlkY[blk];
                 std::memset(lev[y * 4 + x], 0, sizeof(int) * 16);
                 if (cbp_l)
-                    m.nz[y * 4 + x] =
-                        (uint8_t)residual(b, lev[y * 4 + x] + 1, 15, nc_luma(mb, x, y));
+                    m.nz[y * 4 + x] = (uint8_t)block(b, lev[y * 4 + x] + 1, 15, 1, mb, x, y, 0);
             }
         }
         chroma_residual(b, mb, cbp_c, dc, ac);
@@ -1411,34 +1901,34 @@ struct Decoder {
         begin_mb(mb, INTER);
         Mb& m = mbs[mb];
         const int n = sh.num_ref_idx_active;
-        auto read_ref = [&]() -> int {
-            if (n == 1) return 0;
-            int r = n == 2 ? !b.u1() : (int)b.ue();
-            if (r >= n) throw Corrupt("ref_idx_l0 out of range");
-            return r;
-        };
         struct Part {
             int x, y, w, h, ref, shape, mvd[2];
         };
         std::vector<Part> parts;
+        int8_t pref[16];  // the reference indices read so far, by 4x4 block
+        std::memset(pref, 0, sizeof(pref));
+        auto read_ref = [&](int x, int y, int pw, int ph) -> int {
+            int r = 0;
+            if (n > 1) r = cabac ? cabac_ref(mb, x, y, pref) : n == 2 ? !b.u1() : (int)b.ue();
+            if (r >= n) throw Corrupt("ref_idx_l0 out of range");
+            for (int j = y >> 2; j < (y + ph) >> 2; j++)
+                for (int i = x >> 2; i < (x + pw) >> 2; i++) pref[j * 4 + i] = (int8_t)r;
+            return r;
+        };
         if (t < 3) {
-            const int np = t == 0 ? 1 : 2;
-            int refs[2] = {0, 0};
-            for (int i = 0; i < np; i++) refs[i] = read_ref();
-            for (int i = 0; i < np; i++) {
+            for (int i = 0; i < (t == 0 ? 1 : 2); i++) {
                 Part p{};
-                if (t == 0) p = {0, 0, 16, 16, refs[i], 0, {0, 0}};
-                else if (t == 1) p = {0, 8 * i, 16, 8, refs[i], 1, {0, 0}};
-                else p = {8 * i, 0, 8, 16, refs[i], 2, {0, 0}};
-                p.mvd[0] = b.se();
-                p.mvd[1] = b.se();
+                if (t == 0) p = {0, 0, 16, 16, 0, 0, {0, 0}};
+                else if (t == 1) p = {0, 8 * i, 16, 8, 0, 1, {0, 0}};
+                else p = {8 * i, 0, 8, 16, 0, 2, {0, 0}};
                 parts.push_back(p);
             }
+            for (auto& p : parts) p.ref = read_ref(p.x, p.y, p.w, p.h);
         } else {
             int sub[4], refs[4] = {0, 0, 0, 0};
-            for (int& s : sub) s = (int)ue_max(b, 3, "sub_mb_type");
+            for (int& st : sub) st = cabac ? cabac_sub_type() : (int)ue_max(b, 3, "sub_mb_type");
             if (t == 3)
-                for (int& r : refs) r = read_ref();
+                for (int i = 0; i < 4; i++) refs[i] = read_ref(8 * (i & 1), 8 * (i >> 1), 8, 8);
             for (int i = 0; i < 4; i++) {
                 const int sx = 8 * (i & 1), sy = 8 * (i >> 1);
                 const int pw = sub[i] < 2 ? 8 : 4, ph = sub[i] == 0 || sub[i] == 2 ? 8 : 4;
@@ -1447,10 +1937,21 @@ struct Decoder {
                     if (sub[i] == 1) p.y += 4 * k;
                     else if (sub[i] == 2) p.x += 4 * k;
                     else if (sub[i] == 3) p.x += 4 * (k & 1), p.y += 4 * (k >> 1);
-                    p.mvd[0] = b.se();
-                    p.mvd[1] = b.se();
                     parts.push_back(p);
                 }
+            }
+        }
+        for (auto& p : parts) {  // mvd_l0, in partition order
+            for (int c = 0; c < 2; c++) {
+                if (!cabac) {
+                    p.mvd[c] = b.se();
+                    continue;
+                }
+                const int sum = abs_mvd(mb, p.x - 1, p.y, c) + abs_mvd(mb, p.x, p.y - 1, c);
+                p.mvd[c] = cabac_mvd(c ? 47 : 40, sum);
+                for (int j = p.y >> 2; j < (p.y + p.h) >> 2; j++)
+                    for (int i = p.x >> 2; i < (p.x + p.w) >> 2; i++)
+                        m.mvd[j * 4 + i][c] = (uint8_t)std::min(std::abs(p.mvd[c]), 70);
             }
         }
         for (auto& p : parts)
@@ -1469,7 +1970,8 @@ struct Decoder {
                 for (int i = p.x >> 2; i < (p.x + p.w) >> 2; i++) done[j * 4 + i] = true;
             predict_inter(mb, p.x, p.y, p.w, p.h, p.ref, mv);
         }
-        int cbp = kInterCbp[ue_max(b, 47, "coded_block_pattern")];
+        int cbp = cabac ? cabac_cbp(mb) : kInterCbp[ue_max(b, 47, "coded_block_pattern")];
+        m.cbp = (uint8_t)cbp;
         if (cbp) qp_delta(b);
         m.qp = qp;
         int lev[16][16], dc[2][4], ac[2][4][16];
@@ -1477,6 +1979,14 @@ struct Decoder {
         chroma_residual(b, mb, cbp >> 4, dc, ac);
         for (int r = 0; r < 16; r++) add_block(luma_block(mb, r), w, lev[r], qp, nullptr);
         chroma_add(mb, dc, ac);
+    }
+
+    // the absolute mvd component c (at most 70) of the partition covering
+    // (x, y) relative to macroblock mb (x or y may be -1); 0 where there is none
+    int abs_mvd(int mb, int x, int y, int c) const {
+        if (x >= 0 && y >= 0) return mbs[mb].mvd[(y >> 2) * 4 + (x >> 2)][c];
+        const int n = mb_addr(mb, x < 0 ? -1 : 0, y < 0 ? -1 : 0);
+        return n < 0 ? 0 : mbs[n].mvd[(((y + 16) & 15) >> 2) * 4 + (((x + 16) & 15) >> 2)][c];
     }
 
     // 8.4.2.2: luma at quarter-sample and chroma at eighth-sample positions
@@ -1493,6 +2003,24 @@ struct Decoder {
             predict_luma(r, dst, ix, iy, fx, fy, pw, ph);
         }
         predict_chroma(r, xa, ya, pw, ph, mv);
+        if (sh.weighted) weight(ref, xa, ya, pw, ph);
+    }
+
+    // 8.4.2.3.2: explicit weighted prediction of the partition's samples
+    void weight(int ref, int xa, int ya, int pw, int ph) {
+        for (int c = 0; c < 3; c++) {
+            const int log_wd = sh.log2_wd[c ? 1 : 0], wt = sh.weight[ref][c], of = sh.offset[ref][c];
+            if (wt == 1 << log_wd && of == 0) continue;  // the default: the samples as they are
+            const int stride = c ? w / 2 : w, s = c ? 1 : 0;
+            uint8_t* d = (c == 0 ? cur->y : c == 1 ? cur->u : cur->v).data() +
+                         (size_t)(ya >> s) * stride + (xa >> s);
+            const int round = log_wd ? 1 << (log_wd - 1) : 0;
+            for (int j = 0; j < ph >> s; j++)
+                for (int i = 0; i < pw >> s; i++) {
+                    uint8_t& p = d[(size_t)j * stride + i];
+                    p = clip1(((p * wt + round) >> log_wd) + of);
+                }
+        }
     }
 
     void predict_luma(const Picture& r, uint8_t* dst, int ix, int iy, int fx, int fy, int pw,
@@ -1722,6 +2250,21 @@ struct Decoder {
         }
         have_prev = true;
         select_output(pic);
+        // ff_h264_execute_ref_pic_marking, after the output was chosen: an I
+        // picture with few references counts as recovered, in a stream
+        // without recovery point SEIs (measured against FFmpeg)
+        const Pps& p = pps[s.pps_id];
+        if (s.ref_idc && s.type == 2 && !has_recovery_point &&
+            ((int)refs.size() <= 2 || (p.num_ref_idx_default <= 1 && p.num_ref_idx_l1_default <= 1))) {
+            pic->recovered = true;
+            if (!has_b_frames) frame_recovered |= 4;
+        }
+        // measured against FFmpeg: the first reference I picture after grey
+        // references is then the only reference left
+        if (s.ref_idc && s.type == 2) {
+            if (grey_refs) refs.assign(1, pic);
+            grey_refs = false;
+        }
     }
 
     // FFmpeg's h264_select_output_frame
@@ -1760,7 +2303,10 @@ struct Decoder {
                 next_outputed_poc = INT_MIN;
             else
                 next_outputed_poc = out->poc;
-            if (out->recovered) ready.push_back(out);
+            if (out->recovered) {
+                frame_recovered |= 2;
+                ready.push_back(out);
+            }
         }
     }
 
@@ -1776,6 +2322,7 @@ struct Decoder {
     // ---------------------------------------------------------- API
     int decode(const uint8_t* d, size_t n, long tag) {
         ready.clear();
+        sei_recovery = -1;
         bool any = false;
         nal_units(d, n, [&](const uint8_t* p, size_t len) {
             const int type = p[0] & 31;
@@ -1814,14 +2361,10 @@ struct Decoder {
     void flush() {  // h264_decode_flush
         delayed.clear();
         ready.clear();
-        refs.clear();
         cur = nullptr;
-        have_prev = false;
         reset_pocs();
         next_outputed_poc = INT_MIN;
-        frame_recovered = false;
-        mmco_reset = true;
-        waiting_for_idr = true;
+        restart();
     }
 
     // The left crop av_frame_apply_cropping applies: it keeps the data
@@ -1936,7 +2479,7 @@ int crt_h264_probe(void* h, const uint8_t* data, long n, char* err, int errlen) 
 
 // Decodes one packet (an access unit) tagged `tag`: 1 when a picture is
 // given (info: width, height, the tag of its packet), 0 none (held
-// back for reordering, or before an IDR after a flush), -1 the packet does
+// back for reordering, or not yet recovered), -1 the packet does
 // not decode, -2 a feature the decoder refuses.
 int crt_h264_decode(void* h, const uint8_t* data, long n, long tag, long* info, char* err,
                     int errlen) {
@@ -1969,7 +2512,7 @@ int crt_h264_bgr(void* h, uint8_t* out, long size) {
 }
 
 // avcodec_flush_buffers: drops the pictures held back and the references;
-// nothing is decoded again until an IDR picture.
+// what is shown next starts as at the start of a stream.
 void crt_h264_flush(void* h) { static_cast<Decoder*>(h)->flush(); }
 
 void crt_h264_destroy(void* h) { delete static_cast<Decoder*>(h); }

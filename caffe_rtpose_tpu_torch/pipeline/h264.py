@@ -3,8 +3,10 @@
 
 :class:`H264Decoder` decodes the packets (access units) of one stream in
 order, as FFmpeg's ``h264`` decoder decodes them for ``cv2.VideoCapture``:
-Constrained Baseline (CAVLC, I and P slices, 4:2:0 8-bit progressive
-frames), with FFmpeg's output order and delay, and each picture, cropped,
+Main profile and Constrained Baseline I/P streams (CAVLC or CABAC, I and
+P slices with explicit weighted prediction, 4:2:0 8-bit progressive
+frames), with FFmpeg's output order and delay and the pictures it shows
+from a stream's start or a flush, and each picture, cropped,
 as BGR the way OpenCV receives it from swscale (limited or, with the VUI's
 ``video_full_range_flag``, full range).  A stream feature the decoder does
 not take raises :class:`H264Unsupported` naming it; data that does not
@@ -30,7 +32,8 @@ from .. import _build
 
 SRC = os.path.join(_build.CSRC_DIR, "h264_video.cpp")
 FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
-HEADERS = (os.path.join(_build.CSRC_DIR, "ffmpeg_dsp.h"),)
+HEADERS = (os.path.join(_build.CSRC_DIR, "ffmpeg_dsp.h"),
+           os.path.join(_build.CSRC_DIR, "h264_cabac_tables.h"))
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -134,7 +137,7 @@ class H264Decoder:
 
     def flush(self) -> None:
         """``avcodec_flush_buffers``: the pictures held back and the
-        references go; nothing is given until the next IDR picture."""
+        references go; what is given next starts as at a stream's start."""
         self._lib.crt_h264_flush(self._h)
 
     def close(self) -> None:

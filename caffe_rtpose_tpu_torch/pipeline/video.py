@@ -2,8 +2,8 @@
 walked with ``struct``) and MP4/QuickTime (ISO BMFF, ``bmff.py``), their
 Motion-JPEG frames decoded by the port's JPEG codec (``jpeg.py``), their
 MPEG-4 Part 2 frames by the port's MPEG-4 decoder (``mpeg4.py``) and their
-H.264 frames by the port's H.264 decoder (``h264.py``, Constrained
-Baseline).
+H.264 frames by the port's H.264 decoder (``h264.py``: Main profile and
+Constrained Baseline, I and P slices, CAVLC or CABAC).
 
 The readers have what ``runner.frame_source`` uses of ``cv2.VideoCapture``
 and give, for the same file, what the JAX package's reader gives:
@@ -42,9 +42,10 @@ ISO BMFF.
   FFMPEG passes it; one that does not decode ends a sequential read (FFMPEG
   conceals the damage and goes on).  H.264: the same, with FFmpeg's output
   order and delay (a picture may come out after later packets, and the
-  pictures held back come out at the end); after a seek nothing shows
-  until an IDR picture; a packet that does not decode raises ValueError
-  (no concealment).
+  pictures held back come out at the end); from the start and after a
+  seek, pictures show from where FFmpeg's do (an IDR picture, a recovery
+  point SEI, or an I picture with few references); a packet that does not
+  decode raises ValueError (no concealment).
 * **fps**: AVI: the stream header's dwRate / dwScale (libavformat's
   fallbacks where either is 0); MP4: the track's average frame rate;
   ``CAP_PROP_FPS``.  **frame_count**: dwLength, or the track's sample
@@ -142,8 +143,8 @@ def _unsupported(path: str, why: str) -> UnsupportedVideo:
     return UnsupportedVideo(
         f"{path}: {container} container, video fourcc {fourcc}: {why}; without OpenCV the "
         f"port reads Motion-JPEG, MPEG-4 Part 2 (Simple Profile, I/P) and H.264 "
-        f"(Constrained Baseline: CAVLC, I/P) in AVI, MP4 and QuickTime, so this file needs "
-        f"OpenCV (cv2)")
+        f"(Main profile and Constrained Baseline, I/P) in AVI, MP4 and QuickTime, so this file "
+        f"needs OpenCV (cv2)")
 
 
 def open_reader(path: str) -> "_Reader":
@@ -553,7 +554,7 @@ class SequenceReader(_Reader):
 
 class Mp4Reader(_Reader):
     """An MP4 or QuickTime file of MPEG-4 Part 2 (``mp4v``), H.264 (``avc1``,
-    ``avc3``: Constrained Baseline) or Motion-JPEG (``jpeg``) video, read
+    ``avc3``: Main profile I/P) or Motion-JPEG (``jpeg``) video, read
     frame by frame as ``cv2.VideoCapture`` (FFMPEG) reads it.  Raises
     OSError when the file cannot be read and :class:`UnsupportedVideo` for
     any other file."""
@@ -587,8 +588,8 @@ class Mp4Reader(_Reader):
 
 
 class AviReader(_Reader):
-    """A Motion-JPEG, MPEG-4 Part 2 or H.264 (Annex B, Constrained Baseline)
-    AVI file, read frame by frame as ``cv2.VideoCapture`` (FFMPEG) reads it.
+    """A Motion-JPEG, MPEG-4 Part 2 or H.264 (Annex B, Main profile I/P) AVI
+    file, read frame by frame as ``cv2.VideoCapture`` (FFMPEG) reads it.
     Raises OSError when the file cannot be read and
     :class:`UnsupportedVideo` for any other file."""
 

@@ -49,16 +49,19 @@ Phases, each of which raises (non-zero exit) on failure:
                gap, 40 frames, one image) against the pins
                tests/test_torch_sequence.py holds (FFMPEG's image2); the
                MPEG-4 decoder's g++ build time (csrc/mpeg4_video.cpp);
-               then each H.264 Constrained Baseline stream of
-               tests/h264_cases.py (written from seeds there: MP4,
-               QuickTime, AVI, avc3, POC types 0 and 2, both ranges,
-               cropped sizes, output delay) and its committed 1280x720 clip
-               tests/data/h264_720p.mp4 against the pins
-               tests/test_torch_h264.py holds (cv2's frames, bit for bit),
-               each refused stream raising UnsupportedVideo naming its
-               feature; the H.264 decoder's g++ build time
-               (csrc/h264_video.cpp) and host ms a frame of the 720p clip's
-               container read and H.264 decode apart (median of 24);
+               then each H.264 stream of tests/h264_cases.py (written
+               from seeds there: Constrained Baseline and Main profile,
+               CAVLC and CABAC, weighted P, MP4, QuickTime, AVI, avc3,
+               POC types 0 and 2, both ranges, cropped sizes, output
+               delay, streams that start on a non-IDR picture) and its
+               committed 1280x720 clips tests/data/h264_720p.mp4 (CAVLC)
+               and h264_cabac_720p.mp4 (the same frames in CABAC) against
+               the pins tests/test_torch_h264.py holds (cv2's frames, bit
+               for bit), each refused stream raising UnsupportedVideo
+               naming its feature; the H.264 decoder's g++ build time
+               (csrc/h264_video.cpp) and host ms a frame of each 720p
+               clip's container read and H.264 decode apart (median of
+               24, the clips in turns);
                host ms (median of 20, in turns) of a 1280x720 q95 4:2:0
                frame through the Motion-JPEG decoder (FFmpeg's arithmetic)
                and through decode_jpeg (libjpeg's); the hand kernels'
@@ -181,15 +184,17 @@ Phases, each of which raises (non-zero exit) on failure:
                --start_frame 3 (a P-frame) equal to the first run's, FPS
                of each, and the host ms a frame of the container read and
                of the MPEG-4 decode apart.  Then rtpose --video on the
-               committed H.264 clip tests/data/h264_720p.mp4 (the same 8
-               1280x720 frames coded by tests/h264_cases.encode_clip: an
-               IDR picture, then P pictures), in turns with the MPEG-4
-               clip and a q95 Motion-JPEG AVI of the H.264 decode (h264,
-               mp4, avi, twice): the decoded frames' digest equal to cv2's
-               (pinned), every h264 JSON equal to estimate() on the port's
-               decode of its frame, launches equal to the other runs' (K1
-               4, K4 4), --start_frame 3 equal to the first run's, FPS of
-               each.
+               committed H.264 clips tests/data/h264_720p.mp4 and
+               h264_cabac_720p.mp4 (the same 8 1280x720 frames coded by
+               tests/h264_cases.encode_clip in CAVLC and in CABAC: an IDR
+               picture, then P pictures), in turns with the MPEG-4 clip
+               and a q95 Motion-JPEG AVI of the H.264 decode (h264, cabac,
+               mp4, avi, twice): the decoded frames' digest equal to
+               cv2's (pinned), every h264 JSON equal to estimate() on the
+               port's decode of its frame and every cabac JSON to the
+               h264 run's, launches equal to the other runs' (K1 4, K4
+               4), --start_frame 3 on each clip equal to the first run's,
+               FPS of each.
    serving   - serving bundles (serving.py): the bf16 batch-8 estimator
                built from those files, exported (time, file sizes), loaded
                cold as an ExportedPose (time) with the kernel counters zeroed
@@ -1045,10 +1050,12 @@ def phase_video(card):
     frame digest held to the pins taken from the JAX package's reader (the
     MPEG-4 digests are cv2's frames).  The MPEG-4 decoder's g++ build
     (csrc/mpeg4_video.cpp) is timed.  Then each H.264 stream of
-    tests/h264_cases.py and its 720p clip against their pins, each refused
-    stream by its message, the H.264 decoder's g++ build
-    (csrc/h264_video.cpp) and its decode of the 720p clip a frame.  It
-    launches none of K1-K4."""
+    tests/h264_cases.py (Constrained Baseline and Main profile: CABAC,
+    weighted P, streams that start on a non-IDR picture) and its two 720p
+    clips (the same frames in CAVLC and in CABAC) against their pins, each
+    refused stream by its message, the H.264 decoder's g++ build
+    (csrc/h264_video.cpp) and its decode of each 720p clip a frame, in
+    turns.  It launches none of K1-K4."""
     import os
 
     from caffe_rtpose_tpu_torch.pipeline import h264, mpeg4, runner, video
@@ -1106,9 +1113,10 @@ def phase_video(card):
         h264.load()
         h264_build_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        for name in [*hc.CASES, "h264_720p"]:
-            path = hc.CLIP_720P
-            if name != "h264_720p":
+        clips = {"h264_720p": hc.CLIP_720P, "h264_cabac_720p": hc.CLIP_CABAC_720P}
+        for name in [*hc.CASES, *clips]:
+            path = clips.get(name)
+            if path is None:
                 path = os.path.join(work, name + hc.suffix(name))
                 with open(path, "wb") as f:
                     f.write(hc.build(name))
@@ -1133,21 +1141,25 @@ def phase_video(card):
                 if word not in str(e):
                     differ["h264 refused " + name] = str(e)
         h264_secs = time.perf_counter() - t0
-        reader = video.open_reader(hc.CLIP_720P)
-        h264_read_ms, h264_decode_ms = [], []
-        for _ in range(3):
-            dec = h264.H264Decoder(reader._extra, reader._nal_length, hc.CLIP_720P)
-            for i in range(len(reader.frames)):
-                t0 = time.perf_counter()
-                data = reader.packet(i)
-                t1 = time.perf_counter()
-                check(dec.advance(data, i), f"{tag} the 720p clip's frame {i} gave no picture")
-                dec.picture()
-                h264_read_ms.append((t1 - t0) * 1000.0)
-                h264_decode_ms.append((time.perf_counter() - t1) * 1000.0)
-            dec.close()
-        h264_frame_bytes = os.path.getsize(hc.CLIP_720P) // len(reader.frames)
-        reader.release()
+        readers = {name: video.open_reader(path) for name, path in clips.items()}
+        h264_read_ms = {name: [] for name in clips}
+        h264_decode_ms = {name: [] for name in clips}
+        for _ in range(3):  # the two clips in turns
+            for name, reader in readers.items():
+                dec = h264.H264Decoder(reader._extra, reader._nal_length, clips[name])
+                for i in range(len(reader.frames)):
+                    t0 = time.perf_counter()
+                    data = reader.packet(i)
+                    t1 = time.perf_counter()
+                    check(dec.advance(data, i), f"{tag} {name}'s frame {i} gave no picture")
+                    dec.picture()
+                    h264_read_ms[name].append((t1 - t0) * 1000.0)
+                    h264_decode_ms[name].append((time.perf_counter() - t1) * 1000.0)
+                dec.close()
+        h264_frame_bytes = {name: os.path.getsize(clips[name]) // len(reader.frames)
+                            for name, reader in readers.items()}
+        for reader in readers.values():
+            reader.release()
         t0 = time.perf_counter()
         for name in seq.CASES:
             path, _, written = seq.write(name, os.path.join(work, "seq_" + name))
@@ -1181,15 +1193,18 @@ def phase_video(card):
           f"{len(m4.CASES)} crafted MP4 layouts ({', '.join(m4.CASES)}), cv2 blocked: count, "
           f"fps, reads, seeks and frame digests {'equal' if not differ else 'DIFFER from'} the "
           f"pins, in {mp4_secs:.2f} s; {card}")
+    decode_ms = {name: statistics.median(ms) for name, ms in h264_decode_ms.items()}
     print(f"{tag} H.264 decoder g++ build (csrc/h264_video.cpp) {h264_build_s:.2f} s; "
-          f"{len(hc.CASES)} Constrained Baseline streams ({', '.join(hc.CASES)}) and the "
-          f"1280x720 clip, cv2 blocked: count, fps, reads, seeks and frame digests "
+          f"{len(hc.CASES)} streams ({', '.join(hc.CASES)}) and the two 1280x720 clips, cv2 "
+          f"blocked: count, fps, reads, seeks and frame digests "
           f"{'equal' if not differ else 'DIFFER from'} the pins; {len(hc.REFUSED)} refused "
-          f"streams each named; in {h264_secs:.2f} s; host ms a 1280x720 frame "
-          f"({h264_frame_bytes} B; median of {len(h264_decode_ms)}): container read "
-          f"{statistics.median(h264_read_ms):.4f}, H.264 decode and BGR "
-          f"{statistics.median(h264_decode_ms):.3f} (range {min(h264_decode_ms):.3f}-"
-          f"{max(h264_decode_ms):.3f}); {card}")
+          f"streams each named; in {h264_secs:.2f} s; host ms a 1280x720 frame (median of "
+          f"{len(h264_decode_ms['h264_720p'])}, the clips in turns): "
+          + "; ".join(f"{name} ({h264_frame_bytes[name]} B) container read "
+                      f"{statistics.median(h264_read_ms[name]):.4f}, H.264 decode and BGR "
+                      f"{decode_ms[name]:.3f} (range {min(h264_decode_ms[name]):.3f}-"
+                      f"{max(h264_decode_ms[name]):.3f})" for name in clips)
+          + f"; CABAC/CAVLC {decode_ms['h264_cabac_720p'] / decode_ms['h264_720p']:.3f}; {card}")
     print(f"{tag} {len(seq.CASES)} printf image sequences ({', '.join(seq.CASES)}), cv2 "
           f"blocked: count, fps, reads, seeks and frame digests "
           f"{'equal' if not differ else 'DIFFER from'} the pins, in {seq_secs:.2f} s; host ms "
@@ -1201,11 +1216,11 @@ def phase_video(card):
     return dict(cases=len(cases.CASES), mp4_files=len(m4.CLIPS) + len(m4.CASES),
                 sequences=len(seq.CASES), pins_equal=not differ, seconds=secs,
                 mp4_seconds=mp4_secs, sequence_seconds=seq_secs, mpeg4_build_s=build_s,
-                h264_streams=len(hc.CASES) + 1, h264_refused=len(hc.REFUSED),
+                h264_streams=len(hc.CASES) + 2, h264_refused=len(hc.REFUSED),
                 h264_seconds=h264_secs, h264_build_s=h264_build_s,
-                h264_read_ms=statistics.median(h264_read_ms),
-                h264_decode_ms=statistics.median(h264_decode_ms),
-                h264_decode_ms_range=[min(h264_decode_ms), max(h264_decode_ms)],
+                h264_read_ms={k: statistics.median(v) for k, v in h264_read_ms.items()},
+                h264_decode_ms=decode_ms,
+                h264_decode_ms_range={k: [min(v), max(v)] for k, v in h264_decode_ms.items()},
                 h264_frame_bytes=h264_frame_bytes,
                 mjpeg_ffmpeg_ms=statistics.median(ffmpeg_ms),
                 mjpeg_ffmpeg_ms_range=[min(ffmpeg_ms), max(ffmpeg_ms)],
@@ -3293,15 +3308,17 @@ def phase_cli_mp4(files, extra=()):
 
 
 def phase_cli_h264(files, card, extra=()):
-    """rtpose --video on the committed H.264 clip tests/data/h264_720p.mp4
+    """rtpose --video on the committed H.264 clips tests/data/h264_720p.mp4
     (the 8 1280x720 frames of jpeg_frames.frame, an IDR picture and P
-    pictures), cv2 blocked, in turns with the MPEG-4 clip of the same
-    frames and a q95 Motion-JPEG AVI of the H.264 decode (h264, mp4, avi,
-    twice), then --start_frame 3 (a P picture: the seek decodes on from the
-    IDR picture).  The decoded frames' digest equals the pin (cv2's
-    frames); every JSON of the first h264 run equals estimate() on the
-    port's decode of its frame, the --start_frame run's the first run's;
-    launches equal across the runs; FPS of each."""
+    pictures, CAVLC) and h264_cabac_720p.mp4 (the same macroblocks coded
+    with CABAC, Main profile), cv2 blocked, in turns with the MPEG-4 clip of
+    the same frames and a q95 Motion-JPEG AVI of the H.264 decode (h264,
+    cabac, mp4, avi, twice), then --start_frame 3 on each H.264 clip (a P
+    picture: the seek decodes on from the IDR picture).  Both clips' decoded
+    frames equal the pin (cv2's frames); every JSON of the first h264 run
+    equals estimate() on the port's decode of its frame, each cabac run's
+    JSONs the first h264 run's and each --start_frame run's the first h264
+    run's; launches equal across the runs; FPS of each."""
     import os
 
     from caffe_rtpose_tpu_torch.pipeline import video
@@ -3311,25 +3328,28 @@ def phase_cli_h264(files, card, extra=()):
     cases, m4, hc = avi_cases_module(), mp4_cases_module(), h264_cases_module()
     clip = hc.CLIP_720P
     with no_cv2():
-        reader = video.open_reader(clip)
-        images = read_frames(reader)
-        reader.release()
-    check(cases.sha256(images) == hc.PINNED["h264_720p"]["sha256"],
-          f"{tag} the decoded frames differ from cv2's (the pinned digest)")
+        for path in (clip, hc.CLIP_CABAC_720P):
+            reader = video.open_reader(path)
+            images = read_frames(reader)
+            reader.release()
+            check(cases.sha256(images) == hc.PINNED["h264_720p"]["sha256"],
+                  f"{tag} {path}'s decoded frames differ from cv2's (the pinned digest)")
     work = tempfile.mkdtemp(prefix="chip_smoke_cli_h264_")
     h, w = images[0].shape[:2]
     n = len(images)
     avi = os.path.join(work, "clip.avi")
     with open(avi, "wb") as f:
         f.write(cases.write_avi([encode_jpeg(f, 95) for f in images], w, h))
-    sources = {"h264": ("--video", clip), "mp4": ("--video", m4.clip_path("mp4v_720p")),
-               "avi": ("--video", avi)}
+    sources = {"h264": ("--video", clip), "cabac": ("--video", hc.CLIP_CABAC_720P),
+               "mp4": ("--video", m4.clip_path("mp4v_720p")), "avi": ("--video", avi)}
+    kinds = ("h264", "cabac", "mp4", "avi")
     runs = []
-    for k, kind in enumerate(("h264", "mp4", "avi") * 2):
+    for k, kind in enumerate(kinds * 2):
         runs.append((kind, rtpose_run(f"{tag} {kind}", files, sources[kind],
                                       os.path.join(work, f"json{k}"), w, h, extra)))
-    seek = rtpose_run(f"{tag} start 3", files, sources["h264"], os.path.join(work, "json_s3"),
-                      w, h, ("--start_frame", "3", *extra))
+    seeks = {kind: rtpose_run(f"{tag} {kind} start 3", files, sources[kind],
+                              os.path.join(work, f"json_{kind}_s3"), w, h,
+                              ("--start_frame", "3", *extra)) for kind in ("h264", "cabac")}
     names = [f"frame{i:06d}.json" for i in range(n)]
     for kind, r in runs:
         check(r["files"] == names, f"{tag} {kind} wrote {r['files']}")
@@ -3338,26 +3358,35 @@ def phase_cli_h264(files, card, extra=()):
     first = runs[0][1]
     check(first["launches"]["conv1_block"] > 0 and first["launches"]["peak_mask_fused"] > 0,
           f"{tag} a hand kernel of the path never launched: {first['launches']}")
-    check(seek["files"] == names[3:], f"{tag} --start_frame 3 wrote {seek['files']}")
-    check(seek["launches"]["conv1_block"] > 0, f"{tag} --start_frame 3 launched no K4")
-    for name in seek["files"]:
-        with open(os.path.join(work, "json0", name)) as a, \
-                open(os.path.join(work, "json_s3", name)) as b:
-            check(a.read() == b.read(), f"{tag} --start_frame 3's {name} differs")
+    for kind, seek in seeks.items():
+        check(seek["files"] == names[3:], f"{tag} {kind} --start_frame 3 wrote {seek['files']}")
+        check(seek["launches"] == seeks["h264"]["launches"] and seek["launches"]["conv1_block"] > 0,
+              f"{tag} {kind} --start_frame 3 launches {seek['launches']}")
+    same = [(f"json_{kind}_s3", names[3:]) for kind in seeks]
+    same += [(f"json{k}", names) for k, (kind, _) in enumerate(runs) if kind == "cabac"]
+    for folder, files_ in same:
+        for name in files_:
+            with open(os.path.join(work, "json0", name)) as a, \
+                    open(os.path.join(work, folder, name)) as b:
+                check(a.read() == b.read(), f"{tag} {folder}/{name} differs from the first run's")
     jsons_equal_estimate(tag, files, extra, images, os.path.join(work, "json0"), names,
                          "the port's decode of its frame")
-    fps = {kind: [r["fps"] for k, r in runs if k == kind] for kind in ("h264", "mp4", "avi")}
-    print(f"{tag} decoded frames equal cv2's (pinned digest); every h264 JSON equals "
-          f"estimate() on the port's decode of its frame; --start_frame 3 wrote "
-          f"{len(seek['files'])} files equal to the first run's; FPS over {n} {w}x{h} frames: "
-          f"h264 {fps['h264']}, mp4 {fps['mp4']}, avi {fps['avi']} (in turns; "
-          f"{os.path.getsize(clip) // n} B a frame of H.264); launches {first['launches']}; "
+    fps = {kind: [r["fps"] for k, r in runs if k == kind] for kind in kinds}
+    print(f"{tag} both clips' decoded frames equal cv2's (pinned digest); every h264 JSON "
+          f"equals estimate() on the port's decode of its frame, every cabac JSON the h264 "
+          f"run's; --start_frame 3 wrote {len(seeks['h264']['files'])} files a clip equal to "
+          f"the first run's; FPS over {n} {w}x{h} frames: "
+          + ", ".join(f"{kind} {fps[kind]}" for kind in kinds)
+          + f" (in turns; {os.path.getsize(clip) // n} B a frame of CAVLC, "
+          f"{os.path.getsize(hc.CLIP_CABAC_720P) // n} of CABAC); launches {first['launches']}; "
           f"{card}")
-    return dict(fps_h264=fps["h264"], fps_mp4=fps["mp4"], fps_avi=fps["avi"],
-                launches=first["launches"],
-                start_frame_3=dict(files=len(seek["files"]), launches=seek["launches"],
-                                   fps=seek["fps"]),
-                bytes_a_frame=os.path.getsize(clip) / n, seconds=[r["seconds"] for _, r in runs])
+    return dict(fps_h264=fps["h264"], fps_cabac=fps["cabac"], fps_mp4=fps["mp4"],
+                fps_avi=fps["avi"], launches=first["launches"],
+                start_frame_3={kind: dict(files=len(r["files"]), launches=r["launches"],
+                                          fps=r["fps"]) for kind, r in seeks.items()},
+                bytes_a_frame=os.path.getsize(clip) / n,
+                cabac_bytes_a_frame=os.path.getsize(hc.CLIP_CABAC_720P) / n,
+                seconds=[r["seconds"] for _, r in runs])
 
 
 def bundle_sizes(path):

@@ -1,32 +1,41 @@
-"""H.264 Constrained Baseline streams for the port's H.264 decoder
+"""H.264 streams for the port's H.264 decoder
 (``caffe_rtpose_tpu_torch/csrc/h264_video.cpp`` behind ``pipeline/h264.py``)
 and the results pinned for them (numpy and ``struct`` only, so that
 ``chip_smoke.py`` can load this module on a machine without OpenCV).
 
 * A syntax writer (:class:`Writer`) that emits valid Constrained Baseline
-  bitstreams from a seed: SPS (frame cropping, POC types 0 and 2, VUI with
-  the video range, timing and bitstream restriction), PPS, slices of I and
-  P type (several a picture, each with its own QP and deblocking idc and
-  offsets; reference list modification; sliding-window and MMCO 1
-  marking; non-reference pictures) and CAVLC macroblocks of every I and P
+  and Main profile (I/P) bitstreams from a seed: SPS (frame cropping, POC
+  types 0 and 2, VUI with the video range, timing and bitstream
+  restriction), PPS, slices of I and P type (several a picture, each with
+  its own QP, deblocking idc and offsets and CABAC init table; reference
+  list modification; explicit weighted prediction; sliding-window and
+  MMCO 1 marking; non-reference pictures), recovery point SEIs, streams
+  that start on a non-IDR picture, and macroblocks of every I and P
   ``mb_type`` and sub-type: I_PCM, all 9 + 4 + 4 intra modes (only those
-  whose neighbours are available), residual blocks of every ``coeff_token``
-  table with level escapes, ``mb_qp_delta`` wrapping through QP 0-51, and
-  motion vector differences that reach every sub-pel phase and far out of
-  the picture.  The writer is no encoder: the pictures are what the syntax
-  says, and FFmpeg (``cv2.VideoCapture``) is the judge of what they are.
-  It tracks what a valid stream needs: the nC contexts, the intra mode
-  predictors and neighbour availability, and the reference pictures.
-* Muxers: MP4 and QuickTime (``avc1`` + ``avcC``, ``stss`` listing the IDR
+  whose neighbours are available), residual blocks with level escapes,
+  ``mb_qp_delta`` wrapping through QP 0-51, and motion vector differences
+  that reach every sub-pel phase and far out of the picture.  Each element
+  goes through a coder, CAVLC (:class:`Cavlc`) or CABAC (:class:`CabacCoder`:
+  the arithmetic encoder of 9.3.4 and the context selection the decoder
+  mirrors, from the decoder's own tables); the writer draws the same values
+  whichever codes them, so a CABAC case and its CAVLC twin (:func:`twin`)
+  are the same pictures.  The writer is no encoder: the pictures are what
+  the syntax says, and FFmpeg (``cv2.VideoCapture``) is the judge of what
+  they are.  It tracks what a valid stream needs: the coders' neighbour
+  contexts, the intra mode predictors and neighbour availability, and the
+  reference pictures.
+* Muxers: MP4 and QuickTime (``avc1`` + ``avcC``, ``stss`` listing the key
   pictures, through ``mp4_cases.write_mp4``) and AVI (Annex B chunks,
-  ``idx1`` with AVIIF_KEYFRAME on the IDR pictures, ``avi_cases.write_avi``).
+  ``idx1`` with AVIIF_KEYFRAME on the key pictures, ``avi_cases.write_avi``).
 * CASES, REFUSED (one stream a refusal) and PINNED: what the JAX package's
   reader (``cv2.VideoCapture`` in ``caffe_rtpose_tpu.pipeline.runner``)
   gives for each case.
 * :func:`encode_clip`: the 8 1280x720 frames of ``jpeg_frames.frame`` coded
   as real pictures (the first row of macroblocks I_PCM, the rest
-  Intra16x16 vertical, then P pictures predicted from the picture before),
-  committed as ``tests/data/h264_720p.mp4`` for chip_smoke's CLI run.
+  Intra16x16 vertical, then P pictures predicted from the picture before);
+  ``encode_clip(clip_frames(), 26)`` is ``tests/data/h264_720p.mp4`` and
+  ``encode_clip(clip_frames(), 26, cabac=True)``
+  ``tests/data/h264_cabac_720p.mp4``, for chip_smoke's CLI run.
 
 ``tests/test_torch_h264.py`` holds PINNED against the JAX reader and the
 port; ``chip_smoke.py``'s video phase holds the port on the card's host to
@@ -35,6 +44,7 @@ them.
 
 import functools
 import os
+import re
 import struct
 
 import numpy as np
@@ -45,6 +55,7 @@ CLIP_FRAMES = 26
 SEEKS = (0, 1, 3, 11, 12, 13, 20, 25, 26, 40)
 READ_AFTER_SEEK = 3
 CLIP_720P = os.path.join(DATA, "h264_720p.mp4")
+CLIP_CABAC_720P = os.path.join(DATA, "h264_cabac_720p.mp4")
 
 # ------------------------------------------------------------ CAVLC tables
 # H.264 Table 9-5 (coeff_token) by nC class 0 <= nC < 2, 2 <= nC < 4,
@@ -315,6 +326,460 @@ def chroma_dc(levels, qc: int):
     return out if _in_range(*f, *out) else None
 
 
+# ------------------------------------------------------------------ CABAC
+
+def _cabac_tables():
+    """rangeTabLPS, transIdxLPS and the (m, n) pairs (by [I, idc 0, 1, 2]
+    and ctxIdx) of the decoder's header, read from its text."""
+    path = os.path.join(os.path.dirname(DATA), os.pardir, "caffe_rtpose_tpu_torch", "csrc",
+                        "h264_cabac_tables.h")
+    with open(path) as f:
+        text = re.sub(r"//[^\n]*", "", f.read())
+
+    def ints(name):
+        return [int(v) for v in re.findall(r"-?\d+", text.split(name)[1].split("};")[0][1:])]
+
+    rng, lps, init = ints("kRangeLps[64][4] ="), ints("kTransLps[64] ="), \
+        ints("kInit[4][kCtxCount][2] =")
+    return ([rng[4 * i:4 * i + 4] for i in range(64)], lps,
+            [[(init[552 * t + 2 * c], init[552 * t + 2 * c + 1]) for c in range(276)]
+             for t in range(4)])
+
+
+RANGE_LPS, TRANS_LPS, CABAC_INIT = _cabac_tables()
+# ctxBlockCatOffset of coded_block_flag, the significance maps and
+# coeff_abs_level_minus1 (Table 9-40), by ctxBlockCat 0-4
+CBF_OFFSET, SIG_OFFSET, ABS_OFFSET = (0, 4, 8, 12, 16), (0, 15, 29, 44, 47), (0, 10, 20, 30, 39)
+
+
+class CabacEncoder:
+    """The arithmetic encoder of 9.3.4 writing into a Bits (byte aligned
+    when it starts), and the context variables ((pStateIdx << 1) | valMPS)."""
+
+    def __init__(self, bw: Bits, table: int, qp: int):
+        self.bw = bw
+        q = min(max(qp, 0), 51)
+        self.state = []
+        for m, n in CABAC_INIT[table]:
+            pre = min(max(((m * q) >> 4) + n, 1), 126)
+            self.state.append((63 - pre) << 1 if pre <= 63 else (pre - 64) << 1 | 1)
+        self.restart()
+
+    def restart(self) -> None:
+        self.low, self.range, self.outstanding, self.first = 0, 510, 0, True
+
+    def _put(self, b: int) -> None:
+        if self.first:
+            self.first = False
+        else:
+            self.bw.u(b, 1)
+        while self.outstanding:
+            self.bw.u(1 - b, 1)
+            self.outstanding -= 1
+
+    def _renorm(self) -> None:
+        while self.range < 256:
+            if self.low < 256:
+                self._put(0)
+            elif self.low >= 512:
+                self.low -= 512
+                self._put(1)
+            else:
+                self.low -= 256
+                self.outstanding += 1
+            self.range <<= 1
+            self.low <<= 1
+
+    def decision(self, ctx: int, b) -> None:
+        st = self.state[ctx]
+        s, mps = st >> 1, st & 1
+        lps = RANGE_LPS[s][(self.range >> 6) & 3]
+        self.range -= lps
+        if int(b) != mps:
+            self.low += self.range
+            self.range = lps
+            if s == 0:
+                mps = 1 - mps
+            s = TRANS_LPS[s]
+        elif s < 62:
+            s += 1
+        self.state[ctx] = s << 1 | mps
+        self._renorm()
+
+    def bypass(self, b) -> None:
+        self.low <<= 1
+        if b:
+            self.low += self.range
+        if self.low >= 1024:
+            self._put(1)
+            self.low -= 1024
+        elif self.low < 512:
+            self._put(0)
+        else:
+            self.low -= 512
+            self.outstanding += 1
+
+    def terminate(self, b) -> None:
+        """A bin of end_of_slice_flag or I_PCM; 1 flushes (the last bit
+        written is then the rbsp_stop_one_bit, or the bit before
+        pcm_alignment_zero_bit)."""
+        self.range -= 2
+        if not b:
+            self._renorm()
+            return
+        self.low += self.range
+        self.range = 2
+        self._renorm()
+        self._put((self.low >> 9) & 1)
+        self.bw.u(((self.low >> 7) & 3) | 1, 2)
+
+    def eg(self, v: int, k: int) -> None:
+        """The k-th order Exp-Golomb suffix of UEGk, in bypass bins."""
+        while v >= 1 << k:
+            self.bypass(1)
+            v -= 1 << k
+            k += 1
+        self.bypass(0)
+        while k:
+            k -= 1
+            self.bypass((v >> k) & 1)
+
+
+class _Coder:
+    """What a macroblock's syntax elements are written with: CAVLC
+    (:class:`Cavlc`) or CABAC (:class:`CabacCoder`).  The writer draws the
+    same values from its random stream whichever codes them; the coder
+    keeps the neighbour state each needs in ``st`` (a :class:`Writer`)."""
+
+    def __init__(self, st, bw: Bits, p_slice: bool):
+        self.st, self.bw, self.p_slice = st, bw, p_slice
+
+    def _ref_state(self, m, x, y, pw, ph, r) -> None:
+        for j in range(y // 4, (y + ph) // 4):
+            for i in range(x // 4, (x + pw) // 4):
+                self.st.refidx[m][j * 4 + i] = r
+
+
+class Cavlc(_Coder):
+    codes_p8x8ref0 = True
+
+    def __init__(self, st, bw, p_slice):
+        super().__init__(st, bw, p_slice)
+        self.run = 0
+
+    def skip(self, m) -> None:
+        self.run += 1
+
+    def mb_start(self, m) -> None:
+        if self.p_slice:
+            self.bw.ue(self.run)
+            self.run = 0
+
+    def mb_end(self, m, last) -> None:
+        pass
+
+    def finish(self) -> bytes:
+        if self.run:
+            self.bw.ue(self.run)
+        return self.bw.trailing()
+
+    def mb_type_i(self, m, t) -> None:
+        self.bw.ue(t + (5 if self.p_slice else 0))
+
+    def pcm(self, data: bytes) -> None:
+        self.bw.align()
+        self.bw.out += data
+
+    def mb_type_p(self, m, t) -> None:
+        self.bw.ue(t)
+
+    def sub_mb_type(self, sb) -> None:
+        self.bw.ue(sb)
+
+    def i4_mode(self, pred, mode) -> None:
+        self.bw.u(mode == pred, 1)
+        if mode != pred:
+            self.bw.u(mode if mode < pred else mode - 1, 3)
+
+    def chroma_mode(self, m, cmode) -> None:
+        self.st.cmode[m] = cmode
+        self.bw.ue(cmode)
+
+    def cbp(self, m, cbp, intra) -> None:
+        self.st.cbp[m] = cbp
+        self.bw.ue((_INTRA_CODE if intra else _INTER_CODE)[cbp])
+
+    def qp_delta(self, d) -> None:
+        self.bw.se(d)
+
+    def ref(self, m, x, y, pw, ph, r, active) -> None:
+        self._ref_state(m, x, y, pw, ph, r)
+        if active > 1:
+            self.bw.te(r, active - 1)
+
+    def mvd(self, m, x, y, pw, ph, c, v) -> None:
+        self.bw.se(v)
+
+    def block(self, m, cat, x, y, c, coeffs) -> int:
+        nc = -1 if cat == 3 else self.st._nc(m, x, y, c if cat == 4 else None)
+        tc = residual_block(self.bw, coeffs, nc, self.st.seen)
+        if tc and cat in (0, 3):
+            self.st.dcf[m] |= 1 if cat == 0 else 2 << c
+        return tc
+
+
+class CabacCoder(_Coder):
+    codes_p8x8ref0 = False  # no binarization: P_8x8 with every ref_idx 0 instead
+
+    def __init__(self, st, bw, p_slice, idc, qp):
+        super().__init__(st, bw, p_slice)
+        while bw.n:  # cabac_alignment_one_bit
+            bw.u(1, 1)
+        self.e = CabacEncoder(bw, 1 + idc if p_slice else 0, qp)
+        self.last_dqp = self.dqp = 0
+
+    def _ab(self, m):
+        return self.st._nb(m, -1, 0), self.st._nb(m, 0, -1)
+
+    def _skip_flag(self, m, b) -> None:
+        self.e.decision(11 + sum(n is not None and self.st.kind[n] != "skip"
+                                 for n in self._ab(m)), b)
+
+    def skip(self, m) -> None:
+        self._skip_flag(m, 1)
+        self.dqp = 0
+
+    def mb_start(self, m) -> None:
+        self.dqp = 0
+        if self.p_slice:
+            self._skip_flag(m, 0)
+
+    def mb_end(self, m, last) -> None:
+        self.last_dqp = self.dqp
+        self.e.terminate(last)
+
+    def finish(self) -> bytes:
+        self.bw.align()
+        return bytes(self.bw.out)
+
+    def mb_type_i(self, m, t) -> None:
+        e, st = self.e, self.st
+        if self.p_slice:
+            e.decision(14, 1)
+            base, k, i = 17, 18, 0
+            ctx = 17
+        else:
+            base, k, i = 3, 6, 1
+            ctx = 3 + sum(n is not None and st.kind[n] != "i4" for n in self._ab(m))
+        e.decision(ctx, t != 0)
+        if t == 0:
+            return
+        e.terminate(t == 25)
+        if t == 25:
+            st.seen.add(("cabac I_PCM", self.p_slice))
+            return
+        u = t - 1
+        pred, cbp_c, luma = u % 4, u // 4 % 3, u >= 12
+        e.decision(k, luma)
+        e.decision(k + 1, cbp_c != 0)
+        if cbp_c:
+            e.decision(k + 1 + i, cbp_c == 2)
+        e.decision(k + 2 + i, pred >> 1)
+        e.decision(k + 2 + 2 * i, pred & 1)
+
+    def pcm(self, data: bytes) -> None:
+        self.bw.align()
+        self.bw.out += data
+        self.e.restart()
+
+    def mb_type_p(self, m, t) -> None:
+        assert t < 4, "P_8x8ref0 has no CABAC binarization"
+        e = self.e
+        e.decision(14, 0)
+        if t in (0, 3):
+            e.decision(15, 0)
+            e.decision(16, t == 3)
+        else:
+            e.decision(15, 1)
+            e.decision(17, t == 1)
+
+    def sub_mb_type(self, sb) -> None:
+        e = self.e
+        e.decision(21, sb == 0)
+        if sb:
+            e.decision(22, sb != 1)
+            if sb != 1:
+                e.decision(23, sb == 2)
+
+    def i4_mode(self, pred, mode) -> None:
+        self.e.decision(68, mode == pred)
+        if mode != pred:
+            rem = mode if mode < pred else mode - 1
+            for k in range(3):
+                self.e.decision(69, (rem >> k) & 1)
+
+    def chroma_mode(self, m, cmode) -> None:
+        st = self.st
+        st.cmode[m] = cmode
+        ctx = 64 + sum(n is not None and st.kind[n] in ("i4", "i16") and st.cmode[n] != 0
+                       for n in self._ab(m))
+        self.e.decision(ctx, cmode != 0)
+        if cmode:
+            self.e.decision(67, cmode != 1)
+            if cmode != 1:
+                self.e.decision(67, cmode == 3)
+
+    def cbp(self, m, cbp, intra) -> None:
+        st, e = self.st, self.e
+        st.cbp[m] = cbp
+        a, b = self._ab(m)
+
+        def luma(n, b8):
+            if n is None or st.kind[n] == "pcm":
+                return 0
+            return int(st.kind[n] == "skip" or not (st.cbp[n] >> b8) & 1)
+
+        def cur(b8):
+            return int(not (cbp >> b8) & 1)
+
+        e.decision(73 + luma(a, 1) + 2 * luma(b, 2), cbp & 1)
+        e.decision(73 + cur(0) + 2 * luma(b, 3), (cbp >> 1) & 1)
+        e.decision(73 + luma(a, 3) + 2 * cur(0), (cbp >> 2) & 1)
+        e.decision(73 + cur(2) + 2 * cur(1), (cbp >> 3) & 1)
+
+        def chroma(n, bin_):
+            if n is None or st.kind[n] == "skip":
+                return 0
+            if st.kind[n] == "pcm":
+                return 1
+            c = st.cbp[n] >> 4
+            return int(c == 2 if bin_ else c != 0)
+
+        e.decision(77 + chroma(a, 0) + 2 * chroma(b, 0), cbp >> 4 != 0)
+        if cbp >> 4:
+            e.decision(81 + chroma(a, 1) + 2 * chroma(b, 1), cbp >> 4 == 2)
+
+    def qp_delta(self, d) -> None:
+        e = self.e
+        self.dqp = d
+        v = 2 * d - 1 if d > 0 else -2 * d
+        e.decision(60 + (self.last_dqp != 0), v > 0)
+        if v:
+            for k in range(1, v):
+                e.decision(62 if k == 1 else 63, 1)
+            e.decision(62 if v == 1 else 63, 0)
+
+    def ref(self, m, x, y, pw, ph, r, active) -> None:
+        st = self.st
+
+        def at(xx, yy):
+            if xx >= 0 and yy >= 0:
+                return st.refidx[m][(yy // 4) * 4 + xx // 4]
+            n = st._nb(m, -1 if xx < 0 else 0, -1 if yy < 0 else 0)
+            if n is None or st.kind[n] != "p":
+                return 0
+            return st.refidx[n][((yy % 16) // 4) * 4 + (xx % 16) // 4]
+
+        if active > 1:
+            ctx = int(at(x - 1, y) > 0) + 2 * int(at(x, y - 1) > 0)
+            self.e.decision(54 + ctx, r > 0)
+            if r:
+                c = 4
+                for _ in range(1, r):
+                    self.e.decision(54 + c, 1)
+                    c = 5
+                self.e.decision(54 + c, 0)
+        self._ref_state(m, x, y, pw, ph, r)
+
+    def _amvd(self, m, x, y, c):
+        st = self.st
+        if x >= 0 and y >= 0:
+            return st.amvd[m][(y // 4) * 4 + x // 4][c]
+        n = st._nb(m, -1 if x < 0 else 0, -1 if y < 0 else 0)
+        return 0 if n is None else st.amvd[n][((y % 16) // 4) * 4 + (x % 16) // 4][c]
+
+    def mvd(self, m, x, y, pw, ph, c, v) -> None:
+        e, base = self.e, 47 if c else 40
+        total = self._amvd(m, x - 1, y, c) + self._amvd(m, x, y - 1, c)
+        a = abs(v)
+        e.decision(base + (0 if total < 3 else 1 if total <= 32 else 2), a > 0)
+        if a:
+            for k in range(1, min(a, 9)):
+                e.decision(base + min(k + 2, 6), 1)
+            if a < 9:
+                e.decision(base + min(a + 2, 6), 0)
+            else:
+                self.st.seen.add(("cabac mvd suffix", 1))
+                e.eg(a - 9, 3)
+            e.bypass(v < 0)
+        for j in range(y // 4, (y + ph) // 4):
+            for i in range(x // 4, (x + pw) // 4):
+                self.st.amvd[m][j * 4 + i][c] = min(a, 70)
+
+    def _cbf_inc(self, m, cat, x, y, c):
+        st = self.st
+        intra = st.kind[m] in ("i4", "i16", "pcm")
+
+        def term(n, bx, by):
+            if n is None:
+                return int(intra)
+            k = st.kind[n]
+            if k in ("pcm", "skip"):
+                return int(k == "pcm")
+            cbp = st.cbp[n]
+            if cat == 0:
+                return int(k == "i16" and st.dcf[n] & 1)
+            if cat == 3:
+                return int(cbp >> 4 != 0 and (st.dcf[n] >> (1 + c)) & 1)
+            if cat == 4:
+                return int(cbp >> 4 == 2 and st.tcc[n][c][by * 2 + bx] != 0)
+            return int((cbp >> (by // 2 * 2 + bx // 2)) & 1 and st.tcl[n][by * 4 + bx] != 0)
+
+        if cat in (0, 3):
+            a, b = (term(n, 0, 0) for n in self._ab(m))
+        else:
+            size = 2 if cat == 4 else 4
+            a = term(m, x - 1, y) if x else term(st._nb(m, -1, 0), size - 1, y)
+            b = term(m, x, y - 1) if y else term(st._nb(m, 0, -1), x, size - 1)
+        return CBF_OFFSET[cat] + a + 2 * b
+
+    def block(self, m, cat, x, y, c, coeffs) -> int:
+        e = self.e
+        coeffs = [int(v) for v in coeffs]
+        nz = [i for i, v in enumerate(coeffs) if v]
+        e.decision(85 + self._cbf_inc(m, cat, x, y, c), bool(nz))
+        if not nz:
+            return 0
+        if cat in (0, 3):
+            self.st.dcf[m] |= 1 if cat == 0 else 2 << c
+        for i in range(len(coeffs) - 1):
+            inc = min(i, 2) if cat == 3 else i
+            e.decision(105 + SIG_OFFSET[cat] + inc, coeffs[i] != 0)
+            if coeffs[i]:
+                e.decision(166 + SIG_OFFSET[cat] + inc, i == nz[-1])
+                if i == nz[-1]:
+                    break
+        gt1 = eq1 = 0
+        base = 227 + ABS_OFFSET[cat]
+        for i in reversed(nz):
+            a = abs(coeffs[i]) - 1
+            e.decision(base + (0 if gt1 else min(4, 1 + eq1)), a > 0)
+            if a:
+                ctx = base + 5 + min(4 - (cat == 3), gt1)
+                for _ in range(1, min(a, 14)):
+                    e.decision(ctx, 1)
+                if a < 14:
+                    e.decision(ctx, 0)
+                else:
+                    self.st.seen.add(("cabac level suffix", 1))
+                    e.eg(a - 14, 0)
+                gt1 += 1
+            else:
+                eq1 += 1
+            e.bypass(coeffs[i] < 0)
+        return len(nz)
+
+
 # -------------------------------------------------------------- streams
 
 # (mode, needs) of the intra predictions: needs A (left), B (top), D (top-left)
@@ -335,7 +800,7 @@ def _defaults():
                                                     p8x8ref0=0, intra=1),
         density=0.3, big=0.02, mvd=8, far=0.0, slice_types=(0, 2),
         container="mp4", fourcc="H264", nal_length=4, inband=False, strf=False, poc_order=None,
-        aud=False, sei=False, seed=0)
+        aud=False, sei=False, keys=None, recovery={}, cut=0, seed=0)
 
 
 class Writer:
@@ -362,8 +827,10 @@ class Writer:
     def sps(self, sps_id: int = 0) -> bytes:
         p, bw = self.p, Bits()
         h, w = p["size"]
-        bw.u(p.get("profile", 66), 8)
-        bw.u(0b11000000, 8)  # constraint_set0 and 1: Constrained Baseline
+        profile = p.get("profile", 66)
+        bw.u(profile, 8)
+        # constraint_set0 and 1 (Constrained Baseline), or 1 (Main)
+        bw.u({66: 0b11000000, 77: 0b01000000}.get(profile, 0), 8)
         bw.u(p.get("level", 30), 8)
         bw.ue(sps_id)
         if p.get("profile", 66) in (100, 110, 122, 244):
@@ -389,7 +856,7 @@ class Writer:
         bw.ue(self.mbh - 1)
         bw.u(p.get("frame_mbs_only", 1), 1)
         if not p.get("frame_mbs_only", 1):
-            bw.u(0, 1)
+            bw.u(p.get("mbaff", 0), 1)
         bw.u(1, 1)  # direct_8x8_inference_flag
         crop_r, crop_b = (self.mbw * 16 - w) // 2, (self.mbh * 16 - h) // 2
         bw.u(bool(crop_r or crop_b), 1)
@@ -483,11 +950,7 @@ class Writer:
         cuts = sorted(rs.choice(np.arange(1, self.nmb), nslices - 1, replace=False)) \
             if nslices > 1 else []
         bounds = [0, *[int(c) for c in cuts], self.nmb]
-        self.kind = [None] * self.nmb
-        self.slc = [-1] * self.nmb
-        self.tcl = np.zeros((self.nmb, 16), np.int32)
-        self.tcc = np.zeros((self.nmb, 2, 4), np.int32)
-        self.i4 = np.full((self.nmb, 16), -1, np.int32)
+        self.new_state()
         marking = None
         if ref_idc and not idr:
             marking = self._marking(cur_fn)
@@ -510,6 +973,28 @@ class Writer:
             self.refs.append(cur_fn)
             self.frame_num = (cur_fn + 1) % self.max_fn
         return nals
+
+    def new_state(self) -> None:
+        """The per-picture macroblock state the coders' contexts read:
+        non-zero coefficients (luma 4x4, chroma AC), intra 4x4 modes,
+        coded_block_pattern, DC coded_block_flags (bit 0 luma, 1 Cb, 2
+        Cr), intra chroma mode, reference indices and absolute mvds."""
+        self.kind = [None] * self.nmb
+        self.slc = [-1] * self.nmb
+        self.tcl = np.zeros((self.nmb, 16), np.int32)
+        self.tcc = np.zeros((self.nmb, 2, 4), np.int32)
+        self.i4 = np.full((self.nmb, 16), -1, np.int32)
+        self.cbp = [0] * self.nmb
+        self.dcf = [0] * self.nmb
+        self.cmode = [0] * self.nmb
+        self.refidx = [[-1] * 16 for _ in range(self.nmb)]
+        self.amvd = [[[0, 0] for _ in range(16)] for _ in range(self.nmb)]
+
+    def coder(self, bw, p_slice, idc, qp) -> _Coder:
+        if self.p.get("cabac"):
+            self.seen.add(("cabac_init_idc", idc if p_slice else "I"))
+            return CabacCoder(self, bw, p_slice, idc, qp)
+        return Cavlc(self, bw, p_slice)
 
     def _marking(self, cur_fn):
         """MMCO 1 operations (difference_of_pic_nums_minus1 each), or None
@@ -565,6 +1050,8 @@ class Writer:
                 bw.ue(3)
             else:
                 bw.u(0, 1)
+            if p.get("weighted"):
+                self._pred_weight_table(bw, active)
         if ref_idc:
             if idr:
                 bw.u(0, 1)
@@ -582,6 +1069,10 @@ class Writer:
                 bw.ue(0)
             else:
                 bw.u(0, 1)
+        idcs = p.get("cabac_init", (0, 1, 2))
+        init_idc = idcs[(self.index * 7 + s) % len(idcs)]  # not drawn: CAVLC twins draw alike
+        if p.get("cabac") and stype == 0:
+            bw.ue(init_idc)
         qp = int(rs.randint(p["qp"][0], p["qp"][1] + 1))
         bw.se(qp - p["qp"][0])
         self.qp = qp
@@ -594,7 +1085,7 @@ class Writer:
         self.nrefs = min(active, nref)
         self.seen.add(("references", self.nrefs))
         self.active = active
-        skip = 0
+        e = self.coder(bw, stype == 0, init_idc, qp)
         for m in range(first, end):
             self.slc[m] = s
             if stype == 0:
@@ -602,20 +1093,47 @@ class Writer:
                 if t == "p8x8ref0" and active < 2:
                     t = "p8x8"
                 if t == "skip":
-                    skip += 1
                     self.kind[m] = "skip"
-                    continue
-                bw.ue(skip)
-                skip = 0
-                if t == "intra":
-                    self._intra_mb(bw, m, 5)
+                    self.refidx[m] = [0] * 16
+                    e.skip(m)
                 else:
-                    self._inter_mb(bw, m, t)
+                    e.mb_start(m)
+                    if t == "intra":
+                        self._intra_mb(e, m)
+                    else:
+                        self._inter_mb(e, m, t)
             else:
-                self._intra_mb(bw, m, 0)
-        if skip:
-            bw.ue(skip)
-        return nal(ref_idc, 5 if idr else 1, bw.trailing())
+                e.mb_start(m)
+                self._intra_mb(e, m)
+            e.mb_end(m, m == end - 1)
+        return nal(ref_idc, 5 if idr else 1, e.finish())
+
+    def _pred_weight_table(self, bw, active) -> None:
+        """Denominators 0-7; for each ref_idx the luma and the chroma
+        weights and offsets, near the default or anywhere in -128..127, or
+        the flag 0."""
+        rs = self.rs
+        logs = [int(rs.randint(8)), int(rs.randint(8))]
+        bw.ue(logs[0])
+        bw.ue(logs[1])
+
+        def pair(log):
+            if rs.rand() < 0.15:
+                return int(rs.randint(-128, 128)), int(rs.randint(-128, 128))
+            return (min((1 << log) + int(rs.randint(-(1 << log) // 2 - 2, (1 << log) // 2 + 3)), 127),
+                    int(rs.randint(-24, 25)))
+
+        for _ in range(active):
+            for k in range(2):  # luma, then chroma
+                if rs.rand() < 0.25:
+                    bw.u(0, 1)
+                    continue
+                bw.u(1, 1)
+                self.seen.add(("weights", ("luma", "chroma")[k]))
+                for _ in range(1 + k):
+                    w, o = pair(logs[k])
+                    bw.se(w)
+                    bw.se(o)
 
     def _choose(self, mix):
         """A key of ``mix`` drawn with the weights its values give."""
@@ -666,17 +1184,17 @@ class Writer:
             c = np.fix(c / 2).astype(np.int64)
         return c
 
-    def _block(self, bw, m, bx, by, arr, q, dc=None):
+    def _block(self, e, m, cat, bx, by, c, q, dc=None):
         """A 16-coefficient block, or with ``dc`` an AC block of 15 after it."""
         if dc is None:
-            c = self._fitted(16, lambda c: block_fits(c, q))
+            v = self._fitted(16, lambda v: block_fits(v, q))
         else:
-            c = self._fitted(15, lambda c: block_fits(np.concatenate([[0], c]), q, dc))
-        return residual_block(bw, c, self._nc(m, bx, by, arr), self.seen)
+            v = self._fitted(15, lambda v: block_fits(np.concatenate([[0], v]), q, dc))
+        return e.block(m, cat, bx, by, c, v)
 
-    def _qp_delta(self, bw):
+    def _qp_delta(self, e):
         d = int(self.rs.randint(-26, 26)) if self.rs.rand() < 0.5 else 0
-        bw.se(d)
+        e.qp_delta(d)
         self.qp = (self.qp + d + 52) % 52
         self.seen.add(("qp", self.qp))
 
@@ -698,15 +1216,14 @@ class Writer:
         return {"A": self._nb(m, -1, 0) is not None, "B": self._nb(m, 0, -1) is not None,
                 "D": self._nb(m, -1, -1) is not None}
 
-    def _intra_mb(self, bw, m, base):
+    def _intra_mb(self, e, m):
         rs, p = self.rs, self.p
         t = self._choose(p["i_mix"])
         av = self._avail(m)
         if t == "pcm":
-            bw.ue(base + 25)
+            e.mb_type_i(m, 25)
             self.seen.add(("mb_type I", 25))
-            bw.align()
-            bw.out += rs.randint(0, 256, 384).astype(np.uint8).tobytes()
+            e.pcm(rs.randint(0, 256, 384).astype(np.uint8).tobytes())
             self.kind[m] = "pcm"
             self.tcl[m] = 16
             self.tcc[m] = 16
@@ -716,22 +1233,23 @@ class Writer:
             mode = _pick(rs, [c for c, need in enumerate(I16_NEEDS) if all(av[k] for k in need)])
             cbp_l = 15 if rs.rand() < 0.5 else 0
             cbp_c = int(rs.randint(3))
-            bw.ue(base + 1 + mode + 4 * cbp_c + (12 if cbp_l else 0))
+            e.mb_type_i(m, 1 + mode + 4 * cbp_c + (12 if cbp_l else 0))
             self.seen.update({("mb_type I", 1 + mode + 4 * cbp_c + (12 if cbp_l else 0)),
                               ("Intra16x16", mode), ("chroma", cmode)})
-            bw.ue(cmode)
-            self._qp_delta(bw)
+            e.chroma_mode(m, cmode)
+            self._qp_delta(e)
             self.kind[m] = "i16"
+            self.cbp[m] = cbp_l | cbp_c << 4
             dcl = self._fitted(16, lambda c: luma_dc(c, self.qp) is not None)
-            residual_block(bw, dcl, self._nc(m, 0, 0, None), self.seen)
+            e.block(m, 0, 0, 0, 0, dcl)
             dcy = luma_dc(dcl, self.qp)
             for blk in range(16):
                 bx, by = _blk_xy(blk)
-                tc = self._block(bw, m, bx, by, None, self.qp, dcy[by * 4 + bx]) if cbp_l else 0
+                tc = self._block(e, m, 1, bx, by, 0, self.qp, dcy[by * 4 + bx]) if cbp_l else 0
                 self.tcl[m][by * 4 + bx] = tc
-            self._chroma(bw, m, cbp_c)
+            self._chroma(e, m, cbp_c)
             return
-        bw.ue(base)
+        e.mb_type_i(m, 0)
         self.seen.update({("mb_type I", 0), ("chroma", cmode)})
         self.kind[m] = "i4"
         for blk in range(16):
@@ -748,16 +1266,11 @@ class Writer:
                 tl = av["D"]
             have = {"A": left, "B": top, "D": tl}
             mode = _pick(rs, [c for c, need in enumerate(I4_NEEDS) if all(have[k] for k in need)])
-            pred = self._i4_pred(m, bx, by)
-            if mode == pred:
-                bw.u(1, 1)
-            else:
-                bw.u(0, 1)
-                bw.u(mode if mode < pred else mode - 1, 3)
+            e.i4_mode(self._i4_pred(m, bx, by), mode)
             self.i4[m][by * 4 + bx] = mode
             self.seen.add(("Intra4x4", mode))
-        bw.ue(cmode)
-        self._cbp_residual(bw, m, _INTRA_CODE)
+        e.chroma_mode(m, cmode)
+        self._cbp_residual(e, m, True)
 
     def _i4_pred(self, m, bx, by):
         def side(dx, dy, x, y):
@@ -771,30 +1284,30 @@ class Writer:
         b = side(0, -1, bx, (by - 1) % 4)
         return 2 if a is None or b is None else min(a, b)
 
-    def _cbp_residual(self, bw, m, table):
+    def _cbp_residual(self, e, m, intra):
         rs = self.rs
         cbp = int(rs.randint(48))
-        bw.ue(table[cbp])
+        e.cbp(m, cbp, intra)
         if cbp:
-            self._qp_delta(bw)
+            self._qp_delta(e)
         for blk in range(16):
             bx, by = _blk_xy(blk)
-            tc = self._block(bw, m, bx, by, None, self.qp) if cbp >> (blk // 4) & 1 else 0
+            tc = self._block(e, m, 2, bx, by, 0, self.qp) if cbp >> (blk // 4) & 1 else 0
             self.tcl[m][by * 4 + bx] = tc
-        self._chroma(bw, m, cbp >> 4)
+        self._chroma(e, m, cbp >> 4)
 
-    def _chroma(self, bw, m, cbp_c):
+    def _chroma(self, e, m, cbp_c):
         qcs = [CHROMA_QP[min(max(self.qp + off, 0), 51)] for off in self.chroma_offsets]
         dcs = [[0] * 4, [0] * 4]
         if cbp_c:
             for c in range(2):
                 lv = self._fitted(4, lambda v: chroma_dc(v, qcs[c]) is not None)
-                residual_block(bw, lv, -1, self.seen)
+                e.block(m, 3, 0, 0, c, lv)
                 dcs[c] = chroma_dc(lv, qcs[c])
         for c in range(2):
             for blk in range(4):
                 bx, by = blk % 2, blk // 2
-                tc = self._block(bw, m, bx, by, c, qcs[c], dcs[c][blk]) if cbp_c == 2 else 0
+                tc = self._block(e, m, 4, bx, by, c, qcs[c], dcs[c][blk]) if cbp_c == 2 else 0
                 self.tcc[m][c][by * 2 + bx] = tc
 
     def _mvd(self):
@@ -806,52 +1319,71 @@ class Writer:
     def _ref(self):
         return int(self.rs.randint(self.nrefs)) if self.nrefs > 1 else 0
 
-    def _inter_mb(self, bw, m, t):
+    def _inter_mb(self, e, m, t):
+        """P_L0_16x16, 16x8, 8x16, P_8x8 and P_8x8ref0 (which CABAC cannot
+        code: there it is P_8x8 with every ref_idx 0, the same prediction)."""
         rs = self.rs
         self.kind[m] = "p"
-        coded_refs = self.active > 1
         if t in ("p16", "p16x8", "p8x16"):
-            n = 1 if t == "p16" else 2
-            bw.ue(("p16", "p16x8", "p8x16").index(t))
-            self.seen.add(("mb_type P", ("p16", "p16x8", "p8x16").index(t)))
-            refs = [self._ref() for _ in range(n)]
-            if coded_refs:
-                for r in refs:
-                    bw.te(r, self.active - 1)
-            for _ in range(n):
-                bw.se(self._mvd())
-                bw.se(self._mvd())
+            k = ("p16", "p16x8", "p8x16").index(t)
+            e.mb_type_p(m, k)
+            self.seen.add(("mb_type P", k))
+            parts = [(0, 0, 16, 16)] if k == 0 else [(0, 8 * i, 16, 8) if k == 1 else
+                                                     (8 * i, 0, 8, 16) for i in range(2)]
+            refs = [self._ref() for _ in parts]
+            for (x, y, w, h), r in zip(parts, refs):
+                e.ref(m, x, y, w, h, r, self.active)
         else:
-            bw.ue(3 if t == "p8x8" else 4)
+            ref0 = t == "p8x8ref0"
+            e.mb_type_p(m, 4 if ref0 and e.codes_p8x8ref0 else 3)
             subs = [int(rs.randint(4)) for _ in range(4)]
-            self.seen.update({("mb_type P", 3 if t == "p8x8" else 4),
-                              *(("sub_mb_type", sb) for sb in subs)})
+            self.seen.update({("mb_type P", 4 if ref0 else 3), *(("sub_mb_type", sb) for sb in subs)})
             for sb in subs:
-                bw.ue(sb)
-            if coded_refs and t == "p8x8":
-                for _ in range(4):
-                    bw.te(self._ref(), self.active - 1)
-            for sb in subs:
-                for _ in range(SUB_PARTS[sb]):
-                    bw.se(self._mvd())
-                    bw.se(self._mvd())
-        self._cbp_residual(bw, m, _INTER_CODE)
+                e.sub_mb_type(sb)
+            for i in range(4):
+                r = 0 if ref0 else self._ref() if self.active > 1 else 0
+                # P_8x8ref0 codes no ref_idx
+                e.ref(m, 8 * (i % 2), 8 * (i // 2), 8, 8, r,
+                      1 if ref0 and e.codes_p8x8ref0 else self.active)
+            parts = []
+            for i, sb in enumerate(subs):
+                x0, y0 = 8 * (i % 2), 8 * (i // 2)
+                w, h = (8, 8, 4, 4)[sb], (8, 4, 8, 4)[sb]
+                parts += [(x0 + w * (k % (8 // w)), y0 + h * (k // (8 // w)), w, h)
+                          for k in range(SUB_PARTS[sb])]
+        for x, y, w, h in parts:
+            for c in range(2):
+                e.mvd(m, x, y, w, h, c, self._mvd())
+        self._cbp_residual(e, m, False)
 
     # ------------------------------------------------------------- stream
     def packets(self):
         """One access unit a frame: lists of NAL units."""
         p = self.p
         out = []
-        for i in range(p["frames"]):
+        for i in range(p["frames"] + p["cut"]):
             nals = self.picture(i)
+            if i in p["recovery"]:
+                nals = [recovery_sei(p["recovery"][i])] + nals
             if p["aud"]:
                 nals = [nal(0, 9, bytes([0xF0]))] + nals  # primary_pic_type 7
             if p["sei"]:  # user data unregistered
                 nals = [nal(0, 6, bytes([5, 17]) + bytes(16) + b"x" + b"\x80")] + nals
-            if i in p["idr"] and p["inband"]:
+            if (i in p["idr"] or i == p["cut"]) and p["inband"]:
                 nals = [self.sps(), self.pps()] + nals
             out.append(nals)
-        return out
+        return out[p["cut"]:]
+
+
+def recovery_sei(frame_cnt: int) -> bytes:
+    """An SEI NAL unit of one recovery point message (payload type 6):
+    recovery_frame_cnt, exact_match_flag 1, broken_link_flag 0."""
+    bw = Bits()
+    bw.ue(frame_cnt)
+    bw.u(0b1000, 4)  # exact_match, broken_link, changing_slice_group_idc (2 bits)
+    bw.align()
+    payload = bytes(bw.out)
+    return nal(0, 6, bytes([6, len(payload)]) + payload + b"\x80")
 
 
 def _pick(rs, items):
@@ -885,7 +1417,8 @@ def write(p: dict, units, sps: bytes, pps: bytes) -> bytes:
     import mp4_cases
 
     h, w = p["size"]
-    keys = list(p["idr"])
+    keys = [k - p["cut"] for k in (p["idr"] if p["keys"] is None else p["keys"])
+            if k >= p["cut"]]
     if p["container"] == "avi":
         return avi_cases.write_avi([annexb(u) for u in units], w, h,
                                    fourcc=p["fourcc"].encode(), keys=keys,
@@ -915,8 +1448,9 @@ def stream(name: str):
 SEEN = {}  # case -> the (element, value) pairs its writer wrote
 
 
+@functools.lru_cache(maxsize=None)
 def build(name: str) -> bytes:
-    """The file bytes of CASES / REFUSED ``name``."""
+    """The file bytes of CASES / REFUSED ``name`` (made once)."""
     p, units, sps, pps = stream(name)
     return write(p, units, sps, pps)
 
@@ -1016,24 +1550,16 @@ class _ClipWriter:
     """Codes whole pictures: an IDR picture whose first row of macroblocks
     is I_PCM and whose others are Intra16x16 vertical (chroma vertical),
     then P pictures predicted from the picture before at zero motion
-    (P_L0_16x16, or P_Skip where nothing is coded).  The encoder's own
-    reconstruction leaves out the deblocking filter: the drift is harmless."""
+    (P_L0_16x16, or P_Skip where nothing is coded), in CAVLC or CABAC.  The
+    encoder's own reconstruction leaves out the deblocking filter: the
+    drift is harmless."""
 
-    def __init__(self, h, w, qp):
-        self.h, self.w, self.qp = h, w, qp
+    def __init__(self, h, w, qp, cabac=False):
+        self.h, self.w, self.qp, self.cabac = h, w, qp, cabac
         self.mbw, self.mbh = -(-w // 16), -(-h // 16)  # the frame cropped from the coded size
         self.wr = Writer(size=(h, w), max_refs=1, log2_max_frame_num=4, log2_max_poc_lsb=8,
-                         qp=(qp, qp))
+                         qp=(qp, qp), cabac=int(cabac), profile=77 if cabac else 66)
         self.recon = None
-
-    def _nc(self, tc, mbx, mby, bx, by, size):
-        na = tc[mby, mbx - 1][by, size - 1] if bx == 0 and mbx > 0 else \
-            tc[mby, mbx][by, bx - 1] if bx > 0 else None
-        nb = tc[mby - 1, mbx][size - 1, bx] if by == 0 and mby > 0 else \
-            tc[mby, mbx][by - 1, bx] if by > 0 else None
-        if na is not None and nb is not None:
-            return (int(na) + int(nb) + 1) >> 1
-        return int(na if na is not None else nb if nb is not None else 0)
 
     def picture(self, bgr, i):
         pad = ((0, self.mbh * 16 - self.h), (0, self.mbw * 16 - self.w), (0, 0))
@@ -1053,20 +1579,17 @@ class _ClipWriter:
         bw.u(0, 1)
         if idr:
             bw.u(0, 1)
+        elif self.cabac:
+            bw.ue(0)  # cabac_init_idc
         bw.se(0)
         bw.ue(0)
         bw.se(0)
         bw.se(0)
         mbw, mbh, q = self.mbw, self.mbh, self.qp
         qc = CHROMA_QP[q]
-        tcl = np.zeros((mbh, mbw, 4, 4), np.int64)
-        tcc = np.zeros((2, mbh, mbw, 2, 2), np.int64)
         recon = [np.zeros_like(p) for p in planes]
         if idr:
-            rows = [[recon[0][:16].copy()] + [r[:8].copy() for r in recon[1:]]]
             recon[0][:16], recon[1][:8], recon[2][:8] = planes[0][:16], planes[1][:8], planes[2][:8]
-            tcl[0] = 16
-            tcc[:, 0] = 16
             coded = {}
             for my in range(1, mbh):
                 coded[my] = []
@@ -1092,14 +1615,22 @@ class _ClipWriter:
                 out = r.transpose(0, 2, 1, 3, 4, 5).reshape(mbh * n // 4, mbw * n // 4, 4, 4)
                 recon[c] = np.clip(ref[c] + _unblocks(out), 0, 255)
                 coded[c] = (lv, dc_lv)
-        skip = 0
+        st = self.wr
+        st.new_state()
+        st.slc = [0] * st.nmb
+        e = st.coder(bw, not idr, 0, q)
         for my in range(mbh):
             for mx in range(mbw):
+                m = my * mbw + mx
                 if idr and my == 0:
-                    bw.ue(25)
-                    bw.align()
-                    for c, n in ((0, 16), (1, 8), (2, 8)):
-                        bw.out += planes[c][:n, mx * n:(mx + 1) * n].astype(np.uint8).tobytes()
+                    e.mb_start(m)
+                    e.mb_type_i(m, 25)
+                    e.pcm(b"".join(planes[c][:n, mx * n:(mx + 1) * n].astype(np.uint8).tobytes()
+                                   for c, n in ((0, 16), (1, 8), (2, 8))))
+                    st.kind[m] = "pcm"
+                    st.tcl[m] = 16
+                    st.tcc[m] = 16
+                    e.mb_end(m, m == st.nmb - 1)
                     continue
                 if idr:
                     (ly, ldc), (u, udc), (v, vdc) = coded[my]
@@ -1114,52 +1645,58 @@ class _ClipWriter:
                     1 if (udc.any() or vdc.any()) else 0
                 if idr:
                     cbp_l = 15 if ly.reshape(4, 4, 16)[..., 1:].any() else 0
-                    bw.ue(1 + 4 * cbp_c + (12 if cbp_l else 0))
-                    bw.ue(2)  # chroma vertical
-                    bw.se(0)
-                    residual_block(bw, _scan(ldc), self._nc(tcl, mx, my, 0, 0, 4))
+                    e.mb_start(m)
+                    e.mb_type_i(m, 1 + 4 * cbp_c + (12 if cbp_l else 0))
+                    e.chroma_mode(m, 2)  # vertical
+                    e.qp_delta(0)
+                    st.kind[m] = "i16"
+                    st.cbp[m] = cbp_l | cbp_c << 4
+                    e.block(m, 0, 0, 0, 0, _scan(ldc))
                 else:
                     nz8 = [ly[2 * (k // 2):2 * (k // 2) + 2, 2 * (k % 2):2 * (k % 2) + 2].any()
                            for k in range(4)]
                     cbp_l = sum(1 << k for k in range(4) if nz8[k])
                     if not cbp_l and not cbp_c:
-                        skip += 1
+                        st.kind[m] = "skip"
+                        st.refidx[m] = [0] * 16
+                        e.skip(m)
+                        e.mb_end(m, m == st.nmb - 1)
                         continue
-                    bw.ue(skip)
-                    skip = 0
-                    bw.ue(0)  # P_L0_16x16
-                    bw.se(0)
-                    bw.se(0)
-                    bw.ue(_INTER_CODE[cbp_l | cbp_c << 4])
-                    bw.se(0)
+                    e.mb_start(m)
+                    st.kind[m] = "p"
+                    e.mb_type_p(m, 0)  # P_L0_16x16
+                    e.ref(m, 0, 0, 16, 16, 0, 1)
+                    e.mvd(m, 0, 0, 16, 16, 0, 0)
+                    e.mvd(m, 0, 0, 16, 16, 1, 0)
+                    e.cbp(m, cbp_l | cbp_c << 4, False)
+                    e.qp_delta(0)
                 for blk in range(16):
                     bx, by = _blk_xy(blk)
                     if idr and cbp_l:
-                        tcl[my, mx, by, bx] = residual_block(
-                            bw, _scan(ly[by, bx])[1:], self._nc(tcl, mx, my, bx, by, 4))
+                        st.tcl[m][by * 4 + bx] = e.block(m, 1, bx, by, 0, _scan(ly[by, bx])[1:])
                     elif not idr and cbp_l >> (blk // 4) & 1:
-                        tcl[my, mx, by, bx] = residual_block(
-                            bw, _scan(ly[by, bx]), self._nc(tcl, mx, my, bx, by, 4))
+                        st.tcl[m][by * 4 + bx] = e.block(m, 2, bx, by, 0, _scan(ly[by, bx]))
                 if cbp_c:
-                    for dcv in (udc, vdc):
-                        residual_block(bw, [int(x) for x in dcv.reshape(4)], -1)
+                    for c, dcv in enumerate((udc, vdc)):
+                        e.block(m, 3, 0, 0, c, [int(x) for x in dcv.reshape(4)])
                 for c, pl in enumerate((u, v)):
                     for k in range(4):
                         bx, by = k % 2, k // 2
                         if cbp_c == 2:
-                            tcc[c, my, mx, by, bx] = residual_block(
-                                bw, _scan(pl[by, bx])[1:], self._nc(tcc[c], mx, my, bx, by, 2))
-        if skip:
-            bw.ue(skip)
+                            st.tcc[m][c][by * 2 + bx] = e.block(m, 4, bx, by, c,
+                                                                _scan(pl[by, bx])[1:])
+                e.mb_end(m, m == st.nmb - 1)
         self.recon = recon
-        return [nal(3, 5 if idr else 1, bw.trailing())]
+        return [nal(3, 5 if idr else 1, e.finish())]
 
 
-def encode_clip(frames, qp: int = 30) -> bytes:
+def encode_clip(frames, qp: int = 30, cabac: bool = False) -> bytes:
     """An MP4 of ``frames`` (BGR u8 of even sizes; coded at multiples of 16
-    and cropped) as real pictures at QP ``qp`` (:class:`_ClipWriter`)."""
+    and cropped) as real pictures at QP ``qp`` (:class:`_ClipWriter`), in
+    CAVLC (Constrained Baseline) or CABAC (Main profile): the same
+    macroblocks and levels either way, so the same decoded frames."""
     h, w = frames[0].shape[:2]
-    cw = _ClipWriter(h, w, qp)
+    cw = _ClipWriter(h, w, qp, cabac)
     p = _defaults()
     p.update(size=(h, w), idr=(0,))
     units = [cw.picture(f, i) for i, f in enumerate(frames)]
@@ -1219,15 +1756,64 @@ CASES = {
     "nal_length2": dict(seed=12, nal_length=2, slices=(2, 3)),
     "nal_length1": dict(seed=13, nal_length=1, slices=(35,), i_mix=dict(i16=1, i4=1),
                         density=0.08, big=0.0),
+    # Main profile, CABAC: every I mb_type and mode, QPs 0-51, I_PCM
+    "cabac_intra": dict(seed=17, frames=12, profile=77, cabac=1, intra=tuple(range(12)),
+                        slices=(1, 2, 4), qp=(0, 51), chroma_offset=-7,
+                        deblock=((0, 0, 0), (2, 3, -2), (0, -6, 6))),
+    # every P partition and sub-type (P_8x8ref0 is P_8x8 with every ref_idx
+    # 0 under CABAC), 4 references, list modification, far vectors, I_PCM
+    # and intra types in P slices
+    "cabac_inter": dict(seed=18, profile=77, cabac=1, poc_type=2, max_refs=4, refs_default=3,
+                        override=0.3, modify=0.5, mmco=0.3, far=0.03, mvd=40, slices=(1, 3),
+                        qp=(10, 40), chroma_offset=5,
+                        p_mix=dict(skip=3, p16=2, p16x8=2, p8x16=2, p8x8=3, p8x8ref0=1, intra=1),
+                        deblock=((0, 2, 2), (0, -3, 1), (2, 6, 6), (1, 0, 0))),
+    # QuickTime, up to 5 slices mixing I and P, each with its cabac_init_idc
+    "cabac_slices": dict(seed=19, frames=12, profile=77, cabac=1, container="mov", max_refs=2,
+                         refs_default=2, slices=(2, 5), nonref=(3, 7), qp=(18, 34),
+                         deblock=((2, 0, 0), (0, -6, -6)), aud=True, sei=True),
+    # explicit weighted prediction of P slices, CABAC in AVI and CAVLC in MP4
+    "cabac_weighted": dict(seed=20, frames=12, profile=77, cabac=1, weighted=1, container="avi",
+                           inband=True, max_refs=3, refs_default=2, override=0.5, modify=0.4,
+                           mvd=12, p_mix=dict(skip=2, p16=2, p16x8=1, p8x16=1, p8x8=2, intra=1)),
+    "cavlc_weighted": dict(seed=21, frames=12, profile=77, weighted=1, max_refs=3, refs_default=3,
+                           modify=0.4, mvd=12,
+                           p_mix=dict(skip=2, p16=2, p16x8=1, p8x16=1, p8x8=2, p8x8ref0=1)),
+    # FFmpeg's output delay under Main profile: num_reorder_frames 1
+    "cabac_reorder1": dict(seed=22, frames=12, profile=77, cabac=1, vui=True, reorder=1,
+                           max_refs=2, refs_default=2),
 }
+
+# C10: streams that do not start on an IDR picture (I pictures at 0 and 12
+# in stss / idx1 unless said otherwise), each in MP4, QuickTime and AVI
+# (parameter sets in strf) with 1 or 3 references:
+# (a) an I picture at 0 and 12, no IDR picture, no SEI;
+# (b) the same with a recovery point SEI (recovery_frame_cnt 0) at 0;
+# (c) a stream cut at a P picture (the sixth of 31) whose recovery point SEI
+#     names the P picture 3 frames on, I picture at 7;
+# (d) an I picture at 0 and an IDR picture at 12.
+C10 = {"a": dict(idr=(), intra=(0, 12), keys=(0, 12)),
+       "b": dict(idr=(), intra=(0, 12), keys=(0, 12), recovery={0: 0}),
+       "c": dict(idr=(0,), intra=(12,), keys=(0, 12), cut=5, recovery={5: 3}),
+       "d": dict(idr=(12,), intra=(0,), keys=(0, 12))}
+for _i, (_k, _refs, _box) in enumerate((k, r, b) for k in C10 for r in (1, 3)
+                                      for b in ("mp4", "mov", "avi")):
+    CASES[f"c10_{_k}{_refs}_{_box}"] = dict(
+        C10[_k], seed=40 + _i, container=_box, strf=_box == "avi", max_refs=_refs,
+        refs_default=_refs, density=0.1, p_mix=dict(skip=3, p16=2, p8x8=1, intra=1))
+CABAC = [name for name, kw in CASES.items() if kw.get("cabac")]
+
+
+def twin(name: str) -> dict:
+    """The CAVLC twin of CABAC case ``name``: the same draws from the same
+    seed, so the same macroblocks and the same decoded frames."""
+    return dict(CASES[name], cabac=0)
 
 # name -> (stream keywords, the words the refusal names); 6 frames each
 REFUSED = {
-    "cabac": (dict(frames=6, cabac=1), "CABAC"),
     "b_slices": (dict(frames=6, slice_types=(1,), idr=(0,)), "B slices"),
     "interlaced": (dict(frames=6, frame_mbs_only=0), "field"),
     "slice_groups": (dict(frames=6, slice_groups=2), "slice groups"),
-    "weighted": (dict(frames=6, weighted=1), "weighted prediction"),
     "redundant": (dict(frames=6, redundant=1), "redundant pictures"),
     "chroma_422": (dict(frames=6, profile=122, chroma_format=2), "chroma_format_idc 2"),
     "bit_depth_10": (dict(frames=6, profile=110, bit_depth=10), "bit depth 10"),
@@ -1241,6 +1827,12 @@ REFUSED = {
     "long_term": (dict(frames=6, long_term=1), "long-term reference pictures"),
     "mmco5": (dict(frames=6, mmco5_at=4), "memory_management_control_operation 5"),
     "data_partitioning": (dict(frames=6, partition_at=3), "data partitioning"),
+    # what Main and High profile files hold beyond what is decoded, under CABAC
+    "cabac_b_slices": (dict(frames=6, profile=77, cabac=1, slice_types=(1,), idr=(0,)),
+                       "B slices"),
+    "cabac_transform_8x8": (dict(frames=6, profile=100, cabac=1, transform_8x8=1),
+                            "8x8 transform"),
+    "cabac_mbaff": (dict(frames=6, profile=77, cabac=1, frame_mbs_only=0, mbaff=1), "MBAFF"),
 }
 
 
@@ -1252,6 +1844,16 @@ def _reads(n):
     ids = tuple(range(n))
     after = {k: ids[k:k + READ_AFTER_SEEK] for k in SEEKS}
     return dict(order=ids, start=after, ui=dict(after))
+
+
+def _cut_reads(n):
+    """The reads of C10's stream (c), which FFmpeg shows from its recovery
+    point: ``n`` frames from the start, three from a start_frame of 0, and
+    none after any other start_frame or ui seek (each lands before the
+    recovery point, and OpenCV's frame numbers, taken from the first frame
+    shown at open, never reach the target)."""
+    return dict(order=tuple(range(n)), start={k: (0, 1, 2) if k == 0 else () for k in SEEKS},
+                ui={k: () for k in SEEKS})
 
 
 # What the JAX package's reader gives for each case: frame_count and fps as
@@ -1292,6 +1894,67 @@ PINNED = {
                  sha256="3c8e36c5fa6682393eac010512b2775449b279bacbd63d579df58dc94f18a537"),
     "nal_length1": dict(count=26, fps=25.0, **_reads(26),
                  sha256="04fd00ec7ae21b513c4804086681a71896bcca459a13d4acbd3328744e18eb35"),
+    "cabac_intra": dict(count=12, fps=25.0,
+                 sha256="3d77a33abd519b1060952fd24c9ef29d3f2273c6cd56f7c5174bd160c3927e79"),
+    "cabac_inter": dict(count=26, fps=25.0, **_reads(26),
+                 sha256="e8e49df8bd2f10ef82e98deac4695ebb16be01b70c189507020d920fdd0c8ff9"),
+    "cabac_slices": dict(count=12, fps=25.0,
+                 sha256="4d52bbac1505ffd7cb5126e4ef27f69c79f60ba4ae4f64c7bd003de74de5c6f3"),
+    "cabac_weighted": dict(count=12, fps=25.0,
+                 sha256="ba215957cc0c042f70684d4cd6d5f5e9f5e5e6e5c2f19bc41877a0299e15bd12"),
+    "cavlc_weighted": dict(count=12, fps=25.0,
+                 sha256="60ef5400d4611bda32b91e4826c66365122b9403ae82e93651e9b67d5e5d15e5"),
+    "cabac_reorder1": dict(count=12, fps=25.0,
+                 sha256="7638b230669c1b9a14c176fd8c8d5b8f763ca23cf43822e9459bdcbabfaaeb32"),
+    "c10_a1_mp4": dict(count=26, fps=25.0, **_reads(25),
+                 sha256="fb5c52d8a238c9378293fe9adac090e770537fc318fb07ed5c56d87ea4914d0d"),
+    "c10_a1_mov": dict(count=26, fps=25.0, **_reads(25),
+                 sha256="c93710751a4eae03717e7dc59a9082c78537cfb7a3a7a6dbdf5612b76854bac7"),
+    "c10_a1_avi": dict(count=26, fps=25.0, **_reads(25),
+                 sha256="3dd300e587f8bfa77073ecb7db898a9311e6f5f1b50d9b944c3d9325721cfbb5"),
+    "c10_a3_mp4": dict(count=26, fps=25.0, **_reads(25),
+                 sha256="5e6dae82ce5366d26595f1c22f5224181ce78da14d030598432486ea374ebc41"),
+    "c10_a3_mov": dict(count=26, fps=25.0, **_reads(25),
+                 sha256="80d0b32a1f4f965ea7e3b3a93c45292cbdf91df4ca6b2595d1451d11952aa66f"),
+    "c10_a3_avi": dict(count=26, fps=25.0, **_reads(25),
+                 sha256="7c933786017f29b9105766bb285493321fcf00a511072452252338edbf129259"),
+    "c10_b1_mp4": dict(count=26, fps=25.0, **_reads(26),
+                 sha256="2f93a237ab5e12d33af2fe75bf3cadfa09ac563f90c7b82689b0f0b759f2d137"),
+    "c10_b1_mov": dict(count=26, fps=25.0, **_reads(26),
+                 sha256="cd5d0ccb2186be221ebcda1e4560be31060ebe41234f44b260e3f639e6fc803f"),
+    "c10_b1_avi": dict(count=26, fps=25.0, **_reads(26),
+                 sha256="298ac141f7ae78512e7066c70bc2a8febd4831b3935e514d20e57a23baedb69b"),
+    "c10_b3_mp4": dict(count=26, fps=25.0, **_reads(26),
+                 sha256="4aa147ef93788ba97f07c01eba9d54090cd33f0eb33828cbc8cf330c1610d049"),
+    "c10_b3_mov": dict(count=26, fps=25.0, **_reads(26),
+                 sha256="e210418fcf2d7bb728a2e9e1c9895a16bc4b6c4305221883011d97dca939c435"),
+    "c10_b3_avi": dict(count=26, fps=25.0, **_reads(26),
+                 sha256="72c111a7516b9b6b27c22bd205cc0526687638531d55cb5fa32ab2de98d1f0fd"),
+    "c10_c1_mp4": dict(count=26, fps=25.0, **_cut_reads(23),
+                 sha256="15f05c7ce2089689ee4d1e84d7c09ad0d598b69f2363ec8d2130f7ae07a10377"),
+    "c10_c1_mov": dict(count=26, fps=25.0, **_cut_reads(23),
+                 sha256="2cfb952afb1eeec5afa8cb93470b5a9dccca23c9257ae0bd39223940fff660b5"),
+    "c10_c1_avi": dict(count=26, fps=25.0, **_cut_reads(23),
+                 sha256="88a3875874d09fb71a2c3e9733b3545108f1028473a3a10802538967000320af"),
+    "c10_c3_mp4": dict(count=26, fps=25.0, **_cut_reads(23),
+                 sha256="78c2ef371770a7de4bb739c5d79158e49216182e41e6480d7b94361b725bb7da"),
+    "c10_c3_mov": dict(count=26, fps=25.0, **_cut_reads(23),
+                 sha256="59f115145887a07521c39fc9d48098bf2d7670123002a39578f32acfa5f0ddaf"),
+    "c10_c3_avi": dict(count=26, fps=25.0, **_cut_reads(23),
+                 sha256="b9bd35b63e6309f59dc0dfa99867a19822107b0241531202df24c6b1f8f5b8fb"),
+    "c10_d1_mp4": dict(count=26, fps=25.0, **_reads(25),
+                 sha256="824aef465f72b1408a45a361f200038869c4be73177dfd0b5ea738263de14432"),
+    "c10_d1_mov": dict(count=26, fps=25.0, **_reads(25),
+                 sha256="23db258537182197f8100b40dc8a00121e9e2b9bb566b16729db566eaa3b15c7"),
+    "c10_d1_avi": dict(count=26, fps=25.0, **_reads(25),
+                 sha256="e7ea9a98eb19c754bc1fc934112d6bcef75090e0df305151d21f42104e9e4eec"),
+    "c10_d3_mp4": dict(count=26, fps=25.0, **_reads(25),
+                 sha256="e397f55054a03e8d222c58ef6d3e5d7395fd6f01365d168530059a714a8056d3"),
+    "c10_d3_mov": dict(count=26, fps=25.0, **_reads(25),
+                 sha256="a2459c49bfe535fae37aa95b97fab96abb45b10c32f37f3fa2bdd9d0240f2bf9"),
+    "c10_d3_avi": dict(count=26, fps=25.0, **_reads(25),
+                 sha256="48b3640fce160184a320b9c881ba64520ce209345442c247ef58b97139cb03b5"),
     "h264_720p": dict(count=8, fps=25.0,
                  sha256="2e9fadb6c3d8ef65d3ac18c86733d1ebe5bf57276bc70fcdad5c69d9d5b80b6f"),
 }
+PINNED["h264_cabac_720p"] = PINNED["h264_720p"]  # the same frames, coded with CABAC

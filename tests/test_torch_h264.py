@@ -2,14 +2,17 @@
 behind pipeline/h264.py and video.open_reader) against the JAX package's
 reader, ``cv2.VideoCapture`` with its default backend (FFMPEG) inside
 ``caffe_rtpose_tpu.pipeline.runner.frame_source``, on the Constrained
-Baseline streams tests/h264_cases.py writes from seeds:
+Baseline and Main profile (CABAC, weighted P) streams tests/h264_cases.py
+writes from seeds:
 
 (a) the writer's tables are prefix codes and its avcC record is what the
     port's MP4 demuxer hands the decoder;
 (b) every case's frame count, fps, frames (sha256 of every frame, so bit
     for bit), start_frame and ui seeks equal the JAX reader's, pinned in
     h264_cases.PINNED, and the port gives the pins with cv2 blocked: MP4,
-    QuickTime and AVI, POC types 0 and 2, both ranges, cropped sizes;
+    QuickTime and AVI, POC types 0 and 2, both ranges, cropped sizes, CABAC
+    and CAVLC, streams that start on a non-IDR picture (fault C10); each
+    CABAC case decodes as its CAVLC twin in both readers;
 (c) each refused feature raises UnsupportedVideo naming it when the file
     opens, and without cv2 frame_source raises naming --video;
 (d) rtpose --video on a small H.264 MP4 writes the JSONs the JAX pipeline
@@ -36,10 +39,13 @@ cv2 = pytest.importorskip("cv2")
 NAMES = list(H.CASES)
 
 
+CLIPS = {"h264_720p": H.CLIP_720P, "h264_cabac_720p": H.CLIP_CABAC_720P}
+
+
 @pytest.fixture(scope="module")
 def paths(tmp_path_factory):
     d = tmp_path_factory.mktemp("h264")
-    out = {"h264_720p": H.CLIP_720P}
+    out = dict(CLIPS)
     for name in [*H.CASES, *H.REFUSED]:
         p = d / f"{name}{H.suffix(name)}"
         p.write_bytes(H.build(name))
@@ -114,6 +120,33 @@ def test_cases_write_every_element_the_decoder_takes():
     assert max(values("slices"))[0] > 1
 
 
+def test_cabac_cases_write_every_element_the_decoder_takes():
+    """Across the CABAC cases the writer codes every I and P mb_type (I ones
+    in P slices too), sub_mb_type, intra mode and QP, I_PCM in I and P
+    slices, the Exp-Golomb suffixes of coeff_abs_level_minus1 and mvd_l0,
+    the I slices' contexts and cabac_init_idc 0-2, several slices a
+    picture, 4 references, and weights of luma and chroma."""
+    seen = set()
+    for name in H.CABAC:
+        H.stream(name)
+        seen |= H.SEEN[name]
+
+    def values(key):
+        return {k[1:] for k in seen if k[0] == key}
+
+    assert values("mb_type I") == {(t,) for t in range(26)}
+    assert values("mb_type P") == {(t,) for t in range(5)}
+    assert values("sub_mb_type") == {(t,) for t in range(4)}
+    assert values("Intra4x4") == {(m,) for m in range(9)}
+    assert values("Intra16x16") == values("chroma") == {(m,) for m in range(4)}
+    assert values("qp") == {(q,) for q in range(52)}
+    assert values("cabac_init_idc") == {(0,), (1,), (2,), ("I",)}
+    assert values("cabac I_PCM") == {(False,), (True,)}
+    assert values("cabac level suffix") and values("cabac mvd suffix")
+    assert values("weights") == {("luma",), ("chroma",)}
+    assert max(values("references")) == (4,) and max(values("slices"))[0] > 1
+
+
 @pytest.mark.parametrize("name,length", [("pcm_skip", 4), ("nal_length2", 2),
                                          ("nal_length1", 1), ("avc3", 4)])
 def test_avcc_is_what_the_writer_put_in(paths, name, length):
@@ -145,7 +178,7 @@ def test_avi_fourccs_and_key_flags(paths):
 
 # ----------------------------------------------------------- (b) pins
 
-@pytest.mark.parametrize("name", NAMES + ["h264_720p"])
+@pytest.mark.parametrize("name", NAMES + list(CLIPS))
 def test_jax_reader_gives_the_pins(paths, name):
     path, pin = paths[name], H.PINNED[name]
     cap = cv2.VideoCapture(path)
@@ -158,7 +191,7 @@ def test_jax_reader_gives_the_pins(paths, name):
             k: pin[k] for k in ("order", "start", "ui")}
 
 
-@pytest.mark.parametrize("name", NAMES + ["h264_720p"])
+@pytest.mark.parametrize("name", NAMES + list(CLIPS))
 def test_port_gives_the_pins_without_cv2(paths, name, monkeypatch):
     monkeypatch.setitem(sys.modules, "cv2", None)
     path, pin = paths[name], H.PINNED[name]
@@ -172,10 +205,42 @@ def test_port_gives_the_pins_without_cv2(paths, name, monkeypatch):
             k: pin[k] for k in ("order", "start", "ui")}
 
 
+@pytest.mark.parametrize("name", H.CABAC)
+def test_cabac_case_decodes_as_its_cavlc_twin(tmp_path, name, monkeypatch):
+    """The CAVLC stream of the same seed (the same macroblocks, each element
+    coded with CAVLC) gives the CABAC case's pinned frames in the JAX
+    reader and in the port with cv2 blocked."""
+    p = H._defaults()
+    p.update(H.twin(name))
+    wr = H.Writer(**p)
+    sps, pps = wr.sps(), wr.pps()
+    path = str(tmp_path / f"{name}_cavlc{H.suffix(name)}")
+    with open(path, "wb") as f:
+        f.write(H.write(p, wr.packets(), sps, pps))
+    cap = cv2.VideoCapture(path)
+    assert A.sha256(_read_all(cap)) == H.PINNED[name]["sha256"]
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    reader = video.open_reader(path)
+    assert A.sha256(_read_all(reader)) == H.PINNED[name]["sha256"]
+    reader.release()
+
+
+def test_cabac_clip_is_the_cavlc_clip_smaller():
+    """tests/data/h264_cabac_720p.mp4 codes the CAVLC clip's macroblocks
+    with CABAC (Main profile) in fewer bytes; both decode to the pinned
+    frames (test_*_gives_the_pins)."""
+    reader = video.open_reader(H.CLIP_CABAC_720P)
+    assert reader._extra[1] == 77  # avcC's AVCProfileIndication: Main
+    reader.release()
+    assert os.path.getsize(H.CLIP_CABAC_720P) < os.path.getsize(H.CLIP_720P)
+
+
 def test_decoder_api_and_output_delay(paths):
     """Packets in, pictures out: with num_reorder_frames 1 each picture
     comes out one packet late, tagged with its own packet, and the last at
-    drain(); flush() drops what is held and waits for an IDR picture."""
+    drain(); flush() drops what is held, and a P picture after it gives
+    nothing (it predicts from grey pictures and is not recovered) until
+    the next IDR picture."""
     p, units, sps, pps = H.stream("reorder1")
     dec = h264.H264Decoder(H.avcc(sps, pps), 4, "reorder1")
     tags = []
@@ -212,7 +277,7 @@ def test_refused_features_are_named(paths, name, monkeypatch):
 
 
 def test_refused_files_go_to_opencv_with_cv2(paths):
-    cap = runner.open_video(paths["cabac"])
+    cap = runner.open_video(paths["b_slices"])
     assert isinstance(cap, runner._Cv2Capture)
     cap.release()
     cap = runner.open_video(paths["intra"])  # what the port reads, it reads itself
