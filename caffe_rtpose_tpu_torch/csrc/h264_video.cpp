@@ -1,33 +1,43 @@
-// H.264 (ISO/IEC 14496-10) Main profile I/P video decoded on the host, as
+// H.264 (ISO/IEC 14496-10) Main profile video decoded on the host, as
 // FFmpeg's `h264` decoder decodes it for OpenCV's VideoCapture, and each
 // picture, cropped, converted to BGR24 as swscale's unscaled YUV420P (or,
 // with video_full_range_flag, YUVJ420P) -> BGR24 path converts it.
 //
-// What is decoded: CAVLC and CABAC, I and P slices, 4:2:0 8-bit progressive
-// frames; several slices a picture, in order; Intra4x4, Intra16x16, I_PCM
-// and the P partitions down to 4x4; quarter-pel luma and eighth-pel chroma
-// motion compensation with edge clamping, and explicit weighted prediction
-// of P slices; the in-loop deblocking filter; short-term reference pictures
-// under the sliding window and MMCO 1, with reference list modification;
-// POC types 0 and 2; FFmpeg's output order and delay (has_b_frames,
-// num_reorder_frames and its POC heuristics) and where it starts to show
-// pictures (an IDR picture, a recovery point SEI, or an I picture with few
-// references; a stream that starts on a P picture predicts from grey
-// pictures, as FFmpeg's frame_num gap concealment makes them).  The samples
-// are those the standard specifies (H.264 decoding is exact), so any
-// conforming decoder gives the same planes.  Everything else (B, SP and SI
-// slices, field pictures and MBAFF, slice groups, arbitrary slice order,
-// redundant pictures, other chroma formats and bit depths, the 8x8
-// transform, scaling matrices, long-term references, MMCO 5, POC type 1,
-// frame_num gaps inside a stream, constrained intra prediction, data
-// partitioning) is refused by name.  There is no concealment: a slice that
-// does not decode raises.
+// What is decoded: CAVLC and CABAC, I, P and B slices, 4:2:0 8-bit
+// progressive frames; several slices a picture, in order; Intra4x4,
+// Intra16x16, I_PCM, the P partitions down to 4x4 and every B mb_type and
+// sub_mb_type (B_Skip, B_Direct_16x16 and B_8x8 with direct sub-blocks);
+// spatial and temporal direct prediction with direct_8x8_inference_flag 0
+// or 1; quarter-pel luma and eighth-pel chroma motion compensation with
+// edge clamping; explicit weighted prediction of P slices and default,
+// explicit and implicit weighted bi-prediction of B slices; the in-loop
+// deblocking filter (bS of blocks with two motions as FFmpeg's check_mv
+// compares them); short-term reference pictures, B pictures among them,
+// under the sliding window and MMCO 1, with modification of both lists;
+// POC types 0 and 2; FFmpeg's output order and delay (has_b_frames, the
+// demuxer's video delay to start from, num_reorder_frames and its POC and
+// B-picture heuristics) and where it starts to show pictures (an IDR
+// picture, a recovery point SEI, or an I picture with few references; a
+// stream that starts on a P picture predicts from grey pictures, as
+// FFmpeg's frame_num gap concealment makes them); temporal direct maps the
+// co-located picture's refIdx through its first slice's lists, as FFmpeg
+// under frame threads (OpenCV's) does.  The samples are those the standard
+// specifies (H.264 decoding is exact), so any conforming decoder gives the
+// same planes.  Everything else (SP and SI slices, field pictures and
+// MBAFF, slice groups, arbitrary slice order, redundant pictures, other
+// chroma formats and bit depths, the 8x8 transform, scaling matrices,
+// long-term references in either list, MMCO 2-6, POC type 1, frame_num
+// gaps inside a stream, constrained intra prediction, data partitioning)
+// is refused by name.  There is no concealment: a slice that does not
+// decode raises.
 //
-// C interface (ctypes): crt_h264_create, crt_h264_config (the parameter sets
-// carried outside the packets, and the NAL length size), crt_h264_probe (checks a packet's
-// parameter sets and slice headers without decoding), crt_h264_decode (one
-// packet), crt_h264_drain (the pictures held back, at the end), crt_h264_bgr
-// (the last picture given, as BGR24), crt_h264_flush, crt_h264_destroy.
+// C interface (ctypes): crt_h264_create, crt_h264_config (the parameter
+// sets carried outside the packets, and the NAL length size),
+// crt_h264_probe (checks a packet's parameter sets and slice headers
+// without decoding), crt_h264_set_delay and crt_h264_delay (the output
+// delay to start with, and the one reached), crt_h264_decode (one packet),
+// crt_h264_drain (the pictures held back, at the end), crt_h264_bgr (the
+// last picture given, as BGR24), crt_h264_flush, crt_h264_destroy.
 
 #include <algorithm>
 #include <cstdint>
@@ -269,6 +279,7 @@ struct Sps {
     int mb_w = 0, mb_h = 0;
     int crop_l = 0, crop_r = 0, crop_t = 0, crop_b = 0;  // luma samples
     bool full_range = false, restriction = false;
+    bool direct8x8 = true;  // direct_8x8_inference_flag
     int num_reorder_frames = 0;
 };
 
@@ -277,6 +288,7 @@ struct Pps {
     int sps_id = 0;
     bool bottom_field_poc = false;
     bool cabac = false, weighted = false;
+    int bipred = 0;  // weighted_bipred_idc: 0 default, 1 explicit, 2 implicit
     int num_ref_idx_default = 1, num_ref_idx_l1_default = 1;
     int init_qp = 26;
     int chroma_offset[2] = {0, 0};
@@ -331,7 +343,7 @@ Sps parse_sps(Bits& b, int* id_out) {
             throw Refused("MBAFF (mb_adaptive_frame_field_flag 1: field and frame macroblock pairs)");
         throw Refused("field pictures (frame_mbs_only_flag 0)");
     }
-    b.u(1);  // direct_8x8_inference_flag
+    s.direct8x8 = b.u1();
     if (b.u1()) {
         s.crop_l = 2 * (int)b.ue();
         s.crop_r = 2 * (int)b.ue();
@@ -383,7 +395,8 @@ Pps parse_pps(Bits& b, const Sps* sps_table, int* id_out) {
     p.num_ref_idx_default = (int)ue_max(b, 31, "num_ref_idx_l0_default_active_minus1") + 1;
     p.num_ref_idx_l1_default = (int)ue_max(b, 31, "num_ref_idx_l1_default_active_minus1") + 1;
     p.weighted = b.u1();
-    b.u(2);  // weighted_bipred_idc: B slices only
+    p.bipred = (int)b.u(2);
+    if (p.bipred == 3) throw Corrupt("weighted_bipred_idc 3");
     p.init_qp = 26 + b.se();
     b.se();
     p.chroma_offset[0] = p.chroma_offset[1] = clip3(-12, 12, b.se());
@@ -402,11 +415,12 @@ Pps parse_pps(Bits& b, const Sps* sps_table, int* id_out) {
 }
 
 struct SliceHeader {
-    int first_mb = 0, type = 0;  // 0 P, 2 I
+    int first_mb = 0, type = 0;  // 0 P, 1 B, 2 I
     int pps_id = 0;
     int frame_num = 0, idr_pic_id = 0, poc_lsb = 0, delta_poc_bottom = 0;
-    int num_ref_idx_active = 1;
-    std::vector<std::pair<int, int>> modifications;  // (idc, abs_diff_pic_num_minus1)
+    int nref[2] = {1, 1};           // num_ref_idx_l0_active, num_ref_idx_l1_active
+    bool direct_spatial = false;    // direct_spatial_mv_pred_flag
+    std::vector<std::pair<int, int>> modifications[2];  // (idc, abs_diff_pic_num_minus1) a list
     std::vector<int> mmco1;                          // difference_of_pic_nums_minus1
     bool adaptive = false;
     int qp = 26;
@@ -415,13 +429,22 @@ struct SliceHeader {
     int ref_idc = 0;
     int cabac_init_idc = 0;
     // explicit weighted prediction (pred_weight_table): log2 denominators,
-    // and by ref_idx the weight and offset of Y, Cb, Cr
+    // and by list and ref_idx the weight and offset of Y, Cb, Cr
     bool weighted = false;
     int log2_wd[2] = {0, 0};
-    int weight[16][3] = {}, offset[16][3] = {};
+    int weight[2][16][3] = {}, offset[2][16][3] = {};
 };
 
 // ---------------------------------------------------------------- pictures
+
+// What direct prediction reads of a co-located macroblock (8.4.1.2.1):
+// whether it is intra, refIdxL0/L1 of each 8x8 block (-1 unused) and the
+// motion vectors of each 4x4 block (raster)
+struct ColMb {
+    bool intra = true;
+    int8_t ref[2][4] = {{-1, -1, -1, -1}, {-1, -1, -1, -1}};
+    int16_t mv[2][16][2] = {};
+};
 
 struct Picture {
     int w = 0, h = 0;  // coded luma size
@@ -429,7 +452,15 @@ struct Picture {
     int frame_num = 0, poc = 0, id = 0;
     long tag = -1;  // the packet the picture came in
     bool key = false, mmco_reset = false, recovered = false, full_range = false;
+    bool b_type = false;  // its first slice is a B slice (FFmpeg's pict_type)
     int crop_l = 0, crop_r = 0, crop_t = 0, crop_b = 0;
+    // as a co-located picture: its macroblocks' motion (kept for reference
+    // pictures), and the frame_num of each entry of the lists of its first
+    // slice, which name the pictures its refIdx refer to (FFmpeg's
+    // ref_poc, which under frame threads, as OpenCV runs it, only the first
+    // slice of a picture sets)
+    std::vector<ColMb> col;
+    int ref_fn[2][16] = {}, ref_cnt[2] = {0, 0};
 };
 using PicPtr = std::shared_ptr<Picture>;
 
@@ -442,15 +473,16 @@ struct Mb {
     uint8_t nz[16] = {};  // non-zero coefficients of each 4x4 luma block (raster)
     uint8_t nzc[2][4] = {};
     int8_t i4[16] = {};
-    int8_t ref[16] = {};   // refIdxL0 a 4x4 block, -1 intra
-    int refpic[16] = {};  // the reference picture's id
-    int16_t mv[16][2] = {};
+    int8_t ref[2][16] = {};   // refIdxL0 and refIdxL1 a 4x4 block, -1 intra or unused
+    int refpic[2][16] = {};   // the reference picture's id, -1 unused
+    int16_t mv[2][16][2] = {};
     // what CABAC's context selection reads of a neighbour: coded_block_pattern
     // (luma bits 0-3, chroma 4-5), the coded_block_flags of the DC blocks
-    // (bit 0 luma, 1 Cb, 2 Cr), intra_chroma_pred_mode, and each 4x4 block's
-    // absolute mvd (at most 70)
-    uint8_t cbp = 0, dc = 0, cmode = 0;
-    uint8_t mvd[16][2] = {};
+    // (bit 0 luma, 1 Cb, 2 Cr), intra_chroma_pred_mode, the 8x8 blocks
+    // predicted in direct mode (bits 0-3; bit 4: B_Skip or B_Direct_16x16),
+    // and each 4x4 block's absolute mvd of each list (at most 70)
+    uint8_t cbp = 0, dc = 0, cmode = 0, direct = 0;
+    uint8_t mvd[2][16][2] = {};
 };
 
 // The state transitions (Table 9-45) by state byte (pStateIdx << 1 |
@@ -560,6 +592,7 @@ struct Cabac {
 struct SliceInfo {
     int idc = 0, alpha = 0, beta = 0;
     int chroma_offset[2] = {0, 0};
+    bool b = false;  // a B slice: deblocking compares both lists' motion
 };
 
 struct Motion {  // a neighbour partition's motion data
@@ -616,8 +649,14 @@ struct Decoder {
 
     // per-slice state
     SliceHeader sh;
-    std::vector<PicPtr> list0;
+    std::vector<PicPtr> lists[2];  // RefPicList0, RefPicList1
     int slice_num = 0, qp = 0;
+    // B slices: implicit bi-prediction weights w0 by (refIdxL0, refIdxL1),
+    // or none (FFmpeg's use_weight 0 where the two pictures lie evenly
+    // about the current one); temporal direct's DistScaleFactor by refIdxL0
+    bool implicit = false;
+    int implicit_w[16][16] = {};
+    int dist_scale[16] = {};
     bool cabac = false;
     Cabac cb;
     // the mb_qp_delta of the slice's macroblock before (CABAC), and this one's
@@ -784,10 +823,9 @@ struct Decoder {
         s.ref_idc = ref_idc;
         s.first_mb = (int)b.ue();
         uint32_t t = ue_max(b, 9, "slice_type") % 5;
-        if (t == 1) throw Refused("B slices (bidirectional prediction)");
         if (t == 3 || t == 4) throw Refused("SP and SI slices");
         s.type = (int)t;
-        if (idr && t != 2) throw Corrupt("an IDR picture with a P slice");
+        if (idr && t != 2) throw Corrupt("an IDR picture with a P or B slice");
         s.pps_id = (int)ue_max(b, 255, "pic_parameter_set_id");
         if (!pps[s.pps_id].valid) throw Corrupt("a slice names a PPS not received");
         const Pps& p = pps[s.pps_id];
@@ -799,24 +837,32 @@ struct Decoder {
             s.poc_lsb = (int)b.u(q.log2_max_poc_lsb);
             if (p.bottom_field_poc) s.delta_poc_bottom = b.se();
         }
-        s.num_ref_idx_active = p.num_ref_idx_default;
-        if (s.type == 0) {
-            if (b.u1())
-                s.num_ref_idx_active = (int)ue_max(b, 15, "num_ref_idx_l0_active_minus1") + 1;
-            if (s.num_ref_idx_active > 16) throw Corrupt("num_ref_idx_l0_active out of range");
+        if (s.type == 1) s.direct_spatial = b.u1();
+        s.nref[0] = p.num_ref_idx_default;
+        s.nref[1] = p.num_ref_idx_l1_default;
+        const int lists = s.type == 1 ? 2 : s.type == 0 ? 1 : 0;
+        if (lists) {
             if (b.u1()) {
+                s.nref[0] = (int)ue_max(b, 15, "num_ref_idx_l0_active_minus1") + 1;
+                if (lists == 2) s.nref[1] = (int)ue_max(b, 15, "num_ref_idx_l1_active_minus1") + 1;
+            }
+            for (int l = 0; l < lists; l++)
+                if (s.nref[l] > 16) throw Corrupt("num_ref_idx_active out of range");
+            for (int l = 0; l < lists; l++) {
+                if (!b.u1()) continue;  // ref_pic_list_modification_flag_lX
                 for (;;) {
                     uint32_t idc = b.ue();
                     if (idc == 3) break;
                     if (idc == 2)
                         throw Refused("long-term reference pictures "
                                       "(modification_of_pic_nums_idc 2)");
-                    if (idc > 3 || s.modifications.size() > 32)
+                    if (idc > 3 || s.modifications[l].size() > 32)
                         throw Corrupt("a bad ref_pic_list_modification");
-                    s.modifications.emplace_back((int)idc, (int)b.ue());
+                    s.modifications[l].emplace_back((int)idc, (int)b.ue());
                 }
             }
-            if (p.weighted) pred_weight_table(b, s);
+            if ((p.weighted && s.type == 0) || (p.bipred == 1 && s.type == 1))
+                pred_weight_table(b, s, lists);
         }
         if (ref_idc) {
             if (idr) {
@@ -842,7 +888,7 @@ struct Decoder {
                 }
             }
         }
-        if (p.cabac && s.type == 0) s.cabac_init_idc = (int)ue_max(b, 2, "cabac_init_idc");
+        if (p.cabac && s.type != 2) s.cabac_init_idc = (int)ue_max(b, 2, "cabac_init_idc");
         s.qp = p.init_qp + b.se();
         if (s.qp < 0 || s.qp > 51) throw Corrupt("slice QP out of range");
         if (p.deblocking_control) {
@@ -857,9 +903,9 @@ struct Decoder {
         return s;
     }
 
-    // 7.3.3.2: the weights and offsets of each ref_idx (the default where
-    // its flag is 0: 2^denominator and 0)
-    static void pred_weight_table(Bits& b, SliceHeader& s) {
+    // 7.3.3.2: the weights and offsets of each list's ref_idx (the default
+    // where its flag is 0: 2^denominator and 0)
+    static void pred_weight_table(Bits& b, SliceHeader& s, int lists) {
         s.weighted = true;
         s.log2_wd[0] = (int)ue_max(b, 7, "luma_log2_weight_denom");
         s.log2_wd[1] = (int)ue_max(b, 7, "chroma_log2_weight_denom");
@@ -868,21 +914,22 @@ struct Decoder {
             if (v < -128 || v > 127) throw Corrupt(std::string(what) + " out of range");
             return v;
         };
-        for (int i = 0; i < s.num_ref_idx_active; i++) {
-            for (int c = 0; c < 3; c++) {
-                s.weight[i][c] = 1 << s.log2_wd[c ? 1 : 0];
-                s.offset[i][c] = 0;
-            }
-            if (b.u1()) {
-                s.weight[i][0] = value("luma_weight_l0");
-                s.offset[i][0] = value("luma_offset_l0");
-            }
-            if (b.u1())
-                for (int c = 1; c < 3; c++) {
-                    s.weight[i][c] = value("chroma_weight_l0");
-                    s.offset[i][c] = value("chroma_offset_l0");
+        for (int l = 0; l < lists; l++)
+            for (int i = 0; i < s.nref[l]; i++) {
+                for (int c = 0; c < 3; c++) {
+                    s.weight[l][i][c] = 1 << s.log2_wd[c ? 1 : 0];
+                    s.offset[l][i][c] = 0;
                 }
-        }
+                if (b.u1()) {
+                    s.weight[l][i][0] = value("luma_weight");
+                    s.offset[l][i][0] = value("luma_offset");
+                }
+                if (b.u1())
+                    for (int c = 1; c < 3; c++) {
+                        s.weight[l][i][c] = value("chroma_weight");
+                        s.offset[l][i][c] = value("chroma_offset");
+                    }
+            }
     }
 
     // ------------------------------------------------------------ slices
@@ -905,9 +952,11 @@ struct Decoder {
         si.beta = s.beta_offset;
         si.chroma_offset[0] = cp->chroma_offset[0];
         si.chroma_offset[1] = cp->chroma_offset[1];
+        si.b = s.type == 1;
         slice_num = (int)slices.size();
         slices.push_back(si);
-        if (s.type == 0) build_list(s);
+        if (s.type != 2) build_lists(s);
+        if (s.type == 1) b_tables();
         qp = s.qp;
         cabac = cp->cabac;
         slice_data(b);
@@ -947,6 +996,7 @@ struct Decoder {
         cur = new_picture(0);
         cur->frame_num = s.frame_num;
         cur->id = next_id++;
+        cur->b_type = s.type == 1;
         cur->key = s.idr || sei_recovery >= 0;
         cur->full_range = cs->full_range;
         cur->crop_l = cs->crop_l;
@@ -1038,44 +1088,115 @@ struct Decoder {
     }
     int pic_num(const Picture& p) const { return pic_num(p, *cur); }
 
-    void build_list(const SliceHeader& s) {
-        std::vector<PicPtr> init(refs);
-        std::sort(init.begin(), init.end(), [&](const PicPtr& a, const PicPtr& b) {
-            return pic_num(*a) > pic_num(*b);
-        });
-        const int n = s.num_ref_idx_active;
-        list0.assign((size_t)n + 1, nullptr);
-        for (int i = 0; i < n && i < (int)init.size(); i++) list0[i] = init[i];
-        const int max_pic = 1 << cs->log2_max_frame_num, curr = cur->frame_num;
-        int pred = curr, idx = 0;
-        for (auto [idc, diff] : s.modifications) {
-            if (idx >= n) throw Corrupt("more reference list modifications than entries");
-            if (diff >= max_pic) throw Corrupt("abs_diff_pic_num_minus1 out of range");
-            int no_wrap = idc == 0 ? pred - (diff + 1) : pred + (diff + 1);
-            if (no_wrap < 0) no_wrap += max_pic;
-            if (no_wrap >= max_pic) no_wrap -= max_pic;
-            pred = no_wrap;
-            const int num = no_wrap > curr ? no_wrap - max_pic : no_wrap;
-            PicPtr pic;
+    // The initial lists (8.2.4.2.1, 8.2.4.2.3): P by descending PicNum; B
+    // by POC, list 0 the pictures before the current one (descending),
+    // then those after (ascending), list 1 the other way round, its first
+    // two entries switched where it would equal list 0.  Then each list's
+    // modifications, and FFmpeg's default for an entry with no picture.
+    void build_lists(const SliceHeader& s) {
+        const int nl = s.type == 1 ? 2 : 1;
+        std::vector<PicPtr> init[2];
+        if (s.type == 0) {
+            init[0] = refs;
+            std::sort(init[0].begin(), init[0].end(), [&](const PicPtr& a, const PicPtr& b) {
+                return pic_num(*a) > pic_num(*b);
+            });
+        } else {
+            std::vector<PicPtr> before, after;
             for (auto& r : refs)
-                if (pic_num(*r) == num) pic = r;
-            if (!pic) throw Corrupt("a reference list modification names no reference picture");
-            for (int c = n; c > idx; c--) list0[c] = list0[c - 1];
-            list0[idx++] = pic;
-            int k = idx;
-            for (int c = idx; c <= n; c++)
-                if (!list0[c] || pic_num(*list0[c]) != num) list0[k++] = list0[c];
-            for (; k <= n; k++) list0[k] = nullptr;
+                if (r->poc < cur->poc) before.push_back(r);
+                else if (r->poc > cur->poc) after.push_back(r);
+            std::sort(before.begin(), before.end(),
+                      [](const PicPtr& a, const PicPtr& b) { return a->poc > b->poc; });
+            std::sort(after.begin(), after.end(),
+                      [](const PicPtr& a, const PicPtr& b) { return a->poc < b->poc; });
+            init[0] = before;
+            init[0].insert(init[0].end(), after.begin(), after.end());
+            init[1] = after;
+            init[1].insert(init[1].end(), before.begin(), before.end());
+            bool same = init[1].size() > 1;  // compared by picture (grey pictures are one)
+            for (size_t i = 0; same && i < init[0].size(); i++) same = init[0][i]->id == init[1][i]->id;
+            if (same) std::swap(init[1][0], init[1][1]);
         }
-        list0.resize(n);
-        // ff_h264_build_ref_list: an entry with no picture takes the initial
-        // list's first ("Missing reference picture, default is ...")
-        for (auto& r : list0)
-            if (!r) {
-                if (init.empty()) throw Corrupt("a P slice without reference pictures");
-                r = init[0];
-                reset_pocs();
+        for (int l = 0; l < nl; l++) {
+            auto& list = lists[l];
+            const int n = s.nref[l];
+            list.assign((size_t)n + 1, nullptr);
+            for (int i = 0; i < n && i < (int)init[l].size(); i++) list[i] = init[l][i];
+            const int max_pic = 1 << cs->log2_max_frame_num, curr = cur->frame_num;
+            int pred = curr, idx = 0;
+            for (auto [idc, diff] : s.modifications[l]) {
+                if (idx >= n) throw Corrupt("more reference list modifications than entries");
+                if (diff >= max_pic) throw Corrupt("abs_diff_pic_num_minus1 out of range");
+                int no_wrap = idc == 0 ? pred - (diff + 1) : pred + (diff + 1);
+                if (no_wrap < 0) no_wrap += max_pic;
+                if (no_wrap >= max_pic) no_wrap -= max_pic;
+                pred = no_wrap;
+                const int num = no_wrap > curr ? no_wrap - max_pic : no_wrap;
+                PicPtr pic;
+                for (auto& r : refs)
+                    if (pic_num(*r) == num) pic = r;
+                if (!pic) throw Corrupt("a reference list modification names no reference picture");
+                for (int c = n; c > idx; c--) list[c] = list[c - 1];
+                list[idx++] = pic;
+                int k = idx;
+                for (int c = idx; c <= n; c++)
+                    if (!list[c] || pic_num(*list[c]) != num) list[k++] = list[c];
+                for (; k <= n; k++) list[k] = nullptr;
             }
+            list.resize(n);
+        }
+        // ff_h264_build_ref_list: an entry with no picture takes the first
+        // of its initial list ("Missing reference picture, default is ...")
+        for (int l = 0; l < nl; l++)
+            for (auto& r : lists[l])
+                if (!r) {
+                    if (init[l].empty()) throw Corrupt("an inter slice without reference pictures");
+                    r = init[l][0];
+                    reset_pocs();
+                }
+        for (int l = 0; l < nl && slice_num == 0; l++) {  // ff_h264_direct_ref_list_init
+            cur->ref_cnt[l] = s.nref[l];
+            for (int i = 0; i < s.nref[l]; i++) cur->ref_fn[l][i] = lists[l][i]->frame_num;
+        }
+    }
+
+    // A B slice's implicit weights (8.4.2.3.1, as FFmpeg's
+    // implicit_weight_table) and temporal direct's DistScaleFactors
+    // (8.4.1.2.3).
+    void b_tables() {
+        auto clip8 = [](int v) { return clip3(-128, 127, v); };
+        const int poc = cur->poc;
+        implicit = false;
+        if (cp->bipred == 2 &&
+            !(sh.nref[0] == 1 && sh.nref[1] == 1 &&
+              (int64_t)lists[0][0]->poc + lists[1][0]->poc == 2LL * poc)) {
+            implicit = true;
+            for (int i = 0; i < sh.nref[0]; i++)
+                for (int j = 0; j < sh.nref[1]; j++) {
+                    int wt = 32;
+                    const int td = clip8(lists[1][j]->poc - lists[0][i]->poc);
+                    if (td) {
+                        const int tb = clip8(poc - lists[0][i]->poc);
+                        const int tx = (16384 + (std::abs(td) >> 1)) / td;
+                        const int dsf = (tb * tx + 32) >> 8;
+                        if (dsf >= -64 && dsf <= 128) wt = 64 - dsf;
+                    }
+                    implicit_w[i][j] = wt;
+                }
+        }
+        if (sh.direct_spatial) return;
+        const Picture& col = *lists[1][0];
+        for (int i = 0; i < sh.nref[0]; i++) {
+            const int td = clip8(col.poc - lists[0][i]->poc);
+            if (!td) {
+                dist_scale[i] = 256;
+                continue;
+            }
+            const int tb = clip8(poc - lists[0][i]->poc);
+            const int tx = (16384 + (std::abs(td) >> 1)) / td;
+            dist_scale[i] = clip3(-1024, 1023, (tb * tx + 32) >> 6);
+        }
     }
 
     // ---------------------------------------------------- neighbours
@@ -1193,7 +1314,8 @@ struct Decoder {
             do {
                 if (mb >= nmb) throw Corrupt("slice data past the last macroblock");
                 cur_dqp = 0;
-                if (sh.type == 0 && cb.decision(11 + skip_ctx(mb))) skip_mb(mb);
+                if (sh.type != 2 && cb.decision((sh.type == 1 ? 24 : 11) + skip_ctx(mb)))
+                    skip_mb(mb);
                 else macroblock(b, mb);
                 last_dqp = cur_dqp;
                 mb++;
@@ -1203,7 +1325,7 @@ struct Decoder {
         }
         for (;;) {
             if (mb >= nmb) throw Corrupt("slice data past the last macroblock");
-            if (sh.type == 0) {
+            if (sh.type != 2) {
                 uint32_t run = b.ue();
                 if (run > (uint32_t)(nmb - mb)) throw Corrupt("mb_skip_run past the picture");
                 for (uint32_t i = 0; i < run; i++) skip_mb(mb++);
@@ -1223,9 +1345,25 @@ struct Decoder {
         return (a >= 0 && mbs[a].kind != SKIP) + (t >= 0 && mbs[t].kind != SKIP);
     }
 
-    // mb_type (Table 9-36, 9-37): I slices 0-25; P slices 0-3, intra 5-30
+    // mb_type (Table 9-36, 9-37): I slices 0-25; P slices 0-3, intra 5-30;
+    // B slices 0-22, intra 23-48 (B: FFmpeg's decode_cabac_mb_type_b)
     int cabac_mb_type(int mb) {
         if (sh.type == 2) return cabac_intra_type(mb, 3, true);
+        if (sh.type == 1) {
+            const int a = mb_addr(mb, -1, 0), t = mb_addr(mb, 0, -1);
+            const int ctx = (a >= 0 && !(mbs[a].direct & 16)) + (t >= 0 && !(mbs[t].direct & 16));
+            if (!cb.decision(27 + ctx)) return 0;                   // B_Direct_16x16
+            if (!cb.decision(30)) return 1 + cb.decision(32);       // B_L0_16x16, B_L1_16x16
+            int bits = cb.decision(31) << 3;
+            bits |= cb.decision(32) << 2;
+            bits |= cb.decision(32) << 1;
+            bits |= cb.decision(32);
+            if (bits < 8) return bits + 3;                           // B_Bi_16x16 .. B_L1_L0_16x8
+            if (bits == 13) return 23 + cabac_intra_type(mb, 32, false);
+            if (bits == 14) return 11;                               // B_L1_L0_8x16
+            if (bits == 15) return 22;                               // B_8x8
+            return ((bits << 1) | cb.decision(32)) - 4;             // B_L0_Bi_16x8 .. B_Bi_Bi_8x16
+        }
         if (cb.decision(14)) return 5 + cabac_intra_type(mb, 17, false);
         if (!cb.decision(15)) return cb.decision(16) ? 3 : 0;
         return cb.decision(17) ? 1 : 2;
@@ -1248,6 +1386,17 @@ struct Decoder {
     }
 
     int cabac_sub_type() {
+        if (sh.type == 1) {  // Table 9-38's B sub_mb_types (decode_cabac_b_mb_sub_type)
+            if (!cb.decision(36)) return 0;
+            if (!cb.decision(37)) return 1 + cb.decision(39);
+            int t = 3;
+            if (cb.decision(38)) {
+                if (cb.decision(39)) return 11 + cb.decision(39);
+                t += 4;
+            }
+            t += 2 * cb.decision(39);
+            return t + cb.decision(39);
+        }
         if (cb.decision(21)) return 0;
         if (!cb.decision(22)) return 1;
         return cb.decision(23) ? 2 : 3;
@@ -1286,14 +1435,18 @@ struct Decoder {
         return cbp;
     }
 
-    // ref_idx_l0 of the partition at (x, y) (samples in the macroblock);
-    // pref: the reference indices of the partitions read before, by 4x4 block
-    int cabac_ref(int mb, int x, int y, const int8_t* pref) {
+    // ref_idx_lX of the partition at (x, y) (samples in the macroblock);
+    // pref: list X's reference indices of the partitions read before, by
+    // 4x4 block (0 where none was read); a neighbour predicted in direct
+    // mode counts as 0
+    int cabac_ref(int mb, int x, int y, const int8_t* pref, int list) {
         auto ref = [&](int xx, int yy) -> int {
             if (xx >= 0 && yy >= 0) return pref[(yy >> 2) * 4 + (xx >> 2)];
             const int n = mb_addr(mb, xx < 0 ? -1 : 0, yy < 0 ? -1 : 0);
             if (n < 0 || mbs[n].kind != INTER) return 0;
-            return mbs[n].ref[(((yy + 16) & 15) >> 2) * 4 + (((xx + 16) & 15) >> 2)];
+            const int bx = ((xx + 16) & 15) >> 2, by = ((yy + 16) & 15) >> 2;
+            if (mbs[n].direct >> ((by >> 1) * 2 + (bx >> 1)) & 1) return 0;
+            return mbs[n].ref[list][by * 4 + bx];
         };
         int ctx = (ref(x - 1, y) > 0) + 2 * (ref(x, y - 1) > 0), r = 0;
         while (cb.decision(54 + ctx)) {
@@ -1403,20 +1556,23 @@ struct Decoder {
         m.slice = slice_num;
         m.qp = qp;
         std::memset(m.ref, -1, sizeof(m.ref));
+        std::memset(m.refpic, -1, sizeof(m.refpic));
     }
 
     void skip_mb(int mb) {
-        if (list0.empty() || !list0[0])
+        if (lists[0].empty() || !lists[0][0])
             throw Corrupt("a skipped macroblock without a reference picture");
         begin_mb(mb, SKIP);
+        if (sh.type == 1) return direct_mb(mb);  // B_Skip
         Mb& m = mbs[mb];
         int mv[2] = {0, 0};
-        Motion a = motion(mb, -1, 0, nullptr), b = motion(mb, 0, -1, nullptr);
+        Motion a = motion(mb, -1, 0, nullptr, 0), b = motion(mb, 0, -1, nullptr, 0);
         if (!(!a.avail || !b.avail || (a.ref == 0 && !a.mv[0] && !a.mv[1]) ||
               (b.ref == 0 && !b.mv[0] && !b.mv[1])))
-            mvp(mb, 0, 0, 16, 0, 0, nullptr, mv);
-        set_motion(m, 0, 0, 16, 16, 0, mv);
-        predict_inter(mb, 0, 0, 16, 16, 0, mv);
+            mvp(mb, 0, 0, 16, 0, 0, nullptr, 0, mv);
+        set_motion(m, 0, 0, 16, 16, 0, 0, mv);
+        const int ref[2] = {0, -1}, mvs[2][2] = {{mv[0], mv[1]}, {0, 0}};
+        predict(mb, 0, 0, 16, 16, ref, mvs);
     }
 
     void macroblock(Bits& b, int mb) {
@@ -1424,6 +1580,9 @@ struct Decoder {
         if (sh.type == 0) {
             if (t < 5) return inter_mb(b, mb, (int)t);
             t -= 5;
+        } else if (sh.type == 1) {
+            if (t < 23) return b_mb(b, mb, (int)t);
+            t -= 23;
         }
         if (t > 25) throw Corrupt("mb_type out of range");
         if (t == 25) return pcm_mb(b, mb);
@@ -1829,10 +1988,10 @@ struct Decoder {
     }
 
     // ------------------------------------------------------- inter
-    // Motion data of the partition covering (x, y) relative to macroblock
-    // mb (x, y may be -1 or 16); within the macroblock only blocks in
-    // `done` count.
-    Motion motion(int mb, int x, int y, const bool* done) const {
+    // Motion data of list `list` of the partition covering (x, y) relative
+    // to macroblock mb (x, y may be -1 or 16); within the macroblock only
+    // blocks in `done` count.
+    Motion motion(int mb, int x, int y, const bool* done, int list) const {
         Motion r;
         int n;
         if (x >= 0 && x < 16 && y >= 0 && y < 16) {
@@ -1848,9 +2007,9 @@ struct Decoder {
         const Mb& m = mbs[n];
         if (m.kind != INTER && m.kind != SKIP) return r;
         const int b = (((y + 16) & 15) >> 2) * 4 + (((x + 16) & 15) >> 2);
-        r.ref = m.ref[b];
-        r.mv[0] = m.mv[b][0];
-        r.mv[1] = m.mv[b][1];
+        r.ref = m.ref[list][b];
+        r.mv[0] = m.mv[list][b][0];
+        r.mv[1] = m.mv[list][b][1];
         return r;
     }
 
@@ -1858,12 +2017,14 @@ struct Decoder {
         return std::max(std::min(a, b), std::min(std::max(a, b), c));
     }
 
-    // 8.4.1.3: the motion vector prediction of the partition at (x, y),
-    // pw wide, with reference index ref; shape 1: 16x8, 2: 8x16, 0 else
-    void mvp(int mb, int x, int y, int pw, int ref, int shape, const bool* done, int* out) const {
-        Motion A = motion(mb, x - 1, y, done), B = motion(mb, x, y - 1, done);
-        Motion C = motion(mb, x + pw, y - 1, done);
-        if (!C.avail) C = motion(mb, x - 1, y - 1, done);
+    // 8.4.1.3: the motion vector prediction of list `list` of the partition
+    // at (x, y), pw wide, with reference index ref; shape 1: 16x8, 2: 8x16,
+    // 0 else
+    void mvp(int mb, int x, int y, int pw, int ref, int shape, const bool* done, int list,
+             int* out) const {
+        Motion A = motion(mb, x - 1, y, done, list), B = motion(mb, x, y - 1, done, list);
+        Motion C = motion(mb, x + pw, y - 1, done, list);
+        if (!C.avail) C = motion(mb, x - 1, y - 1, done, list);
         if (shape == 1) {
             if (y == 0 && B.ref == ref) return copy(B, out);
             if (y == 8 && A.ref == ref) return copy(A, out);
@@ -1887,89 +2048,197 @@ struct Decoder {
         out[1] = m.mv[1];
     }
 
-    void set_motion(Mb& m, int x, int y, int pw, int ph, int ref, const int* mv) {
+    // list `list`'s motion of the blocks of a partition (ref -1: unused)
+    void set_motion(Mb& m, int x, int y, int pw, int ph, int list, int ref, const int* mv) {
         for (int j = y >> 2; j < (y + ph) >> 2; j++)
             for (int i = x >> 2; i < (x + pw) >> 2; i++) {
-                m.ref[j * 4 + i] = (int8_t)ref;
-                m.refpic[j * 4 + i] = list0[ref]->id;
-                m.mv[j * 4 + i][0] = (int16_t)mv[0];
-                m.mv[j * 4 + i][1] = (int16_t)mv[1];
+                m.ref[list][j * 4 + i] = (int8_t)ref;
+                m.refpic[list][j * 4 + i] = ref >= 0 ? lists[list][ref]->id : -1;
+                m.mv[list][j * 4 + i][0] = (int16_t)(ref >= 0 ? mv[0] : 0);
+                m.mv[list][j * 4 + i][1] = (int16_t)(ref >= 0 ? mv[1] : 0);
             }
     }
 
+    // A partition of an inter macroblock: its place, prediction mode (bit 0
+    // list 0, bit 1 list 1), shape for the prediction (1 16x8, 2 8x16, 0
+    // else), its sub-macroblock (-1 none), reference indices and mvds
+    struct Part {
+        int x, y, w, h, mode, shape, sub;
+        int ref[2], mvd[2][2];
+    };
+
+    // ref_idx_lX of a partition: 0 where the list has one entry, else te(v)
+    // or CABAC; pref keeps list X's indices read, by 4x4 block
+    int read_ref(Bits& b, int mb, int list, int x, int y, int pw, int ph, int8_t* pref) {
+        const int n = sh.nref[list];
+        int r = 0;
+        if (n > 1) r = cabac ? cabac_ref(mb, x, y, pref, list) : n == 2 ? !b.u1() : (int)b.ue();
+        if (r >= n) throw Corrupt("ref_idx out of range");
+        for (int j = y >> 2; j < (y + ph) >> 2; j++)
+            for (int i = x >> 2; i < (x + pw) >> 2; i++) pref[j * 4 + i] = (int8_t)r;
+        return r;
+    }
+
+    // mvd_l0 then mvd_l1 of the partitions that use each list, in order
+    void read_mvds(Bits& b, int mb, Part* parts, int np) {
+        Mb& m = mbs[mb];
+        for (int l = 0; l < 2; l++)
+            for (int k = 0; k < np; k++) {
+                Part& p = parts[k];
+                if (p.ref[l] < 0) continue;
+                for (int c = 0; c < 2; c++) {
+                    if (!cabac) {
+                        p.mvd[l][c] = b.se();
+                        continue;
+                    }
+                    const int sum = abs_mvd(mb, p.x - 1, p.y, c, l) + abs_mvd(mb, p.x, p.y - 1, c, l);
+                    p.mvd[l][c] = cabac_mvd(c ? 47 : 40, sum);
+                    for (int j = p.y >> 2; j < (p.y + p.h) >> 2; j++)
+                        for (int i = p.x >> 2; i < (p.x + p.w) >> 2; i++)
+                            m.mvd[l][j * 4 + i][c] = (uint8_t)std::min(std::abs(p.mvd[l][c]), 70);
+                }
+            }
+    }
+
+    // the motion vectors of a partition (prediction plus mvd), its motion
+    // data, and its prediction
+    void inter_part(int mb, const Part& p, bool* done) {
+        Mb& m = mbs[mb];
+        int mv[2][2] = {{0, 0}, {0, 0}};
+        for (int l = 0; l < 2; l++) {
+            if (p.ref[l] < 0) continue;
+            if (p.ref[l] >= (int)lists[l].size() || !lists[l][p.ref[l]])
+                throw Corrupt("a partition names a missing reference picture");
+            mvp(mb, p.x, p.y, p.w, p.ref[l], p.shape, done, l, mv[l]);
+            for (int c = 0; c < 2; c++) {
+                mv[l][c] += p.mvd[l][c];
+                if (mv[l][c] < -32768 || mv[l][c] > 32767) throw Corrupt("a motion vector out of range");
+            }
+        }
+        for (int l = 0; l < 2; l++) set_motion(m, p.x, p.y, p.w, p.h, l, p.ref[l], mv[l]);
+        for (int j = p.y >> 2; j < (p.y + p.h) >> 2; j++)
+            for (int i = p.x >> 2; i < (p.x + p.w) >> 2; i++) done[j * 4 + i] = true;
+        predict(mb, p.x, p.y, p.w, p.h, p.ref, mv);
+    }
+
+    // P mb_types 0-4 (P_L0_16x16, P_L0_L0_16x8, P_L0_L0_8x16, P_8x8, P_8x8ref0)
     void inter_mb(Bits& b, int mb, int t) {
         begin_mb(mb, INTER);
-        Mb& m = mbs[mb];
-        const int n = sh.num_ref_idx_active;
-        struct Part {
-            int x, y, w, h, ref, shape, mvd[2];
-        };
-        std::vector<Part> parts;
-        int8_t pref[16];  // the reference indices read so far, by 4x4 block
-        std::memset(pref, 0, sizeof(pref));
-        auto read_ref = [&](int x, int y, int pw, int ph) -> int {
-            int r = 0;
-            if (n > 1) r = cabac ? cabac_ref(mb, x, y, pref) : n == 2 ? !b.u1() : (int)b.ue();
-            if (r >= n) throw Corrupt("ref_idx_l0 out of range");
-            for (int j = y >> 2; j < (y + ph) >> 2; j++)
-                for (int i = x >> 2; i < (x + pw) >> 2; i++) pref[j * 4 + i] = (int8_t)r;
-            return r;
-        };
+        Part parts[16];
+        int np = 0;
+        int8_t pref[16] = {};
         if (t < 3) {
             for (int i = 0; i < (t == 0 ? 1 : 2); i++) {
-                Part p{};
-                if (t == 0) p = {0, 0, 16, 16, 0, 0, {0, 0}};
-                else if (t == 1) p = {0, 8 * i, 16, 8, 0, 1, {0, 0}};
-                else p = {8 * i, 0, 8, 16, 0, 2, {0, 0}};
-                parts.push_back(p);
+                if (t == 0) parts[np++] = {0, 0, 16, 16, 1, 0, -1, {0, -1}, {}};
+                else if (t == 1) parts[np++] = {0, 8 * i, 16, 8, 1, 1, -1, {0, -1}, {}};
+                else parts[np++] = {8 * i, 0, 8, 16, 1, 2, -1, {0, -1}, {}};
             }
-            for (auto& p : parts) p.ref = read_ref(p.x, p.y, p.w, p.h);
+            for (int k = 0; k < np; k++)
+                parts[k].ref[0] = read_ref(b, mb, 0, parts[k].x, parts[k].y, parts[k].w, parts[k].h, pref);
         } else {
             int sub[4], refs[4] = {0, 0, 0, 0};
             for (int& st : sub) st = cabac ? cabac_sub_type() : (int)ue_max(b, 3, "sub_mb_type");
             if (t == 3)
-                for (int i = 0; i < 4; i++) refs[i] = read_ref(8 * (i & 1), 8 * (i >> 1), 8, 8);
+                for (int i = 0; i < 4; i++) refs[i] = read_ref(b, mb, 0, 8 * (i & 1), 8 * (i >> 1), 8, 8, pref);
             for (int i = 0; i < 4; i++) {
                 const int sx = 8 * (i & 1), sy = 8 * (i >> 1);
                 const int pw = sub[i] < 2 ? 8 : 4, ph = sub[i] == 0 || sub[i] == 2 ? 8 : 4;
                 for (int k = 0; k < 64 / (pw * ph); k++) {
-                    Part p{sx, sy, pw, ph, refs[i], 0, {0, 0}};
+                    Part p{sx, sy, pw, ph, 1, 0, i, {refs[i], -1}, {}};
                     if (sub[i] == 1) p.y += 4 * k;
                     else if (sub[i] == 2) p.x += 4 * k;
                     else if (sub[i] == 3) p.x += 4 * (k & 1), p.y += 4 * (k >> 1);
-                    parts.push_back(p);
+                    parts[np++] = p;
                 }
             }
         }
-        for (auto& p : parts) {  // mvd_l0, in partition order
-            for (int c = 0; c < 2; c++) {
-                if (!cabac) {
-                    p.mvd[c] = b.se();
+        read_mvds(b, mb, parts, np);
+        bool done[16] = {};
+        for (int k = 0; k < np; k++) inter_part(mb, parts[k], done);
+        inter_residual(b, mb);
+    }
+
+    // Table 7-14: the prediction modes (bit 0 list 0, bit 1 list 1) of the
+    // two partitions of B mb_types 4-21, by (mb_type - 4) / 2
+    static constexpr uint8_t kBModes[9][2] = {{1, 1}, {2, 2}, {1, 2}, {2, 1}, {1, 3},
+                                             {2, 3}, {3, 1}, {3, 2}, {3, 3}};
+    // Table 7-18: a B sub_mb_type's prediction mode (0 direct) and shape (0
+    // 8x8, 1 8x4, 2 4x8, 3 4x4)
+    static constexpr uint8_t kBSub[13][2] = {{0, 0}, {1, 0}, {2, 0}, {3, 0}, {1, 1}, {1, 2}, {2, 1},
+                                            {2, 2}, {3, 1}, {3, 2}, {1, 3}, {2, 3}, {3, 3}};
+
+    // B mb_types 0-22 (Table 7-14)
+    void b_mb(Bits& b, int mb, int t) {
+        begin_mb(mb, INTER);
+        Mb& m = mbs[mb];
+        if (t == 0) {  // B_Direct_16x16
+            direct_mb(mb);
+            return inter_residual(b, mb);
+        }
+        Part parts[16];
+        int np = 0;
+        int sub[4] = {-1, -1, -1, -1};
+        if (t <= 3) {
+            parts[np++] = {0, 0, 16, 16, t, 0, -1, {-1, -1}, {}};
+        } else if (t < 22) {
+            const int k = t - 4;
+            for (int i = 0; i < 2; i++)
+                parts[np++] = k & 1 ? Part{8 * i, 0, 8, 16, kBModes[k / 2][i], 2, -1, {-1, -1}, {}}
+                                    : Part{0, 8 * i, 16, 8, kBModes[k / 2][i], 1, -1, {-1, -1}, {}};
+        } else {  // B_8x8
+            for (int& st : sub) st = cabac ? cabac_sub_type() : (int)ue_max(b, 12, "sub_mb_type");
+            for (int i = 0; i < 4; i++) {
+                const int mode = kBSub[sub[i]][0], shape = kBSub[sub[i]][1];
+                if (!mode) {
+                    m.direct |= (uint8_t)(1 << i);
                     continue;
                 }
-                const int sum = abs_mvd(mb, p.x - 1, p.y, c) + abs_mvd(mb, p.x, p.y - 1, c);
-                p.mvd[c] = cabac_mvd(c ? 47 : 40, sum);
-                for (int j = p.y >> 2; j < (p.y + p.h) >> 2; j++)
-                    for (int i = p.x >> 2; i < (p.x + p.w) >> 2; i++)
-                        m.mvd[j * 4 + i][c] = (uint8_t)std::min(std::abs(p.mvd[c]), 70);
+                const int pw = shape == 0 || shape == 1 ? 8 : 4, ph = shape == 0 || shape == 2 ? 8 : 4;
+                for (int k = 0; k < 64 / (pw * ph); k++)
+                    parts[np++] = {8 * (i & 1) + (k * pw) % 8, 8 * (i >> 1) + (k * pw) / 8 * ph, pw, ph,
+                                   mode, 0, i, {-1, -1}, {}};
             }
         }
-        for (auto& p : parts)
-            if (p.ref >= (int)list0.size() || !list0[p.ref])
-                throw Corrupt("a partition names a missing reference picture");
-        bool done[16] = {};
-        for (auto& p : parts) {
-            int mv[2];
-            mvp(mb, p.x, p.y, p.w, p.ref, p.shape, done, mv);
-            mv[0] += p.mvd[0];
-            mv[1] += p.mvd[1];
-            if (mv[0] < -32768 || mv[0] > 32767 || mv[1] < -32768 || mv[1] > 32767)
-                throw Corrupt("a motion vector out of range");
-            set_motion(m, p.x, p.y, p.w, p.h, p.ref, mv);
-            for (int j = p.y >> 2; j < (p.y + p.h) >> 2; j++)
-                for (int i = p.x >> 2; i < (p.x + p.w) >> 2; i++) done[j * 4 + i] = true;
-            predict_inter(mb, p.x, p.y, p.w, p.h, p.ref, mv);
+        int8_t pref[2][16] = {};
+        for (int l = 0; l < 2; l++) {
+            if (t < 22) {
+                for (int k = 0; k < np; k++)
+                    if (parts[k].mode >> l & 1)
+                        parts[k].ref[l] = read_ref(b, mb, l, parts[k].x, parts[k].y, parts[k].w,
+                                                   parts[k].h, pref[l]);
+                continue;
+            }
+            for (int i = 0; i < 4; i++) {
+                if (!(kBSub[sub[i]][0] >> l & 1)) continue;
+                const int r = read_ref(b, mb, l, 8 * (i & 1), 8 * (i >> 1), 8, 8, pref[l]);
+                for (int k = 0; k < np; k++)
+                    if (parts[k].sub == i) parts[k].ref[l] = r;
+            }
         }
+        read_mvds(b, mb, parts, np);
+        bool done[16] = {};
+        if (t < 22) {
+            for (int k = 0; k < np; k++) inter_part(mb, parts[k], done);
+        } else {
+            int dref[2] = {0, 0}, dmv[2][2] = {};
+            if (m.direct && sh.direct_spatial) spatial_direct(mb, dref, dmv);
+            for (int i = 0; i < 4; i++) {
+                if (m.direct >> i & 1) {
+                    direct8(mb, i, dref, dmv);
+                    for (int k = 0; k < 4; k++) done[(2 * (i >> 1) + (k >> 1)) * 4 + 2 * (i & 1) + (k & 1)] = true;
+                    predict_direct(mb, 1 << i);
+                    continue;
+                }
+                for (int k = 0; k < np; k++)
+                    if (parts[k].sub == i) inter_part(mb, parts[k], done);
+            }
+        }
+        inter_residual(b, mb);
+    }
+
+    // coded_block_pattern, mb_qp_delta and the residual of an inter macroblock
+    void inter_residual(Bits& b, int mb) {
+        Mb& m = mbs[mb];
         int cbp = cabac ? cabac_cbp(mb) : kInterCbp[ue_max(b, 47, "coded_block_pattern")];
         m.cbp = (uint8_t)cbp;
         if (cbp) qp_delta(b);
@@ -1981,39 +2250,196 @@ struct Decoder {
         chroma_add(mb, dc, ac);
     }
 
-    // the absolute mvd component c (at most 70) of the partition covering
-    // (x, y) relative to macroblock mb (x or y may be -1); 0 where there is none
-    int abs_mvd(int mb, int x, int y, int c) const {
-        if (x >= 0 && y >= 0) return mbs[mb].mvd[(y >> 2) * 4 + (x >> 2)][c];
-        const int n = mb_addr(mb, x < 0 ? -1 : 0, y < 0 ? -1 : 0);
-        return n < 0 ? 0 : mbs[n].mvd[(((y + 16) & 15) >> 2) * 4 + (((x + 16) & 15) >> 2)][c];
+    // B_Skip and B_Direct_16x16: every 8x8 block in direct mode
+    void direct_mb(int mb) {
+        mbs[mb].direct = 31;
+        int dref[2] = {0, 0}, dmv[2][2] = {};
+        if (sh.direct_spatial) spatial_direct(mb, dref, dmv);
+        for (int i = 0; i < 4; i++) direct8(mb, i, dref, dmv);
+        predict_direct(mb, 15);
     }
 
-    // 8.4.2.2: luma at quarter-sample and chroma at eighth-sample positions
-    void predict_inter(int mb, int x, int y, int pw, int ph, int ref, const int* mv) {
-        const Picture& r = *list0[ref];
-        const int xa = mb % mb_w * 16 + x, ya = mb / mb_w * 16 + y;
+    // 8.4.1.2.2: spatial direct's reference indices (MinPositive of the
+    // neighbours A, B and C of the whole macroblock) and motion vectors
+    void spatial_direct(int mb, int* ref, int (*mv)[2]) const {
+        auto min_positive = [](int a, int b) { return a >= 0 && b >= 0 ? std::min(a, b) : std::max(a, b); };
+        for (int l = 0; l < 2; l++) {
+            const Motion A = motion(mb, -1, 0, nullptr, l), B = motion(mb, 0, -1, nullptr, l);
+            Motion C = motion(mb, 16, -1, nullptr, l);
+            if (!C.avail) C = motion(mb, -1, -1, nullptr, l);
+            ref[l] = min_positive(A.ref, min_positive(B.ref, C.ref));
+            mv[l][0] = mv[l][1] = 0;
+            if (ref[l] >= 0) mvp(mb, 0, 0, 16, ref[l], 0, nullptr, l, mv[l]);
+        }
+        if (ref[0] < 0 && ref[1] < 0) ref[0] = ref[1] = 0;
+    }
+
+    // The motion of 8x8 block i8 in direct mode (8.4.1.2): spatial from the
+    // macroblock's (ref, mv) with colZeroFlag, or temporal; the co-located
+    // block is the corner 4x4 block of the 8x8 block with
+    // direct_8x8_inference_flag, else the same 4x4 block.
+    void direct8(int mb, int i8, const int* dref, const int (*dmv)[2]) {
+        Mb& m = mbs[mb];
+        const Picture& colp = *lists[1][0];
+        const ColMb* col = colp.col.empty() ? nullptr : &colp.col[mb];  // none: grey pictures
+        const int x8 = i8 & 1, y8 = i8 >> 1;
+        auto small = [](const int16_t* v) { return std::abs(v[0]) <= 1 && std::abs(v[1]) <= 1; };
+        for (int k = 0; k < 4; k++) {
+            const int bx = 2 * x8 + (k & 1), by = 2 * y8 + (k >> 1);
+            const int cb = cs->direct8x8 ? 12 * y8 + 3 * x8 : by * 4 + bx;
+            int ref[2], mv[2][2];
+            if (sh.direct_spatial) {
+                for (int l = 0; l < 2; l++) {
+                    ref[l] = dref[l];
+                    mv[l][0] = dmv[l][0];
+                    mv[l][1] = dmv[l][1];
+                }
+                if (col && !col->intra &&
+                    ((col->ref[0][i8] == 0 && small(col->mv[0][cb])) ||
+                     (col->ref[0][i8] < 0 && col->ref[1][i8] == 0 && small(col->mv[1][cb]))))
+                    for (int l = 0; l < 2; l++)
+                        if (ref[l] == 0) mv[l][0] = mv[l][1] = 0;
+            } else {
+                ref[0] = ref[1] = 0;
+                mv[0][0] = mv[0][1] = mv[1][0] = mv[1][1] = 0;
+                if (col && !col->intra) {
+                    const int l = col->ref[0][i8] >= 0 ? 0 : 1;
+                    // MapColToList0 (FFmpeg's fill_colmap): the first list 0
+                    // entry of the frame_num the co-located picture's first
+                    // slice names by refIdxCol, else 0
+                    const int old = col->ref[l][i8];
+                    if (old < colp.ref_cnt[l])
+                        for (int j = 0; j < sh.nref[0]; j++)
+                            if (lists[0][j]->frame_num == colp.ref_fn[l][old]) {
+                                ref[0] = j;
+                                break;
+                            }
+                    const int16_t* mc = col->mv[l][cb];
+                    const int sf = dist_scale[ref[0]];
+                    for (int c = 0; c < 2; c++) {
+                        mv[0][c] = (int16_t)((sf * mc[c] + 128) >> 8);
+                        mv[1][c] = mv[0][c] - mc[c];
+                    }
+                }
+            }
+            for (int l = 0; l < 2; l++) set_motion(m, 4 * bx, 4 * by, 4, 4, l, ref[l], mv[l]);
+        }
+    }
+
+    // Predicts the 8x8 blocks of `mask` in direct mode from their motion:
+    // the macroblock, an 8x8 block or each 4x4 block at once where they
+    // share it (the samples are the same either way)
+    void predict_direct(int mb, int mask) {
+        const Mb& m = mbs[mb];
+        auto same = [&](int a, int b) {
+            for (int l = 0; l < 2; l++)
+                if (m.ref[l][a] != m.ref[l][b] || m.mv[l][a][0] != m.mv[l][b][0] ||
+                    m.mv[l][a][1] != m.mv[l][b][1])
+                    return false;
+            return true;
+        };
+        auto part = [&](int blk, int size) {
+            const int ref[2] = {m.ref[0][blk], m.ref[1][blk]};
+            const int mv[2][2] = {{m.mv[0][blk][0], m.mv[0][blk][1]}, {m.mv[1][blk][0], m.mv[1][blk][1]}};
+            predict(mb, 4 * (blk & 3), 4 * (blk >> 2), size, size, ref, mv);
+        };
+        if (mask == 15) {
+            bool all = true;
+            for (int b = 1; b < 16 && all; b++) all = same(0, b);
+            if (all) return part(0, 16);
+        }
+        for (int i8 = 0; i8 < 4; i8++) {
+            if (!(mask >> i8 & 1)) continue;
+            const int b0 = 8 * (i8 >> 1) + 2 * (i8 & 1);
+            if (same(b0, b0 + 1) && same(b0, b0 + 4) && same(b0, b0 + 5)) {
+                part(b0, 8);
+                continue;
+            }
+            for (int k : {b0, b0 + 1, b0 + 4, b0 + 5}) part(k, 4);
+        }
+    }
+
+    // the absolute mvd component c of list l (at most 70) of the partition
+    // covering (x, y) relative to macroblock mb (x or y may be -1); 0 where
+    // there is none
+    int abs_mvd(int mb, int x, int y, int c, int l) const {
+        if (x >= 0 && y >= 0) return mbs[mb].mvd[l][(y >> 2) * 4 + (x >> 2)][c];
+        const int n = mb_addr(mb, x < 0 ? -1 : 0, y < 0 ? -1 : 0);
+        return n < 0 ? 0 : mbs[n].mvd[l][(((y + 16) & 15) >> 2) * 4 + (((x + 16) & 15) >> 2)][c];
+    }
+
+    // 8.4.2: the prediction of a partition from list 0, list 1 or both
+    // (ref -1: the list is unused): one list's samples (weighted where the
+    // slice is explicitly weighted), or the two combined: explicitly
+    // weighted, implicitly weighted, or averaged
+    void predict(int mb, int x, int y, int pw, int ph, const int* ref, const int (*mv)[2]) {
+        const int xa = mb % mb_w * 16 + x, ya = mb / mb_w * 16 + y, cw = w / 2;
+        uint8_t* dy = cur->y.data() + (size_t)ya * w + xa;
+        uint8_t* du = cur->u.data() + (size_t)(ya / 2) * cw + xa / 2;
+        uint8_t* dv = cur->v.data() + (size_t)(ya / 2) * cw + xa / 2;
+        if (ref[0] < 0 || ref[1] < 0) {
+            const int l = ref[0] >= 0 ? 0 : 1;
+            mc(*lists[l][ref[l]], xa, ya, pw, ph, mv[l], dy, w, du, dv, cw);
+            if (sh.weighted) weight(l, ref[l], dy, du, dv, pw, ph);
+            return;
+        }
+        uint8_t ty[256], tu[64], tv[64];
+        mc(*lists[0][ref[0]], xa, ya, pw, ph, mv[0], dy, w, du, dv, cw);
+        mc(*lists[1][ref[1]], xa, ya, pw, ph, mv[1], ty, 16, tu, tv, 8);
+        const int r0 = ref[0], r1 = ref[1];
+        for (int c = 0; c < 3; c++) {
+            uint8_t* d = c == 0 ? dy : c == 1 ? du : dv;
+            const uint8_t* t = c == 0 ? ty : c == 1 ? tu : tv;
+            const int ds = c ? cw : w, ts = c ? 8 : 16, bw = c ? pw / 2 : pw, bh = c ? ph / 2 : ph;
+            if (sh.weighted) {  // 8.4.2.3.2, explicit
+                const int lwd = sh.log2_wd[c ? 1 : 0];
+                const int w0 = sh.weight[0][r0][c], w1 = sh.weight[1][r1][c];
+                const int o = (sh.offset[0][r0][c] + sh.offset[1][r1][c] + 1) >> 1;
+                for (int j = 0; j < bh; j++)
+                    for (int i = 0; i < bw; i++) {
+                        uint8_t& p = d[(size_t)j * ds + i];
+                        p = clip1(((p * w0 + t[j * ts + i] * w1 + (1 << lwd)) >> (lwd + 1)) + o);
+                    }
+            } else if (implicit && implicit_w[r0][r1] != 32) {  // implicit: logWD 5, offsets 0
+                const int w0 = implicit_w[r0][r1], w1 = 64 - w0;
+                for (int j = 0; j < bh; j++)
+                    for (int i = 0; i < bw; i++) {
+                        uint8_t& p = d[(size_t)j * ds + i];
+                        p = clip1((p * w0 + t[j * ts + i] * w1 + 32) >> 6);
+                    }
+            } else {
+                for (int j = 0; j < bh; j++)
+                    for (int i = 0; i < bw; i++) {
+                        uint8_t& p = d[(size_t)j * ds + i];
+                        p = (uint8_t)((p + t[j * ts + i] + 1) >> 1);
+                    }
+            }
+        }
+    }
+
+    // 8.4.2.2: one list's prediction of a partition at luma (xa, ya): luma at
+    // quarter-sample and chroma at eighth-sample positions, into dy (stride
+    // sy) and du, dv (stride sc)
+    void mc(const Picture& r, int xa, int ya, int pw, int ph, const int* mv, uint8_t* dy, int sy,
+            uint8_t* du, uint8_t* dv, int sc) const {
         const int fx = mv[0] & 3, fy = mv[1] & 3;
         const int ix = xa + (mv[0] >> 2), iy = ya + (mv[1] >> 2);
-        uint8_t* dst = cur->y.data() + (size_t)ya * w + xa;
         if (!fx && !fy && ix >= 0 && iy >= 0 && ix + pw <= w && iy + ph <= h) {  // whole samples
             for (int j = 0; j < ph; j++)
-                std::memcpy(dst + (size_t)j * w, &r.y[(size_t)(iy + j) * w + ix], (size_t)pw);
+                std::memcpy(dy + (size_t)j * sy, &r.y[(size_t)(iy + j) * w + ix], (size_t)pw);
         } else {
-            predict_luma(r, dst, ix, iy, fx, fy, pw, ph);
+            predict_luma(r, dy, sy, ix, iy, fx, fy, pw, ph);
         }
-        predict_chroma(r, xa, ya, pw, ph, mv);
-        if (sh.weighted) weight(ref, xa, ya, pw, ph);
+        predict_chroma(r, xa, ya, pw, ph, mv, du, dv, sc);
     }
 
-    // 8.4.2.3.2: explicit weighted prediction of the partition's samples
-    void weight(int ref, int xa, int ya, int pw, int ph) {
+    // 8.4.2.3.2: explicit weighted prediction of one list's samples
+    void weight(int l, int ref, uint8_t* dy, uint8_t* du, uint8_t* dv, int pw, int ph) {
         for (int c = 0; c < 3; c++) {
-            const int log_wd = sh.log2_wd[c ? 1 : 0], wt = sh.weight[ref][c], of = sh.offset[ref][c];
+            const int log_wd = sh.log2_wd[c ? 1 : 0], wt = sh.weight[l][ref][c], of = sh.offset[l][ref][c];
             if (wt == 1 << log_wd && of == 0) continue;  // the default: the samples as they are
             const int stride = c ? w / 2 : w, s = c ? 1 : 0;
-            uint8_t* d = (c == 0 ? cur->y : c == 1 ? cur->u : cur->v).data() +
-                         (size_t)(ya >> s) * stride + (xa >> s);
+            uint8_t* d = c == 0 ? dy : c == 1 ? du : dv;
             const int round = log_wd ? 1 << (log_wd - 1) : 0;
             for (int j = 0; j < ph >> s; j++)
                 for (int i = 0; i < pw >> s; i++) {
@@ -2023,8 +2449,8 @@ struct Decoder {
         }
     }
 
-    void predict_luma(const Picture& r, uint8_t* dst, int ix, int iy, int fx, int fy, int pw,
-                      int ph) const {
+    void predict_luma(const Picture& r, uint8_t* dst, int stride, int ix, int iy, int fx, int fy,
+                      int pw, int ph) const {
         // window of (pw + 5) x (ph + 5) samples from (ix - 2, iy - 2), clamped
         int win[21][21];
         for (int j = 0; j < ph + 5; j++) {
@@ -2070,24 +2496,25 @@ struct Decoder {
                     case 14: v = (jj(i, j) + bb(i, j + 1) + 1) >> 1; break;    // q
                     default: v = (hh(i + 1, j) + bb(i, j + 1) + 1) >> 1; break;  // r
                 }
-                dst[(size_t)j * w + i] = (uint8_t)v;
+                dst[(size_t)j * stride + i] = (uint8_t)v;
             }
     }
 
-    void predict_chroma(const Picture& r, int xa, int ya, int pw, int ph, const int* mv) {
+    void predict_chroma(const Picture& r, int xa, int ya, int pw, int ph, const int* mv, uint8_t* du,
+                        uint8_t* dv, int stride) const {
         const int cw = w / 2, chh = h / 2;
         const int cx = xa / 2 + (mv[0] >> 3), cy = ya / 2 + (mv[1] >> 3);
         const int ex = mv[0] & 7, ey = mv[1] & 7;
         for (int c = 0; c < 2; c++) {
             const auto& src = c ? r.v : r.u;
-            uint8_t* d = (c ? cur->v : cur->u).data() + (size_t)(ya / 2) * cw + xa / 2;
+            uint8_t* d = c ? dv : du;
             for (int j = 0; j < ph / 2; j++) {
                 const int y0 = clip3(0, chh - 1, cy + j), y1 = clip3(0, chh - 1, cy + j + 1);
                 for (int i = 0; i < pw / 2; i++) {
                     const int x0 = clip3(0, cw - 1, cx + i), x1 = clip3(0, cw - 1, cx + i + 1);
                     const int A = src[(size_t)y0 * cw + x0], B = src[(size_t)y0 * cw + x1];
                     const int C = src[(size_t)y1 * cw + x0], D = src[(size_t)y1 * cw + x1];
-                    d[(size_t)j * cw + i] = (uint8_t)(((8 - ex) * (8 - ey) * A + ex * (8 - ey) * B +
+                    d[(size_t)j * stride + i] = (uint8_t)(((8 - ex) * (8 - ey) * A + ex * (8 - ey) * B +
                                                        (8 - ex) * ey * C + ex * ey * D + 32) >> 6);
                 }
             }
@@ -2097,13 +2524,23 @@ struct Decoder {
     // --------------------------------------------------- deblocking
     static bool intra(const Mb& m) { return m.kind == I4 || m.kind == I16 || m.kind == PCM; }
 
-    int strength(const Mb& p, int bp, const Mb& q, int bq, bool mb_edge) const {
+    // bS (8.7.2.1) of the edge between 4x4 blocks bp of p and bq of q, as
+    // FFmpeg's check_mv compares motion: the pictures each list refers to
+    // (-1 unused, mv 0), and in a B slice (q's) both lists, straight and
+    // crossed where the two blocks refer to the same pictures
+    int strength(const Mb& p, int bp, const Mb& q, int bq, bool mb_edge, bool two) const {
         if (intra(p) || intra(q)) return mb_edge ? 4 : 3;
         if (p.nz[bp] || q.nz[bq]) return 2;
-        if (p.refpic[bp] != q.refpic[bq]) return 1;
-        if (std::abs(p.mv[bp][0] - q.mv[bq][0]) >= 4 || std::abs(p.mv[bp][1] - q.mv[bq][1]) >= 4)
-            return 1;
-        return 0;
+        auto far = [](const int16_t* a, const int16_t* b) {
+            return std::abs(a[0] - b[0]) >= 4 || std::abs(a[1] - b[1]) >= 4;
+        };
+        bool v = p.refpic[0][bp] != q.refpic[0][bq];
+        if (!v && p.refpic[0][bp] != -1) v = far(p.mv[0][bp], q.mv[0][bq]);
+        if (!two) return v;
+        if (!v) v = p.refpic[1][bp] != q.refpic[1][bq] || far(p.mv[1][bp], q.mv[1][bq]);
+        if (!v) return 0;
+        if (p.refpic[0][bp] != q.refpic[1][bq] || p.refpic[1][bp] != q.refpic[0][bq]) return 1;
+        return far(p.mv[0][bp], q.mv[1][bq]) || far(p.mv[1][bp], q.mv[0][bq]);
     }
 
     // Filters the samples across one edge: `pix` the first q0 sample, `step`
@@ -2180,10 +2617,10 @@ struct Decoder {
             int bs[2][4][4];  // [vertical/horizontal][edge][segment]
             for (int e = 0; e < 4; e++)
                 for (int k = 0; k < 4; k++) {
-                    bs[0][e][k] = e ? strength(q, k * 4 + e - 1, q, k * 4 + e, false)
-                                    : left ? strength(mbs[mb - 1], k * 4 + 3, q, k * 4, true) : 0;
-                    bs[1][e][k] = e ? strength(q, (e - 1) * 4 + k, q, e * 4 + k, false)
-                                    : top ? strength(mbs[mb - mb_w], 12 + k, q, k, true) : 0;
+                    bs[0][e][k] = e ? strength(q, k * 4 + e - 1, q, k * 4 + e, false, s.b)
+                                    : left ? strength(mbs[mb - 1], k * 4 + 3, q, k * 4, true, s.b) : 0;
+                    bs[1][e][k] = e ? strength(q, (e - 1) * 4 + k, q, e * 4 + k, false, s.b)
+                                    : top ? strength(mbs[mb - mb_w], 12 + k, q, k, true, s.b) : 0;
                 }
             uint8_t* py = cur->y.data() + (size_t)my * 16 * w + mx * 16;
             for (int dir = 0; dir < 2; dir++) {
@@ -2227,7 +2664,17 @@ struct Decoder {
         PicPtr pic = cur;
         cur = nullptr;
         const SliceHeader& s = first_header;
-        if (s.ref_idc) {
+        if (s.ref_idc) {  // what a later B slice's direct prediction reads
+            pic->col.resize(mbs.size());
+            for (size_t i = 0; i < mbs.size(); i++) {
+                const Mb& m = mbs[i];
+                ColMb& c = pic->col[i];
+                c.intra = intra(m);
+                for (int l = 0; l < 2; l++) {
+                    for (int k = 0; k < 4; k++) c.ref[l][k] = m.ref[l][8 * (k >> 1) + 2 * (k & 1)];
+                    std::memcpy(c.mv[l], m.mv[l], sizeof(c.mv[l]));
+                }
+            }
             if (s.idr) {
                 refs.clear();
             } else if (s.adaptive) {
@@ -2280,8 +2727,8 @@ struct Decoder {
             }
         }
         int out_of_order = kMaxDelayed - i;
-        if (last_pocs[kMaxDelayed - 2] > INT_MIN &&
-            (int64_t)last_pocs[kMaxDelayed - 1] - last_pocs[kMaxDelayed - 2] > 2)
+        if (cur_pic->b_type || (last_pocs[kMaxDelayed - 2] > INT_MIN &&
+                                (int64_t)last_pocs[kMaxDelayed - 1] - last_pocs[kMaxDelayed - 2] > 2))
             out_of_order = std::max(out_of_order, 1);
         if (out_of_order == kMaxDelayed) {
             for (int k = 1; k < kMaxDelayed; k++) last_pocs[k] = INT_MIN;
@@ -2510,6 +2957,17 @@ int crt_h264_bgr(void* h, uint8_t* out, long size) {
     d->to_bgr(out);
     return 0;
 }
+
+// The output delay the decoder starts with (FFmpeg's has_b_frames as the
+// demuxer's video_delay sets it: libavformat's mov estimates it from the
+// composition offsets); it only grows, and a flush keeps it.
+void crt_h264_set_delay(void* h, int delay) {
+    Decoder* d = static_cast<Decoder*>(h);
+    d->has_b_frames = std::max(d->has_b_frames, std::min(std::max(delay, 0), kMaxDelayed - 1));
+}
+
+// The output delay reached (has_b_frames).
+int crt_h264_delay(void* h) { return static_cast<Decoder*>(h)->has_b_frames; }
 
 // avcodec_flush_buffers: drops the pictures held back and the references;
 // what is shown next starts as at the start of a stream.

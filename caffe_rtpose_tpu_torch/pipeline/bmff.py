@@ -9,21 +9,26 @@ the VOL headers; for ``avc1`` and ``avc3`` the ``avcC`` record, which
 holds H.264's SPS and PPS and its NAL length size), ``stts`` with
 ``mdhd``'s timescale, ``stsc`` (any number
 of runs), ``stsz`` (uniform or a table), ``stco`` or ``co64``, ``stss``
-(where absent every sample is a key frame) and ``elst``:
+(where absent every sample is a key frame), ``ctts`` and ``elst``:
 
+* ``ctts`` (H.264 tracks: B pictures): each sample's pts is its dts plus
+  its composition offset (read signed, versions 0 and 1); seeks then
+  compare decode times, the stream starts at the first sample's pts, and
+  the track's video delay is libavformat's estimate from the offsets;
 * one edit from ``media_time`` M >= 0 lasting D: the samples before the
   key frame at or before M are dropped, those from it up to M and from
   M + D on are decoded but not shown (libavformat's discard flag), up to
-  the first key frame whose end reaches M + D, and every timestamp is
-  shifted by -M;
+  the first key frame whose end reaches M + D (the second with ``ctts``,
+  as B pictures may follow it), and every timestamp is shifted by -M;
 * empty edits first (``media_time`` -1) delay every timestamp by their
   duration.
 
 ``fps`` is the track's ``avg_frame_rate`` (timescale x samples / the
 ``stts`` duration, ``CAP_PROP_FPS``) and ``frame_count`` its sample count
 (``CAP_PROP_FRAME_COUNT``).  Fragmented files (``moof``/``mvex``), non-zero
-``ctts`` composition offsets (B-frames), other edit lists, ``stz2`` and
-several sample descriptions raise :class:`BmffRefused` naming them.
+``ctts`` composition offsets on other tracks than H.264 (MPEG-4 B-VOPs),
+other edit lists, ``stz2`` and several sample descriptions raise
+:class:`BmffRefused` naming them.
 """
 
 from __future__ import annotations
@@ -53,6 +58,7 @@ class Sample:
     pts: int  # in the stream's time base (MP4: after the edit list)
     key: bool
     discard: bool = False  # decoded but not shown (outside an MP4 edit)
+    dts: Optional[int] = None  # what a seek compares, where it differs from pts (MP4 ctts)
 
 
 @dataclass
@@ -66,6 +72,7 @@ class Track:
     object_type: Optional[int] = None
     start_pts: int = 0  # the first shown sample's timestamp
     nal_length: int = 0  # H.264: bytes of each NAL unit's length prefix (avcC)
+    video_delay: int = 0  # H.264 with composition offsets: the reordering they show
 
 
 def _boxes(f: BinaryIO, start: int, end: int):
@@ -237,9 +244,9 @@ def _track(f, a, b, mdia, movie_scale) -> Track:
             if nal_length == 3:
                 raise BmffError("avcC lengthSizeMinusOne 2")
         pos += n
-    ctts = _table(f, box.get("ctts"), "Ii")
-    if ctts and any(off for _, off in ctts):
-        raise BmffRefused("composition offsets (ctts: B-frames or reordering)")
+    ctts = _table(f, box.get("ctts"), "Ii")  # signed, as libavformat reads both versions
+    if ctts and any(off for _, off in ctts) and fourcc not in ("avc1", "avc3"):
+        raise BmffRefused("composition offsets (ctts: B-frames or reordering) outside H.264")
     stts = _table(f, box["stts"], "II")
     stsc = _table(f, box["stsc"], "III")
     if entries > 1 and any(d != 1 for _, _, d in stsc):
@@ -282,8 +289,16 @@ def _track(f, a, b, mdia, movie_scale) -> Track:
             t += d
     if len(dts) < count:
         raise BmffError(f"stts times {len(dts)} of {count} samples")
-    samples = [Sample(p, s, dts[i], keys is None or i in keys)
-               for i, (p, s) in enumerate(zip(positions, sizes))]
+    offsets = [off for n, off in ctts or () for _ in range(n)]
+    if ctts and any(offsets):
+        if len(offsets) < count:
+            raise BmffError(f"ctts offsets {len(offsets)} of {count} samples")
+        # each sample's pts its dts plus its offset
+        samples = [Sample(p, s, dts[i] + offsets[i], keys is None or i in keys, dts=dts[i])
+                   for i, (p, s) in enumerate(zip(positions, sizes))]
+    else:
+        samples = [Sample(p, s, dts[i], keys is None or i in keys)
+                   for i, (p, s) in enumerate(zip(positions, sizes))]
     duration = sum(n * d for n, d in stts)
     nb = sum(n for n, _ in stts)
     fps = scale * nb / duration if duration > 0 and nb > 0 else 0.0
@@ -292,7 +307,23 @@ def _track(f, a, b, mdia, movie_scale) -> Track:
     start = 0
     if edts is not None:
         samples, start = _edit(_read(f, *edts), samples, durations, scale, movie_scale)
-    return Track(fourcc, scale, fps, count, samples, extra, oti, start, nal_length)
+    delay = 0
+    if samples and samples[0].dts is not None:
+        start = samples[0].pts  # the stream's start_time: its first sample's pts
+        delay = _video_delay([s.pts for s in samples])
+    return Track(fourcc, scale, fps, count, samples, extra, oti, start, nal_length, delay)
+
+
+def _video_delay(pts: List[int]) -> int:
+    """libavformat's mov_estimate_video_delay: the most samples decoded
+    before one that show after it (within a window of 17)."""
+    window: List[int] = []
+    delay = 0
+    for p in pts:
+        window = window[-16:]
+        delay = max(delay, sum(q > p for q in window))
+        window.append(p)
+    return delay
 
 
 def _edit(elst: bytes, samples: List[Sample], durations: List[int], scale: int,
@@ -313,14 +344,20 @@ def _edit(elst: bytes, samples: List[Sample], durations: List[int], scale: int,
     end = media_time + span if span else None
     first = 0
     for i, s in enumerate(samples):
-        if s.pts <= media_time and s.key:
+        if s.pts <= media_time and s.key and (s.dts is None or s.dts <= media_time):
             first = i
-    out = []
+    out, keys_after = [], 0
     for i in range(first, len(samples)):
         s = samples[i]
         shown = media_time <= s.pts and (end is None or s.pts < end)
-        out.append(Sample(s.pos, s.size, s.pts - media_time + delay, s.key, not shown))
-        # mov_fix_index stops after the first key frame reaching the edit's end
+        # with composition offsets a seek compares decode times, from the
+        # first sample kept (libavformat's edit_list_dts_counter)
+        dts = None if s.dts is None else s.dts - samples[first].dts
+        out.append(Sample(s.pos, s.size, s.pts - media_time + delay, s.key, not shown, dts))
+        # mov_fix_index stops after the first key frame reaching the edit's
+        # end (with composition offsets, the second: B pictures may follow)
         if end is not None and s.key and s.pts + durations[i] >= end:
-            break
+            keys_after += 1
+            if s.dts is None or keys_after == 2:
+                break
     return out, delay

@@ -3,10 +3,12 @@
 
 :class:`H264Decoder` decodes the packets (access units) of one stream in
 order, as FFmpeg's ``h264`` decoder decodes them for ``cv2.VideoCapture``:
-Main profile and Constrained Baseline I/P streams (CAVLC or CABAC, I and
-P slices with explicit weighted prediction, 4:2:0 8-bit progressive
-frames), with FFmpeg's output order and delay and the pictures it shows
-from a stream's start or a flush, and each picture, cropped,
+Main profile and Constrained Baseline streams (CAVLC or CABAC; I, P and B
+slices with explicit weighted prediction of P, direct prediction and
+default, explicit or implicit weighted bi-prediction of B; 4:2:0 8-bit
+progressive frames), with FFmpeg's output order and delay (from the
+demuxer's video delay on) and the pictures it shows from a stream's start
+or a flush, and each picture, cropped,
 as BGR the way OpenCV receives it from swscale (limited or, with the VUI's
 ``video_full_range_flag``, full range).  A stream feature the decoder does
 not take raises :class:`H264Unsupported` naming it; data that does not
@@ -69,6 +71,10 @@ def load() -> ctypes.CDLL:
         lib.crt_h264_drain.argtypes = [vp, lp]
         lib.crt_h264_bgr.restype = i
         lib.crt_h264_bgr.argtypes = [vp, vp, l]
+        lib.crt_h264_set_delay.restype = None
+        lib.crt_h264_set_delay.argtypes = [vp, i]
+        lib.crt_h264_delay.restype = i
+        lib.crt_h264_delay.argtypes = [vp]
         lib.crt_h264_flush.restype = None
         lib.crt_h264_flush.argtypes = [vp]
         lib.crt_h264_destroy.restype = None
@@ -89,9 +95,13 @@ class H264Decoder:
     packets (an MP4 ``avcC`` record, or Annex B units from an AVI's
     ``strf``), or empty where the packets carry them; ``nal_length_size``:
     bytes of the length before each NAL unit of a packet (MP4: 1, 2 or 4),
-    or 0 where packets use Annex B start codes (AVI)."""
+    or 0 where packets use Annex B start codes (AVI); ``delay``: the output
+    delay (FFmpeg's ``has_b_frames``) to start with, as the demuxer's
+    ``video_delay`` sets it."""
 
-    def __init__(self, extra: bytes = b"", nal_length_size: int = 0, name: str = "<h264>"):
+    def __init__(self, extra: bytes = b"", nal_length_size: int = 0, name: str = "<h264>",
+                 delay: int = 0):
+        self._h = None
         self._lib = load()
         self.name = name
         self._h = self._lib.crt_h264_create()
@@ -100,6 +110,7 @@ class H264Decoder:
         try:
             _check(self._lib.crt_h264_config(self._h, bytes(extra), len(extra), nal_length_size,
                                              self._err, len(self._err)), self._err, name)
+            self._lib.crt_h264_set_delay(self._h, delay)
         except BaseException:
             self.close()
             raise
@@ -123,6 +134,11 @@ class H264Decoder:
         given (it may be an earlier packet's, ``tag`` tells which)."""
         return self._got(self._lib.crt_h264_decode(self._h, bytes(packet), len(packet), tag,
                                                    self._info, self._err, len(self._err)))
+
+    @property
+    def delay(self) -> int:
+        """The output delay reached (FFmpeg's ``has_b_frames``)."""
+        return self._lib.crt_h264_delay(self._h)
 
     def drain(self) -> bool:
         """At the end of the stream: True where a held-back picture is given."""

@@ -3,7 +3,7 @@ walked with ``struct``) and MP4/QuickTime (ISO BMFF, ``bmff.py``), their
 Motion-JPEG frames decoded by the port's JPEG codec (``jpeg.py``), their
 MPEG-4 Part 2 frames by the port's MPEG-4 decoder (``mpeg4.py``) and their
 H.264 frames by the port's H.264 decoder (``h264.py``: Main profile and
-Constrained Baseline, I and P slices, CAVLC or CABAC).
+Constrained Baseline, I, P and B slices, CAVLC or CABAC).
 
 The readers have what ``runner.frame_source`` uses of ``cv2.VideoCapture``
 and give, for the same file, what the JAX package's reader gives:
@@ -42,10 +42,15 @@ ISO BMFF.
   FFMPEG passes it; one that does not decode ends a sequential read (FFMPEG
   conceals the damage and goes on).  H.264: the same, with FFmpeg's output
   order and delay (a picture may come out after later packets, and the
-  pictures held back come out at the end); from the start and after a
-  seek, pictures show from where FFmpeg's do (an IDR picture, a recovery
-  point SEI, or an I picture with few references); a packet that does not
-  decode raises ValueError (no concealment).
+  pictures held back come out at the end), starting from the delay
+  OpenCV's decoder is opened with (MP4: libavformat's estimate from
+  ``ctts``; AVI: what avformat_find_stream_info's decode of the first
+  packets reached); from the start and after a seek, pictures show from
+  where FFmpeg's do (an IDR picture, a recovery point SEI, or an I picture
+  with few references); a packet that does not decode raises ValueError
+  (no concealment).  Frame numbers (for seeks) come from each picture's
+  own pts in MP4, and in AVI, whose packets carry none, from the dts of
+  the packet whose decode gave the picture, as OpenCV takes them.
 * **fps**: AVI: the stream header's dwRate / dwScale (libavformat's
   fallbacks where either is 0); MP4: the track's average frame rate;
   ``CAP_PROP_FPS``.  **frame_count**: dwLength, or the track's sample
@@ -99,6 +104,8 @@ _INDEX_HEADER = struct.Struct("<HBBI4sQI")  # OpenDML indx / ix## (24 bytes)
 _AVIIF_KEYFRAME = 0x10
 _SEEK_DELTA = 16  # CvCapture_FFMPEG::seek's first step back
 _INT_MAX = 2**31 - 1
+_NOPTS = -(2**63)  # AV_NOPTS_VALUE
+_FPS_PROBE_FRAMES = 20  # avformat_find_stream_info's fps_analyze_framecount
 SEQUENCE_FPS = 25.0  # the image2 demuxer's default framerate
 _SEQUENCE_START_RANGE = 5  # image2's start_number_range: the first file is numbered 0 to 4
 _SINGLE_IMAGE_COUNT = -(2**63)  # CAP_PROP_FRAME_COUNT of one image (its duration is unset)
@@ -143,7 +150,7 @@ def _unsupported(path: str, why: str) -> UnsupportedVideo:
     return UnsupportedVideo(
         f"{path}: {container} container, video fourcc {fourcc}: {why}; without OpenCV the "
         f"port reads Motion-JPEG, MPEG-4 Part 2 (Simple Profile, I/P) and H.264 "
-        f"(Main profile and Constrained Baseline, I/P) in AVI, MP4 and QuickTime, so this file "
+        f"(Main profile and Constrained Baseline, I/P/B) in AVI, MP4 and QuickTime, so this file "
         f"needs OpenCV (cv2)")
 
 
@@ -177,6 +184,7 @@ class _Reader:
 
     _header_bytes = 0  # bytes before a frame's data at its pos
     _seek_before_first_to_start = False  # mov: a seek before the first entry lands on it
+    _number_by_trigger = False  # H.264 pictures numbered by the packet that gave them (AVI)
 
     def __init__(self, path: str):
         self.path = path
@@ -188,8 +196,11 @@ class _Reader:
             self._size = os.fstat(self._f.fileno()).st_size
             self._extra = b""
             self._nal_length = 0
+            self._video_delay = 0
             self._parse()
-            self._pts = [f.pts for f in self.frames]
+            # what a seek compares: the pts, or with MP4 composition
+            # offsets the decode time (libavformat searches its index by dts)
+            self._pts = [f.pts if f.dts is None else f.dts for f in self.frames]
             if self.codec == "mpeg4":
                 self._open_mpeg4()
             elif self.codec == "h264":
@@ -242,13 +253,37 @@ class _Reader:
         packets; the parameter sets and slice headers of the first packets
         are checked so that refused features are refused here."""
         try:
-            self._decoder = H264Decoder(self._extra, self._nal_length, self.path)
+            if self._number_by_trigger:
+                self._video_delay = self._probe_delay()
+            self._decoder = H264Decoder(self._extra, self._nal_length, self.path,
+                                        self._video_delay)
             for i in range(min(len(self.frames), _PROBE_PACKETS)):
                 self._decoder.probe(self.packet(i))
         except H264Unsupported as e:
             raise _unsupported(self.path, f"H.264 feature refused: {e}") from None
         except ValueError as e:
             raise _unsupported(self.path, f"H.264 headers do not decode: {e}") from None
+
+    def _probe_delay(self) -> int:
+        """The output delay avformat_find_stream_info leaves an AVI's H.264
+        stream: it reads on (the time base of H.264 counts as unreliable, so
+        it looks for 40 frame durations) and decodes packets until it has
+        had 7 pictures (18 once the delay is 3, 20 from 4) or the end, and
+        the decoder OpenCV opens starts with the delay that decode reached.
+        A packet that does not decode ends the probe."""
+        dec = H264Decoder(self._extra, self._nal_length, self.path)
+        try:
+            got = 0
+            for i in range(min(len(self.frames), 2 * _FPS_PROBE_FRAMES)):
+                need = 7 if dec.delay < 3 else 18 if dec.delay < 4 else 20
+                if got >= need:
+                    break
+                got += dec.advance(self.packet(i), i)
+            return dec.delay
+        except ValueError:
+            return dec.delay
+        finally:
+            dec.close()
 
     # --------------------------------------------------------------- frames
 
@@ -280,24 +315,26 @@ class _Reader:
                 return None
             if not shown or f.discard:
                 continue
-            self._shown(f)
+            self._shown(f.pts)
             return data
         return None
 
-    def _shown(self, f: Sample) -> None:
+    def _shown(self, pts: int) -> None:
         if self._first_pts is None:
-            self._first_pts = f.pts
-        self._last_pts = f.pts
+            self._first_pts = pts
+        self._last_pts = pts
 
     def _grab_h264(self) -> Optional[bytes]:
         dec = self._decoder
         while True:
             data = b""
+            trigger: Optional[int] = None  # the packet whose decode gave the picture
             try:
                 if self._next < len(self.frames):
                     self._next += 1
-                    data = self.packet(self._next - 1)
-                    shown = dec.advance(data, self._next - 1)
+                    trigger = self._next - 1
+                    data = self.packet(trigger)
+                    shown = dec.advance(data, trigger)
                 elif not dec.drain():
                     return None
                 else:
@@ -312,7 +349,12 @@ class _Reader:
             f = self.frames[dec.tag]
             if f.discard:
                 continue
-            self._shown(f)
+            if self._number_by_trigger:
+                # AVI packets carry no pts: OpenCV numbers a picture by the
+                # dts of the packet whose decode gave it (none at the end)
+                self._shown(_NOPTS if trigger is None else self.frames[trigger].pts)
+            else:
+                self._shown(f.pts)
             return data
 
     def read(self) -> Tuple[bool, Optional[np.ndarray]]:
@@ -554,7 +596,7 @@ class SequenceReader(_Reader):
 
 class Mp4Reader(_Reader):
     """An MP4 or QuickTime file of MPEG-4 Part 2 (``mp4v``), H.264 (``avc1``,
-    ``avc3``: Main profile I/P) or Motion-JPEG (``jpeg``) video, read
+    ``avc3``: Main profile) or Motion-JPEG (``jpeg``) video, read
     frame by frame as ``cv2.VideoCapture`` (FFMPEG) reads it.  Raises
     OSError when the file cannot be read and :class:`UnsupportedVideo` for
     any other file."""
@@ -583,17 +625,19 @@ class Mp4Reader(_Reader):
         self.fps = track.fps or float(track.timescale)
         self.frame_count = track.frame_count
         self._start_time = track.start_pts
+        self._video_delay = track.video_delay
         self._extra = track.extra
         self.frames = track.samples
 
 
 class AviReader(_Reader):
-    """A Motion-JPEG, MPEG-4 Part 2 or H.264 (Annex B, Main profile I/P) AVI
+    """A Motion-JPEG, MPEG-4 Part 2 or H.264 (Annex B, Main profile) AVI
     file, read frame by frame as ``cv2.VideoCapture`` (FFMPEG) reads it.
     Raises OSError when the file cannot be read and
     :class:`UnsupportedVideo` for any other file."""
 
     _header_bytes = 8
+    _number_by_trigger = True
 
 
     # ------------------------------------------------------------ container

@@ -51,17 +51,20 @@ Phases, each of which raises (non-zero exit) on failure:
                MPEG-4 decoder's g++ build time (csrc/mpeg4_video.cpp);
                then each H.264 stream of tests/h264_cases.py (written
                from seeds there: Constrained Baseline and Main profile,
-               CAVLC and CABAC, weighted P, MP4, QuickTime, AVI, avc3,
-               POC types 0 and 2, both ranges, cropped sizes, output
-               delay, streams that start on a non-IDR picture) and its
-               committed 1280x720 clips tests/data/h264_720p.mp4 (CAVLC)
-               and h264_cabac_720p.mp4 (the same frames in CABAC) against
-               the pins tests/test_torch_h264.py holds (cv2's frames, bit
-               for bit), each refused stream raising UnsupportedVideo
-               naming its feature; the H.264 decoder's g++ build time
-               (csrc/h264_video.cpp) and host ms a frame of each 720p
-               clip's container read and H.264 decode apart (median of
-               24, the clips in turns);
+               CAVLC and CABAC, weighted P, B slices (spatial and temporal
+               direct, explicit and implicit weighted bi-prediction,
+               reference B pictures, open GOPs), MP4 with and without
+               ctts and elst, QuickTime, AVI, avc3, POC types 0 and 2,
+               both ranges, cropped sizes, output delay, streams that
+               start on a non-IDR picture) and its committed 1280x720
+               clips tests/data/h264_720p.mp4 (CAVLC), h264_cabac_720p.mp4
+               (the same frames in CABAC) and h264_b_720p.mp4 (I P B B in
+               CABAC) against the pins tests/test_torch_h264.py holds
+               (cv2's frames, bit for bit), each refused stream raising
+               UnsupportedVideo naming its feature; the H.264 decoder's
+               g++ build time (csrc/h264_video.cpp) and host ms a frame of
+               each 720p clip's container read and H.264 decode apart
+               (median of 24, the clips in turns);
                host ms (median of 20, in turns) of a 1280x720 q95 4:2:0
                frame through the Motion-JPEG decoder (FFmpeg's arithmetic)
                and through decode_jpeg (libjpeg's); the hand kernels'
@@ -184,15 +187,16 @@ Phases, each of which raises (non-zero exit) on failure:
                --start_frame 3 (a P-frame) equal to the first run's, FPS
                of each, and the host ms a frame of the container read and
                of the MPEG-4 decode apart.  Then rtpose --video on the
-               committed H.264 clips tests/data/h264_720p.mp4 and
+               committed H.264 clips tests/data/h264_720p.mp4,
                h264_cabac_720p.mp4 (the same 8 1280x720 frames coded by
                tests/h264_cases.encode_clip in CAVLC and in CABAC: an IDR
-               picture, then P pictures), in turns with the MPEG-4 clip
+               picture, then P pictures) and h264_b_720p.mp4 (the same
+               frames as I P B B in CABAC), in turns with the MPEG-4 clip
                and a q95 Motion-JPEG AVI of the H.264 decode (h264, cabac,
-               mp4, avi, twice): the decoded frames' digest equal to
-               cv2's (pinned), every h264 JSON equal to estimate() on the
-               port's decode of its frame and every cabac JSON to the
-               h264 run's, launches equal to the other runs' (K1 4, K4
+               b, mp4, avi, twice): the decoded frames' digests equal to
+               cv2's (pinned), every h264 and b JSON equal to estimate()
+               on the port's decode of its frame and every cabac JSON to
+               the h264 run's, launches equal to the other runs' (K1 4, K4
                4), --start_frame 3 on each clip equal to the first run's,
                FPS of each.
    serving   - serving bundles (serving.py): the bf16 batch-8 estimator
@@ -1051,11 +1055,11 @@ def phase_video(card):
     MPEG-4 digests are cv2's frames).  The MPEG-4 decoder's g++ build
     (csrc/mpeg4_video.cpp) is timed.  Then each H.264 stream of
     tests/h264_cases.py (Constrained Baseline and Main profile: CABAC,
-    weighted P, streams that start on a non-IDR picture) and its two 720p
-    clips (the same frames in CAVLC and in CABAC) against their pins, each
-    refused stream by its message, the H.264 decoder's g++ build
-    (csrc/h264_video.cpp) and its decode of each 720p clip a frame, in
-    turns.  It launches none of K1-K4."""
+    weighted P, streams that start on a non-IDR picture, B slices) and its
+    three 720p clips (the same frames in CAVLC and in CABAC, and I P B B in
+    CABAC) against their pins, each refused stream by its message, the
+    H.264 decoder's g++ build (csrc/h264_video.cpp) and its decode of each
+    720p clip a frame, in turns.  It launches none of K1-K4."""
     import os
 
     from caffe_rtpose_tpu_torch.pipeline import h264, mpeg4, runner, video
@@ -1113,7 +1117,8 @@ def phase_video(card):
         h264.load()
         h264_build_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        clips = {"h264_720p": hc.CLIP_720P, "h264_cabac_720p": hc.CLIP_CABAC_720P}
+        clips = {"h264_720p": hc.CLIP_720P, "h264_cabac_720p": hc.CLIP_CABAC_720P,
+                 "h264_b_720p": hc.CLIP_B_720P}
         for name in [*hc.CASES, *clips]:
             path = clips.get(name)
             if path is None:
@@ -1144,17 +1149,27 @@ def phase_video(card):
         readers = {name: video.open_reader(path) for name, path in clips.items()}
         h264_read_ms = {name: [] for name in clips}
         h264_decode_ms = {name: [] for name in clips}
-        for _ in range(3):  # the two clips in turns
+        for _ in range(3):  # the clips in turns
             for name, reader in readers.items():
-                dec = h264.H264Decoder(reader._extra, reader._nal_length, clips[name])
-                for i in range(len(reader.frames)):
+                # a picture a packet (the B clip's are held back one
+                # packet, num_reorder_frames 1), the last one at the end
+                dec = h264.H264Decoder(reader._extra, reader._nal_length, clips[name],
+                                       reader._video_delay)
+                n = len(reader.frames)
+                for i in range(n):
                     t0 = time.perf_counter()
                     data = reader.packet(i)
                     t1 = time.perf_counter()
-                    check(dec.advance(data, i), f"{tag} {name}'s frame {i} gave no picture")
-                    dec.picture()
+                    got = dec.advance(data, i)
+                    check(got or (i == 0 and dec.delay), f"{tag} {name}'s packet {i} gave no picture")
+                    if got:
+                        dec.picture()
+                    if i == n - 1 and dec.delay:  # the picture held back, at the end
+                        check(dec.drain(), f"{tag} {name} held no picture back")
+                        dec.picture()
                     h264_read_ms[name].append((t1 - t0) * 1000.0)
                     h264_decode_ms[name].append((time.perf_counter() - t1) * 1000.0)
+                check(not dec.drain(), f"{tag} {name} held more than one picture back")
                 dec.close()
         h264_frame_bytes = {name: os.path.getsize(clips[name]) // len(reader.frames)
                             for name, reader in readers.items()}
@@ -1195,7 +1210,7 @@ def phase_video(card):
           f"pins, in {mp4_secs:.2f} s; {card}")
     decode_ms = {name: statistics.median(ms) for name, ms in h264_decode_ms.items()}
     print(f"{tag} H.264 decoder g++ build (csrc/h264_video.cpp) {h264_build_s:.2f} s; "
-          f"{len(hc.CASES)} streams ({', '.join(hc.CASES)}) and the two 1280x720 clips, cv2 "
+          f"{len(hc.CASES)} streams ({', '.join(hc.CASES)}) and the three 1280x720 clips, cv2 "
           f"blocked: count, fps, reads, seeks and frame digests "
           f"{'equal' if not differ else 'DIFFER from'} the pins; {len(hc.REFUSED)} refused "
           f"streams each named; in {h264_secs:.2f} s; host ms a 1280x720 frame (median of "
@@ -1204,7 +1219,9 @@ def phase_video(card):
                       f"{statistics.median(h264_read_ms[name]):.4f}, H.264 decode and BGR "
                       f"{decode_ms[name]:.3f} (range {min(h264_decode_ms[name]):.3f}-"
                       f"{max(h264_decode_ms[name]):.3f})" for name in clips)
-          + f"; CABAC/CAVLC {decode_ms['h264_cabac_720p'] / decode_ms['h264_720p']:.3f}; {card}")
+          + f"; CABAC/CAVLC {decode_ms['h264_cabac_720p'] / decode_ms['h264_720p']:.3f}, "
+          f"B/CAVLC {decode_ms['h264_b_720p'] / decode_ms['h264_720p']:.3f}, "
+          f"B/CABAC {decode_ms['h264_b_720p'] / decode_ms['h264_cabac_720p']:.3f}; {card}")
     print(f"{tag} {len(seq.CASES)} printf image sequences ({', '.join(seq.CASES)}), cv2 "
           f"blocked: count, fps, reads, seeks and frame digests "
           f"{'equal' if not differ else 'DIFFER from'} the pins, in {seq_secs:.2f} s; host ms "
@@ -3310,15 +3327,18 @@ def phase_cli_mp4(files, extra=()):
 def phase_cli_h264(files, card, extra=()):
     """rtpose --video on the committed H.264 clips tests/data/h264_720p.mp4
     (the 8 1280x720 frames of jpeg_frames.frame, an IDR picture and P
-    pictures, CAVLC) and h264_cabac_720p.mp4 (the same macroblocks coded
-    with CABAC, Main profile), cv2 blocked, in turns with the MPEG-4 clip of
-    the same frames and a q95 Motion-JPEG AVI of the H.264 decode (h264,
-    cabac, mp4, avi, twice), then --start_frame 3 on each H.264 clip (a P
-    picture: the seek decodes on from the IDR picture).  Both clips' decoded
-    frames equal the pin (cv2's frames); every JSON of the first h264 run
-    equals estimate() on the port's decode of its frame, each cabac run's
-    JSONs the first h264 run's and each --start_frame run's the first h264
-    run's; launches equal across the runs; FPS of each."""
+    pictures, CAVLC), h264_cabac_720p.mp4 (the same macroblocks coded with
+    CABAC, Main profile) and h264_b_720p.mp4 (the same frames as I P B B in
+    CABAC, with composition offsets and an edit list), cv2 blocked, in turns
+    with the MPEG-4 clip of the same frames and a q95 Motion-JPEG AVI of the
+    H.264 decode (h264, cabac, b, mp4, avi, twice), then --start_frame 3 on
+    each H.264 clip (a P picture: the seek decodes on from the IDR picture).
+    The clips' decoded frames equal their pins (cv2's frames); every JSON of
+    the first h264 run and of the first b run equals estimate() on the
+    port's decode of its frame, each cabac run's JSONs the first h264 run's,
+    each b run's the first b run's and each --start_frame run's those of
+    the first run of its clip; launches equal across the runs; FPS of
+    each."""
     import os
 
     from caffe_rtpose_tpu_torch.pipeline import video
@@ -3328,12 +3348,17 @@ def phase_cli_h264(files, card, extra=()):
     cases, m4, hc = avi_cases_module(), mp4_cases_module(), h264_cases_module()
     clip = hc.CLIP_720P
     with no_cv2():
-        for path in (clip, hc.CLIP_CABAC_720P):
+        for path, pin in ((clip, "h264_720p"), (hc.CLIP_CABAC_720P, "h264_720p"),
+                          (hc.CLIP_B_720P, "h264_b_720p")):
             reader = video.open_reader(path)
-            images = read_frames(reader)
+            decoded = read_frames(reader)
             reader.release()
-            check(cases.sha256(images) == hc.PINNED["h264_720p"]["sha256"],
+            check(cases.sha256(decoded) == hc.PINNED[pin]["sha256"],
                   f"{tag} {path}'s decoded frames differ from cv2's (the pinned digest)")
+            if pin == "h264_720p":
+                images = decoded
+            else:
+                images_b = decoded
     work = tempfile.mkdtemp(prefix="chip_smoke_cli_h264_")
     h, w = images[0].shape[:2]
     n = len(images)
@@ -3341,15 +3366,16 @@ def phase_cli_h264(files, card, extra=()):
     with open(avi, "wb") as f:
         f.write(cases.write_avi([encode_jpeg(f, 95) for f in images], w, h))
     sources = {"h264": ("--video", clip), "cabac": ("--video", hc.CLIP_CABAC_720P),
-               "mp4": ("--video", m4.clip_path("mp4v_720p")), "avi": ("--video", avi)}
-    kinds = ("h264", "cabac", "mp4", "avi")
+               "b": ("--video", hc.CLIP_B_720P), "mp4": ("--video", m4.clip_path("mp4v_720p")),
+               "avi": ("--video", avi)}
+    kinds = ("h264", "cabac", "b", "mp4", "avi")
     runs = []
     for k, kind in enumerate(kinds * 2):
         runs.append((kind, rtpose_run(f"{tag} {kind}", files, sources[kind],
                                       os.path.join(work, f"json{k}"), w, h, extra)))
     seeks = {kind: rtpose_run(f"{tag} {kind} start 3", files, sources[kind],
                               os.path.join(work, f"json_{kind}_s3"), w, h,
-                              ("--start_frame", "3", *extra)) for kind in ("h264", "cabac")}
+                              ("--start_frame", "3", *extra)) for kind in ("h264", "cabac", "b")}
     names = [f"frame{i:06d}.json" for i in range(n)]
     for kind, r in runs:
         check(r["files"] == names, f"{tag} {kind} wrote {r['files']}")
@@ -3362,30 +3388,36 @@ def phase_cli_h264(files, card, extra=()):
         check(seek["files"] == names[3:], f"{tag} {kind} --start_frame 3 wrote {seek['files']}")
         check(seek["launches"] == seeks["h264"]["launches"] and seek["launches"]["conv1_block"] > 0,
               f"{tag} {kind} --start_frame 3 launches {seek['launches']}")
-    same = [(f"json_{kind}_s3", names[3:]) for kind in seeks]
-    same += [(f"json{k}", names) for k, (kind, _) in enumerate(runs) if kind == "cabac"]
-    for folder, files_ in same:
+    first_b = f"json{kinds.index('b')}"
+    same = [(f"json_{kind}_s3", names[3:], first_b if kind == "b" else "json0") for kind in seeks]
+    same += [(f"json{k}", names, first_b if kind == "b" else "json0")
+             for k, (kind, _) in enumerate(runs) if kind in ("cabac", "b")]
+    for folder, files_, base in same:
         for name in files_:
-            with open(os.path.join(work, "json0", name)) as a, \
+            with open(os.path.join(work, base, name)) as a, \
                     open(os.path.join(work, folder, name)) as b:
-                check(a.read() == b.read(), f"{tag} {folder}/{name} differs from the first run's")
+                check(a.read() == b.read(), f"{tag} {folder}/{name} differs from {base}/{name}")
     jsons_equal_estimate(tag, files, extra, images, os.path.join(work, "json0"), names,
                          "the port's decode of its frame")
+    jsons_equal_estimate(tag, files, extra, images_b, os.path.join(work, first_b), names,
+                         "the port's decode of its frame (B clip)")
     fps = {kind: [r["fps"] for k, r in runs if k == kind] for kind in kinds}
-    print(f"{tag} both clips' decoded frames equal cv2's (pinned digest); every h264 JSON "
-          f"equals estimate() on the port's decode of its frame, every cabac JSON the h264 "
-          f"run's; --start_frame 3 wrote {len(seeks['h264']['files'])} files a clip equal to "
-          f"the first run's; FPS over {n} {w}x{h} frames: "
+    print(f"{tag} the three clips' decoded frames equal cv2's (pinned digests); every h264 "
+          f"and every b JSON equals estimate() on the port's decode of its frame, every cabac "
+          f"JSON the h264 run's; --start_frame 3 wrote {len(seeks['h264']['files'])} files a "
+          f"clip equal to the first run's of the clip; FPS over {n} {w}x{h} frames: "
           + ", ".join(f"{kind} {fps[kind]}" for kind in kinds)
           + f" (in turns; {os.path.getsize(clip) // n} B a frame of CAVLC, "
-          f"{os.path.getsize(hc.CLIP_CABAC_720P) // n} of CABAC); launches {first['launches']}; "
-          f"{card}")
-    return dict(fps_h264=fps["h264"], fps_cabac=fps["cabac"], fps_mp4=fps["mp4"],
+          f"{os.path.getsize(hc.CLIP_CABAC_720P) // n} of CABAC, "
+          f"{os.path.getsize(hc.CLIP_B_720P) // n} of I P B B); launches {first['launches']} "
+          f"a run; {card}")
+    return dict(fps_h264=fps["h264"], fps_cabac=fps["cabac"], fps_b=fps["b"], fps_mp4=fps["mp4"],
                 fps_avi=fps["avi"], launches=first["launches"],
                 start_frame_3={kind: dict(files=len(r["files"]), launches=r["launches"],
                                           fps=r["fps"]) for kind, r in seeks.items()},
                 bytes_a_frame=os.path.getsize(clip) / n,
                 cabac_bytes_a_frame=os.path.getsize(hc.CLIP_CABAC_720P) / n,
+                b_bytes_a_frame=os.path.getsize(hc.CLIP_B_720P) / n,
                 seconds=[r["seconds"] for _, r in runs])
 
 

@@ -35,7 +35,9 @@ and the results pinned for them (numpy and ``struct`` only, so that
   Intra16x16 vertical, then P pictures predicted from the picture before);
   ``encode_clip(clip_frames(), 26)`` is ``tests/data/h264_720p.mp4`` and
   ``encode_clip(clip_frames(), 26, cabac=True)``
-  ``tests/data/h264_cabac_720p.mp4``, for chip_smoke's CLI run.
+  ``tests/data/h264_cabac_720p.mp4`` and ``encode_clip(clip_frames(), 26,
+  cabac=True, bframes=True)`` ``tests/data/h264_b_720p.mp4`` (I P B B with
+  composition offsets), for chip_smoke's CLI run.
 
 ``tests/test_torch_h264.py`` holds PINNED against the JAX reader and the
 port; ``chip_smoke.py``'s video phase holds the port on the card's host to
@@ -56,6 +58,7 @@ SEEKS = (0, 1, 3, 11, 12, 13, 20, 25, 26, 40)
 READ_AFTER_SEEK = 3
 CLIP_720P = os.path.join(DATA, "h264_720p.mp4")
 CLIP_CABAC_720P = os.path.join(DATA, "h264_cabac_720p.mp4")
+CLIP_B_720P = os.path.join(DATA, "h264_b_720p.mp4")
 
 # ------------------------------------------------------------ CAVLC tables
 # H.264 Table 9-5 (coeff_token) by nC class 0 <= nC < 2, 2 <= nC < 4,
@@ -449,22 +452,23 @@ class _Coder:
     """What a macroblock's syntax elements are written with: CAVLC
     (:class:`Cavlc`) or CABAC (:class:`CabacCoder`).  The writer draws the
     same values from its random stream whichever codes them; the coder
-    keeps the neighbour state each needs in ``st`` (a :class:`Writer`)."""
+    keeps the neighbour state each needs in ``st`` (a :class:`Writer`).
+    ``p_slice``: an inter slice (P or B); ``b_slice``: a B slice."""
 
-    def __init__(self, st, bw: Bits, p_slice: bool):
-        self.st, self.bw, self.p_slice = st, bw, p_slice
+    def __init__(self, st, bw: Bits, p_slice: bool, b_slice: bool = False):
+        self.st, self.bw, self.p_slice, self.b_slice = st, bw, p_slice, b_slice
 
-    def _ref_state(self, m, x, y, pw, ph, r) -> None:
+    def _ref_state(self, m, x, y, pw, ph, r, l=0) -> None:
         for j in range(y // 4, (y + ph) // 4):
             for i in range(x // 4, (x + pw) // 4):
-                self.st.refidx[m][j * 4 + i] = r
+                self.st.refidx_l[l][m][j * 4 + i] = r
 
 
 class Cavlc(_Coder):
     codes_p8x8ref0 = True
 
-    def __init__(self, st, bw, p_slice):
-        super().__init__(st, bw, p_slice)
+    def __init__(self, st, bw, p_slice, b_slice=False):
+        super().__init__(st, bw, p_slice, b_slice)
         self.run = 0
 
     def skip(self, m) -> None:
@@ -484,7 +488,7 @@ class Cavlc(_Coder):
         return self.bw.trailing()
 
     def mb_type_i(self, m, t) -> None:
-        self.bw.ue(t + (5 if self.p_slice else 0))
+        self.bw.ue(t + (23 if self.b_slice else 5 if self.p_slice else 0))
 
     def pcm(self, data: bytes) -> None:
         self.bw.align()
@@ -492,6 +496,8 @@ class Cavlc(_Coder):
 
     def mb_type_p(self, m, t) -> None:
         self.bw.ue(t)
+
+    mb_type_b = mb_type_p
 
     def sub_mb_type(self, sb) -> None:
         self.bw.ue(sb)
@@ -512,12 +518,12 @@ class Cavlc(_Coder):
     def qp_delta(self, d) -> None:
         self.bw.se(d)
 
-    def ref(self, m, x, y, pw, ph, r, active) -> None:
-        self._ref_state(m, x, y, pw, ph, r)
+    def ref(self, m, x, y, pw, ph, r, active, l=0) -> None:
+        self._ref_state(m, x, y, pw, ph, r, l)
         if active > 1:
             self.bw.te(r, active - 1)
 
-    def mvd(self, m, x, y, pw, ph, c, v) -> None:
+    def mvd(self, m, x, y, pw, ph, c, v, l=0) -> None:
         self.bw.se(v)
 
     def block(self, m, cat, x, y, c, coeffs) -> int:
@@ -531,8 +537,8 @@ class Cavlc(_Coder):
 class CabacCoder(_Coder):
     codes_p8x8ref0 = False  # no binarization: P_8x8 with every ref_idx 0 instead
 
-    def __init__(self, st, bw, p_slice, idc, qp):
-        super().__init__(st, bw, p_slice)
+    def __init__(self, st, bw, p_slice, idc, qp, b_slice=False):
+        super().__init__(st, bw, p_slice, b_slice)
         while bw.n:  # cabac_alignment_one_bit
             bw.u(1, 1)
         self.e = CabacEncoder(bw, 1 + idc if p_slice else 0, qp)
@@ -542,8 +548,8 @@ class CabacCoder(_Coder):
         return self.st._nb(m, -1, 0), self.st._nb(m, 0, -1)
 
     def _skip_flag(self, m, b) -> None:
-        self.e.decision(11 + sum(n is not None and self.st.kind[n] != "skip"
-                                 for n in self._ab(m)), b)
+        self.e.decision((24 if self.b_slice else 11) + sum(
+            n is not None and self.st.kind[n] != "skip" for n in self._ab(m)), b)
 
     def skip(self, m) -> None:
         self._skip_flag(m, 1)
@@ -564,7 +570,11 @@ class CabacCoder(_Coder):
 
     def mb_type_i(self, m, t) -> None:
         e, st = self.e, self.st
-        if self.p_slice:
+        if self.b_slice:  # the prefix 1 1 1 1 0 1, then the suffix from ctxIdxOffset 32
+            self._b_prefix(m, 13)
+            base, k, i = 32, 33, 0
+            ctx = 32
+        elif self.p_slice:
             e.decision(14, 1)
             base, k, i = 17, 18, 0
             ctx = 17
@@ -592,6 +602,38 @@ class CabacCoder(_Coder):
         self.bw.out += data
         self.e.restart()
 
+    def _b_prefix(self, m, bits, extra=None) -> None:
+        """The bins of a B mb_type (Table 9-37) from the third on, after
+        1 1: four bits (ctxIdx 31, then 32), and a fifth for types 12-21."""
+        e = self.e
+        self._b_first(m, 1)
+        e.decision(30, 1)
+        e.decision(31, bits >> 3 & 1)
+        for k in (2, 1, 0):
+            e.decision(32, bits >> k & 1)
+        if extra is not None:
+            e.decision(32, extra)
+
+    def _b_first(self, m, b) -> None:
+        st = self.st
+        self.e.decision(27 + sum(n is not None and not st.direct[n] & 16 for n in self._ab(m)), b)
+
+    def mb_type_b(self, m, t) -> None:
+        """B mb_types 0-22 (FFmpeg's decode_cabac_mb_type_b's bins)."""
+        e = self.e
+        if t == 0:
+            self._b_first(m, 0)
+        elif t <= 2:
+            self._b_first(m, 1)
+            e.decision(30, 0)
+            e.decision(32, t == 2)
+        elif t <= 10:
+            self._b_prefix(m, t - 3)
+        elif t in (11, 22):
+            self._b_prefix(m, 14 if t == 11 else 15)
+        else:
+            self._b_prefix(m, (t + 4) >> 1, (t + 4) & 1)
+
     def mb_type_p(self, m, t) -> None:
         assert t < 4, "P_8x8ref0 has no CABAC binarization"
         e = self.e
@@ -605,6 +647,25 @@ class CabacCoder(_Coder):
 
     def sub_mb_type(self, sb) -> None:
         e = self.e
+        if self.b_slice:  # Table 9-38's B binarization
+            e.decision(36, sb != 0)
+            if not sb:
+                return
+            e.decision(37, sb > 2)
+            if sb <= 2:
+                e.decision(39, sb == 2)
+                return
+            e.decision(38, sb >= 7)
+            if sb >= 11:
+                e.decision(39, 1)
+                e.decision(39, sb == 12)
+                return
+            v = sb - 7 if sb >= 7 else sb - 3
+            if sb >= 7:
+                e.decision(39, 0)
+            e.decision(39, v >> 1)
+            e.decision(39, v & 1)
+            return
         e.decision(21, sb == 0)
         if sb:
             e.decision(22, sb != 1)
@@ -669,16 +730,19 @@ class CabacCoder(_Coder):
                 e.decision(62 if k == 1 else 63, 1)
             e.decision(62 if v == 1 else 63, 0)
 
-    def ref(self, m, x, y, pw, ph, r, active) -> None:
-        st = self.st
+    def ref(self, m, x, y, pw, ph, r, active, l=0) -> None:
+        st, refidx = self.st, self.st.refidx_l[l]
 
-        def at(xx, yy):
+        def at(xx, yy):  # a partition in direct mode counts as 0
             if xx >= 0 and yy >= 0:
-                return st.refidx[m][(yy // 4) * 4 + xx // 4]
+                return refidx[m][(yy // 4) * 4 + xx // 4]
             n = st._nb(m, -1 if xx < 0 else 0, -1 if yy < 0 else 0)
             if n is None or st.kind[n] != "p":
                 return 0
-            return st.refidx[n][((yy % 16) // 4) * 4 + (xx % 16) // 4]
+            bx, by = (xx % 16) // 4, (yy % 16) // 4
+            if st.direct[n] >> ((by // 2) * 2 + bx // 2) & 1:
+                return 0
+            return refidx[n][by * 4 + bx]
 
         if active > 1:
             ctx = int(at(x - 1, y) > 0) + 2 * int(at(x, y - 1) > 0)
@@ -689,18 +753,18 @@ class CabacCoder(_Coder):
                     self.e.decision(54 + c, 1)
                     c = 5
                 self.e.decision(54 + c, 0)
-        self._ref_state(m, x, y, pw, ph, r)
+        self._ref_state(m, x, y, pw, ph, r, l)
 
-    def _amvd(self, m, x, y, c):
-        st = self.st
+    def _amvd(self, m, x, y, c, l):
+        amvd = self.st.amvd_l[l]
         if x >= 0 and y >= 0:
-            return st.amvd[m][(y // 4) * 4 + x // 4][c]
-        n = st._nb(m, -1 if x < 0 else 0, -1 if y < 0 else 0)
-        return 0 if n is None else st.amvd[n][((y % 16) // 4) * 4 + (x % 16) // 4][c]
+            return amvd[m][(y // 4) * 4 + x // 4][c]
+        n = self.st._nb(m, -1 if x < 0 else 0, -1 if y < 0 else 0)
+        return 0 if n is None else amvd[n][((y % 16) // 4) * 4 + (x % 16) // 4][c]
 
-    def mvd(self, m, x, y, pw, ph, c, v) -> None:
+    def mvd(self, m, x, y, pw, ph, c, v, l=0) -> None:
         e, base = self.e, 47 if c else 40
-        total = self._amvd(m, x - 1, y, c) + self._amvd(m, x, y - 1, c)
+        total = self._amvd(m, x - 1, y, c, l) + self._amvd(m, x, y - 1, c, l)
         a = abs(v)
         e.decision(base + (0 if total < 3 else 1 if total <= 32 else 2), a > 0)
         if a:
@@ -714,7 +778,7 @@ class CabacCoder(_Coder):
             e.bypass(v < 0)
         for j in range(y // 4, (y + ph) // 4):
             for i in range(x // 4, (x + pw) // 4):
-                self.st.amvd[m][j * 4 + i][c] = min(a, 70)
+                self.st.amvd_l[l][m][j * 4 + i][c] = min(a, 70)
 
     def _cbf_inc(self, m, cat, x, y, c):
         st = self.st
@@ -787,6 +851,17 @@ I4_NEEDS = ("B", "A", "", "B", "ABD", "ABD", "ABD", "B", "A")
 I16_NEEDS = ("B", "A", "", "ABD")
 CHROMA_NEEDS = ("", "A", "B", "ABD")
 SUB_PARTS = (1, 2, 2, 4)  # 8x8, 8x4, 4x8, 4x4
+# a B slice's macroblocks: B_Skip, B_Direct_16x16, B_{L0,L1,Bi}_16x16, the
+# two-partition types, B_8x8, intra; and the share of I slices after a B
+# picture's first
+B_MIX = dict(skip=3, direct=2, b16=2, b2=2, b8x8=2, intra=1)
+B_ISLICES = 0.25
+# Table 7-14: the prediction modes (bit 0 list 0, bit 1 list 1) of the two
+# partitions of B mb_types 4-21, by (mb_type - 4) // 2; Table 7-18: a B
+# sub_mb_type's mode (0 direct) and shape (0 8x8, 1 8x4, 2 4x8, 3 4x4)
+B_MODES = ((1, 1), (2, 2), (1, 2), (2, 1), (1, 3), (2, 3), (3, 1), (3, 2), (3, 3))
+B_SUB = ((0, 0), (1, 0), (2, 0), (3, 0), (1, 1), (1, 2), (2, 1), (2, 2), (3, 1), (3, 2), (1, 3),
+         (2, 3), (3, 3))
 
 
 def _defaults():
@@ -800,7 +875,14 @@ def _defaults():
                                                     p8x8ref0=0, intra=1),
         density=0.3, big=0.02, mvd=8, far=0.0, slice_types=(0, 2),
         container="mp4", fourcc="H264", nal_length=4, inband=False, strf=False, poc_order=None,
-        aud=False, sei=False, keys=None, recovery={}, cut=0, seed=0)
+        aud=False, sei=False, keys=None, recovery={}, cut=0, seed=0,
+        # B pictures: how many between anchors (I or P pictures), the middle
+        # one a reference (pyramid), direct mode ("spatial", "temporal" or
+        # "mix": drawn a slice), weighted_bipred_idc, direct_8x8_inference,
+        # num_ref_idx_l1_default; MP4 composition offsets ("v0": shifted to
+        # stay >= 0, "v1": signed) and whether an edit list goes with them
+        bframes=0, pyramid=False, direct="spatial", bipred=0, direct8x8=1, refs_l1=1,
+        ctts="v0", elst=True, order=None)
 
 
 class Writer:
@@ -822,6 +904,8 @@ class Writer:
         self.since_idr = 0
         self.chroma_offsets = (p["chroma_offset"], p["chroma_offset"])
         self.seen = set()  # the syntax written: (element, value)
+        self.order, self.bpics = self.decode_order()
+        self.idr_at = 0
 
     # ------------------------------------------------------------ headers
     def sps(self, sps_id: int = 0) -> bytes:
@@ -857,7 +941,7 @@ class Writer:
         bw.u(p.get("frame_mbs_only", 1), 1)
         if not p.get("frame_mbs_only", 1):
             bw.u(p.get("mbaff", 0), 1)
-        bw.u(1, 1)  # direct_8x8_inference_flag
+        bw.u(p["direct8x8"], 1)
         crop_r, crop_b = (self.mbw * 16 - w) // 2, (self.mbh * 16 - h) // 2
         bw.u(bool(crop_r or crop_b), 1)
         if crop_r or crop_b:
@@ -906,9 +990,9 @@ class Writer:
             for _ in range(p["slice_groups"]):
                 bw.ue(0)
         bw.ue(p["refs_default"] - 1)
-        bw.ue(0)
+        bw.ue(p["refs_l1"] - 1)
         bw.u(p.get("weighted", 0), 1)
-        bw.u(0, 2)
+        bw.u(p["bipred"], 2)
         bw.se(p["qp"][0] - 26)
         bw.se(0)
         bw.se(p["chroma_offset"])
@@ -922,22 +1006,59 @@ class Writer:
         return nal(3, 8, bw.trailing())
 
     # ------------------------------------------------------------ pictures
+    def decode_order(self):
+        """The display indices of the frames in decode order, and the B
+        pictures among them (display index -> whether a reference): between
+        IDR pictures an anchor every ``bframes`` + 1 frames and the last
+        frame before the next IDR picture, each coded before the B pictures
+        that precede it; with ``pyramid`` the middle B picture of each run
+        is coded first and is a reference."""
+        p = self.p
+        n = p["frames"] + p["cut"]
+        if not p["bframes"]:
+            return list(range(n)), {}
+        order, bpics = [], {}
+        starts = sorted({0, *[i for i in p["idr"] if i < n]})
+        for a, b in zip(starts, starts[1:] + [n]):
+            anchors = list(range(a, b, p["bframes"] + 1))
+            if anchors[-1] != b - 1:
+                anchors.append(b - 1)
+            order.append(anchors[0])
+            for prev, nxt in zip(anchors, anchors[1:]):
+                order.append(nxt)
+                run = list(range(prev + 1, nxt))
+                if p["pyramid"] and len(run) > 2:
+                    mid = run[len(run) // 2]
+                    run = [mid] + [r for r in run if r != mid]
+                    bpics[mid] = True
+                order += run
+                bpics.update({r: bpics.get(r, False) for r in run})
+        return order, bpics
+
     def picture(self, i: int):
-        """The NAL units of frame ``i`` (in decode order = display order)."""
+        """The NAL units of frame ``i`` (display index; frames come in
+        decode order, which equals display order unless there are B
+        pictures)."""
         p, rs = self.p, self.rs
         idr = i in p["idr"]
-        kind = "I" if idr or i in p["intra"] else "P"
+        kind = "I" if idr or i in p["intra"] else "B" if i in self.bpics else "P"
         self.index = i
         if i == p.get("gap_at"):
             self.frame_num = (self.frame_num + 1) % self.max_fn  # skip a frame_num
-        ref_idc = 0 if i in p["nonref"] else int(rs.randint(1, 4))
+        if kind == "B":
+            ref_idc = int(rs.randint(1, 4)) if self.bpics[i] else 0
+        else:
+            ref_idc = 0 if i in p["nonref"] else int(rs.randint(1, 4))
         if idr:
             self.refs, self.since_idr = [], 0
             self.frame_num = 0
             self.idr_id ^= 1
+            self.idr_at = i
         k = self.since_idr
         if p["poc_order"] == "swap" and k:  # display order 0, 2, 1, 4, 3, ...
             k = k + 1 if k % 2 else k - 1
+        if p["bframes"]:
+            k = i - self.idr_at
         poc = (p["poc_step"] * k) % (1 << p["log2_max_poc_lsb"])
         self.since_idr += 1
         cur_fn = self.frame_num
@@ -954,8 +1075,13 @@ class Writer:
         marking = None
         if ref_idc and not idr:
             marking = self._marking(cur_fn)
+            if marking and kind == "B":
+                self.seen.add(("mmco B", 1))
         for s in range(nslices):
-            stype = 2 if kind == "I" else (0 if s == 0 or rs.rand() > 0.25 else 2)
+            if kind == "B":
+                stype = 1 if s == 0 or rs.rand() >= B_ISLICES else 2
+            else:
+                stype = 2 if kind == "I" else (0 if s == 0 or rs.rand() > 0.25 else 2)
             nals.append(self._slice(s, bounds[s], bounds[s + 1], stype, idr, ref_idc, cur_fn,
                                     poc, picnums, marking))
         if p.get("aso"):
@@ -989,12 +1115,15 @@ class Writer:
         self.cmode = [0] * self.nmb
         self.refidx = [[-1] * 16 for _ in range(self.nmb)]
         self.amvd = [[[0, 0] for _ in range(16)] for _ in range(self.nmb)]
+        self.refidx_l = (self.refidx, [[-1] * 16 for _ in range(self.nmb)])
+        self.amvd_l = (self.amvd, [[[0, 0] for _ in range(16)] for _ in range(self.nmb)])
+        self.direct = [0] * self.nmb  # B: the 8x8 blocks in direct mode; 16: B_Skip, B_Direct_16x16
 
-    def coder(self, bw, p_slice, idc, qp) -> _Coder:
+    def coder(self, bw, p_slice, idc, qp, b_slice=False) -> _Coder:
         if self.p.get("cabac"):
             self.seen.add(("cabac_init_idc", idc if p_slice else "I"))
-            return CabacCoder(self, bw, p_slice, idc, qp)
-        return Cavlc(self, bw, p_slice)
+            return CabacCoder(self, bw, p_slice, idc, qp, b_slice)
+        return Cavlc(self, bw, p_slice, b_slice)
 
     def _marking(self, cur_fn):
         """MMCO 1 operations (difference_of_pic_nums_minus1 each), or None
@@ -1013,9 +1142,8 @@ class Writer:
         bw = Bits()
         bw.ue(first)
         written = stype
-        for other in (1, 3):  # B or SP in place of P (refused)
-            if stype == 0 and other in p["slice_types"]:
-                written = other
+        if stype == 0 and 3 in p["slice_types"]:  # SP in place of P (refused)
+            written = 3
         bw.ue(written + 5 if 5 in p["slice_types"] else written)
         bw.ue(0)
         bw.u(cur_fn, p["log2_max_frame_num"])
@@ -1025,7 +1153,10 @@ class Writer:
             bw.u(poc, p["log2_max_poc_lsb"])
         active = p["refs_default"]
         nref = len(picnums)
-        if stype == 0:
+        if stype == 1:
+            self._b_header(bw, cur_fn, picnums)
+            active = self.active_l[0]
+        elif stype == 0:
             if rs.rand() < p["override"] or active > nref:
                 # never more entries than reference pictures
                 active = min(int(rs.randint(1, 5)), nref) if active <= nref else nref
@@ -1035,19 +1166,7 @@ class Writer:
                 bw.u(0, 1)
             if nref and rs.rand() < p["modify"]:
                 self.seen.add(("ref_pic_list_modification", 1))
-                bw.u(1, 1)
-                pred = cur_fn
-                for _ in range(int(rs.randint(1, active + 1))):
-                    target = int(rs.choice(picnums))
-                    d = (pred - target) % self.max_fn
-                    if d:
-                        bw.ue(0)
-                        bw.ue(d - 1)
-                        pred = (pred - d) % self.max_fn
-                    else:
-                        bw.ue(1)
-                        bw.ue(self.max_fn - 1)
-                bw.ue(3)
+                self._modification(bw, cur_fn, picnums, active)
             else:
                 bw.u(0, 1)
             if p.get("weighted"):
@@ -1071,7 +1190,7 @@ class Writer:
                 bw.u(0, 1)
         idcs = p.get("cabac_init", (0, 1, 2))
         init_idc = idcs[(self.index * 7 + s) % len(idcs)]  # not drawn: CAVLC twins draw alike
-        if p.get("cabac") and stype == 0:
+        if p.get("cabac") and stype != 2:
             bw.ue(init_idc)
         qp = int(rs.randint(p["qp"][0], p["qp"][1] + 1))
         bw.se(qp - p["qp"][0])
@@ -1085,10 +1204,23 @@ class Writer:
         self.nrefs = min(active, nref)
         self.seen.add(("references", self.nrefs))
         self.active = active
-        e = self.coder(bw, stype == 0, init_idc, qp)
+        e = self.coder(bw, stype != 2, init_idc, qp, stype == 1)
         for m in range(first, end):
             self.slc[m] = s
-            if stype == 0:
+            if stype == 1:
+                t = self._choose(B_MIX)
+                self.seen.add(("B macroblock", t))
+                if t == "skip":
+                    self.kind[m] = "skip"
+                    self.direct[m] = 31
+                    e.skip(m)
+                else:
+                    e.mb_start(m)
+                    if t == "intra":
+                        self._intra_mb(e, m)
+                    else:
+                        self._b_mb(e, m, t)
+            elif stype == 0:
                 t = self._choose(p["p_mix"])
                 if t == "p8x8ref0" and active < 2:
                     t = "p8x8"
@@ -1108,6 +1240,108 @@ class Writer:
             e.mb_end(m, m == end - 1)
         return nal(ref_idc, 5 if idr else 1, e.finish())
 
+    def _b_header(self, bw, cur_fn, picnums) -> None:
+        """A B slice's header fields from direct_spatial_mv_pred_flag to the
+        pred_weight_table: num_ref_idx_l0/l1_active (never more than the
+        reference pictures), list modification of each list (with
+        ``l1_long_term`` a long-term picture named in list 1) and, with
+        weighted_bipred_idc 1, both lists' weights."""
+        p, rs = self.p, self.rs
+        direct = p["direct"] if p["direct"] != "mix" else ("spatial", "temporal")[rs.randint(2)]
+        self.seen.add(("direct", direct))
+        bw.u(direct == "spatial", 1)
+        nref = len(picnums)
+        active = [min(p["refs_default"], nref), min(p["refs_l1"], nref)]
+        if rs.rand() < p["override"] or p["refs_default"] > nref or p["refs_l1"] > nref:
+            active = [int(rs.randint(1, nref + 1)) for _ in range(2)]
+            bw.u(1, 1)
+            bw.ue(active[0] - 1)
+            bw.ue(active[1] - 1)
+        else:
+            bw.u(0, 1)
+        self.active_l, self.nrefs_l = active, active
+        self.seen.update({("references B", a) for a in active})
+        for l in range(2):
+            if l == 1 and p.get("l1_long_term"):
+                bw.u(1, 1)
+                bw.ue(2)  # long_term_pic_num
+                bw.ue(0)
+                bw.ue(3)
+                continue
+            if not rs.rand() < p["modify"]:
+                bw.u(0, 1)
+                continue
+            self.seen.add(("list modification B", l))
+            self._modification(bw, cur_fn, picnums, active[l])
+        if p["bipred"] == 1:
+            self._bipred_weight_table(bw, active)
+
+    def _modification(self, bw, cur_fn, picnums, active) -> None:
+        """ref_pic_list_modification_flag 1 and 1 to ``active`` operations,
+        each naming one of the reference pictures (``picnums``)."""
+        bw.u(1, 1)
+        pred = cur_fn
+        for _ in range(int(self.rs.randint(1, active + 1))):
+            d = (pred - int(self.rs.choice(picnums))) % self.max_fn
+            if d:
+                bw.ue(0)
+                bw.ue(d - 1)
+                pred = (pred - d) % self.max_fn
+            else:
+                bw.ue(1)
+                bw.ue(self.max_fn - 1)
+        bw.ue(3)
+
+    def _bipred_weight_table(self, bw, active) -> None:
+        """Explicit weights of both lists with denominators 0-6, every pair
+        of a list 0 and a list 1 weight summing to -128..128 (a conforming
+        stream; with them the 16-bit sums of FFmpeg's SIMD weighting never
+        saturate where it matters), drawn near the default or anywhere, and
+        clamped to that; a default too far goes written."""
+        rs = self.rs
+        logs = [int(rs.randint(7)), int(rs.randint(7))]
+        bw.ue(logs[0])
+        bw.ue(logs[1])
+        table = [[], []]  # a list, an entry: (luma (w, o), chroma ((w, o), (w, o))) or None
+        for l in range(2):
+            for _ in range(active[l]):
+                entry = []
+                for k in range(2):
+                    if rs.rand() < 0.25:
+                        entry.append(None)
+                        continue
+                    entry.append([self._weight_pair(logs[k]) for _ in range(1 + k)])
+                table[l].append(entry)
+        for k in range(2):  # clamp list 1's weights against all of list 0's
+            for c in range(1 + k):
+                w0 = [e[k][c][0] if e[k] else 1 << logs[k] for e in table[0]]
+                lo, hi = max(-128, -128 - min(w0)), min(127, 128 - max(w0))
+                for e in table[1]:
+                    if e[k] is None:
+                        if lo <= 1 << logs[k] <= hi:
+                            continue
+                        e[k] = [(1 << logs[k], 0) for _ in range(1 + k)]
+                    w, o = e[k][c]
+                    e[k][c] = (min(max(w, lo), hi), o)
+        for l in range(2):
+            for entry in table[l]:
+                for k, pairs in enumerate(entry):
+                    bw.u(pairs is not None, 1)
+                    if pairs is None:
+                        continue
+                    self.seen.add(("weights B", ("luma", "chroma")[k]))
+                    for w, o in pairs:
+                        bw.se(w)
+                        bw.se(o)
+
+    def _weight_pair(self, log):
+        """A weight and offset near the default 2^log or anywhere in -128..127."""
+        rs = self.rs
+        if rs.rand() < 0.15:
+            return int(rs.randint(-128, 128)), int(rs.randint(-128, 128))
+        return (min((1 << log) + int(rs.randint(-(1 << log) // 2 - 2, (1 << log) // 2 + 3)), 127),
+                int(rs.randint(-24, 25)))
+
     def _pred_weight_table(self, bw, active) -> None:
         """Denominators 0-7; for each ref_idx the luma and the chroma
         weights and offsets, near the default or anywhere in -128..127, or
@@ -1116,13 +1350,6 @@ class Writer:
         logs = [int(rs.randint(8)), int(rs.randint(8))]
         bw.ue(logs[0])
         bw.ue(logs[1])
-
-        def pair(log):
-            if rs.rand() < 0.15:
-                return int(rs.randint(-128, 128)), int(rs.randint(-128, 128))
-            return (min((1 << log) + int(rs.randint(-(1 << log) // 2 - 2, (1 << log) // 2 + 3)), 127),
-                    int(rs.randint(-24, 25)))
-
         for _ in range(active):
             for k in range(2):  # luma, then chroma
                 if rs.rand() < 0.25:
@@ -1131,7 +1358,7 @@ class Writer:
                 bw.u(1, 1)
                 self.seen.add(("weights", ("luma", "chroma")[k]))
                 for _ in range(1 + k):
-                    w, o = pair(logs[k])
+                    w, o = self._weight_pair(logs[k])
                     bw.se(w)
                     bw.se(o)
 
@@ -1356,12 +1583,68 @@ class Writer:
                 e.mvd(m, x, y, w, h, c, self._mvd())
         self._cbp_residual(e, m, False)
 
+    def _b_mb(self, e, m, t):
+        """A B macroblock other than B_Skip: B_Direct_16x16 ("direct"),
+        B_{L0,L1,Bi}_16x16 ("b16"), the two-partition types 4-21 ("b2") or
+        B_8x8 with its four sub_mb_types ("b8x8")."""
+        rs = self.rs
+        self.kind[m] = "p"
+        if t == "direct":
+            e.mb_type_b(m, 0)
+            self.direct[m] = 31
+            self.seen.add(("mb_type B", 0))
+            self._cbp_residual(e, m, False)
+            return
+        mb = 1 + int(rs.randint(3)) if t == "b16" else 4 + int(rs.randint(18)) if t == "b2" else 22
+        e.mb_type_b(m, mb)
+        self.seen.add(("mb_type B", mb))
+        subs = []
+        if mb <= 3:
+            parts = [(0, 0, 16, 16, mb, -1)]
+        elif mb < 22:
+            k, modes = mb - 4, B_MODES[(mb - 4) // 2]
+            parts = [(0, 8 * i, 16, 8, modes[i], -1) if k % 2 == 0 else
+                     (8 * i, 0, 8, 16, modes[i], -1) for i in range(2)]
+        else:
+            subs = [int(rs.randint(13)) for _ in range(4)]
+            self.seen.update(("sub_mb_type B", sb) for sb in subs)
+            for sb in subs:
+                e.sub_mb_type(sb)
+            parts = []
+            for i, sb in enumerate(subs):
+                mode, shape = B_SUB[sb]
+                if not mode:
+                    self.direct[m] |= 1 << i
+                    continue
+                w, h = (8, 8, 4, 4)[shape], (8, 4, 8, 4)[shape]
+                x0, y0 = 8 * (i % 2), 8 * (i // 2)
+                parts += [(x0 + w * (k % (8 // w)), y0 + h * (k // (8 // w)), w, h, mode, i)
+                          for k in range(SUB_PARTS[shape])]
+        for l in range(2):  # ref_idx_l0 of every partition (sub-macroblock), then ref_idx_l1
+            if mb < 22:
+                for x, y, w, h, mode, _ in parts:
+                    if mode >> l & 1:
+                        e.ref(m, x, y, w, h, self._ref_l(l), self.active_l[l], l)
+            else:
+                for i, sb in enumerate(subs):
+                    if B_SUB[sb][0] >> l & 1:
+                        e.ref(m, 8 * (i % 2), 8 * (i // 2), 8, 8, self._ref_l(l), self.active_l[l], l)
+        for l in range(2):
+            for x, y, w, h, mode, _ in parts:
+                if mode >> l & 1:
+                    for c in range(2):
+                        e.mvd(m, x, y, w, h, c, self._mvd(), l)
+        self._cbp_residual(e, m, False)
+
+    def _ref_l(self, l):
+        return int(self.rs.randint(self.nrefs_l[l])) if self.nrefs_l[l] > 1 else 0
+
     # ------------------------------------------------------------- stream
     def packets(self):
-        """One access unit a frame: lists of NAL units."""
+        """One access unit a frame, in decode order: lists of NAL units."""
         p = self.p
         out = []
-        for i in range(p["frames"] + p["cut"]):
+        for i in self.order:
             nals = self.picture(i)
             if i in p["recovery"]:
                 nals = [recovery_sei(p["recovery"][i])] + nals
@@ -1419,6 +1702,9 @@ def write(p: dict, units, sps: bytes, pps: bytes) -> bytes:
     h, w = p["size"]
     keys = [k - p["cut"] for k in (p["idr"] if p["keys"] is None else p["keys"])
             if k >= p["cut"]]
+    order = p["order"] or list(range(len(units)))  # display index by decode index
+    if p["order"]:
+        keys = [order.index(k) for k in keys]
     if p["container"] == "avi":
         return avi_cases.write_avi([annexb(u) for u in units], w, h,
                                    fourcc=p["fourcc"].encode(), keys=keys,
@@ -1427,22 +1713,43 @@ def write(p: dict, units, sps: bytes, pps: bytes) -> bytes:
     if p["inband"]:  # avc3: the parameter sets are in the samples only
         record = record[:5] + b"\xe0\x00"
     box = struct.pack(">I", 8 + len(record)) + b"avcC" + record
+    kw = {}
+    if order != sorted(order):  # composition offsets, as libavformat's mov muxer writes them
+        delay = max(d - v for d, v in enumerate(order))  # frames
+        signed = p["ctts"] == "v1"
+        kw = dict(ctts=[(v - d + (0 if signed else delay)) * 512 for d, v in enumerate(order)],
+                  ctts_version=int(signed), elst=p["elst"], edit_frames=len(units),
+                  media_time=0 if signed else delay)
     return mp4_cases.write_mp4([prefixed(u, p["nal_length"]) for u in units], w, h,
                                fourcc=b"avc3" if p["inband"] else b"avc1", config=box, keys=keys,
-                               brand=b"qt  " if p["container"] == "mov" else b"isom")
+                               brand=b"qt  " if p["container"] == "mov" else b"isom", **kw)
+
+
+def _make(kw: dict):
+    """(params, NAL units a frame in decode order, sps, pps, the syntax
+    written) of a stream; params["order"] holds the display index of each
+    frame where B pictures reorder them."""
+    p = _defaults()
+    p.update(kw)
+    wr = Writer(**p)
+    sps, pps = wr.sps(), wr.pps()
+    units = wr.packets()
+    p["order"] = wr.order[p["cut"]:] if p["bframes"] else None
+    return p, units, sps, pps, wr.seen
 
 
 @functools.lru_cache(maxsize=None)
 def stream(name: str):
     """(params, NAL units a frame, sps, pps) of case ``name`` (made once);
     SEEN[name] is then the syntax the writer wrote."""
-    p = _defaults()
-    p.update(CASES.get(name) or REFUSED[name][0])
-    wr = Writer(**p)
-    sps, pps = wr.sps(), wr.pps()
-    units = wr.packets()
-    SEEN[name] = wr.seen
+    p, units, sps, pps, SEEN[name] = _make(CASES.get(name) or REFUSED[name][0])
     return p, units, sps, pps
+
+
+def build_twin(name: str) -> bytes:
+    """The file of CABAC case ``name``'s CAVLC twin (:func:`twin`)."""
+    p, units, sps, pps, _ = _make(twin(name))
+    return write(p, units, sps, pps)
 
 
 SEEN = {}  # case -> the (element, value) pairs its writer wrote
@@ -1552,16 +1859,114 @@ class _ClipWriter:
     then P pictures predicted from the picture before at zero motion
     (P_L0_16x16, or P_Skip where nothing is coded), in CAVLC or CABAC.  The
     encoder's own reconstruction leaves out the deblocking filter: the
-    drift is harmless."""
+    drift is harmless.  With ``bframes`` (CABAC, as x264's Main profile
+    writes it: ``--bframes 2 --direct spatial --weightb``, no pyramid) the
+    anchors are every third picture and the last, and the non-reference B
+    pictures between them are predicted from the anchors on either side at
+    zero motion with implicit weights (B_Bi_16x16, or B_Skip, whose
+    spatial direct prediction is the same, where nothing is coded)."""
 
-    def __init__(self, h, w, qp, cabac=False):
+    def __init__(self, h, w, qp, cabac=False, bframes=False):
         self.h, self.w, self.qp, self.cabac = h, w, qp, cabac
         self.mbw, self.mbh = -(-w // 16), -(-h // 16)  # the frame cropped from the coded size
-        self.wr = Writer(size=(h, w), max_refs=1, log2_max_frame_num=4, log2_max_poc_lsb=8,
-                         qp=(qp, qp), cabac=int(cabac), profile=77 if cabac else 66)
+        kw = dict(max_refs=2, vui=True, reorder=1, bipred=2) if bframes else dict(max_refs=1)
+        self.wr = Writer(size=(h, w), log2_max_frame_num=4, log2_max_poc_lsb=8, qp=(qp, qp),
+                         cabac=int(cabac), profile=77 if cabac else 66, **kw)
         self.recon = None
+        self.anchors = {}  # display index -> the reconstructed planes of an anchor
 
-    def picture(self, bgr, i):
+    def b_picture(self, bgr, i, fn, prev, nxt):
+        """B picture ``i`` (frame_num ``fn``) between anchors ``prev`` and
+        ``nxt`` (display indices)."""
+        pad = ((0, self.mbh * 16 - self.h), (0, self.mbw * 16 - self.w), (0, 0))
+        planes = _yuv420(np.pad(bgr, pad, mode="edge"))
+        # the implicit weights of refIdx 0 in each list (8.4.2.3.1): w1 = DistScaleFactor >> 2
+        tb, td = 2 * (i - prev), 2 * (nxt - prev)
+        w1 = (tb * ((16384 + td // 2) // td) + 32) >> 8
+        w0 = 64 - w1
+        bw = Bits()
+        bw.ue(0)
+        bw.ue(6)  # B, every slice of the picture
+        bw.ue(0)
+        bw.u(fn % 16, 4)
+        bw.u(2 * i, 8)
+        bw.u(1, 1)  # direct_spatial_mv_pred_flag
+        bw.u(0, 1)  # num_ref_idx_active_override_flag
+        bw.u(0, 1)  # ref_pic_list_modification_flag_l0
+        bw.u(0, 1)  # ref_pic_list_modification_flag_l1
+        bw.ue(0)  # cabac_init_idc
+        bw.se(0)
+        bw.ue(0)
+        bw.se(0)
+        bw.se(0)
+        mbw, mbh, q = self.mbw, self.mbh, self.qp
+        coded = {}
+        for c, n in ((0, 16), (1, 8), (2, 8)):
+            pred = (self.anchors[prev][c] * w0 + self.anchors[nxt][c] * w1 + 32) >> 6
+            blk = _blocks(planes[c] - pred).reshape(mbh, n // 4, mbw, n // 4, 4, 4)
+            lv, dc_lv, _ = _residual(blk.transpose(0, 2, 1, 3, 4, 5), q if c == 0 else CHROMA_QP[q],
+                                     False, None if c == 0 else "chroma")
+            coded[c] = (lv, dc_lv)
+        st = self.wr
+        st.new_state()
+        st.slc = [0] * st.nmb
+        e = st.coder(bw, True, 0, q, b_slice=True)
+        for my in range(mbh):
+            for mx in range(mbw):
+                m = my * mbw + mx
+                ly, u, v = (coded[c][0][my, mx] for c in range(3))
+                udc, vdc = coded[1][1][my, mx], coded[2][1][my, mx]
+                cbp_c, cbp_l = self._cbp(ly, u, v, udc, vdc)
+                if not cbp_l and not cbp_c:
+                    st.kind[m] = "skip"
+                    st.direct[m] = 31
+                    e.skip(m)
+                    e.mb_end(m, m == st.nmb - 1)
+                    continue
+                e.mb_start(m)
+                st.kind[m] = "p"
+                e.mb_type_b(m, 3)  # B_Bi_16x16
+                for l in range(2):
+                    e.ref(m, 0, 0, 16, 16, 0, 1, l)
+                for l in range(2):
+                    e.mvd(m, 0, 0, 16, 16, 0, 0, l)
+                    e.mvd(m, 0, 0, 16, 16, 1, 0, l)
+                e.cbp(m, cbp_l | cbp_c << 4, False)
+                e.qp_delta(0)
+                self._blocks(e, m, ly, u, v, udc, vdc, cbp_l, cbp_c, False)
+                e.mb_end(m, m == st.nmb - 1)
+        return [nal(0, 1, e.finish())]
+
+    @staticmethod
+    def _cbp(ly, u, v, udc, vdc):
+        """(chroma, luma) coded_block_pattern of a macroblock's levels (the
+        luma part as an inter macroblock codes it)."""
+        cbp_c = 2 if (u.reshape(2, 2, 16)[..., 1:].any() or v.reshape(2, 2, 16)[..., 1:].any()) \
+            else 1 if (udc.any() or vdc.any()) else 0
+        nz8 = [ly[2 * (k // 2):2 * (k // 2) + 2, 2 * (k % 2):2 * (k % 2) + 2].any() for k in range(4)]
+        return cbp_c, sum(1 << k for k in range(4) if nz8[k])
+
+    def _blocks(self, e, m, ly, u, v, udc, vdc, cbp_l, cbp_c, intra16):
+        """A macroblock's residual blocks after its header: luma (the AC
+        blocks of Intra16x16, or the 4x4 blocks of each coded 8x8), chroma
+        DC and AC."""
+        st = self.wr
+        for blk in range(16):
+            bx, by = _blk_xy(blk)
+            if intra16 and cbp_l:
+                st.tcl[m][by * 4 + bx] = e.block(m, 1, bx, by, 0, _scan(ly[by, bx])[1:])
+            elif not intra16 and cbp_l >> (blk // 4) & 1:
+                st.tcl[m][by * 4 + bx] = e.block(m, 2, bx, by, 0, _scan(ly[by, bx]))
+        if cbp_c:
+            for c, dcv in enumerate((udc, vdc)):
+                e.block(m, 3, 0, 0, c, [int(x) for x in dcv.reshape(4)])
+        for c, pl in enumerate((u, v)):
+            for k in range(4):
+                bx, by = k % 2, k // 2
+                if cbp_c == 2:
+                    st.tcc[m][c][by * 2 + bx] = e.block(m, 4, bx, by, c, _scan(pl[by, bx])[1:])
+
+    def picture(self, bgr, i, fn=None):
         pad = ((0, self.mbh * 16 - self.h), (0, self.mbw * 16 - self.w), (0, 0))
         planes = _yuv420(np.pad(bgr, pad, mode="edge"))
         bw = Bits()
@@ -1569,7 +1974,7 @@ class _ClipWriter:
         bw.ue(0)
         bw.ue(7 if idr else 5)
         bw.ue(0)
-        bw.u(i % 16, 4)
+        bw.u((i if fn is None else fn) % 16, 4)
         if idr:
             bw.ue(0)
         bw.u(2 * i, 8)
@@ -1640,9 +2045,7 @@ class _ClipWriter:
                     ly, u, v = (coded[c][0][my, mx] for c in range(3))
                     udc, vdc = coded[1][1][my, mx], coded[2][1][my, mx]
                     ldc = None
-                cbp_c = 2 if (u[..., :, :].reshape(2, 2, 16)[..., 1:].any()
-                              or v.reshape(2, 2, 16)[..., 1:].any()) else \
-                    1 if (udc.any() or vdc.any()) else 0
+                cbp_c, cbp_l = self._cbp(ly, u, v, udc, vdc)
                 if idr:
                     cbp_l = 15 if ly.reshape(4, 4, 16)[..., 1:].any() else 0
                     e.mb_start(m)
@@ -1653,9 +2056,6 @@ class _ClipWriter:
                     st.cbp[m] = cbp_l | cbp_c << 4
                     e.block(m, 0, 0, 0, 0, _scan(ldc))
                 else:
-                    nz8 = [ly[2 * (k // 2):2 * (k // 2) + 2, 2 * (k % 2):2 * (k % 2) + 2].any()
-                           for k in range(4)]
-                    cbp_l = sum(1 << k for k in range(4) if nz8[k])
                     if not cbp_l and not cbp_c:
                         st.kind[m] = "skip"
                         st.refidx[m] = [0] * 16
@@ -1670,36 +2070,38 @@ class _ClipWriter:
                     e.mvd(m, 0, 0, 16, 16, 1, 0)
                     e.cbp(m, cbp_l | cbp_c << 4, False)
                     e.qp_delta(0)
-                for blk in range(16):
-                    bx, by = _blk_xy(blk)
-                    if idr and cbp_l:
-                        st.tcl[m][by * 4 + bx] = e.block(m, 1, bx, by, 0, _scan(ly[by, bx])[1:])
-                    elif not idr and cbp_l >> (blk // 4) & 1:
-                        st.tcl[m][by * 4 + bx] = e.block(m, 2, bx, by, 0, _scan(ly[by, bx]))
-                if cbp_c:
-                    for c, dcv in enumerate((udc, vdc)):
-                        e.block(m, 3, 0, 0, c, [int(x) for x in dcv.reshape(4)])
-                for c, pl in enumerate((u, v)):
-                    for k in range(4):
-                        bx, by = k % 2, k // 2
-                        if cbp_c == 2:
-                            st.tcc[m][c][by * 2 + bx] = e.block(m, 4, bx, by, c,
-                                                                _scan(pl[by, bx])[1:])
+                self._blocks(e, m, ly, u, v, udc, vdc, cbp_l, cbp_c, idr)
                 e.mb_end(m, m == st.nmb - 1)
         self.recon = recon
+        self.anchors[i] = recon
         return [nal(3, 5 if idr else 1, e.finish())]
 
 
-def encode_clip(frames, qp: int = 30, cabac: bool = False) -> bytes:
+def encode_clip(frames, qp: int = 30, cabac: bool = False, bframes: bool = False) -> bytes:
     """An MP4 of ``frames`` (BGR u8 of even sizes; coded at multiples of 16
     and cropped) as real pictures at QP ``qp`` (:class:`_ClipWriter`), in
     CAVLC (Constrained Baseline) or CABAC (Main profile): the same
-    macroblocks and levels either way, so the same decoded frames."""
+    macroblocks and levels either way, so the same decoded frames.  With
+    ``bframes`` (CABAC): I P B B, two B pictures between anchors, with
+    composition offsets, an edit list and num_reorder_frames 1."""
     h, w = frames[0].shape[:2]
-    cw = _ClipWriter(h, w, qp, cabac)
+    cw = _ClipWriter(h, w, qp, cabac, bframes)
     p = _defaults()
     p.update(size=(h, w), idr=(0,))
-    units = [cw.picture(f, i) for i, f in enumerate(frames)]
+    if not bframes:
+        units = [cw.picture(f, i) for i, f in enumerate(frames)]
+        return write(p, units, cw.wr.sps(), cw.wr.pps())
+    n = len(frames)
+    anchors = sorted({*range(0, n, 3), n - 1})
+    order, units, fn = [0], [cw.picture(frames[0], 0, 0)], 1
+    for prev, nxt in zip(anchors, anchors[1:]):
+        order.append(nxt)
+        units.append(cw.picture(frames[nxt], nxt, fn))
+        fn += 1
+        for i in range(prev + 1, nxt):
+            order.append(i)
+            units.append(cw.b_picture(frames[i], i, fn, prev, nxt))
+    p.update(order=order)
     return write(p, units, cw.wr.sps(), cw.wr.pps())
 
 
@@ -1782,6 +2184,44 @@ CASES = {
     # FFmpeg's output delay under Main profile: num_reorder_frames 1
     "cabac_reorder1": dict(seed=22, frames=12, profile=77, cabac=1, vui=True, reorder=1,
                            max_refs=2, refs_default=2),
+    # B slices (Main profile), MP4 with ctts and elst unless said otherwise:
+    # one B picture between anchors, num_reorder_frames 1
+    "b_slices": dict(seed=23, frames=6, idr=(0,), profile=77, bframes=1, vui=True, reorder=1,
+                     max_refs=2, refs_default=1, mvd=12),
+    # two B pictures, CABAC
+    "cabac_b_slices": dict(seed=24, frames=6, idr=(0,), profile=77, cabac=1, bframes=2, vui=True,
+                           reorder=2, max_refs=2, refs_default=1, mvd=12),
+    # spatial direct with direct_8x8_inference 1, 2-3 references a list,
+    # list modification of both, every B mb_type and sub_mb_type
+    "cabac_b_spatial": dict(seed=25, profile=77, cabac=1, bframes=2, direct="spatial", max_refs=3,
+                            refs_default=2, refs_l1=2, override=0.3, modify=0.4, vui=True,
+                            reorder=2, mvd=12, qp=(16, 40)),
+    # temporal direct with direct_8x8_inference 0, up to 4 references a
+    # list, several slices (I among B), QuickTime with signed offsets (ctts
+    # version 1)
+    "cabac_b_temporal": dict(seed=26, profile=77, cabac=1, bframes=2, direct="temporal",
+                             direct8x8=0, max_refs=4, refs_default=4, refs_l1=4, override=0.3,
+                             modify=0.4, container="mov", ctts="v1", vui=True, reorder=2,
+                             mvd=12, slices=(1, 3), deblock=((0, 0, 0), (0, -3, 3), (2, 2, 2))),
+    # reference B pictures (a pyramid of three) with MMCO 1, implicit
+    # weights, spatial and temporal direct by slice; no bitstream
+    # restriction (FFmpeg's POC heuristic sets the delay) and no edit list
+    "cabac_b_pyramid": dict(seed=31, profile=77, cabac=1, bframes=3, pyramid=True, direct="mix",
+                            bipred=2, max_refs=4, refs_default=2, refs_l1=2, mmco=0.6,
+                            elst=False, mvd=12),
+    # explicit weighted bi-prediction, direct_8x8_inference 0, AVI
+    "cabac_b_explicit": dict(seed=28, profile=77, cabac=1, bframes=1, bipred=1, direct="mix",
+                             direct8x8=0, container="avi", inband=True, max_refs=3,
+                             refs_default=2, refs_l1=2, vui=True, reorder=1, modify=0.3, mvd=12),
+    # AVI without bitstream restriction, and open GOPs: I pictures (key
+    # frames in idx1) every 4 frames after the IDR picture, each followed in
+    # decode order by the B picture before it
+    "b_avi_open_gop": dict(seed=29, profile=77, bframes=1, idr=(0,), intra=(4, 8, 12, 16, 20, 24),
+                           keys=(0, 4, 8, 12, 16, 20, 24), container="avi", inband=True,
+                           max_refs=2, refs_default=1, mvd=12),
+    "cabac_b_open_gop": dict(seed=30, profile=77, cabac=1, bframes=1, idr=(0,),
+                             intra=(4, 8, 12, 16, 20, 24), keys=(0, 4, 8, 12, 16, 20, 24),
+                             max_refs=2, refs_default=1, mvd=12, bipred=2),
 }
 
 # C10: streams that do not start on an IDR picture (I pictures at 0 and 12
@@ -1811,7 +2251,6 @@ def twin(name: str) -> dict:
 
 # name -> (stream keywords, the words the refusal names); 6 frames each
 REFUSED = {
-    "b_slices": (dict(frames=6, slice_types=(1,), idr=(0,)), "B slices"),
     "interlaced": (dict(frames=6, frame_mbs_only=0), "field"),
     "slice_groups": (dict(frames=6, slice_groups=2), "slice groups"),
     "redundant": (dict(frames=6, redundant=1), "redundant pictures"),
@@ -1828,11 +2267,14 @@ REFUSED = {
     "mmco5": (dict(frames=6, mmco5_at=4), "memory_management_control_operation 5"),
     "data_partitioning": (dict(frames=6, partition_at=3), "data partitioning"),
     # what Main and High profile files hold beyond what is decoded, under CABAC
-    "cabac_b_slices": (dict(frames=6, profile=77, cabac=1, slice_types=(1,), idr=(0,)),
-                       "B slices"),
     "cabac_transform_8x8": (dict(frames=6, profile=100, cabac=1, transform_8x8=1),
                             "8x8 transform"),
     "cabac_mbaff": (dict(frames=6, profile=77, cabac=1, frame_mbs_only=0, mbaff=1), "MBAFF"),
+    # what stays refused inside B slices: a long-term picture named in list 1
+    "b_long_term_l1": (dict(frames=6, profile=77, bframes=1, idr=(0,), l1_long_term=True),
+                       "long-term reference pictures"),
+    "cabac_b_long_term_l1": (dict(frames=6, profile=77, cabac=1, bframes=2, idr=(0,),
+                                  l1_long_term=True), "long-term reference pictures"),
 }
 
 
@@ -1844,6 +2286,18 @@ def _reads(n):
     ids = tuple(range(n))
     after = {k: ids[k:k + READ_AFTER_SEEK] for k in SEEKS}
     return dict(order=ids, start=after, ui=dict(after))
+
+
+def _open_gop_reads(n):
+    """The reads of the open-GOP cases, as FFmpeg gives them: a seek's step
+    back lands on the I picture at 4 or 8, and the B picture after it in
+    decode order (which predicts from pictures before the I picture) is not
+    shown, so the frames counted from there run one ahead: start_frame and
+    ui seeks to 20 read on from 21, and to 25 or later read nothing."""
+    out = _reads(n)
+    for k in ("start", "ui"):
+        out[k].update({20: (21, 22, 23), 25: (), 26: (), 40: ()})
+    return out
 
 
 def _cut_reads(n):
@@ -1954,7 +2408,25 @@ PINNED = {
                  sha256="a2459c49bfe535fae37aa95b97fab96abb45b10c32f37f3fa2bdd9d0240f2bf9"),
     "c10_d3_avi": dict(count=26, fps=25.0, **_reads(25),
                  sha256="48b3640fce160184a320b9c881ba64520ce209345442c247ef58b97139cb03b5"),
+    "b_slices": dict(count=6, fps=25.0, **_reads(6),
+                 sha256="df406d6bdad00d1d4f8aa89905b1dcd6790af266ea36e3b1c62a0460d823ea6d"),
+    "cabac_b_slices": dict(count=6, fps=25.0, **_reads(6),
+                 sha256="af82c9b2b5b1bf7dcfcc4c026408aa8bf059bb3f96bcf1be06c189175b517b7c"),
+    "cabac_b_spatial": dict(count=26, fps=25.0, **_reads(26),
+                 sha256="e8c56c276ded79351477ad2422a1a6629f1333fd0ed5d049af97ef90cd6045b7"),
+    "cabac_b_temporal": dict(count=26, fps=25.0, **_reads(26),
+                 sha256="11ecd63a62205acbba58eb049e76240b404b13581ecab8aa0ab7e41bd246a1fe"),
+    "cabac_b_pyramid": dict(count=26, fps=25.0, **_reads(26),
+                 sha256="643f8775018068d1d666b51615210434d180f690e1d3dd9d1d5a7d97d6b5d914"),
+    "cabac_b_explicit": dict(count=26, fps=25.0, **_reads(26),
+                 sha256="b4093043c861beeef1c77df2b2cbc0eb0ea24f65c52400686248b20d4f1a4858"),
+    "b_avi_open_gop": dict(count=26, fps=25.0, **_open_gop_reads(26),
+                 sha256="883ffeeca3ff34cc8a35336df1c80e9c1105df4adb2d8e2aecc1801a696adf5b"),
+    "cabac_b_open_gop": dict(count=26, fps=25.0, **_open_gop_reads(26),
+                 sha256="27f158b1900ab759a43a92a97b50d2177c1817bfb0930fec2eef2c166d0fce36"),
     "h264_720p": dict(count=8, fps=25.0,
                  sha256="2e9fadb6c3d8ef65d3ac18c86733d1ebe5bf57276bc70fcdad5c69d9d5b80b6f"),
 }
 PINNED["h264_cabac_720p"] = PINNED["h264_720p"]  # the same frames, coded with CABAC
+PINNED["h264_b_720p"] = dict(count=8, fps=25.0,
+                             sha256="5b0d4bdf69f2eb327bc6494324784c57dee8e5a05cc52812b27c96a9ddea6041")

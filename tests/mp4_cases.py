@@ -210,14 +210,16 @@ def write_mp4(packets, w, h, fourcc=b"mp4v", extra=b"", timescale=12800, delta=5
               moov_first=False, co64=False, chunks=None, uniform=False, stss=True,
               media_time=0, edit_frames=None, fragmented=False, large_mdat=False,
               open_mdat=False, keys=None, ctts=False, object_type=0x20, config=b"",
-              brand=b"isom") -> bytes:
+              brand=b"isom", ctts_version=0, elst=True) -> bytes:
     """An MP4 of one video track around ``packets``: see the module
     docstring; ``chunks`` gives the samples of each chunk in turn (the last
     repeated), ``media_time`` the edit's start in frames, ``edit_frames``
     its length in frames (default: to the end), ``keys`` the key
     frames' indices (default: the packets that hold an I-VOP or, for
     ``jpeg``, all); ``ctts`` adds composition offsets of one frame on every
-    second sample, ``object_type`` is the esds objectTypeIndication,
+    second sample, or (a list) the given offset of each sample, in a box of
+    version ``ctts_version`` (1: signed); ``elst`` False leaves out the
+    edit list; ``object_type`` is the esds objectTypeIndication,
     ``config`` a box added to the sample entry (H.264's ``avcC``) and
     ``brand`` the ftyp's major brand (``qt  `` for QuickTime)."""
     n = len(packets)
@@ -273,8 +275,9 @@ def write_mp4(packets, w, h, fourcc=b"mp4v", extra=b"", timescale=12800, delta=5
             stbl += _full(b"stss", struct.pack(">I", len(keys)) + b"".join(
                 struct.pack(">I", k + 1) for k in keys))
         if ctts:
+            offsets = ctts if isinstance(ctts, (list, tuple)) else [delta * (i % 2) for i in range(n)]
             stbl += _full(b"ctts", struct.pack(">I", n) + b"".join(
-                struct.pack(">II", 1, delta * (i % 2)) for i in range(n)))
+                struct.pack(">Ii", 1, o) for o in offsets), version=ctts_version)
         stbl += stsc + stsz + stco
         minf = (_full(b"vmhd", bytes(8), flags=1)
                 + _box(b"dinf", _full(b"dref", struct.pack(">I", 1) + _full(b"url ", b"", flags=1)))
@@ -284,12 +287,12 @@ def write_mp4(packets, w, h, fourcc=b"mp4v", extra=b"", timescale=12800, delta=5
                 + _box(b"minf", minf))
         skip = media_time * delta
         span = dur - skip if edit_frames is None else edit_frames * delta
-        elst = _full(b"elst", struct.pack(">IIiHH", 1, _ceil_div(span * 1000, timescale),
-                                          skip, 1, 0))
+        elst_box = _full(b"elst", struct.pack(">IIiHH", 1, _ceil_div(span * 1000, timescale),
+                                              skip, 1, 0))
         tkhd = _full(b"tkhd", struct.pack(">IIIII", 0, 0, 1, 0, movie_dur) + bytes(8)
                      + struct.pack(">hhhH", 0, 0, 0, 0) + _MATRIX
                      + struct.pack(">II", w << 16, h << 16), flags=3)
-        trak = _box(b"trak", tkhd + _box(b"edts", elst) + _box(b"mdia", mdia))
+        trak = _box(b"trak", tkhd + (_box(b"edts", elst_box) if elst else b"") + _box(b"mdia", mdia))
         mvhd = _full(b"mvhd", struct.pack(">IIII", 0, 0, 1000, movie_dur)
                      + struct.pack(">IH", 0x10000, 0x100) + bytes(10) + _MATRIX + bytes(24)
                      + struct.pack(">I", 2))

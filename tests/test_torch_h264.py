@@ -39,7 +39,8 @@ cv2 = pytest.importorskip("cv2")
 NAMES = list(H.CASES)
 
 
-CLIPS = {"h264_720p": H.CLIP_720P, "h264_cabac_720p": H.CLIP_CABAC_720P}
+CLIPS = {"h264_720p": H.CLIP_720P, "h264_cabac_720p": H.CLIP_CABAC_720P,
+         "h264_b_720p": H.CLIP_B_720P}
 
 
 @pytest.fixture(scope="module")
@@ -147,6 +148,39 @@ def test_cabac_cases_write_every_element_the_decoder_takes():
     assert max(values("references")) == (4,) and max(values("slices"))[0] > 1
 
 
+def test_b_cases_write_every_element_the_decoder_takes():
+    """Across the B-slice cases (CABAC, and CAVLC in their twins) the writer
+    codes every B mb_type and sub_mb_type, B_Skip, intra macroblocks in B
+    slices, spatial and temporal direct with direct_8x8_inference 0 and 1,
+    weighted_bipred_idc 0, 1 (luma and chroma weights) and 2, 1 to 4
+    references in a list, modification of both lists, reference B pictures
+    under MMCO 1, and streams with and without bitstream restriction, in
+    MP4 (ctts versions 0 and 1, with and without elst), QuickTime and AVI."""
+    names = [n for n, kw in H.CASES.items() if kw.get("bframes")]
+    seen = set()
+    for name in names:
+        H.stream(name)
+        seen |= H.SEEN[name]
+
+    def values(key):
+        return {k[1] for k in seen if k[0] == key}
+
+    assert values("mb_type B") == set(range(23)) and values("sub_mb_type B") == set(range(13))
+    assert values("B macroblock") == {"skip", "direct", "b16", "b2", "b8x8", "intra"}
+    assert values("direct") == {"spatial", "temporal"}
+    assert values("references B") == {1, 2, 3, 4}
+    assert values("list modification B") == {0, 1} and values("mmco B") == {1}
+    assert values("weights B") == {"luma", "chroma"}
+    params = [dict(H._defaults(), **H.CASES[n]) for n in names]
+    assert {p["direct8x8"] for p in params} == {0, 1}
+    assert {p["bipred"] for p in params} == {0, 1, 2}
+    assert {p["pyramid"] for p in params} == {False, True}
+    assert {p["reorder"] for p in params} >= {None, 1, 2}
+    assert {(p["container"], p["ctts"], p["elst"]) for p in params} >= {
+        ("mp4", "v0", True), ("mp4", "v0", False), ("mov", "v1", True), ("avi", "v0", True)}
+    assert all(n in H.CABAC for n in names if n not in ("b_slices", "b_avi_open_gop"))
+
+
 @pytest.mark.parametrize("name,length", [("pcm_skip", 4), ("nal_length2", 2),
                                          ("nal_length1", 1), ("avc3", 4)])
 def test_avcc_is_what_the_writer_put_in(paths, name, length):
@@ -210,13 +244,9 @@ def test_cabac_case_decodes_as_its_cavlc_twin(tmp_path, name, monkeypatch):
     """The CAVLC stream of the same seed (the same macroblocks, each element
     coded with CAVLC) gives the CABAC case's pinned frames in the JAX
     reader and in the port with cv2 blocked."""
-    p = H._defaults()
-    p.update(H.twin(name))
-    wr = H.Writer(**p)
-    sps, pps = wr.sps(), wr.pps()
     path = str(tmp_path / f"{name}_cavlc{H.suffix(name)}")
     with open(path, "wb") as f:
-        f.write(H.write(p, wr.packets(), sps, pps))
+        f.write(H.build_twin(name))
     cap = cv2.VideoCapture(path)
     assert A.sha256(_read_all(cap)) == H.PINNED[name]["sha256"]
     monkeypatch.setitem(sys.modules, "cv2", None)
@@ -233,6 +263,47 @@ def test_cabac_clip_is_the_cavlc_clip_smaller():
     assert reader._extra[1] == 77  # avcC's AVCProfileIndication: Main
     reader.release()
     assert os.path.getsize(H.CLIP_CABAC_720P) < os.path.getsize(H.CLIP_720P)
+
+
+def test_b_clip_is_i_p_b_b_with_composition_offsets():
+    """tests/data/h264_b_720p.mp4 (encode_clip with bframes) codes the 8
+    frames as I P B B P B B P in CABAC (Main profile, implicit weights),
+    with composition offsets whose edit list starts the stream at 0, a video
+    delay of 1 and num_reorder_frames 1: the decoder holds the first picture
+    back one packet."""
+    with open(H.CLIP_B_720P, "rb") as f:
+        track = bmff.parse(f, os.path.getsize(H.CLIP_B_720P))
+    assert track.extra[1] == 77 and track.nal_length == 4
+    assert [s.pts // 512 for s in track.samples] == [0, 3, 1, 2, 6, 4, 5, 7]
+    assert [s.key for s in track.samples] == [True] + [False] * 7
+    assert (track.start_pts, track.video_delay) == (0, 1)
+    assert os.path.getsize(H.CLIP_B_720P) < 1_500_000
+    dec = h264.H264Decoder(track.extra, track.nal_length, "h264_b_720p")
+    with open(H.CLIP_B_720P, "rb") as f:
+        f.seek(track.samples[0].pos)
+        assert not dec.advance(f.read(track.samples[0].size), 0) and dec.delay == 1
+    dec.close()
+
+
+def test_avi_pictures_take_the_pts_of_the_packet_that_gave_them(paths, monkeypatch):
+    """AVI packets carry no pts, so OpenCV numbers each picture by the dts
+    of the packet whose decode gave it (CAP_PROP_POS_MSEC): with B pictures
+    and the delay of 1 avformat_find_stream_info's decode reached, picture
+    k comes out with packet k + 1, and the last one, drained at the end,
+    has none (0).  The port's reader numbers its pictures the same way."""
+    path = paths["b_avi_open_gop"]
+    cap = cv2.VideoCapture(path)
+    jax = []
+    while cap.read()[0]:
+        jax.append(round(cap.get(cv2.CAP_PROP_POS_MSEC) * cap.get(cv2.CAP_PROP_FPS) / 1000))
+    assert jax == [*range(1, 26), 0]
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    reader = video.open_reader(path)
+    port = []
+    while reader.read()[0]:
+        port.append(reader._last_pts if reader._last_pts != video._NOPTS else 0)
+    reader.release()
+    assert port == jax
 
 
 def test_decoder_api_and_output_delay(paths):
@@ -277,7 +348,7 @@ def test_refused_features_are_named(paths, name, monkeypatch):
 
 
 def test_refused_files_go_to_opencv_with_cv2(paths):
-    cap = runner.open_video(paths["b_slices"])
+    cap = runner.open_video(paths["b_long_term_l1"])
     assert isinstance(cap, runner._Cv2Capture)
     cap.release()
     cap = runner.open_video(paths["intra"])  # what the port reads, it reads itself

@@ -14,6 +14,7 @@ inside ``caffe_rtpose_tpu.pipeline.runner.frame_source``:
     container and the fourcc; with cv2 they go to OpenCV.
 """
 
+import io
 import sys
 
 import numpy as np
@@ -129,6 +130,27 @@ def test_edit_list_and_timescale(paths):
     with open(paths["ntsc"], "rb") as f:
         track = bmff.parse(f, len(M.build("ntsc")))
     assert (track.timescale, track.fps, track.samples[1].pts) == (30000, 30000 / 1001, 1001)
+
+
+@pytest.mark.parametrize("version,elst", [(0, True), (0, False), (1, True), (1, False)])
+def test_h264_composition_offsets(version, elst):
+    """ctts on an avc1 track, as libavformat's mov demuxer reads it: B
+    pictures in decode order 0 2 1 4 3 5 (offsets of version 0 shifted to
+    stay >= 0, with an elst whose media_time is that shift; version 1
+    signed).  Each sample's pts is its dts plus its offset, less the edit's
+    media_time; seeks compare decode times; the stream starts at the first
+    sample's pts; the reordering gives a video delay of 1."""
+    order, delta = [0, 2, 1, 4, 3, 5], 512
+    shift = 0 if version else 1
+    data = M.write_mp4([bytes(8)] * 6, 100, 74, fourcc=b"avc1",
+                       ctts=[(v - d + shift) * delta for d, v in enumerate(order)],
+                       ctts_version=version, elst=elst, edit_frames=6, media_time=shift)
+    track = bmff.parse(io.BytesIO(data), len(data))
+    pts = [(v + (0 if elst else shift)) * delta for v in order]
+    assert [s.pts for s in track.samples] == pts
+    assert [s.dts for s in track.samples] == [d * delta for d in range(6)]
+    assert not any(s.discard for s in track.samples)
+    assert (track.start_pts, track.video_delay) == (pts[0], 1)
 
 
 # ----------------------------------------------------------- (d) refusals

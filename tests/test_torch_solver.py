@@ -78,10 +78,19 @@ def _feed(batches):
     return lambda it: batches[next(count) % len(batches)]
 
 
+_JAX_JIT = {}  # the module net's jitted loss gradient and update functions, compiled once
+
+
 def make_jax(setup, sp):
     jnet, weights, batches = setup
     jnet.params = {k: [jnp.asarray(a) for a in v] for k, v in params_to_jax(weights).items()}
-    return JSolver(sp, jnet, _feed(batches))
+    js = JSolver(sp, jnet, _feed(batches))
+    # the gradient is a function of the net alone, the update of the net
+    # and the solver text (the solver passes parameters, batch, history and
+    # rate): the module's solvers share one compile of each
+    js._grad = _JAX_JIT.setdefault(id(jnet), js._grad)
+    js._update = _JAX_JIT.setdefault((id(jnet), sp), js._update)
+    return js
 
 
 def make_port(setup, sp):
