@@ -1,10 +1,14 @@
-// H.264 (ISO/IEC 14496-10) Main profile video decoded on the host, as
-// FFmpeg's `h264` decoder decodes it for OpenCV's VideoCapture, and each
-// picture, cropped, converted to BGR24 as swscale's unscaled YUV420P (or,
-// with video_full_range_flag, YUVJ420P) -> BGR24 path converts it.
+// H.264 (ISO/IEC 14496-10) Main and High profile video decoded on the
+// host, as FFmpeg's `h264` decoder decodes it for OpenCV's VideoCapture,
+// and each picture, cropped, converted to BGR24 as swscale's unscaled
+// YUV420P (or, with video_full_range_flag, YUVJ420P) -> BGR24 path
+// converts it.
 //
 // What is decoded: CAVLC and CABAC, I, P and B slices, 4:2:0 8-bit
-// progressive frames; several slices a picture, in order; Intra4x4,
+// progressive frames; several slices a picture, in order; the 4x4 and 8x8
+// transforms with flat, default or transmitted scaling matrices (SPS and
+// PPS lists under fall-back rules A and B) and a chroma QP offset for each
+// of Cb and Cr; Intra4x4, Intra8x8,
 // Intra16x16, I_PCM, the P partitions down to 4x4 and every B mb_type and
 // sub_mb_type (B_Skip, B_Direct_16x16 and B_8x8 with direct sub-blocks);
 // spatial and temporal direct prediction with direct_8x8_inference_flag 0
@@ -24,12 +28,12 @@
 // under frame threads (OpenCV's) does.  The samples are those the standard
 // specifies (H.264 decoding is exact), so any conforming decoder gives the
 // same planes.  Everything else (SP and SI slices, field pictures and
-// MBAFF, slice groups, arbitrary slice order, redundant pictures, other
-// chroma formats and bit depths, the 8x8 transform, scaling matrices,
-// long-term references in either list, MMCO 2-6, POC type 1, frame_num
-// gaps inside a stream, constrained intra prediction, data partitioning)
-// is refused by name.  There is no concealment: a slice that does not
-// decode raises.
+// MBAFF, slice groups, arbitrary slice order, redundant pictures,
+// monochrome and the other chroma formats, bit depths above 8, lossless
+// macroblocks, long-term references in either list, MMCO 2-6, POC type 1,
+// frame_num gaps inside a stream, constrained intra prediction, data
+// partitioning) is refused by name.  There is no concealment: a slice that
+// does not decode raises.
 //
 // C interface (ctypes): crt_h264_create, crt_h264_config (the parameter
 // sets carried outside the packets, and the NAL length size),
@@ -121,9 +125,38 @@ const uint8_t kInterCbp[48] = {0,  16, 1,  2,  4,  8,  32, 3,  5,  10, 12, 15, 4
                                14, 6,  9,  31, 35, 37, 42, 44, 33, 34, 36, 40, 39, 43, 45, 46,
                                17, 18, 20, 24, 19, 21, 26, 28, 23, 27, 29, 30, 22, 25, 38, 41};
 const uint8_t kZigzag[16] = {0, 1, 4, 8, 5, 2, 3, 6, 9, 12, 13, 10, 7, 11, 14, 15};
+// the 8x8 frame zigzag scan (8.5.7): scan position -> raster (y * 8 + x)
+const uint8_t kZigzag8[64] = {0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
+                              12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
+                              35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+                              58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63};
 // normAdjust4x4 (8-315): v[m][0] at (even, even), [1] at (odd, odd), [2] else
 const int kNormAdjust[6][3] = {{10, 16, 13}, {11, 18, 14}, {13, 20, 16},
                                {14, 23, 18}, {16, 25, 20}, {18, 29, 23}};
+// normAdjust8x8 (8-318): v[m][0..5] by the position class of (x, y)
+const int kNormAdjust8[6][6] = {{20, 18, 32, 19, 25, 24}, {22, 19, 35, 21, 28, 26},
+                                {26, 23, 42, 24, 33, 31}, {28, 25, 45, 26, 35, 33},
+                                {32, 28, 51, 30, 40, 38}, {36, 32, 58, 34, 46, 43}};
+// Tables 7-3 and 7-4: Default_4x4_Intra/Inter and Default_8x8_Intra/Inter
+// (raster order)
+const uint8_t kDefault4[2][16] = {{6, 13, 20, 28, 13, 20, 28, 32, 20, 28, 32, 37, 28, 32, 37, 42},
+                                  {10, 14, 20, 24, 14, 20, 24, 27, 20, 24, 27, 30, 24, 27, 30, 34}};
+const uint8_t kDefault8[2][64] = {
+    {6,  10, 13, 16, 18, 23, 25, 27, 10, 11, 16, 18, 23, 25, 27, 29, 13, 16, 18, 23, 25, 27,
+     29, 31, 16, 18, 23, 25, 27, 29, 31, 33, 18, 23, 25, 27, 29, 31, 33, 36, 23, 25, 27, 29,
+     31, 33, 36, 38, 25, 27, 29, 31, 33, 36, 38, 40, 27, 29, 31, 33, 36, 38, 40, 42},
+    {9,  13, 15, 17, 19, 21, 22, 24, 13, 13, 17, 19, 21, 22, 24, 25, 15, 17, 19, 21, 22, 24,
+     25, 27, 17, 19, 21, 22, 24, 25, 27, 28, 19, 21, 22, 24, 25, 27, 28, 30, 21, 22, 24, 25,
+     27, 28, 30, 32, 22, 24, 25, 27, 28, 30, 32, 33, 24, 25, 27, 28, 30, 32, 33, 35}};
+// Table 9-43 (frame-coded blocks): ctxIdxInc of significant_coeff_flag and
+// last_significant_coeff_flag of an 8x8 block, by scan position
+const uint8_t kSig8[63] = {0,  1,  2,  3,  4,  5,  5,  4,  4,  3,  3,  4,  4,  4,  5,  5,
+                           4,  4,  4,  4,  3,  3,  6,  7,  7,  7,  8,  9,  10, 9,  8,  7,
+                           7,  6,  11, 12, 13, 11, 6,  7,  8,  9,  14, 10, 9,  8,  6,  11,
+                           12, 13, 11, 6,  9,  14, 10, 9,  11, 12, 13, 11, 14, 10, 12};
+const uint8_t kLast8[63] = {0, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 2, 2, 2, 2, 2,
+                            2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 3, 3, 3, 3, 3, 3, 3, 3, 4, 4,
+                            4, 4, 4, 4, 4, 4, 5, 5, 5, 5, 6, 6, 6, 6, 7, 7, 7, 7, 8, 8, 8};
 // Table 8-15: QPc from qPI 30..51
 const uint8_t kChromaQp[22] = {29, 30, 31, 32, 32, 33, 34, 34, 35, 35, 36,
                                36, 37, 37, 37, 38, 38, 38, 39, 39, 39, 39};
@@ -169,14 +202,7 @@ struct Tables {
     Vlc dc_token{8};
     std::vector<Vlc> zeros, dc_zeros, run;
     int chroma_qp[52 + 24];  // QPc of qPI + 12 (qPI -12..63 before clipping)
-    int dequant[52][16];     // LevelScale4x4 / 16 << QP / 6 by scan position (flat matrices)
     Tables() {
-        for (int q = 0; q < 52; q++)
-            for (int i = 0; i < 16; i++) {
-                const int x = kZigzag[i] & 3, y = kZigzag[i] >> 2;
-                const int k = (x & 1) == 0 && (y & 1) == 0 ? 0 : (x & 1) && (y & 1) ? 1 : 2;
-                dequant[q][i] = kNormAdjust[q % 6][k] << (q / 6);
-            }
         for (int k = 0; k < 3; k++)
             for (int i = 0; i < 68; i++)
                 if ((i & 3) <= (i >> 2)) token[k].add(kTokenLen[k][i], kTokenBits[k][i], i);
@@ -281,6 +307,17 @@ struct Sps {
     bool full_range = false, restriction = false;
     bool direct8x8 = true;  // direct_8x8_inference_flag
     int num_reorder_frames = 0;
+    // the scaling lists (raster order): 4x4 Intra Y, Cb, Cr, Inter Y, Cb,
+    // Cr; 8x8 Intra Y, Inter Y (Flat_16 without seq_scaling_matrix_present_flag)
+    bool scaling = false;
+    uint8_t scale4[6][16], scale8[2][64];
+    // whether FFmpeg reads a PPS's fields past redundant_pic_cnt_present_flag
+    // (not under Baseline, Main or Extended with constraint_set0, 1 or 2)
+    bool pps_ext = true;
+    Sps() {
+        std::memset(scale4, 16, sizeof(scale4));
+        std::memset(scale8, 16, sizeof(scale8));
+    }
 };
 
 struct Pps {
@@ -291,9 +328,49 @@ struct Pps {
     int bipred = 0;  // weighted_bipred_idc: 0 default, 1 explicit, 2 implicit
     int num_ref_idx_default = 1, num_ref_idx_l1_default = 1;
     int init_qp = 26;
-    int chroma_offset[2] = {0, 0};
+    int chroma_offset[2] = {0, 0};  // chroma_qp_index_offset, second_chroma_qp_index_offset
     bool deblocking_control = false;
+    bool transform8 = false;  // transform_8x8_mode_flag
+    uint8_t scale4[6][16], scale8[2][64];  // the picture's scaling lists, as Sps's
 };
+
+// 7.3.2.1.1.1: one scaling list in zigzag order into `out` (raster): its
+// delta_scales, or the default list where the first makes nextScale 0
+// (useDefaultScalingMatrixFlag), or `fallback` where the list is absent
+void scaling_list(Bits& b, uint8_t* out, int n, const uint8_t* fallback, const uint8_t* dflt) {
+    if (!b.u1()) {
+        std::memcpy(out, fallback, (size_t)n);
+        return;
+    }
+    int last = 8, next = 8;
+    for (int i = 0; i < n; i++) {
+        if (next) {
+            const int delta = b.se();
+            if (delta < -128 || delta > 127) throw Corrupt("delta_scale out of range");
+            next = (last + delta + 256) % 256;
+            if (i == 0 && next == 0) {
+                std::memcpy(out, dflt, (size_t)n);
+                return;
+            }
+        }
+        last = out[n == 16 ? kZigzag[i] : kZigzag8[i]] = (uint8_t)(next ? next : last);
+    }
+}
+
+// The lists of an SPS (fall-back rule A: Default_* for the first of each
+// kind) or a PPS (rule B where the SPS has lists: the SPS's, else rule A);
+// each later list of a kind falls back to the one before.  `n8`: the 8x8
+// lists present (0 or 2).
+void scaling_lists(Bits& b, uint8_t (*s4)[16], uint8_t (*s8)[64], int n8, const Sps* seq) {
+    const bool rule_b = seq && seq->scaling;
+    for (int i = 0; i < 6; i++) {
+        const uint8_t* fallback = i == 0 || i == 3 ? (rule_b ? seq->scale4[i] : kDefault4[i / 3])
+                                                   : s4[i - 1];
+        scaling_list(b, s4[i], 16, fallback, kDefault4[i / 3]);
+    }
+    for (int i = 0; i < n8; i++)
+        scaling_list(b, s8[i], 64, rule_b ? seq->scale8[i] : kDefault8[i], kDefault8[i]);
+}
 
 void skip_hrd(Bits& b) {
     uint32_t n = ue_max(b, 31, "cpb_cnt_minus1") + 1;
@@ -309,8 +386,9 @@ void skip_hrd(Bits& b) {
 Sps parse_sps(Bits& b, int* id_out) {
     Sps s;
     s.profile = (int)b.u(8);
-    b.u(8);
+    const int constraints = (int)b.u(8);
     s.level = (int)b.u(8);
+    s.pps_ext = !((s.profile == 66 || s.profile == 77 || s.profile == 88) && (constraints & 0xE0));
     int id = (int)ue_max(b, 31, "seq_parameter_set_id");
     int chroma = 1, depth_y = 8, depth_c = 8;
     const int p = s.profile;
@@ -320,13 +398,18 @@ Sps parse_sps(Bits& b, int* id_out) {
         if (chroma == 3) b.u(1);
         depth_y = (int)b.ue() + 8;
         depth_c = (int)b.ue() + 8;
-        b.u(1);
+        const bool bypass = b.u1();
+        if (chroma == 0)
+            throw Refused("monochrome (chroma_format_idc 0; only 4:2:0, chroma_format_idc 1, "
+                          "is decoded)");
         if (chroma != 1) throw Refused("chroma_format_idc " + std::to_string(chroma) +
                                        " (only 4:2:0, chroma_format_idc 1, is decoded)");
         if (depth_y != 8 || depth_c != 8)
             throw Refused("bit depth " + std::to_string(depth_y != 8 ? depth_y : depth_c) +
                           " (only 8-bit samples are decoded)");
-        if (b.u1()) throw Refused("scaling matrices (seq_scaling_matrix_present_flag)");
+        if (bypass)
+            throw Refused("lossless macroblocks (qpprime_y_zero_transform_bypass_flag)");
+        if ((s.scaling = b.u1())) scaling_lists(b, s.scale4, s.scale8, 2, nullptr);
     }
     s.log2_max_frame_num = (int)ue_max(b, 12, "log2_max_frame_num_minus4") + 4;
     s.poc_type = (int)ue_max(b, 2, "pic_order_cnt_type");
@@ -403,9 +486,12 @@ Pps parse_pps(Bits& b, const Sps* sps_table, int* id_out) {
     p.deblocking_control = b.u1();
     if (b.u1()) throw Refused("constrained_intra_pred (constrained_intra_pred_flag 1)");
     if (b.u1()) throw Refused("redundant pictures (redundant_pic_cnt_present_flag 1)");
-    if (b.more_rbsp_data()) {
-        if (b.u1()) throw Refused("the 8x8 transform (transform_8x8_mode_flag 1)");
-        if (b.u1()) throw Refused("scaling matrices (pic_scaling_matrix_present_flag)");
+    const Sps& seq = sps_table[p.sps_id];
+    std::memcpy(p.scale4, seq.scale4, sizeof(p.scale4));
+    std::memcpy(p.scale8, seq.scale8, sizeof(p.scale8));
+    if (seq.pps_ext && b.more_rbsp_data()) {
+        p.transform8 = b.u1();
+        if (b.u1()) scaling_lists(b, p.scale4, p.scale8, p.transform8 ? 2 : 0, &seq);
         p.chroma_offset[1] = clip3(-12, 12, b.se());
     }
     if (p.init_qp < 0 || p.init_qp > 51) throw Corrupt("pic_init_qp out of range");
@@ -470,9 +556,14 @@ struct Mb {
     int8_t kind = NONE;
     int slice = -1;
     int qp = 0;  // QPY for deblocking (0 for I_PCM)
-    uint8_t nz[16] = {};  // non-zero coefficients of each 4x4 luma block (raster)
+    // non-zero coefficients of each 4x4 luma block (raster): with the 8x8
+    // transform, CAVLC's TotalCoeff of each interleaved 4x4 block (nC reads
+    // it) and CABAC's count of the 8x8 block in each of its four
+    uint8_t nz[16] = {};
+    bool t8 = false;  // transform_size_8x8_flag
+    uint8_t nz8 = 0;  // with it, the 8x8 blocks holding coefficients (bS 2 reads it)
     uint8_t nzc[2][4] = {};
-    int8_t i4[16] = {};
+    int8_t i4[16] = {};  // Intra4x4PredMode, or Intra8x8PredMode in each 4x4 block of its 8x8
     int8_t ref[2][16] = {};   // refIdxL0 and refIdxL1 a 4x4 block, -1 intra or unused
     int refpic[2][16] = {};   // the reference picture's id, -1 unused
     int16_t mv[2][16][2] = {};
@@ -659,6 +750,11 @@ struct Decoder {
     int dist_scale[16] = {};
     bool cabac = false;
     Cabac cb;
+    // the dequantisation of the current PPS (8.5.9), by list and QP in scan
+    // order: LevelScale4x4 << QP / 6 (lists 0-5) and LevelScale8x8 << QP / 6
+    // (0 Intra Y, 1 Inter Y); `dq_of` the PPS they were made for
+    int32_t dq4[6][52][16], dq8[2][52][64];
+    const Pps* dq_of = nullptr;
     // the mb_qp_delta of the slice's macroblock before (CABAC), and this one's
     int last_dqp = 0, cur_dqp = 0;
 
@@ -739,6 +835,7 @@ struct Decoder {
             Pps p = parse_pps(b, sps, &id);
             pps[id] = p;
         }
+        dq_of = nullptr;  // the dequantisation tables may be of a set just replaced
     }
 
     // Parses one NAL unit; with `decode` false only headers are checked.
@@ -955,6 +1052,7 @@ struct Decoder {
         si.b = s.type == 1;
         slice_num = (int)slices.size();
         slices.push_back(si);
+        if (cp != dq_of) make_dequant();
         if (s.type != 2) build_lists(s);
         if (s.type == 1) b_tables();
         qp = s.qp;
@@ -1503,12 +1601,23 @@ struct Decoder {
 
     // One CABAC residual block (7.3.5.3.3) into coeff[0..maxnum) (scan
     // order) given coded_block_flag's ctxIdxInc; the coefficients not zero.
+    // ctxBlockCat 5 (an 8x8 luma block, EIGHT) has no coded_block_flag
+    // (4:2:0), Table 9-43's significance contexts and ctxIdxOffsets of its
+    // own.
+    template <bool EIGHT = false>
     int residual_cabac(int* coeff, int maxnum, int cat, int cbf_ctx) {
         static const int kSig[5] = {0, 15, 29, 44, 47}, kAbs[5] = {0, 10, 20, 30, 39};
         std::memset(coeff, 0, sizeof(int) * (size_t)maxnum);
-        if (!cb.decision(85 + cbf_ctx)) return 0;
-        int pos[16], n = 0, i = 0;
+        if (!EIGHT && !cb.decision(85 + cbf_ctx)) return 0;
+        int pos[EIGHT ? 64 : 16], n = 0, i = 0;
         for (; i < maxnum - 1; i++) {
+            if (EIGHT) {
+                if (cb.decision(402 + kSig8[i])) {
+                    pos[n++] = i;
+                    if (cb.decision(417 + kLast8[i])) break;
+                }
+                continue;
+            }
             const int inc = cat == 3 ? std::min(i, 2) : i;
             if (cb.decision(105 + kSig[cat] + inc)) {
                 pos[n++] = i;
@@ -1517,7 +1626,7 @@ struct Decoder {
         }
         if (i == maxnum - 1) pos[n++] = i;
         int gt1 = 0, eq1 = 0;
-        const int base = 227 + kAbs[cat];
+        const int base = EIGHT ? 426 : 227 + kAbs[cat];
         for (int k = n - 1; k >= 0; k--) {
             int v = 0;  // coeff_abs_level_minus1: TU prefix (cMax 14), EG0 suffix
             if (cb.decision(base + (gt1 ? 0 : std::min(4, 1 + eq1)))) {
@@ -1641,6 +1750,46 @@ struct Decoder {
         }
     }
 
+    // The same with transform_size_8x8_flag: each 8x8 block into lev8[i8x8]
+    // (scan order).  CAVLC codes it as four interleaved 4x4 blocks
+    // (coefficient k of the i-th at 4k + i), each with its own nC and
+    // TotalCoeff; CABAC as one block of ctxBlockCat 5, whose
+    // coded_block_flag is inferred to be 1.
+    void luma_residual8(Bits& b, int mb, int cbp, int (*lev8)[64]) {
+        Mb& m = mbs[mb];
+        for (int i8 = 0; i8 < 4; i8++) {
+            int* lev = lev8[i8];
+            std::memset(lev, 0, sizeof(int) * 64);
+            if (!(cbp >> i8 & 1)) continue;
+            int n = 0;
+            if (cabac) {
+                n = residual_cabac<true>(lev, 64, 5, 0);
+                for (int k = 4 * i8; k < 4 * i8 + 4; k++) m.nz[kBlkY[k] * 4 + kBlkX[k]] = (uint8_t)n;
+            } else {
+                for (int i4 = 0; i4 < 4; i4++) {
+                    const int x = kBlkX[4 * i8 + i4], y = kBlkY[4 * i8 + i4];
+                    int c[16];
+                    const int tc = residual(b, c, 16, nc_luma(mb, x, y));
+                    m.nz[y * 4 + x] = (uint8_t)tc;
+                    for (int k = 0; k < 16; k++) lev[4 * k + i4] = c[k];
+                    n += tc;
+                }
+            }
+            if (n) m.nz8 |= (uint8_t)(1 << i8);
+        }
+    }
+
+    // transform_size_8x8_flag (CABAC: ctxIdx 399 + the neighbours A and B
+    // that have it)
+    bool transform_flag(Bits& b, int mb) {
+        if (!cabac) return b.u1();
+        const int a = mb_addr(mb, -1, 0), t = mb_addr(mb, 0, -1);
+        return cb.decision(399 + (a >= 0 && mbs[a].t8) + (t >= 0 && mbs[t].t8));
+    }
+
+    // the first sample of 8x8 block i8 of macroblock mb's luma
+    uint8_t* luma_block8(int mb, int i8) { return luma_block(mb, 8 * (i8 >> 1) + 2 * (i8 & 1)); }
+
     void chroma_residual(Bits& b, int mb, int cbp_c, int (*dc)[4], int (*ac)[4][16]) {
         Mb& m = mbs[mb];
         for (int c = 0; c < 2; c++) {
@@ -1660,11 +1809,15 @@ struct Decoder {
         Mb& m = mbs[mb];
         int modes[16];
         if (t == 0) {
-            for (int blk = 0; blk < 16; blk++) {
-                const int x = kBlkX[blk], y = kBlkY[blk];
+            if (cp->transform8) m.t8 = transform_flag(b, mb);
+            // Intra4x4PredMode of 16 4x4 blocks, or Intra8x8PredMode of 4 8x8
+            // blocks (predicted from the top-left 4x4 block's neighbours,
+            // 8.3.2.1, and kept in each of its 4x4 blocks)
+            for (int blk = 0; blk < (m.t8 ? 4 : 16); blk++) {
+                const int x = kBlkX[m.t8 ? 4 * blk : blk], y = kBlkY[m.t8 ? 4 * blk : blk];
                 int pred = i4_pred_mode(mb, x, y);
                 int mode = pred;
-                if (cabac ? !cb.decision(68) : !b.u1()) {  // prev_intra4x4_pred_mode_flag
+                if (cabac ? !cb.decision(68) : !b.u1()) {  // prev_intra{4x4,8x8}_pred_mode_flag
                     int rem;
                     if (cabac) {  // three bins, the least significant first
                         rem = cb.decision(69);
@@ -1675,7 +1828,8 @@ struct Decoder {
                     }
                     mode = rem < pred ? rem : rem + 1;
                 }
-                m.i4[y * 4 + x] = (int8_t)mode;
+                for (int k = 0; k < (m.t8 ? 4 : 1); k++)
+                    m.i4[(y + (k >> 1)) * 4 + x + (k & 1)] = (int8_t)mode;
                 modes[blk] = mode;
             }
         }
@@ -1697,8 +1851,10 @@ struct Decoder {
         }
         if (cbp_c > 2) throw Corrupt("coded_block_pattern out of range");
         m.qp = qp;
-        int lev[16][16], dcl[16], dc[2][4], ac[2][4][16];
-        if (t == 0) {
+        int lev[16][16], lev8[4][64], dcl[16], dc[2][4], ac[2][4][16];
+        if (t == 0 && m.t8) {
+            luma_residual8(b, mb, cbp_l, lev8);
+        } else if (t == 0) {
             luma_residual(b, mb, cbp_l, lev);
         } else {
             if (block(b, dcl, 16, 0, mb, 0, 0, 0)) m.dc |= 1;
@@ -1710,21 +1866,26 @@ struct Decoder {
             }
         }
         chroma_residual(b, mb, cbp_c, dc, ac);
-        // reconstruction
-        if (t == 0) {
+        // reconstruction (lists 0 and 6: intra Y)
+        if (t == 0 && m.t8) {
+            for (int i8 = 0; i8 < 4; i8++) {
+                pred8x8(mb, i8, modes[i8]);
+                add_block8(luma_block8(mb, i8), w, lev8[i8], dq8[0][qp]);
+            }
+        } else if (t == 0) {
             for (int blk = 0; blk < 16; blk++) {
                 const int x = kBlkX[blk], y = kBlkY[blk];
                 pred4x4(mb, x, y, modes[blk]);
-                add_block(luma_block(mb, y * 4 + x), w, lev[y * 4 + x], qp, nullptr);
+                add_block(luma_block(mb, y * 4 + x), w, lev[y * 4 + x], dq4[0][qp], nullptr);
             }
         } else {
             pred16x16(mb, mode16);
             int dcy[16];
-            luma_dc(dcl, qp, dcy);
-            for (int r = 0; r < 16; r++) add_block(luma_block(mb, r), w, lev[r], qp, &dcy[r]);
+            luma_dc(dcl, dq4[0][qp][0], dcy);
+            for (int r = 0; r < 16; r++) add_block(luma_block(mb, r), w, lev[r], dq4[0][qp], &dcy[r]);
         }
         predchroma(mb, cmode);
-        chroma_add(mb, dc, ac);
+        chroma_add(mb, dc, ac, true);
     }
 
     // the first sample of raster 4x4 block r of macroblock mb's luma
@@ -1753,17 +1914,81 @@ struct Decoder {
     }
 
     // ------------------------------------------------ transforms
-    // Dequantises a 4x4 block (raster coefficients from scan order) and
-    // adds its inverse transform to dst; dc: the already scaled DC
-    void add_block(uint8_t* dst, int stride, const int* scan, int q, const int* dc) {
+    // The dequantisation tables of the current PPS (dq4, dq8)
+    void make_dequant() {
+        // normAdjust8x8's position class by (y % 4, x % 4)
+        static const uint8_t kClass8[4][4] = {{0, 3, 4, 3}, {3, 1, 5, 1}, {4, 5, 2, 5}, {3, 1, 5, 1}};
+        dq_of = cp;
+        for (int q = 0; q < 52; q++) {
+            const int m = q % 6, sh = q / 6;
+            for (int l = 0; l < 6; l++)
+                for (int i = 0; i < 16; i++) {
+                    const int r = kZigzag[i], x = r & 3, y = r >> 2;
+                    const int k = !(x & 1) && !(y & 1) ? 0 : (x & 1) && (y & 1) ? 1 : 2;
+                    dq4[l][q][i] = (cp->scale4[l][r] * kNormAdjust[m][k]) << sh;
+                }
+            for (int l = 0; l < 2; l++)
+                for (int i = 0; i < 64; i++) {
+                    const int r = kZigzag8[i];
+                    dq8[l][q][i] = (cp->scale8[l][r] * kNormAdjust8[m][kClass8[(r >> 3) & 3][r & 3]])
+                                   << sh;
+                }
+        }
+    }
+
+    // Dequantises a 4x4 block (raster coefficients from scan order; 8.5.12.1:
+    // (c * LevelScale4x4 << QP / 6 + 8) >> 4 is the standard's two cases) and
+    // adds its inverse transform to dst; dq: dq4[list][QP]; dc: the already
+    // scaled DC
+    static void add_block(uint8_t* dst, int stride, const int* scan, const int32_t* dq,
+                          const int* dc) {
         int any = dc ? *dc : 0;
         for (int i = dc ? 1 : 0; i < 16; i++) any |= scan[i];
         if (!any) return;
-        const int* scale = tables().dequant[q];
         int d[16];
-        for (int i = 0; i < 16; i++) d[kZigzag[i]] = scan[i] * scale[i];
+        for (int i = 0; i < 16; i++) d[kZigzag[i]] = (int)(((int64_t)scan[i] * dq[i] + 8) >> 4);
         if (dc) d[0] = *dc;
         idct_add(dst, stride, d);
+    }
+
+    // The same for an 8x8 block (8.5.13): (c * LevelScale8x8 << QP / 6 + 32)
+    // >> 6, then the 8x8 inverse transform
+    static void add_block8(uint8_t* dst, int stride, const int* scan, const int32_t* dq) {
+        int any = 0;
+        for (int i = 0; i < 64; i++) any |= scan[i];
+        if (!any) return;
+        int d[64];
+        for (int i = 0; i < 64; i++) d[kZigzag8[i]] = (int)(((int64_t)scan[i] * dq[i] + 32) >> 6);
+        idct8_add(dst, stride, d);
+    }
+
+    // one 1-D pass of the 8x8 inverse transform over v[0], v[s], .. v[7s]
+    static void idct8_1d(int* v, int s) {
+        const int d0 = v[0], d1 = v[s], d2 = v[2 * s], d3 = v[3 * s];
+        const int d4 = v[4 * s], d5 = v[5 * s], d6 = v[6 * s], d7 = v[7 * s];
+        const int a0 = d0 + d4, a4 = d0 - d4, a2 = (d2 >> 1) - d6, a6 = d2 + (d6 >> 1);
+        const int b0 = a0 + a6, b2 = a4 + a2, b4 = a4 - a2, b6 = a0 - a6;
+        const int a1 = -d3 + d5 - d7 - (d7 >> 1), a3 = d1 + d7 - d3 - (d3 >> 1);
+        const int a5 = -d1 + d7 + d5 + (d5 >> 1), a7 = d3 + d5 + d1 + (d1 >> 1);
+        const int b1 = a1 + (a7 >> 2), b7 = a7 - (a1 >> 2), b3 = a3 + (a5 >> 2), b5 = (a3 >> 2) - a5;
+        v[0] = b0 + b7;
+        v[s] = b2 + b5;
+        v[2 * s] = b4 + b3;
+        v[3 * s] = b6 + b1;
+        v[4 * s] = b6 - b1;
+        v[5 * s] = b4 - b3;
+        v[6 * s] = b2 - b5;
+        v[7 * s] = b0 - b7;
+    }
+
+    static void idct8_add(uint8_t* dst, int stride, int* d) {
+        for (int y = 0; y < 8; y++) idct8_1d(d + 8 * y, 1);  // rows
+        for (int x = 0; x < 8; x++) idct8_1d(d + x, 8);      // columns
+        for (int y = 0; y < 8; y++)
+            for (int x = 0; x < 8; x++) {
+                uint8_t& p = dst[(size_t)y * stride + x];
+                p = clip1(p + ((d[8 * y + x] + 32) >> 6));
+            }
     }
 
     static void idct_add(uint8_t* dst, int stride, int* d) {
@@ -1787,8 +2012,9 @@ struct Decoder {
         }
     }
 
-    // Intra16x16 DC: inverse Hadamard and scaling (8.5.10); out raster
-    static void luma_dc(const int* scan, int q, int* out) {
+    // Intra16x16 DC: inverse Hadamard and scaling (8.5.10: (f * LevelScale4x4(0, 0)
+    // << QP / 6 + 32) >> 6, the standard's two cases); ls: dq4[0][QP][0]; out raster
+    static void luma_dc(const int* scan, int ls, int* out) {
         int c[16], f[16];
         for (int i = 0; i < 16; i++) c[kZigzag[i]] = scan[i];
         for (int y = 0; y < 4; y++) {
@@ -1803,32 +2029,108 @@ struct Decoder {
             const int a = f[x] + f[4 + x], b = f[x] - f[4 + x];
             const int e = f[8 + x] - f[12 + x], g = f[8 + x] + f[12 + x];
             int col[4] = {a + g, a - g, b - e, b + e};
-            for (int y = 0; y < 4; y++) {
-                const int ls = 16 * kNormAdjust[q % 6][0];
-                out[4 * y + x] = q >= 36 ? (col[y] * ls) << (q / 6 - 6)
-                                         : (col[y] * ls + (1 << (5 - q / 6))) >> (6 - q / 6);
-            }
+            for (int y = 0; y < 4; y++) out[4 * y + x] = (int)(((int64_t)col[y] * ls + 32) >> 6);
         }
     }
 
-    void chroma_add(int mb, int (*dc)[4], int (*ac)[4][16]) {
+    // the chroma residual of macroblock mb (8.5.11; dcC = (f * LevelScale4x4(0, 0)
+    // << QPc / 6) >> 5), with the lists of intra (1, 2) or inter (4, 5) blocks
+    void chroma_add(int mb, int (*dc)[4], int (*ac)[4][16], bool intra_mb) {
         const int x0 = mb % mb_w * 8, y0 = mb / mb_w * 8, cw = w / 2;
         const Tables& t = tables();
         for (int c = 0; c < 2; c++) {
             const int qc = t.chroma_qp[clip3(0, 51, qp + slices[slice_num].chroma_offset[c]) + 12];
+            const int32_t* dq = dq4[(intra_mb ? 1 : 4) + c][qc];
             const int* v = dc[c];
             const int f[4] = {v[0] + v[1] + v[2] + v[3], v[0] - v[1] + v[2] - v[3],
                               v[0] + v[1] - v[2] - v[3], v[0] - v[1] - v[2] + v[3]};
             auto& plane = c ? cur->v : cur->u;
             for (int k = 0; k < 4; k++) {
-                int dcc = ((f[k] * 16 * kNormAdjust[qc % 6][0]) << (qc / 6)) >> 5;
+                int dcc = (int)(((int64_t)f[k] * dq[0]) >> 5);
                 add_block(plane.data() + (size_t)(y0 + 4 * (k >> 1)) * cw + x0 + 4 * (k & 1), cw,
-                          ac[c][k], qc, &dcc);
+                          ac[c][k], dq, &dcc);
             }
         }
     }
 
     // ---------------------------------------------------- intra prediction
+    // The nine Intra4x4 (8.3.1.2) or Intra8x8 (8.3.2.2) modes of an NxN
+    // block into dst from its (for 8x8, filtered) references: T[0] = L[0] =
+    // p[-1, -1], T[1 + x] = p[x, -1] (x < 2N), L[1 + y] = p[-1, y]
+    template <int N>
+    static void intra_nxn(const int* T, const int* L, int mode, bool top, bool left, bool tl,
+                          uint8_t* dst, int stride) {
+        auto P = [&](int x, int y) -> int {  // p[x, y] with x or y = -1
+            return y < 0 ? T[x + 1] : L[y + 1];
+        };
+        auto F2 = [](int a, int b) { return (a + b + 1) >> 1; };
+        auto F3 = [](int a, int b, int c) { return (a + 2 * b + c + 2) >> 2; };
+        const char* need = mode == 0 || mode == 3 || mode == 7 ? "B" : mode == 1 || mode == 8 ? "A"
+                          : mode >= 4 && mode <= 6 ? "ABD" : "";
+        for (const char* n = need; *n; n++)
+            if ((*n == 'A' && !left) || (*n == 'B' && !top) || (*n == 'D' && !tl))
+                throw Corrupt("an intra NxN mode whose neighbours are not available");
+        if (mode < 0 || mode > 8) throw Corrupt("an intra NxN mode out of range");
+        const int shift = N == 4 ? 2 : 3;
+        int dc = 128;
+        if (mode == 2) {
+            int st = 0, sl = 0;
+            for (int i = 0; i < N; i++) st += P(i, -1), sl += P(-1, i);
+            dc = top && left ? (st + sl + N) >> (shift + 1) : left ? (sl + N / 2) >> shift
+                 : top ? (st + N / 2) >> shift : 128;
+        }
+        for (int y = 0; y < N; y++)
+            for (int x = 0; x < N; x++) {
+                int v = 0;
+                switch (mode) {
+                    case 0: v = P(x, -1); break;
+                    case 1: v = P(-1, y); break;
+                    case 2: v = dc; break;
+                    case 3:
+                        v = x == N - 1 && y == N - 1
+                                ? (P(2 * N - 2, -1) + 3 * P(2 * N - 1, -1) + 2) >> 2
+                                : F3(P(x + y, -1), P(x + y + 1, -1), P(x + y + 2, -1));
+                        break;
+                    case 4:
+                        if (x > y) v = F3(P(x - y - 2, -1), P(x - y - 1, -1), P(x - y, -1));
+                        else if (x < y) v = F3(P(-1, y - x - 2), P(-1, y - x - 1), P(-1, y - x));
+                        else v = F3(P(0, -1), P(-1, -1), P(-1, 0));
+                        break;
+                    case 5: {
+                        const int z = 2 * x - y, k = x - (y >> 1);
+                        if (z >= 0 && !(z & 1)) v = F2(P(k - 1, -1), P(k, -1));
+                        else if (z >= 0) v = F3(P(k - 2, -1), P(k - 1, -1), P(k, -1));
+                        else if (z == -1) v = F3(P(-1, 0), P(-1, -1), P(0, -1));
+                        else v = F3(P(-1, y - 2 * x - 1), P(-1, y - 2 * x - 2), P(-1, y - 2 * x - 3));
+                        break;
+                    }
+                    case 6: {
+                        const int z = 2 * y - x, k = y - (x >> 1);
+                        if (z >= 0 && !(z & 1)) v = F2(P(-1, k - 1), P(-1, k));
+                        else if (z >= 0) v = F3(P(-1, k - 2), P(-1, k - 1), P(-1, k));
+                        else if (z == -1) v = F3(P(-1, 0), P(-1, -1), P(0, -1));
+                        else v = F3(P(x - 2 * y - 1, -1), P(x - 2 * y - 2, -1), P(x - 2 * y - 3, -1));
+                        break;
+                    }
+                    case 7: {
+                        const int k = x + (y >> 1);
+                        v = !(y & 1) ? F2(P(k, -1), P(k + 1, -1))
+                                     : F3(P(k, -1), P(k + 1, -1), P(k + 2, -1));
+                        break;
+                    }
+                    default: {
+                        const int z = x + 2 * y, k = y + (x >> 1);
+                        if (z < 2 * N - 3 && !(z & 1)) v = F2(P(-1, k), P(-1, k + 1));
+                        else if (z < 2 * N - 3) v = F3(P(-1, k), P(-1, k + 1), P(-1, k + 2));
+                        else if (z == 2 * N - 3) v = (P(-1, N - 2) + 3 * P(-1, N - 1) + 2) >> 2;
+                        else v = P(-1, N - 1);
+                        break;
+                    }
+                }
+                dst[(size_t)y * stride + x] = (uint8_t)v;
+            }
+    }
+
     void pred4x4(int mb, int bx, int by, int mode) {
         const int x0 = mb % mb_w * 16 + 4 * bx, y0 = mb / mb_w * 16 + 4 * by;
         const bool mbA = mb_addr(mb, -1, 0) >= 0, mbB = mb_addr(mb, 0, -1) >= 0;
@@ -1841,80 +2143,48 @@ struct Decoder {
         if (by == 0) tr = bx < 3 ? mbB : mb_addr(mb, 1, -1) >= 0;
         else tr = bx < 3 && kBlkIdx[(by - 1) * 4 + bx + 1] < kBlkIdx[by * 4 + bx];
         uint8_t* dst = cur->y.data() + (size_t)y0 * w + x0;
-        int T[9], L[5];  // T[0] = p[-1,-1], T[1..8] = p[0..7,-1]; L[1..4] = p[-1,0..3]
+        int T[9], L[5];
         T[0] = L[0] = tl ? dst[-w - 1] : 0;
         for (int i = 0; i < 8; i++)
             T[1 + i] = !top ? 0 : i < 4 || tr ? dst[-w + i] : dst[-w + 3];
         for (int i = 0; i < 4; i++) L[1 + i] = left ? dst[(size_t)i * w - 1] : 0;
-        auto P = [&](int x, int y) -> int {  // p[x, y] with x or y = -1
-            return y < 0 ? T[x + 1] : L[y + 1];
-        };
-        auto F2 = [](int a, int b) { return (a + b + 1) >> 1; };
-        auto F3 = [](int a, int b, int c) { return (a + 2 * b + c + 2) >> 2; };
-        int out[4][4];
-        const char* need = mode == 0 || mode == 3 || mode == 7 ? "B" : mode == 1 || mode == 8 ? "A"
-                          : mode >= 4 && mode <= 6 ? "ABD" : "";
-        for (const char* n = need; *n; n++)
-            if ((*n == 'A' && !left) || (*n == 'B' && !top) || (*n == 'D' && !tl))
-                throw Corrupt("an Intra4x4 mode whose neighbours are not available");
-        for (int y = 0; y < 4; y++)
-            for (int x = 0; x < 4; x++) {
-                int v = 0;
-                switch (mode) {
-                    case 0: v = P(x, -1); break;
-                    case 1: v = P(-1, y); break;
-                    case 2: {
-                        int st = 0, sl = 0;
-                        for (int i = 0; i < 4; i++) st += P(i, -1), sl += P(-1, i);
-                        v = top && left ? (st + sl + 4) >> 3 : left ? (sl + 2) >> 2
-                            : top ? (st + 2) >> 2 : 128;
-                        break;
-                    }
-                    case 3:
-                        v = x == 3 && y == 3 ? (P(6, -1) + 3 * P(7, -1) + 2) >> 2
-                                             : F3(P(x + y, -1), P(x + y + 1, -1), P(x + y + 2, -1));
-                        break;
-                    case 4:
-                        if (x > y) v = F3(P(x - y - 2, -1), P(x - y - 1, -1), P(x - y, -1));
-                        else if (x < y) v = F3(P(-1, y - x - 2), P(-1, y - x - 1), P(-1, y - x));
-                        else v = F3(P(0, -1), P(-1, -1), P(-1, 0));
-                        break;
-                    case 5: {
-                        const int z = 2 * x - y, k = x - (y >> 1);
-                        if (z >= 0 && !(z & 1)) v = F2(P(k - 1, -1), P(k, -1));
-                        else if (z >= 0) v = F3(P(k - 2, -1), P(k - 1, -1), P(k, -1));
-                        else if (z == -1) v = F3(P(-1, 0), P(-1, -1), P(0, -1));
-                        else v = F3(P(-1, y - 1), P(-1, y - 2), P(-1, y - 3));
-                        break;
-                    }
-                    case 6: {
-                        const int z = 2 * y - x, k = y - (x >> 1);
-                        if (z >= 0 && !(z & 1)) v = F2(P(-1, k - 1), P(-1, k));
-                        else if (z >= 0) v = F3(P(-1, k - 2), P(-1, k - 1), P(-1, k));
-                        else if (z == -1) v = F3(P(-1, 0), P(-1, -1), P(0, -1));
-                        else v = F3(P(x - 1, -1), P(x - 2, -1), P(x - 3, -1));
-                        break;
-                    }
-                    case 7: {
-                        const int k = x + (y >> 1);
-                        v = !(y & 1) ? F2(P(k, -1), P(k + 1, -1))
-                                     : F3(P(k, -1), P(k + 1, -1), P(k + 2, -1));
-                        break;
-                    }
-                    case 8: {
-                        const int z = x + 2 * y, k = y + (x >> 1);
-                        if (z < 5 && !(z & 1)) v = F2(P(-1, k), P(-1, k + 1));
-                        else if (z < 5) v = F3(P(-1, k), P(-1, k + 1), P(-1, k + 2));
-                        else if (z == 5) v = (P(-1, 2) + 3 * P(-1, 3) + 2) >> 2;
-                        else v = P(-1, 3);
-                        break;
-                    }
-                    default: throw Corrupt("an Intra4x4 mode out of range");
-                }
-                out[y][x] = v;
-            }
-        for (int y = 0; y < 4; y++)
-            for (int x = 0; x < 4; x++) dst[(size_t)y * w + x] = (uint8_t)out[y][x];
+        intra_nxn<4>(T, L, mode, top, left, tl, dst, w);
+    }
+
+    // Intra8x8 block i8 of macroblock mb: the reference samples (p[8..15, -1]
+    // from the macroblock above for block 0, above right for block 1, block
+    // 1 for block 2; none for block 3, which repeats p[7, -1]), filtered
+    // (8.3.2.2.1), then the mode
+    void pred8x8(int mb, int i8, int mode) {
+        const int bx = i8 & 1, by = i8 >> 1;
+        const int x0 = mb % mb_w * 16 + 8 * bx, y0 = mb / mb_w * 16 + 8 * by;
+        const bool mbA = mb_addr(mb, -1, 0) >= 0, mbB = mb_addr(mb, 0, -1) >= 0;
+        const bool left = bx || mbA, top = by || mbB;
+        const bool tl = bx && by ? true : bx ? mbB : by ? mbA : mb_addr(mb, -1, -1) >= 0;
+        const bool tr = i8 == 0 ? mbB : i8 == 1 ? mb_addr(mb, 1, -1) >= 0 : i8 == 2;
+        uint8_t* dst = cur->y.data() + (size_t)y0 * w + x0;
+        int t[16] = {}, l[8] = {};
+        const int c = tl ? dst[-w - 1] : 0;
+        for (int i = 0; i < 16 && top; i++) t[i] = dst[-w + (i < 8 || tr ? i : 7)];
+        for (int i = 0; i < 8 && left; i++) l[i] = dst[(size_t)i * w - 1];
+        int T[17] = {}, L[9] = {};
+        if (top) {
+            T[1] = ((tl ? c : t[0]) + 2 * t[0] + t[1] + 2) >> 2;
+            for (int x = 1; x < 15; x++) T[1 + x] = (t[x - 1] + 2 * t[x] + t[x + 1] + 2) >> 2;
+            T[16] = (t[14] + 3 * t[15] + 2) >> 2;
+        }
+        if (tl)
+            T[0] = top && left ? (t[0] + 2 * c + l[0] + 2) >> 2
+                   : top       ? (3 * c + t[0] + 2) >> 2
+                   : left      ? (3 * c + l[0] + 2) >> 2
+                               : c;
+        L[0] = T[0];
+        if (left) {
+            L[1] = ((tl ? c : l[0]) + 2 * l[0] + l[1] + 2) >> 2;
+            for (int y = 1; y < 7; y++) L[1 + y] = (l[y - 1] + 2 * l[y] + l[y + 1] + 2) >> 2;
+            L[8] = (l[6] + 3 * l[7] + 2) >> 2;
+        }
+        intra_nxn<8>(T, L, mode, top, left, tl, dst, w);
     }
 
     // 16x16 luma (mode 0 V, 1 H, 2 DC, 3 plane) or 8x8 chroma (0 DC, 1 H,
@@ -2155,7 +2425,7 @@ struct Decoder {
         read_mvds(b, mb, parts, np);
         bool done[16] = {};
         for (int k = 0; k < np; k++) inter_part(mb, parts[k], done);
-        inter_residual(b, mb);
+        inter_residual(b, mb, t < 3 || np == 4);  // P_8x8: every sub-macroblock 8x8
     }
 
     // Table 7-14: the prediction modes (bit 0 list 0, bit 1 list 1) of the
@@ -2173,7 +2443,7 @@ struct Decoder {
         Mb& m = mbs[mb];
         if (t == 0) {  // B_Direct_16x16
             direct_mb(mb);
-            return inter_residual(b, mb);
+            return inter_residual(b, mb, cs->direct8x8);
         }
         Part parts[16];
         int np = 0;
@@ -2233,21 +2503,32 @@ struct Decoder {
                     if (parts[k].sub == i) inter_part(mb, parts[k], done);
             }
         }
-        inter_residual(b, mb);
+        bool allow8 = true;  // B_8x8: each sub-macroblock 8x8, or direct with direct_8x8_inference_flag
+        for (int i = 0; i < 4 && t == 22; i++)
+            allow8 &= kBSub[sub[i]][0] ? kBSub[sub[i]][1] == 0 : cs->direct8x8;
+        inter_residual(b, mb, allow8);
     }
 
-    // coded_block_pattern, mb_qp_delta and the residual of an inter macroblock
-    void inter_residual(Bits& b, int mb) {
+    // coded_block_pattern, transform_size_8x8_flag (where the PPS allows it,
+    // luma is coded and `allow8`: no partition below 8x8, a direct 8x8 block
+    // only with direct_8x8_inference_flag), mb_qp_delta and the residual of
+    // an inter macroblock (lists 3 and 7: inter Y)
+    void inter_residual(Bits& b, int mb, bool allow8) {
         Mb& m = mbs[mb];
         int cbp = cabac ? cabac_cbp(mb) : kInterCbp[ue_max(b, 47, "coded_block_pattern")];
         m.cbp = (uint8_t)cbp;
+        if ((cbp & 15) && allow8 && cp->transform8) m.t8 = transform_flag(b, mb);
         if (cbp) qp_delta(b);
         m.qp = qp;
-        int lev[16][16], dc[2][4], ac[2][4][16];
-        luma_residual(b, mb, cbp & 15, lev);
+        int lev[16][16], lev8[4][64], dc[2][4], ac[2][4][16];
+        if (m.t8) luma_residual8(b, mb, cbp & 15, lev8);
+        else luma_residual(b, mb, cbp & 15, lev);
         chroma_residual(b, mb, cbp >> 4, dc, ac);
-        for (int r = 0; r < 16; r++) add_block(luma_block(mb, r), w, lev[r], qp, nullptr);
-        chroma_add(mb, dc, ac);
+        if (m.t8)
+            for (int i8 = 0; i8 < 4; i8++) add_block8(luma_block8(mb, i8), w, lev8[i8], dq8[1][qp]);
+        else
+            for (int r = 0; r < 16; r++) add_block(luma_block(mb, r), w, lev[r], dq4[3][qp], nullptr);
+        chroma_add(mb, dc, ac, false);
     }
 
     // B_Skip and B_Direct_16x16: every 8x8 block in direct mode
@@ -2523,6 +2804,12 @@ struct Decoder {
 
     // --------------------------------------------------- deblocking
     static bool intra(const Mb& m) { return m.kind == I4 || m.kind == I16 || m.kind == PCM; }
+    // whether the transform block of 4x4 block b (raster) holds coefficients:
+    // with the 8x8 transform, its 8x8 block's (FFmpeg's cbp_table bits 12-15
+    // under CAVLC, where a 4x4 block's TotalCoeff is nC's)
+    static bool coded(const Mb& m, int b) {
+        return m.t8 ? m.nz8 >> ((b >> 3) * 2 + ((b & 3) >> 1)) & 1 : m.nz[b] != 0;
+    }
 
     // bS (8.7.2.1) of the edge between 4x4 blocks bp of p and bq of q, as
     // FFmpeg's check_mv compares motion: the pictures each list refers to
@@ -2530,7 +2817,7 @@ struct Decoder {
     // crossed where the two blocks refer to the same pictures
     int strength(const Mb& p, int bp, const Mb& q, int bq, bool mb_edge, bool two) const {
         if (intra(p) || intra(q)) return mb_edge ? 4 : 3;
-        if (p.nz[bp] || q.nz[bq]) return 2;
+        if (coded(p, bp) || coded(q, bq)) return 2;
         auto far = [](const int16_t* a, const int16_t* b) {
             return std::abs(a[0] - b[0]) >= 4 || std::abs(a[1] - b[1]) >= 4;
         };
@@ -2626,6 +2913,7 @@ struct Decoder {
             for (int dir = 0; dir < 2; dir++) {
                 for (int e = 0; e < 4; e++) {
                     if (e == 0 && !(dir ? top : left)) continue;
+                    if ((e & 1) && q.t8) continue;  // inside an 8x8 transform block
                     const Mb& p = e ? q : mbs[dir ? mb - mb_w : mb - 1];
                     const int qpav = (p.qp + q.qp + 1) >> 1;
                     if (dir == 0)

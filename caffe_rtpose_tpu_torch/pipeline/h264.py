@@ -3,10 +3,12 @@
 
 :class:`H264Decoder` decodes the packets (access units) of one stream in
 order, as FFmpeg's ``h264`` decoder decodes them for ``cv2.VideoCapture``:
-Main profile and Constrained Baseline streams (CAVLC or CABAC; I, P and B
-slices with explicit weighted prediction of P, direct prediction and
-default, explicit or implicit weighted bi-prediction of B; 4:2:0 8-bit
-progressive frames), with FFmpeg's output order and delay (from the
+High, Main and Constrained Baseline profile streams (CAVLC or CABAC; I, P
+and B slices with explicit weighted prediction of P, direct prediction and
+default, explicit or implicit weighted bi-prediction of B; the 4x4 and 8x8
+transforms, Intra8x8, flat, default or transmitted scaling matrices and a
+chroma QP offset for each of Cb and Cr; 4:2:0 8-bit progressive frames),
+with FFmpeg's output order and delay (from the
 demuxer's video delay on) and the pictures it shows from a stream's start
 or a flush, and each picture, cropped,
 as BGR the way OpenCV receives it from swscale (limited or, with the VUI's

@@ -2,8 +2,9 @@
 walked with ``struct``) and MP4/QuickTime (ISO BMFF, ``bmff.py``), their
 Motion-JPEG frames decoded by the port's JPEG codec (``jpeg.py``), their
 MPEG-4 Part 2 frames by the port's MPEG-4 decoder (``mpeg4.py``) and their
-H.264 frames by the port's H.264 decoder (``h264.py``: Main profile and
-Constrained Baseline, I, P and B slices, CAVLC or CABAC).
+H.264 frames by the port's H.264 decoder (``h264.py``: High, Main and
+Constrained Baseline profiles, 4:2:0 8-bit progressive, I, P and B slices,
+CAVLC or CABAC, the 4x4 and 8x8 transforms and scaling matrices).
 
 The readers have what ``runner.frame_source`` uses of ``cv2.VideoCapture``
 and give, for the same file, what the JAX package's reader gives:
@@ -150,8 +151,8 @@ def _unsupported(path: str, why: str) -> UnsupportedVideo:
     return UnsupportedVideo(
         f"{path}: {container} container, video fourcc {fourcc}: {why}; without OpenCV the "
         f"port reads Motion-JPEG, MPEG-4 Part 2 (Simple Profile, I/P) and H.264 "
-        f"(Main profile and Constrained Baseline, I/P/B) in AVI, MP4 and QuickTime, so this file "
-        f"needs OpenCV (cv2)")
+        f"(High, Main and Constrained Baseline profiles, 4:2:0 8-bit progressive, I/P/B) in AVI, "
+        f"MP4 and QuickTime, so this file needs OpenCV (cv2)")
 
 
 def open_reader(path: str) -> "_Reader":
@@ -596,7 +597,7 @@ class SequenceReader(_Reader):
 
 class Mp4Reader(_Reader):
     """An MP4 or QuickTime file of MPEG-4 Part 2 (``mp4v``), H.264 (``avc1``,
-    ``avc3``: Main profile) or Motion-JPEG (``jpeg``) video, read
+    ``avc3``: up to High profile) or Motion-JPEG (``jpeg``) video, read
     frame by frame as ``cv2.VideoCapture`` (FFMPEG) reads it.  Raises
     OSError when the file cannot be read and :class:`UnsupportedVideo` for
     any other file."""
@@ -631,7 +632,7 @@ class Mp4Reader(_Reader):
 
 
 class AviReader(_Reader):
-    """A Motion-JPEG, MPEG-4 Part 2 or H.264 (Annex B, Main profile) AVI
+    """A Motion-JPEG, MPEG-4 Part 2 or H.264 (Annex B, up to High profile) AVI
     file, read frame by frame as ``cv2.VideoCapture`` (FFMPEG) reads it.
     Raises OSError when the file cannot be read and
     :class:`UnsupportedVideo` for any other file."""

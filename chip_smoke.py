@@ -50,21 +50,25 @@ Phases, each of which raises (non-zero exit) on failure:
                tests/test_torch_sequence.py holds (FFMPEG's image2); the
                MPEG-4 decoder's g++ build time (csrc/mpeg4_video.cpp);
                then each H.264 stream of tests/h264_cases.py (written
-               from seeds there: Constrained Baseline and Main profile,
-               CAVLC and CABAC, weighted P, B slices (spatial and temporal
-               direct, explicit and implicit weighted bi-prediction,
-               reference B pictures, open GOPs), MP4 with and without
-               ctts and elst, QuickTime, AVI, avc3, POC types 0 and 2,
-               both ranges, cropped sizes, output delay, streams that
-               start on a non-IDR picture) and its committed 1280x720
-               clips tests/data/h264_720p.mp4 (CAVLC), h264_cabac_720p.mp4
-               (the same frames in CABAC) and h264_b_720p.mp4 (I P B B in
-               CABAC) against the pins tests/test_torch_h264.py holds
-               (cv2's frames, bit for bit), each refused stream raising
-               UnsupportedVideo naming its feature; the H.264 decoder's
-               g++ build time (csrc/h264_video.cpp) and host ms a frame of
-               each 720p clip's container read and H.264 decode apart
-               (median of 24, the clips in turns);
+               from seeds there: Constrained Baseline, Main and High
+               profile, CAVLC and CABAC, weighted P, B slices (spatial and
+               temporal direct, explicit and implicit weighted
+               bi-prediction, reference B pictures, open GOPs), the 8x8
+               transform, Intra8x8, scaling matrices and two chroma QP
+               offsets, MP4 with and without ctts and elst, QuickTime,
+               AVI, avc3, POC types 0 and 2, both ranges, cropped sizes,
+               output delay, streams that start on a non-IDR picture) and
+               its committed 1280x720 clips tests/data/h264_720p.mp4
+               (CAVLC), h264_cabac_720p.mp4 (the same frames in CABAC),
+               h264_b_720p.mp4 (I P B B in CABAC) and h264_high_720p.mp4
+               (I P B B in CABAC under High profile, the 8x8 transform
+               on) against the pins tests/test_torch_h264.py and
+               tests/test_torch_h264_high.py hold (cv2's frames, bit for
+               bit), each refused stream raising UnsupportedVideo naming
+               its feature; the H.264 decoder's g++ build time
+               (csrc/h264_video.cpp) and host ms a frame of each 720p
+               clip's container read and H.264 decode apart (median of
+               24, the clips in turns);
                host ms (median of 20, in turns) of a 1280x720 q95 4:2:0
                frame through the Motion-JPEG decoder (FFmpeg's arithmetic)
                and through decode_jpeg (libjpeg's); the hand kernels'
@@ -190,15 +194,17 @@ Phases, each of which raises (non-zero exit) on failure:
                committed H.264 clips tests/data/h264_720p.mp4,
                h264_cabac_720p.mp4 (the same 8 1280x720 frames coded by
                tests/h264_cases.encode_clip in CAVLC and in CABAC: an IDR
-               picture, then P pictures) and h264_b_720p.mp4 (the same
-               frames as I P B B in CABAC), in turns with the MPEG-4 clip
-               and a q95 Motion-JPEG AVI of the H.264 decode (h264, cabac,
-               b, mp4, avi, twice): the decoded frames' digests equal to
-               cv2's (pinned), every h264 and b JSON equal to estimate()
-               on the port's decode of its frame and every cabac JSON to
-               the h264 run's, launches equal to the other runs' (K1 4, K4
-               4), --start_frame 3 on each clip equal to the first run's,
-               FPS of each.
+               picture, then P pictures), h264_b_720p.mp4 (the same
+               frames as I P B B in CABAC) and h264_high_720p.mp4 (I P B
+               B in CABAC under High profile: Intra8x8 and the 8x8
+               transform), in turns with the MPEG-4 clip and a q95
+               Motion-JPEG AVI of the H.264 decode (h264, cabac, b, high,
+               mp4, avi, twice): the decoded frames' digests equal to
+               cv2's (pinned), every h264, b and high JSON equal to
+               estimate() on the port's decode of its frame and every
+               cabac JSON to the h264 run's, launches equal to the other
+               runs' (K1 4, K4 4), --start_frame 3 on each clip equal to
+               the first run's, FPS of each.
    serving   - serving bundles (serving.py): the bf16 batch-8 estimator
                built from those files, exported (time, file sizes), loaded
                cold as an ExportedPose (time) with the kernel counters zeroed
@@ -1054,12 +1060,13 @@ def phase_video(card):
     frame digest held to the pins taken from the JAX package's reader (the
     MPEG-4 digests are cv2's frames).  The MPEG-4 decoder's g++ build
     (csrc/mpeg4_video.cpp) is timed.  Then each H.264 stream of
-    tests/h264_cases.py (Constrained Baseline and Main profile: CABAC,
-    weighted P, streams that start on a non-IDR picture, B slices) and its
-    three 720p clips (the same frames in CAVLC and in CABAC, and I P B B in
-    CABAC) against their pins, each refused stream by its message, the
-    H.264 decoder's g++ build (csrc/h264_video.cpp) and its decode of each
-    720p clip a frame, in turns.  It launches none of K1-K4."""
+    tests/h264_cases.py (Constrained Baseline, Main and High profile:
+    CABAC, weighted P, streams that start on a non-IDR picture, B slices,
+    the 8x8 transform and scaling matrices) and its four 720p clips (the
+    same frames in CAVLC and in CABAC, I P B B in CABAC, and I P B B under
+    High profile) against their pins, each refused stream by its message,
+    the H.264 decoder's g++ build (csrc/h264_video.cpp) and its decode of
+    each 720p clip a frame, in turns.  It launches none of K1-K4."""
     import os
 
     from caffe_rtpose_tpu_torch.pipeline import h264, mpeg4, runner, video
@@ -1118,8 +1125,8 @@ def phase_video(card):
         h264_build_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         clips = {"h264_720p": hc.CLIP_720P, "h264_cabac_720p": hc.CLIP_CABAC_720P,
-                 "h264_b_720p": hc.CLIP_B_720P}
-        for name in [*hc.CASES, *clips]:
+                 "h264_b_720p": hc.CLIP_B_720P, "h264_high_720p": hc.CLIP_HIGH_720P}
+        for name in [*hc.CASES, *hc.HIGH, *clips]:
             path = clips.get(name)
             if path is None:
                 path = os.path.join(work, name + hc.suffix(name))
@@ -1131,11 +1138,12 @@ def phase_video(card):
             pin = hc.PINNED[name]
             got = dict(count=reader.frame_count, fps=reader.fps, sha256=cases.sha256(frames))
             if "order" in pin:
-                got.update(cases.observe(runner, path, frames, hc.SEEKS, exact=True))
+                got.update(cases.observe(runner, path, frames, hc.seeks(name), exact=True))
             bad = [k for k in pin if got[k] != pin[k]]
             if bad:
                 differ["h264 " + name] = {k: (got[k], pin[k]) for k in bad}
-        for name, (_, word) in hc.REFUSED.items():
+        refused = {**hc.REFUSED, **hc.HIGH_REFUSED}
+        for name, (_, word) in refused.items():
             path = os.path.join(work, "refused_" + name + hc.suffix(name))
             with open(path, "wb") as f:
                 f.write(hc.build(name))
@@ -1210,10 +1218,11 @@ def phase_video(card):
           f"pins, in {mp4_secs:.2f} s; {card}")
     decode_ms = {name: statistics.median(ms) for name, ms in h264_decode_ms.items()}
     print(f"{tag} H.264 decoder g++ build (csrc/h264_video.cpp) {h264_build_s:.2f} s; "
-          f"{len(hc.CASES)} streams ({', '.join(hc.CASES)}) and the three 1280x720 clips, cv2 "
-          f"blocked: count, fps, reads, seeks and frame digests "
-          f"{'equal' if not differ else 'DIFFER from'} the pins; {len(hc.REFUSED)} refused "
-          f"streams each named; in {h264_secs:.2f} s; host ms a 1280x720 frame (median of "
+          f"{len(hc.CASES) + len(hc.HIGH)} streams ({', '.join([*hc.CASES, *hc.HIGH])}) and the "
+          f"four 1280x720 clips, cv2 blocked: count, fps, reads, seeks and frame digests "
+          f"{'equal' if not differ else 'DIFFER from'} the pins; {len(refused)} refused "
+          f"streams each named ({', '.join(refused)}); in {h264_secs:.2f} s; host ms a 1280x720 "
+          f"frame (median of "
           f"{len(h264_decode_ms['h264_720p'])}, the clips in turns): "
           + "; ".join(f"{name} ({h264_frame_bytes[name]} B) container read "
                       f"{statistics.median(h264_read_ms[name]):.4f}, H.264 decode and BGR "
@@ -1221,7 +1230,9 @@ def phase_video(card):
                       f"{max(h264_decode_ms[name]):.3f})" for name in clips)
           + f"; CABAC/CAVLC {decode_ms['h264_cabac_720p'] / decode_ms['h264_720p']:.3f}, "
           f"B/CAVLC {decode_ms['h264_b_720p'] / decode_ms['h264_720p']:.3f}, "
-          f"B/CABAC {decode_ms['h264_b_720p'] / decode_ms['h264_cabac_720p']:.3f}; {card}")
+          f"B/CABAC {decode_ms['h264_b_720p'] / decode_ms['h264_cabac_720p']:.3f}, "
+          f"High/CABAC {decode_ms['h264_high_720p'] / decode_ms['h264_cabac_720p']:.3f}, "
+          f"High/B {decode_ms['h264_high_720p'] / decode_ms['h264_b_720p']:.3f}; {card}")
     print(f"{tag} {len(seq.CASES)} printf image sequences ({', '.join(seq.CASES)}), cv2 "
           f"blocked: count, fps, reads, seeks and frame digests "
           f"{'equal' if not differ else 'DIFFER from'} the pins, in {seq_secs:.2f} s; host ms "
@@ -1233,7 +1244,8 @@ def phase_video(card):
     return dict(cases=len(cases.CASES), mp4_files=len(m4.CLIPS) + len(m4.CASES),
                 sequences=len(seq.CASES), pins_equal=not differ, seconds=secs,
                 mp4_seconds=mp4_secs, sequence_seconds=seq_secs, mpeg4_build_s=build_s,
-                h264_streams=len(hc.CASES) + 2, h264_refused=len(hc.REFUSED),
+                h264_streams=len(hc.CASES) + len(hc.HIGH) + len(clips),
+                h264_refused=len(refused),
                 h264_seconds=h264_secs, h264_build_s=h264_build_s,
                 h264_read_ms={k: statistics.median(v) for k, v in h264_read_ms.items()},
                 h264_decode_ms=decode_ms,
@@ -3328,17 +3340,18 @@ def phase_cli_h264(files, card, extra=()):
     """rtpose --video on the committed H.264 clips tests/data/h264_720p.mp4
     (the 8 1280x720 frames of jpeg_frames.frame, an IDR picture and P
     pictures, CAVLC), h264_cabac_720p.mp4 (the same macroblocks coded with
-    CABAC, Main profile) and h264_b_720p.mp4 (the same frames as I P B B in
-    CABAC, with composition offsets and an edit list), cv2 blocked, in turns
-    with the MPEG-4 clip of the same frames and a q95 Motion-JPEG AVI of the
-    H.264 decode (h264, cabac, b, mp4, avi, twice), then --start_frame 3 on
-    each H.264 clip (a P picture: the seek decodes on from the IDR picture).
-    The clips' decoded frames equal their pins (cv2's frames); every JSON of
-    the first h264 run and of the first b run equals estimate() on the
-    port's decode of its frame, each cabac run's JSONs the first h264 run's,
-    each b run's the first b run's and each --start_frame run's those of
-    the first run of its clip; launches equal across the runs; FPS of
-    each."""
+    CABAC, Main profile), h264_b_720p.mp4 (the same frames as I P B B in
+    CABAC, with composition offsets and an edit list) and h264_high_720p.mp4
+    (I P B B in CABAC under High profile: Intra8x8 and the 8x8 transform,
+    x264's default), cv2 blocked, in turns with the MPEG-4 clip of the same
+    frames and a q95 Motion-JPEG AVI of the H.264 decode (h264, cabac, b,
+    high, mp4, avi, twice), then --start_frame 3 on each H.264 clip (a P
+    picture: the seek decodes on from the IDR picture).  The clips' decoded
+    frames equal their pins (cv2's frames); every JSON of the first h264, b
+    and high runs equals estimate() on the port's decode of its frame, each
+    cabac run's JSONs the first h264 run's, each b and high run's the first
+    run's of its clip and each --start_frame run's those of the first run of
+    its clip; launches equal across the runs; FPS of each."""
     import os
 
     from caffe_rtpose_tpu_torch.pipeline import video
@@ -3348,17 +3361,16 @@ def phase_cli_h264(files, card, extra=()):
     cases, m4, hc = avi_cases_module(), mp4_cases_module(), h264_cases_module()
     clip = hc.CLIP_720P
     with no_cv2():
+        decoded_by_pin = {}
         for path, pin in ((clip, "h264_720p"), (hc.CLIP_CABAC_720P, "h264_720p"),
-                          (hc.CLIP_B_720P, "h264_b_720p")):
+                          (hc.CLIP_B_720P, "h264_b_720p"), (hc.CLIP_HIGH_720P, "h264_high_720p")):
             reader = video.open_reader(path)
             decoded = read_frames(reader)
             reader.release()
             check(cases.sha256(decoded) == hc.PINNED[pin]["sha256"],
                   f"{tag} {path}'s decoded frames differ from cv2's (the pinned digest)")
-            if pin == "h264_720p":
-                images = decoded
-            else:
-                images_b = decoded
+            decoded_by_pin[pin] = decoded
+        images = decoded_by_pin["h264_720p"]
     work = tempfile.mkdtemp(prefix="chip_smoke_cli_h264_")
     h, w = images[0].shape[:2]
     n = len(images)
@@ -3366,16 +3378,17 @@ def phase_cli_h264(files, card, extra=()):
     with open(avi, "wb") as f:
         f.write(cases.write_avi([encode_jpeg(f, 95) for f in images], w, h))
     sources = {"h264": ("--video", clip), "cabac": ("--video", hc.CLIP_CABAC_720P),
-               "b": ("--video", hc.CLIP_B_720P), "mp4": ("--video", m4.clip_path("mp4v_720p")),
-               "avi": ("--video", avi)}
-    kinds = ("h264", "cabac", "b", "mp4", "avi")
+               "b": ("--video", hc.CLIP_B_720P), "high": ("--video", hc.CLIP_HIGH_720P),
+               "mp4": ("--video", m4.clip_path("mp4v_720p")), "avi": ("--video", avi)}
+    kinds = ("h264", "cabac", "b", "high", "mp4", "avi")
+    h264_kinds = ("h264", "cabac", "b", "high")
     runs = []
     for k, kind in enumerate(kinds * 2):
         runs.append((kind, rtpose_run(f"{tag} {kind}", files, sources[kind],
                                       os.path.join(work, f"json{k}"), w, h, extra)))
     seeks = {kind: rtpose_run(f"{tag} {kind} start 3", files, sources[kind],
                               os.path.join(work, f"json_{kind}_s3"), w, h,
-                              ("--start_frame", "3", *extra)) for kind in ("h264", "cabac", "b")}
+                              ("--start_frame", "3", *extra)) for kind in h264_kinds}
     names = [f"frame{i:06d}.json" for i in range(n)]
     for kind, r in runs:
         check(r["files"] == names, f"{tag} {kind} wrote {r['files']}")
@@ -3388,10 +3401,12 @@ def phase_cli_h264(files, card, extra=()):
         check(seek["files"] == names[3:], f"{tag} {kind} --start_frame 3 wrote {seek['files']}")
         check(seek["launches"] == seeks["h264"]["launches"] and seek["launches"]["conv1_block"] > 0,
               f"{tag} {kind} --start_frame 3 launches {seek['launches']}")
-    first_b = f"json{kinds.index('b')}"
-    same = [(f"json_{kind}_s3", names[3:], first_b if kind == "b" else "json0") for kind in seeks]
-    same += [(f"json{k}", names, first_b if kind == "b" else "json0")
-             for k, (kind, _) in enumerate(runs) if kind in ("cabac", "b")]
+    # the first run of each clip's frames (cabac's are h264's)
+    first_run = {kind: f"json{kinds.index(kind)}" for kind in ("b", "high")}
+    same = [(f"json_{kind}_s3", names[3:], first_run.get(kind, "json0")) for kind in seeks]
+    same += [(f"json{k}", names, first_run.get(kind, "json0"))
+             for k, (kind, _) in enumerate(runs) if kind in ("cabac", "b", "high")
+             and f"json{k}" != first_run.get(kind)]
     for folder, files_, base in same:
         for name in files_:
             with open(os.path.join(work, base, name)) as a, \
@@ -3399,25 +3414,31 @@ def phase_cli_h264(files, card, extra=()):
                 check(a.read() == b.read(), f"{tag} {folder}/{name} differs from {base}/{name}")
     jsons_equal_estimate(tag, files, extra, images, os.path.join(work, "json0"), names,
                          "the port's decode of its frame")
-    jsons_equal_estimate(tag, files, extra, images_b, os.path.join(work, first_b), names,
+    jsons_equal_estimate(tag, files, extra, decoded_by_pin["h264_b_720p"],
+                         os.path.join(work, first_run["b"]), names,
                          "the port's decode of its frame (B clip)")
+    jsons_equal_estimate(tag, files, extra, decoded_by_pin["h264_high_720p"],
+                         os.path.join(work, first_run["high"]), names,
+                         "the port's decode of its frame (High profile clip)")
     fps = {kind: [r["fps"] for k, r in runs if k == kind] for kind in kinds}
-    print(f"{tag} the three clips' decoded frames equal cv2's (pinned digests); every h264 "
-          f"and every b JSON equals estimate() on the port's decode of its frame, every cabac "
+    print(f"{tag} the four clips' decoded frames equal cv2's (pinned digests); every h264, b "
+          f"and high JSON equals estimate() on the port's decode of its frame, every cabac "
           f"JSON the h264 run's; --start_frame 3 wrote {len(seeks['h264']['files'])} files a "
           f"clip equal to the first run's of the clip; FPS over {n} {w}x{h} frames: "
           + ", ".join(f"{kind} {fps[kind]}" for kind in kinds)
           + f" (in turns; {os.path.getsize(clip) // n} B a frame of CAVLC, "
           f"{os.path.getsize(hc.CLIP_CABAC_720P) // n} of CABAC, "
-          f"{os.path.getsize(hc.CLIP_B_720P) // n} of I P B B); launches {first['launches']} "
-          f"a run; {card}")
-    return dict(fps_h264=fps["h264"], fps_cabac=fps["cabac"], fps_b=fps["b"], fps_mp4=fps["mp4"],
-                fps_avi=fps["avi"], launches=first["launches"],
+          f"{os.path.getsize(hc.CLIP_B_720P) // n} of I P B B, "
+          f"{os.path.getsize(hc.CLIP_HIGH_720P) // n} of High profile I P B B); launches "
+          f"{first['launches']} a run; {card}")
+    return dict(fps_h264=fps["h264"], fps_cabac=fps["cabac"], fps_b=fps["b"], fps_high=fps["high"],
+                fps_mp4=fps["mp4"], fps_avi=fps["avi"], launches=first["launches"],
                 start_frame_3={kind: dict(files=len(r["files"]), launches=r["launches"],
                                           fps=r["fps"]) for kind, r in seeks.items()},
                 bytes_a_frame=os.path.getsize(clip) / n,
                 cabac_bytes_a_frame=os.path.getsize(hc.CLIP_CABAC_720P) / n,
                 b_bytes_a_frame=os.path.getsize(hc.CLIP_B_720P) / n,
+                high_bytes_a_frame=os.path.getsize(hc.CLIP_HIGH_720P) / n,
                 seconds=[r["seconds"] for _, r in runs])
 
 

@@ -3,8 +3,8 @@
 and the results pinned for them (numpy and ``struct`` only, so that
 ``chip_smoke.py`` can load this module on a machine without OpenCV).
 
-* A syntax writer (:class:`Writer`) that emits valid Constrained Baseline
-  and Main profile (I/P) bitstreams from a seed: SPS (frame cropping, POC
+* A syntax writer (:class:`Writer`) that emits valid Constrained Baseline,
+  Main and High profile bitstreams from a seed: SPS (frame cropping, POC
   types 0 and 2, VUI with the video range, timing and bitstream
   restriction), PPS, slices of I and P type (several a picture, each with
   its own QP, deblocking idc and offsets and CABAC init table; reference
@@ -14,7 +14,9 @@ and the results pinned for them (numpy and ``struct`` only, so that
   ``mb_type`` and sub-type: I_PCM, all 9 + 4 + 4 intra modes (only those
   whose neighbours are available), residual blocks with level escapes,
   ``mb_qp_delta`` wrapping through QP 0-51, and motion vector differences
-  that reach every sub-pel phase and far out of the picture.  Each element
+  that reach every sub-pel phase and far out of the picture; B slices;
+  High profile's 8x8 transform, Intra8x8, scaling lists in the SPS and
+  the PPS and two chroma QP offsets.  Each element
   goes through a coder, CAVLC (:class:`Cavlc`) or CABAC (:class:`CabacCoder`:
   the arithmetic encoder of 9.3.4 and the context selection the decoder
   mirrors, from the decoder's own tables); the writer draws the same values
@@ -27,9 +29,10 @@ and the results pinned for them (numpy and ``struct`` only, so that
 * Muxers: MP4 and QuickTime (``avc1`` + ``avcC``, ``stss`` listing the key
   pictures, through ``mp4_cases.write_mp4``) and AVI (Annex B chunks,
   ``idx1`` with AVIIF_KEYFRAME on the key pictures, ``avi_cases.write_avi``).
-* CASES, REFUSED (one stream a refusal) and PINNED: what the JAX package's
-  reader (``cv2.VideoCapture`` in ``caffe_rtpose_tpu.pipeline.runner``)
-  gives for each case.
+* CASES, HIGH (High profile), REFUSED and HIGH_REFUSED (one stream a
+  refusal) and PINNED: what the JAX package's reader
+  (``cv2.VideoCapture`` in ``caffe_rtpose_tpu.pipeline.runner``) gives for
+  each case.
 * :func:`encode_clip`: the 8 1280x720 frames of ``jpeg_frames.frame`` coded
   as real pictures (the first row of macroblocks I_PCM, the rest
   Intra16x16 vertical, then P pictures predicted from the picture before);
@@ -37,11 +40,14 @@ and the results pinned for them (numpy and ``struct`` only, so that
   ``encode_clip(clip_frames(), 26, cabac=True)``
   ``tests/data/h264_cabac_720p.mp4`` and ``encode_clip(clip_frames(), 26,
   cabac=True, bframes=True)`` ``tests/data/h264_b_720p.mp4`` (I P B B with
-  composition offsets), for chip_smoke's CLI run.
+  composition offsets) and ``encode_clip(clip_frames(), 26, cabac=True,
+  bframes=True, high=True)`` ``tests/data/h264_high_720p.mp4`` (the same
+  under High profile: Intra8x8 below the first row, the 8x8 transform in P
+  and B), for chip_smoke's CLI run.
 
-``tests/test_torch_h264.py`` holds PINNED against the JAX reader and the
-port; ``chip_smoke.py``'s video phase holds the port on the card's host to
-them.
+``tests/test_torch_h264.py`` and ``tests/test_torch_h264_high.py`` hold
+PINNED against the JAX reader and the port; ``chip_smoke.py``'s video
+phase holds the port on the card's host to them.
 """
 
 import functools
@@ -55,10 +61,12 @@ DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 CLIP_SIZE = (74, 100)  # (h, w): coded as 112x80 and cropped
 CLIP_FRAMES = 26
 SEEKS = (0, 1, 3, 11, 12, 13, 20, 25, 26, 40)
+CLIP_SEEKS = (0, 1, 3, 5)  # a 720p clip's: each seek decodes on from its IDR picture
 READ_AFTER_SEEK = 3
 CLIP_720P = os.path.join(DATA, "h264_720p.mp4")
 CLIP_CABAC_720P = os.path.join(DATA, "h264_cabac_720p.mp4")
 CLIP_B_720P = os.path.join(DATA, "h264_b_720p.mp4")
+CLIP_HIGH_720P = os.path.join(DATA, "h264_high_720p.mp4")
 
 # ------------------------------------------------------------ CAVLC tables
 # H.264 Table 9-5 (coeff_token) by nC class 0 <= nC < 2, 2 <= nC < 4,
@@ -274,11 +282,14 @@ def _in_range(*vals) -> bool:
     return all(-_LIMIT <= v <= _LIMIT for v in vals)
 
 
-def block_fits(levels, q: int, dc=None) -> bool:
+def block_fits(levels, q: int, dc=None, scale=None) -> bool:
     """Whether a 4x4 block of ``levels`` (16 in scan order; with ``dc``,
-    the scaled DC replaces the first) stays in range at QP ``q``."""
+    the scaled DC replaces the first) stays in range at QP ``q`` under the
+    scaling list ``scale`` (raster; None: Flat_16)."""
     # each 1-D pass's outputs are at most the sum of its inputs' magnitudes
-    bound = int(np.abs(np.asarray(levels[dc is not None:])).sum()) * (29 << (q // 6))
+    wmax = 16 if scale is None else max(scale)
+    bound = int(np.abs(np.asarray(levels[dc is not None:])).sum()) * \
+        (((29 * wmax << (q // 6)) + 15) // 16)
     if bound + abs(dc or 0) <= _LIMIT:
         return True
     d = [0] * 16
@@ -289,7 +300,8 @@ def block_fits(levels, q: int, dc=None) -> bool:
             continue
         x, y = r & 3, r >> 2
         k = 0 if not (x & 1 or y & 1) else 1 if x & 1 and y & 1 else 2
-        d[r] = (int(lv) * NORM_ADJUST[q % 6][k]) << (q // 6)
+        w = 16 if scale is None else scale[r]
+        d[r] = (int(lv) * (w * NORM_ADJUST[q % 6][k] << (q // 6)) + 8) >> 4
     if not _in_range(*d):
         return False
     for y in range(4):
@@ -306,27 +318,182 @@ def block_fits(levels, q: int, dc=None) -> bool:
     return True
 
 
-def luma_dc(levels, q: int):
+def luma_dc(levels, q: int, w00: int = 16):
     """The scaled Intra16x16 DCs (raster) of DC ``levels`` (scan order), or
-    None where the Hadamard leaves the range."""
+    None where the Hadamard leaves the range; ``w00``: the intra Y list's
+    first weight."""
     c = [0] * 16
     for i, lv in enumerate(levels):
         c[ZIGZAG[i]] = int(lv)
     h = ((1, 1, 1, 1), (1, 1, -1, -1), (1, -1, -1, 1), (1, -1, 1, -1))
     f = [sum(h[i][k] * c[4 * k + l] * h[l][j] for k in range(4) for l in range(4))
          for i in range(4) for j in range(4)]
-    ls = 16 * NORM_ADJUST[q % 6][0]
+    ls = w00 * NORM_ADJUST[q % 6][0]
     out = [(v * ls) << (q // 6 - 6) if q >= 36 else (v * ls + (1 << (5 - q // 6))) >> (6 - q // 6)
            for v in f]
     return out if _in_range(*f, *out) else None
 
 
-def chroma_dc(levels, qc: int):
+def chroma_dc(levels, qc: int, w00: int = 16):
     """The scaled chroma DCs of the 2x2 DC ``levels``, or None out of range."""
     c0, c1, c2, c3 = (int(v) for v in levels)
     f = (c0 + c1 + c2 + c3, c0 - c1 + c2 - c3, c0 + c1 - c2 - c3, c0 - c1 - c2 + c3)
-    out = [((v * 16 * NORM_ADJUST[qc % 6][0]) << (qc // 6)) >> 5 for v in f]
+    out = [((v * w00 * NORM_ADJUST[qc % 6][0]) << (qc // 6)) >> 5 for v in f]
     return out if _in_range(*f, *out) else None
+
+
+# 8.5.13: the 8x8 blocks.  ZIGZAG8: scan position -> raster (y * 8 + x);
+# normAdjust8x8 by QP % 6 and the position class of (y % 4, x % 4).
+ZIGZAG8 = (0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33, 40, 48, 41, 34,
+           27, 20, 13, 6, 7, 14, 21, 28, 35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37,
+           44, 51, 58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63)
+NORM_ADJUST8 = ((20, 18, 32, 19, 25, 24), (22, 19, 35, 21, 28, 26), (26, 23, 42, 24, 33, 31),
+                (28, 25, 45, 26, 35, 33), (32, 28, 51, 30, 40, 38), (36, 32, 58, 34, 46, 43))
+_CLASS8 = ((0, 3, 4, 3), (3, 1, 5, 1), (4, 5, 2, 5), (3, 1, 5, 1))
+
+
+def dequant8(levels, q: int, scale=None):
+    """The scaled coefficients (raster 8x8) of an 8x8 block's ``levels``
+    (64 in scan order) under the scaling list ``scale`` (raster; None:
+    Flat_16): (c * LevelScale8x8 << q / 6 + 32) >> 6."""
+    d = [0] * 64
+    for i, lv in enumerate(levels):
+        if lv:
+            r = ZIGZAG8[i]
+            w = 16 if scale is None else scale[r]
+            ls = w * NORM_ADJUST8[q % 6][_CLASS8[(r >> 3) & 3][r & 3]]
+            d[r] = (int(lv) * (ls << (q // 6)) + 32) >> 6
+    return d
+
+
+def idct8_pass(v):
+    """One 1-D pass of the 8x8 inverse transform (8.5.13.2) over 8 values:
+    the outputs, or None where the magnitudes of an intermediate's terms sum
+    past the range (FFmpeg's SIMD transform adds them in 16 bits, in its
+    own order)."""
+    d0, d1, d2, d3, d4, d5, d6, d7 = v
+    terms = ((d0, d4), (d0, -d4), (d2 >> 1, -d6), (d2, d6 >> 1), (-d3, d5, -d7, -(d7 >> 1)),
+             (d1, d7, -d3, -(d3 >> 1)), (-d1, d7, d5, d5 >> 1), (d3, d5, d1, d1 >> 1))
+    if any(sum(abs(t) for t in ts) > _LIMIT for ts in terms):
+        return None
+    a0, a4, a2, a6, a1, a3, a5, a7 = (sum(ts) for ts in terms)
+    pairs = ((a0, a6), (a4, a2), (a4, -a2), (a0, -a6), (a1, a7 >> 2), (a7, -(a1 >> 2)),
+             (a3, a5 >> 2), (a3 >> 2, -a5))
+    if any(abs(x) + abs(y) > _LIMIT for x, y in pairs):
+        return None
+    b0, b2, b4, b6, b1, b7, b3, b5 = (x + y for x, y in pairs)
+    outs = ((b0, b7), (b2, b5), (b4, b3), (b6, b1), (b6, -b1), (b4, -b3), (b2, -b5), (b0, -b7))
+    if any(abs(x) + abs(y) > _LIMIT for x, y in outs):
+        return None
+    return [x + y for x, y in outs]
+
+
+def block8_fits(levels, q: int, scale=None) -> bool:
+    """Whether an 8x8 block of ``levels`` (64 in scan order) keeps its
+    scaled coefficients and every intermediate of the inverse transform
+    within 16 bits at QP ``q`` under ``scale``."""
+    wmax = 16 if scale is None else max(scale)
+    # the terms of a pass sum to at most 4 times its inputs' magnitudes
+    bound = int(np.abs(np.asarray(levels)).sum()) * (((58 * wmax << (q // 6)) + 63) // 64 + 1)
+    if 16 * bound <= _LIMIT:
+        return True
+    d = dequant8(levels, q, scale)
+    if not _in_range(*d):
+        return False
+    rows = [idct8_pass(d[8 * y:8 * y + 8]) for y in range(8)]
+    if any(r is None for r in rows):
+        return False
+    return all(idct8_pass([rows[y][x] for y in range(8)]) is not None for x in range(8))
+
+
+def idct8(d):
+    """8.5.13.2 on (..., 8, 8) int64 arrays: rows, then columns, (x + 32) >> 6."""
+    d = np.asarray(d, np.int64)
+    for axis in (-1, -2):
+        v = [np.take(d, k, axis) for k in range(8)]
+        a0, a4 = v[0] + v[4], v[0] - v[4]
+        a2, a6 = (v[2] >> 1) - v[6], v[2] + (v[6] >> 1)
+        a1 = -v[3] + v[5] - v[7] - (v[7] >> 1)
+        a3 = v[1] + v[7] - v[3] - (v[3] >> 1)
+        a5 = -v[1] + v[7] + v[5] + (v[5] >> 1)
+        a7 = v[3] + v[5] + v[1] + (v[1] >> 1)
+        b0, b2, b4, b6 = a0 + a6, a4 + a2, a4 - a2, a0 - a6
+        b1, b7, b3, b5 = a1 + (a7 >> 2), a7 - (a1 >> 2), a3 + (a5 >> 2), (a3 >> 2) - a5
+        d = np.stack([b0 + b7, b2 + b5, b4 + b3, b6 + b1, b6 - b1, b4 - b3, b2 - b5, b0 - b7], axis)
+    return (d + 32) >> 6
+
+
+# ------------------------------------------------------- scaling matrices
+# Tables 7-3 and 7-4 (raster): Default_4x4_Intra/Inter, Default_8x8_Intra/Inter
+DEFAULT4 = ((6, 13, 20, 28, 13, 20, 28, 32, 20, 28, 32, 37, 28, 32, 37, 42),
+            (10, 14, 20, 24, 14, 20, 24, 27, 20, 24, 27, 30, 24, 27, 30, 34))
+DEFAULT8 = ((6, 10, 13, 16, 18, 23, 25, 27, 10, 11, 16, 18, 23, 25, 27, 29, 13, 16, 18, 23, 25, 27,
+             29, 31, 16, 18, 23, 25, 27, 29, 31, 33, 18, 23, 25, 27, 29, 31, 33, 36, 23, 25, 27,
+             29, 31, 33, 36, 38, 25, 27, 29, 31, 33, 36, 38, 40, 27, 29, 31, 33, 36, 38, 40, 42),
+            (9, 13, 15, 17, 19, 21, 22, 24, 13, 13, 17, 19, 21, 22, 24, 25, 15, 17, 19, 21, 22, 24,
+             25, 27, 17, 19, 21, 22, 24, 25, 27, 28, 19, 21, 22, 24, 25, 27, 28, 30, 21, 22, 24,
+             25, 27, 28, 30, 32, 22, 24, 25, 27, 28, 30, 32, 33, 24, 25, 27, 28, 30, 32, 33, 35))
+FLAT4, FLAT8 = (16,) * 16, (16,) * 64
+
+
+def write_scaling_lists(bw: Bits, spec, seen=None) -> None:
+    """scaling_list_present_flag and each list of ``spec`` (6 4x4 lists, then
+    the 8x8 ones): None absent (its fall-back), "default"
+    (useDefaultScalingMatrixFlag: a first delta_scale that makes nextScale
+    0), or the weights in zigzag order, whose tail of repeats of the weight
+    before it ends on a nextScale of 0."""
+    for i, entry in enumerate(spec):
+        bw.u(entry is not None, 1)
+        if entry is None:
+            continue
+        if entry == "default":
+            bw.se(-8)
+            continue
+        vals = list(entry)
+        end = len(vals)
+        while end > 1 and vals[end - 1] == vals[end - 2]:
+            end -= 1
+        last = 8
+        for v in vals[:end]:
+            bw.se((v - last + 128) % 256 - 128)
+            last = v
+        if end < len(vals):
+            bw.se((-last + 128) % 256 - 128)  # nextScale 0: the rest repeat the last
+            if seen is not None:
+                seen.add(("scaling", "repeat"))
+
+
+def scaling_matrices(spec, seq=None):
+    """The 6 4x4 and 2 8x8 lists (raster) a parameter set's ``spec`` gives
+    (None: no scaling_matrix_present_flag; then an SPS has Flat_16 and a PPS
+    its SPS's): an absent list falls back under rule A (SPS, or a PPS whose
+    SPS has no lists: Default_* for lists 0, 3, 6 and 7) or rule B (the
+    SPS's), each other 4x4 list to the one before.  ``seq``: the SPS's
+    (lists, whether it has them), for a PPS; a PPS spec of 6 leaves the 8x8
+    lists the SPS's."""
+    if spec is None:
+        return seq[0] if seq else ([FLAT4] * 6 + [FLAT8] * 2)
+    rule_b = bool(seq and seq[1])
+    out = []
+    for i in range(6):
+        entry = spec[i]
+        if entry is None:
+            out.append((seq[0][i] if rule_b else DEFAULT4[i // 3]) if i % 3 == 0 else out[i - 1])
+        elif entry == "default":
+            out.append(DEFAULT4[i // 3])
+        else:
+            out.append(tuple(entry[ZIGZAG.index(r)] for r in range(16)))
+    for k in range(2):
+        entry = spec[6 + k] if len(spec) > 6 else "keep"
+        if entry == "keep":
+            out.append(seq[0][6 + k] if seq else FLAT8)
+        elif entry is None:
+            out.append(seq[0][6 + k] if rule_b else DEFAULT8[k])
+        elif entry == "default":
+            out.append(DEFAULT8[k])
+        else:
+            out.append(tuple(entry[ZIGZAG8.index(r)] for r in range(64)))
+    return out
 
 
 # ------------------------------------------------------------------ CABAC
@@ -344,8 +511,9 @@ def _cabac_tables():
 
     rng, lps, init = ints("kRangeLps[64][4] ="), ints("kTransLps[64] ="), \
         ints("kInit[4][kCtxCount][2] =")
+    n = int(re.search(r"kCtxCount = (\d+);", text).group(1))
     return ([rng[4 * i:4 * i + 4] for i in range(64)], lps,
-            [[(init[552 * t + 2 * c], init[552 * t + 2 * c + 1]) for c in range(276)]
+            [[(init[2 * n * t + 2 * c], init[2 * n * t + 2 * c + 1]) for c in range(n)]
              for t in range(4)])
 
 
@@ -353,6 +521,12 @@ RANGE_LPS, TRANS_LPS, CABAC_INIT = _cabac_tables()
 # ctxBlockCatOffset of coded_block_flag, the significance maps and
 # coeff_abs_level_minus1 (Table 9-40), by ctxBlockCat 0-4
 CBF_OFFSET, SIG_OFFSET, ABS_OFFSET = (0, 4, 8, 12, 16), (0, 15, 29, 44, 47), (0, 10, 20, 30, 39)
+# Table 9-43 (frame-coded): ctxIdxInc of significant_coeff_flag and
+# last_significant_coeff_flag of an 8x8 block (ctxBlockCat 5) by scan position
+SIG8 = (0, 1, 2, 3, 4, 5, 5, 4, 4, 3, 3, 4, 4, 4, 5, 5, 4, 4, 4, 4, 3, 3, 6, 7, 7, 7, 8, 9, 10, 9, 8,
+        7, 7, 6, 11, 12, 13, 11, 6, 7, 8, 9, 14, 10, 9, 8, 6, 11, 12, 13, 11, 6, 9, 14, 10, 9, 11,
+        12, 13, 11, 14, 10, 12)
+LAST8 = (0,) + (1,) * 15 + (2,) * 16 + (3,) * 8 + (4,) * 8 + (5,) * 4 + (6,) * 4 + (7,) * 4 + (8,) * 3
 
 
 class CabacEncoder:
@@ -532,6 +706,20 @@ class Cavlc(_Coder):
         if tc and cat in (0, 3):
             self.st.dcf[m] |= 1 if cat == 0 else 2 << c
         return tc
+
+    def transform8(self, m, flag) -> None:
+        self.st.t8[m] = flag
+        self.st.seen.add(("transform_size_8x8_flag", self.st.kind[m] == "i4", flag))
+        self.bw.u(flag, 1)
+
+    def block8(self, m, b8, coeffs) -> None:
+        """An 8x8 block (64 in scan order) as four interleaved 4x4 blocks:
+        coefficient k of the i-th is at 4k + i; each has its own nC and
+        TotalCoeff."""
+        for i4 in range(4):
+            bx, by = _blk_xy(4 * b8 + i4)
+            self.st.tcl[m][by * 4 + bx] = residual_block(
+                self.bw, coeffs[i4::4], self.st._nc(m, bx, by, None), self.st.seen)
 
 
 class CabacCoder(_Coder):
@@ -843,6 +1031,54 @@ class CabacCoder(_Coder):
             e.bypass(coeffs[i] < 0)
         return len(nz)
 
+    def transform8(self, m, flag) -> None:
+        st = self.st
+        ctx = 399 + sum(n is not None and st.t8[n] for n in self._ab(m))
+        st.t8[m] = flag
+        st.seen.update({("transform_size_8x8_flag", st.kind[m] == "i4", flag), ("ctx", ctx)})
+        self.e.decision(ctx, flag)
+
+    def block8(self, m, b8, coeffs) -> None:
+        """An 8x8 block of ctxBlockCat 5 (64 in scan order, at least one
+        not 0: its coded_block_flag is inferred): Table 9-43's significance
+        contexts from ctxIdx 402 and 417, levels from 426; each of its 4x4
+        blocks counts its coefficients (coded_block_flag's context)."""
+        e, st = self.e, self.st
+        coeffs = [int(v) for v in coeffs]
+        nz = [i for i, v in enumerate(coeffs) if v]
+        assert nz, "CABAC codes no 8x8 block without coefficients"
+        for i in range(63):
+            e.decision(402 + SIG8[i], coeffs[i] != 0)
+            st.seen.add(("ctx", 402 + SIG8[i]))
+            if coeffs[i]:
+                e.decision(417 + LAST8[i], i == nz[-1])
+                st.seen.add(("ctx", 417 + LAST8[i]))
+                if i == nz[-1]:
+                    break
+        gt1 = eq1 = 0
+        for i in reversed(nz):
+            a = abs(coeffs[i]) - 1
+            ctx = 426 + (0 if gt1 else min(4, 1 + eq1))
+            e.decision(ctx, a > 0)
+            st.seen.add(("ctx", ctx))
+            if a:
+                ctx = 426 + 5 + min(4, gt1)
+                st.seen.add(("ctx", ctx))
+                for _ in range(1, min(a, 14)):
+                    e.decision(ctx, 1)
+                if a < 14:
+                    e.decision(ctx, 0)
+                else:
+                    st.seen.add(("cabac level suffix", 5))
+                    e.eg(a - 14, 0)
+                gt1 += 1
+            else:
+                eq1 += 1
+            e.bypass(coeffs[i] < 0)
+        for k in range(4):
+            bx, by = _blk_xy(4 * b8 + k)
+            st.tcl[m][by * 4 + bx] = len(nz)
+
 
 # -------------------------------------------------------------- streams
 
@@ -902,10 +1138,49 @@ class Writer:
         self.prev_ref_fn = 0
         self.idr_id = 0
         self.since_idr = 0
-        self.chroma_offsets = (p["chroma_offset"], p["chroma_offset"])
+        # Under Baseline, Main or Extended with constraint_set0, 1 or 2
+        # FFmpeg reads no PPS past redundant_pic_cnt_present_flag (a case's
+        # ``pps_ext`` writes what it ignores): one chroma offset, no lists
+        self.high = p.get("profile", 66) == 100
+        second = p.get("chroma_offset2", p["chroma_offset"]) if self.high else p["chroma_offset"]
+        self.chroma_offsets = (p["chroma_offset"], second)
         self.seen = set()  # the syntax written: (element, value)
+        # High profile: the 8x8 transform, the scaling lists of the SPS and
+        # the PPS (drawn from a stream of their own) and the lists in use
+        self.transform8 = self.high and bool(p.get("transform_8x8"))
+        lrs = np.random.RandomState(p["seed"] + 1000003)
+        self.sps_spec = self._lists(lrs, p.get("sps_scaling"))
+        pps_spec = p.get("pps_scaling")
+        self.pps_spec = self._lists(lrs, None if pps_spec is None else
+                                    pps_spec[:8 if self.transform8 else 6])
+        seq = scaling_matrices(self.sps_spec)
+        lists = scaling_matrices(self.pps_spec if self.high else None,
+                                 (seq, self.sps_spec is not None))
+        self.scale4, self.scale8 = lists[:6], lists[6:]
         self.order, self.bpics = self.decode_order()
         self.idr_at = 0
+
+    def _lists(self, lrs, codes):
+        """A parameter set's scaling list spec (write_scaling_lists) from
+        case codes (None, "default" or "explicit" a list; None: no
+        scaling_matrix_present_flag): explicit weights in zigzag order,
+        rising from a base in the case's ``scale_range``, half of them with a
+        tail of repeats."""
+        if codes is None:
+            return None
+        lo, hi = self.p.get("scale_range", (4, 48))
+        out = []
+        for i, code in enumerate(codes):
+            n = 16 if i < 6 else 64
+            if code != "explicit":
+                out.append(code)
+                continue
+            vals = np.sort(lrs.randint(lo, hi + 1, n))
+            if lrs.rand() < 0.5:
+                k = int(lrs.randint(1, n))
+                vals[k:] = vals[k - 1]
+            out.append(tuple(int(v) for v in vals))
+        return out
 
     # ------------------------------------------------------------ headers
     def sps(self, sps_id: int = 0) -> bytes:
@@ -921,10 +1196,14 @@ class Writer:
             bw.ue(p.get("chroma_format", 1))
             bw.ue(p.get("bit_depth", 8) - 8)
             bw.ue(p.get("bit_depth", 8) - 8)
-            bw.u(0, 1)
-            bw.u(bool(p.get("scaling")), 1)
-            if p.get("scaling"):
-                bw.u(0, 8)  # no list present: the fall-back rule (flat)
+            bw.u(0, 1)  # qpprime_y_zero_transform_bypass_flag
+            # seq_scaling_matrix_present_flag; a list left out takes the
+            # fall-back rule A (Default_*, not Flat_16, for lists 0, 3, 6, 7)
+            bw.u(self.sps_spec is not None, 1)
+            if self.sps_spec is not None:
+                self.seen.add(("scaling", "sps", tuple(e if e is None or e == "default"
+                                                       else "explicit" for e in self.sps_spec)))
+                write_scaling_lists(bw, self.sps_spec, self.seen)
         bw.ue(p["log2_max_frame_num"] - 4)
         bw.ue(p["poc_type"])
         if p["poc_type"] == 0:
@@ -999,10 +1278,16 @@ class Writer:
         bw.u(1, 1)  # deblocking_filter_control_present_flag
         bw.u(p.get("constrained_intra", 0), 1)
         bw.u(p.get("redundant", 0), 1)
-        if p.get("transform_8x8"):
-            bw.u(1, 1)
-            bw.u(0, 1)
-            bw.se(0)
+        if self.high or p.get("pps_ext"):
+            self.seen.add(("pps extension", self.high))
+            bw.u(self.transform8 or not self.high, 1)
+            bw.u(self.pps_spec is not None, 1)  # pic_scaling_matrix_present_flag
+            if self.pps_spec is not None:
+                self.seen.add(("scaling", "pps", tuple(e if e is None or e == "default"
+                                                       else "explicit" for e in self.pps_spec),
+                               self.sps_spec is not None))
+                write_scaling_lists(bw, self.pps_spec, self.seen)
+            bw.se(p.get("chroma_offset2", p["chroma_offset"]))  # second_chroma_qp_index_offset
         return nal(3, 8, bw.trailing())
 
     # ------------------------------------------------------------ pictures
@@ -1118,6 +1403,7 @@ class Writer:
         self.refidx_l = (self.refidx, [[-1] * 16 for _ in range(self.nmb)])
         self.amvd_l = (self.amvd, [[[0, 0] for _ in range(16)] for _ in range(self.nmb)])
         self.direct = [0] * self.nmb  # B: the 8x8 blocks in direct mode; 16: B_Skip, B_Direct_16x16
+        self.t8 = [False] * self.nmb  # transform_size_8x8_flag
 
     def coder(self, bw, p_slice, idc, qp, b_slice=False) -> _Coder:
         if self.p.get("cabac"):
@@ -1411,16 +1697,20 @@ class Writer:
             c = np.fix(c / 2).astype(np.int64)
         return c
 
-    def _block(self, e, m, cat, bx, by, c, q, dc=None):
-        """A 16-coefficient block, or with ``dc`` an AC block of 15 after it."""
+    def _block(self, e, m, cat, bx, by, c, q, dc=None, scale=None):
+        """A 16-coefficient block, or with ``dc`` an AC block of 15 after it,
+        under the scaling list ``scale``."""
         if dc is None:
-            v = self._fitted(16, lambda v: block_fits(v, q))
+            v = self._fitted(16, lambda v: block_fits(v, q, scale=scale))
         else:
-            v = self._fitted(15, lambda v: block_fits(np.concatenate([[0], v]), q, dc))
+            v = self._fitted(15, lambda v: block_fits(np.concatenate([[0], v]), q, dc, scale))
         return e.block(m, cat, bx, by, c, v)
 
+    def _qp_draw(self):
+        return int(self.rs.randint(-26, 26)) if self.rs.rand() < 0.5 else 0
+
     def _qp_delta(self, e):
-        d = int(self.rs.randint(-26, 26)) if self.rs.rand() < 0.5 else 0
+        d = self._qp_draw()
         e.qp_delta(d)
         self.qp = (self.qp + d + 52) % 52
         self.seen.add(("qp", self.qp))
@@ -1467,18 +1757,37 @@ class Writer:
             self._qp_delta(e)
             self.kind[m] = "i16"
             self.cbp[m] = cbp_l | cbp_c << 4
-            dcl = self._fitted(16, lambda c: luma_dc(c, self.qp) is not None)
+            w00 = self.scale4[0][0]
+            dcl = self._fitted(16, lambda c: luma_dc(c, self.qp, w00) is not None)
             e.block(m, 0, 0, 0, 0, dcl)
-            dcy = luma_dc(dcl, self.qp)
+            dcy = luma_dc(dcl, self.qp, w00)
             for blk in range(16):
                 bx, by = _blk_xy(blk)
-                tc = self._block(e, m, 1, bx, by, 0, self.qp, dcy[by * 4 + bx]) if cbp_l else 0
+                tc = self._block(e, m, 1, bx, by, 0, self.qp, dcy[by * 4 + bx],
+                                 self.scale4[0]) if cbp_l else 0
                 self.tcl[m][by * 4 + bx] = tc
-            self._chroma(e, m, cbp_c)
+            self._chroma(e, m, cbp_c, True)
             return
         e.mb_type_i(m, 0)
         self.seen.update({("mb_type I", 0), ("chroma", cmode)})
         self.kind[m] = "i4"
+        if self.transform8:
+            t8 = bool(rs.rand() < p.get("t8", 0.5))
+            e.transform8(m, t8)
+            if t8:
+                for b8 in range(4):
+                    bx, by = 2 * (b8 % 2), 2 * (b8 // 2)
+                    tl = (av["B"] if bx else av["A"] if by else av["D"]) if not (bx and by) else True
+                    have = {"A": bx > 0 or av["A"], "B": by > 0 or av["B"], "D": tl}
+                    mode = _pick(rs, [c for c, need in enumerate(I4_NEEDS)
+                                      if all(have[k] for k in need)])
+                    e.i4_mode(self._i4_pred(m, bx, by), mode)
+                    for k in range(4):
+                        self.i4[m][(by + k // 2) * 4 + bx + k % 2] = mode
+                    self.seen.add(("Intra8x8", mode))
+                e.chroma_mode(m, cmode)
+                self._cbp_residual(e, m, True, t8=True)
+                return
         for blk in range(16):
             bx, by = _blk_xy(blk)
             left = bx > 0 or av["A"]
@@ -1511,30 +1820,76 @@ class Writer:
         b = side(0, -1, bx, (by - 1) % 4)
         return 2 if a is None or b is None else min(a, b)
 
-    def _cbp_residual(self, e, m, intra):
+    def _cbp_residual(self, e, m, intra, allow8=False, t8=False):
+        """coded_block_pattern, transform_size_8x8_flag (of an inter
+        macroblock that ``allow8``s it, under a PPS with the 8x8 transform;
+        I_NxN has coded it, ``t8``), mb_qp_delta and the residual."""
         rs = self.rs
         cbp = int(rs.randint(48))
+        flag = self.transform8 and not intra and allow8 and bool(cbp & 15)
+        if flag:
+            t8 = bool(rs.rand() < self.p.get("t8", 0.5))
+        if t8:
+            return self._residual8(e, m, intra, cbp, flag)
         e.cbp(m, cbp, intra)
+        if flag:
+            e.transform8(m, False)
         if cbp:
             self._qp_delta(e)
+        scale = self.scale4[0 if intra else 3]
         for blk in range(16):
             bx, by = _blk_xy(blk)
-            tc = self._block(e, m, 2, bx, by, 0, self.qp) if cbp >> (blk // 4) & 1 else 0
+            tc = self._block(e, m, 2, bx, by, 0, self.qp, scale=scale) \
+                if cbp >> (blk // 4) & 1 else 0
             self.tcl[m][by * 4 + bx] = tc
-        self._chroma(e, m, cbp >> 4)
+        self._chroma(e, m, cbp >> 4, intra)
 
-    def _chroma(self, e, m, cbp_c):
+    def _residual8(self, e, m, intra, cbp, flag):
+        """The same with the 8x8 transform: the QP and the 8x8 blocks are
+        drawn before coded_block_pattern is coded, as a coded 8x8 block must
+        hold a coefficient under CABAC: an empty one takes a DC of 1, and
+        one where even that leaves 16 bits is not coded (its bit cleared)."""
+        d = self._qp_draw() if cbp else 0
+        q = (self.qp + d + 52) % 52
+        scale = self.scale8[0 if intra else 1]
+        blocks = {}
+        for b8 in range(4):
+            if not cbp >> b8 & 1:
+                continue
+            v = self._fitted(64, lambda v: block8_fits(v, q, scale))
+            if not v.any():
+                v[0] = 1
+                if not block8_fits(v, q, scale):
+                    cbp &= ~(1 << b8)
+                    self.seen.add(("8x8 block dropped", 1))
+                    continue
+            blocks[b8] = v
+        e.cbp(m, cbp, intra)
+        if flag and cbp & 15:
+            e.transform8(m, True)
+        if cbp:
+            e.qp_delta(d)
+            self.qp = q
+            self.seen.add(("qp", q))
+        for b8, v in blocks.items():
+            self.seen.add(("8x8 block", intra))
+            e.block8(m, b8, v)
+        self._chroma(e, m, cbp >> 4, intra)
+
+    def _chroma(self, e, m, cbp_c, intra):
         qcs = [CHROMA_QP[min(max(self.qp + off, 0), 51)] for off in self.chroma_offsets]
+        scales = self.scale4[1:3] if intra else self.scale4[4:6]
         dcs = [[0] * 4, [0] * 4]
         if cbp_c:
             for c in range(2):
-                lv = self._fitted(4, lambda v: chroma_dc(v, qcs[c]) is not None)
+                lv = self._fitted(4, lambda v: chroma_dc(v, qcs[c], scales[c][0]) is not None)
                 e.block(m, 3, 0, 0, c, lv)
-                dcs[c] = chroma_dc(lv, qcs[c])
+                dcs[c] = chroma_dc(lv, qcs[c], scales[c][0])
         for c in range(2):
             for blk in range(4):
                 bx, by = blk % 2, blk // 2
-                tc = self._block(e, m, 4, bx, by, c, qcs[c], dcs[c][blk]) if cbp_c == 2 else 0
+                tc = self._block(e, m, 4, bx, by, c, qcs[c], dcs[c][blk], scales[c]) \
+                    if cbp_c == 2 else 0
                 self.tcc[m][c][by * 2 + bx] = tc
 
     def _mvd(self):
@@ -1581,7 +1936,8 @@ class Writer:
         for x, y, w, h in parts:
             for c in range(2):
                 e.mvd(m, x, y, w, h, c, self._mvd())
-        self._cbp_residual(e, m, False)
+        self._cbp_residual(e, m, False, allow8=all(w == 8 and h == 8 or w == 16 or h == 16
+                                                   for x, y, w, h in parts))
 
     def _b_mb(self, e, m, t):
         """A B macroblock other than B_Skip: B_Direct_16x16 ("direct"),
@@ -1593,7 +1949,7 @@ class Writer:
             e.mb_type_b(m, 0)
             self.direct[m] = 31
             self.seen.add(("mb_type B", 0))
-            self._cbp_residual(e, m, False)
+            self._cbp_residual(e, m, False, allow8=bool(self.p["direct8x8"]))
             return
         mb = 1 + int(rs.randint(3)) if t == "b16" else 4 + int(rs.randint(18)) if t == "b2" else 22
         e.mb_type_b(m, mb)
@@ -1634,7 +1990,9 @@ class Writer:
                 if mode >> l & 1:
                     for c in range(2):
                         e.mvd(m, x, y, w, h, c, self._mvd(), l)
-        self._cbp_residual(e, m, False)
+        # no partition below 8x8; a direct 8x8 block only with direct_8x8_inference_flag
+        allow8 = all(B_SUB[sb][1] == 0 if B_SUB[sb][0] else self.p["direct8x8"] for sb in subs)
+        self._cbp_residual(e, m, False, allow8=bool(allow8))
 
     def _ref_l(self, l):
         return int(self.rs.randint(self.nrefs_l[l])) if self.nrefs_l[l] > 1 else 0
@@ -1742,7 +2100,7 @@ def _make(kw: dict):
 def stream(name: str):
     """(params, NAL units a frame, sps, pps) of case ``name`` (made once);
     SEEN[name] is then the syntax the writer wrote."""
-    p, units, sps, pps, SEEN[name] = _make(CASES.get(name) or REFUSED[name][0])
+    p, units, sps, pps, SEEN[name] = _make(_params(name))
     return p, units, sps, pps
 
 
@@ -1762,9 +2120,16 @@ def build(name: str) -> bytes:
     return write(p, units, sps, pps)
 
 
+def _params(name: str) -> dict:
+    for table in (CASES, HIGH):
+        if name in table:
+            return table[name]
+    return (REFUSED.get(name) or HIGH_REFUSED[name])[0]
+
+
 def suffix(name: str) -> str:
     p = _defaults()
-    p.update(CASES.get(name) or REFUSED[name][0])
+    p.update(_params(name))
     return "." + p["container"]
 
 
@@ -1853,6 +2218,30 @@ def _scan(block):
     return [int(v) for v in block.reshape(16)[list(ZIGZAG)]]
 
 
+# The 8x8 inverse transform's basis (a column a coefficient; orthogonal)
+_CI8 = np.array([idct8_pass(list(1024 * np.eye(8, dtype=np.int64)[k])) for k in range(8)],
+                np.float64).T / 1024
+_LS8 = np.array([[[NORM_ADJUST8[m][_CLASS8[y & 3][x & 3]] * 16 for x in range(8)] for y in range(8)]
+                 for m in range(6)], np.int64)  # LevelScale8x8 of Flat_16
+
+
+def _levels8(res, q, intra):
+    """Levels (raster 8x8 blocks) and reconstructed residual of ``res``
+    ((..., 8, 8)) under Flat_16: each level the residual's projection on its
+    basis image in units of its dequantised step, rounded with a dead zone."""
+    step = (_LS8[q % 6] << (q // 6)) / 64.0 / 64.0  # a level's scaled coefficient / 64
+    norms = np.einsum("ij,ij->j", _CI8, _CI8)
+    proj = np.einsum("ai,...ab,bj->...ij", _CI8, res.astype(np.float64), _CI8)
+    lv = proj / (np.outer(norms, norms) * step)
+    lv = (np.sign(lv) * np.floor(np.abs(lv) + (1 / 3 if intra else 1 / 6))).astype(np.int64)
+    d = (lv * (_LS8[q % 6] << (q // 6)) + 32) >> 6
+    return lv, idct8(d)
+
+
+def _scan8(block):
+    return [int(v) for v in block.reshape(64)[list(ZIGZAG8)]]
+
+
 class _ClipWriter:
     """Codes whole pictures: an IDR picture whose first row of macroblocks
     is I_PCM and whose others are Intra16x16 vertical (chroma vertical),
@@ -1864,14 +2253,20 @@ class _ClipWriter:
     anchors are every third picture and the last, and the non-reference B
     pictures between them are predicted from the anchors on either side at
     zero motion with implicit weights (B_Bi_16x16, or B_Skip, whose
-    spatial direct prediction is the same, where nothing is coded)."""
+    spatial direct prediction is the same, where nothing is coded).  With
+    ``high`` (High profile, as x264's default with ``--cqm flat``): the IDR
+    picture's macroblocks below the first row are I_NxN with Intra8x8
+    vertical in each 8x8 block, and the luma residual of P and B
+    macroblocks uses the 8x8 transform."""
 
-    def __init__(self, h, w, qp, cabac=False, bframes=False):
-        self.h, self.w, self.qp, self.cabac = h, w, qp, cabac
+    def __init__(self, h, w, qp, cabac=False, bframes=False, high=False):
+        self.h, self.w, self.qp, self.cabac, self.high = h, w, qp, cabac, high
         self.mbw, self.mbh = -(-w // 16), -(-h // 16)  # the frame cropped from the coded size
         kw = dict(max_refs=2, vui=True, reorder=1, bipred=2) if bframes else dict(max_refs=1)
+        if high:
+            kw.update(transform_8x8=1)
         self.wr = Writer(size=(h, w), log2_max_frame_num=4, log2_max_poc_lsb=8, qp=(qp, qp),
-                         cabac=int(cabac), profile=77 if cabac else 66, **kw)
+                         cabac=int(cabac), profile=100 if high else 77 if cabac else 66, **kw)
         self.recon = None
         self.anchors = {}  # display index -> the reconstructed planes of an anchor
 
@@ -1903,6 +2298,10 @@ class _ClipWriter:
         coded = {}
         for c, n in ((0, 16), (1, 8), (2, 8)):
             pred = (self.anchors[prev][c] * w0 + self.anchors[nxt][c] * w1 + 32) >> 6
+            if c == 0 and self.high:
+                res = (planes[0] - pred).reshape(mbh, 2, 8, mbw, 2, 8).transpose(0, 3, 1, 4, 2, 5)
+                coded[0] = (_levels8(res, q, False)[0], None)
+                continue
             blk = _blocks(planes[c] - pred).reshape(mbh, n // 4, mbw, n // 4, 4, 4)
             lv, dc_lv, _ = _residual(blk.transpose(0, 2, 1, 3, 4, 5), q if c == 0 else CHROMA_QP[q],
                                      False, None if c == 0 else "chroma")
@@ -1932,6 +2331,8 @@ class _ClipWriter:
                     e.mvd(m, 0, 0, 16, 16, 0, 0, l)
                     e.mvd(m, 0, 0, 16, 16, 1, 0, l)
                 e.cbp(m, cbp_l | cbp_c << 4, False)
+                if self.high and cbp_l:
+                    e.transform8(m, True)
                 e.qp_delta(0)
                 self._blocks(e, m, ly, u, v, udc, vdc, cbp_l, cbp_c, False)
                 e.mb_end(m, m == st.nmb - 1)
@@ -1940,10 +2341,15 @@ class _ClipWriter:
     @staticmethod
     def _cbp(ly, u, v, udc, vdc):
         """(chroma, luma) coded_block_pattern of a macroblock's levels (the
-        luma part as an inter macroblock codes it)."""
+        luma part as an inter macroblock codes it; ``ly``: (4, 4, 4, 4)
+        4x4 blocks, or (2, 2, 8, 8) 8x8 blocks)."""
         cbp_c = 2 if (u.reshape(2, 2, 16)[..., 1:].any() or v.reshape(2, 2, 16)[..., 1:].any()) \
             else 1 if (udc.any() or vdc.any()) else 0
-        nz8 = [ly[2 * (k // 2):2 * (k // 2) + 2, 2 * (k % 2):2 * (k % 2) + 2].any() for k in range(4)]
+        if ly.shape[-1] == 8:
+            nz8 = [ly[k // 2, k % 2].any() for k in range(4)]
+        else:
+            nz8 = [ly[2 * (k // 2):2 * (k // 2) + 2, 2 * (k % 2):2 * (k % 2) + 2].any()
+                   for k in range(4)]
         return cbp_c, sum(1 << k for k in range(4) if nz8[k])
 
     def _blocks(self, e, m, ly, u, v, udc, vdc, cbp_l, cbp_c, intra16):
@@ -1951,7 +2357,11 @@ class _ClipWriter:
         blocks of Intra16x16, or the 4x4 blocks of each coded 8x8), chroma
         DC and AC."""
         st = self.wr
-        for blk in range(16):
+        if ly.shape[-1] == 8:  # the 8x8 transform
+            for b8 in range(4):
+                if cbp_l >> b8 & 1:
+                    e.block8(m, b8, _scan8(ly[b8 // 2, b8 % 2]))
+        for blk in range(16 if ly.shape[-1] == 4 else 0):
             bx, by = _blk_xy(blk)
             if intra16 and cbp_l:
                 st.tcl[m][by * 4 + bx] = e.block(m, 1, bx, by, 0, _scan(ly[by, bx])[1:])
@@ -1965,6 +2375,41 @@ class _ClipWriter:
                 bx, by = k % 2, k // 2
                 if cbp_c == 2:
                     st.tcc[m][c][by * 2 + bx] = e.block(m, 4, bx, by, c, _scan(pl[by, bx])[1:])
+
+    def _intra8_row(self, src, recon, my, q):
+        """The luma levels ((mbw, 2, 2, 8, 8)) of macroblock row ``my`` (below
+        the first) coded as Intra8x8 vertical, and its reconstruction into
+        ``recon``: each 8x8 block predicts from the filtered samples above it
+        (8.3.2.2.1; p[8..15, -1] from the macroblock above, or above right,
+        or the block above right, else p[7, -1] repeated; p[-1, -1] where the
+        block on the left is there), the top blocks of the row first."""
+        mbw, y0 = self.mbw, my * 16
+        lv = np.zeros((mbw, 2, 2, 8, 8), np.int64)
+        for by in range(2):
+            yy = y0 + 8 * by
+            above = recon[yy - 1]
+            for bx in range(2):
+                xs = np.arange(mbw) * 16 + 8 * bx
+                t = np.stack([above[xs + i] for i in range(8)], 1)  # p[0..7, -1]
+                if (bx, by) == (1, 1):
+                    right_ok = np.zeros(mbw, bool)
+                elif (bx, by) == (1, 0):
+                    right_ok = np.arange(mbw) < mbw - 1  # the macroblock above right
+                else:
+                    right_ok = np.ones(mbw, bool)
+                t8 = np.where(right_ok, above[np.minimum(xs + 8, recon.shape[1] - 1)], t[:, 7])
+                c = np.where(xs > 0, above[np.maximum(xs - 1, 0)], t[:, 0])  # p[-1, -1] or none
+                p = np.empty((mbw, 8), np.int64)
+                p[:, 0] = (c + 2 * t[:, 0] + t[:, 1] + 2) >> 2
+                p[:, 1:7] = (t[:, :6] + 2 * t[:, 1:7] + t[:, 2:8] + 2) >> 2
+                p[:, 7] = (t[:, 6] + 2 * t[:, 7] + t8 + 2) >> 2
+                pred = np.repeat(p[:, None, :], 8, 1)
+                blk = np.stack([src[yy:yy + 8, x:x + 8] for x in xs]) - pred
+                lv[:, by, bx], r = _levels8(blk, q, True)
+                out = np.clip(pred + r, 0, 255)
+                for k, x in enumerate(xs):
+                    recon[yy:yy + 8, x:x + 8] = out[k]
+        return lv
 
     def picture(self, bgr, i, fn=None):
         pad = ((0, self.mbh * 16 - self.h), (0, self.mbw * 16 - self.w), (0, 0))
@@ -2000,6 +2445,9 @@ class _ClipWriter:
                 coded[my] = []
                 for c, n in ((0, 16), (1, 8), (2, 8)):
                     y0 = my * n
+                    if c == 0 and self.high:
+                        coded[my].append((self._intra8_row(planes[0], recon[0], my, q), None))
+                        continue
                     pred = np.repeat(recon[c][y0 - 1:y0], n, 0)
                     res = planes[c][y0:y0 + n] - pred
                     blk = _blocks(res).reshape(n // 4, mbw, n // 4, 4, 4).transpose(1, 0, 2, 3, 4)
@@ -2013,6 +2461,13 @@ class _ClipWriter:
             ref = self.recon
             for c, n in ((0, 16), (1, 8), (2, 8)):
                 res = planes[c] - ref[c]
+                if c == 0 and self.high:
+                    lv, r = _levels8(res.reshape(mbh, 2, 8, mbw, 2, 8).transpose(0, 3, 1, 4, 2, 5),
+                                     q, False)
+                    recon[0] = np.clip(ref[0] + r.transpose(0, 2, 4, 1, 3, 5).reshape(res.shape),
+                                       0, 255)
+                    coded[0] = (lv, None)
+                    continue
                 blk = _blocks(res).reshape(mbh, n // 4, mbw, n // 4, 4, 4)
                 blk = blk.transpose(0, 2, 1, 3, 4, 5)
                 lv, dc_lv, r = _residual(blk, q if c == 0 else qc, False,
@@ -2040,13 +2495,25 @@ class _ClipWriter:
                 if idr:
                     (ly, ldc), (u, udc), (v, vdc) = coded[my]
                     ly, u, v = ly[mx], u[mx], v[mx]
-                    ldc, udc, vdc = ldc[mx], udc[mx], vdc[mx]
+                    ldc, udc, vdc = None if ldc is None else ldc[mx], udc[mx], vdc[mx]
                 else:
                     ly, u, v = (coded[c][0][my, mx] for c in range(3))
                     udc, vdc = coded[1][1][my, mx], coded[2][1][my, mx]
                     ldc = None
                 cbp_c, cbp_l = self._cbp(ly, u, v, udc, vdc)
-                if idr:
+                if idr and self.high:  # I_NxN, Intra8x8 vertical in each 8x8 block
+                    e.mb_start(m)
+                    e.mb_type_i(m, 0)
+                    st.kind[m] = "i4"
+                    e.transform8(m, True)
+                    st.i4[m][:] = 0
+                    for b8 in range(4):
+                        e.i4_mode(st._i4_pred(m, 2 * (b8 % 2), 2 * (b8 // 2)), 0)
+                    e.chroma_mode(m, 2)  # vertical
+                    e.cbp(m, cbp_l | cbp_c << 4, True)
+                    if cbp_l or cbp_c:
+                        e.qp_delta(0)
+                elif idr:
                     cbp_l = 15 if ly.reshape(4, 4, 16)[..., 1:].any() else 0
                     e.mb_start(m)
                     e.mb_type_i(m, 1 + 4 * cbp_c + (12 if cbp_l else 0))
@@ -2069,23 +2536,27 @@ class _ClipWriter:
                     e.mvd(m, 0, 0, 16, 16, 0, 0)
                     e.mvd(m, 0, 0, 16, 16, 1, 0)
                     e.cbp(m, cbp_l | cbp_c << 4, False)
+                    if self.high and cbp_l:
+                        e.transform8(m, True)
                     e.qp_delta(0)
-                self._blocks(e, m, ly, u, v, udc, vdc, cbp_l, cbp_c, idr)
+                self._blocks(e, m, ly, u, v, udc, vdc, cbp_l, cbp_c, idr and not self.high)
                 e.mb_end(m, m == st.nmb - 1)
         self.recon = recon
         self.anchors[i] = recon
         return [nal(3, 5 if idr else 1, e.finish())]
 
 
-def encode_clip(frames, qp: int = 30, cabac: bool = False, bframes: bool = False) -> bytes:
+def encode_clip(frames, qp: int = 30, cabac: bool = False, bframes: bool = False,
+                high: bool = False) -> bytes:
     """An MP4 of ``frames`` (BGR u8 of even sizes; coded at multiples of 16
     and cropped) as real pictures at QP ``qp`` (:class:`_ClipWriter`), in
     CAVLC (Constrained Baseline) or CABAC (Main profile): the same
     macroblocks and levels either way, so the same decoded frames.  With
     ``bframes`` (CABAC): I P B B, two B pictures between anchors, with
-    composition offsets, an edit list and num_reorder_frames 1."""
+    composition offsets, an edit list and num_reorder_frames 1.  With
+    ``high``: High profile (see :class:`_ClipWriter`)."""
     h, w = frames[0].shape[:2]
-    cw = _ClipWriter(h, w, qp, cabac, bframes)
+    cw = _ClipWriter(h, w, qp, cabac, bframes, high)
     p = _defaults()
     p.update(size=(h, w), idr=(0,))
     if not bframes:
@@ -2243,11 +2714,75 @@ for _i, (_k, _refs, _box) in enumerate((k, r, b) for k in C10 for r in (1, 3)
         refs_default=_refs, density=0.1, p_mix=dict(skip=3, p16=2, p8x8=1, intra=1))
 CABAC = [name for name, kw in CASES.items() if kw.get("cabac")]
 
+# High profile (profile_idc 100: the 8x8 transform, Intra8x8, scaling
+# lists, a chroma QP offset for each of Cb and Cr), 12 frames unless said
+# otherwise: tests/test_torch_h264_high.py holds them.  Codes of a scaling
+# list: None absent (its fall-back rule), "default" (useDefaultScalingMatrixFlag),
+# "explicit" (weights drawn in ``scale_range``).
+_HI = dict(frames=12, profile=100, transform_8x8=1)
+HIGH = {
+    # I pictures all I_8x8 (every mode whose neighbours exist, one to four
+    # slices: picture and slice edges), QPs 0-51, deblocking idc 0 and 2
+    "high_intra": dict(_HI, seed=60, cabac=1, intra=tuple(range(12)), i_mix=dict(i4=1), t8=1.0,
+                       slices=(1, 2, 4), qp=(0, 51), chroma_offset=-4, chroma_offset2=3,
+                       deblock=((0, 0, 0), (2, 3, -2), (0, -6, 6))),
+    # I_8x8 beside I_4x4, Intra16x16 and I_PCM in one picture, then P, QuickTime
+    "high_intra_mix": dict(_HI, seed=61, container="mov", intra=(0, 4, 8),
+                           i_mix=dict(pcm=1, i4=4, i16=2), t8=0.5, slices=(1, 2), qp=(12, 40)),
+    # P slices: 8x8-transform macroblocks beside 4x4 ones, P_8x8 whose
+    # sub-partitions forbid the flag, 3 references, AVI
+    "high_p": dict(_HI, seed=62, cabac=1, container="avi", inband=True, max_refs=3,
+                   refs_default=2, override=0.3, modify=0.3, mvd=16, qp=(10, 44),
+                   p_mix=dict(skip=3, p16=2, p16x8=2, p8x16=2, p8x8=4, intra=1),
+                   deblock=((0, 0, 0), (0, -3, 3), (1, 0, 0))),
+    # B slices with direct_8x8_inference_flag 1: B_Skip, B_Direct_16x16 and
+    # B_8x8 with direct sub-blocks beside 8x8-transform macroblocks, a
+    # reference-B pyramid, spatial and temporal direct; MP4 with ctts
+    "high_b": dict(_HI, seed=63, frames=26, cabac=1, bframes=3, pyramid=True, direct="mix",
+                   bipred=2, max_refs=4, refs_default=2, refs_l1=2, vui=True, reorder=2, mvd=12,
+                   qp=(16, 40)),
+    # SPS lists: explicit, use-default and absent (rule A) in one SPS
+    "high_sps_lists": dict(_HI, seed=64, max_refs=2, refs_default=2, qp=(14, 38),
+                           sps_scaling=("explicit", "default", None, "explicit", None, "default",
+                                        "explicit", "default")),
+    # an SPS whose flag is set with no list present: rule A gives the
+    # Default_* matrices (not Flat_16), CABAC in QuickTime
+    "high_sps_default": dict(_HI, seed=65, cabac=1, container="mov", qp=(16, 36),
+                             sps_scaling=(None,) * 8),
+    # PPS lists overriding the SPS's (rule B: an absent list takes the SPS's)
+    "high_pps_lists": dict(_HI, seed=66, container="avi", inband=True, qp=(14, 38),
+                           sps_scaling=("explicit", None, "explicit", "explicit", "default", None,
+                                        "explicit", "explicit"),
+                           pps_scaling=(None, "explicit", None, "default", None, "explicit", None,
+                                        "explicit")),
+    # PPS lists under an SPS without lists (rule A again), wide weights
+    "high_pps_only": dict(_HI, seed=67, cabac=1, qp=(10, 40), scale_range=(2, 96),
+                          pps_scaling=("explicit", "explicit", None, None, "explicit", "default",
+                                       "explicit", None)),
+    # second_chroma_qp_index_offset apart from the first at QPs 0-51; no 8x8
+    # transform, the PPS's six 4x4 lists (the 8x8 ones stay the SPS's)
+    "high_chroma_qp": dict(_HI, seed=68, transform_8x8=0, container="avi", strf=True,
+                           qp=(0, 51), chroma_offset=9, chroma_offset2=-12,
+                           pps_scaling=("explicit", "explicit", "explicit", None, None, None)),
+    # QPs 0-51 and large levels: the 8x8 blocks' intermediates up to the
+    # 16-bit limits the writer keeps
+    "high_limits": dict(_HI, seed=69, cabac=1, qp=(0, 51), density=0.9, big=0.4, t8=1.0,
+                        max_refs=2, refs_default=2, mvd=12,
+                        p_mix=dict(skip=1, p16=3, p8x8=1, intra=2)),
+    # Main profile (constraint_set1) whose PPS carries the High fields
+    # (transform_8x8_mode_flag 1, lists, a second chroma offset): FFmpeg
+    # reads none of them, and the slices are coded without them
+    "main_pps_ext": dict(frames=12, seed=70, profile=77, pps_ext=True, chroma_offset=4,
+                         chroma_offset2=-8, qp=(16, 36), i_mix=dict(i4=3, i16=1),
+                         pps_scaling=("explicit",) * 8),
+}
+HIGH_CABAC = [name for name, kw in HIGH.items() if kw.get("cabac")]
+
 
 def twin(name: str) -> dict:
     """The CAVLC twin of CABAC case ``name``: the same draws from the same
     seed, so the same macroblocks and the same decoded frames."""
-    return dict(CASES[name], cabac=0)
+    return dict(CASES.get(name) or HIGH[name], cabac=0)
 
 # name -> (stream keywords, the words the refusal names); 6 frames each
 REFUSED = {
@@ -2256,19 +2791,15 @@ REFUSED = {
     "redundant": (dict(frames=6, redundant=1), "redundant pictures"),
     "chroma_422": (dict(frames=6, profile=122, chroma_format=2), "chroma_format_idc 2"),
     "bit_depth_10": (dict(frames=6, profile=110, bit_depth=10), "bit depth 10"),
-    "transform_8x8": (dict(frames=6, profile=100, transform_8x8=1), "8x8 transform"),
     "constrained_intra": (dict(frames=6, constrained_intra=1), "constrained_intra_pred"),
     "poc_type_1": (dict(frames=6, poc_type=1), "pic_order_cnt_type 1"),
     "sp_slices": (dict(frames=6, slice_types=(3,), idr=(0,)), "SP and SI slices"),
     "slice_order": (dict(frames=6, aso=True, slices=(3,)), "arbitrary slice order"),
-    "scaling_matrix": (dict(frames=6, profile=100, scaling=True), "scaling matrices"),
     "frame_num_gap": (dict(frames=6, gap_at=5, gaps=1), "gaps in frame_num"),
     "long_term": (dict(frames=6, long_term=1), "long-term reference pictures"),
     "mmco5": (dict(frames=6, mmco5_at=4), "memory_management_control_operation 5"),
     "data_partitioning": (dict(frames=6, partition_at=3), "data partitioning"),
     # what Main and High profile files hold beyond what is decoded, under CABAC
-    "cabac_transform_8x8": (dict(frames=6, profile=100, cabac=1, transform_8x8=1),
-                            "8x8 transform"),
     "cabac_mbaff": (dict(frames=6, profile=77, cabac=1, frame_mbs_only=0, mbaff=1), "MBAFF"),
     # what stays refused inside B slices: a long-term picture named in list 1
     "b_long_term_l1": (dict(frames=6, profile=77, bframes=1, idr=(0,), l1_long_term=True),
@@ -2278,13 +2809,24 @@ REFUSED = {
 }
 
 
-def _reads(n):
+# what High profile allows beyond what is decoded (tests/test_torch_h264_high.py)
+HIGH_REFUSED = {
+    "monochrome": (dict(frames=6, profile=100, chroma_format=0), "monochrome"),
+}
+
+
+def seeks(name: str):
+    """The start_frame and ui seek targets PINNED holds for ``name``."""
+    return CLIP_SEEKS if name.endswith("_720p") else SEEKS
+
+
+def _reads(n, targets=SEEKS):
     """The reads PINNED holds for a clip of ``n`` frames that shows them in
     turn: frame ids index the frames a read from the start gives, and every
     start_frame and ui seek to k (made once 2 frames were read) reads on
     from frame k."""
     ids = tuple(range(n))
-    after = {k: ids[k:k + READ_AFTER_SEEK] for k in SEEKS}
+    after = {k: ids[k:k + READ_AFTER_SEEK] for k in targets}
     return dict(order=ids, start=after, ui=dict(after))
 
 
@@ -2430,3 +2972,30 @@ PINNED = {
 PINNED["h264_cabac_720p"] = PINNED["h264_720p"]  # the same frames, coded with CABAC
 PINNED["h264_b_720p"] = dict(count=8, fps=25.0,
                              sha256="5b0d4bdf69f2eb327bc6494324784c57dee8e5a05cc52812b27c96a9ddea6041")
+# the High profile cases and clip (tests/test_torch_h264_high.py)
+PINNED.update({
+    "high_intra": dict(count=12, fps=25.0, **_reads(12),
+                sha256="36bd2db2506aaa85ab789e3a3e4572f9276cd1c59c7ec9b0347beef4b1097a6b"),
+    "high_intra_mix": dict(count=12, fps=25.0, **_reads(12),
+                sha256="a889c267887eee22396433bec1b58e4618847695849067f367a5269c11791dac"),
+    "high_p": dict(count=12, fps=25.0, **_reads(12),
+                sha256="4c71d79973513f9cfb5eeac252a23d93bdaaf39dd79a3f09421376dc44584606"),
+    "high_b": dict(count=26, fps=25.0, **_reads(26),
+                sha256="c48530ff79c9162d8abc0d0a18efed0e5556728094af2e9c9855f4e4e3e85e76"),
+    "high_sps_lists": dict(count=12, fps=25.0, **_reads(12),
+                sha256="5caf47b30b8b05406bf7d7ba0c27ae0b334c8b15036b2ccb22646056fee5fae3"),
+    "high_sps_default": dict(count=12, fps=25.0, **_reads(12),
+                sha256="bf5157c18e82b5b0a35f4249f2fd897c94adb9a24bcdd4331af37970fabcce03"),
+    "high_pps_lists": dict(count=12, fps=25.0, **_reads(12),
+                sha256="68e6b0b3b5308c32d95ff047a6860c54b3b65b6bf9da11d97b3ca53005d31cfc"),
+    "high_pps_only": dict(count=12, fps=25.0, **_reads(12),
+                sha256="1a5f934e30d9784512f70d8ae48f14f19d1bd533ddfda4ad68d48116ed92be36"),
+    "high_chroma_qp": dict(count=12, fps=25.0, **_reads(12),
+                sha256="2f11f3b43c74d0b31afb9ed8259dfe9b4d900bdae753b21d61b2da505dc19a8e"),
+    "main_pps_ext": dict(count=12, fps=25.0, **_reads(12),
+                sha256="dfe9103a8d203483526680b22892cb15e37aa07f10970f465b1db9138e20866e"),
+    "high_limits": dict(count=12, fps=25.0, **_reads(12),
+                sha256="ebf06d0a2a45e7c17afb600c1042ae4015591ba3b9a6b418855aea85885a68c5"),
+    "h264_high_720p": dict(count=8, fps=25.0, **_reads(8, CLIP_SEEKS),
+                sha256="f3d72e9cf69231747994bd7b7aa39c04715ddc7fed02344c054e4fc248fba6ed"),
+})
