@@ -1089,7 +1089,7 @@ struct Decoder {
         } else if (have_prev) {
             check_gap(s, prev_ref_frame_num);
         } else {
-            grey_references(s.frame_num);
+            grey_references(s);
         }
         cur = new_picture(0);
         cur->frame_num = s.frame_num;
@@ -1151,7 +1151,14 @@ struct Decoder {
     // max_num_ref_frames grey reference pictures with the frame_nums before
     // it, each marked by the sliding window.  They share one buffer (each a
     // copy of the one before), so deblocking sees one reference picture.
-    void grey_references(int frame_num) {
+    // Each takes the slice's type (h264_frame_start), and its marking applies
+    // the I picture heuristic to it: before an I picture whose PPS takes one
+    // reference, what follows counts as recovered, a recovery point SEI read
+    // before notwithstanding (measured against FFmpeg: a Matroska seek onto
+    // such a picture in a stream cut at a recovery point shows it).
+    void grey_references(const SliceHeader& s) {
+        const int frame_num = s.frame_num;
+        const Pps& p = pps[s.pps_id];
         const int max_fn = 1 << cs->log2_max_frame_num;
         int prev = -1;
         if (frame_num - prev > cs->max_refs) {
@@ -1176,6 +1183,9 @@ struct Decoder {
             refs.push_back(g);
             grey_refs = true;
             if (!cs->gaps_allowed) reset_pocs();
+            if (s.type == 2 && p.num_ref_idx_default <= 1 && !has_b_frames &&
+                ((int)refs.size() <= 2 || p.num_ref_idx_l1_default <= 1))
+                frame_recovered |= 4;
         }
     }
 

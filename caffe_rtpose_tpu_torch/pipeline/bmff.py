@@ -238,11 +238,7 @@ def _track(f, a, b, mdia, movie_scale) -> Track:
             oti, extra = _esds(entry[pos + 8:pos + n])
         elif typ == b"avcC" and fourcc in ("avc1", "avc3"):
             extra = entry[pos + 8:pos + n]
-            if len(extra) < 7 or extra[0] != 1:
-                raise BmffError("an avcC record of another version")
-            nal_length = (extra[4] & 3) + 1
-            if nal_length == 3:
-                raise BmffError("avcC lengthSizeMinusOne 2")
+            nal_length = avcc_nal_length(extra)
         pos += n
     ctts = _table(f, box.get("ctts"), "Ii")  # signed, as libavformat reads both versions
     if ctts and any(off for _, off in ctts) and fourcc not in ("avc1", "avc3"):
@@ -312,6 +308,16 @@ def _track(f, a, b, mdia, movie_scale) -> Track:
         start = samples[0].pts  # the stream's start_time: its first sample's pts
         delay = _video_delay([s.pts for s in samples])
     return Track(fourcc, scale, fps, count, samples, extra, oti, start, nal_length, delay)
+
+
+def avcc_nal_length(record: bytes) -> int:
+    """The NAL length size of an AVCDecoderConfigurationRecord (avcC)."""
+    if len(record) < 7 or record[0] != 1:
+        raise BmffError("an avcC record of another version")
+    nal_length = (record[4] & 3) + 1
+    if nal_length == 3:
+        raise BmffError("avcC lengthSizeMinusOne 2")
+    return nal_length
 
 
 def _video_delay(pts: List[int]) -> int:

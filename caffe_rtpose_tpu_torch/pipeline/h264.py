@@ -28,11 +28,12 @@ import ctypes
 import os
 import shutil
 import threading
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
 from .. import _build
+from .matroska import reduce
 
 SRC = os.path.join(_build.CSRC_DIR, "h264_video.cpp")
 FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
@@ -165,3 +166,92 @@ class H264Decoder:
 
     def __del__(self):
         self.close()
+
+
+_HIGH_PROFILES = (100, 110, 122, 244, 44, 83, 86, 118, 128, 138, 139, 134, 135)
+
+
+def sps_frame_rate(nal: bytes) -> Optional[Tuple[int, int]]:
+    """The frame rate FFmpeg's ``h264`` decoder gives the stream from an SPS
+    NAL unit's VUI timing (``avctx->framerate``: time_scale / (2 x
+    num_units_in_tick), reduced); None where the SPS has no timing."""
+    rbsp = bytearray()
+    zeros = 0
+    for b in nal[1:]:
+        if zeros >= 2 and b == 3:
+            zeros = 0
+            continue
+        zeros = zeros + 1 if b == 0 else 0
+        rbsp.append(b)
+    bits, left = int.from_bytes(rbsp, "big"), 8 * len(rbsp)
+
+    def u(n: int) -> int:
+        nonlocal left
+        left -= n
+        if left < 0:
+            raise ValueError("an SPS cut short")
+        return (bits >> left) & ((1 << n) - 1)
+
+    def ue() -> int:
+        n = 0
+        while not u(1):
+            n += 1
+        return (1 << n) - 1 + u(n)
+
+    def se() -> int:
+        v = ue()
+        return (v + 1) // 2 if v & 1 else -(v // 2)
+
+    try:
+        profile = u(8)
+        u(16)
+        ue()
+        chroma = 1
+        if profile in _HIGH_PROFILES:
+            chroma = ue()
+            if chroma == 3:
+                u(1)
+            ue(), ue(), u(1)
+            if u(1):  # seq_scaling_matrix_present_flag
+                for i in range(8 if chroma != 3 else 12):
+                    if u(1):
+                        last = nxt = 8
+                        for _ in range(16 if i < 6 else 64):
+                            if nxt:
+                                nxt = (last + se() + 256) % 256
+                            last = nxt or last
+        ue()
+        poc_type = ue()
+        if poc_type == 0:
+            ue()
+        elif poc_type == 1:
+            u(1), se(), se()
+            for _ in range(ue()):
+                se()
+        ue(), u(1), ue(), ue()
+        if not u(1):  # frame_mbs_only_flag
+            u(1)
+        u(1)
+        if u(1):  # frame_cropping_flag
+            ue(), ue(), ue(), ue()
+        if not u(1):  # vui_parameters_present_flag
+            return None
+        if u(1) and u(8) == 255:  # aspect_ratio_idc: Extended_SAR
+            u(32)
+        if u(1):
+            u(1)
+        if u(1):  # video_signal_type_present_flag
+            u(4)
+            if u(1):  # colour_description_present_flag
+                u(24)
+        if u(1):
+            ue(), ue()
+        if not u(1):  # timing_info_present_flag
+            return None
+        ticks, scale = u(32), u(32)
+    except ValueError:
+        return None
+    if not ticks or not scale:
+        return None
+    den, num = reduce(2 * ticks, scale, 1 << 30)
+    return num, den

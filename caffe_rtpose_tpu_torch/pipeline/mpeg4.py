@@ -19,9 +19,10 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import threading
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -129,3 +130,46 @@ class Mpeg4Decoder:
 
     def __del__(self):
         self.close()
+
+
+def vol_frame_rate(headers: bytes) -> Optional[Tuple[int, int]]:
+    """The frame rate FFmpeg's ``mpeg4`` decoder gives the stream from the
+    first VOL header in ``headers`` (``avctx->framerate``):
+    (vop_time_increment_resolution, fixed_vop_time_increment, or 1 where
+    the VOP rate is not fixed); None where there is no VOL header."""
+    m = re.search(rb"\x00\x00\x01[\x20-\x2f]", headers)
+    if m is None:
+        return None
+    head = headers[m.end():m.end() + 32]
+    bits, left = int.from_bytes(head, "big"), 8 * len(head)
+
+    def u(n: int) -> int:
+        nonlocal left
+        left -= n
+        if left < 0:
+            raise ValueError("a VOL header cut short")
+        return (bits >> left) & ((1 << n) - 1)
+
+    try:
+        u(9)  # random_accessible_vol, video_object_type_indication
+        version = 1
+        if u(1):  # is_object_layer_identifier
+            version = u(4)
+            u(3)
+        if u(4) == 15:  # aspect_ratio_info: extended PAR
+            u(16)
+        if u(1):  # vol_control_parameters
+            u(3)
+            if u(1):  # vbv_parameters
+                u(79)
+        shape = u(2)
+        if shape == 3 and version != 1:
+            u(4)
+        u(1)
+        resolution = u(16)
+        u(1)
+        if not resolution:
+            return None
+        return resolution, u(max(1, (resolution - 1).bit_length())) if u(1) else 1
+    except ValueError:
+        return None

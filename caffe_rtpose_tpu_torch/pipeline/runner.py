@@ -87,8 +87,8 @@ def open_video(path: str):
     """The ``--video`` source: through the port's readers where they take it
     (``video.open_reader``: a printf image sequence such as ``f_%03d.jpg``
     of JPEG, PNG, BMP or PNM files, or one such image; AVI, then
-    MP4/QuickTime of Motion-JPEG, MPEG-4 Part 2 or H.264 Main profile),
-    cv2 or not; any other
+    MP4/QuickTime, then Matroska/WebM of Motion-JPEG, MPEG-4 Part 2 or
+    H.264 Constrained Baseline, Main or High profile), cv2 or not; any other
     video or sequence through ``cv2.VideoCapture`` (behind the same
     methods), or without ``cv2`` a RuntimeError naming ``--video``, the
     file and why (its container and fourcc and any refused feature, or the

@@ -1,17 +1,18 @@
 """Video files read on the host without OpenCV: AVI (the RIFF container
-walked with ``struct``) and MP4/QuickTime (ISO BMFF, ``bmff.py``), their
-Motion-JPEG frames decoded by the port's JPEG codec (``jpeg.py``), their
-MPEG-4 Part 2 frames by the port's MPEG-4 decoder (``mpeg4.py``) and their
-H.264 frames by the port's H.264 decoder (``h264.py``: High, Main and
-Constrained Baseline profiles, 4:2:0 8-bit progressive, I, P and B slices,
-CAVLC or CABAC, the 4x4 and 8x8 transforms and scaling matrices).
+walked with ``struct``), MP4/QuickTime (ISO BMFF, ``bmff.py``) and
+Matroska/WebM (EBML, ``matroska.py``), their Motion-JPEG frames decoded by
+the port's JPEG codec (``jpeg.py``), their MPEG-4 Part 2 frames by the
+port's MPEG-4 decoder (``mpeg4.py``) and their H.264 frames by the port's
+H.264 decoder (``h264.py``: High, Main and Constrained Baseline profiles,
+4:2:0 8-bit progressive, I, P and B slices, CAVLC or CABAC, the 4x4 and 8x8
+transforms and scaling matrices).
 
 The readers have what ``runner.frame_source`` uses of ``cv2.VideoCapture``
 and give, for the same file, what the JAX package's reader gives:
 ``cv2.VideoCapture(path)`` with no backend named, which opens these files
-through FFMPEG (libavformat's AVI and ``mov`` demuxers, libavcodec's
-``mjpeg``, ``mpeg4`` and ``h264`` decoders).  :func:`open_reader` tries AVI, then
-ISO BMFF.
+through FFMPEG (libavformat's AVI, ``mov`` and ``matroska`` demuxers,
+libavcodec's ``mjpeg``, ``mpeg4`` and ``h264`` decoders).
+:func:`open_reader` tries AVI, then ISO BMFF, then Matroska.
 
 * **Frames** (:class:`AviReader`): the chunks of the first video stream
   (``NNdc``/``NNdb``) in file order, through every ``movi`` list, OpenDML's
@@ -21,14 +22,20 @@ ISO BMFF.
   its scan is a frame, as FFMPEG's decoder ends a scan without EOI; cut
   before its scan, it ends the read.  (:class:`Mp4Reader`): the samples of
   the first video track, after its edit list (``bmff.py``).
+  (:class:`MkvReader`): the blocks of the first video track (TrackType 1)
+  in file order, laces split and ContentEncoding (header stripping, zlib)
+  undone; a block the end of the file cuts ends the read, and a block of a
+  track no TrackEntry declares drops the rest of its Cluster, as in
+  libavformat (``matroska.py``).
 * **The AVI index**: OpenDML's ``indx`` and its ``ix##`` chunks, else
   ``idx1`` (offsets relative to ``movi`` or absolute, told apart as
   libavformat's ``avi_read_idx1`` does: the first entry is moved onto the
   first chunk of ``movi``), then a scan on from the last indexed chunk.
   With no index, or with an entry that does not point at a chunk of the
   stream and its size, the ``movi`` lists are scanned.  Key frames: the
-  index's AVIIF_KEYFRAME, or ``stss`` in MP4; a scanned MPEG-4 chunk is a
-  key frame where it holds an I-VOP, a scanned H.264 chunk where it holds
+  index's AVIIF_KEYFRAME, or ``stss`` in MP4, or the block's key flag (a
+  BlockGroup without ReferenceBlock) in Matroska; a scanned MPEG-4 chunk is
+  a key frame where it holds an I-VOP, a scanned H.264 chunk where it holds
   an IDR slice.
 * **Pixels**: Motion-JPEG: FFmpeg's ``mjpeg`` decoder and swscale's
   conversion (``jpeg.MjpegDecoder``), equal to cv2's frames bit for bit for
@@ -45,33 +52,43 @@ ISO BMFF.
   order and delay (a picture may come out after later packets, and the
   pictures held back come out at the end), starting from the delay
   OpenCV's decoder is opened with (MP4: libavformat's estimate from
-  ``ctts``; AVI: what avformat_find_stream_info's decode of the first
-  packets reached); from the start and after a seek, pictures show from
-  where FFmpeg's do (an IDR picture, a recovery point SEI, or an I picture
-  with few references); a packet that does not decode raises ValueError
-  (no concealment).  Frame numbers (for seeks) come from each picture's
-  own pts in MP4, and in AVI, whose packets carry none, from the dts of
-  the packet whose decode gave the picture, as OpenCV takes them.
+  ``ctts``; AVI and Matroska: what avformat_find_stream_info's decode of
+  the first packets reached); from the start and after a seek, pictures
+  show from where FFmpeg's do (an IDR picture, a recovery point SEI, or an
+  I picture with few references); a packet that does not decode raises
+  ValueError (no concealment).  Frame numbers (for seeks) come from each
+  picture's own pts in MP4 and Matroska, and in AVI and Matroska's
+  ``V_MS/VFW/FOURCC``, whose packets carry none, from the dts of the packet
+  whose decode gave the picture, as OpenCV takes them.
 * **fps**: AVI: the stream header's dwRate / dwScale (libavformat's
   fallbacks where either is 0); MP4: the track's average frame rate;
+  Matroska: 1e9 / DefaultDuration, or without it the rate
+  avformat_find_stream_info finds (``matroska.frame_rate``);
   ``CAP_PROP_FPS``.  **frame_count**: dwLength, or the track's sample
-  count, ``CAP_PROP_FRAME_COUNT``.
+  count, or Matroska's Duration times fps, rounded (negative without a
+  Duration), ``CAP_PROP_FRAME_COUNT``.
 * **set_pos(i)**: OpenCV's ``CvCapture_FFMPEG::seek`` over libavformat's
   index (:meth:`_Reader.set_pos`): frame i on a file without zero-length,
-  broken or not-coded frames, and past the end, the end of the stream.
+  broken or not-coded frames, and past the end, the end of the stream;
+  Matroska's index is its Cues and every key frame's Cluster
+  (:meth:`MkvReader._seek_pts`).
 
 Anything else raises :class:`UnsupportedVideo`, naming the file, its
-container and the video stream's fourcc, and the feature where one is
-refused: other codecs, the MPEG-4 features ``mpeg4.py`` refuses, the
-H.264 features ``h264.py`` refuses (checked in the parameter sets and the
-slice headers of the first packets when the file opens), the MP4 layouts
-``bmff.py`` refuses, Matroska.  ``runner.open_video`` hands those
-to OpenCV where it is installed.
+container and the video stream's fourcc (Matroska: its CodecID), and the
+feature where one is refused: other codecs (VP8, VP9, AV1, HEVC, FFV1,
+Theora, MPEG-1/2, ProRes, ...), the MPEG-4 features ``mpeg4.py`` refuses,
+the H.264 features ``h264.py`` refuses (checked in the parameter sets and
+the slice headers of the first packets when the file opens), the MP4
+layouts ``bmff.py`` refuses, the Matroska features ``matroska.py`` refuses,
+H.264 with B pictures in ``V_MS/VFW/FOURCC`` (libavformat guesses those
+pictures' timestamps).  ``runner.open_video`` hands those to OpenCV where
+it is installed.
 """
 
 from __future__ import annotations
 
 import bisect
+import math
 import os
 import re
 import struct
@@ -79,12 +96,12 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from . import bmff
+from . import bmff, matroska
 from .bmff import Sample
 from .image_io import decode_bmp, decode_png, decode_pnm, image_format
 from .jpeg import MjpegDecoder
-from .h264 import H264Decoder, H264Unsupported
-from .mpeg4 import Mpeg4Decoder, Mpeg4Unsupported
+from .h264 import H264Decoder, H264Unsupported, sps_frame_rate
+from .mpeg4 import Mpeg4Decoder, Mpeg4Unsupported, vol_frame_rate
 
 MJPEG_FOURCCS = (b"MJPG", b"mjpg")
 # AVI fourccs libavformat maps to the mpeg4 decoder (ff_codec_bmp_tags,
@@ -96,6 +113,11 @@ MPEG4_FOURCCS = ("FMP4", "DIVX", "DX50", "XVID", "XVIX", "MP4S", "M4S2", "MP4V",
 H264_FOURCCS = ("H264", "X264", "AVC1", "DAVC", "SMV2", "VSSH", "Q264", "V264", "GAVC", "UMSV",
                 "TSHD", "INMX")
 BMFF_CODECS = {"mp4v": "mpeg4", "jpeg": "mjpeg", "avc1": "h264", "avc3": "h264"}
+# Matroska CodecIDs libavformat maps to the decoders the port has
+MKV_CODECS = {"V_MPEG4/ISO/AVC": "h264", "V_MPEG4/ISO/ASP": "mpeg4", "V_MPEG4/ISO/SP": "mpeg4",
+              "V_MPEG4/ISO/AP": "mpeg4", "V_MJPEG": "mjpeg"}
+MKV_VFW = "V_MS/VFW/FOURCC"  # CodecPrivate: a BITMAPINFOHEADER, as in AVI
+EBML_MAGIC = b"\x1a\x45\xdf\xa3"
 _VOP = b"\x00\x00\x01\xb6"
 _PROBE_PACKETS = 64  # packets whose VOP type is checked when a file opens
 _REFUSED_VOPS = {2: "B-VOPs (bidirectional prediction)",
@@ -116,6 +138,16 @@ class UnsupportedVideo(RuntimeError):
     """A video the port's reader does not decode (it needs OpenCV)."""
 
 
+def _bmp_codec(fourcc: bytes) -> Optional[str]:
+    """The decoder libavformat's ff_codec_bmp_tags give a BITMAPINFOHEADER's
+    compression fourcc (AVI's ``strf``, Matroska's ``V_MS/VFW/FOURCC``),
+    where the port has it."""
+    if fourcc in MJPEG_FOURCCS:
+        return "mjpeg"
+    name = fourcc.decode("latin-1").upper()
+    return "mpeg4" if name in MPEG4_FOURCCS else "h264" if name in H264_FOURCCS else None
+
+
 def _fourcc(b: Optional[bytes]) -> str:
     if not b:
         return "unknown"
@@ -126,7 +158,8 @@ def _fourcc(b: Optional[bytes]) -> str:
 def sniff(path: str) -> Tuple[str, str]:
     """(container, video fourcc or codec id) of a video file, for messages:
     RIFF AVI (strf's compression), ISO BMFF (the first ``vide`` track's
-    sample entry), Matroska (the first ``V_`` CodecID) or unknown."""
+    sample entry), Matroska or WebM (the first video track's CodecID, or
+    the first ``V_`` CodecID where the headers do not parse) or unknown."""
     with open(path, "rb") as f:
         head = f.read(1 << 20)
     if head[:4] == b"RIFF":
@@ -137,9 +170,14 @@ def sniff(path: str) -> Tuple[str, str]:
         with open(path, "rb") as f:
             fourcc = bmff.video_fourcc(f, os.fstat(f.fileno()).st_size)
         return "ISO BMFF (MP4/QuickTime)", _fourcc(fourcc.encode("latin-1") if fourcc else None)
-    if head[:4] == b"\x1a\x45\xdf\xa3":
-        m = re.search(rb"\x86[\x81-\xbf](V_[\x21-\x7e]*)", head)
-        return "Matroska", m.group(1).decode() if m else "unknown"
+    if head[:4] == EBML_MAGIC:
+        with open(path, "rb") as f:
+            doc, codec_id = matroska.video_codec(f, os.fstat(f.fileno()).st_size)
+        if codec_id is None:
+            m = re.search(rb"\x86([\x81-\xbf])(?=V_)", head)
+            codec_id = (head[m.end():m.end() + (m.group(1)[0] & 0x3F)].decode("latin-1")
+                        if m else "unknown")
+        return ("WebM (Matroska)" if doc == "webm" else "Matroska"), codec_id
     return "unknown", "unknown"
 
 
@@ -148,18 +186,19 @@ _BMFF_TOP = (b"ftyp", b"moov", b"mdat", b"free", b"wide", b"skip")
 
 def _unsupported(path: str, why: str) -> UnsupportedVideo:
     container, fourcc = sniff(path)
+    label = "CodecID" if "Matroska" in container else "fourcc"
     return UnsupportedVideo(
-        f"{path}: {container} container, video fourcc {fourcc}: {why}; without OpenCV the "
+        f"{path}: {container} container, video {label} {fourcc}: {why}; without OpenCV the "
         f"port reads Motion-JPEG, MPEG-4 Part 2 (Simple Profile, I/P) and H.264 "
         f"(High, Main and Constrained Baseline profiles, 4:2:0 8-bit progressive, I/P/B) in AVI, "
-        f"MP4 and QuickTime, so this file needs OpenCV (cv2)")
+        f"MP4, QuickTime and Matroska (MKV), so this file needs OpenCV (cv2)")
 
 
 def open_reader(path: str) -> "_Reader":
     """The port's reader of ``path``: a printf image sequence where the path
     is a pattern (:func:`sequence_filename`) that names no file itself,
-    else by the file's signature AVI, ISO BMFF, or one image
-    (:class:`SequenceReader`).  OSError where the file (or the sequence's
+    else by the file's signature AVI, ISO BMFF, Matroska (EBML), or one
+    image (:class:`SequenceReader`).  OSError where the file (or the sequence's
     first file) cannot be read, UnsupportedVideo where no reader takes it."""
     if sequence_filename(path, 0) is not None and not os.path.exists(path):
         return SequenceReader(path)
@@ -169,13 +208,16 @@ def open_reader(path: str) -> "_Reader":
         return AviReader(path)
     if head[4:8] in _BMFF_TOP:
         return Mp4Reader(path)
+    if head[:4] == EBML_MAGIC:
+        return MkvReader(path)
     if image_format(head) in SequenceReader.FORMATS:
         return SequenceReader(path)
-    raise _unsupported(path, "not an AVI, MP4 or QuickTime file, nor an image the port reads")
+    raise _unsupported(path, "not an AVI, MP4, QuickTime or Matroska file, nor an image the "
+                             "port reads")
 
 
 class _Reader:
-    """What the AVI and MP4 readers share: the frame list, the decoders,
+    """What the AVI, MP4 and Matroska readers share: the frame list, the decoders,
     reads and seeks.  A subclass's ``_parse`` sets ``frames``, ``fps``,
     ``frame_count``, ``codec`` ("mjpeg", "mpeg4" or "h264"), ``fourcc``,
     ``_time_base`` (seconds a pts unit), ``_start_time`` (the stream's
@@ -186,6 +228,9 @@ class _Reader:
     _header_bytes = 0  # bytes before a frame's data at its pos
     _seek_before_first_to_start = False  # mov: a seek before the first entry lands on it
     _number_by_trigger = False  # H.264 pictures numbered by the packet that gave them (AVI)
+    # H.264: packets avformat_find_stream_info may decode for the output
+    # delay the decoder starts with (0: the container gives the delay)
+    _probe_packets = 0
 
     def __init__(self, path: str):
         self.path = path
@@ -227,6 +272,11 @@ class _Reader:
         f = self.frames[i]
         return self._read(f.pos + self._header_bytes, f.size)
 
+    def _head(self, i: int, n: int) -> bytes:
+        """The first ``n`` bytes of frame ``i``."""
+        f = self.frames[i]
+        return self._read(f.pos + self._header_bytes, min(f.size, n))
+
     def _open_mpeg4(self) -> None:
         """The decoder, given the VOL headers (the esds's, or those before
         the first VOP of the first frame); the VOP types of the first
@@ -238,8 +288,8 @@ class _Reader:
             extra = first[:at] if at >= 0 else first
         try:
             self._decoder = Mpeg4Decoder(extra, self.fourcc, self.path)
-            for f in self.frames[:_PROBE_PACKETS]:
-                head = self._read(f.pos + self._header_bytes, min(f.size, 256))
+            for i in range(min(len(self.frames), _PROBE_PACKETS)):
+                head = self._head(i, 256)
                 at = head.find(_VOP)
                 refused = _REFUSED_VOPS.get(head[at + 4] >> 6) if 0 <= at < len(head) - 4 else None
                 if refused:
@@ -254,7 +304,7 @@ class _Reader:
         packets; the parameter sets and slice headers of the first packets
         are checked so that refused features are refused here."""
         try:
-            if self._number_by_trigger:
+            if self._probe_packets:
                 self._video_delay = self._probe_delay()
             self._decoder = H264Decoder(self._extra, self._nal_length, self.path,
                                         self._video_delay)
@@ -266,16 +316,17 @@ class _Reader:
             raise _unsupported(self.path, f"H.264 headers do not decode: {e}") from None
 
     def _probe_delay(self) -> int:
-        """The output delay avformat_find_stream_info leaves an AVI's H.264
-        stream: it reads on (the time base of H.264 counts as unreliable, so
-        it looks for 40 frame durations) and decodes packets until it has
-        had 7 pictures (18 once the delay is 3, 20 from 4) or the end, and
-        the decoder OpenCV opens starts with the delay that decode reached.
-        A packet that does not decode ends the probe."""
+        """The output delay avformat_find_stream_info leaves an H.264
+        stream: of the packets it reads (``_probe_packets``: AVI's 40, as
+        the time base of H.264 counts as unreliable and it looks for 40
+        frame durations) it decodes them until it has had 7 pictures (18
+        once the delay is 3, 20 from 4) or the end, and the decoder OpenCV
+        opens starts with the delay that decode reached.  A packet that does
+        not decode ends the probe."""
         dec = H264Decoder(self._extra, self._nal_length, self.path)
         try:
             got = 0
-            for i in range(min(len(self.frames), 2 * _FPS_PROBE_FRAMES)):
+            for i in range(min(len(self.frames), self._probe_packets)):
                 need = 7 if dec.delay < 3 else 18 if dec.delay < 4 else 20
                 if got >= need:
                     break
@@ -631,6 +682,109 @@ class Mp4Reader(_Reader):
         self.frames = track.samples
 
 
+class MkvReader(_Reader):
+    """A Matroska or WebM file of MPEG-4 Part 2 (``V_MPEG4/ISO/ASP``,
+    ``/SP``, ``/AP``), H.264 (``V_MPEG4/ISO/AVC``: up to High profile) or
+    Motion-JPEG (``V_MJPEG``) video, or of those in ``V_MS/VFW/FOURCC``
+    (the AVI fourccs), read frame by frame as ``cv2.VideoCapture`` (FFMPEG)
+    reads it (``matroska.py``).  Pictures are numbered by their own block
+    timestamps, in ``V_MS/VFW/FOURCC`` by the packet that gave them, as
+    libavformat gives those blocks' timestamps as decode times.  Raises
+    OSError when the file cannot be read and :class:`UnsupportedVideo` for
+    any other file."""
+
+    _probe_packets = 2 * _FPS_PROBE_FRAMES
+
+    def _parse(self) -> None:
+        try:
+            track = matroska.parse(self._f, self._size)
+        except matroska.MkvRefused as e:
+            raise _unsupported(self.path, f"refused: {e}") from None
+        except (matroska.MkvError, struct.error, IndexError) as e:
+            raise _unsupported(self.path, f"not a readable Matroska file: {e}") from None
+        self._track = track
+        self.fourcc = track.fourcc
+        self._extra = track.extra
+        if track.fourcc == MKV_VFW:
+            if len(track.extra) < 40:
+                raise _unsupported(self.path, "a V_MS/VFW/FOURCC CodecPrivate shorter than a "
+                                              "BITMAPINFOHEADER")
+            self.fourcc = track.extra[16:20].decode("latin-1")
+            self._extra = track.extra[40:]  # the extradata after BITMAPINFOHEADER
+            self._number_by_trigger = True  # libavformat's ms_compat: block times are dts
+            self.codec = _bmp_codec(track.extra[16:20])
+            if self.codec is None:
+                raise _unsupported(self.path, f"V_MS/VFW/FOURCC {_fourcc(track.extra[16:20])} is "
+                                              "not Motion-JPEG, MPEG-4 Part 2 or H.264")
+        else:
+            self.codec = MKV_CODECS.get(track.fourcc)
+            if self.codec is None:
+                raise _unsupported(self.path, "not MPEG-4 Part 2 (V_MPEG4/ISO/ASP), H.264 "
+                                              "(V_MPEG4/ISO/AVC) or Motion-JPEG (V_MJPEG)")
+            if self.codec == "h264":
+                try:
+                    self._nal_length = bmff.avcc_nal_length(track.extra)
+                except bmff.BmffError as e:
+                    raise _unsupported(self.path, f"V_MPEG4/ISO/AVC CodecPrivate: {e}") from None
+        self.frames = track.samples
+        rate = None
+        if self.codec == "mpeg4":
+            rate = vol_frame_rate(self._extra or (self.packet(0) if self.frames else b""))
+        elif self.codec == "h264":
+            sps = self._first_sps()
+            rate = sps_frame_rate(sps) if sps else None
+        self.fps = matroska.frame_rate(track, rate, self.codec == "h264")
+        self.frame_count = matroska.frame_count(track, self.fps)
+        g = math.gcd(track.timescale, 10**9)
+        self._time_base = (track.timescale // g) / (10**9 // g)
+        self._start_time = track.start_pts
+        self._index = [t for t, _ in track.seek_index]
+
+    def _first_sps(self) -> Optional[bytes]:
+        """The first SPS NAL unit: the avcC record's, or in Annex B
+        extradata or the first packet."""
+        if self._nal_length:
+            rec = self._extra
+            if len(rec) > 8 and rec[5] & 31:
+                n = struct.unpack_from(">H", rec, 6)[0]
+                return rec[8:8 + n]
+            return None
+        for data in (self._extra, self.packet(0) if self.frames else b""):
+            for at in _start_codes(data):
+                if data[at + 3] & 31 == 7:
+                    end = data.find(b"\x00\x00\x01", at + 3)
+                    return data[at + 3:end if end >= 0 else len(data)]
+        return None
+
+    def _open_h264(self) -> None:
+        super()._open_h264()
+        if self._number_by_trigger and self._video_delay:
+            raise _unsupported(self.path, "V_MS/VFW/FOURCC H.264 with B pictures (reordered "
+                                          "output: libavformat guesses their timestamps)")
+
+    def packet(self, i: int) -> bytes:
+        """The bytes of frame ``i`` after the track's ContentEncoding."""
+        f = self.frames[i]
+        return matroska.decode_frame(self._read(f.pos, f.size), self._track.strip,
+                                     self._track.zlib)
+
+    def _head(self, i: int, n: int) -> bytes:
+        return self.packet(i)[:n]
+
+    def _seek_pts(self, pts: int) -> None:
+        """matroska_read_seek (AVSEEK_FLAG_BACKWARD): the last index entry
+        at or before ``pts`` (or the first entry, for a time before it);
+        the demuxer reads its Cluster from the start, passes the blocks
+        before the entry's time, and the frames up to a key frame."""
+        if not self._index:
+            return
+        j = max(0, bisect.bisect_right(self._index, pts) - 1)
+        ts, k = self._track.seek_index[j]
+        while k < len(self.frames) and not (self.frames[k].key and self.frames[k].pts >= ts):
+            k += 1
+        self._next = k
+
+
 class AviReader(_Reader):
     """A Motion-JPEG, MPEG-4 Part 2 or H.264 (Annex B, up to High profile) AVI
     file, read frame by frame as ``cv2.VideoCapture`` (FFMPEG) reads it.
@@ -639,6 +793,7 @@ class AviReader(_Reader):
 
     _header_bytes = 8
     _number_by_trigger = True
+    _probe_packets = 2 * _FPS_PROBE_FRAMES
 
 
     # ------------------------------------------------------------ container
@@ -691,15 +846,11 @@ class AviReader(_Reader):
         strl, self._streams = strls[n], len(strls)
         codec = strl.get("strf", bytes(20))[16:20]
         self.fourcc = codec.decode("latin-1")
-        if codec in MJPEG_FOURCCS:
-            self.codec = "mjpeg"
-        elif self.fourcc.upper() in MPEG4_FOURCCS:
-            self.codec = "mpeg4"
-        elif self.fourcc.upper() in H264_FOURCCS:
-            self.codec = "h264"
-            self._extra = strl.get("strf", b"")[40:]  # the extradata after BITMAPINFOHEADER
-        else:
+        self.codec = _bmp_codec(codec)
+        if self.codec is None:
             raise _unsupported(self.path, "not Motion-JPEG, MPEG-4 Part 2 or H.264")
+        if self.codec == "h264":
+            self._extra = strl.get("strf", b"")[40:]  # the extradata after BITMAPINFOHEADER
         if not self._movi:
             raise _unsupported(self.path, "no movi list")
         scale, rate, start, length = struct.unpack_from("<4I", strl["strh"], 20)

@@ -466,6 +466,7 @@ HBM_BYTES_S = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
 PROFILE_REPS = 20
+PROFILE_WINDOWS = 8  # profiler windows kernel_ms tries before it fails
 NO_LIBRARY = ("no PyTorch call computes Caffe's ImResize (Catmull-Rom a=-0.5 with per-scale "
               "sub-region pads; F.interpolate's bicubic is a=-0.75) with the peak test")
 
@@ -501,8 +502,9 @@ def kernel_ms(fn, kernel: str, reps: int = PROFILE_REPS):
     fn()
     torch.cuda.synchronize()
     # CUPTI may drop the first launch of a window: average over what it saw;
-    # late in a process it has also lost a whole window, so up to 3 windows
-    for _ in range(3):
+    # late in a process it has also lost whole windows (three in a row on an
+    # H100), so up to PROFILE_WINDOWS windows
+    for _ in range(PROFILE_WINDOWS):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -516,7 +518,7 @@ def kernel_ms(fn, kernel: str, reps: int = PROFILE_REPS):
             return total_us / count / 1000.0
         print(f"[profile] the profiler saw {count} launches of {kernel} for {reps} calls")
     raise AssertionError(f"the profiler saw {count} launches of {kernel} ({total_us} us) for "
-                         f"{reps} calls, in each of 3 windows")
+                         f"{reps} calls, in each of {PROFILE_WINDOWS} windows")
 
 
 KERNEL_NAMES = ("peak_mask_kernel", "upsample_peak_keys_kernel", "conv1_block_kernel")
@@ -1042,6 +1044,17 @@ def h264_cases_module():
     return h264_cases
 
 
+def mkv_cases_module():
+    """tests/mkv_cases.py: the Matroska files written around the repo's
+    MPEG-4, Motion-JPEG and H.264 packets, the two cv2 wrote, and the
+    results tests/test_torch_mkv.py pins against the JAX package's reader
+    (numpy, struct and zlib only)."""
+    jpeg_frames_module()  # puts tests/ on the path
+    import mkv_cases
+
+    return mkv_cases
+
+
 def read_frames(reader):
     frames = []
     while True:
@@ -1066,7 +1079,10 @@ def phase_video(card):
     same frames in CAVLC and in CABAC, I P B B in CABAC, and I P B B under
     High profile) against their pins, each refused stream by its message,
     the H.264 decoder's g++ build (csrc/h264_video.cpp) and its decode of
-    each 720p clip a frame, in turns.  It launches none of K1-K4."""
+    each 720p clip a frame, in turns.  Then each Matroska file of
+    tests/mkv_cases.py (the three codecs in every layout it pins, and the
+    two cv2 wrote) against its pins, the rates without DefaultDuration,
+    and each refused file by its message.  It launches none of K1-K4."""
     import os
 
     from caffe_rtpose_tpu_torch.pipeline import h264, mpeg4, runner, video
@@ -1206,6 +1222,45 @@ def phase_video(card):
                 fn(data)
                 out.append((time.perf_counter() - t0) * 1000.0)
         check(dec.arithmetic == "ffmpeg", f"{tag} a 4:2:0 frame took {dec.arithmetic}'s path")
+        mk = mkv_cases_module()
+        t0 = time.perf_counter()
+        drift = m4.sources("mp4v_mp4")
+        for name in [*mk.CASES, *mk.CLIPS]:
+            if name in mk.CLIPS:
+                path = mk.clip_path(name)
+            else:
+                path = os.path.join(work, name + ".mkv")
+                with open(path, "wb") as f:
+                    f.write(mk.build(name))
+            reader = video.open_reader(path)
+            frames = read_frames(reader)
+            reader.release()
+            pin = mk.PINNED[name]
+            got = dict(count=reader.frame_count, fps=reader.fps, sha256=cases.sha256(frames),
+                       **cases.observe(runner, path, frames if mk.exact(name) else drift,
+                                       mk.SEEKS, exact=mk.exact(name)))
+            bad = [k for k in pin if got[k] != pin[k]]
+            if bad:
+                differ["mkv " + name] = {k: (got[k], pin[k]) for k in bad}
+        for name, (_, scale, count, fps) in mk.RATES.items():
+            path = os.path.join(work, "rate_" + name + ".mkv")
+            with open(path, "wb") as f:
+                f.write(mk.build_rate(name))
+            reader = video.open_reader(path)
+            if (reader.frame_count, reader.fps) != (count, fps):
+                differ["mkv rate " + name] = ((reader.frame_count, reader.fps), (count, fps))
+            reader.release()
+        for name, (_, _, word) in mk.REFUSED.items():
+            path = os.path.join(work, "refused_" + name + ".mkv")
+            with open(path, "wb") as f:
+                f.write(mk.build(name))
+            try:
+                video.open_reader(path).release()
+                differ["mkv refused " + name] = "opened"
+            except video.UnsupportedVideo as e:
+                if not all(w in str(e) for w in (word, mk.codec_id(name), "Matroska")):
+                    differ["mkv refused " + name] = str(e)
+        mkv_secs = time.perf_counter() - t0
     counts = read_counts()
     print(f"{tag} {len(cases.CASES)} crafted Motion-JPEG AVIs ({', '.join(cases.CASES)}), cv2 "
           f"blocked: frame count, fps, reads, start_frame and ui seeks and frame digests "
@@ -1239,6 +1294,12 @@ def phase_video(card):
           f"a 1280x720 q95 4:2:0 frame ({len(data)} B; median of {JPEG_TIMED_REPS}, in turns): "
           f"Motion-JPEG decode (FFmpeg's arithmetic) {statistics.median(ffmpeg_ms):.3f}, "
           f"decode_jpeg (libjpeg's) {statistics.median(libjpeg_ms):.3f}; {card}")
+    print(f"{tag} {len(mk.CASES) + len(mk.CLIPS)} Matroska files "
+          f"({', '.join([*mk.CASES, *mk.CLIPS])}), cv2 blocked: count, fps, reads, seeks and "
+          f"frame digests {'equal' if not differ else 'DIFFER from'} the pins; {len(mk.RATES)} "
+          f"rates without "
+          f"DefaultDuration; {len(mk.REFUSED)} refused files each named "
+          f"({', '.join(mk.REFUSED)}); in {mkv_secs:.2f} s; {card}")
     check(not differ, f"{tag} the readers differ from the pins: {differ}")
     check(not any(counts.values()), f"{tag} launched hand kernels: {counts}")
     return dict(cases=len(cases.CASES), mp4_files=len(m4.CLIPS) + len(m4.CASES),
@@ -1251,6 +1312,8 @@ def phase_video(card):
                 h264_decode_ms=decode_ms,
                 h264_decode_ms_range={k: [min(v), max(v)] for k, v in h264_decode_ms.items()},
                 h264_frame_bytes=h264_frame_bytes,
+                mkv_files=len(mk.CASES) + len(mk.CLIPS), mkv_refused=len(mk.REFUSED),
+                mkv_seconds=mkv_secs,
                 mjpeg_ffmpeg_ms=statistics.median(ffmpeg_ms),
                 mjpeg_ffmpeg_ms_range=[min(ffmpeg_ms), max(ffmpeg_ms)],
                 decode_jpeg_ms=statistics.median(libjpeg_ms),
@@ -3343,15 +3406,20 @@ def phase_cli_h264(files, card, extra=()):
     CABAC, Main profile), h264_b_720p.mp4 (the same frames as I P B B in
     CABAC, with composition offsets and an edit list) and h264_high_720p.mp4
     (I P B B in CABAC under High profile: Intra8x8 and the 8x8 transform,
-    x264's default), cv2 blocked, in turns with the MPEG-4 clip of the same
-    frames and a q95 Motion-JPEG AVI of the H.264 decode (h264, cabac, b,
-    high, mp4, avi, twice), then --start_frame 3 on each H.264 clip (a P
-    picture: the seek decodes on from the IDR picture).  The clips' decoded
-    frames equal their pins (cv2's frames); every JSON of the first h264, b
-    and high runs equals estimate() on the port's decode of its frame, each
-    cabac run's JSONs the first h264 run's, each b and high run's the first
-    run's of its clip and each --start_frame run's those of the first run of
-    its clip; launches equal across the runs; FPS of each."""
+    x264's default) and the High clip remuxed to Matroska at run time
+    (mkv_cases.remux_mp4: its packets in V_MPEG4/ISO/AVC blocks at their
+    presentation times), cv2 blocked, in turns with the MPEG-4 clip of the
+    same frames and a q95 Motion-JPEG AVI of the H.264 decode (h264, cabac,
+    b, high, mkv, mp4, avi, twice), then --start_frame 3 on each H.264 clip
+    and the remux (a P picture: the seek decodes on from the IDR picture).
+    The clips' decoded frames equal their pins (cv2's frames; the remux the
+    High clip's); every JSON of the first h264, b and high runs equals
+    estimate() on the port's decode of its frame, each cabac run's JSONs
+    the first h264 run's, each b, high and mkv run's the first run's of its
+    clip (mkv: high's) and each --start_frame run's those of the first run
+    of its clip; launches equal across the runs; FPS of each, and the host
+    ms a frame of the container read and of the H.264 decode of the High
+    clip in MP4 and in Matroska, apart, in turns."""
     import os
 
     from caffe_rtpose_tpu_torch.pipeline import video
@@ -3359,11 +3427,17 @@ def phase_cli_h264(files, card, extra=()):
 
     tag = "[cli h264]"
     cases, m4, hc = avi_cases_module(), mp4_cases_module(), h264_cases_module()
+    mk = mkv_cases_module()
     clip = hc.CLIP_720P
+    work = tempfile.mkdtemp(prefix="chip_smoke_cli_h264_")
+    mkv = os.path.join(work, "high.mkv")
+    with open(mkv, "wb") as f:
+        f.write(mk.remux_mp4(hc.CLIP_HIGH_720P))
     with no_cv2():
         decoded_by_pin = {}
         for path, pin in ((clip, "h264_720p"), (hc.CLIP_CABAC_720P, "h264_720p"),
-                          (hc.CLIP_B_720P, "h264_b_720p"), (hc.CLIP_HIGH_720P, "h264_high_720p")):
+                          (hc.CLIP_B_720P, "h264_b_720p"), (mkv, "h264_high_720p"),
+                          (hc.CLIP_HIGH_720P, "h264_high_720p")):
             reader = video.open_reader(path)
             decoded = read_frames(reader)
             reader.release()
@@ -3371,7 +3445,6 @@ def phase_cli_h264(files, card, extra=()):
                   f"{tag} {path}'s decoded frames differ from cv2's (the pinned digest)")
             decoded_by_pin[pin] = decoded
         images = decoded_by_pin["h264_720p"]
-    work = tempfile.mkdtemp(prefix="chip_smoke_cli_h264_")
     h, w = images[0].shape[:2]
     n = len(images)
     avi = os.path.join(work, "clip.avi")
@@ -3379,9 +3452,10 @@ def phase_cli_h264(files, card, extra=()):
         f.write(cases.write_avi([encode_jpeg(f, 95) for f in images], w, h))
     sources = {"h264": ("--video", clip), "cabac": ("--video", hc.CLIP_CABAC_720P),
                "b": ("--video", hc.CLIP_B_720P), "high": ("--video", hc.CLIP_HIGH_720P),
-               "mp4": ("--video", m4.clip_path("mp4v_720p")), "avi": ("--video", avi)}
-    kinds = ("h264", "cabac", "b", "high", "mp4", "avi")
-    h264_kinds = ("h264", "cabac", "b", "high")
+               "mkv": ("--video", mkv), "mp4": ("--video", m4.clip_path("mp4v_720p")),
+               "avi": ("--video", avi)}
+    kinds = ("h264", "cabac", "b", "high", "mkv", "mp4", "avi")
+    h264_kinds = ("h264", "cabac", "b", "high", "mkv")
     runs = []
     for k, kind in enumerate(kinds * 2):
         runs.append((kind, rtpose_run(f"{tag} {kind}", files, sources[kind],
@@ -3397,15 +3471,21 @@ def phase_cli_h264(files, card, extra=()):
     first = runs[0][1]
     check(first["launches"]["conv1_block"] > 0 and first["launches"]["peak_mask_fused"] > 0,
           f"{tag} a hand kernel of the path never launched: {first['launches']}")
+    mkv_launches = runs[kinds.index("mkv")][1]["launches"]
+    # one scale: K1's launches are all at S = 1 (none of K2's)
+    check(mkv_launches["conv1_block"] == mkv_launches["peak_mask_fused"] == 4
+          and not mkv_launches["upsample_peak_keys"],
+          f"{tag} the mkv run's launches {mkv_launches}: K1 and K4 4 each, K3 none")
     for kind, seek in seeks.items():
         check(seek["files"] == names[3:], f"{tag} {kind} --start_frame 3 wrote {seek['files']}")
         check(seek["launches"] == seeks["h264"]["launches"] and seek["launches"]["conv1_block"] > 0,
               f"{tag} {kind} --start_frame 3 launches {seek['launches']}")
-    # the first run of each clip's frames (cabac's are h264's)
+    # the first run of each clip's frames (cabac's are h264's, mkv's high's)
     first_run = {kind: f"json{kinds.index(kind)}" for kind in ("b", "high")}
+    first_run["mkv"] = first_run["high"]
     same = [(f"json_{kind}_s3", names[3:], first_run.get(kind, "json0")) for kind in seeks]
     same += [(f"json{k}", names, first_run.get(kind, "json0"))
-             for k, (kind, _) in enumerate(runs) if kind in ("cabac", "b", "high")
+             for k, (kind, _) in enumerate(runs) if kind in ("cabac", "b", "high", "mkv")
              and f"json{k}" != first_run.get(kind)]
     for folder, files_, base in same:
         for name in files_:
@@ -3420,11 +3500,45 @@ def phase_cli_h264(files, card, extra=()):
     jsons_equal_estimate(tag, files, extra, decoded_by_pin["h264_high_720p"],
                          os.path.join(work, first_run["high"]), names,
                          "the port's decode of its frame (High profile clip)")
+    # the High clip's container read and decode a frame, MP4 and Matroska in turns
+    read_ms = {"mp4": [], "mkv": []}
+    decode_ms = {"mp4": [], "mkv": []}
+    open_ms = {"mp4": [], "mkv": []}
+    from caffe_rtpose_tpu_torch.pipeline.h264 import H264Decoder
+
+    with no_cv2():
+        for _ in range(CLI_VIDEO_REPS):
+            for kind, path in (("mp4", hc.CLIP_HIGH_720P), ("mkv", mkv)):
+                t0 = time.perf_counter()
+                reader = video.open_reader(path)
+                open_ms[kind].append((time.perf_counter() - t0) * 1000.0)
+                dec = H264Decoder(reader._extra, reader._nal_length, path, reader._video_delay)
+                for i in range(len(reader.frames)):
+                    t0 = time.perf_counter()
+                    data = reader.packet(i)
+                    t1 = time.perf_counter()
+                    if dec.advance(data, i):
+                        dec.picture()
+                    read_ms[kind].append((t1 - t0) * 1000.0)
+                    decode_ms[kind].append((time.perf_counter() - t1) * 1000.0)
+                while dec.drain():
+                    dec.picture()
+                dec.close()
+                reader.release()
     fps = {kind: [r["fps"] for k, r in runs if k == kind] for kind in kinds}
-    print(f"{tag} the four clips' decoded frames equal cv2's (pinned digests); every h264, b "
+    med = {k: (statistics.median(read_ms[k]), statistics.median(decode_ms[k]),
+               statistics.median(open_ms[k])) for k in read_ms}
+    print(f"{tag} the High clip as MP4 and as Matroska (remuxed, {os.path.getsize(mkv)} B "
+          f"against {os.path.getsize(hc.CLIP_HIGH_720P)}), host ms a frame (median of "
+          f"{len(read_ms['mkv'])}, in turns): "
+          + "; ".join(f"{k} container read {med[k][0]:.4f}, H.264 decode and BGR {med[k][1]:.3f}, "
+                      f"open (parse and probe) {med[k][2]:.2f} a file" for k in ("mp4", "mkv"))
+          + f"; mkv launches {mkv_launches} a run; {card}")
+    print(f"{tag} the five clips' decoded frames equal cv2's (pinned digests); every h264, b "
           f"and high JSON equals estimate() on the port's decode of its frame, every cabac "
-          f"JSON the h264 run's; --start_frame 3 wrote {len(seeks['h264']['files'])} files a "
-          f"clip equal to the first run's of the clip; FPS over {n} {w}x{h} frames: "
+          f"JSON the h264 run's, every mkv JSON the high run's; --start_frame 3 wrote "
+          f"{len(seeks['h264']['files'])} files a clip equal to the first run's of the clip; "
+          f"FPS over {n} {w}x{h} frames: "
           + ", ".join(f"{kind} {fps[kind]}" for kind in kinds)
           + f" (in turns; {os.path.getsize(clip) // n} B a frame of CAVLC, "
           f"{os.path.getsize(hc.CLIP_CABAC_720P) // n} of CABAC, "
@@ -3432,7 +3546,11 @@ def phase_cli_h264(files, card, extra=()):
           f"{os.path.getsize(hc.CLIP_HIGH_720P) // n} of High profile I P B B); launches "
           f"{first['launches']} a run; {card}")
     return dict(fps_h264=fps["h264"], fps_cabac=fps["cabac"], fps_b=fps["b"], fps_high=fps["high"],
-                fps_mp4=fps["mp4"], fps_avi=fps["avi"], launches=first["launches"],
+                fps_mkv=fps["mkv"], fps_mp4=fps["mp4"], fps_avi=fps["avi"],
+                launches=first["launches"], mkv_launches=mkv_launches,
+                mkv_read_ms=med["mkv"][0], mkv_decode_ms=med["mkv"][1], mkv_open_ms=med["mkv"][2],
+                high_mp4_read_ms=med["mp4"][0], high_mp4_decode_ms=med["mp4"][1],
+                high_mp4_open_ms=med["mp4"][2],
                 start_frame_3={kind: dict(files=len(r["files"]), launches=r["launches"],
                                           fps=r["fps"]) for kind, r in seeks.items()},
                 bytes_a_frame=os.path.getsize(clip) / n,
@@ -5838,7 +5956,8 @@ def main() -> int:
         check(cli_mp4["launches"] == cli_720p["launches"],
               f"[cli mp4] hand-kernel launches {cli_mp4['launches']} against the PNG "
               f"run's {cli_720p['launches']}")
-        # the committed H.264 clip through rtpose --video
+        # the committed H.264 clips (and the High one remuxed to Matroska)
+        # through rtpose --video
         cli_h264 = phase_cli_h264(files, info["nvidia_smi"])
         check(cli_h264["launches"] == cli_720p["launches"],
               f"[cli h264] hand-kernel launches {cli_h264['launches']} against the PNG "
@@ -5946,6 +6065,8 @@ def main() -> int:
                             "cli 1280x720 mp4": (cli_mp4["launches"]["peak_mask_fused"], None),
                             "cli 1280x720 h264": (cli_h264["launches"]["peak_mask_fused"],
                                                   None),
+                            "cli 1280x720 mkv": (cli_h264["mkv_launches"]["peak_mask_fused"],
+                                                 None),
                             **{f"{path} (by rank)": (v, None) for path, v in
                                parallel["k1_launches_by_path"].items()}},
         "peak_mask_fused_3scale": {"slice 3-scale": (three["launches"], None),
@@ -5968,7 +6089,8 @@ def main() -> int:
                         "cli 1280x720 sequence": (cli_video["sequence_launches"]["conv1_block"],
                                                   None),
                         "cli 1280x720 mp4": (cli_mp4["launches"]["conv1_block"], None),
-                        "cli 1280x720 h264": (cli_h264["launches"]["conv1_block"], None)},
+                        "cli 1280x720 h264": (cli_h264["launches"]["conv1_block"], None),
+                        "cli 1280x720 mkv": (cli_h264["mkv_launches"]["conv1_block"], None)},
     }
     entries = [
         ("peak_mask_fused", mask_src, f"{mask_pallas}:136", pipeline["launches"]["peak_mask_fused"],
