@@ -128,13 +128,15 @@ def _declare(lib: ctypes.CDLL) -> None:
         vp, vp, i, i, i,     # y/x windows, widest window rows/columns, 16-byte loads
         f, vp, vp, vp,       # inv_s, thr (f32 device scalar), mask, stream
     ]
+    lib.crt_keys_smem_bytes.restype = ll
+    lib.crt_keys_smem_bytes.argtypes = [i, i, i, i]  # S, tile rows, window rows, pitch
     lib.crt_upsample_peak_keys.restype = i
     lib.crt_upsample_peak_keys.argtypes = [
         vp, ll, ll, ll, ll,  # low + strides (s, y, x, c) in elements
-        i, i, i, i, i,       # S, C, th, tw, key_channels
-        vp, vp, vp, vp,      # y tap idx/w, x tap idx/w
-        vp, vp, i, i, i,     # y/x windows, widest window rows/columns, 16-byte loads
-        f, vp, vp, vp, vp,   # inv_s, thr (f32 device scalar), heat, keys, stream
+        i, i, i, i, i, i,    # S, C, th, tw, key_channels, tile rows
+        vp, vp, vp, vp,      # y tap w/offsets, x tap w/offsets
+        vp, vp, i, i,        # y/x windows, widest window rows, window pitch
+        f, i, vp, vp, vp, vp,  # inv_s, TMA stores, thr (f32 device scalar), heat, keys, stream
     ]
     lib.crt_conv1_smem_bytes.restype = ll
     lib.crt_conv1_smem_bytes.argtypes = []

@@ -1,6 +1,7 @@
-// The tile upsample shared by peak_mask.cu and upsample_peak_keys.cu.
+// K1's tile upsample (peak_mask.cu), and the per-pixel tap sum that K1 and
+// K3 (upsample_peak_keys.cu, which has its own tiling) share.
 //
-// One block serves one 32x64 output tile (plus a one-pixel halo) for a
+// One K1 block serves one 32x64 output tile (plus a one-pixel halo) for a
 // group of kGroup channels, and computes for each channel c of the group the
 // scale-averaged bicubic upsample
 //
@@ -19,9 +20,9 @@
 // allow).  Then, per channel, upsample_channel runs the vertical pass over
 // the window's columns only and the horizontal pass with each thread's
 // column taps in registers, the per-scale sums in registers.  The FMA order
-// per pixel is the one of the plain per-pixel formulation: taps k = 0..3
-// from 0, scales summed in order, then x 1/S; so both kernels see the same
-// U, bit for bit.
+// per pixel is tap_sum's (taps k = 0..3 from 0), scales summed in order,
+// then x 1/S: the order of the plain per-pixel formulation, and K3's; so
+// both kernels see the same U, bit for bit.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -36,6 +37,17 @@ constexpr int kThreads = 256;
 constexpr int kGroup = 4;  // channels a block serves
 constexpr int kRowPhases = kThreads / kTileX;  // horizontal pass: 64 columns x 4 row phases
 constexpr int kRowsPerThread = (kExtY + kRowPhases - 1) / kRowPhases;  // 9
+
+// One upsampled value from its <= 4 taps: sum_k w_k * v_k, k = 0..3 in order
+// from 0, one f32 FMA a step.  Every vertical and horizontal value of K1 and
+// K3 is this sum (a zero-weight pad tap adds an exact 0).
+__device__ __forceinline__ float tap_sum(float w0, float v0, float w1, float v1, float w2,
+                                         float v2, float w3, float v3) {
+  float u = fmaf(w0, v0, 0.f);
+  u = fmaf(w1, v1, u);
+  u = fmaf(w2, v2, u);
+  return fmaf(w3, v3, u);
+}
 
 // Dynamic shared memory of one block for S scales and a widest source
 // window of wh rows x ww columns: the tap tables (index + weight, rows and
@@ -186,8 +198,9 @@ __device__ __forceinline__ void upsample_channel(const TileArgs& a, int g, int t
       float v = 0.f;
       if (y >= 0 && y < a.th) {
         const int t = (s * kExtY + r) * 4;
-#pragma unroll
-        for (int k = 0; k < 4; ++k) v = fmaf(sm.ytw[t + k], plane[sm.yti[t + k] * ww + rx], v);
+        v = tap_sum(sm.ytw[t], plane[sm.yti[t] * ww + rx], sm.ytw[t + 1],
+                    plane[sm.yti[t + 1] * ww + rx], sm.ytw[t + 2], plane[sm.yti[t + 2] * ww + rx],
+                    sm.ytw[t + 3], plane[sm.yti[t + 3] * ww + rx]);
       }
       sm.vrow[r * ww + rx] = v;
     }
@@ -206,10 +219,7 @@ __device__ __forceinline__ void upsample_channel(const TileArgs& a, int g, int t
         const int r = phase + kRowPhases * j;
         if (r < kExtY) {
           const float* row = sm.vrow + r * ww;
-          float u = 0.f;
-#pragma unroll
-          for (int k = 0; k < 4; ++k) u = fmaf(w[k], row[xi[k]], u);
-          sum[j] += u;
+          sum[j] += tap_sum(w[0], row[xi[0]], w[1], row[xi[1]], w[2], row[xi[2]], w[3], row[xi[3]]);
         }
       }
     }
@@ -218,10 +228,8 @@ __device__ __forceinline__ void upsample_channel(const TileArgs& a, int g, int t
       if (x >= 0 && x < a.tw) {
         const int t = (s * kExtX + qh) * 4;
         const float* row = sm.vrow + rh * ww;
-        float u = 0.f;
-#pragma unroll
-        for (int k = 0; k < 4; ++k) u = fmaf(sm.xtw[t + k], row[sm.xti[t + k]], u);
-        sum_h += u;
+        sum_h += tap_sum(sm.xtw[t], row[sm.xti[t]], sm.xtw[t + 1], row[sm.xti[t + 1]],
+                         sm.xtw[t + 2], row[sm.xti[t + 2]], sm.xtw[t + 3], row[sm.xti[t + 3]]);
       }
     }
   }

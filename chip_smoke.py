@@ -90,14 +90,19 @@ Phases, each of which raises (non-zero exit) on failure:
                * peak_mask_fused: masks equal except at near-ties;
                * upsample_peak_keys (57 channels, keys for 18; MPI 44 and
                  15): heat within 1e-5*max(1,|U|), keys equal except at
-                 near-ties.
+                 near-ties; its keys' mask bit for bit K1's on the same
+                 low[..., :kc] at COCO 1 and 3 scales, MPI and ragged; a
+                 101x134 target takes its direct store path (a row of 134
+                 f32 is no multiple of 16 bytes), every other case its TMA
+                 bulk stores.
                A near-tie is a pixel where |U-thr| or |U-max8| <=
                1e-5*max(1,|U|), with U the plain version's upsample there.
                K1 also with a frame axis: 8 frames of the estimator's
                (F*S, 57, h, w) channels_last blob sliced to 18 channels, in
                one launch, against the plain version frame by frame.
                Timed at the main path's shapes (K1 on the slice view at 1 and
-               3 scales and on 8 frames, K3 at 1 scale): kernel_ms, the kernel's own device
+               3 scales and on 8 frames, K3 at COCO 1 and 3 scales and MPI):
+               kernel_ms, the kernel's own device
                time from torch.profiler by kernel name over 20 launches,
                measured after the last slice phase (a profiling window
                slows the host's launches for the rest of the process);
@@ -391,7 +396,8 @@ Phases, each of which raises (non-zero exit) on failure:
                call_ms as above, the plain version and the cuDNN bf16 chain
                (library_ms) between CUDA events, bound_ms from its FLOPs
                over the 989 TFLOP/s bf16 peak.  The build phase shows the
-               kernel's wgmma (HGMMA) instructions in the library's SASS.
+               kernel's wgmma (HGMMA) instructions in the library's SASS,
+               and K3's TMA bulk stores (UTMASTG).
 8. bf16      - bench.py's configuration: bf16, u8, 1 scale, pair_cap=32,
                batch=8, 16 frames through run_device + fetch_batch (with the
                overflow refetch) and through estimate_from_net_input, with
@@ -720,8 +726,11 @@ def phase_device():
     return info
 
 
-def wgmma_in_sass(lib_path: str):
-    """{kernel name: HGMMA (wgmma) instructions} in the library's SASS, or
+SASS_OPS = ("HGMMA", "UTMASTG")  # wgmma; TMA tensor stores (cp.async.bulk.tensor to global)
+
+
+def sass_counts(lib_path: str):
+    """{kernel name: {SASS_OPS op: instructions}} in the library's SASS, or
     None without cuobjdump."""
     import os
     import subprocess
@@ -739,9 +748,10 @@ def wgmma_in_sass(lib_path: str):
         m = re.search(r"Function : \S*?(conv1_block|upsample_peak_keys|peak_mask)_kernel", line)
         if m:
             kernel = m.group(1) + "_kernel"
-            counts[kernel] = 0
-        elif kernel and "HGMMA" in line:
-            counts[kernel] += 1
+            counts[kernel] = dict.fromkeys(SASS_OPS, 0)
+        elif kernel:
+            for op in SASS_OPS:
+                counts[kernel][op] += op in line
     return counts
 
 
@@ -763,18 +773,29 @@ def phase_build():
             print(f"[build] {kernel}: {line.replace('ptxas info    :', '').strip()}")
     geo = nms_cuda.tile_geometry(46, 82, 368, 656, 3, 1.0, 0.3)
     print(f"[build] conv1_block: {lib.crt_conv1_smem_bytes()} B of dynamic shared memory a "
-          f"block; peak_mask/upsample_peak_keys at COCO 3 scales: widest source window "
+          f"block; peak_mask at COCO 3 scales: widest source window "
           f"{geo.wh}x{geo.ww}, {lib.crt_tile_smem_bytes(3, geo.wh, geo.ww)} B a block")
     check(lib.crt_tile_smem_bytes(3, geo.wh, geo.ww) == geo.smem,
           "the host's shared-memory sum disagrees with the kernel's")
+    for s, gap in ((1, 0.3), (3, 0.3)):
+        kg = nms_cuda.keys_geometry(46, 82, 368, 656, s, 1.0, gap)
+        kb = lib.crt_keys_smem_bytes(s, kg.rows, kg.wh, kg.wp)
+        print(f"[build] upsample_peak_keys at COCO {s} scale(s): {kg.rows}-row tiles, source "
+              f"window {kg.wh} rows x pitch {kg.wp}, {kb} B a block of {nms_cuda.KEYS_WARPS} "
+              f"warps")
+        check(kb == kg.smem, "the host's K3 shared-memory sum disagrees with the kernel's")
     if log:  # built in this run: the library's path is on the nvcc line
         path = re.search(r"-o (\S+)\.\d+\.\d+\.tmp", log).group(1)
-        counts = wgmma_in_sass(path)
+        counts = sass_counts(path)
         if counts is None:
             print("[build] cuobjdump not found: SASS not inspected")
         else:
-            print(f"[build] HGMMA (wgmma) instructions in the SASS: {counts}")
-            check(counts.get("conv1_block_kernel", 0) > 0, "conv1_block_kernel has no wgmma")
+            print(f"[build] HGMMA (wgmma) and UTMASTG (TMA store) instructions in the SASS: "
+                  f"{counts}")
+            check(counts.get("conv1_block_kernel", {}).get("HGMMA", 0) > 0,
+                  "conv1_block_kernel has no wgmma")
+            check(counts.get("upsample_peak_keys_kernel", {}).get("UTMASTG", 0) > 0,
+                  "upsample_peak_keys_kernel has no TMA bulk store")
     return secs
 
 
@@ -1529,13 +1550,17 @@ def peak_mask_frames(dev, thr, frames=K1_FRAMES, s=1, h=46, w=82, c=18, f=8):
     return row
 
 
+K3_TIMED = ("coco_1scale", "coco_3scale_gap0.3", "mpi_3scale")  # coco_1scale: the main row
+K3_MASK_EQ_K1 = ("coco_1scale", "coco_3scale_gap0.3", "mpi_3scale", "ragged")
+
+
 def phase_upsample_keys(device="cuda"):
     import torch
 
     from caffe_rtpose_tpu_torch.ops import nms_cuda
 
     dev = torch.device(device)
-    cases = [  # name, S, start, gap, h, w, factor, C, key channels, layout
+    cases = [  # name, S, start, gap, h, w, factor or (th, tw), C, key channels, layout
         ("coco_1scale", 1, 1.0, 0.3, 46, 82, 8, 57, 18, "nhwc"),
         ("coco_3scale_gap0.3", 3, 1.0, 0.3, 46, 82, 8, 57, 18, "nhwc"),
         ("mpi_3scale", 3, 0.9, 0.1, 46, 82, 8, 44, 15, "nhwc"),
@@ -1545,13 +1570,17 @@ def phase_upsample_keys(device="cuda"):
         ("ragged_3scale", 3, 0.9, 0.1, 13, 17, 8, 8, 5, "nhwc"),
         ("coco_1scale_view57", 1, 1.0, 0.3, 46, 82, 8, 18, 18, "view57"),
         ("coco_1scale_chan_major", 1, 1.0, 0.3, 46, 82, 8, 19, 18, "chan_major"),
+        ("ragged_direct_store", 3, 0.9, 0.1, 13, 17, (101, 134), 8, 5, "nhwc"),
     ]
     thr = 0.05
     timing = []
     for i, (name, s, start, gap, h, w, f, c, kc, layout) in enumerate(cases):
         rs = np.random.RandomState(200 + i)
         low = lowres_input(rs, s, h, w, c, layout, dev)
-        th, tw = h * f, w * f
+        th, tw = (h * f, w * f) if isinstance(f, int) else f
+        path = nms_cuda.keys_store_path(th, tw)
+        check(path == ("direct" if name == "ragged_direct_store" else "tma"),
+              f"{name}: store path {path}")
         heat, keys = nms_cuda.upsample_peak_keys(low, (th, tw), start, gap, thr, key_channels=kc)
         torch.cuda.synchronize()
         r_heat, r_keys = nms_cuda.upsample_peak_keys_reference(low, (th, tw), start, gap, thr, kc)
@@ -1563,14 +1592,21 @@ def phase_upsample_keys(device="cuda"):
         got_m, ref_m = keys_to_mask(keys, th, tw), keys_to_mask(r_keys, th, tw)
         n_diff, n_bad = near_tie_violations(got_m, ref_m, r_heat[:kc], thr)
         n_slots = int((keys != r_keys).sum())
+        k1_eq = ""
+        if name in K3_MASK_EQ_K1:  # the same U, so the same peaks as K1
+            k1_mask = nms_cuda.peak_mask_fused(low[..., :kc], (th, tw), start, gap, thr)
+            torch.cuda.synchronize()
+            same = bool(torch.equal(got_m, k1_mask))
+            k1_eq = f"; mask bit for bit K1's: {same}"
+            check(same, f"upsample kernel's peaks differ from the peak-mask kernel's at {name}")
         print(f"[kernels] upsample_peak_keys {name}: S={s} {h}x{w}->{th}x{tw} C={c} keys for "
-              f"{kc} {layout} (16-byte loads {nms_cuda.vec4_loads(low)}): max |heat - plain| "
-              f"{max_err:.3g}, {int(ref_m.sum())} peaks, {n_slots} key slots and {n_diff} peak "
-              f"pixels differ, {n_bad} of them no near-tie")
+              f"{kc} {layout} ({path} stores): max |heat - plain| {max_err:.3g}, "
+              f"{int(ref_m.sum())} peaks, {n_slots} key slots and {n_diff} peak pixels differ, "
+              f"{n_bad} of them no near-tie{k1_eq}")
         check(heat_ok, f"upsample kernel's heat disagrees with the plain version at {name}")
         check(n_bad == 0, f"upsample kernel's keys disagree with the plain version at {name}")
         check(int(ref_m.sum()) > 0, f"{name}: no peaks, the comparison is vacuous")
-        if name == "coco_1scale":  # the heatmap path's input
+        if name in K3_TIMED:  # the heatmap path's input, at 1 and 3 scales
             args = (low, (th, tw), start, gap, thr, kc)
             ms_p, ms_k, ms_k2, ms_p2 = time_pair(
                 lambda: nms_cuda.upsample_peak_keys_reference(*args),

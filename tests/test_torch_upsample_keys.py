@@ -166,3 +166,41 @@ def test_kernel_reads_strided_input_on_cuda(cuda_device, layout):
     tol = 1e-5 * np.maximum(1.0, np.abs(r_heat))
     assert (np.abs(heat.cpu().numpy() - r_heat) <= tol).all()
     assert_key_sets_equal_up_to_ties(kb.cpu().numpy(), r_kb.cpu().numpy(), r_heat, thr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,start,gap,h,w,c,kc", [
+    (1, 1.0, 0.3, 46, 82, 57, 18), (3, 1.0, 0.3, 46, 82, 57, 18), (3, 0.9, 0.1, 46, 82, 44, 15),
+    (1, 1.0, 0.3, 13, 17, 8, 5)])
+def test_kernel_peaks_equal_the_peak_mask_kernel_on_cuda(cuda_device, s, start, gap, h, w, c, kc):
+    """K3 and K1 compute U alike (bicubic_tile.cuh::tap_sum), so the mask of
+    K3's keys is K1's mask on the same ``low[..., :kc]``, bit for bit."""
+    rs = np.random.RandomState(c + s)
+    low = torch.from_numpy(rs.rand(s, h, w, c).astype(np.float32) * 2 - 1).to(cuda_device)
+    th, tw, thr = h * 8, w * 8, 0.05
+    _, kb = nms_cuda.upsample_peak_keys(low, (th, tw), start, gap, thr, key_channels=kc)
+    mask = nms_cuda.peak_mask_fused(low[..., :kc], (th, tw), start, gap, thr)
+    got = torch.zeros(kc * th * tw, dtype=torch.bool, device=cuda_device)
+    chan = torch.arange(kc, device=cuda_device)[:, None].expand_as(kb)[kb > 0]
+    got[chan * th * tw + (th * tw - kb[kb > 0].long())] = True
+    assert int(mask.sum()) > 0
+    assert torch.equal(got.reshape(kc, th, tw), mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("target", [(101, 134), (96, 132)])
+def test_kernel_direct_store_path_on_cuda(cuda_device, target):
+    """Widths whose rows are no multiple of 16 bytes take the kernel's direct
+    store path, with the same results."""
+    th, tw = target
+    assert nms_cuda.keys_store_path(th, tw) == "direct"
+    rs = np.random.RandomState(tw)
+    low = torch.from_numpy(rs.rand(3, 13, 17, 8).astype(np.float32) * 2 - 1).to(cuda_device)
+    heat, kb = nms_cuda.upsample_peak_keys(low, (th, tw), 0.9, 0.1, 0.1, key_channels=5)
+    torch.cuda.synchronize()
+    r_heat, r_kb = nms_cuda.upsample_peak_keys_reference(low, (th, tw), 0.9, 0.1, 0.1, 5)
+    r_heat = r_heat.cpu().numpy()
+    tol = 1e-5 * np.maximum(1.0, np.abs(r_heat))
+    assert (np.abs(heat.cpu().numpy() - r_heat) <= tol).all()
+    assert (r_kb > 0).sum() > 5
+    assert_key_sets_equal_up_to_ties(kb.cpu().numpy(), r_kb.cpu().numpy(), r_heat, 0.1)

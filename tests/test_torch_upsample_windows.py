@@ -1,6 +1,6 @@
-"""The source windows of the upsample kernels K1 (csrc/peak_mask.cu) and K3
-(csrc/upsample_peak_keys.cu), computed on the host by
-ops/nms_cuda.tile_geometry, checked on the CPU:
+"""The source windows of the peak-mask kernel K1 (csrc/peak_mask.cu),
+computed on the host by ops/nms_cuda.tile_geometry, checked on the CPU
+(K3's tiling: tests/test_torch_upsample_store.py):
 
 * each 32x64 tile's window (per scale, rows and columns) covers every
   nonzero tap of every output row and column the tile serves, the one-pixel
